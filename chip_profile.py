@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Where the device time goes on the port's two main paths, on one NVIDIA GPU.
+
+Run from a checkout of the repo:
+
+    python3 chip_profile.py
+
+It needs one CUDA device and the CUDA toolkit, as ``chip_smoke.py`` does, and
+builds the flagship ``swin_73var_geo_depth12_chweight_invar`` at full width
+on the seeded weights ``chip_smoke.py`` draws, TF32 off. For each path, after
+two warm-up steps:
+
+  * rollout: ``RolloutEngine.steps``, batch 1, from 2018-01-01T00:00;
+  * train: the ``build_train_step`` closure, batch 1, drop-path 0.1 live.
+
+it prints the ms/step by CUDA events without the profiler; the host time of
+one step's own work (train: the step's enqueue, with no sync in it; rollout:
+one ``zenith_at`` field); then, under ``torch.profiler`` over 3 steps, the
+wall ms/step, the device's busy time (the union of its kernel intervals) and
+idle share, the kernel time by category and the top kernels; and the peak
+device memory. Every line names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import collections
+import datetime
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+START = datetime.datetime(2018, 1, 1, 0, 0)
+N_STEPS = 3  # profiled (and, before that, event-timed) steps per path
+
+# (category, test on the kernel's name), first match wins
+CATEGORIES = (
+    ("K2 attention pass", lambda n: "attention_bwd_kernel" in n),
+    ("K2 dW split-K GEMM", lambda n: "StoreSplitF32" in n),
+    ("K2 dx GEMM", lambda n: "StoreBf16" in n),
+    ("K2 reductions", lambda n: "column_sums_kernel" in n
+     or "(anonymous namespace)::reduce_kernel" in n),
+    ("K1", lambda n: "window_attention_qkv_kernel" in n),
+    ("K4", lambda n: "DpreEpilogue" in n),
+    ("K3", lambda n: "GeluEpilogue" in n),
+    ("Adam (foreach)", lambda n: "multi_tensor_apply" in n or "adam" in n.lower()),
+    ("cuBLAS GEMM", lambda n: any(s in n.lower() for s in ("gemm", "sm90", "nvjet", "cutlass", "xmma"))),
+    ("memcpy/memset", lambda n: "Memcpy" in n or "Memset" in n),
+    ("torch reductions", lambda n: "reduce" in n.lower()),
+    ("roll", lambda n: "roll" in n.lower()),
+    ("torch elementwise", lambda n: "elementwise" in n.lower()),
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def category(name: str) -> str:
+    return next((c for c, test in CATEGORIES if test(name)), "other")
+
+
+def events_ms(step, n: int) -> float:
+    """Mean ms/step of n calls by CUDA events, without the profiler."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_steps(label: str, step, n: int, card: str) -> None:
+    """Profile n calls of step() and print the breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError(f"{label}: the profiler recorded no device time")
+    by_name, calls, spans = collections.Counter(), collections.Counter(), []
+    for ev in kernels:
+        by_name[ev.name] += ev.time_range.elapsed_us()
+        calls[ev.name] += 1
+        spans.append((ev.time_range.start, ev.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy = (busy + cur_e - cur_s) / 1e3 / n
+    total = sum(by_name.values()) / 1e3 / n
+    log(f"  profiled: wall {wall:.2f} ms/step, device busy {busy:.2f} ms/step, kernel sum "
+        f"{total:.2f} ms/step, idle share {1.0 - busy / wall:.4f}; {len(kernels)} kernels "
+        f"in {n} steps ({card})")
+    cats = collections.Counter()
+    for name, us in by_name.items():
+        cats[category(name)] += us / 1e3 / n
+    log("  by category (ms/step, share of the kernel sum):")
+    for cat, ms in cats.most_common():
+        log(f"    {cat:22s} {ms:9.2f}  {ms / total:6.3f}")
+    log("  top kernels (ms/step, calls/step):")
+    for name, us in by_name.most_common(20):
+        log(f"    {us / 1e3 / n:9.2f}  {calls[name] / n:5.0f}  {name[:140]}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: no CUDA device (torch.cuda.is_available() is False)")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke
+    from swin_v2_weather_torch.config.yparams import YParams, default_config_path
+    from swin_v2_weather_torch.data.preprocess import Preprocessor, derived_channel_counts
+    from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
+    from swin_v2_weather_torch.inference.rollout import RolloutEngine
+    from swin_v2_weather_torch.models.wrappers import get_model
+    from swin_v2_weather_torch.ops import _build
+    from swin_v2_weather_torch.ops.losses import LossHandler
+    from swin_v2_weather_torch.training.optim import build_optimizer
+    from swin_v2_weather_torch.training.step import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0].strip()
+    log(card)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.time()
+    _build.load_library()
+    log(f"kernels built and loaded in {time.time() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    n = N_STEPS
+
+    params = YParams(default_config_path(), chip_smoke.CONFIG)
+    params["n_in_channels"], params["n_out_channels"] = derived_channel_counts(params)
+    params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
+    params["data_loader_config"] = "synthetic"  # temp-std takes unit stats
+
+    # ---- rollout ---------------------------------------------------------------
+    model = get_model(params)
+    chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED))
+    engine = RolloutEngine(params, model, dev)
+    state0 = torch.randn((1, int(params.n_out_channels), *params.img_size),
+                         generator=torch.Generator().manual_seed(chip_smoke.SEED))
+    steps = engine.steps(state0, START, 2 + 2 * n)
+    log(f"[rollout] {chip_smoke.CONFIG}, batch 1")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        next(steps)
+    log(f"  unprofiled: {events_ms(lambda: next(steps), n):.2f} ms/step ({card})")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine.zenith_at(START)
+    log(f"  host zenith_at: {(time.perf_counter() - t0) * 1e3 / 3:.1f} ms per step")
+    profile_steps("rollout", lambda: next(steps), n, card)
+    log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del engine, model, steps
+    torch.cuda.empty_cache()
+
+    # ---- train step ------------------------------------------------------------
+    model = get_model(params).to(dev)
+    chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED + 1))
+    train_step = build_train_step(
+        model, LossHandler(params), Preprocessor(params),
+        build_optimizer(params, model.parameters()),
+        generator=torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
+    )
+    batch = collate([SyntheticDataset(params)[0]], device=dev)
+    log(f"[train] {chip_smoke.CONFIG}, batch 1, drop_path_rate {params.drop_path_rate}")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        train_step(batch)
+    log(f"  unprofiled: {events_ms(lambda: train_step(batch), n):.2f} ms/step ({card})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step(batch)
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"  host enqueue of one step: {host:.1f} ms of "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
+    profile_steps("train", lambda: train_step(batch), n, card)
+    log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+if __name__ == "__main__":
+    main()

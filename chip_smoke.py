@@ -26,6 +26,20 @@ printing its own lines:
      output must be finite, and step 1 must match the plain path on the card.
   6. rollout ms/step on both paths (CUDA events, after one warm-up step) and
      the peak device memory.
+  7. the window-attention backward kernel against its plain backward at the
+     flagship shapes, unshifted and shifted: dx, dW, db and dscale.
+  8. the fc1 backward (pre-activation cotangent) kernel against its plain
+     version at [64800, 768] x [768, 3072].
+  9. the flagship train step at full width, drop-path 0.1 live, built through
+     ``get_model``, ``LossHandler`` (synthetic unit stats), ``Preprocessor``,
+     ``build_optimizer`` and ``build_train_step``, on seeded parameters and a
+     batch of 1 from ``SyntheticDataset``: 4 steps, each of the four kernels
+     launched 12 x 4 = 48 times, finite metrics, every parameter moved; step
+     1's loss and gradient norms against the plain path on the card (same
+     weights, batch and generator seed, so the drop-path masks agree); one
+     ``build_eval_step`` call.
+ 10. train ms/step on both paths (CUDA events, after one warm-up step),
+     samples/s and the peak device memory.
 
 Then one JSON line with the kernels' results, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
@@ -34,6 +48,7 @@ CUDA device the script exits with code 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import math
@@ -59,6 +74,14 @@ ATTN_TOL = (2.0, 0.01)  # (max, mean) ulps
 MLP_TOL = (2.0, 0.01)  # a flip of the pre-activation moves gelu by <= 1.13 ulp, + output rounding
 # Whole model, 12 bf16 blocks: flips in one block propagate through the rest
 MODEL_TOL = (8.0, 0.5)
+# Backward, per output. A flipped bf16 rounding of dqkv moves dx by an ulp
+# (mean about 0.01 ulp at this shape); dW and db sum 64800 token rows, so a
+# few flips add up; dscale sums <qn16, dqn> over 64800 rows with cancellation.
+BWD_TOL = {"dx": (2.0, 0.05), "dW": (4.0, 0.05), "db": (4.0, 0.05), "dscale": (2.0, 0.25)}
+# Train step 1, kernel path vs plain path: relative bounds on the loss and on
+# each gradient norm. Both are sums over millions of terms, so one-ulp flips
+# of either sign average out (about 1e-5 relative on the H100).
+STEP_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
 
 
 def log(msg: str) -> None:
@@ -273,6 +296,157 @@ def main() -> None:
         plain_mem = torch.cuda.max_memory_allocated() / 2**30
     log(f"[6] rollout: kernel path {kernel_step:.2f} ms/step (peak {kernel_mem:.3f} GiB), "
         f"plain path {plain_step:.2f} ms/step (peak {plain_mem:.3f} GiB); {card}")
+    serve_launches = launches
+    del engine, model, preds, plain1, state, back
+
+    # ---- 7. K2 window-attention backward at flagship shapes ------------------
+    x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    log(f"[7] window_attention_qkv_bwd: x, g {tuple(x.shape)} bf16, W [{c}, {3 * c}] bf16, "
+        f"{heads} heads, window {window}")
+    bwd_errs, bwd_ms, bwd_plain_ms = {}, None, None
+    for label, mask in (("unshifted", None), ("shifted", pattern)):
+        out = wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, mask, 1.0)
+        ref = wa.window_attention_qkv_backward_reference(x, w16, b_qkv, scale, g, window, mask)
+        torch.cuda.synchronize()
+        if out[0].dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in out[1:]):
+            raise RuntimeError("window_attention_qkv_bwd: wrong output dtypes")
+        for name, o, r in zip(("dx", "dW", "db", "dscale"), out, ref):
+            err = compare(f"{label} {name}", o, r, BWD_TOL[name])
+            bwd_errs[name] = max(err, bwd_errs.get(name, 0.0))
+        again = wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, mask, 1.0)
+        if not all(torch.equal(a, o) for a, o in zip(again, out)):
+            raise RuntimeError("window_attention_qkv_bwd: two calls differ (reduction order)")
+        k_ms = time_ms(lambda: wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, mask, 1.0), 10)
+        p_ms = time_ms(lambda: wa.window_attention_qkv_backward_reference(
+            x, w16, b_qkv, scale, g, window, mask), 3)
+        log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card}); two calls bit-equal")
+        if bwd_ms is None:
+            bwd_ms, bwd_plain_ms = k_ms, p_ms
+    results["window_attention_qkv_bwd"] = (bwd_errs["dx"], bwd_ms, bwd_plain_ms)
+    del x, g, out, ref, again
+
+    # ---- 8. K4 fc1 backward (pre-activation cotangent) at flagship shapes ----
+    x2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
+    g2 = torch.randn((t_tok, hidden), generator=gen, device=dev).bfloat16()
+    log(f"[8] fc1_dpre: x2 [{t_tok}, {c}] bf16, W1 [{c}, {hidden}], g [{t_tok}, {hidden}] bf16")
+    out = mk.fc1_dpre(x2, w1_16, b1, g2)
+    ref = mk.fc1_dpre_reference(x2, w1, b1, g2)
+    torch.cuda.synchronize()
+    err = compare("fc1_dpre", out, ref, MLP_TOL)
+    k_ms = time_ms(lambda: mk.fc1_dpre(x2, w1_16, b1, g2), 20)
+    p_ms = time_ms(lambda: mk.fc1_dpre_reference(x2, w1, b1, g2), 5)
+    log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s), "
+        f"plain {p_ms:.4f} ms ({card})")
+    results["fc1_dpre"] = (err, k_ms, p_ms)
+    del x2, g2, out, ref, w1, b1, w1_16, w_qkv, w16, b_qkv, scale
+    torch.cuda.empty_cache()
+
+    # ---- 9. the flagship train step ------------------------------------------
+    from swin_v2_weather_torch.data.preprocess import Preprocessor
+    from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
+    from swin_v2_weather_torch.ops.losses import LossHandler
+    from swin_v2_weather_torch.training.optim import build_optimizer
+    from swin_v2_weather_torch.training.step import build_eval_step, build_train_step
+
+    params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
+    params["data_loader_config"] = "synthetic"  # temp-std takes unit stats
+    model = get_model(params).to(dev)
+    seeded_parameters(model, torch.Generator().manual_seed(SEED + 1))
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
+    batch = collate([SyntheticDataset(params)[0]], device=dev)
+    log(f"[9] train step: {CONFIG}, drop_path_rate {params.drop_path_rate}, loss "
+        f"'{params.loss}', {params.optimizer_type} lr {float(params.lr)}, batch 1 "
+        f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+
+    def make_step():
+        """A fresh optimizer and drop-path generator (same seed every time)."""
+        optimizer = build_optimizer(params, model.parameters())
+        dp_gen = torch.Generator(device=dev).manual_seed(SEED)
+        return build_train_step(model, loss_handler, preprocessor, optimizer, generator=dp_gen)
+
+    counted = (wa.window_attention_qkv, wa.window_attention_qkv_bwd, mk.fc1_gelu, mk.fc1_dpre)
+    for fn in counted:
+        fn.launches = 0
+    train_step = make_step()
+    metrics = [train_step(batch) for _ in range(N_STEPS)]
+    torch.cuda.synchronize()
+    train_launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"  {N_STEPS} steps; launches {train_launches}")
+    if any(n != want for n in train_launches.values()):
+        raise RuntimeError(f"each kernel must launch {want} times in {N_STEPS} train steps, "
+                           f"got {train_launches}")
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(metrics):
+        log(f"    step {i + 1}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise RuntimeError("non-finite loss or gradient norm")
+    frozen = [n for n, p in model.named_parameters() if torch.equal(p, init[n])]
+    if frozen:
+        raise RuntimeError(f"parameters the steps did not change: {frozen}")
+    log(f"  all {len(init)} parameter tensors changed")
+
+    @contextlib.contextmanager
+    def plain_train():
+        """The autograd Functions look their wrappers up at call time: swap in
+        the plain versions, forward and backward."""
+        with mock.patch.multiple(
+            wa, window_attention_qkv=wa.window_attention_qkv_reference,
+            window_attention_qkv_bwd=wa.window_attention_qkv_backward_reference,
+        ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference):
+            yield
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    del init
+    with plain_train():
+        plain_step = make_step()
+        plain_metrics = {k: float(v) for k, v in plain_step(batch).items()}
+    if {fn.__name__: fn.launches for fn in counted} != train_launches:
+        raise RuntimeError("the plain path launched a kernel")
+    log("  step 1, kernel path vs plain path (relative difference):")
+    for key, ref_val in plain_metrics.items():
+        got = metrics[0][key]
+        rel = abs(got - ref_val) / abs(ref_val)
+        tol = STEP_RTOL["loss" if key == "loss" else "grad_norm"]
+        log(f"    {key}: {got:.6g} vs {ref_val:.6g}, rel {rel:.3g} (tol {tol:g})")
+        if not rel <= tol:
+            raise RuntimeError(f"train step 1 {key}: kernel and plain path disagree")
+    if set(plain_metrics) != set(metrics[0]):
+        raise RuntimeError("the two paths report different metrics")
+
+    eval_batch = collate([SyntheticDataset(params, train=False)[0]], device=dev)
+    ev = build_eval_step(model, loss_handler, preprocessor, n_out)(eval_batch)
+    ev = {k: v.cpu() for k, v in ev.items()}
+    if ev["rmse"].shape != (n_out,) or ev["acc"].shape != (n_out,) or not all(
+        bool(torch.isfinite(v).all()) for v in ev.values()
+    ):
+        raise RuntimeError("eval step: wrong shapes or non-finite values")
+    log(f"  eval step: loss {float(ev['loss']):.6f}, mean rmse {float(ev['rmse'].mean()):.6f}, "
+        f"mean acc {float(ev['acc'].mean()):.6f}")
+
+    # ---- 10. train ms/step on both paths ------------------------------------
+    def train_ms(step_fn, n: int = 3):
+        step_fn(batch)  # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            step_fn(batch)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n, torch.cuda.max_memory_allocated() / 2**30
+
+    kernel_train, kernel_train_mem = train_ms(train_step)
+    with plain_train():
+        plain_train_ms, plain_train_mem = train_ms(plain_step)
+    log(f"[10] train step, batch 1: kernel path {kernel_train:.2f} ms/step "
+        f"({1000.0 / kernel_train:.3f} samples/s, peak {kernel_train_mem:.3f} GiB), plain path "
+        f"{plain_train_ms:.2f} ms/step ({1000.0 / plain_train_ms:.3f} samples/s, peak "
+        f"{plain_train_mem:.3f} GiB); {card}")
 
     kernels = [
         {
@@ -287,10 +461,26 @@ def main() -> None:
             "source": "swin_v2_weather_torch/ops/csrc/fc1_gelu.cu",
             "replaces": "swin_v2_weather_tpu/ops/mlp_kernels.py:110",
         },
+        {
+            "name": "window_attention_qkv_bwd",
+            "route": "cuda",
+            "source": "swin_v2_weather_torch/ops/csrc/window_attention_qkv_bwd.cu",
+            "replaces": "swin_v2_weather_tpu/ops/window_attention.py:1397",
+        },
+        {
+            "name": "fc1_dpre",
+            "route": "cuda",
+            "source": "swin_v2_weather_torch/ops/csrc/fc1_gelu.cu",
+            "replaces": "swin_v2_weather_tpu/ops/mlp_kernels.py:140",
+        },
     ]
     for k in kernels:
         err, k_ms, p_ms = results[k["name"]]
-        k.update(launches=launches[k["name"]], max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        # launches: the train step's run (phase 9); the serving run's beside it
+        k.update(launches=train_launches[k["name"]], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                 launches_by_path={"serve": serve_launches.get(k["name"], 0),
+                                   "train": train_launches[k["name"]]})
+    kernels[2]["max_abs_err_by_output"] = bwd_errs
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

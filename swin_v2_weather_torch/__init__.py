@@ -8,10 +8,14 @@ stays the reference each slice is held against; the port never imports it.
 Subpackages mirror the JAX layout:
 
 config     YAML configuration system (shares the JAX package's swin.yaml)
-data       static conditioning inputs, channel bookkeeping
-ops        zenith angle; the fused window-attention and fc1+GELU kernels with
+data       static conditioning inputs, channel bookkeeping, the preprocessor,
+           the synthetic dataset
+ops        zenith angle, quadrature, losses, metrics; the fused
+           window-attention and fc1+GELU kernels (forward and backward) with
            their plain PyTorch versions
-models     SwinV2 in PyTorch, the single-step wrapper, JAX weight conversion
+models     SwinV2 in PyTorch (train mode with drop-path), the single-step
+           wrapper, JAX weight conversion
+training   Adam, the LR schedules, the train and eval steps
 inference  model registry and the autoregressive rollout engine
 """
 
@@ -26,6 +30,11 @@ _LAZY = {
     "SwinTransformerV2": ("swin_v2_weather_torch.models.swin", "SwinTransformerV2"),
     "params_from_jax": ("swin_v2_weather_torch.models.convert", "params_from_jax"),
     "RolloutEngine": ("swin_v2_weather_torch.inference.rollout", "RolloutEngine"),
+    "LossHandler": ("swin_v2_weather_torch.ops.losses", "LossHandler"),
+    "Preprocessor": ("swin_v2_weather_torch.data.preprocess", "Preprocessor"),
+    "build_optimizer": ("swin_v2_weather_torch.training.optim", "build_optimizer"),
+    "build_train_step": ("swin_v2_weather_torch.training.step", "build_train_step"),
+    "build_eval_step": ("swin_v2_weather_torch.training.step", "build_eval_step"),
     "load_model": ("swin_v2_weather_torch.inference.registry", "load_model"),
 }
 

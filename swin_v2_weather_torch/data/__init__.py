@@ -1,2 +1,3 @@
-"""Input assembly for serving: static conditioning channels and channel counts
-(counterpart of the matching modules of ``swin_v2_weather_tpu.data``)."""
+"""Input assembly: static conditioning channels, channel counts, the
+preprocessor and the synthetic dataset (counterpart of the matching modules of
+``swin_v2_weather_tpu.data``)."""

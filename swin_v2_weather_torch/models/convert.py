@@ -72,6 +72,17 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     return state
 
 
+def jax_top_level_name(name: str) -> str:
+    """The JAX tree's top-level module of a state_dict key, under the model
+    wrapper: ``model.blocks.3.attn.qkv.weight`` -> ``block3``,
+    ``model.patch_embed.proj.bias`` -> ``patch_embed``, ``model.pos_embed`` ->
+    ``pos_embed``, ``model.head.weight`` -> ``head``."""
+    parts = name.split(".")
+    if parts[0] == "model" and len(parts) > 1:
+        parts = parts[1:]
+    return f"block{parts[1]}" if parts[0] == "blocks" else parts[0]
+
+
 def params_to_jax(state_dict: Dict[str, torch.Tensor], scan_blocks: bool = False) -> dict:
     """The port's state_dict -> JAX parameter tree of numpy arrays.
 

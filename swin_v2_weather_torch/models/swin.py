@@ -16,7 +16,14 @@ The layout follows the JAX model, so weights convert one to one
     ``flax.linen.Dense(dtype=...)`` does; LayerNorm statistics in fp32;
   * blocks unrolled; odd blocks shifted by half a window with the
     latitude-only mask; bias-free head, unpatchify, fp32 output and the
-    optional global residual.
+    optional global residual;
+  * train mode: per-sample drop-path on both post-norm branches at rate
+    ``linspace(0, drop_path_rate, depth)[i]`` in block i, drawn from the
+    ``torch.Generator`` the caller passes (JAX's ``dropout`` rng stream cannot
+    be matched, so the masks agree with JAX in distribution, not bit for bit).
+    Activation checkpointing (``activation_ckpt`` / ``remat_policy``) is not
+    applied: it changes memory, not numbers, and the flagship step fits one
+    80 GB card without it.
 
 LayerNorm scales of the blocks start at ``init_values`` (0 in every weather
 config), so a freshly built block is the identity map; tests and smoke runs
@@ -25,6 +32,7 @@ must draw all parameters from noise before a forward means anything.
 
 from __future__ import annotations
 
+import logging
 import math
 from functools import lru_cache
 from typing import Optional, Tuple
@@ -38,6 +46,8 @@ from swin_v2_weather_torch.ops.mlp_kernels import fused_fc1_gelu
 from swin_v2_weather_torch.ops.window_attention import fused_window_attention_qkv
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+logger = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +127,24 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (timm DropPath): keep each sample's branch
+    with probability 1 - rate and scale it by 1 / (1 - rate), in x's dtype, as
+    the JAX ``DropPath`` does. Rate 0 is the identity and draws nothing."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("drop-path in train mode needs an explicit torch.Generator")
+    keep = np.float32(1.0) - np.float32(rate)
+    # the divisor is keep rounded to x's dtype, as jnp.asarray(keep, x.dtype);
+    # rounded on the host, so no scalar is copied to the device
+    keep_x = float(torch.tensor(float(keep)).to(x.dtype))
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    u = torch.rand(shape, generator=generator, device=x.device)
+    mask = (u < float(keep)).to(x.dtype)
+    return x * mask / keep_x
+
+
 class Fp32LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics whatever the input dtype (two-pass form);
     the output has the input's dtype."""
@@ -181,8 +209,9 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, feat_size: Tuple[int, int],
                  window_size: Tuple[int, int], shift_size: Tuple[int, int], shifted: bool,
                  mlp_ratio: float = 4.0, init_values: Optional[float] = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.drop_path_rate = float(drop_path_rate)
         window, shift = calc_window_shift(feat_size, window_size, shift_size)
         self.shift = tuple(shift)
         self.do_shift = shifted and any(shift)
@@ -198,16 +227,19 @@ class SwinBlock(nn.Module):
             pattern = torch.from_numpy(make_shift_mask(tuple(feat_size), window, shift)[-1].copy())
         self.register_buffer("mask_pattern", pattern, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.drop_path_rate if train else 0.0
         y = x
         if self.do_shift:
             y = torch.roll(y, shifts=(-self.shift[0], -self.shift[1]), dims=(1, 2))
         y = self.attn(y, mask_pattern=self.mask_pattern)
         if self.do_shift:
             y = torch.roll(y, shifts=(self.shift[0], self.shift[1]), dims=(1, 2))
-        x = x + self.norm1(y).to(x.dtype)
+        # post-norm residual branches: x + drop_path(norm(y))
+        x = x + drop_path(self.norm1(y).to(x.dtype), rate, generator)
         y = self.mlp(x)
-        return x + self.norm2(y).to(x.dtype)
+        return x + drop_path(self.norm2(y).to(x.dtype), rate, generator)
 
 
 class PatchEmbed(nn.Module):
@@ -259,7 +291,7 @@ class SwinTransformerV2(nn.Module):
         self.out_chans = out_chans
         self.residual = residual
         self.dtype = dtype
-        self.dropout_rates = (drop_path_rate, proj_drop_rate, attn_drop_rate)
+        self.dropout_rates = (proj_drop_rate, attn_drop_rate)
         h, w = self.img_size
         gh, gw = h // patch_size, w // patch_size
         window = tuple(window_size) if window_size is not None else (
@@ -271,17 +303,23 @@ class SwinTransformerV2(nn.Module):
         self.pos_embed = (
             nn.Parameter(0.02 * torch.randn(1, gh, gw, embed_dim)) if full_pos_embed else None
         )
+        # stochastic depth rate per block, in fp32 as the JAX model computes it
+        dpr = np.linspace(0.0, drop_path_rate, depth, dtype=np.float32)
         self.blocks = nn.ModuleList(
             SwinBlock(embed_dim, num_heads, (gh, gw), window, shift, shifted=(i % 2 == 1),
-                      mlp_ratio=mlp_ratio, init_values=init_values, dtype=dtype)
+                      mlp_ratio=mlp_ratio, init_values=init_values,
+                      drop_path_rate=float(dpr[i]), dtype=dtype)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train=True`` turns on drop-path, drawn from ``generator`` (a
+        ``torch.Generator`` on x's device; needed when drop_path_rate > 0)."""
         if train and any(r > 0 for r in self.dropout_rates):
             raise NotImplementedError(
-                "train-mode dropout and drop-path are not ported yet; call with train=False"
+                "train-mode proj/attn dropout is not ported (the JAX factory never sets it)"
             )
         b = x.shape[0]
         h, w = self.img_size
@@ -294,7 +332,7 @@ class SwinTransformerV2(nn.Module):
         if self.pos_embed is not None:
             x = x + self.pos_embed.to(x.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, train=train, generator=generator)
 
         x = dense(x, self.head, self.dtype)
         # nhwpqc -> nchpwq: interleave patch pixels back into the full grid
@@ -331,6 +369,12 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         raise NotImplementedError("lnadd_impl 'fused' (kernel K11) is not ported yet")
     if int(getattr(params, "spatial_shards", 1) or 1) > 1:
         raise NotImplementedError("spatial_shards > 1 is not ported yet")
+    if bool(getattr(params, "activation_ckpt", False)):
+        logger.info(
+            "activation_ckpt (remat_policy %r) is not applied: the port trains without "
+            "activation checkpointing",
+            getattr(params, "remat_policy", None),
+        )
     return SwinTransformerV2(
         img_size=tuple(params.img_size),
         patch_size=int(params.patch_size),

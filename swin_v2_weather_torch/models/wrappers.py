@@ -2,7 +2,7 @@
 
 Counterpart of ``swin_v2_weather_tpu/models/wrappers.py``. Only the
 single-step wrapper is ported; the multi-step rollout wrapper (training
-fine-tunes, ``n_future > 0``) comes with the training slice.
+fine-tunes, ``n_future > 0``) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ class SingleStepWrapper(nn.Module):
         self.model = model
 
     def forward(self, inp: torch.Tensor, coszen: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
-        return self.model(inp, train=train)
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.model(inp, train=train, generator=generator)
 
 
 def get_model(params, dtype: Optional[torch.dtype] = None) -> nn.Module:

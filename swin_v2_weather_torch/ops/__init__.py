@@ -1,2 +1,3 @@
-"""Numerics: the zenith angle and the hand-written CUDA kernels with their
-plain PyTorch versions (counterpart of ``swin_v2_weather_tpu.ops``)."""
+"""Numerics: the zenith angle, quadrature, losses and metrics, and the
+hand-written CUDA kernels with their plain PyTorch versions (counterpart of
+``swin_v2_weather_tpu.ops``)."""

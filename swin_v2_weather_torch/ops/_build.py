@@ -1,8 +1,9 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The ``.cu`` sources under ``ops/csrc/`` expose plain C entry points. At first
-use they are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-under ``swin_v2_weather_torch/_build/`` and loaded with ``ctypes``. The
+use each is compiled with ``nvcc`` for ``sm_90a`` (one process per source, all
+started together), the objects are linked into one shared library under
+``swin_v2_weather_torch/_build/`` and it is loaded with ``ctypes``. The
 library's file name carries a hash of the sources and flags, so an edited
 source is always rebuilt and a stale library is never loaded. Nothing is
 built while a module is imported: :func:`load_library` runs inside the first
@@ -29,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_OPS_DIR), "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
 
@@ -37,10 +38,19 @@ _vp, _int, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # (x, w, b, out, T, K, N, stream)
     "swin_fc1_gelu_fwd": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    # (x, w, b, g, out, T, K, N, stream)
+    "swin_fc1_dpre_bwd": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # (x, w, b, scale, mask, boundary_flag, out, B, H, W, C_in, C, heads, wh, ww, stream)
     "swin_window_attention_qkv_fwd": [
         _vp, _vp, _vp, _vp, _vp, _f32, _vp,
         _int, _int, _int, _int, _int, _int, _int, _int, _vp,
+    ],
+    # (x, w, b, scale, mask, boundary_flag, g, dqkv, dw_part, db_part,
+    #  dscale_part, dx, dw, db, dscale, B, H, W, C_in, C, heads, wh, ww,
+    #  dw_splits, db_splits, stream)
+    "swin_window_attention_qkv_bwd": [
+        _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _int, _int, _int, _int, _int, _int, _int, _int, _int, _int, _vp,
     ],
 }
 
@@ -81,26 +91,44 @@ def library_path() -> str:
 def build_library() -> str:
     """Compile the sources with nvcc unless the library for them exists.
 
-    The compiler's output (``-Xptxas=-v``: registers, shared memory and spills
-    of every kernel) is kept beside the library as ``<name>.log``.
+    Every ``.cu`` file compiles in its own nvcc process, all at once; the
+    objects are then linked into the library. The compilers' output
+    (``-Xptxas=-v``: registers, shared memory and spills of every kernel) is
+    kept beside the library as ``<name>.log``.
     """
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
+    tag = f"{out[: -len('.so')]}.tmp{os.getpid()}"
+    nvcc = _nvcc()
     cu = [p for p in sources() if p.endswith(".cu")]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    with open(out[: -len(".so")] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+    objs = [f"{tag}.{os.path.basename(p)}.o" for p in cu]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+        for src, obj in zip(cu, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.so", *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(link.stdout)
+    log = "".join(logs)
+    with open(out[: -len(".so")] + ".log", "w") as f:
+        f.write(log)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if link is None or link.returncode != 0:
+        codes = [p.returncode for p in procs] + ([link.returncode] if link else [])
+        raise RuntimeError(f"nvcc failed (exit codes {codes}):\n{log}")
+    os.replace(f"{tag}.so", out)  # atomic: a concurrent process never loads a partial file
     return out
 
 
@@ -122,15 +150,6 @@ def check(code: int, kernel: str) -> None:
     if code != 0:
         msg = load_library().swin_cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA error {code} ({msg})")
-
-
-def require_no_grad(kernel: str, *tensors: torch.Tensor) -> None:
-    """The backward kernels are not ported yet: refuse inputs autograd would track."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{kernel}: no backward kernel yet; call it under torch.no_grad() or "
-            "torch.inference_mode(), or with inputs that do not require grad"
-        )
 
 
 def check_operand(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -1,172 +1,102 @@
-// fc1 + exact-erf GELU forward of the Swin MLP, hand-written for Hopper (sm_90a).
+// fc1 + exact-erf GELU of the Swin MLP, forward and backward, hand-written for
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel swin_v2_weather_tpu/ops/mlp_kernels.py:_make_fwd_kernel
-// (launched by fc1_gelu_pallas): out = gelu_exact(bf16(x @ W1 + b1)), token-tiled.
+// Replaces the TPU kernels swin_v2_weather_tpu/ops/mlp_kernels.py:
+//   _make_fwd_kernel (launched by fc1_gelu_pallas):  out  = gelu_exact(bf16(x @ W1 + b1))
+//   _make_bwd_kernel (launched by fc1_dpre_pallas):  dpre = bf16(g * gelu'(bf16(x @ W1 + b1)))
+// both token-tiled; the backward recomputes the pre-activation instead of
+// reading a saved [T, hidden] tensor.
 //
-// What bounds it on this card: at the flagship shape, [64800, 768] x [768, 3072],
-// the GEMM is 306 GFLOP against 100 MB of input and 398 MB of bf16 output, about
-// 600 FLOP per byte, so it sits above the H100's ~295 FLOP/byte ridge: tensor-core
-// throughput bounds it, and the epilogue (one erf per output) must not stall the
-// matrix pipe or write the [T, 3072] tensor twice.
+// What bounds them on this card: at the flagship shape, [64800, 768] x [768, 3072],
+// the GEMM is 306 GFLOP against 100 MB of input and 398 MB of bf16 output (the
+// backward also reads the 398 MB cotangent), about 600 (backward: 380) FLOP per
+// byte, above the H100's ~295 FLOP/byte ridge: tensor-core throughput bounds
+// them, and the epilogue (one erf, and for the backward one exp, per output)
+// must not stall the matrix pipe or touch the [T, 3072] tensors twice.
 //
-// What the design does about it: a classic tiled GEMM on the tensor cores with
-// nvcuda::wmma bf16 16x16x16 fragments and fp32 accumulation. Each 256-thread
-// block owns a 128 x 128 output tile; its 8 warps each own 32 x 64. The K loop
-// runs in 32-wide slices through a two-stage cp.async ring in shared memory, so
-// the next slice loads while the current one multiplies. The bias, the bf16
+// What the design does about it: both kernels are the tiled tensor-core GEMM of
+// gemm_tile.cuh (128 x 128 x 32 tiles, wmma bf16 with fp32 accumulation, a
+// two-stage cp.async ring) with their own fused epilogues. The bias, the bf16
 // rounding of the pre-activation (the rounding site of flax Dense(dtype=bf16))
-// and the GELU are fused into the epilogue, which writes each output once as
-// 16-byte bf16 vectors. wgmma/TMA pipelines come later; this version is the
-// simple, correct baseline.
+// and the GELU or its derivative times the cotangent run in the epilogue, which
+// reads g and writes each output once as 16-byte bf16 vectors. wgmma/TMA
+// pipelines come later; this version is the simple, correct baseline.
 //
-// Contract (checked by the Python wrapper): x [T, K] bf16, W [K, N] bf16, both
-// row-major contiguous; b [N] fp32; K % 32 == 0, N % 128 == 0; any T >= 1.
+// Contract (checked by the Python wrapper): x [T, K] bf16, W [K, N] bf16, g and
+// out [T, N] bf16, all row-major contiguous; b [N] fp32; K % 32 == 0,
+// N % 128 == 0; any T >= 1 (the ragged last token tile is masked).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include <cstdint>
+#include "gemm_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using namespace swin_gemm;
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int LDA = BK + 8;  // smem row pitch (elements) of the x slice
-constexpr int LDB = BN + 8;  // smem row pitch (elements) of the W slice
+constexpr float kInvSqrt2 = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// Dense(dtype=bf16) rounds the pre-activation before the activation
+__device__ __forceinline__ float pre_activation(float acc, float bias) {
+  return __bfloat162float(__float2bfloat16(acc + bias));
 }
 
-// 16-byte async copy global -> shared; zero-fills the destination if !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__global__ void __launch_bounds__(THREADS)
-    fc1_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const float* __restrict__ bias, bf16* __restrict__ out, int T, int K,
-                    int N) {
-  __shared__ __align__(128) bf16 As[2][BM][LDA];
-  __shared__ __align__(128) bf16 Bs[2][BK][LDB];
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int wm = (warp >> 1) * 32;  // warp's row offset in the tile
-  const int wn = (warp & 1) * 64;   // warp's column offset in the tile
-
-  auto load_slice = [&](int stage, int k0) {
+struct GeluEpilogue {
+  const float* bias;
+  bf16* out;
+  int N;
+  __device__ void operator()(int row, int col, const float* v) const {
+    __align__(16) bf16 o[8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // x: 128 rows x 4 chunks of 8
-      const int idx = tid + i * THREADS;
-      const int r = idx >> 2;
-      const int c = (idx & 3) * 8;
-      const int gr = m0 + r;
-      const bool ok = gr < T;
-      cp_async16(&As[stage][r][c], x + (size_t)(ok ? gr : 0) * K + k0 + c, ok);
+    for (int e = 0; e < 8; ++e) {
+      const float pre = pre_activation(v[e], bias[col + e]);
+      o[e] = __float2bfloat16(0.5f * pre * (1.0f + erff(pre * kInvSqrt2)));
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // W: 32 rows x 16 chunks of 8
-      const int idx = tid + i * THREADS;
-      const int r = idx >> 4;
-      const int c = (idx & 15) * 8;
-      cp_async16(&Bs[stage][r][c], w + (size_t)(k0 + r) * N + n0 + c, true);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = K / BK;
-  load_slice(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load_slice(cur ^ 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[cur][wm + i * 16][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(b[j], &Bs[cur][kk][wn + j * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * N + col) =
+        *reinterpret_cast<const uint4*>(o);
   }
-  cp_async_wait<0>();
+};
 
-  // epilogue: each lane finishes 8 consecutive outputs of one fragment row
-  float* cs = Cs[warp];
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * 8;
+struct DpreEpilogue {
+  const float* bias;
+  const bf16* g;
+  bf16* out;
+  int N;
+  __device__ void operator()(int row, int col, const float* v) const {
+    const size_t off = static_cast<size_t>(row) * N + col;
+    __align__(16) bf16 gv[8];
+    *reinterpret_cast<uint4*>(gv) = *reinterpret_cast<const uint4*>(g + off);
+    __align__(16) bf16 o[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int grow = m0 + wm + i * 16 + r;
-      const int gcol = n0 + wn + j * 16 + c0;
-      if (grow < T) {
-        __align__(16) bf16 o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          // Dense(dtype=bf16) rounds the pre-activation before the GELU
-          const float pre = __bfloat162float(__float2bfloat16(cs[r * 16 + c0 + e] + bias[gcol + e]));
-          o[e] = __float2bfloat16(0.5f * pre * (1.0f + erff(pre * 0.70710678118654752f)));
-        }
-        *reinterpret_cast<uint4*>(out + (size_t)grow * N + gcol) =
-            *reinterpret_cast<const uint4*>(o);
-      }
-      __syncwarp();
+    for (int e = 0; e < 8; ++e) {
+      const float pre = pre_activation(v[e], bias[col + e]);
+      // gelu'(z) = Phi(z) + z * phi(z)
+      const float phi = expf(pre * pre * -0.5f) * kInvSqrt2Pi;
+      const float cdf = 0.5f * (1.0f + erff(pre * kInvSqrt2));
+      o[e] = __float2bfloat16(__bfloat162float(gv[e]) * (cdf + pre * phi));
     }
+    *reinterpret_cast<uint4*>(out + off) = *reinterpret_cast<const uint4*>(o);
   }
+};
+
+bool valid_shape(int T, int K, int N) {
+  return T >= 1 && K >= BK && K % BK == 0 && N >= BN && N % BN == 0;
 }
 
 }  // namespace
 
 extern "C" int swin_fc1_gelu_fwd(const void* x, const void* w, const void* b, void* out, int T,
                                  int K, int N, void* stream) {
-  if (T < 1 || K < BK || K % BK != 0 || N < BN || N % BN != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int m_tiles = (T + BM - 1) / BM;
-  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(N / BN, m_tiles);
-  fc1_gelu_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
-      static_cast<bf16*>(out), T, K, N);
-  return static_cast<int>(cudaGetLastError());
+  if (!valid_shape(T, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const GeluEpilogue epi{static_cast<const float*>(b), static_cast<bf16*>(out), N};
+  return launch_gemm<false, false>(static_cast<const bf16*>(x), K, static_cast<const bf16*>(w),
+                                   N, T, N, K, 1, epi, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int swin_fc1_dpre_bwd(const void* x, const void* w, const void* b, const void* g,
+                                 void* out, int T, int K, int N, void* stream) {
+  if (!valid_shape(T, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const DpreEpilogue epi{static_cast<const float*>(b), static_cast<const bf16*>(g),
+                         static_cast<bf16*>(out), N};
+  return launch_gemm<false, false>(static_cast<const bf16*>(x), K, static_cast<const bf16*>(w),
+                                   N, T, N, K, 1, epi, static_cast<cudaStream_t>(stream));
 }

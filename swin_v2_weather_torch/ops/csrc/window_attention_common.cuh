@@ -1,0 +1,208 @@
+// Pieces shared by the qkv-fused window-attention kernels (forward K1 in
+// window_attention_qkv.cu, backward K2 in window_attention_qkv_bwd.cu): the
+// geometry of one launch, the block -> (window, head) map, and the in-kernel qkv
+// projection plus q/k L2 normalization of one (image, window, head).
+//
+// The projection recomputes qkv = bf16(bf16(x) @ bf16(W) + b) for the head's
+// 3 x HD columns with fp32 accumulation, streaming 32-wide C_in slices of the
+// window (gathered by index math from the NHWC grid, padded rows zero-filled)
+// and of the head's W columns through a two-stage cp.async ring, one role
+// (q, k, v) at a time so that a warp holds only HD / 16 accumulator fragments.
+// Each of the LP / 16 warps owns 16 token rows.
+
+#pragma once
+
+#include <mma.h>
+
+#include "cuda_common.cuh"
+
+namespace swin_attn {
+
+using namespace nvcuda;
+using namespace swin_cuda;
+
+constexpr int KC = 32;        // C_in slice per pipeline stage
+constexpr int LDX = KC + 8;   // smem row pitch (elements) of the x slice
+constexpr int MAX_LP = 256;   // at most 16 warps per block
+
+struct Geometry {
+  int B, H, W, Cin, C, heads, wh, ww, L, LP, nwh, nww;
+};
+
+// Fills the geometry from the launch arguments; false if they are not valid.
+inline bool make_geometry(Geometry& g, int B, int H, int W, int Cin, int C, int heads, int wh,
+                          int ww) {
+  if (B < 1 || wh < 1 || ww < 1 || heads < 1 || H % wh != 0 || W % ww != 0 || Cin < KC ||
+      Cin % KC != 0 || C % heads != 0) {
+    return false;
+  }
+  g.B = B;
+  g.H = H;
+  g.W = W;
+  g.Cin = Cin;
+  g.C = C;
+  g.heads = heads;
+  g.wh = wh;
+  g.ww = ww;
+  g.L = wh * ww;
+  g.LP = (g.L + 15) / 16 * 16;
+  g.nwh = H / wh;
+  g.nww = W / ww;
+  return g.LP <= MAX_LP;
+}
+
+// Block index -> (image, window row, window column, head); heads vary fastest
+// so the blocks of one window run together and share x through L2.
+struct Tile {
+  int bi, wr, wc, h;
+};
+
+__device__ __forceinline__ Tile tile_of_block(const Geometry& g) {
+  int bid = blockIdx.x;
+  Tile t;
+  t.h = bid % g.heads;
+  bid /= g.heads;
+  t.wc = bid % g.nww;
+  bid /= g.nww;
+  t.wr = bid % g.nwh;
+  t.bi = bid / g.nwh;
+  return t;
+}
+
+// Grid pixel (flat index into [B, H, W]) of window token l (< L).
+__device__ __forceinline__ size_t pixel_of(const Geometry& g, const Tile& t, int l) {
+  const int row = t.wr * g.wh + l / g.ww;
+  const int col = t.wc * g.ww + l % g.ww;
+  return (static_cast<size_t>(t.bi) * g.H + row) * g.W + col;
+}
+
+// Bytes of the projection's staging ring (two stages of x and W slices).
+template <int HD>
+__host__ __device__ constexpr size_t staging_bytes(int LP) {
+  return (2u * LP * LDX + 2u * KC * (HD + 8)) * sizeof(bf16);
+}
+
+// qkv projection of the block's window for head t.h: q, k and v [LP, HD]
+// (row pitch HD + 8) in shared memory, bf16(acc + b); padded rows hold
+// bf16(b). xs / wsm is the staging ring (staging_bytes), cs a 16 x 16 fp32
+// scratch tile of this warp. Ends with a block-wide barrier.
+template <int HD>
+__device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                            const float* __restrict__ bqkv, const Geometry& g, const Tile& t,
+                            bf16* qs, bf16* ks, bf16* vs, bf16* xs, bf16* wsm, float* cs) {
+  constexpr int NF = HD / 16;
+  constexpr int LDQ = HD + 8;
+  const int LP = g.LP;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nthreads = blockDim.x;
+  const int C3 = 3 * g.C;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+
+  const int nkc = g.Cin / KC;
+  const int total = 3 * nkc;
+  auto load_slice = [&](int it, int stage) {
+    const int role = it / nkc;
+    const int k0 = (it % nkc) * KC;
+    bf16* xd = xs + stage * LP * LDX;
+    for (int idx = tid; idx < LP * (KC / 8); idx += nthreads) {
+      const int l = idx / (KC / 8);
+      const int c = (idx % (KC / 8)) * 8;
+      const bool ok = l < g.L;
+      const size_t pix = ok ? pixel_of(g, t, l) : 0;
+      cp_async16(xd + l * LDX + c, x + pix * g.Cin + k0 + c, ok);
+    }
+    bf16* wd = wsm + stage * KC * LDQ;
+    const int col0 = role * g.C + t.h * HD;
+    for (int idx = tid; idx < KC * (HD / 8); idx += nthreads) {
+      const int r = idx / (HD / 8);
+      const int c = (idx % (HD / 8)) * 8;
+      cp_async16(wd + r * LDQ + c, w + static_cast<size_t>(k0 + r) * C3 + col0 + c, true);
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
+
+  load_slice(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < total; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < total) load_slice(it + 1, cur ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* xa = xs + cur * LP * LDX + warp * 16 * LDX;
+    const bf16* wb = wsm + cur * KC * LDQ;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, xa + kk, LDX);
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, wb + kk * LDQ + j * 16, LDQ);
+        wmma::mma_sync(acc[j], a, b, acc[j]);
+      }
+    }
+    __syncthreads();
+    if ((it + 1) % nkc == 0) {
+      // role done: + b in fp32, round to bf16, stage in shared memory
+      const int role = it / nkc;
+      bf16* dst = role == 0 ? qs : (role == 1 ? ks : vs);
+      const float* bb = bqkv + role * g.C + t.h * HD;
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+        __syncwarp();
+        bf16* d = dst + (warp * 16 + fr) * LDQ + j * 16 + fc;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          d[e] = __float2bfloat16(cs[fr * 16 + fc + e] + bb[j * 16 + fc + e]);
+        }
+        __syncwarp();
+        wmma::fill_fragment(acc[j], 0.0f);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// L2-normalize this warp's 16 rows of t in place:
+// t16 = bf16(t * inv), inv = 1 / sqrt(max(sum t^2, 1e-24)) in fp32.
+// If inv_out is not null, the row's inv is stored there (indexed by row).
+template <int HD>
+__device__ void normalize_rows(bf16* t, float* inv_out) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NV = (HD + 31) / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int rr = 0; rr < 16; ++rr) {
+    const int row = warp * 16 + rr;
+    bf16* rowp = t + row * LDQ;
+    float vals[NV];
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      const float v = d < HD ? __bfloat162float(rowp[d]) : 0.0f;
+      vals[i] = v;
+      ss += v * v;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-24f));
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      if (d < HD) rowp[d] = __float2bfloat16(vals[i] * inv);
+    }
+    if (inv_out != nullptr && lane == 0) inv_out[row] = inv;
+  }
+}
+
+}  // namespace swin_attn

@@ -22,7 +22,9 @@
 // fragments with fp32 accumulation, streaming 32-wide C_in slices of the window
 // (gathered by index math from the grid, padded rows zero-filled) and of the
 // head's W columns through a two-stage cp.async ring. Bias add and bf16 rounding
-// stage q, k, v in shared memory; q and k are normalized in place. Each warp then
+// stage q, k, v in shared memory; q and k are normalized in place (projection and
+// normalization live in window_attention_common.cuh, shared with the backward
+// kernel in window_attention_qkv_bwd.cu). Each warp then
 // computes its 16 x LP score rows one 16-key tile at a time, turns them into
 // e = exp(z) in registers (no running max: |s| <= 1 for unit q, k, so
 // z <= 0 up to the mask), keeps the fp32 row sums, stores bf16(e) in a per-warp
@@ -40,43 +42,11 @@
 // null; C_in % 32 == 0; head dim in {32, 64, 96, 128}; H % wh == W % ww == 0;
 // L <= 256.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include <cstdint>
+#include "window_attention_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int KC = 32;        // C_in slice per pipeline stage
-constexpr int LDX = KC + 8;   // smem row pitch (elements) of the x slice
-constexpr int MAX_LP = 256;   // at most 16 warps per block
-
-struct Geometry {
-  int B, H, W, Cin, C, heads, wh, ww, L, LP, nwh, nww;
-};
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using namespace swin_attn;
 
 template <int HD>
 size_t smem_bytes(int LP) {
@@ -84,7 +54,7 @@ size_t smem_bytes(int LP) {
   const size_t qkv = 3u * LP * (HD + 8) * sizeof(bf16);
   const size_t scratch = nwarps * 256 * sizeof(float);
   const size_t p_buf = nwarps * 16 * (LP + 8) * sizeof(bf16);
-  const size_t staging = (2u * LP * LDX + 2u * KC * (HD + 8)) * sizeof(bf16);
+  const size_t staging = staging_bytes<HD>(LP);
   return qkv + scratch + (p_buf > staging ? p_buf : staging);
 }
 
@@ -96,7 +66,6 @@ __global__ void __launch_bounds__(MAX_LP * 2)
                                 bf16* __restrict__ out, Geometry g) {
   constexpr int NF = HD / 16;    // 16-wide column fragments per head
   constexpr int LDQ = HD + 8;  // q/k/v row pitch: head dim + 8 spreads banks
-  constexpr int NV = (HD + 31) / 32;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int LP = g.LP;
@@ -112,125 +81,23 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   bf16* xs = reinterpret_cast<bf16*>(region);    // phase 1: 2 stages of [LP, LDX]
   bf16* wsm = xs + 2 * LP * LDX;                 // phase 1: 2 stages of [KC, LDQ]
 
-  int bid = blockIdx.x;
-  const int h = bid % g.heads;
-  bid /= g.heads;
-  const int wc = bid % g.nww;
-  bid /= g.nww;
-  const int wr = bid % g.nwh;
-  const int bi = bid / g.nwh;
+  const Tile t = tile_of_block(g);
+  const int h = t.h;
+  const int wr = t.wr;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int nthreads = blockDim.x;
-  const int C3 = 3 * g.C;
   float* cs = scratch + warp * 256;
   const int fr = lane >> 1;        // fragment row this lane finishes
   const int fc = (lane & 1) * 8;   // first of its 8 fragment columns
 
-  // grid pixel of window token l (< L)
-  auto pixel = [&](int l) -> size_t {
-    const int row = wr * g.wh + l / g.ww;
-    const int col = wc * g.ww + l % g.ww;
-    return (static_cast<size_t>(bi) * g.H + row) * g.W + col;
-  };
-
   // ---------------- phase 1: qkv projection of the window, role by role ----
-  const int nkc = g.Cin / KC;
-  const int total = 3 * nkc;
-  auto load_slice = [&](int it, int stage) {
-    const int role = it / nkc;
-    const int k0 = (it % nkc) * KC;
-    bf16* xd = xs + stage * LP * LDX;
-    for (int idx = tid; idx < LP * (KC / 8); idx += nthreads) {
-      const int l = idx / (KC / 8);
-      const int c = (idx % (KC / 8)) * 8;
-      const bool ok = l < L;
-      const size_t pix = ok ? pixel(l) : 0;
-      cp_async16(xd + l * LDX + c, x + pix * g.Cin + k0 + c, ok);
-    }
-    bf16* wd = wsm + stage * KC * LDQ;
-    const int col0 = role * g.C + h * HD;
-    for (int idx = tid; idx < KC * (HD / 8); idx += nthreads) {
-      const int r = idx / (HD / 8);
-      const int c = (idx % (HD / 8)) * 8;
-      cp_async16(wd + r * LDQ + c, w + static_cast<size_t>(k0 + r) * C3 + col0 + c, true);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  load_slice(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < total; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < total) load_slice(it + 1, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* xa = xs + cur * LP * LDX + warp * 16 * LDX;
-    const bf16* wb = wsm + cur * KC * LDQ;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, xa + kk, LDX);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wb + kk * LDQ + j * 16, LDQ);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-    if ((it + 1) % nkc == 0) {
-      // role done: + b in fp32, round to bf16, stage in shared memory
-      const int role = it / nkc;
-      bf16* dst = role == 0 ? qs : (role == 1 ? ks : vs);
-      const float* bb = bqkv + role * g.C + h * HD;
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-        __syncwarp();
-        bf16* d = dst + (warp * 16 + fr) * LDQ + j * 16 + fc;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          d[e] = __float2bfloat16(cs[fr * 16 + fc + e] + bb[j * 16 + fc + e]);
-        }
-        __syncwarp();
-        wmma::fill_fragment(acc[j], 0.0f);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
+  project_qkv<HD>(x, w, bqkv, g, t, qs, ks, vs, xs, wsm, cs);
 
   // ---------------- phase 1b: L2-normalize q and k rows in place -----------
-  for (int m = 0; m < 2; ++m) {
-    bf16* t = m == 0 ? qs : ks;
-    for (int rr = 0; rr < 16; ++rr) {
-      bf16* rowp = t + (warp * 16 + rr) * LDQ;
-      float vals[NV];
-      float ss = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int d = lane + 32 * i;
-        const float v = d < HD ? __bfloat162float(rowp[d]) : 0.0f;
-        vals[i] = v;
-        ss += v * v;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-24f));
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HD) rowp[d] = __float2bfloat16(vals[i] * inv);
-      }
-    }
-  }
+  normalize_rows<HD>(qs, nullptr);
+  normalize_rows<HD>(ks, nullptr);
   __syncthreads();  // every warp reads all k rows below
 
   // ---------------- phase 2: scores -> e = exp(z) -> bf16(e) @ v ------------
@@ -286,7 +153,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     }
   }
 
-  const size_t pix = qrow < L ? pixel(qrow) : 0;
+  const size_t pix = qrow < L ? pixel_of(g, t, qrow) : 0;
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, o[j], 16, wmma::mem_row_major);
@@ -325,24 +192,10 @@ extern "C" int swin_window_attention_qkv_fwd(const void* x, const void* w, const
                                              const void* scale, const void* mask, float bflag,
                                              void* out, int B, int H, int W, int Cin, int C,
                                              int heads, int wh, int ww, void* stream) {
-  if (B < 1 || wh < 1 || ww < 1 || heads < 1 || H % wh != 0 || W % ww != 0 ||
-      Cin < KC || Cin % KC != 0 || C % heads != 0) {
+  Geometry g;
+  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Geometry g;
-  g.B = B;
-  g.H = H;
-  g.W = W;
-  g.Cin = Cin;
-  g.C = C;
-  g.heads = heads;
-  g.wh = wh;
-  g.ww = ww;
-  g.L = wh * ww;
-  g.LP = (g.L + 15) / 16 * 16;
-  g.nwh = H / wh;
-  g.nww = W / ww;
-  if (g.LP > MAX_LP) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / heads) {
     case 32:

@@ -1,0 +1,520 @@
+// Backward of the qkv-fused scaled-cosine window attention, hand-written for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernel swin_v2_weather_tpu/ops/window_attention.py:
+// _make_qkv_bwd_kernel (launched by _qkv_backward): recompute the qkv projection,
+// the q/k normalization and the softmax; the attention backward; d(scale) through
+// sum(ds * s) = sum(qn * dqn) / scale; the normalization VJP; and the projection
+// backward dx = dqkv @ W^T, dW = bf16(x)^T @ dqkv, db = sum dqkv.
+//
+// What bounds it on this card: at the flagship shape (x and g [1, 180, 360, 768]
+// bf16, L = 162, 8 heads of 96) each (window, head) recomputes a [162, 768] x
+// [768, 288] projection (72 MFLOP) and runs about ten [162, 162, 96] products;
+// the projection backward adds two [64800, 2304] x [2304, 768]-sized GEMMs
+// (230 GFLOP each). All of it is tensor-core work, so the instruction rate and
+// the shared memory feeding it bound the kernels; the [L, L] scores and their
+// cotangents must stay on chip (336 MB per block in fp32 if they did not).
+//
+// What the design does about it. The TPU kernel runs its grid in order and adds
+// dW, db and dscale into VMEM-resident accumulators from step to step; blocks
+// on this card run in parallel and in no order, so the work is split:
+//
+//  1. attention backward, one block per (image, window, head) as in the forward
+//     kernel. It recomputes q, k, v for the head with the forward's projection
+//     (window_attention_common.cuh) and loads the head's slice of g, keeping q16,
+//     k16, v16 and g16 [LP, HD] in shared memory (146 KB at the flagship shape);
+//     fp32 dq/dk/dv accumulators for the whole window would not also fit in the
+//     227 KB, so the work is split FlashAttention-2 style. Pass 1: each warp owns
+//     16 query rows; one sweep over key tiles gives the row sums of e and
+//     u = sum(dp * e), a second recomputes e and dp and forms
+//     ds = (dp - u r) e (r scale) in bf16 in a per-warp row buffer; then
+//     dqn = ds @ kn16, the row's qd = <qn16, dqn>, dq = (dqn - qn16 qd) inv_q, and
+//     the window's sum of qd (the d(scale) partial). Pass 2: each warp owns 16 key
+//     rows and sweeps the query tiles twice, recomputing scores (and dp) tile by
+//     tile from the saved row sums and u: dv = p16^T @ g16, then
+//     dkn = ds^T @ qn16 and dk = (dkn - kn16 kd) inv_k. Recomputing the small
+//     score products (about 5 MFLOP each) is cheaper than a second home for them.
+//     dq, dk, dv go out in bf16 into a [B, H, W, 3C] grid-layout buffer.
+//  2. projection backward on the tiled tensor-core GEMM of gemm_tile.cuh:
+//     dx = dqkv @ W^T (W read transposed in place, bf16 out), and
+//     dW = x^T @ dqkv split over S token ranges into fp32 partials [S, C_in, 3C].
+//  3. fixed-order reductions, no atomics, so two runs give the same bits: the
+//     column sums of dqkv over token ranges (db partials), then one kernel that
+//     sums the dW and db partials in split order and the d(scale) partials in
+//     window order, dividing by scale.
+//
+// Rounding sites (the TPU kernel's contract): qkv, qn16/kn16 as in the forward;
+// g16 = bf16(g); p16 = bf16(e r); dv = p16^T g16 and dp = g16 v16^T in fp32;
+// u = sum dp e; ds = (dp - u r) e (r scale), dsb = bf16(ds); dqn = dsb kn16 and
+// dkn = dsb^T qn16 in fp32; dscale_h = sum qn16 dqn / scale_h; dq, dk as above;
+// dqkv = bf16([dq | dk | dv]); dx = dqkv bf16(W)^T and dW = bf16(x)^T dqkv in
+// fp32; db = sum dqkv in fp32.
+//
+// Contract (checked by the Python wrapper): x [B, H, W, C_in], g [B, H, W, C]
+// bf16; W [C_in, 3C] bf16; b [3C], scale [heads] fp32; mask [L, L] fp32 or null;
+// the workspaces as the wrapper allocates them; C_in % 32 == 0, head dim in
+// {32, 64, 96, 128}, L <= 256, and the shared memory of pass 1/2 within 227 KB.
+
+#include "gemm_tile.cuh"
+#include "window_attention_common.cuh"
+
+namespace {
+
+using namespace swin_attn;
+
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may opt into
+
+template <int HD>
+size_t bwd_smem_bytes(int LP) {
+  const size_t nwarps = LP / 16;
+  const size_t mats = 4u * LP * (HD + 8) * sizeof(bf16);  // q, k, v, g
+  const size_t scratch = nwarps * 256 * sizeof(float);
+  const size_t rows = nwarps * 16 * (LP + 8) * sizeof(bf16);
+  const size_t staging = staging_bytes<HD>(LP);
+  const size_t floats = (4u * LP + 16) * sizeof(float);  // inv_q, inv_k, r, u, warp sums
+  return mats + scratch + (rows > staging ? rows : staging) + floats;
+}
+
+using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// s = a_rows [16, HD] @ b_rows [16, HD]^T (both row pitch HD + 8)
+template <int HD>
+__device__ __forceinline__ void dot_rows(Frag& s, const bf16* a_rows, const bf16* b_rows) {
+  constexpr int LDQ = HD + 8;
+  wmma::fill_fragment(s, 0.0f);
+#pragma unroll
+  for (int d = 0; d < HD / 16; ++d) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+    wmma::load_matrix_sync(a, a_rows + d * 16, LDQ);
+    wmma::load_matrix_sync(b, b_rows + d * 16, LDQ);
+    wmma::mma_sync(s, a, b, s);
+  }
+}
+
+// Writes the lane's 8 values bf16(f(v)) as one 16-byte store.
+template <class F>
+__device__ __forceinline__ void store8(bf16* dst, const float* v, F f) {
+  __align__(16) bf16 o[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(f(e, v[e]));
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MAX_LP * 2)
+    attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                         const float* __restrict__ bqkv, const float* __restrict__ scale,
+                         const float* __restrict__ mask, float bflag,
+                         const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
+                         float* __restrict__ dscale_part, Geometry geo) {
+  constexpr int NF = HD / 16;
+  constexpr int LDQ = HD + 8;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = geo.LP;
+  const int L = geo.L;
+  const int nwarps = LP / 16;
+  const int LDP = LP + 8;
+  const int C3 = 3 * geo.C;
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + LP * LDQ;
+  bf16* vs = ks + LP * LDQ;
+  bf16* gs = vs + LP * LDQ;
+  float* scratch = reinterpret_cast<float*>(gs + LP * LDQ);
+  unsigned char* region = reinterpret_cast<unsigned char*>(scratch + nwarps * 256);
+  bf16* rowbuf = reinterpret_cast<bf16*>(region);  // passes 1-2: 16 x LDP per warp
+  bf16* xs = reinterpret_cast<bf16*>(region);      // projection: staging ring
+  bf16* wsm = xs + 2 * LP * LDX;
+  const size_t region_bytes = static_cast<size_t>(nwarps) * 16 * LDP * sizeof(bf16) >
+                                      staging_bytes<HD>(LP)
+                                  ? static_cast<size_t>(nwarps) * 16 * LDP * sizeof(bf16)
+                                  : staging_bytes<HD>(LP);
+  float* inv_q = reinterpret_cast<float*>(region + region_bytes);
+  float* inv_k = inv_q + LP;
+  float* rr = inv_k + LP;   // 1 / sum(e) per query row
+  float* uu = rr + LP;      // sum(dp * e) per query row
+  float* wsum = uu + LP;    // per-warp sums of qd
+
+  const Tile t = tile_of_block(geo);
+  const int h = t.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;       // fragment row this lane finishes
+  const int fc = (lane & 1) * 8;  // first of its 8 fragment columns
+
+  // the head's slice of the cotangent, padded rows zero-filled
+  for (int idx = tid; idx < LP * (HD / 8); idx += blockDim.x) {
+    const int l = idx / (HD / 8);
+    const int c = (idx % (HD / 8)) * 8;
+    const bool ok = l < L;
+    const size_t pix = ok ? pixel_of(geo, t, l) : 0;
+    cp_async16(gs + l * LDQ + c, gout + pix * geo.C + h * HD + c, ok);
+  }
+  cp_async_commit();
+
+  project_qkv<HD>(x, w, bqkv, geo, t, qs, ks, vs, xs, wsm, cs);  // waits for g too
+  normalize_rows<HD>(qs, inv_q);
+  normalize_rows<HD>(ks, inv_k);
+  __syncthreads();
+
+  const float sc = scale[h];
+  const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
+  const int nkt = LP / 16;
+  bf16* pw = rowbuf + warp * 16 * LDP;
+
+  // e = exp((s - 1) * scale (+ mask)) for the lane's 8 entries of a score tile
+  // in cs; zero outside the L x L window
+  auto exp_tile = [&](int qrow, int key0, float (&ev)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int key = key0 + e;
+      float val = 0.0f;
+      if (key < L && qrow < L) {
+        float z = (cs[fr * 16 + fc + e] - 1.0f) * sc;
+        if (use_mask) z += bflag * mask[qrow * L + key];
+        val = expf(z);
+      }
+      ev[e] = val;
+    }
+  };
+
+  // ---------------- pass 1: this warp's 16 query rows ------------------------
+  const int qrow = warp * 16 + fr;
+  float rowsum = 0.0f, u = 0.0f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    Frag s;
+    dot_rows<HD>(s, qs + warp * 16 * LDQ, ks + kt * 16 * LDQ);
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+    float ev[8];
+    exp_tile(qrow, kt * 16 + fc, ev);
+    __syncwarp();
+    dot_rows<HD>(s, gs + warp * 16 * LDQ, vs + kt * 16 * LDQ);  // dp = g v^T
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      rowsum += ev[e];
+      u += cs[fr * 16 + fc + e] * ev[e];
+    }
+    __syncwarp();
+  }
+  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
+  u += __shfl_xor_sync(0xffffffffu, u, 1);
+  // padded query rows have e = 0 throughout; give them r = 0, not 1 / 0
+  const float r = rowsum > 0.0f ? 1.0f / rowsum : 0.0f;
+  if ((lane & 1) == 0) {
+    rr[qrow] = r;
+    uu[qrow] = u;
+  }
+
+  for (int kt = 0; kt < nkt; ++kt) {  // ds rows into the warp's row buffer
+    Frag s;
+    dot_rows<HD>(s, qs + warp * 16 * LDQ, ks + kt * 16 * LDQ);
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+    float ev[8];
+    exp_tile(qrow, kt * 16 + fc, ev);
+    __syncwarp();
+    dot_rows<HD>(s, gs + warp * 16 * LDQ, vs + kt * 16 * LDQ);
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+    store8(pw + fr * LDP + kt * 16 + fc, cs + fr * 16 + fc,
+           [&](int e, float dp) { return (dp - u * r) * ev[e] * (r * sc); });
+    __syncwarp();
+  }
+
+  Frag acc[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  for (int kt = 0; kt < nkt; ++kt) {  // dqn = ds @ kn16
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, pw + kt * 16, LDP);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(b, ks + kt * 16 * LDQ + j * 16, LDQ);
+      wmma::mma_sync(acc[j], a, b, acc[j]);
+    }
+  }
+  float qd = 0.0f;  // <qn16, dqn> of the row
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      qd += __bfloat162float(qs[qrow * LDQ + j * 16 + fc + e]) * cs[fr * 16 + fc + e];
+    }
+    __syncwarp();
+  }
+  qd += __shfl_xor_sync(0xffffffffu, qd, 1);
+  {
+    const float iq = inv_q[qrow];
+    const size_t pix = qrow < L ? pixel_of(geo, t, qrow) : 0;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+      __syncwarp();
+      if (qrow < L) {
+        const bf16* qn = qs + qrow * LDQ + j * 16 + fc;
+        store8(dqkv + pix * C3 + h * HD + j * 16 + fc, cs + fr * 16 + fc,
+               [&](int e, float dqn) { return (dqn - __bfloat162float(qn[e]) * qd) * iq; });
+      }
+      __syncwarp();
+    }
+  }
+  // the window's d(scale) partial: sum of qd over its real rows, fixed tree
+  float part = (qrow < L && (lane & 1) == 0) ? qd : 0.0f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if (lane == 0) wsum[warp] = part;
+  __syncthreads();  // r, u of every query row and the warp sums are in place
+
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < nwarps; ++i) total += wsum[i];
+    const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
+    dscale_part[static_cast<size_t>(win) * geo.heads + h] = total;
+  }
+
+  // ---------------- pass 2: this warp's 16 key rows --------------------------
+  const int krow = warp * 16 + fr;
+  const size_t kpix = krow < L ? pixel_of(geo, t, krow) : 0;
+  bf16* pt = pw;  // one 16 x 16 bf16 tile, [query][key]
+
+  // dv = p16^T @ g16
+#pragma unroll
+  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  for (int qt = 0; qt < nkt; ++qt) {
+    Frag s;
+    dot_rows<HD>(s, qs + qt * 16 * LDQ, ks + warp * 16 * LDQ);  // s[query][key]
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+    const int qi = qt * 16 + fr;
+    float ev[8];
+    exp_tile(qi, warp * 16 + fc, ev);
+    const float ri = rr[qi];
+    store8(pt + fr * 16 + fc, cs, [&](int e, float) { return ev[e] * ri; });
+    __syncwarp();
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;  // p^T
+    wmma::load_matrix_sync(a, pt, 16);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(b, gs + qt * 16 * LDQ + j * 16, LDQ);
+      wmma::mma_sync(acc[j], a, b, acc[j]);
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+    if (krow < L) {
+      store8(dqkv + kpix * C3 + 2 * geo.C + h * HD + j * 16 + fc, cs + fr * 16 + fc,
+             [](int, float dv) { return dv; });
+    }
+    __syncwarp();
+  }
+
+  // dkn = ds^T @ qn16
+#pragma unroll
+  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  for (int qt = 0; qt < nkt; ++qt) {
+    Frag s;
+    dot_rows<HD>(s, qs + qt * 16 * LDQ, ks + warp * 16 * LDQ);
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+    const int qi = qt * 16 + fr;
+    float ev[8];
+    exp_tile(qi, warp * 16 + fc, ev);
+    __syncwarp();
+    dot_rows<HD>(s, gs + qt * 16 * LDQ, vs + warp * 16 * LDQ);  // dp[query][key]
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+    const float ri = rr[qi];
+    const float ui = uu[qi];
+    store8(pt + fr * 16 + fc, cs + fr * 16 + fc,
+           [&](int e, float dp) { return (dp - ui * ri) * ev[e] * (ri * sc); });
+    __syncwarp();
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;  // ds^T
+    wmma::load_matrix_sync(a, pt, 16);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(b, qs + qt * 16 * LDQ + j * 16, LDQ);
+      wmma::mma_sync(acc[j], a, b, acc[j]);
+    }
+    __syncwarp();
+  }
+  float kd = 0.0f;  // <kn16, dkn> of the row
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      kd += __bfloat162float(ks[krow * LDQ + j * 16 + fc + e]) * cs[fr * 16 + fc + e];
+    }
+    __syncwarp();
+  }
+  kd += __shfl_xor_sync(0xffffffffu, kd, 1);
+  const float ik = inv_k[krow];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+    if (krow < L) {
+      const bf16* kn = ks + krow * LDQ + j * 16 + fc;
+      store8(dqkv + kpix * C3 + geo.C + h * HD + j * 16 + fc, cs + fr * 16 + fc,
+             [&](int e, float dkn) { return (dkn - __bfloat162float(kn[e]) * kd) * ik; });
+    }
+    __syncwarp();
+  }
+}
+
+// ---------------- projection backward: GEMM epilogues -------------------------
+
+struct StoreBf16 {  // dx = dqkv @ W^T, rounded to bf16
+  bf16* out;
+  int ld;
+  __device__ void operator()(int row, int col, const float* v) const {
+    store8(out + static_cast<size_t>(row) * ld + col, v, [](int, float a) { return a; });
+  }
+};
+
+struct StoreSplitF32 {  // dW partial of token range blockIdx.z, fp32
+  float* out;
+  int ld;
+  size_t split_stride;
+  __device__ void operator()(int row, int col, const float* v) const {
+    float* dst = out + blockIdx.z * split_stride + static_cast<size_t>(row) * ld + col;
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
+// part[s, n] = sum of d[t, n] over token range s, in token order
+__global__ void column_sums_kernel(const bf16* __restrict__ d, int T, int N, int rows_per_split,
+                                   float* __restrict__ part) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(T, r0 + rows_per_split);
+  float acc = 0.0f;
+  for (int r = r0; r < r1; ++r) acc += __bfloat162float(d[static_cast<size_t>(r) * N + n]);
+  part[static_cast<size_t>(blockIdx.y) * N + n] = acc;
+}
+
+// dW = sum of the split partials, db = sum of the column-sum partials (both in
+// split order), dscale[h] = (sum over windows of the partials, in window
+// order) / scale[h]
+__global__ void reduce_kernel(const float* __restrict__ dw_part, int dw_splits, int n_dw,
+                              float* __restrict__ dw, const float* __restrict__ db_part,
+                              int db_splits, int n_db, float* __restrict__ db,
+                              const float* __restrict__ ds_part, int n_win, int heads,
+                              const float* __restrict__ scale, float* __restrict__ dscale) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n_dw) {
+    float acc = 0.0f;
+    for (int s = 0; s < dw_splits; ++s) acc += dw_part[static_cast<size_t>(s) * n_dw + i];
+    dw[i] = acc;
+  } else if (i < n_dw + n_db) {
+    const int j = static_cast<int>(i - n_dw);
+    float acc = 0.0f;
+    for (int s = 0; s < db_splits; ++s) acc += db_part[static_cast<size_t>(s) * n_db + j];
+    db[j] = acc;
+  } else if (i < n_dw + n_db + heads) {
+    const int hh = static_cast<int>(i - n_dw - n_db);
+    float acc = 0.0f;
+    for (int k = 0; k < n_win; ++k) acc += ds_part[static_cast<size_t>(k) * heads + hh];
+    dscale[hh] = acc / scale[hh];
+  }
+}
+
+template <int HD>
+int launch_attention_bwd(const void* x, const void* w, const void* b, const void* scale,
+                         const void* mask, float bflag, const void* g, void* dqkv,
+                         void* dscale_part, const Geometry& geo, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<HD>(geo.LP);
+  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  attention_bwd_kernel<HD><<<static_cast<unsigned>(blocks), (geo.LP / 16) * 32, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
+      static_cast<const float*>(scale), static_cast<const float*>(mask), bflag,
+      static_cast<const bf16*>(g), static_cast<bf16*>(dqkv), static_cast<float*>(dscale_part),
+      geo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Workspaces (allocated by the caller): dqkv [B, H, W, 3C] bf16,
+// dw_part [dw_splits, C_in, 3C], db_part [db_splits, 3C] and
+// dscale_part [B * nW, heads] fp32. Outputs: dx [B, H, W, C_in] bf16,
+// dw [C_in, 3C], db [3C], dscale [heads] fp32.
+extern "C" int swin_window_attention_qkv_bwd(
+    const void* x, const void* w, const void* b, const void* scale, const void* mask, float bflag,
+    const void* g, void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dx,
+    void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int C, int heads, int wh,
+    int ww, int dw_splits, int db_splits, void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int code;
+  switch (C / heads) {
+    case 32:
+      code = launch_attention_bwd<32>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      break;
+    case 64:
+      code = launch_attention_bwd<64>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      break;
+    case 96:
+      code = launch_attention_bwd<96>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      break;
+    case 128:
+      code = launch_attention_bwd<128>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      break;
+    default:
+      code = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (code != 0) return code;
+
+  using swin_gemm::launch_gemm;
+  const int T = B * H * W;
+  const int C3 = 3 * C;
+  const bf16* d = static_cast<const bf16*>(dqkv);
+  code = launch_gemm<false, true>(d, C3, static_cast<const bf16*>(w), C3, T, Cin, C3, 1,
+                                  StoreBf16{static_cast<bf16*>(dx), Cin}, s);
+  if (code != 0) return code;
+  code = launch_gemm<true, false>(
+      static_cast<const bf16*>(x), Cin, d, C3, Cin, C3, T, dw_splits,
+      StoreSplitF32{static_cast<float*>(dw_part), C3, static_cast<size_t>(Cin) * C3}, s);
+  if (code != 0) return code;
+
+  const int rows_per_split = (T + db_splits - 1) / db_splits;
+  column_sums_kernel<<<dim3((C3 + 127) / 128, db_splits), 128, 0, s>>>(
+      d, T, C3, rows_per_split, static_cast<float*>(db_part));
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+
+  const int n_dw = Cin * C3;
+  const long long n_all = static_cast<long long>(n_dw) + C3 + heads;
+  reduce_kernel<<<static_cast<unsigned>((n_all + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(dw_part), dw_splits, n_dw, static_cast<float*>(dw),
+      static_cast<const float*>(db_part), db_splits, C3, static_cast<float*>(db),
+      static_cast<const float*>(dscale_part), B * geo.nwh * geo.nww, heads,
+      static_cast<const float*>(scale), static_cast<float*>(dscale));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,22 +1,32 @@
-"""fc1 + exact-erf GELU of the Swin MLP: plain PyTorch version and CUDA kernel.
+"""fc1 + exact-erf GELU of the Swin MLP: plain PyTorch versions and CUDA kernels.
 
-Counterpart of the forward half of ``swin_v2_weather_tpu/ops/mlp_kernels.py``
-(``fc1_gelu_pallas`` / ``fused_fc1_gelu``):
+Counterpart of ``swin_v2_weather_tpu/ops/mlp_kernels.py`` (``fc1_gelu_pallas``,
+``fc1_dpre_pallas``, the custom_vjp ``_build`` and its entry point
+``fused_fc1_gelu``):
 
-  * :func:`fc1_gelu_reference` -- the plain version: same function, same
-    rounding sites, in plain tensor ops. The CPU path and the test oracle.
-  * :func:`fc1_gelu` -- launches the hand-written kernel in
-    ``csrc/fc1_gelu.cu`` on CUDA bf16 tensors; counts its launches.
+  * :func:`fc1_gelu_reference` / :func:`fc1_dpre_reference` -- the plain
+    versions: same functions, same rounding sites, in plain tensor ops. The
+    CPU path and the test oracles.
+  * :func:`fc1_gelu` / :func:`fc1_dpre` -- launch the hand-written kernels in
+    ``csrc/fc1_gelu.cu`` (K3 forward, K4 backward) on CUDA bf16 tensors; each
+    counts its launches.
+  * :class:`Fc1Gelu` -- the autograd Function. It saves (x, w, b) and not the
+    [T, hidden] activation, as ``_build``'s ``f_fwd`` does; the backward
+    recomputes the pre-activation inside K4.
   * :func:`fused_fc1_gelu` -- the entry point the model calls. It flattens
-    ``[..., C_in]`` to tokens and dispatches on the tensor's device: a CPU
-    tensor takes the plain version, a CUDA tensor the kernel (or an error).
+    ``[..., C_in]`` to tokens; a CPU tensor takes the plain versions, a CUDA
+    tensor the kernels (or an error).
 
 Numerics: the matmul accumulates in fp32 from operands in the compute dtype,
 the pre-activation is rounded to the compute dtype exactly where
-``flax.linen.Dense(dtype)`` rounds, and the GELU is the exact erf form in
-fp32. The JAX kernel evaluates erf with Abramowitz-Stegun 7.1.26
-(|err| <= 1.5e-7); the port uses the library erf, closer still: the
-difference is far below bf16 resolution.
+``flax.linen.Dense(dtype)`` rounds, and the GELU and its derivative
+Phi(z) + z phi(z) are evaluated in fp32. The JAX kernels evaluate erf with
+Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7); the port uses the library erf,
+closer still: the difference is far below bf16 resolution.
+
+Gradient dtypes follow ``f_bwd``: dx in x's dtype; dW and db as fp32
+products with no rounding to the compute dtype (JAX hands the kernels the
+fp32 fc1 kernel, so its dW leaves the backward unrounded).
 """
 
 from __future__ import annotations
@@ -28,28 +38,38 @@ import torch
 from swin_v2_weather_torch.ops import _build
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
-def fc1_gelu_reference(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """gelu(x2 @ w + b) in plain ops: [T, C_in] @ [C_in, H] -> [T, H] (dtype of x2).
+def _pre_activation(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16-site pre-activation in fp32: round(x2 @ w + b) to x2's dtype.
 
     The products are fp32 matmuls of values already rounded to x2's dtype
     (bf16 x bf16 products are exact in fp32), so the only differences from the
-    kernel are the order of the fp32 sums and the erf evaluation.
+    kernels are the order of the fp32 sums and the erf evaluation.
     """
     cdt = x2.dtype
     acc = torch.matmul(x2.float(), w.to(cdt).float())
-    pre = (acc + b.float()).to(cdt).float()
-    return (0.5 * pre * (1.0 + torch.erf(pre * _INV_SQRT2))).to(cdt)
+    return (acc + b.float()).to(cdt).float()
 
 
-def fc1_gelu(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x2 [T, K] bf16, w [K, N] bf16, b [N] fp32 -> [T, N] bf16.
+def fc1_gelu_reference(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """gelu(x2 @ w + b) in plain ops: [T, C_in] @ [C_in, H] -> [T, H] (dtype of x2)."""
+    pre = _pre_activation(x2, w, b)
+    return (0.5 * pre * (1.0 + torch.erf(pre * _INV_SQRT2))).to(x2.dtype)
 
-    K must be a multiple of 32 and N of 128. Launches on the current stream
-    and does not synchronize.
-    """
-    name = "fc1_gelu"
+
+def fc1_dpre_reference(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """g * gelu'(x2 @ w + b) in plain ops: the pre-activation cotangent
+    [T, H] in x2's dtype, g [T, H] in x2's dtype."""
+    pre = _pre_activation(x2, w, b)
+    phi = torch.exp(pre * pre * -0.5) * _INV_SQRT2PI
+    cdf = 0.5 * (1.0 + torch.erf(pre * _INV_SQRT2))
+    return (g.float() * (cdf + pre * phi)).to(x2.dtype)
+
+
+def _check_fc1_operands(name, x2, w, b, g=None):
     if x2.device.type != "cuda" or x2.dim() != 2:
         raise ValueError(f"{name}: x2 must be a 2-D CUDA tensor, got {x2.dim()}-D on {x2.device}")
     t, k = x2.shape
@@ -58,13 +78,26 @@ def fc1_gelu(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     _build.check_operand(name, "x2", x2, torch.bfloat16, (t, k), dev)
     _build.check_operand(name, "w", w, torch.bfloat16, (k, n), dev)
     _build.check_operand(name, "b", b, torch.float32, (n,), dev)
+    if g is not None:
+        _build.check_operand(name, "g", g, torch.bfloat16, (t, n), dev)
     if k % 32 or n % 128:
         raise ValueError(f"{name}: needs C_in % 32 == 0 and hidden % 128 == 0, got {k}, {n}")
-    _build.require_no_grad(name, x2, w, b)
-    out = torch.empty((t, n), dtype=torch.bfloat16, device=dev)
+    return t, k, n
+
+
+def fc1_gelu(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The forward kernel (K3): x2 [T, K] bf16, w [K, N] bf16, b [N] fp32 ->
+    [T, N] bf16.
+
+    K must be a multiple of 32 and N of 128. Launches on the current stream
+    and does not synchronize.
+    """
+    name = "fc1_gelu"
+    t, k, n = _check_fc1_operands(name, x2, w, b)
+    out = torch.empty((t, n), dtype=torch.bfloat16, device=x2.device)
     lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
         code = lib.swin_fc1_gelu_fwd(
             x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), t, k, n, stream
         )
@@ -76,13 +109,74 @@ def fc1_gelu(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 fc1_gelu.launches = 0
 
 
+def fc1_dpre(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The backward kernel (K4): x2 [T, K] bf16, w [K, N] bf16, b [N] fp32,
+    g [T, N] bf16 -> dpre = g * gelu'(bf16(x2 @ w + b)) [T, N] bf16.
+
+    Same shape limits as :func:`fc1_gelu`. Launches on the current stream and
+    does not synchronize.
+    """
+    name = "fc1_dpre"
+    t, k, n = _check_fc1_operands(name, x2, w, b, g)
+    out = torch.empty((t, n), dtype=torch.bfloat16, device=x2.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        code = lib.swin_fc1_dpre_bwd(
+            x2.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), out.data_ptr(),
+            t, k, n, stream,
+        )
+    _build.check(code, name)
+    fc1_dpre.launches += 1
+    return out
+
+
+fc1_dpre.launches = 0
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an fp32 result and no rounding to a's dtype. On CUDA the bf16
+    GEMM writes fp32 directly (``out_dtype``); on the CPU the operands are
+    lifted to fp32, which is exact for bf16 values."""
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class Fc1Gelu(torch.autograd.Function):
+    """gelu(x2 @ w + b) over tokens: forward K3, backward K4 plus plain
+    products, or the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b):
+        ctx.save_for_backward(x2, w, b)
+        if x2.device.type == "cpu":
+            return fc1_gelu_reference(x2, w, b)
+        return fc1_gelu(x2.contiguous(), w.to(x2.dtype).contiguous(), b.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, b = ctx.saved_tensors
+        cdt = x2.dtype
+        g2 = g.to(cdt)
+        # then the projection backward in plain products, as in f_bwd: dx
+        # accumulates in fp32 and rounds once to x's dtype; dW and db stay fp32
+        if x2.device.type == "cpu":
+            dpre = fc1_dpre_reference(x2, w, b, g2)
+            dx = torch.matmul(dpre.float(), w.to(cdt).float().t()).to(cdt)
+        else:
+            dpre = fc1_dpre(x2.contiguous(), w.to(cdt).contiguous(), b.float().contiguous(),
+                            g2.contiguous())
+            dx = torch.matmul(dpre, w.to(cdt).t())
+        dw = _matmul_f32(x2.t(), dpre)
+        db = torch.sum(dpre.float(), 0)
+        return dx.to(x2.dtype), dw.to(w.dtype), db.to(b.dtype)
+
+
 def fused_fc1_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """gelu(x @ w + b) for x [..., C_in], w [C_in, H] (any float dtype), b [H]."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
-        y = fc1_gelu_reference(x2, w, b)
-    elif x.device.type == "cuda":
-        y = fc1_gelu(x2.contiguous(), w.to(x.dtype).contiguous(), b.float().contiguous())
-    else:
+    """gelu(x @ w + b) for x [..., C_in], w [C_in, H] (any float dtype), b [H];
+    differentiable in x, w and b."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_fc1_gelu: no implementation for device {x.device}")
+    y = Fc1Gelu.apply(x.reshape(-1, x.shape[-1]), w, b)
     return y.reshape(*x.shape[:-1], w.shape[-1])

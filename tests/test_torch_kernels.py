@@ -1,6 +1,9 @@
 """PyTorch port, kernel modules: each plain version against the JAX kernel it
-replaces (Pallas in interpret mode on the CPU), the CPU dispatch of the entry
-points, and -- on a GPU only -- each CUDA kernel against its plain version.
+replaces (Pallas in interpret mode on the CPU; backward kernels through
+``jax.vjp`` of the custom_vjps), the backward plain versions against an
+unrounded fp64 autograd oracle, the CPU dispatch of the entry points and
+autograd Functions, and -- on a GPU only -- each CUDA kernel against its plain
+version and gradients flowing through the kernels.
 
 Tolerances are stated in bf16 ulps of the output scale: ``ulp(m)`` is the bf16
 spacing at the largest reference magnitude ``m``. Both sides keep the same
@@ -68,6 +71,27 @@ def mask_pattern():
     return make_shift_mask((H, W), WINDOW, SHIFT)[-1]
 
 
+def cotangent(seed=3):
+    return np.random.default_rng(seed).standard_normal((B, H, W, C)).astype(np.float32)
+
+
+# Backward tolerances, (max, mean) in bf16 ulps of the gradient's scale. The
+# two sides differ by the order of fp32 sums, which now and then flips a bf16
+# rounding of dqkv (or of the pre-activation cotangent); dW and db then sum
+# that flip with hundreds of token rows. dscale is a sum over every query row
+# of <qn16, dqn> with heavy cancellation, so its bound is absolute (plus 1 %).
+BWD_ULPS = {"dx": (2, 0.01), "dW": (4, 0.05), "db": (4, 0.05),
+            "dW1": (4, 0.05), "db1": (4, 0.05)}
+DSCALE_TOL = dict(atol=4e-3, rtol=1e-2)
+
+
+def assert_close_backward(name, out, ref):
+    if name == "dscale":
+        np.testing.assert_allclose(out, ref, **DSCALE_TOL)
+    else:
+        assert_close_ulps(out, ref, *BWD_ULPS[name])
+
+
 @pytest.fixture(scope="module")
 def jax_ref():
     pytest.importorskip("jax")
@@ -130,6 +154,146 @@ def test_fc1_gelu_plain_matches_jax(jax_ref, dtype):
     assert_close_ulps(out.float().numpy(), np.asarray(ref, np.float32), 1, 0.01)
 
 
+def attention_leaves(dtype, seed=0):
+    tdt = getattr(torch, dtype)
+    x, w, b, scale = attention_inputs(seed)
+    return [torch.from_numpy(x).to(tdt).requires_grad_(), torch.from_numpy(w).to(tdt).requires_grad_(),
+            torch.from_numpy(b).requires_grad_(), torch.from_numpy(scale).requires_grad_()]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_window_attention_backward_matches_jax(jax_ref, dtype, use_mask):
+    """dx, dW, db, dscale of the port's Function (plain backward on the CPU)
+    against jax.vjp of the JAX entry point, whose custom_vjp runs the fused
+    Pallas backward (_qkv_backward) in interpret mode. Measured: dx max 1/4
+    ulp, dW max 1 ulp (bf16) / 0.05 ulp (fp32), dscale max 1.1e-3."""
+    import jax
+
+    jnp = jax_ref.jnp
+    x, w, b, scale = attention_inputs()
+    ct = cotangent()
+    patt = mask_pattern() if use_mask else None
+    _, vjp = jax.vjp(
+        lambda *a: jax_ref.wa.fused_window_attention_qkv(*a, WINDOW, patt),
+        jnp.asarray(x, dtype), jnp.asarray(w, dtype), jnp.asarray(b), jnp.asarray(scale),
+    )
+    ref = vjp(jnp.asarray(ct, dtype))
+    leaves = attention_leaves(dtype)
+    out = window_attention.fused_window_attention_qkv(*leaves, WINDOW, patt)
+    out.backward(torch.from_numpy(ct).to(getattr(torch, dtype)))
+    for name, leaf, r in zip(("dx", "dW", "db", "dscale"), leaves, ref):
+        assert leaf.grad.dtype == leaf.dtype and str(r.dtype) == str(leaf.dtype).split(".")[1]
+        assert_close_backward(name, leaf.grad.float().numpy(), np.asarray(r, np.float32))
+
+
+def unrounded_attention(x, w, b, scale, patt):
+    """The attention in fp64 without any bf16 rounding (the JAX XLA
+    composition's math), for autograd."""
+    from swin_v2_weather_torch.models.swin import window_partition, window_reverse
+
+    l, hd = WINDOW[0] * WINDOW[1], C // HEADS
+    qkv = window_partition(x @ w + b, WINDOW).reshape(-1, l, 3, HEADS, hd)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    q = q / q.norm(dim=-1, keepdim=True)
+    k = k / k.norm(dim=-1, keepdim=True)
+    z = (q @ k.transpose(-1, -2) - 1.0) * scale.reshape(1, HEADS, 1, 1)
+    if patt is not None:
+        nwh, nww = H // WINDOW[0], W // WINDOW[1]
+        gate = torch.zeros(nwh, dtype=z.dtype)
+        gate[-1] = 1.0
+        z = z.reshape(B, nwh, nww, HEADS, l, l) + gate.reshape(1, nwh, 1, 1, 1, 1) * torch.from_numpy(
+            patt).double()
+        z = z.reshape(-1, HEADS, l, l)
+    out = (torch.softmax(z, -1) @ v).permute(0, 2, 1, 3).reshape(-1, *WINDOW, C)
+    return window_reverse(out, WINDOW, (H, W))
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_window_attention_backward_matches_unrounded_oracle(use_mask):
+    """The plain backward against autograd through the unrounded fp64 math,
+    as tests/test_window_attention.py holds the Pallas backward to the XLA
+    composition. The kernel's bf16 sites (qkv, qn/kn, p, ds, dqkv) bound the
+    agreement: measured max 0.8 % of the gradient scale for dx, dW and db and
+    4 % for dscale, a sum with cancellation; the bounds are 3 % and 10 %."""
+    patt = mask_pattern() if use_mask else None
+    ct = torch.from_numpy(cotangent())
+    leaves = attention_leaves("float32")
+    window_attention.fused_window_attention_qkv(*leaves, WINDOW, patt).backward(ct)
+    oracle = [t.detach().double().requires_grad_() for t in leaves]
+    unrounded_attention(*oracle, patt).backward(ct.double())
+    for name, leaf, r in zip(("dx", "dW", "db", "dscale"), leaves, oracle):
+        ref = r.grad.numpy()
+        bound = (0.1 if name == "dscale" else 0.03) * np.abs(ref).max()
+        assert np.abs(leaf.grad.double().numpy() - ref).max() <= bound, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fc1_backward_matches_jax(jax_ref, dtype):
+    """K4's plain version against fc1_dpre_pallas (interpret mode), and the
+    Function's dx, dW, db against jax.vjp of the JAX fused_fc1_gelu. dW and
+    db come back fp32 and unrounded, as JAX's do."""
+    import jax
+
+    jnp = jax_ref.jnp
+    x2, w, b = mlp_inputs()
+    gm = np.random.default_rng(5).standard_normal((T, HIDDEN)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    dpre_ref = jax_ref.mlp.fc1_dpre_pallas(
+        jnp.asarray(x2, dtype), jnp.asarray(w), jnp.asarray(b), jnp.asarray(gm, dtype)
+    )
+    dpre = mlp_kernels.fc1_dpre_reference(
+        torch.from_numpy(x2).to(tdt), torch.from_numpy(w), torch.from_numpy(b),
+        torch.from_numpy(gm).to(tdt),
+    )
+    assert dpre.dtype == tdt
+    # erf differs below bf16 resolution; in bf16 a flipped pre-activation
+    # rounding moves g * gelu' by about one ulp
+    assert_close_ulps(dpre.float().numpy(), np.asarray(dpre_ref, np.float32), 2, 0.01)
+
+    _, vjp = jax.vjp(jax_ref.mlp.fused_fc1_gelu, jnp.asarray(x2, dtype), jnp.asarray(w),
+                     jnp.asarray(b))
+    ref = vjp(jnp.asarray(gm, dtype))
+    leaves = [torch.from_numpy(x2).to(tdt).requires_grad_(), torch.from_numpy(w).requires_grad_(),
+              torch.from_numpy(b).requires_grad_()]
+    mlp_kernels.fused_fc1_gelu(*leaves).backward(torch.from_numpy(gm).to(tdt))
+    assert [t.grad.dtype for t in leaves] == [tdt, torch.float32, torch.float32]
+    for name, leaf, r in zip(("dx", "dW1", "db1"), leaves, ref):
+        assert_close_backward(name, leaf.grad.float().numpy(), np.asarray(r, np.float32))
+    # dW is the fp32 product of the (rounded) operands, not rounded to bf16
+    want = x2.astype(np.float64) if dtype == "float32" else (
+        torch.from_numpy(x2).bfloat16().double().numpy())
+    exact = want.T @ dpre.double().numpy()
+    np.testing.assert_allclose(leaves[1].grad.numpy(), exact, rtol=1e-5, atol=1e-5)
+    assert not torch.equal(leaves[1].grad, leaves[1].grad.bfloat16().float())
+
+
+def test_cpu_functions_return_the_plain_backward():
+    """On CPU tensors both autograd Functions return exactly what the plain
+    backward versions compute (with the Functions' dtype casts)."""
+    x, w, b, scale = attention_inputs()
+    ct = torch.from_numpy(cotangent()).bfloat16()
+    leaves = attention_leaves("bfloat16")
+    window_attention.fused_window_attention_qkv(*leaves, WINDOW, mask_pattern()).backward(ct)
+    ref = window_attention.window_attention_qkv_backward_reference(
+        *(t.detach() for t in leaves), ct, WINDOW, mask_pattern()
+    )
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, r.to(leaf.dtype), rtol=0, atol=0)
+
+    x2, w1, b1 = (torch.from_numpy(a) for a in mlp_inputs())
+    gm = torch.from_numpy(np.random.default_rng(5).standard_normal((T, HIDDEN))).bfloat16()
+    leaves = [x2.bfloat16().requires_grad_(), w1.clone().requires_grad_(), b1.clone().requires_grad_()]
+    mlp_kernels.fused_fc1_gelu(*leaves).backward(gm)
+    dpre = mlp_kernels.fc1_dpre_reference(leaves[0].detach(), w1, b1, gm)
+    torch.testing.assert_close(
+        leaves[0].grad, (dpre.float() @ w1.bfloat16().float().t()).bfloat16(), rtol=0, atol=0
+    )
+    torch.testing.assert_close(leaves[1].grad, leaves[0].detach().float().t() @ dpre.float(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(leaves[2].grad, dpre.float().sum(0), rtol=0, atol=0)
+
+
 def test_cpu_entry_points_take_the_plain_versions():
     x, w, b, scale = attention_inputs()
     args = (torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
@@ -154,9 +318,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x, w, b, scale = (torch.from_numpy(a) for a in attention_inputs())
     with pytest.raises(ValueError, match="CUDA"):
         window_attention.window_attention_qkv(x.bfloat16(), w.bfloat16(), b, scale, WINDOW)
+    with pytest.raises(ValueError, match="CUDA"):
+        window_attention.window_attention_qkv_bwd(
+            x.bfloat16(), w.bfloat16(), b, scale, x.bfloat16(), WINDOW
+        )
     x2, w1, b1 = (torch.from_numpy(a) for a in mlp_inputs())
     with pytest.raises(ValueError, match="CUDA"):
         mlp_kernels.fc1_gelu(x2.bfloat16(), w1.bfloat16(), b1)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp_kernels.fc1_dpre(x2.bfloat16(), w1.bfloat16(), b1, x2.bfloat16())
 
 
 def test_entry_point_refuses_cpb_bias():
@@ -212,11 +382,82 @@ def test_fc1_gelu_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_autograd_inputs(cuda_device):
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_window_attention_bwd_kernel_matches_plain(cuda_device, use_mask):
+    x, w, b, scale = (torch.from_numpy(a).to(cuda_device) for a in attention_inputs())
+    g = torch.from_numpy(cotangent()).to(cuda_device).bfloat16()
+    x, w16 = x.bfloat16(), w.bfloat16()
+    mask = torch.from_numpy(mask_pattern()).to(cuda_device) if use_mask else None
+    before = window_attention.window_attention_qkv_bwd.launches
+    out = window_attention.window_attention_qkv_bwd(x, w16, b, scale, g, WINDOW, mask, 1.0)
+    torch.cuda.synchronize()
+    assert window_attention.window_attention_qkv_bwd.launches == before + 1
+    ref = window_attention.window_attention_qkv_backward_reference(
+        x, w16, b, scale, g, WINDOW, mask
+    )
+    assert out[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in out[1:])
+    for name, a, r in zip(("dx", "dW", "db", "dscale"), out, ref):
+        assert_close_backward(name, a.float().cpu().numpy(), r.float().cpu().numpy())
+    # dW, db and dscale are reduced in a fixed order: a second call gives the same bits
+    again = window_attention.window_attention_qkv_bwd(x, w16, b, scale, g, WINDOW, mask, 1.0)
+    for a, r in zip(out, again):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_fc1_dpre_kernel_matches_plain(cuda_device):
     x2, w, b = (torch.from_numpy(a).to(cuda_device) for a in mlp_inputs())
-    w = w.bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        mlp_kernels.fc1_gelu(x2.bfloat16(), w, b)
+    x2 = torch.cat([x2, x2[:4]]).bfloat16()  # T = 100: ragged last tile
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((100, HIDDEN))).to(
+        cuda_device).bfloat16()
+    before = mlp_kernels.fc1_dpre.launches
+    out = mlp_kernels.fc1_dpre(x2, w.bfloat16(), b, g)
+    torch.cuda.synchronize()
+    assert mlp_kernels.fc1_dpre.launches == before + 1
+    ref = mlp_kernels.fc1_dpre_reference(x2, w, b, g)
+    # a flipped bf16 pre-activation moves g * gelu' by up to |g| * 1.13 ulp of
+    # pre, plus the output rounding
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+
+
+@pytest.mark.cuda
+def test_gradients_flow_through_the_kernels(cuda_device):
+    """Autograd on CUDA tensors runs K1/K3 forward and K2/K4 backward, and the
+    gradients (with their JAX dtypes) match the same Functions on the CPU,
+    which take the plain versions."""
+    x, w, b, scale = (torch.from_numpy(a) for a in attention_inputs())
+    g = torch.from_numpy(cotangent()).bfloat16()
+    mask = torch.from_numpy(mask_pattern())
+
+    def attn_grads(dev):
+        leaves = [x.bfloat16().to(dev), w.bfloat16().to(dev), b.to(dev), scale.to(dev)]
+        leaves = [t.requires_grad_() for t in leaves]
+        out = window_attention.fused_window_attention_qkv(*leaves, WINDOW, mask.to(dev))
+        out.backward(g.to(dev))
+        return [t.grad.cpu() for t in leaves]
+
+    launches = window_attention.window_attention_qkv_bwd.launches
+    got, want = attn_grads(cuda_device), attn_grads(torch.device("cpu"))
+    assert window_attention.window_attention_qkv_bwd.launches == launches + 1
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16, torch.float32, torch.float32]
+    for name, a, r in zip(("dx", "dW", "db", "dscale"), got, want):
+        assert_close_backward(name, a.float().numpy(), r.float().numpy())
+
+    x2, w1, b1 = (torch.from_numpy(a) for a in mlp_inputs())
+    gm = torch.from_numpy(np.random.default_rng(5).standard_normal((T, HIDDEN))).bfloat16()
+
+    def mlp_grads(dev):
+        leaves = [x2.bfloat16().to(dev), w1.to(dev), b1.to(dev)]
+        leaves = [t.requires_grad_() for t in leaves]
+        mlp_kernels.fused_fc1_gelu(*leaves).backward(gm.to(dev))
+        return [t.grad.cpu() for t in leaves]
+
+    launches = mlp_kernels.fc1_dpre.launches
+    got, want = mlp_grads(cuda_device), mlp_grads(torch.device("cpu"))
+    assert mlp_kernels.fc1_dpre.launches == launches + 1
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
+    for name, a, r in zip(("dx", "dW1", "db1"), got, want):
+        assert_close_backward(name, a.float().numpy(), r.float().numpy())
 
 
 @pytest.mark.cuda
