@@ -11,7 +11,10 @@ on the seeded weights ``chip_smoke.py`` draws, TF32 off. For each path, after
 two warm-up steps:
 
   * rollout: ``RolloutEngine.steps``, batch 1, from 2018-01-01T00:00;
-  * train: the ``build_train_step`` closure, batch 1, drop-path 0.1 live.
+  * train: the ``build_train_step`` closure, batch 1, drop-path 0.1 live;
+  * train 2-step: the same closure on the 2-step fine-tune
+    ``swin_73var_geo_depth12_chweight_invar_2step`` (the unrolled two-step
+    rollout on the whole-MLP kernels K5/K6).
 
 it prints the ms/step by CUDA events without the profiler; the host time of
 one step's own work (train: the step's enqueue, with no sync in it; rollout:
@@ -43,6 +46,8 @@ CATEGORIES = (
     ("K2 reductions", lambda n: "column_sums_kernel" in n
      or "(anonymous namespace)::reduce_kernel" in n),
     ("K1", lambda n: "window_attention_qkv_kernel" in n),
+    ("K5", lambda n: "mlp_fwd_kernel" in n),
+    ("K6", lambda n: "mlp_bwd_kernel" in n),
     ("K4", lambda n: "DpreEpilogue" in n),
     ("K3", lambda n: "GeluEpilogue" in n),
     ("Adam (foreach)", lambda n: "multi_tensor_apply" in n or "adam" in n.lower()),
@@ -122,8 +127,7 @@ def main() -> None:
         raise SystemExit("chip_profile: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke
-    from swin_v2_weather_torch.config.yparams import YParams, default_config_path
-    from swin_v2_weather_torch.data.preprocess import Preprocessor, derived_channel_counts
+    from swin_v2_weather_torch.data.preprocess import Preprocessor
     from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
     from swin_v2_weather_torch.inference.rollout import RolloutEngine
     from swin_v2_weather_torch.models.wrappers import get_model
@@ -146,10 +150,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     n = N_STEPS
 
-    params = YParams(default_config_path(), chip_smoke.CONFIG)
-    params["n_in_channels"], params["n_out_channels"] = derived_channel_counts(params)
-    params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
-    params["data_loader_config"] = "synthetic"  # temp-std takes unit stats
+    params = chip_smoke.train_params(chip_smoke.CONFIG)
 
     # ---- rollout ---------------------------------------------------------------
     model = get_model(params)
@@ -172,29 +173,33 @@ def main() -> None:
     del engine, model, steps
     torch.cuda.empty_cache()
 
-    # ---- train step ------------------------------------------------------------
-    model = get_model(params).to(dev)
-    chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED + 1))
-    train_step = build_train_step(
-        model, LossHandler(params), Preprocessor(params),
-        build_optimizer(params, model.parameters()),
-        generator=torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
-    )
-    batch = collate([SyntheticDataset(params)[0]], device=dev)
-    log(f"[train] {chip_smoke.CONFIG}, batch 1, drop_path_rate {params.drop_path_rate}")
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
+    # ---- train steps: single-step, then the 2-step fine-tune -----------------
+    for label, config in (("train", chip_smoke.CONFIG), ("train 2-step", chip_smoke.CONFIG_2STEP)):
+        params = chip_smoke.train_params(config)
+        model = get_model(params)
+        chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED + 1))
+        train_step = build_train_step(
+            model, LossHandler(params), Preprocessor(params),
+            build_optimizer(params, model.parameters()),
+            generator=torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
+        )
+        batch = collate([SyntheticDataset(params)[0]], device=dev)
+        log(f"[{label}] {config}, batch 1, drop_path_rate {params.drop_path_rate}")
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            train_step(batch)
+        log(f"  unprofiled: {events_ms(lambda: train_step(batch), n):.2f} ms/step ({card})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         train_step(batch)
-    log(f"  unprofiled: {events_ms(lambda: train_step(batch), n):.2f} ms/step ({card})")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    train_step(batch)
-    host = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    log(f"  host enqueue of one step: {host:.1f} ms of "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
-    profile_steps("train", lambda: train_step(batch), n, card)
-    log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        log(f"  host enqueue of one step: {host:.1f} ms of "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
+        profile_steps(label, lambda: train_step(batch), n, card)
+        log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        del model, train_step, batch
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

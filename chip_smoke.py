@@ -33,15 +33,36 @@ printing its own lines:
   9. the flagship train step at full width, drop-path 0.1 live, built through
      ``get_model``, ``LossHandler`` (synthetic unit stats), ``Preprocessor``,
      ``build_optimizer`` and ``build_train_step``, on seeded parameters and a
-     batch of 1 from ``SyntheticDataset``: 4 steps, each of the four kernels
-     launched 12 x 4 = 48 times, finite metrics, every parameter moved; step
+     batch of 1 from ``SyntheticDataset``: 4 steps, K1-K4 each launched 12 x 4
+     = 48 times and K5/K6 never, finite metrics, every parameter moved; step
      1's loss and gradient norms against the plain path on the card (same
      weights, batch and generator seed, so the drop-path masks agree); one
      ``build_eval_step`` call.
  10. train ms/step on both paths (CUDA events, after one warm-up step),
      samples/s and the peak device memory.
+ 11. the whole-MLP kernels, forward (K5) and backward (K6), against their
+     plain versions at [64800, 768] x [768, 3072] x [3072, 768], timed.
+ 12. the 2-step fine-tune ``swin_73var_geo_depth12_chweight_invar_2step``
+     (unrolled rollout, whole-MLP route) as in phases 9-10: 3 steps, K1, K2,
+     K5 and K6 each launched 12 x 2 = 24 times a step and K3/K4 never; step 1
+     against the plain path; one eval step; ms/step, samples/s and peak
+     memory on both paths.
+ 13. the 4-step fine-tune ``..._4step`` (looped rollout, each step's model
+     call under the checkpoint): 2 steps, K1 and K5 launched 12 x 4 x 2 = 96
+     times a step (forward and recompute), K2 and K6 48; step 1 against the
+     plain path; ms/step and peak memory of the kernel path.
+ 14. the depth-24 single-step train step, ``swin_73var_geo_depth24_chweight_invar``
+     (whole-MLP route): 3 steps, K1, K2, K5 and K6 launched 24 times a step;
+     finite metrics, every parameter moved; ms/step and peak memory.
 
-Then one JSON line with the kernels' results, and as the last line
+Then one JSON line with each kernel's results: ``launches`` on the main path
+of the slice that brought it (K1, K2, K5, K6: the 2-step fine-tune; K3, K4:
+the single-step train step), the launches on every path and per step, the
+largest abs difference from its plain version, its time and the plain
+version's (CUDA events), the bound (the larger of its FLOPs at the bf16 peak
+and its bytes, each input read and each output written once, at the memory
+rate of an H100 SXM) and ``library_ms`` (null: no single PyTorch call
+computes any of the six functions). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
 CUDA device the script exits with code 1 before printing any result.
 """
@@ -63,7 +84,14 @@ import torch
 
 SEED = 2018
 CONFIG = "swin_73var_geo_depth12_chweight_invar"
+CONFIG_2STEP = "swin_73var_geo_depth12_chweight_invar_2step"
+CONFIG_4STEP = "swin_73var_geo_depth12_chweight_invar_4step"
+CONFIG_DEPTH24 = "swin_73var_geo_depth24_chweight_invar"
 N_STEPS = 4
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 START = datetime.datetime(2018, 1, 1, 0, 0)
 
 # Tolerances, in bf16 ulps of the output scale (the bf16 spacing at the
@@ -82,6 +110,10 @@ BWD_TOL = {"dx": (2.0, 0.05), "dW": (4.0, 0.05), "db": (4.0, 0.05), "dscale": (2
 # each gradient norm. Both are sums over millions of terms, so one-ulp flips
 # of either sign average out (about 1e-5 relative on the H100).
 STEP_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+# Whole MLP (K5 out; K6 a and dpre): the same rounding sites on both sides; a
+# flipped bf16 rounding of pre or a moves an output by about one ulp, and the
+# fc2 product's and the bias add's roundings flip with the sum order.
+MLP2_TOL = (2.0, 0.02)
 
 
 def log(msg: str) -> None:
@@ -119,6 +151,31 @@ def time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def bound(flops: float, nbytes: float):
+    """(least ms on an H100 SXM, "operations" or "bytes"): the larger of the
+    FLOPs at the bf16 tensor-core peak and the bytes at the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def train_params(config: str):
+    """The config's parameters with the derived channel counts, set up for
+    synthetic data (the temp-std loss then takes unit stats)."""
+    from swin_v2_weather_torch.config.yparams import YParams, default_config_path
+    from swin_v2_weather_torch.data.preprocess import derived_channel_counts
+
+    params = YParams(default_config_path(), config)
+    params["n_in_channels"], params["n_out_channels"] = derived_channel_counts(params)
+    params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
+    params["data_loader_config"] = "synthetic"
+    return params
+
+
 def seeded_parameters(model: torch.nn.Module, gen: torch.Generator) -> None:
     """Every parameter from seeded noise; LayerNorm scales 1 + 0.1 N(0, 1)."""
     with torch.no_grad():
@@ -151,6 +208,8 @@ def main() -> None:
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
+    counted = (wa.window_attention_qkv, wa.window_attention_qkv_bwd, mk.fc1_gelu, mk.fc1_dpre,
+               mk.mlp_fwd, mk.mlp_bwd)
 
     # ---- 1. versions and card ------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -202,11 +261,15 @@ def main() -> None:
         log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
         if attn_ms is None:
             attn_ms, attn_plain_ms = k_ms, p_ms
-    results["window_attention_qkv"] = (max(errs), attn_ms, attn_plain_ms)
+    # K1's work: the qkv projection, then q k^T and p v per (window, head) at L = 162
+    t_tok, l_win = b * gh * gw, window[0] * window[1]
+    attn_flops = 2 * 2 * l_win * (c // heads) * l_win * heads * (t_tok // l_win)
+    results["window_attention_qkv"] = (max(errs), attn_ms, attn_plain_ms, bound(
+        2 * t_tok * c * 3 * c + attn_flops, nbytes(x, w16, b_qkv, scale, out)))
     del x, out, ref
 
     # ---- 4. K3 fc1 + GELU at flagship shapes ---------------------------------
-    t_tok, hidden = b * gh * gw, 4 * c
+    hidden = 4 * c
     x2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
     w1 = (2 * torch.rand((c, hidden), generator=gen, device=dev) - 1) / math.sqrt(c)
     b1 = 0.02 * torch.randn((hidden,), generator=gen, device=dev)
@@ -222,7 +285,8 @@ def main() -> None:
         p_ms = time_ms(lambda: mk.fc1_gelu_reference(x2, w1, b1), 5)
     log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s), "
         f"plain {p_ms:.4f} ms ({card})")
-    results["fc1_gelu"] = (err, k_ms, p_ms)
+    results["fc1_gelu"] = (err, k_ms, p_ms, bound(2 * t_tok * c * hidden,
+                                                   nbytes(x2, w1_16, b1, out)))
     del x2, out, ref
 
     # ---- 5. flagship serving through get_model + RolloutEngine ---------------
@@ -233,7 +297,7 @@ def main() -> None:
     cpu_gen = torch.Generator().manual_seed(SEED)
     seeded_parameters(model, cpu_gen)
     n_params = sum(p.numel() for p in model.parameters())
-    state = model.state_dict()
+    state = {k: v.cpu() for k, v in model.state_dict().items()}  # get_model built it on the GPU
     back = params_from_jax(params_to_jax(state))
     if set(back) != set(state) or not all(torch.equal(back[k], state[k]) for k in state):
         raise RuntimeError("state_dict -> JAX layout -> state_dict round trip is not exact")
@@ -242,21 +306,19 @@ def main() -> None:
     engine = RolloutEngine(params, model, dev)
     state0 = torch.randn((1, n_out, *params.img_size), generator=cpu_gen)
 
-    wa.window_attention_qkv.launches = 0
-    mk.fc1_gelu.launches = 0
+    for fn in counted:
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     preds = engine.rollout(state0, START, N_STEPS)
     rollout_s = time.time() - t0
-    launches = {
-        "window_attention_qkv": wa.window_attention_qkv.launches,
-        "fc1_gelu": mk.fc1_gelu.launches,
-    }
+    launches = {fn.__name__: fn.launches for fn in counted}
     log(f"  rollout {N_STEPS} steps in {rollout_s:.2f} s -> {preds.shape} {preds.dtype}; "
         f"launches {launches}")
     want = int(params.depth) * N_STEPS
-    if any(n != want for n in launches.values()):
-        raise RuntimeError(f"each kernel must launch {want} times on the main path, got {launches}")
+    expected = {n: want if n in ("window_attention_qkv", "fc1_gelu") else 0 for n in launches}
+    if launches != expected:
+        raise RuntimeError(f"the rollout must launch {expected}, got {launches}")
     if preds.shape != (N_STEPS, 1, n_out, *params.img_size) or not np.isfinite(preds).all():
         raise RuntimeError("rollout output has the wrong shape or non-finite values")
     for s in range(N_STEPS):
@@ -323,7 +385,11 @@ def main() -> None:
         log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card}); two calls bit-equal")
         if bwd_ms is None:
             bwd_ms, bwd_plain_ms = k_ms, p_ms
-    results["window_attention_qkv_bwd"] = (bwd_errs["dx"], bwd_ms, bwd_plain_ms)
+    # K2's work: the projection recomputed, dx and dW (three T x C x 3C
+    # products), and per (window, head) the scores, dp, dv, dq and dk
+    results["window_attention_qkv_bwd"] = (bwd_errs["dx"], bwd_ms, bwd_plain_ms, bound(
+        3 * 2 * t_tok * c * 3 * c + 5 * attn_flops / 2,
+        nbytes(x, w16, b_qkv, scale, g, *out)))
     del x, g, out, ref, again
 
     # ---- 8. K4 fc1 backward (pre-activation cotangent) at flagship shapes ----
@@ -338,54 +404,17 @@ def main() -> None:
     p_ms = time_ms(lambda: mk.fc1_dpre_reference(x2, w1, b1, g2), 5)
     log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s), "
         f"plain {p_ms:.4f} ms ({card})")
-    results["fc1_dpre"] = (err, k_ms, p_ms)
+    results["fc1_dpre"] = (err, k_ms, p_ms, bound(2 * t_tok * c * hidden,
+                                                  nbytes(x2, w1_16, b1, g2, out)))
     del x2, g2, out, ref, w1, b1, w1_16, w_qkv, w16, b_qkv, scale
     torch.cuda.empty_cache()
 
-    # ---- 9. the flagship train step ------------------------------------------
+    # ---- 9-10, 12-14: train paths ---------------------------------------------
     from swin_v2_weather_torch.data.preprocess import Preprocessor
     from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
     from swin_v2_weather_torch.ops.losses import LossHandler
     from swin_v2_weather_torch.training.optim import build_optimizer
     from swin_v2_weather_torch.training.step import build_eval_step, build_train_step
-
-    params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
-    params["data_loader_config"] = "synthetic"  # temp-std takes unit stats
-    model = get_model(params).to(dev)
-    seeded_parameters(model, torch.Generator().manual_seed(SEED + 1))
-    init = {n: p.detach().clone() for n, p in model.named_parameters()}
-    loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
-    batch = collate([SyntheticDataset(params)[0]], device=dev)
-    log(f"[9] train step: {CONFIG}, drop_path_rate {params.drop_path_rate}, loss "
-        f"'{params.loss}', {params.optimizer_type} lr {float(params.lr)}, batch 1 "
-        f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
-
-    def make_step():
-        """A fresh optimizer and drop-path generator (same seed every time)."""
-        optimizer = build_optimizer(params, model.parameters())
-        dp_gen = torch.Generator(device=dev).manual_seed(SEED)
-        return build_train_step(model, loss_handler, preprocessor, optimizer, generator=dp_gen)
-
-    counted = (wa.window_attention_qkv, wa.window_attention_qkv_bwd, mk.fc1_gelu, mk.fc1_dpre)
-    for fn in counted:
-        fn.launches = 0
-    train_step = make_step()
-    metrics = [train_step(batch) for _ in range(N_STEPS)]
-    torch.cuda.synchronize()
-    train_launches = {fn.__name__: fn.launches for fn in counted}
-    log(f"  {N_STEPS} steps; launches {train_launches}")
-    if any(n != want for n in train_launches.values()):
-        raise RuntimeError(f"each kernel must launch {want} times in {N_STEPS} train steps, "
-                           f"got {train_launches}")
-    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
-    for i, m in enumerate(metrics):
-        log(f"    step {i + 1}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}")
-    if not all(math.isfinite(v) for m in metrics for v in m.values()):
-        raise RuntimeError("non-finite loss or gradient norm")
-    frozen = [n for n, p in model.named_parameters() if torch.equal(p, init[n])]
-    if frozen:
-        raise RuntimeError(f"parameters the steps did not change: {frozen}")
-    log(f"  all {len(init)} parameter tensors changed")
 
     @contextlib.contextmanager
     def plain_train():
@@ -394,41 +423,11 @@ def main() -> None:
         with mock.patch.multiple(
             wa, window_attention_qkv=wa.window_attention_qkv_reference,
             window_attention_qkv_bwd=wa.window_attention_qkv_backward_reference,
-        ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference):
+        ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference,
+                               mlp_fwd=mk.mlp_fwd_reference, mlp_bwd=mk.mlp_bwd_reference):
             yield
 
-    with torch.no_grad():
-        for n, p in model.named_parameters():
-            p.copy_(init[n])
-    del init
-    with plain_train():
-        plain_step = make_step()
-        plain_metrics = {k: float(v) for k, v in plain_step(batch).items()}
-    if {fn.__name__: fn.launches for fn in counted} != train_launches:
-        raise RuntimeError("the plain path launched a kernel")
-    log("  step 1, kernel path vs plain path (relative difference):")
-    for key, ref_val in plain_metrics.items():
-        got = metrics[0][key]
-        rel = abs(got - ref_val) / abs(ref_val)
-        tol = STEP_RTOL["loss" if key == "loss" else "grad_norm"]
-        log(f"    {key}: {got:.6g} vs {ref_val:.6g}, rel {rel:.3g} (tol {tol:g})")
-        if not rel <= tol:
-            raise RuntimeError(f"train step 1 {key}: kernel and plain path disagree")
-    if set(plain_metrics) != set(metrics[0]):
-        raise RuntimeError("the two paths report different metrics")
-
-    eval_batch = collate([SyntheticDataset(params, train=False)[0]], device=dev)
-    ev = build_eval_step(model, loss_handler, preprocessor, n_out)(eval_batch)
-    ev = {k: v.cpu() for k, v in ev.items()}
-    if ev["rmse"].shape != (n_out,) or ev["acc"].shape != (n_out,) or not all(
-        bool(torch.isfinite(v).all()) for v in ev.values()
-    ):
-        raise RuntimeError("eval step: wrong shapes or non-finite values")
-    log(f"  eval step: loss {float(ev['loss']):.6f}, mean rmse {float(ev['rmse'].mean()):.6f}, "
-        f"mean acc {float(ev['acc'].mean()):.6f}")
-
-    # ---- 10. train ms/step on both paths ------------------------------------
-    def train_ms(step_fn, n: int = 3):
+    def train_ms(step_fn, batch, n: int):
         step_fn(batch)  # warm-up step
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -440,47 +439,194 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / n, torch.cuda.max_memory_allocated() / 2**30
 
-    kernel_train, kernel_train_mem = train_ms(train_step)
-    with plain_train():
-        plain_train_ms, plain_train_mem = train_ms(plain_step)
-    log(f"[10] train step, batch 1: kernel path {kernel_train:.2f} ms/step "
-        f"({1000.0 / kernel_train:.3f} samples/s, peak {kernel_train_mem:.3f} GiB), plain path "
-        f"{plain_train_ms:.2f} ms/step ({1000.0 / plain_train_ms:.3f} samples/s, peak "
-        f"{plain_train_mem:.3f} GiB); {card}")
+    def train_path(tag: str, config: str, n_steps: int, per_step: dict, plain_step1: bool = True,
+                   eval_step: bool = False, n_timed: int = 3, plain_timed: bool = False):
+        """Drive one train path: get_model -> LossHandler -> Preprocessor ->
+        build_optimizer -> build_train_step, n_steps steps from seeded
+        parameters, each kernel launched per_step[name] times a step (0 if
+        absent), finite metrics, every parameter moved; then step 1 against
+        the plain path, an eval step, and ms/step and peak memory. Returns the
+        launches of the n_steps steps."""
+        params = train_params(config)
+        model = get_model(params)
+        seeded_parameters(model, torch.Generator().manual_seed(SEED + 1))
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
+        batch = collate([SyntheticDataset(params)[0]], device=dev)
+        n_future = int(params.n_future)
+        log(f"{tag} train step: {config}, depth {params.depth}, n_future {n_future} "
+            f"({type(model).__name__}), drop_path_rate {params.drop_path_rate}, loss "
+            f"'{params.loss}', {params.optimizer_type} lr {float(params.lr)}, batch 1 "
+            f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
 
-    kernels = [
-        {
-            "name": "window_attention_qkv",
+        def make_step():
+            """A fresh optimizer and drop-path generator (same seed every time)."""
+            optimizer = build_optimizer(params, model.parameters())
+            dp_gen = torch.Generator(device=dev).manual_seed(SEED)
+            return build_train_step(model, loss_handler, preprocessor, optimizer, generator=dp_gen)
+
+        for fn in counted:
+            fn.launches = 0
+        train_step = make_step()
+        metrics = [train_step(batch) for _ in range(n_steps)]
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        log(f"  {n_steps} steps; launches {launches}")
+        want = {name: per_step.get(name, 0) * n_steps for name in launches}
+        if launches != want:
+            raise RuntimeError(f"{tag}: launches in {n_steps} train steps must be {want}, "
+                               f"got {launches}")
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        for i, m in enumerate(metrics):
+            log(f"    step {i + 1}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}")
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise RuntimeError(f"{tag}: non-finite loss or gradient norm")
+        frozen = [n for n, p in model.named_parameters() if torch.equal(p, init[n])]
+        if frozen:
+            raise RuntimeError(f"{tag}: parameters the steps did not change: {frozen}")
+        log(f"  all {len(init)} parameter tensors changed")
+
+        plain_step = None
+        if plain_step1:
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+            with plain_train():
+                plain_step = make_step()
+                plain_metrics = {k: float(v) for k, v in plain_step(batch).items()}
+            if {fn.__name__: fn.launches for fn in counted} != launches:
+                raise RuntimeError(f"{tag}: the plain path launched a kernel")
+            log("  step 1, kernel path vs plain path (relative difference):")
+            for key, ref_val in plain_metrics.items():
+                got = metrics[0][key]
+                rel = abs(got - ref_val) / abs(ref_val)
+                tol = STEP_RTOL["loss" if key == "loss" else "grad_norm"]
+                log(f"    {key}: {got:.6g} vs {ref_val:.6g}, rel {rel:.3g} (tol {tol:g})")
+                if not rel <= tol:
+                    raise RuntimeError(f"{tag} train step 1 {key}: kernel and plain path disagree")
+            if set(plain_metrics) != set(metrics[0]):
+                raise RuntimeError(f"{tag}: the two paths report different metrics")
+        del init
+
+        if eval_step:
+            n_out = int(params.n_out_channels)
+            eval_batch = collate([SyntheticDataset(params, train=False)[0]], device=dev)
+            ev = build_eval_step(model, loss_handler, preprocessor, n_out)(eval_batch)
+            ev = {k: v.cpu() for k, v in ev.items()}
+            if ev["rmse"].shape != (n_out,) or ev["acc"].shape != (n_out,) or not all(
+                bool(torch.isfinite(v).all()) for v in ev.values()
+            ):
+                raise RuntimeError(f"{tag} eval step: wrong shapes or non-finite values")
+            log(f"  eval step (RMSE/ACC of the last rollout step): loss {float(ev['loss']):.6f}, "
+                f"mean rmse {float(ev['rmse'].mean()):.6f}, mean acc {float(ev['acc'].mean()):.6f}")
+            del eval_batch
+
+        k_ms, k_mem = train_ms(train_step, batch, n_timed)
+        line = (f"{tag} train step {config}, batch 1: kernel path {k_ms:.2f} ms/step "
+                f"({1000.0 / k_ms:.3f} samples/s, peak {k_mem:.3f} GiB)")
+        if plain_timed:
+            with plain_train():
+                p_ms, p_mem = train_ms(plain_step, batch, n_timed)
+            line += (f", plain path {p_ms:.2f} ms/step ({1000.0 / p_ms:.3f} samples/s, peak "
+                     f"{p_mem:.3f} GiB)")
+        log(f"{line}; {card}")
+        del model, train_step, plain_step, batch
+        torch.cuda.empty_cache()
+        return launches
+
+    depth = int(params.depth)
+    train_launches = train_path(
+        "[9]", CONFIG, N_STEPS,
+        {"window_attention_qkv": depth, "window_attention_qkv_bwd": depth, "fc1_gelu": depth,
+         "fc1_dpre": depth},
+        eval_step=True, plain_timed=True)
+
+    # ---- 11. K5 and K6, the whole MLP, at flagship shapes ---------------------
+    x2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
+    g2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
+    w1 = (2 * torch.rand((c, hidden), generator=gen, device=dev) - 1) / math.sqrt(c)
+    b1 = 0.02 * torch.randn((hidden,), generator=gen, device=dev)
+    w2 = (2 * torch.rand((hidden, c), generator=gen, device=dev) - 1) / math.sqrt(hidden)
+    b2 = 0.02 * torch.randn((c,), generator=gen, device=dev)
+    w1_16, w2_16 = w1.bfloat16(), w2.bfloat16()
+    mlp_flops = 2 * t_tok * hidden * (c + c)
+    log(f"[11] mlp_fwd / mlp_bwd: x2, g [{t_tok}, {c}] bf16, W1 [{c}, {hidden}], "
+        f"W2 [{hidden}, {c}]")
+    with torch.inference_mode():
+        out = mk.mlp_fwd(x2, w1_16, b1, w2_16, b2)
+        ref = mk.mlp_fwd_reference(x2, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    err = compare("mlp_fwd out", out, ref, MLP2_TOL)
+    with torch.inference_mode():
+        k_ms = time_ms(lambda: mk.mlp_fwd(x2, w1_16, b1, w2_16, b2), 20)
+        p_ms = time_ms(lambda: mk.mlp_fwd_reference(x2, w1, b1, w2, b2), 5)
+    log(f"  K5 kernel {k_ms:.4f} ms ({mlp_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
+        f"({card}); library call: none (no single PyTorch call computes fc1 + GELU + fc2)")
+    results["mlp_fwd"] = (err, k_ms, p_ms, bound(mlp_flops, nbytes(x2, w1_16, b1, w2_16, b2, out)))
+    del out, ref
+    with torch.inference_mode():
+        out = mk.mlp_bwd(x2, w1_16, b1, w2_16, g2)
+        ref = mk.mlp_bwd_reference(x2, w1, b1, w2, g2)
+    torch.cuda.synchronize()
+    err = max(compare("mlp_bwd a", out[0], ref[0], MLP_TOL),
+              compare("mlp_bwd dpre", out[1], ref[1], MLP_TOL))
+    with torch.inference_mode():
+        k_ms = time_ms(lambda: mk.mlp_bwd(x2, w1_16, b1, w2_16, g2), 20)
+        p_ms = time_ms(lambda: mk.mlp_bwd_reference(x2, w1, b1, w2, g2), 5)
+    log(f"  K6 kernel {k_ms:.4f} ms ({mlp_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
+        f"({card}); library call: none (no single PyTorch call computes (a, dpre))")
+    results["mlp_bwd"] = (err, k_ms, p_ms, bound(mlp_flops,
+                                                 nbytes(x2, w1_16, b1, w2_16, g2, *out)))
+    del x2, g2, w1, b1, w2, b2, w1_16, w2_16, out, ref
+    torch.cuda.empty_cache()
+
+    # ---- 12-14. the fine-tunes and depth 24 ------------------------------------
+    whole_mlp = ("window_attention_qkv", "window_attention_qkv_bwd", "mlp_fwd", "mlp_bwd")
+    launches_2step = train_path("[12]", CONFIG_2STEP, 3, {k: 2 * depth for k in whole_mlp},
+                                eval_step=True, plain_timed=True)
+    launches_4step = train_path(
+        "[13]", CONFIG_4STEP, 2,
+        {"window_attention_qkv": 8 * depth, "window_attention_qkv_bwd": 4 * depth,
+         "mlp_fwd": 8 * depth, "mlp_bwd": 4 * depth},
+        n_timed=2)
+    # 3 steps: at batch 1 a branch of a deep block may be dropped in one or two
+    # of them, and its parameters must still move
+    launches_depth24 = train_path("[14]", CONFIG_DEPTH24, 3, {k: 2 * depth for k in whole_mlp},
+                                  plain_step1=False, n_timed=2)
+
+    by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
+               "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
+               "train_depth24": (launches_depth24, 3)}
+    sources = {
+        "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
+                                 "train_2step"),
+        "window_attention_qkv_bwd": ("window_attention_qkv_bwd.cu", "window_attention.py:1397",
+                                     "train_2step"),
+        "fc1_gelu": ("fc1_gelu.cu", "mlp_kernels.py:110", "train"),
+        "fc1_dpre": ("fc1_gelu.cu", "mlp_kernels.py:140", "train"),
+        "mlp_fwd": ("mlp.cu", "mlp_kernels.py:295", "train_2step"),
+        "mlp_bwd": ("mlp.cu", "mlp_kernels.py:317", "train_2step"),
+    }
+    kernels = []
+    for name, (src, replaces, main_path) in sources.items():
+        err, k_ms, p_ms, (b_ms, b_by) = results[name]
+        kernels.append({
+            "name": name,
             "route": "cuda",
-            "source": "swin_v2_weather_torch/ops/csrc/window_attention_qkv.cu",
-            "replaces": "swin_v2_weather_tpu/ops/window_attention.py:1142",
-        },
-        {
-            "name": "fc1_gelu",
-            "route": "cuda",
-            "source": "swin_v2_weather_torch/ops/csrc/fc1_gelu.cu",
-            "replaces": "swin_v2_weather_tpu/ops/mlp_kernels.py:110",
-        },
-        {
-            "name": "window_attention_qkv_bwd",
-            "route": "cuda",
-            "source": "swin_v2_weather_torch/ops/csrc/window_attention_qkv_bwd.cu",
-            "replaces": "swin_v2_weather_tpu/ops/window_attention.py:1397",
-        },
-        {
-            "name": "fc1_dpre",
-            "route": "cuda",
-            "source": "swin_v2_weather_torch/ops/csrc/fc1_gelu.cu",
-            "replaces": "swin_v2_weather_tpu/ops/mlp_kernels.py:140",
-        },
-    ]
-    for k in kernels:
-        err, k_ms, p_ms = results[k["name"]]
-        # launches: the train step's run (phase 9); the serving run's beside it
-        k.update(launches=train_launches[k["name"]], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                 launches_by_path={"serve": serve_launches.get(k["name"], 0),
-                                   "train": train_launches[k["name"]]})
-    kernels[2]["max_abs_err_by_output"] = bwd_errs
+            "source": f"swin_v2_weather_torch/ops/csrc/{src}",
+            "replaces": f"swin_v2_weather_tpu/ops/{replaces}",
+            "launches": by_path[main_path][0][name],
+            "max_abs_err": err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "main_path": main_path,
+            "launches_by_path": {path: lc.get(name, 0) for path, (lc, _) in by_path.items()},
+            "launches_per_step": {path: lc.get(name, 0) / n for path, (lc, n) in by_path.items()},
+        })
+    kernels[1]["max_abs_err_by_output"] = bwd_errs
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

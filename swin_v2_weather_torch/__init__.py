@@ -11,10 +11,10 @@ config     YAML configuration system (shares the JAX package's swin.yaml)
 data       static conditioning inputs, channel bookkeeping, the preprocessor,
            the synthetic dataset
 ops        zenith angle, quadrature, losses, metrics; the fused
-           window-attention and fc1+GELU kernels (forward and backward) with
-           their plain PyTorch versions
-models     SwinV2 in PyTorch (train mode with drop-path), the single-step
-           wrapper, JAX weight conversion
+           window-attention, fc1+GELU and whole-MLP kernels (forward and
+           backward) with their plain PyTorch versions
+models     SwinV2 in PyTorch (train mode with drop-path), the single- and
+           multi-step wrappers, JAX weight conversion
 training   Adam, the LR schedules, the train and eval steps
 inference  model registry and the autoregressive rollout engine
 """

@@ -73,8 +73,9 @@ class SyntheticDataset:
 _KEYS = ("inp", "tar", "zen_inp", "zen_tar")
 
 
-def collate(samples: Sequence[tuple], device=None) -> Dict[str, torch.Tensor]:
-    """Stack dataset samples into a batch dict of fp32 tensors (on ``device``)."""
+def collate(samples: Sequence[tuple], device="cuda") -> Dict[str, torch.Tensor]:
+    """Stack dataset samples into a batch dict of fp32 tensors on ``device``
+    (the GPU unless the caller asks for another)."""
     return {
         key: torch.as_tensor(np.stack([s[i] for s in samples]), device=device)
         for i, key in enumerate(_KEYS[: len(samples[0])])

@@ -42,8 +42,8 @@ class _DictParams(dict):
         return self
 
 
-def swin_from_yaml(yaml_path: str, dtype: Optional[torch.dtype] = None):
-    """(model, params) from a dumped hyperparams.yaml.
+def swin_from_yaml(yaml_path: str, dtype: Optional[torch.dtype] = None, device="cuda"):
+    """(model on ``device``, params) from a dumped hyperparams.yaml.
 
     Serving rebuilds the single-step core: multi-step wrapping and spatial
     sharding are training-time constructs, so both are switched off.
@@ -62,7 +62,7 @@ def swin_from_yaml(yaml_path: str, dtype: Optional[torch.dtype] = None):
         params["n_out_channels"] = n_out
     params["n_future"] = 0
     params["spatial_shards"] = 1
-    model = get_model(params, dtype=dtype)
+    model = get_model(params, dtype=dtype, device=device)
     return model, params
 
 
@@ -71,12 +71,14 @@ def load_model(
 ) -> Tuple[nn.Module, dict]:
     """(model on ``device`` in eval mode, params) from a registry directory."""
     device = torch.device(device)
-    model, params = swin_from_yaml(os.path.join(registry_dir, "hyperparams.yaml"), dtype=dtype)
+    model, params = swin_from_yaml(
+        os.path.join(registry_dir, "hyperparams.yaml"), dtype=dtype, device=device
+    )
     state = torch.load(
         os.path.join(registry_dir, "weights.pt"), map_location=device, weights_only=True
     )
     model.load_state_dict(state)
-    model.to(device).eval()
+    model.eval()
     # point stats paths at the registry copies when present
     for key in ("global_means_path", "global_stds_path", "time_means_path"):
         src = params.get(key)

@@ -1,9 +1,11 @@
 """SwinV2 for global weather forecasting -- PyTorch port.
 
-Counterpart of ``swin_v2_weather_tpu/models/swin.py`` for the route the
-flagship configs take: the qkv-fused window-attention kernel
-(``attn_impl: 'pallas_qkv'``) and the fused fc1+GELU MLP kernel
-(``mlp_impl`` default ``'fused'``), post-norm blocks through the plain
+Counterpart of ``swin_v2_weather_tpu/models/swin.py`` for the routes the
+flagship, fine-tune and depth-24 configs take: the qkv-fused window-attention
+kernel (``attn_impl: 'pallas_qkv'``); the MLP through the fc1+GELU kernel
+pair (``mlp_impl: 'fused'``, the default for single-step runs at depth <= 12)
+or the whole-MLP kernel pair (``'fused2'``, the default for multi-step runs
+and depth > 12, as the JAX factory picks); post-norm blocks through the plain
 LayerNorm + residual (``lnadd_impl`` default ``'xla'``), no CPB.
 
 The layout follows the JAX model, so weights convert one to one
@@ -18,9 +20,13 @@ The layout follows the JAX model, so weights convert one to one
     latitude-only mask; bias-free head, unpatchify, fp32 output and the
     optional global residual;
   * train mode: per-sample drop-path on both post-norm branches at rate
-    ``linspace(0, drop_path_rate, depth)[i]`` in block i, drawn from the
-    ``torch.Generator`` the caller passes (JAX's ``dropout`` rng stream cannot
-    be matched, so the masks agree with JAX in distribution, not bit for bit).
+    ``linspace(0, drop_path_rate, depth)[i]`` in block i. The uniforms behind
+    the masks, [depth, 2, B], are drawn in one call from the
+    ``torch.Generator`` the caller passes (:meth:`SwinTransformerV2.drop_noise`),
+    or handed in by the caller (the multi-step wrapper draws every step's at
+    once, so a recomputed step sees the same masks). JAX's ``dropout`` rng
+    stream cannot be matched, so the masks agree with JAX in distribution,
+    not bit for bit.
     Activation checkpointing (``activation_ckpt`` / ``remat_policy``) is not
     applied: it changes memory, not numbers, and the flagship step fits one
     80 GB card without it.
@@ -42,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from swin_v2_weather_torch.ops.mlp_kernels import fused_fc1_gelu
+from swin_v2_weather_torch.ops.mlp_kernels import fused_fc1_gelu, fused_mlp
 from swin_v2_weather_torch.ops.window_attention import fused_window_attention_qkv
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -127,21 +133,26 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+              u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-sample stochastic depth (timm DropPath): keep each sample's branch
     with probability 1 - rate and scale it by 1 / (1 - rate), in x's dtype, as
-    the JAX ``DropPath`` does. Rate 0 is the identity and draws nothing."""
+    the JAX ``DropPath`` does. Rate 0 is the identity and draws nothing.
+
+    The per-sample uniforms ``u`` [B] come from the caller, or else are drawn
+    from ``generator``."""
     if rate == 0.0:
         return x
-    if generator is None:
-        raise ValueError("drop-path in train mode needs an explicit torch.Generator")
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    if u is None:
+        if generator is None:
+            raise ValueError("drop-path in train mode needs an explicit torch.Generator")
+        u = torch.rand(shape, generator=generator, device=x.device)
     keep = np.float32(1.0) - np.float32(rate)
     # the divisor is keep rounded to x's dtype, as jnp.asarray(keep, x.dtype);
     # rounded on the host, so no scalar is copied to the device
     keep_x = float(torch.tensor(float(keep)).to(x.dtype))
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    u = torch.rand(shape, generator=generator, device=x.device)
-    mask = (u < float(keep)).to(x.dtype)
+    mask = (u.reshape(shape) < float(keep)).to(x.dtype)
     return x * mask / keep_x
 
 
@@ -164,16 +175,24 @@ class Fp32LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU (one fused kernel) -> fc2."""
+    """fc1 -> exact GELU -> fc2: ``impl='fused'`` runs fc1 + GELU as one kernel
+    and fc2 as a plain Dense; ``'fused2'`` runs the whole MLP as one kernel
+    pair, which keeps no [tokens, hidden] tensor for the backward."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, impl: str = "fused"):
         super().__init__()
+        if impl not in ("fused", "fused2"):
+            raise ValueError(f"Mlp impl must be 'fused' or 'fused2', got {impl!r}")
         self.dtype = dtype
+        self.impl = impl
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "fused2":
+            return fused_mlp(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
+                             self.fc2.weight.t(), self.fc2.bias)
         x = fused_fc1_gelu(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias)
         return dense(x, self.fc2, self.dtype)
 
@@ -209,7 +228,8 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, feat_size: Tuple[int, int],
                  window_size: Tuple[int, int], shift_size: Tuple[int, int], shifted: bool,
                  mlp_ratio: float = 4.0, init_values: Optional[float] = 0.0,
-                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 mlp_impl: str = "fused"):
         super().__init__()
         self.drop_path_rate = float(drop_path_rate)
         window, shift = calc_window_shift(feat_size, window_size, shift_size)
@@ -218,7 +238,7 @@ class SwinBlock(nn.Module):
         scale_init = 1.0 if init_values is None else float(init_values)
         self.attn = WindowAttention(dim, num_heads, window, dtype)
         self.norm1 = Fp32LayerNorm(dim, init_value=scale_init)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, impl=mlp_impl)
         self.norm2 = Fp32LayerNorm(dim, init_value=scale_init)
         pattern = None
         if self.do_shift:
@@ -228,8 +248,11 @@ class SwinBlock(nn.Module):
         self.register_buffer("mask_pattern", pattern, persistent=False)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``noise`` [2, B]: the uniforms of the two drop-path masks (needed in
+        train mode when the block's rate is above 0)."""
         rate = self.drop_path_rate if train else 0.0
+        u1, u2 = (None, None) if noise is None else (noise[0], noise[1])
         y = x
         if self.do_shift:
             y = torch.roll(y, shifts=(-self.shift[0], -self.shift[1]), dims=(1, 2))
@@ -237,9 +260,9 @@ class SwinBlock(nn.Module):
         if self.do_shift:
             y = torch.roll(y, shifts=(self.shift[0], self.shift[1]), dims=(1, 2))
         # post-norm residual branches: x + drop_path(norm(y))
-        x = x + drop_path(self.norm1(y).to(x.dtype), rate, generator)
+        x = x + drop_path(self.norm1(y).to(x.dtype), rate, u=u1)
         y = self.mlp(x)
-        return x + drop_path(self.norm2(y).to(x.dtype), rate, generator)
+        return x + drop_path(self.norm2(y).to(x.dtype), rate, u=u2)
 
 
 class PatchEmbed(nn.Module):
@@ -284,6 +307,7 @@ class SwinTransformerV2(nn.Module):
         full_pos_embed: bool = False,
         residual: bool = False,
         dtype: torch.dtype = torch.bfloat16,
+        mlp_impl: str = "fused",
     ):
         super().__init__()
         self.img_size = tuple(img_size)
@@ -308,14 +332,30 @@ class SwinTransformerV2(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock(embed_dim, num_heads, (gh, gw), window, shift, shifted=(i % 2 == 1),
                       mlp_ratio=mlp_ratio, init_values=init_values,
-                      drop_path_rate=float(dpr[i]), dtype=dtype)
+                      drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
 
+    def drop_noise(self, batch: int, generator: Optional[torch.Generator], device,
+                   n_steps: Optional[int] = None) -> Optional[torch.Tensor]:
+        """The uniforms behind every drop-path mask of one forward, [depth, 2,
+        batch] (``[n_steps, depth, 2, batch]`` with ``n_steps``), in one draw
+        from ``generator`` (on ``device``); None when every rate is 0."""
+        if not any(blk.drop_path_rate > 0 for blk in self.blocks):
+            return None
+        if generator is None:
+            raise ValueError("drop-path in train mode needs an explicit torch.Generator")
+        shape = (len(self.blocks), 2, batch)
+        if n_steps is not None:
+            shape = (n_steps,) + shape
+        return torch.rand(shape, generator=generator, device=device)
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``train=True`` turns on drop-path, drawn from ``generator`` (a
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``train=True`` turns on drop-path: its uniforms are ``noise``
+        [depth, 2, B] when given, else drawn from ``generator`` (a
         ``torch.Generator`` on x's device; needed when drop_path_rate > 0)."""
         if train and any(r > 0 for r in self.dropout_rates):
             raise NotImplementedError(
@@ -331,8 +371,10 @@ class SwinTransformerV2(nn.Module):
         x = self.patch_embed(x)
         if self.pos_embed is not None:
             x = x + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x, train=train, generator=generator)
+        if train and noise is None:
+            noise = self.drop_noise(b, generator, x.device)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, train=train, noise=None if noise is None else noise[i])
 
         x = dense(x, self.head, self.dtype)
         # nhwpqc -> nchpwq: interleave patch pixels back into the full grid
@@ -346,7 +388,7 @@ class SwinTransformerV2(nn.Module):
 def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinTransformerV2:
     """Construct the model from a YParams-style config.
 
-    Only the route the port has kernels for is accepted; every other choice
+    Only the routes the port has kernels for are accepted; every other choice
     the JAX factory knows raises ``NotImplementedError``.
     """
     if dtype is None:
@@ -363,8 +405,9 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         str(params["mlp_impl"]) if "mlp_impl" in params
         else ("fused2" if n_future > 0 or depth > 12 else "fused")
     )
-    if mlp_impl != "fused":
-        raise NotImplementedError(f"mlp_impl {mlp_impl!r} is not ported; only 'fused'")
+    if mlp_impl not in ("fused", "fused2"):
+        raise NotImplementedError(
+            f"mlp_impl {mlp_impl!r} is not ported; only 'fused' and 'fused2'")
     if "lnadd_impl" in params and str(params["lnadd_impl"]) == "fused":
         raise NotImplementedError("lnadd_impl 'fused' (kernel K11) is not ported yet")
     if int(getattr(params, "spatial_shards", 1) or 1) > 1:
@@ -389,4 +432,5 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         full_pos_embed=bool(params.full_pos_embed),
         residual=bool(params.residual),
         dtype=dtype,
+        mlp_impl=mlp_impl,
     )

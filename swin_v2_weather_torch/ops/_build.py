@@ -40,6 +40,10 @@ _SIGNATURES = {
     "swin_fc1_gelu_fwd": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # (x, w, b, g, out, T, K, N, stream)
     "swin_fc1_dpre_bwd": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    # (x, w1, b1, w2, b2, out, T, C_in, hidden, C_out, stream)
+    "swin_mlp_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    # (x, w1, b1, w2, g, a, dpre, T, C_in, hidden, C_out, stream)
+    "swin_mlp_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # (x, w, b, scale, mask, boundary_flag, out, B, H, W, C_in, C, heads, wh, ww, stream)
     "swin_window_attention_qkv_fwd": [
         _vp, _vp, _vp, _vp, _vp, _f32, _vp,

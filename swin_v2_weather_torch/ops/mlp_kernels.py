@@ -1,8 +1,10 @@
-"""fc1 + exact-erf GELU of the Swin MLP: plain PyTorch versions and CUDA kernels.
+"""The Swin MLP's kernels: plain PyTorch versions and CUDA kernels.
 
-Counterpart of ``swin_v2_weather_tpu/ops/mlp_kernels.py`` (``fc1_gelu_pallas``,
-``fc1_dpre_pallas``, the custom_vjp ``_build`` and its entry point
-``fused_fc1_gelu``):
+Counterpart of ``swin_v2_weather_tpu/ops/mlp_kernels.py``. Two kernel pairs,
+each with its autograd Function and entry point:
+
+fc1 + GELU (``fc1_gelu_pallas``, ``fc1_dpre_pallas``, the custom_vjp
+``_build`` and ``fused_fc1_gelu``; ``mlp_impl: fused``):
 
   * :func:`fc1_gelu_reference` / :func:`fc1_dpre_reference` -- the plain
     versions: same functions, same rounding sites, in plain tensor ops. The
@@ -17,16 +19,29 @@ Counterpart of ``swin_v2_weather_tpu/ops/mlp_kernels.py`` (``fc1_gelu_pallas``,
     ``[..., C_in]`` to tokens; a CPU tensor takes the plain versions, a CUDA
     tensor the kernels (or an error).
 
-Numerics: the matmul accumulates in fp32 from operands in the compute dtype,
-the pre-activation is rounded to the compute dtype exactly where
-``flax.linen.Dense(dtype)`` rounds, and the GELU and its derivative
-Phi(z) + z phi(z) are evaluated in fp32. The JAX kernels evaluate erf with
-Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7); the port uses the library erf,
-closer still: the difference is far below bf16 resolution.
+The whole MLP, fc1 + GELU + fc2 (``mlp_fwd_pallas``, ``mlp_bwd_pallas``, the
+custom_vjp ``_build_mlp`` and ``fused_mlp``; ``mlp_impl: fused2``):
 
-Gradient dtypes follow ``f_bwd``: dx in x's dtype; dW and db as fp32
-products with no rounding to the compute dtype (JAX hands the kernels the
-fp32 fc1 kernel, so its dW leaves the backward unrounded).
+  * :func:`mlp_fwd_reference` / :func:`mlp_bwd_reference` -- the plain
+    versions.
+  * :func:`mlp_fwd` / :func:`mlp_bwd` -- launch the kernels in ``csrc/mlp.cu``
+    (K5 forward, which never writes the [T, hidden] activation; K6, which
+    recomputes it and returns (a, dpre)); each counts its launches.
+  * :class:`FusedMlp` -- the autograd Function: it saves (x, w1, b1, w2, b2),
+    never a [T, hidden] tensor; its backward is K6 plus five plain products.
+  * :func:`fused_mlp` -- the entry point.
+
+Numerics: the matmuls accumulate in fp32 from operands in the compute dtype,
+each product is rounded to the compute dtype exactly where
+``flax.linen.Dense(dtype)`` rounds (fc1: product + bias, then round; fc2:
+round the product, then add the bias in the compute dtype), and the GELU and
+its derivative Phi(z) + z phi(z) are evaluated in fp32. The JAX kernels
+evaluate erf with Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7); the port uses
+the library erf, closer still: the difference is far below bf16 resolution.
+
+Gradient dtypes follow ``f_bwd``: dx in x's dtype; the weight and bias
+gradients as fp32 products with no rounding to the compute dtype (JAX hands
+the kernels the fp32 Dense parameters, so their gradients leave unrounded).
 """
 
 from __future__ import annotations
@@ -39,6 +54,15 @@ from swin_v2_weather_torch.ops import _build
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def _gelu(pre: torch.Tensor) -> torch.Tensor:
+    return 0.5 * pre * (1.0 + torch.erf(pre * _INV_SQRT2))
+
+
+def _gelu_grad(pre: torch.Tensor) -> torch.Tensor:
+    phi = torch.exp(pre * pre * -0.5) * _INV_SQRT2PI
+    return 0.5 * (1.0 + torch.erf(pre * _INV_SQRT2)) + pre * phi
 
 
 def _pre_activation(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -55,18 +79,14 @@ def _pre_activation(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
 
 def fc1_gelu_reference(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """gelu(x2 @ w + b) in plain ops: [T, C_in] @ [C_in, H] -> [T, H] (dtype of x2)."""
-    pre = _pre_activation(x2, w, b)
-    return (0.5 * pre * (1.0 + torch.erf(pre * _INV_SQRT2))).to(x2.dtype)
+    return _gelu(_pre_activation(x2, w, b)).to(x2.dtype)
 
 
 def fc1_dpre_reference(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """g * gelu'(x2 @ w + b) in plain ops: the pre-activation cotangent
     [T, H] in x2's dtype, g [T, H] in x2's dtype."""
-    pre = _pre_activation(x2, w, b)
-    phi = torch.exp(pre * pre * -0.5) * _INV_SQRT2PI
-    cdf = 0.5 * (1.0 + torch.erf(pre * _INV_SQRT2))
-    return (g.float() * (cdf + pre * phi)).to(x2.dtype)
+    return (g.float() * _gelu_grad(_pre_activation(x2, w, b))).to(x2.dtype)
 
 
 def _check_fc1_operands(name, x2, w, b, g=None):
@@ -180,3 +200,148 @@ def fused_fc1_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
         raise ValueError(f"fused_fc1_gelu: no implementation for device {x.device}")
     y = Fc1Gelu.apply(x.reshape(-1, x.shape[-1]), w, b)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# the whole MLP: fc1 + GELU + fc2 (K5 forward, K6 backward)
+# ---------------------------------------------------------------------------
+
+
+def mlp_fwd_reference(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor) -> torch.Tensor:
+    """bf16(gelu(x2 @ w1 + b1)) @ w2 + b2 in plain ops: [T, C_in] -> [T, C_out]
+    in x2's dtype. The fc2 product is rounded to x2's dtype and the bias is
+    added in that dtype."""
+    cdt = x2.dtype
+    a = _gelu(_pre_activation(x2, w1, b1)).to(cdt)
+    out = torch.matmul(a.float(), w2.to(cdt).float()).to(cdt)
+    return out + b2.to(cdt)
+
+
+def mlp_bwd_reference(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                      g2: torch.Tensor):
+    """(a, dpre) in plain ops, both [T, hidden] in x2's dtype: the recomputed
+    activation a = gelu(pre) and dpre = (g2 @ w2^T) * gelu'(pre), with
+    pre = x2 @ w1 + b1 rounded to x2's dtype and g2 @ w2^T kept in fp32."""
+    cdt = x2.dtype
+    pre = _pre_activation(x2, w1, b1)
+    a = _gelu(pre).to(cdt)
+    da = torch.matmul(g2.float(), w2.to(cdt).float().t())
+    return a, (da * _gelu_grad(pre)).to(cdt)
+
+
+def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
+    if x2.device.type != "cuda" or x2.dim() != 2:
+        raise ValueError(f"{name}: x2 must be a 2-D CUDA tensor, got {x2.dim()}-D on {x2.device}")
+    t, c_in = x2.shape
+    hidden, c_out = w1.shape[-1], w2.shape[-1]
+    dev = x2.device
+    _build.check_operand(name, "x2", x2, torch.bfloat16, (t, c_in), dev)
+    _build.check_operand(name, "w1", w1, torch.bfloat16, (c_in, hidden), dev)
+    _build.check_operand(name, "b1", b1, torch.float32, (hidden,), dev)
+    _build.check_operand(name, "w2", w2, torch.bfloat16, (hidden, c_out), dev)
+    dtype, shape = (torch.float32, (c_out,)) if tail_name == "b2" else (torch.bfloat16, (t, c_out))
+    _build.check_operand(name, tail_name, tail, dtype, shape, dev)
+    if c_in % 32 or hidden % 128 or c_out % 32 or c_out > 768:
+        raise ValueError(f"{name}: needs C_in % 32 == 0, hidden % 128 == 0, C_out % 32 == 0 "
+                         f"and C_out <= 768, got {c_in}, {hidden}, {c_out}")
+    return t, c_in, hidden, c_out
+
+
+def mlp_fwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+            b2: torch.Tensor) -> torch.Tensor:
+    """The forward kernel (K5): x2 [T, C_in] bf16, w1 [C_in, H] bf16, b1 [H]
+    fp32, w2 [H, C_out] bf16, b2 [C_out] fp32 -> [T, C_out] bf16. The [T, H]
+    activation never reaches device memory.
+
+    C_in must be a multiple of 32, H of 128, C_out of 32 and at most 768.
+    Launches on the current stream and does not synchronize.
+    """
+    name = "mlp_fwd"
+    t, c_in, hidden, c_out = _check_mlp_operands(name, x2, w1, b1, w2, b2, "b2")
+    out = torch.empty((t, c_out), dtype=torch.bfloat16, device=x2.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        code = lib.swin_mlp_fwd(
+            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), t, c_in, hidden, c_out, stream,
+        )
+    _build.check(code, name)
+    mlp_fwd.launches += 1
+    return out
+
+
+mlp_fwd.launches = 0
+
+
+def mlp_bwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+            g2: torch.Tensor):
+    """The backward kernel (K6): the operands of :func:`mlp_fwd` with the
+    output cotangent g2 [T, C_out] bf16 in place of b2 -> (a, dpre), both
+    [T, H] bf16. Same shape limits; launches on the current stream and does
+    not synchronize."""
+    name = "mlp_bwd"
+    t, c_in, hidden, c_out = _check_mlp_operands(name, x2, w1, b1, w2, g2, "g2")
+    a = torch.empty((t, hidden), dtype=torch.bfloat16, device=x2.device)
+    dpre = torch.empty_like(a)
+    lib = _build.load_library()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        code = lib.swin_mlp_bwd(
+            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g2.data_ptr(),
+            a.data_ptr(), dpre.data_ptr(), t, c_in, hidden, c_out, stream,
+        )
+    _build.check(code, name)
+    mlp_bwd.launches += 1
+    return a, dpre
+
+
+mlp_bwd.launches = 0
+
+
+class FusedMlp(torch.autograd.Function):
+    """The whole MLP over tokens: forward K5, backward K6 plus five plain
+    products, or the plain versions for CPU tensors. Saves its inputs only,
+    never a [T, hidden] tensor."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2):
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        if x2.device.type == "cpu":
+            return mlp_fwd_reference(x2, w1, b1, w2, b2)
+        cdt = x2.dtype
+        return mlp_fwd(x2.contiguous(), w1.to(cdt).contiguous(), b1.float().contiguous(),
+                       w2.to(cdt).contiguous(), b2.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w1, b1, w2, b2 = ctx.saved_tensors
+        cdt = x2.dtype
+        g2 = g.to(cdt)
+        # then the five products of f_bwd: dx accumulates in fp32 and rounds
+        # once to x's dtype; the weight and bias gradients stay fp32
+        if x2.device.type == "cpu":
+            a, dpre = mlp_bwd_reference(x2, w1, b1, w2, g2)
+            dx = torch.matmul(dpre.float(), w1.to(cdt).float().t()).to(cdt)
+        else:
+            a, dpre = mlp_bwd(x2.contiguous(), w1.to(cdt).contiguous(), b1.float().contiguous(),
+                              w2.to(cdt).contiguous(), g2.contiguous())
+            dx = torch.matmul(dpre, w1.to(cdt).t())
+        dw1 = _matmul_f32(x2.t(), dpre)
+        db1 = torch.sum(dpre.float(), 0)
+        dw2 = _matmul_f32(a.t(), g2)
+        db2 = torch.sum(g2.float(), 0)
+        return (dx.to(x2.dtype), dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2.dtype))
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """bf16(gelu(x @ w1 + b1)) @ w2 + b2 for x [..., C_in], w1 [C_in, H],
+    w2 [H, C_out] (any float dtype), b1 [H], b2 [C_out]; differentiable in all
+    five. The output has x's dtype."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mlp: no implementation for device {x.device}")
+    y = FusedMlp.apply(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)
+    return y.reshape(*x.shape[:-1], w2.shape[-1])

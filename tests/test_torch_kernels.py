@@ -3,7 +3,8 @@ replaces (Pallas in interpret mode on the CPU; backward kernels through
 ``jax.vjp`` of the custom_vjps), the backward plain versions against an
 unrounded fp64 autograd oracle, the CPU dispatch of the entry points and
 autograd Functions, and -- on a GPU only -- each CUDA kernel against its plain
-version and gradients flowing through the kernels.
+version and gradients flowing through the kernels. The kernels: window
+attention (K1, K2), fc1 + GELU (K3, K4) and the whole MLP (K5, K6).
 
 Tolerances are stated in bf16 ulps of the output scale: ``ulp(m)`` is the bf16
 spacing at the largest reference magnitude ``m``. Both sides keep the same
@@ -34,6 +35,7 @@ B, H, W, C, HEADS = 1, 18, 36, 64, 2
 WINDOW = (9, 18)
 SHIFT = (4, 9)
 T, C_IN, HIDDEN = 96, 64, 256
+C_OUT = 64  # the whole-MLP kernels' output width (C_OUT % 32 == 0)
 
 
 def bf16_ulp(ref: np.ndarray) -> float:
@@ -67,6 +69,18 @@ def mlp_inputs(seed=1):
     return x2, w, b
 
 
+def whole_mlp_inputs(seed=2, t=T):
+    """x2 [t, C_IN], w1, b1, w2 [HIDDEN, C_OUT], b2 and a cotangent g [t, C_OUT]."""
+    rng = np.random.default_rng(seed)
+    x2 = rng.standard_normal((t, C_IN)).astype(np.float32)
+    w1 = (rng.standard_normal((C_IN, HIDDEN)) / np.sqrt(C_IN)).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(HIDDEN)).astype(np.float32)
+    w2 = (rng.standard_normal((HIDDEN, C_OUT)) / np.sqrt(HIDDEN)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(C_OUT)).astype(np.float32)
+    g = rng.standard_normal((t, C_OUT)).astype(np.float32)
+    return x2, w1, b1, w2, b2, g
+
+
 def mask_pattern():
     return make_shift_mask((H, W), WINDOW, SHIFT)[-1]
 
@@ -81,7 +95,7 @@ def cotangent(seed=3):
 # that flip with hundreds of token rows. dscale is a sum over every query row
 # of <qn16, dqn> with heavy cancellation, so its bound is absolute (plus 1 %).
 BWD_ULPS = {"dx": (2, 0.01), "dW": (4, 0.05), "db": (4, 0.05),
-            "dW1": (4, 0.05), "db1": (4, 0.05)}
+            "dW1": (4, 0.05), "db1": (4, 0.05), "dW2": (4, 0.05), "db2": (4, 0.05)}
 DSCALE_TOL = dict(atol=4e-3, rtol=1e-2)
 
 
@@ -339,6 +353,116 @@ def test_entry_point_refuses_cpb_bias():
 
 
 # --------------------------------------------------------------------------
+# the whole-MLP pair (K5, K6)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whole_mlp_plain_matches_jax(jax_ref, dtype):
+    """K5's plain version against mlp_fwd_pallas and K6's against
+    mlp_bwd_pallas (interpret mode), same inputs. Both sides round at the same
+    sites (pre, a, the fc2 product, then + b2 in the compute dtype), so only
+    the fp32 sum order and the erf evaluation differ, and a flipped rounding
+    of pre or a would move an output by about one ulp. Measured: no flip at
+    this size, max 5e-4 ulp in either dtype; the bounds allow flips."""
+    jnp = jax_ref.jnp
+    x2, w1, b1, w2, b2, g = whole_mlp_inputs()
+    tdt = getattr(torch, dtype)
+    ref = jax_ref.mlp.mlp_fwd_pallas(jnp.asarray(x2, dtype), jnp.asarray(w1), jnp.asarray(b1),
+                                     jnp.asarray(w2), jnp.asarray(b2))
+    out = mlp_kernels.mlp_fwd_reference(torch.from_numpy(x2).to(tdt), torch.from_numpy(w1),
+                                        torch.from_numpy(b1), torch.from_numpy(w2),
+                                        torch.from_numpy(b2))
+    assert out.dtype == tdt and tuple(out.shape) == (T, C_OUT)
+    assert_close_ulps(out.float().numpy(), np.asarray(ref, np.float32), 2, 0.02)
+
+    a_ref, dpre_ref = jax_ref.mlp.mlp_bwd_pallas(
+        jnp.asarray(x2, dtype), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2),
+        jnp.asarray(g, dtype))
+    a, dpre = mlp_kernels.mlp_bwd_reference(
+        torch.from_numpy(x2).to(tdt), torch.from_numpy(w1), torch.from_numpy(b1),
+        torch.from_numpy(w2), torch.from_numpy(g).to(tdt))
+    assert a.dtype == dpre.dtype == tdt and tuple(a.shape) == tuple(dpre.shape) == (T, HIDDEN)
+    assert_close_ulps(a.float().numpy(), np.asarray(a_ref, np.float32), 1, 0.01)
+    assert_close_ulps(dpre.float().numpy(), np.asarray(dpre_ref, np.float32), 2, 0.01)
+
+
+def whole_mlp_leaves(dtype, seed=2):
+    tdt = getattr(torch, dtype)
+    x2, w1, b1, w2, b2, g = whole_mlp_inputs(seed)
+    leaves = [torch.from_numpy(x2).to(tdt)] + [torch.from_numpy(a) for a in (w1, b1, w2, b2)]
+    return [t.requires_grad_() for t in leaves], torch.from_numpy(g).to(tdt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whole_mlp_backward_matches_jax(jax_ref, dtype):
+    """The five gradients of FusedMlp (K6's plain version + five plain
+    products) against jax.vjp of the JAX fused_mlp, whose custom_vjp runs
+    mlp_bwd_pallas in interpret mode. dx leaves in x's dtype, the weight and
+    bias gradients in fp32 and unrounded, as JAX's do."""
+    import jax
+
+    jnp = jax_ref.jnp
+    x2, w1, b1, w2, b2, g = whole_mlp_inputs()
+    _, vjp = jax.vjp(jax_ref.mlp.fused_mlp, jnp.asarray(x2, dtype), *map(jnp.asarray, (w1, b1, w2, b2)))
+    ref = vjp(jnp.asarray(g, dtype))
+    leaves, gt = whole_mlp_leaves(dtype)
+    out = mlp_kernels.fused_mlp(*leaves)
+    assert out.dtype == leaves[0].dtype
+    out.backward(gt)
+    assert [t.grad.dtype for t in leaves] == [leaves[0].dtype] + [torch.float32] * 4
+    for name, leaf, r in zip(("dx", "dW1", "db1", "dW2", "db2"), leaves, ref):
+        assert str(r.dtype) == str(leaf.grad.dtype).split(".")[1], name
+        assert_close_backward(name, leaf.grad.float().numpy(), np.asarray(r, np.float32))
+    # dW2 is the fp32 product of the rounded activation and cotangent, not rounded
+    a, _ = mlp_kernels.mlp_bwd_reference(*(t.detach() for t in leaves[:2]), leaves[2].detach(),
+                                         leaves[3].detach(), gt)
+    np.testing.assert_allclose(leaves[3].grad.numpy(), a.double().numpy().T @ gt.double().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert not torch.equal(leaves[3].grad, leaves[3].grad.bfloat16().float())
+
+
+def test_whole_mlp_backward_matches_unrounded_oracle():
+    """FusedMlp in fp32 against autograd through the unrounded fp64 MLP
+    (gelu(x w1 + b1) w2 + b2). In fp32 compute nothing rounds to bf16, so the
+    agreement is that of fp32 sums: measured at most 7.1e-7 of a gradient's
+    scale, bound 1e-5."""
+    leaves, g = whole_mlp_leaves("float32")
+    mlp_kernels.fused_mlp(*leaves).backward(g)
+    oracle = [t.detach().double().requires_grad_() for t in leaves]
+    x, w1, b1, w2, b2 = oracle
+    (torch.nn.functional.gelu(x @ w1 + b1) @ w2 + b2).backward(g.double())
+    for name, leaf, r in zip(("dx", "dW1", "db1", "dW2", "db2"), leaves, oracle):
+        ref = r.grad.numpy()
+        assert np.abs(leaf.grad.double().numpy() - ref).max() <= 1e-5 * np.abs(ref).max(), name
+
+
+def test_whole_mlp_cpu_dispatch():
+    """On CPU tensors the entry point and the Function return exactly what the
+    plain versions compute, for x of any leading shape; the kernel wrappers
+    refuse CPU tensors."""
+    leaves, g = whole_mlp_leaves("bfloat16")
+    x4 = leaves[0].detach().reshape(2, 3, 16, C_IN)
+    y = mlp_kernels.fused_mlp(x4, *(t.detach() for t in leaves[1:]))
+    assert tuple(y.shape) == (2, 3, 16, C_OUT)
+    args = [t.detach() for t in leaves]
+    torch.testing.assert_close(y.reshape(T, C_OUT), mlp_kernels.mlp_fwd_reference(*args),
+                               rtol=0, atol=0)
+    mlp_kernels.fused_mlp(*leaves).backward(g)
+    a, dpre = mlp_kernels.mlp_bwd_reference(*args[:4], g)
+    x2, w1 = args[0], args[1]
+    want = [(dpre.float() @ w1.bfloat16().float().t()).bfloat16(), x2.float().t() @ dpre.float(),
+            dpre.float().sum(0), a.float().t() @ g.float(), g.float().sum(0)]
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)
+    w16 = [t.bfloat16() if t.dim() == 2 else t for t in args[1:]]
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp_kernels.mlp_fwd(args[0], *w16)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp_kernels.mlp_bwd(args[0], *w16[:3], g)
+
+
+# --------------------------------------------------------------------------
 # on the GPU: the CUDA kernels against their plain versions
 # --------------------------------------------------------------------------
 
@@ -491,7 +615,7 @@ def test_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
     p["attn_impl"] = "pallas_qkv"
     p["n_in_channels"], p["n_out_channels"] = derived_channel_counts(p)
     torch.manual_seed(0)
-    model = get_model(p)
+    model = get_model(p, device="cpu")
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for name, prm in model.named_parameters():
@@ -506,3 +630,44 @@ def test_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
     assert window_attention.window_attention_qkv.launches == launches[0] + 2
     assert mlp_kernels.fc1_gelu.launches == launches[1] + 2
     assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
+
+
+@pytest.mark.cuda
+def test_whole_mlp_kernels_match_plain(cuda_device):
+    """K5 and K6 at a ragged T (100 is a multiple of neither the 32-row K5
+    tile nor the 128-row K6 tile) against their plain versions on the card:
+    one flipped bf16 rounding of pre or a moves an output by about an ulp."""
+    x2, w1, b1, w2, b2, g = (torch.from_numpy(a).to(cuda_device)
+                             for a in whole_mlp_inputs(t=100))
+    x2, g = x2.bfloat16(), g.bfloat16()
+    launches = (mlp_kernels.mlp_fwd.launches, mlp_kernels.mlp_bwd.launches)
+    out = mlp_kernels.mlp_fwd(x2, w1.bfloat16(), b1, w2.bfloat16(), b2)
+    a, dpre = mlp_kernels.mlp_bwd(x2, w1.bfloat16(), b1, w2.bfloat16(), g)
+    torch.cuda.synchronize()
+    assert (mlp_kernels.mlp_fwd.launches, mlp_kernels.mlp_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    ref = mlp_kernels.mlp_fwd_reference(x2, w1, b1, w2, b2)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.02)
+    a_ref, dpre_ref = mlp_kernels.mlp_bwd_reference(x2, w1, b1, w2, g)
+    assert_close_ulps(a.float().cpu().numpy(), a_ref.float().cpu().numpy(), 1, 0.01)
+    assert_close_ulps(dpre.float().cpu().numpy(), dpre_ref.float().cpu().numpy(), 2, 0.01)
+
+
+@pytest.mark.cuda
+def test_whole_mlp_gradients_flow_through_the_kernels(cuda_device):
+    """Autograd on CUDA tensors runs K5 forward and K6 backward, and the five
+    gradients (with their JAX dtypes) match the same Function on the CPU."""
+    leaves, g = whole_mlp_leaves("bfloat16")
+
+    def grads(dev):
+        ls = [t.detach().to(dev).requires_grad_() for t in leaves]
+        mlp_kernels.fused_mlp(*ls).backward(g.to(dev))
+        return [t.grad.cpu() for t in ls]
+
+    launches = (mlp_kernels.mlp_fwd.launches, mlp_kernels.mlp_bwd.launches)
+    got, want = grads(cuda_device), grads(torch.device("cpu"))
+    assert (mlp_kernels.mlp_fwd.launches, mlp_kernels.mlp_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert [t.dtype for t in got] == [torch.bfloat16] + [torch.float32] * 4
+    for name, a, r in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
+        assert_close_backward(name, a.float().numpy(), r.float().numpy())
