@@ -14,7 +14,13 @@ two warm-up steps:
   * train: the ``build_train_step`` closure, batch 1, drop-path 0.1 live;
   * train 2-step: the same closure on the 2-step fine-tune
     ``swin_73var_geo_depth12_chweight_invar_2step`` (the unrolled two-step
-    rollout on the whole-MLP kernels K5/K6).
+    rollout on the whole-MLP kernels K5/K6);
+  * train cpb: the same closure on the flagship with ``rel_pos: True,
+    full_pos_embed: False`` (the CPB family on K7, drop-path and the CPB
+    dropout live), plus the time of the CPB bias assembly alone (the 12
+    blocks' meta-MLP, gather and fold, forward and backward, CUDA events);
+  * train lnadd: the same closure on the flagship with ``lnadd_impl:
+    'fused'`` (the post-norm branches through K11).
 
 it prints the ms/step by CUDA events without the profiler; the host time of
 one step's own work (train: the step's enqueue, with no sync in it; rollout:
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import datetime
+import math
 import os
 import subprocess
 import sys
@@ -40,12 +47,17 @@ N_STEPS = 3  # profiled (and, before that, event-timed) steps per path
 
 # (category, test on the kernel's name), first match wins
 CATEGORIES = (
+    ("K7 attention pass", lambda n: "attention_bwd_kernel<" in n and ", true>" in n),
+    ("K7 dbias reduction", lambda n: "dbias_reduce_kernel" in n),
+    ("K7 forward", lambda n: "window_attention_qkv_kernel<" in n and ", true>" in n),
     ("K2 attention pass", lambda n: "attention_bwd_kernel" in n),
-    ("K2 dW split-K GEMM", lambda n: "StoreSplitF32" in n),
-    ("K2 dx GEMM", lambda n: "StoreBf16" in n),
-    ("K2 reductions", lambda n: "column_sums_kernel" in n
+    ("K2/K7 dW split-K GEMM", lambda n: "StoreSplitF32" in n),
+    ("K2/K7 dx GEMM", lambda n: "StoreBf16" in n),
+    ("K2/K7 reductions", lambda n: "column_sums_kernel" in n
      or "(anonymous namespace)::reduce_kernel" in n),
     ("K1", lambda n: "window_attention_qkv_kernel" in n),
+    ("K11 forward", lambda n: "ln_dp_add_fwd_kernel" in n),
+    ("K11 backward", lambda n: "ln_dp_add_bwd_kernel" in n or "ln_dp_add_reduce_kernel" in n),
     ("K5", lambda n: "mlp_fwd_kernel" in n),
     ("K6", lambda n: "mlp_bwd_kernel" in n),
     ("K4", lambda n: "DpreEpilogue" in n),
@@ -53,6 +65,7 @@ CATEGORIES = (
     ("Adam (foreach)", lambda n: "multi_tensor_apply" in n or "adam" in n.lower()),
     ("cuBLAS GEMM", lambda n: any(s in n.lower() for s in ("gemm", "sm90", "nvjet", "cutlass", "xmma"))),
     ("memcpy/memset", lambda n: "Memcpy" in n or "Memset" in n),
+    ("indexing (CPB gather)", lambda n: "index" in n.lower()),
     ("torch reductions", lambda n: "reduce" in n.lower()),
     ("roll", lambda n: "roll" in n.lower()),
     ("torch elementwise", lambda n: "elementwise" in n.lower()),
@@ -122,6 +135,24 @@ def profile_steps(label: str, step, n: int, card: str) -> None:
         log(f"    {us / 1e3 / n:9.2f}  {calls[name] / n:5.0f}  {name[:140]}")
 
 
+def cpb_assembly_ms(core, dev, n: int) -> float:
+    """Mean ms of one step's CPB bias assembly, forward and backward, for every
+    block of ``core`` (the model's own cpb_bias with train-mode dropout), by
+    CUDA events; it adds into the parameters' gradients, which the caller
+    discards."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u = core.drop_noise(1, gen, dev)["cpb"]
+    blocks = list(core.blocks)
+
+    def assembly():
+        outs = [blk.attn.cpb_bias(torch.exp(torch.clamp(blk.attn.logit_scale, max=math.log(100.0))),
+                                  u[i]) for i, blk in enumerate(blocks)]
+        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+    assembly()
+    return events_ms(assembly, n)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device (torch.cuda.is_available() is False)")
@@ -173,9 +204,12 @@ def main() -> None:
     del engine, model, steps
     torch.cuda.empty_cache()
 
-    # ---- train steps: single-step, then the 2-step fine-tune -----------------
-    for label, config in (("train", chip_smoke.CONFIG), ("train 2-step", chip_smoke.CONFIG_2STEP)):
-        params = chip_smoke.train_params(config)
+    # ---- train steps: single-step, the 2-step fine-tune, the CPB family ------
+    for label, config, over in (("train", chip_smoke.CONFIG, None),
+                                ("train 2-step", chip_smoke.CONFIG_2STEP, None),
+                                ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB),
+                                ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD)):
+        params = chip_smoke.train_params(config, over)
         model = get_model(params)
         chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED + 1))
         train_step = build_train_step(
@@ -184,7 +218,7 @@ def main() -> None:
             generator=torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
         )
         batch = collate([SyntheticDataset(params)[0]], device=dev)
-        log(f"[{label}] {config}, batch 1, drop_path_rate {params.drop_path_rate}")
+        log(f"[{label}] {config} {over or ''}, batch 1, drop_path_rate {params.drop_path_rate}")
         torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
             train_step(batch)
@@ -198,6 +232,10 @@ def main() -> None:
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
         profile_steps(label, lambda: train_step(batch), n, card)
         log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if over == chip_smoke.CPB:
+            log(f"  CPB bias assembly alone (meta-MLP, gather, fold; {len(model.model.blocks)} "
+                f"blocks, forward and backward): {cpb_assembly_ms(model.model, dev, n):.2f} "
+                f"ms/step ({card})")
         del model, train_step, batch
         torch.cuda.empty_cache()
 

@@ -54,15 +54,37 @@ printing its own lines:
  14. the depth-24 single-step train step, ``swin_73var_geo_depth24_chweight_invar``
      (whole-MLP route): 3 steps, K1, K2, K5 and K6 launched 24 times a step;
      finite metrics, every parameter moved; ms/step and peak memory.
+ 15. K7, the CPB-bias instances of the window-attention kernels, forward and
+     backward against their plain versions at the flagship shapes, unshifted
+     and shifted, with a seeded bias folded as the model folds it: out, dx,
+     dW, db, dscale and dbias; two backward calls bit-equal; timed.
+ 16. CPB serving: the flagship config with ``rel_pos: True, full_pos_embed:
+     False`` (bench.py's ``cpb_rel_pos`` row), 4 rollout steps: K7 forward and
+     K3 launched 48 times, K1 never; step 1 against the plain path; ms/step
+     and peak memory.
+ 17. CPB training, the same config, 4 steps with drop-path 0.1 and the CPB
+     meta-MLP's dropout live: K7 forward and backward, K3 and K4 48 times
+     each, K1, K2, K5 and K6 never; step 1 against the plain path; every
+     parameter moved, ``meta_mlp`` included; ms/step, samples/s and peak on
+     both paths.
+ 18. K11, the fused LayerNorm + drop-path + residual add, forward and backward
+     against their plain versions at [64800, 768] with m mixed between 0 and
+     1/keep; two backward calls bit-equal; timed, beside ``F.layer_norm`` at
+     the same shape for context.
+ 19. the flagship train step with ``lnadd_impl: 'fused'``: 3 steps, K11
+     forward and backward 24 times a step, K1-K4 12; step 1 against the plain
+     path; ms/step and peak memory beside phase 10's unfused step.
 
 Then one JSON line with each kernel's results: ``launches`` on the main path
 of the slice that brought it (K1, K2, K5, K6: the 2-step fine-tune; K3, K4:
-the single-step train step), the launches on every path and per step, the
-largest abs difference from its plain version, its time and the plain
-version's (CUDA events), the bound (the larger of its FLOPs at the bf16 peak
-and its bytes, each input read and each output written once, at the memory
-rate of an H100 SXM) and ``library_ms`` (null: no single PyTorch call
-computes any of the six functions). The last line is
+the single-step train step; K7: the CPB train step; K11: the fused-LayerNorm
+train step), the launches on every path and per step, the largest abs
+difference from its plain version, its time and the plain version's (CUDA
+events), the bound (the larger of its FLOPs at the bf16 peak and its bytes,
+each input read and each output written once, at the memory rate of an H100
+SXM) and ``library_ms`` (null: no single PyTorch call computes any of the ten
+functions; K11's entries add ``F.layer_norm``'s time as context). The last
+line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
 CUDA device the script exits with code 1 before printing any result.
 """
@@ -87,10 +109,15 @@ CONFIG = "swin_73var_geo_depth12_chweight_invar"
 CONFIG_2STEP = "swin_73var_geo_depth12_chweight_invar_2step"
 CONFIG_4STEP = "swin_73var_geo_depth12_chweight_invar_4step"
 CONFIG_DEPTH24 = "swin_73var_geo_depth24_chweight_invar"
+# bench.py's cpb_rel_pos row: the flagship with the CPB bias instead of the
+# full position embedding (K7's path)
+CPB = {"rel_pos": True, "full_pos_embed": False}
+LNADD = {"lnadd_impl": "fused"}  # the fused post-norm branches (K11's path)
 N_STEPS = 4
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 START = datetime.datetime(2018, 1, 1, 0, 0)
 
@@ -105,7 +132,10 @@ MODEL_TOL = (8.0, 0.5)
 # Backward, per output. A flipped bf16 rounding of dqkv moves dx by an ulp
 # (mean about 0.01 ulp at this shape); dW and db sum 64800 token rows, so a
 # few flips add up; dscale sums <qn16, dqn> over 64800 rows with cancellation.
-BWD_TOL = {"dx": (2.0, 0.05), "dW": (4.0, 0.05), "db": (4.0, 0.05), "dscale": (2.0, 0.25)}
+# K7's dbias sums fp32 ds / scale over 400 windows; flips of bf16 sites move
+# a few entries.
+BWD_TOL = {"dx": (2.0, 0.05), "dW": (4.0, 0.05), "db": (4.0, 0.05), "dscale": (2.0, 0.25),
+           "dbias": (4.0, 0.05)}
 # Train step 1, kernel path vs plain path: relative bounds on the loss and on
 # each gradient norm. Both are sums over millions of terms, so one-ulp flips
 # of either sign average out (about 1e-5 relative on the H100).
@@ -114,6 +144,10 @@ STEP_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
 # flipped bf16 rounding of pre or a moves an output by about one ulp, and the
 # fc2 product's and the bias add's roundings flip with the sum order.
 MLP2_TOL = (2.0, 0.02)
+# K11: the same rounding sites on both sides; the row statistics' fp32 sums
+# differ in order, which now and then flips one bf16 rounding of out or dz;
+# dgamma/dbeta sum 64800 rows in another order.
+LN_TOL = {"out": (1.0, 0.01), "dz": (1.0, 0.01), "dgamma": (2.0, 0.05), "dbeta": (2.0, 0.05)}
 
 
 def log(msg: str) -> None:
@@ -151,10 +185,11 @@ def time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(least ms on an H100 SXM, "operations" or "bytes"): the larger of the
-    FLOPs at the bf16 tensor-core peak and the bytes at the memory rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    FLOPs at ``peak`` (the bf16 tensor-core peak unless given) and the bytes
+    at the memory rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -163,13 +198,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def train_params(config: str):
-    """The config's parameters with the derived channel counts, set up for
-    synthetic data (the temp-std loss then takes unit stats)."""
+def train_params(config: str, overrides: dict = None):
+    """The config's parameters (with ``overrides``) and the derived channel
+    counts, set up for synthetic data (the temp-std loss then takes unit
+    stats)."""
     from swin_v2_weather_torch.config.yparams import YParams, default_config_path
     from swin_v2_weather_torch.data.preprocess import derived_channel_counts
 
     params = YParams(default_config_path(), config)
+    for key, val in (overrides or {}).items():
+        params[key] = val
     params["n_in_channels"], params["n_out_channels"] = derived_channel_counts(params)
     params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
     params["data_loader_config"] = "synthetic"
@@ -203,13 +241,15 @@ def main() -> None:
     from swin_v2_weather_torch.models.swin import make_shift_mask
     from swin_v2_weather_torch.models.wrappers import get_model
     from swin_v2_weather_torch.ops import _build
+    from swin_v2_weather_torch.ops import ln_kernels as lk
     from swin_v2_weather_torch.ops import mlp_kernels as mk
     from swin_v2_weather_torch.ops import window_attention as wa
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
     counted = (wa.window_attention_qkv, wa.window_attention_qkv_bwd, mk.fc1_gelu, mk.fc1_dpre,
-               mk.mlp_fwd, mk.mlp_bwd)
+               mk.mlp_fwd, mk.mlp_bwd, wa.window_attention_qkv_bias,
+               wa.window_attention_qkv_bias_bwd, lk.ln_dp_add_fwd, lk.ln_dp_add_bwd)
 
     # ---- 1. versions and card ------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -423,8 +463,12 @@ def main() -> None:
         with mock.patch.multiple(
             wa, window_attention_qkv=wa.window_attention_qkv_reference,
             window_attention_qkv_bwd=wa.window_attention_qkv_backward_reference,
+            window_attention_qkv_bias=wa.window_attention_qkv_bias_reference,
+            window_attention_qkv_bias_bwd=wa.window_attention_qkv_bias_backward_reference,
         ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference,
-                               mlp_fwd=mk.mlp_fwd_reference, mlp_bwd=mk.mlp_bwd_reference):
+                               mlp_fwd=mk.mlp_fwd_reference, mlp_bwd=mk.mlp_bwd_reference,
+                               ), mock.patch.multiple(lk, ln_dp_add_fwd=lk.ln_dp_add_fwd_reference,
+                                                      ln_dp_add_bwd=lk.ln_dp_add_bwd_reference):
             yield
 
     def train_ms(step_fn, batch, n: int):
@@ -440,21 +484,23 @@ def main() -> None:
         return start.elapsed_time(end) / n, torch.cuda.max_memory_allocated() / 2**30
 
     def train_path(tag: str, config: str, n_steps: int, per_step: dict, plain_step1: bool = True,
-                   eval_step: bool = False, n_timed: int = 3, plain_timed: bool = False):
+                   eval_step: bool = False, n_timed: int = 3, plain_timed: bool = False,
+                   overrides: dict = None):
         """Drive one train path: get_model -> LossHandler -> Preprocessor ->
         build_optimizer -> build_train_step, n_steps steps from seeded
         parameters, each kernel launched per_step[name] times a step (0 if
         absent), finite metrics, every parameter moved; then step 1 against
         the plain path, an eval step, and ms/step and peak memory. Returns the
-        launches of the n_steps steps."""
-        params = train_params(config)
+        launches of the n_steps steps and the kernel path's ms/step."""
+        params = train_params(config, overrides)
         model = get_model(params)
         seeded_parameters(model, torch.Generator().manual_seed(SEED + 1))
         init = {n: p.detach().clone() for n, p in model.named_parameters()}
         loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
         batch = collate([SyntheticDataset(params)[0]], device=dev)
         n_future = int(params.n_future)
-        log(f"{tag} train step: {config}, depth {params.depth}, n_future {n_future} "
+        log(f"{tag} train step: {config} {overrides or ''}, depth {params.depth}, "
+            f"n_future {n_future} "
             f"({type(model).__name__}), drop_path_rate {params.drop_path_rate}, loss "
             f"'{params.loss}', {params.optimizer_type} lr {float(params.lr)}, batch 1 "
             f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
@@ -532,10 +578,10 @@ def main() -> None:
         log(f"{line}; {card}")
         del model, train_step, plain_step, batch
         torch.cuda.empty_cache()
-        return launches
+        return launches, k_ms
 
     depth = int(params.depth)
-    train_launches = train_path(
+    train_launches, train_step_ms = train_path(
         "[9]", CONFIG, N_STEPS,
         {"window_attention_qkv": depth, "window_attention_qkv_bwd": depth, "fc1_gelu": depth,
          "fc1_dpre": depth},
@@ -582,21 +628,178 @@ def main() -> None:
 
     # ---- 12-14. the fine-tunes and depth 24 ------------------------------------
     whole_mlp = ("window_attention_qkv", "window_attention_qkv_bwd", "mlp_fwd", "mlp_bwd")
-    launches_2step = train_path("[12]", CONFIG_2STEP, 3, {k: 2 * depth for k in whole_mlp},
+    launches_2step, _ = train_path("[12]", CONFIG_2STEP, 3, {k: 2 * depth for k in whole_mlp},
                                 eval_step=True, plain_timed=True)
-    launches_4step = train_path(
+    launches_4step, _ = train_path(
         "[13]", CONFIG_4STEP, 2,
         {"window_attention_qkv": 8 * depth, "window_attention_qkv_bwd": 4 * depth,
          "mlp_fwd": 8 * depth, "mlp_bwd": 4 * depth},
         n_timed=2)
     # 3 steps: at batch 1 a branch of a deep block may be dropped in one or two
     # of them, and its parameters must still move
-    launches_depth24 = train_path("[14]", CONFIG_DEPTH24, 3, {k: 2 * depth for k in whole_mlp},
+    launches_depth24, _ = train_path("[14]", CONFIG_DEPTH24, 3, {k: 2 * depth for k in whole_mlp},
                                   plain_step1=False, n_timed=2)
+
+    # ---- 15. K7, the CPB-bias window attention, at flagship shapes -----------
+    x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    w_qkv = ((2 * torch.rand((c, 3 * c), generator=gen, device=dev) - 1) / math.sqrt(c))
+    b_qkv = 0.02 * torch.randn((3 * c,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    w16 = w_qkv.bfloat16()
+    raw_bias = torch.randn((heads, l_win, l_win), generator=gen, device=dev)
+    badd = wa.fold_cpb_bias(raw_bias, scale)
+    log(f"[15] window_attention_qkv_bias (K7): x, g {tuple(x.shape)} bf16, W [{c}, {3 * c}] bf16, "
+        f"badd {tuple(badd.shape)} fp32, window {window}")
+    k7_errs, k7 = {}, {}
+    for label, mask in (("unshifted", None), ("shifted", pattern)):
+        with torch.inference_mode():
+            out = wa.window_attention_qkv_bias(x, w16, b_qkv, scale, badd, window, mask, 1.0)
+            ref = wa.window_attention_qkv_bias_reference(x, w_qkv, b_qkv, scale, badd, window,
+                                                          mask)
+        torch.cuda.synchronize()
+        k7_errs["out"] = max(compare(f"{label} out", out, ref, ATTN_TOL), k7_errs.get("out", 0.0))
+        grads = wa.window_attention_qkv_bias_bwd(x, w16, b_qkv, scale, badd, g, window, mask, 1.0)
+        ref_g = wa.window_attention_qkv_bias_backward_reference(x, w16, b_qkv, scale, badd, g,
+                                                                 window, mask)
+        torch.cuda.synchronize()
+        for name, o, r in zip(("dx", "dW", "db", "dscale", "dbias"), grads, ref_g):
+            err = compare(f"{label} {name}", o, r, BWD_TOL[name])
+            k7_errs[name] = max(err, k7_errs.get(name, 0.0))
+        again = wa.window_attention_qkv_bias_bwd(x, w16, b_qkv, scale, badd, g, window, mask, 1.0)
+        if not all(torch.equal(a, o) for a, o in zip(again, grads)):
+            raise RuntimeError("window_attention_qkv_bias_bwd: two calls differ (reduction order)")
+        with torch.inference_mode():
+            f_ms = time_ms(lambda: wa.window_attention_qkv_bias(
+                x, w16, b_qkv, scale, badd, window, mask, 1.0), 20)
+            fp_ms = time_ms(lambda: wa.window_attention_qkv_bias_reference(
+                x, w_qkv, b_qkv, scale, badd, window, mask), 5)
+        b_ms = time_ms(lambda: wa.window_attention_qkv_bias_bwd(
+            x, w16, b_qkv, scale, badd, g, window, mask, 1.0), 10)
+        bp_ms = time_ms(lambda: wa.window_attention_qkv_bias_backward_reference(
+            x, w16, b_qkv, scale, badd, g, window, mask), 3)
+        log(f"  {label}: forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms; backward kernel "
+            f"{b_ms:.4f} ms, plain {bp_ms:.4f} ms ({card}); two backward calls bit-equal")
+        k7.setdefault("fwd", (f_ms, fp_ms))
+        k7.setdefault("bwd", (b_ms, bp_ms))
+    # K7's work: K1's and K2's plus the [L, L] bias term per (window, head)
+    # (bias read once; the backward writes dbias once)
+    results["window_attention_qkv_bias"] = (k7_errs["out"], *k7["fwd"], bound(
+        2 * t_tok * c * 3 * c + attn_flops, nbytes(x, w16, b_qkv, scale, badd, out)))
+    results["window_attention_qkv_bias_bwd"] = (k7_errs["dx"], *k7["bwd"], bound(
+        3 * 2 * t_tok * c * 3 * c + 5 * attn_flops / 2,
+        nbytes(x, w16, b_qkv, scale, badd, g, *grads)))
+    del x, g, out, ref, grads, ref_g, again, w_qkv, w16, b_qkv, scale, raw_bias, badd
+    torch.cuda.empty_cache()
+
+    # ---- 16. CPB serving -------------------------------------------------------
+    params = train_params(CONFIG, CPB)
+    model = get_model(params)
+    seeded_parameters(model, torch.Generator().manual_seed(SEED))
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    back = params_from_jax(params_to_jax(state))
+    if set(back) != set(state) or not all(torch.equal(back[k], state[k]) for k in state):
+        raise RuntimeError("CPB state_dict -> JAX layout -> state_dict round trip is not exact")
+    n_meta = sum(1 for k in state if ".meta_mlp." in k)
+    log(f"[16] CPB serving: {CONFIG} {CPB}, {sum(p.numel() for p in model.parameters())} "
+        f"parameters ({n_meta} meta_mlp tensors); JAX-layout round trip exact")
+    engine = RolloutEngine(params, model, dev)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    preds = engine.rollout(state0, START, N_STEPS)
+    cpb_serve_launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"  rollout {N_STEPS} steps -> {preds.shape}; launches {cpb_serve_launches}")
+    expected = {n: want if n in ("window_attention_qkv_bias", "fc1_gelu") else 0
+                for n in cpb_serve_launches}
+    if cpb_serve_launches != expected:
+        raise RuntimeError(f"the CPB rollout must launch {expected}, got {cpb_serve_launches}")
+    if preds.shape != (N_STEPS, 1, n_out, *params.img_size) or not np.isfinite(preds).all():
+        raise RuntimeError("CPB rollout output has the wrong shape or non-finite values")
+    with plain_train():
+        plain1 = next(engine.steps(state0, START, 1))
+    if {fn.__name__: fn.launches for fn in counted} != cpb_serve_launches:
+        raise RuntimeError("the CPB plain path launched a kernel")
+    compare("step 1 kernel path vs plain path", torch.from_numpy(preds[0]), plain1.cpu(), MODEL_TOL)
+    torch.cuda.reset_peak_memory_stats()
+    cpb_step = rollout_ms()
+    cpb_mem = torch.cuda.max_memory_allocated() / 2**30
+    with plain_train():
+        torch.cuda.reset_peak_memory_stats()
+        cpb_plain_step = rollout_ms()
+        cpb_plain_mem = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  CPB rollout: kernel path {cpb_step:.2f} ms/step (peak {cpb_mem:.3f} GiB), plain path "
+        f"{cpb_plain_step:.2f} ms/step (peak {cpb_plain_mem:.3f} GiB); flagship kernel path "
+        f"{kernel_step:.2f} ms/step in phase 6; {card}")
+    del engine, model, preds, plain1, state, back
+    torch.cuda.empty_cache()
+
+    # ---- 17. CPB training ------------------------------------------------------
+    launches_cpb, _ = train_path(
+        "[17]", CONFIG, N_STEPS,
+        {"window_attention_qkv_bias": depth, "window_attention_qkv_bias_bwd": depth,
+         "fc1_gelu": depth, "fc1_dpre": depth},
+        eval_step=True, plain_timed=True, overrides=CPB)
+
+    # ---- 18. K11, fused LayerNorm + drop-path + add, at flagship shapes -------
+    keep = float(np.float32(1.0) - np.float32(0.1))
+    z2 = (2.0 * torch.randn((t_tok, c), generator=gen, device=dev) + 0.5).bfloat16()
+    x2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
+    g2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
+    gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+    beta = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    drop = torch.rand((t_tok, 1), generator=gen, device=dev) < 0.5
+    m2 = torch.where(drop, 0.0, 1.0 / keep).float()
+    log(f"[18] ln_dp_add (K11): z, x, g [{t_tok}, {c}] bf16, m mixed 0 / 1/keep "
+        f"({float(drop.float().mean()):.3f} dropped)")
+    with torch.inference_mode():
+        out = lk.ln_dp_add_fwd(z2, x2, gamma, beta, m2)
+        ref = lk.ln_dp_add_fwd_reference(z2, x2, gamma, beta, m2)
+    torch.cuda.synchronize()
+    ln_errs = {"out": compare("out", out, ref, LN_TOL["out"])}
+    grads = lk.ln_dp_add_bwd(z2, g2, gamma, m2)
+    ref_g = lk.ln_dp_add_bwd_reference(z2, g2, gamma, m2)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("dz", "dgamma", "dbeta"), grads, ref_g):
+        ln_errs[name] = compare(name, o, r, LN_TOL[name])
+    again = lk.ln_dp_add_bwd(z2, g2, gamma, m2)
+    if not all(torch.equal(a, o) for a, o in zip(again, grads)):
+        raise RuntimeError("ln_dp_add_bwd: two calls differ (reduction order)")
+    g16, b16 = gamma.bfloat16(), beta.bfloat16()
+    with torch.inference_mode():
+        lf_ms = time_ms(lambda: lk.ln_dp_add_fwd(z2, x2, gamma, beta, m2), 50)
+        lfp_ms = time_ms(lambda: lk.ln_dp_add_fwd_reference(z2, x2, gamma, beta, m2), 10)
+        lb_ms = time_ms(lambda: lk.ln_dp_add_bwd(z2, g2, gamma, m2), 50)
+        lbp_ms = time_ms(lambda: lk.ln_dp_add_bwd_reference(z2, g2, gamma, m2), 10)
+        ln_ms = time_ms(lambda: torch.nn.functional.layer_norm(z2, (c,), g16, b16, 1e-5), 50)
+    log(f"  forward kernel {lf_ms:.4f} ms, plain {lfp_ms:.4f} ms; backward kernel {lb_ms:.4f} ms, "
+        f"plain {lbp_ms:.4f} ms; two backward calls bit-equal; F.layer_norm alone (bf16, "
+        f"context only) {ln_ms:.4f} ms ({card}); library call: none (no single PyTorch call "
+        f"computes LayerNorm + drop-path + residual add)")
+    # K11's work: about 10 (forward) and 14 (backward) fp32 FLOP an element
+    # (at the fp32 peak), far below the bytes: z and x (or g) read, out (or dz)
+    # written once, plus the [C] vectors, the [T, 1] multipliers and the [C]
+    # gradients
+    results["ln_dp_add_fwd"] = (ln_errs["out"], lf_ms, lfp_ms, bound(
+        10 * t_tok * c, nbytes(z2, x2, gamma, beta, m2, out), PEAK_FP32_FLOPS))
+    results["ln_dp_add_bwd"] = (ln_errs["dz"], lb_ms, lbp_ms, bound(
+        14 * t_tok * c, nbytes(z2, g2, gamma, m2, *grads), PEAK_FP32_FLOPS))
+    del z2, x2, g2, out, ref, grads, ref_g, again
+    torch.cuda.empty_cache()
+
+    # ---- 19. the fused-LayerNorm flagship train step ---------------------------
+    launches_lnadd, lnadd_ms = train_path(
+        "[19]", CONFIG, 3,
+        {"window_attention_qkv": depth, "window_attention_qkv_bwd": depth, "fc1_gelu": depth,
+         "fc1_dpre": depth, "ln_dp_add_fwd": 2 * depth, "ln_dp_add_bwd": 2 * depth},
+        overrides=LNADD)
+    log(f"[19] fused LayerNorm route {lnadd_ms:.2f} ms/step against the unfused flagship step "
+        f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
 
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
-               "train_depth24": (launches_depth24, 3)}
+               "train_depth24": (launches_depth24, 3), "serve_cpb": (cpb_serve_launches, N_STEPS),
+               "train_cpb": (launches_cpb, N_STEPS), "train_lnadd": (launches_lnadd, 3)}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),
@@ -606,6 +809,12 @@ def main() -> None:
         "fc1_dpre": ("fc1_gelu.cu", "mlp_kernels.py:140", "train"),
         "mlp_fwd": ("mlp.cu", "mlp_kernels.py:295", "train_2step"),
         "mlp_bwd": ("mlp.cu", "mlp_kernels.py:317", "train_2step"),
+        "window_attention_qkv_bias": ("window_attention_qkv.cu", "window_attention.py:1836",
+                                      "train_cpb"),
+        "window_attention_qkv_bias_bwd": ("window_attention_qkv_bwd.cu",
+                                          "window_attention.py:1836", "train_cpb"),
+        "ln_dp_add_fwd": ("ln_dp_add.cu", "ln_kernels.py:85", "train_lnadd"),
+        "ln_dp_add_bwd": ("ln_dp_add.cu", "ln_kernels.py:98", "train_lnadd"),
     }
     kernels = []
     for name, (src, replaces, main_path) in sources.items():
@@ -627,6 +836,10 @@ def main() -> None:
             "launches_per_step": {path: lc.get(name, 0) / n for path, (lc, n) in by_path.items()},
         })
     kernels[1]["max_abs_err_by_output"] = bwd_errs
+    kernels[7]["max_abs_err_by_output"] = {k: v for k, v in k7_errs.items() if k != "out"}
+    kernels[9]["max_abs_err_by_output"] = {k: v for k, v in ln_errs.items() if k != "out"}
+    for entry in kernels[8:]:
+        entry["layer_norm_ms"] = ln_ms  # F.layer_norm alone at [64800, 768], context only
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,12 +1,24 @@
 """SwinV2 for global weather forecasting -- PyTorch port.
 
 Counterpart of ``swin_v2_weather_tpu/models/swin.py`` for the routes the
-flagship, fine-tune and depth-24 configs take: the qkv-fused window-attention
-kernel (``attn_impl: 'pallas_qkv'``); the MLP through the fc1+GELU kernel
-pair (``mlp_impl: 'fused'``, the default for single-step runs at depth <= 12)
-or the whole-MLP kernel pair (``'fused2'``, the default for multi-step runs
-and depth > 12, as the JAX factory picks); post-norm blocks through the plain
-LayerNorm + residual (``lnadd_impl`` default ``'xla'``), no CPB.
+flagship, fine-tune, depth-24 and CPB configs take:
+
+  * attention: the qkv-fused window-attention kernels (``attn_impl:
+    'pallas_qkv'``; K1/K2), or with the continuous position bias (``rel_pos:
+    True``) the same kernels with the pre-folded bias (K7). The CPB meta-MLP
+    (2 -> 384 -> heads, ReLU, dropout 0.125 on the hidden layer in train
+    mode) runs on the distinct relative deltas and is expanded by an index
+    gather (``cpb_unique``, default true), or per pair;
+  * MLP: the fc1+GELU kernel pair (``mlp_impl: 'fused'``, the default for
+    single-step runs at depth <= 12) or the whole-MLP kernel pair
+    (``'fused2'``, the default for multi-step runs and depth > 12, as the JAX
+    factory picks);
+  * post-norm branches ``x + drop_path(norm(y))``: plain LayerNorm, drop-path
+    and add (``lnadd_impl: 'xla'``, the default) or the fused kernel pair
+    (``'fused'``; K11) where its shape condition holds, as in JAX.
+
+Still raising ``NotImplementedError``: ``attn_impl`` ``'xla'``, ``'pallas'``
+and ``'pallas_v1'``, ``mlp_impl: 'plain'`` and ``spatial_shards > 1``.
 
 The layout follows the JAX model, so weights convert one to one
 (``models/convert.py``):
@@ -20,13 +32,15 @@ The layout follows the JAX model, so weights convert one to one
     latitude-only mask; bias-free head, unpatchify, fp32 output and the
     optional global residual;
   * train mode: per-sample drop-path on both post-norm branches at rate
-    ``linspace(0, drop_path_rate, depth)[i]`` in block i. The uniforms behind
-    the masks, [depth, 2, B], are drawn in one call from the
-    ``torch.Generator`` the caller passes (:meth:`SwinTransformerV2.drop_noise`),
-    or handed in by the caller (the multi-step wrapper draws every step's at
-    once, so a recomputed step sees the same masks). JAX's ``dropout`` rng
-    stream cannot be matched, so the masks agree with JAX in distribution,
-    not bit for bit.
+    ``linspace(0, drop_path_rate, depth)[i]`` in block i, and with ``rel_pos``
+    the CPB meta-MLP's hidden dropout. The uniforms behind the masks
+    ([depth, 2, B] for drop-path, [depth, D, 384] for the CPB, D the number
+    of meta-MLP rows) are drawn in one call from the ``torch.Generator`` the
+    caller passes (:meth:`SwinTransformerV2.drop_noise`), or handed in by the
+    caller (the multi-step wrapper draws every step's at once, so a
+    recomputed step sees the same masks). JAX's ``dropout`` rng stream
+    cannot be matched, so the masks agree with JAX in distribution, not bit
+    for bit.
     Activation checkpointing (``activation_ckpt`` / ``remat_policy``) is not
     applied: it changes memory, not numbers, and the flagship step fits one
     80 GB card without it.
@@ -48,8 +62,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from swin_v2_weather_torch.ops import ln_kernels
 from swin_v2_weather_torch.ops.mlp_kernels import fused_fc1_gelu, fused_mlp
-from swin_v2_weather_torch.ops.window_attention import fused_window_attention_qkv
+from swin_v2_weather_torch.ops.window_attention import fold_cpb_bias, fused_window_attention_qkv
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -110,6 +125,39 @@ def make_shift_mask(
     return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
 
 
+def make_log_relative_coords(window_size: Tuple[int, int]) -> np.ndarray:
+    """sign(d) * log(1 + |d|) pairwise relative coordinates, [L*L, 2] (copy of
+    the JAX package's function, bit for bit)."""
+    wh, ww = window_size
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij")).reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]  # [2, L, L]
+    rel = rel.transpose(1, 2, 0).reshape(-1, 2).astype(np.float32)
+    return np.sign(rel) * np.log1p(np.abs(rel))
+
+
+@lru_cache(maxsize=16)
+def make_log_relative_coords_unique(window_size: Tuple[int, int]):
+    """Distinct-delta CPB table: ``(coords [D, 2], idx [L*L] int32)`` with
+    ``coords[idx] == make_log_relative_coords(window_size)`` exactly; D =
+    (2 wh - 1)(2 ww - 1) (595 for the 9x18 window against 26,244 pairs).
+    Copy of the JAX package's function; cached, so do not mutate the result."""
+    wh, ww = window_size
+    dr = np.arange(-(wh - 1), wh)
+    dc = np.arange(-(ww - 1), ww)
+    # float32 BEFORE log1p: bitwise-identical to make_log_relative_coords
+    deltas = (
+        np.stack(np.meshgrid(dr, dc, indexing="ij"), axis=-1)
+        .reshape(-1, 2)
+        .astype(np.float32)
+    )
+    coords = np.sign(deltas) * np.log1p(np.abs(deltas))
+
+    pos = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij")).reshape(2, -1)
+    rel = (pos[:, :, None] - pos[:, None, :]).transpose(1, 2, 0).reshape(-1, 2)
+    idx = (rel[:, 0] + wh - 1) * (2 * ww - 1) + (rel[:, 1] + ww - 1)
+    return coords, idx.astype(np.int32)
+
+
 def calc_window_shift(
     feat_size: Tuple[int, int], target_window: Tuple[int, int], target_shift: Tuple[int, int]
 ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -156,6 +204,17 @@ def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     return x * mask / keep_x
 
 
+def drop_path_multiplier(batch: int, rate: float, u: Optional[torch.Tensor],
+                         device) -> torch.Tensor:
+    """The per-sample drop-path multiplier mask / keep, fp32 [B], of the fused
+    LayerNorm route (JAX ``DropPathMask``): ones at rate 0 or without
+    uniforms (deterministic), else (u < keep) / keep."""
+    if rate == 0.0 or u is None:
+        return torch.ones((batch,), dtype=torch.float32, device=device)
+    keep = float(np.float32(1.0) - np.float32(rate))
+    return (u.reshape(batch) < keep).float() / keep
+
+
 class Fp32LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics whatever the input dtype (two-pass form);
     the output has the input's dtype."""
@@ -197,27 +256,89 @@ class Mlp(nn.Module):
         return dense(x, self.fc2, self.dtype)
 
 
+class CpbMlp(nn.Module):
+    """Continuous position bias meta-network: 2 -> 384 -> heads, ReLU, with
+    dropout 0.125 on the hidden layer in train mode (JAX ``CpbMlp``). Each
+    Dense rounds where flax does (:func:`dense`)."""
+
+    hidden = 384
+    dropout = 0.125
+
+    def __init__(self, num_heads: int):
+        super().__init__()
+        self.fc1 = nn.Linear(2, self.hidden)
+        self.fc2 = nn.Linear(self.hidden, num_heads)
+
+    def hidden_units(self, coords: torch.Tensor, dtype: torch.dtype,
+                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """relu(fc1(coords)) [N, 384] in ``dtype``, after the dropout when the
+        uniforms ``u`` [N, 384] are given (train mode): a unit is kept where
+        u < 0.875 and scaled by 1 / 0.875 in ``dtype``, as flax ``Dropout``
+        does."""
+        h = torch.relu(dense(coords, self.fc1, dtype))
+        if u is not None:
+            keep = 1.0 - self.dropout
+            h = torch.where(u < keep, h / keep, torch.zeros_like(h))
+        return h
+
+    def forward(self, coords: torch.Tensor, dtype: torch.dtype,
+                u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """coords [N, 2] -> [N, heads] in ``dtype``."""
+        return dense(self.hidden_units(coords, dtype, u), self.fc2, dtype)
+
+
 class WindowAttention(nn.Module):
     """Scaled cosine window attention on the NHWC grid: the qkv projection runs
-    inside the fused kernel, then the output projection."""
+    inside the fused kernel, then the output projection. With ``rel_pos`` the
+    CPB bias [heads, L, L] is assembled from the meta-MLP each call, folded
+    (:func:`fold_cpb_bias`) and added inside the kernel."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple[int, int],
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, rel_pos: bool = False, cpb_unique: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = tuple(window_size)
         self.dtype = dtype
         # per-head learnable logit scale, init log(10), clamped at log(100)
         self.logit_scale = nn.Parameter(torch.full((num_heads,), math.log(10.0)))
+        self.meta_mlp = CpbMlp(num_heads) if rel_pos else None
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        coords = idx = None
+        if rel_pos and cpb_unique:
+            # the meta-MLP runs on the D distinct deltas; idx expands its
+            # [D, heads] output to every pair (exact: a pair's row is a
+            # function of its delta), so the dropout draws one mask per delta
+            coords, idx = make_log_relative_coords_unique(self.window_size)
+            coords, idx = torch.from_numpy(coords.copy()), torch.from_numpy(idx.astype(np.int64))
+        elif rel_pos:
+            coords = torch.from_numpy(make_log_relative_coords(self.window_size))
+        self.register_buffer("cpb_coords", coords, persistent=False)
+        self.register_buffer("cpb_idx", idx, persistent=False)
+
+    @property
+    def cpb_rows(self) -> int:
+        """Rows the meta-MLP runs on (D or L*L; 0 without the CPB)."""
+        return 0 if self.cpb_coords is None else int(self.cpb_coords.shape[0])
+
+    def cpb_bias(self, scale: torch.Tensor, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The folded CPB term badd [heads, L, L] fp32; ``u`` [rows, 384] are
+        the meta-MLP's dropout uniforms (train mode) or None."""
+        l = self.window_size[0] * self.window_size[1]
+        cpb = self.meta_mlp(self.cpb_coords, self.dtype, u).float()  # [rows, heads]
+        if self.cpb_idx is not None:
+            cpb = cpb[self.cpb_idx]  # [L*L, heads]
+        return fold_cpb_bias(cpb.t().reshape(self.num_heads, l, l), scale)
 
     def forward(self, x: torch.Tensor, mask_pattern: Optional[torch.Tensor] = None,
-                boundary_flag=None) -> torch.Tensor:
+                boundary_flag=None, cpb_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
+        # the CPB term rides K7's route; without it the call is K1/K2's
+        cpb = {} if self.meta_mlp is None else dict(
+            bias=self.cpb_bias(scale, cpb_noise), bias_prefolded=True)
         out = fused_window_attention_qkv(
             x, self.qkv.weight.t().to(self.dtype), self.qkv.bias, scale,
-            self.window_size, mask_pattern=mask_pattern, boundary_flag=boundary_flag,
+            self.window_size, mask_pattern=mask_pattern, boundary_flag=boundary_flag, **cpb,
         )
         return dense(out, self.proj, self.dtype)
 
@@ -229,14 +350,19 @@ class SwinBlock(nn.Module):
                  window_size: Tuple[int, int], shift_size: Tuple[int, int], shifted: bool,
                  mlp_ratio: float = 4.0, init_values: Optional[float] = 0.0,
                  drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16,
-                 mlp_impl: str = "fused"):
+                 mlp_impl: str = "fused", rel_pos: bool = False, cpb_unique: bool = True,
+                 lnadd_impl: str = "xla"):
         super().__init__()
+        if lnadd_impl not in ("xla", "fused"):
+            raise ValueError(f"lnadd_impl must be 'xla' or 'fused', got {lnadd_impl!r}")
         self.drop_path_rate = float(drop_path_rate)
+        self.lnadd_impl = lnadd_impl
         window, shift = calc_window_shift(feat_size, window_size, shift_size)
         self.shift = tuple(shift)
         self.do_shift = shifted and any(shift)
         scale_init = 1.0 if init_values is None else float(init_values)
-        self.attn = WindowAttention(dim, num_heads, window, dtype)
+        self.attn = WindowAttention(dim, num_heads, window, dtype, rel_pos=rel_pos,
+                                    cpb_unique=cpb_unique)
         self.norm1 = Fp32LayerNorm(dim, init_value=scale_init)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, impl=mlp_impl)
         self.norm2 = Fp32LayerNorm(dim, init_value=scale_init)
@@ -247,22 +373,36 @@ class SwinBlock(nn.Module):
             pattern = torch.from_numpy(make_shift_mask(tuple(feat_size), window, shift)[-1].copy())
         self.register_buffer("mask_pattern", pattern, persistent=False)
 
+    def _ln_branch(self, norm: Fp32LayerNorm, y: torch.Tensor, x: torch.Tensor, rate: float,
+                   u: Optional[torch.Tensor]) -> torch.Tensor:
+        """x + drop_path(norm(y)): through the fused kernel pair where its
+        shape condition holds (``lnadd_impl: fused``), else unfused, as JAX's
+        ``_ln_branch``; the parameters stay ``norm{1,2}.weight/bias`` either
+        way."""
+        if self.lnadd_impl == "fused" and ln_kernels.supported(
+                math.prod(y.shape[:-1]), y.shape[-1]):
+            m = drop_path_multiplier(y.shape[0], rate, u, y.device)
+            return ln_kernels.fused_ln_droppath_add(y, x, norm.weight, norm.bias, m)
+        return x + drop_path(norm(y).to(x.dtype), rate, u=u)
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``noise`` [2, B]: the uniforms of the two drop-path masks (needed in
-        train mode when the block's rate is above 0)."""
+                noise: Optional[dict] = None) -> torch.Tensor:
+        """``noise``: the block's uniforms, ``{"drop_path": [2, B], "cpb": [rows,
+        384]}`` (each key present where train mode needs it)."""
         rate = self.drop_path_rate if train else 0.0
-        u1, u2 = (None, None) if noise is None else (noise[0], noise[1])
+        noise = noise or {}
+        dp = noise.get("drop_path")
+        u1, u2 = (None, None) if dp is None else (dp[0], dp[1])
         y = x
         if self.do_shift:
             y = torch.roll(y, shifts=(-self.shift[0], -self.shift[1]), dims=(1, 2))
-        y = self.attn(y, mask_pattern=self.mask_pattern)
+        y = self.attn(y, mask_pattern=self.mask_pattern, cpb_noise=noise.get("cpb"))
         if self.do_shift:
             y = torch.roll(y, shifts=(self.shift[0], self.shift[1]), dims=(1, 2))
         # post-norm residual branches: x + drop_path(norm(y))
-        x = x + drop_path(self.norm1(y).to(x.dtype), rate, u=u1)
+        x = self._ln_branch(self.norm1, y, x, rate, u1)
         y = self.mlp(x)
-        return x + drop_path(self.norm2(y).to(x.dtype), rate, u=u2)
+        return self._ln_branch(self.norm2, y, x, rate, u2)
 
 
 class PatchEmbed(nn.Module):
@@ -308,6 +448,9 @@ class SwinTransformerV2(nn.Module):
         residual: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         mlp_impl: str = "fused",
+        rel_pos: bool = False,
+        cpb_unique: bool = True,
+        lnadd_impl: str = "xla",
     ):
         super().__init__()
         self.img_size = tuple(img_size)
@@ -332,31 +475,43 @@ class SwinTransformerV2(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock(embed_dim, num_heads, (gh, gw), window, shift, shifted=(i % 2 == 1),
                       mlp_ratio=mlp_ratio, init_values=init_values,
-                      drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl)
+                      drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl,
+                      rel_pos=rel_pos, cpb_unique=cpb_unique, lnadd_impl=lnadd_impl)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
 
     def drop_noise(self, batch: int, generator: Optional[torch.Generator], device,
-                   n_steps: Optional[int] = None) -> Optional[torch.Tensor]:
-        """The uniforms behind every drop-path mask of one forward, [depth, 2,
-        batch] (``[n_steps, depth, 2, batch]`` with ``n_steps``), in one draw
-        from ``generator`` (on ``device``); None when every rate is 0."""
-        if not any(blk.drop_path_rate > 0 for blk in self.blocks):
+                   n_steps: Optional[int] = None) -> Optional[dict]:
+        """The uniforms behind every random mask of one train-mode forward, each
+        drawn in one call from ``generator`` (on ``device``): ``"drop_path"``
+        [depth, 2, batch] when a drop-path rate is above 0, then ``"cpb"``
+        [depth, rows, 384] for the CPB meta-MLP's dropout with ``rel_pos``.
+        With ``n_steps`` each gets a leading [n_steps] axis. None when the
+        model draws nothing."""
+        depth = len(self.blocks)
+        shapes = {}
+        if any(blk.drop_path_rate > 0 for blk in self.blocks):
+            shapes["drop_path"] = (depth, 2, batch)
+        rows = self.blocks[0].attn.cpb_rows
+        if rows:
+            shapes["cpb"] = (depth, rows, CpbMlp.hidden)
+        if not shapes:
             return None
         if generator is None:
-            raise ValueError("drop-path in train mode needs an explicit torch.Generator")
-        shape = (len(self.blocks), 2, batch)
-        if n_steps is not None:
-            shape = (n_steps,) + shape
-        return torch.rand(shape, generator=generator, device=device)
+            raise ValueError("drop-path and the CPB dropout in train mode need an explicit "
+                             "torch.Generator")
+        lead = () if n_steps is None else (n_steps,)
+        return {k: torch.rand(lead + shape, generator=generator, device=device)
+                for k, shape in shapes.items()}
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``train=True`` turns on drop-path: its uniforms are ``noise``
-        [depth, 2, B] when given, else drawn from ``generator`` (a
-        ``torch.Generator`` on x's device; needed when drop_path_rate > 0)."""
+        """``train=True`` turns on drop-path and the CPB dropout: their uniforms
+        are ``noise`` (as :meth:`drop_noise` returns them) when given, else
+        drawn from ``generator`` (a ``torch.Generator`` on x's device; needed
+        when drop_path_rate > 0 or with ``rel_pos``)."""
         if train and any(r > 0 for r in self.dropout_rates):
             raise NotImplementedError(
                 "train-mode proj/attn dropout is not ported (the JAX factory never sets it)"
@@ -374,7 +529,8 @@ class SwinTransformerV2(nn.Module):
         if train and noise is None:
             noise = self.drop_noise(b, generator, x.device)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, train=train, noise=None if noise is None else noise[i])
+            x = blk(x, train=train, noise=None if noise is None else
+                    {k: v[i] for k, v in noise.items()})
 
         x = dense(x, self.head, self.dtype)
         # nhwpqc -> nchpwq: interleave patch pixels back into the full grid
@@ -395,8 +551,6 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         dtype = _DTYPES[str(getattr(params, "compute_dtype", "bfloat16"))]
     depth = int(params.depth)
     n_future = int(getattr(params, "n_future", 0) or 0)
-    if bool(params.rel_pos):
-        raise NotImplementedError("rel_pos (CPB bias, kernel K7) is not ported yet")
     attn_impl = str(getattr(params, "attn_impl", "xla"))
     if attn_impl != "pallas_qkv":
         raise NotImplementedError(f"attn_impl {attn_impl!r} is not ported; only 'pallas_qkv'")
@@ -408,8 +562,9 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
     if mlp_impl not in ("fused", "fused2"):
         raise NotImplementedError(
             f"mlp_impl {mlp_impl!r} is not ported; only 'fused' and 'fused2'")
-    if "lnadd_impl" in params and str(params["lnadd_impl"]) == "fused":
-        raise NotImplementedError("lnadd_impl 'fused' (kernel K11) is not ported yet")
+    # the fused LayerNorm route only where the config asks for it (the JAX
+    # factory's default resolves to 'xla' for every config)
+    lnadd_impl = str(params["lnadd_impl"]) if "lnadd_impl" in params else "xla"
     if int(getattr(params, "spatial_shards", 1) or 1) > 1:
         raise NotImplementedError("spatial_shards > 1 is not ported yet")
     if bool(getattr(params, "activation_ckpt", False)):
@@ -433,4 +588,7 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         residual=bool(params.residual),
         dtype=dtype,
         mlp_impl=mlp_impl,
+        rel_pos=bool(params.rel_pos),
+        cpb_unique=bool(params["cpb_unique"]) if "cpb_unique" in params else True,
+        lnadd_impl=lnadd_impl,
     )

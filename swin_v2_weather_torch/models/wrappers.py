@@ -15,11 +15,11 @@ The JAX wrapper's two forms become two Python loops:
   ``rollout_stack_dtype`` the carries and predictions are kept in that dtype
   and the output is returned in fp32.
 
-Drop-path under the checkpoint: the uniforms behind every step's masks are
-drawn in one call from the caller's generator before the first step and
-handed to each step as a tensor, so a recomputed step draws nothing and sees
-the masks of its forward, and both forms give the same masks for the same
-generator state.
+Random masks under the checkpoint: the uniforms behind every step's
+drop-path and CPB-dropout masks are drawn from the caller's generator before
+the first step and handed to each step as tensors, so a recomputed step
+draws nothing and sees the masks of its forward, and both forms give the
+same masks for the same generator state.
 
 JAX silently ignores ``rollout_stack_dtype`` on the unrolled form; the port
 raises there instead.
@@ -79,8 +79,8 @@ class MultiStepWrapper(nn.Module):
     def forward(self, inp: torch.Tensor, coszen: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator`` draws the drop-path masks of every step (train mode,
-        drop_path_rate > 0)."""
+        """``generator`` draws the drop-path and CPB-dropout masks of every step
+        (train mode, drop_path_rate > 0 or ``rel_pos``)."""
         n_steps = self.n_future + 1
         noise = (self.model.drop_noise(inp.shape[0], generator, inp.device, n_steps)
                  if train else None)
@@ -90,7 +90,7 @@ class MultiStepWrapper(nn.Module):
         invars = carry[:, -self.n_invar:] if self.n_invar else None
         preds = []
         for step in range(n_steps):
-            step_noise = None if noise is None else noise[step]
+            step_noise = None if noise is None else {k: v[step] for k, v in noise.items()}
             if remat:
                 pred = checkpoint(self.model, carry, train, None, step_noise,
                                   use_reentrant=False, preserve_rng_state=False)

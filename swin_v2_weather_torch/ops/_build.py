@@ -56,6 +56,23 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
         _int, _int, _int, _int, _int, _int, _int, _int, _int, _int, _vp,
     ],
+    # (x, w, b, scale, bias, mask, boundary_flag, out, B, H, W, C_in, C, heads,
+    #  wh, ww, stream)
+    "swin_window_attention_qkv_bias_fwd": [
+        _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp,
+        _int, _int, _int, _int, _int, _int, _int, _int, _vp,
+    ],
+    # (x, w, b, scale, bias, mask, boundary_flag, g, dqkv, dw_part, db_part,
+    #  dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W, C_in, C,
+    #  heads, wh, ww, dw_splits, db_splits, stream)
+    "swin_window_attention_qkv_bias_bwd": [
+        _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _vp, _int, _int, _int, _int, _int, _int, _int, _int, _int, _int, _vp,
+    ],
+    # (z, x, gamma, beta, m, out, T, C, stream)
+    "swin_ln_dp_add_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
+    # (z, g, gamma, m, dz, part, dgamma, dbeta, T, C, n_blocks, stream)
+    "swin_ln_dp_add_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
 }
 
 

@@ -5,7 +5,14 @@
 // per-head q/k L2 normalization, the max-free softmax of (s - 1) * scale (plus
 // the shift mask on the last window row) and e @ v / rowsum, all in one kernel
 // that reads the activation in its NHWC grid layout and writes the result back
-// into grid positions.
+// into grid positions. Its BIAS instance (entry point
+// swin_window_attention_qkv_bias_fwd, K7) replaces the same kernel with
+// has_bias=True, reached through _build_qkv_bias: the logits become
+// z = s * scale + badd[h][q][k], badd the pre-folded CPB term
+// (row-max-shifted bias - scale, fp32 [heads, L, L]). Each block reads its
+// head's [L, L] slice (105 KB at L = 162) straight from global memory; the
+// whole 0.84 MB array stays in L2 for the 400 x 8 blocks. The shift keeps the
+// max-free softmax rigorous: z <= 0 with one z = 0 in every row.
 //
 // What bounds it on this card: at the flagship shape (x [1, 180, 360, 768] bf16,
 // 9 x 18 windows so L = 162, 8 heads of 96) the work per (window, head) is a
@@ -35,11 +42,12 @@
 // Rounding sites (the TPU kernel's contract): qkv = bf16(bf16(x) @ bf16(W) + b)
 // with fp32 accumulation; q16 = bf16(q * rsqrt(max(sum q^2, 1e-24))), same for k;
 // s = q16 @ k16^T in fp32; z = (s - 1) * scale[h] (+ flag * mask on the last
-// window row); e = exp(z); out = (bf16(e) @ v16 in fp32) * (1 / sum e).
+// window row), with the bias z = fl(s * scale[h]) + badd[h][q][k] (+ the mask);
+// e = exp(z); out = (bf16(e) @ v16 in fp32) * (1 / sum e).
 //
 // Contract (checked by the Python wrapper): x [B, H, W, C_in] bf16, W [C_in, 3C]
 // bf16, both contiguous; b [3C] fp32; scale [heads] fp32; mask [L, L] fp32 or
-// null; C_in % 32 == 0; head dim in {32, 64, 96, 128}; H % wh == W % ww == 0;
+// null; bias [heads, L, L] fp32 (BIAS only); C_in % 32 == 0; head dim in {32, 64, 96, 128}; H % wh == W % ww == 0;
 // L <= 256.
 
 #include "window_attention_common.cuh"
@@ -58,12 +66,12 @@ size_t smem_bytes(int LP) {
   return qkv + scratch + (p_buf > staging ? p_buf : staging);
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 __global__ void __launch_bounds__(MAX_LP * 2)
     window_attention_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                                 const float* __restrict__ bqkv, const float* __restrict__ scale,
-                                const float* __restrict__ mask, float bflag,
-                                bf16* __restrict__ out, Geometry g) {
+                                const float* __restrict__ bias, const float* __restrict__ mask,
+                                float bflag, bf16* __restrict__ out, Geometry g) {
   constexpr int NF = HD / 16;    // 16-wide column fragments per head
   constexpr int LDQ = HD + 8;  // q/k/v row pitch: head dim + 8 spreads banks
 
@@ -104,6 +112,8 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const float sc = scale[h];
   const bool use_mask = mask != nullptr && wr == g.nwh - 1;
   const int qrow = warp * 16 + fr;
+  // this query row of the head's bias slice (padded rows read none)
+  const float* brow = BIAS && qrow < L ? bias + (static_cast<size_t>(h) * L + qrow) * L : nullptr;
   bf16* pw = pbuf + warp * 16 * LDP;
   const int nkt = LP / 16;
   float rowsum = 0.0f;
@@ -126,7 +136,9 @@ __global__ void __launch_bounds__(MAX_LP * 2)
       const int key = kt * 16 + fc + e;
       float ev = 0.0f;
       if (key < L) {
-        float z = (cs[fr * 16 + fc + e] - 1.0f) * sc;
+        const float sv = cs[fr * 16 + fc + e];
+        float z = (sv - 1.0f) * sc;
+        if (BIAS && brow != nullptr) z = __fmul_rn(sv, sc) + brow[key];
         if (use_mask && qrow < L) z += bflag * mask[qrow * L + key];
         ev = expf(z);
       }
@@ -169,46 +181,67 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   }
 }
 
-template <int HD>
-int launch(const void* x, const void* w, const void* b, const void* scale, const void* mask,
-           float bflag, void* out, const Geometry& g, cudaStream_t stream) {
+template <int HD, bool BIAS>
+int launch(const void* x, const void* w, const void* b, const void* scale, const void* bias,
+           const void* mask, float bflag, void* out, const Geometry& g, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>(g.LP);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_qkv_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(window_attention_qkv_kernel<HD, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  window_attention_qkv_kernel<HD><<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
-      static_cast<const float*>(scale), static_cast<const float*>(mask), bflag,
-      static_cast<bf16*>(out), g);
+  window_attention_qkv_kernel<HD, BIAS>
+      <<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<const float*>(b), static_cast<const float*>(scale),
+          static_cast<const float*>(bias), static_cast<const float*>(mask), bflag,
+          static_cast<bf16*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int swin_window_attention_qkv_fwd(const void* x, const void* w, const void* b,
-                                             const void* scale, const void* mask, float bflag,
-                                             void* out, int B, int H, int W, int Cin, int C,
-                                             int heads, int wh, int ww, void* stream) {
+template <bool BIAS>
+int dispatch(const void* x, const void* w, const void* b, const void* scale, const void* bias,
+             const void* mask, float bflag, void* out, int B, int H, int W, int Cin, int C,
+             int heads, int wh, int ww, void* stream) {
   Geometry g;
-  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww)) {
+  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww) || (BIAS && bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / heads) {
     case 32:
-      return launch<32>(x, w, b, scale, mask, bflag, out, g, s);
+      return launch<32, BIAS>(x, w, b, scale, bias, mask, bflag, out, g, s);
     case 64:
-      return launch<64>(x, w, b, scale, mask, bflag, out, g, s);
+      return launch<64, BIAS>(x, w, b, scale, bias, mask, bflag, out, g, s);
     case 96:
-      return launch<96>(x, w, b, scale, mask, bflag, out, g, s);
+      return launch<96, BIAS>(x, w, b, scale, bias, mask, bflag, out, g, s);
     case 128:
-      return launch<128>(x, w, b, scale, mask, bflag, out, g, s);
+      return launch<128, BIAS>(x, w, b, scale, bias, mask, bflag, out, g, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// K1: the bias-free forward.
+extern "C" int swin_window_attention_qkv_fwd(const void* x, const void* w, const void* b,
+                                             const void* scale, const void* mask, float bflag,
+                                             void* out, int B, int H, int W, int Cin, int C,
+                                             int heads, int wh, int ww, void* stream) {
+  return dispatch<false>(x, w, b, scale, nullptr, mask, bflag, out, B, H, W, Cin, C, heads, wh,
+                         ww, stream);
+}
+
+// K7: the forward with the pre-folded CPB term bias [heads, L, L] fp32.
+extern "C" int swin_window_attention_qkv_bias_fwd(const void* x, const void* w, const void* b,
+                                                  const void* scale, const void* bias,
+                                                  const void* mask, float bflag, void* out,
+                                                  int B, int H, int W, int Cin, int C,
+                                                  int heads, int wh, int ww, void* stream) {
+  return dispatch<true>(x, w, b, scale, bias, mask, bflag, out, B, H, W, Cin, C, heads, wh, ww,
+                        stream);
 }
 
 extern "C" const char* swin_cuda_error_string(int code) {

@@ -5,7 +5,11 @@
 // _make_qkv_bwd_kernel (launched by _qkv_backward): recompute the qkv projection,
 // the q/k normalization and the softmax; the attention backward; d(scale) through
 // sum(ds * s) = sum(qn * dqn) / scale; the normalization VJP; and the projection
-// backward dx = dqkv @ W^T, dW = bf16(x)^T @ dqkv, db = sum dqkv.
+// backward dx = dqkv @ W^T, dW = bf16(x)^T @ dqkv, db = sum dqkv. Its BIAS
+// instance (entry point swin_window_attention_qkv_bias_bwd, K7) replaces the
+// same kernel with has_bias=True, reached through _build_qkv_bias: the
+// recomputed logits are z = s * scale + badd[h][q][k] and it also returns
+// d(bias)[h] = sum over windows of ds * (1 / scale_h).
 //
 // What bounds it on this card: at the flagship shape (x and g [1, 180, 360, 768]
 // bf16, L = 162, 8 heads of 96) each (window, head) recomputes a [162, 768] x
@@ -43,15 +47,29 @@
 //     sums the dW and db partials in split order and the d(scale) partials in
 //     window order, dividing by scale.
 //
+// d(bias) (BIAS only). The TPU kernel adds ds / scale into a VMEM-resident
+// [heads * nc, L, L] accumulator from grid step to grid step; here the 400 x 8
+// blocks of a flagship call run at once. The simple design is kept: in pass 1
+// each warp, as it forms its 16 rows of ds, also stores ds * (1 / scale_h) in
+// fp32 into the block's own [LP, LP] slice of a [B * nW, heads, LP, LP]
+// workspace (padded rows and keys hold 0; row pitch LP keeps the stores
+// 16-byte aligned). dbias_reduce_kernel then sums the slices in window order.
+// At batch 1 the workspace is 400 x 8 x 176^2 x 4 B = 396 MB (0.5 % of the
+// card), written once and read once, about 0.25 ms of HBM traffic; at larger
+// batches a block could sum a group of windows first.
+//
 // Rounding sites (the TPU kernel's contract): qkv, qn16/kn16 as in the forward;
 // g16 = bf16(g); p16 = bf16(e r); dv = p16^T g16 and dp = g16 v16^T in fp32;
 // u = sum dp e; ds = (dp - u r) e (r scale), dsb = bf16(ds); dqn = dsb kn16 and
-// dkn = dsb^T qn16 in fp32; dscale_h = sum qn16 dqn / scale_h; dq, dk as above;
+// dkn = dsb^T qn16 in fp32; dscale_h = sum qn16 dqn / scale_h (valid with the
+// bias: the softmax VJP's rows sum to zero); dbias = sum ds * (1 / scale_h)
+// with ds unrounded, in fp32; dq, dk as above;
 // dqkv = bf16([dq | dk | dv]); dx = dqkv bf16(W)^T and dW = bf16(x)^T dqkv in
 // fp32; db = sum dqkv in fp32.
 //
 // Contract (checked by the Python wrapper): x [B, H, W, C_in], g [B, H, W, C]
 // bf16; W [C_in, 3C] bf16; b [3C], scale [heads] fp32; mask [L, L] fp32 or null;
+// bias [heads, L, L] fp32 (BIAS only);
 // the workspaces as the wrapper allocates them; C_in % 32 == 0, head dim in
 // {32, 64, 96, 128}, L <= 256, and the shared memory of pass 1/2 within 227 KB.
 
@@ -101,13 +119,14 @@ __device__ __forceinline__ void store8(bf16* dst, const float* v, F f) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 __global__ void __launch_bounds__(MAX_LP * 2)
     attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                          const float* __restrict__ bqkv, const float* __restrict__ scale,
-                         const float* __restrict__ mask, float bflag,
-                         const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
-                         float* __restrict__ dscale_part, Geometry geo) {
+                         const float* __restrict__ bias, const float* __restrict__ mask,
+                         float bflag, const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
+                         float* __restrict__ dscale_part, float* __restrict__ dbias_part,
+                         Geometry geo) {
   constexpr int NF = HD / 16;
   constexpr int LDQ = HD + 8;
 
@@ -164,16 +183,24 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
   const int nkt = LP / 16;
   bf16* pw = rowbuf + warp * 16 * LDP;
+  const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
 
-  // e = exp((s - 1) * scale (+ mask)) for the lane's 8 entries of a score tile
-  // in cs; zero outside the L x L window
+  // e = exp((s - 1) * scale (+ mask)), or exp(s * scale + badd (+ mask)), for
+  // the lane's 8 entries of a score tile in cs; zero outside the L x L window
   auto exp_tile = [&](int qrow, int key0, float (&ev)[8]) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int key = key0 + e;
       float val = 0.0f;
       if (key < L && qrow < L) {
-        float z = (cs[fr * 16 + fc + e] - 1.0f) * sc;
+        const float s = cs[fr * 16 + fc + e];
+        float z;
+        if constexpr (BIAS) {
+          z = __fmul_rn(s, sc) + bh[qrow * L + key];
+        } else {
+          z = (s - 1.0f) * sc;
+        }
         if (use_mask) z += bflag * mask[qrow * L + key];
         val = expf(z);
       }
@@ -211,6 +238,10 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     uu[qrow] = u;
   }
 
+  // this row of the block's d(bias) slice (BIAS only)
+  float* drow = BIAS ? dbias_part + ((static_cast<size_t>(win) * geo.heads + h) * LP + qrow) * LP
+                     : nullptr;
+  const float rsc = 1.0f / sc;
   for (int kt = 0; kt < nkt; ++kt) {  // ds rows into the warp's row buffer
     Frag s;
     dot_rows<HD>(s, qs + warp * 16 * LDQ, ks + kt * 16 * LDQ);
@@ -222,8 +253,15 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     dot_rows<HD>(s, gs + warp * 16 * LDQ, vs + kt * 16 * LDQ);
     wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
     __syncwarp();
-    store8(pw + fr * LDP + kt * 16 + fc, cs + fr * 16 + fc,
-           [&](int e, float dp) { return (dp - u * r) * ev[e] * (r * sc); });
+    float ds[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ds[e] = (cs[fr * 16 + fc + e] - u * r) * ev[e] * (r * sc);
+    store8(pw + fr * LDP + kt * 16 + fc, ds, [](int, float v) { return v; });
+    if constexpr (BIAS) {  // e = 0 outside the window, so padded entries get 0
+      float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
+      dst[0] = make_float4(ds[0] * rsc, ds[1] * rsc, ds[2] * rsc, ds[3] * rsc);
+      dst[1] = make_float4(ds[4] * rsc, ds[5] * rsc, ds[6] * rsc, ds[7] * rsc);
+    }
     __syncwarp();
   }
 
@@ -277,7 +315,6 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   if (tid == 0) {
     float total = 0.0f;
     for (int i = 0; i < nwarps; ++i) total += wsum[i];
-    const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
     dscale_part[static_cast<size_t>(win) * geo.heads + h] = total;
   }
 
@@ -436,55 +473,76 @@ __global__ void reduce_kernel(const float* __restrict__ dw_part, int dw_splits, 
   }
 }
 
-template <int HD>
+// dbias[h, q, k] = sum over windows, in window order, of the blocks' partials
+// part[win, h, q, k] (row pitch LP)
+__global__ void dbias_reduce_kernel(const float* __restrict__ part, int n_win, int heads, int L,
+                                    int LP, float* __restrict__ dbias) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(heads) * L * L) return;
+  const int k = static_cast<int>(i % L);
+  const int q = static_cast<int>((i / L) % L);
+  const int hh = static_cast<int>(i / (static_cast<long long>(L) * L));
+  const size_t stride = static_cast<size_t>(heads) * LP * LP;
+  const float* p = part + (static_cast<size_t>(hh) * LP + q) * LP + k;
+  float acc = 0.0f;
+  for (int wi = 0; wi < n_win; ++wi) acc += p[wi * stride];
+  dbias[i] = acc;
+}
+
+template <int HD, bool BIAS>
 int launch_attention_bwd(const void* x, const void* w, const void* b, const void* scale,
-                         const void* mask, float bflag, const void* g, void* dqkv,
-                         void* dscale_part, const Geometry& geo, cudaStream_t stream) {
+                         const void* bias, const void* mask, float bflag, const void* g,
+                         void* dqkv, void* dscale_part, void* dbias_part, const Geometry& geo,
+                         cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes<HD>(geo.LP);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  attention_bwd_kernel<HD><<<static_cast<unsigned>(blocks), (geo.LP / 16) * 32, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
-      static_cast<const float*>(scale), static_cast<const float*>(mask), bflag,
-      static_cast<const bf16*>(g), static_cast<bf16*>(dqkv), static_cast<float*>(dscale_part),
-      geo);
+  attention_bwd_kernel<HD, BIAS>
+      <<<static_cast<unsigned>(blocks), (geo.LP / 16) * 32, smem, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<const float*>(b), static_cast<const float*>(scale),
+          static_cast<const float*>(bias), static_cast<const float*>(mask), bflag,
+          static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
+          static_cast<float*>(dscale_part), static_cast<float*>(dbias_part), geo);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Workspaces (allocated by the caller): dqkv [B, H, W, 3C] bf16,
-// dw_part [dw_splits, C_in, 3C], db_part [db_splits, 3C] and
-// dscale_part [B * nW, heads] fp32. Outputs: dx [B, H, W, C_in] bf16,
-// dw [C_in, 3C], db [3C], dscale [heads] fp32.
-extern "C" int swin_window_attention_qkv_bwd(
-    const void* x, const void* w, const void* b, const void* scale, const void* mask, float bflag,
-    const void* g, void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dx,
-    void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int C, int heads, int wh,
-    int ww, int dw_splits, int db_splits, void* stream) {
+// The whole backward; bias, dbias_part and dbias are read and written only
+// when BIAS.
+template <bool BIAS>
+int backward(const void* x, const void* w, const void* b, const void* scale, const void* bias,
+             const void* mask, float bflag, const void* g, void* dqkv, void* dw_part,
+             void* db_part, void* dscale_part, void* dbias_part, void* dx, void* dw, void* db,
+             void* dscale, void* dbias, int B, int H, int W, int Cin, int C, int heads, int wh,
+             int ww, int dw_splits, int db_splits, void* stream) {
   Geometry geo;
-  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1) {
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1 ||
+      (BIAS && (bias == nullptr || dbias_part == nullptr || dbias == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int code;
   switch (C / heads) {
     case 32:
-      code = launch_attention_bwd<32>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      code = launch_attention_bwd<32, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
+                                            dscale_part, dbias_part, geo, s);
       break;
     case 64:
-      code = launch_attention_bwd<64>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      code = launch_attention_bwd<64, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
+                                            dscale_part, dbias_part, geo, s);
       break;
     case 96:
-      code = launch_attention_bwd<96>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      code = launch_attention_bwd<96, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
+                                            dscale_part, dbias_part, geo, s);
       break;
     case 128:
-      code = launch_attention_bwd<128>(x, w, b, scale, mask, bflag, g, dqkv, dscale_part, geo, s);
+      code = launch_attention_bwd<128, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
+                                             dscale_part, dbias_part, geo, s);
       break;
     default:
       code = static_cast<int>(cudaErrorInvalidValue);
@@ -516,5 +574,42 @@ extern "C" int swin_window_attention_qkv_bwd(
       static_cast<const float*>(db_part), db_splits, C3, static_cast<float*>(db),
       static_cast<const float*>(dscale_part), B * geo.nwh * geo.nww, heads,
       static_cast<const float*>(scale), static_cast<float*>(dscale));
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0 || !BIAS) return code;
+
+  const long long n_bias = static_cast<long long>(heads) * geo.L * geo.L;
+  dbias_reduce_kernel<<<static_cast<unsigned>((n_bias + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(dbias_part), B * geo.nwh * geo.nww, heads, geo.L, geo.LP,
+      static_cast<float*>(dbias));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2. Workspaces (allocated by the caller): dqkv [B, H, W, 3C] bf16,
+// dw_part [dw_splits, C_in, 3C], db_part [db_splits, 3C] and
+// dscale_part [B * nW, heads] fp32. Outputs: dx [B, H, W, C_in] bf16,
+// dw [C_in, 3C], db [3C], dscale [heads] fp32.
+extern "C" int swin_window_attention_qkv_bwd(
+    const void* x, const void* w, const void* b, const void* scale, const void* mask, float bflag,
+    const void* g, void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dx,
+    void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int C, int heads, int wh,
+    int ww, int dw_splits, int db_splits, void* stream) {
+  return backward<false>(x, w, b, scale, nullptr, mask, bflag, g, dqkv, dw_part, db_part,
+                         dscale_part, nullptr, dx, dw, db, dscale, nullptr, B, H, W, Cin, C,
+                         heads, wh, ww, dw_splits, db_splits, stream);
+}
+
+// K7's backward: as K2, with the pre-folded CPB term bias [heads, L, L] fp32,
+// the workspace dbias_part [B * nW, heads, LP, LP] fp32 (LP = L rounded up to
+// 16) and the output dbias [heads, L, L] fp32.
+extern "C" int swin_window_attention_qkv_bias_bwd(
+    const void* x, const void* w, const void* b, const void* scale, const void* bias,
+    const void* mask, float bflag, const void* g, void* dqkv, void* dw_part, void* db_part,
+    void* dscale_part, void* dbias_part, void* dx, void* dw, void* db, void* dscale, void* dbias,
+    int B, int H, int W, int Cin, int C, int heads, int wh, int ww, int dw_splits, int db_splits,
+    void* stream) {
+  return backward<true>(x, w, b, scale, bias, mask, bflag, g, dqkv, dw_part, db_part,
+                        dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W, Cin, C,
+                        heads, wh, ww, dw_splits, db_splits, stream);
 }

@@ -4,7 +4,10 @@ replaces (Pallas in interpret mode on the CPU; backward kernels through
 unrounded fp64 autograd oracle, the CPU dispatch of the entry points and
 autograd Functions, and -- on a GPU only -- each CUDA kernel against its plain
 version and gradients flowing through the kernels. The kernels: window
-attention (K1, K2), fc1 + GELU (K3, K4) and the whole MLP (K5, K6).
+attention (K1, K2, and K7, their CPB-bias instances), fc1 + GELU (K3, K4),
+the whole MLP (K5, K6) and the fused LayerNorm + drop-path + add (K11). The
+CPU parity tests of K7 and K11 are in tests/test_torch_cpb.py and
+tests/test_torch_lnadd.py, which share the input makers below.
 
 Tolerances are stated in bf16 ulps of the output scale: ``ulp(m)`` is the bf16
 spacing at the largest reference magnitude ``m``. Both sides keep the same
@@ -25,7 +28,7 @@ import pytest
 import torch
 
 from swin_v2_weather_torch.models.swin import make_shift_mask
-from swin_v2_weather_torch.ops import mlp_kernels, window_attention
+from swin_v2_weather_torch.ops import ln_kernels, mlp_kernels, window_attention
 
 torch.set_num_threads(1)
 
@@ -89,13 +92,39 @@ def cotangent(seed=3):
     return np.random.default_rng(seed).standard_normal((B, H, W, C)).astype(np.float32)
 
 
+def cpb_badd(seed=9):
+    """A seeded raw CPB bias [HEADS, L, L], folded as the model folds it
+    (row-max shift, minus the attention_inputs() scale): fp32."""
+    l = WINDOW[0] * WINDOW[1]
+    raw = 2.0 * np.random.default_rng(seed).standard_normal((HEADS, l, l))
+    scale = torch.from_numpy(attention_inputs()[3])
+    return window_attention.fold_cpb_bias(torch.from_numpy(raw.astype(np.float32)), scale)
+
+
+def ln_inputs(t=T, c=256, seed=11, keep=0.9):
+    """z, x [t, c], gamma, beta [c], m [t, 1] and a cotangent g [t, c], fp32;
+    m mixes dropped rows (0), kept rows (1 / keep) and deterministic ones (1)."""
+    rng = np.random.default_rng(seed)
+    z = (2.0 * rng.standard_normal((t, c)) + 0.5).astype(np.float32)
+    x = rng.standard_normal((t, c)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    u = rng.random(t)
+    m = np.where(u < 0.3, 0.0, np.where(u < 0.8, np.float32(1.0) / np.float32(keep), 1.0))
+    g = rng.standard_normal((t, c)).astype(np.float32)
+    return z, x, gamma, beta, m.astype(np.float32).reshape(t, 1), g
+
+
 # Backward tolerances, (max, mean) in bf16 ulps of the gradient's scale. The
 # two sides differ by the order of fp32 sums, which now and then flips a bf16
 # rounding of dqkv (or of the pre-activation cotangent); dW and db then sum
 # that flip with hundreds of token rows. dscale is a sum over every query row
 # of <qn16, dqn> with heavy cancellation, so its bound is absolute (plus 1 %).
 BWD_ULPS = {"dx": (2, 0.01), "dW": (4, 0.05), "db": (4, 0.05),
-            "dW1": (4, 0.05), "db1": (4, 0.05), "dW2": (4, 0.05), "db2": (4, 0.05)}
+            "dW1": (4, 0.05), "db1": (4, 0.05), "dW2": (4, 0.05), "db2": (4, 0.05),
+            # K7's d(bias): fp32 ds / scale summed over the windows; a flipped
+            # bf16 rounding of qkv or q16/k16 moves a few entries
+            "dbias": (4, 0.05)}
 DSCALE_TOL = dict(atol=4e-3, rtol=1e-2)
 
 
@@ -344,12 +373,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_entry_point_refuses_cpb_bias():
+    """The entry point takes a CPB bias of shape [heads, L, L] (K7's route,
+    tests/test_torch_cpb.py) and refuses any other shape."""
     x, w, b, scale = (torch.from_numpy(a) for a in attention_inputs())
     l = WINDOW[0] * WINDOW[1]
-    with pytest.raises(NotImplementedError, match="CPB"):
-        window_attention.fused_window_attention_qkv(
-            x, w, b, scale, WINDOW, bias=torch.zeros(HEADS, l, l)
-        )
+    for shape in ((HEADS, l, l + 1), (HEADS + 1, l, l), (l, l)):
+        with pytest.raises(ValueError, match="CPB"):
+            window_attention.fused_window_attention_qkv(
+                x, w, b, scale, WINDOW, bias=torch.zeros(shape)
+            )
+    out = window_attention.fused_window_attention_qkv(
+        x, w, b, scale, WINDOW, bias=torch.zeros(HEADS, l, l))
+    assert tuple(out.shape) == (B, H, W, C)
 
 
 # --------------------------------------------------------------------------
@@ -671,3 +706,130 @@ def test_whole_mlp_gradients_flow_through_the_kernels(cuda_device):
     assert [t.dtype for t in got] == [torch.bfloat16] + [torch.float32] * 4
     for name, a, r in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
         assert_close_backward(name, a.float().numpy(), r.float().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_window_attention_bias_kernels_match_plain(cuda_device, use_mask):
+    """K7 forward and backward (the CPB-bias instances of K1/K2) against their
+    plain versions on the card, with a seeded bias folded as the model folds
+    it; K1 and K2 do not launch. The backward twice gives the same bits, d(bias)
+    included: its per-(window, head) partials are summed in window order."""
+    x, w, b, scale = (torch.from_numpy(a).to(cuda_device) for a in attention_inputs())
+    x, w16 = x.bfloat16(), w.bfloat16()
+    g = torch.from_numpy(cotangent()).to(cuda_device).bfloat16()
+    badd = cpb_badd().to(cuda_device)
+    mask = torch.from_numpy(mask_pattern()).to(cuda_device) if use_mask else None
+    fns = (window_attention.window_attention_qkv_bias, window_attention.window_attention_qkv_bias_bwd,
+           window_attention.window_attention_qkv, window_attention.window_attention_qkv_bwd)
+    before = [f.launches for f in fns]
+    out = window_attention.window_attention_qkv_bias(x, w16, b, scale, badd, WINDOW, mask, 1.0)
+    grads = window_attention.window_attention_qkv_bias_bwd(x, w16, b, scale, badd, g, WINDOW, mask,
+                                                            1.0)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [before[0] + 1, before[1] + 1, before[2], before[3]]
+    ref = window_attention.window_attention_qkv_bias_reference(x, w, b, scale, badd, WINDOW, mask)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    ref_grads = window_attention.window_attention_qkv_bias_backward_reference(
+        x, w16, b, scale, badd, g, WINDOW, mask)
+    assert grads[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in grads[1:])
+    for name, a, r in zip(("dx", "dW", "db", "dscale", "dbias"), grads, ref_grads):
+        assert_close_backward(name, a.float().cpu().numpy(), r.float().cpu().numpy())
+    again = window_attention.window_attention_qkv_bias_bwd(x, w16, b, scale, badd, g, WINDOW, mask,
+                                                            1.0)
+    for a, r in zip(grads, again):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, c", [(100, 256), (2600, 768)])
+def test_ln_dp_add_kernels_match_plain(cuda_device, t, c):
+    """K11 forward and backward against their plain versions on the card, at a
+    ragged row count (not a multiple of a block's 8 rows) and the flagship
+    width, with m mixed between 0, 1 and 1/keep. Both sides round at the same
+    sites; the statistics' fp32 sums differ in order, which now and then flips
+    one bf16 rounding (1 ulp). dgamma/dbeta are fp32 sums over the rows in
+    another order (rtol 1e-5). Two backward calls give the same bits."""
+    z, x, gamma, beta, m, g = (torch.from_numpy(a).to(cuda_device)
+                               for a in ln_inputs(t=t, c=c))
+    z, x, g = z.bfloat16(), x.bfloat16(), g.bfloat16()
+    before = (ln_kernels.ln_dp_add_fwd.launches, ln_kernels.ln_dp_add_bwd.launches)
+    out = ln_kernels.ln_dp_add_fwd(z, x, gamma, beta, m)
+    dz, dgamma, dbeta = ln_kernels.ln_dp_add_bwd(z, g, gamma, m)
+    torch.cuda.synchronize()
+    assert (ln_kernels.ln_dp_add_fwd.launches, ln_kernels.ln_dp_add_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = ln_kernels.ln_dp_add_fwd_reference(z, x, gamma, beta, m)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 1, 0.01)
+    rdz, rdg, rdb = ln_kernels.ln_dp_add_bwd_reference(z, g, gamma, m)
+    assert dz.dtype == torch.bfloat16 and dgamma.dtype == dbeta.dtype == torch.float32
+    assert_close_ulps(dz.float().cpu().numpy(), rdz.float().cpu().numpy(), 1, 0.01)
+    for a, r in ((dgamma, rdg), (dbeta, rdb)):
+        r = r.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), r, rtol=1e-5, atol=1e-5 * np.abs(r).max())
+    again = ln_kernels.ln_dp_add_bwd(z, g, gamma, m)
+    for a, r in zip((dz, dgamma, dbeta), again):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_cpb_lnadd_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
+    """The micro config with the CPB (``rel_pos``, K7) and the fused LayerNorm
+    route (``lnadd_impl: fused``, K11; embed 128 so that its shape condition
+    holds) on the GPU against the same model on the CPU, which takes the
+    plain versions: the eval forward (bound of the bias-free micro test, 8
+    ulps max, 0.5 mean) and the parameter gradients of an eval-mode backward
+    (per leaf max 15 %, mean 8 % of its scale, the bounds of the bf16
+    port-against-JAX gradient test; meta_mlp.fc2.bias, whose exact gradient is
+    0, is rounding noise on both sides and is held to 2 % of the fc2 weight
+    gradient's scale, as in tests/test_torch_cpb.py). K1 and K2 never launch."""
+    from swin_v2_weather_torch.config.yparams import YParams, default_config_path
+    from swin_v2_weather_torch.data.preprocess import derived_channel_counts
+    from swin_v2_weather_torch.models.wrappers import get_model
+
+    p = YParams(default_config_path(), "swin_micro_test")
+    over = dict(attn_impl="pallas_qkv", rel_pos=True, full_pos_embed=False,
+                lnadd_impl="fused", embed_dim=128)
+    for k, v in over.items():
+        p[k] = v
+    p["n_in_channels"], p["n_out_channels"] = derived_channel_counts(p)
+    model = get_model(p, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            noise = torch.randn(prm.shape, generator=gen)
+            if name.endswith("norm1.weight") or name.endswith("norm2.weight"):
+                prm.copy_(1.0 + 0.1 * noise)
+            elif prm.dim() == 2:
+                prm.copy_(noise / np.sqrt(prm.shape[1]))
+            else:
+                prm.copy_(0.1 * noise)
+    x = torch.randn((1, p["n_in_channels"], *p.img_size), generator=gen)
+    ct = torch.randn((1, p["n_out_channels"], *p.img_size), generator=gen)
+
+    def run(m, dev):
+        m.zero_grad()
+        out = m(x.to(dev))
+        torch.sum(out * ct.to(dev)).backward()
+        return out.detach().cpu(), {n: q.grad.detach().cpu().clone() for n, q in m.named_parameters()}
+
+    ref, ref_grads = run(model, torch.device("cpu"))
+    fns = (window_attention.window_attention_qkv_bias, window_attention.window_attention_qkv_bias_bwd,
+           ln_kernels.ln_dp_add_fwd, ln_kernels.ln_dp_add_bwd,
+           window_attention.window_attention_qkv, window_attention.window_attention_qkv_bwd)
+    before = [f.launches for f in fns]
+    out, grads = run(model.to(cuda_device), cuda_device)
+    depth = len(model.model.blocks)
+    assert [f.launches - b for f, b in zip(fns, before)] == [depth, depth, 2 * depth, 2 * depth,
+                                                              0, 0]
+    assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
+    errs = {}
+    for name, gr in ref_grads.items():
+        r, got = gr.float().numpy(), grads[name].float().numpy()
+        if name.endswith("meta_mlp.fc2.bias"):
+            scale = np.abs(ref_grads[name[:-len("bias")] + "weight"].numpy()).max()
+            assert max(np.abs(r).max(), np.abs(got).max()) <= 0.02 * scale, name
+            continue
+        d = np.abs(got - r)
+        errs[name] = (d.max() / np.abs(r).max(), d.mean() / np.abs(r).max())
+    assert all(e[0] <= 0.15 and e[1] <= 0.08 for e in errs.values()), errs

@@ -209,10 +209,10 @@ def test_model_forward_matches_jax_bfloat16():
 @pytest.mark.parametrize(
     "override, match",
     [
-        ({"rel_pos": True}, "rel_pos"),
+        ({"attn_impl": "pallas"}, "attn_impl"),
         ({"attn_impl": "xla"}, "attn_impl"),
         ({"mlp_impl": "plain"}, "mlp_impl"),
-        ({"lnadd_impl": "fused"}, "lnadd_impl"),
+        ({"attn_impl": "pallas_v1"}, "attn_impl"),
         ({"spatial_shards": 2}, "spatial_shards"),
     ],
 )
