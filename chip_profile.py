@@ -20,7 +20,17 @@ two warm-up steps:
     dropout live), plus the time of the CPB bias assembly alone (the 12
     blocks' meta-MLP, gather and fold, forward and backward, CUDA events);
   * train lnadd: the same closure on the flagship with ``lnadd_impl:
-    'fused'`` (the post-norm branches through K11).
+    'fused'`` (the post-norm branches through K11);
+  * train grid: the flagship on the grid route (``attn_impl: 'pallas'``: the
+    qkv Dense, the per-head normalization in plain ops, K8), plus the time of
+    that normalization alone (one block: ``normalize_heads`` of q and k, the
+    channel slices of qkv [1, 180, 360, 2304] bf16, and ``normalize_vjp`` of
+    both, CUDA events);
+  * train v1: the flagship on the windowed route (``attn_impl:
+    'pallas_v1'``: window partition, head split, K9, head merge, window
+    reverse), plus the time of those layout moves alone (one block's
+    forward: the partition of x, the head split of qkv into three contiguous
+    [400, 8, 162, 96] tensors, the merge and the reverse, CUDA events).
 
 it prints the ms/step by CUDA events without the profiler; the host time of
 one step's own work (train: the step's enqueue, with no sync in it; rollout:
@@ -47,6 +57,12 @@ N_STEPS = 3  # profiled (and, before that, event-timed) steps per path
 
 # (category, test on the kernel's name), first match wins
 CATEGORIES = (
+    # K8/K9 first: K2/K7's name tests below also match their kernels' names
+    ("K8 backward", lambda n: "qkv_attention_bwd_kernel<" in n and ", 0, " in n),
+    ("K9 backward", lambda n: "qkv_attention_bwd_kernel<" in n),
+    ("K8 forward", lambda n: "qkv_attention_fwd_kernel<" in n and ", 0, " in n),
+    ("K9 forward", lambda n: "qkv_attention_fwd_kernel<" in n),
+    ("K8/K9 reductions", lambda n: "attn_dscale_reduce" in n or "attn_dbias_reduce" in n),
     ("K7 attention pass", lambda n: "attention_bwd_kernel<" in n and ", true>" in n),
     ("K7 dbias reduction", lambda n: "dbias_reduce_kernel" in n),
     ("K7 forward", lambda n: "window_attention_qkv_kernel<" in n and ", true>" in n),
@@ -67,7 +83,9 @@ CATEGORIES = (
     ("memcpy/memset", lambda n: "Memcpy" in n or "Memset" in n),
     ("indexing (CPB gather)", lambda n: "index" in n.lower()),
     ("torch reductions", lambda n: "reduce" in n.lower()),
-    ("roll", lambda n: "roll" in n.lower()),
+    # "roll" alone would also match unrolled_elementwise_kernel (copies)
+    ("roll", lambda n: "roll_cuda_kernel" in n),
+    ("copies and casts", lambda n: "copy_kernel" in n),
     ("torch elementwise", lambda n: "elementwise" in n.lower()),
 )
 
@@ -153,6 +171,47 @@ def cpb_assembly_ms(core, dev, n: int) -> float:
     return events_ms(assembly, n)
 
 
+def grid_normalization_ms(dev, n: int) -> float:
+    """Mean ms of the grid route's per-head L2 normalization of q and k and its
+    VJP for one flagship block, by CUDA events (both run in plain ops around
+    K8)."""
+    from swin_v2_weather_torch.ops.window_attention import normalize_heads, normalize_vjp
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn((1, 180, 360, 2304), generator=gen, device=dev).bfloat16()
+    dqn = torch.randn((1, 180, 360, 768), generator=gen, device=dev).bfloat16()
+
+    def norm():
+        for t in (qkv[..., :768], qkv[..., 768:1536]):
+            tn, inv = normalize_heads(t, 8)
+            normalize_vjp(tn, inv, dqn, 8, tn.dtype)
+
+    norm()
+    return events_ms(norm, n)
+
+
+def layout_moves_ms(dev, n: int) -> float:
+    """Mean ms of the windowed route's layout moves for one flagship block's
+    forward, by CUDA events: window_partition of x [1, 180, 360, 768] bf16,
+    the head split of qkv [400, 162, 2304] into three contiguous [400, 8, 162,
+    96] tensors, then the head merge and window_reverse of the output."""
+    from swin_v2_weather_torch.models.swin import window_partition, window_reverse
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 180, 360, 768), generator=gen, device=dev).bfloat16()
+    qkv = torch.randn((400, 162, 2304), generator=gen, device=dev).bfloat16()
+    out = torch.randn((400, 8, 162, 96), generator=gen, device=dev).bfloat16()
+
+    def moves():
+        window_partition(x, (9, 18)).reshape(-1, 162, 768).contiguous()
+        for t in qkv.reshape(400, 162, 3, 8, 96).permute(2, 0, 3, 1, 4):
+            t.contiguous()
+        window_reverse(out.transpose(1, 2).reshape(400, 9, 18, 768), (9, 18), (180, 360))
+
+    moves()
+    return events_ms(moves, n)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device (torch.cuda.is_available() is False)")
@@ -208,7 +267,9 @@ def main() -> None:
     for label, config, over in (("train", chip_smoke.CONFIG, None),
                                 ("train 2-step", chip_smoke.CONFIG_2STEP, None),
                                 ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB),
-                                ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD)):
+                                ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD),
+                                ("train grid", chip_smoke.CONFIG, chip_smoke.GRID_ROUTE),
+                                ("train v1", chip_smoke.CONFIG, chip_smoke.V1_ROUTE)):
         params = chip_smoke.train_params(config, over)
         model = get_model(params)
         chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED + 1))
@@ -236,6 +297,12 @@ def main() -> None:
             log(f"  CPB bias assembly alone (meta-MLP, gather, fold; {len(model.model.blocks)} "
                 f"blocks, forward and backward): {cpb_assembly_ms(model.model, dev, n):.2f} "
                 f"ms/step ({card})")
+        if over == chip_smoke.GRID_ROUTE:
+            log(f"  grid-route normalization alone (normalize_heads and normalize_vjp of q "
+                f"and k, one block): {grid_normalization_ms(dev, 10):.3f} ms ({card})")
+        if over == chip_smoke.V1_ROUTE:
+            log(f"  windowed-route layout moves alone (partition, head split, merge, reverse of "
+                f"one block's forward): {layout_moves_ms(dev, 10):.3f} ms ({card})")
         del model, train_step, batch
         torch.cuda.empty_cache()
 

@@ -74,6 +74,26 @@ printing its own lines:
  19. the flagship train step with ``lnadd_impl: 'fused'``: 3 steps, K11
      forward and backward 24 times a step, K1-K4 12; step 1 against the plain
      path; ms/step and peak memory beside phase 10's unfused step.
+ 20. K8, the grid route's attention (bias-free and BIAS instances), forward
+     and backward against their plain versions at the flagship shapes (qn, kn
+     normalized per head and v a channel slice of one [1, 180, 360, 2304]
+     qkv tensor, read in place; 8 heads of 96, window 9 x 18; a seeded raw
+     bias), unshifted and shifted: out, dq, dk, dv, dscale and dbias; two
+     backward calls bit-equal; timed, beside ``scaled_dot_product_attention``
+     on the windowed tensors.
+ 21. the grid route on the flagship (``attn_impl: 'pallas'``): 4 rollout
+     steps (K8 forward and K3 48 times, K1 never), step 1 against the plain
+     path; then 3 train steps with drop-path 0.1 live: K8 forward and backward
+     and K3/K4 12 times a step, K1/K2/K7/K9 never; step 1 against the plain
+     path; every parameter moved; ms/step, samples/s and peak memory.
+ 22. the grid route with the CPB (``rel_pos: True, full_pos_embed: False``):
+     2 train steps on K8's BIAS instances, ``meta_mlp`` moved.
+ 23. K9, the windowed route's attention, as phase 20 on q, k, v [400, 8, 162,
+     96] (normalized inside the kernels).
+ 24. the windowed route (``attn_impl: 'pallas_v1'``) as phase 21, on K9.
+ 25. the windowed route with the CPB, as phase 22, on K9's BIAS instances.
+ 26. the ``'xla'`` route: one rollout step at full width, no attention kernel
+     launched, K3 12 times, the output finite.
 
 Then one JSON line with each kernel's results: ``launches`` on the main path
 of the slice that brought it (K1, K2, K5, K6: the 2-step fine-tune; K3, K4:
@@ -82,9 +102,15 @@ train step), the launches on every path and per step, the largest abs
 difference from its plain version, its time and the plain version's (CUDA
 events), the bound (the larger of its FLOPs at the bf16 peak and its bytes,
 each input read and each output written once, at the memory rate of an H100
-SXM) and ``library_ms`` (null: no single PyTorch call computes any of the ten
-functions; K11's entries add ``F.layer_norm``'s time as context). The last
-line is
+SXM) and ``library_ms``: for the K8 and K9 forwards the time of
+``torch.nn.functional.scaled_dot_product_attention`` on the windowed [400, 8,
+162, 96] bf16 tensors with the bias as a float additive mask [8, 162, 162]
+(the same function, but with one scalar scale where the kernels take one per
+head, and without the q/k normalization: the timed call leaves both out; the
+port never calls it); null for the others (no single PyTorch call computes
+them; K11's entries add ``F.layer_norm``'s time as context). K8/K9's entries
+are named by their main paths (the grid, windowed and CPB train steps). The
+last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
 CUDA device the script exits with code 1 before printing any result.
 """
@@ -113,6 +139,9 @@ CONFIG_DEPTH24 = "swin_73var_geo_depth24_chweight_invar"
 # full position embedding (K7's path)
 CPB = {"rel_pos": True, "full_pos_embed": False}
 LNADD = {"lnadd_impl": "fused"}  # the fused post-norm branches (K11's path)
+GRID_ROUTE = {"attn_impl": "pallas"}  # the grid route (K8's path)
+V1_ROUTE = {"attn_impl": "pallas_v1"}  # the windowed route (K9's path)
+XLA_ROUTE = {"attn_impl": "xla"}  # the windowed route in plain ops (no attention kernel)
 N_STEPS = 4
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
@@ -135,7 +164,10 @@ MODEL_TOL = (8.0, 0.5)
 # K7's dbias sums fp32 ds / scale over 400 windows; flips of bf16 sites move
 # a few entries.
 BWD_TOL = {"dx": (2.0, 0.05), "dW": (4.0, 0.05), "db": (4.0, 0.05), "dscale": (2.0, 0.25),
-           "dbias": (4.0, 0.05)}
+           "dbias": (4.0, 0.05),
+           # K8/K9: dq, dk, dv leave the kernels in bf16; a flipped rounding of
+           # p16 or dsb moves an entry by about an ulp
+           "dq": (2.0, 0.05), "dk": (2.0, 0.05), "dv": (2.0, 0.05)}
 # Train step 1, kernel path vs plain path: relative bounds on the loss and on
 # each gradient norm. Both are sums over millions of terms, so one-ulp flips
 # of either sign average out (about 1e-5 relative on the H100).
@@ -229,6 +261,17 @@ def seeded_parameters(model: torch.nn.Module, gen: torch.Generator) -> None:
             p.copy_(val)
 
 
+def plain_version(fn):
+    """The plain twin of a K8/K9 wrapper: ``<name>_reference``, or for
+    ``<name>_bwd`` ``<name>_backward_reference`` (the same arguments)."""
+    from swin_v2_weather_torch.ops import window_attention as wa
+
+    name = fn.__name__
+    if name.endswith("_bwd"):
+        return getattr(wa, name[: -len("_bwd")] + "_backward_reference")
+    return getattr(wa, name + "_reference")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -247,9 +290,14 @@ def main() -> None:
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
+    qkv_wrappers = (wa.window_attention_grid, wa.window_attention_grid_bwd,
+                    wa.window_attention_grid_bias, wa.window_attention_grid_bias_bwd,
+                    wa.window_attention_v1, wa.window_attention_v1_bwd,
+                    wa.window_attention_v1_bias, wa.window_attention_v1_bias_bwd)
     counted = (wa.window_attention_qkv, wa.window_attention_qkv_bwd, mk.fc1_gelu, mk.fc1_dpre,
                mk.mlp_fwd, mk.mlp_bwd, wa.window_attention_qkv_bias,
-               wa.window_attention_qkv_bias_bwd, lk.ln_dp_add_fwd, lk.ln_dp_add_bwd)
+               wa.window_attention_qkv_bias_bwd, lk.ln_dp_add_fwd, lk.ln_dp_add_bwd,
+               *qkv_wrappers)
 
     # ---- 1. versions and card ------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -465,6 +513,7 @@ def main() -> None:
             window_attention_qkv_bwd=wa.window_attention_qkv_backward_reference,
             window_attention_qkv_bias=wa.window_attention_qkv_bias_reference,
             window_attention_qkv_bias_bwd=wa.window_attention_qkv_bias_backward_reference,
+            **{f.__name__: plain_version(f) for f in qkv_wrappers},
         ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference,
                                mlp_fwd=mk.mlp_fwd_reference, mlp_bwd=mk.mlp_bwd_reference,
                                ), mock.patch.multiple(lk, ln_dp_add_fwd=lk.ln_dp_add_fwd_reference,
@@ -796,10 +845,174 @@ def main() -> None:
     log(f"[19] fused LayerNorm route {lnadd_ms:.2f} ms/step against the unfused flagship step "
         f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
 
+    # ---- 20-26: the grid (K8), windowed (K9) and 'xla' routes -------------------
+    library = {}  # name -> library_ms (SDPA for the K8/K9 forwards)
+
+    def sdpa_ms(bias) -> float:
+        """One scaled_dot_product_attention call on the windowed flagship
+        tensors [400, 8, 162, 96] bf16 with ``bias`` [8, 162, 162] as a bf16
+        additive mask (one scalar scale; the per-head scale and the q/k
+        normalization are left out)."""
+        shape = (b * (gh // window[0]) * (gw // window[1]), heads, l_win, c // heads)
+        qw, kw, vw = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+        mask16 = bias.bfloat16()
+        with torch.inference_mode():
+            return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qw, kw, vw, attn_mask=mask16), 20)
+
+    def qkv_kernel_phase(tag: str, layout: str, ops, g, scale, raw_bias, window_arg):
+        """K8 (layout "grid") or K9 ("v1"), bias-free and BIAS, forward and
+        backward against their plain versions, unshifted and shifted; two
+        backward calls bit-equal; timed; fills ``results`` and ``library``."""
+        lib_ms = sdpa_ms(raw_bias)
+        log(f"  scaled_dot_product_attention on the windowed tensors with the bias as a "
+            f"float mask: {lib_ms:.4f} ms ({card}; library yardstick, never called by the port)")
+        for bias in (None, raw_bias):
+            kind = f"window_attention_{layout}" + ("" if bias is None else "_bias")
+            fwd, bwd = getattr(wa, kind), getattr(wa, kind + "_bwd")
+            extra = () if bias is None else (bias,)
+            errs, times = {}, {}
+            for label, mask in (("unshifted", None), ("shifted", pattern)):
+                tail = (window_arg, mask, 1.0) if layout == "grid" else (window_arg, mask)
+                with torch.inference_mode():
+                    out = fwd(*ops, scale, *extra, *tail)
+                    ref = plain_version(fwd)(*ops, scale, *extra, *tail)
+                torch.cuda.synchronize()
+                errs["out"] = max(compare(f"{kind} {label} out", out, ref, ATTN_TOL),
+                                  errs.get("out", 0.0))
+                grads = bwd(*ops, scale, *extra, g, *tail)
+                ref_g = plain_version(bwd)(*ops, scale, *extra, g, *tail)
+                torch.cuda.synchronize()
+                if [t.dtype for t in grads] != [torch.bfloat16] * 3 + [torch.float32] * (
+                        1 + len(extra)):
+                    raise RuntimeError(f"{kind}_bwd: wrong output dtypes")
+                for name, o, r in zip(("dq", "dk", "dv", "dscale", "dbias"), grads, ref_g):
+                    errs[name] = max(compare(f"{kind} {label} {name}", o, r, BWD_TOL[name]),
+                                     errs.get(name, 0.0))
+                again = bwd(*ops, scale, *extra, g, *tail)
+                if not all(torch.equal(a_, o) for a_, o in zip(again, grads)):
+                    raise RuntimeError(f"{kind}_bwd: two calls differ (reduction order)")
+                with torch.inference_mode():
+                    f_ms = time_ms(lambda: fwd(*ops, scale, *extra, *tail), 20)
+                    fp_ms = time_ms(lambda: plain_version(fwd)(*ops, scale, *extra, *tail), 5)
+                b_ms = time_ms(lambda: bwd(*ops, scale, *extra, g, *tail), 10)
+                bp_ms = time_ms(lambda: plain_version(bwd)(*ops, scale, *extra, g, *tail), 3)
+                log(f"  {kind} {label}: forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms; "
+                    f"backward kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms ({card}); two backward "
+                    f"calls bit-equal")
+                times.setdefault("fwd", (f_ms, fp_ms))
+                times.setdefault("bwd", (b_ms, bp_ms))
+            # two [L, L, hd] products per (window, head) forward, five backward;
+            # bytes: each input read once, each output written once
+            results[kind] = (errs["out"], *times["fwd"], bound(
+                attn_flops, nbytes(*ops, scale, *extra, out)))
+            results[kind + "_bwd"] = (errs["dq"], *times["bwd"], bound(
+                5 * attn_flops / 2, nbytes(*ops, scale, *extra, g, *grads)))
+            results[kind + "_bwd"] += ({k: v for k, v in errs.items() if k != "out"},)
+            library[kind] = lib_ms
+            del out, ref, grads, ref_g, again
+        torch.cuda.empty_cache()
+
+    def serve_path(tag: str, overrides: dict, n_steps: int, per_step: dict):
+        """get_model -> RolloutEngine.rollout for n_steps on seeded weights:
+        the launches (per_step[name] a step, 0 if absent), finite output of
+        the right shape, step 1 against the plain path; ms/step and peak."""
+        params = train_params(CONFIG, overrides)
+        model = get_model(params)
+        seeded_parameters(model, torch.Generator().manual_seed(SEED))
+        engine = RolloutEngine(params, model, dev)
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        preds = engine.rollout(state0, START, n_steps)
+        got = {fn.__name__: fn.launches for fn in counted}
+        log(f"{tag} serving {CONFIG} {overrides}: rollout {n_steps} steps -> {preds.shape}; "
+            f"launches {got}")
+        expected = {name: per_step.get(name, 0) * n_steps for name in got}
+        if got != expected:
+            raise RuntimeError(f"{tag}: the rollout must launch {expected}, got {got}")
+        if preds.shape != (n_steps, 1, n_out, *params.img_size) or not np.isfinite(preds).all():
+            raise RuntimeError(f"{tag}: rollout output has the wrong shape or non-finite values")
+        with plain_train():
+            plain1 = next(engine.steps(state0, START, 1))
+        if {fn.__name__: fn.launches for fn in counted} != got:
+            raise RuntimeError(f"{tag}: the plain path launched a kernel")
+        compare("step 1 kernel path vs plain path", torch.from_numpy(preds[0]), plain1.cpu(),
+                MODEL_TOL)
+        if n_steps > 1:
+            steps = engine.steps(state0, START, n_steps)
+            next(steps)  # warm-up step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in steps:
+                pass
+            end.record()
+            end.synchronize()
+            log(f"  rollout: kernel path {start.elapsed_time(end) / (n_steps - 1):.2f} ms/step "
+                f"(peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB); {card}")
+        del engine, model, preds, plain1
+        torch.cuda.empty_cache()
+        return got
+
+    qkv = torch.randn((b, gh, gw, 3 * c), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    raw_bias = 2.0 * torch.randn((heads, l_win, l_win), generator=gen, device=dev)
+    qn, _ = wa.normalize_heads(qkv[..., :c], heads)
+    kn, _ = wa.normalize_heads(qkv[..., c:2 * c], heads)
+    log(f"[20] K8 window_attention_grid(_bias)(_bwd): qn, kn {tuple(qn.shape)} bf16, v a channel "
+        f"slice of qkv {tuple(qkv.shape)} (pixel stride {qkv[..., 2 * c:].stride(2)}), raw bias "
+        f"{tuple(raw_bias.shape)} fp32, window {window}")
+    qkv_kernel_phase("[20]", "grid", (qn, kn, qkv[..., 2 * c:]), g, scale, raw_bias, window)
+    del qkv, qn, kn
+
+    grid_kernels = ("window_attention_grid", "window_attention_grid_bwd", "fc1_gelu", "fc1_dpre")
+    serve_grid = serve_path("[21]", GRID_ROUTE, N_STEPS,
+                            {"window_attention_grid": depth, "fc1_gelu": depth})
+    launches_grid, grid_ms = train_path("[21]", CONFIG, 3, {k: depth for k in grid_kernels},
+                                        overrides=GRID_ROUTE)
+    log(f"[21] grid route {grid_ms:.2f} ms/step against the qkv-fused flagship step "
+        f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
+    launches_grid_cpb, _ = train_path(
+        "[22]", CONFIG, 2,
+        {"window_attention_grid_bias": depth, "window_attention_grid_bias_bwd": depth,
+         "fc1_gelu": depth, "fc1_dpre": depth},
+        n_timed=2, overrides={**GRID_ROUTE, **CPB})
+
+    nw = b * (gh // window[0]) * (gw // window[1])
+    q, k, v = (torch.randn((nw, heads, l_win, c // heads), generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    g = torch.randn((nw, heads, l_win, c // heads), generator=gen, device=dev).bfloat16()
+    log(f"[23] K9 window_attention_v1(_bias)(_bwd): q, k, v {tuple(q.shape)} bf16, raw bias "
+        f"{tuple(raw_bias.shape)} fp32")
+    qkv_kernel_phase("[23]", "v1", (q, k, v), g, scale, raw_bias,
+                     (gh // window[0], gw // window[1]))
+    del q, k, v, g, scale, raw_bias
+
+    v1_kernels = ("window_attention_v1", "window_attention_v1_bwd", "fc1_gelu", "fc1_dpre")
+    serve_v1 = serve_path("[24]", V1_ROUTE, N_STEPS, {"window_attention_v1": depth,
+                                                      "fc1_gelu": depth})
+    launches_v1, v1_ms = train_path("[24]", CONFIG, 3, {k: depth for k in v1_kernels},
+                                    overrides=V1_ROUTE)
+    log(f"[24] windowed route {v1_ms:.2f} ms/step against the grid route's {grid_ms:.2f} ms/step "
+        f"({card})")
+    launches_v1_cpb, _ = train_path(
+        "[25]", CONFIG, 2,
+        {"window_attention_v1_bias": depth, "window_attention_v1_bias_bwd": depth,
+         "fc1_gelu": depth, "fc1_dpre": depth},
+        n_timed=2, overrides={**V1_ROUTE, **CPB})
+    serve_xla = serve_path("[26]", XLA_ROUTE, 1, {"fc1_gelu": depth})
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": (cpb_serve_launches, N_STEPS),
-               "train_cpb": (launches_cpb, N_STEPS), "train_lnadd": (launches_lnadd, 3)}
+               "train_cpb": (launches_cpb, N_STEPS), "train_lnadd": (launches_lnadd, 3),
+               "serve_grid": (serve_grid, N_STEPS), "train_grid": (launches_grid, 3),
+               "train_grid_cpb": (launches_grid_cpb, 2), "serve_v1": (serve_v1, N_STEPS),
+               "train_v1": (launches_v1, 3), "train_v1_cpb": (launches_v1_cpb, 2),
+               "serve_xla": (serve_xla, 1)}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),
@@ -815,10 +1028,25 @@ def main() -> None:
                                           "window_attention.py:1836", "train_cpb"),
         "ln_dp_add_fwd": ("ln_dp_add.cu", "ln_kernels.py:85", "train_lnadd"),
         "ln_dp_add_bwd": ("ln_dp_add.cu", "ln_kernels.py:98", "train_lnadd"),
+        "window_attention_grid": ("window_attention_grid.cu", "window_attention.py:556",
+                                  "train_grid"),
+        "window_attention_grid_bwd": ("window_attention_grid.cu", "window_attention.py:702",
+                                      "train_grid"),
+        "window_attention_grid_bias": ("window_attention_grid.cu", "window_attention.py:556",
+                                       "train_grid_cpb"),
+        "window_attention_grid_bias_bwd": ("window_attention_grid.cu", "window_attention.py:702",
+                                           "train_grid_cpb"),
+        "window_attention_v1": ("window_attention_v1.cu", "window_attention.py:172", "train_v1"),
+        "window_attention_v1_bwd": ("window_attention_v1.cu", "window_attention.py:292",
+                                    "train_v1"),
+        "window_attention_v1_bias": ("window_attention_v1.cu", "window_attention.py:172",
+                                     "train_v1_cpb"),
+        "window_attention_v1_bias_bwd": ("window_attention_v1.cu", "window_attention.py:292",
+                                         "train_v1_cpb"),
     }
     kernels = []
     for name, (src, replaces, main_path) in sources.items():
-        err, k_ms, p_ms, (b_ms, b_by) = results[name]
+        err, k_ms, p_ms, (b_ms, b_by) = results[name][:4]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -830,7 +1058,7 @@ def main() -> None:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": library.get(name),
             "main_path": main_path,
             "launches_by_path": {path: lc.get(name, 0) for path, (lc, _) in by_path.items()},
             "launches_per_step": {path: lc.get(name, 0) / n for path, (lc, n) in by_path.items()},
@@ -838,8 +1066,11 @@ def main() -> None:
     kernels[1]["max_abs_err_by_output"] = bwd_errs
     kernels[7]["max_abs_err_by_output"] = {k: v for k, v in k7_errs.items() if k != "out"}
     kernels[9]["max_abs_err_by_output"] = {k: v for k, v in ln_errs.items() if k != "out"}
-    for entry in kernels[8:]:
+    for entry in kernels[8:10]:
         entry["layer_norm_ms"] = ln_ms  # F.layer_norm alone at [64800, 768], context only
+    for entry in kernels[10:]:
+        if len(results[entry["name"]]) > 4:
+            entry["max_abs_err_by_output"] = results[entry["name"]][4]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

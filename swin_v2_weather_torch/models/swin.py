@@ -3,12 +3,25 @@
 Counterpart of ``swin_v2_weather_tpu/models/swin.py`` for the routes the
 flagship, fine-tune, depth-24 and CPB configs take:
 
-  * attention: the qkv-fused window-attention kernels (``attn_impl:
-    'pallas_qkv'``; K1/K2), or with the continuous position bias (``rel_pos:
-    True``) the same kernels with the pre-folded bias (K7). The CPB meta-MLP
-    (2 -> 384 -> heads, ReLU, dropout 0.125 on the hidden layer in train
-    mode) runs on the distinct relative deltas and is expanded by an index
-    gather (``cpb_unique``, default true), or per pair;
+  * attention, by ``attn_impl``:
+
+      - ``'pallas_qkv'``: the qkv-fused window-attention kernels (K1/K2), or
+        with the continuous position bias (``rel_pos: True``) the same kernels
+        with the bias folded by :func:`fold_cpb_bias` (K7);
+      - ``'pallas'`` (the grid route): the qkv Dense on the NHWC grid, per-head
+        L2 normalization in plain ops, then K8 on the grid, windowing by index
+        math (q, k and v are channel slices of the qkv tensor, read in place);
+      - ``'pallas_v1'`` (the windowed route): ``window_partition``, the qkv
+        Dense, the head split, K9 (normalization inside), the head merge and
+        ``window_reverse``;
+      - ``'xla'``: the windowed route with plain fp32 cosine attention and the
+        full [nW, L, L] shift mask (no kernel).
+
+    ``'pallas'``, ``'pallas_v1'`` and ``'xla'`` take the raw CPB bias
+    [heads, L, L] fp32, unfolded. The CPB meta-MLP (2 -> 384 -> heads, ReLU,
+    dropout 0.125 on the hidden layer in train mode) runs on the distinct
+    relative deltas and is expanded by an index gather (``cpb_unique``,
+    default true), or per pair;
   * MLP: the fc1+GELU kernel pair (``mlp_impl: 'fused'``, the default for
     single-step runs at depth <= 12) or the whole-MLP kernel pair
     (``'fused2'``, the default for multi-step runs and depth > 12, as the JAX
@@ -17,8 +30,8 @@ flagship, fine-tune, depth-24 and CPB configs take:
     and add (``lnadd_impl: 'xla'``, the default) or the fused kernel pair
     (``'fused'``; K11) where its shape condition holds, as in JAX.
 
-Still raising ``NotImplementedError``: ``attn_impl`` ``'xla'``, ``'pallas'``
-and ``'pallas_v1'``, ``mlp_impl: 'plain'`` and ``spatial_shards > 1``.
+Still raising ``NotImplementedError``: ``mlp_impl: 'plain'``,
+``spatial_shards > 1`` and train-mode attention (or projection) dropout.
 
 The layout follows the JAX model, so weights convert one to one
 (``models/convert.py``):
@@ -64,9 +77,16 @@ from torch import nn
 
 from swin_v2_weather_torch.ops import ln_kernels
 from swin_v2_weather_torch.ops.mlp_kernels import fused_fc1_gelu, fused_mlp
-from swin_v2_weather_torch.ops.window_attention import fold_cpb_bias, fused_window_attention_qkv
+from swin_v2_weather_torch.ops.window_attention import (
+    fold_cpb_bias,
+    fused_window_attention,
+    fused_window_attention_grid,
+    fused_window_attention_qkv,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ATTN_IMPLS = ("pallas_qkv", "pallas", "pallas_v1", "xla")
+WINDOWED_IMPLS = ("pallas_v1", "xla")  # the block partitions into windows first
 
 logger = logging.getLogger(__name__)
 
@@ -288,17 +308,27 @@ class CpbMlp(nn.Module):
 
 
 class WindowAttention(nn.Module):
-    """Scaled cosine window attention on the NHWC grid: the qkv projection runs
-    inside the fused kernel, then the output projection. With ``rel_pos`` the
-    CPB bias [heads, L, L] is assembled from the meta-MLP each call, folded
-    (:func:`fold_cpb_bias`) and added inside the kernel."""
+    """Scaled cosine window attention, then the output projection.
+
+    ``attn_impl`` picks the route (module docstring): ``'pallas_qkv'`` and
+    ``'pallas'`` take the NHWC grid [B, H, W, C] (already rolled for shifted
+    blocks), ``'pallas_v1'`` and ``'xla'`` the windows [B * nW, L, C] in the
+    h-major order of ``window_grid`` = (window rows, windows per row). With
+    ``rel_pos`` the CPB bias [heads, L, L] is assembled from the meta-MLP each
+    call; the ``'pallas_qkv'`` route folds it (:func:`fold_cpb_bias`), the
+    others take it raw."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple[int, int],
-                 dtype: torch.dtype, rel_pos: bool = False, cpb_unique: bool = True):
+                 dtype: torch.dtype, rel_pos: bool = False, cpb_unique: bool = True,
+                 attn_impl: str = "pallas_qkv", window_grid: Tuple[int, int] = (1, 1)):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         self.num_heads = num_heads
         self.window_size = tuple(window_size)
         self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.window_grid = tuple(window_grid)
         # per-head learnable logit scale, init log(10), clamped at log(100)
         self.logit_scale = nn.Parameter(torch.full((num_heads,), math.log(10.0)))
         self.meta_mlp = CpbMlp(num_heads) if rel_pos else None
@@ -321,25 +351,63 @@ class WindowAttention(nn.Module):
         """Rows the meta-MLP runs on (D or L*L; 0 without the CPB)."""
         return 0 if self.cpb_coords is None else int(self.cpb_coords.shape[0])
 
-    def cpb_bias(self, scale: torch.Tensor, u: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The folded CPB term badd [heads, L, L] fp32; ``u`` [rows, 384] are
-        the meta-MLP's dropout uniforms (train mode) or None."""
+    def cpb_raw_bias(self, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The raw CPB bias [heads, L, L] fp32: the meta-MLP's output (in the
+        compute dtype) expanded to every pair; ``u`` [rows, 384] are its
+        dropout uniforms (train mode) or None."""
         l = self.window_size[0] * self.window_size[1]
         cpb = self.meta_mlp(self.cpb_coords, self.dtype, u).float()  # [rows, heads]
         if self.cpb_idx is not None:
             cpb = cpb[self.cpb_idx]  # [L*L, heads]
-        return fold_cpb_bias(cpb.t().reshape(self.num_heads, l, l), scale)
+        return cpb.t().reshape(self.num_heads, l, l)
+
+    def cpb_bias(self, scale: torch.Tensor, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The folded CPB term badd [heads, L, L] fp32 of the ``'pallas_qkv'``
+        route: :func:`fold_cpb_bias` of :meth:`cpb_raw_bias`."""
+        return fold_cpb_bias(self.cpb_raw_bias(u), scale)
 
     def forward(self, x: torch.Tensor, mask_pattern: Optional[torch.Tensor] = None,
-                boundary_flag=None, cpb_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                boundary_flag=None, cpb_noise: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask_pattern`` [L, L]: the last window row's shift mask (kernel
+        routes); ``mask`` [nW, L, L]: the full shift mask (``'xla'``)."""
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
-        # the CPB term rides K7's route; without it the call is K1/K2's
-        cpb = {} if self.meta_mlp is None else dict(
-            bias=self.cpb_bias(scale, cpb_noise), bias_prefolded=True)
-        out = fused_window_attention_qkv(
-            x, self.qkv.weight.t().to(self.dtype), self.qkv.bias, scale,
-            self.window_size, mask_pattern=mask_pattern, boundary_flag=boundary_flag, **cpb,
-        )
+        if self.attn_impl == "pallas_qkv":
+            # the CPB term rides K7's route; without it the call is K1/K2's
+            cpb = {} if self.meta_mlp is None else dict(
+                bias=self.cpb_bias(scale, cpb_noise), bias_prefolded=True)
+            out = fused_window_attention_qkv(
+                x, self.qkv.weight.t().to(self.dtype), self.qkv.bias, scale,
+                self.window_size, mask_pattern=mask_pattern, boundary_flag=boundary_flag, **cpb,
+            )
+            return dense(out, self.proj, self.dtype)
+        bias = None if self.meta_mlp is None else self.cpb_raw_bias(cpb_noise)
+        c = x.shape[-1]
+        qkv = dense(x, self.qkv, self.dtype)
+        if self.attn_impl == "pallas":  # K8 on the grid: q, k, v are channel slices
+            out = fused_window_attention_grid(
+                qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], scale, self.window_size,
+                bias=bias, mask_pattern=mask_pattern, boundary_flag=boundary_flag)
+            return dense(out, self.proj, self.dtype)
+        bw, l, _ = x.shape
+        hd = c // self.num_heads
+        q, k, v = qkv.reshape(bw, l, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        if self.attn_impl == "pallas_v1":
+            out = fused_window_attention(q, k, v, scale, bias=bias, mask_pattern=mask_pattern,
+                                         window_grid=self.window_grid)
+        else:  # 'xla': cosine similarity attention in fp32, the full mask
+            qf, kf = q.float(), k.float()
+            qf = qf / torch.clamp_min(torch.linalg.vector_norm(qf, dim=-1, keepdim=True), 1e-12)
+            kf = kf / torch.clamp_min(torch.linalg.vector_norm(kf, dim=-1, keepdim=True), 1e-12)
+            attn = torch.matmul(qf, kf.transpose(-1, -2)) * scale.reshape(1, -1, 1, 1)
+            if bias is not None:
+                attn = attn + bias[None]
+            if mask is not None:
+                nw = mask.shape[0]
+                attn = (attn.reshape(bw // nw, nw, self.num_heads, l, l)
+                        + mask[None, :, None]).reshape(bw, self.num_heads, l, l)
+            out = torch.matmul(torch.softmax(attn, -1).to(v.dtype), v)
+        out = out.transpose(1, 2).reshape(bw, l, c)
         return dense(out, self.proj, self.dtype)
 
 
@@ -351,27 +419,36 @@ class SwinBlock(nn.Module):
                  mlp_ratio: float = 4.0, init_values: Optional[float] = 0.0,
                  drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16,
                  mlp_impl: str = "fused", rel_pos: bool = False, cpb_unique: bool = True,
-                 lnadd_impl: str = "xla"):
+                 lnadd_impl: str = "xla", attn_impl: str = "pallas_qkv"):
         super().__init__()
         if lnadd_impl not in ("xla", "fused"):
             raise ValueError(f"lnadd_impl must be 'xla' or 'fused', got {lnadd_impl!r}")
         self.drop_path_rate = float(drop_path_rate)
         self.lnadd_impl = lnadd_impl
         window, shift = calc_window_shift(feat_size, window_size, shift_size)
+        self.feat_size = tuple(feat_size)
+        self.window = tuple(window)
         self.shift = tuple(shift)
         self.do_shift = shifted and any(shift)
+        self.windowed = attn_impl in WINDOWED_IMPLS
         scale_init = 1.0 if init_values is None else float(init_values)
         self.attn = WindowAttention(dim, num_heads, window, dtype, rel_pos=rel_pos,
-                                    cpb_unique=cpb_unique)
+                                    cpb_unique=cpb_unique, attn_impl=attn_impl,
+                                    window_grid=(feat_size[0] // window[0],
+                                                 feat_size[1] // window[1]))
         self.norm1 = Fp32LayerNorm(dim, init_value=scale_init)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, impl=mlp_impl)
         self.norm2 = Fp32LayerNorm(dim, init_value=scale_init)
-        pattern = None
+        pattern = full_mask = None
         if self.do_shift:
             # every masked window lies in the last window row and all share
-            # this one [L, L] pattern
-            pattern = torch.from_numpy(make_shift_mask(tuple(feat_size), window, shift)[-1].copy())
+            # this one [L, L] pattern; the 'xla' route adds the full [nW, L, L]
+            mask = make_shift_mask(tuple(feat_size), window, shift)
+            pattern = torch.from_numpy(mask[-1].copy())
+            if attn_impl == "xla":
+                full_mask = torch.from_numpy(mask.copy())
         self.register_buffer("mask_pattern", pattern, persistent=False)
+        self.register_buffer("attn_mask", full_mask, persistent=False)
 
     def _ln_branch(self, norm: Fp32LayerNorm, y: torch.Tensor, x: torch.Tensor, rate: float,
                    u: Optional[torch.Tensor]) -> torch.Tensor:
@@ -396,7 +473,15 @@ class SwinBlock(nn.Module):
         y = x
         if self.do_shift:
             y = torch.roll(y, shifts=(-self.shift[0], -self.shift[1]), dims=(1, 2))
-        y = self.attn(y, mask_pattern=self.mask_pattern, cpb_noise=noise.get("cpb"))
+        if self.windowed:  # window_partition -> attention -> window_reverse
+            l = self.window[0] * self.window[1]
+            y = window_partition(y, self.window).reshape(-1, l, y.shape[-1])
+            y = self.attn(y, mask_pattern=self.mask_pattern, cpb_noise=noise.get("cpb"),
+                          mask=self.attn_mask)
+            y = window_reverse(y.reshape(-1, *self.window, y.shape[-1]), self.window,
+                               self.feat_size)
+        else:
+            y = self.attn(y, mask_pattern=self.mask_pattern, cpb_noise=noise.get("cpb"))
         if self.do_shift:
             y = torch.roll(y, shifts=(self.shift[0], self.shift[1]), dims=(1, 2))
         # post-norm residual branches: x + drop_path(norm(y))
@@ -451,6 +536,7 @@ class SwinTransformerV2(nn.Module):
         rel_pos: bool = False,
         cpb_unique: bool = True,
         lnadd_impl: str = "xla",
+        attn_impl: str = "pallas_qkv",
     ):
         super().__init__()
         self.img_size = tuple(img_size)
@@ -476,7 +562,8 @@ class SwinTransformerV2(nn.Module):
             SwinBlock(embed_dim, num_heads, (gh, gw), window, shift, shifted=(i % 2 == 1),
                       mlp_ratio=mlp_ratio, init_values=init_values,
                       drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl,
-                      rel_pos=rel_pos, cpb_unique=cpb_unique, lnadd_impl=lnadd_impl)
+                      rel_pos=rel_pos, cpb_unique=cpb_unique, lnadd_impl=lnadd_impl,
+                      attn_impl=attn_impl)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
@@ -544,16 +631,18 @@ class SwinTransformerV2(nn.Module):
 def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinTransformerV2:
     """Construct the model from a YParams-style config.
 
-    Only the routes the port has kernels for are accepted; every other choice
-    the JAX factory knows raises ``NotImplementedError``.
+    Every ``attn_impl`` of the JAX package but its A/B variants is accepted
+    (``'pallas_qkv'``, ``'pallas'``, ``'pallas_v1'``, ``'xla'``); the other
+    choices the port has no route for (``mlp_impl: 'plain'``,
+    ``spatial_shards > 1``) raise ``NotImplementedError``.
     """
     if dtype is None:
         dtype = _DTYPES[str(getattr(params, "compute_dtype", "bfloat16"))]
     depth = int(params.depth)
     n_future = int(getattr(params, "n_future", 0) or 0)
     attn_impl = str(getattr(params, "attn_impl", "xla"))
-    if attn_impl != "pallas_qkv":
-        raise NotImplementedError(f"attn_impl {attn_impl!r} is not ported; only 'pallas_qkv'")
+    if attn_impl not in ATTN_IMPLS:
+        raise NotImplementedError(f"attn_impl {attn_impl!r} is not ported; only {ATTN_IMPLS}")
     # the JAX factory picks the whole-MLP kernel for multi-step or deep stacks
     mlp_impl = (
         str(params["mlp_impl"]) if "mlp_impl" in params
@@ -591,4 +680,5 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         rel_pos=bool(params.rel_pos),
         cpb_unique=bool(params["cpb_unique"]) if "cpb_unique" in params else True,
         lnadd_impl=lnadd_impl,
+        attn_impl=attn_impl,
     )

@@ -69,6 +69,17 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
         _vp, _int, _int, _int, _int, _int, _int, _int, _int, _int, _int, _vp,
     ],
+    # K8: (q, k, v, scale, bias, mask, boundary_flag, out, B, H, W, C, heads,
+    #  wh, ww, ldq, ldk, ldv, stream); bias null for the bias-free instance
+    "swin_window_attention_grid_fwd": [_vp] * 6 + [_f32, _vp] + [_int] * 10 + [_vp],
+    # (q, k, v, scale, bias, mask, boundary_flag, g, dq, dk, dv, dscale_part,
+    #  dbias_part, dscale, dbias, B, H, W, C, heads, wh, ww, ldq, ldk, ldv, stream)
+    "swin_window_attention_grid_bwd": [_vp] * 6 + [_f32] + [_vp] * 8 + [_int] * 10 + [_vp],
+    # K9: (q, k, v, scale, bias, mask, out, B, nwh, nww, heads, hd, L, stream)
+    "swin_window_attention_v1_fwd": [_vp] * 7 + [_int] * 6 + [_vp],
+    # (q, k, v, scale, bias, mask, g, dq, dk, dv, dscale_part, dbias_part,
+    #  dscale, dbias, B, nwh, nww, heads, hd, L, stream)
+    "swin_window_attention_v1_bwd": [_vp] * 14 + [_int] * 6 + [_vp],
     # (z, x, gamma, beta, m, out, T, C, stream)
     "swin_ln_dp_add_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     # (z, g, gamma, m, dz, part, dgamma, dbeta, T, C, n_blocks, stream)

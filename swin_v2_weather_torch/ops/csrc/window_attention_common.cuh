@@ -1,7 +1,9 @@
-// Pieces shared by the qkv-fused window-attention kernels (forward K1 in
-// window_attention_qkv.cu, backward K2 in window_attention_qkv_bwd.cu): the
-// geometry of one launch, the block -> (window, head) map, and the in-kernel qkv
-// projection plus q/k L2 normalization of one (image, window, head).
+// Pieces shared by the window-attention kernels (forward K1 in
+// window_attention_qkv.cu, backward K2 in window_attention_qkv_bwd.cu, K8/K9 in
+// qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
+// map, the in-kernel qkv projection plus q/k L2 normalization of one (image,
+// window, head), the 16-row score product, the 8-value bf16 store and the
+// window-order d(bias) reduction.
 //
 // The projection recomputes qkv = bf16(bf16(x) @ bf16(W) + b) for the head's
 // 3 x HD columns with fp32 accumulation, streaming 32-wide C_in slices of the
@@ -52,12 +54,15 @@ inline bool make_geometry(Geometry& g, int B, int H, int W, int Cin, int C, int 
 }
 
 // Block index -> (image, window row, window column, head); heads vary fastest
-// so the blocks of one window run together and share x through L2.
+// so the blocks of one window run together and share x through L2. G is any
+// geometry with heads, nww and nwh (Geometry here, AttnGeo of
+// qkv_attention.cuh).
 struct Tile {
   int bi, wr, wc, h;
 };
 
-__device__ __forceinline__ Tile tile_of_block(const Geometry& g) {
+template <class G>
+__device__ __forceinline__ Tile tile_of_block(const G& g) {
   int bid = blockIdx.x;
   Tile t;
   t.h = bid % g.heads;
@@ -203,6 +208,49 @@ __device__ void normalize_rows(bf16* t, float* inv_out) {
     }
     if (inv_out != nullptr && lane == 0) inv_out[row] = inv;
   }
+}
+
+using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// s = a_rows [16, HD] @ b_rows [16, HD]^T (both row pitch HD + 8)
+template <int HD>
+__device__ __forceinline__ void dot_rows(Frag& s, const bf16* a_rows, const bf16* b_rows) {
+  constexpr int LDQ = HD + 8;
+  wmma::fill_fragment(s, 0.0f);
+#pragma unroll
+  for (int d = 0; d < HD / 16; ++d) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+    wmma::load_matrix_sync(a, a_rows + d * 16, LDQ);
+    wmma::load_matrix_sync(b, b_rows + d * 16, LDQ);
+    wmma::mma_sync(s, a, b, s);
+  }
+}
+
+// Writes the lane's 8 values bf16(f(e, v[e])) as one 16-byte store.
+template <class F>
+__device__ __forceinline__ void store8(bf16* dst, const float* v, F f) {
+  __align__(16) bf16 o[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(f(e, v[e]));
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+}
+
+// dbias[h, q, k] = sum over windows, in window order, of the blocks' partials
+// part[win, h, q, k] (row pitch LP). Internal linkage: each source that
+// includes this header launches its own copy.
+static __global__ void dbias_reduce_kernel(const float* __restrict__ part, int n_win, int heads,
+                                           int L, int LP, float* __restrict__ dbias) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(heads) * L * L) return;
+  const int k = static_cast<int>(i % L);
+  const int q = static_cast<int>((i / L) % L);
+  const int hh = static_cast<int>(i / (static_cast<long long>(L) * L));
+  const size_t stride = static_cast<size_t>(heads) * LP * LP;
+  const float* p = part + (static_cast<size_t>(hh) * LP + q) * LP + k;
+  float acc = 0.0f;
+  for (int wi = 0; wi < n_win; ++wi) acc += p[wi * stride];
+  dbias[i] = acc;
 }
 
 }  // namespace swin_attn

@@ -1,0 +1,71 @@
+// K8: window attention on the NHWC grid, forward and backward, hand-written for
+// Hopper (sm_90a), with its CPB-bias instance.
+//
+// Replaces swin_v2_weather_tpu/ops/window_attention.py:_make_grid_kernel (the
+// forward, launched by _grid_forward) and _make_grid_bwd_kernel (the backward,
+// _grid_backward), the kernels behind fused_window_attention_grid
+// (attn_impl 'pallas'), with and without the raw CPB bias.
+//
+// Bound on this card: bytes. At the flagship shape (qn, kn, v [1, 180, 360,
+// 768] bf16, 8 heads of 96, window 9 x 18) the forward moves 4 x 99.5 MB for
+// 32.3 GFLOP (0.119 ms at 3.35 TB/s against 0.033 ms at 989 TFLOP/s), the
+// backward 7 x 99.5 MB for 80.6 GFLOP (0.208 ms against 0.082 ms).
+//
+// Design (the templates in qkv_attention.cuh, layout GRID): one block per
+// (window, head) windows the grid by index math, reading each of q, k and v
+// with its own pixel stride, so the model's channel slices of the qkv tensor
+// are read in place; the scores stay on chip; d(scale) and d(bias) partials
+// per (window, head) are summed in window order by small kernels.
+
+#include "qkv_attention.cuh"
+
+using namespace swin_qkv_attn;
+
+namespace {
+
+bool grid_geo(AttnGeo& g, int B, int H, int W, int C, int heads, int wh, int ww, int ldq, int ldk,
+              int ldv) {
+  return wh >= 1 && ww >= 1 && heads >= 1 && H % wh == 0 && W % ww == 0 && C % heads == 0 &&
+         make_attn_geo(g, B, H, W, heads, wh, ww, wh * ww, H / wh, W / ww, ldq, ldk, ldv, C);
+}
+
+}  // namespace
+
+// The forward: q, k, v [B, H, W, *] bf16 with pixel strides ldq, ldk, ldv
+// (channels contiguous), scale [heads] fp32, bias [heads, L, L] fp32 (the BIAS
+// instance) or null, mask [L, L] fp32 or null, gated by bflag on the last
+// window row -> out [B, H, W, C] bf16.
+extern "C" int swin_window_attention_grid_fwd(const void* q, const void* k, const void* v,
+                                              const void* scale, const void* bias,
+                                              const void* mask, float bflag, void* out, int B,
+                                              int H, int W, int C, int heads, int wh, int ww,
+                                              int ldq, int ldk, int ldv, void* stream) {
+  AttnGeo g;
+  if (!grid_geo(g, B, H, W, C, heads, wh, ww, ldq, ldk, ldv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch_fwd<GRID>(C / heads, FwdArgs{q, k, v, scale, bias, mask, bflag, out}, g,
+                            stream);
+}
+
+// The backward: the forward's operands and g [B, H, W, C] bf16 contiguous ->
+// dq, dk, dv [B, H, W, C] bf16 (dqn and dkn: the normalization VJP is the
+// caller's), dscale [heads] fp32 and, with the bias, dbias [heads, L, L] fp32.
+// Workspaces (allocated by the caller): dscale_part [B * nW, heads] fp32 and,
+// with the bias, dbias_part [B * nW, heads, LP, LP] fp32 (LP = L rounded up
+// to 16).
+extern "C" int swin_window_attention_grid_bwd(
+    const void* q, const void* k, const void* v, const void* scale, const void* bias,
+    const void* mask, float bflag, const void* g, void* dq, void* dk, void* dv,
+    void* dscale_part, void* dbias_part, void* dscale, void* dbias, int B, int H, int W, int C,
+    int heads, int wh, int ww, int ldq, int ldk, int ldv, void* stream) {
+  AttnGeo geo;
+  if (!grid_geo(geo, B, H, W, C, heads, wh, ww, ldq, ldk, ldv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch_bwd<GRID>(
+      C / heads,
+      BwdArgs{q, k, v, scale, bias, mask, bflag, g, dq, dk, dv, dscale_part, dbias_part, dscale,
+              dbias},
+      geo, stream);
+}

@@ -93,32 +93,6 @@ size_t bwd_smem_bytes(int LP) {
   return mats + scratch + (rows > staging ? rows : staging) + floats;
 }
 
-using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// s = a_rows [16, HD] @ b_rows [16, HD]^T (both row pitch HD + 8)
-template <int HD>
-__device__ __forceinline__ void dot_rows(Frag& s, const bf16* a_rows, const bf16* b_rows) {
-  constexpr int LDQ = HD + 8;
-  wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-  for (int d = 0; d < HD / 16; ++d) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::load_matrix_sync(a, a_rows + d * 16, LDQ);
-    wmma::load_matrix_sync(b, b_rows + d * 16, LDQ);
-    wmma::mma_sync(s, a, b, s);
-  }
-}
-
-// Writes the lane's 8 values bf16(f(v)) as one 16-byte store.
-template <class F>
-__device__ __forceinline__ void store8(bf16* dst, const float* v, F f) {
-  __align__(16) bf16 o[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(f(e, v[e]));
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-}
-
 template <int HD, bool BIAS>
 __global__ void __launch_bounds__(MAX_LP * 2)
     attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
@@ -471,22 +445,6 @@ __global__ void reduce_kernel(const float* __restrict__ dw_part, int dw_splits, 
     for (int k = 0; k < n_win; ++k) acc += ds_part[static_cast<size_t>(k) * heads + hh];
     dscale[hh] = acc / scale[hh];
   }
-}
-
-// dbias[h, q, k] = sum over windows, in window order, of the blocks' partials
-// part[win, h, q, k] (row pitch LP)
-__global__ void dbias_reduce_kernel(const float* __restrict__ part, int n_win, int heads, int L,
-                                    int LP, float* __restrict__ dbias) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(heads) * L * L) return;
-  const int k = static_cast<int>(i % L);
-  const int q = static_cast<int>((i / L) % L);
-  const int hh = static_cast<int>(i / (static_cast<long long>(L) * L));
-  const size_t stride = static_cast<size_t>(heads) * LP * LP;
-  const float* p = part + (static_cast<size_t>(hh) * LP + q) * LP + k;
-  float acc = 0.0f;
-  for (int wi = 0; wi < n_win; ++wi) acc += p[wi * stride];
-  dbias[i] = acc;
 }
 
 template <int HD, bool BIAS>

@@ -1,6 +1,19 @@
-"""qkv-fused scaled-cosine window attention: plain PyTorch versions and CUDA kernels.
+"""Scaled-cosine window attention: plain PyTorch versions and CUDA kernels.
 
-Counterpart of the v3 kernel pair of ``swin_v2_weather_tpu/ops/window_attention.py``
+Three kernel families of ``swin_v2_weather_tpu/ops/window_attention.py``:
+
+  * K1/K2 (and K7, their CPB-bias instances): the qkv-fused v3 kernels, the
+    ``attn_impl: 'pallas_qkv'`` route (this docstring, below);
+  * K8: the grid-layout kernels on pre-projected q, k, v, the ``'pallas'``
+    route (:func:`fused_window_attention_grid`, ``csrc/window_attention_grid.cu``);
+  * K9: the windowed-layout kernels, the ``'pallas_v1'`` route
+    (:func:`fused_window_attention`, ``csrc/window_attention_v1.cu``).
+
+K8 and K9 (both instances in ``csrc/qkv_attention.cuh``) take the raw CPB
+bias and subtract the row max; their rounding sites are listed in the
+section comment above :func:`normalize_heads`.
+
+The v3 pair: counterpart of ``swin_v2_weather_tpu/ops/window_attention.py``
 (forward ``_make_qkv_kernel`` / ``_qkv_forward``, backward
 ``_make_qkv_bwd_kernel`` / ``_qkv_backward``, custom_vjps ``_build_qkv`` and,
 with the CPB relative-position bias, ``_build_qkv_bias``; entry point
@@ -556,18 +569,660 @@ def fused_window_attention_qkv(
     _window_grid(x, window)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_window_attention_qkv: no implementation for device {x.device}")
-    if mask_pattern is not None and x.device.type == "cuda":
-        mask_pattern = torch.as_tensor(mask_pattern).to(device=x.device, dtype=torch.float32)
-        mask_pattern = mask_pattern.contiguous()
+    mask_pattern = _mask_on(x, mask_pattern)
     if bias is None:
         return WindowAttentionQKV.apply(
             x, w_qkv, b_qkv, scale, tuple(window), mask_pattern, boundary_flag
         )
-    l = int(window[0]) * int(window[1])
-    if tuple(bias.shape) != (int(scale.shape[0]), l, l):
-        raise ValueError(f"fused_window_attention_qkv: the CPB bias must be [heads, L, L] = "
-                         f"{(int(scale.shape[0]), l, l)}, got {tuple(bias.shape)}")
+    _check_bias("fused_window_attention_qkv", bias, int(scale.shape[0]),
+                int(window[0]) * int(window[1]))
     return WindowAttentionQKVBias.apply(
         x, w_qkv, b_qkv, scale, bias, bool(bias_prefolded), tuple(window), mask_pattern,
         boundary_flag,
     )
+
+
+# ---------------------------------------------------------------------------
+# attention on pre-projected q, k, v: the grid route (K8, attn_impl 'pallas')
+# and the windowed route (K9, attn_impl 'pallas_v1')
+# ---------------------------------------------------------------------------
+#
+# Counterparts of ``fused_window_attention_grid`` (``_grid_forward`` /
+# ``_grid_backward``, custom_vjp ``_build_grid``) and ``fused_window_attention``
+# (``_pallas_forward`` / ``_v1_backward``, custom_vjp ``_build``) of the JAX
+# package. Both take the raw CPB bias [heads, L, L] (no row-max shift, no
+# fold): unlike K1/K7 their softmax subtracts the row max. Their rounding
+# sites differ:
+#
+#   * K8 (grid layout [B, H, W, C]): q and k arrive L2-normalized per head
+#     (:func:`normalize_heads`, outside the kernel, whose VJP
+#     :func:`normalize_vjp` also runs outside); qn16, kn16, v16 = bf16 of the
+#     inputs; s = qn16 kn16^T in fp32; z = s * scale_h (+ bias_h) (+ gate *
+#     mask on the last window row); e = exp(z - max z); p16 = bf16(e * (1 /
+#     sum e)); out = p16 v16 in fp32, cast to v's dtype.
+#   * K9 (windowed layout [Bw, heads, L, D]): q and k are normalized inside,
+#     in fp32 (qn = q * rsqrt(max(sum q^2, 1e-24))); s = bf16(qn) bf16(kn)^T;
+#     z as above with the gate 1 on window row (i // nww) % nwh == nwh - 1;
+#     p = e / sum e (a division); out = bf16(p) bf16(v), cast to v's dtype.
+
+
+def normalize_heads(x: torch.Tensor, heads: int):
+    """Per-head L2 normalization in fp32 (``_normalize_heads``): (x / |x| per
+    head in x's dtype, inv fp32 [..., heads]), inv = rsqrt(max(sum x^2, 1e-24))."""
+    c = x.shape[-1]
+    xf = x.float().reshape(*x.shape[:-1], heads, c // heads)
+    inv = torch.rsqrt(torch.clamp_min(torch.sum(xf * xf, -1), 1e-24))
+    return (xf * inv[..., None]).reshape(x.shape).to(x.dtype), inv
+
+
+def normalize_vjp(xn: torch.Tensor, inv: torch.Tensor, dxn: torch.Tensor, heads: int,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """Chain rule through x / |x| per head (``_normalize_vjp``), in fp32:
+    dx = (dxn - xn <xn, dxn>_head) * inv, cast to ``out_dtype``."""
+    c = xn.shape[-1]
+    shape = (*xn.shape[:-1], heads, c // heads)
+    xnf, dxnf = xn.float().reshape(shape), dxn.float().reshape(shape)
+    ip = torch.sum(xnf * dxnf, -1, keepdim=True)
+    return ((dxnf - xnf * ip) * inv[..., None]).reshape(xn.shape).to(out_dtype)
+
+
+def _grid_to_windows(t: torch.Tensor, window, heads: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B * nW, heads, L, C / heads] (h-major window order)."""
+    from swin_v2_weather_torch.models.swin import window_partition
+
+    wh, ww = int(window[0]), int(window[1])
+    c = t.shape[-1]
+    return window_partition(t, (wh, ww)).reshape(-1, wh * ww, heads, c // heads).permute(
+        0, 2, 1, 3)
+
+
+def _windows_to_grid(t: torch.Tensor, window, img_size) -> torch.Tensor:
+    """[B * nW, heads, L, hd] -> [B, H, W, heads * hd]."""
+    from swin_v2_weather_torch.models.swin import window_reverse
+
+    wh, ww = int(window[0]), int(window[1])
+    bw, heads, _, hd = t.shape
+    return window_reverse(t.permute(0, 2, 1, 3).reshape(bw, wh, ww, heads * hd), (wh, ww),
+                          img_size)
+
+
+def _logits(s, scale, bias, mask_pattern, gate, window_grid):
+    """z = s * scale_h (+ bias_h) (+ gate * mask on the last window row), fp32
+    [Bw, heads, L, L]; windows in h-major order of ``window_grid``."""
+    heads, l = s.shape[1], s.shape[-1]
+    z = s * scale.float().reshape(1, heads, 1, 1)
+    if bias is not None:
+        z = z + bias.float().reshape(1, heads, l, l)
+    if mask_pattern is not None:
+        nwh, nww = window_grid
+        mask = torch.as_tensor(mask_pattern, dtype=torch.float32, device=s.device)
+        row_gate = torch.zeros(nwh, dtype=torch.float32, device=s.device)
+        row_gate[-1] = gate
+        z = z.reshape(-1, nwh, nww, heads, l, l) + row_gate.reshape(1, nwh, 1, 1, 1, 1) * mask
+        z = z.reshape(s.shape)
+    return z
+
+
+def reference_attention(q, k, v, scale, bias, mask_pattern, window_grid):
+    """The fp32 oracle of the JAX tests (``reference_attention``) on
+    [Bw, heads, L, D]: q, k normalized in fp32, s = bf16(qn) bf16(kn)^T,
+    * scale (+ bias) (+ mask on the last window row), fp32 softmax, then p
+    in v's dtype times v, accumulated in fp32 and cast to v's dtype."""
+    def unit(t):
+        tf = t.float()
+        return tf * torch.rsqrt(torch.clamp_min(torch.sum(tf * tf, -1, keepdim=True), 1e-24))
+
+    bf = torch.bfloat16
+    s = torch.matmul(unit(q).to(bf).float(), unit(k).to(bf).float().transpose(-1, -2))
+    p = torch.softmax(_logits(s, scale, bias, mask_pattern, 1.0, window_grid), -1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def _grid_recompute(qn, kn, v, scale, window, bias, mask_pattern, boundary_flag):
+    """K8's forward in plain ops: (qn16, kn16, v16, e, r), each windowed
+    [Bw, heads, L, *] fp32 (the first three holding bf16 values)."""
+    heads = int(scale.shape[0])
+    grid = _window_grid(qn, window)
+    bf = torch.bfloat16
+    qw, kw, vw = (_grid_to_windows(t.to(bf), window, heads).float() for t in (qn, kn, v))
+    z = _logits(torch.matmul(qw, kw.transpose(-1, -2)), scale, bias, mask_pattern,
+                _flag(boundary_flag), grid)
+    e = torch.exp(z - torch.amax(z, -1, keepdim=True))
+    r = 1.0 / torch.sum(e, -1, keepdim=True)
+    return qw, kw, vw, e, r
+
+
+def window_attention_grid_reference(qn, kn, v, scale, window, mask_pattern=None,
+                                    boundary_flag=None):
+    """Plain version of K8's forward: qn, kn, v [B, H, W, C] (q and k already
+    normalized per head), scale [heads] -> [B, H, W, C] in v's dtype."""
+    return window_attention_grid_bias_reference(qn, kn, v, scale, None, window, mask_pattern,
+                                                boundary_flag)
+
+
+def window_attention_grid_bias_reference(qn, kn, v, scale, bias, window, mask_pattern=None,
+                                         boundary_flag=None):
+    """Plain version of K8's BIAS forward: the raw bias [heads, L, L] (or None)
+    joins the logits before the max pass."""
+    _, _, vw, e, r = _grid_recompute(qn, kn, v, scale, window, bias, mask_pattern,
+                                     boundary_flag)
+    out = torch.matmul((e * r).to(torch.bfloat16).float(), vw)
+    return _windows_to_grid(out.to(v.dtype), window, tuple(v.shape[1:3]))
+
+
+def _grid_backward_plain(qn, kn, v, scale, bias, g, window, mask_pattern, boundary_flag):
+    heads = int(scale.shape[0])
+    qw, kw, vw, e, r = _grid_recompute(qn, kn, v, scale, window, bias, mask_pattern,
+                                       boundary_flag)
+    bf = torch.bfloat16
+    g16 = _grid_to_windows(g.to(bf), window, heads).float()
+    dv = torch.matmul((e * r).to(bf).float().transpose(-1, -2), g16)
+    dp = torch.matmul(g16, vw.transpose(-1, -2))
+    u = torch.sum(dp * e, -1, keepdim=True)
+    ds = (dp - u * r) * e * r  # unscaled: feeds d(bias) as it is
+    dbias = None if bias is None else torch.sum(ds, 0)
+    dsb = (ds * scale.float().reshape(1, heads, 1, 1)).to(bf).float()
+    dqn = torch.matmul(dsb, kw)
+    dkn = torch.matmul(dsb.transpose(-1, -2), qw)
+    dscale = torch.sum(qw * dqn, dim=(0, 2, 3)) / scale.float()
+    hw = tuple(qn.shape[1:3])
+    grads = (_windows_to_grid(dqn.to(qn.dtype), window, hw),
+             _windows_to_grid(dkn.to(kn.dtype), window, hw),
+             _windows_to_grid(dv.to(v.dtype), window, hw), dscale)
+    return grads if bias is None else (*grads, dbias)
+
+
+def window_attention_grid_backward_reference(qn, kn, v, scale, g, window, mask_pattern=None,
+                                             boundary_flag=None):
+    """Plain version of K8's backward: (dqn, dkn, dv, dscale), following
+    ``_make_grid_bwd_kernel``'s sites: the forward's e and r = 1 / sum e
+    recomputed; g16 = bf16(g); dv = bf16(e r)^T g16 and dp = g16 v16^T in
+    fp32; ds = (dp - sum(dp e) r) e r; dsb = bf16(ds * scale_h); dqn = dsb
+    kn16 and dkn = dsb^T qn16, cast to q's and k's dtypes (the normalization
+    VJP is the caller's); dscale_h = sum(qn16 dqn) / scale_h in fp32."""
+    return _grid_backward_plain(qn, kn, v, scale, None, g, window, mask_pattern, boundary_flag)
+
+
+def window_attention_grid_bias_backward_reference(qn, kn, v, scale, bias, g, window,
+                                                  mask_pattern=None, boundary_flag=None):
+    """Plain version of K8's BIAS backward: the bias-free sites plus d(bias) =
+    the sum over windows of ds, unscaled, fp32 [heads, L, L]."""
+    return _grid_backward_plain(qn, kn, v, scale, bias, g, window, mask_pattern, boundary_flag)
+
+
+def _v1_recompute(q, k, scale, window_grid, bias, mask_pattern):
+    """K9's forward in plain ops: (qn, kn, inv_q, inv_k, s, p) in fp32; qn and
+    kn unrounded, s = bf16(qn) bf16(kn)^T, p = e / sum e."""
+    def unit(t):
+        tf = t.float()
+        inv = torch.rsqrt(torch.clamp_min(torch.sum(tf * tf, -1, keepdim=True), 1e-24))
+        return tf * inv, inv
+
+    bf = torch.bfloat16
+    qn, inv_q = unit(q)
+    kn, inv_k = unit(k)
+    s = torch.matmul(qn.to(bf).float(), kn.to(bf).float().transpose(-1, -2))
+    z = _logits(s, scale, bias, mask_pattern, 1.0, window_grid)
+    e = torch.exp(z - torch.amax(z, -1, keepdim=True))
+    return qn, kn, inv_q, inv_k, s, e / torch.sum(e, -1, keepdim=True)
+
+
+def _check_window_grid(q, window_grid):
+    if window_grid is None:
+        raise ValueError("window_grid=(n_window_rows, n_windows_per_row) is required")
+    nwh, nww = int(window_grid[0]), int(window_grid[1])
+    if q.shape[0] % (nwh * nww):
+        raise ValueError(f"Bw={q.shape[0]} not a multiple of window grid {nwh}x{nww}")
+    return nwh, nww
+
+
+def window_attention_v1_reference(q, k, v, scale, window_grid, mask_pattern=None):
+    """Plain version of K9's forward: q, k, v [Bw, heads, L, D], scale [heads]
+    -> [Bw, heads, L, D] in v's dtype."""
+    return window_attention_v1_bias_reference(q, k, v, scale, None, window_grid, mask_pattern)
+
+
+def window_attention_v1_bias_reference(q, k, v, scale, bias, window_grid, mask_pattern=None):
+    """Plain version of K9's BIAS forward (raw bias [heads, L, L] or None)."""
+    grid = _check_window_grid(q, window_grid)
+    *_, p = _v1_recompute(q, k, scale, grid, bias, mask_pattern)
+    bf = torch.bfloat16
+    return torch.matmul(p.to(bf).float(), v.to(bf).float()).to(v.dtype)
+
+
+def _v1_backward_plain(q, k, v, scale, bias, g, window_grid, mask_pattern):
+    grid = _check_window_grid(q, window_grid)
+    heads = int(scale.shape[0])
+    qn, kn, inv_q, inv_k, s, p = _v1_recompute(q, k, scale, grid, bias, mask_pattern)
+    bf = torch.bfloat16
+    g16 = g.to(bf).float()
+    dv = torch.matmul(p.to(bf).float().transpose(-1, -2), g16)
+    dp = torch.matmul(g16, v.to(bf).float().transpose(-1, -2))
+    ds = p * (dp - torch.sum(dp * p, -1, keepdim=True))
+    dscale = torch.sum(ds * s, dim=(0, 2, 3))
+    dbias = None if bias is None else torch.sum(ds, 0)
+    dsb = (ds * scale.float().reshape(1, heads, 1, 1)).to(bf).float()
+    dqn = torch.matmul(dsb, kn.to(bf).float())
+    dkn = torch.matmul(dsb.transpose(-1, -2), qn.to(bf).float())
+    dq = (dqn - qn * torch.sum(qn * dqn, -1, keepdim=True)) * inv_q
+    dk = (dkn - kn * torch.sum(kn * dkn, -1, keepdim=True)) * inv_k
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dscale)
+    return grads if bias is None else (*grads, dbias)
+
+
+def window_attention_v1_backward_reference(q, k, v, scale, g, window_grid, mask_pattern=None):
+    """Plain version of K9's backward: (dq, dk, dv, dscale), following
+    ``_make_v1_bwd_kernel``'s sites: p recomputed; g16 = bf16(g); dv =
+    bf16(p)^T g16, dp = g16 bf16(v)^T; ds = p (dp - sum(dp p)); dscale_h =
+    sum(ds * s) taken directly; dsb = bf16(ds * scale_h); dqn = dsb bf16(kn),
+    dkn = dsb^T bf16(qn); the normalization VJP on the fp32 qn and kn:
+    dq = (dqn - qn <qn, dqn>) inv_q, cast to q's dtype (likewise dk)."""
+    return _v1_backward_plain(q, k, v, scale, None, g, window_grid, mask_pattern)
+
+
+def window_attention_v1_bias_backward_reference(q, k, v, scale, bias, g, window_grid,
+                                                mask_pattern=None):
+    """Plain version of K9's BIAS backward: plus d(bias) = sum over windows of
+    ds, fp32 [heads, L, L]."""
+    return _v1_backward_plain(q, k, v, scale, bias, g, window_grid, mask_pattern)
+
+
+# --- the CUDA kernels (csrc/qkv_attention.cuh, window_attention_{grid,v1}.cu) ---
+
+_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
+
+
+def _check_qkv_dims(name, hd, heads, l):
+    """The kernels' shape limits: head dim in 32/64/96/128, L <= 256, and the
+    backward's shared memory (q, k, v, g tiles, row buffers) within 227 KB."""
+    lp = -(-l // 16) * 16
+    nwarps = lp // 16
+    bwd_smem = (4 * lp * (hd + 8) * 2 + nwarps * 256 * 4 + nwarps * 16 * (lp + 8) * 2
+                + (5 * lp + 32) * 4)
+    if hd not in (32, 64, 96, 128) or l > 256 or bwd_smem > _MAX_SMEM:
+        raise ValueError(f"{name}: needs head dim in (32, 64, 96, 128), L <= 256 and the "
+                         f"backward's {bwd_smem} B of shared memory <= {_MAX_SMEM}; got head "
+                         f"dim {hd}, {heads} heads, L = {l}")
+
+
+def _pixel_stride(name, label, t, shape, dev) -> int:
+    """Pixel stride (elements) of a bf16 [B, H, W, C] operand whose channels are
+    contiguous (a channel slice of a wider tensor is taken as it is), or raise."""
+    if t.device != dev:
+        raise ValueError(f"{name}: {label} is on {t.device}, expected {dev}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: {label} has dtype {t.dtype}, expected torch.bfloat16")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    b, h, w, c = shape
+    ld = t.stride(2)
+    if (t.stride(3) != 1 or t.stride(1) != w * ld or t.stride(0) != h * w * ld or ld < c
+            or ld % 8 or t.data_ptr() % 16):
+        raise ValueError(f"{name}: {label} must have contiguous channels and rows of a 16-byte "
+                         f"aligned [B, H, W, ld] tensor, ld % 8 == 0; strides {t.stride()}")
+    return ld
+
+
+def _check_grid_operands(name, qn, kn, v, scale, window, mask_pattern, bias, g=None):
+    """-> (b, h, w, c, heads, wh, ww, l, (ldq, ldk, ldv))."""
+    if qn.device.type != "cuda" or qn.dim() != 4:
+        raise ValueError(f"{name}: qn must be a 4-D CUDA tensor, got {qn.dim()}-D on {qn.device}")
+    b, h, w, c = qn.shape
+    wh, ww = int(window[0]), int(window[1])
+    _window_grid(qn, window)
+    heads, l, dev = int(scale.shape[0]), wh * ww, qn.device
+    lds = tuple(_pixel_stride(name, lbl, t, (b, h, w, c), dev)
+                for lbl, t in (("qn", qn), ("kn", kn), ("v", v)))
+    _build.check_operand(name, "scale", scale, torch.float32, (heads,), dev)
+    if g is not None:
+        _build.check_operand(name, "g", g, torch.bfloat16, (b, h, w, c), dev)
+    if mask_pattern is not None:
+        _build.check_operand(name, "mask_pattern", mask_pattern, torch.float32, (l, l), dev)
+    if bias is not None:
+        _build.check_operand(name, "bias", bias, torch.float32, (heads, l, l), dev)
+    if c % heads:
+        raise ValueError(f"{name}: C={c} is not a multiple of heads={heads}")
+    _check_qkv_dims(name, c // heads, heads, l)
+    return b, h, w, c, heads, wh, ww, l, lds
+
+
+def _launch_grid_forward(fn, qn, kn, v, scale, bias, window, mask_pattern, boundary_flag):
+    name = fn.__name__
+    b, h, w, c, heads, wh, ww, _, lds = _check_grid_operands(
+        name, qn, kn, v, scale, window, mask_pattern, bias)
+    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=qn.device)
+    lib = _build.load_library()
+    with torch.cuda.device(qn.device):
+        stream = torch.cuda.current_stream(qn.device).cuda_stream
+        code = lib.swin_window_attention_grid_fwd(
+            qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
+            out.data_ptr(), b, h, w, c, heads, wh, ww, *lds, stream)
+    _build.check(code, name)
+    fn.launches += 1
+    return out
+
+
+def window_attention_grid(qn, kn, v, scale, window, mask_pattern=None, boundary_flag=1.0):
+    """K8's forward kernel: qn, kn, v [B, H, W, C] bf16 with contiguous
+    channels (a channel slice of the [B, H, W, 3C] qkv tensor is read in
+    place), scale [heads] fp32, mask_pattern [L, L] fp32 or None ->
+    [B, H, W, C] bf16. Launches on the current stream."""
+    return _launch_grid_forward(window_attention_grid, qn, kn, v, scale, None, window,
+                                mask_pattern, boundary_flag)
+
+
+window_attention_grid.launches = 0
+
+
+def window_attention_grid_bias(qn, kn, v, scale, bias, window, mask_pattern=None,
+                               boundary_flag=1.0):
+    """K8's BIAS forward kernel: :func:`window_attention_grid` plus the raw CPB
+    bias [heads, L, L] fp32."""
+    return _launch_grid_forward(window_attention_grid_bias, qn, kn, v, scale, bias, window,
+                                mask_pattern, boundary_flag)
+
+
+window_attention_grid_bias.launches = 0
+
+
+def _launch_grid_backward(fn, qn, kn, v, scale, bias, g, window, mask_pattern, boundary_flag):
+    name = fn.__name__
+    b, h, w, c, heads, wh, ww, l, lds = _check_grid_operands(
+        name, qn, kn, v, scale, window, mask_pattern, bias, g)
+    dev = qn.device
+    n_win = b * (h // wh) * (w // ww)
+    lp = -(-l // 16) * 16
+    f32 = dict(dtype=torch.float32, device=dev)
+    dqn, dkn, dv = (torch.empty((b, h, w, c), dtype=torch.bfloat16, device=dev)
+                    for _ in range(3))
+    dscale_part = torch.empty((n_win, heads), **f32)
+    dscale = torch.empty((heads,), **f32)
+    # one fp32 [LP, LP] d(bias) partial per (window, head), summed in window order
+    dbias_part = None if bias is None else torch.empty((n_win, heads, lp, lp), **f32)
+    dbias = None if bias is None else torch.empty((heads, l, l), **f32)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.swin_window_attention_grid_bwd(
+            qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
+            g.data_ptr(), dqn.data_ptr(), dkn.data_ptr(), dv.data_ptr(), dscale_part.data_ptr(),
+            None if bias is None else dbias_part.data_ptr(), dscale.data_ptr(),
+            None if bias is None else dbias.data_ptr(), b, h, w, c, heads, wh, ww, *lds, stream)
+    _build.check(code, name)
+    fn.launches += 1
+    return (dqn, dkn, dv, dscale) if bias is None else (dqn, dkn, dv, dscale, dbias)
+
+
+def window_attention_grid_bwd(qn, kn, v, scale, g, window, mask_pattern=None, boundary_flag=1.0):
+    """K8's backward kernels: the operands of :func:`window_attention_grid` and
+    g [B, H, W, C] bf16 contiguous -> (dqn, dkn, dv [B, H, W, C] bf16, dscale
+    [heads] fp32). dscale is summed in window order: two calls give the same
+    bits."""
+    return _launch_grid_backward(window_attention_grid_bwd, qn, kn, v, scale, None, g, window,
+                                 mask_pattern, boundary_flag)
+
+
+window_attention_grid_bwd.launches = 0
+
+
+def window_attention_grid_bias_bwd(qn, kn, v, scale, bias, g, window, mask_pattern=None,
+                                   boundary_flag=1.0):
+    """K8's BIAS backward kernels: also dbias [heads, L, L] fp32, from a
+    [B * nW, heads, LP, LP] fp32 partial per (window, head) (396 MB at the
+    flagship shape) summed in window order: no atomics."""
+    return _launch_grid_backward(window_attention_grid_bias_bwd, qn, kn, v, scale, bias, g,
+                                 window, mask_pattern, boundary_flag)
+
+
+window_attention_grid_bias_bwd.launches = 0
+
+
+def _check_v1_operands(name, q, k, v, scale, window_grid, mask_pattern, bias, g=None):
+    """-> (b, nwh, nww, heads, hd, l) of [Bw, heads, L, D] operands."""
+    if q.device.type != "cuda" or q.dim() != 4:
+        raise ValueError(f"{name}: q must be a 4-D CUDA tensor, got {q.dim()}-D on {q.device}")
+    nwh, nww = _check_window_grid(q, window_grid)
+    bw, heads, l, hd = q.shape
+    dev = q.device
+    for lbl, t in (("q", q), ("k", k), ("v", v)) + ((("g", g),) if g is not None else ()):
+        _build.check_operand(name, lbl, t, torch.bfloat16, (bw, heads, l, hd), dev)
+    _build.check_operand(name, "scale", scale, torch.float32, (heads,), dev)
+    if mask_pattern is not None:
+        _build.check_operand(name, "mask_pattern", mask_pattern, torch.float32, (l, l), dev)
+    if bias is not None:
+        _build.check_operand(name, "bias", bias, torch.float32, (heads, l, l), dev)
+    _check_qkv_dims(name, hd, heads, l)
+    return bw // (nwh * nww), nwh, nww, heads, hd, l
+
+
+def _launch_v1_forward(fn, q, k, v, scale, bias, window_grid, mask_pattern):
+    name = fn.__name__
+    b, nwh, nww, heads, hd, l = _check_v1_operands(name, q, k, v, scale, window_grid,
+                                                   mask_pattern, bias)
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.swin_window_attention_v1_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), out.data_ptr(),
+            b, nwh, nww, heads, hd, l, stream)
+    _build.check(code, name)
+    fn.launches += 1
+    return out
+
+
+def window_attention_v1(q, k, v, scale, window_grid, mask_pattern=None):
+    """K9's forward kernel: q, k, v [Bw, heads, L, D] bf16 contiguous (windows
+    in h-major order of ``window_grid`` = (window rows, windows per row)),
+    scale [heads] fp32, mask_pattern [L, L] fp32 or None -> [Bw, heads, L, D]
+    bf16. Normalizes q and k itself. Launches on the current stream."""
+    return _launch_v1_forward(window_attention_v1, q, k, v, scale, None, window_grid,
+                              mask_pattern)
+
+
+window_attention_v1.launches = 0
+
+
+def window_attention_v1_bias(q, k, v, scale, bias, window_grid, mask_pattern=None):
+    """K9's BIAS forward kernel: :func:`window_attention_v1` plus the raw CPB
+    bias [heads, L, L] fp32."""
+    return _launch_v1_forward(window_attention_v1_bias, q, k, v, scale, bias, window_grid,
+                              mask_pattern)
+
+
+window_attention_v1_bias.launches = 0
+
+
+def _launch_v1_backward(fn, q, k, v, scale, bias, g, window_grid, mask_pattern):
+    name = fn.__name__
+    b, nwh, nww, heads, hd, l = _check_v1_operands(name, q, k, v, scale, window_grid,
+                                                   mask_pattern, bias, g)
+    dev = q.device
+    n_win = b * nwh * nww
+    lp = -(-l // 16) * 16
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dscale_part = torch.empty((n_win, heads), **f32)
+    dscale = torch.empty((heads,), **f32)
+    dbias_part = None if bias is None else torch.empty((n_win, heads, lp, lp), **f32)
+    dbias = None if bias is None else torch.empty((heads, l, l), **f32)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.swin_window_attention_v1_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dscale_part.data_ptr(),
+            None if bias is None else dbias_part.data_ptr(), dscale.data_ptr(),
+            None if bias is None else dbias.data_ptr(), b, nwh, nww, heads, hd, l, stream)
+    _build.check(code, name)
+    fn.launches += 1
+    return (dq, dk, dv, dscale) if bias is None else (dq, dk, dv, dscale, dbias)
+
+
+def window_attention_v1_bwd(q, k, v, scale, g, window_grid, mask_pattern=None):
+    """K9's backward kernels: the operands of :func:`window_attention_v1` and g
+    [Bw, heads, L, D] bf16 -> (dq, dk, dv [Bw, heads, L, D] bf16, dscale
+    [heads] fp32), the normalization VJP included; dscale is summed in window
+    order."""
+    return _launch_v1_backward(window_attention_v1_bwd, q, k, v, scale, None, g, window_grid,
+                               mask_pattern)
+
+
+window_attention_v1_bwd.launches = 0
+
+
+def window_attention_v1_bias_bwd(q, k, v, scale, bias, g, window_grid, mask_pattern=None):
+    """K9's BIAS backward kernels: also dbias [heads, L, L] fp32, summed over
+    per-(window, head) partials in window order."""
+    return _launch_v1_backward(window_attention_v1_bias_bwd, q, k, v, scale, bias, g,
+                               window_grid, mask_pattern)
+
+
+window_attention_v1_bias_bwd.launches = 0
+
+
+class WindowAttentionGrid(torch.autograd.Function):
+    """K8 forward and backward (or their plain versions for CPU tensors), with
+    the per-head normalization and its VJP around them in plain ops.
+
+    Saves (qn, kn, v, scale, bias, inv_q, inv_k), as ``fg_fwd`` / ``fg4_fwd``
+    do; the backward is K8's kernel followed by :func:`normalize_vjp` on the
+    stored qn and kn. dqn and dkn leave the kernel in q's dtype, as in JAX.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, bias, window, mask_pattern, boundary_flag):
+        heads = int(scale.shape[0])
+        qn, inv_q = normalize_heads(q, heads)
+        kn, inv_k = normalize_heads(k, heads)
+        ctx.save_for_backward(qn, kn, v, scale, bias, inv_q, inv_k)
+        ctx.window, ctx.mask_pattern, ctx.boundary_flag = window, mask_pattern, boundary_flag
+        if q.device.type == "cpu":
+            return window_attention_grid_bias_reference(qn, kn, v, scale, bias, window,
+                                                        mask_pattern, boundary_flag)
+        args = (qn, kn, v, scale.float().contiguous())
+        tail = (window, mask_pattern, _flag(boundary_flag))
+        if bias is None:
+            return window_attention_grid(*args, *tail)
+        return window_attention_grid_bias(*args, bias.float().contiguous(), *tail)
+
+    @staticmethod
+    def backward(ctx, g):
+        qn, kn, v, scale, bias, inv_q, inv_k = ctx.saved_tensors
+        heads = int(scale.shape[0])
+        if qn.device.type == "cpu":
+            grads = window_attention_grid_bias_backward_reference(
+                qn, kn, v, scale, bias, g, ctx.window, ctx.mask_pattern, ctx.boundary_flag)
+        else:
+            args = (qn, kn, v, scale.float().contiguous())
+            g16 = g.to(torch.bfloat16).contiguous()
+            tail = (ctx.window, ctx.mask_pattern, _flag(ctx.boundary_flag))
+            if bias is None:
+                grads = window_attention_grid_bwd(*args, g16, *tail)
+            else:
+                grads = window_attention_grid_bias_bwd(*args, bias.float().contiguous(), g16,
+                                                       *tail)
+        dqn, dkn, dv, dscale = grads[:4]
+        dbias = None if bias is None else grads[4].to(bias.dtype)
+        return (normalize_vjp(qn, inv_q, dqn, heads, qn.dtype),
+                normalize_vjp(kn, inv_k, dkn, heads, kn.dtype), dv, dscale.to(scale.dtype),
+                dbias, None, None, None)
+
+
+class WindowAttentionV1(torch.autograd.Function):
+    """K9 forward and backward (or their plain versions for CPU tensors); saves
+    (q, k, v, scale, bias), as ``fused_fwd`` does. The windowed operands are
+    made contiguous for the kernels (the head split is materialized, as in
+    JAX)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, bias, window_grid, mask_pattern):
+        ctx.save_for_backward(q, k, v, scale, bias)
+        ctx.window_grid, ctx.mask_pattern = window_grid, mask_pattern
+        if q.device.type == "cpu":
+            return window_attention_v1_bias_reference(q, k, v, scale, bias, window_grid,
+                                                      mask_pattern)
+        args = (q.contiguous(), k.contiguous(), v.contiguous(), scale.float().contiguous())
+        if bias is None:
+            return window_attention_v1(*args, window_grid, mask_pattern)
+        return window_attention_v1_bias(*args, bias.float().contiguous(), window_grid,
+                                        mask_pattern)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, scale, bias = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = window_attention_v1_bias_backward_reference(q, k, v, scale, bias, g,
+                                                                ctx.window_grid,
+                                                                ctx.mask_pattern)
+        else:
+            args = (q.contiguous(), k.contiguous(), v.contiguous(), scale.float().contiguous())
+            g16 = g.to(torch.bfloat16).contiguous()
+            if bias is None:
+                grads = window_attention_v1_bwd(*args, g16, ctx.window_grid, ctx.mask_pattern)
+            else:
+                grads = window_attention_v1_bias_bwd(*args, bias.float().contiguous(), g16,
+                                                     ctx.window_grid, ctx.mask_pattern)
+        dq, dk, dv, dscale = grads[:4]
+        dbias = None if bias is None else grads[4].to(bias.dtype)
+        return dq, dk, dv, dscale.to(scale.dtype), dbias, None, None
+
+
+def _mask_on(x, mask_pattern):
+    if mask_pattern is not None and x.device.type == "cuda":
+        return torch.as_tensor(mask_pattern).to(device=x.device, dtype=torch.float32).contiguous()
+    return mask_pattern
+
+
+def _check_bias(name, bias, heads, l):
+    if bias is not None and tuple(bias.shape) != (heads, l, l):
+        raise ValueError(f"{name}: the CPB bias must be [heads, L, L] = {(heads, l, l)}, got "
+                         f"{tuple(bias.shape)}")
+
+
+def fused_window_attention_grid(
+    q: torch.Tensor,  # [B, H, W, C] (already rolled for shifted blocks)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: torch.Tensor,  # [heads]
+    window: Tuple[int, int],
+    bias: Optional[torch.Tensor] = None,  # raw CPB [heads, L, L]
+    mask_pattern=None,  # [L, L] boundary-row mask (array or tensor) or None
+    boundary_flag=None,  # scalar gate on the mask (spatial sharding)
+) -> torch.Tensor:
+    """Grid-layout window attention: [B, H, W, C] -> [B, H, W, C], q and k
+    normalized per head here, differentiable in q, k, v, scale and the bias
+    (K8 on CUDA tensors, its plain versions on CPU tensors)."""
+    _window_grid(q, window)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_window_attention_grid: no implementation for device {q.device}")
+    _check_bias("fused_window_attention_grid", bias, int(scale.shape[0]),
+                int(window[0]) * int(window[1]))
+    return WindowAttentionGrid.apply(q, k, v, scale, bias, tuple(window),
+                                     _mask_on(q, mask_pattern), boundary_flag)
+
+
+def fused_window_attention(
+    q: torch.Tensor,  # [Bw, heads, L, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: torch.Tensor,  # [heads]
+    bias: Optional[torch.Tensor] = None,  # raw CPB [heads, L, L]
+    mask_pattern=None,  # [L, L] mask of the last window row, or None
+    window_grid: Optional[Tuple[int, int]] = None,  # (window rows, windows per row)
+) -> torch.Tensor:
+    """Windowed attention: [Bw, heads, L, D] -> [Bw, heads, L, D], q and k
+    normalized inside (K9 on CUDA tensors, its plain versions on CPU tensors)."""
+    grid = _check_window_grid(q, window_grid)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_window_attention: no implementation for device {q.device}")
+    _check_bias("fused_window_attention", bias, int(scale.shape[0]), int(q.shape[2]))
+    return WindowAttentionV1.apply(q, k, v, scale, bias, grid, _mask_on(q, mask_pattern))

@@ -209,16 +209,30 @@ def test_model_forward_matches_jax_bfloat16():
 @pytest.mark.parametrize(
     "override, match",
     [
-        ({"attn_impl": "pallas"}, "attn_impl"),
-        ({"attn_impl": "xla"}, "attn_impl"),
         ({"mlp_impl": "plain"}, "mlp_impl"),
-        ({"attn_impl": "pallas_v1"}, "attn_impl"),
         ({"spatial_shards": 2}, "spatial_shards"),
     ],
 )
 def test_unported_routes_raise(override, match):
     _, tp = micro_configs(**override)
     with pytest.raises(NotImplementedError, match=match):
+        get_model(tp, device="cpu")
+
+
+@pytest.mark.parametrize("route", ["pallas", "pallas_v1", "xla"])
+def test_attention_routes_build(route):
+    """get_model builds the grid route, the windowed route and the plain
+    'xla' route (their parity with JAX: tests/test_torch_grid_attention.py
+    and tests/test_torch_v1_attention.py); an unknown route still raises."""
+    _, tp = micro_configs(attn_impl=route)
+    tm = get_model(tp, device="cpu")
+    assert {blk.attn.attn_impl for blk in tm.model.blocks} == {route}
+    assert [blk.windowed for blk in tm.model.blocks] == [route != "pallas"] * 2
+    x = torch.zeros((1, int(tp["n_in_channels"]), *tp.img_size))
+    with torch.no_grad():
+        assert tm(x).shape == (1, int(tp["n_out_channels"]), *tp.img_size)
+    _, tp = micro_configs(attn_impl="pallas_v4")
+    with pytest.raises(NotImplementedError, match="attn_impl"):
         get_model(tp, device="cpu")
 
 

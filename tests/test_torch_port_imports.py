@@ -88,3 +88,41 @@ def test_yparams_match_jax(section):
     assert ours.to_dict() == ref.to_dict()
     for key in ref.params:
         assert getattr(ours, key) == getattr(ref, key)
+
+
+def test_kernel_sources_are_bound_and_noted():
+    """Every C entry point that ops/_build.py binds is defined in one .cu
+    source of ops/csrc, every .cu source defines one at least, and each
+    starts with a note naming the TPU kernel it replaces (K8 and K9 in
+    window_attention_grid.cu and window_attention_v1.cu included)."""
+    from swin_v2_weather_torch.ops import _build
+
+    csrc = PORT / "ops" / "csrc"
+    sources = {p.name: p.read_text() for p in sorted(csrc.glob("*.cu"))}
+    assert {"window_attention_grid.cu", "window_attention_v1.cu"} <= set(sources)
+    defined = {}
+    for name in _build._SIGNATURES:
+        hits = [f for f, text in sources.items() if f'extern "C" int {name}(' in text]
+        assert len(hits) == 1, (name, hits)
+        defined.setdefault(hits[0], []).append(name)
+    assert set(defined) == set(sources)
+    for f, text in sources.items():
+        head = text.split("#include")[0]
+        assert "swin_v2_weather_tpu/ops/" in head and "Replaces" in head, f
+
+
+def test_qkv_attention_entry_points_are_importable_without_jax():
+    """The K8/K9 entry points and their plain versions live in the port's
+    window-attention module, which imports neither JAX nor the JAX package
+    (checked for every module by the two tests above)."""
+    from swin_v2_weather_torch.ops import window_attention as wa
+
+    names = ["fused_window_attention_grid", "fused_window_attention", "normalize_heads",
+             "normalize_vjp", "reference_attention"]
+    for kind in ("grid", "grid_bias", "v1", "v1_bias"):
+        names += [f"window_attention_{kind}", f"window_attention_{kind}_bwd",
+                  f"window_attention_{kind}_reference",
+                  f"window_attention_{kind}_backward_reference"]
+    missing = [n for n in names if not callable(getattr(wa, n, None))]
+    assert not missing
+    assert "swin_v2_weather_torch.ops.window_attention" in port_modules()

@@ -256,7 +256,17 @@ def trajectories(request):
     metrics per step, port model after the last step, JAX params at the start,
     lr), computed once per compute dtype and rollout length."""
     dtype, n_future = TRAJECTORIES[request.param]
-    over = dict(drop_path_rate=0.0, scan_blocks=False, compute_dtype=dtype, n_future=n_future)
+    return (request.param, *train_trajectories(dtype, n_future))
+
+
+def train_trajectories(dtype, n_future, **extra):
+    """(JAX metrics per step, JAX params after the last step, port metrics per
+    step, port model after the last step, JAX params at the start, lr) of
+    N_STEPS train steps of the micro config on both sides (drop-path 0,
+    unrolled blocks), with the config overrides ``extra`` (e.g. another
+    ``attn_impl``) on both."""
+    over = dict(drop_path_rate=0.0, scan_blocks=False, compute_dtype=dtype, n_future=n_future,
+                **extra)
     jm, tree, tm = micro_models(dtype, seed=0, **{k: v for k, v in over.items()
                                                   if k != "compute_dtype"})
     jp, tp = micro_params(**over)
@@ -285,14 +295,18 @@ def trajectories(request):
         m = tstep(tbatch)
         assert all(v.dtype == torch.float32 and v.dim() == 0 for v in m.values())
         port_metrics_seq.append({k: float(v) for k, v in m.items()})
-    return request.param, jax_metrics_seq, jax_params, port_metrics_seq, tm, tree, float(jp.lr)
+    return jax_metrics_seq, jax_params, port_metrics_seq, tm, tree, float(jp.lr)
 
 
 def test_train_step_metrics_match_jax(trajectories):
     """Per-step loss, global grad norm and the per-module grad norms, under
     the JAX names (patch_embed, pos_embed, block{i}, head)."""
     traj, jax_seq, _, port_seq, _, _, _ = trajectories
-    loss_rtol, norm_rtol = STEP_RTOL[traj]
+    check_step_metrics(jax_seq, port_seq, *STEP_RTOL[traj])
+
+
+def check_step_metrics(jax_seq, port_seq, loss_rtol, norm_rtol):
+    """Every step's metrics within the relative bounds, and the loss falls."""
     for ours, ref in zip(port_seq, jax_seq):
         assert set(ours) == set(ref)
         assert {"grad_norm/block0", "grad_norm/block1", "grad_norm/head"} <= set(ref)
@@ -320,7 +334,12 @@ def test_train_step_params_match_jax(trajectories):
     by more than the max bound, and sign flips stay rare (the share bound
     counts them over the whole model, the mean bound per leaf)."""
     traj, _, jax_params, _, tm, tree, lr = trajectories
-    max_tol, mean_tol, share_tol = PARAM_TOL[traj]
+    check_step_params(jax_params, tm, tree, lr, *PARAM_TOL[traj])
+
+
+def check_step_params(jax_params, tm, tree, lr, max_tol, mean_tol, share_tol):
+    """Every parameter moved and sits within the bounds (in units of lr) of
+    JAX's after the steps; sign flips of near-zero gradients stay rare."""
     got = dict(jax.tree_util.tree_leaves_with_path(
         params_to_jax({n: p.detach() for n, p in tm.named_parameters()})))
     start = dict(jax.tree_util.tree_leaves_with_path(tree))
