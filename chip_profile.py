@@ -30,7 +30,14 @@ two warm-up steps:
     'pallas_v1'``: window partition, head split, K9, head merge, window
     reverse), plus the time of those layout moves alone (one block's
     forward: the partition of x, the head split of qkv into three contiguous
-    [400, 8, 162, 96] tensors, the merge and the reverse, CUDA events).
+    [400, 8, 162, 96] tensors, the merge and the reverse, CUDA events);
+  * train v6: the flagship with ``QKV_IMPL = 'v6'`` (K10 and the padded
+    proj); train xla-bwd: the flagship with ``QKV_BWD_IMPL = 'xla'`` (K1,
+    then K8's backward inside the plain qkv recompute and projection chain);
+  * rollout e2048 and train e2048: ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar``
+    (embed 2048, 8 heads of 256, mlp_ratio 2, depth 24; the large-head
+    attention variant and K5's wide instance), serving at 720 x 1440 and
+    training at the image [360, 720] with window 9 x 18.
 
 it prints the ms/step by CUDA events without the profiler; the host time of
 one step's own work (train: the step's enqueue, with no sync in it; rollout:
@@ -63,9 +70,19 @@ CATEGORIES = (
     ("K8 forward", lambda n: "qkv_attention_fwd_kernel<" in n and ", 0, " in n),
     ("K9 forward", lambda n: "qkv_attention_fwd_kernel<" in n),
     ("K8/K9 reductions", lambda n: "attn_dscale_reduce" in n or "attn_dbias_reduce" in n),
-    ("K7 attention pass", lambda n: "attention_bwd_kernel<" in n and ", true>" in n),
+    # the large-head variant of K1/K2 (and K7) and K10 (K1/K2's head-pitch-128 instances)
+    ("large K1/K2: qkv GEMM", lambda n: "StoreQkv" in n),
+    ("large K1/K2: normalization", lambda n: "normalize_qk_kernel" in n),
+    ("large K1 attention", lambda n: "large_fwd_kernel" in n),
+    ("large K2 attention", lambda n: "large_bwd_rows_kernel" in n or "large_bwd_cols_kernel" in n),
+    ("K10 forward", lambda n: "window_attention_qkv_kernel<" in n and ", 128>" in n
+     and "<128," not in n),
+    ("K10 attention pass", lambda n: "attention_bwd_kernel<" in n and ", 128>" in n
+     and "<128," not in n),
+    # template arguments <HD, BIAS, head pitch>: BIAS true is K7
+    ("K7 attention pass", lambda n: "attention_bwd_kernel<" in n and ", true," in n),
     ("K7 dbias reduction", lambda n: "dbias_reduce_kernel" in n),
-    ("K7 forward", lambda n: "window_attention_qkv_kernel<" in n and ", true>" in n),
+    ("K7 forward", lambda n: "window_attention_qkv_kernel<" in n and ", true," in n),
     ("K2 attention pass", lambda n: "attention_bwd_kernel" in n),
     ("K2/K7 dW split-K GEMM", lambda n: "StoreSplitF32" in n),
     ("K2/K7 dx GEMM", lambda n: "StoreBf16" in n),
@@ -263,23 +280,52 @@ def main() -> None:
     del engine, model, steps
     torch.cuda.empty_cache()
 
+    # ---- rollout e2048 ---------------------------------------------------------
+    params = chip_smoke.train_params(chip_smoke.CONFIG_E2048)
+    model = get_model(params)
+    chip_smoke.seeded_parameters(model, torch.Generator(device=dev).manual_seed(chip_smoke.SEED))
+    engine = RolloutEngine(params, model, dev)
+    state0 = torch.randn((1, int(params.n_out_channels), *params.img_size),
+                         generator=torch.Generator().manual_seed(chip_smoke.SEED))
+    steps = engine.steps(state0, START, 2 + 2 * n)
+    log(f"[rollout e2048] {chip_smoke.CONFIG_E2048}, {tuple(params.img_size)}, batch 1")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        next(steps)
+    log(f"  unprofiled: {events_ms(lambda: next(steps), n):.2f} ms/step ({card})")
+    profile_steps("rollout e2048", lambda: next(steps), n, card)
+    log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del engine, model, steps
+    torch.cuda.empty_cache()
+
     # ---- train steps: single-step, the 2-step fine-tune, the CPB family ------
-    for label, config, over in (("train", chip_smoke.CONFIG, None),
-                                ("train 2-step", chip_smoke.CONFIG_2STEP, None),
-                                ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB),
-                                ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD),
-                                ("train grid", chip_smoke.CONFIG, chip_smoke.GRID_ROUTE),
-                                ("train v1", chip_smoke.CONFIG, chip_smoke.V1_ROUTE)):
+    # (label, config, overrides, qkv switches (QKV_IMPL, QKV_BWD_IMPL))
+    from swin_v2_weather_torch.ops import window_attention as wa
+
+    for label, config, over, switches in (
+            ("train", chip_smoke.CONFIG, None, ("v3", "pallas")),
+            ("train 2-step", chip_smoke.CONFIG_2STEP, None, ("v3", "pallas")),
+            ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB, ("v3", "pallas")),
+            ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD, ("v3", "pallas")),
+            ("train grid", chip_smoke.CONFIG, chip_smoke.GRID_ROUTE, ("v3", "pallas")),
+            ("train v1", chip_smoke.CONFIG, chip_smoke.V1_ROUTE, ("v3", "pallas")),
+            ("train v6", chip_smoke.CONFIG, None, ("v6", "pallas")),
+            ("train xla-bwd", chip_smoke.CONFIG, None, ("v3", "xla")),
+            ("train e2048", chip_smoke.CONFIG_E2048, chip_smoke.E2048_TRAIN, ("v3", "pallas"))):
+        wa.QKV_IMPL, wa.QKV_BWD_IMPL = switches
         params = chip_smoke.train_params(config, over)
         model = get_model(params)
-        chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED + 1))
+        # the e2048 weights (943.5 M) are drawn on the card, the others on the CPU as before
+        gen = torch.Generator(device=dev if config == chip_smoke.CONFIG_E2048 else "cpu")
+        chip_smoke.seeded_parameters(model, gen.manual_seed(chip_smoke.SEED + 1))
         train_step = build_train_step(
             model, LossHandler(params), Preprocessor(params),
             build_optimizer(params, model.parameters()),
             generator=torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
         )
         batch = collate([SyntheticDataset(params)[0]], device=dev)
-        log(f"[{label}] {config} {over or ''}, batch 1, drop_path_rate {params.drop_path_rate}")
+        log(f"[{label}] {config} {over or ''}, QKV_IMPL {switches[0]}, QKV_BWD_IMPL "
+            f"{switches[1]}, batch 1, drop_path_rate {params.drop_path_rate}")
         torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
             train_step(batch)
@@ -305,6 +351,7 @@ def main() -> None:
                 f"one block's forward): {layout_moves_ms(dev, 10):.3f} ms ({card})")
         del model, train_step, batch
         torch.cuda.empty_cache()
+    wa.QKV_IMPL, wa.QKV_BWD_IMPL = "v3", "pallas"
 
 
 if __name__ == "__main__":

@@ -94,11 +94,38 @@ printing its own lines:
  25. the windowed route with the CPB, as phase 22, on K9's BIAS instances.
  26. the ``'xla'`` route: one rollout step at full width, no attention kernel
      launched, K3 12 times, the output finite.
+ 27. the e2048 widths against their plain versions, timed: K1/K2 at x [1,
+     180, 360, 2048], W_qkv [2048, 6144], 8 heads of 256, window 9 x 18 (the
+     large-head variant), shifted, and one K7 case (forward and backward,
+     shifted); K5/K6 at [64800, 2048] x [2048, 4096] x [4096, 2048] (K5's
+     wide instance); two backward calls bit-equal.
+ 28. e2048 serving, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar`` at
+     full size (720 x 1440, embed 2048, depth 24): 2 rollout steps, K1 and K5
+     24 times a step, K3 never, output finite, step 1 against the plain path.
+ 29. e2048 training at full width and depth at the image [360, 720] (window
+     ratio 40: window 9 x 18 on 90 x 180 tokens, L = 162): 2 steps with
+     drop-path 0.1; K1, K2, K5 and K6 24 times a step; step 1 against the
+     plain path; every parameter moved; ms/step and peak memory.
+ 30. K10, the v6 padded-head kernels, forward and backward against their
+     plain versions at the flagship shape (x [1, 180, 360, 768], 8 heads of
+     96, padded to 128), shifted: out's pad lanes and dWp's / dbp's pad
+     columns exactly zero (g's pad lanes random); two backward calls
+     bit-equal; timed beside K1/K2 of phases 3 and 7.
+ 31. the flagship with ``QKV_IMPL = 'v6'``: 4 rollout steps, then 3 train
+     steps; K10 forward (and backward) 12 times a step, K1/K2 never; step 1
+     against the plain path; ms/step, samples/s and peak memory.
+ 32. the flagship with ``QKV_BWD_IMPL = 'xla'``: 3 train steps, K1 and K8's
+     backward 12 times a step, K2 never; then 2 CPB train steps: K7's forward
+     and K8's BIAS backward 12 times a step, K7's backward never; step 1 of
+     each against the plain path.
 
 Then one JSON line with each kernel's results: ``launches`` on the main path
 of the slice that brought it (K1, K2, K5, K6: the 2-step fine-tune; K3, K4:
 the single-step train step; K7: the CPB train step; K11: the fused-LayerNorm
-train step), the launches on every path and per step, the largest abs
+train step; K10: the v6 train step; the ``_e2048`` entries, the same
+wrappers timed at the e2048 shapes of phase 27: the e2048 train step, with
+K7's e2048 case under its own entries' ``e2048`` key), the launches on every
+path and per step, the largest abs
 difference from its plain version, its time and the plain version's (CUDA
 events), the bound (the larger of its FLOPs at the bf16 peak and its bytes,
 each input read and each output written once, at the memory rate of an H100
@@ -142,6 +169,10 @@ LNADD = {"lnadd_impl": "fused"}  # the fused post-norm branches (K11's path)
 GRID_ROUTE = {"attn_impl": "pallas"}  # the grid route (K8's path)
 V1_ROUTE = {"attn_impl": "pallas_v1"}  # the windowed route (K9's path)
 XLA_ROUTE = {"attn_impl": "xla"}  # the windowed route in plain ops (no attention kernel)
+CONFIG_E2048 = "swin_73var_geo_depth24_e2048_mlp2_chweight_invar"
+# the e2048 train step at the image [360, 720]: window 9 x 18 on 90 x 180
+# tokens, so L = 162 as at full size (where shared memory bites)
+E2048_TRAIN = {"img_size": [360, 720], "window_ratio": 40}
 N_STEPS = 4
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
@@ -247,17 +278,19 @@ def train_params(config: str, overrides: dict = None):
 
 
 def seeded_parameters(model: torch.nn.Module, gen: torch.Generator) -> None:
-    """Every parameter from seeded noise; LayerNorm scales 1 + 0.1 N(0, 1)."""
+    """Every parameter from seeded noise (drawn on the generator's device);
+    LayerNorm scales 1 + 0.1 N(0, 1)."""
+    kw = dict(generator=gen, device=gen.device)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("logit_scale"):
-                val = math.log(10.0) + 0.3 * torch.randn(p.shape, generator=gen)
+                val = math.log(10.0) + 0.3 * torch.randn(p.shape, **kw)
             elif name.endswith("pos_embed") or name.endswith(".bias"):
-                val = 0.02 * torch.randn(p.shape, generator=gen)
+                val = 0.02 * torch.randn(p.shape, **kw)
             elif p.dim() == 1:  # LayerNorm scale
-                val = 1.0 + 0.1 * torch.randn(p.shape, generator=gen)
+                val = 1.0 + 0.1 * torch.randn(p.shape, **kw)
             else:  # Linear weight [out, in]: U(-1, 1) / sqrt(fan_in)
-                val = (2.0 * torch.rand(p.shape, generator=gen) - 1.0) / math.sqrt(p.shape[1])
+                val = (2.0 * torch.rand(p.shape, **kw) - 1.0) / math.sqrt(p.shape[1])
             p.copy_(val)
 
 
@@ -297,7 +330,7 @@ def main() -> None:
     counted = (wa.window_attention_qkv, wa.window_attention_qkv_bwd, mk.fc1_gelu, mk.fc1_dpre,
                mk.mlp_fwd, mk.mlp_bwd, wa.window_attention_qkv_bias,
                wa.window_attention_qkv_bias_bwd, lk.ln_dp_add_fwd, lk.ln_dp_add_bwd,
-               *qkv_wrappers)
+               *qkv_wrappers, wa.window_attention_qkv_padded, wa.window_attention_qkv_padded_bwd)
 
     # ---- 1. versions and card ------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -513,6 +546,8 @@ def main() -> None:
             window_attention_qkv_bwd=wa.window_attention_qkv_backward_reference,
             window_attention_qkv_bias=wa.window_attention_qkv_bias_reference,
             window_attention_qkv_bias_bwd=wa.window_attention_qkv_bias_backward_reference,
+            window_attention_qkv_padded=wa.window_attention_qkv_padded_reference,
+            window_attention_qkv_padded_bwd=wa.window_attention_qkv_padded_backward_reference,
             **{f.__name__: plain_version(f) for f in qkv_wrappers},
         ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference,
                                mlp_fwd=mk.mlp_fwd_reference, mlp_bwd=mk.mlp_bwd_reference,
@@ -534,22 +569,23 @@ def main() -> None:
 
     def train_path(tag: str, config: str, n_steps: int, per_step: dict, plain_step1: bool = True,
                    eval_step: bool = False, n_timed: int = 3, plain_timed: bool = False,
-                   overrides: dict = None):
+                   overrides: dict = None, weights_on=None):
         """Drive one train path: get_model -> LossHandler -> Preprocessor ->
         build_optimizer -> build_train_step, n_steps steps from seeded
-        parameters, each kernel launched per_step[name] times a step (0 if
-        absent), finite metrics, every parameter moved; then step 1 against
-        the plain path, an eval step, and ms/step and peak memory. Returns the
-        launches of the n_steps steps and the kernel path's ms/step."""
+        parameters (drawn on ``weights_on``, the CPU unless given), each
+        kernel launched per_step[name] times a step (0 if absent), finite
+        metrics, every parameter moved; then step 1 against the plain path,
+        an eval step, and ms/step and peak memory. Returns the launches of
+        the n_steps steps and the kernel path's ms/step."""
         params = train_params(config, overrides)
         model = get_model(params)
-        seeded_parameters(model, torch.Generator().manual_seed(SEED + 1))
+        seeded_parameters(model, torch.Generator(device=weights_on or "cpu").manual_seed(SEED + 1))
         init = {n: p.detach().clone() for n, p in model.named_parameters()}
         loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
         batch = collate([SyntheticDataset(params)[0]], device=dev)
         n_future = int(params.n_future)
         log(f"{tag} train step: {config} {overrides or ''}, depth {params.depth}, "
-            f"n_future {n_future} "
+            f"{sum(p.numel() for p in model.parameters())} parameters, n_future {n_future} "
             f"({type(model).__name__}), drop_path_rate {params.drop_path_rate}, loss "
             f"'{params.loss}', {params.optimizer_type} lr {float(params.lr)}, batch 1 "
             f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
@@ -913,34 +949,43 @@ def main() -> None:
             del out, ref, grads, ref_g, again
         torch.cuda.empty_cache()
 
-    def serve_path(tag: str, overrides: dict, n_steps: int, per_step: dict):
-        """get_model -> RolloutEngine.rollout for n_steps on seeded weights:
-        the launches (per_step[name] a step, 0 if absent), finite output of
-        the right shape, step 1 against the plain path; ms/step and peak."""
-        params = train_params(CONFIG, overrides)
+    def serve_path(tag: str, overrides: dict, n_steps: int, per_step: dict, config: str = CONFIG,
+                   weights_on=None):
+        """get_model -> RolloutEngine.rollout for n_steps on seeded weights
+        (drawn on ``weights_on``, the CPU unless given): the launches
+        (per_step[name] a step, 0 if absent), finite output of the right
+        shape, step 1 against the plain path; ms/step and peak."""
+        params = train_params(config, overrides)
         model = get_model(params)
-        seeded_parameters(model, torch.Generator().manual_seed(SEED))
+        seeded_parameters(model, torch.Generator(device=weights_on or "cpu").manual_seed(SEED))
         engine = RolloutEngine(params, model, dev)
+        # the flagship's initial state of phase 5, or one of this config's shape
+        init = state0 if config == CONFIG else torch.randn(
+            (1, int(params.n_out_channels), *params.img_size),
+            generator=torch.Generator().manual_seed(SEED))
         for fn in counted:
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        preds = engine.rollout(state0, START, n_steps)
+        preds = engine.rollout(init, START, n_steps)
         got = {fn.__name__: fn.launches for fn in counted}
-        log(f"{tag} serving {CONFIG} {overrides}: rollout {n_steps} steps -> {preds.shape}; "
-            f"launches {got}")
+        log(f"{tag} serving {config} {overrides}: {tuple(params.img_size)}, embed "
+            f"{params.embed_dim}, depth {params.depth}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters; rollout {n_steps} steps -> "
+            f"{preds.shape}; launches {got}")
         expected = {name: per_step.get(name, 0) * n_steps for name in got}
         if got != expected:
             raise RuntimeError(f"{tag}: the rollout must launch {expected}, got {got}")
-        if preds.shape != (n_steps, 1, n_out, *params.img_size) or not np.isfinite(preds).all():
+        want_shape = (n_steps, 1, int(params.n_out_channels), *params.img_size)
+        if preds.shape != want_shape or not np.isfinite(preds).all():
             raise RuntimeError(f"{tag}: rollout output has the wrong shape or non-finite values")
         with plain_train():
-            plain1 = next(engine.steps(state0, START, 1))
+            plain1 = next(engine.steps(init, START, 1))
         if {fn.__name__: fn.launches for fn in counted} != got:
             raise RuntimeError(f"{tag}: the plain path launched a kernel")
         compare("step 1 kernel path vs plain path", torch.from_numpy(preds[0]), plain1.cpu(),
                 MODEL_TOL)
         if n_steps > 1:
-            steps = engine.steps(state0, START, n_steps)
+            steps = engine.steps(init, START, n_steps)
             next(steps)  # warm-up step
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1005,6 +1050,211 @@ def main() -> None:
         n_timed=2, overrides={**V1_ROUTE, **CPB})
     serve_xla = serve_path("[26]", XLA_ROUTE, 1, {"fc1_gelu": depth})
 
+    # ---- 27. the e2048 widths: K1/K2 (large-head variant), one K7 case, K5/K6 --
+    ce, he, hide = 2048, 8, 4096
+    x = torch.randn((b, gh, gw, ce), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, gh, gw, ce), generator=gen, device=dev).bfloat16()
+    w_qkv = (2 * torch.rand((ce, 3 * ce), generator=gen, device=dev) - 1) / math.sqrt(ce)
+    b_qkv = 0.02 * torch.randn((3 * ce,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((he,), generator=gen, device=dev))
+    w16 = w_qkv.bfloat16()
+    log(f"[27] e2048 attention: x, g {tuple(x.shape)} bf16, W [{ce}, {3 * ce}] bf16, {he} heads of "
+        f"{ce // he}, window {window}, shifted; kernel variants: forward "
+        f"{wa.qkv_variant('', ce // he, l_win, False)}, backward "
+        f"{wa.qkv_variant('', ce // he, l_win, True)}")
+    # the projection, then two [L, L, 256] products per (window, head)
+    e_attn_flops = 4 * l_win * l_win * ce * (t_tok // l_win)
+    e_fwd_flops, e_bwd_flops = 2 * t_tok * ce * 3 * ce + e_attn_flops, (
+        3 * 2 * t_tok * ce * 3 * ce + 5 * e_attn_flops / 2)
+    with torch.inference_mode():
+        out = wa.window_attention_qkv(x, w16, b_qkv, scale, window, pattern, 1.0)
+        ref = wa.window_attention_qkv_reference(x, w_qkv, b_qkv, scale, window, pattern)
+    torch.cuda.synchronize()
+    err = compare("K1 out", out, ref, ATTN_TOL)
+    with torch.inference_mode():
+        f_ms = time_ms(lambda: wa.window_attention_qkv(x, w16, b_qkv, scale, window, pattern, 1.0), 5)
+        fp_ms = time_ms(lambda: wa.window_attention_qkv_reference(
+            x, w_qkv, b_qkv, scale, window, pattern), 2)
+    results["window_attention_qkv_e2048"] = (err, f_ms, fp_ms, bound(
+        e_fwd_flops, nbytes(x, w16, b_qkv, scale, out)))
+    del out, ref
+    grads = wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, pattern, 1.0)
+    ref_g = wa.window_attention_qkv_backward_reference(x, w16, b_qkv, scale, g, window, pattern)
+    torch.cuda.synchronize()
+    e_errs = {name: compare(f"K2 {name}", o, r, BWD_TOL[name])
+              for name, o, r in zip(("dx", "dW", "db", "dscale"), grads, ref_g)}
+    again = wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, pattern, 1.0)
+    if not all(torch.equal(a_, o) for a_, o in zip(again, grads)):
+        raise RuntimeError("window_attention_qkv_bwd (e2048): two calls differ")
+    del ref_g, again
+    b_ms = time_ms(lambda: wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, pattern,
+                                                        1.0), 3)
+    bp_ms = time_ms(lambda: wa.window_attention_qkv_backward_reference(
+        x, w16, b_qkv, scale, g, window, pattern), 1)
+    log(f"  K1 forward {f_ms:.4f} ms, plain {fp_ms:.4f} ms; K2 backward {b_ms:.4f} ms, plain "
+        f"{bp_ms:.4f} ms ({card}); two backward calls bit-equal")
+    results["window_attention_qkv_bwd_e2048"] = (e_errs["dx"], b_ms, bp_ms, bound(
+        e_bwd_flops, nbytes(x, w16, b_qkv, scale, g, *grads)), e_errs)
+    del grads
+    badd = wa.fold_cpb_bias(torch.randn((he, l_win, l_win), generator=gen, device=dev), scale)
+    with torch.inference_mode():
+        out = wa.window_attention_qkv_bias(x, w16, b_qkv, scale, badd, window, pattern, 1.0)
+        ref = wa.window_attention_qkv_bias_reference(x, w_qkv, b_qkv, scale, badd, window, pattern)
+    torch.cuda.synchronize()
+    k7e = {"out": compare("K7 out", out, ref, ATTN_TOL)}
+    del ref
+    grads = wa.window_attention_qkv_bias_bwd(x, w16, b_qkv, scale, badd, g, window, pattern, 1.0)
+    ref_g = wa.window_attention_qkv_bias_backward_reference(x, w16, b_qkv, scale, badd, g, window,
+                                                             pattern)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("dx", "dW", "db", "dscale", "dbias"), grads, ref_g):
+        k7e[name] = compare(f"K7 {name}", o, r, BWD_TOL[name])
+    again = wa.window_attention_qkv_bias_bwd(x, w16, b_qkv, scale, badd, g, window, pattern, 1.0)
+    if not all(torch.equal(a_, o) for a_, o in zip(again, grads)):
+        raise RuntimeError("window_attention_qkv_bias_bwd (e2048): two calls differ")
+    del ref_g, again
+    with torch.inference_mode():
+        k7f_ms = time_ms(lambda: wa.window_attention_qkv_bias(
+            x, w16, b_qkv, scale, badd, window, pattern, 1.0), 5)
+    k7b_ms = time_ms(lambda: wa.window_attention_qkv_bias_bwd(
+        x, w16, b_qkv, scale, badd, g, window, pattern, 1.0), 3)
+    log(f"  K7 forward {k7f_ms:.4f} ms, backward {k7b_ms:.4f} ms ({card}); two backward calls "
+        f"bit-equal")
+    k7_e2048 = {
+        "fwd": {"max_abs_err": k7e["out"], "ms": k7f_ms, "bound_ms": bound(
+            e_fwd_flops, nbytes(x, w16, b_qkv, scale, badd, out))[0]},
+        "bwd": {"max_abs_err": k7e["dx"], "ms": k7b_ms, "bound_ms": bound(
+            e_bwd_flops, nbytes(x, w16, b_qkv, scale, badd, g, *grads))[0],
+                "max_abs_err_by_output": {k: v for k, v in k7e.items() if k != "out"}}}
+    del x, g, out, grads, w_qkv, w16, b_qkv, scale, badd
+    torch.cuda.empty_cache()
+
+    x2 = torch.randn((t_tok, ce), generator=gen, device=dev).bfloat16()
+    g2 = torch.randn((t_tok, ce), generator=gen, device=dev).bfloat16()
+    w1 = (2 * torch.rand((ce, hide), generator=gen, device=dev) - 1) / math.sqrt(ce)
+    b1 = 0.02 * torch.randn((hide,), generator=gen, device=dev)
+    w2 = (2 * torch.rand((hide, ce), generator=gen, device=dev) - 1) / math.sqrt(hide)
+    b2 = 0.02 * torch.randn((ce,), generator=gen, device=dev)
+    w1_16, w2_16 = w1.bfloat16(), w2.bfloat16()
+    e_mlp_flops = 2 * t_tok * hide * (ce + ce)
+    log(f"[27] e2048 MLP: x2, g [{t_tok}, {ce}] bf16, W1 [{ce}, {hide}], W2 [{hide}, {ce}]; K5 "
+        f"instance {mk.mlp_fwd_variant(ce, ce)} (fc1 recomputed {-(-ce // 768)} times)")
+    with torch.inference_mode():
+        out = mk.mlp_fwd(x2, w1_16, b1, w2_16, b2)
+        ref = mk.mlp_fwd_reference(x2, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    err = compare("K5 out", out, ref, MLP2_TOL)
+    del ref
+    with torch.inference_mode():
+        k_ms = time_ms(lambda: mk.mlp_fwd(x2, w1_16, b1, w2_16, b2), 5)
+        p_ms = time_ms(lambda: mk.mlp_fwd_reference(x2, w1, b1, w2, b2), 2)
+    results["mlp_fwd_e2048"] = (err, k_ms, p_ms, bound(e_mlp_flops,
+                                                       nbytes(x2, w1_16, b1, w2_16, b2, out)))
+    log(f"  K5 {k_ms:.4f} ms ({e_mlp_flops / k_ms / 1e9:.1f} TFLOP/s of the minimal work), plain "
+        f"{p_ms:.4f} ms ({card})")
+    del out
+    with torch.inference_mode():
+        out = mk.mlp_bwd(x2, w1_16, b1, w2_16, g2)
+        ref = mk.mlp_bwd_reference(x2, w1, b1, w2, g2)
+    torch.cuda.synchronize()
+    err = max(compare("K6 a", out[0], ref[0], MLP_TOL), compare("K6 dpre", out[1], ref[1], MLP_TOL))
+    del ref
+    with torch.inference_mode():
+        k_ms = time_ms(lambda: mk.mlp_bwd(x2, w1_16, b1, w2_16, g2), 5)
+        p_ms = time_ms(lambda: mk.mlp_bwd_reference(x2, w1, b1, w2, g2), 2)
+    results["mlp_bwd_e2048"] = (err, k_ms, p_ms, bound(e_mlp_flops,
+                                                       nbytes(x2, w1_16, b1, w2_16, g2, *out)))
+    log(f"  K6 {k_ms:.4f} ms ({e_mlp_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms ({card})")
+    del x2, g2, w1, b1, w2, b2, w1_16, w2_16, out
+    torch.cuda.empty_cache()
+
+    # ---- 28-29. the e2048 family: serving at full size, training at [360, 720] -
+    e2048_kernels = ("window_attention_qkv", "window_attention_qkv_bwd", "mlp_fwd", "mlp_bwd")
+    serve_e2048 = serve_path("[28]", {}, 2, {"window_attention_qkv": 24, "mlp_fwd": 24},
+                             config=CONFIG_E2048, weights_on=dev)
+    launches_e2048, _ = train_path("[29]", CONFIG_E2048, 2, {k: 24 for k in e2048_kernels},
+                                   n_timed=2, overrides=E2048_TRAIN, weights_on=dev)
+
+    # ---- 30. K10, the v6 padded-head kernels, at the flagship shape ------------
+    hd = c // heads
+    x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    w_qkv = (2 * torch.rand((c, 3 * c), generator=gen, device=dev) - 1) / math.sqrt(c)
+    b_qkv = 0.02 * torch.randn((3 * c,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    wp, bp = wa.pad_heads_w(w_qkv, heads), wa.pad_heads_vec(b_qkv, heads)
+    wp16 = wp.bfloat16()
+    g = torch.randn((b, gh, gw, heads * wa.HD_PAD), generator=gen, device=dev).bfloat16()
+    log(f"[30] K10 window_attention_qkv_padded(_bwd): x {tuple(x.shape)} bf16, Wp {tuple(wp.shape)} "
+        f"bf16, {heads} heads of {hd} padded to {wa.HD_PAD}, g {tuple(g.shape)} (pad lanes random), "
+        f"shifted")
+    with torch.inference_mode():
+        out = wa.window_attention_qkv_padded(x, wp16, bp, scale, hd, window, pattern, 1.0)
+        ref = wa.window_attention_qkv_padded_reference(x, wp, bp, scale, hd, window, pattern)
+    torch.cuda.synchronize()
+    if torch.count_nonzero(out.reshape(b, gh, gw, heads, wa.HD_PAD)[..., hd:]).item():
+        raise RuntimeError("window_attention_qkv_padded: pad lanes are not zero")
+    k10 = {"out": compare("out", out, ref, ATTN_TOL)}
+    del ref
+    grads = wa.window_attention_qkv_padded_bwd(x, wp16, bp, scale, hd, g, window, pattern, 1.0)
+    ref_g = wa.window_attention_qkv_padded_backward_reference(x, wp16, bp, scale, hd, g, window,
+                                                              pattern)
+    torch.cuda.synchronize()
+    if (torch.count_nonzero(grads[1].reshape(c, 3, heads, wa.HD_PAD)[..., hd:]).item()
+            or torch.count_nonzero(grads[2].reshape(3, heads, wa.HD_PAD)[..., hd:]).item()):
+        raise RuntimeError("window_attention_qkv_padded_bwd: pad columns of dWp / dbp not zero")
+    for name, o, r in zip(("dx", "dW", "db", "dscale"), grads, ref_g):
+        k10[name] = compare(name, o, r, BWD_TOL[name])
+    again = wa.window_attention_qkv_padded_bwd(x, wp16, bp, scale, hd, g, window, pattern, 1.0)
+    if not all(torch.equal(a_, o) for a_, o in zip(again, grads)):
+        raise RuntimeError("window_attention_qkv_padded_bwd: two calls differ")
+    del ref_g, again
+    with torch.inference_mode():
+        f_ms = time_ms(lambda: wa.window_attention_qkv_padded(
+            x, wp16, bp, scale, hd, window, pattern, 1.0), 20)
+        fp_ms = time_ms(lambda: wa.window_attention_qkv_padded_reference(
+            x, wp, bp, scale, hd, window, pattern), 5)
+    b_ms = time_ms(lambda: wa.window_attention_qkv_padded_bwd(
+        x, wp16, bp, scale, hd, g, window, pattern, 1.0), 10)
+    bp_ms = time_ms(lambda: wa.window_attention_qkv_padded_backward_reference(
+        x, wp16, bp, scale, hd, g, window, pattern), 3)
+    log(f"  forward kernel {f_ms:.4f} ms (K1 {attn_ms:.4f} ms in phase 3), plain {fp_ms:.4f} ms; "
+        f"backward kernel {b_ms:.4f} ms (K2 {bwd_ms:.4f} ms in phase 7), plain {bp_ms:.4f} ms "
+        f"({card}); pad lanes and pad columns exactly zero; two backward calls bit-equal")
+    # K1's and K2's live arithmetic; out and g are read or written padded
+    results["window_attention_qkv_padded"] = (k10["out"], f_ms, fp_ms, bound(
+        2 * t_tok * c * 3 * c + attn_flops, nbytes(x, wp16, bp, scale, out)))
+    results["window_attention_qkv_padded_bwd"] = (k10["dx"], b_ms, bp_ms, bound(
+        3 * 2 * t_tok * c * 3 * c + 5 * attn_flops / 2, nbytes(x, wp16, bp, scale, g, *grads)),
+        {k: v for k, v in k10.items() if k != "out"})
+    del x, g, out, grads, w_qkv, b_qkv, scale, wp, bp, wp16
+    torch.cuda.empty_cache()
+
+    # ---- 31. the flagship on v6 (QKV_IMPL = 'v6') -------------------------------
+    wa.QKV_IMPL = "v6"
+    serve_v6 = serve_path("[31]", {}, N_STEPS, {"window_attention_qkv_padded": depth,
+                                                "fc1_gelu": depth})
+    launches_v6, v6_ms = train_path(
+        "[31]", CONFIG, 3, {"window_attention_qkv_padded": depth,
+                            "window_attention_qkv_padded_bwd": depth, "fc1_gelu": depth,
+                            "fc1_dpre": depth})
+    wa.QKV_IMPL = "v3"
+    log(f"[31] v6 {v6_ms:.2f} ms/step against the v3 flagship step {train_step_ms:.2f} ms/step of "
+        f"phase 10 ({card})")
+
+    # ---- 32. the xla backward (QKV_BWD_IMPL = 'xla') ----------------------------
+    wa.QKV_BWD_IMPL = "xla"
+    launches_xla_bwd, xla_bwd_ms = train_path(
+        "[32]", CONFIG, 3, {"window_attention_qkv": depth, "window_attention_grid_bwd": depth,
+                            "fc1_gelu": depth, "fc1_dpre": depth})
+    launches_xla_bwd_cpb, _ = train_path(
+        "[32]", CONFIG, 2, {"window_attention_qkv_bias": depth,
+                            "window_attention_grid_bias_bwd": depth, "fc1_gelu": depth,
+                            "fc1_dpre": depth},
+        n_timed=2, overrides=CPB)
+    wa.QKV_BWD_IMPL = "pallas"
+    log(f"[32] xla backward {xla_bwd_ms:.2f} ms/step against the fused backward's "
+        f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": (cpb_serve_launches, N_STEPS),
@@ -1012,7 +1262,10 @@ def main() -> None:
                "serve_grid": (serve_grid, N_STEPS), "train_grid": (launches_grid, 3),
                "train_grid_cpb": (launches_grid_cpb, 2), "serve_v1": (serve_v1, N_STEPS),
                "train_v1": (launches_v1, 3), "train_v1_cpb": (launches_v1_cpb, 2),
-               "serve_xla": (serve_xla, 1)}
+               "serve_xla": (serve_xla, 1), "serve_e2048": (serve_e2048, 2),
+               "train_e2048": (launches_e2048, 2), "serve_v6": (serve_v6, N_STEPS),
+               "train_v6": (launches_v6, 3), "train_xla_bwd": (launches_xla_bwd, 3),
+               "train_xla_bwd_cpb": (launches_xla_bwd_cpb, 2)}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),
@@ -1043,16 +1296,31 @@ def main() -> None:
                                      "train_v1_cpb"),
         "window_attention_v1_bias_bwd": ("window_attention_v1.cu", "window_attention.py:292",
                                          "train_v1_cpb"),
+        "window_attention_qkv_padded": ("window_attention_qkv.cu", "window_attention.py:1999",
+                                        "train_v6"),
+        "window_attention_qkv_padded_bwd": ("window_attention_qkv_bwd.cu",
+                                            "window_attention.py:2174", "train_v6"),
+        # the same wrappers at the e2048 shapes (the large-head variant and K5's
+        # wide instance), counted on the e2048 train step
+        "window_attention_qkv_e2048": ("window_attention_qkv_large.cu",
+                                       "window_attention.py:1142", "train_e2048"),
+        "window_attention_qkv_bwd_e2048": ("window_attention_qkv_large.cu",
+                                           "window_attention.py:1397", "train_e2048"),
+        "mlp_fwd_e2048": ("mlp.cu", "mlp_kernels.py:295", "train_e2048"),
+        "mlp_bwd_e2048": ("mlp.cu", "mlp_kernels.py:317", "train_e2048"),
     }
     kernels = []
     for name, (src, replaces, main_path) in sources.items():
         err, k_ms, p_ms, (b_ms, b_by) = results[name][:4]
+        # the _e2048 entries: the same wrappers, counted on the e2048 paths only
+        counter = name.removesuffix("_e2048")
+        paths = {p: v for p, v in by_path.items() if p.endswith("e2048") or counter == name}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"swin_v2_weather_torch/ops/csrc/{src}",
             "replaces": f"swin_v2_weather_tpu/ops/{replaces}",
-            "launches": by_path[main_path][0][name],
+            "launches": by_path[main_path][0][counter],
             "max_abs_err": err,
             "ms": k_ms,
             "plain_ms": p_ms,
@@ -1060,8 +1328,8 @@ def main() -> None:
             "bound_by": b_by,
             "library_ms": library.get(name),
             "main_path": main_path,
-            "launches_by_path": {path: lc.get(name, 0) for path, (lc, _) in by_path.items()},
-            "launches_per_step": {path: lc.get(name, 0) / n for path, (lc, n) in by_path.items()},
+            "launches_by_path": {path: lc.get(counter, 0) for path, (lc, _) in paths.items()},
+            "launches_per_step": {path: lc.get(counter, 0) / n for path, (lc, n) in paths.items()},
         })
     kernels[1]["max_abs_err_by_output"] = bwd_errs
     kernels[7]["max_abs_err_by_output"] = {k: v for k, v in k7_errs.items() if k != "out"}
@@ -1071,6 +1339,8 @@ def main() -> None:
     for entry in kernels[10:]:
         if len(results[entry["name"]]) > 4:
             entry["max_abs_err_by_output"] = results[entry["name"]][4]
+    kernels[6]["e2048"] = k7_e2048["fwd"]  # K7's e2048 case (phase 27)
+    kernels[7]["e2048"] = k7_e2048["bwd"]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -76,12 +76,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from swin_v2_weather_torch.ops import ln_kernels
+from swin_v2_weather_torch.ops import window_attention as _wa
 from swin_v2_weather_torch.ops.mlp_kernels import fused_fc1_gelu, fused_mlp
 from swin_v2_weather_torch.ops.window_attention import (
     fold_cpb_bias,
     fused_window_attention,
     fused_window_attention_grid,
     fused_window_attention_qkv,
+    fused_window_attention_qkv_padded,
+    pad_proj_rows,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -373,7 +376,18 @@ class WindowAttention(nn.Module):
         routes); ``mask`` [nW, L, L]: the full shift mask (``'xla'``)."""
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
         if self.attn_impl == "pallas_qkv":
+            if self.meta_mlp is None and _wa.qkv_impl() == "v6":
+                # the padded-head route (K10): [B, H, W, heads * 128] with exact
+                # zeros in the pad lanes, absorbed by the proj weight's zero
+                # rows (dense()'s rounding on the padded weight, as JAX does)
+                out = fused_window_attention_qkv_padded(
+                    x, self.qkv.weight.t().to(self.dtype), self.qkv.bias, scale,
+                    self.window_size, mask_pattern=mask_pattern, boundary_flag=boundary_flag)
+                w_proj = pad_proj_rows(self.proj.weight.t(), self.num_heads).t()
+                return (F.linear(out.to(self.dtype), w_proj.to(self.dtype))
+                        + self.proj.bias.to(self.dtype))
             # the CPB term rides K7's route; without it the call is K1/K2's
+            # (QKV_IMPL 'v3'; 'v4'/'v5' raise there)
             cpb = {} if self.meta_mlp is None else dict(
                 bias=self.cpb_bias(scale, cpb_noise), bias_prefolded=True)
             out = fused_window_attention_qkv(

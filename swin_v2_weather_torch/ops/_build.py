@@ -69,6 +69,21 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
         _vp, _int, _int, _int, _int, _int, _int, _int, _int, _int, _int, _vp,
     ],
+    # K1/K7 large-head variant: (x, w, b, scale, bias, mask, boundary_flag, out,
+    #  qkv, inv, B, H, W, C_in, C, heads, wh, ww, stream); bias null for K1
+    "swin_window_attention_qkv_large_fwd": [_vp] * 6 + [_f32] + [_vp] * 3 + [_int] * 8 + [_vp],
+    # K2/K7 large-head variant: (x, w, b, scale, bias, mask, boundary_flag, g,
+    #  qkv, inv, rstat, dqkv, dw_part, db_part, dscale_part, dbias_part, dx, dw,
+    #  db, dscale, dbias, B, H, W, C_in, C, heads, wh, ww, dw_splits,
+    #  db_splits, stream)
+    "swin_window_attention_qkv_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 14 + [_int] * 10 + [_vp],
+    # K10: (x, wp, bp, scale, mask, boundary_flag, out, B, H, W, C_in, heads, hd,
+    #  wh, ww, stream)
+    "swin_window_attention_qkv_padded_fwd": [_vp] * 5 + [_f32, _vp] + [_int] * 8 + [_vp],
+    # (x, wp, bp, scale, mask, boundary_flag, g, dqkv, dw_part, db_part,
+    #  dscale_part, dx, dwp, dbp, dscale, B, H, W, C_in, heads, hd, wh, ww,
+    #  dw_splits, db_splits, stream)
+    "swin_window_attention_qkv_padded_bwd": [_vp] * 5 + [_f32] + [_vp] * 9 + [_int] * 10 + [_vp],
     # K8: (q, k, v, scale, bias, mask, boundary_flag, out, B, H, W, C, heads,
     #  wh, ww, ldq, ldk, ldv, stream); bias null for the bias-free instance
     "swin_window_attention_grid_fwd": [_vp] * 6 + [_f32, _vp] + [_int] * 10 + [_vp],
@@ -84,6 +99,10 @@ _SIGNATURES = {
     "swin_ln_dp_add_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     # (z, g, gamma, m, dz, part, dgamma, dbeta, T, C, n_blocks, stream)
     "swin_ln_dp_add_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    # K11 above 2048 channels: the forward as swin_ln_dp_add_fwd; the backward
+    # (z, g, gamma, m, dz, stats, part, dgamma, dbeta, T, C, n_blocks, stream)
+    "swin_ln_dp_add_wide_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
+    "swin_ln_dp_add_wide_bwd": [_vp] * 9 + [_int, _int, _int, _vp],
 }
 
 

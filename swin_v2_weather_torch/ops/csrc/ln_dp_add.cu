@@ -30,9 +30,22 @@
 // the build, the ctypes binding and the fixed-order reduction pattern of the
 // other kernels are reused as they are.)
 //
+// Rows wider than 2048 channels (16 chunks of 128: 64 values a lane per
+// operand) do not fit in registers; the WIDE entry points take them. One warp
+// per row as before, but the row is streamed from device memory once per
+// pass instead of held (the forward reads z three times and x once, the
+// backward z and g four times; a row is at most a few KB, so the rereads hit
+// L1/L2): the mean, then the centred squares, then the output. The per-lane
+// sums run in the same channel order as the register form, so the statistics
+// are the same bits. The backward writes each row's (mean, rstd) to a [T, 2]
+// workspace, and dgamma / dbeta come from a column kernel that recomputes
+// hhat and sums g m hhat and g m over each block's rows into the same [n_blocks,
+// 2, C] partials, then ln_dp_add_reduce_kernel as before.
+//
 // Contract (checked by the Python wrapper): z, x, g, out, dz [T, C] bf16 and
 // row-major contiguous; gamma, beta [C] fp32; m [T] fp32 (one multiplier a
-// row); C % 128 == 0 and C <= 2048; part [n_blocks, 2, C] fp32.
+// row); C % 128 == 0 (C <= 2048 for the register entry points); part
+// [n_blocks, 2, C] fp32; stats [T, 2] fp32 (WIDE backward).
 
 #include <type_traits>
 
@@ -243,6 +256,132 @@ int launch_bwd(const void* z, const void* g, const void* gamma, const void* m, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------- rows wider than 2048 channels ---------------------------
+
+// mean and rstd of the row (two-pass, the register form's sum order)
+__device__ __forceinline__ void row_stats_wide(const bf16* row, int C, int lane, float& mean,
+                                               float& rstd) {
+  const int nch = C / 128;
+  float s = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    float v[4];
+    load_row<1>(row + ch * 128, lane, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s += v[j];
+  }
+  mean = warp_sum(s) / static_cast<float>(C);
+  float ss = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    float v[4];
+    load_row<1>(row + ch * 128, lane, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float d = v[j] - mean;
+      ss += d * d;
+    }
+  }
+  rstd = 1.0f / sqrtf(warp_sum(ss) / static_cast<float>(C) + kEps);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+    ln_dp_add_fwd_wide_kernel(const bf16* __restrict__ z, const bf16* __restrict__ x,
+                              const float* __restrict__ gamma, const float* __restrict__ beta,
+                              const float* __restrict__ m, bf16* __restrict__ out, int T, int C) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= T) return;
+  const bf16* zr = z + row * C;
+  float mean, rstd;
+  row_stats_wide(zr, C, lane, mean, rstd);
+  const float mb = __bfloat162float(__float2bfloat16(m[row]));  // m in the compute dtype
+  for (int ch = 0; ch < C / 128; ++ch) {
+    float v[4], xv[4], gv[4], bv[4];
+    load_row<1>(zr + ch * 128, lane, v);
+    load_row<1>(x + row * C + ch * 128, lane, xv);
+    load_vec<1>(gamma + ch * 128, lane, gv);
+    load_vec<1>(beta + ch * 128, lane, bv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float y = __bfloat162float(__float2bfloat16(
+          __fadd_rn(__fmul_rn(__fmul_rn(v[j] - mean, rstd), gv[j]), bv[j])));
+      const float yb = __bfloat162float(__float2bfloat16(y * mb));
+      v[j] = xv[j] + yb;
+    }
+    store_row<1>(out + row * C + ch * 128, lane, v);
+  }
+}
+
+// dz of each row (one warp a row), and the row's (mean, rstd) into stats
+__global__ void __launch_bounds__(kWarps * 32)
+    ln_dp_add_bwd_wide_kernel(const bf16* __restrict__ z, const bf16* __restrict__ g,
+                              const float* __restrict__ gamma, const float* __restrict__ m,
+                              bf16* __restrict__ dz, float* __restrict__ stats, int T, int C) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= T) return;
+  const bf16* zr = z + row * C;
+  const bf16* gr = g + row * C;
+  float mean, rstd;
+  row_stats_wide(zr, C, lane, mean, rstd);
+  const float mf = m[row];
+  const int nch = C / 128;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    float h[4], dy[4], gm[4];
+    load_row<1>(zr + ch * 128, lane, h);
+    load_row<1>(gr + ch * 128, lane, dy);
+    load_vec<1>(gamma + ch * 128, lane, gm);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float hh = (h[j] - mean) * rstd;  // hhat
+      const float dh = dy[j] * mf * gm[j];
+      s1 += dh * hh;
+      s2 += dh;
+    }
+  }
+  const float t1 = warp_sum(s1) / static_cast<float>(C);  // mean(dh * hhat)
+  const float t2 = warp_sum(s2) / static_cast<float>(C);  // mean(dh)
+  for (int ch = 0; ch < nch; ++ch) {
+    float h[4], dy[4], gm[4];
+    load_row<1>(zr + ch * 128, lane, h);
+    load_row<1>(gr + ch * 128, lane, dy);
+    load_vec<1>(gamma + ch * 128, lane, gm);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float hh = (h[j] - mean) * rstd;
+      const float dh = dy[j] * mf * gm[j];
+      dy[j] = __fmul_rn(rstd, __fsub_rn(__fsub_rn(dh, t2), __fmul_rn(hh, t1)));
+    }
+    store_row<1>(dz + row * C + ch * 128, lane, dy);
+  }
+  if (lane == 0) {
+    stats[row * 2] = mean;
+    stats[row * 2 + 1] = rstd;
+  }
+}
+
+// the block's [dgamma | dbeta] partial over its rows [r0, r1), in row order:
+// one thread a column, hhat recomputed from the row's (mean, rstd)
+__global__ void ln_dp_add_cols_wide_kernel(const bf16* __restrict__ z,
+                                           const bf16* __restrict__ g,
+                                           const float* __restrict__ m,
+                                           const float* __restrict__ stats, int T, int C,
+                                           int rows_per_block, float* __restrict__ part) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_block;
+  const long long r1 = min(static_cast<long long>(T), r0 + rows_per_block);
+  float acc_g = 0.0f, acc_b = 0.0f;
+  for (long long r = r0; r < r1; ++r) {
+    const float hh = (__bfloat162float(z[r * C + c]) - stats[r * 2]) * stats[r * 2 + 1];
+    const float dy = __bfloat162float(g[r * C + c]) * m[r];
+    acc_g += dy * hh;
+    acc_b += dy;
+  }
+  part[static_cast<size_t>(blockIdx.y) * 2 * C + c] = acc_g;
+  part[static_cast<size_t>(blockIdx.y) * 2 * C + C + c] = acc_b;
+}
+
 // calls launch(std::integral_constant<int, C / 128>) for C / 128 in 1..16
 template <class F>
 int by_width(int C, F launch) {
@@ -285,4 +424,45 @@ extern "C" int swin_ln_dp_add_bwd(const void* z, const void* g, const void* gamm
     return launch_bwd<decltype(n)::value>(z, g, gamma, m, dz, part, dgamma, dbeta, T, n_blocks,
                                           s);
   });
+}
+
+// K11 forward for rows wider than 2048 channels (C % 128 == 0): out [T, C] bf16.
+extern "C" int swin_ln_dp_add_wide_fwd(const void* z, const void* x, const void* gamma,
+                                       const void* beta, const void* m, void* out, int T, int C,
+                                       void* stream) {
+  if (T < 1 || C < 128 || C % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  ln_dp_add_fwd_wide_kernel<<<(T + kWarps - 1) / kWarps, kWarps * 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(z), static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(m), static_cast<bf16*>(out), T,
+      C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11 backward for rows wider than 2048 channels: dz [T, C] bf16, dgamma and
+// dbeta [C] fp32, through the workspaces stats [T, 2] and part [n_blocks, 2,
+// C] fp32.
+extern "C" int swin_ln_dp_add_wide_bwd(const void* z, const void* g, const void* gamma,
+                                       const void* m, void* dz, void* stats, void* part,
+                                       void* dgamma, void* dbeta, int T, int C, int n_blocks,
+                                       void* stream) {
+  if (T < 1 || C < 128 || C % 128 != 0 || n_blocks < 1 || n_blocks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ln_dp_add_bwd_wide_kernel<<<(T + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+      static_cast<const bf16*>(z), static_cast<const bf16*>(g), static_cast<const float*>(gamma),
+      static_cast<const float*>(m), static_cast<bf16*>(dz), static_cast<float*>(stats), T, C);
+  int code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  const int rows_per_block = (T + n_blocks - 1) / n_blocks;
+  ln_dp_add_cols_wide_kernel<<<dim3((C + 255) / 256, n_blocks), 256, 0, s>>>(
+      static_cast<const bf16*>(z), static_cast<const bf16*>(g), static_cast<const float*>(m),
+      static_cast<const float*>(stats), T, C, rows_per_block, static_cast<float*>(part));
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  ln_dp_add_reduce_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(part), n_blocks, C, static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,18 @@
 //   flagship shape). Each block re-reads W1 and W2 (4.7 MB each
 //   in bf16); they stay in the 50 MB L2, and that L2 traffic (about 19 GB at
 //   the flagship shape, 2025 blocks) is the price of one block per 32 rows.
+//   Rows wider than 768 columns (the e2048 family: C_in = C_out = 2048,
+//   hidden 4096) would need a [32, C_out] accumulator no block's registers
+//   hold (256 KB at 2048), and the x tile [32, C_in + 8] plus whole W2 slices
+//   [32, C_out + 8] no block's shared memory holds. The WIDE instance takes
+//   them: the output columns are tiled across blocks, 768 per block (the
+//   same accumulator layout; the last tile ragged), and x is no longer kept
+//   whole but streamed in K-slices beside each W1 slice. Each column tile
+//   recomputes fc1 for its 32 rows: ceil(C_out / 768) times the fc1 work in
+//   all (3 x at C_out = 2048, so the call does 3 x fc1 + fc2 = 2 x the
+//   minimal FLOPs), the price of keeping [T, hidden] out of device memory.
+//   The narrow layout is taken whenever it fits (C_out <= 768 and its shared
+//   memory within 227 KB); the rounding sites are the same in both.
 //   K6 is K4's tile GEMM (gemm_tile.cuh) run twice on one 128 x 128 output
 //   tile: x @ W1 first, whose epilogue writes a to memory and keeps the bf16
 //   pre-activation in shared memory, then g @ W2^T (W2 read transposed in
@@ -43,8 +55,8 @@
 // Contract (checked by the Python wrapper): x [T, C_in], W1 [C_in, hidden],
 // W2 [hidden, C_out], g and out [T, C_out], a and dpre [T, hidden], all bf16
 // row-major contiguous; b1 [hidden] and b2 [C_out] fp32; C_in % 32 == 0,
-// hidden % 128 == 0, C_out % 32 == 0 and C_out <= 768; any T >= 1 (the ragged
-// last token tile is zero-filled and masked).
+// hidden % 128 == 0, C_out % 32 == 0; any T >= 1 (the ragged last token
+// tile is zero-filled and masked).
 
 #include "gemm_tile.cuh"
 
@@ -92,20 +104,24 @@ constexpr int P_LD = HC + 4;   // fp32
 // activation chunk [TM][A_LD]; the fp32 pre-activation chunk [TM][P_LD], which
 // is also the output epilogue's scratch. Every offset is a multiple of 32
 // bytes. At C_in = C_out = 768: 49.7 + 149.0 + 8.7 + 16.9 KB = 224.3 KB.
+// WIDE: no x tile; a W1 stage also holds the x slice [TM][ks1 + 8] after the
+// W1 slice, and a W2 slice is [KS][768 + 8] (one column tile). At C_in =
+// C_out = 2048: 149.0 + 8.7 + 16.9 KB = 174.6 KB.
 struct Layout {
-  int x_ld, w2_ld, ks1, stage_elems;
+  int x_ld, w2_ld, ks1, stage_elems, xs_off;
   size_t ring_off, a_off, p_off, bytes;
 };
 
-__host__ __device__ inline Layout layout(int c_in, int c_out) {
+__host__ __device__ inline Layout layout(int c_in, int c_out, bool wide) {
   Layout l;
-  l.x_ld = c_in + 8;
-  l.w2_ld = c_out + 8;
   l.ks1 = c_in % MAX_KS1 == 0 ? MAX_KS1 : (c_in % 64 == 0 ? 64 : 32);
-  const int w1_elems = l.ks1 * W1_LD;
+  l.x_ld = wide ? l.ks1 + 8 : c_in + 8;
+  l.w2_ld = (wide ? MAX_COUT : c_out) + 8;
+  l.xs_off = l.ks1 * W1_LD;  // WIDE: the x slice's offset in a W1 stage
+  const int w1_elems = l.ks1 * W1_LD + (wide ? TM * l.x_ld : 0);
   const int w2_elems = KS * l.w2_ld;
   l.stage_elems = w1_elems > w2_elems ? w1_elems : w2_elems;
-  l.ring_off = static_cast<size_t>(TM) * l.x_ld * sizeof(bf16);
+  l.ring_off = wide ? 0 : static_cast<size_t>(TM) * l.x_ld * sizeof(bf16);
   l.a_off = l.ring_off + STAGES * static_cast<size_t>(l.stage_elems) * sizeof(bf16);
   l.p_off = l.a_off + static_cast<size_t>(TM) * A_LD * sizeof(bf16);
   l.bytes = l.p_off + static_cast<size_t>(TM) * P_LD * sizeof(float);
@@ -115,13 +131,17 @@ __host__ __device__ inline Layout layout(int c_in, int c_out) {
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 
+// WIDE: block (blockIdx.x, blockIdx.y) owns output columns [768 blockIdx.x,
+// + 768) of token rows [32 blockIdx.y, + 32); otherwise blockIdx.x is the
+// row block and the block owns all columns.
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
     mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                    const float* __restrict__ b1, const bf16* __restrict__ w2,
                    const float* __restrict__ b2, bf16* __restrict__ out, int T, int c_in,
                    int hidden, int c_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout l = layout(c_in, c_out);
+  const Layout l = layout(c_in, c_out, WIDE);
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* ring = reinterpret_cast<bf16*>(smem + l.ring_off);
   bf16* as = reinterpret_cast<bf16*>(smem + l.a_off);
@@ -129,19 +149,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int m0 = blockIdx.x * TM;
+  const int m0 = (WIDE ? blockIdx.y : blockIdx.x) * TM;
+  const int n0 = WIDE ? blockIdx.x * MAX_COUT : 0;  // first output column of the block
+  const int n_cols = WIDE ? min(MAX_COUT, c_out - n0) : c_out;
   const int ks1 = l.ks1;
   const int n_k1 = c_in / ks1;             // W1 slices per chunk, then HC / KS W2 slices
   const int per_chunk = n_k1 + HC / KS;
   const int n_slices = (hidden / HC) * per_chunk;
-  const int f_total = c_out / 16;          // output column fragments; warp owns warp + 8 j
+  const int f_total = n_cols / 16;         // output column fragments; warp owns warp + 8 j
 
-  // the x tile, zero-filled past T; it joins the first slice's copy group
-  const int xv = c_in / 8;
-  for (int idx = tid; idx < TM * xv; idx += THREADS) {
-    const int r = idx / xv, c = (idx % xv) * 8;
-    const bool ok = m0 + r < T;
-    cp_async16(xs + r * l.x_ld + c, ok ? x + static_cast<size_t>(m0 + r) * c_in + c : x, ok);
+  if constexpr (!WIDE) {
+    // the x tile, zero-filled past T; it joins the first slice's copy group
+    const int xv = c_in / 8;
+    for (int idx = tid; idx < TM * xv; idx += THREADS) {
+      const int r = idx / xv, c = (idx % xv) * 8;
+      const bool ok = m0 + r < T;
+      cp_async16(xs + r * l.x_ld + c, ok ? x + static_cast<size_t>(m0 + r) * c_in + c : x, ok);
+    }
   }
 
   auto load_slice = [&](int s) {
@@ -153,9 +177,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int row = idx / (HC / 8), c = (idx % (HC / 8)) * 8;
         cp_async16(dst + row * W1_LD + c, src + static_cast<size_t>(row) * hidden + c, true);
       }
-    } else {  // W2[chunk HC + (r - n_k1) KS : +KS, :]
-      const bf16* src = w2 + static_cast<size_t>(chunk * HC + (r - n_k1) * KS) * c_out;
-      const int cv = c_out / 8;
+      if constexpr (WIDE) {  // and x[:, r ks1 : +ks1], zero-filled past T
+        const int xv = ks1 / 8;
+        for (int idx = tid; idx < TM * xv; idx += THREADS) {
+          const int row = idx / xv, c = (idx % xv) * 8;
+          const bool ok = m0 + row < T;
+          cp_async16(dst + l.xs_off + row * l.x_ld + c,
+                     ok ? x + static_cast<size_t>(m0 + row) * c_in + r * ks1 + c : x, ok);
+        }
+      }
+    } else {  // W2[chunk HC + (r - n_k1) KS : +KS, n0 : n0 + n_cols]
+      const bf16* src = w2 + static_cast<size_t>(chunk * HC + (r - n_k1) * KS) * c_out + n0;
+      const int cv = n_cols / 8;
       for (int idx = tid; idx < KS * cv; idx += THREADS) {
         const int row = idx / cv, c = (idx % cv) * 8;
         cp_async16(dst + row * l.w2_ld + c, src + static_cast<size_t>(row) * c_out + c, true);
@@ -189,10 +222,12 @@ __global__ void __launch_bounds__(THREADS, 1)
         wmma::fill_fragment(pre[0], 0.0f);
         wmma::fill_fragment(pre[1], 0.0f);
       }
+      // the A operand: the x tile at column r ks1, or (WIDE) the stage's x slice
+      const bf16* xa = WIDE ? st + l.xs_off + pr * l.x_ld : xs + pr * l.x_ld + r * ks1;
 #pragma unroll 4
       for (int kk = 0; kk < ks1; kk += 16) {
         FragA fa;
-        wmma::load_matrix_sync(fa, xs + pr * l.x_ld + r * ks1 + kk, l.x_ld);
+        wmma::load_matrix_sync(fa, xa + kk, l.x_ld);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           FragB fb;
@@ -255,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
         __syncwarp();
         const int grow = m0 + i * 16 + rr;
-        const int gcol = f * 16 + c0;
+        const int gcol = n0 + f * 16 + c0;
         if (grow < T) {
           __align__(16) bf16 o[8];
 #pragma unroll
@@ -352,8 +387,10 @@ __global__ void __launch_bounds__(THREADS)
 
 bool valid_shape(int T, int c_in, int hidden, int c_out) {
   return T >= 1 && c_in >= BK && c_in % BK == 0 && hidden >= k5::HC && hidden % k5::HC == 0 &&
-         c_out >= BK && c_out % BK == 0 && c_out <= k5::MAX_COUT;
+         c_out >= BK && c_out % BK == 0;
 }
+
+constexpr size_t kMaxSmem = 232448;
 
 }  // namespace
 
@@ -361,14 +398,28 @@ extern "C" int swin_mlp_fwd(const void* x, const void* w1, const void* b1, const
                             const void* b2, void* out, int T, int c_in, int hidden, int c_out,
                             void* stream) {
   if (!valid_shape(T, c_in, hidden, c_out)) return static_cast<int>(cudaErrorInvalidValue);
-  const k5::Layout l = k5::layout(c_in, c_out);
-  if (l.bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(k5::mlp_fwd_kernel,
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const k5::Layout narrow = k5::layout(c_in, c_out, false);
+  const int m_blocks = (T + k5::TM - 1) / k5::TM;
+  if (c_out <= k5::MAX_COUT && narrow.bytes <= kMaxSmem) {
+    cudaError_t err = cudaFuncSetAttribute(k5::mlp_fwd_kernel<false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(narrow.bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k5::mlp_fwd_kernel<false><<<m_blocks, THREADS, narrow.bytes, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), T,
+        c_in, hidden, c_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const k5::Layout wide = k5::layout(c_in, c_out, true);
+  if (wide.bytes > kMaxSmem || m_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(k5::mlp_fwd_kernel<true>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(l.bytes));
+                                         static_cast<int>(wide.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (T + k5::TM - 1) / k5::TM;
-  k5::mlp_fwd_kernel<<<blocks, THREADS, l.bytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((c_out + k5::MAX_COUT - 1) / k5::MAX_COUT, m_blocks);
+  k5::mlp_fwd_kernel<true><<<grid, THREADS, wide.bytes, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), T,
       c_in, hidden, c_out);

@@ -1,0 +1,117 @@
+// The projection backward shared by the qkv-fused window-attention backwards
+// (K2/K7 in window_attention_qkv_bwd.cu, K10 in window_attention_qkv_padded.cu,
+// the large-head variant in window_attention_qkv_large.cu): given the bf16
+// cotangent of the projection output dqkv [T, N] (N = 3C, or 3 * heads * 128
+// for K10), compute
+//   dx = dqkv @ W^T (W [C_in, N] read transposed in place, bf16 out),
+//   dW = bf16(x)^T @ dqkv in fp32, split over token ranges into partials,
+//   db = column sums of dqkv over token ranges,
+// then one kernel that sums the dW and db partials in split order and the
+// d(scale) partials in partial order, dividing by scale, and (with the CPB
+// bias) the d(bias) partials in window order. No atomics: two calls give the
+// same bits.
+
+#pragma once
+
+#include "gemm_tile.cuh"
+#include "window_attention_common.cuh"
+
+namespace swin_qkv_proj {
+
+using swin_cuda::bf16;
+
+struct StoreBf16 {  // dx = dqkv @ W^T, rounded to bf16
+  bf16* out;
+  int ld;
+  __device__ void operator()(int row, int col, const float* v) const {
+    swin_attn::store8(out + static_cast<size_t>(row) * ld + col, v, [](int, float a) { return a; });
+  }
+};
+
+struct StoreSplitF32 {  // dW partial of token range blockIdx.z, fp32
+  float* out;
+  int ld;
+  size_t split_stride;
+  __device__ void operator()(int row, int col, const float* v) const {
+    float* dst = out + blockIdx.z * split_stride + static_cast<size_t>(row) * ld + col;
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
+// part[s, n] = sum of d[t, n] over token range s, in token order
+static __global__ void column_sums_kernel(const bf16* __restrict__ d, int T, int N,
+                                          int rows_per_split, float* __restrict__ part) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(T, r0 + rows_per_split);
+  float acc = 0.0f;
+  for (int r = r0; r < r1; ++r) acc += __bfloat162float(d[static_cast<size_t>(r) * N + n]);
+  part[static_cast<size_t>(blockIdx.y) * N + n] = acc;
+}
+
+// dW = sum of the split partials, db = sum of the column-sum partials (both in
+// split order), dscale[h] = (sum over the n_part partials, in order) / scale[h]
+static __global__ void reduce_kernel(const float* __restrict__ dw_part, int dw_splits, int n_dw,
+                                     float* __restrict__ dw, const float* __restrict__ db_part,
+                                     int db_splits, int n_db, float* __restrict__ db,
+                                     const float* __restrict__ ds_part, int n_part, int heads,
+                                     const float* __restrict__ scale,
+                                     float* __restrict__ dscale) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n_dw) {
+    float acc = 0.0f;
+    for (int s = 0; s < dw_splits; ++s) acc += dw_part[static_cast<size_t>(s) * n_dw + i];
+    dw[i] = acc;
+  } else if (i < n_dw + n_db) {
+    const int j = static_cast<int>(i - n_dw);
+    float acc = 0.0f;
+    for (int s = 0; s < db_splits; ++s) acc += db_part[static_cast<size_t>(s) * n_db + j];
+    db[j] = acc;
+  } else if (i < n_dw + n_db + heads) {
+    const int hh = static_cast<int>(i - n_dw - n_db);
+    float acc = 0.0f;
+    for (int k = 0; k < n_part; ++k) acc += ds_part[static_cast<size_t>(k) * heads + hh];
+    dscale[hh] = acc / scale[hh];
+  }
+}
+
+// Everything after the attention backward: dx, dW, db, dscale and (dbias
+// non-null) dbias. dqkv [T, N] bf16; dw_part [dw_splits, C_in, N], db_part
+// [db_splits, N] fp32; dscale_part [n_part, heads]; dbias_part [n_win, heads,
+// LP, LP] (dbias only).
+inline int projection_backward(const bf16* x, const bf16* w, const bf16* dqkv, int T, int Cin,
+                               int N, float* dw_part, float* db_part, const float* dscale_part,
+                               int n_part, int heads, const float* scale, bf16* dx, float* dw,
+                               float* db, float* dscale, const float* dbias_part, int n_win,
+                               int L, int LP, float* dbias, int dw_splits, int db_splits,
+                               cudaStream_t s) {
+  using swin_gemm::launch_gemm;
+  int code = launch_gemm<false, true>(dqkv, N, w, N, T, Cin, N, 1, StoreBf16{dx, Cin}, s);
+  if (code != 0) return code;
+  code = launch_gemm<true, false>(x, Cin, dqkv, N, Cin, N, T, dw_splits,
+                                  StoreSplitF32{dw_part, N, static_cast<size_t>(Cin) * N}, s);
+  if (code != 0) return code;
+
+  const int rows_per_split = (T + db_splits - 1) / db_splits;
+  column_sums_kernel<<<dim3((N + 127) / 128, db_splits), 128, 0, s>>>(dqkv, T, N,
+                                                                      rows_per_split, db_part);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+
+  const int n_dw = Cin * N;
+  const long long n_all = static_cast<long long>(n_dw) + N + heads;
+  reduce_kernel<<<static_cast<unsigned>((n_all + 255) / 256), 256, 0, s>>>(
+      dw_part, dw_splits, n_dw, dw, db_part, db_splits, N, db, dscale_part, n_part, heads, scale,
+      dscale);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0 || dbias == nullptr) return code;
+
+  const long long n_bias = static_cast<long long>(heads) * L * L;
+  swin_attn::dbias_reduce_kernel<<<static_cast<unsigned>((n_bias + 255) / 256), 256, 0, s>>>(
+      dbias_part, n_win, heads, L, LP, dbias);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace swin_qkv_proj

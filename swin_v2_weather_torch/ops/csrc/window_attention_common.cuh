@@ -90,8 +90,10 @@ __host__ __device__ constexpr size_t staging_bytes(int LP) {
 // qkv projection of the block's window for head t.h: q, k and v [LP, HD]
 // (row pitch HD + 8) in shared memory, bf16(acc + b); padded rows hold
 // bf16(b). xs / wsm is the staging ring (staging_bytes), cs a 16 x 16 fp32
-// scratch tile of this warp. Ends with a block-wide barrier.
-template <int HD>
+// scratch tile of this warp. Ends with a block-wide barrier. HP is the head
+// pitch of W's and b's columns: HD, or 128 for K10's padded weights (g.C is
+// then heads * 128, and only the HD live columns of each head are read).
+template <int HD, int HP = HD>
 __device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__ w,
                             const float* __restrict__ bqkv, const Geometry& g, const Tile& t,
                             bf16* qs, bf16* ks, bf16* vs, bf16* xs, bf16* wsm, float* cs) {
@@ -120,7 +122,7 @@ __device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__
       cp_async16(xd + l * LDX + c, x + pix * g.Cin + k0 + c, ok);
     }
     bf16* wd = wsm + stage * KC * LDQ;
-    const int col0 = role * g.C + t.h * HD;
+    const int col0 = role * g.C + t.h * HP;
     for (int idx = tid; idx < KC * (HD / 8); idx += nthreads) {
       const int r = idx / (HD / 8);
       const int c = (idx % (HD / 8)) * 8;
@@ -158,7 +160,7 @@ __device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__
       // role done: + b in fp32, round to bf16, stage in shared memory
       const int role = it / nkc;
       bf16* dst = role == 0 ? qs : (role == 1 ? ks : vs);
-      const float* bb = bqkv + role * g.C + t.h * HD;
+      const float* bb = bqkv + role * g.C + t.h * HP;
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
         wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);

@@ -45,6 +45,18 @@
 // window row), with the bias z = fl(s * scale[h]) + badd[h][q][k] (+ the mask);
 // e = exp(z); out = (bf16(e) @ v16 in fp32) * (1 / sum e).
 //
+// K10 (entry point swin_window_attention_qkv_padded_fwd) replaces the v6 TPU
+// kernel swin_v2_weather_tpu/ops/window_attention.py:_make_qkv6_kernel
+// (launched by _qkv6_forward, reached through fused_window_attention_qkv_padded):
+// v3's math on weights whose per-head columns are zero-padded to 128 lanes,
+// [C_in, 3 * heads * 128], writing [B, H, W, heads * 128] with the pad lanes
+// exactly zero. The TPU pads because a 96-lane head slab is misaligned in its
+// 128-lane vector registers; on this card a head dim of 96 is already a legal
+// MMA width and the pad lanes are zero in q, k, v and out, so K10 is K1's
+// instance with a head pitch HP = 128: it reads only the HD live columns of
+// each head at their padded offsets in W and b, computes K1's arithmetic on
+// them, writes the result at h * 128 and stores exact zeros in the pad lanes.
+//
 // Contract (checked by the Python wrapper): x [B, H, W, C_in] bf16, W [C_in, 3C]
 // bf16, both contiguous; b [3C] fp32; scale [heads] fp32; mask [L, L] fp32 or
 // null; bias [heads, L, L] fp32 (BIAS only); C_in % 32 == 0; head dim in {32, 64, 96, 128}; H % wh == W % ww == 0;
@@ -66,7 +78,7 @@ size_t smem_bytes(int LP) {
   return qkv + scratch + (p_buf > staging ? p_buf : staging);
 }
 
-template <int HD, bool BIAS>
+template <int HD, bool BIAS, int HP = HD>
 __global__ void __launch_bounds__(MAX_LP * 2)
     window_attention_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                                 const float* __restrict__ bqkv, const float* __restrict__ scale,
@@ -101,7 +113,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const int fc = (lane & 1) * 8;   // first of its 8 fragment columns
 
   // ---------------- phase 1: qkv projection of the window, role by role ----
-  project_qkv<HD>(x, w, bqkv, g, t, qs, ks, vs, xs, wsm, cs);
+  project_qkv<HD, HP>(x, w, bqkv, g, t, qs, ks, vs, xs, wsm, cs);
 
   // ---------------- phase 1b: L2-normalize q and k rows in place -----------
   normalize_rows<HD>(qs, nullptr);
@@ -174,24 +186,34 @@ __global__ void __launch_bounds__(MAX_LP * 2)
       __align__(16) bf16 ov[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) ov[e] = __float2bfloat16(cs[fr * 16 + fc + e] * rinv);
-      *reinterpret_cast<uint4*>(out + pix * g.C + h * HD + j * 16 + fc) =
+      *reinterpret_cast<uint4*>(out + pix * g.C + h * HP + j * 16 + fc) =
           *reinterpret_cast<const uint4*>(ov);
     }
     __syncwarp();
   }
+  if constexpr (HP > HD) {  // K10: exact zeros in the head's pad lanes
+    if (qrow < L) {
+#pragma unroll
+      for (int j = 0; j < (HP - HD) / 16; ++j) {
+        *reinterpret_cast<uint4*>(out + pix * g.C + h * HP + HD + j * 16 + fc) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
 }
 
-template <int HD, bool BIAS>
+template <int HD, bool BIAS, int HP = HD>
 int launch(const void* x, const void* w, const void* b, const void* scale, const void* bias,
            const void* mask, float bflag, void* out, const Geometry& g, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>(g.LP);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_qkv_kernel<HD, BIAS>,
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(window_attention_qkv_kernel<HD, BIAS, HP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  window_attention_qkv_kernel<HD, BIAS>
+  window_attention_qkv_kernel<HD, BIAS, HP>
       <<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, stream>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(w),
           static_cast<const float*>(b), static_cast<const float*>(scale),
@@ -242,6 +264,33 @@ extern "C" int swin_window_attention_qkv_bias_fwd(const void* x, const void* w, 
                                                   int heads, int wh, int ww, void* stream) {
   return dispatch<true>(x, w, b, scale, bias, mask, bflag, out, B, H, W, Cin, C, heads, wh, ww,
                         stream);
+}
+
+// K10: the v6 forward on head-padded weights W [C_in, 3 * heads * 128], b
+// [3 * heads * 128]; out [B, H, W, heads * 128], pad lanes zero; hd the live
+// head dim (32, 64, 96, or 128, which is K1's instance).
+extern "C" int swin_window_attention_qkv_padded_fwd(const void* x, const void* w, const void* b,
+                                                    const void* scale, const void* mask,
+                                                    float bflag, void* out, int B, int H, int W,
+                                                    int Cin, int heads, int hd, int wh, int ww,
+                                                    void* stream) {
+  Geometry g;
+  if (!make_geometry(g, B, H, W, Cin, heads * 128, heads, wh, ww)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32:
+      return launch<32, false, 128>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    case 64:
+      return launch<64, false, 128>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    case 96:
+      return launch<96, false, 128>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    case 128:
+      return launch<128, false>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* swin_cuda_error_string(int code) {

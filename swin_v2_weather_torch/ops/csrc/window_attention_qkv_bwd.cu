@@ -67,14 +67,23 @@
 // dqkv = bf16([dq | dk | dv]); dx = dqkv bf16(W)^T and dW = bf16(x)^T dqkv in
 // fp32; db = sum dqkv in fp32.
 //
+// K10's backward (entry point swin_window_attention_qkv_padded_bwd) replaces
+// the v6 TPU kernel swin_v2_weather_tpu/ops/window_attention.py:
+// _make_qkv6_bwd_kernel (launched by _qkv6_backward): K2 with a head pitch
+// HP = 128 (see window_attention_qkv.cu for why the padding costs nothing
+// here). The attention pass reads the live HD columns of each head of the
+// padded W and b, and g at its padded pitch (heads * 128; g's pad lanes are
+// not read), and writes dqkv [T, 3 * heads * 128] with exact zeros in the pad
+// lanes, so the projection backward returns dx, the padded dW with exact-zero
+// pad columns, the padded db (zero pad entries) and dscale.
+//
 // Contract (checked by the Python wrapper): x [B, H, W, C_in], g [B, H, W, C]
 // bf16; W [C_in, 3C] bf16; b [3C], scale [heads] fp32; mask [L, L] fp32 or null;
 // bias [heads, L, L] fp32 (BIAS only);
 // the workspaces as the wrapper allocates them; C_in % 32 == 0, head dim in
 // {32, 64, 96, 128}, L <= 256, and the shared memory of pass 1/2 within 227 KB.
 
-#include "gemm_tile.cuh"
-#include "window_attention_common.cuh"
+#include "qkv_projection_bwd.cuh"
 
 namespace {
 
@@ -93,7 +102,7 @@ size_t bwd_smem_bytes(int LP) {
   return mats + scratch + (rows > staging ? rows : staging) + floats;
 }
 
-template <int HD, bool BIAS>
+template <int HD, bool BIAS, int HP = HD>
 __global__ void __launch_bounds__(MAX_LP * 2)
     attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                          const float* __restrict__ bqkv, const float* __restrict__ scale,
@@ -144,11 +153,11 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     const int c = (idx % (HD / 8)) * 8;
     const bool ok = l < L;
     const size_t pix = ok ? pixel_of(geo, t, l) : 0;
-    cp_async16(gs + l * LDQ + c, gout + pix * geo.C + h * HD + c, ok);
+    cp_async16(gs + l * LDQ + c, gout + pix * geo.C + h * HP + c, ok);
   }
   cp_async_commit();
 
-  project_qkv<HD>(x, w, bqkv, geo, t, qs, ks, vs, xs, wsm, cs);  // waits for g too
+  project_qkv<HD, HP>(x, w, bqkv, geo, t, qs, ks, vs, xs, wsm, cs);  // waits for g too
   normalize_rows<HD>(qs, inv_q);
   normalize_rows<HD>(ks, inv_k);
   __syncthreads();
@@ -273,7 +282,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
       __syncwarp();
       if (qrow < L) {
         const bf16* qn = qs + qrow * LDQ + j * 16 + fc;
-        store8(dqkv + pix * C3 + h * HD + j * 16 + fc, cs + fr * 16 + fc,
+        store8(dqkv + pix * C3 + h * HP + j * 16 + fc, cs + fr * 16 + fc,
                [&](int e, float dqn) { return (dqn - __bfloat162float(qn[e]) * qd) * iq; });
       }
       __syncwarp();
@@ -326,7 +335,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
     __syncwarp();
     if (krow < L) {
-      store8(dqkv + kpix * C3 + 2 * geo.C + h * HD + j * 16 + fc, cs + fr * 16 + fc,
+      store8(dqkv + kpix * C3 + 2 * geo.C + h * HP + j * 16 + fc, cs + fr * 16 + fc,
              [](int, float dv) { return dv; });
     }
     __syncwarp();
@@ -381,86 +390,41 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     __syncwarp();
     if (krow < L) {
       const bf16* kn = ks + krow * LDQ + j * 16 + fc;
-      store8(dqkv + kpix * C3 + geo.C + h * HD + j * 16 + fc, cs + fr * 16 + fc,
+      store8(dqkv + kpix * C3 + geo.C + h * HP + j * 16 + fc, cs + fr * 16 + fc,
              [&](int e, float dkn) { return (dkn - __bfloat162float(kn[e]) * kd) * ik; });
     }
     __syncwarp();
   }
-}
-
-// ---------------- projection backward: GEMM epilogues -------------------------
-
-struct StoreBf16 {  // dx = dqkv @ W^T, rounded to bf16
-  bf16* out;
-  int ld;
-  __device__ void operator()(int row, int col, const float* v) const {
-    store8(out + static_cast<size_t>(row) * ld + col, v, [](int, float a) { return a; });
-  }
-};
-
-struct StoreSplitF32 {  // dW partial of token range blockIdx.z, fp32
-  float* out;
-  int ld;
-  size_t split_stride;
-  __device__ void operator()(int row, int col, const float* v) const {
-    float* dst = out + blockIdx.z * split_stride + static_cast<size_t>(row) * ld + col;
-    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
-
-// part[s, n] = sum of d[t, n] over token range s, in token order
-__global__ void column_sums_kernel(const bf16* __restrict__ d, int T, int N, int rows_per_split,
-                                   float* __restrict__ part) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(T, r0 + rows_per_split);
-  float acc = 0.0f;
-  for (int r = r0; r < r1; ++r) acc += __bfloat162float(d[static_cast<size_t>(r) * N + n]);
-  part[static_cast<size_t>(blockIdx.y) * N + n] = acc;
-}
-
-// dW = sum of the split partials, db = sum of the column-sum partials (both in
-// split order), dscale[h] = (sum over windows of the partials, in window
-// order) / scale[h]
-__global__ void reduce_kernel(const float* __restrict__ dw_part, int dw_splits, int n_dw,
-                              float* __restrict__ dw, const float* __restrict__ db_part,
-                              int db_splits, int n_db, float* __restrict__ db,
-                              const float* __restrict__ ds_part, int n_win, int heads,
-                              const float* __restrict__ scale, float* __restrict__ dscale) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n_dw) {
-    float acc = 0.0f;
-    for (int s = 0; s < dw_splits; ++s) acc += dw_part[static_cast<size_t>(s) * n_dw + i];
-    dw[i] = acc;
-  } else if (i < n_dw + n_db) {
-    const int j = static_cast<int>(i - n_dw);
-    float acc = 0.0f;
-    for (int s = 0; s < db_splits; ++s) acc += db_part[static_cast<size_t>(s) * n_db + j];
-    db[j] = acc;
-  } else if (i < n_dw + n_db + heads) {
-    const int hh = static_cast<int>(i - n_dw - n_db);
-    float acc = 0.0f;
-    for (int k = 0; k < n_win; ++k) acc += ds_part[static_cast<size_t>(k) * heads + hh];
-    dscale[hh] = acc / scale[hh];
+  if constexpr (HP > HD) {  // K10: exact zeros in the pad lanes of dq, dk, dv
+    const int prow = warp * 16 + fr;  // query rows (pass 1) and key rows (pass 2) coincide
+    if (prow < L) {
+      const size_t ppix = pixel_of(geo, t, prow);
+#pragma unroll
+      for (int role = 0; role < 3; ++role) {
+#pragma unroll
+        for (int j = 0; j < (HP - HD) / 16; ++j) {
+          *reinterpret_cast<uint4*>(dqkv + ppix * C3 + role * geo.C + h * HP + HD + j * 16 + fc) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
   }
 }
 
-template <int HD, bool BIAS>
+template <int HD, bool BIAS, int HP = HD>
 int launch_attention_bwd(const void* x, const void* w, const void* b, const void* scale,
                          const void* bias, const void* mask, float bflag, const void* g,
                          void* dqkv, void* dscale_part, void* dbias_part, const Geometry& geo,
                          cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes<HD>(geo.LP);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD, BIAS>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD, BIAS, HP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  attention_bwd_kernel<HD, BIAS>
+  attention_bwd_kernel<HD, BIAS, HP>
       <<<static_cast<unsigned>(blocks), (geo.LP / 16) * 32, smem, stream>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(w),
           static_cast<const float*>(b), static_cast<const float*>(scale),
@@ -506,40 +470,58 @@ int backward(const void* x, const void* w, const void* b, const void* scale, con
       code = static_cast<int>(cudaErrorInvalidValue);
   }
   if (code != 0) return code;
-
-  using swin_gemm::launch_gemm;
-  const int T = B * H * W;
-  const int C3 = 3 * C;
-  const bf16* d = static_cast<const bf16*>(dqkv);
-  code = launch_gemm<false, true>(d, C3, static_cast<const bf16*>(w), C3, T, Cin, C3, 1,
-                                  StoreBf16{static_cast<bf16*>(dx), Cin}, s);
-  if (code != 0) return code;
-  code = launch_gemm<true, false>(
-      static_cast<const bf16*>(x), Cin, d, C3, Cin, C3, T, dw_splits,
-      StoreSplitF32{static_cast<float*>(dw_part), C3, static_cast<size_t>(Cin) * C3}, s);
-  if (code != 0) return code;
-
-  const int rows_per_split = (T + db_splits - 1) / db_splits;
-  column_sums_kernel<<<dim3((C3 + 127) / 128, db_splits), 128, 0, s>>>(
-      d, T, C3, rows_per_split, static_cast<float*>(db_part));
-  code = static_cast<int>(cudaGetLastError());
-  if (code != 0) return code;
-
-  const int n_dw = Cin * C3;
-  const long long n_all = static_cast<long long>(n_dw) + C3 + heads;
-  reduce_kernel<<<static_cast<unsigned>((n_all + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(dw_part), dw_splits, n_dw, static_cast<float*>(dw),
-      static_cast<const float*>(db_part), db_splits, C3, static_cast<float*>(db),
+  return swin_qkv_proj::projection_backward(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
+      B * H * W, Cin, 3 * C, static_cast<float*>(dw_part), static_cast<float*>(db_part),
       static_cast<const float*>(dscale_part), B * geo.nwh * geo.nww, heads,
-      static_cast<const float*>(scale), static_cast<float*>(dscale));
-  code = static_cast<int>(cudaGetLastError());
-  if (code != 0 || !BIAS) return code;
+      static_cast<const float*>(scale), static_cast<bf16*>(dx), static_cast<float*>(dw),
+      static_cast<float*>(db), static_cast<float*>(dscale),
+      static_cast<const float*>(dbias_part), B * geo.nwh * geo.nww, geo.L, geo.LP,
+      BIAS ? static_cast<float*>(dbias) : nullptr, dw_splits, db_splits, s);
+}
 
-  const long long n_bias = static_cast<long long>(heads) * geo.L * geo.L;
-  dbias_reduce_kernel<<<static_cast<unsigned>((n_bias + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(dbias_part), B * geo.nwh * geo.nww, heads, geo.L, geo.LP,
-      static_cast<float*>(dbias));
-  return static_cast<int>(cudaGetLastError());
+// K10's backward: the attention pass at head pitch 128, then the projection
+// backward over the padded columns.
+int backward_padded(const void* x, const void* w, const void* b, const void* scale,
+                    const void* mask, float bflag, const void* g, void* dqkv, void* dw_part,
+                    void* db_part, void* dscale_part, void* dx, void* dw, void* db, void* dscale,
+                    int B, int H, int W, int Cin, int heads, int hd, int wh, int ww, int dw_splits,
+                    int db_splits, void* stream) {
+  Geometry geo;
+  const int C = heads * 128;
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int code;
+  switch (hd) {
+    case 32:
+      code = launch_attention_bwd<32, false, 128>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
+                                                  dscale_part, nullptr, geo, s);
+      break;
+    case 64:
+      code = launch_attention_bwd<64, false, 128>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
+                                                  dscale_part, nullptr, geo, s);
+      break;
+    case 96:
+      code = launch_attention_bwd<96, false, 128>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
+                                                  dscale_part, nullptr, geo, s);
+      break;
+    case 128:
+      code = launch_attention_bwd<128, false>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
+                                              dscale_part, nullptr, geo, s);
+      break;
+    default:
+      code = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (code != 0) return code;
+  return swin_qkv_proj::projection_backward(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
+      B * H * W, Cin, 3 * C, static_cast<float*>(dw_part), static_cast<float*>(db_part),
+      static_cast<const float*>(dscale_part), B * geo.nwh * geo.nww, heads,
+      static_cast<const float*>(scale), static_cast<bf16*>(dx), static_cast<float*>(dw),
+      static_cast<float*>(db), static_cast<float*>(dscale), nullptr, 0, geo.L, geo.LP, nullptr,
+      dw_splits, db_splits, s);
 }
 
 }  // namespace
@@ -570,4 +552,18 @@ extern "C" int swin_window_attention_qkv_bias_bwd(
   return backward<true>(x, w, b, scale, bias, mask, bflag, g, dqkv, dw_part, db_part,
                         dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W, Cin, C,
                         heads, wh, ww, dw_splits, db_splits, stream);
+}
+
+// K10's backward. As K2 with head-padded W [C_in, 3 * heads * 128] and b, g
+// [B, H, W, heads * 128], dqkv [B, H, W, 3 * heads * 128], dw_part
+// [dw_splits, C_in, 3 * heads * 128], db_part [db_splits, 3 * heads * 128];
+// outputs dx, the padded dw and db (zero in the pad columns) and dscale.
+extern "C" int swin_window_attention_qkv_padded_bwd(
+    const void* x, const void* w, const void* b, const void* scale, const void* mask, float bflag,
+    const void* g, void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dx,
+    void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int heads, int hd, int wh,
+    int ww, int dw_splits, int db_splits, void* stream) {
+  return backward_padded(x, w, b, scale, mask, bflag, g, dqkv, dw_part, db_part, dscale_part, dx,
+                         dw, db, dscale, B, H, W, Cin, heads, hd, wh, ww, dw_splits, db_splits,
+                         stream);
 }

@@ -1,0 +1,874 @@
+// The qkv-fused scaled-cosine window attention at large head dims (128 in the
+// backward, 256 in both directions), forward and backward, hand-written for
+// Hopper (sm_90a): the large-head variant of K1/K2 (and of K7, their CPB-bias
+// instances).
+//
+// Replaces the same TPU kernels as window_attention_qkv.cu and
+// window_attention_qkv_bwd.cu (swin_v2_weather_tpu/ops/window_attention.py:
+// _make_qkv_kernel / _qkv_forward and _make_qkv_bwd_kernel / _qkv_backward,
+// with has_bias through _build_qkv_bias) where their one-block-per-(window,
+// head) layout does not fit: it keeps q, k, v (and g) [LP, HD] in shared
+// memory at once, which at L = 162 (LP = 176) needs 354,816 B forward and
+// 450,624 B backward at head dim 256 (the e2048 family: embed 2048, 8 heads)
+// and 270,400 B backward at head dim 128, against the 232,448 B a block may
+// use. The wrappers pick this variant exactly where the smaller one does not
+// fit (ops/window_attention.py, qkv_variant).
+//
+// What bounds it on this card: at the e2048 shape (x [1, 180, 360, 2048] bf16,
+// W [2048, 6144], 8 heads of 256, L = 162) the projection is 1.63 TFLOP and
+// the two [162, 162, 256] products per (window, head) 0.09 TFLOP: tensor-core
+// work, 1.74 ms at 989 TFLOP/s; the backward adds dx and dW (two more
+// projection-sized GEMMs) and five score-sized products, 5.16 ms.
+//
+// Design: the fused projection is split off. Each call runs
+//  1. the projection as a tiled GEMM (gemm_tile.cuh) whose epilogue writes
+//     qkv = bf16(fp32 acc + b) [T, 3C] to a device scratch buffer (the only
+//     rounding of the projection, K1's site);
+//  2. a per-(token, head) kernel that L2-normalizes q and k in place, qn16 =
+//     bf16(q * inv) with inv = 1 / sqrt(max(sum q^2, 1e-24)) in fp32, summed
+//     as K1's normalize_rows sums, and stores inv for the backward;
+//  3. the attention from that buffer, one block per (window, head) with
+//     LP / 16 warps of 16 query rows for the forward: q [LP, HD] in shared
+//     memory, the keys streamed in 16-row tiles through a two-stage cp.async
+//     ring; each warp turns its 16 x 16 score tile into e = exp(z) (K1's
+//     max-free softmax) in registers, keeps the row sums and stores bf16(e)
+//     in its [16, LP] row buffer; then v replaces q in shared memory and
+//     out = (bf16(e) @ v16) * (1 / sum e) is formed in 128-wide chunks of the
+//     head dim, so a warp holds 8 accumulator fragments (64 registers), not
+//     16. 185,856 B of shared memory at HD = 256, L = 162.
+// The backward runs 1-2, then two attention kernels on blocks of 4 warps
+// (64 rows), FlashAttention-2 style as K2 splits its passes, with the keys
+// (or queries) streamed through the ring: the rows kernel, one block per
+// (window, head, 64 query rows), sweeps the key tiles for r = 1 / sum e and
+// u = sum(dp e) (stored for the columns kernel), again for ds = (dp - u r) e
+// (r scale) into its bf16 row buffer (and, with the bias, ds / scale into the
+// block's fp32 d(bias) slice), then dqn = ds @ kn16 chunk by chunk into an
+// fp32 [16, HD] staging tile per warp, and finishes dq = (dqn - qn16 qd) inv_q
+// with qd = <qn16, dqn>, plus its d(scale) partial; the columns kernel, one
+// block per (window, head, 64 key rows), sweeps the query tiles once for the
+// transposed tiles p16^T = bf16(e r)^T and ds^T, then forms dv = p16^T @ g16
+// and dkn = ds^T @ qn16 chunk by chunk and dk = (dkn - kn16 kd) inv_k. The
+// projection backward is K2's (qkv_projection_bwd.cuh). 194,624 and 218,112 B
+// of shared memory at HD = 256, L = 162.
+// The cost of the split: the [T, 3C] qkv buffer goes to device memory and
+// back (796 MB each way at the full e2048 image, 0.24 ms each at 3.35 TB/s),
+// and the score tiles are recomputed per sweep (cheap beside the projection).
+// wgmma/TMA come later; this is the simple, correct version.
+//
+// Rounding sites: K1's and K2's (window_attention_qkv.cu,
+// window_attention_qkv_bwd.cu); only the order of some fp32 sums differs
+// (the projection's GEMM tiles, qd summed per lane pair, the d(scale)
+// partials per 64 rows). dW, db, dscale and d(bias) are summed in a fixed
+// order, with no atomics.
+//
+// Contract (checked by the Python wrapper): K1's, with head dim 128 or 256,
+// and the shared memory of each kernel within 232,448 B; the scratch buffers
+// as the wrapper allocates them.
+
+#include "qkv_projection_bwd.cuh"
+
+namespace {
+
+using namespace swin_attn;
+
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may opt into
+constexpr int DC = 128;           // head-dim chunk of the p @ v, dq, dk and dv products
+constexpr int RW = 4;             // warps (16-row tiles) per backward block
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+
+// ---------------- 1. projection: qkv = bf16(x @ W + b) ----------------------
+
+struct StoreQkv {
+  const float* b;
+  bf16* out;
+  int ld;
+  __device__ void operator()(int row, int col, const float* v) const {
+    const float* bb = b + col;
+    store8(out + static_cast<size_t>(row) * ld + col, v, [&](int e, float a) { return a + bb[e]; });
+  }
+};
+
+// ---------------- 2. per-head L2 normalization of q and k, in place ---------
+
+// one warp per (token, role q or k, head); inv [T, 2, heads]
+template <int HD>
+__global__ void normalize_qk_kernel(bf16* __restrict__ qkv, int T, int C, int heads,
+                                    float* __restrict__ inv) {
+  constexpr int NV = HD / 32;
+  const long long wid = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (wid >= static_cast<long long>(T) * 2 * heads) return;
+  const int h = static_cast<int>(wid % heads);
+  const long long tr = wid / heads;  // token * 2 + role
+  const long long tok = tr >> 1;
+  const int role = static_cast<int>(tr & 1);
+  bf16* rowp = qkv + tok * 3 * C + role * C + h * HD;
+  float vals[NV];
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float v = __bfloat162float(rowp[lane + 32 * i]);
+    vals[i] = v;
+    ss += v * v;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float iv = 1.0f / sqrtf(fmaxf(ss, 1e-24f));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) rowp[lane + 32 * i] = __float2bfloat16(vals[i] * iv);
+  if (lane == 0) inv[tr * heads + h] = iv;
+}
+
+// ---------------- shared pieces of the attention kernels --------------------
+
+// window rows row0 .. row0 + nrows - 1 of the [T, ld] buffer src, HD columns
+// from col0 (a head of q, k, v or g), into dst (pitch HD + 8); rows >= L
+// zero-filled
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int ld,
+                                          int col0, const Geometry& g, const Tile& t, int row0,
+                                          int nrows) {
+  constexpr int LDQ = HD + 8;
+  for (int idx = threadIdx.x; idx < nrows * (HD / 8); idx += blockDim.x) {
+    const int r = idx / (HD / 8);
+    const int c = (idx % (HD / 8)) * 8;
+    const int l = row0 + r;
+    const bool ok = l < g.L;
+    const size_t pix = ok ? pixel_of(g, t, l) : 0;
+    cp_async16(dst + r * LDQ + c, src + pix * ld + col0 + c, ok);
+  }
+}
+
+// e = exp(z) for the lane's 8 entries (query qrow, keys key0 .. key0 + 7) of
+// the score tile in cs, zero outside the L x L window; z as K1/K7 form it
+template <bool BIAS>
+__device__ __forceinline__ void exp_row8(const float* cs, int qrow, int key0, int L, float sc,
+                                         const float* bh, bool use_mask, const float* mask,
+                                         float bflag, float (&ev)[8]) {
+  const int lane = threadIdx.x & 31;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int key = key0 + e;
+    float val = 0.0f;
+    if (key < L && qrow < L) {
+      const float s = cs[fr * 16 + fc + e];
+      float z;
+      if constexpr (BIAS) {
+        z = __fmul_rn(s, sc) + bh[qrow * L + key];
+      } else {
+        z = (s - 1.0f) * sc;
+      }
+      if (use_mask) z += bflag * mask[qrow * L + key];
+      val = expf(z);
+    }
+    ev[e] = val;
+  }
+}
+
+// the same for a transposed tile: cs holds s^T (row = key krow, 8 queries
+// from q0), so query and key swap places in the bias and mask lookups
+template <bool BIAS>
+__device__ __forceinline__ void exp_col8(const float* cs, int krow, int q0, int L, float sc,
+                                         const float* bh, bool use_mask, const float* mask,
+                                         float bflag, float (&ev)[8]) {
+  const int lane = threadIdx.x & 31;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int qi = q0 + e;
+    float val = 0.0f;
+    if (qi < L && krow < L) {
+      const float s = cs[fr * 16 + fc + e];
+      float z;
+      if constexpr (BIAS) {
+        z = __fmul_rn(s, sc) + bh[qi * L + krow];
+      } else {
+        z = (s - 1.0f) * sc;
+      }
+      if (use_mask) z += bflag * mask[qi * L + krow];
+      val = expf(z);
+    }
+    ev[e] = val;
+  }
+}
+
+// ---------------- 3. forward attention ---------------------------------------
+
+template <int HD>
+__host__ __device__ constexpr size_t fwd_smem_bytes(int LP) {
+  return (static_cast<size_t>(LP) * (HD + 8) + 2u * 16 * (HD + 8) +
+          static_cast<size_t>(LP) * (LP + 8)) * sizeof(bf16) +
+         static_cast<size_t>(LP / 16) * 256 * sizeof(float);
+}
+
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(MAX_LP * 2)
+    large_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
+                     const float* __restrict__ bias, const float* __restrict__ mask, float bflag,
+                     bf16* __restrict__ out, Geometry g) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NC = HD / DC;
+  constexpr int NFC = DC / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = g.LP;
+  const int L = g.L;
+  const int nwarps = LP / 16;
+  const int LDP = LP + 8;
+  const int C3 = 3 * g.C;
+  bf16* qv = reinterpret_cast<bf16*>(smem);  // q [LP, LDQ], then v
+  bf16* ring = qv + LP * LDQ;                // two stages of a k tile [16, LDQ]
+  bf16* pbuf = ring + 2 * 16 * LDQ;          // bf16(e), 16 x LDP per warp
+  float* scratch = reinterpret_cast<float*>(pbuf + nwarps * 16 * LDP);
+
+  const Tile t = tile_of_block(g);
+  const int h = t.h;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nkt = LP / 16;
+
+  load_rows<HD>(qv, qkv, C3, h * HD, g, t, 0, LP);
+  load_rows<HD>(ring, qkv, C3, g.C + h * HD, g, t, 0, 16);
+  cp_async_commit();
+
+  const float sc = scale[h];
+  const bool use_mask = mask != nullptr && t.wr == g.nwh - 1;
+  const int qrow = warp * 16 + fr;
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  bf16* pw = pbuf + warp * 16 * LDP;
+  float rowsum = 0.0f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load_rows<HD>(ring + ((kt + 1) & 1) * 16 * LDQ, qkv, C3, g.C + h * HD, g, t, (kt + 1) * 16,
+                    16);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    Frag s;
+    dot_rows<HD>(s, qv + warp * 16 * LDQ, ring + (kt & 1) * 16 * LDQ);
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+    float ev[8];
+    exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) rowsum += ev[e];
+    store8(pw + fr * LDP + kt * 16 + fc, ev, [](int, float v) { return v; });
+    __syncthreads();  // the stage is refilled by the next iteration's load
+  }
+  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
+  const float rinv = 1.0f / rowsum;
+
+  cp_async_wait<0>();
+  load_rows<HD>(qv, qkv, C3, 2 * g.C + h * HD, g, t, 0, LP);  // v over q (all warps are past it)
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const size_t pix = qrow < L ? pixel_of(g, t, qrow) : 0;
+#pragma unroll 1
+  for (int ch = 0; ch < NC; ++ch) {
+    Frag o[NFC];
+#pragma unroll
+    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(o[j], 0.0f);
+    for (int kt = 0; kt < nkt; ++kt) {
+      FragA a;
+      wmma::load_matrix_sync(a, pw + kt * 16, LDP);
+#pragma unroll
+      for (int j = 0; j < NFC; ++j) {
+        FragB b;
+        wmma::load_matrix_sync(b, qv + kt * 16 * LDQ + ch * DC + j * 16, LDQ);
+        wmma::mma_sync(o[j], a, b, o[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NFC; ++j) {
+      wmma::store_matrix_sync(cs, o[j], 16, wmma::mem_row_major);
+      __syncwarp();
+      if (qrow < L) {
+        store8(out + pix * g.C + h * HD + ch * DC + j * 16 + fc, cs + fr * 16 + fc,
+               [&](int, float v) { return v * rinv; });
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------- 4. backward attention: the rows kernel --------------------
+
+template <int HD>
+__host__ __device__ constexpr size_t rows_smem_bytes(int LP) {
+  return (2u * RW * 16 * (HD + 8) + 4u * 16 * (HD + 8) + static_cast<size_t>(RW) * 16 * (LP + 8)) *
+             sizeof(bf16) +
+         (static_cast<size_t>(RW) * 16 * HD + RW * 256 + 16) * sizeof(float);
+}
+
+// one block per (window, head) [blockIdx.x] and 64 query rows [blockIdx.y]
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(RW * 32)
+    large_bwd_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          const float* __restrict__ mask, float bflag,
+                          const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
+                          float* __restrict__ rstat, float* __restrict__ dscale_part,
+                          float* __restrict__ dbias_part, Geometry geo) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NC = HD / DC;
+  constexpr int NFC = DC / 16;
+  constexpr int NF = HD / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = geo.LP;
+  const int L = geo.L;
+  const int LDP = LP + 8;
+  const int C3 = 3 * geo.C;
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // the block's query rows [RW * 16, LDQ]
+  bf16* gs = qs + RW * 16 * LDQ;              // their cotangent rows
+  bf16* ring = gs + RW * 16 * LDQ;            // two stages of (k tile, v tile)
+  bf16* rowbuf = ring + 4 * 16 * LDQ;         // ds, 16 x LDP per warp
+  float* stage = reinterpret_cast<float*>(rowbuf + RW * 16 * LDP);  // dqn [16, HD] per warp
+  float* scratch = stage + RW * 16 * HD;
+  float* wsum = scratch + RW * 256;
+
+  const Tile t = tile_of_block(geo);
+  const int h = t.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nkt = LP / 16;
+  const int row0 = blockIdx.y * RW * 16;
+  const bool active = row0 + warp * 16 < LP;  // this warp's 16 rows exist
+  const int qrow = row0 + warp * 16 + fr;
+  const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
+  const size_t wh_idx = static_cast<size_t>(win) * geo.heads + h;
+
+  for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
+    const int r = idx / (HD / 8);
+    const int c = (idx % (HD / 8)) * 8;
+    const int l = row0 + r;
+    const bool ok = l < L;
+    const size_t pix = ok ? pixel_of(geo, t, l) : 0;
+    cp_async16(qs + r * LDQ + c, qkv + pix * C3 + h * HD + c, ok);
+    cp_async16(gs + r * LDQ + c, gout + pix * geo.C + h * HD + c, ok);
+  }
+  cp_async_commit();
+
+  auto load_kv = [&](int kt) {
+    bf16* st = ring + (kt & 1) * 2 * 16 * LDQ;
+    load_rows<HD>(st, qkv, C3, geo.C + h * HD, geo, t, kt * 16, 16);
+    load_rows<HD>(st + 16 * LDQ, qkv, C3, 2 * geo.C + h * HD, geo, t, kt * 16, 16);
+  };
+  // ring protocol: stage kt is ready after acquire(kt); release() ends its use
+  auto acquire = [&](int kt) -> const bf16* {
+    if (kt == 0) {
+      load_kv(0);
+      cp_async_commit();
+    }
+    if (kt + 1 < nkt) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (kt & 1) * 2 * 16 * LDQ;
+  };
+
+  const float sc = scale[h];
+  const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  const bf16* qw = qs + warp * 16 * LDQ;
+  const bf16* gw = gs + warp * 16 * LDQ;
+
+  // sweep 1: r = 1 / sum e and u = sum(dp e) of each query row
+  float rowsum = 0.0f, u = 0.0f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const bf16* kb = acquire(kt);
+    if (active) {
+      Frag s;
+      dot_rows<HD>(s, qw, kb);
+      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+      __syncwarp();
+      float ev[8];
+      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+      __syncwarp();
+      dot_rows<HD>(s, gw, kb + 16 * LDQ);  // dp = g v^T
+      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        rowsum += ev[e];
+        u += cs[fr * 16 + fc + e] * ev[e];
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
+  u += __shfl_xor_sync(0xffffffffu, u, 1);
+  const float r = rowsum > 0.0f ? 1.0f / rowsum : 0.0f;  // padded rows: e = 0 throughout
+  if (active && (lane & 1) == 0) {
+    rstat[(wh_idx * LP + qrow) * 2] = r;
+    rstat[(wh_idx * LP + qrow) * 2 + 1] = u;
+  }
+
+  // sweep 2: ds rows into the warp's row buffer (and ds / scale into d(bias))
+  bf16* pw = rowbuf + warp * 16 * LDP;
+  float* drow = BIAS && active ? dbias_part + (wh_idx * LP + qrow) * LP : nullptr;
+  const float rsc = 1.0f / sc;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const bf16* kb = acquire(kt);
+    if (active) {
+      Frag s;
+      dot_rows<HD>(s, qw, kb);
+      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+      __syncwarp();
+      float ev[8];
+      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+      __syncwarp();
+      dot_rows<HD>(s, gw, kb + 16 * LDQ);
+      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+      __syncwarp();
+      float ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ds[e] = (cs[fr * 16 + fc + e] - u * r) * ev[e] * (r * sc);
+      store8(pw + fr * LDP + kt * 16 + fc, ds, [](int, float v) { return v; });
+      if constexpr (BIAS) {  // e = 0 outside the window, so padded entries get 0
+        float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
+        dst[0] = make_float4(ds[0] * rsc, ds[1] * rsc, ds[2] * rsc, ds[3] * rsc);
+        dst[1] = make_float4(ds[4] * rsc, ds[5] * rsc, ds[6] * rsc, ds[7] * rsc);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  // dqn = ds @ kn16, one head-dim chunk per sweep, into the fp32 staging tile
+  float* stw = stage + warp * 16 * HD;
+#pragma unroll 1
+  for (int ch = 0; ch < NC; ++ch) {
+    Frag acc[NFC];
+#pragma unroll
+    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const bf16* kb = acquire(kt);
+      if (active) {
+        FragA a;
+        wmma::load_matrix_sync(a, pw + kt * 16, LDP);
+#pragma unroll
+        for (int j = 0; j < NFC; ++j) {
+          FragB b;
+          wmma::load_matrix_sync(b, kb + ch * DC + j * 16, LDQ);
+          wmma::mma_sync(acc[j], a, b, acc[j]);
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < NFC; ++j) {
+        wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
+      }
+    }
+  }
+  __syncwarp();
+
+  // qd = <qn16, dqn>, summed per lane as K2 sums it; dq = (dqn - qn16 qd) inv_q
+  float qd = 0.0f;
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        qd += __bfloat162float(qw[fr * LDQ + j * 16 + fc + e]) * stw[fr * HD + j * 16 + fc + e];
+      }
+    }
+  }
+  qd += __shfl_xor_sync(0xffffffffu, qd, 1);
+  if (active && qrow < L) {
+    const size_t pix = pixel_of(geo, t, qrow);
+    const float iq = inv[(pix * 2) * geo.heads + h];
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const bf16* qn = qw + fr * LDQ + j * 16 + fc;
+      store8(dqkv + pix * C3 + h * HD + j * 16 + fc, stw + fr * HD + j * 16 + fc,
+             [&](int e, float dqn) { return (dqn - __bfloat162float(qn[e]) * qd) * iq; });
+    }
+  }
+  // this block's d(scale) partial: sum of qd over its real rows, fixed tree
+  float part = (active && qrow < L && (lane & 1) == 0) ? qd : 0.0f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if (lane == 0) wsum[warp] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < RW; ++i) total += wsum[i];
+    dscale_part[(static_cast<size_t>(win) * gridDim.y + blockIdx.y) * geo.heads + h] = total;
+  }
+}
+
+// ---------------- 5. backward attention: the columns kernel -----------------
+
+template <int HD>
+__host__ __device__ constexpr size_t cols_smem_bytes(int LP) {
+  return (2u * RW * 16 * (HD + 8) + 4u * 16 * (HD + 8) +
+          2u * RW * 16 * static_cast<size_t>(LP + 8)) * sizeof(bf16) +
+         (static_cast<size_t>(RW) * 16 * HD + RW * 256) * sizeof(float);
+}
+
+// one block per (window, head) [blockIdx.x] and 64 key rows [blockIdx.y]
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(RW * 32)
+    large_bwd_cols_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          const float* __restrict__ mask, float bflag,
+                          const bf16* __restrict__ gout, const float* __restrict__ rstat,
+                          bf16* __restrict__ dqkv, Geometry geo) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NC = HD / DC;
+  constexpr int NFC = DC / 16;
+  constexpr int NF = HD / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = geo.LP;
+  const int L = geo.L;
+  const int LDP = LP + 8;
+  const int C3 = 3 * geo.C;
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's key rows [RW * 16, LDQ]
+  bf16* vs = ks + RW * 16 * LDQ;             // their value rows
+  bf16* ring = vs + RW * 16 * LDQ;           // two stages of (q tile, g tile)
+  bf16* pbuf = ring + 4 * 16 * LDQ;          // p16^T [key][query], 16 x LDP per warp
+  bf16* dsbuf = pbuf + RW * 16 * LDP;        // ds^T [key][query]
+  float* stage = reinterpret_cast<float*>(dsbuf + RW * 16 * LDP);  // dkn [16, HD] per warp
+  float* scratch = stage + RW * 16 * HD;
+
+  const Tile t = tile_of_block(geo);
+  const int h = t.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nqt = LP / 16;
+  const int row0 = blockIdx.y * RW * 16;
+  const bool active = row0 + warp * 16 < LP;
+  const int krow = row0 + warp * 16 + fr;
+  const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
+  const float* rs = rstat + (static_cast<size_t>(win) * geo.heads + h) * LP * 2;
+
+  for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
+    const int r = idx / (HD / 8);
+    const int c = (idx % (HD / 8)) * 8;
+    const int l = row0 + r;
+    const bool ok = l < L;
+    const size_t pix = ok ? pixel_of(geo, t, l) : 0;
+    cp_async16(ks + r * LDQ + c, qkv + pix * C3 + geo.C + h * HD + c, ok);
+    cp_async16(vs + r * LDQ + c, qkv + pix * C3 + 2 * geo.C + h * HD + c, ok);
+  }
+  cp_async_commit();
+
+  auto load_qg = [&](int qt) {
+    bf16* st = ring + (qt & 1) * 2 * 16 * LDQ;
+    load_rows<HD>(st, qkv, C3, h * HD, geo, t, qt * 16, 16);
+    load_rows<HD>(st + 16 * LDQ, gout, geo.C, h * HD, geo, t, qt * 16, 16);
+  };
+  auto acquire = [&](int qt) -> const bf16* {
+    if (qt == 0) {
+      load_qg(0);
+      cp_async_commit();
+    }
+    if (qt + 1 < nqt) load_qg(qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (qt & 1) * 2 * 16 * LDQ;
+  };
+
+  const float sc = scale[h];
+  const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  const bf16* kw = ks + warp * 16 * LDQ;
+  const bf16* vw = vs + warp * 16 * LDQ;
+  bf16* pt = pbuf + warp * 16 * LDP;
+  bf16* dt = dsbuf + warp * 16 * LDP;
+
+  // one sweep over the query tiles: p16^T = bf16(e r)^T and ds^T rows
+  for (int qt = 0; qt < nqt; ++qt) {
+    const bf16* qb = acquire(qt);
+    if (active) {
+      Frag s;
+      dot_rows<HD>(s, kw, qb);  // s^T [key][query]
+      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+      __syncwarp();
+      float ev[8];
+      exp_col8<BIAS>(cs, krow, qt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+      __syncwarp();
+      dot_rows<HD>(s, vw, qb + 16 * LDQ);  // dp^T [key][query] = v g^T
+      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+      __syncwarp();
+      float p[8], ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int qi = qt * 16 + fc + e;
+        const float ri = rs[qi * 2];
+        const float ui = rs[qi * 2 + 1];
+        p[e] = ev[e] * ri;
+        ds[e] = (cs[fr * 16 + fc + e] - ui * ri) * ev[e] * (ri * sc);
+      }
+      store8(pt + fr * LDP + qt * 16 + fc, p, [](int, float v) { return v; });
+      store8(dt + fr * LDP + qt * 16 + fc, ds, [](int, float v) { return v; });
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  const size_t kpix = krow < L ? pixel_of(geo, t, krow) : 0;
+  float* stw = stage + warp * 16 * HD;
+  // role 0: dv = p16^T @ g16, written as it leaves; role 1: dkn = ds^T @ qn16,
+  // staged for the normalization VJP
+#pragma unroll 1
+  for (int role = 0; role < 2; ++role) {
+#pragma unroll 1
+    for (int ch = 0; ch < NC; ++ch) {
+      Frag acc[NFC];
+#pragma unroll
+      for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
+      for (int qt = 0; qt < nqt; ++qt) {
+        const bf16* qb = acquire(qt);
+        if (active) {
+          FragA a;
+          wmma::load_matrix_sync(a, (role == 0 ? pt : dt) + qt * 16, LDP);
+          const bf16* bsrc = role == 0 ? qb + 16 * LDQ : qb;
+#pragma unroll
+          for (int j = 0; j < NFC; ++j) {
+            FragB b;
+            wmma::load_matrix_sync(b, bsrc + ch * DC + j * 16, LDQ);
+            wmma::mma_sync(acc[j], a, b, acc[j]);
+          }
+        }
+        __syncthreads();
+      }
+      if (active) {
+        if (role == 0) {
+#pragma unroll
+          for (int j = 0; j < NFC; ++j) {
+            wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+            __syncwarp();
+            if (krow < L) {
+              store8(dqkv + kpix * C3 + 2 * geo.C + h * HD + ch * DC + j * 16 + fc,
+                     cs + fr * 16 + fc, [](int, float v) { return v; });
+            }
+            __syncwarp();
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NFC; ++j) {
+            wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();
+
+  float kd = 0.0f;  // <kn16, dkn> of the row
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kd += __bfloat162float(kw[fr * LDQ + j * 16 + fc + e]) * stw[fr * HD + j * 16 + fc + e];
+      }
+    }
+  }
+  kd += __shfl_xor_sync(0xffffffffu, kd, 1);
+  if (active && krow < L) {
+    const float ik = inv[(kpix * 2 + 1) * geo.heads + h];
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const bf16* kn = kw + fr * LDQ + j * 16 + fc;
+      store8(dqkv + kpix * C3 + geo.C + h * HD + j * 16 + fc, stw + fr * HD + j * 16 + fc,
+             [&](int e, float dkn) { return (dkn - __bfloat162float(kn[e]) * kd) * ik; });
+    }
+  }
+}
+
+// ---------------- host side ---------------------------------------------------
+
+template <class K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes)));
+}
+
+// steps 1-2: qkv [T, 3C] bf16 = normalized q, k and v; inv [T, 2, heads]
+template <int HD>
+int project_normalize(const void* x, const void* w, const void* b, void* qkv, void* inv,
+                      const Geometry& g, cudaStream_t s) {
+  const int T = g.B * g.H * g.W;
+  const int C3 = 3 * g.C;
+  int code = swin_gemm::launch_gemm<false, false>(
+      static_cast<const bf16*>(x), g.Cin, static_cast<const bf16*>(w), C3, T, C3, g.Cin, 1,
+      StoreQkv{static_cast<const float*>(b), static_cast<bf16*>(qkv), C3}, s);
+  if (code != 0) return code;
+  const long long warps = static_cast<long long>(T) * 2 * g.heads;
+  normalize_qk_kernel<HD><<<static_cast<unsigned>((warps + 7) / 8), 256, 0, s>>>(
+      static_cast<bf16*>(qkv), T, g.C, g.heads, static_cast<float*>(inv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, bool BIAS>
+int forward(const void* x, const void* w, const void* b, const void* scale, const void* bias,
+            const void* mask, float bflag, void* out, void* qkv, void* inv, const Geometry& g,
+            cudaStream_t s) {
+  const size_t smem = fwd_smem_bytes<HD>(g.LP);
+  int code = set_smem(large_fwd_kernel<HD, BIAS>, smem);
+  if (code != 0) return code;
+  code = project_normalize<HD>(x, w, b, qkv, inv, g, s);
+  if (code != 0) return code;
+  const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  large_fwd_kernel<HD, BIAS><<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(mask), bflag,
+      static_cast<bf16*>(out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, bool BIAS>
+int backward(const void* x, const void* w, const void* b, const void* scale, const void* bias,
+             const void* mask, float bflag, const void* g, void* qkv, void* inv, void* rstat,
+             void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dbias_part,
+             void* dx, void* dw, void* db, void* dscale, void* dbias, const Geometry& geo,
+             int dw_splits, int db_splits, cudaStream_t s) {
+  const size_t rows_smem = rows_smem_bytes<HD>(geo.LP);
+  const size_t cols_smem = cols_smem_bytes<HD>(geo.LP);
+  int code = set_smem(large_bwd_rows_kernel<HD, BIAS>, rows_smem);
+  if (code != 0) return code;
+  code = set_smem(large_bwd_cols_kernel<HD, BIAS>, cols_smem);
+  if (code != 0) return code;
+  code = project_normalize<HD>(x, w, b, qkv, inv, geo, s);
+  if (code != 0) return code;
+  const long long wh_blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
+  if (wh_blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int nchunks = (geo.LP / 16 + RW - 1) / RW;
+  const dim3 grid(static_cast<unsigned>(wh_blocks), nchunks);
+  large_bwd_rows_kernel<HD, BIAS><<<grid, RW * 32, rows_smem, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
+      static_cast<bf16*>(dqkv), static_cast<float*>(rstat), static_cast<float*>(dscale_part),
+      static_cast<float*>(dbias_part), geo);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  large_bwd_cols_kernel<HD, BIAS><<<grid, RW * 32, cols_smem, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
+      static_cast<const float*>(rstat), static_cast<bf16*>(dqkv), geo);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  const int n_win = geo.B * geo.nwh * geo.nww;
+  return swin_qkv_proj::projection_backward(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
+      geo.B * geo.H * geo.W, geo.Cin, 3 * geo.C, static_cast<float*>(dw_part),
+      static_cast<float*>(db_part), static_cast<const float*>(dscale_part), n_win * nchunks,
+      geo.heads, static_cast<const float*>(scale), static_cast<bf16*>(dx),
+      static_cast<float*>(dw), static_cast<float*>(db), static_cast<float*>(dscale),
+      static_cast<const float*>(dbias_part), n_win, geo.L, geo.LP,
+      BIAS ? static_cast<float*>(dbias) : nullptr, dw_splits, db_splits, s);
+}
+
+template <bool BIAS>
+int dispatch_fwd(const void* x, const void* w, const void* b, const void* scale, const void* bias,
+                 const void* mask, float bflag, void* out, void* qkv, void* inv, int B, int H,
+                 int W, int Cin, int C, int heads, int wh, int ww, void* stream) {
+  Geometry g;
+  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww) || (BIAS && bias == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / heads) {
+    case 128:
+      return forward<128, BIAS>(x, w, b, scale, bias, mask, bflag, out, qkv, inv, g, s);
+    case 256:
+      return forward<256, BIAS>(x, w, b, scale, bias, mask, bflag, out, qkv, inv, g, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool BIAS>
+int dispatch_bwd(const void* x, const void* w, const void* b, const void* scale, const void* bias,
+                 const void* mask, float bflag, const void* g, void* qkv, void* inv, void* rstat,
+                 void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dbias_part,
+                 void* dx, void* dw, void* db, void* dscale, void* dbias, int B, int H, int W,
+                 int Cin, int C, int heads, int wh, int ww, int dw_splits, int db_splits,
+                 void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1 ||
+      (BIAS && (bias == nullptr || dbias_part == nullptr || dbias == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / heads) {
+    case 128:
+      return backward<128, BIAS>(x, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv,
+                                 dw_part, db_part, dscale_part, dbias_part, dx, dw, db, dscale,
+                                 dbias, geo, dw_splits, db_splits, s);
+    case 256:
+      return backward<256, BIAS>(x, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv,
+                                 dw_part, db_part, dscale_part, dbias_part, dx, dw, db, dscale,
+                                 dbias, geo, dw_splits, db_splits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// K1 / K7 forward, large-head variant. Scratch (allocated by the caller): qkv
+// [B, H, W, 3C] bf16, inv [B, H, W, 2, heads] fp32. bias null for K1.
+extern "C" int swin_window_attention_qkv_large_fwd(const void* x, const void* w, const void* b,
+                                                   const void* scale, const void* bias,
+                                                   const void* mask, float bflag, void* out,
+                                                   void* qkv, void* inv, int B, int H, int W,
+                                                   int Cin, int C, int heads, int wh, int ww,
+                                                   void* stream) {
+  if (bias == nullptr) {
+    return dispatch_fwd<false>(x, w, b, scale, nullptr, mask, bflag, out, qkv, inv, B, H, W, Cin,
+                               C, heads, wh, ww, stream);
+  }
+  return dispatch_fwd<true>(x, w, b, scale, bias, mask, bflag, out, qkv, inv, B, H, W, Cin, C,
+                            heads, wh, ww, stream);
+}
+
+// K2 / K7 backward, large-head variant. Scratch: qkv [B, H, W, 3C] bf16, inv
+// [B, H, W, 2, heads], rstat [B * nW, heads, LP, 2] fp32, dqkv [B, H, W, 3C]
+// bf16, dw_part [dw_splits, C_in, 3C], db_part [db_splits, 3C], dscale_part
+// [B * nW * ceil(LP / 64), heads], dbias_part [B * nW, heads, LP, LP] (bias
+// only) fp32. Outputs as K2's (and dbias [heads, L, L] with the bias).
+extern "C" int swin_window_attention_qkv_large_bwd(
+    const void* x, const void* w, const void* b, const void* scale, const void* bias,
+    const void* mask, float bflag, const void* g, void* qkv, void* inv, void* rstat, void* dqkv,
+    void* dw_part, void* db_part, void* dscale_part, void* dbias_part, void* dx, void* dw,
+    void* db, void* dscale, void* dbias, int B, int H, int W, int Cin, int C, int heads, int wh,
+    int ww, int dw_splits, int db_splits, void* stream) {
+  if (bias == nullptr) {
+    return dispatch_bwd<false>(x, w, b, scale, nullptr, mask, bflag, g, qkv, inv, rstat, dqkv,
+                               dw_part, db_part, dscale_part, nullptr, dx, dw, db, dscale,
+                               nullptr, B, H, W, Cin, C, heads, wh, ww, dw_splits, db_splits,
+                               stream);
+  }
+  return dispatch_bwd<true>(x, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv, dw_part,
+                            db_part, dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W,
+                            Cin, C, heads, wh, ww, dw_splits, db_splits, stream);
+}

@@ -41,7 +41,7 @@ import torch
 from swin_v2_weather_torch.ops import _build
 
 _EPS = 1e-5
-_MAX_C = 2048  # widest row the kernels keep in registers (16 chunks of 128)
+_MAX_C = 2048  # widest row the register kernels keep; wider rows take the WIDE entry points
 
 
 def supported(tokens: int, channels: int) -> bool:
@@ -94,8 +94,8 @@ def _check_operands(name, z2, other, other_name, gamma, m2):
     _build.check_operand(name, other_name, other, torch.bfloat16, (t, c), dev)
     _build.check_operand(name, "gamma", gamma, torch.float32, (c,), dev)
     _build.check_operand(name, "m", m2, torch.float32, (t, 1), dev)
-    if c % 128 or c > _MAX_C:
-        raise ValueError(f"{name}: needs C % 128 == 0 and C <= {_MAX_C}, got C={c}")
+    if c % 128:
+        raise ValueError(f"{name}: needs C % 128 == 0, got C={c}")
     return t, c
 
 
@@ -111,9 +111,10 @@ def ln_dp_add_fwd(z2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
     lib = _build.load_library()
     with torch.cuda.device(z2.device):
         stream = torch.cuda.current_stream(z2.device).cuda_stream
-        code = lib.swin_ln_dp_add_fwd(z2.data_ptr(), x2.data_ptr(), gamma.data_ptr(),
-                                      beta.data_ptr(), m2.data_ptr(), out.data_ptr(), t, c,
-                                      stream)
+        # rows wider than _MAX_C are streamed, not held in registers
+        fn = lib.swin_ln_dp_add_fwd if c <= _MAX_C else lib.swin_ln_dp_add_wide_fwd
+        code = fn(z2.data_ptr(), x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), m2.data_ptr(),
+                  out.data_ptr(), t, c, stream)
     _build.check(code, name)
     ln_dp_add_fwd.launches += 1
     return out
@@ -140,10 +141,17 @@ def ln_dp_add_bwd(z2: torch.Tensor, g2: torch.Tensor, gamma: torch.Tensor, m2: t
     lib = _build.load_library()
     with torch.cuda.device(z2.device):
         stream = torch.cuda.current_stream(z2.device).cuda_stream
-        code = lib.swin_ln_dp_add_bwd(z2.data_ptr(), g2.data_ptr(), gamma.data_ptr(),
-                                      m2.data_ptr(), dz.data_ptr(), part.data_ptr(),
-                                      dgamma.data_ptr(), dbeta.data_ptr(), t, c, n_blocks,
-                                      stream)
+        if c <= _MAX_C:
+            code = lib.swin_ln_dp_add_bwd(z2.data_ptr(), g2.data_ptr(), gamma.data_ptr(),
+                                          m2.data_ptr(), dz.data_ptr(), part.data_ptr(),
+                                          dgamma.data_ptr(), dbeta.data_ptr(), t, c, n_blocks,
+                                          stream)
+        else:  # each row's (mean, rstd) for the column sums of dgamma and dbeta
+            stats = torch.empty((t, 2), **f32)
+            code = lib.swin_ln_dp_add_wide_bwd(z2.data_ptr(), g2.data_ptr(), gamma.data_ptr(),
+                                               m2.data_ptr(), dz.data_ptr(), stats.data_ptr(),
+                                               part.data_ptr(), dgamma.data_ptr(),
+                                               dbeta.data_ptr(), t, c, n_blocks, stream)
     _build.check(code, name)
     ln_dp_add_bwd.launches += 1
     return dz, dgamma, dbeta

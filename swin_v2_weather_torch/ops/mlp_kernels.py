@@ -154,7 +154,7 @@ def fc1_dpre(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor
 fc1_dpre.launches = 0
 
 
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an fp32 result and no rounding to a's dtype. On CUDA the bf16
     GEMM writes fp32 directly (``out_dtype``); on the CPU the operands are
     lifted to fp32, which is exact for bf16 values."""
@@ -188,7 +188,7 @@ class Fc1Gelu(torch.autograd.Function):
             dpre = fc1_dpre(x2.contiguous(), w.to(cdt).contiguous(), b.float().contiguous(),
                             g2.contiguous())
             dx = torch.matmul(dpre, w.to(cdt).t())
-        dw = _matmul_f32(x2.t(), dpre)
+        dw = matmul_f32(x2.t(), dpre)
         db = torch.sum(dpre.float(), 0)
         return dx.to(x2.dtype), dw.to(w.dtype), db.to(b.dtype)
 
@@ -230,6 +230,32 @@ def mlp_bwd_reference(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: 
     return a, (da * _gelu_grad(pre)).to(cdt)
 
 
+_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
+_K5_MAX_COUT = 768  # output columns a K5 block keeps in registers
+
+
+def _k5_smem_bytes(c_in: int, c_out: int, wide: bool) -> int:
+    """Shared memory of K5 (``k5::layout`` in ``csrc/mlp.cu``): the narrow
+    instance holds the x tile [32, C_in + 8] and W2 slices [32, C_out + 8];
+    the wide one streams x slices beside the W1 slices and takes 768 output
+    columns a block."""
+    ks1 = 128 if c_in % 128 == 0 else (64 if c_in % 64 == 0 else 32)
+    x_ld = ks1 + 8 if wide else c_in + 8
+    w2_ld = (_K5_MAX_COUT if wide else c_out) + 8
+    stage = max(ks1 * 136 + (32 * x_ld if wide else 0), 32 * w2_ld)
+    ring_off = 0 if wide else 32 * x_ld * 2
+    return ring_off + 3 * stage * 2 + 32 * 136 * 2 + 32 * 132 * 4
+
+
+def mlp_fwd_variant(c_in: int, c_out: int) -> str:
+    """Which K5 instance runs: ``'narrow'`` (a block owns all C_out columns of
+    32 rows) where C_out <= 768 and its shared memory fits, else ``'wide'``
+    (768 columns a block; fc1 recomputed once per column tile)."""
+    if c_out <= _K5_MAX_COUT and _k5_smem_bytes(c_in, c_out, False) <= _MAX_SMEM:
+        return "narrow"
+    return "wide"
+
+
 def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
     if x2.device.type != "cuda" or x2.dim() != 2:
         raise ValueError(f"{name}: x2 must be a 2-D CUDA tensor, got {x2.dim()}-D on {x2.device}")
@@ -242,9 +268,13 @@ def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
     _build.check_operand(name, "w2", w2, torch.bfloat16, (hidden, c_out), dev)
     dtype, shape = (torch.float32, (c_out,)) if tail_name == "b2" else (torch.bfloat16, (t, c_out))
     _build.check_operand(name, tail_name, tail, dtype, shape, dev)
-    if c_in % 32 or hidden % 128 or c_out % 32 or c_out > 768:
+    # K6 and K5's wide instance index their token blocks (128 and 32 rows) by
+    # the grid's y dimension, at most 65535; the narrow K5 by its x dimension
+    rows = 128 if tail_name == "g2" else (32 if mlp_fwd_variant(c_in, c_out) == "wide" else None)
+    if c_in % 32 or hidden % 128 or c_out % 32 or (rows and -(-t // rows) > 65535):
         raise ValueError(f"{name}: needs C_in % 32 == 0, hidden % 128 == 0, C_out % 32 == 0 "
-                         f"and C_out <= 768, got {c_in}, {hidden}, {c_out}")
+                         f"and at most 65535 blocks of {rows} tokens, got {c_in}, {hidden}, "
+                         f"{c_out}, T={t}")
     return t, c_in, hidden, c_out
 
 
@@ -254,8 +284,9 @@ def mlp_fwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     fp32, w2 [H, C_out] bf16, b2 [C_out] fp32 -> [T, C_out] bf16. The [T, H]
     activation never reaches device memory.
 
-    C_in must be a multiple of 32, H of 128, C_out of 32 and at most 768.
-    Launches on the current stream and does not synchronize.
+    C_in must be a multiple of 32, H of 128 and C_out of 32; rows wider than
+    768 take the wide instance (:func:`mlp_fwd_variant`). Launches on the
+    current stream and does not synchronize.
     """
     name = "mlp_fwd"
     t, c_in, hidden, c_out = _check_mlp_operands(name, x2, w1, b1, w2, b2, "b2")
@@ -328,9 +359,9 @@ class FusedMlp(torch.autograd.Function):
             a, dpre = mlp_bwd(x2.contiguous(), w1.to(cdt).contiguous(), b1.float().contiguous(),
                               w2.to(cdt).contiguous(), g2.contiguous())
             dx = torch.matmul(dpre, w1.to(cdt).t())
-        dw1 = _matmul_f32(x2.t(), dpre)
+        dw1 = matmul_f32(x2.t(), dpre)
         db1 = torch.sum(dpre.float(), 0)
-        dw2 = _matmul_f32(a.t(), g2)
+        dw2 = matmul_f32(a.t(), g2)
         db2 = torch.sum(g2.float(), 0)
         return (dx.to(x2.dtype), dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
                 db2.to(b2.dtype))

@@ -61,15 +61,104 @@ Gradient dtypes follow ``_build_qkv``'s ``f_bwd``: dx in x's dtype, dW in the
 dtype of the w_qkv handed in (bf16 in the model, which casts the fp32
 parameter first, so the cast's backward lifts it to fp32), db, dscale and
 dbias in fp32.
+
+Head dims and windows: the one-block-per-(window, head) kernels (K1/K2, K7)
+hold q, k, v (and g) [LP, HD] in shared memory; where that does not fit
+(head dim 128 in the backward and 256 in both directions at L = 162: the
+e2048 family), the large-head variant (``csrc/window_attention_qkv_large.cu``)
+runs instead, with the same rounding sites. :func:`qkv_variant` says which
+runs for a shape, or raises before any launch.
+
+Selectable variants, as in the JAX package, read at call time from the
+module globals (set from the environment at import):
+
+  * ``QKV_IMPL`` (``SWIN_QKV_IMPL``): ``'v3'`` (K1/K2, the default) or
+    ``'v6'``: the padded-head route (K10, :func:`fused_window_attention_qkv_padded`,
+    which the model takes when there is no CPB bias); ``'v4'``/``'v5'`` are
+    not ported yet and raise.
+  * ``QKV_BWD_IMPL`` (``SWIN_QKV_BWD_IMPL``): ``'pallas'`` (K2/K7's
+    backward, the default) or ``'xla'``: the qkv recompute and the
+    projection chain in plain ops around K8's backward
+    (:func:`qkv_xla_backward`).
 """
 
 from __future__ import annotations
 
+import os as _os
 from typing import Optional, Tuple
 
 import torch
 
 from swin_v2_weather_torch.ops import _build
+from swin_v2_weather_torch.ops.mlp_kernels import matmul_f32
+
+_QKV_IMPLS = ("v3", "v4", "v5", "v6")
+_QKV_BWD_IMPLS = ("pallas", "xla")
+QKV_IMPL = _os.environ.get("SWIN_QKV_IMPL", "v3")
+QKV_BWD_IMPL = _os.environ.get("SWIN_QKV_BWD_IMPL", "pallas")
+
+
+def qkv_impl() -> str:
+    """The qkv-fused route selected now: ``QKV_IMPL``, validated as the JAX
+    package validates ``SWIN_QKV_IMPL`` (a typo must not silently pick a
+    route)."""
+    if QKV_IMPL not in _QKV_IMPLS:
+        raise ValueError(f"SWIN_QKV_IMPL={QKV_IMPL!r} invalid; expected 'v3', 'v4', 'v5' or 'v6'")
+    return QKV_IMPL
+
+
+def qkv_bwd_impl() -> str:
+    """The qkv-fused backward selected now: ``QKV_BWD_IMPL``, validated as
+    ``SWIN_QKV_BWD_IMPL`` is in the JAX package."""
+    if QKV_BWD_IMPL not in _QKV_BWD_IMPLS:
+        raise ValueError(f"SWIN_QKV_BWD_IMPL={QKV_BWD_IMPL!r} invalid; expected 'pallas' or 'xla'")
+    return QKV_BWD_IMPL
+
+
+qkv_impl()  # fail fast on a bad environment value, as the JAX package does at import
+qkv_bwd_impl()
+
+_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
+_LARGE_RW = 4  # 16-row warps per block of the large-head backward kernels
+
+
+def qkv_smem_bytes(hd: int, l: int) -> dict:
+    """Shared memory (bytes) of each qkv-fused kernel at head dim ``hd`` and
+    window length ``l``, as the CUDA sources compute it: ``fwd``/``bwd`` of
+    the one-block-per-(window, head) kernels (K1, K2; K7 and K10 alike) and
+    ``large_fwd``/``large_rows``/``large_cols`` of the large-head variant."""
+    lp = -(-l // 16) * 16
+    nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
+    rows = nw * 16 * ldp * 2
+    staging = (2 * lp * 40 + 2 * 32 * ldq) * 2
+    return {
+        "fwd": 3 * lp * ldq * 2 + nw * 1024 + max(rows, staging),
+        "bwd": 4 * lp * ldq * 2 + nw * 1024 + max(rows, staging) + (4 * lp + 16) * 4,
+        "large_fwd": (lp * ldq + 32 * ldq + lp * ldp) * 2 + nw * 1024,
+        "large_rows": (2 * rw * 16 * ldq + 64 * ldq + rw * 16 * ldp) * 2
+        + (rw * 16 * hd + rw * 256 + 16) * 4,
+        "large_cols": (2 * rw * 16 * ldq + 64 * ldq + 2 * rw * 16 * ldp) * 2
+        + (rw * 16 * hd + rw * 256) * 4,
+    }
+
+
+def qkv_variant(name: str, hd: int, l: int, backward: bool) -> str:
+    """Which qkv-fused kernel runs at head dim ``hd`` and window length ``l``:
+    ``'base'`` (K1/K2, head dim 32/64/96/128) where its shared memory fits,
+    else ``'large'`` (head dim 128 or 256) where that variant's fits; any
+    other shape raises a ValueError before a launch."""
+    sm = qkv_smem_bytes(hd, l)
+    base = sm["bwd" if backward else "fwd"]
+    large = max(sm["large_rows"], sm["large_cols"]) if backward else sm["large_fwd"]
+    if l <= 256:
+        if hd in (32, 64, 96, 128) and base <= _MAX_SMEM:
+            return "base"
+        if hd in (128, 256) and large <= _MAX_SMEM:
+            return "large"
+    raise ValueError(
+        f"{name}: no {'backward' if backward else 'forward'} kernel takes head dim {hd} at "
+        f"L = {l}: head dims 32/64/96/128 need {base} B of shared memory, the large-head "
+        f"variant (head dim 128 or 256) {large} B, of {_MAX_SMEM}; L must be at most 256")
 
 
 def _window_grid(x: torch.Tensor, window: Tuple[int, int]) -> Tuple[int, int]:
@@ -272,7 +361,8 @@ def window_attention_qkv_bias_backward_reference(
 
 def _check_operands(name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=None, badd=None):
     """Device, dtypes, shapes and shape limits of a kernel call, or raise;
-    returns (b, h, w, c_in, c, heads, wh, ww, l)."""
+    returns (b, h, w, c_in, c, heads, wh, ww, l, variant), the variant that
+    launches (:func:`qkv_variant`)."""
     if x.device.type != "cuda" or x.dim() != 4:
         raise ValueError(f"{name}: x must be a 4-D CUDA tensor, got {x.dim()}-D on {x.device}")
     b, h, w, c_in = x.shape
@@ -292,17 +382,16 @@ def _check_operands(name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=None, 
         _build.check_operand(name, "mask_pattern", mask_pattern, torch.float32, (l, l), dev)
     if badd is not None:
         _build.check_operand(name, "badd", badd, torch.float32, (heads, l, l), dev)
-    if c % heads or c // heads not in (32, 64, 96, 128) or c_in % 32 or l > 256:
-        raise ValueError(
-            f"{name}: needs head dim in (32, 64, 96, 128), C_in % 32 == 0 and "
-            f"L <= 256; got C={c}, heads={heads}, C_in={c_in}, L={l}"
-        )
-    return b, h, w, c_in, c, heads, wh, ww, l
+    if c % heads or c_in % 32:
+        raise ValueError(f"{name}: needs C % heads == 0 and C_in % 32 == 0; got C={c}, "
+                         f"heads={heads}, C_in={c_in}")
+    variant = qkv_variant(name, c // heads, l, g is not None)
+    return b, h, w, c_in, c, heads, wh, ww, l, variant
 
 
 def _launch_forward(fn, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, badd):
     name = fn.__name__
-    b, h, w, c_in, c, heads, wh, ww, _ = _check_operands(
+    b, h, w, c_in, c, heads, wh, ww, _, variant = _check_operands(
         name, x, w_qkv, b_qkv, scale, window, mask_pattern, badd=badd)
     out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=x.device)
     lib = _build.load_library()
@@ -312,7 +401,15 @@ def _launch_forward(fn, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_f
         head = (x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), scale.data_ptr())
         tail = (mask_ptr, float(boundary_flag), out.data_ptr(),
                 b, h, w, c_in, c, heads, wh, ww, stream)
-        if badd is None:
+        if variant == "large":
+            # the projection's output (normalized q, k and v) and the norms
+            qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=x.device)
+            inv = torch.empty((b, h, w, 2, heads), dtype=torch.float32, device=x.device)
+            code = lib.swin_window_attention_qkv_large_fwd(
+                *head, None if badd is None else badd.data_ptr(), mask_ptr,
+                float(boundary_flag), out.data_ptr(), qkv.data_ptr(), inv.data_ptr(),
+                b, h, w, c_in, c, heads, wh, ww, stream)
+        elif badd is None:
             code = lib.swin_window_attention_qkv_fwd(*head, *tail)
         else:
             code = lib.swin_window_attention_qkv_bias_fwd(*head, badd.data_ptr(), *tail)
@@ -334,8 +431,9 @@ def window_attention_qkv(
     b_qkv [3C] fp32, scale [heads] fp32, mask_pattern [L, L] fp32 or None
     -> [B, H, W, C] bf16.
 
-    C_in must be a multiple of 32, the head dim one of 32/64/96/128 and
-    L = wh * ww at most 256. Launches on the current stream and does not
+    C_in must be a multiple of 32 and L = wh * ww at most 256; the head dim
+    one of 32/64/96/128 (K1) or, with the large-head variant, 256
+    (:func:`qkv_variant`). Launches on the current stream and does not
     synchronize.
     """
     return _launch_forward(window_attention_qkv, x, w_qkv, b_qkv, scale, window, mask_pattern,
@@ -367,23 +465,29 @@ window_attention_qkv_bias.launches = 0
 
 def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, boundary_flag, badd):
     name = fn.__name__
-    b, h, w, c_in, c, heads, wh, ww, l = _check_operands(
+    b, h, w, c_in, c, heads, wh, ww, l, variant = _check_operands(
         name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=g, badd=badd)
     nwh, nww = h // wh, w // ww
     dev = x.device
     t = b * h * w
+    lp = -(-l // 16) * 16
     # token ranges of the split-K dW GEMM and of the db column sums
     dw_splits = max(1, min(16, -(-t // 2048)))
     db_splits = max(1, min(64, -(-t // 512)))
+    # d(scale) partials: one per window, or (large) one per window and 64 query rows
+    n_part = b * nwh * nww * (-(-(lp // 16) // _LARGE_RW) if variant == "large" else 1)
     f32 = dict(dtype=torch.float32, device=dev)
     dqkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
     dw_part = torch.empty((dw_splits, c_in, 3 * c), **f32)
     db_part = torch.empty((db_splits, 3 * c), **f32)
-    dscale_part = torch.empty((b * nwh * nww, heads), **f32)
+    dscale_part = torch.empty((n_part, heads), **f32)
     dx = torch.empty_like(x)
     dw = torch.empty((c_in, 3 * c), **f32)
     db = torch.empty((3 * c,), **f32)
     dscale = torch.empty((heads,), **f32)
+    # one fp32 [LP, LP] d(bias) partial per (window, head), summed in window order
+    dbias_part = None if badd is None else torch.empty((b * nwh * nww, heads, lp, lp), **f32)
+    dbias = None if badd is None else torch.empty((heads, l, l), **f32)
     lib = _build.load_library()
     mask_ptr = None if mask_pattern is None else mask_pattern.data_ptr()
     with torch.cuda.device(dev):
@@ -393,14 +497,21 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
                dw_part.data_ptr(), db_part.data_ptr(), dscale_part.data_ptr())
         outs = (dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dscale.data_ptr())
         dims = (b, h, w, c_in, c, heads, wh, ww, dw_splits, db_splits, stream)
-        if badd is None:
+        if variant == "large":
+            # the recomputed projection (normalized), the norms and the
+            # per-row softmax statistics the two attention kernels share
+            qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
+            inv = torch.empty((b, h, w, 2, heads), **f32)
+            rstat = torch.empty((b * nwh * nww, heads, lp, 2), **f32)
+            code = lib.swin_window_attention_qkv_large_bwd(
+                *head, None if badd is None else badd.data_ptr(), mask_ptr,
+                float(boundary_flag), g.data_ptr(), qkv.data_ptr(), inv.data_ptr(),
+                rstat.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+                dscale_part.data_ptr(), None if badd is None else dbias_part.data_ptr(), *outs,
+                None if badd is None else dbias.data_ptr(), *dims)
+        elif badd is None:
             code = lib.swin_window_attention_qkv_bwd(*head, *mid, *outs, *dims)
         else:
-            # one fp32 [LP, LP] d(bias) partial per (window, head), LP = L
-            # rounded up to 16, summed in window order by the last kernel
-            lp = -(-l // 16) * 16
-            dbias_part = torch.empty((b * nwh * nww, heads, lp, lp), **f32)
-            dbias = torch.empty((heads, l, l), **f32)
             code = lib.swin_window_attention_qkv_bias_bwd(
                 *head, badd.data_ptr(), *mid, dbias_part.data_ptr(), *outs, dbias.data_ptr(),
                 *dims)
@@ -424,10 +535,10 @@ def window_attention_qkv_bwd(
     [L, L] fp32 or None -> (dx [B, H, W, C_in] bf16, dW [C_in, 3C] fp32,
     db [3C] fp32, dscale [heads] fp32).
 
-    Same shape limits as the forward kernel, and the shared memory of the
-    attention pass must fit (at head dim 96, L up to 176). Launches on the
-    current stream and does not synchronize; dW, db and dscale are summed in a
-    fixed order, so two calls give the same bits.
+    Same shape limits as the forward kernel; head dim 128 at L above 144
+    and 256 take the large-head variant (:func:`qkv_variant`). Launches on
+    the current stream and does not synchronize; dW, db and dscale are summed
+    in a fixed order, so two calls give the same bits.
     """
     return _launch_backward(window_attention_qkv_bwd, x, w_qkv, b_qkv, scale, g, window,
                             mask_pattern, boundary_flag, None)
@@ -464,8 +575,56 @@ def _flag(boundary_flag) -> float:
     return 1.0 if boundary_flag is None else float(boundary_flag)
 
 
+def qkv_xla_backward(x, w_qkv, b_qkv, scale, g, window, mask_pattern, boundary_flag, badd=None):
+    """The ``SWIN_QKV_BWD_IMPL='xla'`` backward of the qkv-fused route (the
+    JAX package's ``f_bwd`` fallback in ``_build_qkv`` and, with the CPB term,
+    ``_build_qkv_bias``): (dx, dW, db, dscale, dbias or None) in fp32 (dx in
+    x's dtype).
+
+    In JAX's order: qkv = bf16(x) @ bf16(W) in fp32 + b, cast to x's dtype
+    (K1's rounding of the projection, not ``dense()``'s); q and k normalized
+    per head (:func:`normalize_heads`); K8's backward on (qn, kn, v) -- with
+    the pre-folded CPB term ``badd`` as its bias (softmax-equivalent to the
+    raw bias: K8 subtracts the row max; d(badd) = sum over windows of ds);
+    :func:`normalize_vjp` into bf16; then dx, dW and db from the
+    concatenated bf16 dqkv in plain products (XLA's in JAX). On CUDA tensors
+    K8's backward kernel runs (K2 and K7's backward never launch); on the CPU
+    its plain version.
+    """
+    heads = int(scale.shape[0])
+    c = w_qkv.shape[-1] // 3
+    bf = torch.bfloat16
+    x16 = x.reshape(-1, x.shape[-1]).to(bf)
+    w16 = w_qkv.to(bf)
+    qkv = (matmul_f32(x16, w16) + b_qkv.float()).to(x.dtype).reshape(*x.shape[:-1], 3 * c)
+    qn, inv_q = normalize_heads(qkv[..., :c], heads)
+    kn, inv_k = normalize_heads(qkv[..., c:2 * c], heads)
+    v = qkv[..., 2 * c:]
+    flag = _flag(boundary_flag)
+    if x.device.type == "cpu":
+        grads = window_attention_grid_bias_backward_reference(
+            qn, kn, v, scale, badd, g, window, mask_pattern, boundary_flag)
+    else:
+        args = (qn, kn, v, scale.float().contiguous())
+        g16 = g.to(bf).contiguous()
+        if badd is None:
+            grads = window_attention_grid_bwd(*args, g16, window, mask_pattern, flag)
+        else:
+            grads = window_attention_grid_bias_bwd(*args, badd.float().contiguous(), g16, window,
+                                                   mask_pattern, flag)
+    dqn, dkn, dv, dscale = grads[:4]
+    dqkv = torch.cat([normalize_vjp(qn, inv_q, dqn, heads, bf),
+                      normalize_vjp(kn, inv_k, dkn, heads, bf), dv.to(bf)], dim=-1)
+    d2 = dqkv.reshape(-1, 3 * c)
+    dx = matmul_f32(d2, w16.t()).to(x.dtype).reshape(x.shape)
+    dw = matmul_f32(x16.t(), d2)
+    db = torch.sum(d2.float(), 0)
+    return dx, dw, db, dscale, (None if badd is None else grads[4])
+
+
 class WindowAttentionQKV(torch.autograd.Function):
-    """Forward K1, backward K2 (or their plain versions for CPU tensors).
+    """Forward K1, backward K2 (or their plain versions for CPU tensors); with
+    ``QKV_BWD_IMPL == 'xla'`` the backward is :func:`qkv_xla_backward`.
 
     Saves (x, w_qkv, b_qkv, scale) and nothing larger, like ``_build_qkv``'s
     ``f_fwd``: the backward recomputes the projection and the softmax. The
@@ -489,7 +648,10 @@ class WindowAttentionQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w_qkv, b_qkv, scale = ctx.saved_tensors
-        if x.device.type == "cpu":
+        if qkv_bwd_impl() == "xla":
+            dx, dw, db, dscale, _ = qkv_xla_backward(
+                x, w_qkv, b_qkv, scale, g, ctx.window, ctx.mask_pattern, ctx.boundary_flag)
+        elif x.device.type == "cpu":
             dx, dw, db, dscale = window_attention_qkv_backward_reference(
                 x, w_qkv, b_qkv, scale, g, ctx.window, ctx.mask_pattern, ctx.boundary_flag
             )
@@ -505,7 +667,9 @@ class WindowAttentionQKV(torch.autograd.Function):
 
 
 class WindowAttentionQKVBias(torch.autograd.Function):
-    """Forward and backward of K7 (or their plain versions for CPU tensors).
+    """Forward and backward of K7 (or their plain versions for CPU tensors);
+    with ``QKV_BWD_IMPL == 'xla'`` the backward is :func:`qkv_xla_backward`
+    on the saved badd.
 
     ``bias`` is the pre-folded term badd when ``prefolded`` (the model folds
     it with :func:`fold_cpb_bias`, so the fold's ``- scale`` reaches d(scale)
@@ -536,7 +700,11 @@ class WindowAttentionQKVBias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w_qkv, b_qkv, scale, badd = ctx.saved_tensors
-        if x.device.type == "cpu":
+        if qkv_bwd_impl() == "xla":
+            dx, dw, db, dscale, dbias = qkv_xla_backward(
+                x, w_qkv, b_qkv, scale, g, ctx.window, ctx.mask_pattern, ctx.boundary_flag,
+                badd)
+        elif x.device.type == "cpu":
             dx, dw, db, dscale, dbias = window_attention_qkv_bias_backward_reference(
                 x, w_qkv, b_qkv, scale, badd, g, ctx.window, ctx.mask_pattern,
                 ctx.boundary_flag
@@ -565,12 +733,24 @@ def fused_window_attention_qkv(
 ) -> torch.Tensor:
     """qkv projection + window attention fused: [B,H,W,Cin] -> [B,H,W,C],
     differentiable in x, w_qkv, b_qkv, scale and the CPB bias (K7's route
-    when a bias is given, K1/K2's otherwise)."""
+    when a bias is given, whatever the selected variant, as in JAX; K1/K2's
+    otherwise). ``'v6'`` has another output contract
+    (:func:`fused_window_attention_qkv_padded`) and raises here, as in JAX;
+    ``'v4'``/``'v5'`` are not ported yet."""
     _window_grid(x, window)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_window_attention_qkv: no implementation for device {x.device}")
     mask_pattern = _mask_on(x, mask_pattern)
     if bias is None:
+        sel = qkv_impl()
+        if sel in ("v4", "v5"):
+            raise NotImplementedError(f"fused_window_attention_qkv: impl {sel!r} (the v4/v5 "
+                                      "schedules) is not ported yet")
+        if sel == "v6":
+            raise ValueError(
+                "impl 'v6' returns a padded [B,H,W,heads*128] output; call "
+                "fused_window_attention_qkv_padded (the caller must absorb the padding into "
+                "the following matmul)")
         return WindowAttentionQKV.apply(
             x, w_qkv, b_qkv, scale, tuple(window), mask_pattern, boundary_flag
         )
@@ -580,6 +760,239 @@ def fused_window_attention_qkv(
         x, w_qkv, b_qkv, scale, bias, bool(bias_prefolded), tuple(window), mask_pattern,
         boundary_flag,
     )
+
+
+# ---------------------------------------------------------------------------
+# v6: the padded-head route (K10)
+# ---------------------------------------------------------------------------
+#
+# Counterpart of ``fused_window_attention_qkv_padded`` (``_qkv6_forward`` /
+# ``_qkv6_backward``, custom_vjp ``_build_qkv6``) of the JAX package: v3's math
+# on weights whose per-head columns are zero-padded to 128 lanes, returning
+# [B, H, W, heads * 128] with the pad lanes exactly zero; the caller absorbs
+# the padding into the output projection (:func:`pad_proj_rows`). K10
+# (``csrc/window_attention_qkv.cu``, ``window_attention_qkv_bwd.cu``) computes
+# on the live head-dim lanes only and writes zeros in the pad lanes.
+
+HD_PAD = 128  # the padded head width of the v6 route
+
+
+def pad_heads_w(w_qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """[C_in, 3C] -> [C_in, 3 * heads * 128]: each head's columns zero-padded."""
+    c_in, c3 = w_qkv.shape
+    hd = c3 // 3 // heads
+    w4 = torch.nn.functional.pad(w_qkv.reshape(c_in, 3, heads, hd), (0, HD_PAD - hd))
+    return w4.reshape(c_in, 3 * heads * HD_PAD)
+
+
+def pad_heads_vec(b_qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """[3C] -> [3 * heads * 128], each head's entries zero-padded."""
+    hd = b_qkv.shape[-1] // 3 // heads
+    return torch.nn.functional.pad(b_qkv.reshape(3, heads, hd), (0, HD_PAD - hd)).reshape(-1)
+
+
+def unpad_heads(x: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """[..., heads * 128] -> [..., heads * hd]: the live lanes of each head."""
+    shp = x.shape[:-1]
+    return x.reshape(*shp, heads, HD_PAD)[..., :hd].reshape(*shp, heads * hd)
+
+
+def pad_heads_x(x: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """[..., heads * hd] -> [..., heads * 128], zero-padded per head."""
+    shp = x.shape[:-1]
+    return torch.nn.functional.pad(x.reshape(*shp, heads, hd), (0, HD_PAD - hd)).reshape(
+        *shp, heads * HD_PAD)
+
+
+def pad_proj_rows(w_proj: torch.Tensor, heads: int) -> torch.Tensor:
+    """[heads * hd, F] -> [heads * 128, F]: zero rows for the pad lanes, so
+    ``padded_out @ pad_proj_rows(W) == out @ W`` exactly."""
+    chd, f = w_proj.shape
+    hd = chd // heads
+    w = torch.nn.functional.pad(w_proj.reshape(heads, hd, f), (0, 0, 0, HD_PAD - hd))
+    return w.reshape(heads * HD_PAD, f)
+
+
+def window_attention_qkv_padded_reference(x, wp, bp, scale, hd, window, mask_pattern=None,
+                                          boundary_flag=None):
+    """Plain version of K10's forward: x [B, H, W, C_in], wp [C_in, 3 * heads
+    * 128], bp [3 * heads * 128] (head-padded), scale [heads], the live head
+    dim ``hd`` -> [B, H, W, heads * 128] with the pad lanes exactly zero. v3's
+    sites (:func:`window_attention_qkv_reference`) on the live lanes."""
+    heads = int(scale.shape[0])
+    out = window_attention_qkv_reference(x, unpad_heads(wp, 3 * heads, hd),
+                                         unpad_heads(bp, 3 * heads, hd), scale, window,
+                                         mask_pattern, boundary_flag)
+    return pad_heads_x(out, heads, hd)
+
+
+def window_attention_qkv_padded_backward_reference(x, wp, bp, scale, hd, g, window,
+                                                   mask_pattern=None, boundary_flag=None):
+    """Plain version of K10's backward: (dx, dWp [C_in, 3 * heads * 128], dbp
+    [3 * heads * 128], dscale), g [B, H, W, heads * 128] (its pad lanes are
+    not read); the pad columns of dWp and dbp exactly zero. v3's sites
+    (:func:`window_attention_qkv_backward_reference`) on the live lanes."""
+    heads = int(scale.shape[0])
+    dx, dw, db, dscale = window_attention_qkv_backward_reference(
+        x, unpad_heads(wp, 3 * heads, hd), unpad_heads(bp, 3 * heads, hd), scale,
+        unpad_heads(g, heads, hd), window, mask_pattern, boundary_flag)
+    return dx, pad_heads_w(dw, heads), pad_heads_vec(db, heads), dscale
+
+
+def _check_padded_operands(name, x, wp, bp, scale, hd, window, mask_pattern, g=None):
+    """-> (b, h, w, c_in, heads, wh, ww, l); raises on a shape K10 does not take."""
+    if x.device.type != "cuda" or x.dim() != 4:
+        raise ValueError(f"{name}: x must be a 4-D CUDA tensor, got {x.dim()}-D on {x.device}")
+    b, h, w, c_in = x.shape
+    wh, ww = int(window[0]), int(window[1])
+    _window_grid(x, window)
+    heads, l, dev = int(scale.shape[0]), wh * ww, x.device
+    cp = heads * HD_PAD
+    _build.check_operand(name, "x", x, torch.bfloat16, (b, h, w, c_in), dev)
+    _build.check_operand(name, "wp", wp, torch.bfloat16, (c_in, 3 * cp), dev)
+    _build.check_operand(name, "bp", bp, torch.float32, (3 * cp,), dev)
+    _build.check_operand(name, "scale", scale, torch.float32, (heads,), dev)
+    if g is not None:
+        _build.check_operand(name, "g", g, torch.bfloat16, (b, h, w, cp), dev)
+    if mask_pattern is not None:
+        _build.check_operand(name, "mask_pattern", mask_pattern, torch.float32, (l, l), dev)
+    sm = qkv_smem_bytes(hd, l)["bwd" if g is not None else "fwd"]
+    if hd not in (32, 64, 96, 128) or c_in % 32 or l > 256 or sm > _MAX_SMEM:
+        raise ValueError(f"{name}: needs head dim in (32, 64, 96, 128), C_in % 32 == 0, L <= 256 "
+                         f"and {sm} B of shared memory <= {_MAX_SMEM}; got head dim {hd}, "
+                         f"C_in={c_in}, L={l}")
+    return b, h, w, c_in, heads, wh, ww, l
+
+
+def window_attention_qkv_padded(x, wp, bp, scale, hd, window, mask_pattern=None,
+                                boundary_flag=1.0):
+    """K10's forward kernel: x [B, H, W, C_in] bf16, wp [C_in, 3 * heads * 128]
+    bf16, bp [3 * heads * 128] fp32, scale [heads] fp32, the live head dim
+    ``hd`` (32/64/96/128), mask_pattern [L, L] fp32 or None -> [B, H, W,
+    heads * 128] bf16, pad lanes zero. Launches on the current stream."""
+    name = "window_attention_qkv_padded"
+    b, h, w, c_in, heads, wh, ww, _ = _check_padded_operands(name, x, wp, bp, scale, hd, window,
+                                                             mask_pattern)
+    out = torch.empty((b, h, w, heads * HD_PAD), dtype=torch.bfloat16, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.swin_window_attention_qkv_padded_fwd(
+            x.data_ptr(), wp.data_ptr(), bp.data_ptr(), scale.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
+            out.data_ptr(), b, h, w, c_in, heads, hd, wh, ww, stream)
+    _build.check(code, name)
+    window_attention_qkv_padded.launches += 1
+    return out
+
+
+window_attention_qkv_padded.launches = 0
+
+
+def window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, window, mask_pattern=None,
+                                    boundary_flag=1.0):
+    """K10's backward kernels: the operands of :func:`window_attention_qkv_padded`
+    and g [B, H, W, heads * 128] bf16 -> (dx [B, H, W, C_in] bf16, dWp [C_in,
+    3 * heads * 128], dbp [3 * heads * 128] with exact-zero pad columns, dscale
+    [heads], all fp32 but dx). Summed in a fixed order: two calls give the
+    same bits."""
+    name = "window_attention_qkv_padded_bwd"
+    b, h, w, c_in, heads, wh, ww, _ = _check_padded_operands(name, x, wp, bp, scale, hd, window,
+                                                             mask_pattern, g)
+    dev, t, n = x.device, b * h * w, 3 * heads * HD_PAD
+    dw_splits = max(1, min(16, -(-t // 2048)))
+    db_splits = max(1, min(64, -(-t // 512)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dqkv = torch.empty((b, h, w, n), dtype=torch.bfloat16, device=dev)
+    dw_part = torch.empty((dw_splits, c_in, n), **f32)
+    db_part = torch.empty((db_splits, n), **f32)
+    dscale_part = torch.empty((b * (h // wh) * (w // ww), heads), **f32)
+    dx = torch.empty_like(x)
+    dwp, dbp, dscale = torch.empty((c_in, n), **f32), torch.empty((n,), **f32), torch.empty(
+        (heads,), **f32)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.swin_window_attention_qkv_padded_bwd(
+            x.data_ptr(), wp.data_ptr(), bp.data_ptr(), scale.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
+            g.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+            dscale_part.data_ptr(), dx.data_ptr(), dwp.data_ptr(), dbp.data_ptr(),
+            dscale.data_ptr(), b, h, w, c_in, heads, hd, wh, ww, dw_splits, db_splits, stream)
+    _build.check(code, name)
+    window_attention_qkv_padded_bwd.launches += 1
+    return dx, dwp, dbp, dscale
+
+
+window_attention_qkv_padded_bwd.launches = 0
+
+
+class WindowAttentionQKVPadded(torch.autograd.Function):
+    """K10 forward and backward (or their plain versions for CPU tensors).
+    Saves (x, w_qkv, b_qkv, scale), as ``_build_qkv6``'s ``f_fwd`` does; the
+    weights are padded in both passes and the padded weight gradients
+    unpadded before they leave (dW, db in the dtypes of w_qkv, b_qkv)."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag):
+        ctx.save_for_backward(x, w_qkv, b_qkv, scale)
+        ctx.window, ctx.mask_pattern, ctx.boundary_flag = window, mask_pattern, boundary_flag
+        heads = int(scale.shape[0])
+        hd = w_qkv.shape[-1] // 3 // heads
+        wp = pad_heads_w(w_qkv.to(torch.bfloat16), heads)
+        bp = pad_heads_vec(b_qkv.float(), heads)
+        if x.device.type == "cpu":
+            return window_attention_qkv_padded_reference(x, wp, bp, scale, hd, window,
+                                                         mask_pattern, boundary_flag)
+        return window_attention_qkv_padded(x.contiguous(), wp.contiguous(), bp.contiguous(),
+                                           scale.float().contiguous(), hd, window, mask_pattern,
+                                           _flag(boundary_flag))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_qkv, b_qkv, scale = ctx.saved_tensors
+        heads = int(scale.shape[0])
+        hd = w_qkv.shape[-1] // 3 // heads
+        wp = pad_heads_w(w_qkv.to(torch.bfloat16), heads)
+        bp = pad_heads_vec(b_qkv.float(), heads)
+        if x.device.type == "cpu":
+            dx, dwp, dbp, dscale = window_attention_qkv_padded_backward_reference(
+                x, wp, bp, scale, hd, g, ctx.window, ctx.mask_pattern, ctx.boundary_flag)
+        else:
+            dx, dwp, dbp, dscale = window_attention_qkv_padded_bwd(
+                x.contiguous(), wp.contiguous(), bp.contiguous(), scale.float().contiguous(), hd,
+                g.to(torch.bfloat16).contiguous(), ctx.window, ctx.mask_pattern,
+                _flag(ctx.boundary_flag))
+        dw = unpad_heads(dwp, 3 * heads, hd).reshape(w_qkv.shape)
+        db = unpad_heads(dbp, 3 * heads, hd).reshape(b_qkv.shape)
+        return (dx, dw.to(w_qkv.dtype), db.to(b_qkv.dtype), dscale.to(scale.dtype), None, None,
+                None)
+
+
+def fused_window_attention_qkv_padded(
+    x: torch.Tensor,  # [B, H, W, C_in] (already rolled for shifted blocks)
+    w_qkv: torch.Tensor,  # [C_in, 3C]
+    b_qkv: torch.Tensor,  # [3C]
+    scale: torch.Tensor,  # [heads]
+    window: Tuple[int, int],
+    mask_pattern=None,  # [L, L] boundary-row mask (array or tensor) or None
+    boundary_flag=None,  # scalar gate on the mask (spatial sharding)
+) -> torch.Tensor:
+    """v6 qkv-fused window attention: [B, H, W, C_in] -> [B, H, W, heads * 128],
+    each head at a 128-lane offset with the pad lanes exactly zero; absorb
+    the padding into the next matmul with :func:`pad_proj_rows`.
+    Differentiable in x, w_qkv, b_qkv and scale (K10 on CUDA tensors, its
+    plain versions on CPU tensors)."""
+    _window_grid(x, window)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_window_attention_qkv_padded: no implementation for device "
+                         f"{x.device}")
+    heads = int(scale.shape[0])
+    hd = int(w_qkv.shape[-1]) // 3 // heads
+    if hd > HD_PAD:
+        raise ValueError(f"head_dim {hd} > {HD_PAD} unsupported by the v6 kernel")
+    return WindowAttentionQKVPadded.apply(x, w_qkv, b_qkv, scale, tuple(window),
+                                          _mask_on(x, mask_pattern), boundary_flag)
 
 
 # ---------------------------------------------------------------------------
@@ -828,8 +1241,6 @@ def window_attention_v1_bias_backward_reference(q, k, v, scale, bias, g, window_
 
 
 # --- the CUDA kernels (csrc/qkv_attention.cuh, window_attention_{grid,v1}.cu) ---
-
-_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
 
 
 def _check_qkv_dims(name, hd, heads, l):

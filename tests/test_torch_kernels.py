@@ -7,9 +7,13 @@ version and gradients flowing through the kernels. The kernels: window
 attention (K1, K2, and K7, their CPB-bias instances), fc1 + GELU (K3, K4),
 the whole MLP (K5, K6), the fused LayerNorm + drop-path + add (K11), and the
 attention on pre-projected q, k, v of the grid route (K8) and the windowed
-route (K9), each with its bias instance. The CPU parity tests of K7, K11, K8
-and K9 are in tests/test_torch_cpb.py, tests/test_torch_lnadd.py,
-tests/test_torch_grid_attention.py and tests/test_torch_v1_attention.py.
+route (K9), each with its bias instance; then the e2048 widths (the
+large-head variant of K1/K2/K7, K5's wide instance, K11 above 2048
+channels), K10 and the micro model on v6 and the xla backward. The CPU
+parity tests of K7, K11, K8, K9, K10 and the wide shapes are in
+tests/test_torch_cpb.py, tests/test_torch_lnadd.py,
+tests/test_torch_grid_attention.py, tests/test_torch_v1_attention.py,
+tests/test_torch_qkv_variants.py and tests/test_torch_wide.py.
 
 Tolerances are stated in bf16 ulps of the output scale: ``ulp(m)`` is the bf16
 spacing at the largest reference magnitude ``m``. Both sides keep the same
@@ -747,11 +751,12 @@ def test_window_attention_bias_kernels_match_plain(cuda_device, use_mask):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t, c", [(100, 256), (2600, 768)])
+@pytest.mark.parametrize("t, c", [(100, 256), (2600, 768), (100, 4096), (2600, 2176)])
 def test_ln_dp_add_kernels_match_plain(cuda_device, t, c):
     """K11 forward and backward against their plain versions on the card, at a
-    ragged row count (not a multiple of a block's 8 rows) and the flagship
-    width, with m mixed between 0, 1 and 1/keep. Both sides round at the same
+    ragged row count (not a multiple of a block's 8 rows), the flagship width
+    and rows wider than 2048 (the streamed entry points), with m mixed
+    between 0, 1 and 1/keep. Both sides round at the same
     sites; the statistics' fp32 sums differ in order, which now and then flips
     one bf16 rounding (1 ulp). dgamma/dbeta are fp32 sums over the rows in
     another order (rtol 1e-5). Two backward calls give the same bits."""
@@ -988,5 +993,211 @@ def test_route_micro_model_kernel_path_matches_cpu_plain_path(cuda_device, route
         for suffix in ("", "_bwd"):
             want[QKV_KERNELS.index(getattr(WA, f"window_attention_{kind}{suffix}"))] = depth
     assert launches == want
+    assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
+    assert_micro_grads_close(ref_grads, grads, noisy=("logit_scale",))
+
+
+# --------------------------------------------------------------------------
+# the e2048 widths (large-head K1/K2/K7, wide K5, K6), K10 and the xla
+# backward on the GPU
+# --------------------------------------------------------------------------
+
+
+def large_head_operands(dev, hd, heads=2, seed=31):
+    """Seeded operands at L = 162 (window 9 x 18 on the 18 x 36 grid) and head
+    dim ``hd``: x, w (fp32 and bf16), b, scale, g, a shifted mask and a folded
+    CPB term."""
+    rng = np.random.default_rng(seed)
+    c = heads * hd
+    x = torch.from_numpy(rng.standard_normal((B, H, W, c)).astype(np.float32)).to(dev).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((c, 3 * c)) / np.sqrt(c)).astype(np.float32)).to(dev)
+    b = torch.from_numpy((0.1 * rng.standard_normal(3 * c)).astype(np.float32)).to(dev)
+    scale = torch.from_numpy(np.exp(np.log(10.0) + 0.3 * rng.standard_normal(heads)).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, H, W, c)).astype(np.float32)).to(dev).bfloat16()
+    l = WINDOW[0] * WINDOW[1]
+    raw = torch.from_numpy((2.0 * rng.standard_normal((heads, l, l))).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(mask_pattern()).to(dev)
+    return x, w, w.bfloat16(), b, scale, g, mask, window_attention.fold_cpb_bias(raw, scale)
+
+
+def assert_dscale_close(out, ref):
+    """dscale: a sum of <qn16, dqn> over every query row with heavy
+    cancellation; held to 1 % of the largest |ref| entry plus 1e-2 relative."""
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    np.testing.assert_allclose(out, ref, rtol=1e-2, atol=1e-2 * np.abs(ref).max() + 4e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_large_head_kernels_match_plain(cuda_device, hd, use_bias):
+    """K1/K2 (and K7 with the bias) at head dim 128 and 256 with L = 162, where
+    the large-head variant takes the backward (both at 256): forward and
+    backward against the plain versions, the launch counted on the usual
+    wrapper, two backward calls bit-equal."""
+    x, w, w16, b, scale, g, mask, badd = large_head_operands(cuda_device, hd)
+    assert WA.qkv_variant("t", hd, 162, True) == "large"
+    assert WA.qkv_variant("t", hd, 162, False) == ("base" if hd == 128 else "large")
+    extra = (badd,) if use_bias else ()
+    kind = "window_attention_qkv" + ("_bias" if use_bias else "")
+    fwd, bwd = getattr(WA, kind), getattr(WA, kind + "_bwd")
+    before = launch_counts()
+    out = fwd(x, w16, b, scale, *extra, WINDOW, mask, 1.0)
+    grads = bwd(x, w16, b, scale, *extra, g, WINDOW, mask, 1.0)
+    torch.cuda.synchronize()
+    want = list(before)
+    want[QKV_KERNELS.index(fwd)] += 1
+    want[QKV_KERNELS.index(bwd)] += 1
+    assert launch_counts() == want
+    ref = getattr(WA, kind + "_reference")(x, w, b, scale, *extra, WINDOW, mask)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    ref_grads = getattr(WA, kind + "_backward_reference")(x, w16, b, scale, *extra, g, WINDOW, mask)
+    assert grads[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in grads[1:])
+    for name, a, r in zip(("dx", "dW", "db", "dscale", "dbias"), grads, ref_grads):
+        if name == "dscale":
+            assert_dscale_close(a.cpu().numpy(), r.cpu().numpy())
+        elif name == "dx":
+            # each dx entry sums 3C = 1536 (head dim 256) products of bf16
+            # dqkv entries, so a flip of one of them reaches dx more often
+            # than at C = 64 (measured 0.015 ulp mean at head dim 256): the
+            # bound chip_smoke.py holds K2 to at the flagship shape
+            assert_close_ulps(a.float().cpu().numpy(), r.float().cpu().numpy(), 2, 0.05)
+        else:
+            assert_close_backward(name, a.float().cpu().numpy(), r.float().cpu().numpy())
+    again = bwd(x, w16, b, scale, *extra, g, WINDOW, mask, 1.0)
+    for a, r in zip(grads, again):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_qkv_kernels_refuse_shapes_no_instance_takes(cuda_device):
+    """A head dim or window that no instance takes raises a ValueError before
+    any launch: head dim 96 at L = 256 (no instance fits its shared memory),
+    head dim 192."""
+    before = launch_counts()
+    for hd, window, grid in ((96, (16, 16), (16, 16)), (192, WINDOW, (H, W))):
+        c = 2 * hd
+        x = torch.zeros((1, *grid, c), device=cuda_device, dtype=torch.bfloat16)
+        w = torch.zeros((c, 3 * c), device=cuda_device, dtype=torch.bfloat16)
+        b = torch.zeros(3 * c, device=cuda_device)
+        scale = torch.ones(2, device=cuda_device)
+        with pytest.raises(ValueError):
+            WA.window_attention_qkv(x, w, b, scale, window)
+        with pytest.raises(ValueError):
+            WA.window_attention_qkv_bwd(x, w, b, scale, x[..., :c], window)
+    assert launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in, hidden, c_out", [(2048, 4096, 2048), (256, 512, 1024)])
+def test_wide_mlp_kernels_match_plain(cuda_device, c_in, hidden, c_out):
+    """K5's wide instance (output columns tiled across blocks, x streamed in
+    K-slices) and K6 at the e2048 widths and at C_out = 1024 (not a multiple
+    of 768: a ragged last column tile), at a ragged T = 100, against their
+    plain versions (the bounds of the narrow test)."""
+    assert mlp_kernels.mlp_fwd_variant(c_in, c_out) == "wide"
+    rng = np.random.default_rng(41)
+    t = 100
+    x2 = torch.from_numpy(rng.standard_normal((t, c_in)).astype(np.float32)).to(cuda_device)
+    w1 = torch.from_numpy((rng.standard_normal((c_in, hidden)) / np.sqrt(c_in)).astype(
+        np.float32)).to(cuda_device)
+    b1 = torch.from_numpy((0.1 * rng.standard_normal(hidden)).astype(np.float32)).to(cuda_device)
+    w2 = torch.from_numpy((rng.standard_normal((hidden, c_out)) / np.sqrt(hidden)).astype(
+        np.float32)).to(cuda_device)
+    b2 = torch.from_numpy((0.1 * rng.standard_normal(c_out)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((t, c_out)).astype(np.float32)).to(cuda_device)
+    x2, g = x2.bfloat16(), g.bfloat16()
+    launches = (mlp_kernels.mlp_fwd.launches, mlp_kernels.mlp_bwd.launches)
+    out = mlp_kernels.mlp_fwd(x2, w1.bfloat16(), b1, w2.bfloat16(), b2)
+    a, dpre = mlp_kernels.mlp_bwd(x2, w1.bfloat16(), b1, w2.bfloat16(), g)
+    torch.cuda.synchronize()
+    assert (mlp_kernels.mlp_fwd.launches, mlp_kernels.mlp_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    ref = mlp_kernels.mlp_fwd_reference(x2, w1, b1, w2, b2)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.02)
+    a_ref, dpre_ref = mlp_kernels.mlp_bwd_reference(x2, w1, b1, w2, g)
+    assert_close_ulps(a.float().cpu().numpy(), a_ref.float().cpu().numpy(), 1, 0.01)
+    assert_close_ulps(dpre.float().cpu().numpy(), dpre_ref.float().cpu().numpy(), 2, 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [dict(), dict(h=180, w=360, c=768, heads=8)])
+def test_padded_kernels_match_plain(cuda_device, shape):
+    """K10 forward and backward at a small shape (head dim 32, L = 162) and
+    the flagship shape (8 heads of 96), shifted, against their plain versions:
+    out's pad lanes and dWp's / dbp's pad columns exactly zero, g's pad lanes
+    random (never read), two backward calls bit-equal, K1/K2 not launched."""
+    rng = np.random.default_rng(51)
+    h, w, c, heads = shape.get("h", H), shape.get("w", W), shape.get("c", C), shape.get("heads",
+                                                                                       HEADS)
+    hd = c // heads
+    dev = cuda_device
+    x = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev).bfloat16()
+    wq = torch.from_numpy((rng.standard_normal((c, 3 * c)) / np.sqrt(c)).astype(np.float32))
+    bq = torch.from_numpy((0.1 * rng.standard_normal(3 * c)).astype(np.float32))
+    wp = WA.pad_heads_w(wq, heads).to(dev).bfloat16()
+    bp = WA.pad_heads_vec(bq, heads).to(dev)
+    scale = torch.from_numpy(np.exp(np.log(10.0) + 0.3 * rng.standard_normal(heads)).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((1, h, w, heads * 128)).astype(np.float32)).to(
+        dev).bfloat16()
+    mask = torch.from_numpy(make_shift_mask((h, w), WINDOW, (4, 9))[-1].copy()).to(dev)
+    fns = (WA.window_attention_qkv_padded, WA.window_attention_qkv_padded_bwd,
+           WA.window_attention_qkv, WA.window_attention_qkv_bwd)
+    before = [f.launches for f in fns]
+    out = WA.window_attention_qkv_padded(x, wp, bp, scale, hd, WINDOW, mask, 1.0)
+    grads = WA.window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, WINDOW, mask, 1.0)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 0, 0]
+    pad = out.reshape(1, h, w, heads, 128)[..., hd:]
+    assert torch.count_nonzero(pad).item() == 0
+    ref = WA.window_attention_qkv_padded_reference(x, wp, bp, scale, hd, WINDOW, mask)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    ref_grads = WA.window_attention_qkv_padded_backward_reference(x, wp, bp, scale, hd, g, WINDOW,
+                                                                  mask)
+    dwp, dbp = grads[1].reshape(c, 3, heads, 128), grads[2].reshape(3, heads, 128)
+    assert torch.count_nonzero(dwp[..., hd:]).item() == 0
+    assert torch.count_nonzero(dbp[..., hd:]).item() == 0
+    for name, a, r in zip(("dx", "dW", "db", "dscale"), grads, ref_grads):
+        if name == "dscale":
+            assert_dscale_close(a.cpu().numpy(), r.cpu().numpy())
+        else:
+            assert_close_backward(name, a.float().cpu().numpy(), r.float().cpu().numpy())
+    again = WA.window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, WINDOW, mask, 1.0)
+    for a, r in zip(grads, again):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch, value", [("QKV_IMPL", "v6"), ("QKV_BWD_IMPL", "xla")])
+def test_qkv_variant_micro_model_launch_counts(cuda_device, monkeypatch, switch, value):
+    """The micro config on ``pallas_qkv`` with v6 (K10 forward and backward
+    once a block, K1/K2 never) or with the xla backward (K1 and K8's backward
+    once a block, K2 never), on the GPU against the same model on the CPU
+    (plain versions): the eval forward (8 ulps max, 0.5 mean) and the
+    parameter gradients (``assert_micro_grads_close``)."""
+    monkeypatch.setattr(WA, switch, value)
+    fns = (WA.window_attention_qkv_padded, WA.window_attention_qkv_padded_bwd,
+           WA.window_attention_qkv, WA.window_attention_qkv_bwd, WA.window_attention_grid_bwd)
+    ref, ref_grads, out, grads, depth, launches = micro_model_cpu_and_gpu(
+        cuda_device, dict(attn_impl="pallas_qkv"), fns)
+    assert launches == ([depth, depth, 0, 0, 0] if value == "v6" else [0, 0, depth, 0, depth])
+    assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
+    assert_micro_grads_close(ref_grads, grads, noisy=("logit_scale",))
+
+
+@pytest.mark.cuda
+def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
+    """The micro config at embed 1024 with 4 heads of 256 and mlp_ratio 2 on
+    ``fused2`` (large-head K1/K2, wide K5, K6 at C_out 1024) on the GPU against
+    the same model on the CPU: the eval forward and the parameter gradients,
+    each kernel once a block."""
+    over = dict(attn_impl="pallas_qkv", embed_dim=1024, num_heads=4, mlp_ratio=2,
+                mlp_impl="fused2")
+    fns = (WA.window_attention_qkv, WA.window_attention_qkv_bwd, mlp_kernels.mlp_fwd,
+           mlp_kernels.mlp_bwd)
+    ref, ref_grads, out, grads, depth, launches = micro_model_cpu_and_gpu(cuda_device, over, fns)
+    assert launches == [depth] * 4
     assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
     assert_micro_grads_close(ref_grads, grads, noisy=("logit_scale",))

@@ -71,6 +71,21 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
     assert after == before
 
 
+def test_every_bound_entry_point_is_defined_once_with_its_arity():
+    """Each C entry point the ctypes binding types (``_build._SIGNATURES``) is
+    defined exactly once in ``ops/csrc`` with as many parameters as the
+    binding passes: a mismatch would shift every later argument."""
+    import re
+
+    from swin_v2_weather_torch.ops import _build
+
+    text = "".join(pathlib.Path(p).read_text() for p in _build.sources())
+    for name, argtypes in _build._SIGNATURES.items():
+        found = re.findall(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert len(found) == 1, name
+        assert found[0].count(",") + 1 == len(argtypes), name
+
+
 def test_config_file_is_shared():
     assert os.path.samefile(yparams.default_config_path(), jax_yparams.default_config_path())
 
