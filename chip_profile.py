@@ -34,10 +34,14 @@ two warm-up steps:
   * train v6: the flagship with ``QKV_IMPL = 'v6'`` (K10 and the padded
     proj); train xla-bwd: the flagship with ``QKV_BWD_IMPL = 'xla'`` (K1,
     then K8's backward inside the plain qkv recompute and projection chain);
+    train v5, train v4, train v4 padded: the flagship with ``QKV_IMPL`` 'v5'
+    or 'v4' (K12; the padded v4 with ``QKV_PAD_HEADS``);
   * rollout e2048 and train e2048: ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar``
     (embed 2048, 8 heads of 256, mlp_ratio 2, depth 24; the large-head
     attention variant and K5's wide instance), serving at 720 x 1440 and
-    training at the image [360, 720] with window 9 x 18.
+    training at the image [360, 720] with window 9 x 18; train e2048 grid and
+    train e2048 v1: the same on the grid and windowed routes (K8/K9's
+    large-head variant).
 
 it prints the ms/step by CUDA events without the profiler; the host time of
 one step's own work (train: the step's enqueue, with no sync in it; rollout:
@@ -53,6 +57,7 @@ import collections
 import datetime
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,8 +67,37 @@ import torch
 START = datetime.datetime(2018, 1, 1, 0, 0)
 N_STEPS = 3  # profiled (and, before that, event-timed) steps per path
 
+def qkv_args(name: str, kernel: str):
+    """The template arguments (head dim, BIAS, head pitch, variant) of a K1
+    or K2 template instance (``window_attention_qkv_kernel``,
+    ``attention_bwd_kernel``), or None. Variant 0 is v3 (K1/K2, K7, K10), 1
+    K12 v5, 2 K12 v4."""
+    m = re.search(kernel + r"<(\d+), (\w+), (\d+), (\d)>", name)
+    return None if m is None else (int(m[1]), m[2], int(m[3]), int(m[4]))
+
+
+def k12(name: str, kernel: str, var: int, padded: bool) -> bool:
+    a = qkv_args(name, kernel)
+    return a is not None and a[3] == var and (a[2] != a[0]) == padded
+
+
 # (category, test on the kernel's name), first match wins
 CATEGORIES = (
+    # the large-head variant of K8/K9 (namespace swin_qkv_attn_large; template
+    # arguments <HD, LAYOUT, BIAS>, layout 0 the grid)
+    ("K8 large forward", lambda n: "swin_qkv_attn_large::large_fwd_kernel<" in n and ", 0, " in n),
+    ("K9 large forward", lambda n: "swin_qkv_attn_large::large_fwd_kernel<" in n),
+    ("K8 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n and ", 0, " in n),
+    ("K9 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n),
+    ("K9 large normalization", lambda n: "swin_qkv_attn_large::normalize_kernel" in n),
+    # K12 (K1/K2's templates with the variant argument 1 = v5, 2 = v4)
+    ("K12 v5 forward", lambda n: k12(n, "window_attention_qkv_kernel", 1, False)),
+    ("K12 v5 attention pass", lambda n: k12(n, "attention_bwd_kernel", 1, False)),
+    ("K12 v4 forward", lambda n: k12(n, "window_attention_qkv_kernel", 2, False)),
+    ("K12 v4 attention pass", lambda n: k12(n, "attention_bwd_kernel", 2, False)),
+    ("K12 padded v4 forward", lambda n: k12(n, "window_attention_qkv_kernel", 2, True)),
+    ("K12 padded v4 attention pass", lambda n: k12(n, "attention_bwd_kernel", 2, True)),
+    ("K13 consume", lambda n: "consume_kernel" in n),
     # K8/K9 first: K2/K7's name tests below also match their kernels' names
     ("K8 backward", lambda n: "qkv_attention_bwd_kernel<" in n and ", 0, " in n),
     ("K9 backward", lambda n: "qkv_attention_bwd_kernel<" in n),
@@ -75,10 +109,8 @@ CATEGORIES = (
     ("large K1/K2: normalization", lambda n: "normalize_qk_kernel" in n),
     ("large K1 attention", lambda n: "large_fwd_kernel" in n),
     ("large K2 attention", lambda n: "large_bwd_rows_kernel" in n or "large_bwd_cols_kernel" in n),
-    ("K10 forward", lambda n: "window_attention_qkv_kernel<" in n and ", 128>" in n
-     and "<128," not in n),
-    ("K10 attention pass", lambda n: "attention_bwd_kernel<" in n and ", 128>" in n
-     and "<128," not in n),
+    ("K10 forward", lambda n: k12(n, "window_attention_qkv_kernel", 0, True)),
+    ("K10 attention pass", lambda n: k12(n, "attention_bwd_kernel", 0, True)),
     # template arguments <HD, BIAS, head pitch>: BIAS true is K7
     ("K7 attention pass", lambda n: "attention_bwd_kernel<" in n and ", true," in n),
     ("K7 dbias reduction", lambda n: "dbias_reduce_kernel" in n),
@@ -299,20 +331,29 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- train steps: single-step, the 2-step fine-tune, the CPB family ------
-    # (label, config, overrides, qkv switches (QKV_IMPL, QKV_BWD_IMPL))
+    # (label, config, overrides, qkv switches (QKV_IMPL, QKV_BWD_IMPL, QKV_PAD_HEADS))
     from swin_v2_weather_torch.ops import window_attention as wa
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
     for label, config, over, switches in (
-            ("train", chip_smoke.CONFIG, None, ("v3", "pallas")),
-            ("train 2-step", chip_smoke.CONFIG_2STEP, None, ("v3", "pallas")),
-            ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB, ("v3", "pallas")),
-            ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD, ("v3", "pallas")),
-            ("train grid", chip_smoke.CONFIG, chip_smoke.GRID_ROUTE, ("v3", "pallas")),
-            ("train v1", chip_smoke.CONFIG, chip_smoke.V1_ROUTE, ("v3", "pallas")),
-            ("train v6", chip_smoke.CONFIG, None, ("v6", "pallas")),
-            ("train xla-bwd", chip_smoke.CONFIG, None, ("v3", "xla")),
-            ("train e2048", chip_smoke.CONFIG_E2048, chip_smoke.E2048_TRAIN, ("v3", "pallas"))):
-        wa.QKV_IMPL, wa.QKV_BWD_IMPL = switches
+            ("train", chip_smoke.CONFIG, None, ("v3", "pallas", False)),
+            ("train 2-step", chip_smoke.CONFIG_2STEP, None, ("v3", "pallas", False)),
+            ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB, ("v3", "pallas", False)),
+            ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD, ("v3", "pallas", False)),
+            ("train grid", chip_smoke.CONFIG, chip_smoke.GRID_ROUTE, ("v3", "pallas", False)),
+            ("train v1", chip_smoke.CONFIG, chip_smoke.V1_ROUTE, ("v3", "pallas", False)),
+            ("train v6", chip_smoke.CONFIG, None, ("v6", "pallas", False)),
+            ("train xla-bwd", chip_smoke.CONFIG, None, ("v3", "xla", False)),
+            ("train v5", chip_smoke.CONFIG, None, ("v5", "pallas", False)),
+            ("train v4", chip_smoke.CONFIG, None, ("v4", "pallas", False)),
+            ("train v4 padded", chip_smoke.CONFIG, None, ("v4", "pallas", True)),
+            ("train e2048", chip_smoke.CONFIG_E2048, chip_smoke.E2048_TRAIN,
+             ("v3", "pallas", False)),
+            ("train e2048 grid", chip_smoke.CONFIG_E2048,
+             {**chip_smoke.E2048_TRAIN, **chip_smoke.GRID_ROUTE}, ("v3", "pallas", False)),
+            ("train e2048 v1", chip_smoke.CONFIG_E2048,
+             {**chip_smoke.E2048_TRAIN, **chip_smoke.V1_ROUTE}, ("v3", "pallas", False))):
+        wa.QKV_IMPL, wa.QKV_BWD_IMPL, v45.QKV_PAD_HEADS = switches
         params = chip_smoke.train_params(config, over)
         model = get_model(params)
         # the e2048 weights (943.5 M) are drawn on the card, the others on the CPU as before
@@ -325,7 +366,8 @@ def main() -> None:
         )
         batch = collate([SyntheticDataset(params)[0]], device=dev)
         log(f"[{label}] {config} {over or ''}, QKV_IMPL {switches[0]}, QKV_BWD_IMPL "
-            f"{switches[1]}, batch 1, drop_path_rate {params.drop_path_rate}")
+            f"{switches[1]}, QKV_PAD_HEADS {switches[2]}, batch 1, drop_path_rate "
+            f"{params.drop_path_rate}")
         torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
             train_step(batch)
@@ -351,7 +393,7 @@ def main() -> None:
                 f"one block's forward): {layout_moves_ms(dev, 10):.3f} ms ({card})")
         del model, train_step, batch
         torch.cuda.empty_cache()
-    wa.QKV_IMPL, wa.QKV_BWD_IMPL = "v3", "pallas"
+    wa.QKV_IMPL, wa.QKV_BWD_IMPL, v45.QKV_PAD_HEADS = "v3", "pallas", False
 
 
 if __name__ == "__main__":

@@ -118,24 +118,58 @@ printing its own lines:
      backward 12 times a step, K2 never; then 2 CPB train steps: K7's forward
      and K8's BIAS backward 12 times a step, K7's backward never; step 1 of
      each against the plain path.
+ 33. K8 and K9 (bias-free and BIAS) at head dims 128 (8 heads, C = 1024)
+     and 256 (the e2048 tensors, [1, 180, 360, 2048]) with L = 162, shifted,
+     forward and backward against their plain versions (the large-head
+     variant where the one-block instance does not fit); two backward calls
+     bit-equal; timed beside ``scaled_dot_product_attention`` on the same
+     windowed tensors.
+ 34. the e2048 family at [360, 720] on ``attn_impl: 'pallas'`` and then
+     ``'pallas_v1'``: 2 train steps each, K8 (or K9) forward and backward
+     and K5/K6 24 times a step; step 1 against the plain path; every
+     parameter moved; ms/step and peak memory.
+ 35. K12 at the flagship shape (x [1, 180, 360, 768], W_qkv [768, 2304], 8
+     heads of 96, window 9 x 18, shifted): v5, v4 (window-major rows) and the
+     padded v4, forward and backward against their plain versions; v5 bit-
+     equal to K1/K2 of the same inputs; dxw's pad rows and the padded v4's pad
+     lanes and pad columns exactly zero; two backward calls bit-equal; timed
+     beside K1/K2 of phases 3 and 7.
+ 36. the flagship with ``QKV_IMPL`` 'v5', 'v4', then 'v4' with
+     ``QKV_PAD_HEADS``: 2 rollout steps and 3 train steps each, the selected
+     K12 kernel 12 times forward (and backward) a step, K1/K2 never; step 1
+     against the plain path; ms/step, samples/s and peak memory; then two
+     CPB train steps with ``QKV_IMPL = 'v4'``: K7 12 times a step, K12 never.
+ 37. K13: ``consume`` bit-exact to its plain version at [3, 1, 400, 8, 168,
+     96], timed beside ``torch.sum(s, 0)``; then the prestage probe
+     (``swin_v2_weather_torch.scripts.prestage_probe.probe``): the round trip
+     and ``consume`` alone, each beside its byte bound.
+
+Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
+and K7's plain versions at e2048.
 
 Then one JSON line with each kernel's results: ``launches`` on the main path
 of the slice that brought it (K1, K2, K5, K6: the 2-step fine-tune; K3, K4:
 the single-step train step; K7: the CPB train step; K11: the fused-LayerNorm
 train step; K10: the v6 train step; the ``_e2048`` entries, the same
 wrappers timed at the e2048 shapes of phase 27: the e2048 train step, with
-K7's e2048 case under its own entries' ``e2048`` key), the launches on every
+K7's e2048 case under its own entries' ``e2048`` key; K8/K9's ``_e2048``
+entries: the e2048 grid and windowed train steps of phase 34, with head dim
+128 under the flagship entries' ``hd128`` key and the BIAS instances at 256
+under ``e2048``; K12: the v5, v4 and padded-v4 train steps; K13: the probe
+run; K11's streamed rows under its entries' ``streamed`` key), the launches on every
 path and per step, the largest abs
 difference from its plain version, its time and the plain version's (CUDA
 events), the bound (the larger of its FLOPs at the bf16 peak and its bytes,
 each input read and each output written once, at the memory rate of an H100
 SXM) and ``library_ms``: for the K8 and K9 forwards the time of
 ``torch.nn.functional.scaled_dot_product_attention`` on the windowed [400, 8,
-162, 96] bf16 tensors with the bias as a float additive mask [8, 162, 162]
+162, 96] bf16 tensors (at their head dim for the phase 33 entries) with the
+bias as a float additive mask [8, 162, 162]
 (the same function, but with one scalar scale where the kernels take one per
 head, and without the q/k normalization: the timed call leaves both out; the
-port never calls it); null for the others (no single PyTorch call computes
-them; K11's entries add ``F.layer_norm``'s time as context). K8/K9's entries
+port never calls it); for K13 ``torch.sum(s, 0)`` (it rounds once, the
+kernel twice, as the TPU kernel); null for the others (no single PyTorch call
+computes them; K11's entries add ``F.layer_norm``'s time as context). K8/K9's entries
 are named by their main paths (the grid, windowed and CPB train steps). The
 last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
@@ -295,14 +329,14 @@ def seeded_parameters(model: torch.nn.Module, gen: torch.Generator) -> None:
 
 
 def plain_version(fn):
-    """The plain twin of a K8/K9 wrapper: ``<name>_reference``, or for
-    ``<name>_bwd`` ``<name>_backward_reference`` (the same arguments)."""
-    from swin_v2_weather_torch.ops import window_attention as wa
-
+    """The plain twin of a K8/K9 or K12 wrapper, from the wrapper's module:
+    ``<name>_reference``, or for ``<name>_bwd`` ``<name>_backward_reference``
+    (the same arguments)."""
+    module = sys.modules[fn.__module__]
     name = fn.__name__
     if name.endswith("_bwd"):
-        return getattr(wa, name[: -len("_bwd")] + "_backward_reference")
-    return getattr(wa, name + "_reference")
+        return getattr(module, name[: -len("_bwd")] + "_backward_reference")
+    return getattr(module, name + "_reference")
 
 
 def main() -> None:
@@ -319,7 +353,10 @@ def main() -> None:
     from swin_v2_weather_torch.ops import _build
     from swin_v2_weather_torch.ops import ln_kernels as lk
     from swin_v2_weather_torch.ops import mlp_kernels as mk
+    from swin_v2_weather_torch.ops import prestage as ps
     from swin_v2_weather_torch.ops import window_attention as wa
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+    from swin_v2_weather_torch.scripts import prestage_probe
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -327,10 +364,14 @@ def main() -> None:
                     wa.window_attention_grid_bias, wa.window_attention_grid_bias_bwd,
                     wa.window_attention_v1, wa.window_attention_v1_bwd,
                     wa.window_attention_v1_bias, wa.window_attention_v1_bias_bwd)
+    k12_wrappers = (v45.window_attention_qkv5, v45.window_attention_qkv5_bwd,
+                    v45.window_attention_qkv4, v45.window_attention_qkv4_bwd,
+                    v45.window_attention_qkv4_padded, v45.window_attention_qkv4_padded_bwd)
     counted = (wa.window_attention_qkv, wa.window_attention_qkv_bwd, mk.fc1_gelu, mk.fc1_dpre,
                mk.mlp_fwd, mk.mlp_bwd, wa.window_attention_qkv_bias,
                wa.window_attention_qkv_bias_bwd, lk.ln_dp_add_fwd, lk.ln_dp_add_bwd,
-               *qkv_wrappers, wa.window_attention_qkv_padded, wa.window_attention_qkv_padded_bwd)
+               *qkv_wrappers, wa.window_attention_qkv_padded, wa.window_attention_qkv_padded_bwd,
+               *k12_wrappers, ps.consume)
 
     # ---- 1. versions and card ------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -549,7 +590,8 @@ def main() -> None:
             window_attention_qkv_padded=wa.window_attention_qkv_padded_reference,
             window_attention_qkv_padded_bwd=wa.window_attention_qkv_padded_backward_reference,
             **{f.__name__: plain_version(f) for f in qkv_wrappers},
-        ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference,
+        ), mock.patch.multiple(v45, **{f.__name__: plain_version(f) for f in k12_wrappers}
+                               ), mock.patch.multiple(mk, fc1_gelu=mk.fc1_gelu_reference, fc1_dpre=mk.fc1_dpre_reference,
                                mlp_fwd=mk.mlp_fwd_reference, mlp_bwd=mk.mlp_bwd_reference,
                                ), mock.patch.multiple(lk, ln_dp_add_fwd=lk.ln_dp_add_fwd_reference,
                                                       ln_dp_add_bwd=lk.ln_dp_add_bwd_reference):
@@ -870,6 +912,37 @@ def main() -> None:
     results["ln_dp_add_bwd"] = (ln_errs["dz"], lb_ms, lbp_ms, bound(
         14 * t_tok * c, nbytes(z2, g2, gamma, m2, *grads), PEAK_FP32_FLOPS))
     del z2, x2, g2, out, ref, grads, ref_g, again
+    # the streamed-row instance (rows above 2048 channels), at [64800, 3072]
+    cs_ = 3072
+    z2 = (2.0 * torch.randn((t_tok, cs_), generator=gen, device=dev) + 0.5).bfloat16()
+    x2 = torch.randn((t_tok, cs_), generator=gen, device=dev).bfloat16()
+    g2 = torch.randn((t_tok, cs_), generator=gen, device=dev).bfloat16()
+    gamma_s = 1.0 + 0.1 * torch.randn((cs_,), generator=gen, device=dev)
+    beta_s = 0.1 * torch.randn((cs_,), generator=gen, device=dev)
+    with torch.inference_mode():
+        out = lk.ln_dp_add_fwd(z2, x2, gamma_s, beta_s, m2)
+        ref = lk.ln_dp_add_fwd_reference(z2, x2, gamma_s, beta_s, m2)
+    grads = lk.ln_dp_add_bwd(z2, g2, gamma_s, m2)
+    ref_g = lk.ln_dp_add_bwd_reference(z2, g2, gamma_s, m2)
+    torch.cuda.synchronize()
+    ln_wide = {"out": compare("streamed out", out, ref, LN_TOL["out"])}
+    for name, o, r in zip(("dz", "dgamma", "dbeta"), grads, ref_g):
+        ln_wide[name] = compare(f"streamed {name}", o, r, LN_TOL[name])
+    with torch.inference_mode():
+        lwf_ms = time_ms(lambda: lk.ln_dp_add_fwd(z2, x2, gamma_s, beta_s, m2), 20)
+        lwfp_ms = time_ms(lambda: lk.ln_dp_add_fwd_reference(z2, x2, gamma_s, beta_s, m2), 5)
+        lwb_ms = time_ms(lambda: lk.ln_dp_add_bwd(z2, g2, gamma_s, m2), 20)
+        lwbp_ms = time_ms(lambda: lk.ln_dp_add_bwd_reference(z2, g2, gamma_s, m2), 5)
+    log(f"  streamed rows at [{t_tok}, {cs_}]: forward kernel {lwf_ms:.4f} ms, plain "
+        f"{lwfp_ms:.4f} ms; backward kernel {lwb_ms:.4f} ms, plain {lwbp_ms:.4f} ms ({card})")
+    ln_streamed = {
+        "fwd": {"shape": [t_tok, cs_], "max_abs_err": ln_wide["out"], "ms": lwf_ms,
+                "plain_ms": lwfp_ms, "bound_ms": bound(10 * t_tok * cs_, nbytes(
+                    z2, x2, gamma_s, beta_s, m2, out), PEAK_FP32_FLOPS)[0]},
+        "bwd": {"shape": [t_tok, cs_], "max_abs_err": ln_wide["dz"], "ms": lwb_ms,
+                "plain_ms": lwbp_ms, "bound_ms": bound(14 * t_tok * cs_, nbytes(
+                    z2, g2, gamma_s, m2, *grads), PEAK_FP32_FLOPS)[0]}}
+    del z2, x2, g2, out, ref, grads, ref_g, gamma_s, beta_s
     torch.cuda.empty_cache()
 
     # ---- 19. the fused-LayerNorm flagship train step ---------------------------
@@ -884,31 +957,41 @@ def main() -> None:
     # ---- 20-26: the grid (K8), windowed (K9) and 'xla' routes -------------------
     library = {}  # name -> library_ms (SDPA for the K8/K9 forwards)
 
-    def sdpa_ms(bias) -> float:
-        """One scaled_dot_product_attention call on the windowed flagship
-        tensors [400, 8, 162, 96] bf16 with ``bias`` [8, 162, 162] as a bf16
-        additive mask (one scalar scale; the per-head scale and the q/k
-        normalization are left out)."""
-        shape = (b * (gh // window[0]) * (gw // window[1]), heads, l_win, c // heads)
+    def sdpa_ms(bias, hd: int) -> float:
+        """One scaled_dot_product_attention call on windowed tensors [400,
+        heads, 162, hd] bf16 (the flagship's at hd 96) with ``bias`` [heads,
+        162, 162] as a bf16 additive mask (one scalar scale; the per-head
+        scale and the q/k normalization are left out)."""
+        shape = (b * (gh // window[0]) * (gw // window[1]), bias.shape[0], l_win, hd)
         qw, kw, vw = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
         mask16 = bias.bfloat16()
         with torch.inference_mode():
             return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qw, kw, vw, attn_mask=mask16), 20)
 
-    def qkv_kernel_phase(tag: str, layout: str, ops, g, scale, raw_bias, window_arg):
+    def qkv_kernel_phase(tag: str, layout: str, ops, g, scale, raw_bias, window_arg,
+                         suffix: str = "", shifted_only: bool = False):
         """K8 (layout "grid") or K9 ("v1"), bias-free and BIAS, forward and
-        backward against their plain versions, unshifted and shifted; two
-        backward calls bit-equal; timed; fills ``results`` and ``library``."""
-        lib_ms = sdpa_ms(raw_bias)
-        log(f"  scaled_dot_product_attention on the windowed tensors with the bias as a "
-            f"float mask: {lib_ms:.4f} ms ({card}; library yardstick, never called by the port)")
+        backward against their plain versions, unshifted and shifted (or
+        shifted only); two backward calls bit-equal; timed; fills ``results``
+        and ``library`` under the kernel's name plus ``suffix``."""
+        heads_ = int(scale.shape[0])
+        hd_ = ops[0].shape[-1] // (heads_ if layout == "grid" else 1)
+        flops = attn_flops * hd_ * heads_ // c  # two [L, L, hd] products per (window, head)
+        lib_ms = sdpa_ms(raw_bias, hd_)
+        log(f"  scaled_dot_product_attention on the windowed tensors [.., {heads_}, {l_win}, "
+            f"{hd_}] with the bias as a float mask: {lib_ms:.4f} ms ({card}; library yardstick, "
+            f"never called by the port); kernel variants: forward "
+            f"{wa.attn_variant('', hd_, l_win, False)}, backward "
+            f"{wa.attn_variant('', hd_, l_win, True)}")
+        masks = (("shifted", pattern),) if shifted_only else (("unshifted", None),
+                                                              ("shifted", pattern))
         for bias in (None, raw_bias):
             kind = f"window_attention_{layout}" + ("" if bias is None else "_bias")
             fwd, bwd = getattr(wa, kind), getattr(wa, kind + "_bwd")
             extra = () if bias is None else (bias,)
             errs, times = {}, {}
-            for label, mask in (("unshifted", None), ("shifted", pattern)):
+            for label, mask in masks:
                 tail = (window_arg, mask, 1.0) if layout == "grid" else (window_arg, mask)
                 with torch.inference_mode():
                     out = fwd(*ops, scale, *extra, *tail)
@@ -940,12 +1023,12 @@ def main() -> None:
                 times.setdefault("bwd", (b_ms, bp_ms))
             # two [L, L, hd] products per (window, head) forward, five backward;
             # bytes: each input read once, each output written once
-            results[kind] = (errs["out"], *times["fwd"], bound(
-                attn_flops, nbytes(*ops, scale, *extra, out)))
-            results[kind + "_bwd"] = (errs["dq"], *times["bwd"], bound(
-                5 * attn_flops / 2, nbytes(*ops, scale, *extra, g, *grads)))
-            results[kind + "_bwd"] += ({k: v for k, v in errs.items() if k != "out"},)
-            library[kind] = lib_ms
+            results[kind + suffix] = (errs["out"], *times["fwd"], bound(
+                flops, nbytes(*ops, scale, *extra, out)))
+            results[kind + "_bwd" + suffix] = (errs["dq"], *times["bwd"], bound(
+                5 * flops / 2, nbytes(*ops, scale, *extra, g, *grads)))
+            results[kind + "_bwd" + suffix] += ({k: v for k, v in errs.items() if k != "out"},)
+            library[kind + suffix] = lib_ms
             del out, ref, grads, ref_g, again
         torch.cuda.empty_cache()
 
@@ -1118,12 +1201,17 @@ def main() -> None:
             x, w16, b_qkv, scale, badd, window, pattern, 1.0), 5)
     k7b_ms = time_ms(lambda: wa.window_attention_qkv_bias_bwd(
         x, w16, b_qkv, scale, badd, g, window, pattern, 1.0), 3)
-    log(f"  K7 forward {k7f_ms:.4f} ms, backward {k7b_ms:.4f} ms ({card}); two backward calls "
-        f"bit-equal")
+    with torch.inference_mode():
+        k7fp_ms = time_ms(lambda: wa.window_attention_qkv_bias_reference(
+            x, w_qkv, b_qkv, scale, badd, window, pattern), 2)
+    k7bp_ms = time_ms(lambda: wa.window_attention_qkv_bias_backward_reference(
+        x, w16, b_qkv, scale, badd, g, window, pattern), 1)
+    log(f"  K7 forward {k7f_ms:.4f} ms, plain {k7fp_ms:.4f} ms; backward {k7b_ms:.4f} ms, plain "
+        f"{k7bp_ms:.4f} ms ({card}); two backward calls bit-equal")
     k7_e2048 = {
-        "fwd": {"max_abs_err": k7e["out"], "ms": k7f_ms, "bound_ms": bound(
+        "fwd": {"max_abs_err": k7e["out"], "ms": k7f_ms, "plain_ms": k7fp_ms, "bound_ms": bound(
             e_fwd_flops, nbytes(x, w16, b_qkv, scale, badd, out))[0]},
-        "bwd": {"max_abs_err": k7e["dx"], "ms": k7b_ms, "bound_ms": bound(
+        "bwd": {"max_abs_err": k7e["dx"], "ms": k7b_ms, "plain_ms": k7bp_ms, "bound_ms": bound(
             e_bwd_flops, nbytes(x, w16, b_qkv, scale, badd, g, *grads))[0],
                 "max_abs_err_by_output": {k: v for k, v in k7e.items() if k != "out"}}}
     del x, g, out, grads, w_qkv, w16, b_qkv, scale, badd
@@ -1255,6 +1343,171 @@ def main() -> None:
     log(f"[32] xla backward {xla_bwd_ms:.2f} ms/step against the fused backward's "
         f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
 
+    # ---- 33. K8/K9 at head dims 128 and 256 (L = 162) ---------------------------
+    for hd_w, heads_w, tag in ((128, 8, "_hd128"), (256, 8, "_e2048")):
+        cw = hd_w * heads_w
+        qkv = torch.randn((b, gh, gw, 3 * cw), generator=gen, device=dev).bfloat16()
+        g = torch.randn((b, gh, gw, cw), generator=gen, device=dev).bfloat16()
+        scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads_w,), generator=gen,
+                                                               device=dev))
+        raw_bias = 2.0 * torch.randn((heads_w, l_win, l_win), generator=gen, device=dev)
+        qn, _ = wa.normalize_heads(qkv[..., :cw], heads_w)
+        kn, _ = wa.normalize_heads(qkv[..., cw:2 * cw], heads_w)
+        log(f"[33] K8 at head dim {hd_w}: qn, kn {tuple(qn.shape)} bf16, v a channel slice of "
+            f"qkv {tuple(qkv.shape)}, {heads_w} heads, window {window}, shifted")
+        qkv_kernel_phase("[33]", "grid", (qn, kn, qkv[..., 2 * cw:]), g, scale, raw_bias, window,
+                         suffix=tag, shifted_only=True)
+        del qkv, qn, kn, g
+        q, k, v, g = (torch.randn((nw, heads_w, l_win, hd_w), generator=gen, device=dev).bfloat16()
+                      for _ in range(4))
+        log(f"[33] K9 at head dim {hd_w}: q, k, v {tuple(q.shape)} bf16, shifted")
+        qkv_kernel_phase("[33]", "v1", (q, k, v), g, scale, raw_bias,
+                         (gh // window[0], gw // window[1]), suffix=tag, shifted_only=True)
+        del q, k, v, g, scale, raw_bias
+        torch.cuda.empty_cache()
+
+    # ---- 34. the e2048 family on the grid and windowed routes, at [360, 720] ----
+    launches_e2048_grid, _ = train_path(
+        "[34]", CONFIG_E2048, 2, {"window_attention_grid": 24, "window_attention_grid_bwd": 24,
+                                  "mlp_fwd": 24, "mlp_bwd": 24},
+        n_timed=2, overrides={**E2048_TRAIN, **GRID_ROUTE}, weights_on=dev)
+    launches_e2048_v1, _ = train_path(
+        "[34]", CONFIG_E2048, 2, {"window_attention_v1": 24, "window_attention_v1_bwd": 24,
+                                  "mlp_fwd": 24, "mlp_bwd": 24},
+        n_timed=2, overrides={**E2048_TRAIN, **V1_ROUTE}, weights_on=dev)
+
+    # ---- 35. K12: v5, v4 and the padded v4 at the flagship shape ----------------
+    x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    w_qkv = (2 * torch.rand((c, 3 * c), generator=gen, device=dev) - 1) / math.sqrt(c)
+    b_qkv = 0.02 * torch.randn((3 * c,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    w16 = w_qkv.bfloat16()
+    w5 = v45.w5_reorder(w16, heads).contiguous()
+    grid_w = (gh // window[0], gw // window[1])
+    xw, gw_ = v45.window_major(x, window), v45.window_major(g, window)
+    wp, bp = wa.pad_heads_w(w16, heads), wa.pad_heads_vec(b_qkv, heads)
+    gwp = wa.pad_heads_x(gw_, heads, c // heads)
+    log(f"[35] K12 at the flagship shape: x, g {tuple(x.shape)} bf16, W [{c}, {3 * c}], w5 "
+        f"{tuple(w5.shape)}, window-major xw {tuple(xw.shape)}, {heads} heads of {c // heads}, "
+        f"shifted")
+    k12_cases = {
+        "window_attention_qkv5": (v45.window_attention_qkv5, v45.window_attention_qkv5_bwd,
+                                  (x, w5, b_qkv, scale), (x, w5, w16, b_qkv, scale), g,
+                                  (window, pattern), 0),
+        "window_attention_qkv4": (v45.window_attention_qkv4, v45.window_attention_qkv4_bwd,
+                                  (xw, w16, b_qkv, scale), (xw, w16, b_qkv, scale), gw_,
+                                  (window, grid_w, pattern), 0),
+        "window_attention_qkv4_padded": (
+            v45.window_attention_qkv4_padded, v45.window_attention_qkv4_padded_bwd,
+            (xw, wp, bp, scale, c // heads), (xw, wp, bp, scale, c // heads), gwp,
+            (window, grid_w, pattern), c // heads),
+    }
+    for name, (fwd, bwd, fargs, bargs, gk, tail, pad_hd) in k12_cases.items():
+        with torch.inference_mode():
+            out = fwd(*fargs, *tail, 1.0)
+            ref = plain_version(fwd)(*fargs, *tail)
+        torch.cuda.synchronize()
+        errs = {"out": compare(f"{name} out", out, ref, ATTN_TOL)}
+        grads = bwd(*bargs, gk, *tail, 1.0)
+        ref_g = plain_version(bwd)(*bargs, gk, *tail)
+        torch.cuda.synchronize()
+        for gname, o, r in zip(("dx", "dW", "db", "dscale"), grads, ref_g):
+            errs[gname] = compare(f"{name} {gname}", o, r, BWD_TOL[gname])
+        again = bwd(*bargs, gk, *tail, 1.0)
+        if not all(torch.equal(a_, o) for a_, o in zip(again, grads)):
+            raise RuntimeError(f"{name}_bwd: two calls differ (reduction order)")
+        if name != "window_attention_qkv5" and torch.count_nonzero(grads[0][:, :, l_win:]).item():
+            raise RuntimeError(f"{name}_bwd: dxw's pad rows are not zero")
+        if pad_hd and (
+                torch.count_nonzero(out.reshape(*out.shape[:-1], heads, 128)[..., pad_hd:]).item()
+                or torch.count_nonzero(grads[1].reshape(c, 3, heads, 128)[..., pad_hd:]).item()
+                or torch.count_nonzero(grads[2].reshape(3, heads, 128)[..., pad_hd:]).item()):
+            raise RuntimeError(f"{name}: pad lanes or pad columns are not zero")
+        if name == "window_attention_qkv5":  # K1/K2's arithmetic, the same C_in order
+            with torch.inference_mode():
+                same_fwd = torch.equal(out, wa.window_attention_qkv(x, w16, b_qkv, scale, window,
+                                                                    pattern, 1.0))
+            k2 = wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, pattern, 1.0)
+            same_bwd = all(torch.equal(a_, o) for a_, o in zip(k2, grads))
+            log(f"  v5 against K1 / K2 of the same inputs: forward bit-equal {same_fwd}, "
+                f"backward bit-equal {same_bwd}")
+            if not (same_fwd and same_bwd):
+                raise RuntimeError("v5 and K1/K2 differ: the reordered weight changed the sums")
+            del k2
+        with torch.inference_mode():
+            f_ms = time_ms(lambda: fwd(*fargs, *tail, 1.0), 20)
+            fp_ms = time_ms(lambda: plain_version(fwd)(*fargs, *tail), 5)
+        b_ms = time_ms(lambda: bwd(*bargs, gk, *tail, 1.0), 10)
+        bp_ms = time_ms(lambda: plain_version(bwd)(*bargs, gk, *tail), 3)
+        log(f"  {name}: forward kernel {f_ms:.4f} ms (K1 {attn_ms:.4f} ms in phase 3), plain "
+            f"{fp_ms:.4f} ms; backward kernel {b_ms:.4f} ms (K2 {bwd_ms:.4f} ms in phase 7), plain "
+            f"{bp_ms:.4f} ms ({card}); two backward calls bit-equal")
+        # the same function as K1/K2: their bounds (operations, at the unpadded shapes)
+        results[name] = (errs["out"], f_ms, fp_ms, bound(
+            2 * t_tok * c * 3 * c + attn_flops, nbytes(x, w16, b_qkv, scale, x)))
+        results[name + "_bwd"] = (errs["dx"], b_ms, bp_ms, bound(
+            3 * 2 * t_tok * c * 3 * c + 5 * attn_flops / 2,
+            nbytes(x, w16, b_qkv, scale, g, x, w16, b_qkv, scale)),
+            {k: v for k, v in errs.items() if k != "out"})
+        del out, ref, grads, ref_g, again
+    del x, g, w_qkv, b_qkv, scale, w16, w5, xw, gw_, wp, bp, gwp
+    torch.cuda.empty_cache()
+
+    # ---- 36. the flagship on v5, v4 and the padded v4 (QKV_IMPL) ------------------
+    k12_paths = {}
+    for impl, pad, kind in (("v5", False, "qkv5"), ("v4", False, "qkv4"),
+                            ("v4", True, "qkv4_padded")):
+        wa.QKV_IMPL, v45.QKV_PAD_HEADS = impl, pad
+        label = f"QKV_IMPL {impl!r}" + (", QKV_PAD_HEADS" if pad else "")
+        log(f"[36] the flagship with {label}")
+        serve_k12 = serve_path("[36]", {}, 2, {f"window_attention_{kind}": depth,
+                                               "fc1_gelu": depth})
+        train_k12, k12_ms = train_path(
+            "[36]", CONFIG, 3, {f"window_attention_{kind}": depth,
+                                f"window_attention_{kind}_bwd": depth, "fc1_gelu": depth,
+                                "fc1_dpre": depth})
+        k12_paths[kind] = (serve_k12, train_k12)
+        log(f"[36] {label}: {k12_ms:.2f} ms/step against the v3 flagship step "
+            f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
+    v45.QKV_PAD_HEADS = False
+    wa.QKV_IMPL = "v4"  # with the CPB bias K7's route runs whatever QKV_IMPL says
+    # 2 steps: at batch 1 a block's attention branch may be dropped in one of
+    # them, and its parameters must still move
+    launches_v4_cpb, _ = train_path(
+        "[36]", CONFIG, 2, {"window_attention_qkv_bias": depth,
+                            "window_attention_qkv_bias_bwd": depth, "fc1_gelu": depth,
+                            "fc1_dpre": depth}, plain_step1=False, n_timed=1, overrides=CPB)
+    wa.QKV_IMPL = "v3"
+
+    # ---- 37. K13: consume, and the prestage probe --------------------------------
+    s = prestage_probe.prestage(
+        torch.randn((b, gh, gw, 3 * c), generator=gen, device=dev).bfloat16(), heads, window,
+        prestage_probe.LP)
+    out = ps.consume(s)
+    ref = ps.consume_reference(s)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise RuntimeError("consume: kernel and plain version differ (they must agree bit for bit)")
+    c_ms = time_ms(lambda: ps.consume(s), 50)
+    cp_ms = time_ms(lambda: ps.consume_reference(s), 20)
+    sum_ms = time_ms(lambda: torch.sum(s, 0), 50)
+    log(f"[37] consume (K13) on s {tuple(s.shape)} bf16: bit-equal to its plain version; kernel "
+        f"{c_ms:.4f} ms, plain {cp_ms:.4f} ms, torch.sum(s, 0) {sum_ms:.4f} ms (one rounding; "
+        f"library yardstick) ({card})")
+    results["consume"] = (0.0, c_ms, cp_ms, bound(s[0].numel() * 2, nbytes(s, out)))
+    library["consume"] = sum_ms
+    del s, out, ref
+    ps.consume.launches = 0
+    pr = prestage_probe.probe(dev)
+    probe_launches = {"consume": ps.consume.launches}
+    log(f"[37] prestage probe: round trip {pr['roundtrip_ms']:.4f} ms/iter (bound "
+        f"{pr['roundtrip_bound_ms']:.4f} ms), consume alone {pr['consume_ms']:.4f} ms (bound "
+        f"{pr['consume_bound_ms']:.4f} ms), torch.sum {pr['sum_ms']:.4f} ms; checksum "
+        f"{pr['checksum']:.6g}; consume launched {probe_launches['consume']} times ({card})")
+    if not (math.isfinite(pr["checksum"]) and probe_launches["consume"] > 0):
+        raise RuntimeError("prestage probe: non-finite checksum or consume never launched")
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": (cpb_serve_launches, N_STEPS),
@@ -1265,7 +1518,14 @@ def main() -> None:
                "serve_xla": (serve_xla, 1), "serve_e2048": (serve_e2048, 2),
                "train_e2048": (launches_e2048, 2), "serve_v6": (serve_v6, N_STEPS),
                "train_v6": (launches_v6, 3), "train_xla_bwd": (launches_xla_bwd, 3),
-               "train_xla_bwd_cpb": (launches_xla_bwd_cpb, 2)}
+               "train_xla_bwd_cpb": (launches_xla_bwd_cpb, 2),
+               "train_e2048_grid": (launches_e2048_grid, 2),
+               "train_e2048_v1": (launches_e2048_v1, 2),
+               "serve_v5": (k12_paths["qkv5"][0], 2), "train_v5": (k12_paths["qkv5"][1], 3),
+               "serve_v4": (k12_paths["qkv4"][0], 2), "train_v4": (k12_paths["qkv4"][1], 3),
+               "serve_v4_padded": (k12_paths["qkv4_padded"][0], 2),
+               "train_v4_padded": (k12_paths["qkv4_padded"][1], 3),
+               "train_v4_cpb": (launches_v4_cpb, 2), "prestage_probe": (probe_launches, 1)}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),
@@ -1308,18 +1568,44 @@ def main() -> None:
                                            "window_attention.py:1397", "train_e2048"),
         "mlp_fwd_e2048": ("mlp.cu", "mlp_kernels.py:295", "train_e2048"),
         "mlp_bwd_e2048": ("mlp.cu", "mlp_kernels.py:317", "train_e2048"),
+        # K8/K9 at head dim 256 (the large-head variant), counted on the e2048
+        # grid and windowed train steps
+        "window_attention_grid_e2048": ("window_attention_grid_large.cu",
+                                        "window_attention.py:556", "train_e2048_grid"),
+        "window_attention_grid_bwd_e2048": ("window_attention_grid_large.cu",
+                                            "window_attention.py:702", "train_e2048_grid"),
+        "window_attention_v1_e2048": ("window_attention_v1_large.cu", "window_attention.py:172",
+                                      "train_e2048_v1"),
+        "window_attention_v1_bwd_e2048": ("window_attention_v1_large.cu",
+                                          "window_attention.py:292", "train_e2048_v1"),
+        # K12 and K13
+        "window_attention_qkv5": ("window_attention_qkv.cu", "attic/window_attention_v45.py:71",
+                                  "train_v5"),
+        "window_attention_qkv5_bwd": ("window_attention_qkv_bwd.cu",
+                                      "attic/window_attention_v45.py:215", "train_v5"),
+        "window_attention_qkv4": ("window_attention_qkv.cu", "attic/window_attention_v45.py:533",
+                                  "train_v4"),
+        "window_attention_qkv4_bwd": ("window_attention_qkv_bwd.cu",
+                                      "attic/window_attention_v45.py:712", "train_v4"),
+        "window_attention_qkv4_padded": ("window_attention_qkv.cu",
+                                         "attic/window_attention_v45.py:533", "train_v4_padded"),
+        "window_attention_qkv4_padded_bwd": ("window_attention_qkv_bwd.cu",
+                                             "attic/window_attention_v45.py:712",
+                                             "train_v4_padded"),
+        "consume": ("prestage_consume.cu", "scripts/prestage_probe.py:58", "prestage_probe"),
     }
     kernels = []
     for name, (src, replaces, main_path) in sources.items():
         err, k_ms, p_ms, (b_ms, b_by) = results[name][:4]
         # the _e2048 entries: the same wrappers, counted on the e2048 paths only
         counter = name.removesuffix("_e2048")
-        paths = {p: v for p, v in by_path.items() if p.endswith("e2048") or counter == name}
+        paths = {p: v for p, v in by_path.items() if "e2048" in p or counter == name}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"swin_v2_weather_torch/ops/csrc/{src}",
-            "replaces": f"swin_v2_weather_tpu/ops/{replaces}",
+            "replaces": (replaces if replaces.startswith("scripts/")
+                         else f"swin_v2_weather_tpu/ops/{replaces}"),
             "launches": by_path[main_path][0][counter],
             "max_abs_err": err,
             "ms": k_ms,
@@ -1341,6 +1627,18 @@ def main() -> None:
             entry["max_abs_err_by_output"] = results[entry["name"]][4]
     kernels[6]["e2048"] = k7_e2048["fwd"]  # K7's e2048 case (phase 27)
     kernels[7]["e2048"] = k7_e2048["bwd"]
+    kernels[8]["streamed"] = ln_streamed["fwd"]  # K11 above 2048 channels (phase 18)
+    kernels[9]["streamed"] = ln_streamed["bwd"]
+    # K8/K9 at head dim 128, and their BIAS instances at 256 (phase 33): the
+    # wrappers of the flagship entries at those shapes, on no train path
+    for entry in kernels:
+        for tag in ("_hd128", "_e2048"):
+            sub = results.get(entry["name"] + tag)
+            if sub is not None and entry["name"] + tag not in sources:
+                err, k_ms, p_ms, (b_ms, b_by) = sub[:4]
+                entry[tag[1:]] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "library_ms": library.get(entry["name"] + tag)}
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -386,8 +386,8 @@ class WindowAttention(nn.Module):
                 w_proj = pad_proj_rows(self.proj.weight.t(), self.num_heads).t()
                 return (F.linear(out.to(self.dtype), w_proj.to(self.dtype))
                         + self.proj.bias.to(self.dtype))
-            # the CPB term rides K7's route; without it the call is K1/K2's
-            # (QKV_IMPL 'v3'; 'v4'/'v5' raise there)
+            # the CPB term rides K7's route; without it the call dispatches on
+            # QKV_IMPL: K1/K2 ('v3') or the K12 schedules ('v4', 'v5')
             cpb = {} if self.meta_mlp is None else dict(
                 bias=self.cpb_bias(scale, cpb_noise), bias_prefolded=True)
             out = fused_window_attention_qkv(

@@ -95,6 +95,46 @@ _SIGNATURES = {
     # (q, k, v, scale, bias, mask, g, dq, dk, dv, dscale_part, dbias_part,
     #  dscale, dbias, B, nwh, nww, heads, hd, L, stream)
     "swin_window_attention_v1_bwd": [_vp] * 14 + [_int] * 6 + [_vp],
+    # K8/K9 large-head variant. grid: the operands of
+    #  swin_window_attention_grid_fwd; (q, k, v, scale, bias, mask,
+    #  boundary_flag, g, dq, dk, dv, rstat, dscale_part, dbias_part, dscale,
+    #  dbias, B, H, W, C, heads, wh, ww, ldq, ldk, ldv, stream)
+    "swin_window_attention_grid_large_fwd": [_vp] * 6 + [_f32, _vp] + [_int] * 10 + [_vp],
+    "swin_window_attention_grid_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 9 + [_int] * 10 + [_vp],
+    # windowed: (q, k, v, scale, bias, mask, out, qn, kn, inv, B, nwh, nww,
+    #  heads, hd, L, stream); (q, k, v, scale, bias, mask, g, dq, dk, dv, qn,
+    #  kn, inv, rstat, dscale_part, dbias_part, dscale, dbias, B, nwh, nww,
+    #  heads, hd, L, stream)
+    "swin_window_attention_v1_large_fwd": [_vp] * 10 + [_int] * 6 + [_vp],
+    "swin_window_attention_v1_large_bwd": [_vp] * 18 + [_int] * 6 + [_vp],
+    # K12 v5: the operands of swin_window_attention_qkv_fwd with w5 for w;
+    #  (x, w5, w, b, scale, mask, boundary_flag, g, dqkv, dw_part, db_part,
+    #  dscale_part, dx, dw, db, dscale, B, H, W, C_in, C, heads, wh, ww,
+    #  dw_splits, db_splits, stream)
+    "swin_window_attention_qkv5_fwd": [_vp] * 5 + [_f32, _vp] + [_int] * 8 + [_vp],
+    "swin_window_attention_qkv5_bwd": [_vp] * 6 + [_f32] + [_vp] * 9 + [_int] * 10 + [_vp],
+    # (x, w5, b, scale, mask, boundary_flag, out, qkv, inv, B, H, W, C_in, C,
+    #  heads, wh, ww, stream); (x, w5, w, b, scale, mask, boundary_flag, g, qkv,
+    #  inv, rstat, dqkv, dw_part, db_part, dscale_part, dx, dw, db, dscale, B, H,
+    #  W, C_in, C, heads, wh, ww, dw_splits, db_splits, stream)
+    "swin_window_attention_qkv5_large_fwd": [_vp] * 5 + [_f32] + [_vp] * 3 + [_int] * 8 + [_vp],
+    "swin_window_attention_qkv5_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 12 + [_int] * 10 + [_vp],
+    # K12 v4: (xw, w, b, scale, mask, boundary_flag, out, B, nwh, nww, lm, C_in,
+    #  C, heads, hd, wh, ww, stream); (xw, w, b, scale, mask, boundary_flag, gw,
+    #  dqkv, dw_part, db_part, dscale_part, dxw, dw, db, dscale, B, nwh, nww, lm,
+    #  C_in, C, heads, hd, wh, ww, dw_splits, db_splits, stream)
+    "swin_window_attention_qkv4_fwd": [_vp] * 5 + [_f32, _vp] + [_int] * 10 + [_vp],
+    "swin_window_attention_qkv4_bwd": [_vp] * 5 + [_f32] + [_vp] * 9 + [_int] * 12 + [_vp],
+    # v4's large-head variant: (xw, w, b, scale, mask, boundary_flag, out, qkv,
+    #  inv, B, nwh, nww, lm, C_in, C, heads, wh, ww, stream); (xw, w, b, scale,
+    #  mask, boundary_flag, gw, qkv, inv, rstat, dqkv, dw_part, db_part,
+    #  dscale_part, dxw, dw, db, dscale, B, nwh, nww, lm, C_in, C, heads, wh,
+    #  ww, dw_splits, db_splits, stream)
+    "swin_window_attention_qkv4_large_fwd": [_vp] * 5 + [_f32] + [_vp] * 3 + [_int] * 9 + [_vp],
+    "swin_window_attention_qkv4_large_bwd": [_vp] * 5 + [_f32] + [_vp] * 12 + [_int] * 11
+    + [_vp],
+    # K13: (s, out, n, stream)
+    "swin_prestage_consume": [_vp, _vp, ctypes.c_longlong, _vp],
     # (z, x, gamma, beta, m, out, T, C, stream)
     "swin_ln_dp_add_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     # (z, g, gamma, m, dz, part, dgamma, dbeta, T, C, n_blocks, stream)

@@ -73,8 +73,9 @@
 // Contract (checked by the Python wrappers): bf16 q, k, v, g; fp32 scale
 // [heads], bias [heads, L, L] (BIAS only) and mask [L, L] or null; head dim in
 // {32, 64, 96, 128}; L <= 256; pixel strides (K8) multiples of 8 elements and
-// 16-byte aligned bases; the backward's shared memory within 227 KB (at head
-// dim 96, L up to 176).
+// 16-byte aligned bases; each direction's shared memory within 227 KB (at
+// L = 162: head dims up to 128 forward, 96 backward). Larger head dims take
+// the large-head variant (qkv_attention_large.cuh).
 
 #pragma once
 
@@ -784,6 +785,19 @@ inline bool make_attn_geo(AttnGeo& g, int B, int H, int W, int heads, int wh, in
   g.ldv = ldv;
   g.ldo = ldo;
   return g.LP <= MAX_LP;
+}
+
+// K8's geometry: the NHWC grid [B, H, W, C], q, k, v with pixel strides ldq,
+// ldk, ldv; g and the outputs contiguous (stride C).
+inline bool grid_geo(AttnGeo& g, int B, int H, int W, int C, int heads, int wh, int ww, int ldq,
+                     int ldk, int ldv) {
+  return wh >= 1 && ww >= 1 && heads >= 1 && H % wh == 0 && W % ww == 0 && C % heads == 0 &&
+         make_attn_geo(g, B, H, W, heads, wh, ww, wh * ww, H / wh, W / ww, ldq, ldk, ldv, C);
+}
+
+// K9's geometry: contiguous windowed [B * nwh * nww, heads, L, hd] tensors.
+inline bool windowed_geo(AttnGeo& g, int B, int nwh, int nww, int heads, int hd, int L) {
+  return hd >= 16 && make_attn_geo(g, B, 0, 0, heads, 0, 0, L, nwh, nww, hd, hd, hd, hd);
 }
 
 }  // namespace swin_qkv_attn

@@ -1,0 +1,873 @@
+// Window attention on pre-projected q, k, v at large head dims, forward and
+// backward, hand-written for Hopper (sm_90a): the large-head variant of K8
+// (window_attention_grid_large.cu) and K9 (window_attention_v1_large.cu), each
+// with a CPB-bias instance.
+//
+// Replaces the same TPU kernels as qkv_attention.cuh
+// (swin_v2_weather_tpu/ops/window_attention.py: K8 _make_grid_kernel /
+// _grid_forward and _make_grid_bwd_kernel / _grid_backward; K9 _make_kernel /
+// _pallas_forward and _make_v1_bwd_kernel / _v1_backward, with has_bias) where
+// their one-block-per-(window, head) layout does not fit: it keeps q, k, v
+// (and g) [LP, HD] in shared memory at once, which at L = 162 (LP = 176) needs
+// 354,816 B forward at head dim 256 and 271,168 / 451,392 B backward at head
+// dims 128 / 256, against the 232,448 B a block may use. The wrappers pick this
+// variant exactly where the smaller one does not fit (ops/window_attention.py,
+// attn_variant); the flagship's head dim 96 and the forward at 128 keep the
+// one-block instances.
+//
+// What bounds it on this card: bytes, as for the one-block instances. At the
+// e2048 shape (q, k, v [1, 180, 360, 2048] bf16, 8 heads of 256, L = 162;
+// 265.4 MB a tensor) the forward reads three tensors and writes one (1.06 GB,
+// 0.317 ms at 3.35 TB/s) for 86 GFLOP (0.087 ms at 989 TFLOP/s); the backward
+// reads four and writes three (1.86 GB, 0.555 ms) for 215 GFLOP.
+//
+// Design. The softmax subtracts the row max and normalizes before the p @ v
+// product (the TPU kernels' contract), so an online rescaling would move the
+// bf16 rounding sites; the keys are streamed instead in whole sweeps, each
+// recomputing the cheap 16 x 16 score tiles:
+//  * forward, one block per (window, head), LP / 16 warps of 16 query rows, q
+//    [LP, HD] in shared memory and the keys in 16-row tiles through a
+//    two-stage cp.async ring: sweep 1 the row max, sweep 2 the row sum of
+//    e = exp(z - m), sweep 3 bf16(p) into the warp's [16, LP] row buffer; then
+//    v replaces q and out = bf16(p) @ v16 is formed in 128-wide chunks of the
+//    head dim (8 accumulator fragments a warp, not 16). 185,856 B at HD = 256.
+//  * backward, two kernels on blocks of 4 warps (64 rows), as the large-head
+//    variant of K1/K2 splits its passes: the rows kernel, one block per
+//    (window, head, 64 query rows), sweeps the key tiles for the row max, the
+//    row sum (K8 also u = sum(dp e)), K9's u = sum(dp p) in a third sweep,
+//    stores (m, r or sum e, u) per row in a small workspace, then forms ds
+//    (and the d(bias) rows, and K9's sum(ds s)), dsb = bf16(ds scale) into its
+//    row buffer and dqn = dsb @ kn16 chunk by chunk into an fp32 staging tile;
+//    the columns kernel, one block per (window, head, 64 key rows), sweeps the
+//    query tiles once for the transposed tiles bf16(p)^T and dsb^T from the
+//    stored row statistics, then forms dv = p16^T @ g16 and dkn = dsb^T @ qn16
+//    chunk by chunk. 194,576 and 218,112 B at HD = 256.
+//  * K9 normalizes q and k inside its kernels; here a first kernel writes
+//    qn16 and kn16 (and the norms) to a scratch buffer, summed as the
+//    one-block kernels' normalize_rows sums, so the attention kernels of both
+//    layouts read pre-normalized tiles; K9's normalization VJP re-reads the raw
+//    q and k rows, as the one-block kernel does.
+// Costs of the split: the key tiles come through the ring three (forward) or
+// four to five times (backward) from L2, and K9's normalized copies of q and
+// k go to device memory and back. wgmma/TMA come later; this is the simple,
+// correct version.
+//
+// Rounding sites: the one-block instances' (qkv_attention.cuh): the row max,
+// K8 p16 = bf16(e * (1 / sum e)), K9 bf16(e / sum e), the raw bias, dsb =
+// bf16(ds * scale_h), K8's dscale sum(qn16 dqn) / scale with the
+// normalization VJP outside, K9's sum(ds s) with the VJP inside on the fp32
+// qn. Only the order of some fp32 sums differs (qd and dscale partials per 64
+// rows, the transposed score tiles). d(scale) and d(bias) are summed in a
+// fixed order, with no atomics.
+//
+// Contract (checked by the Python wrappers): the one-block instances', with
+// head dim 128 or 256, and each kernel's shared memory within 232,448 B; the
+// scratch buffers as the wrappers allocate them.
+
+#pragma once
+
+#include "qkv_attention.cuh"
+
+namespace swin_qkv_attn_large {
+
+using namespace swin_qkv_attn;
+
+constexpr int DC = 128;  // head-dim chunk of the p @ v, dq, dk and dv products
+constexpr int RW = 4;    // warps (16-row tiles) per backward block
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+
+template <int HD>
+constexpr size_t fwd_smem_bytes(int LP) {
+  return (static_cast<size_t>(LP) * (HD + 8) + 2u * 16 * (HD + 8) +
+          static_cast<size_t>(LP / 16) * 16 * (LP + 8)) * sizeof(bf16) +
+         static_cast<size_t>(LP / 16) * 256 * sizeof(float);
+}
+
+template <int HD>
+constexpr size_t rows_smem_bytes(int LP) {
+  return (3u * RW * 16 * (HD + 8) + static_cast<size_t>(RW) * 16 * (LP + 8)) * sizeof(bf16) +
+         (static_cast<size_t>(RW) * 16 * HD + RW * 256 + RW) * sizeof(float);
+}
+
+template <int HD>
+constexpr size_t cols_smem_bytes(int LP) {
+  return (3u * RW * 16 * (HD + 8) + 2u * RW * 16 * (LP + 8)) * sizeof(bf16) +
+         (static_cast<size_t>(RW) * 16 * HD + RW * 256) * sizeof(float);
+}
+
+// K9: qn16 = bf16(q * inv) for every row of q and k, inv = 1 / sqrt(max(sum
+// q^2, 1e-24)) summed as normalize_rows sums; one warp per row. qn, kn have
+// q's layout; inv [2, rows] (q's rows, then k's).
+template <int HD>
+__global__ void normalize_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 bf16* __restrict__ qn, bf16* __restrict__ kn,
+                                 float* __restrict__ inv, long long rows) {
+  constexpr int NV = (HD + 31) / 32;
+  const long long wid = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (wid >= 2 * rows) return;
+  const bool is_k = wid >= rows;
+  const long long r = is_k ? wid - rows : wid;
+  const bf16* src = (is_k ? k : q) + r * HD;
+  bf16* dst = (is_k ? kn : qn) + r * HD;
+  float vals[NV];
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int d = lane + 32 * i;
+    const float v = d < HD ? __bfloat162float(src[d]) : 0.0f;
+    vals[i] = v;
+    ss += v * v;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float iv = 1.0f / sqrtf(fmaxf(ss, 1e-24f));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int d = lane + 32 * i;
+    if (d < HD) dst[d] = __float2bfloat16(vals[i] * iv);
+  }
+  if (lane == 0) inv[wid] = iv;
+}
+
+// rows row0 .. row0 + nrows - 1 of the block's (window, head) tile of src into
+// dst (pitch HD + 8) by cp.async; rows >= L zero-filled. The caller commits.
+template <int LAYOUT, int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int ld,
+                                          const AttnGeo& g, const Tile& t, int row0, int nrows) {
+  constexpr int LDQ = HD + 8;
+  for (int idx = threadIdx.x; idx < nrows * (HD / 8); idx += blockDim.x) {
+    const int r = idx / (HD / 8);
+    const int c = (idx % (HD / 8)) * 8;
+    const int l = row0 + r;
+    const bool ok = l < g.L;
+    const bf16* s = src + (ok ? row_offset<LAYOUT, HD>(g, t, l, ld) + c : 0);
+    cp_async16(dst + r * LDQ + c, s, ok);
+  }
+}
+
+// z = s * scale (+ bias[qi][key]) (+ bflag * mask[qi][key]) of one score
+// entry, -inf outside the L x L window: the one-block kernels' logits
+__device__ __forceinline__ float logit(float s, int qi, int key, int L, float sc,
+                                       const float* bh, const float* mk, float bflag) {
+  if (qi >= L || key >= L) return -CUDART_INF_F;
+  float val = __fmul_rn(s, sc);
+  if (bh != nullptr) val = __fadd_rn(val, bh[qi * L + key]);
+  if (mk != nullptr) val = __fadd_rn(val, __fmul_rn(bflag, mk[qi * L + key]));
+  return val;
+}
+
+// softmax probability: K8 e * (1 / sum e) (sr = 1 / sum e), K9 e / sum e (sr = sum e)
+template <int LAYOUT>
+__device__ __forceinline__ float prob(float z, float m, float sr) {
+  if (z == -CUDART_INF_F) return 0.0f;
+  const float ev = expf(z - m);
+  return LAYOUT == GRID ? ev * sr : ev / sr;
+}
+
+// ds, unscaled: K8 (dp - u r) e r, K9 p (dp - u)
+template <int LAYOUT>
+__device__ __forceinline__ float dlogit(float z, float dp, float m, float sr, float u) {
+  if (z == -CUDART_INF_F) return 0.0f;
+  const float ev = expf(z - m);
+  return LAYOUT == GRID ? (dp - u * sr) * ev * sr : ev / sr * (dp - u);
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (window, head), LP / 16 warps of 16 query rows
+// ---------------------------------------------------------------------------
+
+template <int HD, int LAYOUT, bool BIAS>
+__global__ void __launch_bounds__(MAX_LP * 2)
+    large_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ scale,
+                     const float* __restrict__ bias, const float* __restrict__ mask, float bflag,
+                     bf16* __restrict__ out, AttnGeo g) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NC = HD / DC;
+  constexpr int NFC = DC / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = g.LP;
+  const int L = g.L;
+  const int nwarps = LP / 16;
+  const int LDP = LP + 8;
+  bf16* qv = reinterpret_cast<bf16*>(smem);  // q [LP, LDQ], then v
+  bf16* ring = qv + LP * LDQ;                // two stages of a k tile [16, LDQ]
+  bf16* pbuf = ring + 2 * 16 * LDQ;          // bf16(p), 16 x LDP per warp
+  float* scratch = reinterpret_cast<float*>(pbuf + nwarps * 16 * LDP);
+
+  const Tile t = tile_of_block(g);
+  const int h = t.h;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nkt = LP / 16;
+
+  load_rows<LAYOUT, HD>(qv, q, g.ldq, g, t, 0, LP);
+  cp_async_commit();
+  // ring protocol: key tile kt is ready after acquire(kt); every sweep's
+  // iteration ends with a block barrier before its stage is refilled
+  auto acquire = [&](int kt) -> const bf16* {
+    if (kt == 0) {
+      load_rows<LAYOUT, HD>(ring, k, g.ldk, g, t, 0, 16);
+      cp_async_commit();
+    }
+    if (kt + 1 < nkt) {
+      load_rows<LAYOUT, HD>(ring + ((kt + 1) & 1) * 16 * LDQ, k, g.ldk, g, t, (kt + 1) * 16, 16);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (kt & 1) * 16 * LDQ;
+  };
+
+  const float sc = scale[h];
+  const int qrow = warp * 16 + fr;
+  const bool qok = qrow < L;
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  const float* mk = (mask != nullptr && t.wr == g.nwh - 1) ? mask : nullptr;
+  const bf16* qw = qv + warp * 16 * LDQ;
+  float z[8];
+  // z of the lane's 8 entries of this warp's score tile against key tile kb
+  auto tile_logits = [&](const bf16* kb, int kt) {
+    Frag s;
+    dot_rows<HD>(s, qw, kb);
+    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      z[e] = logit(cs[fr * 16 + fc + e], qrow, kt * 16 + fc + e, L, sc, bh, mk, bflag);
+    }
+    __syncwarp();
+  };
+
+  float m = -CUDART_INF_F;
+  for (int kt = 0; kt < nkt; ++kt) {  // sweep 1: row max
+    tile_logits(acquire(kt), kt);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, z[e]);
+    __syncthreads();
+  }
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));  // the two lanes of a row
+
+  float rowsum = 0.0f;
+  for (int kt = 0; kt < nkt; ++kt) {  // sweep 2: row sum of e = exp(z - m)
+    tile_logits(acquire(kt), kt);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (qok && kt * 16 + fc + e < L) rowsum += expf(z[e] - m);
+    }
+    __syncthreads();
+  }
+  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
+  const float sr = LAYOUT == GRID ? (qok ? 1.0f / rowsum : 0.0f) : rowsum;
+
+  bf16* pw = pbuf + warp * 16 * LDP;
+  for (int kt = 0; kt < nkt; ++kt) {  // sweep 3: bf16(p) into the row buffer
+    tile_logits(acquire(kt), kt);
+    float p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) p[e] = qok ? prob<LAYOUT>(z[e], m, sr) : 0.0f;
+    store8(pw + fr * LDP + kt * 16 + fc, p, [](int, float a) { return a; });
+    __syncthreads();
+  }
+
+  cp_async_wait<0>();
+  load_rows<LAYOUT, HD>(qv, v, g.ldv, g, t, 0, LP);  // v over q (all warps are past it)
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const size_t off = qok ? row_offset<LAYOUT, HD>(g, t, qrow, g.ldo) : 0;
+#pragma unroll 1
+  for (int ch = 0; ch < NC; ++ch) {  // out = bf16(p) @ v16, one head-dim chunk at a time
+    Frag o[NFC];
+#pragma unroll
+    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(o[j], 0.0f);
+    for (int kt = 0; kt < nkt; ++kt) {
+      FragA a;
+      wmma::load_matrix_sync(a, pw + kt * 16, LDP);
+#pragma unroll
+      for (int j = 0; j < NFC; ++j) {
+        FragB b;
+        wmma::load_matrix_sync(b, qv + kt * 16 * LDQ + ch * DC + j * 16, LDQ);
+        wmma::mma_sync(o[j], a, b, o[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NFC; ++j) {
+      wmma::store_matrix_sync(cs, o[j], 16, wmma::mem_row_major);
+      __syncwarp();
+      if (qok) {
+        store8(out + off + ch * DC + j * 16 + fc, cs + fr * 16 + fc,
+               [](int, float a) { return a; });
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, the rows kernel: one block per (window, head) [blockIdx.x] and 64
+// query rows [blockIdx.y]. q, k are the normalized qn16, kn16; qraw and inv
+// (K9 only) the raw q and the norms [2, Bw * heads * L] for the VJP.
+// ---------------------------------------------------------------------------
+
+template <int HD, int LAYOUT, bool BIAS>
+__global__ void __launch_bounds__(RW * 32)
+    large_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ gout,
+                          const bf16* __restrict__ qraw, const float* __restrict__ inv,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          const float* __restrict__ mask, float bflag, bf16* __restrict__ dq,
+                          float* __restrict__ rstat, float* __restrict__ dscale_part,
+                          float* __restrict__ dbias_part, AttnGeo geo) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NC = HD / DC;
+  constexpr int NFC = DC / 16;
+  constexpr int NF = HD / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = geo.LP;
+  const int L = geo.L;
+  const int LDP = LP + 8;
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // the block's query rows [RW * 16, LDQ]
+  bf16* gs = qs + RW * 16 * LDQ;              // their cotangent rows
+  bf16* ring = gs + RW * 16 * LDQ;            // two stages of (k tile, v tile)
+  bf16* rowbuf = ring + 4 * 16 * LDQ;         // dsb, 16 x LDP per warp
+  float* stage = reinterpret_cast<float*>(rowbuf + RW * 16 * LDP);  // dqn [16, HD] per warp
+  float* scratch = stage + RW * 16 * HD;
+  float* wsum = scratch + RW * 256;
+
+  const Tile t = tile_of_block(geo);
+  const int h = t.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nkt = LP / 16;
+  const int row0 = blockIdx.y * RW * 16;
+  const bool active = row0 + warp * 16 < LP;  // this warp's 16 rows exist
+  const int qrow = row0 + warp * 16 + fr;
+  const bool qok = qrow < L;
+  const int win = window_index(geo, t);
+  const size_t wh_idx = static_cast<size_t>(win) * geo.heads + h;
+
+  load_rows<LAYOUT, HD>(qs, q, geo.ldq, geo, t, row0, RW * 16);
+  load_rows<LAYOUT, HD>(gs, gout, geo.ldo, geo, t, row0, RW * 16);
+  cp_async_commit();
+
+  auto load_kv = [&](int kt) {
+    bf16* st = ring + (kt & 1) * 2 * 16 * LDQ;
+    load_rows<LAYOUT, HD>(st, k, geo.ldk, geo, t, kt * 16, 16);
+    load_rows<LAYOUT, HD>(st + 16 * LDQ, v, geo.ldv, geo, t, kt * 16, 16);
+  };
+  auto acquire = [&](int kt) -> const bf16* {
+    if (kt == 0) {
+      load_kv(0);
+      cp_async_commit();
+    }
+    if (kt + 1 < nkt) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (kt & 1) * 2 * 16 * LDQ;
+  };
+
+  const float sc = scale[h];
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  const float* mk = (mask != nullptr && t.wr == geo.nwh - 1) ? mask : nullptr;
+  const bf16* qw = qs + warp * 16 * LDQ;
+  const bf16* gw = gs + warp * 16 * LDQ;
+  float s[8], z[8];
+  // s and z of the lane's 8 entries of the score tile against key tile kt
+  auto tile_logits = [&](const bf16* kb, int kt) {
+    Frag f;
+    dot_rows<HD>(f, qw, kb);
+    wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s[e] = cs[fr * 16 + fc + e];
+      z[e] = logit(s[e], qrow, kt * 16 + fc + e, L, sc, bh, mk, bflag);
+    }
+    __syncwarp();
+  };
+  auto tile_dp = [&](const bf16* kb) {  // dp = g v^T of the tile, into cs
+    Frag f;
+    dot_rows<HD>(f, gw, kb + 16 * LDQ);
+    wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+    __syncwarp();
+  };
+
+  float m = -CUDART_INF_F;
+  for (int kt = 0; kt < nkt; ++kt) {  // sweep 1: row max
+    const bf16* kb = acquire(kt);
+    if (active) {
+      tile_logits(kb, kt);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) m = fmaxf(m, z[e]);
+    }
+    __syncthreads();
+  }
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+
+  float rowsum = 0.0f, u = 0.0f;
+  for (int kt = 0; kt < nkt; ++kt) {  // sweep 2: row sum of e; K8 also u = sum(dp e)
+    const bf16* kb = acquire(kt);
+    if (active) {
+      tile_logits(kb, kt);
+      if constexpr (LAYOUT == GRID) tile_dp(kb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float ev = z[e] == -CUDART_INF_F ? 0.0f : expf(z[e] - m);
+        rowsum += ev;
+        if constexpr (LAYOUT == GRID) u += cs[fr * 16 + fc + e] * ev;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
+  const float sr = LAYOUT == GRID ? (rowsum > 0.0f ? 1.0f / rowsum : 0.0f) : rowsum;
+  if constexpr (LAYOUT == WINDOWED) {  // sweep 3: u = sum(dp p) with p = e / sum e
+    for (int kt = 0; kt < nkt; ++kt) {
+      const bf16* kb = acquire(kt);
+      if (active) {
+        tile_logits(kb, kt);
+        tile_dp(kb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) u += cs[fr * 16 + fc + e] * prob<LAYOUT>(z[e], m, sr);
+        __syncwarp();
+      }
+      __syncthreads();
+    }
+  }
+  u += __shfl_xor_sync(0xffffffffu, u, 1);
+  if (active && (lane & 1) == 0) {
+    float* st = rstat + (wh_idx * LP + qrow) * 3;
+    st[0] = m;
+    st[1] = sr;
+    st[2] = u;
+  }
+
+  // ds sweep: bf16(ds * scale) into the row buffer, ds into the d(bias) rows
+  // (BIAS), and K9's d(scale) partial sum(ds * s)
+  bf16* pw = rowbuf + warp * 16 * LDP;
+  float* drow = BIAS && active ? dbias_part + (wh_idx * LP + qrow) * LP : nullptr;
+  float dsc = 0.0f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const bf16* kb = acquire(kt);
+    if (active) {
+      tile_logits(kb, kt);
+      tile_dp(kb);
+      float ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        ds[e] = dlogit<LAYOUT>(z[e], cs[fr * 16 + fc + e], m, sr, u);
+        dsc += ds[e] * s[e];
+      }
+      store8(pw + fr * LDP + kt * 16 + fc, ds, [&](int, float d) { return d * sc; });
+      if constexpr (BIAS) {  // ds = 0 outside the window, so padded entries get 0
+        float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
+        dst[0] = make_float4(ds[0], ds[1], ds[2], ds[3]);
+        dst[1] = make_float4(ds[4], ds[5], ds[6], ds[7]);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  // dqn = dsb @ kn16, one head-dim chunk per sweep, into the fp32 staging tile
+  float* stw = stage + warp * 16 * HD;
+#pragma unroll 1
+  for (int ch = 0; ch < NC; ++ch) {
+    Frag acc[NFC];
+#pragma unroll
+    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const bf16* kb = acquire(kt);
+      if (active) {
+        FragA a;
+        wmma::load_matrix_sync(a, pw + kt * 16, LDP);
+#pragma unroll
+        for (int j = 0; j < NFC; ++j) {
+          FragB b;
+          wmma::load_matrix_sync(b, kb + ch * DC + j * 16, LDQ);
+          wmma::mma_sync(acc[j], a, b, acc[j]);
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < NFC; ++j) {
+        wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
+      }
+    }
+  }
+  __syncwarp();
+
+  // <qn, dqn> of the row: K8 with qn16, K9 with the fp32 qn = q * inv_q
+  constexpr bool NORM_IN = LAYOUT == WINDOWED;
+  const float iq = (NORM_IN && qok) ? inv[wh_idx * L + qrow] : 1.0f;
+  const bf16* qr = (NORM_IN && qok) ? qraw + row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldq) : nullptr;
+  auto qn_at = [&](int d) -> float {
+    if constexpr (NORM_IN) {
+      return qok ? __bfloat162float(qr[d]) * iq : 0.0f;
+    } else {
+      return __bfloat162float(qw[fr * LDQ + d]);
+    }
+  };
+  float qd = 0.0f;
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
+    }
+  }
+  qd += __shfl_xor_sync(0xffffffffu, qd, 1);
+  if (active && qok) {
+    const size_t off = row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldo);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      store8(dq + off + j * 16 + fc, stw + fr * HD + j * 16 + fc, [&](int e, float dqn) {
+        if constexpr (NORM_IN) {
+          return (dqn - qn_at(j * 16 + fc + e) * qd) * iq;
+        } else {
+          return dqn;
+        }
+      });
+    }
+  }
+  // this block's d(scale) partial: K8 the sum of qd over its real rows (divided
+  // by scale in the reduction), K9 sum(ds * s); fixed order
+  float part;
+  if constexpr (LAYOUT == GRID) {
+    part = (active && qok && (lane & 1) == 0) ? qd : 0.0f;
+  } else {
+    part = active ? dsc : 0.0f;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if (lane == 0) wsum[warp] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < RW; ++i) total += wsum[i];
+    dscale_part[(static_cast<size_t>(win) * gridDim.y + blockIdx.y) * geo.heads + h] = total;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, the columns kernel: one block per (window, head) [blockIdx.x] and
+// 64 key rows [blockIdx.y]; the row statistics from the rows kernel.
+// ---------------------------------------------------------------------------
+
+template <int HD, int LAYOUT, bool BIAS>
+__global__ void __launch_bounds__(RW * 32)
+    large_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ gout,
+                          const bf16* __restrict__ kraw, const float* __restrict__ inv,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          const float* __restrict__ mask, float bflag,
+                          const float* __restrict__ rstat, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, AttnGeo geo) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NC = HD / DC;
+  constexpr int NFC = DC / 16;
+  constexpr int NF = HD / 16;
+  constexpr bool NORM_IN = LAYOUT == WINDOWED;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = geo.LP;
+  const int L = geo.L;
+  const int LDP = LP + 8;
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's key rows [RW * 16, LDQ]
+  bf16* vs = ks + RW * 16 * LDQ;             // their value rows
+  bf16* ring = vs + RW * 16 * LDQ;           // two stages of (q tile, g tile)
+  bf16* pbuf = ring + 4 * 16 * LDQ;          // p16^T [key][query], 16 x LDP per warp
+  bf16* dsbuf = pbuf + RW * 16 * LDP;        // dsb^T [key][query]
+  float* stage = reinterpret_cast<float*>(dsbuf + RW * 16 * LDP);  // dkn [16, HD] per warp
+  float* scratch = stage + RW * 16 * HD;
+
+  const Tile t = tile_of_block(geo);
+  const int h = t.h;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nqt = LP / 16;
+  const int row0 = blockIdx.y * RW * 16;
+  const bool active = row0 + warp * 16 < LP;
+  const int krow = row0 + warp * 16 + fr;
+  const bool kok = krow < L;
+  const size_t wh_idx = static_cast<size_t>(window_index(geo, t)) * geo.heads + h;
+  const float* rs = rstat + wh_idx * LP * 3;
+
+  load_rows<LAYOUT, HD>(ks, k, geo.ldk, geo, t, row0, RW * 16);
+  load_rows<LAYOUT, HD>(vs, v, geo.ldv, geo, t, row0, RW * 16);
+  cp_async_commit();
+
+  auto load_qg = [&](int qt) {
+    bf16* st = ring + (qt & 1) * 2 * 16 * LDQ;
+    load_rows<LAYOUT, HD>(st, q, geo.ldq, geo, t, qt * 16, 16);
+    load_rows<LAYOUT, HD>(st + 16 * LDQ, gout, geo.ldo, geo, t, qt * 16, 16);
+  };
+  auto acquire = [&](int qt) -> const bf16* {
+    if (qt == 0) {
+      load_qg(0);
+      cp_async_commit();
+    }
+    if (qt + 1 < nqt) load_qg(qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (qt & 1) * 2 * 16 * LDQ;
+  };
+
+  const float sc = scale[h];
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  const float* mk = (mask != nullptr && t.wr == geo.nwh - 1) ? mask : nullptr;
+  const bf16* kw = ks + warp * 16 * LDQ;
+  const bf16* vw = vs + warp * 16 * LDQ;
+  bf16* pt = pbuf + warp * 16 * LDP;
+  bf16* dt = dsbuf + warp * 16 * LDP;
+
+  // one sweep over the query tiles: p16^T and dsb^T rows from the row stats
+  for (int qt = 0; qt < nqt; ++qt) {
+    const bf16* qb = acquire(qt);
+    if (active) {
+      Frag f;
+      dot_rows<HD>(f, kw, qb);  // s^T [key][query]
+      wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+      __syncwarp();
+      float z[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {  // query and key swap places in the lookups
+        z[e] = logit(cs[fr * 16 + fc + e], qt * 16 + fc + e, krow, L, sc, bh, mk, bflag);
+      }
+      __syncwarp();
+      dot_rows<HD>(f, vw, qb + 16 * LDQ);  // dp^T [key][query] = v g^T
+      wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+      __syncwarp();
+      float p[8], ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float* st = rs + (qt * 16 + fc + e) * 3;
+        p[e] = prob<LAYOUT>(z[e], st[0], st[1]);
+        ds[e] = dlogit<LAYOUT>(z[e], cs[fr * 16 + fc + e], st[0], st[1], st[2]);
+      }
+      store8(pt + fr * LDP + qt * 16 + fc, p, [](int, float a) { return a; });
+      store8(dt + fr * LDP + qt * 16 + fc, ds, [&](int, float d) { return d * sc; });
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  const size_t koff = kok ? row_offset<LAYOUT, HD>(geo, t, krow, geo.ldo) : 0;
+  float* stw = stage + warp * 16 * HD;
+  // role 0: dv = p16^T @ g16, written as it leaves; role 1: dkn = dsb^T @ qn16
+  // (K8 written as it leaves, K9 staged for the normalization VJP)
+#pragma unroll 1
+  for (int role = 0; role < 2; ++role) {
+#pragma unroll 1
+    for (int ch = 0; ch < NC; ++ch) {
+      Frag acc[NFC];
+#pragma unroll
+      for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
+      for (int qt = 0; qt < nqt; ++qt) {
+        const bf16* qb = acquire(qt);
+        if (active) {
+          FragA a;
+          wmma::load_matrix_sync(a, (role == 0 ? pt : dt) + qt * 16, LDP);
+          const bf16* bsrc = role == 0 ? qb + 16 * LDQ : qb;
+#pragma unroll
+          for (int j = 0; j < NFC; ++j) {
+            FragB b;
+            wmma::load_matrix_sync(b, bsrc + ch * DC + j * 16, LDQ);
+            wmma::mma_sync(acc[j], a, b, acc[j]);
+          }
+        }
+        __syncthreads();
+      }
+      if (active) {
+        if (role == 1 && NORM_IN) {
+#pragma unroll
+          for (int j = 0; j < NFC; ++j) {
+            wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
+          }
+        } else {
+          bf16* dst = role == 0 ? dv : dk;
+#pragma unroll
+          for (int j = 0; j < NFC; ++j) {
+            wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+            __syncwarp();
+            if (kok) {
+              store8(dst + koff + ch * DC + j * 16 + fc, cs + fr * 16 + fc,
+                     [](int, float a) { return a; });
+            }
+            __syncwarp();
+          }
+        }
+      }
+    }
+  }
+  if constexpr (NORM_IN) {  // K9: dk = (dkn - kn <kn, dkn>) inv_k with the fp32 kn
+    __syncwarp();
+    const float ik = kok ? inv[(geo.B * geo.nwh * geo.nww * static_cast<size_t>(geo.heads) +
+                                wh_idx) * L + krow] : 1.0f;
+    const bf16* kr = kok ? kraw + row_offset<LAYOUT, HD>(geo, t, krow, geo.ldk) : nullptr;
+    auto kn_at = [&](int d) -> float { return kok ? __bfloat162float(kr[d]) * ik : 0.0f; };
+    float kd = 0.0f;
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
+      }
+    }
+    kd += __shfl_xor_sync(0xffffffffu, kd, 1);
+    if (active && kok) {
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        store8(dk + koff + j * 16 + fc, stw + fr * HD + j * 16 + fc,
+               [&](int e, float dkn) { return (dkn - kn_at(j * 16 + fc + e) * kd) * ik; });
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+struct LargeBwdArgs {
+  const void *q, *k, *v, *scale, *bias, *mask;  // q, k normalized (K9: the scratch copies)
+  float bflag;
+  const void *g, *qraw, *kraw, *inv;  // qraw, kraw, inv: K9 only
+  void *dq, *dk, *dv, *rstat, *dscale_part, *dbias_part, *dscale, *dbias;
+};
+
+template <class K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+// K9: the scratch copies qn16, kn16 and the norms inv [2, Bw * heads * L]
+template <int HD>
+int normalize_qk(const void* q, const void* k, void* qn, void* kn, void* inv, const AttnGeo& g,
+              cudaStream_t s) {
+  const long long rows = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads * g.L;
+  normalize_kernel<HD><<<static_cast<unsigned>((2 * rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<bf16*>(qn),
+      static_cast<bf16*>(kn), static_cast<float*>(inv), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int LAYOUT, bool BIAS>
+int launch_large_fwd(const FwdArgs& a, const AttnGeo& g, cudaStream_t s) {
+  unsigned blocks;
+  int code = n_blocks(g, &blocks);
+  if (code != 0) return code;
+  const size_t smem = fwd_smem_bytes<HD>(g.LP);
+  code = set_smem(large_fwd_kernel<HD, LAYOUT, BIAS>, smem);
+  if (code != 0) return code;
+  large_fwd_kernel<HD, LAYOUT, BIAS><<<blocks, (g.LP / 16) * 32, smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const float*>(a.scale),
+      static_cast<const float*>(a.bias), static_cast<const float*>(a.mask), a.bflag,
+      static_cast<bf16*>(a.out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int LAYOUT, bool BIAS>
+int launch_large_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) {
+  unsigned blocks;
+  int code = n_blocks(geo, &blocks);
+  if (code != 0) return code;
+  const size_t rows_smem = rows_smem_bytes<HD>(geo.LP);
+  const size_t cols_smem = cols_smem_bytes<HD>(geo.LP);
+  code = set_smem(large_bwd_rows_kernel<HD, LAYOUT, BIAS>, rows_smem);
+  if (code != 0) return code;
+  code = set_smem(large_bwd_cols_kernel<HD, LAYOUT, BIAS>, cols_smem);
+  if (code != 0) return code;
+  const int nchunks = (geo.LP / 16 + RW - 1) / RW;
+  const dim3 grid(blocks, nchunks);
+  large_bwd_rows_kernel<HD, LAYOUT, BIAS><<<grid, RW * 32, rows_smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+      static_cast<const bf16*>(a.qraw), static_cast<const float*>(a.inv),
+      static_cast<const float*>(a.scale), static_cast<const float*>(a.bias),
+      static_cast<const float*>(a.mask), a.bflag, static_cast<bf16*>(a.dq),
+      static_cast<float*>(a.rstat), static_cast<float*>(a.dscale_part),
+      static_cast<float*>(a.dbias_part), geo);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  large_bwd_cols_kernel<HD, LAYOUT, BIAS><<<grid, RW * 32, cols_smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+      static_cast<const bf16*>(a.kraw), static_cast<const float*>(a.inv),
+      static_cast<const float*>(a.scale), static_cast<const float*>(a.bias),
+      static_cast<const float*>(a.mask), a.bflag, static_cast<const float*>(a.rstat),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), geo);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  const int n_win = geo.B * geo.nwh * geo.nww;
+  attn_dscale_reduce_kernel<<<(geo.heads + 31) / 32, 32, 0, s>>>(
+      static_cast<const float*>(a.dscale_part), n_win * nchunks, geo.heads,
+      static_cast<const float*>(a.scale), LAYOUT == GRID ? 1 : 0,
+      static_cast<float*>(a.dscale));
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0 || !BIAS) return code;
+  const long long n_bias = static_cast<long long>(geo.heads) * geo.L * geo.L;
+  dbias_reduce_kernel<<<static_cast<unsigned>((n_bias + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(a.dbias_part), n_win, geo.heads, geo.L, geo.LP,
+      static_cast<float*>(a.dbias));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Picks the head-dim and BIAS instance (head dim 128: where the one-block
+// kernel does not fit, L above 162 forward).
+template <int LAYOUT>
+int dispatch_large_fwd(int hd, const FwdArgs& a, const AttnGeo& g, cudaStream_t s) {
+  const bool bias = a.bias != nullptr;
+  switch (hd) {
+    case 128:
+      return bias ? launch_large_fwd<128, LAYOUT, true>(a, g, s)
+                  : launch_large_fwd<128, LAYOUT, false>(a, g, s);
+    case 256:
+      return bias ? launch_large_fwd<256, LAYOUT, true>(a, g, s)
+                  : launch_large_fwd<256, LAYOUT, false>(a, g, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int LAYOUT>
+int dispatch_large_bwd(int hd, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
+  const bool bias = a.bias != nullptr;
+  if (bias && (a.dbias_part == nullptr || a.dbias == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (hd) {
+    case 128:
+      return bias ? launch_large_bwd<128, LAYOUT, true>(a, g, s)
+                  : launch_large_bwd<128, LAYOUT, false>(a, g, s);
+    case 256:
+      return bias ? launch_large_bwd<256, LAYOUT, true>(a, g, s)
+                  : launch_large_bwd<256, LAYOUT, false>(a, g, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace swin_qkv_attn_large

@@ -1,6 +1,6 @@
 // Pieces shared by the window-attention kernels (forward K1 in
-// window_attention_qkv.cu, backward K2 in window_attention_qkv_bwd.cu, K8/K9 in
-// qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
+// window_attention_qkv.cu, backward K2 in window_attention_qkv_bwd.cu, their
+// K7, K10 and K12 instances, K8/K9 in qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
 // map, the in-kernel qkv projection plus q/k L2 normalization of one (image,
 // window, head), the 16-row score product, the 8-value bf16 store and the
 // window-order d(bias) reduction.
@@ -27,8 +27,14 @@ constexpr int KC = 32;        // C_in slice per pipeline stage
 constexpr int LDX = KC + 8;   // smem row pitch (elements) of the x slice
 constexpr int MAX_LP = 256;   // at most 16 warps per block
 
+// Variants of the qkv-fused kernels (the template parameter VAR):
+constexpr int QKV_V3 = 0;  // K1/K2 (K7, K10): packed W [C_in, 3C], the NHWC grid
+constexpr int QKV_V5 = 1;  // K12 v5: W reordered to [3 * heads, C_in, HD], the NHWC grid
+constexpr int QKV_V4 = 2;  // K12 v4: packed W, window-major rows [B, nW, lm, *], v4's rounding
+
 struct Geometry {
   int B, H, W, Cin, C, heads, wh, ww, L, LP, nwh, nww;
+  int lm;  // QKV_V4: rows per window in memory (L rounded up to 8; rows >= L are padding)
 };
 
 // Fills the geometry from the launch arguments; false if they are not valid.
@@ -50,6 +56,7 @@ inline bool make_geometry(Geometry& g, int B, int H, int W, int Cin, int C, int 
   g.LP = (g.L + 15) / 16 * 16;
   g.nwh = H / wh;
   g.nww = W / ww;
+  g.lm = g.L;
   return g.LP <= MAX_LP;
 }
 
@@ -81,6 +88,24 @@ __device__ __forceinline__ size_t pixel_of(const Geometry& g, const Tile& t, int
   return (static_cast<size_t>(t.bi) * g.H + row) * g.W + col;
 }
 
+// Row (flat index into the token rows of x, g and the outputs) of window
+// token l: the grid pixel, or for QKV_V4 the window-major row.
+template <int VAR>
+__device__ __forceinline__ size_t token_of(const Geometry& g, const Tile& t, int l) {
+  if constexpr (VAR == QKV_V4) {
+    return ((static_cast<size_t>(t.bi) * g.nwh + t.wr) * g.nww + t.wc) * g.lm + l;
+  } else {
+    return pixel_of(g, t, l);
+  }
+}
+
+// Window rows that exist in memory: L, or lm for the window-major layout
+// (whose pad rows are read and written like the others).
+template <int VAR>
+__device__ __forceinline__ int rows_of(const Geometry& g) {
+  return VAR == QKV_V4 ? g.lm : g.L;
+}
+
 // Bytes of the projection's staging ring (two stages of x and W slices).
 template <int HD>
 __host__ __device__ constexpr size_t staging_bytes(int LP) {
@@ -92,8 +117,11 @@ __host__ __device__ constexpr size_t staging_bytes(int LP) {
 // bf16(b). xs / wsm is the staging ring (staging_bytes), cs a 16 x 16 fp32
 // scratch tile of this warp. Ends with a block-wide barrier. HP is the head
 // pitch of W's and b's columns: HD, or 128 for K10's padded weights (g.C is
-// then heads * 128, and only the HD live columns of each head are read).
-template <int HD, int HP = HD>
+// then heads * 128, and only the HD live columns of each head are read). VAR
+// picks the layouts: QKV_V5 reads the (role, head) slab of the reordered W
+// [3 * heads, C_in, HD] as one dense [C_in, HD] box (b is [3 * heads, HD],
+// the packed [3C] order); QKV_V4 reads x's window-major rows (rows up to lm).
+template <int HD, int HP = HD, int VAR = QKV_V3>
 __device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__ w,
                             const float* __restrict__ bqkv, const Geometry& g, const Tile& t,
                             bf16* qs, bf16* ks, bf16* vs, bf16* xs, bf16* wsm, float* cs) {
@@ -117,16 +145,22 @@ __device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__
     for (int idx = tid; idx < LP * (KC / 8); idx += nthreads) {
       const int l = idx / (KC / 8);
       const int c = (idx % (KC / 8)) * 8;
-      const bool ok = l < g.L;
-      const size_t pix = ok ? pixel_of(g, t, l) : 0;
+      const bool ok = l < rows_of<VAR>(g);
+      const size_t pix = ok ? token_of<VAR>(g, t, l) : 0;
       cp_async16(xd + l * LDX + c, x + pix * g.Cin + k0 + c, ok);
     }
     bf16* wd = wsm + stage * KC * LDQ;
     const int col0 = role * g.C + t.h * HP;
+    // QKV_V5: the slab's rows k0.. of [C_in, HD]
+    const bf16* w5 = w + (static_cast<size_t>(role * g.heads + t.h) * g.Cin + k0) * HD;
     for (int idx = tid; idx < KC * (HD / 8); idx += nthreads) {
       const int r = idx / (HD / 8);
       const int c = (idx % (HD / 8)) * 8;
-      cp_async16(wd + r * LDQ + c, w + static_cast<size_t>(k0 + r) * C3 + col0 + c, true);
+      if constexpr (VAR == QKV_V5) {
+        cp_async16(wd + r * LDQ + c, w5 + r * HD + c, true);
+      } else {
+        cp_async16(wd + r * LDQ + c, w + static_cast<size_t>(k0 + r) * C3 + col0 + c, true);
+      }
     }
   };
 

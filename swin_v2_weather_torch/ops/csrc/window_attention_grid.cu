@@ -21,16 +21,6 @@
 
 using namespace swin_qkv_attn;
 
-namespace {
-
-bool grid_geo(AttnGeo& g, int B, int H, int W, int C, int heads, int wh, int ww, int ldq, int ldk,
-              int ldv) {
-  return wh >= 1 && ww >= 1 && heads >= 1 && H % wh == 0 && W % ww == 0 && C % heads == 0 &&
-         make_attn_geo(g, B, H, W, heads, wh, ww, wh * ww, H / wh, W / ww, ldq, ldk, ldv, C);
-}
-
-}  // namespace
-
 // The forward: q, k, v [B, H, W, *] bf16 with pixel strides ldq, ldk, ldv
 // (channels contiguous), scale [heads] fp32, bias [heads, L, L] fp32 (the BIAS
 // instance) or null, mask [L, L] fp32 or null, gated by bflag on the last

@@ -57,6 +57,26 @@
 // each head at their padded offsets in W and b, computes K1's arithmetic on
 // them, writes the result at h * 128 and stores exact zeros in the pad lanes.
 //
+// K12 (entry points swin_window_attention_qkv5_fwd and _qkv4_fwd) replaces the
+// v5 and v4 TPU kernels of swin_v2_weather_tpu/ops/attic/window_attention_v45.py
+// (_make_qkv5_kernel, launched by _qkv5_forward; _make_qkv4_kernel, launched by
+// _qkv4_forward), reached through fused_window_attention_qkv(impl='v5'/'v4').
+// Both are this kernel with a variant template argument rather than a new
+// pair, because they differ from K1 only in where they read and in one
+// rounding site, and K1's tiling already suits this card:
+//   * v5 (QKV_V5) reads each (role, head) slab of the weight reordered to
+//     [3 * heads, C_in, hd] as one dense [C_in, hd] box (the TPU kernel's
+//     point: no misaligned lane slices of a packed [*, 3C] slab). The C_in
+//     loop and every sum keep K1's order, so v5's output equals K1's bit for
+//     bit.
+//   * v4 (QKV_V4) reads the window-major rows [B, nW, lm, C_in] (lm = L rounded
+//     up to 8) that the wrapper prepares, as JAX prepares them outside its
+//     kernel, and writes all lm rows of [B, nW, lm, C] (the pad rows' outputs
+//     are thrown away by the caller; pad keys get e = 0). Its softmax rounds
+//     p16 = bf16(e * (1 / sum e)) before p16 @ v, so the row sums take a first
+//     sweep of the score tiles and p16 a second. Its padded-head instance
+//     (QKV_PAD_HEADS) is the HP = 128 instance, as K10 is K1's.
+//
 // Contract (checked by the Python wrapper): x [B, H, W, C_in] bf16, W [C_in, 3C]
 // bf16, both contiguous; b [3C] fp32; scale [heads] fp32; mask [L, L] fp32 or
 // null; bias [heads, L, L] fp32 (BIAS only); C_in % 32 == 0; head dim in {32, 64, 96, 128}; H % wh == W % ww == 0;
@@ -78,7 +98,7 @@ size_t smem_bytes(int LP) {
   return qkv + scratch + (p_buf > staging ? p_buf : staging);
 }
 
-template <int HD, bool BIAS, int HP = HD>
+template <int HD, bool BIAS, int HP = HD, int VAR = QKV_V3>
 __global__ void __launch_bounds__(MAX_LP * 2)
     window_attention_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                                 const float* __restrict__ bqkv, const float* __restrict__ scale,
@@ -90,6 +110,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   extern __shared__ __align__(128) unsigned char smem[];
   const int LP = g.LP;
   const int L = g.L;
+  const int LS = rows_of<VAR>(g);  // rows written: L, or v4's lm
   const int nwarps = LP / 16;
   const int LDP = LP + 8;
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -113,7 +134,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const int fc = (lane & 1) * 8;   // first of its 8 fragment columns
 
   // ---------------- phase 1: qkv projection of the window, role by role ----
-  project_qkv<HD, HP>(x, w, bqkv, g, t, qs, ks, vs, xs, wsm, cs);
+  project_qkv<HD, HP, VAR>(x, w, bqkv, g, t, qs, ks, vs, xs, wsm, cs);
 
   // ---------------- phase 1b: L2-normalize q and k rows in place -----------
   normalize_rows<HD>(qs, nullptr);
@@ -128,8 +149,9 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const float* brow = BIAS && qrow < L ? bias + (static_cast<size_t>(h) * L + qrow) * L : nullptr;
   bf16* pw = pbuf + warp * 16 * LDP;
   const int nkt = LP / 16;
-  float rowsum = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {
+
+  // this warp's 16 x 16 score tile against key tile kt, into cs
+  auto score_tile = [&](int kt) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
     wmma::fill_fragment(s, 0.0f);
 #pragma unroll
@@ -142,26 +164,63 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     }
     wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
     __syncwarp();
-    __align__(16) bf16 pv[8];
+  };
+  // e = exp(z) of the lane's 8 entries of that tile; 0 for padded keys
+  auto exp8 = [&](int kt, float (&ev)[8]) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int key = kt * 16 + fc + e;
-      float ev = 0.0f;
+      ev[e] = 0.0f;
       if (key < L) {
         const float sv = cs[fr * 16 + fc + e];
         float z = (sv - 1.0f) * sc;
         if (BIAS && brow != nullptr) z = __fmul_rn(sv, sc) + brow[key];
         if (use_mask && qrow < L) z += bflag * mask[qrow * L + key];
-        ev = expf(z);
+        ev[e] = expf(z);
       }
-      rowsum += ev;
-      pv[e] = __float2bfloat16(ev);
     }
-    *reinterpret_cast<uint4*>(pw + fr * LDP + kt * 16 + fc) = *reinterpret_cast<const uint4*>(pv);
-    __syncwarp();
+  };
+
+  float rowsum = 0.0f;
+  float rinv;
+  if constexpr (VAR == QKV_V4) {
+    // v4 rounds p16 = bf16(e * (1 / sum e)) before the p @ v product: the row
+    // sums first, then the score tiles again for p16
+    for (int kt = 0; kt < nkt; ++kt) {
+      score_tile(kt);
+      float ev[8];
+      exp8(kt, ev);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) rowsum += ev[e];
+      __syncwarp();
+    }
+    rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
+    rinv = 1.0f / rowsum;
+    for (int kt = 0; kt < nkt; ++kt) {
+      score_tile(kt);
+      float ev[8];
+      exp8(kt, ev);
+      store8(pw + fr * LDP + kt * 16 + fc, ev, [&](int, float v) { return v * rinv; });
+      __syncwarp();
+    }
+  } else {
+    for (int kt = 0; kt < nkt; ++kt) {
+      score_tile(kt);
+      float ev[8];
+      exp8(kt, ev);
+      __align__(16) bf16 pv[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        rowsum += ev[e];
+        pv[e] = __float2bfloat16(ev[e]);
+      }
+      *reinterpret_cast<uint4*>(pw + fr * LDP + kt * 16 + fc) =
+          *reinterpret_cast<const uint4*>(pv);
+      __syncwarp();
+    }
+    rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
+    rinv = 1.0f / rowsum;
   }
-  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
-  const float rinv = 1.0f / rowsum;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[NF];
 #pragma unroll
@@ -177,22 +236,25 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     }
   }
 
-  const size_t pix = qrow < L ? pixel_of(g, t, qrow) : 0;
+  const size_t pix = qrow < LS ? token_of<VAR>(g, t, qrow) : 0;
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, o[j], 16, wmma::mem_row_major);
     __syncwarp();
-    if (qrow < L) {
+    if (qrow < LS) {
       __align__(16) bf16 ov[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) ov[e] = __float2bfloat16(cs[fr * 16 + fc + e] * rinv);
+      for (int e = 0; e < 8; ++e) {
+        const float v = cs[fr * 16 + fc + e];
+        ov[e] = __float2bfloat16(VAR == QKV_V4 ? v : v * rinv);
+      }
       *reinterpret_cast<uint4*>(out + pix * g.C + h * HP + j * 16 + fc) =
           *reinterpret_cast<const uint4*>(ov);
     }
     __syncwarp();
   }
   if constexpr (HP > HD) {  // K10: exact zeros in the head's pad lanes
-    if (qrow < L) {
+    if (qrow < LS) {
 #pragma unroll
       for (int j = 0; j < (HP - HD) / 16; ++j) {
         *reinterpret_cast<uint4*>(out + pix * g.C + h * HP + HD + j * 16 + fc) =
@@ -202,18 +264,18 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   }
 }
 
-template <int HD, bool BIAS, int HP = HD>
+template <int HD, bool BIAS, int HP = HD, int VAR = QKV_V3>
 int launch(const void* x, const void* w, const void* b, const void* scale, const void* bias,
            const void* mask, float bflag, void* out, const Geometry& g, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>(g.LP);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_qkv_kernel<HD, BIAS, HP>,
+  cudaError_t err = cudaFuncSetAttribute(window_attention_qkv_kernel<HD, BIAS, HP, VAR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  window_attention_qkv_kernel<HD, BIAS, HP>
+  window_attention_qkv_kernel<HD, BIAS, HP, VAR>
       <<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, stream>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(w),
           static_cast<const float*>(b), static_cast<const float*>(scale),
@@ -291,6 +353,69 @@ extern "C" int swin_window_attention_qkv_padded_fwd(const void* x, const void* w
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K12: the v5 (VAR = QKV_V5) and v4 (QKV_V4) forwards, bias-free. hd is the
+// head dim; g.C is heads * hd, or heads * 128 for v4's padded heads.
+template <int VAR>
+int launch_k12(const void* x, const void* w, const void* b, const void* scale, const void* mask,
+               float bflag, void* out, const Geometry& g, int hd, cudaStream_t s) {
+  const bool padded = g.C != g.heads * hd;
+  if (padded && (VAR != QKV_V4 || g.C != g.heads * 128)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 32:
+      if constexpr (VAR == QKV_V4) {
+        if (padded) return launch<32, false, 128, VAR>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+      }
+      return launch<32, false, 32, VAR>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    case 64:
+      if constexpr (VAR == QKV_V4) {
+        if (padded) return launch<64, false, 128, VAR>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+      }
+      return launch<64, false, 64, VAR>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    case 96:
+      if constexpr (VAR == QKV_V4) {
+        if (padded) return launch<96, false, 128, VAR>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+      }
+      return launch<96, false, 96, VAR>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    case 128:
+      return launch<128, false, 128, VAR>(x, w, b, scale, nullptr, mask, bflag, out, g, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K12 v5: K1 on the reordered weight w5 [3 * heads, C_in, hd] bf16 (b [3C] in
+// the packed order, which is w5's slab order); the other operands as K1's.
+extern "C" int swin_window_attention_qkv5_fwd(const void* x, const void* w5, const void* b,
+                                              const void* scale, const void* mask, float bflag,
+                                              void* out, int B, int H, int W, int Cin, int C,
+                                              int heads, int wh, int ww, void* stream) {
+  Geometry g;
+  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_k12<QKV_V5>(x, w5, b, scale, mask, bflag, out, g, C / heads,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K12 v4: xw [B, nwh * nww, lm, C_in] bf16 window-major (lm = L rounded up to
+// 8, rows >= L zero), W [C_in, 3C] bf16, b [3C] fp32 (C = heads * hd, or
+// heads * 128 with head-padded W and b), scale [heads], mask [L, L] fp32 or
+// null -> out [B, nW, lm, C] bf16, every row written (pad lanes zero).
+extern "C" int swin_window_attention_qkv4_fwd(const void* xw, const void* w, const void* b,
+                                              const void* scale, const void* mask, float bflag,
+                                              void* out, int B, int nwh, int nww, int lm, int Cin,
+                                              int C, int heads, int hd, int wh, int ww,
+                                              void* stream) {
+  Geometry g;
+  if (!make_geometry(g, B, nwh * wh, nww * ww, Cin, C, heads, wh, ww) || lm < g.L ||
+      lm > g.LP || lm % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g.lm = lm;
+  return launch_k12<QKV_V4>(xw, w, b, scale, mask, bflag, out, g, hd,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* swin_cuda_error_string(int code) {

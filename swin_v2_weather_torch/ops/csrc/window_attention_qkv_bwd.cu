@@ -77,6 +77,21 @@
 // lanes, so the projection backward returns dx, the padded dW with exact-zero
 // pad columns, the padded db (zero pad entries) and dscale.
 //
+// K12's backwards (entry points swin_window_attention_qkv5_bwd and _qkv4_bwd)
+// replace swin_v2_weather_tpu/ops/attic/window_attention_v45.py:
+// _make_qkv5_bwd_kernel (launched by _qkv5_backward) and _make_qkv4_bwd_kernel
+// (_qkv4_backward), as K2 with a variant template argument: v5 recomputes the
+// projection from the reordered weight and takes dx and dW from the packed one,
+// as the TPU kernel does (bit-equal to K2); v4 reads and writes the
+// window-major rows (all lm of them, its pad query rows attending to the real
+// keys as in the TPU kernel) and takes the fp32 qn = q * inv_q, not qn16, in
+// qd = <qn, dqn>, in d(scale) and in the normalization VJP (likewise kn). The
+// raw q and k rows are gone from shared memory once normalized in place, and
+// there is no room to keep them beside q, k, v and g (225 KB at head dim 96),
+// so each warp parks its raw rows in their dq and dk slots of dqkv (device
+// memory, 2 x 99.5 MB at the flagship shape) and reads them back just before
+// it overwrites them.
+//
 // Contract (checked by the Python wrapper): x [B, H, W, C_in], g [B, H, W, C]
 // bf16; W [C_in, 3C] bf16; b [3C], scale [heads] fp32; mask [L, L] fp32 or null;
 // bias [heads, L, L] fp32 (BIAS only);
@@ -102,7 +117,7 @@ size_t bwd_smem_bytes(int LP) {
   return mats + scratch + (rows > staging ? rows : staging) + floats;
 }
 
-template <int HD, bool BIAS, int HP = HD>
+template <int HD, bool BIAS, int HP = HD, int VAR = QKV_V3>
 __global__ void __launch_bounds__(MAX_LP * 2)
     attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                          const float* __restrict__ bqkv, const float* __restrict__ scale,
@@ -116,6 +131,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   extern __shared__ __align__(128) unsigned char smem[];
   const int LP = geo.LP;
   const int L = geo.L;
+  const int LS = rows_of<VAR>(geo);  // rows read and written: L, or v4's lm
   const int nwarps = LP / 16;
   const int LDP = LP + 8;
   const int C3 = 3 * geo.C;
@@ -151,13 +167,28 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   for (int idx = tid; idx < LP * (HD / 8); idx += blockDim.x) {
     const int l = idx / (HD / 8);
     const int c = (idx % (HD / 8)) * 8;
-    const bool ok = l < L;
-    const size_t pix = ok ? pixel_of(geo, t, l) : 0;
+    const bool ok = l < LS;
+    const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
     cp_async16(gs + l * LDQ + c, gout + pix * geo.C + h * HP + c, ok);
   }
   cp_async_commit();
 
-  project_qkv<HD, HP>(x, w, bqkv, geo, t, qs, ks, vs, xs, wsm, cs);  // waits for g too
+  project_qkv<HD, HP, VAR>(x, w, bqkv, geo, t, qs, ks, vs, xs, wsm, cs);  // waits for g too
+  if constexpr (VAR == QKV_V4) {
+    // v4 takes the fp32 qn = q * inv_q (not qn16) in qd, kd and the
+    // normalization VJP: park this warp's raw q and k rows in their dq and dk
+    // slots of dqkv, where passes 1 and 2 read them back before overwriting
+    for (int idx = lane; idx < 16 * 2 * (HD / 8); idx += 32) {
+      const int r = warp * 16 + idx / (2 * (HD / 8));
+      const int role = (idx / (HD / 8)) & 1;
+      const int c = (idx % (HD / 8)) * 8;
+      if (r < LS) {
+        *reinterpret_cast<uint4*>(dqkv + token_of<VAR>(geo, t, r) * C3 + role * geo.C + h * HP +
+                                  c) = *reinterpret_cast<const uint4*>((role ? ks : qs) + r * LDQ + c);
+      }
+    }
+    __syncwarp();
+  }
   normalize_rows<HD>(qs, inv_q);
   normalize_rows<HD>(ks, inv_k);
   __syncthreads();
@@ -171,12 +202,15 @@ __global__ void __launch_bounds__(MAX_LP * 2)
 
   // e = exp((s - 1) * scale (+ mask)), or exp(s * scale + badd (+ mask)), for
   // the lane's 8 entries of a score tile in cs; zero outside the L x L window
+  // (v4: outside L keys and lm query rows, its pad query rows attending to
+  // the real keys as in the TPU kernel)
+  const int LQ = VAR == QKV_V4 ? LS : L;
   auto exp_tile = [&](int qrow, int key0, float (&ev)[8]) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int key = key0 + e;
       float val = 0.0f;
-      if (key < L && qrow < L) {
+      if (key < L && qrow < LQ) {
         const float s = cs[fr * 16 + fc + e];
         float z;
         if constexpr (BIAS) {
@@ -184,7 +218,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
         } else {
           z = (s - 1.0f) * sc;
         }
-        if (use_mask) z += bflag * mask[qrow * L + key];
+        if (use_mask && (VAR != QKV_V4 || qrow < L)) z += bflag * mask[qrow * L + key];
         val = expf(z);
       }
       ev[e] = val;
@@ -261,35 +295,41 @@ __global__ void __launch_bounds__(MAX_LP * 2)
       wmma::mma_sync(acc[j], a, b, acc[j]);
     }
   }
-  float qd = 0.0f;  // <qn16, dqn> of the row
+  const float iq = inv_q[qrow];
+  const size_t pix = qrow < LS ? token_of<VAR>(geo, t, qrow) : 0;
+  // qn at column d of the row: qn16, or for v4 the fp32 q * inv_q from the
+  // raw row parked in the dq slot (read by this lane before it writes there)
+  const bf16* qraw = dqkv + pix * C3 + h * HP;
+  auto qn_at = [&](int d) -> float {
+    if constexpr (VAR == QKV_V4) {
+      return qrow < LS ? __bfloat162float(qraw[d]) * iq : 0.0f;
+    } else {
+      return __bfloat162float(qs[qrow * LDQ + d]);
+    }
+  };
+  float qd = 0.0f;  // <qn, dqn> of the row
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
     __syncwarp();
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      qd += __bfloat162float(qs[qrow * LDQ + j * 16 + fc + e]) * cs[fr * 16 + fc + e];
-    }
+    for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * cs[fr * 16 + fc + e];
     __syncwarp();
   }
   qd += __shfl_xor_sync(0xffffffffu, qd, 1);
-  {
-    const float iq = inv_q[qrow];
-    const size_t pix = qrow < L ? pixel_of(geo, t, qrow) : 0;
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      if (qrow < L) {
-        const bf16* qn = qs + qrow * LDQ + j * 16 + fc;
-        store8(dqkv + pix * C3 + h * HP + j * 16 + fc, cs + fr * 16 + fc,
-               [&](int e, float dqn) { return (dqn - __bfloat162float(qn[e]) * qd) * iq; });
-      }
-      __syncwarp();
+  for (int j = 0; j < NF; ++j) {
+    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+    if (qrow < LS) {
+      store8(dqkv + pix * C3 + h * HP + j * 16 + fc, cs + fr * 16 + fc,
+             [&](int e, float dqn) { return (dqn - qn_at(j * 16 + fc + e) * qd) * iq; });
     }
+    __syncwarp();
   }
-  // the window's d(scale) partial: sum of qd over its real rows, fixed tree
-  float part = (qrow < L && (lane & 1) == 0) ? qd : 0.0f;
+  // the window's d(scale) partial: sum of qd over its real rows (v4: its lm
+  // rows), fixed tree
+  float part = (qrow < LQ && (lane & 1) == 0) ? qd : 0.0f;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
   if (lane == 0) wsum[warp] = part;
@@ -303,7 +343,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
 
   // ---------------- pass 2: this warp's 16 key rows --------------------------
   const int krow = warp * 16 + fr;
-  const size_t kpix = krow < L ? pixel_of(geo, t, krow) : 0;
+  const size_t kpix = krow < LS ? token_of<VAR>(geo, t, krow) : 0;
   bf16* pt = pw;  // one 16 x 16 bf16 tile, [query][key]
 
   // dv = p16^T @ g16
@@ -334,7 +374,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
     __syncwarp();
-    if (krow < L) {
+    if (krow < LS) {
       store8(dqkv + kpix * C3 + 2 * geo.C + h * HP + j * 16 + fc, cs + fr * 16 + fc,
              [](int, float dv) { return dv; });
     }
@@ -371,34 +411,39 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     }
     __syncwarp();
   }
-  float kd = 0.0f;  // <kn16, dkn> of the row
+  const float ik = inv_k[krow];
+  const bf16* kraw = dqkv + kpix * C3 + geo.C + h * HP;  // v4: the parked raw k row
+  auto kn_at = [&](int d) -> float {
+    if constexpr (VAR == QKV_V4) {
+      return krow < LS ? __bfloat162float(kraw[d]) * ik : 0.0f;
+    } else {
+      return __bfloat162float(ks[krow * LDQ + d]);
+    }
+  };
+  float kd = 0.0f;  // <kn, dkn> of the row
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
     __syncwarp();
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      kd += __bfloat162float(ks[krow * LDQ + j * 16 + fc + e]) * cs[fr * 16 + fc + e];
-    }
+    for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * cs[fr * 16 + fc + e];
     __syncwarp();
   }
   kd += __shfl_xor_sync(0xffffffffu, kd, 1);
-  const float ik = inv_k[krow];
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
     __syncwarp();
-    if (krow < L) {
-      const bf16* kn = ks + krow * LDQ + j * 16 + fc;
+    if (krow < LS) {
       store8(dqkv + kpix * C3 + geo.C + h * HP + j * 16 + fc, cs + fr * 16 + fc,
-             [&](int e, float dkn) { return (dkn - __bfloat162float(kn[e]) * kd) * ik; });
+             [&](int e, float dkn) { return (dkn - kn_at(j * 16 + fc + e) * kd) * ik; });
     }
     __syncwarp();
   }
   if constexpr (HP > HD) {  // K10: exact zeros in the pad lanes of dq, dk, dv
     const int prow = warp * 16 + fr;  // query rows (pass 1) and key rows (pass 2) coincide
-    if (prow < L) {
-      const size_t ppix = pixel_of(geo, t, prow);
+    if (prow < LS) {
+      const size_t ppix = token_of<VAR>(geo, t, prow);
 #pragma unroll
       for (int role = 0; role < 3; ++role) {
 #pragma unroll
@@ -411,20 +456,20 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   }
 }
 
-template <int HD, bool BIAS, int HP = HD>
+template <int HD, bool BIAS, int HP = HD, int VAR = QKV_V3>
 int launch_attention_bwd(const void* x, const void* w, const void* b, const void* scale,
                          const void* bias, const void* mask, float bflag, const void* g,
                          void* dqkv, void* dscale_part, void* dbias_part, const Geometry& geo,
                          cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes<HD>(geo.LP);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD, BIAS, HP>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD, BIAS, HP, VAR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  attention_bwd_kernel<HD, BIAS, HP>
+  attention_bwd_kernel<HD, BIAS, HP, VAR>
       <<<static_cast<unsigned>(blocks), (geo.LP / 16) * 32, smem, stream>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(w),
           static_cast<const float*>(b), static_cast<const float*>(scale),
@@ -524,6 +569,54 @@ int backward_padded(const void* x, const void* w, const void* b, const void* sca
       dw_splits, db_splits, s);
 }
 
+// K12's backwards (bias-free): the attention pass of variant VAR (v5: the
+// reordered weight w5 for the recompute; v4: window-major rows, fp32 qn, and
+// for padded heads the head pitch 128), then K2's projection backward on the
+// packed W over the T rows of x (v4: B * nW * lm window-major rows).
+template <int VAR>
+int backward_k12(const void* x, const void* wr, const void* w, const void* b, const void* scale,
+                 const void* mask, float bflag, const void* g, void* dqkv, void* dw_part,
+                 void* db_part, void* dscale_part, void* dx, void* dw, void* db, void* dscale,
+                 const Geometry& geo, int hd, int T, int dw_splits, int db_splits,
+                 cudaStream_t s) {
+  const bool padded = geo.C != geo.heads * hd;
+  if (dw_splits < 1 || db_splits < 1 ||
+      (padded && (VAR != QKV_V4 || geo.C != geo.heads * 128))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int code;
+  switch (hd) {
+#define SWIN_K12_CASE(HD)                                                                     \
+  case HD:                                                                                    \
+    if constexpr (VAR == QKV_V4 && HD < 128) {                                                \
+      if (padded) {                                                                           \
+        code = launch_attention_bwd<HD, false, 128, VAR>(x, wr, b, scale, nullptr, mask,      \
+                                                         bflag, g, dqkv, dscale_part, nullptr, \
+                                                         geo, s);                             \
+        break;                                                                                \
+      }                                                                                       \
+    }                                                                                         \
+    code = launch_attention_bwd<HD, false, HD, VAR>(x, wr, b, scale, nullptr, mask, bflag, g, \
+                                                    dqkv, dscale_part, nullptr, geo, s);      \
+    break;
+    SWIN_K12_CASE(32)
+    SWIN_K12_CASE(64)
+    SWIN_K12_CASE(96)
+    SWIN_K12_CASE(128)
+#undef SWIN_K12_CASE
+    default:
+      code = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (code != 0) return code;
+  const int n_win = geo.B * geo.nwh * geo.nww;
+  return swin_qkv_proj::projection_backward(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
+      T, geo.Cin, 3 * geo.C, static_cast<float*>(dw_part), static_cast<float*>(db_part),
+      static_cast<const float*>(dscale_part), n_win, geo.heads, static_cast<const float*>(scale),
+      static_cast<bf16*>(dx), static_cast<float*>(dw), static_cast<float*>(db),
+      static_cast<float*>(dscale), nullptr, 0, geo.L, geo.LP, nullptr, dw_splits, db_splits, s);
+}
+
 }  // namespace
 
 // K2. Workspaces (allocated by the caller): dqkv [B, H, W, 3C] bf16,
@@ -566,4 +659,42 @@ extern "C" int swin_window_attention_qkv_padded_bwd(
   return backward_padded(x, w, b, scale, mask, bflag, g, dqkv, dw_part, db_part, dscale_part, dx,
                          dw, db, dscale, B, H, W, Cin, heads, hd, wh, ww, dw_splits, db_splits,
                          stream);
+}
+
+// K12 v5's backward: K2 recomputing the projection from the reordered weight
+// w5 [3 * heads, C_in, hd] and taking dx and dW from the packed W [C_in, 3C],
+// as the TPU kernel does; workspaces and outputs as K2's.
+extern "C" int swin_window_attention_qkv5_bwd(
+    const void* x, const void* w5, const void* w, const void* b, const void* scale,
+    const void* mask, float bflag, const void* g, void* dqkv, void* dw_part, void* db_part,
+    void* dscale_part, void* dx, void* dw, void* db, void* dscale, int B, int H, int W, int Cin,
+    int C, int heads, int wh, int ww, int dw_splits, int db_splits, void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return backward_k12<QKV_V5>(x, w5, w, b, scale, mask, bflag, g, dqkv, dw_part, db_part,
+                              dscale_part, dx, dw, db, dscale, geo, C / heads, B * H * W,
+                              dw_splits, db_splits, static_cast<cudaStream_t>(stream));
+}
+
+// K12 v4's backward: xw and gw [B, nwh * nww, lm, *] window-major (rows >= L
+// zero), W [C_in, 3C] bf16 and b [3C] (C = heads * hd, or heads * 128 with
+// head-padded W, b and gw); dqkv [B * nW * lm, 3C] and the other workspaces as
+// K2's -> dxw [B, nW, lm, C_in] bf16 (pad rows zero), dW [C_in, 3C], db [3C]
+// (pad columns zero), dscale [heads].
+extern "C" int swin_window_attention_qkv4_bwd(
+    const void* xw, const void* w, const void* b, const void* scale, const void* mask,
+    float bflag, const void* gw, void* dqkv, void* dw_part, void* db_part, void* dscale_part,
+    void* dxw, void* dw, void* db, void* dscale, int B, int nwh, int nww, int lm, int Cin, int C,
+    int heads, int hd, int wh, int ww, int dw_splits, int db_splits, void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, nwh * wh, nww * ww, Cin, C, heads, wh, ww) || lm < geo.L ||
+      lm > geo.LP || lm % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  geo.lm = lm;
+  return backward_k12<QKV_V4>(xw, w, w, b, scale, mask, bflag, gw, dqkv, dw_part, db_part,
+                              dscale_part, dxw, dw, db, dscale, geo, hd, B * nwh * nww * lm,
+                              dw_splits, db_splits, static_cast<cudaStream_t>(stream));
 }

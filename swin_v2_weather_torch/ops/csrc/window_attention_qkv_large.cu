@@ -61,6 +61,18 @@
 // partials per 64 rows). dW, db, dscale and d(bias) are summed in a fixed
 // order, with no atomics.
 //
+// K12's large-head instances replace the same TPU kernels' v5 and v4
+// schedules (swin_v2_weather_tpu/ops/attic/window_attention_v45.py:
+// _make_qkv5_kernel / _make_qkv5_bwd_kernel, _make_qkv4_kernel /
+// _make_qkv4_bwd_kernel) at the same head dims: v5 (template variant
+// QKV_V5) runs the projection GEMM per (role, head) slab of the reordered
+// weight, in the packed GEMM's K order, so its results are K1/K2's; v4
+// (QKV_V4) reads window-major rows, rounds p16 = bf16(e * (1 / sum e)) in a
+// second key sweep before p @ v, and takes the fp32 qn = q * inv_q in qd and
+// the normalization VJP, the raw q and k rows parked in their dq and dk slots
+// of dqkv by the normalization kernel and read back before they are
+// overwritten (likewise kn).
+//
 // Contract (checked by the Python wrapper): K1's, with head dim 128 or 256,
 // and the shared memory of each kernel within 232,448 B; the scratch buffers
 // as the wrapper allocates them.
@@ -92,10 +104,13 @@ struct StoreQkv {
 
 // ---------------- 2. per-head L2 normalization of q and k, in place ---------
 
-// one warp per (token, role q or k, head); inv [T, 2, heads]
-template <int HD>
+// one warp per (token, role q or k, head); inv [T, 2, heads]. PARK (v4's
+// backward): the raw row is first copied to the same place in park (dqkv,
+// whose dq and dk slots the attention kernels read back for v4's fp32 qn
+// before they overwrite them).
+template <int HD, bool PARK = false>
 __global__ void normalize_qk_kernel(bf16* __restrict__ qkv, int T, int C, int heads,
-                                    float* __restrict__ inv) {
+                                    float* __restrict__ inv, bf16* __restrict__ park) {
   constexpr int NV = HD / 32;
   const long long wid = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -112,6 +127,7 @@ __global__ void normalize_qk_kernel(bf16* __restrict__ qkv, int T, int C, int he
     const float v = __bfloat162float(rowp[lane + 32 * i]);
     vals[i] = v;
     ss += v * v;
+    if constexpr (PARK) park[tok * 3 * C + role * C + h * HD + lane + 32 * i] = rowp[lane + 32 * i];
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
@@ -126,7 +142,7 @@ __global__ void normalize_qk_kernel(bf16* __restrict__ qkv, int T, int C, int he
 // window rows row0 .. row0 + nrows - 1 of the [T, ld] buffer src, HD columns
 // from col0 (a head of q, k, v or g), into dst (pitch HD + 8); rows >= L
 // zero-filled
-template <int HD>
+template <int HD, int VAR = QKV_V3>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int ld,
                                           int col0, const Geometry& g, const Tile& t, int row0,
                                           int nrows) {
@@ -135,26 +151,29 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
     const int r = idx / (HD / 8);
     const int c = (idx % (HD / 8)) * 8;
     const int l = row0 + r;
-    const bool ok = l < g.L;
-    const size_t pix = ok ? pixel_of(g, t, l) : 0;
+    const bool ok = l < rows_of<VAR>(g);
+    const size_t pix = ok ? token_of<VAR>(g, t, l) : 0;
     cp_async16(dst + r * LDQ + c, src + pix * ld + col0 + c, ok);
   }
 }
 
 // e = exp(z) for the lane's 8 entries (query qrow, keys key0 .. key0 + 7) of
-// the score tile in cs, zero outside the L x L window; z as K1/K7 form it
+// the score tile in cs, zero outside the L x L window (v4's forward: query
+// rows up to LQ = lm, its pad rows attending to the real keys); z as K1/K7
+// form it
 template <bool BIAS>
 __device__ __forceinline__ void exp_row8(const float* cs, int qrow, int key0, int L, float sc,
                                          const float* bh, bool use_mask, const float* mask,
-                                         float bflag, float (&ev)[8]) {
+                                         float bflag, float (&ev)[8], int LQ = 0) {
   const int lane = threadIdx.x & 31;
   const int fr = lane >> 1;
   const int fc = (lane & 1) * 8;
+  if (LQ == 0) LQ = L;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int key = key0 + e;
     float val = 0.0f;
-    if (key < L && qrow < L) {
+    if (key < L && qrow < LQ) {
       const float s = cs[fr * 16 + fc + e];
       float z;
       if constexpr (BIAS) {
@@ -162,7 +181,7 @@ __device__ __forceinline__ void exp_row8(const float* cs, int qrow, int key0, in
       } else {
         z = (s - 1.0f) * sc;
       }
-      if (use_mask) z += bflag * mask[qrow * L + key];
+      if (use_mask && qrow < L) z += bflag * mask[qrow * L + key];
       val = expf(z);
     }
     ev[e] = val;
@@ -174,15 +193,16 @@ __device__ __forceinline__ void exp_row8(const float* cs, int qrow, int key0, in
 template <bool BIAS>
 __device__ __forceinline__ void exp_col8(const float* cs, int krow, int q0, int L, float sc,
                                          const float* bh, bool use_mask, const float* mask,
-                                         float bflag, float (&ev)[8]) {
+                                         float bflag, float (&ev)[8], int LQ = 0) {
   const int lane = threadIdx.x & 31;
   const int fr = lane >> 1;
   const int fc = (lane & 1) * 8;
+  if (LQ == 0) LQ = L;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int qi = q0 + e;
     float val = 0.0f;
-    if (qi < L && krow < L) {
+    if (qi < LQ && krow < L) {
       const float s = cs[fr * 16 + fc + e];
       float z;
       if constexpr (BIAS) {
@@ -190,7 +210,7 @@ __device__ __forceinline__ void exp_col8(const float* cs, int krow, int q0, int 
       } else {
         z = (s - 1.0f) * sc;
       }
-      if (use_mask) z += bflag * mask[qi * L + krow];
+      if (use_mask && qi < L) z += bflag * mask[qi * L + krow];
       val = expf(z);
     }
     ev[e] = val;
@@ -206,7 +226,7 @@ __host__ __device__ constexpr size_t fwd_smem_bytes(int LP) {
          static_cast<size_t>(LP / 16) * 256 * sizeof(float);
 }
 
-template <int HD, bool BIAS>
+template <int HD, bool BIAS, int VAR = QKV_V3>
 __global__ void __launch_bounds__(MAX_LP * 2)
     large_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
                      const float* __restrict__ bias, const float* __restrict__ mask, float bflag,
@@ -234,8 +254,8 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const int fc = (lane & 1) * 8;
   const int nkt = LP / 16;
 
-  load_rows<HD>(qv, qkv, C3, h * HD, g, t, 0, LP);
-  load_rows<HD>(ring, qkv, C3, g.C + h * HD, g, t, 0, 16);
+  const int LS = rows_of<VAR>(g);  // rows written: L, or v4's lm
+  load_rows<HD, VAR>(qv, qkv, C3, h * HD, g, t, 0, LP);
   cp_async_commit();
 
   const float sc = scale[h];
@@ -243,36 +263,54 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const int qrow = warp * 16 + fr;
   const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
   bf16* pw = pbuf + warp * 16 * LDP;
-  float rowsum = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {
-      load_rows<HD>(ring + ((kt + 1) & 1) * 16 * LDQ, qkv, C3, g.C + h * HD, g, t, (kt + 1) * 16,
-                    16);
-    }
+  // one sweep over the key tiles through the ring: e = exp(z) of each tile
+  // handed to f(kt, ev); v4 sweeps twice (the row sums, then p16 = bf16(e *
+  // (1 / sum e)) before p @ v), v3 once (bf16(e), divided after p @ v)
+  auto sweep = [&](auto f) {
+    load_rows<HD, VAR>(ring, qkv, C3, g.C + h * HD, g, t, 0, 16);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    Frag s;
-    dot_rows<HD>(s, qv + warp * 16 * LDQ, ring + (kt & 1) * 16 * LDQ);
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-    float ev[8];
-    exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+    for (int kt = 0; kt < nkt; ++kt) {
+      if (kt + 1 < nkt) {
+        load_rows<HD, VAR>(ring + ((kt + 1) & 1) * 16 * LDQ, qkv, C3, g.C + h * HD, g, t,
+                           (kt + 1) * 16, 16);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      Frag s;
+      dot_rows<HD>(s, qv + warp * 16 * LDQ, ring + (kt & 1) * 16 * LDQ);
+      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
+      __syncwarp();
+      float ev[8];
+      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
+                     VAR == QKV_V4 ? LS : L);
+      f(kt, ev);
+      __syncthreads();  // the stage is refilled by the next iteration's load
+    }
+  };
+  float rowsum = 0.0f;
+  sweep([&](int kt, const float (&ev)[8]) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) rowsum += ev[e];
-    store8(pw + fr * LDP + kt * 16 + fc, ev, [](int, float v) { return v; });
-    __syncthreads();  // the stage is refilled by the next iteration's load
-  }
+    if constexpr (VAR != QKV_V4) {
+      store8(pw + fr * LDP + kt * 16 + fc, ev, [](int, float v) { return v; });
+    }
+  });
   rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
   const float rinv = 1.0f / rowsum;
+  if constexpr (VAR == QKV_V4) {
+    sweep([&](int kt, const float (&ev)[8]) {
+      store8(pw + fr * LDP + kt * 16 + fc, ev, [&](int, float v) { return v * rinv; });
+    });
+  }
 
   cp_async_wait<0>();
-  load_rows<HD>(qv, qkv, C3, 2 * g.C + h * HD, g, t, 0, LP);  // v over q (all warps are past it)
+  load_rows<HD, VAR>(qv, qkv, C3, 2 * g.C + h * HD, g, t, 0, LP);  // v over q (all warps are past it)
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  const size_t pix = qrow < L ? pixel_of(g, t, qrow) : 0;
+  const size_t pix = qrow < LS ? token_of<VAR>(g, t, qrow) : 0;
 #pragma unroll 1
   for (int ch = 0; ch < NC; ++ch) {
     Frag o[NFC];
@@ -292,9 +330,9 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     for (int j = 0; j < NFC; ++j) {
       wmma::store_matrix_sync(cs, o[j], 16, wmma::mem_row_major);
       __syncwarp();
-      if (qrow < L) {
+      if (qrow < LS) {
         store8(out + pix * g.C + h * HD + ch * DC + j * 16 + fc, cs + fr * 16 + fc,
-               [&](int, float v) { return v * rinv; });
+               [&](int, float v) { return VAR == QKV_V4 ? v : v * rinv; });
       }
       __syncwarp();
     }
@@ -310,8 +348,10 @@ __host__ __device__ constexpr size_t rows_smem_bytes(int LP) {
          (static_cast<size_t>(RW) * 16 * HD + RW * 256 + 16) * sizeof(float);
 }
 
-// one block per (window, head) [blockIdx.x] and 64 query rows [blockIdx.y]
-template <int HD, bool BIAS>
+// one block per (window, head) [blockIdx.x] and 64 query rows [blockIdx.y].
+// VAR = QKV_V4: window-major rows, and qd and the normalization VJP on the
+// fp32 qn = q * inv_q, q's raw row read back from its dq slot of dqkv
+template <int HD, bool BIAS, int VAR = QKV_V3>
 __global__ void __launch_bounds__(RW * 32)
     large_bwd_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
                           const float* __restrict__ scale, const float* __restrict__ bias,
@@ -350,13 +390,14 @@ __global__ void __launch_bounds__(RW * 32)
   const int qrow = row0 + warp * 16 + fr;
   const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
   const size_t wh_idx = static_cast<size_t>(win) * geo.heads + h;
+  const int LS = rows_of<VAR>(geo);  // rows read and written: L, or v4's lm
 
   for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
     const int r = idx / (HD / 8);
     const int c = (idx % (HD / 8)) * 8;
     const int l = row0 + r;
-    const bool ok = l < L;
-    const size_t pix = ok ? pixel_of(geo, t, l) : 0;
+    const bool ok = l < LS;
+    const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
     cp_async16(qs + r * LDQ + c, qkv + pix * C3 + h * HD + c, ok);
     cp_async16(gs + r * LDQ + c, gout + pix * geo.C + h * HD + c, ok);
   }
@@ -364,8 +405,8 @@ __global__ void __launch_bounds__(RW * 32)
 
   auto load_kv = [&](int kt) {
     bf16* st = ring + (kt & 1) * 2 * 16 * LDQ;
-    load_rows<HD>(st, qkv, C3, geo.C + h * HD, geo, t, kt * 16, 16);
-    load_rows<HD>(st + 16 * LDQ, qkv, C3, 2 * geo.C + h * HD, geo, t, kt * 16, 16);
+    load_rows<HD, VAR>(st, qkv, C3, geo.C + h * HD, geo, t, kt * 16, 16);
+    load_rows<HD, VAR>(st + 16 * LDQ, qkv, C3, 2 * geo.C + h * HD, geo, t, kt * 16, 16);
   };
   // ring protocol: stage kt is ready after acquire(kt); release() ends its use
   auto acquire = [&](int kt) -> const bf16* {
@@ -396,7 +437,8 @@ __global__ void __launch_bounds__(RW * 32)
       wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
       __syncwarp();
       float ev[8];
-      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
+                     VAR == QKV_V4 ? LS : L);
       __syncwarp();
       dot_rows<HD>(s, gw, kb + 16 * LDQ);  // dp = g v^T
       wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
@@ -430,7 +472,8 @@ __global__ void __launch_bounds__(RW * 32)
       wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
       __syncwarp();
       float ev[8];
-      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
+                     VAR == QKV_V4 ? LS : L);
       __syncwarp();
       dot_rows<HD>(s, gw, kb + 16 * LDQ);
       wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
@@ -479,30 +522,38 @@ __global__ void __launch_bounds__(RW * 32)
   }
   __syncwarp();
 
-  // qd = <qn16, dqn>, summed per lane as K2 sums it; dq = (dqn - qn16 qd) inv_q
+  // qd = <qn, dqn>, summed per lane as K2 sums it; dq = (dqn - qn qd) inv_q,
+  // qn = qn16 (v3) or the fp32 q * inv_q from the raw row parked in dq's slot
+  // (v4; this lane reads its columns before it writes them)
+  const bool qin = active && qrow < LS;
+  const size_t qpix = qin ? token_of<VAR>(geo, t, qrow) : 0;
+  const float iq = qin ? inv[(qpix * 2) * geo.heads + h] : 0.0f;
+  const bf16* qraw = dqkv + qpix * C3 + h * HD;
+  auto qn_at = [&](int d) -> float {
+    if constexpr (VAR == QKV_V4) {
+      return qin ? __bfloat162float(qraw[d]) * iq : 0.0f;
+    } else {
+      return __bfloat162float(qw[fr * LDQ + d]);
+    }
+  };
   float qd = 0.0f;
   if (active) {
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        qd += __bfloat162float(qw[fr * LDQ + j * 16 + fc + e]) * stw[fr * HD + j * 16 + fc + e];
-      }
+      for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
     }
   }
   qd += __shfl_xor_sync(0xffffffffu, qd, 1);
-  if (active && qrow < L) {
-    const size_t pix = pixel_of(geo, t, qrow);
-    const float iq = inv[(pix * 2) * geo.heads + h];
+  if (qin) {
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
-      const bf16* qn = qw + fr * LDQ + j * 16 + fc;
-      store8(dqkv + pix * C3 + h * HD + j * 16 + fc, stw + fr * HD + j * 16 + fc,
-             [&](int e, float dqn) { return (dqn - __bfloat162float(qn[e]) * qd) * iq; });
+      store8(dqkv + qpix * C3 + h * HD + j * 16 + fc, stw + fr * HD + j * 16 + fc,
+             [&](int e, float dqn) { return (dqn - qn_at(j * 16 + fc + e) * qd) * iq; });
     }
   }
   // this block's d(scale) partial: sum of qd over its real rows, fixed tree
-  float part = (active && qrow < L && (lane & 1) == 0) ? qd : 0.0f;
+  float part = (active && qrow < (VAR == QKV_V4 ? LS : L) && (lane & 1) == 0) ? qd : 0.0f;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
   if (lane == 0) wsum[warp] = part;
@@ -523,8 +574,9 @@ __host__ __device__ constexpr size_t cols_smem_bytes(int LP) {
          (static_cast<size_t>(RW) * 16 * HD + RW * 256) * sizeof(float);
 }
 
-// one block per (window, head) [blockIdx.x] and 64 key rows [blockIdx.y]
-template <int HD, bool BIAS>
+// one block per (window, head) [blockIdx.x] and 64 key rows [blockIdx.y];
+// VAR as the rows kernel's (v4: k's raw row read back from dk's slot)
+template <int HD, bool BIAS, int VAR = QKV_V3>
 __global__ void __launch_bounds__(RW * 32)
     large_bwd_cols_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
                           const float* __restrict__ scale, const float* __restrict__ bias,
@@ -562,13 +614,14 @@ __global__ void __launch_bounds__(RW * 32)
   const int krow = row0 + warp * 16 + fr;
   const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
   const float* rs = rstat + (static_cast<size_t>(win) * geo.heads + h) * LP * 2;
+  const int LS = rows_of<VAR>(geo);
 
   for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
     const int r = idx / (HD / 8);
     const int c = (idx % (HD / 8)) * 8;
     const int l = row0 + r;
-    const bool ok = l < L;
-    const size_t pix = ok ? pixel_of(geo, t, l) : 0;
+    const bool ok = l < LS;
+    const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
     cp_async16(ks + r * LDQ + c, qkv + pix * C3 + geo.C + h * HD + c, ok);
     cp_async16(vs + r * LDQ + c, qkv + pix * C3 + 2 * geo.C + h * HD + c, ok);
   }
@@ -576,8 +629,8 @@ __global__ void __launch_bounds__(RW * 32)
 
   auto load_qg = [&](int qt) {
     bf16* st = ring + (qt & 1) * 2 * 16 * LDQ;
-    load_rows<HD>(st, qkv, C3, h * HD, geo, t, qt * 16, 16);
-    load_rows<HD>(st + 16 * LDQ, gout, geo.C, h * HD, geo, t, qt * 16, 16);
+    load_rows<HD, VAR>(st, qkv, C3, h * HD, geo, t, qt * 16, 16);
+    load_rows<HD, VAR>(st + 16 * LDQ, gout, geo.C, h * HD, geo, t, qt * 16, 16);
   };
   auto acquire = [&](int qt) -> const bf16* {
     if (qt == 0) {
@@ -608,7 +661,8 @@ __global__ void __launch_bounds__(RW * 32)
       wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
       __syncwarp();
       float ev[8];
-      exp_col8<BIAS>(cs, krow, qt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev);
+      exp_col8<BIAS>(cs, krow, qt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
+                     VAR == QKV_V4 ? LS : L);
       __syncwarp();
       dot_rows<HD>(s, vw, qb + 16 * LDQ);  // dp^T [key][query] = v g^T
       wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
@@ -629,7 +683,7 @@ __global__ void __launch_bounds__(RW * 32)
     __syncthreads();
   }
 
-  const size_t kpix = krow < L ? pixel_of(geo, t, krow) : 0;
+  const size_t kpix = krow < LS ? token_of<VAR>(geo, t, krow) : 0;
   float* stw = stage + warp * 16 * HD;
   // role 0: dv = p16^T @ g16, written as it leaves; role 1: dkn = ds^T @ qn16,
   // staged for the normalization VJP
@@ -661,7 +715,7 @@ __global__ void __launch_bounds__(RW * 32)
           for (int j = 0; j < NFC; ++j) {
             wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
             __syncwarp();
-            if (krow < L) {
+            if (krow < LS) {
               store8(dqkv + kpix * C3 + 2 * geo.C + h * HD + ch * DC + j * 16 + fc,
                      cs + fr * 16 + fc, [](int, float v) { return v; });
             }
@@ -678,24 +732,31 @@ __global__ void __launch_bounds__(RW * 32)
   }
   __syncwarp();
 
-  float kd = 0.0f;  // <kn16, dkn> of the row
+  // kd = <kn, dkn>: kn16, or v4's fp32 k * inv_k from the raw row in dk's slot
+  const bool kin = active && krow < LS;
+  const float ik = kin ? inv[(kpix * 2 + 1) * geo.heads + h] : 0.0f;
+  const bf16* kraw = dqkv + kpix * C3 + geo.C + h * HD;
+  auto kn_at = [&](int d) -> float {
+    if constexpr (VAR == QKV_V4) {
+      return kin ? __bfloat162float(kraw[d]) * ik : 0.0f;
+    } else {
+      return __bfloat162float(kw[fr * LDQ + d]);
+    }
+  };
+  float kd = 0.0f;
   if (active) {
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        kd += __bfloat162float(kw[fr * LDQ + j * 16 + fc + e]) * stw[fr * HD + j * 16 + fc + e];
-      }
+      for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
     }
   }
   kd += __shfl_xor_sync(0xffffffffu, kd, 1);
-  if (active && krow < L) {
-    const float ik = inv[(kpix * 2 + 1) * geo.heads + h];
+  if (kin) {
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
-      const bf16* kn = kw + fr * LDQ + j * 16 + fc;
       store8(dqkv + kpix * C3 + geo.C + h * HD + j * 16 + fc, stw + fr * HD + j * 16 + fc,
-             [&](int e, float dkn) { return (dkn - __bfloat162float(kn[e]) * kd) * ik; });
+             [&](int e, float dkn) { return (dkn - kn_at(j * 16 + fc + e) * kd) * ik; });
     }
   }
 }
@@ -709,59 +770,93 @@ int set_smem(K kernel, size_t bytes) {
                                                static_cast<int>(bytes)));
 }
 
-// steps 1-2: qkv [T, 3C] bf16 = normalized q, k and v; inv [T, 2, heads]
-template <int HD>
+// The rows of x, g and the outputs: the grid's pixels, or v4's window-major
+// rows (lm a window).
+template <int VAR>
+int token_rows(const Geometry& g) {
+  return VAR == QKV_V4 ? g.B * g.nwh * g.nww * g.lm : g.B * g.H * g.W;
+}
+
+// steps 1-2: qkv [T, 3C] bf16 = normalized q, k and v; inv [T, 2, heads].
+// QKV_V5: w is the reordered [3 * heads, C_in, HD]; each (role, head) slab is
+// its own [C_in, HD] GEMM operand, whose HD output columns are the slab's
+// columns of the packed [T, 3C] (same K order, so the same sums). QKV_V4: T
+// window-major rows; with park (the backward's dqkv) the raw q, k rows are
+// parked there before the normalization.
+template <int HD, int VAR = QKV_V3>
 int project_normalize(const void* x, const void* w, const void* b, void* qkv, void* inv,
-                      const Geometry& g, cudaStream_t s) {
-  const int T = g.B * g.H * g.W;
+                      const Geometry& g, cudaStream_t s, void* park = nullptr) {
+  const int T = token_rows<VAR>(g);
   const int C3 = 3 * g.C;
-  int code = swin_gemm::launch_gemm<false, false>(
-      static_cast<const bf16*>(x), g.Cin, static_cast<const bf16*>(w), C3, T, C3, g.Cin, 1,
-      StoreQkv{static_cast<const float*>(b), static_cast<bf16*>(qkv), C3}, s);
+  int code = 0;
+  if constexpr (VAR == QKV_V5) {
+    for (int slab = 0; slab < 3 * g.heads && code == 0; ++slab) {
+      const size_t col0 = static_cast<size_t>(slab) * HD;
+      code = swin_gemm::launch_gemm<false, false>(
+          static_cast<const bf16*>(x), g.Cin,
+          static_cast<const bf16*>(w) + col0 * g.Cin, HD, T, HD, g.Cin, 1,
+          StoreQkv{static_cast<const float*>(b) + col0, static_cast<bf16*>(qkv) + col0, C3}, s);
+    }
+  } else {
+    code = swin_gemm::launch_gemm<false, false>(
+        static_cast<const bf16*>(x), g.Cin, static_cast<const bf16*>(w), C3, T, C3, g.Cin, 1,
+        StoreQkv{static_cast<const float*>(b), static_cast<bf16*>(qkv), C3}, s);
+  }
   if (code != 0) return code;
   const long long warps = static_cast<long long>(T) * 2 * g.heads;
-  normalize_qk_kernel<HD><<<static_cast<unsigned>((warps + 7) / 8), 256, 0, s>>>(
-      static_cast<bf16*>(qkv), T, g.C, g.heads, static_cast<float*>(inv));
+  const unsigned nblk = static_cast<unsigned>((warps + 7) / 8);
+  if (park != nullptr) {
+    normalize_qk_kernel<HD, true><<<nblk, 256, 0, s>>>(
+        static_cast<bf16*>(qkv), T, g.C, g.heads, static_cast<float*>(inv),
+        static_cast<bf16*>(park));
+  } else {
+    normalize_qk_kernel<HD><<<nblk, 256, 0, s>>>(static_cast<bf16*>(qkv), T, g.C, g.heads,
+                                                 static_cast<float*>(inv), nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, bool BIAS>
+template <int HD, bool BIAS, int VAR = QKV_V3>
 int forward(const void* x, const void* w, const void* b, const void* scale, const void* bias,
             const void* mask, float bflag, void* out, void* qkv, void* inv, const Geometry& g,
             cudaStream_t s) {
   const size_t smem = fwd_smem_bytes<HD>(g.LP);
-  int code = set_smem(large_fwd_kernel<HD, BIAS>, smem);
+  int code = set_smem(large_fwd_kernel<HD, BIAS, VAR>, smem);
   if (code != 0) return code;
-  code = project_normalize<HD>(x, w, b, qkv, inv, g, s);
+  code = project_normalize<HD, VAR>(x, w, b, qkv, inv, g, s);
   if (code != 0) return code;
   const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  large_fwd_kernel<HD, BIAS><<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, s>>>(
+  large_fwd_kernel<HD, BIAS, VAR><<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, s>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<const float*>(mask), bflag,
       static_cast<bf16*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, bool BIAS>
-int backward(const void* x, const void* w, const void* b, const void* scale, const void* bias,
-             const void* mask, float bflag, const void* g, void* qkv, void* inv, void* rstat,
-             void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dbias_part,
-             void* dx, void* dw, void* db, void* dscale, void* dbias, const Geometry& geo,
-             int dw_splits, int db_splits, cudaStream_t s) {
+// QKV_V5: wr is the reordered weight the recompute reads, w the packed one of
+// the projection backward; otherwise both are the packed W. QKV_V4: the
+// window-major rows, the raw q, k parked in dqkv for the fp32 qn.
+template <int HD, bool BIAS, int VAR = QKV_V3>
+int backward(const void* x, const void* wr, const void* w, const void* b, const void* scale,
+             const void* bias, const void* mask, float bflag, const void* g, void* qkv,
+             void* inv, void* rstat, void* dqkv, void* dw_part, void* db_part,
+             void* dscale_part, void* dbias_part, void* dx, void* dw, void* db, void* dscale,
+             void* dbias, const Geometry& geo, int dw_splits, int db_splits, cudaStream_t s) {
   const size_t rows_smem = rows_smem_bytes<HD>(geo.LP);
   const size_t cols_smem = cols_smem_bytes<HD>(geo.LP);
-  int code = set_smem(large_bwd_rows_kernel<HD, BIAS>, rows_smem);
+  int code = set_smem(large_bwd_rows_kernel<HD, BIAS, VAR>, rows_smem);
   if (code != 0) return code;
-  code = set_smem(large_bwd_cols_kernel<HD, BIAS>, cols_smem);
+  code = set_smem(large_bwd_cols_kernel<HD, BIAS, VAR>, cols_smem);
   if (code != 0) return code;
-  code = project_normalize<HD>(x, w, b, qkv, inv, geo, s);
+  code = project_normalize<HD, VAR>(x, wr, b, qkv, inv, geo, s,
+                                    VAR == QKV_V4 ? dqkv : nullptr);
   if (code != 0) return code;
   const long long wh_blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
   if (wh_blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int nchunks = (geo.LP / 16 + RW - 1) / RW;
   const dim3 grid(static_cast<unsigned>(wh_blocks), nchunks);
-  large_bwd_rows_kernel<HD, BIAS><<<grid, RW * 32, rows_smem, s>>>(
+  large_bwd_rows_kernel<HD, BIAS, VAR><<<grid, RW * 32, rows_smem, s>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
@@ -769,7 +864,7 @@ int backward(const void* x, const void* w, const void* b, const void* scale, con
       static_cast<float*>(dbias_part), geo);
   code = static_cast<int>(cudaGetLastError());
   if (code != 0) return code;
-  large_bwd_cols_kernel<HD, BIAS><<<grid, RW * 32, cols_smem, s>>>(
+  large_bwd_cols_kernel<HD, BIAS, VAR><<<grid, RW * 32, cols_smem, s>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
@@ -779,7 +874,7 @@ int backward(const void* x, const void* w, const void* b, const void* scale, con
   const int n_win = geo.B * geo.nwh * geo.nww;
   return swin_qkv_proj::projection_backward(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
-      geo.B * geo.H * geo.W, geo.Cin, 3 * geo.C, static_cast<float*>(dw_part),
+      token_rows<VAR>(geo), geo.Cin, 3 * geo.C, static_cast<float*>(dw_part),
       static_cast<float*>(db_part), static_cast<const float*>(dscale_part), n_win * nchunks,
       geo.heads, static_cast<const float*>(scale), static_cast<bf16*>(dx),
       static_cast<float*>(dw), static_cast<float*>(db), static_cast<float*>(dscale),
@@ -821,11 +916,11 @@ int dispatch_bwd(const void* x, const void* w, const void* b, const void* scale,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / heads) {
     case 128:
-      return backward<128, BIAS>(x, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv,
+      return backward<128, BIAS>(x, w, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv,
                                  dw_part, db_part, dscale_part, dbias_part, dx, dw, db, dscale,
                                  dbias, geo, dw_splits, db_splits, s);
     case 256:
-      return backward<256, BIAS>(x, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv,
+      return backward<256, BIAS>(x, w, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv,
                                  dw_part, db_part, dscale_part, dbias_part, dx, dw, db, dscale,
                                  dbias, geo, dw_splits, db_splits, s);
     default:
@@ -871,4 +966,115 @@ extern "C" int swin_window_attention_qkv_large_bwd(
   return dispatch_bwd<true>(x, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv, dw_part,
                             db_part, dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W,
                             Cin, C, heads, wh, ww, dw_splits, db_splits, stream);
+}
+
+// K12 v5, large-head variant: as swin_window_attention_qkv_large_fwd with the
+// reordered weight w5 [3 * heads, C_in, hd] (bias-free).
+extern "C" int swin_window_attention_qkv5_large_fwd(const void* x, const void* w5, const void* b,
+                                                    const void* scale, const void* mask,
+                                                    float bflag, void* out, void* qkv, void* inv,
+                                                    int B, int H, int W, int Cin, int C, int heads,
+                                                    int wh, int ww, void* stream) {
+  Geometry g;
+  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / heads) {
+    case 128:
+      return forward<128, false, QKV_V5>(x, w5, b, scale, nullptr, mask, bflag, out, qkv, inv, g, s);
+    case 256:
+      return forward<256, false, QKV_V5>(x, w5, b, scale, nullptr, mask, bflag, out, qkv, inv, g, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K12 v5's backward, large-head variant: the recompute from w5, dx and dW
+// from the packed W; scratch and outputs as swin_window_attention_qkv_large_bwd's.
+extern "C" int swin_window_attention_qkv5_large_bwd(
+    const void* x, const void* w5, const void* w, const void* b, const void* scale,
+    const void* mask, float bflag, const void* g, void* qkv, void* inv, void* rstat, void* dqkv,
+    void* dw_part, void* db_part, void* dscale_part, void* dx, void* dw, void* db, void* dscale,
+    int B, int H, int W, int Cin, int C, int heads, int wh, int ww, int dw_splits, int db_splits,
+    void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / heads) {
+    case 128:
+      return backward<128, false, QKV_V5>(x, w5, w, b, scale, nullptr, mask, bflag, g, qkv, inv,
+                                        rstat, dqkv, dw_part, db_part, dscale_part, nullptr, dx,
+                                        dw, db, dscale, nullptr, geo, dw_splits, db_splits, s);
+    case 256:
+      return backward<256, false, QKV_V5>(x, w5, w, b, scale, nullptr, mask, bflag, g, qkv, inv,
+                                        rstat, dqkv, dw_part, db_part, dscale_part, nullptr, dx,
+                                        dw, db, dscale, nullptr, geo, dw_splits, db_splits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K12 v4, large-head variant (head dims 128 and 256, where K1/K2's one-block
+// v4 instances do not fit): xw [B, nwh * nww, lm, C_in] window-major, W [C_in,
+// 3C], b [3C]; scratch qkv [B * nW * lm, 3C] bf16 and inv [B * nW * lm, 2,
+// heads] fp32 -> out [B, nW, lm, C] bf16, every row written.
+extern "C" int swin_window_attention_qkv4_large_fwd(const void* xw, const void* w, const void* b,
+                                                    const void* scale, const void* mask,
+                                                    float bflag, void* out, void* qkv, void* inv,
+                                                    int B, int nwh, int nww, int lm, int Cin,
+                                                    int C, int heads, int wh, int ww,
+                                                    void* stream) {
+  Geometry g;
+  if (!make_geometry(g, B, nwh * wh, nww * ww, Cin, C, heads, wh, ww) || lm < g.L ||
+      lm > g.LP || lm % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g.lm = lm;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / heads) {
+    case 128:
+      return forward<128, false, QKV_V4>(xw, w, b, scale, nullptr, mask, bflag, out, qkv, inv, g,
+                                         s);
+    case 256:
+      return forward<256, false, QKV_V4>(xw, w, b, scale, nullptr, mask, bflag, out, qkv, inv, g,
+                                         s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K12 v4's backward, large-head variant: gw [B, nW, lm, C] window-major;
+// scratch as the forward's plus rstat [B * nW, heads, LP, 2], dqkv
+// [B * nW * lm, 3C] (the raw q, k rows are parked there first) and K2's
+// workspaces -> dxw [B, nW, lm, C_in] (pad rows zero), dW, db, dscale.
+extern "C" int swin_window_attention_qkv4_large_bwd(
+    const void* xw, const void* w, const void* b, const void* scale, const void* mask,
+    float bflag, const void* gw, void* qkv, void* inv, void* rstat, void* dqkv, void* dw_part,
+    void* db_part, void* dscale_part, void* dxw, void* dw, void* db, void* dscale, int B, int nwh,
+    int nww, int lm, int Cin, int C, int heads, int wh, int ww, int dw_splits, int db_splits,
+    void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, nwh * wh, nww * ww, Cin, C, heads, wh, ww) || lm < geo.L ||
+      lm > geo.LP || lm % 8 != 0 || dw_splits < 1 || db_splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  geo.lm = lm;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / heads) {
+    case 128:
+      return backward<128, false, QKV_V4>(xw, w, w, b, scale, nullptr, mask, bflag, gw, qkv, inv,
+                                          rstat, dqkv, dw_part, db_part, dscale_part, nullptr,
+                                          dxw, dw, db, dscale, nullptr, geo, dw_splits, db_splits,
+                                          s);
+    case 256:
+      return backward<256, false, QKV_V4>(xw, w, w, b, scale, nullptr, mask, bflag, gw, qkv, inv,
+                                          rstat, dqkv, dw_part, db_part, dscale_part, nullptr,
+                                          dxw, dw, db, dscale, nullptr, geo, dw_splits, db_splits,
+                                          s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -22,14 +22,6 @@
 
 using namespace swin_qkv_attn;
 
-namespace {
-
-bool windowed_geo(AttnGeo& g, int B, int nwh, int nww, int heads, int hd, int L) {
-  return hd >= 16 && make_attn_geo(g, B, 0, 0, heads, 0, 0, L, nwh, nww, hd, hd, hd, hd);
-}
-
-}  // namespace
-
 // The forward: q, k, v [B * nwh * nww, heads, L, hd] bf16 contiguous, windows
 // in h-major order; scale [heads] fp32; bias [heads, L, L] fp32 (the BIAS
 // instance) or null; mask [L, L] fp32 or null, added on the last window row ->

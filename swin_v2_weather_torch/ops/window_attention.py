@@ -72,14 +72,22 @@ runs for a shape, or raises before any launch.
 Selectable variants, as in the JAX package, read at call time from the
 module globals (set from the environment at import):
 
-  * ``QKV_IMPL`` (``SWIN_QKV_IMPL``): ``'v3'`` (K1/K2, the default) or
+  * ``QKV_IMPL`` (``SWIN_QKV_IMPL``): ``'v3'`` (K1/K2, the default),
     ``'v6'``: the padded-head route (K10, :func:`fused_window_attention_qkv_padded`,
-    which the model takes when there is no CPB bias); ``'v4'``/``'v5'`` are
-    not ported yet and raise.
+    which the model takes when there is no CPB bias), or ``'v5'`` / ``'v4'``:
+    the K12 schedules of ``ops/attic/window_attention_v45.py`` (v4's padded
+    heads with ``QKV_PAD_HEADS`` there, from ``SWIN_QKV_PAD_HEADS``);
+    :func:`fused_window_attention_qkv` also takes ``impl=`` per call.
   * ``QKV_BWD_IMPL`` (``SWIN_QKV_BWD_IMPL``): ``'pallas'`` (K2/K7's
     backward, the default) or ``'xla'``: the qkv recompute and the
     projection chain in plain ops around K8's backward
-    (:func:`qkv_xla_backward`).
+    (:func:`qkv_xla_backward`). v4 and v5 have their own backwards and do
+    not read it (JAX reads it in ``_build_qkv`` only).
+
+K8/K9 at head dims whose one-block instances do not fit shared memory (the
+backward at 128 and everything at 256 for L = 162: the e2048 family) take
+their large-head variant (``csrc/qkv_attention_large.cuh``);
+:func:`attn_variant` says which runs in each direction, or raises.
 """
 
 from __future__ import annotations
@@ -359,21 +367,27 @@ def window_attention_qkv_bias_backward_reference(
                            badd)
 
 
-def _check_operands(name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=None, badd=None):
+def _check_operands(name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=None, badd=None,
+                    w5=None):
     """Device, dtypes, shapes and shape limits of a kernel call, or raise;
     returns (b, h, w, c_in, c, heads, wh, ww, l, variant), the variant that
-    launches (:func:`qkv_variant`)."""
+    launches (:func:`qkv_variant`). ``w5``: K12 v5's reordered weight [3 *
+    heads, C_in, hd] (``w_qkv`` may then be None: v5's forward takes only
+    w5)."""
     if x.device.type != "cuda" or x.dim() != 4:
         raise ValueError(f"{name}: x must be a 4-D CUDA tensor, got {x.dim()}-D on {x.device}")
     b, h, w, c_in = x.shape
     wh, ww = int(window[0]), int(window[1])
     _window_grid(x, window)
     heads = int(scale.shape[0])
-    c = w_qkv.shape[-1] // 3
+    c = heads * w5.shape[-1] if w5 is not None else w_qkv.shape[-1] // 3
     l = wh * ww
     dev = x.device
     _build.check_operand(name, "x", x, torch.bfloat16, (b, h, w, c_in), dev)
-    _build.check_operand(name, "w_qkv", w_qkv, torch.bfloat16, (c_in, 3 * c), dev)
+    if w5 is not None:
+        _build.check_operand(name, "w5", w5, torch.bfloat16, (3 * heads, c_in, c // heads), dev)
+    if w_qkv is not None:
+        _build.check_operand(name, "w_qkv", w_qkv, torch.bfloat16, (c_in, 3 * c), dev)
     _build.check_operand(name, "b_qkv", b_qkv, torch.float32, (3 * c,), dev)
     _build.check_operand(name, "scale", scale, torch.float32, (heads,), dev)
     if g is not None:
@@ -389,26 +403,36 @@ def _check_operands(name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=None, 
     return b, h, w, c_in, c, heads, wh, ww, l, variant
 
 
-def _launch_forward(fn, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, badd):
+def _launch_forward(fn, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, badd,
+                    w5=None):
+    """Launch K1 (K7 with ``badd``, K12 v5 with ``w5`` in place of ``w_qkv``),
+    one-block or large-head as :func:`qkv_variant` says."""
     name = fn.__name__
     b, h, w, c_in, c, heads, wh, ww, _, variant = _check_operands(
-        name, x, w_qkv, b_qkv, scale, window, mask_pattern, badd=badd)
+        name, x, w_qkv, b_qkv, scale, window, mask_pattern, badd=badd, w5=w5)
     out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=x.device)
     lib = _build.load_library()
     mask_ptr = None if mask_pattern is None else mask_pattern.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        head = (x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), scale.data_ptr())
+        head = (x.data_ptr(), (w_qkv if w5 is None else w5).data_ptr(), b_qkv.data_ptr(),
+                scale.data_ptr())
         tail = (mask_ptr, float(boundary_flag), out.data_ptr(),
                 b, h, w, c_in, c, heads, wh, ww, stream)
         if variant == "large":
             # the projection's output (normalized q, k and v) and the norms
             qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=x.device)
             inv = torch.empty((b, h, w, 2, heads), dtype=torch.float32, device=x.device)
-            code = lib.swin_window_attention_qkv_large_fwd(
-                *head, None if badd is None else badd.data_ptr(), mask_ptr,
-                float(boundary_flag), out.data_ptr(), qkv.data_ptr(), inv.data_ptr(),
-                b, h, w, c_in, c, heads, wh, ww, stream)
+            scratch = (qkv.data_ptr(), inv.data_ptr(), b, h, w, c_in, c, heads, wh, ww, stream)
+            if w5 is not None:
+                code = lib.swin_window_attention_qkv5_large_fwd(
+                    *head, mask_ptr, float(boundary_flag), out.data_ptr(), *scratch)
+            else:
+                code = lib.swin_window_attention_qkv_large_fwd(
+                    *head, None if badd is None else badd.data_ptr(), mask_ptr,
+                    float(boundary_flag), out.data_ptr(), *scratch)
+        elif w5 is not None:
+            code = lib.swin_window_attention_qkv5_fwd(*head, *tail)
         elif badd is None:
             code = lib.swin_window_attention_qkv_fwd(*head, *tail)
         else:
@@ -463,10 +487,13 @@ def window_attention_qkv_bias(
 window_attention_qkv_bias.launches = 0
 
 
-def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, boundary_flag, badd):
+def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, boundary_flag, badd,
+                     w5=None):
+    """Launch K2 (K7's backward with ``badd``; K12 v5's with ``w5``, the
+    recompute reading w5 and dx, dW the packed ``w_qkv``)."""
     name = fn.__name__
     b, h, w, c_in, c, heads, wh, ww, l, variant = _check_operands(
-        name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=g, badd=badd)
+        name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=g, badd=badd, w5=w5)
     nwh, nww = h // wh, w // ww
     dev = x.device
     t = b * h * w
@@ -503,12 +530,21 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
             qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
             inv = torch.empty((b, h, w, 2, heads), **f32)
             rstat = torch.empty((b * nwh * nww, heads, lp, 2), **f32)
-            code = lib.swin_window_attention_qkv_large_bwd(
-                *head, None if badd is None else badd.data_ptr(), mask_ptr,
-                float(boundary_flag), g.data_ptr(), qkv.data_ptr(), inv.data_ptr(),
-                rstat.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-                dscale_part.data_ptr(), None if badd is None else dbias_part.data_ptr(), *outs,
-                None if badd is None else dbias.data_ptr(), *dims)
+            work = (g.data_ptr(), qkv.data_ptr(), inv.data_ptr(), rstat.data_ptr(),
+                    dqkv.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+                    dscale_part.data_ptr())
+            if w5 is not None:
+                code = lib.swin_window_attention_qkv5_large_bwd(
+                    x.data_ptr(), w5.data_ptr(), *head[1:], mask_ptr, float(boundary_flag), *work,
+                    *outs, *dims)
+            else:
+                code = lib.swin_window_attention_qkv_large_bwd(
+                    *head, None if badd is None else badd.data_ptr(), mask_ptr,
+                    float(boundary_flag), *work, None if badd is None else dbias_part.data_ptr(),
+                    *outs, None if badd is None else dbias.data_ptr(), *dims)
+        elif w5 is not None:
+            code = lib.swin_window_attention_qkv5_bwd(x.data_ptr(), w5.data_ptr(), *head[1:],
+                                                      *mid, *outs, *dims)
         elif badd is None:
             code = lib.swin_window_attention_qkv_bwd(*head, *mid, *outs, *dims)
         else:
@@ -728,24 +764,35 @@ def fused_window_attention_qkv(
     window: Tuple[int, int],
     mask_pattern=None,  # [L, L] boundary-row mask (array or tensor) or None
     boundary_flag=None,  # scalar gate on the mask (spatial sharding)
+    impl: Optional[str] = None,  # None = the module default (QKV_IMPL)
     bias: Optional[torch.Tensor] = None,  # CPB [heads, L, L]
     bias_prefolded: bool = False,  # bias is already fold_cpb_bias(raw, scale)
 ) -> torch.Tensor:
     """qkv projection + window attention fused: [B,H,W,Cin] -> [B,H,W,C],
-    differentiable in x, w_qkv, b_qkv, scale and the CPB bias (K7's route
-    when a bias is given, whatever the selected variant, as in JAX; K1/K2's
-    otherwise). ``'v6'`` has another output contract
-    (:func:`fused_window_attention_qkv_padded`) and raises here, as in JAX;
-    ``'v4'``/``'v5'`` are not ported yet."""
+    differentiable in x, w_qkv, b_qkv, scale and the CPB bias. With a bias,
+    K7's route whatever the selected variant, as in JAX; otherwise ``impl``
+    (or ``QKV_IMPL``): ``'v3'`` K1/K2, ``'v5'`` and ``'v4'`` the K12 schedules
+    (``ops/attic/window_attention_v45.py``; v4 with padded heads when
+    ``QKV_PAD_HEADS`` is on and the head dim is not a multiple of 128).
+    ``'v6'`` has another output contract
+    (:func:`fused_window_attention_qkv_padded`) and raises here, as in JAX."""
     _window_grid(x, window)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_window_attention_qkv: no implementation for device {x.device}")
     mask_pattern = _mask_on(x, mask_pattern)
     if bias is None:
-        sel = qkv_impl()
+        sel = impl or qkv_impl()
         if sel in ("v4", "v5"):
-            raise NotImplementedError(f"fused_window_attention_qkv: impl {sel!r} (the v4/v5 "
-                                      "schedules) is not ported yet")
+            # the A/B schedules live in ops/attic/, imported on first use as in JAX
+            from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+            if sel == "v5":
+                return v45.WindowAttentionQKV5.apply(x, w_qkv, b_qkv, scale, tuple(window),
+                                                     mask_pattern, boundary_flag)
+            hd = int(w_qkv.shape[-1]) // 3 // int(scale.shape[0])
+            return v45.WindowAttentionQKV4.apply(x, w_qkv, b_qkv, scale, tuple(window),
+                                                 mask_pattern, boundary_flag,
+                                                 v45.QKV_PAD_HEADS and hd % HD_PAD != 0)
         if sel == "v6":
             raise ValueError(
                 "impl 'v6' returns a padded [B,H,W,heads*128] output; call "
@@ -1243,17 +1290,56 @@ def window_attention_v1_bias_backward_reference(q, k, v, scale, bias, g, window_
 # --- the CUDA kernels (csrc/qkv_attention.cuh, window_attention_{grid,v1}.cu) ---
 
 
-def _check_qkv_dims(name, hd, heads, l):
-    """The kernels' shape limits: head dim in 32/64/96/128, L <= 256, and the
-    backward's shared memory (q, k, v, g tiles, row buffers) within 227 KB."""
+def attn_smem_bytes(hd: int, l: int) -> dict:
+    """Shared memory (bytes) of each K8/K9 kernel at head dim ``hd`` and window
+    length ``l``, as the CUDA sources compute it: ``fwd``/``bwd`` of the
+    one-block-per-(window, head) instances (``csrc/qkv_attention.cuh``) and
+    ``large_fwd``/``large_rows``/``large_cols`` of the large-head variant
+    (``csrc/qkv_attention_large.cuh``)."""
     lp = -(-l // 16) * 16
-    nwarps = lp // 16
-    bwd_smem = (4 * lp * (hd + 8) * 2 + nwarps * 256 * 4 + nwarps * 16 * (lp + 8) * 2
-                + (5 * lp + 32) * 4)
-    if hd not in (32, 64, 96, 128) or l > 256 or bwd_smem > _MAX_SMEM:
-        raise ValueError(f"{name}: needs head dim in (32, 64, 96, 128), L <= 256 and the "
-                         f"backward's {bwd_smem} B of shared memory <= {_MAX_SMEM}; got head "
-                         f"dim {hd}, {heads} heads, L = {l}")
+    nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
+    rows = nw * 16 * ldp * 2
+    return {
+        "fwd": 3 * lp * ldq * 2 + nw * 1024 + rows,
+        "bwd": 4 * lp * ldq * 2 + nw * 1024 + rows + (5 * lp + 32) * 4,
+        "large_fwd": (lp * ldq + 32 * ldq + nw * 16 * ldp) * 2 + nw * 1024,
+        "large_rows": (3 * rw * 16 * ldq + rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
+        "large_cols": (3 * rw * 16 * ldq + 2 * rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256) * 4,
+    }
+
+
+def attn_variant(name: str, hd: int, l: int, backward: bool) -> str:
+    """Which K8/K9 kernel runs in one direction at head dim ``hd`` and window
+    length ``l``: ``'base'`` (the one-block instances, head dim 32/64/96/128)
+    where its shared memory fits, else ``'large'`` (head dim 128 or 256)
+    where that variant's fits; any other shape raises a ValueError before a
+    launch. At L = 162: head dim 128 forward is ``'base'`` (219,648 B), its
+    backward (271,168 B) and head dim 256 ``'large'``."""
+    sm = attn_smem_bytes(hd, l)
+    base = sm["bwd" if backward else "fwd"]
+    large = max(sm["large_rows"], sm["large_cols"]) if backward else sm["large_fwd"]
+    if l <= 256:
+        if hd in (32, 64, 96, 128) and base <= _MAX_SMEM:
+            return "base"
+        if hd in (128, 256) and large <= _MAX_SMEM:
+            return "large"
+    raise ValueError(
+        f"{name}: no {'backward' if backward else 'forward'} kernel takes head dim {hd} at "
+        f"L = {l}: head dims 32/64/96/128 need {base} B of shared memory, the large-head "
+        f"variant (head dim 128 or 256) {large} B, of {_MAX_SMEM}; L must be at most 256")
+
+
+def _row_chunks(variant: str, lp: int) -> int:
+    """Query-row blocks per (window, head) of the backward: 1, or for the
+    large-head variant one per 64 rows (each writes its own d(scale) partial)."""
+    return -(-(lp // 16) // _LARGE_RW) if variant == "large" else 1
+
+
+def _v1_norm_scratch(q: torch.Tensor):
+    """K9's large-head scratch: qn16, kn16 in q's layout and the fp32 norms
+    [2, Bw, heads, L]."""
+    return (torch.empty_like(q), torch.empty_like(q),
+            torch.empty((2, *q.shape[:-1]), dtype=torch.float32, device=q.device))
 
 
 def _pixel_stride(name, label, t, shape, dev) -> int:
@@ -1275,7 +1361,7 @@ def _pixel_stride(name, label, t, shape, dev) -> int:
 
 
 def _check_grid_operands(name, qn, kn, v, scale, window, mask_pattern, bias, g=None):
-    """-> (b, h, w, c, heads, wh, ww, l, (ldq, ldk, ldv))."""
+    """-> (b, h, w, c, heads, wh, ww, l, (ldq, ldk, ldv), variant)."""
     if qn.device.type != "cuda" or qn.dim() != 4:
         raise ValueError(f"{name}: qn must be a 4-D CUDA tensor, got {qn.dim()}-D on {qn.device}")
     b, h, w, c = qn.shape
@@ -1293,19 +1379,21 @@ def _check_grid_operands(name, qn, kn, v, scale, window, mask_pattern, bias, g=N
         _build.check_operand(name, "bias", bias, torch.float32, (heads, l, l), dev)
     if c % heads:
         raise ValueError(f"{name}: C={c} is not a multiple of heads={heads}")
-    _check_qkv_dims(name, c // heads, heads, l)
-    return b, h, w, c, heads, wh, ww, l, lds
+    variant = attn_variant(name, c // heads, l, g is not None)
+    return b, h, w, c, heads, wh, ww, l, lds, variant
 
 
 def _launch_grid_forward(fn, qn, kn, v, scale, bias, window, mask_pattern, boundary_flag):
     name = fn.__name__
-    b, h, w, c, heads, wh, ww, _, lds = _check_grid_operands(
+    b, h, w, c, heads, wh, ww, _, lds, variant = _check_grid_operands(
         name, qn, kn, v, scale, window, mask_pattern, bias)
     out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=qn.device)
     lib = _build.load_library()
+    entry = (lib.swin_window_attention_grid_fwd if variant == "base"
+             else lib.swin_window_attention_grid_large_fwd)
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
-        code = lib.swin_window_attention_grid_fwd(
+        code = entry(
             qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
@@ -1340,7 +1428,7 @@ window_attention_grid_bias.launches = 0
 
 def _launch_grid_backward(fn, qn, kn, v, scale, bias, g, window, mask_pattern, boundary_flag):
     name = fn.__name__
-    b, h, w, c, heads, wh, ww, l, lds = _check_grid_operands(
+    b, h, w, c, heads, wh, ww, l, lds, variant = _check_grid_operands(
         name, qn, kn, v, scale, window, mask_pattern, bias, g)
     dev = qn.device
     n_win = b * (h // wh) * (w // ww)
@@ -1348,7 +1436,8 @@ def _launch_grid_backward(fn, qn, kn, v, scale, bias, g, window, mask_pattern, b
     f32 = dict(dtype=torch.float32, device=dev)
     dqn, dkn, dv = (torch.empty((b, h, w, c), dtype=torch.bfloat16, device=dev)
                     for _ in range(3))
-    dscale_part = torch.empty((n_win, heads), **f32)
+    # d(scale) partials: one per window, or (large) one per window and 64 query rows
+    dscale_part = torch.empty((n_win * _row_chunks(variant, lp), heads), **f32)
     dscale = torch.empty((heads,), **f32)
     # one fp32 [LP, LP] d(bias) partial per (window, head), summed in window order
     dbias_part = None if bias is None else torch.empty((n_win, heads, lp, lp), **f32)
@@ -1356,13 +1445,18 @@ def _launch_grid_backward(fn, qn, kn, v, scale, bias, g, window, mask_pattern, b
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.swin_window_attention_grid_bwd(
-            qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
-            g.data_ptr(), dqn.data_ptr(), dkn.data_ptr(), dv.data_ptr(), dscale_part.data_ptr(),
-            None if bias is None else dbias_part.data_ptr(), dscale.data_ptr(),
-            None if bias is None else dbias.data_ptr(), b, h, w, c, heads, wh, ww, *lds, stream)
+        head = (qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
+                None if bias is None else bias.data_ptr(),
+                None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
+                g.data_ptr(), dqn.data_ptr(), dkn.data_ptr(), dv.data_ptr())
+        tail = (dscale_part.data_ptr(), None if bias is None else dbias_part.data_ptr(),
+                dscale.data_ptr(), None if bias is None else dbias.data_ptr(),
+                b, h, w, c, heads, wh, ww, *lds, stream)
+        if variant == "base":
+            code = lib.swin_window_attention_grid_bwd(*head, *tail)
+        else:  # the per-row softmax statistics the rows and columns kernels share
+            rstat = torch.empty((n_win, heads, lp, 3), **f32)
+            code = lib.swin_window_attention_grid_large_bwd(*head, rstat.data_ptr(), *tail)
     _build.check(code, name)
     fn.launches += 1
     return (dqn, dkn, dv, dscale) if bias is None else (dqn, dkn, dv, dscale, dbias)
@@ -1393,7 +1487,7 @@ window_attention_grid_bias_bwd.launches = 0
 
 
 def _check_v1_operands(name, q, k, v, scale, window_grid, mask_pattern, bias, g=None):
-    """-> (b, nwh, nww, heads, hd, l) of [Bw, heads, L, D] operands."""
+    """-> (b, nwh, nww, heads, hd, l, variant) of [Bw, heads, L, D] operands."""
     if q.device.type != "cuda" or q.dim() != 4:
         raise ValueError(f"{name}: q must be a 4-D CUDA tensor, got {q.dim()}-D on {q.device}")
     nwh, nww = _check_window_grid(q, window_grid)
@@ -1406,23 +1500,28 @@ def _check_v1_operands(name, q, k, v, scale, window_grid, mask_pattern, bias, g=
         _build.check_operand(name, "mask_pattern", mask_pattern, torch.float32, (l, l), dev)
     if bias is not None:
         _build.check_operand(name, "bias", bias, torch.float32, (heads, l, l), dev)
-    _check_qkv_dims(name, hd, heads, l)
-    return bw // (nwh * nww), nwh, nww, heads, hd, l
+    variant = attn_variant(name, hd, l, g is not None)
+    return bw // (nwh * nww), nwh, nww, heads, hd, l, variant
 
 
 def _launch_v1_forward(fn, q, k, v, scale, bias, window_grid, mask_pattern):
     name = fn.__name__
-    b, nwh, nww, heads, hd, l = _check_v1_operands(name, q, k, v, scale, window_grid,
-                                                   mask_pattern, bias)
+    b, nwh, nww, heads, hd, l, variant = _check_v1_operands(name, q, k, v, scale, window_grid,
+                                                            mask_pattern, bias)
     out = torch.empty_like(q)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.swin_window_attention_v1_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if mask_pattern is None else mask_pattern.data_ptr(), out.data_ptr(),
-            b, nwh, nww, heads, hd, l, stream)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
+                None if bias is None else bias.data_ptr(),
+                None if mask_pattern is None else mask_pattern.data_ptr(), out.data_ptr())
+        if variant == "base":
+            code = lib.swin_window_attention_v1_fwd(*head, b, nwh, nww, heads, hd, l, stream)
+        else:  # scratch: normalized q and k, and their norms
+            qn, kn, inv = _v1_norm_scratch(q)
+            code = lib.swin_window_attention_v1_large_fwd(
+                *head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), b, nwh, nww, heads, hd, l,
+                stream)
     _build.check(code, name)
     fn.launches += 1
     return out
@@ -1452,27 +1551,34 @@ window_attention_v1_bias.launches = 0
 
 def _launch_v1_backward(fn, q, k, v, scale, bias, g, window_grid, mask_pattern):
     name = fn.__name__
-    b, nwh, nww, heads, hd, l = _check_v1_operands(name, q, k, v, scale, window_grid,
-                                                   mask_pattern, bias, g)
+    b, nwh, nww, heads, hd, l, variant = _check_v1_operands(name, q, k, v, scale, window_grid,
+                                                            mask_pattern, bias, g)
     dev = q.device
     n_win = b * nwh * nww
     lp = -(-l // 16) * 16
     f32 = dict(dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    dscale_part = torch.empty((n_win, heads), **f32)
+    dscale_part = torch.empty((n_win * _row_chunks(variant, lp), heads), **f32)
     dscale = torch.empty((heads,), **f32)
     dbias_part = None if bias is None else torch.empty((n_win, heads, lp, lp), **f32)
     dbias = None if bias is None else torch.empty((heads, l, l), **f32)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.swin_window_attention_v1_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if mask_pattern is None else mask_pattern.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dscale_part.data_ptr(),
-            None if bias is None else dbias_part.data_ptr(), dscale.data_ptr(),
-            None if bias is None else dbias.data_ptr(), b, nwh, nww, heads, hd, l, stream)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
+                None if bias is None else bias.data_ptr(),
+                None if mask_pattern is None else mask_pattern.data_ptr(),
+                g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        tail = (dscale_part.data_ptr(), None if bias is None else dbias_part.data_ptr(),
+                dscale.data_ptr(), None if bias is None else dbias.data_ptr(),
+                b, nwh, nww, heads, hd, l, stream)
+        if variant == "base":
+            code = lib.swin_window_attention_v1_bwd(*head, *tail)
+        else:  # scratch: normalized q and k, their norms, the per-row statistics
+            qn, kn, inv = _v1_norm_scratch(q)
+            rstat = torch.empty((n_win, heads, lp, 3), **f32)
+            code = lib.swin_window_attention_v1_large_bwd(
+                *head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), rstat.data_ptr(), *tail)
     _build.check(code, name)
     fn.launches += 1
     return (dq, dk, dv, dscale) if bias is None else (dq, dk, dv, dscale, dbias)

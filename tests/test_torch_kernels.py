@@ -1201,3 +1201,251 @@ def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
     assert launches == [depth] * 4
     assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
     assert_micro_grads_close(ref_grads, grads, noisy=("logit_scale",))
+
+
+# --------------------------------------------------------------------------
+# K8/K9 at head dims 128 and 256 (the large-head variant), K12 (v5, v4, the
+# padded v4) and K13 (consume) on the GPU
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["grid", "windowed"])
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_qkv_attention_large_head_kernels_match_plain(cuda_device, layout, hd, use_bias):
+    """K8 and K9 at head dims 128 and 256 with L = 162 (2 heads, shifted),
+    where the backward (and at 256 the forward) takes the large-head
+    variant: against their plain versions, counted on the usual wrappers,
+    two backward calls bit-equal."""
+    assert WA.attn_variant("t", hd, 162, True) == "large"
+    assert WA.attn_variant("t", hd, 162, False) == ("base" if hd == 128 else "large")
+    check_qkv_kernels(cuda_device, layout, use_bias, True, c=2 * hd, heads=2)
+
+
+def k12_operands(dev, h, w, c, heads, seed=61):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev).bfloat16()
+    wq = torch.from_numpy((rng.standard_normal((c, 3 * c)) / np.sqrt(c)).astype(np.float32)).to(
+        dev)
+    bq = torch.from_numpy((0.1 * rng.standard_normal(3 * c)).astype(np.float32)).to(dev)
+    scale = torch.from_numpy(np.exp(np.log(10.0) + 0.3 * rng.standard_normal(heads)).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev).bfloat16()
+    mask = torch.from_numpy(make_shift_mask((h, w), WINDOW, (4, 9))[-1].copy()).to(dev)
+    return x, wq, bq, scale, g, mask
+
+
+K12_SHAPES = [dict(h=H, w=W, c=C, heads=HEADS), dict(h=180, w=360, c=768, heads=8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K12_SHAPES)
+def test_v5_kernels_match_plain_and_k1_k2(cuda_device, shape):
+    """K12 v5 (K1/K2's templates reading the reordered weight) at a small
+    shape and the flagship shape, shifted: bit-equal to K1 forward and K2
+    backward (the same C_in loop order), within the v3 bounds of its plain
+    versions, two backward calls bit-equal, counted apart from K1/K2."""
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    x, wq, bq, scale, g, mask = k12_operands(cuda_device, **shape)
+    w16 = wq.bfloat16()
+    w5 = v45.w5_reorder(w16, shape["heads"]).contiguous()
+    fns = (v45.window_attention_qkv5, v45.window_attention_qkv5_bwd, WA.window_attention_qkv,
+           WA.window_attention_qkv_bwd)
+    before = [f.launches for f in fns]
+    out = v45.window_attention_qkv5(x, w5, bq, scale, WINDOW, mask, 1.0)
+    grads = v45.window_attention_qkv5_bwd(x, w5, w16, bq, scale, g, WINDOW, mask, 1.0)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 0, 0]
+    assert torch.equal(out, WA.window_attention_qkv(x, w16, bq, scale, WINDOW, mask, 1.0))
+    k2 = WA.window_attention_qkv_bwd(x, w16, bq, scale, g, WINDOW, mask, 1.0)
+    assert all(torch.equal(a, r) for a, r in zip(grads, k2))
+    ref = v45.window_attention_qkv5_reference(x, w5, bq, scale, WINDOW, mask)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    ref_grads = v45.window_attention_qkv5_backward_reference(x, w5, w16, bq, scale, g, WINDOW,
+                                                             mask)
+    for name, a, r in zip(("dx", "dW", "db", "dscale"), grads, ref_grads):
+        if name == "dscale":
+            assert_dscale_close(a.cpu().numpy(), r.cpu().numpy())
+        else:
+            assert_close_ulps(a.float().cpu().numpy(), r.float().cpu().numpy(),
+                              *((2, 0.05) if name == "dx" else BWD_ULPS[name]))
+    again = v45.window_attention_qkv5_bwd(x, w5, w16, bq, scale, g, WINDOW, mask, 1.0)
+    assert all(torch.equal(a, r) for a, r in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K12_SHAPES)
+@pytest.mark.parametrize("padded", [False, True])
+def test_v4_kernels_match_plain(cuda_device, shape, padded):
+    """K12 v4 (and its padded-head instance) on the window-major rows at a
+    small shape and the flagship shape, shifted, against its plain versions:
+    every row of the output (pad rows included), dxw with exactly zero pad
+    rows (gw's pad rows are zero, as window_major gives them), the padded
+    instance's pad lanes and pad columns exactly zero (gw's pad lanes random,
+    never read), two backward calls bit-equal, counted apart from K1/K2."""
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    x, wq, bq, scale, g, mask = k12_operands(cuda_device, **shape)
+    heads, c = shape["heads"], shape["c"]
+    hd = c // heads
+    grid = (shape["h"] // WINDOW[0], shape["w"] // WINDOW[1])
+    xw = v45.window_major(x, WINDOW)
+    gw = v45.window_major(g, WINDOW)
+    w16 = wq.bfloat16()
+    if padded:  # gw's pad lanes random (never read), its pad rows zero as window_major gives
+        w16, bq = WA.pad_heads_w(w16, heads), WA.pad_heads_vec(bq, heads)
+        gw = torch.randn((*gw.shape[:-1], heads * 128), device=cuda_device).bfloat16()
+        gw[:, :, WINDOW[0] * WINDOW[1]:] = 0
+        fwd, bwd = v45.window_attention_qkv4_padded, v45.window_attention_qkv4_padded_bwd
+        ref_fwd = v45.window_attention_qkv4_padded_reference
+        ref_bwd = v45.window_attention_qkv4_padded_backward_reference
+        lead = (w16, bq, scale, hd)
+    else:
+        fwd, bwd = v45.window_attention_qkv4, v45.window_attention_qkv4_bwd
+        ref_fwd = v45.window_attention_qkv4_reference
+        ref_bwd = v45.window_attention_qkv4_backward_reference
+        lead = (w16, bq, scale)
+    fns = (fwd, bwd, WA.window_attention_qkv, WA.window_attention_qkv_bwd)
+    before = [f.launches for f in fns]
+    out = fwd(xw, *lead, WINDOW, grid, mask, 1.0)
+    grads = bwd(xw, *lead, gw, WINDOW, grid, mask, 1.0)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 0, 0]
+    ref = ref_fwd(xw, *lead, WINDOW, grid, mask)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    assert torch.count_nonzero(grads[0][:, :, WINDOW[0] * WINDOW[1]:]).item() == 0
+    if padded:
+        assert torch.count_nonzero(out.reshape(*out.shape[:-1], heads, 128)[..., hd:]).item() == 0
+        assert torch.count_nonzero(grads[1].reshape(c, 3, heads, 128)[..., hd:]).item() == 0
+        assert torch.count_nonzero(grads[2].reshape(3, heads, 128)[..., hd:]).item() == 0
+    ref_grads = ref_bwd(xw, *lead, gw, WINDOW, grid, mask)
+    for name, a, r in zip(("dx", "dW", "db", "dscale"), grads, ref_grads):
+        if name == "dscale":
+            assert_dscale_close(a.cpu().numpy(), r.cpu().numpy())
+        else:
+            assert_close_ulps(a.float().cpu().numpy(), r.float().cpu().numpy(),
+                              *((2, 0.05) if name == "dx" else BWD_ULPS[name]))
+    again = bwd(xw, *lead, gw, WINDOW, grid, mask, 1.0)
+    assert all(torch.equal(a, r) for a, r in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 128])
+def test_v4_kernels_read_the_pad_rows_as_the_tpu_kernel(cuda_device, hd):
+    """v4's kernels take the window-major pad rows as JAX's do: x's pad rows
+    are projected (pad query rows attend to the real keys), g's pad rows
+    reach dk, dv and dscale. With random pad rows in xw and gw (one-block
+    instance at head dim 32, large-head backward at 128) the kernels still
+    follow the plain versions."""
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    x, wq, bq, scale, g, mask = k12_operands(cuda_device, H, W, 2 * hd, 2, seed=71)
+    l = WINDOW[0] * WINDOW[1]
+    xw, gw = v45.window_major(x, WINDOW), v45.window_major(g, WINDOW)
+    xw[:, :, l:] = torch.randn_like(xw[:, :, l:], dtype=torch.float32).bfloat16()
+    gw[:, :, l:] = torch.randn_like(gw[:, :, l:], dtype=torch.float32).bfloat16()
+    w16, grid = wq.bfloat16(), (H // WINDOW[0], W // WINDOW[1])
+    out = v45.window_attention_qkv4(xw, w16, bq, scale, WINDOW, grid, mask, 1.0)
+    grads = v45.window_attention_qkv4_bwd(xw, w16, bq, scale, gw, WINDOW, grid, mask, 1.0)
+    torch.cuda.synchronize()
+    ref = v45.window_attention_qkv4_reference(xw, w16, bq, scale, WINDOW, grid, mask)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    ref_grads = v45.window_attention_qkv4_backward_reference(xw, w16, bq, scale, gw, WINDOW, grid,
+                                                             mask)
+    assert torch.count_nonzero(ref_grads[0][:, :, l:]).item() > 0
+    for name, a, r in zip(("dx", "dW", "db", "dscale"), grads, ref_grads):
+        if name == "dscale":
+            assert_dscale_close(a.cpu().numpy(), r.cpu().numpy())
+        else:
+            assert_close_ulps(a.float().cpu().numpy(), r.float().cpu().numpy(),
+                              *((2, 0.05) if name == "dx" else BWD_ULPS[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+def test_v4_large_head_kernels_match_plain(cuda_device, hd):
+    """K12 v4 at head dims 128 and 256 with L = 162 (2 heads, shifted), where
+    the backward (and at 256 the forward) takes v4's instances of the
+    large-head variant: against the plain versions on every window-major
+    row, dxw's pad rows exactly zero, two backward calls bit-equal."""
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    assert WA.qkv_variant("t", hd, 162, True) == "large"
+    x, wq, bq, scale, g, mask = k12_operands(cuda_device, H, W, 2 * hd, 2)
+    xw, gw = v45.window_major(x, WINDOW), v45.window_major(g, WINDOW)
+    w16, grid = wq.bfloat16(), (H // WINDOW[0], W // WINDOW[1])
+    out = v45.window_attention_qkv4(xw, w16, bq, scale, WINDOW, grid, mask, 1.0)
+    grads = v45.window_attention_qkv4_bwd(xw, w16, bq, scale, gw, WINDOW, grid, mask, 1.0)
+    torch.cuda.synchronize()
+    ref = v45.window_attention_qkv4_reference(xw, w16, bq, scale, WINDOW, grid, mask)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    assert torch.count_nonzero(grads[0][:, :, WINDOW[0] * WINDOW[1]:]).item() == 0
+    ref_grads = v45.window_attention_qkv4_backward_reference(xw, w16, bq, scale, gw, WINDOW, grid,
+                                                             mask)
+    for name, a, r in zip(("dx", "dW", "db", "dscale"), grads, ref_grads):
+        if name == "dscale":
+            assert_dscale_close(a.cpu().numpy(), r.cpu().numpy())
+        else:
+            assert_close_ulps(a.float().cpu().numpy(), r.float().cpu().numpy(),
+                              *((2, 0.05) if name == "dx" else BWD_ULPS[name]))
+    again = v45.window_attention_qkv4_bwd(xw, w16, bq, scale, gw, WINDOW, grid, mask, 1.0)
+    assert all(torch.equal(a, r) for a, r in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_v4_kernels_refuse_shapes_no_instance_takes(cuda_device):
+    """A head dim no v4 instance takes (192) raises a ValueError before any
+    launch."""
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    dev, c = cuda_device, 2 * 192
+    xw = torch.zeros((1, 4, 168, c), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((c, 3 * c), device=dev, dtype=torch.bfloat16)
+    b, scale = torch.zeros(3 * c, device=dev), torch.ones(2, device=dev)
+    before = (v45.window_attention_qkv4.launches, v45.window_attention_qkv4_bwd.launches)
+    with pytest.raises(ValueError):
+        v45.window_attention_qkv4(xw, w, b, scale, WINDOW, (2, 2))
+    with pytest.raises(ValueError):
+        v45.window_attention_qkv4_bwd(xw, w, b, scale, xw, WINDOW, (2, 2))
+    assert (v45.window_attention_qkv4.launches,
+            v45.window_attention_qkv4_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_consume_kernel_matches_plain(cuda_device):
+    """K13 bit-exact to its plain version (two roundings, as JAX's interpret
+    mode), one launch counted; a permuted view raises before any launch."""
+    from swin_v2_weather_torch.ops import prestage
+
+    s = torch.randn((3, 1, 4, 8, 168, 96), device=cuda_device).bfloat16()
+    before = prestage.consume.launches
+    out = prestage.consume(s)
+    torch.cuda.synchronize()
+    assert prestage.consume.launches == before + 1
+    assert torch.equal(out, prestage.consume_reference(s))
+    with pytest.raises(ValueError, match="contiguous"):
+        prestage.consume(s.transpose(2, 3))
+    assert prestage.consume.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl, pad_heads", [("v5", False), ("v4", False), ("v4", True)])
+def test_qkv45_micro_model_launch_counts(cuda_device, monkeypatch, impl, pad_heads):
+    """The micro config on ``pallas_qkv`` with QKV_IMPL v5, v4 or the padded
+    v4: the selected K12 kernels forward and backward once a block, K1/K2
+    never; on the GPU against the same model on the CPU (plain versions):
+    the eval forward (8 ulps max, 0.5 mean) and the parameter gradients."""
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    monkeypatch.setattr(WA, "QKV_IMPL", impl)
+    monkeypatch.setattr(v45, "QKV_PAD_HEADS", pad_heads)
+    kind = "qkv5" if impl == "v5" else ("qkv4_padded" if pad_heads else "qkv4")
+    fns = (getattr(v45, f"window_attention_{kind}"), getattr(v45, f"window_attention_{kind}_bwd"),
+           WA.window_attention_qkv, WA.window_attention_qkv_bwd)
+    ref, ref_grads, out, grads, depth, launches = micro_model_cpu_and_gpu(
+        cuda_device, dict(attn_impl="pallas_qkv"), fns)
+    assert launches == [depth, depth, 0, 0]
+    assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
+    assert_micro_grads_close(ref_grads, grads, noisy=("logit_scale",))

@@ -109,7 +109,8 @@ def test_kernel_sources_are_bound_and_noted():
     """Every C entry point that ops/_build.py binds is defined in one .cu
     source of ops/csrc, every .cu source defines one at least, and each
     starts with a note naming the TPU kernel it replaces (K8 and K9 in
-    window_attention_grid.cu and window_attention_v1.cu included)."""
+    window_attention_grid.cu and window_attention_v1.cu included, and K13's
+    consumer of the JAX probe script in prestage_consume.cu)."""
     from swin_v2_weather_torch.ops import _build
 
     csrc = PORT / "ops" / "csrc"
@@ -123,7 +124,9 @@ def test_kernel_sources_are_bound_and_noted():
     assert set(defined) == set(sources)
     for f, text in sources.items():
         head = text.split("#include")[0]
-        assert "swin_v2_weather_tpu/ops/" in head and "Replaces" in head, f
+        # the JAX package's kernels, or (K13) the JAX probe script's
+        assert ("swin_v2_weather_tpu/ops/" in head or "scripts/prestage_probe.py" in head) and (
+            "Replaces" in head), f
 
 
 def test_qkv_attention_entry_points_are_importable_without_jax():
@@ -141,3 +144,27 @@ def test_qkv_attention_entry_points_are_importable_without_jax():
     missing = [n for n in names if not callable(getattr(wa, n, None))]
     assert not missing
     assert "swin_v2_weather_torch.ops.window_attention" in port_modules()
+
+
+def test_k12_k13_entry_points_are_importable_without_jax():
+    """The K12 module (``ops/attic/window_attention_v45.py``), K13's wrapper
+    (``ops/prestage.py``) and the GPU probe script import neither JAX nor the
+    JAX package (checked for every module above) and expose their wrappers,
+    plain versions and launch counters."""
+    from swin_v2_weather_torch.ops import prestage
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+    from swin_v2_weather_torch.scripts import prestage_probe
+
+    for kind in ("qkv5", "qkv4", "qkv4_padded"):
+        for name in (f"window_attention_{kind}", f"window_attention_{kind}_bwd"):
+            assert getattr(v45, name).launches >= 0
+            ref = name.replace("_bwd", "_backward") + "_reference"
+            assert callable(getattr(v45, ref))
+    assert prestage.consume.launches >= 0 and callable(prestage.consume_reference)
+    for name in ("prestage", "unstage", "chain", "probe", "main"):
+        assert callable(getattr(prestage_probe, name))
+    mods = port_modules()
+    for m in ("swin_v2_weather_torch.ops.attic.window_attention_v45",
+              "swin_v2_weather_torch.ops.prestage",
+              "swin_v2_weather_torch.scripts.prestage_probe"):
+        assert m in mods

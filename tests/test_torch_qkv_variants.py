@@ -167,16 +167,19 @@ def test_v6_plain_versions_are_v3s_on_the_live_lanes():
 
 def test_v6_entry_point_checks():
     """Head dims above 128 raise, as in JAX; the v3 entry point refuses 'v6'
-    (another output contract) and 'v4'/'v5' (not ported); unknown values of
-    either switch raise."""
+    (another output contract) and unknown values of either switch, and takes
+    'v4'/'v5' (the K12 schedules, tests/test_torch_qkv_v45.py)."""
     x, w, b, scale = (torch.from_numpy(a) for a in inputs())
     with pytest.raises(ValueError, match="head_dim"):  # one head of 132
         wa.fused_window_attention_qkv_padded(x, torch.zeros(C_IN, 3 * 132), torch.zeros(3 * 132),
                                              scale[:1], WINDOW)
-    for impl, err in (("v6", ValueError), ("v4", NotImplementedError),
-                      ("v5", NotImplementedError), ("v7", ValueError)):
-        with switch("QKV_IMPL", impl), pytest.raises(err):
+    for impl in ("v6", "v7"):
+        with switch("QKV_IMPL", impl), pytest.raises(ValueError):
             wa.fused_window_attention_qkv(x, w, b, scale, WINDOW)
+    for impl in ("v4", "v5"):
+        with switch("QKV_IMPL", impl):
+            out = wa.fused_window_attention_qkv(x, w, b, scale, WINDOW)
+        assert tuple(out.shape) == (B, H, W, C) and bool(torch.isfinite(out).all())
     # with the CPB bias the v3 schedule runs whatever QKV_IMPL says, as in JAX
     bias = torch.zeros((HEADS, L, L))
     with switch("QKV_IMPL", "v6"):

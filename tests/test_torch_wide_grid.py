@@ -1,0 +1,142 @@
+"""PyTorch port, K8/K9 at head dims 128 and 256: the grid (``attn_impl:
+'pallas'``) and windowed (``'pallas_v1'``) attention at the e2048 family's
+widths.
+
+On the card, K8/K9's one-block-per-(window, head) instances hold q, k, v
+(and g) [LP, hd] in shared memory, which at L = 162 fits the forward up to
+head dim 128 (219,648 B) and the backward up to 96 (226,112 B) of the
+232,448 B a block may use; beyond that the large-head variant
+(``csrc/qkv_attention_large.cuh``) runs, each direction checked on its own.
+The table here pins the bytes and the variant each wrapper picks, computed
+from the same formulas as the CUDA sources; shapes no instance takes raise.
+
+On the CPU the plain versions run at any head dim: at 128 and 256 they are
+held to the JAX grid and windowed kernels (interpret mode; JAX's kernels have
+no head-dim limit) at a small window (L = 12), forward and gradients, with
+the bias and the shift mask, in bf16. Tolerances: those of
+tests/test_torch_grid_attention.py (``GRAD_ULPS``), in bf16 ulps of each
+output's scale -- both sides keep the TPU kernels' rounding sites, so they
+differ only where an fp32 sum in another order flips one bf16 rounding. The
+CUDA kernels are held to these plain versions on the GPU
+(tests/test_torch_kernels.py, ``-m cuda``, and chip_smoke.py phases 33-34).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swin_v2_weather_tpu.models.swin import make_shift_mask
+from swin_v2_weather_tpu.ops import window_attention as jax_wa
+from swin_v2_weather_torch.ops import window_attention as wa
+
+from test_torch_grid_attention import GRAD_ULPS
+from test_torch_kernels import assert_close_ulps
+
+torch.set_num_threads(1)
+
+# (head dim, L) -> bytes of the one-block (forward, backward) instances and
+# the variant each direction takes
+ATTN_SMEM_TABLE = {
+    (96, 162): ((185856, 226112), ("base", "base")),
+    (128, 162): ((219648, 271168), ("base", "large")),
+    (256, 162): ((354816, 451392), ("large", "large")),
+    (128, 256): ((360448, 435328), ("large", "large")),
+    (256, 12): ((27136, 36032), ("large", "large")),
+}
+
+
+@pytest.mark.parametrize("hd, l", list(ATTN_SMEM_TABLE))
+def test_attn_variant_table(hd, l):
+    (fwd, bwd), variants = ATTN_SMEM_TABLE[hd, l]
+    sm = wa.attn_smem_bytes(hd, l)
+    assert (sm["fwd"], sm["bwd"]) == (fwd, bwd)
+    assert (wa.attn_variant("t", hd, l, False), wa.attn_variant("t", hd, l, True)) == variants
+    for backward, variant in zip((False, True), variants):
+        need = (max(sm["large_rows"], sm["large_cols"]) if backward else sm["large_fwd"]) if (
+            variant == "large") else sm["bwd" if backward else "fwd"]
+        assert need <= 232448  # the chosen instance fits
+
+
+def test_attn_variant_large_bytes_at_e2048():
+    """The large-head variant at head dim 256, L = 162: 185,856 B forward,
+    194,576 / 218,112 B for the rows and columns kernels of the backward."""
+    sm = wa.attn_smem_bytes(256, 162)
+    assert (sm["large_fwd"], sm["large_rows"], sm["large_cols"]) == (185856, 194576, 218112)
+
+
+@pytest.mark.parametrize("hd, l, backward", [(96, 256, False), (64, 256, True), (192, 162, True),
+                                             (256, 256, True), (48, 12, False)])
+def test_attn_variant_refuses_what_no_kernel_takes(hd, l, backward):
+    """Every shape the wrappers let through has an instance whose shared
+    memory fits; the others raise a ValueError before any launch (L above
+    256 too: no config of the repo goes beyond L = 162)."""
+    with pytest.raises(ValueError):
+        wa.attn_variant("t", hd, l, backward)
+    with pytest.raises(ValueError):
+        wa.attn_variant("t", 64, 264, backward)
+
+
+def test_wrappers_refuse_cpu_tensors():
+    q = torch.zeros((1, 6, 8, 512), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wa.window_attention_grid(q, q, q, torch.ones(2), (3, 4))
+    qw = torch.zeros((4, 2, 12, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wa.window_attention_v1_bwd(qw, qw, qw, torch.ones(2), qw, (2, 2))
+
+
+# --------------------------------------------------------------------------
+# K8/K9's plain versions at head dims 128 and 256 against JAX
+# --------------------------------------------------------------------------
+
+B, H, W, HEADS = 1, 6, 8, 2
+WINDOW = (3, 4)
+GRID = (H // WINDOW[0], W // WINDOW[1])
+L = WINDOW[0] * WINDOW[1]
+
+
+def operands(hd, layout, seed=7):
+    """bf16-valued q, k, v and g (grid [B, H, W, C] or windowed [B * nW,
+    heads, L, hd]), scale, raw bias and the shift mask."""
+    rng = np.random.default_rng(seed)
+    c = HEADS * hd
+    shape = (B, H, W, c) if layout == "grid" else (B * GRID[0] * GRID[1], HEADS, L, hd)
+    q, k, v, g = (np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.bfloat16), np.float32)
+                  for _ in range(4))
+    scale = np.exp(rng.standard_normal(HEADS) * 0.3 + np.log(10.0)).astype(np.float32)
+    bias = (rng.standard_normal((HEADS, L, L)) * 0.5).astype(np.float32)
+    patt = make_shift_mask((H, W), WINDOW, (1, 2))[-1]
+    return q, k, v, g, scale, bias, patt
+
+
+@pytest.mark.parametrize("layout", ["grid", "windowed"])
+@pytest.mark.parametrize("hd", [128, 256])
+def test_wide_plain_versions_match_jax(layout, hd):
+    """The port's entry point (K8's or K9's plain versions and, for K8, the
+    normalization and its VJP around them) against JAX's at head dim ``hd``,
+    with the raw bias and the shift mask: the output, dq, dk, dv, dscale and
+    dbias (jax.vjp of the custom_vjp, the backward kernel interpreted)."""
+    q, k, v, g, scale, bias, patt = operands(hd, layout)
+    jargs = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)] + [jnp.asarray(scale),
+                                                                  jnp.asarray(bias)]
+    leaves = [torch.from_numpy(t).bfloat16().requires_grad_() for t in (q, k, v)]
+    leaves += [torch.from_numpy(scale).requires_grad_(), torch.from_numpy(bias).requires_grad_()]
+    if layout == "grid":
+        out_ref, vjp = jax.vjp(lambda q_, k_, v_, s_, b_: jax_wa.fused_window_attention_grid(
+            q_, k_, v_, s_, WINDOW, bias=b_, mask_pattern=patt), *jargs)
+        out = wa.fused_window_attention_grid(*leaves[:4], WINDOW, bias=leaves[4],
+                                             mask_pattern=patt)
+    else:
+        out_ref, vjp = jax.vjp(lambda q_, k_, v_, s_, b_: jax_wa.fused_window_attention(
+            q_, k_, v_, s_, bias=b_, mask_pattern=patt, window_grid=GRID), *jargs)
+        out = wa.fused_window_attention(*leaves[:4], bias=leaves[4], mask_pattern=patt,
+                                        window_grid=GRID)
+    ref = vjp(jnp.asarray(g, jnp.bfloat16))
+    out.backward(torch.from_numpy(g).bfloat16())
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == q.shape
+    assert_close_ulps(out.detach().float().numpy(), np.asarray(out_ref, np.float32), 1, 0.01)
+    for name, leaf, r in zip(("dq", "dk", "dv", "dscale", "dbias"), leaves, ref):
+        assert leaf.grad.dtype == leaf.dtype, name
+        assert_close_ulps(leaf.grad.float().numpy(), np.asarray(r, np.float32), *GRAD_ULPS[name])
