@@ -41,7 +41,7 @@ two warm-up steps:
     attention variant and K5's wide instance), serving at 720 x 1440 and
     training at the image [360, 720] with window 9 x 18; train e2048 grid and
     train e2048 v1: the same on the grid and windowed routes (K8/K9's
-    large-head variant).
+    streamed forward and large-head backward).
 
 it prints the ms/step by CUDA events without the profiler; the host time of
 one step's own work (train: the step's enqueue, with no sync in it; rollout:
@@ -83,10 +83,8 @@ def k12(name: str, kernel: str, var: int, padded: bool) -> bool:
 
 # (category, test on the kernel's name), first match wins
 CATEGORIES = (
-    # the large-head variant of K8/K9 (namespace swin_qkv_attn_large; template
+    # the large-head backward of K8/K9 (namespace swin_qkv_attn_large; template
     # arguments <HD, LAYOUT, BIAS>, layout 0 the grid)
-    ("K8 large forward", lambda n: "swin_qkv_attn_large::large_fwd_kernel<" in n and ", 0, " in n),
-    ("K9 large forward", lambda n: "swin_qkv_attn_large::large_fwd_kernel<" in n),
     ("K8 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n and ", 0, " in n),
     ("K9 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n),
     ("K9 large normalization", lambda n: "swin_qkv_attn_large::normalize_kernel" in n),
@@ -98,7 +96,8 @@ CATEGORIES = (
     ("K12 padded v4 forward", lambda n: k12(n, "window_attention_qkv_kernel", 2, True)),
     ("K12 padded v4 attention pass", lambda n: k12(n, "attention_bwd_kernel", 2, True)),
     ("K13 consume", lambda n: "consume_kernel" in n),
-    # K8/K9 first: K2/K7's name tests below also match their kernels' names
+    # K8/K9 first: K2/K7's name tests below also match their kernels' names;
+    # the forward is the streamed kernel at every head dim
     ("K8 backward", lambda n: "qkv_attention_bwd_kernel<" in n and ", 0, " in n),
     ("K9 backward", lambda n: "qkv_attention_bwd_kernel<" in n),
     ("K8 forward", lambda n: "qkv_attention_fwd_kernel<" in n and ", 0, " in n),

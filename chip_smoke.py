@@ -80,7 +80,12 @@ printing its own lines:
      qkv tensor, read in place; 8 heads of 96, window 9 x 18; a seeded raw
      bias), unshifted and shifted: out, dq, dk, dv, dscale and dbias; two
      backward calls bit-equal; timed, beside ``scaled_dot_product_attention``
-     on the windowed tensors.
+     on the windowed tensors. Each forward instance's launch is printed:
+     threads a block, dynamic shared memory, registers, local (spill) bytes
+     (``cudaFuncGetAttributes``), resident blocks per SM
+     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), blocks per (window,
+     head), and the wrapper's host us per call beside the kernel's ms; every
+     forward instance must show 0 bytes spilled in the ``-Xptxas -v`` log.
  21. the grid route on the flagship (``attn_impl: 'pallas'``): 4 rollout
      steps (K8 forward and K3 48 times, K1 never), step 1 against the plain
      path; then 3 train steps with drop-path 0.1 live: K8 forward and backward
@@ -89,7 +94,7 @@ printing its own lines:
  22. the grid route with the CPB (``rel_pos: True, full_pos_embed: False``):
      2 train steps on K8's BIAS instances, ``meta_mlp`` moved.
  23. K9, the windowed route's attention, as phase 20 on q, k, v [400, 8, 162,
-     96] (normalized inside the kernels).
+     96] (normalized inside the kernels), with the same launch report.
  24. the windowed route (``attn_impl: 'pallas_v1'``) as phase 21, on K9.
  25. the windowed route with the CPB, as phase 22, on K9's BIAS instances.
  26. the ``'xla'`` route: one rollout step at full width, no attention kernel
@@ -120,10 +125,10 @@ printing its own lines:
      each against the plain path.
  33. K8 and K9 (bias-free and BIAS) at head dims 128 (8 heads, C = 1024)
      and 256 (the e2048 tensors, [1, 180, 360, 2048]) with L = 162, shifted,
-     forward and backward against their plain versions (the large-head
-     variant where the one-block instance does not fit); two backward calls
-     bit-equal; timed beside ``scaled_dot_product_attention`` on the same
-     windowed tensors.
+     forward (the streamed kernel) and backward (the large-head variant)
+     against their plain versions; two backward calls bit-equal; timed
+     beside ``scaled_dot_product_attention`` on the same windowed tensors,
+     with phase 20's launch report.
  34. the e2048 family at [360, 720] on ``attn_impl: 'pallas'`` and then
      ``'pallas_v1'``: 2 train steps each, K8 (or K9) forward and backward
      and K5/K6 24 times a step; step 1 against the plain path; every
@@ -267,6 +272,39 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor, tol) -> float:
     if not (max_abs <= tol[0] * ulp and mean_abs <= tol[1] * ulp):
         raise RuntimeError(f"{name}: kernel and plain version disagree beyond tolerance")
     return max_abs
+
+
+def host_us(fn, n: int = 20) -> float:
+    """The host's us per call of fn() (its Python checks, ctypes call and
+    launch), over n calls enqueued without a sync in between."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def fwd_spills() -> dict:
+    """(head dim, layout, bias, z path) -> (spill store, spill load) bytes of
+    each instance of the K8/K9 forward template, from the build's ``-Xptxas
+    -v`` log."""
+    import re
+
+    from swin_v2_weather_torch.ops import _build
+
+    lines = open(_build.library_path()[: -len(".so")] + ".log").read().splitlines()
+    spills = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for \S*qkv_attention_fwd_kernelILi(\d+)ELi(\d)ELb(\d)"
+                      r"ELb(\d)E", line)
+        if m is not None:
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+            spills[int(m[1]), int(m[2]), bool(int(m[3])), bool(int(m[4]))] = (int(st[1]),
+                                                                              int(st[2]))
+    return spills
 
 
 def time_ms(fn, n: int) -> float:
@@ -956,6 +994,7 @@ def main() -> None:
 
     # ---- 20-26: the grid (K8), windowed (K9) and 'xla' routes -------------------
     library = {}  # name -> library_ms (SDPA for the K8/K9 forwards)
+    launch = {}  # name -> the K8/K9 forward's launch report (threads, shared memory, ...)
 
     def sdpa_ms(bias, hd: int) -> float:
         """One scaled_dot_product_attention call on windowed tensors [400,
@@ -984,6 +1023,10 @@ def main() -> None:
             f"never called by the port); kernel variants: forward "
             f"{wa.attn_variant('', hd_, l_win, False)}, backward "
             f"{wa.attn_variant('', hd_, l_win, True)}")
+        spills = fwd_spills()  # 5 head dims x 2 layouts x bias-free and BIAS x 2 paths
+        if len(spills) != 40 or any(any(sp) for sp in spills.values()):
+            raise RuntimeError(f"the K8/K9 forward instances must all build without spills: "
+                               f"{spills}")
         masks = (("shifted", pattern),) if shifted_only else (("unshifted", None),
                                                               ("shifted", pattern))
         for bias in (None, raw_bias):
@@ -1013,12 +1056,27 @@ def main() -> None:
                     raise RuntimeError(f"{kind}_bwd: two calls differ (reduction order)")
                 with torch.inference_mode():
                     f_ms = time_ms(lambda: fwd(*ops, scale, *extra, *tail), 20)
+                    f_us = host_us(lambda: fwd(*ops, scale, *extra, *tail))
                     fp_ms = time_ms(lambda: plain_version(fwd)(*ops, scale, *extra, *tail), 5)
                 b_ms = time_ms(lambda: bwd(*ops, scale, *extra, g, *tail), 10)
                 bp_ms = time_ms(lambda: plain_version(bwd)(*ops, scale, *extra, g, *tail), 3)
                 log(f"  {kind} {label}: forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms; "
                     f"backward kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms ({card}); two backward "
                     f"calls bit-equal")
+                info = wa.attn_fwd_info("grid" if layout == "grid" else "v1", hd_, l_win,
+                                        bias is not None)
+                spilled = spills[hd_, 0 if layout == "grid" else 1, bias is not None,
+                                 info["z_path"] == 1]
+                log(f"  {kind} {label} forward launch: {info['threads']} threads a block, "
+                    f"{info['smem']} B dynamic shared memory, {info['registers']} registers, "
+                    f"{info['local_bytes']} B local (spill) a thread and {spilled} B spill "
+                    f"stores/loads in the ptxas log, {info['blocks_per_sm']} resident blocks per "
+                    f"SM, {info['blocks_per_window']} blocks per (window, head), "
+                    f"{'z in registers' if info['z_path'] else 'streamed two sweeps'}; the "
+                    f"wrapper's host {f_us:.1f} us per call against the kernel's "
+                    f"{f_ms * 1e3:.1f} us: the {'kernel' if f_us < f_ms * 1e3 else 'host'} bounds "
+                    f"the timed calls")
+                launch.setdefault(kind + suffix, {**info, "host_us": f_us})
                 times.setdefault("fwd", (f_ms, fp_ms))
                 times.setdefault("bwd", (b_ms, bp_ms))
             # two [L, L, hd] products per (window, head) forward, five backward;
@@ -1568,13 +1626,13 @@ def main() -> None:
                                            "window_attention.py:1397", "train_e2048"),
         "mlp_fwd_e2048": ("mlp.cu", "mlp_kernels.py:295", "train_e2048"),
         "mlp_bwd_e2048": ("mlp.cu", "mlp_kernels.py:317", "train_e2048"),
-        # K8/K9 at head dim 256 (the large-head variant), counted on the e2048
-        # grid and windowed train steps
-        "window_attention_grid_e2048": ("window_attention_grid_large.cu",
+        # K8/K9 at head dim 256 (the streamed forward, the large-head backward),
+        # counted on the e2048 grid and windowed train steps
+        "window_attention_grid_e2048": ("window_attention_grid.cu",
                                         "window_attention.py:556", "train_e2048_grid"),
         "window_attention_grid_bwd_e2048": ("window_attention_grid_large.cu",
                                             "window_attention.py:702", "train_e2048_grid"),
-        "window_attention_v1_e2048": ("window_attention_v1_large.cu", "window_attention.py:172",
+        "window_attention_v1_e2048": ("window_attention_v1.cu", "window_attention.py:172",
                                       "train_e2048_v1"),
         "window_attention_v1_bwd_e2048": ("window_attention_v1_large.cu",
                                           "window_attention.py:292", "train_e2048_v1"),
@@ -1638,7 +1696,10 @@ def main() -> None:
                 err, k_ms, p_ms, (b_ms, b_by) = sub[:4]
                 entry[tag[1:]] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                                   "bound_ms": b_ms, "bound_by": b_by,
-                                  "library_ms": library.get(entry["name"] + tag)}
+                                  "library_ms": library.get(entry["name"] + tag),
+                                  "launch": launch.get(entry["name"] + tag)}
+        if entry["name"] in launch:  # the K8/K9 forwards' launch report (phases 20, 23, 33)
+            entry["launch"] = launch[entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -95,17 +95,15 @@ _SIGNATURES = {
     # (q, k, v, scale, bias, mask, g, dq, dk, dv, dscale_part, dbias_part,
     #  dscale, dbias, B, nwh, nww, heads, hd, L, stream)
     "swin_window_attention_v1_bwd": [_vp] * 14 + [_int] * 6 + [_vp],
-    # K8/K9 large-head variant. grid: the operands of
-    #  swin_window_attention_grid_fwd; (q, k, v, scale, bias, mask,
+    # K8/K9 forward launch shape: (hd, bias, L, info[7])
+    "swin_window_attention_grid_fwd_info": [_int, _int, _int, _vp],
+    "swin_window_attention_v1_fwd_info": [_int, _int, _int, _vp],
+    # K8/K9 large-head backward. grid: (q, k, v, scale, bias, mask,
     #  boundary_flag, g, dq, dk, dv, rstat, dscale_part, dbias_part, dscale,
     #  dbias, B, H, W, C, heads, wh, ww, ldq, ldk, ldv, stream)
-    "swin_window_attention_grid_large_fwd": [_vp] * 6 + [_f32, _vp] + [_int] * 10 + [_vp],
     "swin_window_attention_grid_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 9 + [_int] * 10 + [_vp],
-    # windowed: (q, k, v, scale, bias, mask, out, qn, kn, inv, B, nwh, nww,
-    #  heads, hd, L, stream); (q, k, v, scale, bias, mask, g, dq, dk, dv, qn,
-    #  kn, inv, rstat, dscale_part, dbias_part, dscale, dbias, B, nwh, nww,
-    #  heads, hd, L, stream)
-    "swin_window_attention_v1_large_fwd": [_vp] * 10 + [_int] * 6 + [_vp],
+    # windowed: (q, k, v, scale, bias, mask, g, dq, dk, dv, qn, kn, inv, rstat,
+    #  dscale_part, dbias_part, dscale, dbias, B, nwh, nww, heads, hd, L, stream)
     "swin_window_attention_v1_large_bwd": [_vp] * 18 + [_int] * 6 + [_vp],
     # K12 v5: the operands of swin_window_attention_qkv_fwd with w5 for w;
     #  (x, w5, w, b, scale, mask, boundary_flag, g, dqkv, dw_part, db_part,

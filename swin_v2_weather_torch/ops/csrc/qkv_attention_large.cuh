@@ -1,68 +1,57 @@
-// Window attention on pre-projected q, k, v at large head dims, forward and
-// backward, hand-written for Hopper (sm_90a): the large-head variant of K8
+// Window attention on pre-projected q, k, v at large head dims, the backward,
+// hand-written for Hopper (sm_90a): the large-head backward of K8
 // (window_attention_grid_large.cu) and K9 (window_attention_v1_large.cu), each
-// with a CPB-bias instance.
+// with a CPB-bias instance. (The forward at every head dim is the streamed
+// kernel of qkv_attention.cuh.)
 //
 // Replaces the same TPU kernels as qkv_attention.cuh
-// (swin_v2_weather_tpu/ops/window_attention.py: K8 _make_grid_kernel /
-// _grid_forward and _make_grid_bwd_kernel / _grid_backward; K9 _make_kernel /
-// _pallas_forward and _make_v1_bwd_kernel / _v1_backward, with has_bias) where
-// their one-block-per-(window, head) layout does not fit: it keeps q, k, v
-// (and g) [LP, HD] in shared memory at once, which at L = 162 (LP = 176) needs
-// 354,816 B forward at head dim 256 and 271,168 / 451,392 B backward at head
-// dims 128 / 256, against the 232,448 B a block may use. The wrappers pick this
-// variant exactly where the smaller one does not fit (ops/window_attention.py,
-// attn_variant); the flagship's head dim 96 and the forward at 128 keep the
-// one-block instances.
+// (swin_v2_weather_tpu/ops/window_attention.py: K8 _make_grid_bwd_kernel /
+// _grid_backward; K9 _make_v1_bwd_kernel / _v1_backward, with has_bias) where
+// the one-block-per-(window, head) backward does not fit: it keeps q, k, v
+// and g [LP, HD] in shared memory at once, which at L = 162 (LP = 176) needs
+// 271,168 / 451,392 B at head dims 128 / 256, against the 232,448 B a block
+// may use. The wrappers pick this variant exactly where the smaller one does
+// not fit (ops/window_attention.py, attn_variant); the flagship's head dim 96
+// keeps the one-block backward.
 //
 // What bounds it on this card: bytes, as for the one-block instances. At the
 // e2048 shape (q, k, v [1, 180, 360, 2048] bf16, 8 heads of 256, L = 162;
-// 265.4 MB a tensor) the forward reads three tensors and writes one (1.06 GB,
-// 0.317 ms at 3.35 TB/s) for 86 GFLOP (0.087 ms at 989 TFLOP/s); the backward
-// reads four and writes three (1.86 GB, 0.555 ms) for 215 GFLOP.
+// 265.4 MB a tensor) the backward reads four tensors and writes three (1.86
+// GB, 0.555 ms at 3.35 TB/s) for 215 GFLOP.
 //
 // Design. The softmax subtracts the row max and normalizes before the p @ v
-// product (the TPU kernels' contract), so an online rescaling would move the
-// bf16 rounding sites; the keys are streamed instead in whole sweeps, each
-// recomputing the cheap 16 x 16 score tiles:
-//  * forward, one block per (window, head), LP / 16 warps of 16 query rows, q
-//    [LP, HD] in shared memory and the keys in 16-row tiles through a
-//    two-stage cp.async ring: sweep 1 the row max, sweep 2 the row sum of
-//    e = exp(z - m), sweep 3 bf16(p) into the warp's [16, LP] row buffer; then
-//    v replaces q and out = bf16(p) @ v16 is formed in 128-wide chunks of the
-//    head dim (8 accumulator fragments a warp, not 16). 185,856 B at HD = 256.
-//  * backward, two kernels on blocks of 4 warps (64 rows), as the large-head
-//    variant of K1/K2 splits its passes: the rows kernel, one block per
-//    (window, head, 64 query rows), sweeps the key tiles for the row max, the
-//    row sum (K8 also u = sum(dp e)), K9's u = sum(dp p) in a third sweep,
-//    stores (m, r or sum e, u) per row in a small workspace, then forms ds
-//    (and the d(bias) rows, and K9's sum(ds s)), dsb = bf16(ds scale) into its
-//    row buffer and dqn = dsb @ kn16 chunk by chunk into an fp32 staging tile;
-//    the columns kernel, one block per (window, head, 64 key rows), sweeps the
+// product (the TPU kernels' contract), so the keys (queries) are streamed in
+// whole sweeps, each recomputing the cheap 16 x 16 score tiles, on two
+// kernels of blocks of 4 warps (64 rows), as the large-head variant of K1/K2
+// splits its passes:
+//  * the rows kernel, one block per (window, head, 64 query rows), sweeps the
+//    key tiles for the row max, the row sum (K8 also u = sum(dp e)), K9's
+//    u = sum(dp p) in a third sweep, stores (m, r or sum e, u) per row in a
+//    small workspace, then forms ds (and the d(bias) rows, and K9's sum(ds
+//    s)), dsb = bf16(ds scale) into its row buffer and dqn = dsb @ kn16 chunk
+//    by chunk (128-wide head-dim chunks) into an fp32 staging tile;
+//  * the columns kernel, one block per (window, head, 64 key rows), sweeps the
 //    query tiles once for the transposed tiles bf16(p)^T and dsb^T from the
 //    stored row statistics, then forms dv = p16^T @ g16 and dkn = dsb^T @ qn16
 //    chunk by chunk. 194,576 and 218,112 B at HD = 256.
 //  * K9 normalizes q and k inside its kernels; here a first kernel writes
 //    qn16 and kn16 (and the norms) to a scratch buffer, summed as the
-//    one-block kernels' normalize_rows sums, so the attention kernels of both
+//    one-block kernels' normalize_rows sums, so the backward kernels of both
 //    layouts read pre-normalized tiles; K9's normalization VJP re-reads the raw
 //    q and k rows, as the one-block kernel does.
-// Costs of the split: the key tiles come through the ring three (forward) or
-// four to five times (backward) from L2, and K9's normalized copies of q and
-// k go to device memory and back. wgmma/TMA come later; this is the simple,
-// correct version.
+// Costs of the split: the key tiles come through the ring four to five times
+// from L2, and K9's normalized copies of q and k go to device memory and back.
 //
 // Rounding sites: the one-block instances' (qkv_attention.cuh): the row max,
-// K8 p16 = bf16(e * (1 / sum e)), K9 bf16(e / sum e), the raw bias, dsb =
-// bf16(ds * scale_h), K8's dscale sum(qn16 dqn) / scale with the
-// normalization VJP outside, K9's sum(ds s) with the VJP inside on the fp32
-// qn. Only the order of some fp32 sums differs (qd and dscale partials per 64
-// rows, the transposed score tiles). d(scale) and d(bias) are summed in a
-// fixed order, with no atomics.
+// K8 r = 1 / sum e, K9 p = e / sum e, the raw bias, dsb = bf16(ds * scale_h),
+// K8's dscale sum(qn16 dqn) / scale with the normalization VJP outside, K9's
+// sum(ds s) with the VJP inside on the fp32 qn. Only the order of some fp32
+// sums differs (qd and dscale partials per 64 rows, the transposed score
+// tiles). d(scale) and d(bias) are summed in a fixed order, with no atomics.
 //
-// Contract (checked by the Python wrappers): the one-block instances', with
-// head dim 128 or 256, and each kernel's shared memory within 232,448 B; the
-// scratch buffers as the wrappers allocate them.
+// Contract (checked by the Python wrappers): the one-block backward's, with
+// head dim 128 or 256, L <= 256, and each kernel's shared memory within
+// 232,448 B; the scratch buffers as the wrappers allocate them.
 
 #pragma once
 
@@ -77,13 +66,6 @@ constexpr int RW = 4;    // warps (16-row tiles) per backward block
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-
-template <int HD>
-constexpr size_t fwd_smem_bytes(int LP) {
-  return (static_cast<size_t>(LP) * (HD + 8) + 2u * 16 * (HD + 8) +
-          static_cast<size_t>(LP / 16) * 16 * (LP + 8)) * sizeof(bf16) +
-         static_cast<size_t>(LP / 16) * 256 * sizeof(float);
-}
 
 template <int HD>
 constexpr size_t rows_smem_bytes(int LP) {
@@ -173,142 +155,6 @@ __device__ __forceinline__ float dlogit(float z, float dp, float m, float sr, fl
   if (z == -CUDART_INF_F) return 0.0f;
   const float ev = expf(z - m);
   return LAYOUT == GRID ? (dp - u * sr) * ev * sr : ev / sr * (dp - u);
-}
-
-// ---------------------------------------------------------------------------
-// forward: one block per (window, head), LP / 16 warps of 16 query rows
-// ---------------------------------------------------------------------------
-
-template <int HD, int LAYOUT, bool BIAS>
-__global__ void __launch_bounds__(MAX_LP * 2)
-    large_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ scale,
-                     const float* __restrict__ bias, const float* __restrict__ mask, float bflag,
-                     bf16* __restrict__ out, AttnGeo g) {
-  constexpr int LDQ = HD + 8;
-  constexpr int NC = HD / DC;
-  constexpr int NFC = DC / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LP = g.LP;
-  const int L = g.L;
-  const int nwarps = LP / 16;
-  const int LDP = LP + 8;
-  bf16* qv = reinterpret_cast<bf16*>(smem);  // q [LP, LDQ], then v
-  bf16* ring = qv + LP * LDQ;                // two stages of a k tile [16, LDQ]
-  bf16* pbuf = ring + 2 * 16 * LDQ;          // bf16(p), 16 x LDP per warp
-  float* scratch = reinterpret_cast<float*>(pbuf + nwarps * 16 * LDP);
-
-  const Tile t = tile_of_block(g);
-  const int h = t.h;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* cs = scratch + warp * 256;
-  const int fr = lane >> 1;
-  const int fc = (lane & 1) * 8;
-  const int nkt = LP / 16;
-
-  load_rows<LAYOUT, HD>(qv, q, g.ldq, g, t, 0, LP);
-  cp_async_commit();
-  // ring protocol: key tile kt is ready after acquire(kt); every sweep's
-  // iteration ends with a block barrier before its stage is refilled
-  auto acquire = [&](int kt) -> const bf16* {
-    if (kt == 0) {
-      load_rows<LAYOUT, HD>(ring, k, g.ldk, g, t, 0, 16);
-      cp_async_commit();
-    }
-    if (kt + 1 < nkt) {
-      load_rows<LAYOUT, HD>(ring + ((kt + 1) & 1) * 16 * LDQ, k, g.ldk, g, t, (kt + 1) * 16, 16);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    return ring + (kt & 1) * 16 * LDQ;
-  };
-
-  const float sc = scale[h];
-  const int qrow = warp * 16 + fr;
-  const bool qok = qrow < L;
-  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
-  const float* mk = (mask != nullptr && t.wr == g.nwh - 1) ? mask : nullptr;
-  const bf16* qw = qv + warp * 16 * LDQ;
-  float z[8];
-  // z of the lane's 8 entries of this warp's score tile against key tile kb
-  auto tile_logits = [&](const bf16* kb, int kt) {
-    Frag s;
-    dot_rows<HD>(s, qw, kb);
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      z[e] = logit(cs[fr * 16 + fc + e], qrow, kt * 16 + fc + e, L, sc, bh, mk, bflag);
-    }
-    __syncwarp();
-  };
-
-  float m = -CUDART_INF_F;
-  for (int kt = 0; kt < nkt; ++kt) {  // sweep 1: row max
-    tile_logits(acquire(kt), kt);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) m = fmaxf(m, z[e]);
-    __syncthreads();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));  // the two lanes of a row
-
-  float rowsum = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {  // sweep 2: row sum of e = exp(z - m)
-    tile_logits(acquire(kt), kt);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (qok && kt * 16 + fc + e < L) rowsum += expf(z[e] - m);
-    }
-    __syncthreads();
-  }
-  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-  const float sr = LAYOUT == GRID ? (qok ? 1.0f / rowsum : 0.0f) : rowsum;
-
-  bf16* pw = pbuf + warp * 16 * LDP;
-  for (int kt = 0; kt < nkt; ++kt) {  // sweep 3: bf16(p) into the row buffer
-    tile_logits(acquire(kt), kt);
-    float p[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) p[e] = qok ? prob<LAYOUT>(z[e], m, sr) : 0.0f;
-    store8(pw + fr * LDP + kt * 16 + fc, p, [](int, float a) { return a; });
-    __syncthreads();
-  }
-
-  cp_async_wait<0>();
-  load_rows<LAYOUT, HD>(qv, v, g.ldv, g, t, 0, LP);  // v over q (all warps are past it)
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const size_t off = qok ? row_offset<LAYOUT, HD>(g, t, qrow, g.ldo) : 0;
-#pragma unroll 1
-  for (int ch = 0; ch < NC; ++ch) {  // out = bf16(p) @ v16, one head-dim chunk at a time
-    Frag o[NFC];
-#pragma unroll
-    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(o[j], 0.0f);
-    for (int kt = 0; kt < nkt; ++kt) {
-      FragA a;
-      wmma::load_matrix_sync(a, pw + kt * 16, LDP);
-#pragma unroll
-      for (int j = 0; j < NFC; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, qv + kt * 16 * LDQ + ch * DC + j * 16, LDQ);
-        wmma::mma_sync(o[j], a, b, o[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NFC; ++j) {
-      wmma::store_matrix_sync(cs, o[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      if (qok) {
-        store8(out + off + ch * DC + j * 16 + fc, cs + fr * 16 + fc,
-               [](int, float a) { return a; });
-      }
-      __syncwarp();
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -774,22 +620,6 @@ int normalize_qk(const void* q, const void* k, void* qn, void* kn, void* inv, co
 }
 
 template <int HD, int LAYOUT, bool BIAS>
-int launch_large_fwd(const FwdArgs& a, const AttnGeo& g, cudaStream_t s) {
-  unsigned blocks;
-  int code = n_blocks(g, &blocks);
-  if (code != 0) return code;
-  const size_t smem = fwd_smem_bytes<HD>(g.LP);
-  code = set_smem(large_fwd_kernel<HD, LAYOUT, BIAS>, smem);
-  if (code != 0) return code;
-  large_fwd_kernel<HD, LAYOUT, BIAS><<<blocks, (g.LP / 16) * 32, smem, s>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const float*>(a.scale),
-      static_cast<const float*>(a.bias), static_cast<const float*>(a.mask), a.bflag,
-      static_cast<bf16*>(a.out), g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD, int LAYOUT, bool BIAS>
 int launch_large_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) {
   unsigned blocks;
   int code = n_blocks(geo, &blocks);
@@ -835,27 +665,10 @@ int launch_large_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Picks the head-dim and BIAS instance (head dim 128: where the one-block
-// kernel does not fit, L above 162 forward).
-template <int LAYOUT>
-int dispatch_large_fwd(int hd, const FwdArgs& a, const AttnGeo& g, cudaStream_t s) {
-  const bool bias = a.bias != nullptr;
-  switch (hd) {
-    case 128:
-      return bias ? launch_large_fwd<128, LAYOUT, true>(a, g, s)
-                  : launch_large_fwd<128, LAYOUT, false>(a, g, s);
-    case 256:
-      return bias ? launch_large_fwd<256, LAYOUT, true>(a, g, s)
-                  : launch_large_fwd<256, LAYOUT, false>(a, g, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 template <int LAYOUT>
 int dispatch_large_bwd(int hd, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
   const bool bias = a.bias != nullptr;
-  if (bias && (a.dbias_part == nullptr || a.dbias == nullptr)) {
+  if (g.LP > MAX_LP || (bias && (a.dbias_part == nullptr || a.dbias == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (hd) {

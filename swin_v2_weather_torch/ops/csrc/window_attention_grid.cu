@@ -11,11 +11,16 @@
 // 32.3 GFLOP (0.119 ms at 3.35 TB/s against 0.033 ms at 989 TFLOP/s), the
 // backward 7 x 99.5 MB for 80.6 GFLOP (0.208 ms against 0.082 ms).
 //
-// Design (the templates in qkv_attention.cuh, layout GRID): one block per
-// (window, head) windows the grid by index math, reading each of q, k and v
-// with its own pixel stride, so the model's channel slices of the qkv tensor
-// are read in place; the scores stay on chip; d(scale) and d(bias) partials
-// per (window, head) are summed in window order by small kernels.
+// Design (the templates in qkv_attention.cuh, layout GRID): the forward, at
+// head dims 32-256 and any L, runs blocks of up to 4 query-row tiles of one
+// (window, head) (two warps a tile), windows the grid by a table of token
+// pixels and reads each of q, k and v with its own pixel stride, so the
+// model's channel slices of the qkv tensor are read in place; k and v stream
+// through a cp.async ring, the scores stay in mma registers (z kept there
+// whole up to L = 192), and two sweeps over the keys replace three sweeps
+// and a p row buffer. The backward keeps one
+// block per (window, head), the scores on chip, and d(scale) and d(bias)
+// partials per (window, head) summed in window order by small kernels.
 
 #include "qkv_attention.cuh"
 
@@ -36,6 +41,15 @@ extern "C" int swin_window_attention_grid_fwd(const void* q, const void* k, cons
   }
   return dispatch_fwd<GRID>(C / heads, FwdArgs{q, k, v, scale, bias, mask, bflag, out}, g,
                             stream);
+}
+
+// The forward's launch at head dim hd and window length L (bias: the BIAS
+// instance), into info[7]: threads a block, dynamic shared memory, registers,
+// local (spill) bytes a thread, resident blocks per SM, blocks per (window,
+// head), 1 where it is the z-in-registers path.
+extern "C" int swin_window_attention_grid_fwd_info(int hd, int bias, int L, void* info) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_fwd_info<GRID>(hd, bias != 0, L, static_cast<int*>(info));
 }
 
 // The backward: the forward's operands and g [B, H, W, C] bf16 contiguous ->

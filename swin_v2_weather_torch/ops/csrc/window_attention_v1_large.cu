@@ -1,22 +1,23 @@
-// K9 at large head dims: window attention on windowed [Bw, heads, L, D]
-// tensors, forward and backward at head dims 128 and 256,
-// hand-written for Hopper (sm_90a), with its CPB-bias instance.
+// K9's backward at large head dims: window attention on windowed [Bw, heads,
+// L, D] tensors at head dims 128 and 256, hand-written for Hopper (sm_90a),
+// with its CPB-bias instance (the forward at every head dim is
+// window_attention_v1.cu's).
 //
-// Replaces swin_v2_weather_tpu/ops/window_attention.py:_make_kernel (the
-// forward, launched by _pallas_forward) and _make_v1_bwd_kernel (the backward,
-// _v1_backward), behind fused_window_attention (attn_impl 'pallas_v1'), where
-// the one-block instances of window_attention_v1.cu do not fit shared memory
-// (the e2048 family: 8 heads of 256 at L = 162).
+// Replaces swin_v2_weather_tpu/ops/window_attention.py:_make_v1_bwd_kernel
+// (the backward, _v1_backward), behind fused_window_attention (attn_impl
+// 'pallas_v1'), where the one-block backward of window_attention_v1.cu does
+// not fit shared memory (head dim 128 at L = 162, and the e2048 family: 8
+// heads of 256).
 //
 // Bound on this card: bytes. At the e2048 shape (q, k, v [400, 8, 162, 256]
-// bf16, 265.4 MB each) the forward moves 4 tensors (0.317 ms at 3.35 TB/s),
-// the backward 7 (0.555 ms), against 86 and 215 GFLOP.
+// bf16, 265.4 MB each) the backward moves 7 tensors (0.555 ms at 3.35 TB/s)
+// for 215 GFLOP.
 //
 // Design: the templates of qkv_attention_large.cuh, layout WINDOWED. A first
 // kernel writes the normalized qn16, kn16 (and the fp32 norms) to scratch
-// buffers, as the one-block kernels normalize in shared memory; the attention
-// kernels stream those, and the backward's normalization VJP re-reads the raw
-// q and k rows for the fp32 qn and kn.
+// buffers, as the one-block kernels normalize in shared memory; the rows and
+// columns kernels stream those, and the normalization VJP re-reads the raw q
+// and k rows for the fp32 qn and kn.
 
 #include "qkv_attention_large.cuh"
 
@@ -39,27 +40,11 @@ int normalize_dispatch(int hd, const void* q, const void* k, void* qn, void* kn,
 
 }  // namespace
 
-// The forward at head dims 128 and 256: the operands of swin_window_attention_v1_fwd.
-// Scratch: qn, kn [Bw, heads, L, hd] bf16, inv [2, Bw, heads, L] fp32.
-extern "C" int swin_window_attention_v1_large_fwd(const void* q, const void* k, const void* v,
-                                                  const void* scale, const void* bias,
-                                                  const void* mask, void* out, void* qn, void* kn,
-                                                  void* inv, int B, int nwh, int nww, int heads,
-                                                  int hd, int L, void* stream) {
-  AttnGeo g;
-  if (!windowed_geo(g, B, nwh, nww, heads, hd, L)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int code = normalize_dispatch(hd, q, k, qn, kn, inv, g, s);
-  if (code != 0) return code;
-  return dispatch_large_fwd<WINDOWED>(hd, FwdArgs{qn, kn, v, scale, bias, mask, 1.0f, out}, g, s);
-}
-
 // The backward at head dims 128 and 256: the operands and outputs of
-// swin_window_attention_v1_bwd; scratch qn, kn, inv as the forward's, rstat
-// [Bw, heads, LP, 3] fp32 (row max, sum e, u), dscale_part [Bw * ceil(LP /
-// 64), heads] and, with the bias, dbias_part [Bw, heads, LP, LP] fp32.
+// swin_window_attention_v1_bwd; scratch qn, kn [Bw, heads, L, hd] bf16, inv
+// [2, Bw, heads, L] fp32, rstat [Bw, heads, LP, 3] fp32 (row max, sum e, u),
+// dscale_part [Bw * ceil(LP / 64), heads] and, with the bias, dbias_part
+// [Bw, heads, LP, LP] fp32.
 extern "C" int swin_window_attention_v1_large_bwd(
     const void* q, const void* k, const void* v, const void* scale, const void* bias,
     const void* mask, const void* g, void* dq, void* dk, void* dv, void* qn, void* kn, void* inv,

@@ -84,14 +84,17 @@ module globals (set from the environment at import):
     (:func:`qkv_xla_backward`). v4 and v5 have their own backwards and do
     not read it (JAX reads it in ``_build_qkv`` only).
 
-K8/K9 at head dims whose one-block instances do not fit shared memory (the
-backward at 128 and everything at 256 for L = 162: the e2048 family) take
-their large-head variant (``csrc/qkv_attention_large.cuh``);
-:func:`attn_variant` says which runs in each direction, or raises.
+K8/K9's forward is one streamed kernel at head dims 32-256 and any L (keys
+and values through a ring, ``csrc/qkv_attention.cuh``); their backward at
+head dims whose one-block instance does not fit shared memory (128 and 256
+at L = 162: the e2048 family) takes the large-head variant
+(``csrc/qkv_attention_large.cuh``); :func:`attn_variant` says which runs in
+each direction, or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os as _os
 from typing import Optional, Tuple
 
@@ -1290,19 +1293,46 @@ def window_attention_v1_bias_backward_reference(q, k, v, scale, bias, g, window_
 # --- the CUDA kernels (csrc/qkv_attention.cuh, window_attention_{grid,v1}.cu) ---
 
 
+ATTN_FWD_HEAD_DIMS = (32, 64, 96, 128, 256)
+ATTN_FWD_ZL = 192  # the longest window whose z the forward keeps in registers
+
+
+def attn_fwd_plan(hd: int, l: int) -> dict:
+    """The K8/K9 forward's launch at head dim ``hd`` and window length ``l``,
+    as ``FwdShape``/``fwd_plan`` in ``csrc/qkv_attention.cuh`` compute it:
+    ``z`` (L <= 192: each warp keeps the z of its keys in registers and
+    sweep 2 streams only v), ``rt`` 16-row query tiles a block (two warps
+    each, each warp taking ``nt`` 8-key score tiles of a step), ``nchunk``
+    blocks per (window, head), ``threads`` a block and ``smem`` bytes: the q
+    rows, a ring of ``ns`` stages of ``ks`` keys (k and v tiles, or one of
+    them on the z path), the warp pairs' p exchange (``nt`` KB) and row
+    statistics (256 B) per tile, and a table of L 4-byte words (K8's token
+    pixels, K9's key norms)."""
+    z = l <= ATTN_FWD_ZL
+    nt, rt_max = 2, (3 if hd > 128 else 4)
+    ks = 32 if hd > 128 or not z else 64
+    ns = 3 if hd > 128 and not z else 4
+    tiles = 1 if z else 2
+    ntiles = -(-l // 16)
+    nchunk = -(-ntiles // rt_max)
+    rt = -(-ntiles // nchunk)
+    smem = ((rt * 16 + tiles * ns * ks) * (hd + 8) * 2 + rt * (nt * 1024 + 256)
+            + (l + 3) // 4 * 16)
+    return {"z": z, "rt": rt, "nchunk": nchunk, "threads": rt * 64, "nt": nt, "ks": ks,
+            "ns": ns, "smem": smem}
+
+
 def attn_smem_bytes(hd: int, l: int) -> dict:
     """Shared memory (bytes) of each K8/K9 kernel at head dim ``hd`` and window
-    length ``l``, as the CUDA sources compute it: ``fwd``/``bwd`` of the
-    one-block-per-(window, head) instances (``csrc/qkv_attention.cuh``) and
-    ``large_fwd``/``large_rows``/``large_cols`` of the large-head variant
-    (``csrc/qkv_attention_large.cuh``)."""
+    length ``l``, as the CUDA sources compute it: ``fwd`` of the streamed
+    forward (:func:`attn_fwd_plan`), ``bwd`` of the one-block-per-(window,
+    head) backward (``csrc/qkv_attention.cuh``) and ``large_rows``/
+    ``large_cols`` of the large-head backward (``csrc/qkv_attention_large.cuh``)."""
     lp = -(-l // 16) * 16
     nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
-    rows = nw * 16 * ldp * 2
     return {
-        "fwd": 3 * lp * ldq * 2 + nw * 1024 + rows,
-        "bwd": 4 * lp * ldq * 2 + nw * 1024 + rows + (5 * lp + 32) * 4,
-        "large_fwd": (lp * ldq + 32 * ldq + nw * 16 * ldp) * 2 + nw * 1024,
+        "fwd": attn_fwd_plan(hd, l)["smem"],
+        "bwd": 4 * lp * ldq * 2 + nw * 1024 + nw * 16 * ldp * 2 + (5 * lp + 32) * 4,
         "large_rows": (3 * rw * 16 * ldq + rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
         "large_cols": (3 * rw * 16 * ldq + 2 * rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256) * 4,
     }
@@ -1310,23 +1340,44 @@ def attn_smem_bytes(hd: int, l: int) -> dict:
 
 def attn_variant(name: str, hd: int, l: int, backward: bool) -> str:
     """Which K8/K9 kernel runs in one direction at head dim ``hd`` and window
-    length ``l``: ``'base'`` (the one-block instances, head dim 32/64/96/128)
-    where its shared memory fits, else ``'large'`` (head dim 128 or 256)
-    where that variant's fits; any other shape raises a ValueError before a
-    launch. At L = 162: head dim 128 forward is ``'base'`` (219,648 B), its
-    backward (271,168 B) and head dim 256 ``'large'``."""
+    length ``l``. Forward: ``'streamed'`` at head dims 32/64/96/128/256 and any
+    L. Backward: ``'base'`` (the one-block instances, head dim 32/64/96/128)
+    where its shared memory fits, else ``'large'`` (head dim 128 or 256) where
+    that variant's fits, L at most 256. Any other shape raises a ValueError
+    before a launch. At L = 162 the backward at head dim 128 (271,168 B) and
+    256 is ``'large'``."""
+    if not backward:
+        if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
+            return "streamed"
+        raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
+                         f"{ATTN_FWD_HEAD_DIMS})")
     sm = attn_smem_bytes(hd, l)
-    base = sm["bwd" if backward else "fwd"]
-    large = max(sm["large_rows"], sm["large_cols"]) if backward else sm["large_fwd"]
+    base, large = sm["bwd"], max(sm["large_rows"], sm["large_cols"])
     if l <= 256:
         if hd in (32, 64, 96, 128) and base <= _MAX_SMEM:
             return "base"
         if hd in (128, 256) and large <= _MAX_SMEM:
             return "large"
     raise ValueError(
-        f"{name}: no {'backward' if backward else 'forward'} kernel takes head dim {hd} at "
-        f"L = {l}: head dims 32/64/96/128 need {base} B of shared memory, the large-head "
-        f"variant (head dim 128 or 256) {large} B, of {_MAX_SMEM}; L must be at most 256")
+        f"{name}: no backward kernel takes head dim {hd} at L = {l}: head dims 32/64/96/128 "
+        f"need {base} B of shared memory, the large-head variant (head dim 128 or 256) "
+        f"{large} B, of {_MAX_SMEM}; L must be at most 256")
+
+
+def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:
+    """The K8 (``layout`` 'grid') or K9 ('v1') forward instance's launch at
+    head dim ``hd`` and window length ``l``, from the CUDA runtime: threads a
+    block, dynamic shared memory, registers a thread, local (spill) bytes a
+    thread, resident blocks per SM, blocks per (window, head) and whether it
+    is the z-in-registers path (1). Builds the library at first use; needs
+    the GPU."""
+    lib = _build.load_library()
+    info = (ctypes.c_int * 7)()
+    entry = getattr(lib, f"swin_window_attention_{layout}_fwd_info")
+    _build.check(entry(hd, int(bias), l, info), entry.__name__)
+    keys = ("threads", "smem", "registers", "local_bytes", "blocks_per_sm", "blocks_per_window",
+            "z_path")
+    return dict(zip(keys, info))
 
 
 def _row_chunks(variant: str, lp: int) -> int:
@@ -1336,8 +1387,8 @@ def _row_chunks(variant: str, lp: int) -> int:
 
 
 def _v1_norm_scratch(q: torch.Tensor):
-    """K9's large-head scratch: qn16, kn16 in q's layout and the fp32 norms
-    [2, Bw, heads, L]."""
+    """K9's large-head backward scratch: qn16, kn16 in q's layout and the fp32
+    norms [2, Bw, heads, L]."""
     return (torch.empty_like(q), torch.empty_like(q),
             torch.empty((2, *q.shape[:-1]), dtype=torch.float32, device=q.device))
 
@@ -1385,15 +1436,13 @@ def _check_grid_operands(name, qn, kn, v, scale, window, mask_pattern, bias, g=N
 
 def _launch_grid_forward(fn, qn, kn, v, scale, bias, window, mask_pattern, boundary_flag):
     name = fn.__name__
-    b, h, w, c, heads, wh, ww, _, lds, variant = _check_grid_operands(
+    b, h, w, c, heads, wh, ww, _, lds, _ = _check_grid_operands(
         name, qn, kn, v, scale, window, mask_pattern, bias)
     out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=qn.device)
     lib = _build.load_library()
-    entry = (lib.swin_window_attention_grid_fwd if variant == "base"
-             else lib.swin_window_attention_grid_large_fwd)
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
-        code = entry(
+        code = lib.swin_window_attention_grid_fwd(
             qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
@@ -1506,22 +1555,17 @@ def _check_v1_operands(name, q, k, v, scale, window_grid, mask_pattern, bias, g=
 
 def _launch_v1_forward(fn, q, k, v, scale, bias, window_grid, mask_pattern):
     name = fn.__name__
-    b, nwh, nww, heads, hd, l, variant = _check_v1_operands(name, q, k, v, scale, window_grid,
-                                                            mask_pattern, bias)
+    b, nwh, nww, heads, hd, l, _ = _check_v1_operands(name, q, k, v, scale, window_grid,
+                                                      mask_pattern, bias)
     out = torch.empty_like(q)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
-                None if bias is None else bias.data_ptr(),
-                None if mask_pattern is None else mask_pattern.data_ptr(), out.data_ptr())
-        if variant == "base":
-            code = lib.swin_window_attention_v1_fwd(*head, b, nwh, nww, heads, hd, l, stream)
-        else:  # scratch: normalized q and k, and their norms
-            qn, kn, inv = _v1_norm_scratch(q)
-            code = lib.swin_window_attention_v1_large_fwd(
-                *head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), b, nwh, nww, heads, hd, l,
-                stream)
+        code = lib.swin_window_attention_v1_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), out.data_ptr(), b, nwh,
+            nww, heads, hd, l, stream)
     _build.check(code, name)
     fn.launches += 1
     return out

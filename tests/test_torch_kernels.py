@@ -1204,8 +1204,9 @@ def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
 
 
 # --------------------------------------------------------------------------
-# K8/K9 at head dims 128 and 256 (the large-head variant), K12 (v5, v4, the
-# padded v4) and K13 (consume) on the GPU
+# K8/K9 at head dims 128 and 256 (the large-head backward), the streamed
+# forward at every head dim and beyond L = 256, K12 (v5, v4, the padded v4)
+# and K13 (consume) on the GPU
 # --------------------------------------------------------------------------
 
 
@@ -1215,12 +1216,81 @@ def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_qkv_attention_large_head_kernels_match_plain(cuda_device, layout, hd, use_bias):
     """K8 and K9 at head dims 128 and 256 with L = 162 (2 heads, shifted),
-    where the backward (and at 256 the forward) takes the large-head
-    variant: against their plain versions, counted on the usual wrappers,
-    two backward calls bit-equal."""
+    where the backward takes the large-head variant (the forward is the
+    streamed kernel at every head dim): against their plain versions,
+    counted on the usual wrappers, two backward calls bit-equal."""
     assert WA.attn_variant("t", hd, 162, True) == "large"
-    assert WA.attn_variant("t", hd, 162, False) == ("base" if hd == 128 else "large")
+    assert WA.attn_variant("t", hd, 162, False) == "streamed"
     check_qkv_kernels(cuda_device, layout, use_bias, True, c=2 * hd, heads=2)
+
+
+def check_qkv_forward(dev, layout, use_bias, use_mask, **shape):
+    """K8 or K9's forward (bias-free or BIAS) against its plain version on the
+    card (2 ulps max, 0.01 mean), launched once on its own wrapper."""
+    q, k, v, scale, bias, _ = qkv_operands(dev, layout, **shape)
+    window = shape.get("window", WINDOW)
+    h, w = shape.get("h", H), shape.get("w", W)
+    mask = None
+    if use_mask:
+        shift = (window[0] // 2, window[1] // 2)
+        mask = torch.from_numpy(make_shift_mask((h, w), window, shift)[-1].copy()).to(dev)
+    kind = ("grid" if layout == "grid" else "v1") + ("_bias" if use_bias else "")
+    fwd = getattr(WA, f"window_attention_{kind}")
+    extra = (bias,) if use_bias else ()
+    tail = ((window, mask, 1.0) if layout == "grid"
+            else ((h // window[0], w // window[1]), mask))
+    before = launch_counts()
+    out = fwd(q, k, v, scale, *extra, *tail)
+    torch.cuda.synchronize()
+    want = list(before)
+    want[QKV_KERNELS.index(fwd)] += 1
+    assert launch_counts() == want
+    ref = getattr(WA, f"window_attention_{kind}_reference")(
+        q, k, v, scale, *extra, *tail[:-1] if layout == "grid" else tail)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    return q, k, v, scale, extra, tail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["grid", "windowed"])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_qkv_attention_forward_at_every_head_dim(cuda_device, layout, hd, use_bias, use_mask):
+    """The streamed K8/K9 forward, one template at head dims 32-256: L = 162
+    (window 9 x 18, 2 x 2 windows, 2 heads), unshifted and shifted."""
+    assert WA.attn_variant("t", hd, 162, False) == "streamed"
+    check_qkv_forward(cuda_device, layout, use_bias, use_mask, c=2 * hd, heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["grid", "windowed"])
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_qkv_attention_forward_padded_small_window(cuda_device, layout, use_bias):
+    """L = 12 (window 3 x 4 on a 6 x 8 grid): one query tile, padded keys and
+    rows, shifted."""
+    check_qkv_forward(cuda_device, layout, use_bias, True, h=6, w=8, window=(3, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["grid", "windowed"])
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_qkv_attention_forward_beyond_256_keys(cuda_device, layout, use_bias):
+    """L = 288 (window 12 x 24 on a 24 x 48 grid, head dim 64), which the
+    forward streams like any L; the backward still refuses it (L <= 256)
+    before a launch."""
+    assert WA.attn_variant("t", 64, 288, False) == "streamed"
+    q, k, v, scale, extra, tail = check_qkv_forward(cuda_device, layout, use_bias, True, h=24,
+                                                    w=48, c=128, heads=2, window=(12, 24))
+    kind = ("grid" if layout == "grid" else "v1") + ("_bias" if use_bias else "")
+    bwd = getattr(WA, f"window_attention_{kind}_bwd")
+    before = launch_counts()
+    with pytest.raises(ValueError, match="backward"):
+        bwd(q, k, v, scale, *extra, torch.zeros_like(q if layout != "grid" else v.contiguous()),
+            *tail)
+    assert launch_counts() == before
 
 
 def k12_operands(dev, h, w, c, heads, seed=61):

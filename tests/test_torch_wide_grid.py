@@ -2,13 +2,15 @@
 'pallas'``) and windowed (``'pallas_v1'``) attention at the e2048 family's
 widths.
 
-On the card, K8/K9's one-block-per-(window, head) instances hold q, k, v
-(and g) [LP, hd] in shared memory, which at L = 162 fits the forward up to
-head dim 128 (219,648 B) and the backward up to 96 (226,112 B) of the
-232,448 B a block may use; beyond that the large-head variant
-(``csrc/qkv_attention_large.cuh``) runs, each direction checked on its own.
-The table here pins the bytes and the variant each wrapper picks, computed
-from the same formulas as the CUDA sources; shapes no instance takes raise.
+On the card, K8/K9's forward is one streamed kernel at head dims 32-256 and
+any L (q rows of a block staged, k and v through a ring), whose shared memory
+does not grow with L beyond a table of L words; their backward keeps one
+block per (window, head) with q, k, v and g [LP, hd] in shared memory, which
+at L = 162 fits up to head dim 96 (226,112 B) of the 232,448 B a block may
+use; beyond that the large-head backward (``csrc/qkv_attention_large.cuh``)
+runs. The table here pins the bytes and the kernel each wrapper picks,
+computed from the same formulas as the CUDA sources; shapes no kernel takes
+raise.
 
 On the CPU the plain versions run at any head dim: at 128 and 256 they are
 held to the JAX grid and windowed kernels (interpret mode; JAX's kernels have
@@ -36,14 +38,17 @@ from test_torch_kernels import assert_close_ulps
 
 torch.set_num_threads(1)
 
-# (head dim, L) -> bytes of the one-block (forward, backward) instances and
-# the variant each direction takes
+FWD_96_162, FWD_128_162, FWD_256_162, FWD_128_256, FWD_256_12 = (76432, 96912, 100496, 97280,
+                                                                  78384)
+# (head dim, L) -> bytes of the (forward, backward) kernels' shared memory
+# (the streamed forward; the one-block backward) and the kernel each
+# direction takes
 ATTN_SMEM_TABLE = {
-    (96, 162): ((185856, 226112), ("base", "base")),
-    (128, 162): ((219648, 271168), ("base", "large")),
-    (256, 162): ((354816, 451392), ("large", "large")),
-    (128, 256): ((360448, 435328), ("large", "large")),
-    (256, 12): ((27136, 36032), ("large", "large")),
+    (96, 162): ((FWD_96_162, 226112), ("streamed", "base")),
+    (128, 162): ((FWD_128_162, 271168), ("streamed", "large")),
+    (256, 162): ((FWD_256_162, 451392), ("streamed", "large")),
+    (128, 256): ((FWD_128_256, 435328), ("streamed", "large")),
+    (256, 12): ((FWD_256_12, 36032), ("streamed", "large")),
 }
 
 
@@ -53,29 +58,44 @@ def test_attn_variant_table(hd, l):
     sm = wa.attn_smem_bytes(hd, l)
     assert (sm["fwd"], sm["bwd"]) == (fwd, bwd)
     assert (wa.attn_variant("t", hd, l, False), wa.attn_variant("t", hd, l, True)) == variants
-    for backward, variant in zip((False, True), variants):
-        need = (max(sm["large_rows"], sm["large_cols"]) if backward else sm["large_fwd"]) if (
-            variant == "large") else sm["bwd" if backward else "fwd"]
-        assert need <= 232448  # the chosen instance fits
+    assert sm["fwd"] <= 232448  # the forward fits
+    bwd_need = max(sm["large_rows"], sm["large_cols"]) if variants[1] == "large" else sm["bwd"]
+    assert bwd_need <= 232448  # the chosen backward instance fits
 
 
 def test_attn_variant_large_bytes_at_e2048():
-    """The large-head variant at head dim 256, L = 162: 185,856 B forward,
-    194,576 / 218,112 B for the rows and columns kernels of the backward."""
+    """Head dim 256, L = 162: 100,496 B for the forward (two blocks an SM),
+    194,576 / 218,112 B for the rows and columns kernels of the large-head
+    backward."""
     sm = wa.attn_smem_bytes(256, 162)
-    assert (sm["large_fwd"], sm["large_rows"], sm["large_cols"]) == (185856, 194576, 218112)
+    assert (sm["fwd"], sm["large_rows"], sm["large_cols"]) == (FWD_256_162, 194576, 218112)
+    assert 2 * (sm["fwd"] + 1024) <= 233472  # two blocks (and their reserve) fit the SM
 
 
-@pytest.mark.parametrize("hd, l, backward", [(96, 256, False), (64, 256, True), (192, 162, True),
-                                             (256, 256, True), (48, 12, False)])
+# (head dim, L, backward) -> the kernel that takes it, or None where none does
+VARIANT_CASES = {(96, 256, False): "streamed", (64, 256, True): None, (192, 162, True): None,
+                 (256, 256, True): None, (48, 12, False): None}
+
+
+@pytest.mark.parametrize("hd, l, backward", list(VARIANT_CASES))
 def test_attn_variant_refuses_what_no_kernel_takes(hd, l, backward):
-    """Every shape the wrappers let through has an instance whose shared
-    memory fits; the others raise a ValueError before any launch (L above
-    256 too: no config of the repo goes beyond L = 162)."""
-    with pytest.raises(ValueError):
-        wa.attn_variant("t", hd, l, backward)
-    with pytest.raises(ValueError):
-        wa.attn_variant("t", 64, 264, backward)
+    """Every shape the wrappers let through has a kernel whose shared memory
+    fits; the others raise a ValueError before any launch. The forward takes
+    any L at head dims 32/64/96/128/256 (L = 256 and 264 here), never 48;
+    the backward refuses L above 256 (no config of the repo goes beyond
+    L = 162) and what does not fit."""
+    want = VARIANT_CASES[hd, l, backward]
+    if want is None:
+        with pytest.raises(ValueError):
+            wa.attn_variant("t", hd, l, backward)
+    else:
+        assert wa.attn_variant("t", hd, l, backward) == want
+    if backward:
+        with pytest.raises(ValueError):
+            wa.attn_variant("t", 64, 264, backward)
+    else:
+        assert wa.attn_variant("t", 64, 264, backward) == "streamed"
+        assert wa.attn_fwd_plan(64, 264)["smem"] == wa.attn_smem_bytes(64, 264)["fwd"] <= 232448
 
 
 def test_wrappers_refuse_cpu_tensors():
