@@ -104,7 +104,12 @@ CATEGORIES = (
     ("K9 forward", lambda n: "qkv_attention_fwd_kernel<" in n),
     ("K8/K9 reductions", lambda n: "attn_dscale_reduce" in n or "attn_dbias_reduce" in n),
     # the large-head variant of K1/K2 (and K7) and K10 (K1/K2's head-pitch-128 instances)
-    ("large K1/K2: qkv GEMM", lambda n: "StoreQkv" in n),
+    # the GEMM core's instances, by their epilogues: the qkv projection (the
+    # K2 family's recompute, the large-head K1/K2's), K5's two products, and
+    # the K2 family's dx and split-K dW
+    ("qkv projection (GEMM core)", lambda n: "StoreBiasBf16" in n),
+    ("K5 fc1 (GEMM core)", lambda n: "Fc1Epilogue" in n),
+    ("K5 fc2 (GEMM core)", lambda n: "Fc2Epilogue" in n),
     ("large K1/K2: normalization", lambda n: "normalize_qk_kernel" in n),
     ("large K1 attention", lambda n: "large_fwd_kernel" in n),
     ("large K2 attention", lambda n: "large_bwd_rows_kernel" in n or "large_bwd_cols_kernel" in n),
@@ -115,14 +120,13 @@ CATEGORIES = (
     ("K7 dbias reduction", lambda n: "dbias_reduce_kernel" in n),
     ("K7 forward", lambda n: "window_attention_qkv_kernel<" in n and ", true," in n),
     ("K2 attention pass", lambda n: "attention_bwd_kernel" in n),
-    ("K2/K7 dW split-K GEMM", lambda n: "StoreSplitF32" in n),
-    ("K2/K7 dx GEMM", lambda n: "StoreBf16" in n),
+    ("K2 family dW (GEMM core)", lambda n: "StoreSplitF32" in n),
+    ("K2 family dx (GEMM core)", lambda n: "StoreBf16" in n),
     ("K2/K7 reductions", lambda n: "column_sums_kernel" in n
-     or "(anonymous namespace)::reduce_kernel" in n),
+     or "swin_qkv_proj::reduce_kernel" in n),
     ("K1", lambda n: "window_attention_qkv_kernel" in n),
     ("K11 forward", lambda n: "ln_dp_add_fwd_kernel" in n),
     ("K11 backward", lambda n: "ln_dp_add_bwd_kernel" in n or "ln_dp_add_reduce_kernel" in n),
-    ("K5", lambda n: "mlp_fwd_kernel" in n),
     ("K6", lambda n: "mlp_bwd_kernel" in n),
     ("K4", lambda n: "DpreEpilogue" in n),
     ("K3", lambda n: "GeluEpilogue" in n),

@@ -13,7 +13,9 @@ printing its own lines:
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
      them; TF32 is switched off for matmuls and cuDNN.
   2. build the hand-written kernels from ``swin_v2_weather_torch/ops/csrc``
-     with nvcc (first use builds into ``swin_v2_weather_torch/_build/``).
+     with nvcc (first use builds into ``swin_v2_weather_torch/_build/``);
+     every instance of the GEMM core and of K2's attention pass must show 0
+     bytes spilled in the ``-Xptxas -v`` log.
   3. the window-attention kernel against its plain version at the flagship
      shapes, unshifted and with the shifted-block mask.
   4. the fc1+GELU kernel against its plain version at [64800, 768] x [768, 3072].
@@ -27,7 +29,9 @@ printing its own lines:
   6. rollout ms/step on both paths (CUDA events, after one warm-up step) and
      the peak device memory.
   7. the window-attention backward kernel against its plain backward at the
-     flagship shapes, unshifted and shifted: dx, dW, db and dscale.
+     flagship shapes, unshifted and shifted: dx, dW, db and dscale; its
+     breakdown by torch.profiler (the projection, attention pass, dx, dW, db
+     column sums and reductions, device ms a call).
   8. the fc1 backward (pre-activation cotangent) kernel against its plain
      version at [64800, 768] x [768, 3072].
   9. the flagship train step at full width, drop-path 0.1 live, built through
@@ -41,7 +45,8 @@ printing its own lines:
  10. train ms/step on both paths (CUDA events, after one warm-up step),
      samples/s and the peak device memory.
  11. the whole-MLP kernels, forward (K5) and backward (K6), against their
-     plain versions at [64800, 768] x [768, 3072] x [3072, 768], timed.
+     plain versions at [64800, 768] x [768, 3072] x [3072, 768], timed; K5's
+     breakdown (its fc1 and fc2 products on the GEMM core).
  12. the 2-step fine-tune ``swin_73var_geo_depth12_chweight_invar_2step``
      (unrolled rollout, whole-MLP route) as in phases 9-10: 3 steps, K1, K2,
      K5 and K6 each launched 12 x 2 = 24 times a step and K3/K4 never; step 1
@@ -102,8 +107,10 @@ printing its own lines:
  27. the e2048 widths against their plain versions, timed: K1/K2 at x [1,
      180, 360, 2048], W_qkv [2048, 6144], 8 heads of 256, window 9 x 18 (the
      large-head variant), shifted, and one K7 case (forward and backward,
-     shifted); K5/K6 at [64800, 2048] x [2048, 4096] x [4096, 2048] (K5's
-     wide instance); two backward calls bit-equal.
+     shifted); K5/K6 at [64800, 2048] x [2048, 4096] x [4096, 2048]; two
+     backward calls bit-equal; then K2, K5, K6 and the
+     K8/K9 backwards at head dim 256 timed at the e2048 train steps' own shape
+     (the image [360, 720]: x [1, 90, 180, 2048], T = 16200).
  28. e2048 serving, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar`` at
      full size (720 x 1440, embed 2048, depth 24): 2 rollout steps, K1 and K5
      24 times a step, K3 never, output finite, step 1 against the plain path.
@@ -148,6 +155,12 @@ printing its own lines:
      96], timed beside ``torch.sum(s, 0)``; then the prestage probe
      (``swin_v2_weather_torch.scripts.prestage_probe.probe``): the round trip
      and ``consume`` alone, each beside its byte bound.
+ 38. the Hopper GEMM core alone (``gemm_core.gemm``) against its plain
+     version at K5's shapes (fc1 at e2048 [64800, 2048] x [2048, 4096], fc1
+     and fc2 at the flagship) and K2's (dx with W read K-major, dW split-K
+     with x read MN-major), each timed beside ``torch.matmul`` at the same
+     shape (the library yardstick; the port never calls it), with its share
+     of the bf16 peak.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -155,13 +168,17 @@ and K7's plain versions at e2048.
 Then one JSON line with each kernel's results: ``launches`` on the main path
 of the slice that brought it (K1, K2, K5, K6: the 2-step fine-tune; K3, K4:
 the single-step train step; K7: the CPB train step; K11: the fused-LayerNorm
-train step; K10: the v6 train step; the ``_e2048`` entries, the same
+train step; K10: the v6 train step; ``gemm``, the GEMM core: the 2-step
+fine-tune, its launches inside K5 and the K2 family, timed alone at K5's
+e2048 fc1 shape with its other phase-38 shapes under ``shapes``; the
+``_e2048`` entries, the same
 wrappers timed at the e2048 shapes of phase 27: the e2048 train step, with
 K7's e2048 case under its own entries' ``e2048`` key; K8/K9's ``_e2048``
 entries: the e2048 grid and windowed train steps of phase 34, with head dim
 128 under the flagship entries' ``hd128`` key and the BIAS instances at 256
 under ``e2048``; K12: the v5, v4 and padded-v4 train steps; K13: the probe
-run; K11's streamed rows under its entries' ``streamed`` key), the launches on every
+run; K11's streamed rows under its entries' ``streamed`` key; the e2048
+train steps' kernels at those steps' shape under ``train_shape``), the launches on every
 path and per step, the largest abs
 difference from its plain version, its time and the plain version's (CUDA
 events), the bound (the larger of its FLOPs at the bf16 peak and its bytes,
@@ -246,6 +263,10 @@ STEP_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
 # flipped bf16 rounding of pre or a moves an output by about one ulp, and the
 # fc2 product's and the bias add's roundings flip with the sum order.
 MLP2_TOL = (2.0, 0.02)
+# The GEMM core against the fp32 product of the same bf16 values: only the
+# order of the fp32 sums differs, which now and then flips the last bf16
+# rounding of an output (fp32 outputs differ far below a bf16 ulp)
+CORE_TOL = (1.0, 0.01)
 # K11: the same rounding sites on both sides; the row statistics' fp32 sums
 # differ in order, which now and then flips one bf16 rounding of out or dz;
 # dgamma/dbeta sum 64800 rows in another order.
@@ -287,10 +308,9 @@ def host_us(fn, n: int = 20) -> float:
     return us
 
 
-def fwd_spills() -> dict:
-    """(head dim, layout, bias, z path) -> (spill store, spill load) bytes of
-    each instance of the K8/K9 forward template, from the build's ``-Xptxas
-    -v`` log."""
+def build_spills(pattern: str) -> dict:
+    """Mangled name -> (spill store, spill load) bytes of every kernel whose
+    mangled name matches ``pattern``, from the build's ``-Xptxas -v`` log."""
     import re
 
     from swin_v2_weather_torch.ops import _build
@@ -298,13 +318,58 @@ def fwd_spills() -> dict:
     lines = open(_build.library_path()[: -len(".so")] + ".log").read().splitlines()
     spills = {}
     for i, line in enumerate(lines):
-        m = re.search(r"Function properties for \S*qkv_attention_fwd_kernelILi(\d+)ELi(\d)ELb(\d)"
-                      r"ELb(\d)E", line)
-        if m is not None:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m is not None and re.search(pattern, m[1]):
             st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
-            spills[int(m[1]), int(m[2]), bool(int(m[3])), bool(int(m[4]))] = (int(st[1]),
-                                                                              int(st[2]))
+            spills[m[1]] = (int(st[1]), int(st[2]))
     return spills
+
+
+def fwd_spills() -> dict:
+    """(head dim, layout, bias, z path) -> (spill store, spill load) bytes of
+    each instance of the K8/K9 forward template (``build_spills``)."""
+    import re
+
+    pattern = r"qkv_attention_fwd_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)E"
+    return {(int(m[1]), int(m[2]), bool(int(m[3])), bool(int(m[4]))): sp
+            for name, sp in build_spills(pattern).items()
+            for m in [re.search(pattern, name)]}
+
+
+# the GEMM core's instances, and K2's attention pass (all its variants)
+CORE_KERNELS = r"7swin_wg11gemm_kernelI"
+K2_PASS_KERNELS = r"_GLOBAL__N_\w*20attention_bwd_kernelI"
+
+
+def kernel_pieces(fn, labels, n: int = 5) -> dict:
+    """Device ms per call of the kernels fn() launches, by torch.profiler over
+    n calls after a warm-up, summed under the label of the first (substring,
+    label) pair of ``labels`` whose substring the kernel's name contains."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        label = next((lab for sub, lab in labels if sub in ev.name), None)
+        if label is not None:
+            out[label] = out.get(label, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
+    if not out:  # a diagnostic, not a check: report it and go on
+        log("  (torch.profiler recorded no device events for this breakdown)")
+    return out
+
+
+K2_PIECES = (("StoreBiasBf16", "projection (core)"), ("attention_bwd_kernel<", "attention pass"),
+             ("StoreBf16>", "dx (core)"),
+             ("StoreSplitF32", "dW (core)"), ("column_sums_kernel", "db column sums"),
+             ("reduce_kernel", "reductions"))
+K5_PIECES = (("Fc1Epilogue", "fc1 (core)"), ("Fc2Epilogue", "fc2 (core)"))
 
 
 def time_ms(fn, n: int) -> float:
@@ -389,6 +454,7 @@ def main() -> None:
     from swin_v2_weather_torch.models.swin import make_shift_mask
     from swin_v2_weather_torch.models.wrappers import get_model
     from swin_v2_weather_torch.ops import _build
+    from swin_v2_weather_torch.ops import gemm_core as gc
     from swin_v2_weather_torch.ops import ln_kernels as lk
     from swin_v2_weather_torch.ops import mlp_kernels as mk
     from swin_v2_weather_torch.ops import prestage as ps
@@ -433,6 +499,14 @@ def main() -> None:
         for line in f.read().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"    {line.strip()}")
+    # the GEMM core and K2's attention pass (every variant) must not spill
+    for label, pattern, least in (("GEMM core", CORE_KERNELS, 16), ("K2 attention pass",
+                                                                     K2_PASS_KERNELS, 20)):
+        spilled = build_spills(pattern)
+        if len(spilled) < least or any(any(sp) for sp in spilled.values()):
+            raise RuntimeError(f"{label}: {len(spilled)} instances (at least {least}), each "
+                               f"must build without spills: {spilled}")
+        log(f"    {label}: {len(spilled)} instances, 0 bytes spilled (-Xptxas -v)")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
@@ -585,6 +659,10 @@ def main() -> None:
         log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card}); two calls bit-equal")
         if bwd_ms is None:
             bwd_ms, bwd_plain_ms = k_ms, p_ms
+            k2_pieces = kernel_pieces(lambda: wa.window_attention_qkv_bwd(
+                x, w16, b_qkv, scale, g, window, mask, 1.0), K2_PIECES)
+            log(f"  {label} breakdown (torch.profiler, device ms a call): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in k2_pieces.items()) + f" ({card})")
     # K2's work: the projection recomputed, dx and dW (three T x C x 3C
     # products), and per (window, head) the scores, dp, dv, dq and dk
     results["window_attention_qkv_bwd"] = (bwd_errs["dx"], bwd_ms, bwd_plain_ms, bound(
@@ -678,10 +756,12 @@ def main() -> None:
 
         for fn in counted:
             fn.launches = 0
+        gc.gemm.launches = 0
         train_step = make_step()
         metrics = [train_step(batch) for _ in range(n_steps)]
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counted}
+        core_launches = gc.gemm.launches  # inside K5, the K2 family and the large-head projection
         log(f"  {n_steps} steps; launches {launches}")
         want = {name: per_step.get(name, 0) * n_steps for name in launches}
         if launches != want:
@@ -740,10 +820,10 @@ def main() -> None:
                 p_ms, p_mem = train_ms(plain_step, batch, n_timed)
             line += (f", plain path {p_ms:.2f} ms/step ({1000.0 / p_ms:.3f} samples/s, peak "
                      f"{p_mem:.3f} GiB)")
-        log(f"{line}; {card}")
+        log(f"{line}; {card}; GEMM core launches in the {n_steps} steps: {core_launches}")
         del model, train_step, plain_step, batch
         torch.cuda.empty_cache()
-        return launches, k_ms
+        return {**launches, "gemm": core_launches}, k_ms
 
     depth = int(params.depth)
     train_launches, train_step_ms = train_path(
@@ -773,6 +853,11 @@ def main() -> None:
         p_ms = time_ms(lambda: mk.mlp_fwd_reference(x2, w1, b1, w2, b2), 5)
     log(f"  K5 kernel {k_ms:.4f} ms ({mlp_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
         f"({card}); library call: none (no single PyTorch call computes fc1 + GELU + fc2)")
+    with torch.inference_mode():
+        k5_pieces = kernel_pieces(lambda: mk.mlp_fwd(x2, w1_16, b1, w2_16, b2), K5_PIECES)
+    log(f"  K5 breakdown (torch.profiler, device ms a call; {mk.mlp_fwd_plan(t_tok, c, hidden, c)['launches']} "
+        f"launches of the GEMM core): " + ", ".join(f"{k} {v:.4f}" for k, v in k5_pieces.items())
+        + f" ({card})")
     results["mlp_fwd"] = (err, k_ms, p_ms, bound(mlp_flops, nbytes(x2, w1_16, b1, w2_16, b2, out)))
     del out, ref
     with torch.inference_mode():
@@ -1106,9 +1191,11 @@ def main() -> None:
             generator=torch.Generator().manual_seed(SEED))
         for fn in counted:
             fn.launches = 0
+        gc.gemm.launches = 0
         torch.cuda.reset_peak_memory_stats()
         preds = engine.rollout(init, START, n_steps)
         got = {fn.__name__: fn.launches for fn in counted}
+        core_launches = gc.gemm.launches
         log(f"{tag} serving {config} {overrides}: {tuple(params.img_size)}, embed "
             f"{params.embed_dim}, depth {params.depth}, "
             f"{sum(p.numel() for p in model.parameters())} parameters; rollout {n_steps} steps -> "
@@ -1140,7 +1227,7 @@ def main() -> None:
                 f"(peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB); {card}")
         del engine, model, preds, plain1
         torch.cuda.empty_cache()
-        return got
+        return {**got, "gemm": core_launches}
 
     qkv = torch.randn((b, gh, gw, 3 * c), generator=gen, device=dev).bfloat16()
     g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
@@ -1284,7 +1371,7 @@ def main() -> None:
     w1_16, w2_16 = w1.bfloat16(), w2.bfloat16()
     e_mlp_flops = 2 * t_tok * hide * (ce + ce)
     log(f"[27] e2048 MLP: x2, g [{t_tok}, {ce}] bf16, W1 [{ce}, {hide}], W2 [{hide}, {ce}]; K5 "
-        f"instance {mk.mlp_fwd_variant(ce, ce)} (fc1 recomputed {-(-ce // 768)} times)")
+        f"schedule: {mk.mlp_fwd_plan(t_tok, ce, hide, ce)['launches']} launches of the GEMM core")
     with torch.inference_mode():
         out = mk.mlp_fwd(x2, w1_16, b1, w2_16, b2)
         ref = mk.mlp_fwd_reference(x2, w1, b1, w2, b2)
@@ -1296,8 +1383,7 @@ def main() -> None:
         p_ms = time_ms(lambda: mk.mlp_fwd_reference(x2, w1, b1, w2, b2), 2)
     results["mlp_fwd_e2048"] = (err, k_ms, p_ms, bound(e_mlp_flops,
                                                        nbytes(x2, w1_16, b1, w2_16, b2, out)))
-    log(f"  K5 {k_ms:.4f} ms ({e_mlp_flops / k_ms / 1e9:.1f} TFLOP/s of the minimal work), plain "
-        f"{p_ms:.4f} ms ({card})")
+    log(f"  K5 {k_ms:.4f} ms ({e_mlp_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms ({card})")
     del out
     with torch.inference_mode():
         out = mk.mlp_bwd(x2, w1_16, b1, w2_16, g2)
@@ -1312,6 +1398,120 @@ def main() -> None:
                                                        nbytes(x2, w1_16, b1, w2_16, g2, *out)))
     log(f"  K6 {k_ms:.4f} ms ({e_mlp_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms ({card})")
     del x2, g2, w1, b1, w2, b2, w1_16, w2_16, out
+    torch.cuda.empty_cache()
+
+    # the e2048 train steps' kernels at the shape those steps give them (the
+    # image [360, 720]: 90 x 180 tokens, 100 windows, T = 16200), timed
+    th, tw = gh // 2, gw // 2
+    t_tr = b * th * tw
+    tr_pattern = torch.from_numpy(make_shift_mask((th, tw), window, shift)[-1].copy()).to(dev)
+    tr_attn_flops = 4 * l_win * l_win * ce * (t_tr // l_win)
+    train_shape = {}
+    x = torch.randn((b, th, tw, ce), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, th, tw, ce), generator=gen, device=dev).bfloat16()
+    w16 = ((2 * torch.rand((ce, 3 * ce), generator=gen, device=dev) - 1) / math.sqrt(ce)).bfloat16()
+    b_qkv = 0.02 * torch.randn((3 * ce,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((he,), generator=gen, device=dev))
+    grads = wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, tr_pattern, 1.0)
+    k_ms = time_ms(lambda: wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, tr_pattern,
+                                                        1.0), 5)
+    train_shape["window_attention_qkv_bwd_e2048"] = (k_ms, bound(
+        3 * 2 * t_tr * ce * 3 * ce + 5 * tr_attn_flops / 2, nbytes(x, w16, b_qkv, scale, g, *grads)))
+    del grads
+    qkv = torch.randn((b, th, tw, 3 * ce), generator=gen, device=dev).bfloat16()
+    qn, _ = wa.normalize_heads(qkv[..., :ce], he)
+    kn, _ = wa.normalize_heads(qkv[..., ce:2 * ce], he)
+    grads = wa.window_attention_grid_bwd(qn, kn, qkv[..., 2 * ce:], scale, g, window, tr_pattern)
+    k_ms = time_ms(lambda: wa.window_attention_grid_bwd(qn, kn, qkv[..., 2 * ce:], scale, g, window,
+                                                         tr_pattern), 5)
+    train_shape["window_attention_grid_bwd_e2048"] = (k_ms, bound(
+        5 * tr_attn_flops / 2, nbytes(qn, kn, qkv[..., 2 * ce:], scale, g, *grads)))
+    del qkv, qn, kn, grads
+    nw_tr = (th // window[0]) * (tw // window[1])
+    q, k, v, gw_ = (torch.randn((nw_tr, he, l_win, ce // he), generator=gen, device=dev).bfloat16()
+                    for _ in range(4))
+    tr_grid = (th // window[0], tw // window[1])
+    grads = wa.window_attention_v1_bwd(q, k, v, scale, gw_, tr_grid, tr_pattern)
+    k_ms = time_ms(lambda: wa.window_attention_v1_bwd(q, k, v, scale, gw_, tr_grid, tr_pattern), 5)
+    train_shape["window_attention_v1_bwd_e2048"] = (k_ms, bound(
+        5 * tr_attn_flops / 2, nbytes(q, k, v, scale, gw_, *grads)))
+    del q, k, v, gw_, grads, x, g, w16, b_qkv, scale
+    x2 = torch.randn((t_tr, ce), generator=gen, device=dev).bfloat16()
+    g2 = torch.randn((t_tr, ce), generator=gen, device=dev).bfloat16()
+    w1_16 = ((2 * torch.rand((ce, hide), generator=gen, device=dev) - 1) / math.sqrt(ce)).bfloat16()
+    b1 = 0.02 * torch.randn((hide,), generator=gen, device=dev)
+    w2_16 = ((2 * torch.rand((hide, ce), generator=gen, device=dev) - 1) / math.sqrt(hide)).bfloat16()
+    b2 = 0.02 * torch.randn((ce,), generator=gen, device=dev)
+    tr_mlp_flops = 2 * t_tr * hide * (ce + ce)
+    with torch.inference_mode():
+        out = mk.mlp_fwd(x2, w1_16, b1, w2_16, b2)
+        k_ms = time_ms(lambda: mk.mlp_fwd(x2, w1_16, b1, w2_16, b2), 5)
+    train_shape["mlp_fwd_e2048"] = (k_ms, bound(tr_mlp_flops, nbytes(x2, w1_16, b1, w2_16, b2, out)))
+    with torch.inference_mode():
+        out = mk.mlp_bwd(x2, w1_16, b1, w2_16, g2)
+        k_ms = time_ms(lambda: mk.mlp_bwd(x2, w1_16, b1, w2_16, g2), 5)
+    train_shape["mlp_bwd_e2048"] = (k_ms, bound(tr_mlp_flops, nbytes(x2, w1_16, b1, w2_16, g2, *out)))
+    del x2, g2, w1_16, b1, w2_16, b2, out
+    torch.cuda.empty_cache()
+    log(f"[27] at the e2048 train steps' shape [1, {th}, {tw}, {ce}] (T = {t_tr}): " + ", ".join(
+        f"{k} {v[0]:.4f} ms (bound {v[1][0]:.4f})" for k, v in train_shape.items()) + f" ({card})")
+
+    # K2, K7 and v4's backward at head dim 128 (8 heads, L = 162): the
+    # one-block kernel takes this shape since its pass keeps no score tiles
+    # in shared memory; the large-head variant, which took it before, is
+    # timed beside it (the variant forced), each against its plain version
+    c1 = 8 * 128
+    x = torch.randn((b, gh, gw, c1), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, gh, gw, c1), generator=gen, device=dev).bfloat16()
+    w16 = ((2 * torch.rand((c1, 3 * c1), generator=gen, device=dev) - 1) / math.sqrt(c1)).bfloat16()
+    b_qkv = 0.02 * torch.randn((3 * c1,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((8,), generator=gen, device=dev))
+    badd = wa.fold_cpb_bias(torch.randn((8, l_win, l_win), generator=gen, device=dev), scale)
+    xw, gw_ = v45.window_major(x, window), v45.window_major(g, window)
+    grid_w = (gh // window[0], gw // window[1])
+    hd128_cases = {
+        "window_attention_qkv_bwd": (
+            lambda: wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, pattern, 1.0),
+            lambda: wa.window_attention_qkv_backward_reference(x, w16, b_qkv, scale, g, window,
+                                                               pattern), (x, g)),
+        "window_attention_qkv_bias_bwd": (
+            lambda: wa.window_attention_qkv_bias_bwd(x, w16, b_qkv, scale, badd, g, window, pattern,
+                                                     1.0),
+            lambda: wa.window_attention_qkv_bias_backward_reference(x, w16, b_qkv, scale, badd, g,
+                                                                    window, pattern), (x, g, badd)),
+        "window_attention_qkv4_bwd": (
+            lambda: v45.window_attention_qkv4_bwd(xw, w16, b_qkv, scale, gw_, window, grid_w,
+                                                  pattern, 1.0),
+            lambda: v45.window_attention_qkv4_backward_reference(xw, w16, b_qkv, scale, gw_, window,
+                                                                 grid_w, pattern), (xw, gw_))}
+    log(f"[27] K2/K7/v4 backward at head dim 128: x {tuple(x.shape)}, 8 heads, window {window}, "
+        f"shifted; variant {wa.qkv_variant('', 128, l_win, True)} (the large-head variant ran it before)")
+    large_ms = {}
+    for name, (fn, ref_fn, ins) in hd128_cases.items():
+        ref = ref_fn()
+        outs = {}
+        for variant in ("base", "large"):
+            with mock.patch.object(wa, "qkv_variant", lambda *a, _v=variant: _v):
+                got = fn()
+                torch.cuda.synchronize()
+                errs = {nm: compare(f"{name} hd 128 {variant} {nm}", o, r, BWD_TOL[nm])
+                        for nm, o, r in zip(("dx", "dW", "db", "dscale", "dbias"), got, ref)}
+                outs[variant] = (errs, time_ms(fn, 3))
+                del got
+        p_ms = time_ms(ref_fn, 1)
+        k_ms, large_ms[name] = outs["base"][1], outs["large"][1]
+        results[name + "_hd128"] = (outs["base"][0]["dx"], k_ms, p_ms, bound(
+            3 * 2 * t_tok * c1 * 3 * c1 + 5 * 4 * l_win * l_win * c1 * (t_tok // l_win) / 2,
+            nbytes(w16, b_qkv, scale, *ins, *ref)))
+        log(f"  {name} hd 128: one-block {k_ms:.4f} ms, large-head {large_ms[name]:.4f} ms, plain "
+            f"{p_ms:.4f} ms ({card})")
+        if k_ms > large_ms[name]:
+            raise RuntimeError(f"{name} at head dim 128: the one-block kernel is slower than the "
+                               f"large-head variant it replaces")
+        del ref
+    # the cases hold their operands: drop them, or the later paths' peaks
+    # count 0.5 GiB of them
+    del hd128_cases, fn, ref_fn, ins, x, g, w16, b_qkv, scale, badd, xw, gw_
     torch.cuda.empty_cache()
 
     # ---- 28-29. the e2048 family: serving at full size, training at [360, 720] -
@@ -1566,6 +1766,43 @@ def main() -> None:
     if not (math.isfinite(pr["checksum"]) and probe_launches["consume"] > 0):
         raise RuntimeError("prestage probe: non-finite checksum or consume never launched")
 
+    # ---- 38. the GEMM core alone, beside torch.matmul ---------------------------
+    # (shape tag, M, K, N, A MN-major, B MN-major, splits): K5's products at
+    # e2048 and at the flagship, K2's dx (W read K-major) and dW (x read
+    # MN-major, split-K into fp32 partials) at the flagship
+    core_shapes = (("fc1_e2048", t_tok, 2048, 4096, False, True, 1),
+                   ("fc1", t_tok, 768, 3072, False, True, 1),
+                   ("fc2", t_tok, 3072, 768, False, True, 1),
+                   ("dx", t_tok, 3 * c, c, False, False, 1),
+                   ("dW", c, t_tok, 3 * c, True, True, gc.split_k(c, 3 * c, t_tok)))
+    core = {}
+    for tag, m_, k_, n_, a_mn, b_mn, splits in core_shapes:
+        a = torch.randn((k_, m_) if a_mn else (m_, k_), generator=gen, device=dev).bfloat16()
+        bm = torch.randn((k_, n_) if b_mn else (n_, k_), generator=gen, device=dev).bfloat16()
+        a, bm = (a.t() if a_mn else a), (bm if b_mn else bm.t())
+        odt = torch.bfloat16 if splits == 1 else torch.float32
+        out = gc.gemm(a, bm, odt, splits)
+        ref = gc.gemm_reference(a, bm, odt)
+        torch.cuda.synchronize()
+        err = compare(f"GEMM core {tag}", out, ref, CORE_TOL)
+        del ref
+        k_ms = time_ms(lambda: gc.gemm(a, bm, odt, splits), 10)
+        p_ms = time_ms(lambda: gc.gemm_reference(a, bm, odt), 3)
+        lib_ms = time_ms((lambda: torch.matmul(a, bm)) if splits == 1 else (
+            lambda: torch.mm(a, bm, out_dtype=torch.float32)), 10)
+        flops = 2 * m_ * k_ * n_
+        bnd = bound(flops, nbytes(a, bm, out))
+        log(f"[38] GEMM core {tag}: [{m_}, {k_}] x [{k_}, {n_}], A {'MN' if a_mn else 'K'}-major, "
+            f"B {'MN' if b_mn else 'K'}-major, {splits} split(s), {odt}: {k_ms:.4f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s, {100 * bnd[0] / k_ms:.1f} % of the bf16 peak), "
+            f"torch.matmul {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{p_ms:.4f} ms ({card})")
+        core[tag] = (err, k_ms, p_ms, bnd, lib_ms)
+        del a, bm, out
+        torch.cuda.empty_cache()
+    results["gemm"] = core["fc1_e2048"][:4]
+    library["gemm"] = core["fc1_e2048"][4]
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": (cpb_serve_launches, N_STEPS),
@@ -1651,6 +1888,9 @@ def main() -> None:
                                              "attic/window_attention_v45.py:712",
                                              "train_v4_padded"),
         "consume": ("prestage_consume.cu", "scripts/prestage_probe.py:58", "prestage_probe"),
+        # the GEMM core (timed alone at K5's e2048 fc1 shape, phase 38): it
+        # runs K5's products and the K2 family's projection, dx and dW
+        "gemm": ("wgmma_gemm.cuh", "mlp_kernels.py:295", "train_2step"),
     }
     kernels = []
     for name, (src, replaces, main_path) in sources.items():
@@ -1683,6 +1923,16 @@ def main() -> None:
     for entry in kernels[10:]:
         if len(results[entry["name"]]) > 4:
             entry["max_abs_err_by_output"] = results[entry["name"]][4]
+    kernels[-1]["shapes"] = {
+        tag: {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+              "bound_by": bnd[1], "library_ms": lib_ms}
+        for tag, (e, k_ms, p_ms, bnd, lib_ms) in core.items()}
+    if kernels[-1]["launches"] == 0:
+        raise RuntimeError("the GEMM core was never launched on its main path")
+    for entry in kernels:  # the e2048 train steps' kernels at those steps' shape (phase 27)
+        if entry["name"] in train_shape:
+            k_ms, (b_ms, b_by) = train_shape[entry["name"]]
+            entry["train_shape"] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by}
     kernels[6]["e2048"] = k7_e2048["fwd"]  # K7's e2048 case (phase 27)
     kernels[7]["e2048"] = k7_e2048["bwd"]
     kernels[8]["streamed"] = ln_streamed["fwd"]  # K11 above 2048 channels (phase 18)
@@ -1698,6 +1948,8 @@ def main() -> None:
                                   "bound_ms": b_ms, "bound_by": b_by,
                                   "library_ms": library.get(entry["name"] + tag),
                                   "launch": launch.get(entry["name"] + tag)}
+                if entry["name"] in large_ms and tag == "_hd128":  # the variant it replaced
+                    entry[tag[1:]]["large_head_ms"] = large_ms[entry["name"]]
         if entry["name"] in launch:  # the K8/K9 forwards' launch report (phases 20, 23, 33)
             entry["launch"] = launch[entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")

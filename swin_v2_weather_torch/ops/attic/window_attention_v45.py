@@ -33,11 +33,11 @@ whatever the selection, as in JAX.
     exact zeros in the pad lanes, as K10 does.
 
 v4's kernels take K1/K2's shapes: their one-block instances where those fit
-shared memory, and for head dims 128 and 256 beyond that (at L = 162: the
-backward at 128, both directions at 256) v4 instances of the large-head
-variant (``csrc/window_attention_qkv_large.cu``), which park the raw q, k
-rows in dqkv for the fp32 qn as the one-block kernel does; the padded-head
-v4 (head dims below 128) is one-block only. Any other shape raises a
+shared memory, and beyond that (at L = 162: head dim 256) v4 instances of
+the large-head variant (``csrc/window_attention_qkv_large.cu``), which park
+the raw q, k rows in dqkv for the fp32 qn (the one-block backward reads them
+from its projection scratch); the padded-head v4 (head dims below 128) is
+one-block only. Any other shape raises a
 ValueError before a launch, as for K1/K2. JAX's
 ``SWIN_QKV_FWD_WC`` / ``SWIN_QKV_BWD_WC`` and ``_pick_nwc`` size the TPU's grid
 steps (windows per step); one block per (window, head) has no counterpart of
@@ -56,7 +56,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from swin_v2_weather_torch.ops import _build
+from swin_v2_weather_torch.ops import _build, gemm_core
 from swin_v2_weather_torch.ops import window_attention as wa
 
 # v4's padded heads (each head's qkv columns zero-padded to 128 lanes), as
@@ -387,6 +387,8 @@ def _launch_v4_forward(fn, xw, w, b, scale, hd, window, window_grid, mask_patter
                 stream)
     _build.check(code, name)
     fn.launches += 1
+    if variant == "large":  # its projection ran on the GEMM core
+        gemm_core.count_launches(1)
     return out
 
 
@@ -397,10 +399,13 @@ def _launch_v4_backward(fn, xw, w, b, scale, hd, gw, window, window_grid, mask_p
                                                     window_grid, mask_pattern, gw)
     dev, t, heads = xw.device, bsz * nwh * nww * lp, int(scale.shape[0])
     lpk = _round_up(int(window[0]) * int(window[1]), 16)  # the kernels' tile height
-    # token ranges of the split-K dW GEMM and of the db column sums (K2's)
-    dw_splits = max(1, min(16, -(-t // 2048)))
+    # token ranges of the split-K dW product and of the db column sums (K2's)
+    dw_splits = gemm_core.split_k(c_in, 3 * c, t)
     db_splits = max(1, min(64, -(-t // 512)))
     f32 = dict(dtype=torch.float32, device=dev)
+    # the recomputed projection (the GEMM core's: its raw q, k rows give v4's
+    # fp32 qn) and its cotangent
+    qkv = torch.empty((t, 3 * c), dtype=torch.bfloat16, device=dev)
     dqkv = torch.empty((t, 3 * c), dtype=torch.bfloat16, device=dev)
     dw_part = torch.empty((dw_splits, c_in, 3 * c), **f32)
     db_part = torch.empty((db_splits, 3 * c), **f32)
@@ -419,18 +424,18 @@ def _launch_v4_backward(fn, xw, w, b, scale, hd, gw, window, window_grid, mask_p
                 dxw.data_ptr(), dw.data_ptr(), db.data_ptr(), dscale.data_ptr(), bsz, nwh, nww,
                 lp, c_in, c, heads)
         wh, ww = int(window[0]), int(window[1])
-        if variant == "large":  # scratch: the recomputed projection, norms, row statistics
-            qkv = torch.empty((t, 3 * c), dtype=torch.bfloat16, device=dev)
+        if variant == "large":  # scratch: norms, row statistics
             inv = torch.empty((t, 2, heads), **f32)
             rstat = torch.empty((bsz * nwh * nww, heads, lpk, 2), **f32)
             code = lib.swin_window_attention_qkv4_large_bwd(
                 *head, qkv.data_ptr(), inv.data_ptr(), rstat.data_ptr(), *work, wh, ww,
                 dw_splits, db_splits, stream)
         else:
-            code = lib.swin_window_attention_qkv4_bwd(*head, *work, hd, wh, ww, dw_splits,
-                                                      db_splits, stream)
+            code = lib.swin_window_attention_qkv4_bwd(*head, qkv.data_ptr(), *work, hd, wh, ww,
+                                                      dw_splits, db_splits, stream)
     _build.check(code, name)
     fn.launches += 1
+    gemm_core.count_launches(3)  # the projection, dx and dW on the GEMM core
     return dxw, dw, db, dscale
 
 

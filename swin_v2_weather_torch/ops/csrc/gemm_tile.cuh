@@ -1,7 +1,7 @@
-// The tiled bf16 GEMM body shared by the port's matrix-product kernels: the
-// fc1 forward (K3) and backward (K4) in fc1_gelu.cu, and the projection
-// backward of the window attention (K2's dx and dW) in
-// window_attention_qkv_bwd.cu. Each kernel adds only its epilogue.
+// The tiled bf16 GEMM body of the fc1 forward (K3) and backward (K4) in
+// fc1_gelu.cu and of the MLP backward's recompute (K6) in mlp.cu. Each kernel
+// adds only its epilogue. The Hopper GEMM core (wgmma_gemm.cuh) carries the
+// port's other products; these three move onto it in a later change.
 //
 // C[M, N] = A[M, K] @ B[K, N] with bf16 operands and fp32 accumulation on the
 // tensor cores (nvcuda::wmma 16x16x16 fragments). Each 256-thread block owns a

@@ -66,7 +66,7 @@
 // rounded quotient from the row's reciprocal and one fma correction
 // (Markstein's). out leaves through q's shared rows, 16 bytes a thread.
 //
-// The backward follows K2's split (window_attention_qkv_bwd.cu): one block
+// The backward, FlashAttention-2 style: one block
 // per (window, head), LP / 16 warps (LP = L rounded up to 16), q, k, v and g
 // [LP, HD] staged once by cp.async, nvcuda::wmma 16 x 16 score tiles through
 // a per-warp fp32 scratch tile; pass 1 with query rows per warp (row max; row
@@ -170,35 +170,6 @@ size_t bwd_smem_bytes(int LP) {
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
-
-// c += a b on the tensor cores: m16n8k16, bf16 operands, fp32 accumulation;
-// a the 16 x 16 row-major fragment, (b0, b1) the 16 x 8 column fragment.
-__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. ldsm4_t transposes each matrix.
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // (m, l) <- the merge of two partial softmax statistics (max m, sum l of
 // exp(z - m)); an empty part has m = -inf and l = 0. Symmetric, so the lanes

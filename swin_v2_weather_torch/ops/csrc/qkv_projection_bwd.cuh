@@ -1,10 +1,11 @@
 // The projection backward shared by the qkv-fused window-attention backwards
-// (K2/K7 in window_attention_qkv_bwd.cu, K10 in window_attention_qkv_padded.cu,
-// the large-head variant in window_attention_qkv_large.cu): given the bf16
-// cotangent of the projection output dqkv [T, N] (N = 3C, or 3 * heads * 128
-// for K10), compute
-//   dx = dqkv @ W^T (W [C_in, N] read transposed in place, bf16 out),
-//   dW = bf16(x)^T @ dqkv in fp32, split over token ranges into partials,
+// (K2/K7/K10/K12 in window_attention_qkv_bwd.cu, the large-head variant in
+// window_attention_qkv_large.cu): given the bf16 cotangent of the projection
+// output dqkv [T, N] (N = 3C, or 3 * heads * 128 for K10), compute
+//   dx = dqkv @ W^T on the GEMM core (wgmma_gemm.cuh), W [C_in, N] read as
+//        the K-major B operand in place, bf16 out,
+//   dW = bf16(x)^T @ dqkv in fp32 on the core, x read as the MN-major A
+//        operand in place, split over token ranges into fixed partials,
 //   db = column sums of dqkv over token ranges,
 // then one kernel that sums the dW and db partials in split order and the
 // d(scale) partials in partial order, dividing by scale, and (with the CPB
@@ -13,31 +14,12 @@
 
 #pragma once
 
-#include "gemm_tile.cuh"
+#include "wgmma_gemm.cuh"
 #include "window_attention_common.cuh"
 
 namespace swin_qkv_proj {
 
 using swin_cuda::bf16;
-
-struct StoreBf16 {  // dx = dqkv @ W^T, rounded to bf16
-  bf16* out;
-  int ld;
-  __device__ void operator()(int row, int col, const float* v) const {
-    swin_attn::store8(out + static_cast<size_t>(row) * ld + col, v, [](int, float a) { return a; });
-  }
-};
-
-struct StoreSplitF32 {  // dW partial of token range blockIdx.z, fp32
-  float* out;
-  int ld;
-  size_t split_stride;
-  __device__ void operator()(int row, int col, const float* v) const {
-    float* dst = out + blockIdx.z * split_stride + static_cast<size_t>(row) * ld + col;
-    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
 
 // part[s, n] = sum of d[t, n] over token range s, in token order
 static __global__ void column_sums_kernel(const bf16* __restrict__ d, int T, int N,
@@ -77,6 +59,27 @@ static __global__ void reduce_kernel(const float* __restrict__ dw_part, int dw_s
   }
 }
 
+// The qkv projection of the qkv-fused backwards, split off their attention
+// pass onto the GEMM core: qkv [T, N] = bf16(x [T, C_in] @ W + b), fp32
+// accumulation and one rounding (K1's site). slab_hd = 0: W is the packed
+// [C_in, N]. Otherwise W is v5's reordered [N / slab_hd, C_in, slab_hd] and
+// b the packed [N]: each (role, head) slab is its own product, in the same K
+// order, written to its slab_hd columns of qkv.
+inline int project(const bf16* x, const bf16* w, const float* b, bf16* qkv, int T, int Cin,
+                   int N, int slab_hd, cudaStream_t s) {
+  if (slab_hd == 0) {
+    return swin_wg::launch_auto<false, true>(x, Cin, w, N, T, N, Cin, 1,
+                                             swin_wg::StoreBiasBf16{b, qkv, N}, s);
+  }
+  int code = 0;
+  for (int col0 = 0; col0 < N && code == 0; col0 += slab_hd) {
+    code = swin_wg::launch_auto<false, true>(
+        x, Cin, w + static_cast<size_t>(col0) * Cin, slab_hd, T, slab_hd, Cin, 1,
+        swin_wg::StoreBiasBf16{b + col0, qkv + col0, N}, s);
+  }
+  return code;
+}
+
 // Everything after the attention backward: dx, dW, db, dscale and (dbias
 // non-null) dbias. dqkv [T, N] bf16; dw_part [dw_splits, C_in, N], db_part
 // [db_splits, N] fp32; dscale_part [n_part, heads]; dbias_part [n_win, heads,
@@ -87,11 +90,14 @@ inline int projection_backward(const bf16* x, const bf16* w, const bf16* dqkv, i
                                float* db, float* dscale, const float* dbias_part, int n_win,
                                int L, int LP, float* dbias, int dw_splits, int db_splits,
                                cudaStream_t s) {
-  using swin_gemm::launch_gemm;
-  int code = launch_gemm<false, true>(dqkv, N, w, N, T, Cin, N, 1, StoreBf16{dx, Cin}, s);
+  // dx [T, C_in] = dqkv [T, N] @ W^T: A K-major, B^T = W stored [C_in, N]
+  int code = swin_wg::launch_auto<false, false>(dqkv, N, w, N, T, Cin, N, 1,
+                                                swin_wg::StoreBf16{dx, Cin}, s);
   if (code != 0) return code;
-  code = launch_gemm<true, false>(x, Cin, dqkv, N, Cin, N, T, dw_splits,
-                                  StoreSplitF32{dw_part, N, static_cast<size_t>(Cin) * N}, s);
+  // dW [C_in, N] = x^T @ dqkv: A^T = x stored [T, C_in], B = dqkv stored [T, N]
+  code = swin_wg::launch_auto<true, true>(
+      x, Cin, dqkv, N, Cin, N, T, dw_splits,
+      swin_wg::StoreSplitF32{dw_part, N, static_cast<size_t>(Cin) * N}, s);
   if (code != 0) return code;
 
   const int rows_per_split = (T + db_splits - 1) / db_splits;

@@ -1,11 +1,12 @@
 // Pieces shared by the window-attention kernels (forward K1 in
 // window_attention_qkv.cu, backward K2 in window_attention_qkv_bwd.cu, their
-// K7, K10 and K12 instances, K8/K9 in qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
-// map, the in-kernel qkv projection plus q/k L2 normalization of one (image,
-// window, head), the 16-row score product, the 8-value bf16 store and the
+// K7, K10 and K12 instances, K8/K9 in qkv_attention.cuh): the geometry of one
+// launch, the block -> (window, head) map, K1's in-kernel qkv projection, the
+// q/k L2 normalization of 16-row tiles, the 16-row score product (wmma), the
+// m16n8k16 mma and ldmatrix primitives, the 8-value bf16 store and the
 // window-order d(bias) reduction.
 //
-// The projection recomputes qkv = bf16(bf16(x) @ bf16(W) + b) for the head's
+// K1's projection recomputes qkv = bf16(bf16(x) @ bf16(W) + b) for the head's
 // 3 x HD columns with fp32 accumulation, streaming 32-wide C_in slices of the
 // window (gathered by index math from the NHWC grid, padded rows zero-filled)
 // and of the head's W columns through a two-stage cp.async ring, one role
@@ -213,17 +214,16 @@ __device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__
   __syncthreads();
 }
 
-// L2-normalize this warp's 16 rows of t in place:
+// L2-normalize the 16 rows row0 .. row0 + 15 of t in place, one warp:
 // t16 = bf16(t * inv), inv = 1 / sqrt(max(sum t^2, 1e-24)) in fp32.
 // If inv_out is not null, the row's inv is stored there (indexed by row).
 template <int HD>
-__device__ void normalize_rows(bf16* t, float* inv_out) {
+__device__ void normalize_tile(bf16* t, int row0, float* inv_out) {
   constexpr int LDQ = HD + 8;
   constexpr int NV = (HD + 31) / 32;
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   for (int rr = 0; rr < 16; ++rr) {
-    const int row = warp * 16 + rr;
+    const int row = row0 + rr;
     bf16* rowp = t + row * LDQ;
     float vals[NV];
     float ss = 0.0f;
@@ -244,6 +244,41 @@ __device__ void normalize_rows(bf16* t, float* inv_out) {
     }
     if (inv_out != nullptr && lane == 0) inv_out[row] = inv;
   }
+}
+
+// normalize_tile of this warp's 16 rows (warp w: rows 16 w ..)
+template <int HD>
+__device__ void normalize_rows(bf16* t, float* inv_out) {
+  normalize_tile<HD>(t, (threadIdx.x >> 5) * 16, inv_out);
+}
+
+// c += a b on the tensor cores: m16n8k16, bf16 operands, fp32 accumulation;
+// a the 16 x 16 row-major fragment, (b0, b1) the 16 x 8 column fragment.
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. ldsm4_t transposes each matrix.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;

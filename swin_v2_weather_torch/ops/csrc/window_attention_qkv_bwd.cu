@@ -12,36 +12,47 @@
 // d(bias)[h] = sum over windows of ds * (1 / scale_h).
 //
 // What bounds it on this card: at the flagship shape (x and g [1, 180, 360, 768]
-// bf16, L = 162, 8 heads of 96) each (window, head) recomputes a [162, 768] x
-// [768, 288] projection (72 MFLOP) and runs about ten [162, 162, 96] products;
-// the projection backward adds two [64800, 2304] x [2304, 768]-sized GEMMs
-// (230 GFLOP each). All of it is tensor-core work, so the instruction rate and
-// the shared memory feeding it bound the kernels; the [L, L] scores and their
-// cotangents must stay on chip (336 MB per block in fp32 if they did not).
+// bf16, L = 162, 8 heads of 96) the recomputed projection and the projection
+// backward are three [64800, 768] x [768, 2304]-sized GEMMs (230 GFLOP each),
+// and each (window, head) runs about ten [162, 162, 96] products. All of it is
+// tensor-core work, so the instruction rate and the registers and shared
+// memory feeding it bound the kernels; the [L, L] scores and their cotangents
+// must stay on chip (336 MB per block in fp32 if they did not).
 //
 // What the design does about it. The TPU kernel runs its grid in order and adds
 // dW, db and dscale into VMEM-resident accumulators from step to step; blocks
 // on this card run in parallel and in no order, so the work is split:
 //
+//  0. the recomputed projection qkv = bf16(x @ W + b) [T, 3C] on the Hopper
+//     GEMM core (wgmma_gemm.cuh, through qkv_projection_bwd.cuh) into a
+//     scratch the wrapper allocates. Recomputed inside each attention block
+//     on wmma tiles it took 3.67 of the block's 5.99 ms at the flagship shape
+//     (PERF.md section 6); on the core it is one 229-GFLOP product plus a
+//     299 MB round trip through device memory.
 //  1. attention backward, one block per (image, window, head) as in the forward
-//     kernel. It recomputes q, k, v for the head with the forward's projection
-//     (window_attention_common.cuh) and loads the head's slice of g, keeping q16,
-//     k16, v16 and g16 [LP, HD] in shared memory (146 KB at the flagship shape);
-//     fp32 dq/dk/dv accumulators for the whole window would not also fit in the
-//     227 KB, so the work is split FlashAttention-2 style. Pass 1: each warp owns
-//     16 query rows; one sweep over key tiles gives the row sums of e and
-//     u = sum(dp * e), a second recomputes e and dp and forms
-//     ds = (dp - u r) e (r scale) in bf16 in a per-warp row buffer; then
-//     dqn = ds @ kn16, the row's qd = <qn16, dqn>, dq = (dqn - qn16 qd) inv_q, and
-//     the window's sum of qd (the d(scale) partial). Pass 2: each warp owns 16 key
-//     rows and sweeps the query tiles twice, recomputing scores (and dp) tile by
-//     tile from the saved row sums and u: dv = p16^T @ g16, then
-//     dkn = ds^T @ qn16 and dk = (dkn - kn16 kd) inv_k. Recomputing the small
-//     score products (about 5 MFLOP each) is cheaper than a second home for them.
-//     dq, dk, dv go out in bf16 into a [B, H, W, 3C] grid-layout buffer.
-//  2. projection backward on the tiled tensor-core GEMM of gemm_tile.cuh:
-//     dx = dqkv @ W^T (W read transposed in place, bf16 out), and
-//     dW = x^T @ dqkv split over S token ranges into fp32 partials [S, C_in, 3C].
+//     kernel. It loads the head's q, k, v from the scratch and its slice of g,
+//     keeping q16, k16, v16 and g16 [LP, HD] in shared memory (146 KB at the
+//     flagship shape); fp32 dq/dk/dv accumulators for the whole window would
+//     not also fit, so the work is split FlashAttention-2 style, each warp
+//     taking 16-row tiles in turn. Every product is an m16n8k16 mma on
+//     ldmatrix fragments and every score-sized tile (s, e, dp, ds) stays in
+//     the registers of the warp that forms it: no scratch tile, no row
+//     buffer. Pass 1 (query rows): sweep A forms s and dp once per key tile,
+//     keeps e of the first ZT key tiles in registers, and sums e and
+//     u = sum(dp * e); sweep B forms ds = (dp - u r) e (r scale) from the
+//     kept e (s and e recomputed past them) and a second dp, and
+//     dqn = bf16(ds) @ kn16 from ds's accumulator fragments as the A operand;
+//     then the row's qd = <qn16, dqn>, dq = (dqn - qn16 qd) inv_q, and the
+//     window's sum of qd (the d(scale) partial). Pass 2 (key rows): one sweep
+//     over the query tiles forms s^T and dp^T once each from the saved r and
+//     u; p16^T = bf16(e r) feeds dv = p16^T @ g16 and ds^T feeds
+//     dkn = ds^T @ qn16, then dk = (dkn - kn16 kd) inv_k. That is 8
+//     score-sized products and 2 exp an entry. dq, dk, dv go out in bf16 into
+//     a [rows, 3C] buffer.
+//  2. projection backward on the Hopper GEMM core (wgmma_gemm.cuh, through
+//     qkv_projection_bwd.cuh): dx = dqkv @ W^T (W read as stored, bf16 out),
+//     and dW = x^T @ dqkv (x read as stored) split over S token ranges into
+//     fp32 partials [S, C_in, 3C].
 //  3. fixed-order reductions, no atomics, so two runs give the same bits: the
 //     column sums of dqkv over token ranges (db partials), then one kernel that
 //     sums the dW and db partials in split order and the d(scale) partials in
@@ -53,7 +64,7 @@
 // each warp, as it forms its 16 rows of ds, also stores ds * (1 / scale_h) in
 // fp32 into the block's own [LP, LP] slice of a [B * nW, heads, LP, LP]
 // workspace (padded rows and keys hold 0; row pitch LP keeps the stores
-// 16-byte aligned). dbias_reduce_kernel then sums the slices in window order.
+// 8-byte aligned). dbias_reduce_kernel then sums the slices in window order.
 // At batch 1 the workspace is 400 x 8 x 176^2 x 4 B = 396 MB (0.5 % of the
 // card), written once and read once, about 0.25 ms of HBM traffic; at larger
 // batches a block could sum a group of windows first.
@@ -70,10 +81,10 @@
 // K10's backward (entry point swin_window_attention_qkv_padded_bwd) replaces
 // the v6 TPU kernel swin_v2_weather_tpu/ops/window_attention.py:
 // _make_qkv6_bwd_kernel (launched by _qkv6_backward): K2 with a head pitch
-// HP = 128 (see window_attention_qkv.cu for why the padding costs nothing
-// here). The attention pass reads the live HD columns of each head of the
-// padded W and b, and g at its padded pitch (heads * 128; g's pad lanes are
-// not read), and writes dqkv [T, 3 * heads * 128] with exact zeros in the pad
+// HP = 128. The projection runs over the padded W (its pad columns give
+// exact zeros plus the zero pad bias); the attention pass reads the live HD
+// columns of each head of it, and g at its padded pitch (heads * 128; g's pad
+// lanes are not read), and writes dqkv [T, 3 * heads * 128] with exact zeros in the pad
 // lanes, so the projection backward returns dx, the padded dW with exact-zero
 // pad columns, the padded db (zero pad entries) and dscale.
 //
@@ -81,16 +92,16 @@
 // replace swin_v2_weather_tpu/ops/attic/window_attention_v45.py:
 // _make_qkv5_bwd_kernel (launched by _qkv5_backward) and _make_qkv4_bwd_kernel
 // (_qkv4_backward), as K2 with a variant template argument: v5 recomputes the
-// projection from the reordered weight and takes dx and dW from the packed one,
-// as the TPU kernel does (bit-equal to K2); v4 reads and writes the
+// projection from the reordered weight (one product per (role, head) slab, in
+// the packed product's K order) and takes dx and dW from the packed one, as
+// the TPU kernel does; v4 reads and writes the
 // window-major rows (all lm of them, its pad query rows attending to the real
 // keys as in the TPU kernel) and takes the fp32 qn = q * inv_q, not qn16, in
 // qd = <qn, dqn>, in d(scale) and in the normalization VJP (likewise kn). The
 // raw q and k rows are gone from shared memory once normalized in place, and
 // there is no room to keep them beside q, k, v and g (225 KB at head dim 96),
-// so each warp parks its raw rows in their dq and dk slots of dqkv (device
-// memory, 2 x 99.5 MB at the flagship shape) and reads them back just before
-// it overwrites them.
+// so they stay parked in device memory: the projection's scratch holds them,
+// and each warp reads its rows back from there.
 //
 // Contract (checked by the Python wrapper): x [B, H, W, C_in], g [B, H, W, C]
 // bf16; W [C_in, 3C] bf16; b [3C], scale [heads] fp32; mask [L, L] fp32 or null;
@@ -106,49 +117,105 @@ using namespace swin_attn;
 
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may opt into
 
+// The attention pass's block: WARPS warps, each taking 16-row tiles of the
+// window in turn (one each at L = 162 below head dim 128); ZT: the 16-key
+// tiles whose e a warp keeps in registers across pass 1 beside its [16, HD]
+// dqn accumulator (the others recompute s and e in pass 1's second sweep).
+// Registers: 168 a thread at 11 warps (three warps share a sub-partition's
+// 16,384), 255 at 8; ZT and WARPS are what builds without spilling
+// (-Xptxas -v, checked by chip_smoke.py).
+template <int HD, bool BIAS = false, int HP = HD, int VAR = QKV_V3>
+struct BwdShape {
+  // the bias rows, the pad lanes, v4's raw rows read from device memory
+  static constexpr bool TIGHT = BIAS || HP != HD || VAR == QKV_V4;
+  // head dim 96 with any of those does not fit 168 registers (pass 2's dv and
+  // dk accumulators beside them): 8 warps, 255 registers
+  static constexpr bool WIDE = HD >= 128 || (HD == 96 && TIGHT);
+  static constexpr int WARPS = WIDE ? 8 : 11;
+  static constexpr int ZT = WIDE ? 8 : (HD == 32 ? (TIGHT ? 8 : 11) : (HD == 64 ? (TIGHT ? 6 : 8) : 5));
+};
+
+// q, k, v, g [LP, HD + 8] bf16; inv_q, inv_k, r, u [LP] and the warps' d(scale)
+// sums [16] fp32
 template <int HD>
 size_t bwd_smem_bytes(int LP) {
-  const size_t nwarps = LP / 16;
-  const size_t mats = 4u * LP * (HD + 8) * sizeof(bf16);  // q, k, v, g
-  const size_t scratch = nwarps * 256 * sizeof(float);
-  const size_t rows = nwarps * 16 * (LP + 8) * sizeof(bf16);
-  const size_t staging = staging_bytes<HD>(LP);
-  const size_t floats = (4u * LP + 16) * sizeof(float);  // inv_q, inv_k, r, u, warp sums
-  return mats + scratch + (rows > staging ? rows : staging) + floats;
+  return 4u * LP * (HD + 8) * sizeof(bf16) + (4u * LP + 16) * sizeof(float);
 }
 
+// c = a_rows [16, HD] @ b_rows [16, HD]^T (pitch HD + 8) on m16n8k16 mma:
+// the two n8 tiles of a 16 x 16 score tile, summed over HD in k16 order.
+// aoff / boff: the lane's ldmatrix offsets of an A and a B operand.
+template <int HD>
+__device__ __forceinline__ void score_tile(float (&c)[2][4], const bf16* a_rows,
+                                           const bf16* b_rows, int aoff, int boff) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.0f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    unsigned fa[4], fb[4];
+    ldsm4(fa, a_rows + aoff + kk * 16);
+    ldsm4(fb, b_rows + boff + kk * 16);
+    mma16816(c[0], fa, fb[0], fb[1]);
+    mma16816(c[1], fa, fb[2], fb[3]);
+  }
+}
+
+// acc [16, HD] += a (a 16 x 16 A fragment) @ rows [16, HD] (pitch HD + 8):
+// toff is the lane's offset of a transposed ldmatrix of the B operand
+template <int HD>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[HD / 8][4], const unsigned (&a)[4],
+                                                const bf16* rows, int toff) {
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) {
+    unsigned fb[4];
+    ldsm4_t(fb, rows + toff + j * 16);
+    mma16816(acc[2 * j], a, fb[0], fb[1]);
+    mma16816(acc[2 * j + 1], a, fb[2], fb[3]);
+  }
+}
+
+// The A fragment of a 16 x 16 tile held as two n8 accumulator tiles, rounded
+// to bf16 (the accumulator-to-A identity of m16n8k16)
+__device__ __forceinline__ void to_a(unsigned (&a)[4], const float (&c)[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+
+// qkv: the projection bf16(x @ W + b) [rows, 3C] from the GEMM core (head
+// pitch HP within each role's C columns). Every product is an m16n8k16 mma
+// on ldmatrix fragments, and every score-sized tile (s, e, dp, ds) lives in
+// the registers of the warp that forms it; a lane holds rows g and g + 8 of
+// a tile and two adjacent columns of each n8 tile, so row sums are quad
+// shuffles.
 template <int HD, bool BIAS, int HP = HD, int VAR = QKV_V3>
-__global__ void __launch_bounds__(MAX_LP * 2)
-    attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                         const float* __restrict__ bqkv, const float* __restrict__ scale,
+__global__ void __launch_bounds__(BwdShape<HD, BIAS, HP, VAR>::WARPS * 32, 1)
+    attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
                          const float* __restrict__ bias, const float* __restrict__ mask,
                          float bflag, const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
                          float* __restrict__ dscale_part, float* __restrict__ dbias_part,
                          Geometry geo) {
-  constexpr int NF = HD / 16;
   constexpr int LDQ = HD + 8;
+  constexpr int NO = HD / 8;  // n8 tiles of a [16, HD] accumulator
+  constexpr int ZT = BwdShape<HD, BIAS, HP, VAR>::ZT;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int LP = geo.LP;
   const int L = geo.L;
   const int LS = rows_of<VAR>(geo);  // rows read and written: L, or v4's lm
-  const int nwarps = LP / 16;
-  const int LDP = LP + 8;
+  const int LQ = VAR == QKV_V4 ? LS : L;  // query rows that attend (v4: its pad rows too)
+  const int ntiles = LP / 16;
+  const int nw = blockDim.x >> 5;
   const int C3 = 3 * geo.C;
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + LP * LDQ;
   bf16* vs = ks + LP * LDQ;
   bf16* gs = vs + LP * LDQ;
-  float* scratch = reinterpret_cast<float*>(gs + LP * LDQ);
-  unsigned char* region = reinterpret_cast<unsigned char*>(scratch + nwarps * 256);
-  bf16* rowbuf = reinterpret_cast<bf16*>(region);  // passes 1-2: 16 x LDP per warp
-  bf16* xs = reinterpret_cast<bf16*>(region);      // projection: staging ring
-  bf16* wsm = xs + 2 * LP * LDX;
-  const size_t region_bytes = static_cast<size_t>(nwarps) * 16 * LDP * sizeof(bf16) >
-                                      staging_bytes<HD>(LP)
-                                  ? static_cast<size_t>(nwarps) * 16 * LDP * sizeof(bf16)
-                                  : staging_bytes<HD>(LP);
-  float* inv_q = reinterpret_cast<float*>(region + region_bytes);
+  float* inv_q = reinterpret_cast<float*>(gs + LP * LDQ);
   float* inv_k = inv_q + LP;
   float* rr = inv_k + LP;   // 1 / sum(e) per query row
   float* uu = rr + LP;      // sum(dp * e) per query row
@@ -159,297 +226,280 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  float* cs = scratch + warp * 256;
-  const int fr = lane >> 1;       // fragment row this lane finishes
-  const int fc = (lane & 1) * 8;  // first of its 8 fragment columns
+  const int g4 = lane >> 2;        // the lane's rows of a tile: g4 and g4 + 8
+  const int c2 = (lane & 3) * 2;   // its first column of an n8 tile
+  // ldmatrix offsets in a 16-row tile: A operand (rows x k), B operand of
+  // x y^T (16 rows of y: two n8 tiles), transposed B operand of p y (16 rows
+  // of y as k, two n8 column tiles)
+  const int aoff = (lane & 15) * LDQ + (lane >> 4) * 8;
+  const int boff = ((lane >> 4) * 8 + (lane & 7)) * LDQ + ((lane >> 3) & 1) * 8;
+  const int toff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
 
-  // the head's slice of the cotangent, padded rows zero-filled
-  for (int idx = tid; idx < LP * (HD / 8); idx += blockDim.x) {
-    const int l = idx / (HD / 8);
+  // the head's q, k and v from the projection and its slice of the
+  // cotangent; padded rows zero-filled
+  for (int idx = tid; idx < 4 * LP * (HD / 8); idx += blockDim.x) {
+    const int role = idx / (LP * (HD / 8));  // q, k, v, g
+    const int l = (idx / (HD / 8)) % LP;
     const int c = (idx % (HD / 8)) * 8;
     const bool ok = l < LS;
     const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
-    cp_async16(gs + l * LDQ + c, gout + pix * geo.C + h * HP + c, ok);
+    const bf16* src = role < 3 ? qkv + pix * C3 + role * geo.C + h * HP + c
+                               : gout + pix * geo.C + h * HP + c;
+    cp_async16(qs + role * LP * LDQ + l * LDQ + c, src, ok);
   }
   cp_async_commit();
-
-  project_qkv<HD, HP, VAR>(x, w, bqkv, geo, t, qs, ks, vs, xs, wsm, cs);  // waits for g too
-  if constexpr (VAR == QKV_V4) {
-    // v4 takes the fp32 qn = q * inv_q (not qn16) in qd, kd and the
-    // normalization VJP: park this warp's raw q and k rows in their dq and dk
-    // slots of dqkv, where passes 1 and 2 read them back before overwriting
-    for (int idx = lane; idx < 16 * 2 * (HD / 8); idx += 32) {
-      const int r = warp * 16 + idx / (2 * (HD / 8));
-      const int role = (idx / (HD / 8)) & 1;
-      const int c = (idx % (HD / 8)) * 8;
-      if (r < LS) {
-        *reinterpret_cast<uint4*>(dqkv + token_of<VAR>(geo, t, r) * C3 + role * geo.C + h * HP +
-                                  c) = *reinterpret_cast<const uint4*>((role ? ks : qs) + r * LDQ + c);
-      }
-    }
-    __syncwarp();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int tt = warp; tt < ntiles; tt += nw) {
+    normalize_tile<HD>(qs, tt * 16, inv_q);
+    normalize_tile<HD>(ks, tt * 16, inv_k);
   }
-  normalize_rows<HD>(qs, inv_q);
-  normalize_rows<HD>(ks, inv_k);
   __syncthreads();
 
   const float sc = scale[h];
+  const float rsc = 1.0f / sc;
   const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
-  const int nkt = LP / 16;
-  bf16* pw = rowbuf + warp * 16 * LDP;
   const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
   const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
 
-  // e = exp((s - 1) * scale (+ mask)), or exp(s * scale + badd (+ mask)), for
-  // the lane's 8 entries of a score tile in cs; zero outside the L x L window
-  // (v4: outside L keys and lm query rows, its pad query rows attending to
-  // the real keys as in the TPU kernel)
-  const int LQ = VAR == QKV_V4 ? LS : L;
-  auto exp_tile = [&](int qrow, int key0, float (&ev)[8]) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int key = key0 + e;
-      float val = 0.0f;
-      if (key < L && qrow < LQ) {
-        const float s = cs[fr * 16 + fc + e];
-        float z;
-        if constexpr (BIAS) {
-          z = __fmul_rn(s, sc) + bh[qrow * L + key];
-        } else {
-          z = (s - 1.0f) * sc;
-        }
-        if (use_mask && (VAR != QKV_V4 || qrow < L)) z += bflag * mask[qrow * L + key];
-        val = expf(z);
-      }
-      ev[e] = val;
-    }
-  };
-
-  // ---------------- pass 1: this warp's 16 query rows ------------------------
-  const int qrow = warp * 16 + fr;
-  float rowsum = 0.0f, u = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    Frag s;
-    dot_rows<HD>(s, qs + warp * 16 * LDQ, ks + kt * 16 * LDQ);
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-    float ev[8];
-    exp_tile(qrow, kt * 16 + fc, ev);
-    __syncwarp();
-    dot_rows<HD>(s, gs + warp * 16 * LDQ, vs + kt * 16 * LDQ);  // dp = g v^T
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      rowsum += ev[e];
-      u += cs[fr * 16 + fc + e] * ev[e];
-    }
-    __syncwarp();
-  }
-  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
-  u += __shfl_xor_sync(0xffffffffu, u, 1);
-  // padded query rows have e = 0 throughout; give them r = 0, not 1 / 0
-  const float r = rowsum > 0.0f ? 1.0f / rowsum : 0.0f;
-  if ((lane & 1) == 0) {
-    rr[qrow] = r;
-    uu[qrow] = u;
-  }
-
-  // this row of the block's d(bias) slice (BIAS only)
-  float* drow = BIAS ? dbias_part + ((static_cast<size_t>(win) * geo.heads + h) * LP + qrow) * LP
-                     : nullptr;
-  const float rsc = 1.0f / sc;
-  for (int kt = 0; kt < nkt; ++kt) {  // ds rows into the warp's row buffer
-    Frag s;
-    dot_rows<HD>(s, qs + warp * 16 * LDQ, ks + kt * 16 * LDQ);
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-    float ev[8];
-    exp_tile(qrow, kt * 16 + fc, ev);
-    __syncwarp();
-    dot_rows<HD>(s, gs + warp * 16 * LDQ, vs + kt * 16 * LDQ);
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-    float ds[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) ds[e] = (cs[fr * 16 + fc + e] - u * r) * ev[e] * (r * sc);
-    store8(pw + fr * LDP + kt * 16 + fc, ds, [](int, float v) { return v; });
-    if constexpr (BIAS) {  // e = 0 outside the window, so padded entries get 0
-      float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
-      dst[0] = make_float4(ds[0] * rsc, ds[1] * rsc, ds[2] * rsc, ds[3] * rsc);
-      dst[1] = make_float4(ds[4] * rsc, ds[5] * rsc, ds[6] * rsc, ds[7] * rsc);
-    }
-    __syncwarp();
-  }
-
-  Frag acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int kt = 0; kt < nkt; ++kt) {  // dqn = ds @ kn16
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, pw + kt * 16, LDP);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, ks + kt * 16 * LDQ + j * 16, LDQ);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-  const float iq = inv_q[qrow];
-  const size_t pix = qrow < LS ? token_of<VAR>(geo, t, qrow) : 0;
-  // qn at column d of the row: qn16, or for v4 the fp32 q * inv_q from the
-  // raw row parked in the dq slot (read by this lane before it writes there)
-  const bf16* qraw = dqkv + pix * C3 + h * HP;
-  auto qn_at = [&](int d) -> float {
-    if constexpr (VAR == QKV_V4) {
-      return qrow < LS ? __bfloat162float(qraw[d]) * iq : 0.0f;
+  // e = exp((s - 1) * scale (+ mask)), or exp(s * scale + badd (+ mask)), of
+  // query q and key k; zero outside L keys and LQ query rows (v4's pad query
+  // rows attend to the real keys, unmasked, as in the TPU kernel)
+  auto exp_of = [&](int q, int k, float s) -> float {
+    if (k >= L || q >= LQ) return 0.0f;
+    float z;
+    if constexpr (BIAS) {
+      z = __fmul_rn(s, sc) + bh[q * L + k];
     } else {
-      return __bfloat162float(qs[qrow * LDQ + d]);
+      z = (s - 1.0f) * sc;
+    }
+    if (use_mask && (VAR != QKV_V4 || q < L)) z += bflag * mask[q * L + k];
+    return expf(z);
+  };
+  // the raw (v4) or normalized row of q (role 0) or k (role 1) at column d:
+  // qn16, or v4's fp32 q * inv_q from the raw row in the projection's scratch
+  auto qk_at = [&](int role, int row, int d, float inv) -> float {
+    if constexpr (VAR == QKV_V4) {
+      return row < LS ? __bfloat162float(qkv[token_of<VAR>(geo, t, row) * C3 + role * geo.C +
+                                             h * HP + d]) * inv
+                      : 0.0f;
+    } else {
+      return __bfloat162float((role ? ks : qs)[row * LDQ + d]);
     }
   };
-  float qd = 0.0f;  // <qn, dqn> of the row
+
+  // ---------------- pass 1: query rows -------------------------------------
+  // sweep A forms s and dp once per key tile and keeps e (the first ZT tiles)
+  // for r = 1 / sum e and u = sum(dp e); sweep B forms ds = (dp - u r) e
+  // (r scale) from the kept e and a second dp, and dqn = ds @ kn16
+  float part = 0.0f;  // this warp's sum of qd over its real rows
+  for (int qt = warp; qt < ntiles; qt += nw) {
+    const int q0 = qt * 16;
+    const int qr[2] = {q0 + g4, q0 + g4 + 8};
+    float E[ZT][2][4];
+    float rowsum[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f};
+    auto sweep_a = [&](int kt, float (&e)[2][4]) {
+      float s[2][4], dp[2][4];
+      score_tile<HD>(s, qs + q0 * LDQ, ks + kt * 16 * LDQ, aoff, boff);
+      score_tile<HD>(dp, gs + q0 * LDQ, vs + kt * 16 * LDQ, aoff, boff);
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
+      for (int n = 0; n < 2; ++n) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * cs[fr * 16 + fc + e];
-    __syncwarp();
-  }
-  qd += __shfl_xor_sync(0xffffffffu, qd, 1);
+        for (int x = 0; x < 4; ++x) {
+          e[n][x] = exp_of(qr[x >> 1], kt * 16 + n * 8 + c2 + (x & 1), s[n][x]);
+          rowsum[x >> 1] += e[n][x];
+          u[x >> 1] += dp[n][x] * e[n][x];
+        }
+      }
+    };
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (qrow < LS) {
-      store8(dqkv + pix * C3 + h * HP + j * 16 + fc, cs + fr * 16 + fc,
-             [&](int e, float dqn) { return (dqn - qn_at(j * 16 + fc + e) * qd) * iq; });
+    for (int kt = 0; kt < ZT; ++kt) {
+      if (kt < ntiles) sweep_a(kt, E[kt]);
     }
-    __syncwarp();
+    for (int kt = ZT; kt < ntiles; ++kt) {
+      float e[2][4];
+      sweep_a(kt, e);
+    }
+    float r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // the quad holds the row
+      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], 1);
+      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], 2);
+      u[i] += __shfl_xor_sync(0xffffffffu, u[i], 1);
+      u[i] += __shfl_xor_sync(0xffffffffu, u[i], 2);
+      // padded query rows have e = 0 throughout; give them r = 0, not 1 / 0
+      r[i] = rowsum[i] > 0.0f ? 1.0f / rowsum[i] : 0.0f;
+    }
+    if ((lane & 3) == 0) {
+      rr[qr[0]] = r[0];
+      uu[qr[0]] = u[0];
+      rr[qr[1]] = r[1];
+      uu[qr[1]] = u[1];
+    }
+
+    float acc[NO][4];  // dqn of the tile's rows
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[j][x] = 0.0f;
+    }
+    auto sweep_b = [&](int kt, const float (&e)[2][4]) {
+      float dp[2][4];
+      score_tile<HD>(dp, gs + q0 * LDQ, vs + kt * 16 * LDQ, aoff, boff);
+      float ds[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = x >> 1;
+          ds[n][x] = (dp[n][x] - u[i] * r[i]) * e[n][x] * (r[i] * sc);
+        }
+      }
+      if constexpr (BIAS) {  // the block's d(bias) slice: ds / scale, fp32 (0 outside the window)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float* drow = dbias_part + ((static_cast<size_t>(win) * geo.heads + h) * LP + qr[i]) * LP;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            *reinterpret_cast<float2*>(drow + kt * 16 + n * 8 + c2) =
+                make_float2(ds[n][2 * i] * rsc, ds[n][2 * i + 1] * rsc);
+          }
+        }
+      }
+      unsigned a[4];
+      to_a(a, ds);  // dsb = bf16(ds)
+      accumulate_rows<HD>(acc, a, ks + kt * 16 * LDQ, toff);
+    };
+#pragma unroll
+    for (int kt = 0; kt < ZT; ++kt) {
+      if (kt < ntiles) sweep_b(kt, E[kt]);
+    }
+    for (int kt = ZT; kt < ntiles; ++kt) {  // recompute e past the kept tiles
+      float s[2][4], e[2][4];
+      score_tile<HD>(s, qs + q0 * LDQ, ks + kt * 16 * LDQ, aoff, boff);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) e[n][x] = exp_of(qr[x >> 1], kt * 16 + n * 8 + c2 + (x & 1), s[n][x]);
+      }
+      sweep_b(kt, e);
+    }
+
+    // qd = <qn, dqn> of each row, then dq = (dqn - qn qd) inv_q
+    const float iq[2] = {inv_q[qr[0]], inv_q[qr[1]]};
+    float qd[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = x >> 1;
+        qd[i] += qk_at(0, qr[i], j * 8 + c2 + (x & 1), iq[i]) * acc[j][x];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qd[i] += __shfl_xor_sync(0xffffffffu, qd[i], 1);
+      qd[i] += __shfl_xor_sync(0xffffffffu, qd[i], 2);
+      if ((lane & 3) == 0 && qr[i] < LQ) part += qd[i];
+      if (qr[i] < LS) {
+        bf16* dst = dqkv + token_of<VAR>(geo, t, qr[i]) * C3 + h * HP;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          const int d = j * 8 + c2;
+          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(
+              (acc[j][2 * i] - qk_at(0, qr[i], d, iq[i]) * qd[i]) * iq[i],
+              (acc[j][2 * i + 1] - qk_at(0, qr[i], d + 1, iq[i]) * qd[i]) * iq[i]);
+        }
+      }
+    }
   }
-  // the window's d(scale) partial: sum of qd over its real rows (v4: its lm
-  // rows), fixed tree
-  float part = (qrow < LQ && (lane & 1) == 0) ? qd : 0.0f;
+  // the window's d(scale) partial: the sum of qd over its real rows (v4:
+  // its lm rows), in a fixed order (lanes, then warps)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
   if (lane == 0) wsum[warp] = part;
   __syncthreads();  // r, u of every query row and the warp sums are in place
-
   if (tid == 0) {
     float total = 0.0f;
-    for (int i = 0; i < nwarps; ++i) total += wsum[i];
+    for (int i = 0; i < nw; ++i) total += wsum[i];
     dscale_part[static_cast<size_t>(win) * geo.heads + h] = total;
   }
 
-  // ---------------- pass 2: this warp's 16 key rows --------------------------
-  const int krow = warp * 16 + fr;
-  const size_t kpix = krow < LS ? token_of<VAR>(geo, t, krow) : 0;
-  bf16* pt = pw;  // one 16 x 16 bf16 tile, [query][key]
-
-  // dv = p16^T @ g16
+  // ---------------- pass 2: key rows ----------------------------------------
+  // one sweep over the query tiles: s^T and dp^T once each, p16^T = bf16(e r)
+  // into dv = p16^T @ g16 and ds^T into dkn = ds^T @ qn16
+  for (int kt = warp; kt < ntiles; kt += nw) {
+    const int k0 = kt * 16;
+    const int kr[2] = {k0 + g4, k0 + g4 + 8};
+    float dv[NO][4], dk[NO][4];
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int qt = 0; qt < nkt; ++qt) {
-    Frag s;
-    dot_rows<HD>(s, qs + qt * 16 * LDQ, ks + warp * 16 * LDQ);  // s[query][key]
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-    const int qi = qt * 16 + fr;
-    float ev[8];
-    exp_tile(qi, warp * 16 + fc, ev);
-    const float ri = rr[qi];
-    store8(pt + fr * 16 + fc, cs, [&](int e, float) { return ev[e] * ri; });
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;  // p^T
-    wmma::load_matrix_sync(a, pt, 16);
+    for (int j = 0; j < NO; ++j) {
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, gs + qt * 16 * LDQ + j * 16, LDQ);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int x = 0; x < 4; ++x) {
+        dv[j][x] = 0.0f;
+        dk[j][x] = 0.0f;
+      }
     }
-    __syncwarp();
-  }
+    for (int qt = 0; qt < ntiles; ++qt) {
+      const int q0 = qt * 16;
+      float s[2][4], dp[2][4];
+      score_tile<HD>(s, ks + k0 * LDQ, qs + q0 * LDQ, aoff, boff);   // s^T [key][query]
+      score_tile<HD>(dp, vs + k0 * LDQ, gs + q0 * LDQ, aoff, boff);  // dp^T [key][query]
+      float p[2][4], ds[2][4];
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (krow < LS) {
-      store8(dqkv + kpix * C3 + 2 * geo.C + h * HP + j * 16 + fc, cs + fr * 16 + fc,
-             [](int, float dv) { return dv; });
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = q0 + n * 8 + c2 + c;
+          const float ri = rr[qi];
+          const float ui = uu[qi];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int x = 2 * i + c;
+            const float ev = exp_of(qi, kr[i], s[n][x]);
+            p[n][x] = ev * ri;
+            ds[n][x] = (dp[n][x] - ui * ri) * ev * (ri * sc);
+          }
+        }
+      }
+      unsigned a[4];
+      to_a(a, p);  // p16^T
+      accumulate_rows<HD>(dv, a, gs + q0 * LDQ, toff);
+      to_a(a, ds);  // dsb^T
+      accumulate_rows<HD>(dk, a, qs + q0 * LDQ, toff);
     }
-    __syncwarp();
-  }
-
-  // dkn = ds^T @ qn16
+    const float ik[2] = {inv_k[kr[0]], inv_k[kr[1]]};
+    float kd[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int qt = 0; qt < nkt; ++qt) {
-    Frag s;
-    dot_rows<HD>(s, qs + qt * 16 * LDQ, ks + warp * 16 * LDQ);
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-    const int qi = qt * 16 + fr;
-    float ev[8];
-    exp_tile(qi, warp * 16 + fc, ev);
-    __syncwarp();
-    dot_rows<HD>(s, gs + qt * 16 * LDQ, vs + warp * 16 * LDQ);  // dp[query][key]
-    wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-    __syncwarp();
-    const float ri = rr[qi];
-    const float ui = uu[qi];
-    store8(pt + fr * 16 + fc, cs + fr * 16 + fc,
-           [&](int e, float dp) { return (dp - ui * ri) * ev[e] * (ri * sc); });
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;  // ds^T
-    wmma::load_matrix_sync(a, pt, 16);
+    for (int j = 0; j < NO; ++j) {
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, qs + qt * 16 * LDQ + j * 16, LDQ);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int x = 0; x < 4; ++x) {
+        const int i = x >> 1;
+        kd[i] += qk_at(1, kr[i], j * 8 + c2 + (x & 1), ik[i]) * dk[j][x];
+      }
     }
-    __syncwarp();
-  }
-  const float ik = inv_k[krow];
-  const bf16* kraw = dqkv + kpix * C3 + geo.C + h * HP;  // v4: the parked raw k row
-  auto kn_at = [&](int d) -> float {
-    if constexpr (VAR == QKV_V4) {
-      return krow < LS ? __bfloat162float(kraw[d]) * ik : 0.0f;
-    } else {
-      return __bfloat162float(ks[krow * LDQ + d]);
-    }
-  };
-  float kd = 0.0f;  // <kn, dkn> of the row
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
+    for (int i = 0; i < 2; ++i) {
+      kd[i] += __shfl_xor_sync(0xffffffffu, kd[i], 1);
+      kd[i] += __shfl_xor_sync(0xffffffffu, kd[i], 2);
+      if (kr[i] < LS) {
+        bf16* dst = dqkv + token_of<VAR>(geo, t, kr[i]) * C3 + h * HP;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * cs[fr * 16 + fc + e];
-    __syncwarp();
-  }
-  kd += __shfl_xor_sync(0xffffffffu, kd, 1);
+        for (int j = 0; j < NO; ++j) {
+          const int d = j * 8 + c2;
+          *reinterpret_cast<__nv_bfloat162*>(dst + geo.C + d) = __floats2bfloat162_rn(
+              (dk[j][2 * i] - qk_at(1, kr[i], d, ik[i]) * kd[i]) * ik[i],
+              (dk[j][2 * i + 1] - qk_at(1, kr[i], d + 1, ik[i]) * kd[i]) * ik[i]);
+          *reinterpret_cast<__nv_bfloat162*>(dst + 2 * geo.C + d) =
+              __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
+        }
+        if constexpr (HP > HD) {  // K10: exact zeros in the pad lanes of dq, dk, dv
+          for (int c = (lane & 3) * 8; c < HP - HD; c += 32) {
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (krow < LS) {
-      store8(dqkv + kpix * C3 + geo.C + h * HP + j * 16 + fc, cs + fr * 16 + fc,
-             [&](int e, float dkn) { return (dkn - kn_at(j * 16 + fc + e) * kd) * ik; });
-    }
-    __syncwarp();
-  }
-  if constexpr (HP > HD) {  // K10: exact zeros in the pad lanes of dq, dk, dv
-    const int prow = warp * 16 + fr;  // query rows (pass 1) and key rows (pass 2) coincide
-    if (prow < LS) {
-      const size_t ppix = token_of<VAR>(geo, t, prow);
-#pragma unroll
-      for (int role = 0; role < 3; ++role) {
-#pragma unroll
-        for (int j = 0; j < (HP - HD) / 16; ++j) {
-          *reinterpret_cast<uint4*>(dqkv + ppix * C3 + role * geo.C + h * HP + HD + j * 16 + fc) =
-              make_uint4(0u, 0u, 0u, 0u);
+            for (int role = 0; role < 3; ++role) {
+              *reinterpret_cast<uint4*>(dst + role * geo.C + HD + c) = make_uint4(0u, 0u, 0u, 0u);
+            }
+          }
         }
       }
     }
@@ -457,10 +507,9 @@ __global__ void __launch_bounds__(MAX_LP * 2)
 }
 
 template <int HD, bool BIAS, int HP = HD, int VAR = QKV_V3>
-int launch_attention_bwd(const void* x, const void* w, const void* b, const void* scale,
-                         const void* bias, const void* mask, float bflag, const void* g,
-                         void* dqkv, void* dscale_part, void* dbias_part, const Geometry& geo,
-                         cudaStream_t stream) {
+int launch_attention_bwd(const void* qkv, const void* scale, const void* bias, const void* mask,
+                         float bflag, const void* g, void* dqkv, void* dscale_part,
+                         void* dbias_part, const Geometry& geo, cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes<HD>(geo.LP);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD, BIAS, HP, VAR>,
@@ -469,168 +518,91 @@ int launch_attention_bwd(const void* x, const void* w, const void* b, const void
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kWarps = BwdShape<HD, BIAS, HP, VAR>::WARPS;
+  const int warps = geo.LP / 16 < kWarps ? geo.LP / 16 : kWarps;
   attention_bwd_kernel<HD, BIAS, HP, VAR>
-      <<<static_cast<unsigned>(blocks), (geo.LP / 16) * 32, smem, stream>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-          static_cast<const float*>(b), static_cast<const float*>(scale),
+      <<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+          static_cast<const bf16*>(qkv), static_cast<const float*>(scale),
           static_cast<const float*>(bias), static_cast<const float*>(mask), bflag,
           static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
           static_cast<float*>(dscale_part), static_cast<float*>(dbias_part), geo);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole backward; bias, dbias_part and dbias are read and written only
-// when BIAS.
-template <bool BIAS>
-int backward(const void* x, const void* w, const void* b, const void* scale, const void* bias,
-             const void* mask, float bflag, const void* g, void* dqkv, void* dw_part,
-             void* db_part, void* dscale_part, void* dbias_part, void* dx, void* dw, void* db,
-             void* dscale, void* dbias, int B, int H, int W, int Cin, int C, int heads, int wh,
-             int ww, int dw_splits, int db_splits, void* stream) {
-  Geometry geo;
-  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1 ||
+// The attention pass at head dim hd (head pitch HP = hd, or 128 with PAD128)
+// of variant VAR; false if no instance takes hd.
+template <bool BIAS, int VAR, bool PAD128>
+int dispatch_attention_bwd(int hd, const void* qkv, const void* scale, const void* bias,
+                           const void* mask, float bflag, const void* g, void* dqkv,
+                           void* dscale_part, void* dbias_part, const Geometry& geo,
+                           cudaStream_t s) {
+  switch (hd) {
+#define SWIN_K2_CASE(HD)                                                                   \
+  case HD:                                                                                 \
+    return launch_attention_bwd<HD, BIAS, PAD128 ? 128 : HD, VAR>(                         \
+        qkv, scale, bias, mask, bflag, g, dqkv, dscale_part, dbias_part, geo, s);
+    SWIN_K2_CASE(32)
+    SWIN_K2_CASE(64)
+    SWIN_K2_CASE(96)
+    SWIN_K2_CASE(128)
+#undef SWIN_K2_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The whole backward of every variant: the projection on the GEMM core into
+// the qkv scratch (v5: from the reordered weight wr, slab by slab), the
+// attention pass, then the projection backward on the packed W over the T
+// rows of x (v4: B * nW * lm window-major rows). bias, dbias_part and dbias
+// are read and written only when BIAS.
+template <bool BIAS, int VAR, bool PAD128>
+int backward(const void* x, const void* wr, const void* w, const void* b, const void* scale,
+             const void* bias, const void* mask, float bflag, const void* g, void* qkv,
+             void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dbias_part,
+             void* dx, void* dw, void* db, void* dscale, void* dbias, const Geometry& geo, int hd,
+             int T, int dw_splits, int db_splits, cudaStream_t s) {
+  if (dw_splits < 1 || db_splits < 1 ||
       (BIAS && (bias == nullptr || dbias_part == nullptr || dbias == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int code;
-  switch (C / heads) {
-    case 32:
-      code = launch_attention_bwd<32, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
-                                            dscale_part, dbias_part, geo, s);
-      break;
-    case 64:
-      code = launch_attention_bwd<64, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
-                                            dscale_part, dbias_part, geo, s);
-      break;
-    case 96:
-      code = launch_attention_bwd<96, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
-                                            dscale_part, dbias_part, geo, s);
-      break;
-    case 128:
-      code = launch_attention_bwd<128, BIAS>(x, w, b, scale, bias, mask, bflag, g, dqkv,
-                                             dscale_part, dbias_part, geo, s);
-      break;
-    default:
-      code = static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int N = 3 * geo.C;
+  int code = swin_qkv_proj::project(static_cast<const bf16*>(x), static_cast<const bf16*>(wr),
+                                    static_cast<const float*>(b), static_cast<bf16*>(qkv), T,
+                                    geo.Cin, N, VAR == QKV_V5 ? hd : 0, s);
   if (code != 0) return code;
-  return swin_qkv_proj::projection_backward(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
-      B * H * W, Cin, 3 * C, static_cast<float*>(dw_part), static_cast<float*>(db_part),
-      static_cast<const float*>(dscale_part), B * geo.nwh * geo.nww, heads,
-      static_cast<const float*>(scale), static_cast<bf16*>(dx), static_cast<float*>(dw),
-      static_cast<float*>(db), static_cast<float*>(dscale),
-      static_cast<const float*>(dbias_part), B * geo.nwh * geo.nww, geo.L, geo.LP,
-      BIAS ? static_cast<float*>(dbias) : nullptr, dw_splits, db_splits, s);
-}
-
-// K10's backward: the attention pass at head pitch 128, then the projection
-// backward over the padded columns.
-int backward_padded(const void* x, const void* w, const void* b, const void* scale,
-                    const void* mask, float bflag, const void* g, void* dqkv, void* dw_part,
-                    void* db_part, void* dscale_part, void* dx, void* dw, void* db, void* dscale,
-                    int B, int H, int W, int Cin, int heads, int hd, int wh, int ww, int dw_splits,
-                    int db_splits, void* stream) {
-  Geometry geo;
-  const int C = heads * 128;
-  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww) || dw_splits < 1 || db_splits < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int code;
-  switch (hd) {
-    case 32:
-      code = launch_attention_bwd<32, false, 128>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
-                                                  dscale_part, nullptr, geo, s);
-      break;
-    case 64:
-      code = launch_attention_bwd<64, false, 128>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
-                                                  dscale_part, nullptr, geo, s);
-      break;
-    case 96:
-      code = launch_attention_bwd<96, false, 128>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
-                                                  dscale_part, nullptr, geo, s);
-      break;
-    case 128:
-      code = launch_attention_bwd<128, false>(x, w, b, scale, nullptr, mask, bflag, g, dqkv,
-                                              dscale_part, nullptr, geo, s);
-      break;
-    default:
-      code = static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (code != 0) return code;
-  return swin_qkv_proj::projection_backward(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
-      B * H * W, Cin, 3 * C, static_cast<float*>(dw_part), static_cast<float*>(db_part),
-      static_cast<const float*>(dscale_part), B * geo.nwh * geo.nww, heads,
-      static_cast<const float*>(scale), static_cast<bf16*>(dx), static_cast<float*>(dw),
-      static_cast<float*>(db), static_cast<float*>(dscale), nullptr, 0, geo.L, geo.LP, nullptr,
-      dw_splits, db_splits, s);
-}
-
-// K12's backwards (bias-free): the attention pass of variant VAR (v5: the
-// reordered weight w5 for the recompute; v4: window-major rows, fp32 qn, and
-// for padded heads the head pitch 128), then K2's projection backward on the
-// packed W over the T rows of x (v4: B * nW * lm window-major rows).
-template <int VAR>
-int backward_k12(const void* x, const void* wr, const void* w, const void* b, const void* scale,
-                 const void* mask, float bflag, const void* g, void* dqkv, void* dw_part,
-                 void* db_part, void* dscale_part, void* dx, void* dw, void* db, void* dscale,
-                 const Geometry& geo, int hd, int T, int dw_splits, int db_splits,
-                 cudaStream_t s) {
-  const bool padded = geo.C != geo.heads * hd;
-  if (dw_splits < 1 || db_splits < 1 ||
-      (padded && (VAR != QKV_V4 || geo.C != geo.heads * 128))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int code;
-  switch (hd) {
-#define SWIN_K12_CASE(HD)                                                                     \
-  case HD:                                                                                    \
-    if constexpr (VAR == QKV_V4 && HD < 128) {                                                \
-      if (padded) {                                                                           \
-        code = launch_attention_bwd<HD, false, 128, VAR>(x, wr, b, scale, nullptr, mask,      \
-                                                         bflag, g, dqkv, dscale_part, nullptr, \
-                                                         geo, s);                             \
-        break;                                                                                \
-      }                                                                                       \
-    }                                                                                         \
-    code = launch_attention_bwd<HD, false, HD, VAR>(x, wr, b, scale, nullptr, mask, bflag, g, \
-                                                    dqkv, dscale_part, nullptr, geo, s);      \
-    break;
-    SWIN_K12_CASE(32)
-    SWIN_K12_CASE(64)
-    SWIN_K12_CASE(96)
-    SWIN_K12_CASE(128)
-#undef SWIN_K12_CASE
-    default:
-      code = static_cast<int>(cudaErrorInvalidValue);
-  }
+  code = dispatch_attention_bwd<BIAS, VAR, PAD128>(hd, qkv, scale, bias, mask, bflag, g, dqkv,
+                                                   dscale_part, dbias_part, geo, s);
   if (code != 0) return code;
   const int n_win = geo.B * geo.nwh * geo.nww;
   return swin_qkv_proj::projection_backward(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(dqkv),
-      T, geo.Cin, 3 * geo.C, static_cast<float*>(dw_part), static_cast<float*>(db_part),
+      T, geo.Cin, N, static_cast<float*>(dw_part), static_cast<float*>(db_part),
       static_cast<const float*>(dscale_part), n_win, geo.heads, static_cast<const float*>(scale),
       static_cast<bf16*>(dx), static_cast<float*>(dw), static_cast<float*>(db),
-      static_cast<float*>(dscale), nullptr, 0, geo.L, geo.LP, nullptr, dw_splits, db_splits, s);
+      static_cast<float*>(dscale), static_cast<const float*>(dbias_part), n_win, geo.L, geo.LP,
+      BIAS ? static_cast<float*>(dbias) : nullptr, dw_splits, db_splits, s);
 }
 
 }  // namespace
 
-// K2. Workspaces (allocated by the caller): dqkv [B, H, W, 3C] bf16,
+// K2. Workspaces (allocated by the caller): qkv and dqkv [B, H, W, 3C] bf16,
 // dw_part [dw_splits, C_in, 3C], db_part [db_splits, 3C] and
 // dscale_part [B * nW, heads] fp32. Outputs: dx [B, H, W, C_in] bf16,
 // dw [C_in, 3C], db [3C], dscale [heads] fp32.
 extern "C" int swin_window_attention_qkv_bwd(
     const void* x, const void* w, const void* b, const void* scale, const void* mask, float bflag,
-    const void* g, void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dx,
-    void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int C, int heads, int wh,
-    int ww, int dw_splits, int db_splits, void* stream) {
-  return backward<false>(x, w, b, scale, nullptr, mask, bflag, g, dqkv, dw_part, db_part,
-                         dscale_part, nullptr, dx, dw, db, dscale, nullptr, B, H, W, Cin, C,
-                         heads, wh, ww, dw_splits, db_splits, stream);
+    const void* g, void* qkv, void* dqkv, void* dw_part, void* db_part, void* dscale_part,
+    void* dx, void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int C, int heads,
+    int wh, int ww, int dw_splits, int db_splits, void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return backward<false, QKV_V3, false>(x, w, w, b, scale, nullptr, mask, bflag, g, qkv, dqkv,
+                                        dw_part, db_part, dscale_part, nullptr, dx, dw, db, dscale,
+                                        nullptr, geo, C / heads, B * H * W, dw_splits, db_splits,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // K7's backward: as K2, with the pre-folded CPB term bias [heads, L, L] fp32,
@@ -638,27 +610,37 @@ extern "C" int swin_window_attention_qkv_bwd(
 // 16) and the output dbias [heads, L, L] fp32.
 extern "C" int swin_window_attention_qkv_bias_bwd(
     const void* x, const void* w, const void* b, const void* scale, const void* bias,
-    const void* mask, float bflag, const void* g, void* dqkv, void* dw_part, void* db_part,
-    void* dscale_part, void* dbias_part, void* dx, void* dw, void* db, void* dscale, void* dbias,
-    int B, int H, int W, int Cin, int C, int heads, int wh, int ww, int dw_splits, int db_splits,
-    void* stream) {
-  return backward<true>(x, w, b, scale, bias, mask, bflag, g, dqkv, dw_part, db_part,
-                        dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W, Cin, C,
-                        heads, wh, ww, dw_splits, db_splits, stream);
+    const void* mask, float bflag, const void* g, void* qkv, void* dqkv, void* dw_part,
+    void* db_part, void* dscale_part, void* dbias_part, void* dx, void* dw, void* db,
+    void* dscale, void* dbias, int B, int H, int W, int Cin, int C, int heads, int wh, int ww,
+    int dw_splits, int db_splits, void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return backward<true, QKV_V3, false>(x, w, w, b, scale, bias, mask, bflag, g, qkv, dqkv,
+                                       dw_part, db_part, dscale_part, dbias_part, dx, dw, db,
+                                       dscale, dbias, geo, C / heads, B * H * W, dw_splits,
+                                       db_splits, static_cast<cudaStream_t>(stream));
 }
 
 // K10's backward. As K2 with head-padded W [C_in, 3 * heads * 128] and b, g
-// [B, H, W, heads * 128], dqkv [B, H, W, 3 * heads * 128], dw_part
+// [B, H, W, heads * 128], qkv and dqkv [B, H, W, 3 * heads * 128], dw_part
 // [dw_splits, C_in, 3 * heads * 128], db_part [db_splits, 3 * heads * 128];
 // outputs dx, the padded dw and db (zero in the pad columns) and dscale.
 extern "C" int swin_window_attention_qkv_padded_bwd(
     const void* x, const void* w, const void* b, const void* scale, const void* mask, float bflag,
-    const void* g, void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dx,
-    void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int heads, int hd, int wh,
-    int ww, int dw_splits, int db_splits, void* stream) {
-  return backward_padded(x, w, b, scale, mask, bflag, g, dqkv, dw_part, db_part, dscale_part, dx,
-                         dw, db, dscale, B, H, W, Cin, heads, hd, wh, ww, dw_splits, db_splits,
-                         stream);
+    const void* g, void* qkv, void* dqkv, void* dw_part, void* db_part, void* dscale_part,
+    void* dx, void* dw, void* db, void* dscale, int B, int H, int W, int Cin, int heads, int hd,
+    int wh, int ww, int dw_splits, int db_splits, void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, H, W, Cin, heads * 128, heads, wh, ww)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return backward<false, QKV_V3, true>(x, w, w, b, scale, nullptr, mask, bflag, g, qkv, dqkv,
+                                       dw_part, db_part, dscale_part, nullptr, dx, dw, db, dscale,
+                                       nullptr, geo, hd, B * H * W, dw_splits, db_splits,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // K12 v5's backward: K2 recomputing the projection from the reordered weight
@@ -666,35 +648,46 @@ extern "C" int swin_window_attention_qkv_padded_bwd(
 // as the TPU kernel does; workspaces and outputs as K2's.
 extern "C" int swin_window_attention_qkv5_bwd(
     const void* x, const void* w5, const void* w, const void* b, const void* scale,
-    const void* mask, float bflag, const void* g, void* dqkv, void* dw_part, void* db_part,
-    void* dscale_part, void* dx, void* dw, void* db, void* dscale, int B, int H, int W, int Cin,
-    int C, int heads, int wh, int ww, int dw_splits, int db_splits, void* stream) {
+    const void* mask, float bflag, const void* g, void* qkv, void* dqkv, void* dw_part,
+    void* db_part, void* dscale_part, void* dx, void* dw, void* db, void* dscale, int B, int H,
+    int W, int Cin, int C, int heads, int wh, int ww, int dw_splits, int db_splits,
+    void* stream) {
   Geometry geo;
   if (!make_geometry(geo, B, H, W, Cin, C, heads, wh, ww)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return backward_k12<QKV_V5>(x, w5, w, b, scale, mask, bflag, g, dqkv, dw_part, db_part,
-                              dscale_part, dx, dw, db, dscale, geo, C / heads, B * H * W,
-                              dw_splits, db_splits, static_cast<cudaStream_t>(stream));
+  return backward<false, QKV_V5, false>(x, w5, w, b, scale, nullptr, mask, bflag, g, qkv, dqkv,
+                                        dw_part, db_part, dscale_part, nullptr, dx, dw, db, dscale,
+                                        nullptr, geo, C / heads, B * H * W, dw_splits, db_splits,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // K12 v4's backward: xw and gw [B, nwh * nww, lm, *] window-major (rows >= L
 // zero), W [C_in, 3C] bf16 and b [3C] (C = heads * hd, or heads * 128 with
-// head-padded W, b and gw); dqkv [B * nW * lm, 3C] and the other workspaces as
-// K2's -> dxw [B, nW, lm, C_in] bf16 (pad rows zero), dW [C_in, 3C], db [3C]
-// (pad columns zero), dscale [heads].
+// head-padded W, b and gw); qkv and dqkv [B * nW * lm, 3C] and the other
+// workspaces as K2's -> dxw [B, nW, lm, C_in] bf16 (pad rows zero), dW
+// [C_in, 3C], db [3C] (pad columns zero), dscale [heads].
 extern "C" int swin_window_attention_qkv4_bwd(
     const void* xw, const void* w, const void* b, const void* scale, const void* mask,
-    float bflag, const void* gw, void* dqkv, void* dw_part, void* db_part, void* dscale_part,
-    void* dxw, void* dw, void* db, void* dscale, int B, int nwh, int nww, int lm, int Cin, int C,
-    int heads, int hd, int wh, int ww, int dw_splits, int db_splits, void* stream) {
+    float bflag, const void* gw, void* qkv, void* dqkv, void* dw_part, void* db_part,
+    void* dscale_part, void* dxw, void* dw, void* db, void* dscale, int B, int nwh, int nww,
+    int lm, int Cin, int C, int heads, int hd, int wh, int ww, int dw_splits, int db_splits,
+    void* stream) {
   Geometry geo;
   if (!make_geometry(geo, B, nwh * wh, nww * ww, Cin, C, heads, wh, ww) || lm < geo.L ||
       lm > geo.LP || lm % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   geo.lm = lm;
-  return backward_k12<QKV_V4>(xw, w, w, b, scale, mask, bflag, gw, dqkv, dw_part, db_part,
-                              dscale_part, dxw, dw, db, dscale, geo, hd, B * nwh * nww * lm,
-                              dw_splits, db_splits, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int T = B * nwh * nww * lm;
+  if (C == heads * hd) {
+    return backward<false, QKV_V4, false>(xw, w, w, b, scale, nullptr, mask, bflag, gw, qkv,
+                                          dqkv, dw_part, db_part, dscale_part, nullptr, dxw, dw,
+                                          db, dscale, nullptr, geo, hd, T, dw_splits, db_splits, s);
+  }
+  if (C != heads * 128) return static_cast<int>(cudaErrorInvalidValue);
+  return backward<false, QKV_V4, true>(xw, w, w, b, scale, nullptr, mask, bflag, gw, qkv, dqkv,
+                                       dw_part, db_part, dscale_part, nullptr, dxw, dw, db, dscale,
+                                       nullptr, geo, hd, T, dw_splits, db_splits, s);
 }

@@ -9,10 +9,10 @@
 // with has_bias through _build_qkv_bias) where their one-block-per-(window,
 // head) layout does not fit: it keeps q, k, v (and g) [LP, HD] in shared
 // memory at once, which at L = 162 (LP = 176) needs 354,816 B forward and
-// 450,624 B backward at head dim 256 (the e2048 family: embed 2048, 8 heads)
-// and 270,400 B backward at head dim 128, against the 232,448 B a block may
-// use. The wrappers pick this variant exactly where the smaller one does not
-// fit (ops/window_attention.py, qkv_variant).
+// 374,592 B backward at head dim 256 (the e2048 family: embed 2048, 8 heads),
+// against the 232,448 B a block may use (at head dim 128 the backward fits
+// up to L = 208). The wrappers pick this variant exactly where the smaller
+// one does not fit (ops/window_attention.py, qkv_variant).
 //
 // What bounds it on this card: at the e2048 shape (x [1, 180, 360, 2048] bf16,
 // W [2048, 6144], 8 heads of 256, L = 162) the projection is 1.63 TFLOP and
@@ -21,7 +21,7 @@
 // projection-sized GEMMs) and five score-sized products, 5.16 ms.
 //
 // Design: the fused projection is split off. Each call runs
-//  1. the projection as a tiled GEMM (gemm_tile.cuh) whose epilogue writes
+//  1. the projection on the Hopper GEMM core (wgmma_gemm.cuh) whose epilogue writes
 //     qkv = bf16(fp32 acc + b) [T, 3C] to a device scratch buffer (the only
 //     rounding of the projection, K1's site);
 //  2. a per-(token, head) kernel that L2-normalizes q and k in place, qn16 =
@@ -53,7 +53,8 @@
 // The cost of the split: the [T, 3C] qkv buffer goes to device memory and
 // back (796 MB each way at the full e2048 image, 0.24 ms each at 3.35 TB/s),
 // and the score tiles are recomputed per sweep (cheap beside the projection).
-// wgmma/TMA come later; this is the simple, correct version.
+// The attention kernels below are the simple, correct version (nvcuda::wmma
+// tiles through per-warp scratch); their redesign comes later.
 //
 // Rounding sites: K1's and K2's (window_attention_qkv.cu,
 // window_attention_qkv_bwd.cu); only the order of some fp32 sums differs
@@ -91,16 +92,6 @@ using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 
 // ---------------- 1. projection: qkv = bf16(x @ W + b) ----------------------
-
-struct StoreQkv {
-  const float* b;
-  bf16* out;
-  int ld;
-  __device__ void operator()(int row, int col, const float* v) const {
-    const float* bb = b + col;
-    store8(out + static_cast<size_t>(row) * ld + col, v, [&](int e, float a) { return a + bb[e]; });
-  }
-};
 
 // ---------------- 2. per-head L2 normalization of q and k, in place ---------
 
@@ -788,20 +779,9 @@ int project_normalize(const void* x, const void* w, const void* b, void* qkv, vo
                       const Geometry& g, cudaStream_t s, void* park = nullptr) {
   const int T = token_rows<VAR>(g);
   const int C3 = 3 * g.C;
-  int code = 0;
-  if constexpr (VAR == QKV_V5) {
-    for (int slab = 0; slab < 3 * g.heads && code == 0; ++slab) {
-      const size_t col0 = static_cast<size_t>(slab) * HD;
-      code = swin_gemm::launch_gemm<false, false>(
-          static_cast<const bf16*>(x), g.Cin,
-          static_cast<const bf16*>(w) + col0 * g.Cin, HD, T, HD, g.Cin, 1,
-          StoreQkv{static_cast<const float*>(b) + col0, static_cast<bf16*>(qkv) + col0, C3}, s);
-    }
-  } else {
-    code = swin_gemm::launch_gemm<false, false>(
-        static_cast<const bf16*>(x), g.Cin, static_cast<const bf16*>(w), C3, T, C3, g.Cin, 1,
-        StoreQkv{static_cast<const float*>(b), static_cast<bf16*>(qkv), C3}, s);
-  }
+  const int code = swin_qkv_proj::project(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
+      static_cast<bf16*>(qkv), T, g.Cin, C3, VAR == QKV_V5 ? HD : 0, s);
   if (code != 0) return code;
   const long long warps = static_cast<long long>(T) * 2 * g.heads;
   const unsigned nblk = static_cast<unsigned>((warps + 7) / 8);

@@ -24,9 +24,14 @@ custom_vjp ``_build_mlp`` and ``fused_mlp``; ``mlp_impl: fused2``):
 
   * :func:`mlp_fwd_reference` / :func:`mlp_bwd_reference` -- the plain
     versions.
+  * :func:`mlp_fwd_two_phase` -- the plain version of K5's schedule: fc1
+    with its epilogue into a bf16 [T, hidden] scratch, then fc2 with its
+    epilogue; bit-equal to :func:`mlp_fwd_reference` (the decomposition moves
+    no rounding site). :func:`mlp_fwd_plan` -- the launches of K5.
   * :func:`mlp_fwd` / :func:`mlp_bwd` -- launch the kernels in ``csrc/mlp.cu``
-    (K5 forward, which never writes the [T, hidden] activation; K6, which
-    recomputes it and returns (a, dpre)); each counts its launches.
+    (K5 forward: two products on the GEMM core, ``gemm_core``, through a
+    [T, hidden] scratch dropped on return; K6, which recomputes the activation
+    and returns (a, dpre)); each counts its launches.
   * :class:`FusedMlp` -- the autograd Function: it saves (x, w1, b1, w2, b2),
     never a [T, hidden] tensor; its backward is K6 plus five plain products.
   * :func:`fused_mlp` -- the entry point.
@@ -50,7 +55,7 @@ import math
 
 import torch
 
-from swin_v2_weather_torch.ops import _build
+from swin_v2_weather_torch.ops import _build, gemm_core
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -230,30 +235,37 @@ def mlp_bwd_reference(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: 
     return a, (da * _gelu_grad(pre)).to(cdt)
 
 
-_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
-_K5_MAX_COUT = 768  # output columns a K5 block keeps in registers
+def fc1_epilogue(acc: torch.Tensor, b1: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """K5's first epilogue on the fp32 product x @ w1: a = gelu(round(acc +
+    b1)) rounded to ``cdt``."""
+    return _gelu((acc + b1.float()).to(cdt).float()).to(cdt)
 
 
-def _k5_smem_bytes(c_in: int, c_out: int, wide: bool) -> int:
-    """Shared memory of K5 (``k5::layout`` in ``csrc/mlp.cu``): the narrow
-    instance holds the x tile [32, C_in + 8] and W2 slices [32, C_out + 8];
-    the wide one streams x slices beside the W1 slices and takes 768 output
-    columns a block."""
-    ks1 = 128 if c_in % 128 == 0 else (64 if c_in % 64 == 0 else 32)
-    x_ld = ks1 + 8 if wide else c_in + 8
-    w2_ld = (_K5_MAX_COUT if wide else c_out) + 8
-    stage = max(ks1 * 136 + (32 * x_ld if wide else 0), 32 * w2_ld)
-    ring_off = 0 if wide else 32 * x_ld * 2
-    return ring_off + 3 * stage * 2 + 32 * 136 * 2 + 32 * 132 * 4
+def fc2_epilogue(acc: torch.Tensor, b2: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """K5's second epilogue on the fp32 product a @ w2: round(acc) + round(b2)
+    in ``cdt``."""
+    return acc.to(cdt) + b2.to(cdt)
 
 
-def mlp_fwd_variant(c_in: int, c_out: int) -> str:
-    """Which K5 instance runs: ``'narrow'`` (a block owns all C_out columns of
-    32 rows) where C_out <= 768 and its shared memory fits, else ``'wide'``
-    (768 columns a block; fc1 recomputed once per column tile)."""
-    if c_out <= _K5_MAX_COUT and _k5_smem_bytes(c_in, c_out, False) <= _MAX_SMEM:
-        return "narrow"
-    return "wide"
+def mlp_fwd_two_phase(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor) -> torch.Tensor:
+    """K5's schedule in plain ops: the fp32 product x2 @ w1 and its epilogue
+    into a [T, hidden] scratch in x2's dtype, then the fp32 product
+    scratch @ w2 and its epilogue."""
+    cdt = x2.dtype
+    act = fc1_epilogue(torch.matmul(x2.float(), w1.to(cdt).float()), b1, cdt)
+    return fc2_epilogue(torch.matmul(act.float(), w2.to(cdt).float()), b2, cdt)
+
+
+def mlp_fwd_plan(t: int, c_in: int, hidden: int, c_out: int) -> dict:
+    """K5's launches at T tokens: ``fc1`` and ``fc2``, each the GEMM core's
+    :func:`gemm_core.plan`, and the bytes of the bf16 [T, hidden] scratch
+    between them. Raises a ValueError where either product does not take the
+    shape."""
+    return {"launches": 2,
+            "fc1": gemm_core.plan(t, hidden, c_in, b_mn=True),
+            "fc2": gemm_core.plan(t, c_out, hidden, b_mn=True),
+            "scratch_bytes": 2 * t * hidden}
 
 
 def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
@@ -268,12 +280,11 @@ def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
     _build.check_operand(name, "w2", w2, torch.bfloat16, (hidden, c_out), dev)
     dtype, shape = (torch.float32, (c_out,)) if tail_name == "b2" else (torch.bfloat16, (t, c_out))
     _build.check_operand(name, tail_name, tail, dtype, shape, dev)
-    # K6 and K5's wide instance index their token blocks (128 and 32 rows) by
-    # the grid's y dimension, at most 65535; the narrow K5 by its x dimension
-    rows = 128 if tail_name == "g2" else (32 if mlp_fwd_variant(c_in, c_out) == "wide" else None)
-    if c_in % 32 or hidden % 128 or c_out % 32 or (rows and -(-t // rows) > 65535):
+    # K6 and K5's products index their 128-token blocks by the grid's y
+    # dimension, at most 65535
+    if c_in % 32 or hidden % 128 or c_out % 32 or -(-t // 128) > 65535:
         raise ValueError(f"{name}: needs C_in % 32 == 0, hidden % 128 == 0, C_out % 32 == 0 "
-                         f"and at most 65535 blocks of {rows} tokens, got {c_in}, {hidden}, "
+                         f"and at most 65535 blocks of 128 tokens, got {c_in}, {hidden}, "
                          f"{c_out}, T={t}")
     return t, c_in, hidden, c_out
 
@@ -281,25 +292,27 @@ def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
 def mlp_fwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
             b2: torch.Tensor) -> torch.Tensor:
     """The forward kernel (K5): x2 [T, C_in] bf16, w1 [C_in, H] bf16, b1 [H]
-    fp32, w2 [H, C_out] bf16, b2 [C_out] fp32 -> [T, C_out] bf16. The [T, H]
-    activation never reaches device memory.
+    fp32, w2 [H, C_out] bf16, b2 [C_out] fp32 -> [T, C_out] bf16: two
+    products on the GEMM core (:func:`mlp_fwd_plan`) through a bf16 [T, H]
+    activation scratch that is dropped on return.
 
-    C_in must be a multiple of 32, H of 128 and C_out of 32; rows wider than
-    768 take the wide instance (:func:`mlp_fwd_variant`). Launches on the
+    C_in must be a multiple of 32, H of 128 and C_out of 32. Launches on the
     current stream and does not synchronize.
     """
     name = "mlp_fwd"
     t, c_in, hidden, c_out = _check_mlp_operands(name, x2, w1, b1, w2, b2, "b2")
+    act = torch.empty((t, hidden), dtype=torch.bfloat16, device=x2.device)
     out = torch.empty((t, c_out), dtype=torch.bfloat16, device=x2.device)
     lib = _build.load_library()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         code = lib.swin_mlp_fwd(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), t, c_in, hidden, c_out, stream,
+            act.data_ptr(), out.data_ptr(), t, c_in, hidden, c_out, stream,
         )
     _build.check(code, name)
     mlp_fwd.launches += 1
+    gemm_core.count_launches(2)  # fc1 and fc2 on the GEMM core
     return out
 
 

@@ -100,7 +100,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from swin_v2_weather_torch.ops import _build
+from swin_v2_weather_torch.ops import _build, gemm_core
 from swin_v2_weather_torch.ops.mlp_kernels import matmul_f32
 
 _QKV_IMPLS = ("v3", "v4", "v5", "v6")
@@ -144,7 +144,7 @@ def qkv_smem_bytes(hd: int, l: int) -> dict:
     staging = (2 * lp * 40 + 2 * 32 * ldq) * 2
     return {
         "fwd": 3 * lp * ldq * 2 + nw * 1024 + max(rows, staging),
-        "bwd": 4 * lp * ldq * 2 + nw * 1024 + max(rows, staging) + (4 * lp + 16) * 4,
+        "bwd": 4 * lp * ldq * 2 + (4 * lp + 16) * 4,
         "large_fwd": (lp * ldq + 32 * ldq + lp * ldp) * 2 + nw * 1024,
         "large_rows": (2 * rw * 16 * ldq + 64 * ldq + rw * 16 * ldp) * 2
         + (rw * 16 * hd + rw * 256 + 16) * 4,
@@ -442,6 +442,8 @@ def _launch_forward(fn, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_f
             code = lib.swin_window_attention_qkv_bias_fwd(*head, badd.data_ptr(), *tail)
     _build.check(code, name)
     fn.launches += 1
+    if variant == "large":  # its projection ran on the GEMM core
+        gemm_core.count_launches(gemm_core.projection_launches(heads, w5 is not None))
     return out
 
 
@@ -501,12 +503,16 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
     dev = x.device
     t = b * h * w
     lp = -(-l // 16) * 16
-    # token ranges of the split-K dW GEMM and of the db column sums
-    dw_splits = max(1, min(16, -(-t // 2048)))
+    # token ranges of the split-K dW product (on the GEMM core) and of the db
+    # column sums
+    dw_splits = gemm_core.split_k(c_in, 3 * c, t)
     db_splits = max(1, min(64, -(-t // 512)))
     # d(scale) partials: one per window, or (large) one per window and 64 query rows
     n_part = b * nwh * nww * (-(-(lp // 16) // _LARGE_RW) if variant == "large" else 1)
     f32 = dict(dtype=torch.float32, device=dev)
+    # the recomputed projection (the GEMM core's; the large-head variant
+    # normalizes q and k in it) and its cotangent
+    qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
     dqkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
     dw_part = torch.empty((dw_splits, c_in, 3 * c), **f32)
     db_part = torch.empty((db_splits, 3 * c), **f32)
@@ -523,14 +529,13 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), scale.data_ptr())
-        mid = (mask_ptr, float(boundary_flag), g.data_ptr(), dqkv.data_ptr(),
+        mid = (mask_ptr, float(boundary_flag), g.data_ptr(), qkv.data_ptr(), dqkv.data_ptr(),
                dw_part.data_ptr(), db_part.data_ptr(), dscale_part.data_ptr())
         outs = (dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dscale.data_ptr())
         dims = (b, h, w, c_in, c, heads, wh, ww, dw_splits, db_splits, stream)
         if variant == "large":
-            # the recomputed projection (normalized), the norms and the
-            # per-row softmax statistics the two attention kernels share
-            qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
+            # the norms and the per-row softmax statistics the two attention
+            # kernels share
             inv = torch.empty((b, h, w, 2, heads), **f32)
             rstat = torch.empty((b * nwh * nww, heads, lp, 2), **f32)
             work = (g.data_ptr(), qkv.data_ptr(), inv.data_ptr(), rstat.data_ptr(),
@@ -556,6 +561,8 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
                 *dims)
     _build.check(code, name)
     fn.launches += 1
+    # the GEMM core ran the projection, dx and dW
+    gemm_core.count_launches(gemm_core.projection_launches(heads, w5 is not None) + 2)
     return (dx, dw, db, dscale) if badd is None else (dx, dw, db, dscale, dbias)
 
 
@@ -950,9 +957,10 @@ def window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, window, mask_patter
     b, h, w, c_in, heads, wh, ww, _ = _check_padded_operands(name, x, wp, bp, scale, hd, window,
                                                              mask_pattern, g)
     dev, t, n = x.device, b * h * w, 3 * heads * HD_PAD
-    dw_splits = max(1, min(16, -(-t // 2048)))
+    dw_splits = gemm_core.split_k(c_in, n, t)
     db_splits = max(1, min(64, -(-t // 512)))
     f32 = dict(dtype=torch.float32, device=dev)
+    qkv = torch.empty((b, h, w, n), dtype=torch.bfloat16, device=dev)
     dqkv = torch.empty((b, h, w, n), dtype=torch.bfloat16, device=dev)
     dw_part = torch.empty((dw_splits, c_in, n), **f32)
     db_part = torch.empty((db_splits, n), **f32)
@@ -966,11 +974,13 @@ def window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, window, mask_patter
         code = lib.swin_window_attention_qkv_padded_bwd(
             x.data_ptr(), wp.data_ptr(), bp.data_ptr(), scale.data_ptr(),
             None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
-            g.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-            dscale_part.data_ptr(), dx.data_ptr(), dwp.data_ptr(), dbp.data_ptr(),
+            g.data_ptr(), qkv.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(),
+            db_part.data_ptr(), dscale_part.data_ptr(), dx.data_ptr(), dwp.data_ptr(),
+            dbp.data_ptr(),
             dscale.data_ptr(), b, h, w, c_in, heads, hd, wh, ww, dw_splits, db_splits, stream)
     _build.check(code, name)
     window_attention_qkv_padded_bwd.launches += 1
+    gemm_core.count_launches(3)  # the projection, dx and dW on the GEMM core
     return dx, dwp, dbp, dscale
 
 

@@ -678,8 +678,8 @@ def test_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
 
 @pytest.mark.cuda
 def test_whole_mlp_kernels_match_plain(cuda_device):
-    """K5 and K6 at a ragged T (100 is a multiple of neither the 32-row K5
-    tile nor the 128-row K6 tile) against their plain versions on the card:
+    """K5 and K6 at a ragged T (100 is not a multiple of their 128-row
+    tiles) against their plain versions on the card:
     one flipped bf16 rounding of pre or a moves an output by about an ulp."""
     x2, w1, b1, w2, b2, g = (torch.from_numpy(a).to(cuda_device)
                              for a in whole_mlp_inputs(t=100))
@@ -1033,11 +1033,12 @@ def assert_dscale_close(out, ref):
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_large_head_kernels_match_plain(cuda_device, hd, use_bias):
     """K1/K2 (and K7 with the bias) at head dim 128 and 256 with L = 162, where
-    the large-head variant takes the backward (both at 256): forward and
-    backward against the plain versions, the launch counted on the usual
+    the large-head variant takes both directions at 256 (at 128 the one-block
+    kernels fit, the backward since its scores left shared memory): forward
+    and backward against the plain versions, the launch counted on the usual
     wrapper, two backward calls bit-equal."""
     x, w, w16, b, scale, g, mask, badd = large_head_operands(cuda_device, hd)
-    assert WA.qkv_variant("t", hd, 162, True) == "large"
+    assert WA.qkv_variant("t", hd, 162, True) == ("base" if hd == 128 else "large")
     assert WA.qkv_variant("t", hd, 162, False) == ("base" if hd == 128 else "large")
     extra = (badd,) if use_bias else ()
     kind = "window_attention_qkv" + ("_bias" if use_bias else "")
@@ -1073,8 +1074,9 @@ def test_large_head_kernels_match_plain(cuda_device, hd, use_bias):
 @pytest.mark.cuda
 def test_qkv_kernels_refuse_shapes_no_instance_takes(cuda_device):
     """A head dim or window that no instance takes raises a ValueError before
-    any launch: head dim 96 at L = 256 (no instance fits its shared memory),
-    head dim 192."""
+    any launch: head dim 96 at L = 256 forward (no instance fits its shared
+    memory; the backward's one-block kernel takes it since its scores left
+    shared memory, and runs), head dim 192 either way."""
     before = launch_counts()
     for hd, window, grid in ((96, (16, 16), (16, 16)), (192, WINDOW, (H, W))):
         c = 2 * hd
@@ -1084,19 +1086,25 @@ def test_qkv_kernels_refuse_shapes_no_instance_takes(cuda_device):
         scale = torch.ones(2, device=cuda_device)
         with pytest.raises(ValueError):
             WA.window_attention_qkv(x, w, b, scale, window)
-        with pytest.raises(ValueError):
-            WA.window_attention_qkv_bwd(x, w, b, scale, x[..., :c], window)
+        if hd == 96:
+            dx = WA.window_attention_qkv_bwd(x, w, b, scale, x[..., :c], window)[0]
+            torch.cuda.synchronize()
+            assert torch.count_nonzero(dx).item() == 0  # zero cotangent, zero gradient
+            before[QKV_KERNELS.index(WA.window_attention_qkv_bwd)] += 1
+        else:
+            with pytest.raises(ValueError):
+                WA.window_attention_qkv_bwd(x, w, b, scale, x[..., :c], window)
     assert launch_counts() == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in, hidden, c_out", [(2048, 4096, 2048), (256, 512, 1024)])
 def test_wide_mlp_kernels_match_plain(cuda_device, c_in, hidden, c_out):
-    """K5's wide instance (output columns tiled across blocks, x streamed in
-    K-slices) and K6 at the e2048 widths and at C_out = 1024 (not a multiple
-    of 768: a ragged last column tile), at a ragged T = 100, against their
-    plain versions (the bounds of the narrow test)."""
-    assert mlp_kernels.mlp_fwd_variant(c_in, c_out) == "wide"
+    """K5 (two products on the GEMM core) and K6 at the e2048 widths and at
+    C_out = 1024 (not a multiple of 768, K5's former column tile), at a
+    ragged T = 100, against their plain versions (the bounds of the
+    flagship-width test)."""
+    assert mlp_kernels.mlp_fwd_plan(100, c_in, hidden, c_out)["launches"] == 2
     rng = np.random.default_rng(41)
     t = 100
     x2 = torch.from_numpy(rng.standard_normal((t, c_in)).astype(np.float32)).to(cuda_device)
@@ -1437,12 +1445,13 @@ def test_v4_kernels_read_the_pad_rows_as_the_tpu_kernel(cuda_device, hd):
 @pytest.mark.parametrize("hd", [128, 256])
 def test_v4_large_head_kernels_match_plain(cuda_device, hd):
     """K12 v4 at head dims 128 and 256 with L = 162 (2 heads, shifted), where
-    the backward (and at 256 the forward) takes v4's instances of the
-    large-head variant: against the plain versions on every window-major
-    row, dxw's pad rows exactly zero, two backward calls bit-equal."""
+    both directions take v4's instances of the large-head variant at 256
+    (the one-block ones at 128): against the plain versions on every
+    window-major row, dxw's pad rows exactly zero, two backward calls
+    bit-equal."""
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
-    assert WA.qkv_variant("t", hd, 162, True) == "large"
+    assert WA.qkv_variant("t", hd, 162, True) == ("base" if hd == 128 else "large")
     x, wq, bq, scale, g, mask = k12_operands(cuda_device, H, W, 2 * hd, 2)
     xw, gw = v45.window_major(x, WINDOW), v45.window_major(g, WINDOW)
     w16, grid = wq.bfloat16(), (H // WINDOW[0], W // WINDOW[1])

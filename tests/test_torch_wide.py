@@ -1,7 +1,6 @@
 """PyTorch port, the e2048 widths: the large-head variant of the qkv-fused
-attention (head dim 256, and 128 in the backward at L = 162), the wide
-whole-MLP kernel (C_out above 768) and the fused LayerNorm above 2048
-channels.
+attention (head dim 256), the whole-MLP forward at C_out above 768 (K5's
+schedule) and the fused LayerNorm above 2048 channels.
 
 On the CPU the plain versions run: at head dim 256 they are held to the JAX
 kernels (interpret mode), and the e2048 block geometry (embed 2048, 8 heads
@@ -10,7 +9,7 @@ the JAX model, forward and gradients. Which kernel variant runs where, and
 the shared memory each needs, is computed by the wrappers from the same
 formulas as the CUDA sources; the table here pins those numbers (the
 one-block-per-(window, head) kernels at L = 162 need 219,648 B forward and
-270,400 B backward at head dim 128, 354,816 and 450,624 B at 256, against
+194,368 B backward at head dim 128, 354,816 and 374,592 B at 256, against
 the 232,448 B a block may use). The CUDA kernels themselves are held to these
 plain versions on the GPU (tests/test_torch_kernels.py, ``-m cuda``).
 """
@@ -39,11 +38,11 @@ torch.set_num_threads(1)
 # (head dim, L) -> bytes of (K1 forward, K2 backward) as the CUDA sources
 # compute them (smem_bytes, bwd_smem_bytes), and the variant of each
 SMEM_TABLE = {
-    (96, 162): ((185856, 225344), ("base", "base")),
-    (128, 162): ((219648, 270400), ("base", "large")),
-    (256, 162): ((354816, 450624), ("large", "large")),
-    (128, 144): ((170496, 212032), ("base", "base")),
-    (256, 8): ((62720, 71488), ("large", "large")),
+    (96, 162): ((185856, 149312), ("base", "base")),
+    (128, 162): ((219648, 194368), ("base", "base")),
+    (256, 162): ((354816, 374592), ("large", "large")),
+    (128, 144): ((170496, 159040), ("base", "base")),
+    (256, 8): ((62720, 34112), ("large", "large")),
 }
 
 
@@ -60,9 +59,18 @@ def test_qkv_variant_table(hd, l):
 @pytest.mark.parametrize("hd, l", [(96, 256), (64, 256), (192, 162), (256, 256), (48, 8)])
 def test_qkv_variant_refuses_what_no_kernel_takes(hd, l):
     """Every shape the wrappers let through has a kernel whose shared memory
-    fits; the others raise a ValueError, never reach a launch."""
+    fits; the others raise a ValueError, never reach a launch. No forward
+    takes these shapes; since the backward's scores left shared memory, its
+    one-block kernel takes head dims 64 and 96 at L = 256 (217,152 B and
+    151,616 B), and refuses the rest."""
     with pytest.raises(ValueError):
-        wa.qkv_variant("t", hd, l, True)
+        wa.qkv_variant("t", hd, l, False)
+    if (hd, l) in ((96, 256), (64, 256)):
+        assert wa.qkv_variant("t", hd, l, True) == "base"
+        assert wa.qkv_smem_bytes(hd, l)["bwd"] == {96: 217152, 64: 151616}[hd]
+    else:
+        with pytest.raises(ValueError):
+            wa.qkv_variant("t", hd, l, True)
 
 
 def test_wrappers_check_before_device():
@@ -74,15 +82,21 @@ def test_wrappers_check_before_device():
 
 
 @pytest.mark.parametrize("c_in, c_out, variant", [
-    (768, 768, "narrow"), (128, 128, "narrow"), (2048, 2048, "wide"), (2048, 768, "wide"),
-    (768, 1024, "wide"), (256, 800, "wide")])
+    (768, 768, 256), (128, 128, 128), (2048, 2048, 256), (2048, 768, 256),
+    (768, 1024, 256), (256, 800, 256)])
 def test_mlp_fwd_variant(c_in, c_out, variant):
-    """K5's narrow layout where a block can own all C_out columns (its head
-    note: 224.3 KB at 768 / 768), the wide one otherwise (174.6 KB at any
-    width with C_in % 128 == 0)."""
-    assert mlp_kernels.mlp_fwd_variant(c_in, c_out) == variant
-    assert mlp_kernels._k5_smem_bytes(768, 768, False) == 224256
-    assert mlp_kernels._k5_smem_bytes(c_in, c_out, True) <= 232448
+    """What picks K5's schedule now: one design at every width (the narrow
+    and wide instances are gone), two launches of the GEMM core whose block
+    width ``variant`` follows C_out (256 columns, 128 where C_out <= 128);
+    fc1 is computed once (its grid covers the hidden columns once), and each
+    launch's shared memory fits the 227 KB a block may use."""
+    hidden = 4 * c_in
+    p = mlp_kernels.mlp_fwd_plan(1000, c_in, hidden, c_out)
+    assert p["launches"] == 2
+    assert p["fc2"]["bn"] == variant and p["fc1"]["bn"] == 256
+    assert p["fc1"]["grid"] == (-(-hidden // 256), 8, 1)
+    assert p["fc2"]["grid"] == (-(-c_out // variant), 8, 1)
+    assert max(p["fc1"]["smem"], p["fc2"]["smem"]) <= 232448
 
 
 @pytest.mark.parametrize("tokens, channels", [(64, 768), (64, 2048), (60, 768), (64, 4096),
