@@ -37,8 +37,8 @@ two warm-up steps:
     train v5, train v4, train v4 padded: the flagship with ``QKV_IMPL`` 'v5'
     or 'v4' (K12; the padded v4 with ``QKV_PAD_HEADS``);
   * rollout e2048 and train e2048: ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar``
-    (embed 2048, 8 heads of 256, mlp_ratio 2, depth 24; the large-head
-    attention variant and K5's wide instance), serving at 720 x 1440 and
+    (embed 2048, 8 heads of 256, mlp_ratio 2, depth 24; K1's pass at head
+    dim 256 and the large-head backward), serving at 720 x 1440 and
     training at the image [360, 720] with window 9 x 18; train e2048 grid and
     train e2048 v1: the same on the grid and windowed routes (K8/K9's
     streamed forward and large-head backward).
@@ -68,10 +68,9 @@ START = datetime.datetime(2018, 1, 1, 0, 0)
 N_STEPS = 3  # profiled (and, before that, event-timed) steps per path
 
 def qkv_args(name: str, kernel: str):
-    """The template arguments (head dim, BIAS, head pitch, variant) of a K1
-    or K2 template instance (``window_attention_qkv_kernel``,
-    ``attention_bwd_kernel``), or None. Variant 0 is v3 (K1/K2, K7, K10), 1
-    K12 v5, 2 K12 v4."""
+    """The template arguments (head dim, BIAS, head pitch, variant) of a K2
+    template instance (``attention_bwd_kernel``), or None. Variant 0 is v3
+    (K2, K7, K10), 1 K12 v5, 2 K12 v4."""
     m = re.search(kernel + r"<(\d+), (\w+), (\d+), (\d)>", name)
     return None if m is None else (int(m[1]), m[2], int(m[3]), int(m[4]))
 
@@ -81,6 +80,16 @@ def k12(name: str, kernel: str, var: int, padded: bool) -> bool:
     return a is not None and a[3] == var and (a[2] != a[0]) == padded
 
 
+def fwd_pass(name: str, layout: int, bias: bool, padded: bool) -> bool:
+    """Whether ``name`` is an instance of the forward template
+    (``qkv_attention_fwd_kernel<HD, LAYOUT, BIAS, Z, HP>``) of the given
+    layout (2: the qkv-fused forwards' one-sweep pass, K1/K7/K10/v5; 3: v4's),
+    bias and head padding."""
+    m = re.search(r"qkv_attention_fwd_kernel<(\d+), (\d), (\w+), (\w+), (\d+)>", name)
+    return (m is not None and int(m[2]) == layout and (m[3] == "true") == bias
+            and (m[5] != m[1]) == padded)
+
+
 # (category, test on the kernel's name), first match wins
 CATEGORIES = (
     # the large-head backward of K8/K9 (namespace swin_qkv_attn_large; template
@@ -88,12 +97,16 @@ CATEGORIES = (
     ("K8 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n and ", 0, " in n),
     ("K9 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n),
     ("K9 large normalization", lambda n: "swin_qkv_attn_large::normalize_kernel" in n),
-    # K12 (K1/K2's templates with the variant argument 1 = v5, 2 = v4)
-    ("K12 v5 forward", lambda n: k12(n, "window_attention_qkv_kernel", 1, False)),
+    # the qkv-fused forwards' attention pass (the forward template's layouts 2
+    # and 3; v5's pass is K1's instance, told apart only by the path)
+    ("K1 (and v5) forward pass", lambda n: fwd_pass(n, 2, False, False)),
+    ("K7 forward pass", lambda n: fwd_pass(n, 2, True, False)),
+    ("K10 forward pass", lambda n: fwd_pass(n, 2, False, True)),
+    ("K12 v4 forward pass", lambda n: fwd_pass(n, 3, False, False)),
+    ("K12 padded v4 forward pass", lambda n: fwd_pass(n, 3, False, True)),
+    # K12's backwards (K2's template with the variant argument 1 = v5, 2 = v4)
     ("K12 v5 attention pass", lambda n: k12(n, "attention_bwd_kernel", 1, False)),
-    ("K12 v4 forward", lambda n: k12(n, "window_attention_qkv_kernel", 2, False)),
     ("K12 v4 attention pass", lambda n: k12(n, "attention_bwd_kernel", 2, False)),
-    ("K12 padded v4 forward", lambda n: k12(n, "window_attention_qkv_kernel", 2, True)),
     ("K12 padded v4 attention pass", lambda n: k12(n, "attention_bwd_kernel", 2, True)),
     ("K13 consume", lambda n: "consume_kernel" in n),
     # K8/K9 first: K2/K7's name tests below also match their kernels' names;
@@ -103,31 +116,29 @@ CATEGORIES = (
     ("K8 forward", lambda n: "qkv_attention_fwd_kernel<" in n and ", 0, " in n),
     ("K9 forward", lambda n: "qkv_attention_fwd_kernel<" in n),
     ("K8/K9 reductions", lambda n: "attn_dscale_reduce" in n or "attn_dbias_reduce" in n),
-    # the large-head variant of K1/K2 (and K7) and K10 (K1/K2's head-pitch-128 instances)
     # the GEMM core's instances, by their epilogues: the qkv projection (the
-    # K2 family's recompute, the large-head K1/K2's), K5's two products, and
-    # the K2 family's dx and split-K dW
-    ("qkv projection (GEMM core)", lambda n: "StoreBiasBf16" in n),
+    # K1 family's, normalizing, and the K2 family's recompute), K5's two
+    # products, K6 (the core's pair kernel), and the K2 family's dx and
+    # split-K dW
+    ("qkv projection + q/k normalization, forward (GEMM core)", lambda n: "StoreNormBf16" in n),
+    ("qkv projection, backward recompute (GEMM core)", lambda n: "StoreBiasBf16" in n),
     ("K5 fc1 (GEMM core)", lambda n: "Fc1Epilogue" in n),
     ("K5 fc2 (GEMM core)", lambda n: "Fc2Epilogue" in n),
-    ("large K1/K2: normalization", lambda n: "normalize_qk_kernel" in n),
-    ("large K1 attention", lambda n: "large_fwd_kernel" in n),
+    ("K6 (GEMM core pair kernel)", lambda n: "gemm_pair_kernel" in n),
+    # the large-head backward of K2 (and K7, K12)
+    ("large K2: normalization", lambda n: "normalize_qk_kernel" in n),
     ("large K2 attention", lambda n: "large_bwd_rows_kernel" in n or "large_bwd_cols_kernel" in n),
-    ("K10 forward", lambda n: k12(n, "window_attention_qkv_kernel", 0, True)),
     ("K10 attention pass", lambda n: k12(n, "attention_bwd_kernel", 0, True)),
     # template arguments <HD, BIAS, head pitch>: BIAS true is K7
     ("K7 attention pass", lambda n: "attention_bwd_kernel<" in n and ", true," in n),
     ("K7 dbias reduction", lambda n: "dbias_reduce_kernel" in n),
-    ("K7 forward", lambda n: "window_attention_qkv_kernel<" in n and ", true," in n),
     ("K2 attention pass", lambda n: "attention_bwd_kernel" in n),
     ("K2 family dW (GEMM core)", lambda n: "StoreSplitF32" in n),
     ("K2 family dx (GEMM core)", lambda n: "StoreBf16" in n),
     ("K2/K7 reductions", lambda n: "column_sums_kernel" in n
      or "swin_qkv_proj::reduce_kernel" in n),
-    ("K1", lambda n: "window_attention_qkv_kernel" in n),
     ("K11 forward", lambda n: "ln_dp_add_fwd_kernel" in n),
     ("K11 backward", lambda n: "ln_dp_add_bwd_kernel" in n or "ln_dp_add_reduce_kernel" in n),
-    ("K6", lambda n: "mlp_bwd_kernel" in n),
     ("K4", lambda n: "DpreEpilogue" in n),
     ("K3", lambda n: "GeluEpilogue" in n),
     ("Adam (foreach)", lambda n: "multi_tensor_apply" in n or "adam" in n.lower()),

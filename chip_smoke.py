@@ -14,10 +14,14 @@ printing its own lines:
      them; TF32 is switched off for matmuls and cuDNN.
   2. build the hand-written kernels from ``swin_v2_weather_torch/ops/csrc``
      with nvcc (first use builds into ``swin_v2_weather_torch/_build/``);
-     every instance of the GEMM core and of K2's attention pass must show 0
-     bytes spilled in the ``-Xptxas -v`` log.
-  3. the window-attention kernel against its plain version at the flagship
-     shapes, unshifted and with the shifted-block mask.
+     every instance of the GEMM core (its pair kernel, K6, included), of K2's
+     attention pass and of the qkv-fused forward's attention pass (K1, K7,
+     K10, K12) must show 0 bytes spilled in the ``-Xptxas -v`` log.
+  3. the window-attention kernel (K1: the projection on the GEMM core, then
+     the streamed attention pass) against its plain version at the flagship
+     shapes, unshifted and with the shifted-block mask; its breakdown by
+     torch.profiler (projection and pass, device ms a launch) and the pass's
+     launch report (as phase 20's).
   4. the fc1+GELU kernel against its plain version at [64800, 768] x [768, 3072].
   5. flagship serving: ``swin_73var_geo_depth12_chweight_invar`` at full width
      (77 -> 73 channels, 720x1440, embed 768, depth 12) built through
@@ -31,7 +35,7 @@ printing its own lines:
   7. the window-attention backward kernel against its plain backward at the
      flagship shapes, unshifted and shifted: dx, dW, db and dscale; its
      breakdown by torch.profiler (the projection, attention pass, dx, dW, db
-     column sums and reductions, device ms a call).
+     column sums and reductions, device ms a launch).
   8. the fc1 backward (pre-activation cotangent) kernel against its plain
      version at [64800, 768] x [768, 3072].
   9. the flagship train step at full width, drop-path 0.1 live, built through
@@ -46,7 +50,9 @@ printing its own lines:
      samples/s and the peak device memory.
  11. the whole-MLP kernels, forward (K5) and backward (K6), against their
      plain versions at [64800, 768] x [768, 3072] x [3072, 768], timed; K5's
-     breakdown (its fc1 and fc2 products on the GEMM core).
+     breakdown (its fc1 and fc2 products on the GEMM core) and K6's (one
+     launch of the core's pair kernel: both products); two K6 calls
+     bit-equal.
  12. the 2-step fine-tune ``swin_73var_geo_depth12_chweight_invar_2step``
      (unrolled rollout, whole-MLP route) as in phases 9-10: 3 steps, K1, K2,
      K5 and K6 each launched 12 x 2 = 24 times a step and K3/K4 never; step 1
@@ -105,8 +111,9 @@ printing its own lines:
  26. the ``'xla'`` route: one rollout step at full width, no attention kernel
      launched, K3 12 times, the output finite.
  27. the e2048 widths against their plain versions, timed: K1/K2 at x [1,
-     180, 360, 2048], W_qkv [2048, 6144], 8 heads of 256, window 9 x 18 (the
-     large-head variant), shifted, and one K7 case (forward and backward,
+     180, 360, 2048], W_qkv [2048, 6144], 8 heads of 256, window 9 x 18 (K1's
+     pass at head dim 256 with its breakdown, K2's large-head variant),
+     shifted, and one K7 case (forward and backward,
      shifted); K5/K6 at [64800, 2048] x [2048, 4096] x [4096, 2048]; two
      backward calls bit-equal; then K2, K5, K6 and the
      K8/K9 backwards at head dim 256 timed at the e2048 train steps' own shape
@@ -157,7 +164,8 @@ printing its own lines:
      and ``consume`` alone, each beside its byte bound.
  38. the Hopper GEMM core alone (``gemm_core.gemm``) against its plain
      version at K5's shapes (fc1 at e2048 [64800, 2048] x [2048, 4096], fc1
-     and fc2 at the flagship) and K2's (dx with W read K-major, dW split-K
+     and fc2 at the flagship), K1's projection ([64800, 768] x [768, 2304])
+     and K2's (dx with W read K-major, dW split-K
      with x read MN-major), each timed beside ``torch.matmul`` at the same
      shape (the library yardstick; the port never calls it), with its share
      of the bf16 peak.
@@ -169,7 +177,7 @@ Then one JSON line with each kernel's results: ``launches`` on the main path
 of the slice that brought it (K1, K2, K5, K6: the 2-step fine-tune; K3, K4:
 the single-step train step; K7: the CPB train step; K11: the fused-LayerNorm
 train step; K10: the v6 train step; ``gemm``, the GEMM core: the 2-step
-fine-tune, its launches inside K5 and the K2 family, timed alone at K5's
+fine-tune, its launches inside K1, K2, K5 and K6, timed alone at K5's
 e2048 fc1 shape with its other phase-38 shapes under ``shapes``; the
 ``_e2048`` entries, the same
 wrappers timed at the e2048 shapes of phase 27: the e2048 train step, with
@@ -326,25 +334,31 @@ def build_spills(pattern: str) -> dict:
 
 
 def fwd_spills() -> dict:
-    """(head dim, layout, bias, z path) -> (spill store, spill load) bytes of
-    each instance of the K8/K9 forward template (``build_spills``)."""
+    """(head dim, layout, bias, z path, head pitch) -> (spill store, spill
+    load) bytes of each instance of the forward template (``build_spills``):
+    K8/K9's and the qkv-fused forwards' pass."""
     import re
 
-    pattern = r"qkv_attention_fwd_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)E"
-    return {(int(m[1]), int(m[2]), bool(int(m[3])), bool(int(m[4]))): sp
+    pattern = r"qkv_attention_fwd_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)ELi(\d+)E"
+    return {(int(m[1]), int(m[2]), bool(int(m[3])), bool(int(m[4])), int(m[5])): sp
             for name, sp in build_spills(pattern).items()
             for m in [re.search(pattern, name)]}
 
 
-# the GEMM core's instances, and K2's attention pass (all its variants)
+# the GEMM core's instances (its pair kernel: K6), K2's attention pass and the
+# qkv-fused forward's attention pass (layouts QKV and QKV4; all their variants)
 CORE_KERNELS = r"7swin_wg11gemm_kernelI"
+PAIR_KERNELS = r"7swin_wg16gemm_pair_kernelI"
 K2_PASS_KERNELS = r"_GLOBAL__N_\w*20attention_bwd_kernelI"
+K1_PASS_KERNELS = r"qkv_attention_fwd_kernelILi\d+ELi[23]E"
 
 
 def kernel_pieces(fn, labels, n: int = 5) -> dict:
-    """Device ms per call of the kernels fn() launches, by torch.profiler over
-    n calls after a warm-up, summed under the label of the first (substring,
-    label) pair of ``labels`` whose substring the kernel's name contains."""
+    """Device ms per launch of the kernels fn() launches, by torch.profiler
+    over n calls after a warm-up, averaged under the label of the first
+    (substring, label) pair of ``labels`` whose substring the kernel's name
+    contains (each label's kernel runs once a call; the mean is over the
+    launches the profiler recorded, which may be fewer than n)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -353,16 +367,17 @@ def kernel_pieces(fn, labels, n: int = 5) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    total, count = {}, {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         label = next((lab for sub, lab in labels if sub in ev.name), None)
         if label is not None:
-            out[label] = out.get(label, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
-    if not out:  # a diagnostic, not a check: report it and go on
+            total[label] = total.get(label, 0.0) + ev.time_range.elapsed_us() / 1e3
+            count[label] = count.get(label, 0) + 1
+    if not total:  # a diagnostic, not a check: report it and go on
         log("  (torch.profiler recorded no device events for this breakdown)")
-    return out
+    return {label: total[label] / count[label] for label in total}
 
 
 K2_PIECES = (("StoreBiasBf16", "projection (core)"), ("attention_bwd_kernel<", "attention pass"),
@@ -370,6 +385,9 @@ K2_PIECES = (("StoreBiasBf16", "projection (core)"), ("attention_bwd_kernel<", "
              ("StoreSplitF32", "dW (core)"), ("column_sums_kernel", "db column sums"),
              ("reduce_kernel", "reductions"))
 K5_PIECES = (("Fc1Epilogue", "fc1 (core)"), ("Fc2Epilogue", "fc2 (core)"))
+K1_PIECES = (("StoreNormBf16", "projection + q/k normalization (core)"),
+             ("qkv_attention_fwd_kernel", "attention pass"))
+K6_PIECES = (("gemm_pair_kernel", "x @ W1 and g @ W2^T (core pair kernel)"),)
 
 
 def time_ms(fn, n: int) -> float:
@@ -499,14 +517,21 @@ def main() -> None:
         for line in f.read().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"    {line.strip()}")
-    # the GEMM core and K2's attention pass (every variant) must not spill
-    for label, pattern, least in (("GEMM core", CORE_KERNELS, 16), ("K2 attention pass",
-                                                                     K2_PASS_KERNELS, 20)):
+    # the GEMM core (with its pair kernel) and the qkv-fused attention passes
+    # (every variant, both directions) must not spill
+    for label, pattern, least in (("GEMM core", CORE_KERNELS, 16),
+                                  ("GEMM core pair kernel (K6)", PAIR_KERNELS, 2),
+                                  ("K2 attention pass", K2_PASS_KERNELS, 20),
+                                  ("K1 attention pass (K1, K7, K10, K12)", K1_PASS_KERNELS, 29)):
         spilled = build_spills(pattern)
         if len(spilled) < least or any(any(sp) for sp in spilled.values()):
             raise RuntimeError(f"{label}: {len(spilled)} instances (at least {least}), each "
                                f"must build without spills: {spilled}")
         log(f"    {label}: {len(spilled)} instances, 0 bytes spilled (-Xptxas -v)")
+    with open(lib_path[: -len(".so")] + ".log") as f:
+        serialized = [line for line in f.read().splitlines() if "C7515" in line]
+    log(f"    ptxas wgmma serialization reports (C7515): {len(serialized)}"
+        + "".join(f"\n      {line.strip()}" for line in serialized))
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
@@ -535,6 +560,17 @@ def main() -> None:
         log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
         if attn_ms is None:
             attn_ms, attn_plain_ms = k_ms, p_ms
+            with torch.inference_mode():
+                k1_pieces = kernel_pieces(lambda: wa.window_attention_qkv(
+                    x, w16, b_qkv, scale, window, mask, 1.0), K1_PIECES)
+                k1_host = host_us(lambda: wa.window_attention_qkv(
+                    x, w16, b_qkv, scale, window, mask, 1.0))
+            info = wa.qkv_fwd_info(c // heads, window[0] * window[1])
+            log(f"  {label} breakdown (torch.profiler, device ms a launch): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in k1_pieces.items()) + f" ({card}); the "
+                f"pass's launch: {info}; the wrapper's host {k1_host:.1f} us a call")
+            if info["local_bytes"]:
+                raise RuntimeError(f"K1's attention pass spills: {info}")
     # K1's work: the qkv projection, then q k^T and p v per (window, head) at L = 162
     t_tok, l_win = b * gh * gw, window[0] * window[1]
     attn_flops = 2 * 2 * l_win * (c // heads) * l_win * heads * (t_tok // l_win)
@@ -582,13 +618,15 @@ def main() -> None:
 
     for fn in counted:
         fn.launches = 0
+    gc.gemm.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     preds = engine.rollout(state0, START, N_STEPS)
     rollout_s = time.time() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
+    serve_core = gc.gemm.launches  # K1's projection
     log(f"  rollout {N_STEPS} steps in {rollout_s:.2f} s -> {preds.shape} {preds.dtype}; "
-        f"launches {launches}")
+        f"launches {launches}, GEMM core {serve_core}")
     want = int(params.depth) * N_STEPS
     expected = {n: want if n in ("window_attention_qkv", "fc1_gelu") else 0 for n in launches}
     if launches != expected:
@@ -632,7 +670,7 @@ def main() -> None:
         plain_mem = torch.cuda.max_memory_allocated() / 2**30
     log(f"[6] rollout: kernel path {kernel_step:.2f} ms/step (peak {kernel_mem:.3f} GiB), "
         f"plain path {plain_step:.2f} ms/step (peak {plain_mem:.3f} GiB); {card}")
-    serve_launches = launches
+    serve_launches = {**launches, "gemm": serve_core}
     del engine, model, preds, plain1, state, back
 
     # ---- 7. K2 window-attention backward at flagship shapes ------------------
@@ -661,7 +699,7 @@ def main() -> None:
             bwd_ms, bwd_plain_ms = k_ms, p_ms
             k2_pieces = kernel_pieces(lambda: wa.window_attention_qkv_bwd(
                 x, w16, b_qkv, scale, g, window, mask, 1.0), K2_PIECES)
-            log(f"  {label} breakdown (torch.profiler, device ms a call): "
+            log(f"  {label} breakdown (torch.profiler, device ms a launch): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in k2_pieces.items()) + f" ({card})")
     # K2's work: the projection recomputed, dx and dW (three T x C x 3C
     # products), and per (window, head) the scores, dp, dv, dq and dk
@@ -855,7 +893,7 @@ def main() -> None:
         f"({card}); library call: none (no single PyTorch call computes fc1 + GELU + fc2)")
     with torch.inference_mode():
         k5_pieces = kernel_pieces(lambda: mk.mlp_fwd(x2, w1_16, b1, w2_16, b2), K5_PIECES)
-    log(f"  K5 breakdown (torch.profiler, device ms a call; {mk.mlp_fwd_plan(t_tok, c, hidden, c)['launches']} "
+    log(f"  K5 breakdown (torch.profiler, device ms a launch; {mk.mlp_fwd_plan(t_tok, c, hidden, c)['launches']} "
         f"launches of the GEMM core): " + ", ".join(f"{k} {v:.4f}" for k, v in k5_pieces.items())
         + f" ({card})")
     results["mlp_fwd"] = (err, k_ms, p_ms, bound(mlp_flops, nbytes(x2, w1_16, b1, w2_16, b2, out)))
@@ -869,8 +907,19 @@ def main() -> None:
     with torch.inference_mode():
         k_ms = time_ms(lambda: mk.mlp_bwd(x2, w1_16, b1, w2_16, g2), 20)
         p_ms = time_ms(lambda: mk.mlp_bwd_reference(x2, w1, b1, w2, g2), 5)
+    again = mk.mlp_bwd(x2, w1_16, b1, w2_16, g2)
+    if not (torch.equal(again[0], out[0]) and torch.equal(again[1], out[1])):
+        raise RuntimeError("mlp_bwd: two calls differ")
+    del again
     log(f"  K6 kernel {k_ms:.4f} ms ({mlp_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
-        f"({card}); library call: none (no single PyTorch call computes (a, dpre))")
+        f"({card}); two calls bit-equal; library call: none (no single PyTorch call computes "
+        f"(a, dpre))")
+    with torch.inference_mode():
+        k6_pieces = kernel_pieces(lambda: mk.mlp_bwd(x2, w1_16, b1, w2_16, g2), K6_PIECES)
+    k6_plan = mk.mlp_bwd_plan(t_tok, c, hidden, c)
+    log(f"  K6 breakdown (torch.profiler, device ms a launch; {k6_plan['launches']} launch of the "
+        f"core's pair kernel, {k6_plan['bn']}-column tiles, {k6_plan['kept_words']} kept words a "
+        f"thread): " + ", ".join(f"{k} {v:.4f}" for k, v in k6_pieces.items()) + f" ({card})")
     results["mlp_bwd"] = (err, k_ms, p_ms, bound(mlp_flops,
                                                  nbytes(x2, w1_16, b1, w2_16, g2, *out)))
     del x2, g2, w1, b1, w2, b2, w1_16, w2_16, out, ref
@@ -956,10 +1005,13 @@ def main() -> None:
     engine = RolloutEngine(params, model, dev)
     for fn in counted:
         fn.launches = 0
+    gc.gemm.launches = 0
     torch.cuda.reset_peak_memory_stats()
     preds = engine.rollout(state0, START, N_STEPS)
     cpb_serve_launches = {fn.__name__: fn.launches for fn in counted}
-    log(f"  rollout {N_STEPS} steps -> {preds.shape}; launches {cpb_serve_launches}")
+    cpb_serve_core = gc.gemm.launches  # K7's projection
+    log(f"  rollout {N_STEPS} steps -> {preds.shape}; launches {cpb_serve_launches}, GEMM core "
+        f"{cpb_serve_core}")
     expected = {n: want if n in ("window_attention_qkv_bias", "fc1_gelu") else 0
                 for n in cpb_serve_launches}
     if cpb_serve_launches != expected:
@@ -1108,7 +1160,8 @@ def main() -> None:
             f"never called by the port); kernel variants: forward "
             f"{wa.attn_variant('', hd_, l_win, False)}, backward "
             f"{wa.attn_variant('', hd_, l_win, True)}")
-        spills = fwd_spills()  # 5 head dims x 2 layouts x bias-free and BIAS x 2 paths
+        # K8/K9's: 5 head dims x 2 layouts x bias-free and BIAS x 2 paths
+        spills = {k: v for k, v in fwd_spills().items() if k[1] in (0, 1)}
         if len(spills) != 40 or any(any(sp) for sp in spills.values()):
             raise RuntimeError(f"the K8/K9 forward instances must all build without spills: "
                                f"{spills}")
@@ -1151,7 +1204,7 @@ def main() -> None:
                 info = wa.attn_fwd_info("grid" if layout == "grid" else "v1", hd_, l_win,
                                         bias is not None)
                 spilled = spills[hd_, 0 if layout == "grid" else 1, bias is not None,
-                                 info["z_path"] == 1]
+                                 info["z_path"] == 1, hd_]
                 log(f"  {kind} {label} forward launch: {info['threads']} threads a block, "
                     f"{info['smem']} B dynamic shared memory, {info['registers']} registers, "
                     f"{info['local_bytes']} B local (spill) a thread and {spilled} B spill "
@@ -1278,7 +1331,8 @@ def main() -> None:
         n_timed=2, overrides={**V1_ROUTE, **CPB})
     serve_xla = serve_path("[26]", XLA_ROUTE, 1, {"fc1_gelu": depth})
 
-    # ---- 27. the e2048 widths: K1/K2 (large-head variant), one K7 case, K5/K6 --
+    # ---- 27. the e2048 widths: K1 (the pass at head dim 256), K2 (large-head
+    # variant), one K7 case, K5/K6 ----
     ce, he, hide = 2048, 8, 4096
     x = torch.randn((b, gh, gw, ce), generator=gen, device=dev).bfloat16()
     g = torch.randn((b, gh, gw, ce), generator=gen, device=dev).bfloat16()
@@ -1319,8 +1373,13 @@ def main() -> None:
                                                         1.0), 3)
     bp_ms = time_ms(lambda: wa.window_attention_qkv_backward_reference(
         x, w16, b_qkv, scale, g, window, pattern), 1)
-    log(f"  K1 forward {f_ms:.4f} ms, plain {fp_ms:.4f} ms; K2 backward {b_ms:.4f} ms, plain "
-        f"{bp_ms:.4f} ms ({card}); two backward calls bit-equal")
+    with torch.inference_mode():
+        k1e_pieces = kernel_pieces(lambda: wa.window_attention_qkv(
+            x, w16, b_qkv, scale, window, pattern, 1.0), K1_PIECES, n=3)
+    log(f"  K1 forward {f_ms:.4f} ms (breakdown: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in k1e_pieces.items()) + f"; pass launch "
+        f"{wa.qkv_fwd_info(ce // he, l_win)}), plain {fp_ms:.4f} ms; K2 backward {b_ms:.4f} ms, "
+        f"plain {bp_ms:.4f} ms ({card}); two backward calls bit-equal")
     results["window_attention_qkv_bwd_e2048"] = (e_errs["dx"], b_ms, bp_ms, bound(
         e_bwd_flops, nbytes(x, w16, b_qkv, scale, g, *grads)), e_errs)
     del grads
@@ -1768,11 +1827,12 @@ def main() -> None:
 
     # ---- 38. the GEMM core alone, beside torch.matmul ---------------------------
     # (shape tag, M, K, N, A MN-major, B MN-major, splits): K5's products at
-    # e2048 and at the flagship, K2's dx (W read K-major) and dW (x read
-    # MN-major, split-K into fp32 partials) at the flagship
+    # e2048 and at the flagship, K1's projection, K2's dx (W read K-major) and
+    # dW (x read MN-major, split-K into fp32 partials) at the flagship
     core_shapes = (("fc1_e2048", t_tok, 2048, 4096, False, True, 1),
                    ("fc1", t_tok, 768, 3072, False, True, 1),
                    ("fc2", t_tok, 3072, 768, False, True, 1),
+                   ("projection", t_tok, c, 3 * c, False, True, 1),
                    ("dx", t_tok, 3 * c, c, False, False, 1),
                    ("dW", c, t_tok, 3 * c, True, True, gc.split_k(c, 3 * c, t_tok)))
     core = {}
@@ -1805,7 +1865,7 @@ def main() -> None:
 
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
-               "train_depth24": (launches_depth24, 3), "serve_cpb": (cpb_serve_launches, N_STEPS),
+               "train_depth24": (launches_depth24, 3), "serve_cpb": ({**cpb_serve_launches, "gemm": cpb_serve_core}, N_STEPS),
                "train_cpb": (launches_cpb, N_STEPS), "train_lnadd": (launches_lnadd, 3),
                "serve_grid": (serve_grid, N_STEPS), "train_grid": (launches_grid, 3),
                "train_grid_cpb": (launches_grid_cpb, 2), "serve_v1": (serve_v1, N_STEPS),
@@ -1855,9 +1915,9 @@ def main() -> None:
                                         "train_v6"),
         "window_attention_qkv_padded_bwd": ("window_attention_qkv_bwd.cu",
                                             "window_attention.py:2174", "train_v6"),
-        # the same wrappers at the e2048 shapes (the large-head variant and K5's
-        # wide instance), counted on the e2048 train step
-        "window_attention_qkv_e2048": ("window_attention_qkv_large.cu",
+        # the same wrappers at the e2048 shapes (K1's pass at head dim 256, the
+        # large-head backward), counted on the e2048 train step
+        "window_attention_qkv_e2048": ("window_attention_qkv.cu",
                                        "window_attention.py:1142", "train_e2048"),
         "window_attention_qkv_bwd_e2048": ("window_attention_qkv_large.cu",
                                            "window_attention.py:1397", "train_e2048"),
@@ -1889,7 +1949,8 @@ def main() -> None:
                                              "train_v4_padded"),
         "consume": ("prestage_consume.cu", "scripts/prestage_probe.py:58", "prestage_probe"),
         # the GEMM core (timed alone at K5's e2048 fc1 shape, phase 38): it
-        # runs K5's products and the K2 family's projection, dx and dW
+        # runs K5's and K6's products, the K1 and K2 families' projection and
+        # K2's dx and dW
         "gemm": ("wgmma_gemm.cuh", "mlp_kernels.py:295", "train_2step"),
     }
     kernels = []

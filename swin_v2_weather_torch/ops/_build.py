@@ -47,36 +47,30 @@ _SIGNATURES = {
     "swin_gemm_core": [_vp] * 4 + [_int] * 9 + [_vp],
     # (x, w1, b1, w2, g, a, dpre, T, C_in, hidden, C_out, stream)
     "swin_mlp_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
-    # (x, w, b, scale, mask, boundary_flag, out, B, H, W, C_in, C, heads, wh, ww, stream)
-    "swin_window_attention_qkv_fwd": [
-        _vp, _vp, _vp, _vp, _vp, _f32, _vp,
-        _int, _int, _int, _int, _int, _int, _int, _int, _vp,
-    ],
+    # (x, w, b, scale, mask, boundary_flag, qkv, out, B, H, W, C_in, C, heads, wh,
+    #  ww, stream)
+    "swin_window_attention_qkv_fwd": [_vp] * 5 + [_f32] + [_vp] * 2 + [_int] * 8 + [_vp],
     # (x, w, b, scale, mask, boundary_flag, g, qkv, dqkv, dw_part, db_part,
     #  dscale_part, dx, dw, db, dscale, B, H, W, C_in, C, heads, wh, ww,
     #  dw_splits, db_splits, stream)
     "swin_window_attention_qkv_bwd": [_vp] * 5 + [_f32] + [_vp] * 10 + [_int] * 10 + [_vp],
-    # (x, w, b, scale, bias, mask, boundary_flag, out, B, H, W, C_in, C, heads,
-    #  wh, ww, stream)
-    "swin_window_attention_qkv_bias_fwd": [
-        _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp,
-        _int, _int, _int, _int, _int, _int, _int, _int, _vp,
-    ],
+    # (x, w, b, scale, bias, mask, boundary_flag, qkv, out, B, H, W, C_in, C,
+    #  heads, wh, ww, stream)
+    "swin_window_attention_qkv_bias_fwd": [_vp] * 6 + [_f32] + [_vp] * 2 + [_int] * 8 + [_vp],
     # (x, w, b, scale, bias, mask, boundary_flag, g, qkv, dqkv, dw_part,
     #  db_part, dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W,
     #  C_in, C, heads, wh, ww, dw_splits, db_splits, stream)
     "swin_window_attention_qkv_bias_bwd": [_vp] * 6 + [_f32] + [_vp] * 12 + [_int] * 10 + [_vp],
-    # K1/K7 large-head variant: (x, w, b, scale, bias, mask, boundary_flag, out,
-    #  qkv, inv, B, H, W, C_in, C, heads, wh, ww, stream); bias null for K1
-    "swin_window_attention_qkv_large_fwd": [_vp] * 6 + [_f32] + [_vp] * 3 + [_int] * 8 + [_vp],
+    # the forward pass's launch shape: (hd, bias, pad, v4, L, lm, info[7])
+    "swin_window_attention_qkv_fwd_info": [_int] * 6 + [_vp],
     # K2/K7 large-head variant: (x, w, b, scale, bias, mask, boundary_flag, g,
     #  qkv, inv, rstat, dqkv, dw_part, db_part, dscale_part, dbias_part, dx, dw,
     #  db, dscale, dbias, B, H, W, C_in, C, heads, wh, ww, dw_splits,
     #  db_splits, stream)
     "swin_window_attention_qkv_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 14 + [_int] * 10 + [_vp],
-    # K10: (x, wp, bp, scale, mask, boundary_flag, out, B, H, W, C_in, heads, hd,
-    #  wh, ww, stream)
-    "swin_window_attention_qkv_padded_fwd": [_vp] * 5 + [_f32, _vp] + [_int] * 8 + [_vp],
+    # K10: (x, wp, bp, scale, mask, boundary_flag, qkv, out, B, H, W, C_in,
+    #  heads, hd, wh, ww, stream)
+    "swin_window_attention_qkv_padded_fwd": [_vp] * 5 + [_f32] + [_vp] * 2 + [_int] * 8 + [_vp],
     # (x, wp, bp, scale, mask, boundary_flag, g, qkv, dqkv, dw_part, db_part,
     #  dscale_part, dx, dwp, dbp, dscale, B, H, W, C_in, heads, hd, wh, ww,
     #  dw_splits, db_splits, stream)
@@ -106,26 +100,22 @@ _SIGNATURES = {
     #  (x, w5, w, b, scale, mask, boundary_flag, g, qkv, dqkv, dw_part, db_part,
     #  dscale_part, dx, dw, db, dscale, B, H, W, C_in, C, heads, wh, ww,
     #  dw_splits, db_splits, stream)
-    "swin_window_attention_qkv5_fwd": [_vp] * 5 + [_f32, _vp] + [_int] * 8 + [_vp],
+    "swin_window_attention_qkv5_fwd": [_vp] * 5 + [_f32] + [_vp] * 2 + [_int] * 8 + [_vp],
     "swin_window_attention_qkv5_bwd": [_vp] * 6 + [_f32] + [_vp] * 10 + [_int] * 10 + [_vp],
-    # (x, w5, b, scale, mask, boundary_flag, out, qkv, inv, B, H, W, C_in, C,
-    #  heads, wh, ww, stream); (x, w5, w, b, scale, mask, boundary_flag, g, qkv,
+    # the large-head backward: (x, w5, w, b, scale, mask, boundary_flag, g, qkv,
     #  inv, rstat, dqkv, dw_part, db_part, dscale_part, dx, dw, db, dscale, B, H,
     #  W, C_in, C, heads, wh, ww, dw_splits, db_splits, stream)
-    "swin_window_attention_qkv5_large_fwd": [_vp] * 5 + [_f32] + [_vp] * 3 + [_int] * 8 + [_vp],
     "swin_window_attention_qkv5_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 12 + [_int] * 10 + [_vp],
-    # K12 v4: (xw, w, b, scale, mask, boundary_flag, out, B, nwh, nww, lm, C_in,
-    #  C, heads, hd, wh, ww, stream); (xw, w, b, scale, mask, boundary_flag, gw,
-    #  qkv, dqkv, dw_part, db_part, dscale_part, dxw, dw, db, dscale, B, nwh,
-    #  nww, lm, C_in, C, heads, hd, wh, ww, dw_splits, db_splits, stream)
-    "swin_window_attention_qkv4_fwd": [_vp] * 5 + [_f32, _vp] + [_int] * 10 + [_vp],
+    # K12 v4: (xw, w, b, scale, mask, boundary_flag, qkv, out, B, nwh, nww, lm,
+    #  C_in, C, heads, hd, wh, ww, stream); (xw, w, b, scale, mask,
+    #  boundary_flag, gw, qkv, dqkv, dw_part, db_part, dscale_part, dxw, dw, db,
+    #  dscale, B, nwh, nww, lm, C_in, C, heads, hd, wh, ww, dw_splits,
+    #  db_splits, stream)
+    "swin_window_attention_qkv4_fwd": [_vp] * 5 + [_f32] + [_vp] * 2 + [_int] * 10 + [_vp],
     "swin_window_attention_qkv4_bwd": [_vp] * 5 + [_f32] + [_vp] * 10 + [_int] * 12 + [_vp],
-    # v4's large-head variant: (xw, w, b, scale, mask, boundary_flag, out, qkv,
-    #  inv, B, nwh, nww, lm, C_in, C, heads, wh, ww, stream); (xw, w, b, scale,
-    #  mask, boundary_flag, gw, qkv, inv, rstat, dqkv, dw_part, db_part,
-    #  dscale_part, dxw, dw, db, dscale, B, nwh, nww, lm, C_in, C, heads, wh,
-    #  ww, dw_splits, db_splits, stream)
-    "swin_window_attention_qkv4_large_fwd": [_vp] * 5 + [_f32] + [_vp] * 3 + [_int] * 9 + [_vp],
+    # v4's large-head backward: (xw, w, b, scale, mask, boundary_flag, gw, qkv,
+    #  inv, rstat, dqkv, dw_part, db_part, dscale_part, dxw, dw, db, dscale, B,
+    #  nwh, nww, lm, C_in, C, heads, wh, ww, dw_splits, db_splits, stream)
     "swin_window_attention_qkv4_large_bwd": [_vp] * 5 + [_f32] + [_vp] * 12 + [_int] * 11
     + [_vp],
     # K13: (s, out, n, stream)

@@ -12,12 +12,13 @@ whatever the selection, as in JAX.
 
   * **v5** computes v3's function (K1/K2's rounding sites) from the weight
     reordered once to [3 * heads, C_in, hd] (:func:`w5_reorder`), each (role,
-    head) slab a dense [C_in, hd] box. The CUDA kernels are K1/K2's templates
-    reading that layout (``QKV_V5`` in ``csrc/window_attention_common.cuh``),
-    one-block or large-head as :func:`~swin_v2_weather_torch.ops.
-    window_attention.qkv_variant` says; the backward takes dx and dW from the
-    packed weight, as the TPU kernel does. The plain versions are v3's on the
-    packed weight (bit-equal).
+    head) slab a dense [C_in, hd] box. The CUDA kernels are K1/K2's: the
+    projection on the GEMM core one slab at a time (in the packed product's
+    K order), then K1's pass, or K2's backward (``QKV_V5``, one-block or
+    large-head as :func:`~swin_v2_weather_torch.ops.window_attention.
+    qkv_variant` says), which takes dx and dW from the packed weight, as the
+    TPU kernel does. The plain versions are v3's on the packed weight
+    (bit-equal).
   * **v4** reads window-major rows [B, nW, Lp, C_in] (:func:`window_major`,
     Lp = L rounded up to 8, zero pad rows) and is a different function at the
     bf16 level: the forward rounds p16 = bf16(e * (1 / sum e)) before p16 @ v
@@ -27,18 +28,21 @@ whatever the selection, as in JAX.
     masked out (e = 0); the pad query rows are computed (their x is zero, so q
     = bf16(b_q)) and thrown away by :func:`window_major_inverse`; their g rows
     are zero, so they add nothing to dW, db or d(scale). Its kernels are K1/K2's
-    templates with the window-major layout and v4's rounding (``QKV_V4``); the
+    with the window-major layout and v4's rounding: the forward's pass in
+    layout ``QKV4`` (two key sweeps, p16 rounded before p @ v; the plain
+    order of its sums is :func:`v4_pass`), the backward ``QKV_V4``; the
     padded-head v4 (``QKV_PAD_HEADS``, from ``SWIN_QKV_PAD_HEADS``, read at call
     time) is their head-pitch-128 instance, computing on the live lanes with
     exact zeros in the pad lanes, as K10 does.
 
-v4's kernels take K1/K2's shapes: their one-block instances where those fit
-shared memory, and beyond that (at L = 162: head dim 256) v4 instances of
-the large-head variant (``csrc/window_attention_qkv_large.cu``), which park
-the raw q, k rows in dqkv for the fp32 qn (the one-block backward reads them
-from its projection scratch); the padded-head v4 (head dims below 128) is
-one-block only. Any other shape raises a
-ValueError before a launch, as for K1/K2. JAX's
+v4's kernels take K1/K2's shapes: the forward any L at head dims 32-256
+(padded heads up to 128); the backward its one-block instances where those
+fit shared memory, and beyond that (at L = 162: head dim 256) v4 instances
+of the large-head variant (``csrc/window_attention_qkv_large.cu``), which
+park the raw q, k rows in dqkv for the fp32 qn (the one-block backward reads
+them from its projection scratch); the padded-head backward (head dims below
+128) is one-block only. Any other shape raises a ValueError before a
+launch, as for K1/K2. JAX's
 ``SWIN_QKV_FWD_WC`` / ``SWIN_QKV_BWD_WC`` and ``_pick_nwc`` size the TPU's grid
 steps (windows per step); one block per (window, head) has no counterpart of
 them. ``QKV_BWD_IMPL`` does not apply here: JAX reads it only in
@@ -148,8 +152,8 @@ def window_attention_qkv5_backward_reference(x, w5, w_qkv, b_qkv, scale, g, wind
 def window_attention_qkv5(x, w5, b_qkv, scale, window, mask_pattern=None, boundary_flag=1.0):
     """K12 v5's forward kernel: x [B, H, W, C_in] bf16, w5 [3 * heads, C_in,
     hd] bf16, b_qkv [3C] fp32, scale [heads] fp32, mask_pattern [L, L] fp32 or
-    None -> [B, H, W, C] bf16. K1's shapes (one-block or large-head); launches
-    on the current stream."""
+    None -> [B, H, W, C] bf16. K1's shapes; launches on the current
+    stream."""
     return wa._launch_forward(window_attention_qkv5, x, None, b_qkv, scale, window, mask_pattern,
                               boundary_flag, None, w5=w5)
 
@@ -209,10 +213,13 @@ class WindowAttentionQKV5(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _v4_recompute(xw, w_qkv, b_qkv, scale, window, window_grid, mask_pattern, boundary_flag):
+def _v4_recompute(xw, w_qkv, b_qkv, scale, window, window_grid, mask_pattern, boundary_flag,
+                  quad=False):
     """v4's forward in plain ops on [B, nW, Lp, C_in] rows: (qn, kn, qn16,
     kn16, inv_q, inv_k, v16, e, r), each [B * nW, heads, Lp, *] fp32; qn, kn
-    the fp32 q * inv_q, k * inv_k; e = 0 at the pad keys."""
+    the fp32 q * inv_q, k * inv_k; e = 0 at the pad keys. ``quad``: the sum
+    of squares in the forward projection epilogue's order
+    (:func:`~swin_v2_weather_torch.ops.window_attention.quad_unit`)."""
     b, nw, lp, _ = xw.shape
     l = int(window[0]) * int(window[1])
     nwh, nww = int(window_grid[0]), int(window_grid[1])
@@ -224,6 +231,9 @@ def _v4_recompute(xw, w_qkv, b_qkv, scale, window, window_grid, mask_pattern, bo
     q, k, v = qkv.reshape(b * nw, lp, 3, heads, hd).permute(2, 0, 3, 1, 4).float()
 
     def unit(t):
+        if quad:
+            _, inv = wa.quad_unit(t)
+            return t * inv, inv
         inv = torch.rsqrt(torch.clamp_min(torch.sum(t * t, -1, keepdim=True), 1e-24))
         return t * inv, inv
 
@@ -259,6 +269,27 @@ def window_attention_qkv4_reference(xw, w_qkv, b_qkv, scale, window, window_grid
                                 boundary_flag)
     out = torch.matmul((e * r).to(torch.bfloat16).float(), v)  # [Bw, heads, Lp, hd]
     return out.to(xw.dtype).permute(0, 2, 1, 3).reshape(b, nw, lp, -1)
+
+
+def v4_pass(e: torch.Tensor, v16: torch.Tensor) -> torch.Tensor:
+    """v4's attention pass (layout QKV4 of ``csrc/qkv_attention.cuh``) in
+    plain fp32 ops, from e = exp(z) [..., Lp, Lp] (0 at the pad keys) and the
+    bf16-valued v16: p16 = bf16(e * (1 / sum e)), sum e in
+    :func:`~swin_v2_weather_torch.ops.window_attention.lane_sums`' order;
+    out = p16 @ v16 accumulated by key chunk; fp32."""
+    p16 = (e * (1.0 / wa.lane_sums(e))[..., None]).to(torch.bfloat16)
+    return wa.chunked_pv(p16, v16)
+
+
+def window_attention_qkv4_pass_order(xw, w_qkv, b_qkv, scale, window, window_grid,
+                                     mask_pattern=None, boundary_flag=None):
+    """The plain version of v4's forward with the CUDA kernels' order of fp32
+    sums (the projection epilogue's head normalization and :func:`v4_pass`);
+    rounding sites as :func:`window_attention_qkv4_reference`'s."""
+    b, nw, lp, _ = xw.shape
+    *_, v, e, _ = _v4_recompute(xw, w_qkv, b_qkv, scale, window, window_grid, mask_pattern,
+                                boundary_flag, quad=True)
+    return v4_pass(e, v).to(xw.dtype).permute(0, 2, 1, 3).reshape(b, nw, lp, -1)
 
 
 def window_attention_qkv4_backward_reference(xw, w_qkv, b_qkv, scale, gw, window, window_grid,
@@ -332,7 +363,7 @@ def window_attention_qkv4_padded_backward_reference(xw, wp, bp, scale, hd, gw, w
 def _check_v4(name, xw, w, b, scale, hd, window, window_grid, mask_pattern, g=None):
     """-> (b, nwh, nww, lp, c_in, c, variant); c = heads * hd, or heads * 128
     padded; the variant as :func:`~swin_v2_weather_torch.ops.window_attention.
-    qkv_variant` picks it for K1/K2 (the padded instances are one-block only).
+    qkv_variant` picks it for K1/K2 (the padded backward is one-block only).
     Raises on a shape that v4's kernels do not take."""
     if xw.device.type != "cuda" or xw.dim() != 4:
         raise ValueError(f"{name}: xw must be a 4-D CUDA tensor, got {xw.dim()}-D on {xw.device}")
@@ -356,39 +387,32 @@ def _check_v4(name, xw, w, b, scale, hd, window, window_grid, mask_pattern, g=No
     if c_in % 32:
         raise ValueError(f"{name}: needs C_in % 32 == 0, got {c_in}")
     variant = wa.qkv_variant(name, hd, l, g is not None)
-    if variant == "large" and c != heads * hd:
-        raise ValueError(f"{name}: the padded-head v4 has no large-head variant (head dim {hd} "
-                         f"at L = {l})")
+    if c != heads * hd and (variant == "large" or hd > wa.HD_PAD):
+        raise ValueError(f"{name}: the padded-head v4 takes no head dim {hd} at L = {l} "
+                         f"(one-block backward, head dims up to {wa.HD_PAD})")
     return bsz, nwh, nww, lp, c_in, c, variant
 
 
 def _launch_v4_forward(fn, xw, w, b, scale, hd, window, window_grid, mask_pattern,
                        boundary_flag):
     name = fn.__name__
-    bsz, nwh, nww, lp, c_in, c, variant = _check_v4(name, xw, w, b, scale, hd, window,
-                                                    window_grid, mask_pattern)
+    bsz, nwh, nww, lp, c_in, c, _ = _check_v4(name, xw, w, b, scale, hd, window, window_grid,
+                                               mask_pattern)
     heads, t = int(scale.shape[0]), bsz * nwh * nww * lp
     out = torch.empty((bsz, nwh * nww, lp, c), dtype=torch.bfloat16, device=xw.device)
+    # the projection's scratch, dropped on return
+    qkv = torch.empty((t, 3 * c), dtype=torch.bfloat16, device=xw.device)
     lib = _build.load_library()
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
-        head = (xw.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
-                None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
-                out.data_ptr())
-        if variant == "large":  # scratch: the normalized projection and the norms
-            qkv = torch.empty((t, 3 * c), dtype=torch.bfloat16, device=xw.device)
-            inv = torch.empty((t, 2, heads), dtype=torch.float32, device=xw.device)
-            code = lib.swin_window_attention_qkv4_large_fwd(
-                *head, qkv.data_ptr(), inv.data_ptr(), bsz, nwh, nww, lp, c_in, c, heads,
-                int(window[0]), int(window[1]), stream)
-        else:
-            code = lib.swin_window_attention_qkv4_fwd(
-                *head, bsz, nwh, nww, lp, c_in, c, heads, hd, int(window[0]), int(window[1]),
-                stream)
+        code = lib.swin_window_attention_qkv4_fwd(
+            xw.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
+            qkv.data_ptr(), out.data_ptr(), bsz, nwh, nww, lp, c_in, c, heads, hd,
+            int(window[0]), int(window[1]), stream)
     _build.check(code, name)
     fn.launches += 1
-    if variant == "large":  # its projection ran on the GEMM core
-        gemm_core.count_launches(1)
+    gemm_core.count_launches(1)  # the projection on the GEMM core
     return out
 
 

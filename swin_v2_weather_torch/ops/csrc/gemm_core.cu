@@ -5,9 +5,9 @@
 // Replaces the matrix products inside the TPU kernels
 // swin_v2_weather_tpu/ops/mlp_kernels.py:_make_mlp_fwd_kernel (K5's fc1 and
 // fc2, mlp.cu) and swin_v2_weather_tpu/ops/window_attention.py:
-// _make_qkv_bwd_kernel (K2's recomputed projection and its dx and dW,
-// qkv_projection_bwd.cuh; the large-head variant's projection, shared with
-// K1, in window_attention_qkv_large.cu), which the MXU runs there. Those
+// _make_qkv_kernel and _make_qkv_bwd_kernel (K1's projection, K2's
+// recomputed one and its dx and dW, qkv_projection.cuh), and
+// _make_mlp_bwd_kernel (K6's two products, mlp.cu), which the MXU runs there. Those
 // callers launch the core with their own epilogues; this entry holds the
 // core itself against a plain product and times it alone (ops/gemm_core.py,
 // chip_smoke.py). What bounds it and what its design does about it:

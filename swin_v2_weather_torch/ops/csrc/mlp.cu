@@ -6,6 +6,7 @@
 //     out = bf16(bf16(gelu(bf16(x @ W1 + b1))) @ W2) + bf16(b2)
 //   _make_mlp_bwd_kernel (launched by mlp_bwd_pallas), K6:
 //     pre = bf16(x @ W1 + b1);  a = bf16(gelu(pre));  dpre = bf16((g @ W2^T) * gelu'(pre))
+//   (gelu(z) = z Phi(z), gelu'(z) = Phi(z) + z phi(z))
 // The rounding sites are those of the TPU kernels (flax Dense(dtype=bf16)
 // rounds each product, then adds the bias in bf16).
 //
@@ -30,25 +31,31 @@
 //   saves only its inputs, and no [T, hidden] tensor outlives the call. One
 //   design serves every width, each product on full 128-row wgmma tiles,
 //   and nothing is recomputed.
-//   K6 is K4's tile GEMM (gemm_tile.cuh) run twice on one 128 x 128 output
-//   tile: x @ W1 first, whose epilogue writes a to memory and keeps the bf16
-//   pre-activation in shared memory, then g @ W2^T (W2 read transposed in
-//   place) into the same accumulators, whose epilogue forms dpre. One set of
-//   accumulators, so the register budget is K4's.
-// K6 moves onto the GEMM core in a later change.
+//   K6 is one launch of the core's pair kernel (gemm_pair_kernel): on each
+//   128 x 256 output tile x @ W1 first (W1 read as the MN-major B operand in
+//   place), whose epilogue only keeps the bf16 pre-activation packed in the
+//   consumer warpgroups' registers (64 words a thread beside the 128
+//   accumulators), then g @ W2^T (W2 [hidden, C_out] read as the K-major B
+//   operand in place) into the same accumulators, whose epilogue forms both
+//   a and dpre from one Phi(pre) and one phi(pre). No [T, hidden]
+//   pre-activation reaches device memory, and the ring's loads of the second
+//   product overlap the first one's epilogue. The GELU sits in the second
+//   epilogue, not the first, because there the kept words are consumed as
+//   it goes: a first epilogue that evaluated the GELU with 192 registers of
+//   live state left too few for independent evaluations in flight, and was
+//   far slower on the H100.
 //
 // Contract (checked by the Python wrapper): x [T, C_in], W1 [C_in, hidden],
 // W2 [hidden, C_out], g and out [T, C_out], a and dpre [T, hidden], all bf16
-// row-major contiguous; b1 [hidden] and b2 [C_out] fp32; C_in % 32 == 0,
-// hidden % 128 == 0, C_out % 32 == 0; any T >= 1 (the ragged last token
-// tile is zero-filled and masked).
+// row-major contiguous; b1 [hidden] and b2 [C_out] fp32; C_in, hidden and
+// C_out multiples of 8 (the core's); any T >= 1 up to 65535 tiles of 128
+// (the ragged edges are zero-filled by TMA and masked in the epilogues).
 
-#include "gemm_tile.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
 
-using namespace swin_gemm;
+using swin_cuda::bf16;
 
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
@@ -59,13 +66,6 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ float gelu(float z) {
   return 0.5f * z * (1.0f + erff(z * kInvSqrt2));
-}
-
-// gelu'(z) = Phi(z) + z * phi(z)
-__device__ __forceinline__ float gelu_grad(float z) {
-  const float phi = expf(z * z * -0.5f) * kInvSqrt2Pi;
-  const float cdf = 0.5f * (1.0f + erff(z * kInvSqrt2));
-  return cdf + z * phi;
 }
 
 // ---------------------------------------------------------------------------
@@ -103,86 +103,50 @@ struct Fc2Epilogue {
 }  // namespace k5
 
 // ---------------------------------------------------------------------------
-// K6: the MLP backward's recompute kernel
+// K6: the MLP backward's recompute, two products on one tile of the core
 // ---------------------------------------------------------------------------
 
 namespace k6 {
 
-constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
+// after x @ W1: pre = bf16(acc + b1), returned as the packed bf16 pair the
+// consumer keeps in its registers (exactly, since it is rounded to bf16
+// anyway); nothing is written
+struct KeepPre {
+  const float* b1;
+  __device__ uint32_t operator()(int, int col, float v0, float v1) const {
+    const __nv_bfloat162 pre = __floats2bfloat162_rn(v0 + b1[col], v1 + b1[col + 1]);
+    return *reinterpret_cast<const uint32_t*>(&pre);
+  }
+};
 
-// the operand ring of either product, and the epilogue's 8 KB scratch
-constexpr int RING_BYTES =
-    max3(Tiles<false, false>::BYTES, Tiles<false, true>::BYTES, THREADS / 32 * 256 * 4);
-constexpr int PRE_LD = BN + 8;  // the tile's bf16 pre-activation, [BM][PRE_LD]
-constexpr int SMEM_BYTES = RING_BYTES + BM * PRE_LD * static_cast<int>(sizeof(bf16));
-
-// after x @ W1: a = bf16(gelu(pre)) to memory; pre = bf16(acc + b1) kept in
-// shared memory (exactly, since it is rounded to bf16 anyway)
-struct PreEpilogue {
-  const float* bias;
+// after g @ W2^T: with Phi(z) = 0.5 (1 + erf(z / sqrt 2)) and phi(z) the
+// normal density, both from the kept pre: a = bf16(z Phi(z)) (gelu's bits:
+// the 0.5 scaling is exact in either order) and dpre = bf16(da (Phi(z) +
+// z phi(z))), da the fp32 accumulators
+struct ActDpre {
   bf16* a;
-  bf16* pre_s;
-  int N, m0, n0;
-  __device__ void operator()(int row, int col, const float* v) const {
-    __align__(16) bf16 p[8];
-    __align__(16) bf16 o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float z = round_bf16(v[e] + bias[col + e]);
-      p[e] = __float2bfloat16(z);
-      o[e] = __float2bfloat16(gelu(z));
-    }
-    *reinterpret_cast<uint4*>(a + static_cast<size_t>(row) * N + col) =
-        *reinterpret_cast<const uint4*>(o);
-    *reinterpret_cast<uint4*>(pre_s + (row - m0) * PRE_LD + (col - n0)) =
-        *reinterpret_cast<const uint4*>(p);
-  }
-};
-
-// after g @ W2^T: dpre = bf16(da * gelu'(pre)), da in fp32
-struct DpreEpilogue {
-  const bf16* pre_s;
   bf16* dpre;
-  int N, m0, n0;
-  __device__ void operator()(int row, int col, const float* v) const {
-    __align__(16) bf16 p[8];
-    *reinterpret_cast<uint4*>(p) =
-        *reinterpret_cast<const uint4*>(pre_s + (row - m0) * PRE_LD + (col - n0));
-    __align__(16) bf16 o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(v[e] * gelu_grad(__bfloat162float(p[e])));
-    *reinterpret_cast<uint4*>(dpre + static_cast<size_t>(row) * N + col) =
-        *reinterpret_cast<const uint4*>(o);
+  int ld;
+  __device__ void operator()(int row, int col, float v0, float v1, uint32_t kept) const {
+    const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kept));
+    const float c0 = 0.5f * (1.0f + erff(z.x * kInvSqrt2));
+    const float c1 = 0.5f * (1.0f + erff(z.y * kInvSqrt2));
+    const float p0 = expf(z.x * z.x * -0.5f) * kInvSqrt2Pi;
+    const float p1 = expf(z.y * z.y * -0.5f) * kInvSqrt2Pi;
+    const size_t o = static_cast<size_t>(row) * ld + col;
+    *reinterpret_cast<__nv_bfloat162*>(a + o) = __floats2bfloat162_rn(z.x * c0, z.y * c1);
+    *reinterpret_cast<__nv_bfloat162*>(dpre + o) =
+        __floats2bfloat162_rn(v0 * (c0 + z.x * p0), v1 * (c1 + z.y * p1));
   }
 };
-
-__global__ void __launch_bounds__(THREADS)
-    mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                   const float* __restrict__ b1, const bf16* __restrict__ w2,
-                   const bf16* __restrict__ g, bf16* __restrict__ a, bf16* __restrict__ dpre, int T,
-                   int c_in, int hidden, int c_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* pre_s = reinterpret_cast<bf16*>(smem + RING_BYTES);
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  Acc acc[2][4];
-  mainloop<false, false>(x, c_in, w1, hidden, T, hidden, 0, c_in, m0, n0, smem, acc);
-  epilogue(acc, reinterpret_cast<float*>(smem), T, hidden, m0, n0,
-           PreEpilogue{b1, a, pre_s, hidden, m0, n0});
-  // the epilogue's scratch is the ring the second product loads into; every
-  // lane reads back only the pre values it wrote itself
-  __syncthreads();
-  // da = g @ W2^T: W2 [hidden, C_out] is the transposed B operand [N, K]
-  mainloop<false, true>(g, c_out, w2, c_out, T, hidden, 0, c_out, m0, n0, smem, acc);
-  epilogue(acc, reinterpret_cast<float*>(smem), T, hidden, m0, n0,
-           DpreEpilogue{pre_s, dpre, hidden, m0, n0});
-}
 
 }  // namespace k6
 
+// The core's limits (wgmma_gemm.cuh): every contiguous dimension a multiple
+// of 8 elements, at most 65535 row tiles of 128 tokens.
 bool valid_shape(int T, int c_in, int hidden, int c_out) {
-  return T >= 1 && c_in >= BK && c_in % BK == 0 && hidden >= BN && hidden % BN == 0 &&
-         c_out >= BK && c_out % BK == 0;
+  return T >= 1 && (T + swin_wg::BM - 1) / swin_wg::BM <= 65535 && c_in >= 8 && c_in % 8 == 0 &&
+         hidden >= 8 && hidden % 8 == 0 && c_out >= 8 && c_out % 8 == 0;
 }
 
 }  // namespace
@@ -202,20 +166,24 @@ extern "C" int swin_mlp_fwd(const void* x, const void* w1, const void* b1, const
       1, k5::Fc2Epilogue{static_cast<const float*>(b2), static_cast<bf16*>(out), c_out}, s);
 }
 
+// K6. Outputs a and dpre [T, hidden] bf16.
 extern "C" int swin_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* g, void* a, void* dpre, int T, int c_in, int hidden,
                             int c_out, void* stream) {
   if (!valid_shape(T, c_in, hidden, c_out)) return static_cast<int>(cudaErrorInvalidValue);
-  const int m_tiles = (T + BM - 1) / BM;
-  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(k6::mlp_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         k6::SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(hidden / BN, m_tiles);
-  k6::mlp_bwd_kernel<<<grid, THREADS, k6::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(g), static_cast<bf16*>(a),
-      static_cast<bf16*>(dpre), T, c_in, hidden, c_out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // x @ W1: W1 [C_in, hidden] is B stored [K, N]; g @ W2^T: W2 [hidden, C_out]
+  // is B^T stored [N, K]
+  const k6::KeepPre epi1{static_cast<const float*>(b1)};
+  const k6::ActDpre epi2{static_cast<bf16*>(a), static_cast<bf16*>(dpre), hidden};
+  const bf16* x16 = static_cast<const bf16*>(x);
+  const bf16* w1_16 = static_cast<const bf16*>(w1);
+  const bf16* g16 = static_cast<const bf16*>(g);
+  const bf16* w2_16 = static_cast<const bf16*>(w2);
+  if (swin_wg::block_n(hidden) == 256) {
+    return swin_wg::launch_pair<256, true, false>(x16, c_in, w1_16, hidden, g16, c_out, w2_16,
+                                                  c_out, T, hidden, c_in, c_out, epi1, epi2, s);
+  }
+  return swin_wg::launch_pair<128, true, false>(x16, c_in, w1_16, hidden, g16, c_out, w2_16, c_out,
+                                                T, hidden, c_in, c_out, epi1, epi2, s);
 }

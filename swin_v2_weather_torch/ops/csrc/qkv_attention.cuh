@@ -1,7 +1,10 @@
 // Window attention on pre-projected q, k, v, forward and backward, hand-written
 // for Hopper (sm_90a): one set of templates for the grid-layout kernels (K8,
 // window_attention_grid.cu) and the windowed-layout kernels (K9,
-// window_attention_v1.cu), each with a CPB-bias instance.
+// window_attention_v1.cu), each with a CPB-bias instance. The forward
+// template is also the attention pass of the qkv-fused forwards (K1, K7, K10
+// and K12's v5/v4, window_attention_qkv.cu: layouts QKV and QKV4), which read
+// q, k and v as channel slices of their projection's [T, 3C] scratch.
 //
 // Replaces the TPU kernels of swin_v2_weather_tpu/ops/window_attention.py:
 //   K8  _make_grid_kernel (forward, launched by _grid_forward) and
@@ -66,6 +69,22 @@
 // rounded quotient from the row's reciprocal and one fma correction
 // (Markstein's). out leaves through q's shared rows, 16 bytes a thread.
 //
+// The qkv-fused forwards' pass (layouts QKV and QKV4) reads q, k and v as
+// channel slices of the [T, 3C] projection (token rows from the table: the
+// grid's pixels, or v4's window-major rows; head pitch HP), q and k already
+// L2-normalized by the projection's epilogue (qkv_projection.cuh), and keeps
+// K1's max-free softmax: z = (s - 1) * scale, or fl(s * scale) + badd, plus
+// the mask on rows < L; e = exp(z) with no max (z <= 0 up to the mask), so
+// each score is formed and exponentiated once:
+//  * QKV (K1, K7, K10, v5): p16 = bf16(e) with no rescaling, and out =
+//    (p16 @ v) * (1 / sum e) (sum e over the lane in key order, the quad,
+//    then the pair) at the end. Up to L = 192 the Z path's shape (sweep 1
+//    keeps e of the warp's keys in registers, sweep 2 streams v); beyond it
+//    one streamed sweep whose ring stages hold a k and a v tile.
+//  * QKV4 (v4): K8's two sweeps with the max pinned at 0: p16 = bf16(e *
+//    (1 / sum e)) before p16 @ v; lq (= lm) query rows read and written,
+//    the pad rows attending to the real keys unmasked.
+//
 // The backward, FlashAttention-2 style: one block
 // per (window, head), LP / 16 warps (LP = L rounded up to 16), q, k, v and g
 // [LP, HD] staged once by cp.async, nvcuda::wmma 16 x 16 score tiles through
@@ -101,8 +120,8 @@
 //
 // Contract (checked by the Python wrappers): bf16 q, k, v, g; fp32 scale
 // [heads], bias [heads, L, L] (BIAS only) and mask [L, L] or null; pixel
-// strides (K8) multiples of 8 elements and 16-byte aligned bases. Forward:
-// head dim in {32, 64, 96, 128, 256}, any L. Backward: head dim in {32, 64,
+// strides (K8, QKV, QKV4) multiples of 8 elements and 16-byte aligned bases.
+// Forward: head dim in {32, 64, 96, 128, 256}, any L (QKV4: L <= lq <= LP). Backward: head dim in {32, 64,
 // 96, 128}, L <= 256 and its shared memory within 227 KB (at L = 162: head
 // dims up to 96); larger head dims take the large-head backward
 // (qkv_attention_large.cuh).
@@ -120,10 +139,16 @@ using namespace swin_attn;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may opt into
 constexpr int GRID = 0;           // K8: NHWC grid [B, H, W, C], q and k pre-normalized
 constexpr int WINDOWED = 1;       // K9: [Bw, heads, L, D], q and k normalized inside
+// The qkv-fused forwards' pass (window_attention_qkv.cu): q, k, v rows of the
+// projection's scratch, q and k normalized by its epilogue, K1's max-free
+// softmax (e = exp(z), no max: z <= 0 up to the mask, see there).
+constexpr int QKV = 2;   // K1, K7, K10, v5: the grid's pixels; p16 = bf16(e), 1 / sum e last
+constexpr int QKV4 = 3;  // K12 v4: window-major rows, lq of them; p16 = bf16(e / sum e)
 
 struct AttnGeo {
   int B, H, W, heads, wh, ww, L, LP, nwh, nww;
-  int ldq, ldk, ldv, ldo;  // pixel strides in elements (GRID): q, k, v; g and outputs
+  int ldq, ldk, ldv, ldo;  // pixel strides in elements (GRID, QKV*): q, k, v; g and outputs
+  int lq;                  // query rows a window reads and writes: L, or v4's lm (QKV4)
 };
 
 // Window index in h-major order (the order of window_partition).
@@ -279,14 +304,15 @@ struct FwdShape {
 
 // The launch at window length L: rt query tiles a block (the tiles of a
 // (window, head) split evenly over nchunk blocks) and the dynamic shared
-// memory (mirrored by attn_fwd_plan in ops/window_attention.py).
+// memory, with a table of ltab words (L; QKV4 lq) (mirrored by
+// attn_fwd_plan and qkv_fwd_plan in ops/window_attention.py).
 struct FwdPlan {
   int rt, nchunk;
   size_t smem;
 };
 
 template <int HD, bool Z>
-FwdPlan fwd_plan(int L) {
+FwdPlan fwd_plan(int L, int ltab) {
   using S = FwdShape<HD, Z>;
   const int ntiles = (L + 15) / 16;
   FwdPlan p;
@@ -294,14 +320,14 @@ FwdPlan fwd_plan(int L) {
   p.rt = (ntiles + p.nchunk - 1) / p.nchunk;
   p.smem = (static_cast<size_t>(p.rt) * 16 + static_cast<size_t>(S::TILES) * S::NS * S::KS) *
                (HD + 8) * sizeof(bf16) +
-           static_cast<size_t>(p.rt) * (S::NT * 1024 + 256) + (L + 3) / 4 * 16;
+           static_cast<size_t>(p.rt) * (S::NT * 1024 + 256) + (ltab + 3) / 4 * 16;
   return p;
 }
 
 // Rows row0 .. row0 + nrows - 1 of the block's (window, head) tile of src into
 // dst (pitch HD + 8) by cp.async, rows >= L zero-filled: token l sits at
-// src + base + tok[l] * ld (GRID: tok the grid pixel) or src + base + l * HD
-// (WINDOWED). The caller commits.
+// src + base + tok[l] * ld (GRID, QKV: tok the grid pixel; QKV4 the
+// window-major row) or src + base + l * HD (WINDOWED). The caller commits.
 template <int LAYOUT, int HD>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int ld,
                                            size_t base, const int* tok, int L, int row0,
@@ -314,7 +340,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
     const bool ok = l < L;
     size_t off = 0;
     if (ok) {
-      off = base + c + (LAYOUT == GRID ? static_cast<size_t>(tok[l]) * ld
+      off = base + c + (LAYOUT != WINDOWED ? static_cast<size_t>(tok[l]) * ld
                                        : static_cast<size_t>(l) * HD);
     }
     cp_async16(dst + r * LDQ + c, src + off, ok);
@@ -331,13 +357,21 @@ __device__ __forceinline__ float2 load_pair(bool full, const float* __restrict__
   return make_float2(__ldg(p + key0), (full || key0 + 1 < L) ? __ldg(p + key0 + 1) : 0.0f);
 }
 
-template <int HD, int LAYOUT, bool BIAS, bool Z>
+// HP: the head pitch of q, k, v and out (HD, or 128 for K10's and v4's
+// padded heads: out's pad lanes are written as exact zeros).
+template <int HD, int LAYOUT, bool BIAS, bool Z, int HP = HD>
 __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MINB)
     qkv_attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const float* __restrict__ scale,
                              const float* __restrict__ bias, const float* __restrict__ mask,
                              float bflag, bf16* __restrict__ out, AttnGeo g, int rt, int nchunk) {
   using S = FwdShape<HD, Z>;
+  constexpr bool NORM = LAYOUT == WINDOWED;  // q and k normalized here (K9)
+  constexpr bool TABLE = LAYOUT != WINDOWED;  // token rows from the block's table
+  constexpr bool MAXFREE = LAYOUT == QKV || LAYOUT == QKV4;  // e = exp(z), no max
+  constexpr bool SCALE_END = LAYOUT == QKV;  // p16 = bf16(e); out = (p16 @ v) / sum e
+  constexpr bool ONE = SCALE_END && !Z;      // (streamed) one sweep of k and v tiles
+  static_assert(HP >= HD && (HP == HD || TABLE), "a pass the launches take");
   constexpr int LDQ = HD + 8;
   constexpr int NT = S::NT;            // 8-key score tiles a warp takes in a step
   constexpr int NC = NT / 2;           // its 16-key chunks (A fragments of p @ v)
@@ -354,7 +388,7 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
   bf16* ring = qs + rt * 16 * LDQ;           // NS stages of (k [KS, LDQ], v [KS, LDQ]), or of one
   uint4* pex = reinterpret_cast<uint4*>(ring + S::NS * STAGE);  // [rt][2][2][NC][32]
   float* xstat = reinterpret_cast<float*>(pex + rt * NT * 64);  // [2][rt * 16][2]
-  int* tok = reinterpret_cast<int*>(xstat + rt * 64);  // [L]: K8's grid pixel of token l
+  int* tok = reinterpret_cast<int*>(xstat + rt * 64);  // [lq]: token l's row (TABLE)
   float* invk = reinterpret_cast<float*>(tok);          // [L]: K9's 1 / |k| of token l
 
   // block -> (row chunk, head, window): the chunks of a (window, head) are
@@ -372,6 +406,7 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
   t.bi = bid / g.nwh;
 
   const int L = g.L;
+  const int LQ = g.lq;  // query rows, read and written (L, or v4's lm; keys stay < L)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wt = warp >> 1;    // the warp's 16-row query tile
@@ -379,18 +414,23 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
   const int row0 = chunk * rt * 16;
   const int qr = row0 + wt * 16 + (lane >> 2);  // the lane's query rows qr and qr + 8
   const int c2 = (lane & 3) * 2;                // its first key (column) of an 8-key tile
-  const bool active = row0 + wt * 16 < L;       // the pair has a real row
+  const bool active = row0 + wt * 16 < LQ;      // the pair has a real row
   const int nkt = (L + S::KS - 1) / S::KS;      // ring stages per sweep
-  const int nitems = 2 * nkt;                   // sweep 1: k tiles; sweep 2: (k and) v tiles
+  // sweep 1: k tiles; sweep 2: (k and) v tiles; ONE: k and v tiles, once
+  const int nitems = ONE ? nkt : 2 * nkt;
 
   size_t base;
-  if constexpr (LAYOUT == GRID) {
-    for (int l = threadIdx.x; l < L; l += blockDim.x) {
-      const int row = t.wr * g.wh + l / g.ww;
-      const int col = t.wc * g.ww + l % g.ww;
-      tok[l] = (t.bi * g.H + row) * g.W + col;
+  if constexpr (TABLE) {
+    for (int l = threadIdx.x; l < LQ; l += blockDim.x) {
+      if constexpr (LAYOUT == QKV4) {
+        tok[l] = window_index(g, t) * LQ + l;
+      } else {
+        const int row = t.wr * g.wh + l / g.ww;
+        const int col = t.wc * g.ww + l % g.ww;
+        tok[l] = (t.bi * g.H + row) * g.W + col;
+      }
     }
-    base = static_cast<size_t>(t.h) * HD;
+    base = static_cast<size_t>(t.h) * HP;
     __syncthreads();
   } else {
     base = (static_cast<size_t>(window_index(g, t)) * g.heads + t.h) * L * HD;
@@ -403,43 +443,43 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
         stage_rows<LAYOUT, HD>(st, v, g.ldv, base, tok, L, kt * S::KS, S::KS);
       } else {
         stage_rows<LAYOUT, HD>(st, k, g.ldk, base, tok, L, kt * S::KS, S::KS);
-        if (!Z && i >= nkt) {
+        if (ONE || (!Z && i >= nkt)) {
           stage_rows<LAYOUT, HD>(st + S::KS * LDQ, v, g.ldv, base, tok, L, kt * S::KS, S::KS);
         }
       }
     }
     cp_async_commit();  // (an empty group past the end keeps the count)
   };
-  stage_rows<LAYOUT, HD>(qs, q, g.ldq, base, tok, L, row0, rt * 16);
+  stage_rows<LAYOUT, HD>(qs, q, g.ldq, base, tok, LQ, row0, rt * 16);
 #pragma unroll
   for (int i = 0; i < S::NS - 1; ++i) load_item(i);  // the first group holds q too
-  // K9 normalizes q once and each k tile before the barrier that releases it
-  // (so warps done with the last item start on it): sweep 1 (k tiles) keeps
-  // the keys' norms where the streamed sweep 2 reloads k, and that sweep
-  // rescales its k tiles by them
+  // K9 normalizes q once and each k tile before the barrier that releases
+  // it (so warps done with the last item start on it): sweep 1 (k tiles)
+  // keeps the keys' norms where the streamed sweep 2 reloads k, and that
+  // sweep rescales its k tiles by them
   auto normalize_item = [&](int i) {
-    if constexpr (LAYOUT == WINDOWED) {
+    if constexpr (NORM) {
       if (i >= nitems || (Z && i >= nkt)) return;
       const int kt = i % nkt;
       bf16* kst = ring + (i % S::NS) * STAGE;
-      if (i < nkt) {  // (rows past L stay zero)
-        normalize_block_rows<HD>(kst, min(S::KS, L - kt * S::KS), invk + kt * S::KS,
-                                 Z ? 0 : L - kt * S::KS);
+      const int nk = min(S::KS, L - kt * S::KS);  // (rows past L stay zero)
+      if (i < nkt) {
+        normalize_block_rows<HD>(kst, nk, invk + kt * S::KS, Z ? 0 : L - kt * S::KS);
       } else {
-        rescale_block_rows<HD>(kst, min(S::KS, L - kt * S::KS), invk + kt * S::KS);
+        rescale_block_rows<HD>(kst, nk, invk + kt * S::KS);
       }
     }
   };
-  if constexpr (LAYOUT == WINDOWED) {
+  if constexpr (NORM) {
     cp_async_wait<S::NS - 2>();
     __syncthreads();
-    normalize_block_rows<HD>(qs, min(rt * 16, L - row0));
+    normalize_block_rows<HD>(qs, min(rt * 16, LQ - row0));
   }
   // item i has landed (K9: item i + 1 too, and item i, complete since the
   // last barrier, is normalized) and every warp is done with item i - 1; the
   // next load goes out
   auto next_item = [&](int i) -> bf16* {
-    cp_async_wait<LAYOUT == WINDOWED ? S::NS - 3 : S::NS - 2>();
+    cp_async_wait<NORM ? S::NS - 3 : S::NS - 2>();
     normalize_item(i);
     __syncthreads();
     load_item(i + S::NS - 1);
@@ -447,7 +487,7 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
   };
 
   const float sc = scale[t.h];
-  const bool masked = mask != nullptr && t.wr == g.nwh - 1;
+  const bool masked = mask != nullptr && t.wr == g.nwh - 1;  // (rows >= L take no mask)
   // the lane's rows of the bias and mask tables (rows >= L clamped to L - 1:
   // their z is finite and never written)
   const float* brow[2];
@@ -458,7 +498,8 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
     brow[r] = BIAS ? bias + static_cast<size_t>(t.h) * L * L + row : nullptr;
     mrow[r] = masked ? mask + row : nullptr;
   }
-  const bool rok[2] = {qr < L, qr + 8 < L};
+  const bool rok[2] = {qr < LQ, qr + 8 < LQ};
+  const bool mok[2] = {masked && qr < L, masked && qr + 8 < L};
   // ldmatrix lane offsets: the warp's keys of a step as the B operand of
   // q k^T (two 8-key tiles a load), q rows as A, v rows (transposed) as the
   // B operand of p v for the warp's columns
@@ -471,9 +512,12 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
   float* xmine = xstat + ((dsub * rt + wt) * 16 + (lane >> 2)) * 2;  // + 16 r: row qr + 8 r
   const float* xpair = xstat + (wt * 16 + (lane >> 2)) * 2;        // warp 0's; + rt * 32 warp 1's
 
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // the row max (streamed sweep 1: the lane's)
+  // the row max (streamed sweep 1: the lane's); MAXFREE: 0 throughout, so
+  // exp(z - m) is exp(z) and the statistics' merges plain sums
+  const float m0 = MAXFREE ? 0.0f : -CUDART_INF_F;
+  float m[2] = {m0, m0};
   float l[2] = {0.0f, 0.0f};                    // the row's sum of e (likewise)
-  float rs[2] = {0.0f, 0.0f};                   // K8 1 / sum e, K9 sum e
+  float rs[2] = {0.0f, 0.0f};                   // K8, QKV* 1 / sum e, K9 sum e
   float ry[2] = {0.0f, 0.0f};                   // K9: 1 / sum e, for the division's correction
   float o[NO][4];
 #pragma unroll
@@ -507,7 +551,7 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
       for (int r = 0; r < 2; ++r) {
         const int key0 = k0 + n * 8 + c2;
         ab[n][r] = BIAS ? load_pair(full, brow[r], key0, L) : make_float2(0.0f, 0.0f);
-        am[n][r] = masked ? load_pair(full, mrow[r], key0, L) : make_float2(0.0f, 0.0f);
+        am[n][r] = mok[r] ? load_pair(full, mrow[r], key0, L) : make_float2(0.0f, 0.0f);
       }
     }
     float s[NT][4];
@@ -540,8 +584,13 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        float val = __fmul_rn(s[n][e], sc);
-        if (BIAS) val = __fadd_rn(val, (e & 1) ? ab[n][r].y : ab[n][r].x);
+        float val;
+        if constexpr (MAXFREE && !BIAS) {  // K1's (s - 1) * scale
+          val = __fmul_rn(__fsub_rn(s[n][e], 1.0f), sc);
+        } else {
+          val = __fmul_rn(s[n][e], sc);
+          if (BIAS) val = __fadd_rn(val, (e & 1) ? ab[n][r].y : ab[n][r].x);
+        }
         if (masked) val = __fadd_rn(val, __fmul_rn(bflag, (e & 1) ? am[n][r].y : am[n][r].x));
         if (!full && k0 + n * 8 + c2 + (e & 1) >= L) val = -CUDART_INF_F;
         z[n][e] = val;
@@ -549,9 +598,10 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
     }
   };
 
-  // p16 of the step from e (K8 e * (1 / sum e); K9 e / sum e, the correctly
-  // rounded quotient from the row's reciprocal and one fma correction,
-  // Markstein's), swapped with the pair's other warp, then out += p16 @ v16
+  // p16 of the step from e (K8, QKV4 e * (1 / sum e); K9 e / sum e, the
+  // correctly rounded quotient from the row's reciprocal and one fma
+  // correction, Markstein's; QKV e itself, out scaled at the end), swapped
+  // with the pair's other warp, then out += p16 @ v16
   // over the step's keys, in key order, for this warp's columns (stage rows vr)
   auto pv_step = [&](const float (*e16)[4], const bf16* vr, int kb) {
     unsigned pa[NC][4];  // the A fragments of the warp's 16-key chunks
@@ -562,11 +612,13 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const float ev = e16[n][e];
-        if constexpr (LAYOUT == GRID) {
-          p[e] = ev * rs[r];
-        } else {
+        if constexpr (SCALE_END) {
+          p[e] = ev;
+        } else if constexpr (LAYOUT == WINDOWED) {
           const float q0 = ev * ry[r];
           p[e] = fmaf(fmaf(-q0, rs[r], ev), ry[r], q0);
+        } else {
+          p[e] = ev * rs[r];
         }
       }
       pa[n / 2][(n & 1) * 2] = pack_bf16(p[0], p[1]);
@@ -604,7 +656,56 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
     parity ^= 1;
   };
 
-  if constexpr (Z) {
+  // the rows' sum of e across the quad, then the pair (warp 0's + warp 1's),
+  // in place in l; the rows' 1 / sum e (0 past lq) into rs
+  auto finish_sums = [&]() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if ((lane & 3) == 0) xmine[16 * r + 1] = l[r];
+    }
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + wt));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = xpair[16 * r + 1] + xpair[16 * r + rt * 32 + 1];
+      rs[r] = LAYOUT == WINDOWED ? l[r] : (rok[r] ? 1.0f / l[r] : 0.0f);
+      ry[r] = 1.0f / l[r];
+    }
+  };
+
+  if constexpr (ONE) {
+    // (QKV beyond L = 192) one sweep over the k and v tiles: e = exp(z) and
+    // the lane's sum of e in key order, out += bf16(e) @ v16 in registers;
+    // out is scaled by 1 / sum e at the end (K1's max-free softmax needs no
+    // second look at the keys)
+    for (int i = 0; i < nitems; ++i) {
+      bf16* st = next_item(i);
+      if (!active) continue;
+#pragma unroll
+      for (int ss = 0; ss < SUB; ++ss) {
+        const int kb = i * S::KS + ss * STEP;
+        if (kb >= L) break;
+        float z[NT][4];
+        if (kb + STEP <= L) {
+          scores(true, z, st + ss * STEP * LDQ, kb);
+        } else {
+          scores(false, z, st + ss * STEP * LDQ, kb);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ev = expf(z[n][e]);  // 0 past L
+            z[n][e] = ev;
+            l[e >> 1] += ev;
+          }
+        }
+        pv_step(z, st + (S::KS + ss * STEP) * LDQ, kb);
+      }
+    }
+    if (active) finish_sums();
+  } else if constexpr (Z) {
     // sweep 1: the k tiles; each warp keeps z of its keys and its lanes' max
     float zr[S::ZST][NT][4];
 #pragma unroll
@@ -629,27 +730,32 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
             } else if (kb < L) {
               scores(false, z, kst + ss * STEP * LDQ, kb);
             }
+            if constexpr (!MAXFREE) {
 #pragma unroll
-            for (int n = 0; n < NT; ++n) {
+              for (int n = 0; n < NT; ++n) {
 #pragma unroll
-              for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], z[n][e]);
+                for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], z[n][e]);
+              }
             }
           }
         }
       }
     }
-    // the rows' max (quad, then the pair), e = exp(z - m) in place and the
-    // rows' sum of e (the lane's in key order, the quad's, warp 0's + warp 1's)
+    // the rows' max (quad, then the pair; MAXFREE: none), e = exp(z - m) in
+    // place and the rows' sum of e (the lane's in key order, the quad's, warp
+    // 0's + warp 1's)
     if (active) {
+      if constexpr (!MAXFREE) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-        if ((lane & 3) == 0) xmine[16 * r] = m[r];
+        for (int r = 0; r < 2; ++r) {
+          m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+          m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+          if ((lane & 3) == 0) xmine[16 * r] = m[r];
+        }
+        asm volatile("bar.sync %0, 64;\n" ::"r"(1 + wt));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[r] = fmaxf(xpair[16 * r], xpair[16 * r + rt * 32]);
       }
-      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + wt));
-#pragma unroll
-      for (int r = 0; r < 2; ++r) m[r] = fmaxf(xpair[16 * r], xpair[16 * r + rt * 32]);
 #pragma unroll
       for (int st = 0; st < S::ZST; ++st) {
 #pragma unroll
@@ -662,19 +768,7 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
           }
         }
       }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-        if ((lane & 3) == 0) xmine[16 * r + 1] = l[r];
-      }
-      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + wt));
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] = xpair[16 * r + 1] + xpair[16 * r + rt * 32 + 1];
-        rs[r] = LAYOUT == GRID ? (rok[r] ? 1.0f / l[r] : 0.0f) : l[r];
-        ry[r] = 1.0f / l[r];
-      }
+      finish_sums();
     }
     // sweep 2: the v tiles, out += p16 @ v16
 #pragma unroll
@@ -714,7 +808,7 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
           m[r] = xpair[16 * r];
           l[r] = xpair[16 * r + 1];
           merge_stat(m[r], l[r], xpair[16 * r + rt * 32], xpair[16 * r + rt * 32 + 1]);
-          rs[r] = LAYOUT == GRID ? (rok[r] ? 1.0f / l[r] : 0.0f) : l[r];
+          rs[r] = LAYOUT == WINDOWED ? l[r] : (rok[r] ? 1.0f / l[r] : 0.0f);
           ry[r] = 1.0f / l[r];
         }
       }
@@ -737,7 +831,7 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
             float tmax = -CUDART_INF_F;
 #pragma unroll
             for (int n = 0; n < NT; ++n) tmax = fmaxf(tmax, fmaxf(z[n][2 * r], z[n][2 * r + 1]));
-            if (tmax > m[r]) {
+            if (!MAXFREE && tmax > m[r]) {
               l[r] *= expf(m[r] - tmax);
               m[r] = tmax;
             }
@@ -772,19 +866,24 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         bf16* dst = qs + (wt * 16 + (lane >> 2) + 8 * r) * LDQ + dsub * DW + j * 8 + c2;
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o[j][2 * r], o[j][2 * r + 1]);
+        // SCALE_END: out = (e16 @ v16) * (1 / sum e)
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(SCALE_END ? o[j][2 * r] * rs[r] : o[j][2 * r],
+                                  SCALE_END ? o[j][2 * r + 1] * rs[r] : o[j][2 * r + 1]);
       }
     }
   }
   __syncthreads();
-  const int nrows = min(rt * 16, L - row0);  // the block's real rows, 16 bytes a thread
-  for (int idx = threadIdx.x; idx < nrows * (HD / 8); idx += blockDim.x) {
-    const int rr = idx / (HD / 8);
-    const int c = (idx % (HD / 8)) * 8;
+  // the block's real rows, 16 bytes a thread (exact zeros in the pad lanes)
+  const int nrows = min(rt * 16, LQ - row0);
+  for (int idx = threadIdx.x; idx < nrows * (HP / 8); idx += blockDim.x) {
+    const int rr = idx / (HP / 8);
+    const int c = (idx % (HP / 8)) * 8;
     const int l = row0 + rr;
-    const size_t off = base + c + (LAYOUT == GRID ? static_cast<size_t>(tok[l]) * g.ldo
-                                                  : static_cast<size_t>(l) * HD);
-    *reinterpret_cast<uint4*>(out + off) = *reinterpret_cast<const uint4*>(qs + rr * LDQ + c);
+    const size_t off = base + c + (TABLE ? static_cast<size_t>(tok[l]) * g.ldo
+                                         : static_cast<size_t>(l) * HD);
+    *reinterpret_cast<uint4*>(out + off) =
+        c < HD ? *reinterpret_cast<const uint4*>(qs + rr * LDQ + c) : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -1181,14 +1280,15 @@ int set_fwd_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared));
 }
 
-template <int HD, int LAYOUT, bool BIAS, bool Z>
+template <int HD, int LAYOUT, bool BIAS, bool Z, int HP = HD>
 int launch_fwd_as(const FwdArgs& a, const AttnGeo& g, cudaStream_t stream) {
-  const FwdPlan p = fwd_plan<HD, Z>(g.L);
+  const FwdPlan p = fwd_plan<HD, Z>(g.L, g.lq);
   unsigned blocks;
-  if (n_blocks(g, &blocks) != 0 || static_cast<long long>(blocks) * p.nchunk > 2147483647LL) {
+  if (n_blocks(g, &blocks) != 0 || static_cast<long long>(blocks) * p.nchunk > 2147483647LL ||
+      g.lq < g.L || g.lq > g.LP) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = qkv_attention_fwd_kernel<HD, LAYOUT, BIAS, Z>;
+  auto kernel = qkv_attention_fwd_kernel<HD, LAYOUT, BIAS, Z, HP>;
   const int code = set_fwd_smem(kernel, p.smem);
   if (code != 0) return code;
   kernel<<<blocks * p.nchunk, p.rt * 2 * 32, p.smem, stream>>>(
@@ -1200,19 +1300,20 @@ int launch_fwd_as(const FwdArgs& a, const AttnGeo& g, cudaStream_t stream) {
 }
 
 // The Z path where it applies (L <= ZL), else the streamed one.
-template <int HD, int LAYOUT, bool BIAS>
+template <int HD, int LAYOUT, bool BIAS, int HP = HD>
 int launch_fwd(const FwdArgs& a, const AttnGeo& g, cudaStream_t stream) {
-  return g.L <= ZL ? launch_fwd_as<HD, LAYOUT, BIAS, true>(a, g, stream)
-                   : launch_fwd_as<HD, LAYOUT, BIAS, false>(a, g, stream);
+  return g.L <= ZL ? launch_fwd_as<HD, LAYOUT, BIAS, true, HP>(a, g, stream)
+                   : launch_fwd_as<HD, LAYOUT, BIAS, false, HP>(a, g, stream);
 }
 
-// The forward instance's launch at window length L, into info[0..6]: threads
-// a block, dynamic shared memory, registers a thread, local (spill) bytes a
-// thread, resident blocks per SM, blocks per (window, head), 1 on the Z path.
-template <int HD, int LAYOUT, bool BIAS, bool Z>
-int fwd_info_as(int L, int* info) {
-  const FwdPlan p = fwd_plan<HD, Z>(L);
-  auto kernel = qkv_attention_fwd_kernel<HD, LAYOUT, BIAS, Z>;
+// The forward instance's launch at window length L (lq query rows), into
+// info[0..6]: threads a block, dynamic shared memory, registers a thread,
+// local (spill) bytes a thread, resident blocks per SM, blocks per (window,
+// head), 1 on the Z path.
+template <int HD, int LAYOUT, bool BIAS, bool Z, int HP = HD>
+int fwd_info_as(int L, int lq, int* info) {
+  const FwdPlan p = fwd_plan<HD, Z>(L, lq);
+  auto kernel = qkv_attention_fwd_kernel<HD, LAYOUT, BIAS, Z, HP>;
   int code = set_fwd_smem(kernel, p.smem);
   if (code != 0) return code;
   cudaFuncAttributes attr;
@@ -1233,10 +1334,10 @@ int fwd_info_as(int L, int* info) {
   return 0;
 }
 
-template <int HD, int LAYOUT, bool BIAS>
-int fwd_info(int L, int* info) {
-  return L <= ZL ? fwd_info_as<HD, LAYOUT, BIAS, true>(L, info)
-                 : fwd_info_as<HD, LAYOUT, BIAS, false>(L, info);
+template <int HD, int LAYOUT, bool BIAS, int HP = HD>
+int fwd_info(int L, int lq, int* info) {
+  return L <= ZL ? fwd_info_as<HD, LAYOUT, BIAS, true, HP>(L, lq, info)
+                 : fwd_info_as<HD, LAYOUT, BIAS, false, HP>(L, lq, info);
 }
 
 template <int HD, int LAYOUT, bool BIAS>
@@ -1300,15 +1401,15 @@ template <int LAYOUT>
 int dispatch_fwd_info(int hd, bool bias, int L, int* info) {
   switch (hd) {
     case 32:
-      return bias ? fwd_info<32, LAYOUT, true>(L, info) : fwd_info<32, LAYOUT, false>(L, info);
+      return bias ? fwd_info<32, LAYOUT, true>(L, L, info) : fwd_info<32, LAYOUT, false>(L, L, info);
     case 64:
-      return bias ? fwd_info<64, LAYOUT, true>(L, info) : fwd_info<64, LAYOUT, false>(L, info);
+      return bias ? fwd_info<64, LAYOUT, true>(L, L, info) : fwd_info<64, LAYOUT, false>(L, L, info);
     case 96:
-      return bias ? fwd_info<96, LAYOUT, true>(L, info) : fwd_info<96, LAYOUT, false>(L, info);
+      return bias ? fwd_info<96, LAYOUT, true>(L, L, info) : fwd_info<96, LAYOUT, false>(L, L, info);
     case 128:
-      return bias ? fwd_info<128, LAYOUT, true>(L, info) : fwd_info<128, LAYOUT, false>(L, info);
+      return bias ? fwd_info<128, LAYOUT, true>(L, L, info) : fwd_info<128, LAYOUT, false>(L, L, info);
     case 256:
-      return bias ? fwd_info<256, LAYOUT, true>(L, info) : fwd_info<256, LAYOUT, false>(L, info);
+      return bias ? fwd_info<256, LAYOUT, true>(L, L, info) : fwd_info<256, LAYOUT, false>(L, L, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1358,6 +1459,7 @@ inline bool make_attn_geo(AttnGeo& g, int B, int H, int W, int heads, int wh, in
   g.ldk = ldk;
   g.ldv = ldv;
   g.ldo = ldo;
+  g.lq = L;
   return true;
 }
 

@@ -1,17 +1,10 @@
-// Pieces shared by the window-attention kernels (forward K1 in
-// window_attention_qkv.cu, backward K2 in window_attention_qkv_bwd.cu, their
-// K7, K10 and K12 instances, K8/K9 in qkv_attention.cuh): the geometry of one
-// launch, the block -> (window, head) map, K1's in-kernel qkv projection, the
-// q/k L2 normalization of 16-row tiles, the 16-row score product (wmma), the
-// m16n8k16 mma and ldmatrix primitives, the 8-value bf16 store and the
-// window-order d(bias) reduction.
-//
-// K1's projection recomputes qkv = bf16(bf16(x) @ bf16(W) + b) for the head's
-// 3 x HD columns with fp32 accumulation, streaming 32-wide C_in slices of the
-// window (gathered by index math from the NHWC grid, padded rows zero-filled)
-// and of the head's W columns through a two-stage cp.async ring, one role
-// (q, k, v) at a time so that a warp holds only HD / 16 accumulator fragments.
-// Each of the LP / 16 warps owns 16 token rows.
+// Pieces shared by the window-attention kernels (the qkv-fused backward K2 in
+// window_attention_qkv_bwd.cu and its K7, K10 and K12 instances, the
+// large-head backward, K8/K9 and the qkv-fused forwards' pass in
+// qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
+// map, the q/k L2 normalization of 16-row tiles, the 16-row score product
+// (wmma), the m16n8k16 mma and ldmatrix primitives, the 8-value bf16 store
+// and the window-order d(bias) reduction.
 
 #pragma once
 
@@ -24,8 +17,7 @@ namespace swin_attn {
 using namespace nvcuda;
 using namespace swin_cuda;
 
-constexpr int KC = 32;        // C_in slice per pipeline stage
-constexpr int LDX = KC + 8;   // smem row pitch (elements) of the x slice
+constexpr int KC = 32;        // the C_in granularity the qkv-fused backwards take
 constexpr int MAX_LP = 256;   // at most 16 warps per block
 
 // Variants of the qkv-fused kernels (the template parameter VAR):
@@ -105,113 +97,6 @@ __device__ __forceinline__ size_t token_of(const Geometry& g, const Tile& t, int
 template <int VAR>
 __device__ __forceinline__ int rows_of(const Geometry& g) {
   return VAR == QKV_V4 ? g.lm : g.L;
-}
-
-// Bytes of the projection's staging ring (two stages of x and W slices).
-template <int HD>
-__host__ __device__ constexpr size_t staging_bytes(int LP) {
-  return (2u * LP * LDX + 2u * KC * (HD + 8)) * sizeof(bf16);
-}
-
-// qkv projection of the block's window for head t.h: q, k and v [LP, HD]
-// (row pitch HD + 8) in shared memory, bf16(acc + b); padded rows hold
-// bf16(b). xs / wsm is the staging ring (staging_bytes), cs a 16 x 16 fp32
-// scratch tile of this warp. Ends with a block-wide barrier. HP is the head
-// pitch of W's and b's columns: HD, or 128 for K10's padded weights (g.C is
-// then heads * 128, and only the HD live columns of each head are read). VAR
-// picks the layouts: QKV_V5 reads the (role, head) slab of the reordered W
-// [3 * heads, C_in, HD] as one dense [C_in, HD] box (b is [3 * heads, HD],
-// the packed [3C] order); QKV_V4 reads x's window-major rows (rows up to lm).
-template <int HD, int HP = HD, int VAR = QKV_V3>
-__device__ void project_qkv(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                            const float* __restrict__ bqkv, const Geometry& g, const Tile& t,
-                            bf16* qs, bf16* ks, bf16* vs, bf16* xs, bf16* wsm, float* cs) {
-  constexpr int NF = HD / 16;
-  constexpr int LDQ = HD + 8;
-  const int LP = g.LP;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nthreads = blockDim.x;
-  const int C3 = 3 * g.C;
-  const int fr = lane >> 1;
-  const int fc = (lane & 1) * 8;
-
-  const int nkc = g.Cin / KC;
-  const int total = 3 * nkc;
-  auto load_slice = [&](int it, int stage) {
-    const int role = it / nkc;
-    const int k0 = (it % nkc) * KC;
-    bf16* xd = xs + stage * LP * LDX;
-    for (int idx = tid; idx < LP * (KC / 8); idx += nthreads) {
-      const int l = idx / (KC / 8);
-      const int c = (idx % (KC / 8)) * 8;
-      const bool ok = l < rows_of<VAR>(g);
-      const size_t pix = ok ? token_of<VAR>(g, t, l) : 0;
-      cp_async16(xd + l * LDX + c, x + pix * g.Cin + k0 + c, ok);
-    }
-    bf16* wd = wsm + stage * KC * LDQ;
-    const int col0 = role * g.C + t.h * HP;
-    // QKV_V5: the slab's rows k0.. of [C_in, HD]
-    const bf16* w5 = w + (static_cast<size_t>(role * g.heads + t.h) * g.Cin + k0) * HD;
-    for (int idx = tid; idx < KC * (HD / 8); idx += nthreads) {
-      const int r = idx / (HD / 8);
-      const int c = (idx % (HD / 8)) * 8;
-      if constexpr (VAR == QKV_V5) {
-        cp_async16(wd + r * LDQ + c, w5 + r * HD + c, true);
-      } else {
-        cp_async16(wd + r * LDQ + c, w + static_cast<size_t>(k0 + r) * C3 + col0 + c, true);
-      }
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  load_slice(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < total; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < total) load_slice(it + 1, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* xa = xs + cur * LP * LDX + warp * 16 * LDX;
-    const bf16* wb = wsm + cur * KC * LDQ;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, xa + kk, LDX);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wb + kk * LDQ + j * 16, LDQ);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-    if ((it + 1) % nkc == 0) {
-      // role done: + b in fp32, round to bf16, stage in shared memory
-      const int role = it / nkc;
-      bf16* dst = role == 0 ? qs : (role == 1 ? ks : vs);
-      const float* bb = bqkv + role * g.C + t.h * HP;
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-        __syncwarp();
-        bf16* d = dst + (warp * 16 + fr) * LDQ + j * 16 + fc;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          d[e] = __float2bfloat16(cs[fr * 16 + fc + e] + bb[j * 16 + fc + e]);
-        }
-        __syncwarp();
-        wmma::fill_fragment(acc[j], 0.0f);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
 }
 
 // L2-normalize the 16 rows row0 .. row0 + 15 of t in place, one warp:

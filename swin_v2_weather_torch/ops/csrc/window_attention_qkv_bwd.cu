@@ -24,7 +24,7 @@
 // on this card run in parallel and in no order, so the work is split:
 //
 //  0. the recomputed projection qkv = bf16(x @ W + b) [T, 3C] on the Hopper
-//     GEMM core (wgmma_gemm.cuh, through qkv_projection_bwd.cuh) into a
+//     GEMM core (wgmma_gemm.cuh, through qkv_projection.cuh) into a
 //     scratch the wrapper allocates. Recomputed inside each attention block
 //     on wmma tiles it took 3.67 of the block's 5.99 ms at the flagship shape
 //     (PERF.md section 6); on the core it is one 229-GFLOP product plus a
@@ -50,7 +50,7 @@
 //     score-sized products and 2 exp an entry. dq, dk, dv go out in bf16 into
 //     a [rows, 3C] buffer.
 //  2. projection backward on the Hopper GEMM core (wgmma_gemm.cuh, through
-//     qkv_projection_bwd.cuh): dx = dqkv @ W^T (W read as stored, bf16 out),
+//     qkv_projection.cuh): dx = dqkv @ W^T (W read as stored, bf16 out),
 //     and dW = x^T @ dqkv (x read as stored) split over S token ranges into
 //     fp32 partials [S, C_in, 3C].
 //  3. fixed-order reductions, no atomics, so two runs give the same bits: the
@@ -109,7 +109,7 @@
 // the workspaces as the wrapper allocates them; C_in % 32 == 0, head dim in
 // {32, 64, 96, 128}, L <= 256, and the shared memory of pass 1/2 within 227 KB.
 
-#include "qkv_projection_bwd.cuh"
+#include "qkv_projection.cuh"
 
 namespace {
 

@@ -1,84 +1,70 @@
-// The qkv-fused scaled-cosine window attention at large head dims (128 in the
-// backward, 256 in both directions), forward and backward, hand-written for
-// Hopper (sm_90a): the large-head variant of K1/K2 (and of K7, their CPB-bias
-// instances).
+// The backward of the qkv-fused scaled-cosine window attention at large head
+// dims (256; 128 past L = 208), hand-written for Hopper (sm_90a): the
+// large-head variant of K2 (and of K7's and K12's backwards). The forward of
+// every head dim is window_attention_qkv.cu's.
 //
-// Replaces the same TPU kernels as window_attention_qkv.cu and
-// window_attention_qkv_bwd.cu (swin_v2_weather_tpu/ops/window_attention.py:
-// _make_qkv_kernel / _qkv_forward and _make_qkv_bwd_kernel / _qkv_backward,
-// with has_bias through _build_qkv_bias) where their one-block-per-(window,
-// head) layout does not fit: it keeps q, k, v (and g) [LP, HD] in shared
-// memory at once, which at L = 162 (LP = 176) needs 354,816 B forward and
-// 374,592 B backward at head dim 256 (the e2048 family: embed 2048, 8 heads),
-// against the 232,448 B a block may use (at head dim 128 the backward fits
-// up to L = 208). The wrappers pick this variant exactly where the smaller
-// one does not fit (ops/window_attention.py, qkv_variant).
+// Replaces the same TPU kernel as window_attention_qkv_bwd.cu
+// (swin_v2_weather_tpu/ops/window_attention.py: _make_qkv_bwd_kernel /
+// _qkv_backward, with has_bias through _build_qkv_bias) where its
+// one-block-per-(window, head) layout does not fit: it keeps q, k, v and g
+// [LP, HD] in shared memory at once, which at L = 162 (LP = 176) needs
+// 374,592 B at head dim 256 (the e2048 family: embed 2048, 8 heads), against
+// the 232,448 B a block may use. The wrappers pick this variant exactly
+// where the smaller one does not fit (ops/window_attention.py, qkv_variant).
 //
 // What bounds it on this card: at the e2048 shape (x [1, 180, 360, 2048] bf16,
-// W [2048, 6144], 8 heads of 256, L = 162) the projection is 1.63 TFLOP and
-// the two [162, 162, 256] products per (window, head) 0.09 TFLOP: tensor-core
-// work, 1.74 ms at 989 TFLOP/s; the backward adds dx and dW (two more
-// projection-sized GEMMs) and five score-sized products, 5.16 ms.
+// W [2048, 6144], 8 heads of 256, L = 162) the recomputed projection, dx and
+// dW are three 1.63-TFLOP products and the five [162, 162, 256] products per
+// (window, head) 0.23 TFLOP: tensor-core work, 5.16 ms at 989 TFLOP/s.
 //
 // Design: the fused projection is split off. Each call runs
-//  1. the projection on the Hopper GEMM core (wgmma_gemm.cuh) whose epilogue writes
-//     qkv = bf16(fp32 acc + b) [T, 3C] to a device scratch buffer (the only
-//     rounding of the projection, K1's site);
+//  1. the projection on the Hopper GEMM core (wgmma_gemm.cuh) whose epilogue
+//     writes qkv = bf16(fp32 acc + b) [T, 3C] to a device scratch buffer (the
+//     only rounding of the projection, K1's site);
 //  2. a per-(token, head) kernel that L2-normalizes q and k in place, qn16 =
 //     bf16(q * inv) with inv = 1 / sqrt(max(sum q^2, 1e-24)) in fp32, summed
-//     as K1's normalize_rows sums, and stores inv for the backward;
-//  3. the attention from that buffer, one block per (window, head) with
-//     LP / 16 warps of 16 query rows for the forward: q [LP, HD] in shared
-//     memory, the keys streamed in 16-row tiles through a two-stage cp.async
-//     ring; each warp turns its 16 x 16 score tile into e = exp(z) (K1's
-//     max-free softmax) in registers, keeps the row sums and stores bf16(e)
-//     in its [16, LP] row buffer; then v replaces q in shared memory and
-//     out = (bf16(e) @ v16) * (1 / sum e) is formed in 128-wide chunks of the
-//     head dim, so a warp holds 8 accumulator fragments (64 registers), not
-//     16. 185,856 B of shared memory at HD = 256, L = 162.
-// The backward runs 1-2, then two attention kernels on blocks of 4 warps
-// (64 rows), FlashAttention-2 style as K2 splits its passes, with the keys
-// (or queries) streamed through the ring: the rows kernel, one block per
-// (window, head, 64 query rows), sweeps the key tiles for r = 1 / sum e and
-// u = sum(dp e) (stored for the columns kernel), again for ds = (dp - u r) e
-// (r scale) into its bf16 row buffer (and, with the bias, ds / scale into the
-// block's fp32 d(bias) slice), then dqn = ds @ kn16 chunk by chunk into an
-// fp32 [16, HD] staging tile per warp, and finishes dq = (dqn - qn16 qd) inv_q
-// with qd = <qn16, dqn>, plus its d(scale) partial; the columns kernel, one
-// block per (window, head, 64 key rows), sweeps the query tiles once for the
-// transposed tiles p16^T = bf16(e r)^T and ds^T, then forms dv = p16^T @ g16
-// and dkn = ds^T @ qn16 chunk by chunk and dk = (dkn - kn16 kd) inv_k. The
-// projection backward is K2's (qkv_projection_bwd.cuh). 194,624 and 218,112 B
-// of shared memory at HD = 256, L = 162.
+//     as K1's normalize_rows sums, and stores inv;
+//  3. two attention kernels on blocks of 4 warps (64 rows), FlashAttention-2
+//     style as K2 splits its passes, with the keys (or queries) streamed
+//     through a two-stage ring: the rows kernel, one block per (window, head,
+//     64 query rows), sweeps the key tiles for r = 1 / sum e and u = sum(dp e)
+//     (stored for the columns kernel), again for ds = (dp - u r) e (r scale)
+//     into its bf16 row buffer (and, with the bias, ds / scale into the
+//     block's fp32 d(bias) slice), then dqn = ds @ kn16 chunk by chunk into an
+//     fp32 [16, HD] staging tile per warp, and finishes dq = (dqn - qn16 qd)
+//     inv_q with qd = <qn16, dqn>, plus its d(scale) partial; the columns
+//     kernel, one block per (window, head, 64 key rows), sweeps the query
+//     tiles once for the transposed tiles p16^T = bf16(e r)^T and ds^T, then
+//     forms dv = p16^T @ g16 and dkn = ds^T @ qn16 chunk by chunk and dk =
+//     (dkn - kn16 kd) inv_k;
+//  4. the projection backward (qkv_projection.cuh). 194,624 and 218,112 B of
+//     shared memory at HD = 256, L = 162.
 // The cost of the split: the [T, 3C] qkv buffer goes to device memory and
 // back (796 MB each way at the full e2048 image, 0.24 ms each at 3.35 TB/s),
-// and the score tiles are recomputed per sweep (cheap beside the projection).
-// The attention kernels below are the simple, correct version (nvcuda::wmma
-// tiles through per-warp scratch); their redesign comes later.
+// and the score tiles are recomputed per sweep. The attention kernels below
+// are the simple, correct version (nvcuda::wmma tiles through per-warp
+// scratch); their redesign comes later.
 //
-// Rounding sites: K1's and K2's (window_attention_qkv.cu,
-// window_attention_qkv_bwd.cu); only the order of some fp32 sums differs
-// (the projection's GEMM tiles, qd summed per lane pair, the d(scale)
-// partials per 64 rows). dW, db, dscale and d(bias) are summed in a fixed
-// order, with no atomics.
+// Rounding sites: K2's (window_attention_qkv_bwd.cu); only the order of some
+// fp32 sums differs (the projection's GEMM tiles, qd summed per lane pair,
+// the d(scale) partials per 64 rows). dW, db, dscale and d(bias) are summed
+// in a fixed order, with no atomics.
 //
 // K12's large-head instances replace the same TPU kernels' v5 and v4
-// schedules (swin_v2_weather_tpu/ops/attic/window_attention_v45.py:
-// _make_qkv5_kernel / _make_qkv5_bwd_kernel, _make_qkv4_kernel /
-// _make_qkv4_bwd_kernel) at the same head dims: v5 (template variant
-// QKV_V5) runs the projection GEMM per (role, head) slab of the reordered
-// weight, in the packed GEMM's K order, so its results are K1/K2's; v4
-// (QKV_V4) reads window-major rows, rounds p16 = bf16(e * (1 / sum e)) in a
-// second key sweep before p @ v, and takes the fp32 qn = q * inv_q in qd and
-// the normalization VJP, the raw q and k rows parked in their dq and dk slots
-// of dqkv by the normalization kernel and read back before they are
-// overwritten (likewise kn).
+// backwards (swin_v2_weather_tpu/ops/attic/window_attention_v45.py:
+// _make_qkv5_bwd_kernel, _make_qkv4_bwd_kernel) at the same head dims: v5
+// (template variant QKV_V5) runs the projection per (role, head) slab of the
+// reordered weight, in the packed product's K order, so its results are
+// K2's; v4 (QKV_V4) reads window-major rows and takes the fp32 qn = q * inv_q
+// in qd and the normalization VJP, the raw q and k rows parked in their dq
+// and dk slots of dqkv by the normalization kernel and read back before they
+// are overwritten (likewise kn).
 //
-// Contract (checked by the Python wrapper): K1's, with head dim 128 or 256,
+// Contract (checked by the Python wrapper): K2's, with head dim 128 or 256,
 // and the shared memory of each kernel within 232,448 B; the scratch buffers
 // as the wrapper allocates them.
 
-#include "qkv_projection_bwd.cuh"
+#include "qkv_projection.cuh"
 
 namespace {
 
@@ -149,7 +135,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
 }
 
 // e = exp(z) for the lane's 8 entries (query qrow, keys key0 .. key0 + 7) of
-// the score tile in cs, zero outside the L x L window (v4's forward: query
+// the score tile in cs, zero outside the L x L window (v4: query
 // rows up to LQ = lm, its pad rows attending to the real keys); z as K1/K7
 // form it
 template <bool BIAS>
@@ -208,129 +194,7 @@ __device__ __forceinline__ void exp_col8(const float* cs, int krow, int q0, int 
   }
 }
 
-// ---------------- 3. forward attention ---------------------------------------
-
-template <int HD>
-__host__ __device__ constexpr size_t fwd_smem_bytes(int LP) {
-  return (static_cast<size_t>(LP) * (HD + 8) + 2u * 16 * (HD + 8) +
-          static_cast<size_t>(LP) * (LP + 8)) * sizeof(bf16) +
-         static_cast<size_t>(LP / 16) * 256 * sizeof(float);
-}
-
-template <int HD, bool BIAS, int VAR = QKV_V3>
-__global__ void __launch_bounds__(MAX_LP * 2)
-    large_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
-                     const float* __restrict__ bias, const float* __restrict__ mask, float bflag,
-                     bf16* __restrict__ out, Geometry g) {
-  constexpr int LDQ = HD + 8;
-  constexpr int NC = HD / DC;
-  constexpr int NFC = DC / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LP = g.LP;
-  const int L = g.L;
-  const int nwarps = LP / 16;
-  const int LDP = LP + 8;
-  const int C3 = 3 * g.C;
-  bf16* qv = reinterpret_cast<bf16*>(smem);  // q [LP, LDQ], then v
-  bf16* ring = qv + LP * LDQ;                // two stages of a k tile [16, LDQ]
-  bf16* pbuf = ring + 2 * 16 * LDQ;          // bf16(e), 16 x LDP per warp
-  float* scratch = reinterpret_cast<float*>(pbuf + nwarps * 16 * LDP);
-
-  const Tile t = tile_of_block(g);
-  const int h = t.h;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* cs = scratch + warp * 256;
-  const int fr = lane >> 1;
-  const int fc = (lane & 1) * 8;
-  const int nkt = LP / 16;
-
-  const int LS = rows_of<VAR>(g);  // rows written: L, or v4's lm
-  load_rows<HD, VAR>(qv, qkv, C3, h * HD, g, t, 0, LP);
-  cp_async_commit();
-
-  const float sc = scale[h];
-  const bool use_mask = mask != nullptr && t.wr == g.nwh - 1;
-  const int qrow = warp * 16 + fr;
-  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
-  bf16* pw = pbuf + warp * 16 * LDP;
-  // one sweep over the key tiles through the ring: e = exp(z) of each tile
-  // handed to f(kt, ev); v4 sweeps twice (the row sums, then p16 = bf16(e *
-  // (1 / sum e)) before p @ v), v3 once (bf16(e), divided after p @ v)
-  auto sweep = [&](auto f) {
-    load_rows<HD, VAR>(ring, qkv, C3, g.C + h * HD, g, t, 0, 16);
-    cp_async_commit();
-    for (int kt = 0; kt < nkt; ++kt) {
-      if (kt + 1 < nkt) {
-        load_rows<HD, VAR>(ring + ((kt + 1) & 1) * 16 * LDQ, qkv, C3, g.C + h * HD, g, t,
-                           (kt + 1) * 16, 16);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      Frag s;
-      dot_rows<HD>(s, qv + warp * 16 * LDQ, ring + (kt & 1) * 16 * LDQ);
-      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-      __syncwarp();
-      float ev[8];
-      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
-                     VAR == QKV_V4 ? LS : L);
-      f(kt, ev);
-      __syncthreads();  // the stage is refilled by the next iteration's load
-    }
-  };
-  float rowsum = 0.0f;
-  sweep([&](int kt, const float (&ev)[8]) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) rowsum += ev[e];
-    if constexpr (VAR != QKV_V4) {
-      store8(pw + fr * LDP + kt * 16 + fc, ev, [](int, float v) { return v; });
-    }
-  });
-  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);  // the two lanes of a row
-  const float rinv = 1.0f / rowsum;
-  if constexpr (VAR == QKV_V4) {
-    sweep([&](int kt, const float (&ev)[8]) {
-      store8(pw + fr * LDP + kt * 16 + fc, ev, [&](int, float v) { return v * rinv; });
-    });
-  }
-
-  cp_async_wait<0>();
-  load_rows<HD, VAR>(qv, qkv, C3, 2 * g.C + h * HD, g, t, 0, LP);  // v over q (all warps are past it)
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const size_t pix = qrow < LS ? token_of<VAR>(g, t, qrow) : 0;
-#pragma unroll 1
-  for (int ch = 0; ch < NC; ++ch) {
-    Frag o[NFC];
-#pragma unroll
-    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(o[j], 0.0f);
-    for (int kt = 0; kt < nkt; ++kt) {
-      FragA a;
-      wmma::load_matrix_sync(a, pw + kt * 16, LDP);
-#pragma unroll
-      for (int j = 0; j < NFC; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, qv + kt * 16 * LDQ + ch * DC + j * 16, LDQ);
-        wmma::mma_sync(o[j], a, b, o[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NFC; ++j) {
-      wmma::store_matrix_sync(cs, o[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      if (qrow < LS) {
-        store8(out + pix * g.C + h * HD + ch * DC + j * 16 + fc, cs + fr * 16 + fc,
-               [&](int, float v) { return VAR == QKV_V4 ? v : v * rinv; });
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// ---------------- 4. backward attention: the rows kernel --------------------
+// ---------------- 3. backward attention: the rows kernel --------------------
 
 template <int HD>
 __host__ __device__ constexpr size_t rows_smem_bytes(int LP) {
@@ -556,7 +420,7 @@ __global__ void __launch_bounds__(RW * 32)
   }
 }
 
-// ---------------- 5. backward attention: the columns kernel -----------------
+// ---------------- 4. backward attention: the columns kernel -----------------
 
 template <int HD>
 __host__ __device__ constexpr size_t cols_smem_bytes(int LP) {
@@ -796,24 +660,6 @@ int project_normalize(const void* x, const void* w, const void* b, void* qkv, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, bool BIAS, int VAR = QKV_V3>
-int forward(const void* x, const void* w, const void* b, const void* scale, const void* bias,
-            const void* mask, float bflag, void* out, void* qkv, void* inv, const Geometry& g,
-            cudaStream_t s) {
-  const size_t smem = fwd_smem_bytes<HD>(g.LP);
-  int code = set_smem(large_fwd_kernel<HD, BIAS, VAR>, smem);
-  if (code != 0) return code;
-  code = project_normalize<HD, VAR>(x, w, b, qkv, inv, g, s);
-  if (code != 0) return code;
-  const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  large_fwd_kernel<HD, BIAS, VAR><<<static_cast<unsigned>(blocks), (g.LP / 16) * 32, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<const float*>(mask), bflag,
-      static_cast<bf16*>(out), g);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // QKV_V5: wr is the reordered weight the recompute reads, w the packed one of
 // the projection backward; otherwise both are the packed W. QKV_V4: the
 // window-major rows, the raw q, k parked in dqkv for the fp32 qn.
@@ -863,25 +709,6 @@ int backward(const void* x, const void* wr, const void* w, const void* b, const 
 }
 
 template <bool BIAS>
-int dispatch_fwd(const void* x, const void* w, const void* b, const void* scale, const void* bias,
-                 const void* mask, float bflag, void* out, void* qkv, void* inv, int B, int H,
-                 int W, int Cin, int C, int heads, int wh, int ww, void* stream) {
-  Geometry g;
-  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww) || (BIAS && bias == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / heads) {
-    case 128:
-      return forward<128, BIAS>(x, w, b, scale, bias, mask, bflag, out, qkv, inv, g, s);
-    case 256:
-      return forward<256, BIAS>(x, w, b, scale, bias, mask, bflag, out, qkv, inv, g, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <bool BIAS>
 int dispatch_bwd(const void* x, const void* w, const void* b, const void* scale, const void* bias,
                  const void* mask, float bflag, const void* g, void* qkv, void* inv, void* rstat,
                  void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dbias_part,
@@ -910,22 +737,6 @@ int dispatch_bwd(const void* x, const void* w, const void* b, const void* scale,
 
 }  // namespace
 
-// K1 / K7 forward, large-head variant. Scratch (allocated by the caller): qkv
-// [B, H, W, 3C] bf16, inv [B, H, W, 2, heads] fp32. bias null for K1.
-extern "C" int swin_window_attention_qkv_large_fwd(const void* x, const void* w, const void* b,
-                                                   const void* scale, const void* bias,
-                                                   const void* mask, float bflag, void* out,
-                                                   void* qkv, void* inv, int B, int H, int W,
-                                                   int Cin, int C, int heads, int wh, int ww,
-                                                   void* stream) {
-  if (bias == nullptr) {
-    return dispatch_fwd<false>(x, w, b, scale, nullptr, mask, bflag, out, qkv, inv, B, H, W, Cin,
-                               C, heads, wh, ww, stream);
-  }
-  return dispatch_fwd<true>(x, w, b, scale, bias, mask, bflag, out, qkv, inv, B, H, W, Cin, C,
-                            heads, wh, ww, stream);
-}
-
 // K2 / K7 backward, large-head variant. Scratch: qkv [B, H, W, 3C] bf16, inv
 // [B, H, W, 2, heads], rstat [B * nW, heads, LP, 2] fp32, dqkv [B, H, W, 3C]
 // bf16, dw_part [dw_splits, C_in, 3C], db_part [db_splits, 3C], dscale_part
@@ -946,28 +757,6 @@ extern "C" int swin_window_attention_qkv_large_bwd(
   return dispatch_bwd<true>(x, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv, dw_part,
                             db_part, dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, H, W,
                             Cin, C, heads, wh, ww, dw_splits, db_splits, stream);
-}
-
-// K12 v5, large-head variant: as swin_window_attention_qkv_large_fwd with the
-// reordered weight w5 [3 * heads, C_in, hd] (bias-free).
-extern "C" int swin_window_attention_qkv5_large_fwd(const void* x, const void* w5, const void* b,
-                                                    const void* scale, const void* mask,
-                                                    float bflag, void* out, void* qkv, void* inv,
-                                                    int B, int H, int W, int Cin, int C, int heads,
-                                                    int wh, int ww, void* stream) {
-  Geometry g;
-  if (!make_geometry(g, B, H, W, Cin, C, heads, wh, ww)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / heads) {
-    case 128:
-      return forward<128, false, QKV_V5>(x, w5, b, scale, nullptr, mask, bflag, out, qkv, inv, g, s);
-    case 256:
-      return forward<256, false, QKV_V5>(x, w5, b, scale, nullptr, mask, bflag, out, qkv, inv, g, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 // K12 v5's backward, large-head variant: the recompute from w5, dx and dW
@@ -992,35 +781,6 @@ extern "C" int swin_window_attention_qkv5_large_bwd(
       return backward<256, false, QKV_V5>(x, w5, w, b, scale, nullptr, mask, bflag, g, qkv, inv,
                                         rstat, dqkv, dw_part, db_part, dscale_part, nullptr, dx,
                                         dw, db, dscale, nullptr, geo, dw_splits, db_splits, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K12 v4, large-head variant (head dims 128 and 256, where K1/K2's one-block
-// v4 instances do not fit): xw [B, nwh * nww, lm, C_in] window-major, W [C_in,
-// 3C], b [3C]; scratch qkv [B * nW * lm, 3C] bf16 and inv [B * nW * lm, 2,
-// heads] fp32 -> out [B, nW, lm, C] bf16, every row written.
-extern "C" int swin_window_attention_qkv4_large_fwd(const void* xw, const void* w, const void* b,
-                                                    const void* scale, const void* mask,
-                                                    float bflag, void* out, void* qkv, void* inv,
-                                                    int B, int nwh, int nww, int lm, int Cin,
-                                                    int C, int heads, int wh, int ww,
-                                                    void* stream) {
-  Geometry g;
-  if (!make_geometry(g, B, nwh * wh, nww * ww, Cin, C, heads, wh, ww) || lm < g.L ||
-      lm > g.LP || lm % 8 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  g.lm = lm;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / heads) {
-    case 128:
-      return forward<128, false, QKV_V4>(xw, w, b, scale, nullptr, mask, bflag, out, qkv, inv, g,
-                                         s);
-    case 256:
-      return forward<256, false, QKV_V4>(xw, w, b, scale, nullptr, mask, bflag, out, qkv, inv, g,
-                                         s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,10 +2,12 @@
 
 The core computes C[M, N] = A[M, K] @ B[K, N] with bf16 operands and fp32
 accumulation (TMA ring, wgmma on 128 x BN block tiles, an epilogue per
-caller). It carries the whole-MLP forward (K5, ``mlp_kernels.mlp_fwd``), the
-projection backward of the qkv-fused attention backwards (dx and dW of K2,
-K7, K10 and K12) and the large-head variant's projection. It has no TPU
-kernel of its own: the TPU package leaves its large products to XLA.
+caller). It carries the whole-MLP forward (K5, ``mlp_kernels.mlp_fwd``) and,
+as a pair of products on one tile, the whole-MLP backward's recompute (K6,
+``mlp_kernels.mlp_bwd``); the qkv projection of the qkv-fused forwards (K1,
+K7, K10, K12; q and k normalized in its epilogue) and backwards, and the
+backwards' dx and dW. It has no TPU kernel of its own: the TPU package
+leaves its large products to XLA.
 
 Here, runnable without a card:
 
@@ -35,13 +37,15 @@ _MAX_GRID_Y = 65535
 
 
 def block_n(n: int) -> int:
-    """Output columns of a block tile: 256, or 128 where N <= 128."""
+    """Output columns of a block tile: 256, or 128 where N <= 128 (the qkv
+    forwards' projection takes 192 at head dim 96, a whole number of
+    heads)."""
     return 256 if n > 128 else 128
 
 
 def stages(bn: int) -> int:
-    """Depth of the TMA ring: 4 stages at BN = 256, 6 at 128."""
-    return 4 if bn == 256 else 6
+    """Depth of the TMA ring: 6 stages at BN = 128, else 4."""
+    return 6 if bn == 128 else 4
 
 
 def smem_bytes(bn: int) -> int:

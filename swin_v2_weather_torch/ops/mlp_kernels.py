@@ -28,10 +28,14 @@ custom_vjp ``_build_mlp`` and ``fused_mlp``; ``mlp_impl: fused2``):
     with its epilogue into a bf16 [T, hidden] scratch, then fc2 with its
     epilogue; bit-equal to :func:`mlp_fwd_reference` (the decomposition moves
     no rounding site). :func:`mlp_fwd_plan` -- the launches of K5.
+  * :func:`mlp_bwd_plan` -- K6's launch: one launch of the core's pair
+    kernel, x @ W1 then g @ W2^T on each output tile, the pre-activation
+    kept in registers between them.
   * :func:`mlp_fwd` / :func:`mlp_bwd` -- launch the kernels in ``csrc/mlp.cu``
     (K5 forward: two products on the GEMM core, ``gemm_core``, through a
     [T, hidden] scratch dropped on return; K6, which recomputes the activation
-    and returns (a, dpre)); each counts its launches.
+    and returns (a, dpre), on the core too); each counts its launches and the
+    core's.
   * :class:`FusedMlp` -- the autograd Function: it saves (x, w1, b1, w2, b2),
     never a [T, hidden] tensor; its backward is K6 plus five plain products.
   * :func:`fused_mlp` -- the entry point.
@@ -268,6 +272,20 @@ def mlp_fwd_plan(t: int, c_in: int, hidden: int, c_out: int) -> dict:
             "scratch_bytes": 2 * t * hidden}
 
 
+def mlp_bwd_plan(t: int, c_in: int, hidden: int, c_out: int) -> dict:
+    """K6's launch at T tokens: one launch of the GEMM core's pair kernel
+    (``gemm_pair_kernel``): on each 128 x ``bn`` tile of [T, hidden], x @ W1
+    (W1 the MN-major B operand) then g @ W2^T (W2 the K-major one) into the
+    same accumulators, the bf16 pre-activation kept in registers between
+    them (``kept_words`` 32-bit words a consumer thread), so no [T, hidden]
+    scratch. ``fc1`` and ``dpre`` are the two products' :func:`gemm_core.plan`.
+    Raises a ValueError where either product does not take the shape."""
+    fc1 = gemm_core.plan(t, hidden, c_in, b_mn=True)
+    dpre = gemm_core.plan(t, hidden, c_out)
+    return {"launches": 1, "bn": fc1["bn"], "grid": fc1["grid"][:2], "smem": fc1["smem"],
+            "kept_words": fc1["bn"] // 4, "fc1": fc1, "dpre": dpre, "scratch_bytes": 0}
+
+
 def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
     if x2.device.type != "cuda" or x2.dim() != 2:
         raise ValueError(f"{name}: x2 must be a 2-D CUDA tensor, got {x2.dim()}-D on {x2.device}")
@@ -280,12 +298,11 @@ def _check_mlp_operands(name, x2, w1, b1, w2, tail, tail_name):
     _build.check_operand(name, "w2", w2, torch.bfloat16, (hidden, c_out), dev)
     dtype, shape = (torch.float32, (c_out,)) if tail_name == "b2" else (torch.bfloat16, (t, c_out))
     _build.check_operand(name, tail_name, tail, dtype, shape, dev)
-    # K6 and K5's products index their 128-token blocks by the grid's y
-    # dimension, at most 65535
-    if c_in % 32 or hidden % 128 or c_out % 32 or -(-t // 128) > 65535:
-        raise ValueError(f"{name}: needs C_in % 32 == 0, hidden % 128 == 0, C_out % 32 == 0 "
-                         f"and at most 65535 blocks of 128 tokens, got {c_in}, {hidden}, "
-                         f"{c_out}, T={t}")
+    # the GEMM core's limits (K5 and K6 run on it): 16-byte TMA rows, and the
+    # 128-token blocks indexed by the grid's y dimension, at most 65535
+    if c_in % 8 or hidden % 8 or c_out % 8 or -(-t // 128) > 65535:
+        raise ValueError(f"{name}: needs C_in, hidden and C_out multiples of 8 and at most "
+                         f"65535 blocks of 128 tokens, got {c_in}, {hidden}, {c_out}, T={t}")
     return t, c_in, hidden, c_out
 
 
@@ -296,8 +313,8 @@ def mlp_fwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     products on the GEMM core (:func:`mlp_fwd_plan`) through a bf16 [T, H]
     activation scratch that is dropped on return.
 
-    C_in must be a multiple of 32, H of 128 and C_out of 32. Launches on the
-    current stream and does not synchronize.
+    C_in, H and C_out must be multiples of 8. Launches on the current stream
+    and does not synchronize.
     """
     name = "mlp_fwd"
     t, c_in, hidden, c_out = _check_mlp_operands(name, x2, w1, b1, w2, b2, "b2")
@@ -323,8 +340,9 @@ def mlp_bwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
             g2: torch.Tensor):
     """The backward kernel (K6): the operands of :func:`mlp_fwd` with the
     output cotangent g2 [T, C_out] bf16 in place of b2 -> (a, dpre), both
-    [T, H] bf16. Same shape limits; launches on the current stream and does
-    not synchronize."""
+    [T, H] bf16: one launch of the GEMM core's pair kernel
+    (:func:`mlp_bwd_plan`). Same shape limits; launches on the current stream
+    and does not synchronize."""
     name = "mlp_bwd"
     t, c_in, hidden, c_out = _check_mlp_operands(name, x2, w1, b1, w2, g2, "g2")
     a = torch.empty((t, hidden), dtype=torch.bfloat16, device=x2.device)
@@ -338,6 +356,7 @@ def mlp_bwd(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
         )
     _build.check(code, name)
     mlp_bwd.launches += 1
+    gemm_core.count_launches(1)  # the pair kernel on the GEMM core
     return a, dpre
 
 

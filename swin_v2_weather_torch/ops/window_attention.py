@@ -21,14 +21,19 @@ with the CPB relative-position bias, ``_build_qkv_bias``; entry point
 ``[B, H, W, C_in]``, already rolled for shifted blocks; the qkv projection,
 the windowing, per-head q/k L2 normalization, the max-free softmax and the
 e @ v product happen in one call, and the output comes back in grid layout
-``[B, H, W, C]``.
+``[B, H, W, C]``. On the card the call runs the projection on the GEMM core
+(q and k normalized in its epilogue) into a transient [B, H, W, 3C] scratch,
+then the streamed attention pass of ``csrc/qkv_attention.cuh``.
 
   * :func:`window_attention_qkv_reference` /
     :func:`window_attention_qkv_backward_reference` -- the plain versions (CPU
     path and test oracles), with the kernels' rounding sites;
     :func:`window_attention_qkv_bias_reference` /
     :func:`window_attention_qkv_bias_backward_reference` the same with the
-    pre-folded CPB term ``badd`` (:func:`fold_cpb_bias`).
+    pre-folded CPB term ``badd`` (:func:`fold_cpb_bias`);
+    :func:`window_attention_qkv_pass_order` the forward with the CUDA
+    kernels' order of fp32 sums (:func:`quad_unit`, :func:`lane_sums`,
+    :func:`chunked_pv`).
   * :func:`window_attention_qkv` / :func:`window_attention_qkv_bwd` -- launch
     ``csrc/window_attention_qkv.cu`` (K1) and
     ``csrc/window_attention_qkv_bwd.cu`` (K2) on CUDA tensors;
@@ -62,12 +67,13 @@ dtype of the w_qkv handed in (bf16 in the model, which casts the fp32
 parameter first, so the cast's backward lifts it to fp32), db, dscale and
 dbias in fp32.
 
-Head dims and windows: the one-block-per-(window, head) kernels (K1/K2, K7)
-hold q, k, v (and g) [LP, HD] in shared memory; where that does not fit
-(head dim 128 in the backward and 256 in both directions at L = 162: the
-e2048 family), the large-head variant (``csrc/window_attention_qkv_large.cu``)
-runs instead, with the same rounding sites. :func:`qkv_variant` says which
-runs for a shape, or raises before any launch.
+Head dims and windows: the forward (K1, K7, K10, K12) takes head dims 32-256
+and any L (:func:`qkv_fwd_plan`). The one-block-per-(window, head) backward
+(K2, K7) holds q, k, v and g [LP, HD] in shared memory; where that does not
+fit (head dim 256 at L = 162: the e2048 family), the large-head backward
+(``csrc/window_attention_qkv_large.cu``) runs instead, with the same rounding
+sites. :func:`qkv_variant` says which runs for a shape, or raises before any
+launch.
 
 Selectable variants, as in the JAX package, read at call time from the
 module globals (set from the environment at import):
@@ -135,17 +141,15 @@ _LARGE_RW = 4  # 16-row warps per block of the large-head backward kernels
 
 def qkv_smem_bytes(hd: int, l: int) -> dict:
     """Shared memory (bytes) of each qkv-fused kernel at head dim ``hd`` and
-    window length ``l``, as the CUDA sources compute it: ``fwd``/``bwd`` of
-    the one-block-per-(window, head) kernels (K1, K2; K7 and K10 alike) and
-    ``large_fwd``/``large_rows``/``large_cols`` of the large-head variant."""
+    window length ``l``, as the CUDA sources compute it: ``fwd`` of the
+    forward's attention pass (K1, K7, K10 and v5 alike: :func:`qkv_fwd_plan`),
+    ``bwd`` of the one-block-per-(window, head) backward (K2; K7 and K10
+    alike) and ``large_rows``/``large_cols`` of the large-head backward."""
     lp = -(-l // 16) * 16
-    nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
-    rows = nw * 16 * ldp * 2
-    staging = (2 * lp * 40 + 2 * 32 * ldq) * 2
+    ldq, ldp, rw = hd + 8, lp + 8, _LARGE_RW
     return {
-        "fwd": 3 * lp * ldq * 2 + nw * 1024 + max(rows, staging),
+        "fwd": qkv_fwd_plan(hd, l)["smem"],
         "bwd": 4 * lp * ldq * 2 + (4 * lp + 16) * 4,
-        "large_fwd": (lp * ldq + 32 * ldq + lp * ldp) * 2 + nw * 1024,
         "large_rows": (2 * rw * 16 * ldq + 64 * ldq + rw * 16 * ldp) * 2
         + (rw * 16 * hd + rw * 256 + 16) * 4,
         "large_cols": (2 * rw * 16 * ldq + 64 * ldq + 2 * rw * 16 * ldp) * 2
@@ -154,22 +158,130 @@ def qkv_smem_bytes(hd: int, l: int) -> dict:
 
 
 def qkv_variant(name: str, hd: int, l: int, backward: bool) -> str:
-    """Which qkv-fused kernel runs at head dim ``hd`` and window length ``l``:
-    ``'base'`` (K1/K2, head dim 32/64/96/128) where its shared memory fits,
-    else ``'large'`` (head dim 128 or 256) where that variant's fits; any
-    other shape raises a ValueError before a launch."""
+    """Which qkv-fused kernel runs at head dim ``hd`` and window length ``l``.
+    Forward: ``'streamed'`` (the projection on the GEMM core, then the
+    streamed attention pass) at head dims 32/64/96/128/256 and any L.
+    Backward: ``'base'`` (K2, head dim 32/64/96/128) where its shared memory
+    fits, else ``'large'`` (head dim 128 or 256) where that variant's fits,
+    L at most 256. Any other shape raises a ValueError before a launch."""
+    if not backward:
+        if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
+            return "streamed"
+        raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
+                         f"{ATTN_FWD_HEAD_DIMS})")
     sm = qkv_smem_bytes(hd, l)
-    base = sm["bwd" if backward else "fwd"]
-    large = max(sm["large_rows"], sm["large_cols"]) if backward else sm["large_fwd"]
+    base, large = sm["bwd"], max(sm["large_rows"], sm["large_cols"])
     if l <= 256:
         if hd in (32, 64, 96, 128) and base <= _MAX_SMEM:
             return "base"
         if hd in (128, 256) and large <= _MAX_SMEM:
             return "large"
     raise ValueError(
-        f"{name}: no {'backward' if backward else 'forward'} kernel takes head dim {hd} at "
-        f"L = {l}: head dims 32/64/96/128 need {base} B of shared memory, the large-head "
-        f"variant (head dim 128 or 256) {large} B, of {_MAX_SMEM}; L must be at most 256")
+        f"{name}: no backward kernel takes head dim {hd} at L = {l}: head dims 32/64/96/128 "
+        f"need {base} B of shared memory, the large-head variant (head dim 128 or 256) "
+        f"{large} B, of {_MAX_SMEM}; L must be at most 256")
+
+
+def qkv_fwd_plan(hd: int, l: int, lq: Optional[int] = None) -> dict:
+    """The qkv-fused forward's attention pass (``csrc/qkv_attention.cuh``,
+    layouts QKV and QKV4) at head dim ``hd``, window length ``l`` and ``lq``
+    query rows a window (v4's lm; default ``l``): the launch of
+    :func:`attn_fwd_plan` (e of the warp's keys kept in registers up to
+    L = 192, one streamed sweep of k and v tiles beyond) with a table of
+    ``lq`` token rows."""
+    return attn_fwd_plan(hd, l, ltab=lq)
+
+
+def qkv_fwd_info(hd: int, l: int, bias: bool = False, pad: bool = False, v4: bool = False,
+                 lm: Optional[int] = None) -> dict:
+    """The forward pass's launch at head dim ``hd`` and window length ``l``
+    (``pad``: head pitch 128, K10 and padded v4; ``v4``: layout QKV4 with
+    ``lm`` query rows), from the CUDA runtime, as :func:`attn_fwd_info`.
+    Needs the GPU."""
+    lib = _build.load_library()
+    info = (ctypes.c_int * 7)()
+    _build.check(lib.swin_window_attention_qkv_fwd_info(hd, int(bias), int(pad), int(v4), l,
+                                                        l if lm is None else lm, info),
+                 "swin_window_attention_qkv_fwd_info")
+    keys = ("threads", "smem", "registers", "local_bytes", "blocks_per_sm", "blocks_per_window",
+            "z_path")
+    return dict(zip(keys, info))
+
+
+def quad_unit(t: torch.Tensor):
+    """The forward projection epilogue's head normalization of the
+    bf16-valued t [..., hd] (fp32): sum t^2 per lane of a quad over its
+    columns 8 j + 2 c + {0, 1} in column order, each step a fused
+    multiply-add (emulated in fp64, then rounded), then across the quad (xor
+    1, then 2); inv = 1 / sqrt(max(sum, 1e-24)) -> (bf16-valued t * inv,
+    inv)."""
+    hd = t.shape[-1]
+    tv = t.double().reshape(*t.shape[:-1], hd // 8, 4, 2)  # [..., j, c, x]
+    ss = torch.zeros((*t.shape[:-1], 4), dtype=torch.float32, device=t.device)
+    for j in range(hd // 8):
+        for x in range(2):
+            v = tv[..., j, :, x]
+            ss = (v * v + ss.double()).float()
+    for x in (1, 2):
+        ss = ss + ss[..., [c ^ x for c in range(4)]]
+    inv = (1.0 / torch.sqrt(torch.clamp_min(ss[..., :1], 1e-24)))
+    return (t * inv).to(torch.bfloat16).float(), inv
+
+
+def lane_sums(e: torch.Tensor, nt: int = 2) -> torch.Tensor:
+    """The pass's sum of e over the keys of e [..., L, Lk] (fp32) in its
+    order: each lane's in key order (a step of 16 nt keys, each warp of a
+    pair 8 nt of them in nt 8-key tiles, each lane of a quad two adjacent
+    keys of a tile), then across the quad (xor 1, then 2), then warp 0's
+    plus warp 1's. K8's z path sums e = exp(z - max) the same way."""
+    lk = e.shape[-1]
+    nstep = -(-lk // (16 * nt))
+    ep = torch.zeros((*e.shape[:-1], nstep * 16 * nt), dtype=e.dtype, device=e.device)
+    ep[..., :lk] = e
+    # key = 16 nt step + 8 nt d + 8 n + 2 c + x -> [..., step, d, n, c, x]
+    ep = ep.reshape(*e.shape[:-1], nstep, 2, nt, 4, 2)
+    lsum = torch.zeros((*e.shape[:-1], 2, 4), dtype=e.dtype, device=e.device)
+    for st in range(nstep):
+        for n in range(nt):
+            for x in range(2):
+                lsum = lsum + ep[..., st, :, n, :, x]
+    for x in (1, 2):
+        lsum = lsum + lsum[..., [c ^ x for c in range(4)]]
+    return lsum[..., 0, 0] + lsum[..., 1, 0]
+
+
+def chunked_pv(p16: torch.Tensor, v16: torch.Tensor, chunk: int = 16) -> torch.Tensor:
+    """p16 [..., L, Lk] @ v16 [..., Lk, hd] in fp32 accumulated as the pass
+    accumulates it: one product of ``chunk`` keys at a time, in key order."""
+    out = torch.zeros((*p16.shape[:-1], v16.shape[-1]), dtype=torch.float32, device=p16.device)
+    for k0 in range(0, p16.shape[-1], chunk):
+        out = out + torch.matmul(p16[..., k0:k0 + chunk].float(), v16[..., k0:k0 + chunk, :].float())
+    return out
+
+
+def one_sweep_pass(e: torch.Tensor, v16: torch.Tensor) -> torch.Tensor:
+    """K1's attention pass (layout QKV) in plain fp32 ops, from e = exp(z)
+    [..., L, L] and the bf16-valued v16 [..., L, hd]: out = (bf16(e) @ v16,
+    accumulated by key chunk) * (1 / sum e), sum e in :func:`lane_sums`'
+    order; fp32 (the caller rounds to bf16)."""
+    return chunked_pv(e.to(torch.bfloat16), v16) * (1.0 / lane_sums(e))[..., None]
+
+
+def window_attention_qkv_pass_order(x, w_qkv, b_qkv, scale, window, mask_pattern=None,
+                                    boundary_flag=None, badd=None) -> torch.Tensor:
+    """The plain version of K1's (``badd``: K7's) forward with the CUDA
+    kernels' order of fp32 sums: the projection epilogue's head
+    normalization (:func:`quad_unit`) and the pass's (:func:`one_sweep_pass`);
+    its rounding sites are :func:`window_attention_qkv_reference`'s."""
+    from swin_v2_weather_torch.models.swin import window_reverse
+
+    b, h, w, _ = x.shape
+    wh, ww = int(window[0]), int(window[1])
+    c = w_qkv.shape[-1] // 3
+    v, _, _, _, _, e, _ = _recompute(x, w_qkv, b_qkv, scale, window, mask_pattern,
+                                     boundary_flag, badd, unit=quad_unit)
+    out = one_sweep_pass(e, v).to(x.dtype).permute(0, 2, 1, 3).reshape(-1, wh, ww, c)
+    return window_reverse(out, (wh, ww), (h, w))
 
 
 def _window_grid(x: torch.Tensor, window: Tuple[int, int]) -> Tuple[int, int]:
@@ -193,9 +305,12 @@ def fold_cpb_bias(bias: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return shifted - scale.float()[:, None, None]
 
 
-def _recompute(x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, badd=None):
+def _recompute(x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, badd=None,
+               unit=None):
     """The forward's recompute in plain ops: (v16, qn16, kn16, inv_q, inv_k, e,
-    r), each [Bw, heads, L, *] fp32 (v16, qn16 and kn16 hold bf16 values)."""
+    r), each [Bw, heads, L, *] fp32 (v16, qn16 and kn16 hold bf16 values).
+    ``unit``: the head normalization t -> (bf16-valued t * inv, inv), a plain
+    row sum of squares unless given."""
     from swin_v2_weather_torch.models.swin import window_partition
 
     b, h, w, _ = x.shape
@@ -211,10 +326,11 @@ def _recompute(x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, badd
     qkv = window_partition(qkv.to(bf), (wh, ww)).reshape(-1, l, 3, heads, hd)
     q, k, v = qkv.permute(2, 0, 3, 1, 4).float()  # each [Bw, heads, L, hd]
 
-    def unit(t):
+    def plain_unit(t):
         inv = torch.rsqrt(torch.clamp_min(torch.sum(t * t, -1, keepdim=True), 1e-24))
         return (t * inv).to(bf).float(), inv
 
+    unit = unit or plain_unit
     qn, inv_q = unit(q)
     kn, inv_k = unit(k)
     s = torch.matmul(qn, kn.transpose(-1, -2))  # [Bw, heads, L, L]
@@ -408,33 +524,23 @@ def _check_operands(name, x, w_qkv, b_qkv, scale, window, mask_pattern, g=None, 
 
 def _launch_forward(fn, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, badd,
                     w5=None):
-    """Launch K1 (K7 with ``badd``, K12 v5 with ``w5`` in place of ``w_qkv``),
-    one-block or large-head as :func:`qkv_variant` says."""
+    """Launch K1 (K7 with ``badd``, K12 v5 with ``w5`` in place of ``w_qkv``):
+    the projection on the GEMM core into a [B, H, W, 3C] bf16 scratch dropped
+    on return, then the attention pass."""
     name = fn.__name__
-    b, h, w, c_in, c, heads, wh, ww, _, variant = _check_operands(
+    b, h, w, c_in, c, heads, wh, ww, _, _ = _check_operands(
         name, x, w_qkv, b_qkv, scale, window, mask_pattern, badd=badd, w5=w5)
     out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=x.device)
+    qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=x.device)
     lib = _build.load_library()
     mask_ptr = None if mask_pattern is None else mask_pattern.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         head = (x.data_ptr(), (w_qkv if w5 is None else w5).data_ptr(), b_qkv.data_ptr(),
                 scale.data_ptr())
-        tail = (mask_ptr, float(boundary_flag), out.data_ptr(),
+        tail = (mask_ptr, float(boundary_flag), qkv.data_ptr(), out.data_ptr(),
                 b, h, w, c_in, c, heads, wh, ww, stream)
-        if variant == "large":
-            # the projection's output (normalized q, k and v) and the norms
-            qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=x.device)
-            inv = torch.empty((b, h, w, 2, heads), dtype=torch.float32, device=x.device)
-            scratch = (qkv.data_ptr(), inv.data_ptr(), b, h, w, c_in, c, heads, wh, ww, stream)
-            if w5 is not None:
-                code = lib.swin_window_attention_qkv5_large_fwd(
-                    *head, mask_ptr, float(boundary_flag), out.data_ptr(), *scratch)
-            else:
-                code = lib.swin_window_attention_qkv_large_fwd(
-                    *head, None if badd is None else badd.data_ptr(), mask_ptr,
-                    float(boundary_flag), out.data_ptr(), *scratch)
-        elif w5 is not None:
+        if w5 is not None:
             code = lib.swin_window_attention_qkv5_fwd(*head, *tail)
         elif badd is None:
             code = lib.swin_window_attention_qkv_fwd(*head, *tail)
@@ -442,8 +548,8 @@ def _launch_forward(fn, x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_f
             code = lib.swin_window_attention_qkv_bias_fwd(*head, badd.data_ptr(), *tail)
     _build.check(code, name)
     fn.launches += 1
-    if variant == "large":  # its projection ran on the GEMM core
-        gemm_core.count_launches(gemm_core.projection_launches(heads, w5 is not None))
+    # the projection ran on the GEMM core
+    gemm_core.count_launches(gemm_core.projection_launches(heads, w5 is not None))
     return out
 
 
@@ -460,9 +566,10 @@ def window_attention_qkv(
     b_qkv [3C] fp32, scale [heads] fp32, mask_pattern [L, L] fp32 or None
     -> [B, H, W, C] bf16.
 
-    C_in must be a multiple of 32 and L = wh * ww at most 256; the head dim
-    one of 32/64/96/128 (K1) or, with the large-head variant, 256
-    (:func:`qkv_variant`). Launches on the current stream and does not
+    C_in must be a multiple of 32 and the head dim one of 32/64/96/128/256
+    (:func:`qkv_variant`); any L = wh * ww. The projection runs on the GEMM
+    core into a [B, H, W, 3C] bf16 scratch that is dropped on return, then
+    the attention pass. Launches on the current stream and does not
     synchronize.
     """
     return _launch_forward(window_attention_qkv, x, w_qkv, b_qkv, scale, window, mask_pattern,
@@ -913,11 +1020,14 @@ def _check_padded_operands(name, x, wp, bp, scale, hd, window, mask_pattern, g=N
         _build.check_operand(name, "g", g, torch.bfloat16, (b, h, w, cp), dev)
     if mask_pattern is not None:
         _build.check_operand(name, "mask_pattern", mask_pattern, torch.float32, (l, l), dev)
-    sm = qkv_smem_bytes(hd, l)["bwd" if g is not None else "fwd"]
-    if hd not in (32, 64, 96, 128) or c_in % 32 or l > 256 or sm > _MAX_SMEM:
-        raise ValueError(f"{name}: needs head dim in (32, 64, 96, 128), C_in % 32 == 0, L <= 256 "
-                         f"and {sm} B of shared memory <= {_MAX_SMEM}; got head dim {hd}, "
-                         f"C_in={c_in}, L={l}")
+    if hd not in (32, 64, 96, 128) or c_in % 32:
+        raise ValueError(f"{name}: needs head dim in (32, 64, 96, 128) and C_in % 32 == 0; got "
+                         f"head dim {hd}, C_in={c_in}")
+    if g is not None:  # the backward's one-block pass
+        sm = qkv_smem_bytes(hd, l)["bwd"]
+        if l > 256 or sm > _MAX_SMEM:
+            raise ValueError(f"{name}: the backward needs L <= 256 and {sm} B of shared memory "
+                             f"<= {_MAX_SMEM}; got L={l}")
     return b, h, w, c_in, heads, wh, ww, l
 
 
@@ -931,15 +1041,17 @@ def window_attention_qkv_padded(x, wp, bp, scale, hd, window, mask_pattern=None,
     b, h, w, c_in, heads, wh, ww, _ = _check_padded_operands(name, x, wp, bp, scale, hd, window,
                                                              mask_pattern)
     out = torch.empty((b, h, w, heads * HD_PAD), dtype=torch.bfloat16, device=x.device)
+    qkv = torch.empty((b, h, w, 3 * heads * HD_PAD), dtype=torch.bfloat16, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.swin_window_attention_qkv_padded_fwd(
             x.data_ptr(), wp.data_ptr(), bp.data_ptr(), scale.data_ptr(),
             None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
-            out.data_ptr(), b, h, w, c_in, heads, hd, wh, ww, stream)
+            qkv.data_ptr(), out.data_ptr(), b, h, w, c_in, heads, hd, wh, ww, stream)
     _build.check(code, name)
     window_attention_qkv_padded.launches += 1
+    gemm_core.count_launches(1)  # the padded projection on the GEMM core
     return out
 
 
@@ -1307,7 +1419,7 @@ ATTN_FWD_HEAD_DIMS = (32, 64, 96, 128, 256)
 ATTN_FWD_ZL = 192  # the longest window whose z the forward keeps in registers
 
 
-def attn_fwd_plan(hd: int, l: int) -> dict:
+def attn_fwd_plan(hd: int, l: int, ltab: Optional[int] = None) -> dict:
     """The K8/K9 forward's launch at head dim ``hd`` and window length ``l``,
     as ``FwdShape``/``fwd_plan`` in ``csrc/qkv_attention.cuh`` compute it:
     ``z`` (L <= 192: each warp keeps the z of its keys in registers and
@@ -1317,7 +1429,8 @@ def attn_fwd_plan(hd: int, l: int) -> dict:
     rows, a ring of ``ns`` stages of ``ks`` keys (k and v tiles, or one of
     them on the z path), the warp pairs' p exchange (``nt`` KB) and row
     statistics (256 B) per tile, and a table of L 4-byte words (K8's token
-    pixels, K9's key norms)."""
+    pixels, K9's key norms; ``ltab`` words where given: the qkv-fused
+    forwards' token rows, :func:`qkv_fwd_plan`)."""
     z = l <= ATTN_FWD_ZL
     nt, rt_max = 2, (3 if hd > 128 else 4)
     ks = 32 if hd > 128 or not z else 64
@@ -1327,7 +1440,7 @@ def attn_fwd_plan(hd: int, l: int) -> dict:
     nchunk = -(-ntiles // rt_max)
     rt = -(-ntiles // nchunk)
     smem = ((rt * 16 + tiles * ns * ks) * (hd + 8) * 2 + rt * (nt * 1024 + 256)
-            + (l + 3) // 4 * 16)
+            + ((l if ltab is None else ltab) + 3) // 4 * 16)
     return {"z": z, "rt": rt, "nchunk": nchunk, "threads": rt * 64, "nt": nt, "ks": ks,
             "ns": ns, "smem": smem}
 

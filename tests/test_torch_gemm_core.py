@@ -1,5 +1,6 @@
 """PyTorch port, the Hopper GEMM core (``ops/csrc/wgmma_gemm.cuh``) and the
-redesigned whole-MLP forward (K5) on it.
+whole-MLP kernels on it: the forward (K5, two launches) and the backward's
+recompute (K6, one launch of the core's pair kernel).
 
 On the CPU: the core's Python side (block tile, ring, grid and split
 planning, the shape checks that raise before a launch, the CPU dispatch of
@@ -7,7 +8,8 @@ its entry point) and K5's schedule: its launches, and the plain two-phase
 version (fc1 and its epilogue into a bf16 scratch, then fc2 and its
 epilogue), held bit-equal to ``mlp_fwd_reference`` and through it to the JAX
 kernel ``mlp_fwd_pallas`` (interpret mode), which shows that the
-decomposition moves no rounding site.
+decomposition moves no rounding site; K6's launch plan and the shapes it
+refuses.
 
 On a GPU only (``-m cuda``; skipped here): the core at ragged M, N and K with
 either operand K-major or MN-major against the exact product of the same
@@ -176,6 +178,31 @@ def test_mlp_fwd_plan(c_in, hidden, c_out):
     assert p["fc1"]["grid"] == (-(-hidden // 256), 507, 1)
     assert p["fc2"]["grid"] == (-(-c_out // 256), 507, 1)
     assert p["scratch_bytes"] == 2 * 64800 * hidden
+
+
+@pytest.mark.parametrize("t, c_in, hidden, c_out", [(64800, 768, 3072, 768),
+                                                    (64800, 2048, 4096, 2048),
+                                                    (16200, 2048, 4096, 2048), (100, 32, 136, 40)])
+def test_mlp_bwd_plan(t, c_in, hidden, c_out):
+    """K6 is one launch of the core's pair kernel at every width: one grid
+    over the [T, hidden] output tiles (256 columns, 128 rows), x @ W1 over
+    C_in then g @ W2^T over C_out on each tile, the pre-activation kept in
+    64 registers a consumer thread (half the 128 accumulators) and no
+    [T, hidden] scratch; the ring fits a block's shared memory."""
+    p = mlp_kernels.mlp_bwd_plan(t, c_in, hidden, c_out)
+    assert p["launches"] == 1 and p["scratch_bytes"] == 0
+    assert p["bn"] == 256 and p["grid"] == (-(-hidden // 256), -(-t // 128))
+    assert p["kept_words"] == 64 and p["fc1"]["k_chunk"] >= c_in and p["dpre"]["k_chunk"] >= c_out
+    assert p["smem"] <= 232448
+
+
+@pytest.mark.parametrize("t, c_in, hidden, c_out", [(100, 36, 128, 64), (100, 64, 130, 64),
+                                                    (100, 64, 128, 20), (128 * 65536, 64, 128, 64)])
+def test_mlp_bwd_plan_refuses_what_the_core_does_not_take(t, c_in, hidden, c_out):
+    """Widths that are not multiples of 8 (16-byte TMA rows) and more than
+    65535 row tiles raise before any launch."""
+    with pytest.raises(ValueError):
+        mlp_kernels.mlp_bwd_plan(t, c_in, hidden, c_out)
 
 
 # --------------------------------------------------------------------------

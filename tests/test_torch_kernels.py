@@ -1033,13 +1033,14 @@ def assert_dscale_close(out, ref):
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_large_head_kernels_match_plain(cuda_device, hd, use_bias):
     """K1/K2 (and K7 with the bias) at head dim 128 and 256 with L = 162, where
-    the large-head variant takes both directions at 256 (at 128 the one-block
-    kernels fit, the backward since its scores left shared memory): forward
-    and backward against the plain versions, the launch counted on the usual
-    wrapper, two backward calls bit-equal."""
+    the backward takes the large-head variant at 256 (at 128 the one-block
+    kernel fits since its scores left shared memory) and the forward is the
+    projection on the GEMM core plus the streamed pass at every head dim:
+    forward and backward against the plain versions, the launch counted on
+    the usual wrapper, two backward calls bit-equal."""
     x, w, w16, b, scale, g, mask, badd = large_head_operands(cuda_device, hd)
     assert WA.qkv_variant("t", hd, 162, True) == ("base" if hd == 128 else "large")
-    assert WA.qkv_variant("t", hd, 162, False) == ("base" if hd == 128 else "large")
+    assert WA.qkv_variant("t", hd, 162, False) == "streamed"
     extra = (badd,) if use_bias else ()
     kind = "window_attention_qkv" + ("_bias" if use_bias else "")
     fwd, bwd = getattr(WA, kind), getattr(WA, kind + "_bwd")
@@ -1074,9 +1075,10 @@ def test_large_head_kernels_match_plain(cuda_device, hd, use_bias):
 @pytest.mark.cuda
 def test_qkv_kernels_refuse_shapes_no_instance_takes(cuda_device):
     """A head dim or window that no instance takes raises a ValueError before
-    any launch: head dim 96 at L = 256 forward (no instance fits its shared
-    memory; the backward's one-block kernel takes it since its scores left
-    shared memory, and runs), head dim 192 either way."""
+    any launch: head dim 192 either way. Head dim 96 at L = 256 runs both
+    ways (the forward's pass takes any L; the backward's one-block kernel
+    fits since its scores left shared memory): zero inputs give a zero
+    output and zero gradients."""
     before = launch_counts()
     for hd, window, grid in ((96, (16, 16), (16, 16)), (192, WINDOW, (H, W))):
         c = 2 * hd
@@ -1084,14 +1086,17 @@ def test_qkv_kernels_refuse_shapes_no_instance_takes(cuda_device):
         w = torch.zeros((c, 3 * c), device=cuda_device, dtype=torch.bfloat16)
         b = torch.zeros(3 * c, device=cuda_device)
         scale = torch.ones(2, device=cuda_device)
-        with pytest.raises(ValueError):
-            WA.window_attention_qkv(x, w, b, scale, window)
         if hd == 96:
+            out = WA.window_attention_qkv(x, w, b, scale, window)
             dx = WA.window_attention_qkv_bwd(x, w, b, scale, x[..., :c], window)[0]
             torch.cuda.synchronize()
+            assert torch.count_nonzero(out).item() == 0  # v = 0
             assert torch.count_nonzero(dx).item() == 0  # zero cotangent, zero gradient
+            before[QKV_KERNELS.index(WA.window_attention_qkv)] += 1
             before[QKV_KERNELS.index(WA.window_attention_qkv_bwd)] += 1
         else:
+            with pytest.raises(ValueError):
+                WA.window_attention_qkv(x, w, b, scale, window)
             with pytest.raises(ValueError):
                 WA.window_attention_qkv_bwd(x, w, b, scale, x[..., :c], window)
     assert launch_counts() == before
@@ -1198,7 +1203,7 @@ def test_qkv_variant_micro_model_launch_counts(cuda_device, monkeypatch, switch,
 @pytest.mark.cuda
 def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
     """The micro config at embed 1024 with 4 heads of 256 and mlp_ratio 2 on
-    ``fused2`` (large-head K1/K2, wide K5, K6 at C_out 1024) on the GPU against
+    ``fused2`` (K1 at head dim 256, the large-head K2, K5 and K6 at C_out 1024) on the GPU against
     the same model on the CPU: the eval forward and the parameter gradients,
     each kernel once a block."""
     over = dict(attn_impl="pallas_qkv", embed_dim=1024, num_heads=4, mlp_ratio=2,
@@ -1414,9 +1419,8 @@ def test_v4_kernels_match_plain(cuda_device, shape, padded):
 def test_v4_kernels_read_the_pad_rows_as_the_tpu_kernel(cuda_device, hd):
     """v4's kernels take the window-major pad rows as JAX's do: x's pad rows
     are projected (pad query rows attend to the real keys), g's pad rows
-    reach dk, dv and dscale. With random pad rows in xw and gw (one-block
-    instance at head dim 32, large-head backward at 128) the kernels still
-    follow the plain versions."""
+    reach dk, dv and dscale. With random pad rows in xw and gw (head dims 32
+    and 128) the kernels still follow the plain versions."""
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
     x, wq, bq, scale, g, mask = k12_operands(cuda_device, H, W, 2 * hd, 2, seed=71)
@@ -1445,10 +1449,10 @@ def test_v4_kernels_read_the_pad_rows_as_the_tpu_kernel(cuda_device, hd):
 @pytest.mark.parametrize("hd", [128, 256])
 def test_v4_large_head_kernels_match_plain(cuda_device, hd):
     """K12 v4 at head dims 128 and 256 with L = 162 (2 heads, shifted), where
-    both directions take v4's instances of the large-head variant at 256
-    (the one-block ones at 128): against the plain versions on every
-    window-major row, dxw's pad rows exactly zero, two backward calls
-    bit-equal."""
+    the backward takes v4's instance of the large-head variant at 256 (the
+    one-block one at 128) and the forward its pass (layout QKV4) at both:
+    against the plain versions on every window-major row, dxw's pad rows
+    exactly zero, two backward calls bit-equal."""
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
     assert WA.qkv_variant("t", hd, 162, True) == ("base" if hd == 128 else "large")
@@ -1528,3 +1532,90 @@ def test_qkv45_micro_model_launch_counts(cuda_device, monkeypatch, impl, pad_hea
     assert launches == [depth, depth, 0, 0]
     assert_close_ulps(out.numpy(), ref.numpy(), 8, 0.5)
     assert_micro_grads_close(ref_grads, grads, noisy=("logit_scale",))
+
+
+# --------------------------------------------------------------------------
+# the qkv-fused forward (K1, K7: the projection on the GEMM core, then the
+# streamed pass) at every head dim and window, and K6 on the GEMM core
+# --------------------------------------------------------------------------
+
+QKV_FWD_WINDOWS = {12: ((6, 8), (3, 4)), 162: ((H, W), WINDOW), 288: ((24, 48), (12, 24))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("l", [12, 162, 288])
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_qkv_forward_at_every_head_dim_and_window(cuda_device, hd, l, use_bias):
+    """K1 (K7 with the folded CPB bias) at head dims 32-256 and L = 12, 162
+    and 288 (2 heads, shifted): against the plain version (2 ulps max, 0.01
+    mean) and against the plain version of the pass's order of sums
+    (``window_attention_qkv_pass_order``, the same bounds), one launch on its
+    wrapper and one projection on the GEMM core. The backward refuses
+    L = 288 before a launch."""
+    from swin_v2_weather_torch.ops import gemm_core
+
+    (h, w), window = QKV_FWD_WINDOWS[l]
+    rng = np.random.default_rng(81)
+    c, heads = 2 * hd, 2
+    dev = cuda_device
+    x = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev).bfloat16()
+    wq = torch.from_numpy((rng.standard_normal((c, 3 * c)) / np.sqrt(c)).astype(np.float32)).to(
+        dev).bfloat16()
+    bq = torch.from_numpy((0.1 * rng.standard_normal(3 * c)).astype(np.float32)).to(dev)
+    scale = torch.from_numpy(np.exp(np.log(10.0) + 0.3 * rng.standard_normal(heads)).astype(
+        np.float32)).to(dev)
+    mask = torch.from_numpy(make_shift_mask((h, w), window, (window[0] // 2, window[1] // 2))[-1]
+                            .copy()).to(dev)
+    raw = torch.from_numpy((2.0 * rng.standard_normal((heads, l, l))).astype(np.float32)).to(dev)
+    extra = (WA.fold_cpb_bias(raw, scale).contiguous(),) if use_bias else ()
+    fwd = WA.window_attention_qkv_bias if use_bias else WA.window_attention_qkv
+    before, core = launch_counts(), gemm_core.gemm.launches
+    out = fwd(x, wq, bq, scale, *extra, window, mask, 1.0)
+    torch.cuda.synchronize()
+    want = list(before)
+    want[QKV_KERNELS.index(fwd)] += 1
+    assert launch_counts() == want and gemm_core.gemm.launches == core + 1
+    ref = (WA.window_attention_qkv_bias_reference(x, wq, bq, scale, *extra, window, mask)
+           if use_bias else WA.window_attention_qkv_reference(x, wq, bq, scale, window, mask))
+    order = WA.window_attention_qkv_pass_order(x, wq, bq, scale, window, mask, 1.0, *extra)
+    assert out.shape == ref.shape == (1, h, w, c) and torch.isfinite(out.float()).all()
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 2, 0.01)
+    assert_close_ulps(out.float().cpu().numpy(), order.float().cpu().numpy(), 2, 0.01)
+    if l > 256:
+        bwd = WA.window_attention_qkv_bias_bwd if use_bias else WA.window_attention_qkv_bwd
+        with pytest.raises(ValueError, match="backward"):
+            bwd(x, wq, bq, scale, *extra, out, window, mask, 1.0)
+        assert launch_counts() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, c_in, hidden, c_out", [(100, 32, 136, 40), (1000, 768, 3072, 768),
+                                                    (777, 2048, 4096, 2048)])
+def test_k6_on_the_core_matches_plain(cuda_device, t, c_in, hidden, c_out):
+    """K6 (one launch of the GEMM core's pair kernel) at ragged T, at the
+    flagship and e2048 widths and at widths that leave partial K slices and
+    a partial column tile: a within 1 ulp max / 0.01 mean and dpre within 2
+    / 0.01 of the plain version (the bounds of the other whole-MLP tests),
+    two calls bit-equal, one launch on the wrapper and on the core."""
+    from swin_v2_weather_torch.ops import gemm_core
+
+    assert mlp_kernels.mlp_bwd_plan(t, c_in, hidden, c_out)["launches"] == 1
+    rng = np.random.default_rng(91)
+    dev = cuda_device
+    x2 = torch.from_numpy(rng.standard_normal((t, c_in)).astype(np.float32)).to(dev).bfloat16()
+    w1 = torch.from_numpy((rng.standard_normal((c_in, hidden)) / np.sqrt(c_in)).astype(
+        np.float32)).to(dev)
+    b1 = torch.from_numpy((0.1 * rng.standard_normal(hidden)).astype(np.float32)).to(dev)
+    w2 = torch.from_numpy((rng.standard_normal((hidden, c_out)) / np.sqrt(hidden)).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((t, c_out)).astype(np.float32)).to(dev).bfloat16()
+    before, core = mlp_kernels.mlp_bwd.launches, gemm_core.gemm.launches
+    a, dpre = mlp_kernels.mlp_bwd(x2, w1.bfloat16(), b1, w2.bfloat16(), g)
+    torch.cuda.synchronize()
+    assert (mlp_kernels.mlp_bwd.launches, gemm_core.gemm.launches) == (before + 1, core + 1)
+    a_ref, dpre_ref = mlp_kernels.mlp_bwd_reference(x2, w1, b1, w2, g)
+    assert_close_ulps(a.float().cpu().numpy(), a_ref.float().cpu().numpy(), 1, 0.01)
+    assert_close_ulps(dpre.float().cpu().numpy(), dpre_ref.float().cpu().numpy(), 2, 0.01)
+    again = mlp_kernels.mlp_bwd(x2, w1.bfloat16(), b1, w2.bfloat16(), g)
+    assert torch.equal(a, again[0]) and torch.equal(dpre, again[1])

@@ -1,15 +1,15 @@
-"""PyTorch port, the e2048 widths: the large-head variant of the qkv-fused
-attention (head dim 256), the whole-MLP forward at C_out above 768 (K5's
-schedule) and the fused LayerNorm above 2048 channels.
+"""PyTorch port, the e2048 widths: the qkv-fused attention at head dim 256
+(K1's streamed pass, the large-head backward), the whole-MLP forward at
+C_out above 768 (K5's schedule) and the fused LayerNorm above 2048 channels.
 
 On the CPU the plain versions run: at head dim 256 they are held to the JAX
 kernels (interpret mode), and the e2048 block geometry (embed 2048, 8 heads
 of 256, mlp_ratio 2, ``mlp_impl: fused2``, depth 2, at the micro image) to
 the JAX model, forward and gradients. Which kernel variant runs where, and
 the shared memory each needs, is computed by the wrappers from the same
-formulas as the CUDA sources; the table here pins those numbers (the
-one-block-per-(window, head) kernels at L = 162 need 219,648 B forward and
-194,368 B backward at head dim 128, 354,816 and 374,592 B at 256, against
+formulas as the CUDA sources; the table here pins those numbers (at L = 162
+the forward's streamed pass needs 96,912 B at head dim 128 and 100,496 B at
+256, the one-block backward 194,368 B at 128 and 374,592 B at 256, against
 the 232,448 B a block may use). The CUDA kernels themselves are held to these
 plain versions on the GPU (tests/test_torch_kernels.py, ``-m cuda``).
 """
@@ -35,14 +35,14 @@ torch.set_num_threads(1)
 # which kernel runs, and its shared memory
 # --------------------------------------------------------------------------
 
-# (head dim, L) -> bytes of (K1 forward, K2 backward) as the CUDA sources
-# compute them (smem_bytes, bwd_smem_bytes), and the variant of each
+# (head dim, L) -> bytes of (K1's forward pass, K2 backward) as the CUDA
+# sources compute them (fwd_plan, bwd_smem_bytes), and the variant of each
 SMEM_TABLE = {
-    (96, 162): ((185856, 149312), ("base", "base")),
-    (128, 162): ((219648, 194368), ("base", "base")),
-    (256, 162): ((354816, 374592), ("large", "large")),
-    (128, 144): ((170496, 159040), ("base", "base")),
-    (256, 8): ((62720, 34112), ("large", "large")),
+    (96, 162): ((76432, 149312), ("streamed", "base")),
+    (128, 162): ((96912, 194368), ("streamed", "base")),
+    (256, 162): ((100496, 374592), ("streamed", "large")),
+    (128, 144): ((90176, 159040), ("streamed", "base")),
+    (256, 8): ((78368, 34112), ("streamed", "large")),
 }
 
 
@@ -52,19 +52,25 @@ def test_qkv_variant_table(hd, l):
     sm = wa.qkv_smem_bytes(hd, l)
     assert (sm["fwd"], sm["bwd"]) == (fwd, bwd)
     assert (wa.qkv_variant("t", hd, l, False), wa.qkv_variant("t", hd, l, True)) == variants
-    # the large-head variant fits wherever it is chosen
-    assert max(sm["large_fwd"], sm["large_rows"], sm["large_cols"]) <= 232448
+    # the large-head backward fits wherever it is chosen
+    assert max(sm["large_rows"], sm["large_cols"]) <= 232448
 
 
 @pytest.mark.parametrize("hd, l", [(96, 256), (64, 256), (192, 162), (256, 256), (48, 8)])
 def test_qkv_variant_refuses_what_no_kernel_takes(hd, l):
     """Every shape the wrappers let through has a kernel whose shared memory
-    fits; the others raise a ValueError, never reach a launch. No forward
-    takes these shapes; since the backward's scores left shared memory, its
-    one-block kernel takes head dims 64 and 96 at L = 256 (217,152 B and
-    151,616 B), and refuses the rest."""
-    with pytest.raises(ValueError):
-        wa.qkv_variant("t", hd, l, False)
+    fits; the others raise a ValueError, never reach a launch. The forward
+    (the projection on the GEMM core, then the streamed pass) takes every L
+    at head dims 32-256, so only head dims 192 and 48 refuse; since the
+    backward's scores left shared memory, its one-block kernel takes head
+    dims 64 and 96 at L = 256 (217,152 B and 151,616 B), and refuses the
+    rest."""
+    if hd in (192, 48):
+        with pytest.raises(ValueError):
+            wa.qkv_variant("t", hd, l, False)
+    else:
+        assert wa.qkv_variant("t", hd, l, False) == "streamed"
+        assert wa.qkv_smem_bytes(hd, l)["fwd"] <= 232448
     if (hd, l) in ((96, 256), (64, 256)):
         assert wa.qkv_variant("t", hd, l, True) == "base"
         assert wa.qkv_smem_bytes(hd, l)["bwd"] == {96: 217152, 64: 151616}[hd]
@@ -153,7 +159,8 @@ def inputs(seed=0):
 @pytest.mark.parametrize("use_mask", [False, True])
 def test_head_dim_256_matches_jax(use_mask):
     """K1/K2's plain versions at head dim 256 (the e2048 heads; the GPU runs
-    the large-head variant there) against the JAX v3 kernels, forward and
+    K1's streamed pass and the large-head backward there) against the JAX v3
+    kernels, forward and
     jax.vjp, in bf16 (the bounds of tests/test_torch_kernels.py)."""
     import jax
 
