@@ -122,7 +122,9 @@ CATEGORIES = (
     # split-K dW
     ("qkv projection + q/k normalization, forward (GEMM core)", lambda n: "StoreNormBf16" in n),
     ("qkv projection, backward recompute (GEMM core)", lambda n: "StoreBiasBf16" in n),
-    ("K5 fc1 (GEMM core)", lambda n: "Fc1Epilogue" in n),
+    # fc1 + GELU: K3 on the single-step paths, K5's first product on the
+    # others (one instance of the core)
+    ("K3 / K5 fc1 (GEMM core)", lambda n: "Fc1Epilogue" in n),
     ("K5 fc2 (GEMM core)", lambda n: "Fc2Epilogue" in n),
     ("K6 (GEMM core pair kernel)", lambda n: "gemm_pair_kernel" in n),
     # the large-head backward of K2 (and K7, K12)
@@ -139,8 +141,7 @@ CATEGORIES = (
      or "swin_qkv_proj::reduce_kernel" in n),
     ("K11 forward", lambda n: "ln_dp_add_fwd_kernel" in n),
     ("K11 backward", lambda n: "ln_dp_add_bwd_kernel" in n or "ln_dp_add_reduce_kernel" in n),
-    ("K4", lambda n: "DpreEpilogue" in n),
-    ("K3", lambda n: "GeluEpilogue" in n),
+    ("K4 (GEMM core)", lambda n: "DpreEpilogue" in n),
     ("Adam (foreach)", lambda n: "multi_tensor_apply" in n or "adam" in n.lower()),
     ("cuBLAS GEMM", lambda n: any(s in n.lower() for s in ("gemm", "sm90", "nvjet", "cutlass", "xmma"))),
     ("memcpy/memset", lambda n: "Memcpy" in n or "Memset" in n),

@@ -14,30 +14,39 @@ printing its own lines:
      them; TF32 is switched off for matmuls and cuDNN.
   2. build the hand-written kernels from ``swin_v2_weather_torch/ops/csrc``
      with nvcc (first use builds into ``swin_v2_weather_torch/_build/``);
-     every instance of the GEMM core (its pair kernel, K6, included), of K2's
-     attention pass and of the qkv-fused forward's attention pass (K1, K7,
-     K10, K12) must show 0 bytes spilled in the ``-Xptxas -v`` log.
+     every instance of the GEMM core (its pair kernel, K6, and K3/K4's
+     instances included), of K2's attention pass, of the qkv-fused
+     forward's attention pass (K1, K7, K10, K12) and of the chunked
+     attention backwards (phase 39) must show 0 bytes spilled in the
+     ``-Xptxas -v`` log.
   3. the window-attention kernel (K1: the projection on the GEMM core, then
      the streamed attention pass) against its plain version at the flagship
      shapes, unshifted and with the shifted-block mask; its breakdown by
      torch.profiler (projection and pass, device ms a launch) and the pass's
      launch report (as phase 20's).
-  4. the fc1+GELU kernel against its plain version at [64800, 768] x [768, 3072].
+  4. the fc1+GELU kernel (K3, one launch of the GEMM core) against its plain
+     version at [64800, 768] x [768, 3072], timed beside its bound and
+     ``torch.matmul`` of the same operands (the yardstick; the port never
+     calls it).
   5. flagship serving: ``swin_73var_geo_depth12_chweight_invar`` at full width
      (77 -> 73 channels, 720x1440, embed 768, depth 12) built through
      ``get_model``, every parameter drawn from a seeded generator (LayerNorm
      scales non-zero, so no block is the identity), the weights round-tripped
      through the JAX layout, then ``RolloutEngine.rollout`` for 4 steps from
-     2018-01-01T00:00. Each kernel must have launched 12 x 4 = 48 times, every
-     output must be finite, and step 1 must match the plain path on the card.
+     2018-01-01T00:00. Each kernel must have launched 12 x 4 = 48 times, the
+     GEMM core as often as those launches imply (``check_core``: K1's
+     projection and K3, 96; every path below is checked the same way),
+     every output must be finite, and step 1 must match the plain path on
+     the card.
   6. rollout ms/step on both paths (CUDA events, after one warm-up step) and
      the peak device memory.
   7. the window-attention backward kernel against its plain backward at the
      flagship shapes, unshifted and shifted: dx, dW, db and dscale; its
      breakdown by torch.profiler (the projection, attention pass, dx, dW, db
      column sums and reductions, device ms a launch).
-  8. the fc1 backward (pre-activation cotangent) kernel against its plain
-     version at [64800, 768] x [768, 3072].
+  8. the fc1 backward (pre-activation cotangent) kernel (K4, one launch of
+     the GEMM core) against its plain version at [64800, 768] x [768,
+     3072]; two calls bit-equal; timed as phase 4.
   9. the flagship train step at full width, drop-path 0.1 live, built through
      ``get_model``, ``LossHandler`` (synthetic unit stats), ``Preprocessor``,
      ``build_optimizer`` and ``build_train_step``, on seeded parameters and a
@@ -169,6 +178,11 @@ printing its own lines:
      with x read MN-major), each timed beside ``torch.matmul`` at the same
      shape (the library yardstick; the port never calls it), with its share
      of the bf16 peak.
+ 39. the chunked backwards past L = 256 (window 12 x 24, L = 288, on a [1,
+     24, 48] grid, 2 heads, shifted) at head dims 32-256: K2, K7, v5, v4,
+     K8 and K9 (bias-free and BIAS), and below head dim 128 K10 and the
+     padded v4, each once against its plain version, two calls bit-equal,
+     timed (the padded variants' pad columns exactly zero).
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -199,9 +213,11 @@ bias as a float additive mask [8, 162, 162]
 head, and without the q/k normalization: the timed call leaves both out; the
 port never calls it); for K13 ``torch.sum(s, 0)`` (it rounds once, the
 kernel twice, as the TPU kernel); null for the others (no single PyTorch call
-computes them; K11's entries add ``F.layer_norm``'s time as context). K8/K9's entries
-are named by their main paths (the grid, windowed and CPB train steps). The
-last line is
+computes them; K11's entries add ``F.layer_norm``'s time as context; K3's and
+K4's add ``matmul_ms``, ``torch.matmul`` of their operands, as a yardstick).
+The backward entries carry phase 39's results under ``chunked_l288`` (by
+head dim). K8/K9's entries are named by their main paths (the grid, windowed
+and CPB train steps). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
 CUDA device the script exits with code 1 before printing any result.
 """
@@ -349,6 +365,10 @@ def fwd_spills() -> dict:
 # qkv-fused forward's attention pass (layouts QKV and QKV4; all their variants)
 CORE_KERNELS = r"7swin_wg11gemm_kernelI"
 PAIR_KERNELS = r"7swin_wg16gemm_pair_kernelI"
+# K3 (K5's fc1 instance) and K4 on the core, and the chunked attention
+# backwards (any L; every qkv-fused variant and K8/K9)
+K34_KERNELS = r"7swin_wg11gemm_kernelI\w*?(11Fc1Epilogue|12DpreEpilogue)"
+CHUNK_KERNELS = r"chunk_bwd_(rows|cols)_kernelI"
 K2_PASS_KERNELS = r"_GLOBAL__N_\w*20attention_bwd_kernelI"
 K1_PASS_KERNELS = r"qkv_attention_fwd_kernelILi\d+ELi[23]E"
 
@@ -460,6 +480,27 @@ def plain_version(fn):
     return getattr(module, name + "_reference")
 
 
+# GEMM core launches a call of each counted wrapper makes (v5's projection is
+# one product per (role, head) slab); K8, K9, K11 and K13 launch none
+CORE_PER_CALL = {"window_attention_qkv": 1, "window_attention_qkv_bias": 1,
+                 "window_attention_qkv_padded": 1, "window_attention_qkv4": 1,
+                 "window_attention_qkv4_padded": 1, "window_attention_qkv_bwd": 3,
+                 "window_attention_qkv_bias_bwd": 3, "window_attention_qkv_padded_bwd": 3,
+                 "window_attention_qkv4_bwd": 3, "window_attention_qkv4_padded_bwd": 3,
+                 "fc1_gelu": 1, "fc1_dpre": 1, "mlp_fwd": 2, "mlp_bwd": 1}
+
+
+def check_core(tag: str, core: int, launches: dict, heads: int) -> None:
+    """Raise unless the GEMM core's launch count is what the counted
+    wrappers' launches imply (``CORE_PER_CALL``; v5: 3 heads slabs forward,
+    3 heads + 2 backward)."""
+    per = dict(CORE_PER_CALL, window_attention_qkv5=3 * heads,
+               window_attention_qkv5_bwd=3 * heads + 2)
+    want = sum(per.get(name, 0) * n for name, n in launches.items())
+    if core != want:
+        raise RuntimeError(f"{tag}: the GEMM core must launch {want} times, got {core}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -521,6 +562,8 @@ def main() -> None:
     # (every variant, both directions) must not spill
     for label, pattern, least in (("GEMM core", CORE_KERNELS, 16),
                                   ("GEMM core pair kernel (K6)", PAIR_KERNELS, 2),
+                                  ("K3/K4 on the GEMM core", K34_KERNELS, 4),
+                                  ("chunked attention backwards (L > 256)", CHUNK_KERNELS, 92),
                                   ("K2 attention pass", K2_PASS_KERNELS, 20),
                                   ("K1 attention pass (K1, K7, K10, K12)", K1_PASS_KERNELS, 29)):
         spilled = build_spills(pattern)
@@ -534,7 +577,7 @@ def main() -> None:
         + "".join(f"\n      {line.strip()}" for line in serialized))
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results = {}
+    results, yardstick = {}, {}
 
     # ---- 3. K1 window attention at flagship shapes ---------------------------
     b, gh, gw, c, heads, window = 1, 180, 360, 768, 8, (9, 18)
@@ -593,10 +636,16 @@ def main() -> None:
     with torch.inference_mode():
         k_ms = time_ms(lambda: mk.fc1_gelu(x2, w1_16, b1), 20)
         p_ms = time_ms(lambda: mk.fc1_gelu_reference(x2, w1, b1), 5)
-    log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s), "
-        f"plain {p_ms:.4f} ms ({card})")
+        # the yardstick: torch.matmul of the same operands (no bias, no GELU;
+        # the port never calls it)
+        yardstick["fc1_gelu"] = time_ms(lambda: torch.matmul(x2, w1_16), 20)
     results["fc1_gelu"] = (err, k_ms, p_ms, bound(2 * t_tok * c * hidden,
                                                    nbytes(x2, w1_16, b1, out)))
+    log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * results['fc1_gelu'][3][0] / k_ms:.1f} % of its bound "
+        f"{results['fc1_gelu'][3][0]:.4f} ms), plain {p_ms:.4f} ms, torch.matmul of the same "
+        f"operands {yardstick['fc1_gelu']:.4f} ms ({card}); "
+        f"{mk.fc1_plan(t_tok, c, hidden)['launches']} launch of the GEMM core")
     del x2, out, ref
 
     # ---- 5. flagship serving through get_model + RolloutEngine ---------------
@@ -624,13 +673,14 @@ def main() -> None:
     preds = engine.rollout(state0, START, N_STEPS)
     rollout_s = time.time() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    serve_core = gc.gemm.launches  # K1's projection
+    serve_core = gc.gemm.launches  # K1's projection and K3
     log(f"  rollout {N_STEPS} steps in {rollout_s:.2f} s -> {preds.shape} {preds.dtype}; "
         f"launches {launches}, GEMM core {serve_core}")
     want = int(params.depth) * N_STEPS
     expected = {n: want if n in ("window_attention_qkv", "fc1_gelu") else 0 for n in launches}
     if launches != expected:
         raise RuntimeError(f"the rollout must launch {expected}, got {launches}")
+    check_core("[5]", serve_core, launches, int(params.num_heads))  # K1's projection and K3
     if preds.shape != (N_STEPS, 1, n_out, *params.img_size) or not np.isfinite(preds).all():
         raise RuntimeError("rollout output has the wrong shape or non-finite values")
     for s in range(N_STEPS):
@@ -716,12 +766,19 @@ def main() -> None:
     ref = mk.fc1_dpre_reference(x2, w1, b1, g2)
     torch.cuda.synchronize()
     err = compare("fc1_dpre", out, ref, MLP_TOL)
+    again = mk.fc1_dpre(x2, w1_16, b1, g2)
+    if not torch.equal(again, out):
+        raise RuntimeError("fc1_dpre: two calls differ")
+    del again
     k_ms = time_ms(lambda: mk.fc1_dpre(x2, w1_16, b1, g2), 20)
     p_ms = time_ms(lambda: mk.fc1_dpre_reference(x2, w1, b1, g2), 5)
-    log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s), "
-        f"plain {p_ms:.4f} ms ({card})")
+    yardstick["fc1_dpre"] = time_ms(lambda: torch.matmul(x2, w1_16), 20)
     results["fc1_dpre"] = (err, k_ms, p_ms, bound(2 * t_tok * c * hidden,
                                                   nbytes(x2, w1_16, b1, g2, out)))
+    log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * results['fc1_dpre'][3][0] / k_ms:.1f} % of its bound "
+        f"{results['fc1_dpre'][3][0]:.4f} ms), plain {p_ms:.4f} ms, torch.matmul of the same "
+        f"operands {yardstick['fc1_dpre']:.4f} ms ({card}); two calls bit-equal")
     del x2, g2, out, ref, w1, b1, w1_16, w_qkv, w16, b_qkv, scale
     torch.cuda.empty_cache()
 
@@ -799,12 +856,13 @@ def main() -> None:
         metrics = [train_step(batch) for _ in range(n_steps)]
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counted}
-        core_launches = gc.gemm.launches  # inside K5, the K2 family and the large-head projection
-        log(f"  {n_steps} steps; launches {launches}")
+        core_launches = gc.gemm.launches  # inside K3-K6 and the K1 and K2 families
+        log(f"  {n_steps} steps; launches {launches}, GEMM core {core_launches}")
         want = {name: per_step.get(name, 0) * n_steps for name in launches}
         if launches != want:
             raise RuntimeError(f"{tag}: launches in {n_steps} train steps must be {want}, "
                                f"got {launches}")
+        check_core(tag, core_launches, launches, int(params.num_heads))
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         for i, m in enumerate(metrics):
             log(f"    step {i + 1}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}")
@@ -1009,13 +1067,14 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     preds = engine.rollout(state0, START, N_STEPS)
     cpb_serve_launches = {fn.__name__: fn.launches for fn in counted}
-    cpb_serve_core = gc.gemm.launches  # K7's projection
+    cpb_serve_core = gc.gemm.launches  # K7's projection and K3
     log(f"  rollout {N_STEPS} steps -> {preds.shape}; launches {cpb_serve_launches}, GEMM core "
         f"{cpb_serve_core}")
     expected = {n: want if n in ("window_attention_qkv_bias", "fc1_gelu") else 0
                 for n in cpb_serve_launches}
     if cpb_serve_launches != expected:
         raise RuntimeError(f"the CPB rollout must launch {expected}, got {cpb_serve_launches}")
+    check_core("[16]", cpb_serve_core, cpb_serve_launches, int(params.num_heads))
     if preds.shape != (N_STEPS, 1, n_out, *params.img_size) or not np.isfinite(preds).all():
         raise RuntimeError("CPB rollout output has the wrong shape or non-finite values")
     with plain_train():
@@ -1256,6 +1315,7 @@ def main() -> None:
         expected = {name: per_step.get(name, 0) * n_steps for name in got}
         if got != expected:
             raise RuntimeError(f"{tag}: the rollout must launch {expected}, got {got}")
+        check_core(tag, core_launches, got, int(params.num_heads))
         want_shape = (n_steps, 1, int(params.n_out_channels), *params.img_size)
         if preds.shape != want_shape or not np.isfinite(preds).all():
             raise RuntimeError(f"{tag}: rollout output has the wrong shape or non-finite values")
@@ -1863,6 +1923,90 @@ def main() -> None:
     results["gemm"] = core["fc1_e2048"][:4]
     library["gemm"] = core["fc1_e2048"][4]
 
+    # ---- 39. the chunked backwards past L = 256 ----------------------------------
+    win288, grid288 = (12, 24), (2, 2)
+    l288 = win288[0] * win288[1]
+    gh2, gw2, heads2, cin2 = 24, 48, 2, 64
+    pat288 = torch.from_numpy(make_shift_mask((gh2, gw2), win288, (6, 12))[-1].copy()).to(dev)
+    log(f"[39] the chunked backwards at L = {l288} (window {win288}, x [1, {gh2}, {gw2}, {cin2}], "
+        f"{heads2} heads), shifted, against their plain versions")
+    chunked = {}
+    for hd in wa.ATTN_FWD_HEAD_DIMS:
+        if (wa.qkv_variant("[39]", hd, l288, True), wa.attn_variant("[39]", hd, l288, True)) != (
+                "chunked", "chunked"):
+            raise RuntimeError(f"[39]: head dim {hd} at L = {l288} does not take the chunked form")
+        c2 = heads2 * hd
+        x = torch.randn((1, gh2, gw2, cin2), generator=gen, device=dev).bfloat16()
+        w16 = ((2 * torch.rand((cin2, 3 * c2), generator=gen, device=dev) - 1)
+               / math.sqrt(cin2)).bfloat16()
+        b2q = 0.02 * torch.randn((3 * c2,), generator=gen, device=dev)
+        sc2 = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads2,), generator=gen, device=dev))
+        g = torch.randn((1, gh2, gw2, c2), generator=gen, device=dev).bfloat16()
+        raw = 2.0 * torch.randn((heads2, l288, l288), generator=gen, device=dev)
+        badd = wa.fold_cpb_bias(raw, sc2)
+        xw, gw_ = v45.window_major(x, win288), v45.window_major(g, win288)
+        qkv2 = torch.randn((1, gh2, gw2, 3 * c2), generator=gen, device=dev).bfloat16()
+        qn, _ = wa.normalize_heads(qkv2[..., :c2], heads2)
+        kn, _ = wa.normalize_heads(qkv2[..., c2:2 * c2], heads2)
+        qw, kw, vw, gwin = (torch.randn((4, heads2, l288, hd), generator=gen,
+                                        device=dev).bfloat16() for _ in range(4))
+        qkv_out, attn_out = ("dx", "dW", "db", "dscale", "dbias"), ("dq", "dk", "dv", "dscale",
+                                                                     "dbias")
+        cases = {
+            "window_attention_qkv_bwd": (wa.window_attention_qkv_bwd,
+                                         (x, w16, b2q, sc2, g, win288, pat288), qkv_out),
+            "window_attention_qkv_bias_bwd": (wa.window_attention_qkv_bias_bwd,
+                                              (x, w16, b2q, sc2, badd, g, win288, pat288),
+                                              qkv_out),
+            "window_attention_qkv5_bwd": (v45.window_attention_qkv5_bwd,
+                                          (x, v45.w5_reorder(w16, heads2).contiguous(), w16, b2q,
+                                           sc2, g, win288, pat288), qkv_out),
+            "window_attention_qkv4_bwd": (v45.window_attention_qkv4_bwd,
+                                          (xw, w16, b2q, sc2, gw_, win288, grid288, pat288),
+                                          qkv_out),
+            "window_attention_grid_bwd": (wa.window_attention_grid_bwd,
+                                          (qn, kn, qkv2[..., 2 * c2:], sc2, g, win288, pat288),
+                                          attn_out),
+            "window_attention_grid_bias_bwd": (wa.window_attention_grid_bias_bwd,
+                                               (qn, kn, qkv2[..., 2 * c2:], sc2, raw, g, win288,
+                                                pat288), attn_out),
+            "window_attention_v1_bwd": (wa.window_attention_v1_bwd,
+                                        (qw, kw, vw, sc2, gwin, grid288, pat288), attn_out),
+            "window_attention_v1_bias_bwd": (wa.window_attention_v1_bias_bwd,
+                                             (qw, kw, vw, sc2, raw, gwin, grid288, pat288),
+                                             attn_out),
+        }
+        if hd < 128:  # K10 and the padded v4 (head pitch 128)
+            wp, bp = wa.pad_heads_w(w16, heads2), wa.pad_heads_vec(b2q, heads2)
+            cases["window_attention_qkv_padded_bwd"] = (
+                wa.window_attention_qkv_padded_bwd,
+                (x, wp, bp, sc2, hd, wa.pad_heads_x(g, heads2, hd), win288, pat288), qkv_out)
+            cases["window_attention_qkv4_padded_bwd"] = (
+                v45.window_attention_qkv4_padded_bwd,
+                (xw, wp, bp, sc2, hd, wa.pad_heads_x(gw_, heads2, hd), win288, grid288, pat288),
+                qkv_out)
+        for name, (fn, args, names) in cases.items():
+            out = fn(*args)
+            ref = plain_version(fn)(*args)
+            torch.cuda.synchronize()
+            err = max(compare(f"{name} hd {hd} {n}", o, r, BWD_TOL[n])
+                      for n, o, r in zip(names, out, ref))
+            again = fn(*args)
+            if not all(torch.equal(a_, o) for a_, o in zip(again, out)):
+                raise RuntimeError(f"[39] {name} at head dim {hd}: two calls differ")
+            if "padded" in name and (
+                    torch.count_nonzero(out[1].reshape(cin2, 3, heads2, 128)[..., hd:]).item()
+                    or torch.count_nonzero(out[2].reshape(3, heads2, 128)[..., hd:]).item()):
+                raise RuntimeError(f"[39] {name}: pad columns of dW or db are not zero")
+            k_ms = time_ms(lambda: fn(*args), 3)
+            p_ms = time_ms(lambda: plain_version(fn)(*args), 1)
+            chunked.setdefault(name, {})[hd] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+            log(f"  {name} hd {hd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card}); two "
+                f"calls bit-equal")
+            del out, ref, again
+        del x, w16, b2q, sc2, g, raw, badd, xw, gw_, qkv2, qn, kn, qw, kw, vw, gwin, cases
+        torch.cuda.empty_cache()
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": ({**cpb_serve_launches, "gemm": cpb_serve_core}, N_STEPS),
@@ -1984,6 +2128,11 @@ def main() -> None:
     for entry in kernels[10:]:
         if len(results[entry["name"]]) > 4:
             entry["max_abs_err_by_output"] = results[entry["name"]][4]
+    for entry in kernels:
+        if entry["name"] in yardstick:  # K3/K4: torch.matmul of the same operands (phases 4, 8)
+            entry["matmul_ms"] = yardstick[entry["name"]]
+        if entry["name"] in chunked:  # the chunked form at L = 288, by head dim (phase 39)
+            entry["chunked_l288"] = chunked[entry["name"]]
     kernels[-1]["shapes"] = {
         tag: {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
               "bound_by": bnd[1], "library_ms": lib_ms}

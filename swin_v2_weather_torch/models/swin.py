@@ -23,15 +23,28 @@ flagship, fine-tune, depth-24 and CPB configs take:
     relative deltas and is expanded by an index gather (``cpb_unique``,
     default true), or per pair;
   * MLP: the fc1+GELU kernel pair (``mlp_impl: 'fused'``, the default for
-    single-step runs at depth <= 12) or the whole-MLP kernel pair
+    single-step runs at depth <= 12), the whole-MLP kernel pair
     (``'fused2'``, the default for multi-step runs and depth > 12, as the JAX
-    factory picks);
+    factory picks) or the plain Dense + exact GELU + Dense (``'plain'``);
   * post-norm branches ``x + drop_path(norm(y))``: plain LayerNorm, drop-path
     and add (``lnadd_impl: 'xla'``, the default) or the fused kernel pair
     (``'fused'``; K11) where its shape condition holds, as in JAX.
 
-Still raising ``NotImplementedError``: ``mlp_impl: 'plain'``,
-``spatial_shards > 1`` and train-mode attention (or projection) dropout.
+JAX's switches, read from the environment at import and validated as JAX
+validates them (an invalid value raises a ``ValueError``), are module
+globals here too, read when a module runs: ``MLP_IMPL`` (``SWIN_MLP_IMPL``:
+'fused', 'fused2' or 'plain'), ``LNADD_IMPL`` (``SWIN_LNADD_IMPL``: 'fused'
+or 'xla'), ``LN_IMPL`` (``SWIN_LN_IMPL``: 'twopass' or 'onepass', the
+LayerNorm's statistics) and ``CPB_UNIQUE`` (``SWIN_CPB_UNIQUE``; when set it
+wins over the ``cpb_unique`` config key). A config key wins over the
+``mlp_impl`` / ``lnadd_impl`` switches; where it is absent the factory
+passes None for single-step runs at depth <= 12 (the module's switch
+decides) and 'fused2' / 'xla' for the others, as JAX's factory does. The
+TPU-only switches (``SWIN_CPB_EXPAND``, ``SWIN_CPB_BARRIER``, tile sizes)
+have no counterpart: they pick XLA lowerings of the same function.
+
+Still raising ``NotImplementedError``: ``spatial_shards > 1`` and
+train-mode attention (or projection) dropout.
 
 The layout follows the JAX model, so weights convert one to one
 (``models/convert.py``):
@@ -67,6 +80,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 from functools import lru_cache
 from typing import Optional, Tuple
 
@@ -92,6 +106,22 @@ ATTN_IMPLS = ("pallas_qkv", "pallas", "pallas_v1", "xla")
 WINDOWED_IMPLS = ("pallas_v1", "xla")  # the block partitions into windows first
 
 logger = logging.getLogger(__name__)
+
+# JAX's switches (swin_v2_weather_tpu/models/swin.py), validated as there
+LN_IMPL = os.environ.get("SWIN_LN_IMPL", "twopass")
+if LN_IMPL not in ("twopass", "onepass"):
+    raise ValueError(f"SWIN_LN_IMPL={LN_IMPL!r} invalid; expected 'twopass' or 'onepass'")
+# an explicitly set SWIN_CPB_UNIQUE wins over the cpb_unique config key
+_CPB_UNIQUE_ENV = os.environ.get("SWIN_CPB_UNIQUE")
+CPB_UNIQUE = (_CPB_UNIQUE_ENV or "1") != "0"
+LNADD_IMPL = os.environ.get("SWIN_LNADD_IMPL", "xla")
+if LNADD_IMPL not in ("fused", "xla"):
+    raise ValueError(f"SWIN_LNADD_IMPL={LNADD_IMPL!r} invalid; expected 'fused' or 'xla'")
+_MLP_IMPLS = ("fused", "fused2", "plain")
+MLP_IMPL = os.environ.get("SWIN_MLP_IMPL", "fused")
+if MLP_IMPL not in _MLP_IMPLS:
+    raise ValueError(
+        f"SWIN_MLP_IMPL={MLP_IMPL!r} invalid; expected 'fused', 'fused2' or 'plain'")
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +269,10 @@ def drop_path_multiplier(batch: int, rate: float, u: Optional[torch.Tensor],
 
 
 class Fp32LayerNorm(nn.Module):
-    """LayerNorm with fp32 statistics whatever the input dtype (two-pass form);
-    the output has the input's dtype."""
+    """LayerNorm with fp32 statistics whatever the input dtype; the output has
+    the input's dtype. The statistics as ``LN_IMPL`` says when it runs:
+    'twopass' (the centered form) or 'onepass' (var = max(E[x^2] - E[x]^2,
+    0), both means from one read), as JAX's ``Fp32LayerNorm``."""
 
     def __init__(self, dim: int, eps: float = 1e-5, init_value: float = 1.0):
         super().__init__()
@@ -250,32 +282,60 @@ class Fp32LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        xc = xf - xf.mean(-1, keepdim=True)
-        var = (xc * xc).mean(-1, keepdim=True)
+        mean = xf.mean(-1, keepdim=True)
+        if LN_IMPL == "onepass":
+            var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean, 0.0)
+            xc = xf - mean
+        else:
+            xc = xf - mean
+            var = (xc * xc).mean(-1, keepdim=True)
         y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU of x evaluated in fp32, rounded once to x's dtype."""
+    xf = x.float()
+    return (0.5 * xf * (1.0 + torch.erf(xf * (1.0 / math.sqrt(2.0))))).to(x.dtype)
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2: ``impl='fused'`` runs fc1 + GELU as one kernel
-    and fc2 as a plain Dense; ``'fused2'`` runs the whole MLP as one kernel
-    pair, which keeps no [tokens, hidden] tensor for the backward."""
+    """fc1 -> exact GELU -> fc2 on the route ``impl`` (None: ``MLP_IMPL`` when
+    the module runs, as JAX's ``Mlp`` reads ``SWIN_MLP_IMPL``): ``'fused'``
+    runs fc1 + GELU as one kernel and fc2 as a plain Dense; ``'fused2'`` the
+    whole MLP as one kernel pair, which keeps no [tokens, hidden] tensor for
+    the backward (with an fc1 dropout rate above 0 the module takes
+    ``'fused'``, as JAX's does); ``'plain'`` fc1 as a Dense (:func:`dense`'s
+    rounding), :func:`gelu_exact`, then fc2. ``drop`` are the two dropout
+    rates (train-mode dropout is not ported: the model refuses it)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 dtype: torch.dtype, impl: str = "fused"):
+                 dtype: torch.dtype, impl: Optional[str] = None,
+                 drop: Tuple[float, float] = (0.0, 0.0)):
         super().__init__()
-        if impl not in ("fused", "fused2"):
-            raise ValueError(f"Mlp impl must be 'fused' or 'fused2', got {impl!r}")
+        if impl not in (None,) + _MLP_IMPLS:
+            raise ValueError(f"mlp_impl must be one of {_MLP_IMPLS} or None, got {impl!r}")
         self.dtype = dtype
         self.impl = impl
+        self.drop = tuple(drop)
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
 
+    def route(self) -> str:
+        """The route the module takes now: ``impl`` or ``MLP_IMPL``, 'fused2'
+        falling back to 'fused' under an fc1 dropout rate."""
+        impl = self.impl or MLP_IMPL
+        return "fused" if impl == "fused2" and self.drop[0] != 0.0 else impl
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.impl == "fused2":
+        route = self.route()
+        if route == "fused2":
             return fused_mlp(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
                              self.fc2.weight.t(), self.fc2.bias)
-        x = fused_fc1_gelu(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias)
+        if route == "fused":
+            x = fused_fc1_gelu(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias)
+        else:
+            x = gelu_exact(dense(x, self.fc1, self.dtype))
         return dense(x, self.fc2, self.dtype)
 
 
@@ -319,10 +379,11 @@ class WindowAttention(nn.Module):
     h-major order of ``window_grid`` = (window rows, windows per row). With
     ``rel_pos`` the CPB bias [heads, L, L] is assembled from the meta-MLP each
     call; the ``'pallas_qkv'`` route folds it (:func:`fold_cpb_bias`), the
-    others take it raw."""
+    others take it raw. ``cpb_unique`` (the config key; None: ``CPB_UNIQUE``)
+    picks the meta-MLP's rows when the module runs (:meth:`cpb_is_unique`)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple[int, int],
-                 dtype: torch.dtype, rel_pos: bool = False, cpb_unique: bool = True,
+                 dtype: torch.dtype, rel_pos: bool = False, cpb_unique: Optional[bool] = None,
                  attn_impl: str = "pallas_qkv", window_grid: Tuple[int, int] = (1, 1)):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
@@ -337,30 +398,47 @@ class WindowAttention(nn.Module):
         self.meta_mlp = CpbMlp(num_heads) if rel_pos else None
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-        coords = idx = None
-        if rel_pos and cpb_unique:
-            # the meta-MLP runs on the D distinct deltas; idx expands its
+        self.cpb_unique = cpb_unique
+        unique = idx = pairs = None
+        if rel_pos:
+            # the meta-MLP runs on the D distinct deltas, idx expanding its
             # [D, heads] output to every pair (exact: a pair's row is a
-            # function of its delta), so the dropout draws one mask per delta
-            coords, idx = make_log_relative_coords_unique(self.window_size)
-            coords, idx = torch.from_numpy(coords.copy()), torch.from_numpy(idx.astype(np.int64))
-        elif rel_pos:
-            coords = torch.from_numpy(make_log_relative_coords(self.window_size))
-        self.register_buffer("cpb_coords", coords, persistent=False)
+            # function of its delta; the dropout draws one mask per delta),
+            # or on every pair
+            unique, idx = make_log_relative_coords_unique(self.window_size)
+            unique, idx = torch.from_numpy(unique.copy()), torch.from_numpy(idx.astype(np.int64))
+            pairs = torch.from_numpy(make_log_relative_coords(self.window_size))
+        self.register_buffer("cpb_coords_unique", unique, persistent=False)
         self.register_buffer("cpb_idx", idx, persistent=False)
+        self.register_buffer("cpb_coords_pairs", pairs, persistent=False)
+
+    def cpb_is_unique(self) -> bool:
+        """Whether the meta-MLP runs on the distinct deltas now: the config
+        key, unless ``SWIN_CPB_UNIQUE`` was set, then ``CPB_UNIQUE`` (JAX's
+        ``WindowAttention._cpb_unique``)."""
+        if self.cpb_unique is not None and _CPB_UNIQUE_ENV is None:
+            return bool(self.cpb_unique)
+        return CPB_UNIQUE
+
+    @property
+    def cpb_coords(self) -> Optional[torch.Tensor]:
+        """The meta-MLP's input rows now ([D, 2] or [L*L, 2]; None without the
+        CPB)."""
+        return self.cpb_coords_unique if self.cpb_is_unique() else self.cpb_coords_pairs
 
     @property
     def cpb_rows(self) -> int:
         """Rows the meta-MLP runs on (D or L*L; 0 without the CPB)."""
-        return 0 if self.cpb_coords is None else int(self.cpb_coords.shape[0])
+        return 0 if self.meta_mlp is None else int(self.cpb_coords.shape[0])
 
     def cpb_raw_bias(self, u: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The raw CPB bias [heads, L, L] fp32: the meta-MLP's output (in the
         compute dtype) expanded to every pair; ``u`` [rows, 384] are its
         dropout uniforms (train mode) or None."""
         l = self.window_size[0] * self.window_size[1]
+        unique = self.cpb_is_unique()
         cpb = self.meta_mlp(self.cpb_coords, self.dtype, u).float()  # [rows, heads]
-        if self.cpb_idx is not None:
+        if unique:
             cpb = cpb[self.cpb_idx]  # [L*L, heads]
         return cpb.t().reshape(self.num_heads, l, l)
 
@@ -432,11 +510,12 @@ class SwinBlock(nn.Module):
                  window_size: Tuple[int, int], shift_size: Tuple[int, int], shifted: bool,
                  mlp_ratio: float = 4.0, init_values: Optional[float] = 0.0,
                  drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16,
-                 mlp_impl: str = "fused", rel_pos: bool = False, cpb_unique: bool = True,
-                 lnadd_impl: str = "xla", attn_impl: str = "pallas_qkv"):
+                 mlp_impl: Optional[str] = None, rel_pos: bool = False,
+                 cpb_unique: Optional[bool] = None, lnadd_impl: Optional[str] = None,
+                 attn_impl: str = "pallas_qkv", proj_drop: float = 0.0):
         super().__init__()
-        if lnadd_impl not in ("xla", "fused"):
-            raise ValueError(f"lnadd_impl must be 'xla' or 'fused', got {lnadd_impl!r}")
+        if lnadd_impl not in (None, "xla", "fused"):
+            raise ValueError(f"lnadd_impl must be 'xla', 'fused' or None, got {lnadd_impl!r}")
         self.drop_path_rate = float(drop_path_rate)
         self.lnadd_impl = lnadd_impl
         window, shift = calc_window_shift(feat_size, window_size, shift_size)
@@ -451,7 +530,8 @@ class SwinBlock(nn.Module):
                                     window_grid=(feat_size[0] // window[0],
                                                  feat_size[1] // window[1]))
         self.norm1 = Fp32LayerNorm(dim, init_value=scale_init)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, impl=mlp_impl)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, impl=mlp_impl,
+                       drop=(proj_drop, proj_drop))
         self.norm2 = Fp32LayerNorm(dim, init_value=scale_init)
         pattern = full_mask = None
         if self.do_shift:
@@ -467,10 +547,10 @@ class SwinBlock(nn.Module):
     def _ln_branch(self, norm: Fp32LayerNorm, y: torch.Tensor, x: torch.Tensor, rate: float,
                    u: Optional[torch.Tensor]) -> torch.Tensor:
         """x + drop_path(norm(y)): through the fused kernel pair where its
-        shape condition holds (``lnadd_impl: fused``), else unfused, as JAX's
-        ``_ln_branch``; the parameters stay ``norm{1,2}.weight/bias`` either
-        way."""
-        if self.lnadd_impl == "fused" and ln_kernels.supported(
+        shape condition holds (``lnadd_impl``, or when None ``LNADD_IMPL``,
+        is 'fused'), else unfused, as JAX's ``_ln_branch``; the parameters
+        stay ``norm{1,2}.weight/bias`` either way."""
+        if (self.lnadd_impl or LNADD_IMPL) == "fused" and ln_kernels.supported(
                 math.prod(y.shape[:-1]), y.shape[-1]):
             m = drop_path_multiplier(y.shape[0], rate, u, y.device)
             return ln_kernels.fused_ln_droppath_add(y, x, norm.weight, norm.bias, m)
@@ -546,10 +626,10 @@ class SwinTransformerV2(nn.Module):
         full_pos_embed: bool = False,
         residual: bool = False,
         dtype: torch.dtype = torch.bfloat16,
-        mlp_impl: str = "fused",
+        mlp_impl: Optional[str] = None,
         rel_pos: bool = False,
-        cpb_unique: bool = True,
-        lnadd_impl: str = "xla",
+        cpb_unique: Optional[bool] = None,
+        lnadd_impl: Optional[str] = None,
         attn_impl: str = "pallas_qkv",
     ):
         super().__init__()
@@ -577,7 +657,7 @@ class SwinTransformerV2(nn.Module):
                       mlp_ratio=mlp_ratio, init_values=init_values,
                       drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl,
                       rel_pos=rel_pos, cpb_unique=cpb_unique, lnadd_impl=lnadd_impl,
-                      attn_impl=attn_impl)
+                      attn_impl=attn_impl, proj_drop=proj_drop_rate)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
@@ -646,9 +726,12 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
     """Construct the model from a YParams-style config.
 
     Every ``attn_impl`` of the JAX package but its A/B variants is accepted
-    (``'pallas_qkv'``, ``'pallas'``, ``'pallas_v1'``, ``'xla'``); the other
-    choices the port has no route for (``mlp_impl: 'plain'``,
-    ``spatial_shards > 1``) raise ``NotImplementedError``.
+    (``'pallas_qkv'``, ``'pallas'``, ``'pallas_v1'``, ``'xla'``), and every
+    ``mlp_impl``; ``spatial_shards > 1`` raises ``NotImplementedError``. As
+    JAX's factory: a config key wins; without ``mlp_impl`` / ``lnadd_impl``
+    a multi-step or deeper-than-12 config takes 'fused2' / 'xla', the others
+    None (the modules read ``MLP_IMPL`` / ``LNADD_IMPL`` when they run);
+    without ``cpb_unique``, None (``CPB_UNIQUE``).
     """
     if dtype is None:
         dtype = _DTYPES[str(getattr(params, "compute_dtype", "bfloat16"))]
@@ -657,17 +740,12 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
     attn_impl = str(getattr(params, "attn_impl", "xla"))
     if attn_impl not in ATTN_IMPLS:
         raise NotImplementedError(f"attn_impl {attn_impl!r} is not ported; only {ATTN_IMPLS}")
-    # the JAX factory picks the whole-MLP kernel for multi-step or deep stacks
-    mlp_impl = (
-        str(params["mlp_impl"]) if "mlp_impl" in params
-        else ("fused2" if n_future > 0 or depth > 12 else "fused")
-    )
-    if mlp_impl not in ("fused", "fused2"):
-        raise NotImplementedError(
-            f"mlp_impl {mlp_impl!r} is not ported; only 'fused' and 'fused2'")
-    # the fused LayerNorm route only where the config asks for it (the JAX
-    # factory's default resolves to 'xla' for every config)
-    lnadd_impl = str(params["lnadd_impl"]) if "lnadd_impl" in params else "xla"
+    # the JAX factory's gating: the whole-MLP kernel and the unfused
+    # LayerNorm branch for multi-step or deep stacks, else the module's switch
+    deep = n_future > 0 or depth > 12
+    mlp_impl = str(params["mlp_impl"]) if "mlp_impl" in params else ("fused2" if deep else None)
+    lnadd_impl = (str(params["lnadd_impl"]) if "lnadd_impl" in params
+                  else ("xla" if deep else None))
     if int(getattr(params, "spatial_shards", 1) or 1) > 1:
         raise NotImplementedError("spatial_shards > 1 is not ported yet")
     if bool(getattr(params, "activation_ckpt", False)):
@@ -692,7 +770,7 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         dtype=dtype,
         mlp_impl=mlp_impl,
         rel_pos=bool(params.rel_pos),
-        cpb_unique=bool(params["cpb_unique"]) if "cpb_unique" in params else True,
+        cpb_unique=bool(params["cpb_unique"]) if "cpb_unique" in params else None,
         lnadd_impl=lnadd_impl,
         attn_impl=attn_impl,
     )

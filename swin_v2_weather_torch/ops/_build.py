@@ -96,6 +96,16 @@ _SIGNATURES = {
     # windowed: (q, k, v, scale, bias, mask, g, dq, dk, dv, qn, kn, inv, rstat,
     #  dscale_part, dbias_part, dscale, dbias, B, nwh, nww, heads, hd, L, stream)
     "swin_window_attention_v1_large_bwd": [_vp] * 18 + [_int] * 6 + [_vp],
+    # their chunked form (any head dim, any L), with the same arguments
+    "swin_window_attention_grid_chunked_bwd": [_vp] * 6 + [_f32] + [_vp] * 9 + [_int] * 10
+    + [_vp],
+    "swin_window_attention_v1_chunked_bwd": [_vp] * 18 + [_int] * 6 + [_vp],
+    # the chunked backward of every qkv-fused variant: (x, wr, w, b, scale,
+    #  bias, mask, boundary_flag, g, qkv, inv, rstat, dqkv, dw_part, db_part,
+    #  dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, nwh, nww, lm,
+    #  C_in, C, heads, hd, wh, ww, var, dw_splits, db_splits, stream)
+    "swin_window_attention_qkv_chunked_bwd": [_vp] * 7 + [_f32] + [_vp] * 14 + [_int] * 13
+    + [_vp],
     # K12 v5: the operands of swin_window_attention_qkv_fwd with w5 for w;
     #  (x, w5, w, b, scale, mask, boundary_flag, g, qkv, dqkv, dw_part, db_part,
     #  dscale_part, dx, dw, db, dscale, B, H, W, C_in, C, heads, wh, ww,

@@ -14,8 +14,8 @@ whatever the selection, as in JAX.
     reordered once to [3 * heads, C_in, hd] (:func:`w5_reorder`), each (role,
     head) slab a dense [C_in, hd] box. The CUDA kernels are K1/K2's: the
     projection on the GEMM core one slab at a time (in the packed product's
-    K order), then K1's pass, or K2's backward (``QKV_V5``, one-block or
-    large-head as :func:`~swin_v2_weather_torch.ops.window_attention.
+    K order), then K1's pass, or K2's backward (``QKV_V5``, one-block,
+    large-head or chunked as :func:`~swin_v2_weather_torch.ops.window_attention.
     qkv_variant` says), which takes dx and dW from the packed weight, as the
     TPU kernel does. The plain versions are v3's on the packed weight
     (bit-equal).
@@ -37,12 +37,13 @@ whatever the selection, as in JAX.
 
 v4's kernels take K1/K2's shapes: the forward any L at head dims 32-256
 (padded heads up to 128); the backward its one-block instances where those
-fit shared memory, and beyond that (at L = 162: head dim 256) v4 instances
-of the large-head variant (``csrc/window_attention_qkv_large.cu``), which
-park the raw q, k rows in dqkv for the fp32 qn (the one-block backward reads
-them from its projection scratch); the padded-head backward (head dims below
-128) is one-block only. Any other shape raises a ValueError before a
-launch, as for K1/K2. JAX's
+fit shared memory, beyond that (at L = 162: head dim 256) v4 instances of
+the large-head variant (``csrc/window_attention_qkv_large.cu``), which park
+the raw q, k rows in dqkv for the fp32 qn (the one-block backward reads
+them from its projection scratch), and where neither fits (every L above
+256) v4 instances of the chunked backward in the same source (padded heads
+too: the one-block or the chunked backward). Any other shape raises a
+ValueError before a launch, as for K1/K2. JAX's
 ``SWIN_QKV_FWD_WC`` / ``SWIN_QKV_BWD_WC`` and ``_pick_nwc`` size the TPU's grid
 steps (windows per step); one block per (window, head) has no counterpart of
 them. ``QKV_BWD_IMPL`` does not apply here: JAX reads it only in
@@ -363,8 +364,8 @@ def window_attention_qkv4_padded_backward_reference(xw, wp, bp, scale, hd, gw, w
 def _check_v4(name, xw, w, b, scale, hd, window, window_grid, mask_pattern, g=None):
     """-> (b, nwh, nww, lp, c_in, c, variant); c = heads * hd, or heads * 128
     padded; the variant as :func:`~swin_v2_weather_torch.ops.window_attention.
-    qkv_variant` picks it for K1/K2 (the padded backward is one-block only).
-    Raises on a shape that v4's kernels do not take."""
+    qkv_variant` picks it for K1/K2 (padded, the one-block backward or the
+    chunked one). Raises on a shape that v4's kernels do not take."""
     if xw.device.type != "cuda" or xw.dim() != 4:
         raise ValueError(f"{name}: xw must be a 4-D CUDA tensor, got {xw.dim()}-D on {xw.device}")
     bsz, nw, lp, c_in = xw.shape
@@ -387,9 +388,9 @@ def _check_v4(name, xw, w, b, scale, hd, window, window_grid, mask_pattern, g=No
     if c_in % 32:
         raise ValueError(f"{name}: needs C_in % 32 == 0, got {c_in}")
     variant = wa.qkv_variant(name, hd, l, g is not None)
-    if c != heads * hd and (variant == "large" or hd > wa.HD_PAD):
-        raise ValueError(f"{name}: the padded-head v4 takes no head dim {hd} at L = {l} "
-                         f"(one-block backward, head dims up to {wa.HD_PAD})")
+    if c != heads * hd and hd > wa.HD_PAD:
+        raise ValueError(f"{name}: the padded-head v4 takes no head dim {hd} (head dims up to "
+                         f"{wa.HD_PAD})")
     return bsz, nwh, nww, lp, c_in, c, variant
 
 
@@ -421,6 +422,12 @@ def _launch_v4_backward(fn, xw, w, b, scale, hd, gw, window, window_grid, mask_p
     name = fn.__name__
     bsz, nwh, nww, lp, c_in, c, variant = _check_v4(name, xw, w, b, scale, hd, window,
                                                     window_grid, mask_pattern, gw)
+    if variant == "chunked":
+        out = wa.qkv_chunked_bwd(xw, w, w, b, scale, None, gw, window, mask_pattern,
+                                 boundary_flag, hd=hd, nwh=nwh, nww=nww, lm=lp, var="v4")
+        fn.launches += 1
+        gemm_core.count_launches(3)  # the projection, dx and dW on the GEMM core
+        return out
     dev, t, heads = xw.device, bsz * nwh * nww * lp, int(scale.shape[0])
     lpk = _round_up(int(window[0]) * int(window[1]), 16)  # the kernels' tile height
     # token ranges of the split-K dW product and of the db column sums (K2's)

@@ -51,41 +51,19 @@
 // C_out multiples of 8 (the core's); any T >= 1 up to 65535 tiles of 128
 // (the ragged edges are zero-filled by TMA and masked in the epilogues).
 
-#include "wgmma_gemm.cuh"
+#include "mlp_epilogue.cuh"
 
 namespace {
 
 using swin_cuda::bf16;
-
-constexpr float kInvSqrt2 = 0.70710678118654752f;
-constexpr float kInvSqrt2Pi = 0.39894228040143268f;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float gelu(float z) {
-  return 0.5f * z * (1.0f + erff(z * kInvSqrt2));
-}
+using namespace swin_mlp;
 
 // ---------------------------------------------------------------------------
-// K5: the MLP forward, two products on the GEMM core
+// K5: the MLP forward, two products on the GEMM core; the first one's
+// epilogue is Fc1Epilogue (mlp_epilogue.cuh, shared with K3)
 // ---------------------------------------------------------------------------
 
 namespace k5 {
-
-// after x @ W1: a = bf16(gelu(bf16(acc + b1)))
-struct Fc1Epilogue {
-  const float* b1;
-  bf16* a;
-  int ld;
-  __device__ void operator()(int row, int col, float v0, float v1) const {
-    const float z0 = round_bf16(v0 + b1[col]);
-    const float z1 = round_bf16(v1 + b1[col + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(a + static_cast<size_t>(row) * ld + col) =
-        __floats2bfloat162_rn(gelu(z0), gelu(z1));
-  }
-};
 
 // after a @ W2: out = bf16(bf16(acc) + bf16(b2)), the product rounded, then
 // the bias added in bf16 (an fp32 add of the two bf16 values, rounded once)
@@ -129,10 +107,10 @@ struct ActDpre {
   int ld;
   __device__ void operator()(int row, int col, float v0, float v1, uint32_t kept) const {
     const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kept));
-    const float c0 = 0.5f * (1.0f + erff(z.x * kInvSqrt2));
-    const float c1 = 0.5f * (1.0f + erff(z.y * kInvSqrt2));
-    const float p0 = expf(z.x * z.x * -0.5f) * kInvSqrt2Pi;
-    const float p1 = expf(z.y * z.y * -0.5f) * kInvSqrt2Pi;
+    const float c0 = gelu_cdf(z.x);
+    const float c1 = gelu_cdf(z.y);
+    const float p0 = gelu_pdf(z.x);
+    const float p1 = gelu_pdf(z.y);
     const size_t o = static_cast<size_t>(row) * ld + col;
     *reinterpret_cast<__nv_bfloat162*>(a + o) = __floats2bfloat162_rn(z.x * c0, z.y * c1);
     *reinterpret_cast<__nv_bfloat162*>(dpre + o) =
@@ -159,7 +137,7 @@ extern "C" int swin_mlp_fwd(const void* x, const void* w1, const void* b1, const
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int code = swin_wg::launch_auto<false, true>(
       static_cast<const bf16*>(x), c_in, static_cast<const bf16*>(w1), hidden, T, hidden, c_in, 1,
-      k5::Fc1Epilogue{static_cast<const float*>(b1), static_cast<bf16*>(act), hidden}, s);
+      Fc1Epilogue{static_cast<const float*>(b1), static_cast<bf16*>(act), hidden}, s);
   if (code != 0) return code;
   return swin_wg::launch_auto<false, true>(
       static_cast<const bf16*>(act), hidden, static_cast<const bf16*>(w2), c_out, T, c_out, hidden,

@@ -1,8 +1,8 @@
 // The Hopper GEMM core of the port: C[M, N] = A[M, K] @ B[K, N] with bf16
 // operands and fp32 accumulation, written for sm_90a with TMA and wgmma. It
-// carries the whole-MLP forward (K5, mlp.cu) and, as a pair of products on
-// one output tile (gemm_pair_kernel), the whole-MLP backward's recompute (K6,
-// mlp.cu); the qkv projection of the qkv-fused attention, forward and
+// carries fc1 + GELU and its backward (K3/K4, fc1_gelu.cu), the whole-MLP
+// forward (K5, mlp.cu) and, as a pair of products on one output tile
+// (gemm_pair_kernel), the whole-MLP backward's recompute (K6, mlp.cu); the qkv projection of the qkv-fused attention, forward and
 // backward, and the backward's dx and dW (K1/K2/K7/K10/K12 and the
 // large-head variant, qkv_projection.cuh); and the core's own entry point
 // (gemm_core.cu). Each caller adds only its epilogue.
@@ -10,9 +10,9 @@
 // What bounds a GEMM on this card: at the shapes of the port (T = 64800 token
 // rows against K and N of 768-4096) every product is far above the card's
 // ridge (about 295 operations a byte in bf16), so the tensor cores bound it:
-// 989 TFLOP/s dense bf16, which only wgmma reaches. The previous tile GEMM
-// (gemm_tile.cuh: nvcuda::wmma, i.e. mma.sync fed by per-thread ldmatrix, a
-// two-stage cp.async ring) ran the K2 projection backward at 18 % of that.
+// 989 TFLOP/s dense bf16, which only wgmma reaches (an earlier nvcuda::wmma
+// tile GEMM on a two-stage cp.async ring, since removed, ran the K2
+// projection backward at 18 % of that).
 //
 // The design:
 //  * one block owns a 128 x BN output tile (BN = 128 or 256; 192 for the
@@ -40,7 +40,8 @@
 //    give the same bits.
 //  * the epilogue functor takes the fp32 accumulators where wgmma leaves them:
 //    epi(row, col, v0, v1) for columns col and col + 1 of one row (col even),
-//    or, where it declares kTile, the thread's whole tile at once.
+//    or, where it declares kTile, the thread's whole tile at once; where it
+//    declares kPrefetch, each pair with a word it read before the mainloop.
 //
 // Contract (checked by launch and by ops/gemm_core.py): M, N, K >= 1; the
 // contiguous dimension of each operand (A: K, or M if MN-major; B: N, or K if
@@ -257,6 +258,16 @@ struct TileEpilogue : std::false_type {};
 template <class E>
 struct TileEpilogue<E, std::void_t<decltype(E::kTile)>> : std::true_type {};
 
+// An epilogue that declares kPrefetch reads one 32-bit word for each pair of
+// accumulators, epi.fetch(row, col), before the mainloop (K4's cotangent g,
+// fc1_gelu.cu: the loads are in flight while the tile's products run), keeps
+// the words in registers as the pair kernel keeps its own, and takes each
+// back with its pair: epi(row, col, v0, v1, word).
+template <class E, class = void>
+struct PrefetchEpilogue : std::false_type {};
+template <class E>
+struct PrefetchEpilogue<E, std::void_t<decltype(E::kPrefetch)>> : std::true_type {};
+
 // The consumer warpgroup c's share of ring slices [k_from, k_to) (TA / TB:
 // A / B MN-major): wait for a slice's TMA bytes, issue its four k16 wgmmas
 // from the swizzled tiles, keep one slice's group in flight while waiting
@@ -357,22 +368,46 @@ __global__ void __launch_bounds__(THREADS, 1)
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-    consume_slices<BN, A_MN, B_MN>(acc, ring, full0, empty0, c, 0, nk);
-    // accumulator layout of m64nNk16: warp w of the warpgroup holds rows
-    // 16 w .. 16 w + 15; register 4 j + {0, 1} is row lane / 4, columns
-    // 8 j + 2 (lane % 4) + {0, 1}; 4 j + {2, 3} the same columns 8 rows down
-    const int lane = tid & 31;
-    const int r0 = m0 + c * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
-    const int c0 = n0 + 2 * (lane & 3);
-    if constexpr (TileEpilogue<Epi>::value) {
-      epi.tile(acc, r0, c0, M, N);
-    } else {
+    if constexpr (PrefetchEpilogue<Epi>::value) {
+      // the accumulator layout as in the other branch; the words as the pair
+      // kernel's keep[]
+      const int lane = tid & 31;
+      const int r0 = m0 + c * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+      const int c0 = n0 + 2 * (lane & 3);
+      uint32_t word[BN / 4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = c0 + 8 * j;
+        word[2 * j] = col < N && r0 < M ? epi.fetch(r0, col) : 0u;
+        word[2 * j + 1] = col < N && r0 + 8 < M ? epi.fetch(r0 + 8, col) : 0u;
+      }
+      consume_slices<BN, A_MN, B_MN>(acc, ring, full0, empty0, c, 0, nk);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int col = c0 + 8 * j;
         if (col < N) {
-          if (r0 < M) epi(r0, col, acc[4 * j], acc[4 * j + 1]);
-          if (r0 + 8 < M) epi(r0 + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
+          if (r0 < M) epi(r0, col, acc[4 * j], acc[4 * j + 1], word[2 * j]);
+          if (r0 + 8 < M) epi(r0 + 8, col, acc[4 * j + 2], acc[4 * j + 3], word[2 * j + 1]);
+        }
+      }
+    } else {
+      consume_slices<BN, A_MN, B_MN>(acc, ring, full0, empty0, c, 0, nk);
+      // accumulator layout of m64nNk16: warp w of the warpgroup holds rows
+      // 16 w .. 16 w + 15; register 4 j + {0, 1} is row lane / 4, columns
+      // 8 j + 2 (lane % 4) + {0, 1}; 4 j + {2, 3} the same columns 8 rows down
+      const int lane = tid & 31;
+      const int r0 = m0 + c * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+      const int c0 = n0 + 2 * (lane & 3);
+      if constexpr (TileEpilogue<Epi>::value) {
+        epi.tile(acc, r0, c0, M, N);
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = c0 + 8 * j;
+          if (col < N) {
+            if (r0 < M) epi(r0, col, acc[4 * j], acc[4 * j + 1]);
+            if (r0 + 8 < M) epi(r0 + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
+          }
         }
       }
     }

@@ -1,10 +1,11 @@
 // Pieces shared by the window-attention kernels (the qkv-fused backward K2 in
 // window_attention_qkv_bwd.cu and its K7, K10 and K12 instances, the
-// large-head backward, K8/K9 and the qkv-fused forwards' pass in
+// large-head and chunked backwards, K8/K9 and the qkv-fused forwards' pass in
 // qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
 // map, the q/k L2 normalization of 16-row tiles, the 16-row score product
-// (wmma), the m16n8k16 mma and ldmatrix primitives, the 8-value bf16 store
-// and the window-order d(bias) reduction.
+// (wmma), the chunked backwards' tile accumulation, the m16n8k16 mma and
+// ldmatrix primitives, the 8-value bf16 store and the window-order d(bias)
+// reduction.
 
 #pragma once
 
@@ -30,9 +31,10 @@ struct Geometry {
   int lm;  // QKV_V4: rows per window in memory (L rounded up to 8; rows >= L are padding)
 };
 
-// Fills the geometry from the launch arguments; false if they are not valid.
+// Fills the geometry from the launch arguments; false if they are not valid
+// (L above MAX_LP only where any_l: the chunked backward's callers).
 inline bool make_geometry(Geometry& g, int B, int H, int W, int Cin, int C, int heads, int wh,
-                          int ww) {
+                          int ww, bool any_l = false) {
   if (B < 1 || wh < 1 || ww < 1 || heads < 1 || H % wh != 0 || W % ww != 0 || Cin < KC ||
       Cin % KC != 0 || C % heads != 0) {
     return false;
@@ -50,7 +52,7 @@ inline bool make_geometry(Geometry& g, int B, int H, int W, int Cin, int C, int 
   g.nwh = H / wh;
   g.nww = W / ww;
   g.lm = g.L;
-  return g.LP <= MAX_LP;
+  return any_l || g.LP <= MAX_LP;
 }
 
 // Block index -> (image, window row, window column, head); heads vary fastest
@@ -181,6 +183,41 @@ __device__ __forceinline__ void dot_rows(Frag& s, const bf16* a_rows, const bf16
     wmma::load_matrix_sync(b, b_rows + d * 16, LDQ);
     wmma::mma_sync(s, a, b, s);
   }
+}
+
+// The chunked backwards (any L; window_attention_qkv_large.cu,
+// qkv_attention_large.cuh) keep one 16 x 16 bf16 tile of ds (or p) per warp,
+// row pitch LDT, in place of a row of length L. Their kernels declare one
+// block an SM in their launch bounds (their shared memory allows one or
+// two): without it ptxas held several instances to 56-80 registers and
+// spilled (-Xptxas -v on the H100 build).
+constexpr int LDT = 24;
+
+// acc [16, HD] fp32 (pitch HD, shared memory) += tile (the warp's 16 x 16
+// bf16 tile, pitch LDT) @ rows [16, HD] bf16 (pitch HD + 8): each 16-column
+// accumulator fragment read, multiplied into and written back, so over the
+// tiles of a sweep every element sums in tile order.
+template <int HD>
+__device__ __forceinline__ void accumulate_tile(float* acc, const bf16* tile, const bf16* rows) {
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+  wmma::load_matrix_sync(a, tile, LDT);
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) {
+    Frag c;
+    wmma::load_matrix_sync(c, acc + j * 16, HD, wmma::mem_row_major);
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+    wmma::load_matrix_sync(b, rows + j * 16, HD + 8);
+    wmma::mma_sync(c, a, b, c);
+    wmma::store_matrix_sync(acc + j * 16, c, HD, wmma::mem_row_major);
+  }
+  __syncwarp();
+}
+
+// Zeroes the warp's [16, HD] fp32 accumulator.
+template <int HD>
+__device__ __forceinline__ void zero_acc(float* acc) {
+  for (int i = threadIdx.x & 31; i < 16 * HD; i += 32) acc[i] = 0.0f;
+  __syncwarp();
 }
 
 // Writes the lane's 8 values bf16(f(e, v[e])) as one 16-byte store.

@@ -1,7 +1,8 @@
 // The backward of the qkv-fused scaled-cosine window attention at large head
-// dims (256; 128 past L = 208), hand-written for Hopper (sm_90a): the
-// large-head variant of K2 (and of K7's and K12's backwards). The forward of
-// every head dim is window_attention_qkv.cu's.
+// dims (256; 128 past L = 208), and at any head dim and any L in its chunked
+// form, hand-written for Hopper (sm_90a): the large-head variant of K2 (and
+// of K7's, K10's and K12's backwards). The forward of every head dim is
+// window_attention_qkv.cu's.
 //
 // Replaces the same TPU kernel as window_attention_qkv_bwd.cu
 // (swin_v2_weather_tpu/ops/window_attention.py: _make_qkv_bwd_kernel /
@@ -10,7 +11,9 @@
 // [LP, HD] in shared memory at once, which at L = 162 (LP = 176) needs
 // 374,592 B at head dim 256 (the e2048 family: embed 2048, 8 heads), against
 // the 232,448 B a block may use. The wrappers pick this variant exactly
-// where the smaller one does not fit (ops/window_attention.py, qkv_variant).
+// where the smaller one does not fit (ops/window_attention.py, qkv_variant),
+// and the chunked form (section 5) where neither fits: every L above 256,
+// head dim 256 from L = 225.
 //
 // What bounds it on this card: at the e2048 shape (x [1, 180, 360, 2048] bf16,
 // W [2048, 6144], 8 heads of 256, L = 162) the recomputed projection, dx and
@@ -61,8 +64,9 @@
 // are overwritten (likewise kn).
 //
 // Contract (checked by the Python wrapper): K2's, with head dim 128 or 256,
-// and the shared memory of each kernel within 232,448 B; the scratch buffers
-// as the wrapper allocates them.
+// and the shared memory of each kernel within 232,448 B (the chunked form:
+// head dims 32-256, any L, head pitch hd or 128); the scratch buffers as the
+// wrapper allocates them.
 
 #include "qkv_projection.cuh"
 
@@ -84,8 +88,9 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 // one warp per (token, role q or k, head); inv [T, 2, heads]. PARK (v4's
 // backward): the raw row is first copied to the same place in park (dqkv,
 // whose dq and dk slots the attention kernels read back for v4's fp32 qn
-// before they overwrite them).
-template <int HD, bool PARK = false>
+// before they overwrite them). HP: the head pitch (128 for K10 and padded v4,
+// whose pad lanes are not read).
+template <int HD, bool PARK = false, int HP = HD>
 __global__ void normalize_qk_kernel(bf16* __restrict__ qkv, int T, int C, int heads,
                                     float* __restrict__ inv, bf16* __restrict__ park) {
   constexpr int NV = HD / 32;
@@ -96,7 +101,7 @@ __global__ void normalize_qk_kernel(bf16* __restrict__ qkv, int T, int C, int he
   const long long tr = wid / heads;  // token * 2 + role
   const long long tok = tr >> 1;
   const int role = static_cast<int>(tr & 1);
-  bf16* rowp = qkv + tok * 3 * C + role * C + h * HD;
+  bf16* rowp = qkv + tok * 3 * C + role * C + h * HP;
   float vals[NV];
   float ss = 0.0f;
 #pragma unroll
@@ -104,7 +109,7 @@ __global__ void normalize_qk_kernel(bf16* __restrict__ qkv, int T, int C, int he
     const float v = __bfloat162float(rowp[lane + 32 * i]);
     vals[i] = v;
     ss += v * v;
-    if constexpr (PARK) park[tok * 3 * C + role * C + h * HD + lane + 32 * i] = rowp[lane + 32 * i];
+    if constexpr (PARK) park[tok * 3 * C + role * C + h * HP + lane + 32 * i] = rowp[lane + 32 * i];
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
@@ -616,6 +621,382 @@ __global__ void __launch_bounds__(RW * 32)
   }
 }
 
+// ---------------- 5. backward attention at any L: the chunked form ----------
+//
+// The rows and columns kernels above keep, per warp, a row of ds (p^T and
+// ds^T) as long as the window, LP + 8 bf16, and their shared memory grows
+// with L: past L = 256, and at head dim 256 from L = 225 on, no instance
+// fits. The chunked form keeps one 16 x 16 tile of it per warp instead: each
+// key (query) tile's ds (or p) is formed, rounded to bf16 into the warp's
+// tile and multiplied at once into an fp32 [16, HD] accumulator in shared
+// memory (accumulate_tile: read, multiply-add, write back, in tile order), so
+// its shared memory does not depend on L. Rows kernel: sweep 1 as above (r,
+// u), then one sweep forming ds and dqn += dsb kn16 tile by tile. Columns
+// kernel: one sweep for dv += p16^T g16, a second for dkn += ds^T qn16. The
+// rounding sites and, for every output element, the order of the fp32 sums
+// over tiles are those of the kernels above. Every head dim 32-256, any head
+// pitch HP (128: K10 and padded v4, exact zeros into the pad lanes of dqkv).
+// The kernels run only where nothing above fits (qkv_variant); their speed
+// is not the point yet.
+
+template <int HD>
+__host__ __device__ constexpr size_t chunk_smem_bytes() {
+  return (2u * RW * 16 * (HD + 8) + 4u * 16 * (HD + 8) + RW * 16u * LDT) * sizeof(bf16) +
+         (static_cast<size_t>(RW) * 16 * HD + RW * 256 + 16) * sizeof(float);
+}
+
+// exact zeros into the pad lanes [HD, HP) of a head's row (the lane pair fr
+// of a 16-row tile shares it: 8 lanes each, 16 apart)
+template <int HD, int HP>
+__device__ __forceinline__ void zero_pad_lanes(bf16* head_row) {
+  if constexpr (HP > HD) {
+    for (int c = HD + ((threadIdx.x & 1) * 8); c < HP; c += 16) {
+      *reinterpret_cast<uint4*>(head_row + c) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// one block per (window, head) [blockIdx.x] and 64 query rows [blockIdx.y];
+// VAR and the outputs as large_bwd_rows_kernel's
+template <int HD, bool BIAS, int VAR, int HP>
+__global__ void __launch_bounds__(RW * 32, 1)
+    chunk_bwd_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          const float* __restrict__ mask, float bflag,
+                          const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
+                          float* __restrict__ rstat, float* __restrict__ dscale_part,
+                          float* __restrict__ dbias_part, Geometry geo) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NF = HD / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = geo.LP;
+  const int L = geo.L;
+  const int C3 = 3 * geo.C;
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // the block's query rows [RW * 16, LDQ]
+  bf16* gs = qs + RW * 16 * LDQ;              // their cotangent rows
+  bf16* ring = gs + RW * 16 * LDQ;            // two stages of (k tile, v tile)
+  bf16* tiles = ring + 4 * 16 * LDQ;          // a 16 x 16 ds tile per warp
+  float* stage = reinterpret_cast<float*>(tiles + RW * 16 * LDT);  // dqn [16, HD] per warp
+  float* scratch = stage + RW * 16 * HD;
+  float* wsum = scratch + RW * 256;
+
+  const Tile t = tile_of_block(geo);
+  const int h = t.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nkt = LP / 16;
+  const int row0 = blockIdx.y * RW * 16;
+  const bool active = row0 + warp * 16 < LP;
+  const int qrow = row0 + warp * 16 + fr;
+  const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
+  const size_t wh_idx = static_cast<size_t>(win) * geo.heads + h;
+  const int LS = rows_of<VAR>(geo);
+
+  for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
+    const int r = idx / (HD / 8);
+    const int c = (idx % (HD / 8)) * 8;
+    const int l = row0 + r;
+    const bool ok = l < LS;
+    const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
+    cp_async16(qs + r * LDQ + c, qkv + pix * C3 + h * HP + c, ok);
+    cp_async16(gs + r * LDQ + c, gout + pix * geo.C + h * HP + c, ok);
+  }
+  cp_async_commit();
+
+  auto load_kv = [&](int kt) {
+    bf16* st = ring + (kt & 1) * 2 * 16 * LDQ;
+    load_rows<HD, VAR>(st, qkv, C3, geo.C + h * HP, geo, t, kt * 16, 16);
+    load_rows<HD, VAR>(st + 16 * LDQ, qkv, C3, 2 * geo.C + h * HP, geo, t, kt * 16, 16);
+  };
+  auto acquire = [&](int kt) -> const bf16* {
+    if (kt == 0) {
+      load_kv(0);
+      cp_async_commit();
+    }
+    if (kt + 1 < nkt) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (kt & 1) * 2 * 16 * LDQ;
+  };
+
+  const float sc = scale[h];
+  const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  const bf16* qw = qs + warp * 16 * LDQ;
+  const bf16* gw = gs + warp * 16 * LDQ;
+  const int LQ = VAR == QKV_V4 ? LS : L;
+  // s, then e of the lane's 8 entries against key tile kt, and dp = g v^T
+  // into cs
+  auto tile_e_dp = [&](const bf16* kb, int kt, float (&ev)[8]) {
+    Frag f;
+    dot_rows<HD>(f, qw, kb);
+    wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+    __syncwarp();
+    exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev, LQ);
+    __syncwarp();
+    dot_rows<HD>(f, gw, kb + 16 * LDQ);
+    wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+    __syncwarp();
+  };
+
+  // two sweeps over the key tiles, one loop nest (each helper has one call
+  // site, so it is inlined): sweep 1 sums r = 1 / sum e and u = sum(dp e)
+  // of each query row; sweep 2 forms each ds tile into the warp's tile (and
+  // ds / scale into d(bias)), then dqn += ds @ kn16 of the tile
+  float* stw = stage + warp * 16 * HD;
+  bf16* tw = tiles + warp * 16 * LDT;
+  float* drow = BIAS && active ? dbias_part + (wh_idx * LP + qrow) * LP : nullptr;
+  const float rsc = 1.0f / sc;
+  float rowsum = 0.0f, u = 0.0f, r = 0.0f;
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int kt = 0; kt < nkt; ++kt) {
+      const bf16* kb = acquire(kt);
+      if (active) {
+        float ev[8];
+        tile_e_dp(kb, kt, ev);
+        if (sweep == 0) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            rowsum += ev[e];
+            u += cs[fr * 16 + fc + e] * ev[e];
+          }
+          __syncwarp();
+        } else {
+          float ds[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) ds[e] = (cs[fr * 16 + fc + e] - u * r) * ev[e] * (r * sc);
+          store8(tw + fr * LDT + fc, ds, [](int, float v) { return v; });
+          if constexpr (BIAS) {
+            float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
+            dst[0] = make_float4(ds[0] * rsc, ds[1] * rsc, ds[2] * rsc, ds[3] * rsc);
+            dst[1] = make_float4(ds[4] * rsc, ds[5] * rsc, ds[6] * rsc, ds[7] * rsc);
+          }
+          __syncwarp();
+          accumulate_tile<HD>(stw, tw, kb);
+        }
+      }
+      __syncthreads();
+    }
+    if (sweep == 0) {  // between the sweeps: the row statistics
+      rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
+      u += __shfl_xor_sync(0xffffffffu, u, 1);
+      r = rowsum > 0.0f ? 1.0f / rowsum : 0.0f;
+      if (active && (lane & 1) == 0) {
+        rstat[(wh_idx * LP + qrow) * 2] = r;
+        rstat[(wh_idx * LP + qrow) * 2 + 1] = u;
+      }
+      if (active) zero_acc<HD>(stw);
+    }
+  }
+
+  // qd = <qn, dqn> and dq = (dqn - qn qd) inv_q, as large_bwd_rows_kernel's
+  const bool qin = active && qrow < LS;
+  const size_t qpix = qin ? token_of<VAR>(geo, t, qrow) : 0;
+  const float iq = qin ? inv[(qpix * 2) * geo.heads + h] : 0.0f;
+  const bf16* qraw = dqkv + qpix * C3 + h * HP;
+  auto qn_at = [&](int d) -> float {
+    if constexpr (VAR == QKV_V4) {
+      return qin ? __bfloat162float(qraw[d]) * iq : 0.0f;
+    } else {
+      return __bfloat162float(qw[fr * LDQ + d]);
+    }
+  };
+  float qd = 0.0f;
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
+    }
+  }
+  qd += __shfl_xor_sync(0xffffffffu, qd, 1);
+  if (qin) {
+    bf16* dst = dqkv + qpix * C3 + h * HP;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      store8(dst + j * 16 + fc, stw + fr * HD + j * 16 + fc,
+             [&](int e, float dqn) { return (dqn - qn_at(j * 16 + fc + e) * qd) * iq; });
+    }
+    zero_pad_lanes<HD, HP>(dst);
+  }
+  float part = (active && qrow < LQ && (lane & 1) == 0) ? qd : 0.0f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if (lane == 0) wsum[warp] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < RW; ++i) total += wsum[i];
+    dscale_part[(static_cast<size_t>(win) * gridDim.y + blockIdx.y) * geo.heads + h] = total;
+  }
+}
+
+// one block per (window, head) [blockIdx.x] and 64 key rows [blockIdx.y];
+// VAR as the rows kernel's
+template <int HD, bool BIAS, int VAR, int HP>
+__global__ void __launch_bounds__(RW * 32, 1)
+    chunk_bwd_cols_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          const float* __restrict__ mask, float bflag,
+                          const bf16* __restrict__ gout, const float* __restrict__ rstat,
+                          bf16* __restrict__ dqkv, Geometry geo) {
+  constexpr int LDQ = HD + 8;
+  constexpr int NF = HD / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LP = geo.LP;
+  const int L = geo.L;
+  const int C3 = 3 * geo.C;
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's key rows [RW * 16, LDQ]
+  bf16* vs = ks + RW * 16 * LDQ;             // their value rows
+  bf16* ring = vs + RW * 16 * LDQ;           // two stages of (q tile, g tile)
+  bf16* tiles = ring + 4 * 16 * LDQ;         // a 16 x 16 p^T or ds^T tile per warp
+  float* stage = reinterpret_cast<float*>(tiles + RW * 16 * LDT);  // dv, then dkn, per warp
+  float* scratch = stage + RW * 16 * HD;
+
+  const Tile t = tile_of_block(geo);
+  const int h = t.h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* cs = scratch + warp * 256;
+  const int fr = lane >> 1;
+  const int fc = (lane & 1) * 8;
+  const int nqt = LP / 16;
+  const int row0 = blockIdx.y * RW * 16;
+  const bool active = row0 + warp * 16 < LP;
+  const int krow = row0 + warp * 16 + fr;
+  const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
+  const float* rs = rstat + (static_cast<size_t>(win) * geo.heads + h) * LP * 2;
+  const int LS = rows_of<VAR>(geo);
+
+  for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
+    const int r = idx / (HD / 8);
+    const int c = (idx % (HD / 8)) * 8;
+    const int l = row0 + r;
+    const bool ok = l < LS;
+    const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
+    cp_async16(ks + r * LDQ + c, qkv + pix * C3 + geo.C + h * HP + c, ok);
+    cp_async16(vs + r * LDQ + c, qkv + pix * C3 + 2 * geo.C + h * HP + c, ok);
+  }
+  cp_async_commit();
+
+  auto load_qg = [&](int qt) {
+    bf16* st = ring + (qt & 1) * 2 * 16 * LDQ;
+    load_rows<HD, VAR>(st, qkv, C3, h * HP, geo, t, qt * 16, 16);
+    load_rows<HD, VAR>(st + 16 * LDQ, gout, geo.C, h * HP, geo, t, qt * 16, 16);
+  };
+  auto acquire = [&](int qt) -> const bf16* {
+    if (qt == 0) {
+      load_qg(0);
+      cp_async_commit();
+    }
+    if (qt + 1 < nqt) load_qg(qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (qt & 1) * 2 * 16 * LDQ;
+  };
+
+  const float sc = scale[h];
+  const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
+  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
+  const bf16* kw = ks + warp * 16 * LDQ;
+  const bf16* vw = vs + warp * 16 * LDQ;
+  const int LQ = VAR == QKV_V4 ? LS : L;
+  float* stw = stage + warp * 16 * HD;
+  bf16* tw = tiles + warp * 16 * LDT;
+  // e^T of the lane's 8 entries of the transposed score tile against query
+  // tile qt
+  auto tile_e = [&](const bf16* qb, int qt, float (&ev)[8]) {
+    Frag f;
+    dot_rows<HD>(f, kw, qb);  // s^T [key][query]
+    wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+    __syncwarp();
+    exp_col8<BIAS>(cs, krow, qt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev, LQ);
+    __syncwarp();
+  };
+
+  // two sweeps over the query tiles, one loop nest: sweep A dv += p16^T @ g16
+  // tile by tile (p16^T = bf16(e r)^T), then dv is written; sweep B
+  // dkn += ds^T @ qn16
+  const bool kin = active && krow < LS;
+  const size_t kpix = kin ? token_of<VAR>(geo, t, krow) : 0;
+  if (active) zero_acc<HD>(stw);
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    const bool sweep_b = sweep == 1;
+    for (int qt = 0; qt < nqt; ++qt) {
+      const bf16* qb = acquire(qt);
+      if (active) {
+        float ev[8], vals[8];
+        tile_e(qb, qt, ev);
+        if (sweep_b) {
+          Frag f;
+          dot_rows<HD>(f, vw, qb + 16 * LDQ);  // dp^T [key][query] = v g^T
+          wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
+          __syncwarp();
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int qi = qt * 16 + fc + e;
+          const float ri = rs[qi * 2];
+          vals[e] = sweep_b ? (cs[fr * 16 + fc + e] - rs[qi * 2 + 1] * ri) * ev[e] * (ri * sc)
+                            : ev[e] * ri;
+        }
+        store8(tw + fr * LDT + fc, vals, [](int, float v) { return v; });
+        __syncwarp();
+        accumulate_tile<HD>(stw, tw, sweep_b ? qb : qb + 16 * LDQ);
+      }
+      __syncthreads();
+    }
+    if (!sweep_b) {  // between the sweeps: dv out, the accumulator cleared
+      if (kin) {
+        bf16* dst = dqkv + kpix * C3 + 2 * geo.C + h * HP;
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          store8(dst + j * 16 + fc, stw + fr * HD + j * 16 + fc, [](int, float v) { return v; });
+        }
+        zero_pad_lanes<HD, HP>(dst);
+      }
+      __syncwarp();
+      if (active) zero_acc<HD>(stw);
+    }
+  }
+
+  // kd = <kn, dkn> and dk = (dkn - kn kd) inv_k, as large_bwd_cols_kernel's
+  const float ik = kin ? inv[(kpix * 2 + 1) * geo.heads + h] : 0.0f;
+  const bf16* kraw = dqkv + kpix * C3 + geo.C + h * HP;
+  auto kn_at = [&](int d) -> float {
+    if constexpr (VAR == QKV_V4) {
+      return kin ? __bfloat162float(kraw[d]) * ik : 0.0f;
+    } else {
+      return __bfloat162float(kw[fr * LDQ + d]);
+    }
+  };
+  float kd = 0.0f;
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
+    }
+  }
+  kd += __shfl_xor_sync(0xffffffffu, kd, 1);
+  if (kin) {
+    bf16* dst = dqkv + kpix * C3 + geo.C + h * HP;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      store8(dst + j * 16 + fc, stw + fr * HD + j * 16 + fc,
+             [&](int e, float dkn) { return (dkn - kn_at(j * 16 + fc + e) * kd) * ik; });
+    }
+    zero_pad_lanes<HD, HP>(dst);
+  }
+}
+
 // ---------------- host side ---------------------------------------------------
 
 template <class K>
@@ -638,7 +1019,7 @@ int token_rows(const Geometry& g) {
 // columns of the packed [T, 3C] (same K order, so the same sums). QKV_V4: T
 // window-major rows; with park (the backward's dqkv) the raw q, k rows are
 // parked there before the normalization.
-template <int HD, int VAR = QKV_V3>
+template <int HD, int VAR = QKV_V3, int HP = HD>
 int project_normalize(const void* x, const void* w, const void* b, void* qkv, void* inv,
                       const Geometry& g, cudaStream_t s, void* park = nullptr) {
   const int T = token_rows<VAR>(g);
@@ -650,39 +1031,63 @@ int project_normalize(const void* x, const void* w, const void* b, void* qkv, vo
   const long long warps = static_cast<long long>(T) * 2 * g.heads;
   const unsigned nblk = static_cast<unsigned>((warps + 7) / 8);
   if (park != nullptr) {
-    normalize_qk_kernel<HD, true><<<nblk, 256, 0, s>>>(
+    normalize_qk_kernel<HD, true, HP><<<nblk, 256, 0, s>>>(
         static_cast<bf16*>(qkv), T, g.C, g.heads, static_cast<float*>(inv),
         static_cast<bf16*>(park));
   } else {
-    normalize_qk_kernel<HD><<<nblk, 256, 0, s>>>(static_cast<bf16*>(qkv), T, g.C, g.heads,
-                                                 static_cast<float*>(inv), nullptr);
+    normalize_qk_kernel<HD, false, HP><<<nblk, 256, 0, s>>>(
+        static_cast<bf16*>(qkv), T, g.C, g.heads, static_cast<float*>(inv), nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The rows and columns kernels of a variant: the large-head ones, or the
+// chunked ones (CHUNKED; any head pitch HP).
+template <int HD, bool BIAS, int VAR, int HP, bool CHUNKED>
+auto rows_kernel() {
+  if constexpr (CHUNKED) {
+    return &chunk_bwd_rows_kernel<HD, BIAS, VAR, HP>;
+  } else {
+    static_assert(HP == HD, "the large-head kernels take no head pitch");
+    return &large_bwd_rows_kernel<HD, BIAS, VAR>;
+  }
+}
+
+template <int HD, bool BIAS, int VAR, int HP, bool CHUNKED>
+auto cols_kernel() {
+  if constexpr (CHUNKED) {
+    return &chunk_bwd_cols_kernel<HD, BIAS, VAR, HP>;
+  } else {
+    return &large_bwd_cols_kernel<HD, BIAS, VAR>;
+  }
+}
+
 // QKV_V5: wr is the reordered weight the recompute reads, w the packed one of
 // the projection backward; otherwise both are the packed W. QKV_V4: the
-// window-major rows, the raw q, k parked in dqkv for the fp32 qn.
-template <int HD, bool BIAS, int VAR = QKV_V3>
+// window-major rows, the raw q, k parked in dqkv for the fp32 qn. CHUNKED:
+// the chunked attention kernels (head pitch HP), else the large-head ones.
+template <int HD, bool BIAS, int VAR = QKV_V3, int HP = HD, bool CHUNKED = false>
 int backward(const void* x, const void* wr, const void* w, const void* b, const void* scale,
              const void* bias, const void* mask, float bflag, const void* g, void* qkv,
              void* inv, void* rstat, void* dqkv, void* dw_part, void* db_part,
              void* dscale_part, void* dbias_part, void* dx, void* dw, void* db, void* dscale,
              void* dbias, const Geometry& geo, int dw_splits, int db_splits, cudaStream_t s) {
-  const size_t rows_smem = rows_smem_bytes<HD>(geo.LP);
-  const size_t cols_smem = cols_smem_bytes<HD>(geo.LP);
-  int code = set_smem(large_bwd_rows_kernel<HD, BIAS, VAR>, rows_smem);
+  const size_t rows_smem = CHUNKED ? chunk_smem_bytes<HD>() : rows_smem_bytes<HD>(geo.LP);
+  const size_t cols_smem = CHUNKED ? chunk_smem_bytes<HD>() : cols_smem_bytes<HD>(geo.LP);
+  const auto rows = rows_kernel<HD, BIAS, VAR, HP, CHUNKED>();
+  const auto cols = cols_kernel<HD, BIAS, VAR, HP, CHUNKED>();
+  int code = set_smem(rows, rows_smem);
   if (code != 0) return code;
-  code = set_smem(large_bwd_cols_kernel<HD, BIAS, VAR>, cols_smem);
+  code = set_smem(cols, cols_smem);
   if (code != 0) return code;
-  code = project_normalize<HD, VAR>(x, wr, b, qkv, inv, geo, s,
-                                    VAR == QKV_V4 ? dqkv : nullptr);
+  code = project_normalize<HD, VAR, HP>(x, wr, b, qkv, inv, geo, s,
+                                        VAR == QKV_V4 ? dqkv : nullptr);
   if (code != 0) return code;
   const long long wh_blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
   if (wh_blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int nchunks = (geo.LP / 16 + RW - 1) / RW;
   const dim3 grid(static_cast<unsigned>(wh_blocks), nchunks);
-  large_bwd_rows_kernel<HD, BIAS, VAR><<<grid, RW * 32, rows_smem, s>>>(
+  rows<<<grid, RW * 32, rows_smem, s>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
@@ -690,7 +1095,7 @@ int backward(const void* x, const void* wr, const void* w, const void* b, const 
       static_cast<float*>(dbias_part), geo);
   code = static_cast<int>(cudaGetLastError());
   if (code != 0) return code;
-  large_bwd_cols_kernel<HD, BIAS, VAR><<<grid, RW * 32, cols_smem, s>>>(
+  cols<<<grid, RW * 32, cols_smem, s>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
@@ -817,4 +1222,91 @@ extern "C" int swin_window_attention_qkv4_large_bwd(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+namespace {
+
+// The chunked backward of one variant at the live head dim hd (head pitch C /
+// heads: hd, or 128 for K10 and padded v4).
+template <int VAR, bool BIAS, bool PAD128>
+int dispatch_chunked(int hd, const void* x, const void* wr, const void* w, const void* b,
+                     const void* scale, const void* bias, const void* mask, float bflag,
+                     const void* g, void* qkv, void* inv, void* rstat, void* dqkv, void* dw_part,
+                     void* db_part, void* dscale_part, void* dbias_part, void* dx, void* dw,
+                     void* db, void* dscale, void* dbias, const Geometry& geo, int dw_splits,
+                     int db_splits, cudaStream_t s) {
+  switch (hd) {
+#define SWIN_CHUNKED_CASE(HD)                                                                 \
+  case HD:                                                                                    \
+    return backward<HD, BIAS, VAR, PAD128 ? 128 : HD, true>(                                  \
+        x, wr, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv, dw_part, db_part,    \
+        dscale_part, dbias_part, dx, dw, db, dscale, dbias, geo, dw_splits, db_splits, s);
+    SWIN_CHUNKED_CASE(32)
+    SWIN_CHUNKED_CASE(64)
+    SWIN_CHUNKED_CASE(96)
+#undef SWIN_CHUNKED_CASE
+    case 128:
+      if constexpr (PAD128) return static_cast<int>(cudaErrorInvalidValue);
+      return backward<128, BIAS, VAR, 128, true>(
+          x, wr, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv, dw_part, db_part,
+          dscale_part, dbias_part, dx, dw, db, dscale, dbias, geo, dw_splits, db_splits, s);
+    case 256:
+      if constexpr (PAD128) return static_cast<int>(cudaErrorInvalidValue);
+      return backward<256, BIAS, VAR, 256, true>(
+          x, wr, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv, dw_part, db_part,
+          dscale_part, dbias_part, dx, dw, db, dscale, dbias, geo, dw_splits, db_splits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// The chunked backward (any L; shared memory independent of L) of every
+// qkv-fused variant: var 0 K2 (v3; K7 with bias, K10 with the head pitch
+// C / heads = 128 above hd), 1 K12 v5 (wr the reordered [3 * heads, C_in, hd]
+// weight of the recompute), 2 K12 v4 (x and g window-major [B, nW, lm, *],
+// padded v4 with the head pitch 128). H = nwh * wh, W = nww * ww; lm is the
+// rows a window holds (v4: L up to LP, a multiple of 8; else L). Scratch as
+// swin_window_attention_qkv_large_bwd's (rstat [B * nW, heads, LP, 2],
+// dscale_part [B * nW * ceil(LP / 64), heads]); outputs dx (v4: dxw), dW,
+// db (zero pad columns), dscale and, with the bias, dbias.
+extern "C" int swin_window_attention_qkv_chunked_bwd(
+    const void* x, const void* wr, const void* w, const void* b, const void* scale,
+    const void* bias, const void* mask, float bflag, const void* g, void* qkv, void* inv,
+    void* rstat, void* dqkv, void* dw_part, void* db_part, void* dscale_part, void* dbias_part,
+    void* dx, void* dw, void* db, void* dscale, void* dbias, int B, int nwh, int nww, int lm,
+    int Cin, int C, int heads, int hd, int wh, int ww, int var, int dw_splits, int db_splits,
+    void* stream) {
+  Geometry geo;
+  if (!make_geometry(geo, B, nwh * wh, nww * ww, Cin, C, heads, wh, ww, true) || dw_splits < 1 ||
+      db_splits < 1 || var < QKV_V3 || var > QKV_V4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (var == QKV_V4) {
+    if (lm < geo.L || lm > geo.LP || lm % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    geo.lm = lm;
+  } else if (lm != geo.L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hp = C / heads;
+  const bool pad = hp != hd;
+  const bool with_bias = bias != nullptr;
+  if ((pad && (hp != 128 || hd > 128 || var == QKV_V5)) ||
+      (with_bias && (var != QKV_V3 || pad || dbias_part == nullptr || dbias == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SWIN_CHUNKED_ARGS                                                                     \
+  hd, x, wr, w, b, scale, bias, mask, bflag, g, qkv, inv, rstat, dqkv, dw_part, db_part,      \
+      dscale_part, dbias_part, dx, dw, db, dscale, dbias, geo, dw_splits, db_splits, s
+  if (var == QKV_V5) return dispatch_chunked<QKV_V5, false, false>(SWIN_CHUNKED_ARGS);
+  if (var == QKV_V4) {
+    return pad ? dispatch_chunked<QKV_V4, false, true>(SWIN_CHUNKED_ARGS)
+               : dispatch_chunked<QKV_V4, false, false>(SWIN_CHUNKED_ARGS);
+  }
+  if (with_bias) return dispatch_chunked<QKV_V3, true, false>(SWIN_CHUNKED_ARGS);
+  return pad ? dispatch_chunked<QKV_V3, false, true>(SWIN_CHUNKED_ARGS)
+             : dispatch_chunked<QKV_V3, false, false>(SWIN_CHUNKED_ARGS);
+#undef SWIN_CHUNKED_ARGS
 }

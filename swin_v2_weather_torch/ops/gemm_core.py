@@ -2,7 +2,9 @@
 
 The core computes C[M, N] = A[M, K] @ B[K, N] with bf16 operands and fp32
 accumulation (TMA ring, wgmma on 128 x BN block tiles, an epilogue per
-caller). It carries the whole-MLP forward (K5, ``mlp_kernels.mlp_fwd``) and,
+caller). It carries fc1 + GELU and its backward (K3/K4,
+``mlp_kernels.fc1_gelu`` / ``fc1_dpre``), the whole-MLP forward (K5,
+``mlp_kernels.mlp_fwd``) and,
 as a pair of products on one tile, the whole-MLP backward's recompute (K6,
 ``mlp_kernels.mlp_bwd``); the qkv projection of the qkv-fused forwards (K1,
 K7, K10, K12; q and k normalized in its epilogue) and backwards, and the
@@ -171,8 +173,8 @@ gemm.launches = 0
 
 def count_launches(n: int) -> None:
     """Add n to the core's launch count (``gemm.launches``): called by the
-    entry points that launch the core with their own epilogues (K5, the
-    K2-family backwards, the large-head projection), once per call, with the
+    entry points that launch the core with their own epilogues (K3-K6, the
+    K1- and K2-family projections), once per call, with the
     number of core launches the call made."""
     gemm.launches += n
 

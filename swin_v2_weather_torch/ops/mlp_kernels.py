@@ -10,8 +10,9 @@ fc1 + GELU (``fc1_gelu_pallas``, ``fc1_dpre_pallas``, the custom_vjp
     versions: same functions, same rounding sites, in plain tensor ops. The
     CPU path and the test oracles.
   * :func:`fc1_gelu` / :func:`fc1_dpre` -- launch the hand-written kernels in
-    ``csrc/fc1_gelu.cu`` (K3 forward, K4 backward) on CUDA bf16 tensors; each
-    counts its launches.
+    ``csrc/fc1_gelu.cu`` (K3 forward, K4 backward; each one launch of the
+    GEMM core, ``gemm_core``: :func:`fc1_plan`) on CUDA bf16 tensors; each
+    counts its launches and the core's.
   * :class:`Fc1Gelu` -- the autograd Function. It saves (x, w, b) and not the
     [T, hidden] activation, as ``_build``'s ``f_fwd`` does; the backward
     recomputes the pre-activation inside K4.
@@ -98,6 +99,18 @@ def fc1_dpre_reference(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (g.float() * _gelu_grad(_pre_activation(x2, w, b))).to(x2.dtype)
 
 
+def fc1_plan(t: int, c_in: int, hidden: int) -> dict:
+    """K3's or K4's launch at T tokens: one launch of the GEMM core, x [T,
+    C_in] (K-major) @ W1 [C_in, hidden] (MN-major, read in place), its
+    :func:`gemm_core.plan` under ``fc1``; K4's epilogue also holds
+    ``prefetch_words`` 32-bit words of g a consumer thread, loaded before the
+    mainloop. Raises a ValueError where the core does not take the shape
+    (C_in or hidden not a multiple of 8, more than 65535 row tiles)."""
+    fc1 = gemm_core.plan(t, hidden, c_in, b_mn=True)
+    return {"launches": 1, "bn": fc1["bn"], "grid": fc1["grid"][:2], "smem": fc1["smem"],
+            "prefetch_words": fc1["bn"] // 4, "fc1": fc1}
+
+
 def _check_fc1_operands(name, x2, w, b, g=None):
     if x2.device.type != "cuda" or x2.dim() != 2:
         raise ValueError(f"{name}: x2 must be a 2-D CUDA tensor, got {x2.dim()}-D on {x2.device}")
@@ -109,17 +122,16 @@ def _check_fc1_operands(name, x2, w, b, g=None):
     _build.check_operand(name, "b", b, torch.float32, (n,), dev)
     if g is not None:
         _build.check_operand(name, "g", g, torch.bfloat16, (t, n), dev)
-    if k % 32 or n % 128:
-        raise ValueError(f"{name}: needs C_in % 32 == 0 and hidden % 128 == 0, got {k}, {n}")
+    fc1_plan(t, k, n)
     return t, k, n
 
 
 def fc1_gelu(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The forward kernel (K3): x2 [T, K] bf16, w [K, N] bf16, b [N] fp32 ->
-    [T, N] bf16.
+    [T, N] bf16: one launch of the GEMM core (:func:`fc1_plan`).
 
-    K must be a multiple of 32 and N of 128. Launches on the current stream
-    and does not synchronize.
+    K and N must be multiples of 8. Launches on the current stream and does
+    not synchronize.
     """
     name = "fc1_gelu"
     t, k, n = _check_fc1_operands(name, x2, w, b)
@@ -132,6 +144,7 @@ def fc1_gelu(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
         )
     _build.check(code, name)
     fc1_gelu.launches += 1
+    gemm_core.count_launches(1)
     return out
 
 
@@ -140,7 +153,8 @@ fc1_gelu.launches = 0
 
 def fc1_dpre(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The backward kernel (K4): x2 [T, K] bf16, w [K, N] bf16, b [N] fp32,
-    g [T, N] bf16 -> dpre = g * gelu'(bf16(x2 @ w + b)) [T, N] bf16.
+    g [T, N] bf16 -> dpre = g * gelu'(bf16(x2 @ w + b)) [T, N] bf16: one
+    launch of the GEMM core whose epilogue reads g (:func:`fc1_plan`).
 
     Same shape limits as :func:`fc1_gelu`. Launches on the current stream and
     does not synchronize.
@@ -157,6 +171,7 @@ def fc1_dpre(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor
         )
     _build.check(code, name)
     fc1_dpre.launches += 1
+    gemm_core.count_launches(1)
     return out
 
 

@@ -72,8 +72,11 @@ and any L (:func:`qkv_fwd_plan`). The one-block-per-(window, head) backward
 (K2, K7) holds q, k, v and g [LP, HD] in shared memory; where that does not
 fit (head dim 256 at L = 162: the e2048 family), the large-head backward
 (``csrc/window_attention_qkv_large.cu``) runs instead, with the same rounding
-sites. :func:`qkv_variant` says which runs for a shape, or raises before any
-launch.
+sites, and where neither fits (every L above 256; head dim 256 from L = 225)
+the chunked backward in the same source (:func:`qkv_chunked_bwd`; K10 and
+v4/v5 too), whose shared memory does not grow with L. :func:`qkv_variant`
+says which runs for a shape, or raises before any launch for a head dim the
+forward does not take.
 
 Selectable variants, as in the JAX package, read at call time from the
 module globals (set from the environment at import):
@@ -94,8 +97,9 @@ K8/K9's forward is one streamed kernel at head dims 32-256 and any L (keys
 and values through a ring, ``csrc/qkv_attention.cuh``); their backward at
 head dims whose one-block instance does not fit shared memory (128 and 256
 at L = 162: the e2048 family) takes the large-head variant
-(``csrc/qkv_attention_large.cuh``); :func:`attn_variant` says which runs in
-each direction, or raises.
+(``csrc/qkv_attention_large.cuh``), and where neither fits (every L above
+256) its chunked form; :func:`attn_variant` says which runs in each
+direction, or raises.
 """
 
 from __future__ import annotations
@@ -136,7 +140,8 @@ qkv_impl()  # fail fast on a bad environment value, as the JAX package does at i
 qkv_bwd_impl()
 
 _MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
-_LARGE_RW = 4  # 16-row warps per block of the large-head backward kernels
+_LARGE_RW = 4  # 16-row warps per block of the large-head and chunked backward kernels
+_LDT = 24  # row pitch of the chunked backwards' per-warp 16 x 16 tile
 
 
 def qkv_smem_bytes(hd: int, l: int) -> dict:
@@ -144,7 +149,9 @@ def qkv_smem_bytes(hd: int, l: int) -> dict:
     window length ``l``, as the CUDA sources compute it: ``fwd`` of the
     forward's attention pass (K1, K7, K10 and v5 alike: :func:`qkv_fwd_plan`),
     ``bwd`` of the one-block-per-(window, head) backward (K2; K7 and K10
-    alike) and ``large_rows``/``large_cols`` of the large-head backward."""
+    alike), ``large_rows``/``large_cols`` of the large-head backward and
+    ``chunked`` of the chunked backward's rows and columns kernels (the same
+    at every L)."""
     lp = -(-l // 16) * 16
     ldq, ldp, rw = hd + 8, lp + 8, _LARGE_RW
     return {
@@ -154,32 +161,42 @@ def qkv_smem_bytes(hd: int, l: int) -> dict:
         + (rw * 16 * hd + rw * 256 + 16) * 4,
         "large_cols": (2 * rw * 16 * ldq + 64 * ldq + 2 * rw * 16 * ldp) * 2
         + (rw * 16 * hd + rw * 256) * 4,
+        "chunked": (2 * rw * 16 * ldq + 64 * ldq + rw * 16 * _LDT) * 2
+        + (rw * 16 * hd + rw * 256 + 16) * 4,
     }
+
+
+def _bwd_variant(name: str, hd: int, l: int, base: int, large: int) -> str:
+    """The backward of one family at head dim ``hd`` and window length ``l``
+    from its instances' shared memory: ``'base'`` (head dims 32-128, L <= 256)
+    where it fits, else ``'large'`` (head dim 128 or 256, L <= 256) where it
+    fits, else ``'chunked'`` (every head dim the forward takes, any L)."""
+    if hd not in ATTN_FWD_HEAD_DIMS or l < 1:
+        raise ValueError(f"{name}: no backward kernel takes head dim {hd} (the forward and "
+                         f"backward take {ATTN_FWD_HEAD_DIMS})")
+    if l <= 256 and hd <= 128 and base <= _MAX_SMEM:
+        return "base"
+    if l <= 256 and hd in (128, 256) and large <= _MAX_SMEM:
+        return "large"
+    return "chunked"
 
 
 def qkv_variant(name: str, hd: int, l: int, backward: bool) -> str:
     """Which qkv-fused kernel runs at head dim ``hd`` and window length ``l``.
     Forward: ``'streamed'`` (the projection on the GEMM core, then the
     streamed attention pass) at head dims 32/64/96/128/256 and any L.
-    Backward: ``'base'`` (K2, head dim 32/64/96/128) where its shared memory
-    fits, else ``'large'`` (head dim 128 or 256) where that variant's fits,
-    L at most 256. Any other shape raises a ValueError before a launch."""
+    Backward, at the same head dims and any L: ``'base'`` (K2, head dim
+    32/64/96/128, L <= 256) where its shared memory fits, else ``'large'``
+    (head dim 128 or 256, L <= 256) where that variant's fits, else
+    ``'chunked'``, whose shared memory does not grow with L. Any other head
+    dim raises a ValueError before a launch."""
     if not backward:
         if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
             return "streamed"
         raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
                          f"{ATTN_FWD_HEAD_DIMS})")
     sm = qkv_smem_bytes(hd, l)
-    base, large = sm["bwd"], max(sm["large_rows"], sm["large_cols"])
-    if l <= 256:
-        if hd in (32, 64, 96, 128) and base <= _MAX_SMEM:
-            return "base"
-        if hd in (128, 256) and large <= _MAX_SMEM:
-            return "large"
-    raise ValueError(
-        f"{name}: no backward kernel takes head dim {hd} at L = {l}: head dims 32/64/96/128 "
-        f"need {base} B of shared memory, the large-head variant (head dim 128 or 256) "
-        f"{large} B, of {_MAX_SMEM}; L must be at most 256")
+    return _bwd_variant(name, hd, l, sm["bwd"], max(sm["large_rows"], sm["large_cols"]))
 
 
 def qkv_fwd_plan(hd: int, l: int, lq: Optional[int] = None) -> dict:
@@ -610,12 +627,19 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
     dev = x.device
     t = b * h * w
     lp = -(-l // 16) * 16
+    if variant == "chunked":
+        out = qkv_chunked_bwd(x, w_qkv if w5 is None else w5, w_qkv, b_qkv, scale, badd, g,
+                              window, mask_pattern, boundary_flag, hd=c // heads, nwh=nwh,
+                              nww=nww, lm=l, var="v3" if w5 is None else "v5")
+        fn.launches += 1
+        gemm_core.count_launches(gemm_core.projection_launches(heads, w5 is not None) + 2)
+        return out
     # token ranges of the split-K dW product (on the GEMM core) and of the db
     # column sums
     dw_splits = gemm_core.split_k(c_in, 3 * c, t)
     db_splits = max(1, min(64, -(-t // 512)))
     # d(scale) partials: one per window, or (large) one per window and 64 query rows
-    n_part = b * nwh * nww * (-(-(lp // 16) // _LARGE_RW) if variant == "large" else 1)
+    n_part = b * nwh * nww * _row_chunks(variant, lp)
     f32 = dict(dtype=torch.float32, device=dev)
     # the recomputed projection (the GEMM core's; the large-head variant
     # normalizes q and k in it) and its cotangent
@@ -688,10 +712,11 @@ def window_attention_qkv_bwd(
     [L, L] fp32 or None -> (dx [B, H, W, C_in] bf16, dW [C_in, 3C] fp32,
     db [3C] fp32, dscale [heads] fp32).
 
-    Same shape limits as the forward kernel; head dim 128 at L above 144
-    and 256 take the large-head variant (:func:`qkv_variant`). Launches on
-    the current stream and does not synchronize; dW, db and dscale are summed
-    in a fixed order, so two calls give the same bits.
+    Same shape limits as the forward kernel; head dim 128 at L above 208
+    and 256 take the large-head variant, and every head dim past L = 256
+    (256 from L = 225) the chunked one (:func:`qkv_variant`). Launches on the
+    current stream and does not synchronize; dW, db and dscale are summed in
+    a fixed order, so two calls give the same bits.
     """
     return _launch_backward(window_attention_qkv_bwd, x, w_qkv, b_qkv, scale, g, window,
                             mask_pattern, boundary_flag, None)
@@ -722,6 +747,56 @@ def window_attention_qkv_bias_bwd(
 
 
 window_attention_qkv_bias_bwd.launches = 0
+
+
+_QKV_VARS = {"v3": 0, "v5": 1, "v4": 2}  # the chunked backward's variant argument
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def qkv_chunked_bwd(x, wr, w, b, scale, badd, g, window, mask_pattern, boundary_flag, *, hd,
+                    nwh, nww, lm, var):
+    """Launch the chunked backward of the qkv-fused attention (any L; its
+    shared memory does not grow with L: ``csrc/window_attention_qkv_large.cu``
+    section 5) on operands the caller has checked, and return (dx, dW, db,
+    dscale), plus dbias with the folded CPB term ``badd``. ``var`` 'v3' (K2,
+    K7 with ``badd``, K10 where w's head pitch ``w.shape[-1] // 3 // heads``
+    is 128 above ``hd``), 'v5' (``wr`` the reordered [3 * heads, C_in, hd]
+    weight of the recompute; dx and dW from the packed ``w``) or 'v4' (x and g
+    window-major [B, nW, lm, *], ``lm`` rows a window). ``wr`` is ``w`` but
+    for v5. The caller counts the launch."""
+    dev = x.device
+    heads, c_in, n = int(scale.shape[0]), x.shape[-1], w.shape[-1]
+    wh, ww = int(window[0]), int(window[1])
+    t, n_win, lp = x.numel() // c_in, x.shape[0] * nwh * nww, -(-(wh * ww) // 16) * 16
+    dw_splits = gemm_core.split_k(c_in, n, t)
+    db_splits = max(1, min(64, -(-t // 512)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    qkv = torch.empty((t, n), dtype=torch.bfloat16, device=dev)
+    dqkv = torch.empty((t, n), dtype=torch.bfloat16, device=dev)
+    inv = torch.empty((t, 2, heads), **f32)
+    rstat = torch.empty((n_win, heads, lp, 2), **f32)
+    dw_part = torch.empty((dw_splits, c_in, n), **f32)
+    db_part = torch.empty((db_splits, n), **f32)
+    dscale_part = torch.empty((n_win * _row_chunks("chunked", lp), heads), **f32)
+    dx, dw, db, dscale = (torch.empty_like(x), torch.empty((c_in, n), **f32),
+                          torch.empty((n,), **f32), torch.empty((heads,), **f32))
+    dbias_part = None if badd is None else torch.empty((n_win, heads, lp, lp), **f32)
+    dbias = None if badd is None else torch.empty((heads, wh * ww, wh * ww), **f32)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.swin_window_attention_qkv_chunked_bwd(
+            x.data_ptr(), wr.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+            _ptr(badd), _ptr(mask_pattern), float(boundary_flag), g.data_ptr(), qkv.data_ptr(),
+            inv.data_ptr(), rstat.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(),
+            db_part.data_ptr(), dscale_part.data_ptr(), _ptr(dbias_part), dx.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), dscale.data_ptr(), _ptr(dbias), x.shape[0], nwh, nww,
+            lm, c_in, n // 3, heads, hd, wh, ww, _QKV_VARS[var], dw_splits, db_splits, stream)
+    _build.check(code, "swin_window_attention_qkv_chunked_bwd")
+    return (dx, dw, db, dscale) if badd is None else (dx, dw, db, dscale, dbias)
 
 
 def _flag(boundary_flag) -> float:
@@ -1004,7 +1079,9 @@ def window_attention_qkv_padded_backward_reference(x, wp, bp, scale, hd, g, wind
 
 
 def _check_padded_operands(name, x, wp, bp, scale, hd, window, mask_pattern, g=None):
-    """-> (b, h, w, c_in, heads, wh, ww, l); raises on a shape K10 does not take."""
+    """-> (b, h, w, c_in, heads, wh, ww, l, variant); raises on a shape K10
+    does not take. The backward's variant: ``'base'`` (the one-block pass)
+    where it fits, L <= 256, else ``'chunked'``."""
     if x.device.type != "cuda" or x.dim() != 4:
         raise ValueError(f"{name}: x must be a 4-D CUDA tensor, got {x.dim()}-D on {x.device}")
     b, h, w, c_in = x.shape
@@ -1023,12 +1100,10 @@ def _check_padded_operands(name, x, wp, bp, scale, hd, window, mask_pattern, g=N
     if hd not in (32, 64, 96, 128) or c_in % 32:
         raise ValueError(f"{name}: needs head dim in (32, 64, 96, 128) and C_in % 32 == 0; got "
                          f"head dim {hd}, C_in={c_in}")
-    if g is not None:  # the backward's one-block pass
-        sm = qkv_smem_bytes(hd, l)["bwd"]
-        if l > 256 or sm > _MAX_SMEM:
-            raise ValueError(f"{name}: the backward needs L <= 256 and {sm} B of shared memory "
-                             f"<= {_MAX_SMEM}; got L={l}")
-    return b, h, w, c_in, heads, wh, ww, l
+    variant = None
+    if g is not None:  # the backward's one-block pass where it fits, else the chunked one
+        variant = "base" if l <= 256 and qkv_smem_bytes(hd, l)["bwd"] <= _MAX_SMEM else "chunked"
+    return b, h, w, c_in, heads, wh, ww, l, variant
 
 
 def window_attention_qkv_padded(x, wp, bp, scale, hd, window, mask_pattern=None,
@@ -1038,8 +1113,8 @@ def window_attention_qkv_padded(x, wp, bp, scale, hd, window, mask_pattern=None,
     ``hd`` (32/64/96/128), mask_pattern [L, L] fp32 or None -> [B, H, W,
     heads * 128] bf16, pad lanes zero. Launches on the current stream."""
     name = "window_attention_qkv_padded"
-    b, h, w, c_in, heads, wh, ww, _ = _check_padded_operands(name, x, wp, bp, scale, hd, window,
-                                                             mask_pattern)
+    b, h, w, c_in, heads, wh, ww, _, _ = _check_padded_operands(name, x, wp, bp, scale, hd,
+                                                                window, mask_pattern)
     out = torch.empty((b, h, w, heads * HD_PAD), dtype=torch.bfloat16, device=x.device)
     qkv = torch.empty((b, h, w, 3 * heads * HD_PAD), dtype=torch.bfloat16, device=x.device)
     lib = _build.load_library()
@@ -1066,8 +1141,14 @@ def window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, window, mask_patter
     [heads], all fp32 but dx). Summed in a fixed order: two calls give the
     same bits."""
     name = "window_attention_qkv_padded_bwd"
-    b, h, w, c_in, heads, wh, ww, _ = _check_padded_operands(name, x, wp, bp, scale, hd, window,
-                                                             mask_pattern, g)
+    b, h, w, c_in, heads, wh, ww, l, variant = _check_padded_operands(
+        name, x, wp, bp, scale, hd, window, mask_pattern, g)
+    if variant == "chunked":
+        out = qkv_chunked_bwd(x, wp, wp, bp, scale, None, g, window, mask_pattern, boundary_flag,
+                              hd=hd, nwh=h // wh, nww=w // ww, lm=l, var="v3")
+        window_attention_qkv_padded_bwd.launches += 1
+        gemm_core.count_launches(3)  # the projection, dx and dW on the GEMM core
+        return out
     dev, t, n = x.device, b * h * w, 3 * heads * HD_PAD
     dw_splits = gemm_core.split_k(c_in, n, t)
     db_splits = max(1, min(64, -(-t // 512)))
@@ -1449,8 +1530,10 @@ def attn_smem_bytes(hd: int, l: int) -> dict:
     """Shared memory (bytes) of each K8/K9 kernel at head dim ``hd`` and window
     length ``l``, as the CUDA sources compute it: ``fwd`` of the streamed
     forward (:func:`attn_fwd_plan`), ``bwd`` of the one-block-per-(window,
-    head) backward (``csrc/qkv_attention.cuh``) and ``large_rows``/
-    ``large_cols`` of the large-head backward (``csrc/qkv_attention_large.cuh``)."""
+    head) backward (``csrc/qkv_attention.cuh``), ``large_rows``/
+    ``large_cols`` of the large-head backward and ``chunked`` of the chunked
+    backward's rows and columns kernels (``csrc/qkv_attention_large.cuh``;
+    the same at every L)."""
     lp = -(-l // 16) * 16
     nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
     return {
@@ -1458,33 +1541,26 @@ def attn_smem_bytes(hd: int, l: int) -> dict:
         "bwd": 4 * lp * ldq * 2 + nw * 1024 + nw * 16 * ldp * 2 + (5 * lp + 32) * 4,
         "large_rows": (3 * rw * 16 * ldq + rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
         "large_cols": (3 * rw * 16 * ldq + 2 * rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256) * 4,
+        "chunked": (3 * rw * 16 * ldq + rw * 16 * _LDT) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
     }
 
 
 def attn_variant(name: str, hd: int, l: int, backward: bool) -> str:
     """Which K8/K9 kernel runs in one direction at head dim ``hd`` and window
     length ``l``. Forward: ``'streamed'`` at head dims 32/64/96/128/256 and any
-    L. Backward: ``'base'`` (the one-block instances, head dim 32/64/96/128)
-    where its shared memory fits, else ``'large'`` (head dim 128 or 256) where
-    that variant's fits, L at most 256. Any other shape raises a ValueError
-    before a launch. At L = 162 the backward at head dim 128 (271,168 B) and
-    256 is ``'large'``."""
+    L. Backward, at the same head dims and any L: ``'base'`` (the one-block
+    instances, head dim 32/64/96/128, L <= 256) where its shared memory fits,
+    else ``'large'`` (head dim 128 or 256, L <= 256) where that variant's
+    fits, else ``'chunked'``, whose shared memory does not grow with L. Any
+    other head dim raises a ValueError before a launch. At L = 162 the
+    backward at head dim 128 (271,168 B) and 256 is ``'large'``."""
     if not backward:
         if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
             return "streamed"
         raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
                          f"{ATTN_FWD_HEAD_DIMS})")
     sm = attn_smem_bytes(hd, l)
-    base, large = sm["bwd"], max(sm["large_rows"], sm["large_cols"])
-    if l <= 256:
-        if hd in (32, 64, 96, 128) and base <= _MAX_SMEM:
-            return "base"
-        if hd in (128, 256) and large <= _MAX_SMEM:
-            return "large"
-    raise ValueError(
-        f"{name}: no backward kernel takes head dim {hd} at L = {l}: head dims 32/64/96/128 "
-        f"need {base} B of shared memory, the large-head variant (head dim 128 or 256) "
-        f"{large} B, of {_MAX_SMEM}; L must be at most 256")
+    return _bwd_variant(name, hd, l, sm["bwd"], max(sm["large_rows"], sm["large_cols"]))
 
 
 def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:
@@ -1505,13 +1581,14 @@ def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:
 
 def _row_chunks(variant: str, lp: int) -> int:
     """Query-row blocks per (window, head) of the backward: 1, or for the
-    large-head variant one per 64 rows (each writes its own d(scale) partial)."""
-    return -(-(lp // 16) // _LARGE_RW) if variant == "large" else 1
+    large-head and chunked variants one per 64 rows (each writes its own
+    d(scale) partial)."""
+    return -(-(lp // 16) // _LARGE_RW) if variant in ("large", "chunked") else 1
 
 
 def _v1_norm_scratch(q: torch.Tensor):
-    """K9's large-head backward scratch: qn16, kn16 in q's layout and the fp32
-    norms [2, Bw, heads, L]."""
+    """K9's large-head and chunked backward scratch: qn16, kn16 in q's layout
+    and the fp32 norms [2, Bw, heads, L]."""
     return (torch.empty_like(q), torch.empty_like(q),
             torch.empty((2, *q.shape[:-1]), dtype=torch.float32, device=q.device))
 
@@ -1628,7 +1705,8 @@ def _launch_grid_backward(fn, qn, kn, v, scale, bias, g, window, mask_pattern, b
             code = lib.swin_window_attention_grid_bwd(*head, *tail)
         else:  # the per-row softmax statistics the rows and columns kernels share
             rstat = torch.empty((n_win, heads, lp, 3), **f32)
-            code = lib.swin_window_attention_grid_large_bwd(*head, rstat.data_ptr(), *tail)
+            entry = getattr(lib, f"swin_window_attention_grid_{variant}_bwd")
+            code = entry(*head, rstat.data_ptr(), *tail)
     _build.check(code, name)
     fn.launches += 1
     return (dqn, dkn, dv, dscale) if bias is None else (dqn, dkn, dv, dscale, dbias)
@@ -1744,8 +1822,9 @@ def _launch_v1_backward(fn, q, k, v, scale, bias, g, window_grid, mask_pattern):
         else:  # scratch: normalized q and k, their norms, the per-row statistics
             qn, kn, inv = _v1_norm_scratch(q)
             rstat = torch.empty((n_win, heads, lp, 3), **f32)
-            code = lib.swin_window_attention_v1_large_bwd(
-                *head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), rstat.data_ptr(), *tail)
+            entry = getattr(lib, f"swin_window_attention_v1_{variant}_bwd")
+            code = entry(*head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), rstat.data_ptr(),
+                         *tail)
     _build.check(code, name)
     fn.launches += 1
     return (dq, dk, dv, dscale) if bias is None else (dq, dk, dv, dscale, dbias)

@@ -27,6 +27,7 @@ where only PyTorch is installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
 
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -1074,11 +1075,11 @@ def test_large_head_kernels_match_plain(cuda_device, hd, use_bias):
 
 @pytest.mark.cuda
 def test_qkv_kernels_refuse_shapes_no_instance_takes(cuda_device):
-    """A head dim or window that no instance takes raises a ValueError before
-    any launch: head dim 192 either way. Head dim 96 at L = 256 runs both
-    ways (the forward's pass takes any L; the backward's one-block kernel
-    fits since its scores left shared memory): zero inputs give a zero
-    output and zero gradients."""
+    """Only what the forward refuses raises a ValueError before any launch,
+    both ways: head dim 192. Head dim 96 at L = 256 runs both ways (the
+    forward's pass takes any L; the backward's one-block kernel fits since
+    its scores left shared memory, and past that the chunked one runs): zero
+    inputs give a zero output and zero gradients."""
     before = launch_counts()
     for hd, window, grid in ((96, (16, 16), (16, 16)), (192, WINDOW, (H, W))):
         c = 2 * hd
@@ -1292,18 +1293,14 @@ def test_qkv_attention_forward_padded_small_window(cuda_device, layout, use_bias
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_qkv_attention_forward_beyond_256_keys(cuda_device, layout, use_bias):
     """L = 288 (window 12 x 24 on a 24 x 48 grid, head dim 64), which the
-    forward streams like any L; the backward still refuses it (L <= 256)
-    before a launch."""
+    forward streams like any L; the backward takes the chunked instance
+    there, held to its plain version with the forward (``check_qkv_kernels``)."""
     assert WA.attn_variant("t", 64, 288, False) == "streamed"
-    q, k, v, scale, extra, tail = check_qkv_forward(cuda_device, layout, use_bias, True, h=24,
-                                                    w=48, c=128, heads=2, window=(12, 24))
-    kind = ("grid" if layout == "grid" else "v1") + ("_bias" if use_bias else "")
-    bwd = getattr(WA, f"window_attention_{kind}_bwd")
-    before = launch_counts()
-    with pytest.raises(ValueError, match="backward"):
-        bwd(q, k, v, scale, *extra, torch.zeros_like(q if layout != "grid" else v.contiguous()),
-            *tail)
-    assert launch_counts() == before
+    assert WA.attn_variant("t", 64, 288, True) == "chunked"
+    check_qkv_forward(cuda_device, layout, use_bias, True, h=24, w=48, c=128, heads=2,
+                      window=(12, 24))
+    check_qkv_kernels(cuda_device, layout, use_bias, True, h=24, w=48, c=128, heads=2,
+                      window=(12, 24))
 
 
 def k12_operands(dev, h, w, c, heads, seed=61):
@@ -1479,8 +1476,9 @@ def test_v4_large_head_kernels_match_plain(cuda_device, hd):
 
 @pytest.mark.cuda
 def test_v4_kernels_refuse_shapes_no_instance_takes(cuda_device):
-    """A head dim no v4 instance takes (192) raises a ValueError before any
-    launch."""
+    """A head dim the forward does not take (192) raises a ValueError before
+    any launch, both ways (every L of a head dim the forward takes has a
+    backward: the chunked one past L = 256)."""
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
     dev, c = cuda_device, 2 * 192
@@ -1551,8 +1549,9 @@ def test_qkv_forward_at_every_head_dim_and_window(cuda_device, hd, l, use_bias):
     and 288 (2 heads, shifted): against the plain version (2 ulps max, 0.01
     mean) and against the plain version of the pass's order of sums
     (``window_attention_qkv_pass_order``, the same bounds), one launch on its
-    wrapper and one projection on the GEMM core. The backward refuses
-    L = 288 before a launch."""
+    wrapper and one projection on the GEMM core. At L = 288 the backward
+    takes the chunked instance and runs (its checks against the plain
+    version: ``test_chunked_qkv_backward_matches_plain``)."""
     from swin_v2_weather_torch.ops import gemm_core
 
     (h, w), window = QKV_FWD_WINDOWS[l]
@@ -1584,9 +1583,12 @@ def test_qkv_forward_at_every_head_dim_and_window(cuda_device, hd, l, use_bias):
     assert_close_ulps(out.float().cpu().numpy(), order.float().cpu().numpy(), 2, 0.01)
     if l > 256:
         bwd = WA.window_attention_qkv_bias_bwd if use_bias else WA.window_attention_qkv_bwd
-        with pytest.raises(ValueError, match="backward"):
-            bwd(x, wq, bq, scale, *extra, out, window, mask, 1.0)
+        assert WA.qkv_variant("t", hd, l, True) == "chunked"
+        grads = bwd(x, wq, bq, scale, *extra, out, window, mask, 1.0)
+        torch.cuda.synchronize()
+        want[QKV_KERNELS.index(bwd)] += 1
         assert launch_counts() == want
+        assert all(torch.isfinite(t.float()).all() for t in grads)
 
 
 @pytest.mark.cuda
@@ -1619,3 +1621,136 @@ def test_k6_on_the_core_matches_plain(cuda_device, t, c_in, hidden, c_out):
     assert_close_ulps(dpre.float().cpu().numpy(), dpre_ref.float().cpu().numpy(), 2, 0.01)
     again = mlp_kernels.mlp_bwd(x2, w1.bfloat16(), b1, w2.bfloat16(), g)
     assert torch.equal(a, again[0]) and torch.equal(dpre, again[1])
+
+
+# --------------------------------------------------------------------------
+# the chunked backwards past L = 256, and K3/K4 on the GEMM core
+# --------------------------------------------------------------------------
+
+# L -> (grid, window): two rows of windows at L = 288, one at 576
+CHUNK_WINDOWS = {288: ((24, 48), (12, 24)), 576: ((24, 48), (24, 24))}
+# (variant, use_bias): v3 is K2 (K7 with the bias), v6 K10, v4p the padded v4
+CHUNK_QKV_CASES = [("v3", False), ("v3", True), ("v6", False), ("v5", False), ("v4", False),
+                   ("v4p", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant, use_bias", CHUNK_QKV_CASES)
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("l", [288, 576])
+def test_chunked_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, l):
+    """Every qkv-fused backward past L = 256 (the chunked instances; K10 and
+    the padded v4 at head dim 96 only, the head dims they take below their
+    pitch 128), shifted, two windows of two heads or four: dx, dW, db, dscale
+    (and dbias) against the plain version within the bounds of the flagship
+    backward, one launch on the wrapper and three (v5: 3 heads + 2) on the
+    GEMM core, two calls bit-equal; the padded variants' pad columns exactly
+    zero."""
+    from swin_v2_weather_torch.ops import gemm_core
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    if variant in ("v6", "v4p") and hd > 128:
+        pytest.skip("K10 and the padded v4 take head dims up to their pitch 128")
+    assert WA.qkv_variant("t", hd, l, True) == "chunked"
+    dev, heads = cuda_device, 2
+    (h, w), window = CHUNK_WINDOWS[l]
+    c = heads * hd
+    rng = np.random.default_rng(91)
+    x = torch.from_numpy(rng.standard_normal((1, h, w, 64)).astype(np.float32)).to(dev).bfloat16()
+    w16 = torch.from_numpy((rng.standard_normal((64, 3 * c)) / 8.0).astype(np.float32)).to(
+        dev).bfloat16()
+    bq = torch.from_numpy((0.1 * rng.standard_normal(3 * c)).astype(np.float32)).to(dev)
+    scale = torch.from_numpy(np.exp(np.log(10.0) + 0.3 * rng.standard_normal(heads)).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev).bfloat16()
+    mask = torch.from_numpy(make_shift_mask((h, w), window, (window[0] // 2, window[1] // 2))[-1]
+                            .copy()).to(dev)
+    grid = (h // window[0], w // window[1])
+    wp, bp = WA.pad_heads_w(w16, heads), WA.pad_heads_vec(bq, heads)
+    if variant == "v3":
+        extra = ()
+        if use_bias:
+            raw = torch.from_numpy((2.0 * rng.standard_normal((heads, l, l))).astype(np.float32))
+            extra = (WA.fold_cpb_bias(raw.to(dev), scale).contiguous(),)
+        fn = WA.window_attention_qkv_bias_bwd if use_bias else WA.window_attention_qkv_bwd
+        args = (x, w16, bq, scale, *extra, g, window, mask)
+    elif variant == "v6":
+        fn = WA.window_attention_qkv_padded_bwd
+        args = (x, wp, bp, scale, hd, WA.pad_heads_x(g, heads, hd), window, mask)
+    elif variant == "v5":
+        fn = v45.window_attention_qkv5_bwd
+        args = (x, v45.w5_reorder(w16, heads).contiguous(), w16, bq, scale, g, window, mask)
+    else:
+        xw, gw = v45.window_major(x, window), v45.window_major(g, window)
+        if variant == "v4":
+            fn, args = v45.window_attention_qkv4_bwd, (xw, w16, bq, scale, gw, window, grid, mask)
+        else:
+            fn = v45.window_attention_qkv4_padded_bwd
+            args = (xw, wp, bp, scale, hd, WA.pad_heads_x(gw, heads, hd), window, grid, mask)
+    ref_fn = getattr(sys.modules[fn.__module__], fn.__name__[:-4] + "_backward_reference")
+    before, core = fn.launches, gemm_core.gemm.launches
+    grads = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert gemm_core.gemm.launches == core + (3 * heads + 2 if variant == "v5" else 3)
+    ref = ref_fn(*args)
+    assert len(grads) == len(ref) and grads[0].dtype == torch.bfloat16
+    for name, a, r in zip(("dx", "dW", "db", "dscale", "dbias"), grads, ref):
+        if name == "dscale":
+            assert_dscale_close(a.cpu().numpy(), r.cpu().numpy())
+        elif name == "dx":
+            assert_close_ulps(a.float().cpu().numpy(), r.float().cpu().numpy(), 2, 0.05)
+        else:
+            assert_close_backward(name, a.float().cpu().numpy(), r.float().cpu().numpy())
+    if variant in ("v6", "v4p"):
+        assert torch.count_nonzero(grads[1].reshape(64, 3, heads, 128)[..., hd:]).item() == 0
+        assert torch.count_nonzero(grads[2].reshape(3, heads, 128)[..., hd:]).item() == 0
+    again = fn(*args)
+    for a, r in zip(grads, again):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["grid", "windowed"])
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("l", [288, 576])
+def test_chunked_attention_backward_matches_plain(cuda_device, layout, use_bias, hd, l):
+    """K8 and K9 (bias-free and BIAS) past L = 256, the chunked backward with
+    the streamed forward, shifted: against their plain versions, their own
+    wrappers' launches, two backward calls bit-equal (``check_qkv_kernels``)."""
+    assert WA.attn_variant("t", hd, l, True) == "chunked"
+    (h, w), window = CHUNK_WINDOWS[l]
+    check_qkv_kernels(cuda_device, layout, use_bias, True, h=h, w=w, c=2 * hd, heads=2,
+                      window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [777, 64801])
+def test_fc1_kernels_on_the_core_at_ragged_t(cuda_device, t):
+    """K3 and K4 at the flagship widths (768 -> 3072) on a token count that
+    leaves a ragged last row tile: against their plain versions (K3 1 ulp
+    max, K4 2 ulps: a flipped pre-activation moves g gelu' by up to 1.13
+    ulp; 0.01 mean), one launch on each wrapper and on the GEMM core, the
+    ragged rows written, two K4 calls bit-equal."""
+    from swin_v2_weather_torch.ops import gemm_core
+
+    rng = np.random.default_rng(17)
+    dev = cuda_device
+    x2 = torch.from_numpy(rng.standard_normal((t, 768)).astype(np.float32)).to(dev).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((768, 3072)) / np.sqrt(768)).astype(np.float32)).to(
+        dev)
+    b = torch.from_numpy((0.1 * rng.standard_normal(3072)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((t, 3072)).astype(np.float32)).to(dev).bfloat16()
+    before = (mlp_kernels.fc1_gelu.launches, mlp_kernels.fc1_dpre.launches,
+              gemm_core.gemm.launches)
+    out = mlp_kernels.fc1_gelu(x2, w.bfloat16(), b)
+    dpre = mlp_kernels.fc1_dpre(x2, w.bfloat16(), b, g)
+    torch.cuda.synchronize()
+    assert (mlp_kernels.fc1_gelu.launches, mlp_kernels.fc1_dpre.launches,
+            gemm_core.gemm.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+    ref = mlp_kernels.fc1_gelu_reference(x2, w, b)
+    ref_dpre = mlp_kernels.fc1_dpre_reference(x2, w, b, g)
+    assert_close_ulps(out.float().cpu().numpy(), ref.float().cpu().numpy(), 1, 0.01)
+    assert_close_ulps(dpre.float().cpu().numpy(), ref_dpre.float().cpu().numpy(), 2, 0.01)
+    assert torch.equal(mlp_kernels.fc1_dpre(x2, w.bfloat16(), b, g), dpre)

@@ -209,13 +209,18 @@ def test_model_forward_matches_jax_bfloat16():
 @pytest.mark.parametrize(
     "override, match",
     [
-        ({"mlp_impl": "plain"}, "mlp_impl"),
+        ({"mlp_impl": "bogus"}, "mlp_impl"),
         ({"spatial_shards": 2}, "spatial_shards"),
     ],
 )
 def test_unported_routes_raise(override, match):
+    """What the port has no route for raises NotImplementedError
+    (``spatial_shards > 1``); an ``mlp_impl`` that no package has raises a
+    ValueError (every JAX value, 'plain' included, builds:
+    tests/test_torch_switches.py)."""
     _, tp = micro_configs(**override)
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if "mlp_impl" in override else NotImplementedError
+    with pytest.raises(exc, match=match):
         get_model(tp, device="cpu")
 
 

@@ -61,22 +61,38 @@ def test_qkv_variant_refuses_what_no_kernel_takes(hd, l):
     """Every shape the wrappers let through has a kernel whose shared memory
     fits; the others raise a ValueError, never reach a launch. The forward
     (the projection on the GEMM core, then the streamed pass) takes every L
-    at head dims 32-256, so only head dims 192 and 48 refuse; since the
-    backward's scores left shared memory, its one-block kernel takes head
-    dims 64 and 96 at L = 256 (217,152 B and 151,616 B), and refuses the
-    rest."""
+    at head dims 32-256, so only head dims 192 and 48 refuse, both ways. The
+    backward's one-block kernel takes head dims 64 and 96 at L = 256
+    (217,152 B and 151,616 B); head dim 256 at L = 256 fits neither it nor
+    the large-head variant and takes the chunked one."""
     if hd in (192, 48):
-        with pytest.raises(ValueError):
-            wa.qkv_variant("t", hd, l, False)
-    else:
-        assert wa.qkv_variant("t", hd, l, False) == "streamed"
-        assert wa.qkv_smem_bytes(hd, l)["fwd"] <= 232448
+        for backward in (False, True):
+            with pytest.raises(ValueError):
+                wa.qkv_variant("t", hd, l, backward)
+        return
+    assert wa.qkv_variant("t", hd, l, False) == "streamed"
+    assert wa.qkv_smem_bytes(hd, l)["fwd"] <= 232448
     if (hd, l) in ((96, 256), (64, 256)):
         assert wa.qkv_variant("t", hd, l, True) == "base"
         assert wa.qkv_smem_bytes(hd, l)["bwd"] == {96: 217152, 64: 151616}[hd]
     else:
-        with pytest.raises(ValueError):
-            wa.qkv_variant("t", hd, l, True)
+        sm = wa.qkv_smem_bytes(hd, l)
+        assert max(sm["large_rows"], sm["large_cols"]) > 232448
+        assert wa.qkv_variant("t", hd, l, True) == "chunked"
+
+
+@pytest.mark.parametrize("family", ["qkv", "attn"])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("l", [288, 576])
+def test_backward_variant_beyond_256(family, hd, l):
+    """Past L = 256 every backward takes the chunked instance, at every head
+    dim the forward takes: its shared memory does not depend on L and fits a
+    block (the qkv-fused family, K2/K7/K10/K12, and K8/K9 alike)."""
+    variant, smem = ((wa.qkv_variant, wa.qkv_smem_bytes) if family == "qkv"
+                     else (wa.attn_variant, wa.attn_smem_bytes))
+    assert variant("t", hd, l, False) == "streamed"
+    assert variant("t", hd, l, True) == "chunked"
+    assert smem(hd, l)["chunked"] == smem(hd, 8)["chunked"] <= 232448
 
 
 def test_wrappers_check_before_device():
@@ -177,6 +193,43 @@ def test_head_dim_256_matches_jax(use_mask):
               torch.from_numpy(w).bfloat16().requires_grad_(),
               torch.from_numpy(b).requires_grad_(), torch.from_numpy(scale).requires_grad_()]
     out = wa.fused_window_attention_qkv(*leaves, WINDOW, patt)
+    assert_close_ulps(out.float().detach().numpy(), np.asarray(ref, np.float32), 2, 0.01)
+    out.backward(torch.from_numpy(ct).bfloat16())
+    for name, leaf, r in zip(("dx", "dW", "db", "dscale"), leaves, ref_grads):
+        assert_close_backward(name, leaf.grad.float().numpy(), np.asarray(r, np.float32))
+
+
+WIN288 = (12, 24)  # L = 288, past the 256 rows of the one-block and large-head backwards
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_window_288_matches_jax(use_mask):
+    """At L = 288 (window 12 x 24; the GPU runs K1's streamed pass and the
+    chunked backward there) K1/K2's plain versions against the JAX v3
+    kernels at head dim 32, two windows of two heads: forward and jax.vjp in
+    bf16 (the bounds of tests/test_torch_kernels.py)."""
+    import jax
+
+    from swin_v2_weather_torch.models.swin import make_shift_mask
+
+    rng = np.random.default_rng(9)
+    h, w, heads, hd = 12, 48, 2, 32
+    c = heads * hd
+    x = rng.standard_normal((1, h, w, c)).astype(np.float32)
+    wq = (rng.standard_normal((c, 3 * c)) / np.sqrt(c)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(3 * c)).astype(np.float32)
+    scale = np.exp(np.log(10.0) + 0.3 * rng.standard_normal(heads)).astype(np.float32)
+    patt = make_shift_mask((h, w), WIN288, (6, 12))[-1] if use_mask else None
+    ct = rng.standard_normal((1, h, w, c)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda *a: jax_wa.fused_window_attention_qkv(*a, WIN288, patt),
+                       jnp.asarray(x, jnp.bfloat16), jnp.asarray(wq, jnp.bfloat16),
+                       jnp.asarray(b), jnp.asarray(scale))
+    ref_grads = vjp(jnp.asarray(ct, jnp.bfloat16))
+    leaves = [torch.from_numpy(x).bfloat16().requires_grad_(),
+              torch.from_numpy(wq).bfloat16().requires_grad_(),
+              torch.from_numpy(b).requires_grad_(), torch.from_numpy(scale).requires_grad_()]
+    assert wa.qkv_variant("t", hd, 288, True) == "chunked"
+    out = wa.fused_window_attention_qkv(*leaves, WIN288, patt)
     assert_close_ulps(out.float().detach().numpy(), np.asarray(ref, np.float32), 2, 0.01)
     out.backward(torch.from_numpy(ct).bfloat16())
     for name, leaf, r in zip(("dx", "dW", "db", "dscale"), leaves, ref_grads):

@@ -8,9 +8,10 @@ does not grow with L beyond a table of L words; their backward keeps one
 block per (window, head) with q, k, v and g [LP, hd] in shared memory, which
 at L = 162 fits up to head dim 96 (226,112 B) of the 232,448 B a block may
 use; beyond that the large-head backward (``csrc/qkv_attention_large.cuh``)
-runs. The table here pins the bytes and the kernel each wrapper picks,
-computed from the same formulas as the CUDA sources; shapes no kernel takes
-raise.
+runs, and where that does not fit either (every L above 256) its chunked
+form. The table here pins the bytes and the kernel each wrapper picks,
+computed from the same formulas as the CUDA sources; head dims no kernel
+takes raise.
 
 On the CPU the plain versions run at any head dim: at 128 and 256 they are
 held to the JAX grid and windowed kernels (interpret mode; JAX's kernels have
@@ -73,26 +74,27 @@ def test_attn_variant_large_bytes_at_e2048():
 
 
 # (head dim, L, backward) -> the kernel that takes it, or None where none does
-VARIANT_CASES = {(96, 256, False): "streamed", (64, 256, True): None, (192, 162, True): None,
-                 (256, 256, True): None, (48, 12, False): None}
+VARIANT_CASES = {(96, 256, False): "streamed", (64, 256, True): "chunked",
+                 (192, 162, True): None, (256, 256, True): "chunked", (48, 12, False): None}
 
 
 @pytest.mark.parametrize("hd, l, backward", list(VARIANT_CASES))
 def test_attn_variant_refuses_what_no_kernel_takes(hd, l, backward):
     """Every shape the wrappers let through has a kernel whose shared memory
-    fits; the others raise a ValueError before any launch. The forward takes
-    any L at head dims 32/64/96/128/256 (L = 256 and 264 here), never 48;
-    the backward refuses L above 256 (no config of the repo goes beyond
-    L = 162) and what does not fit."""
+    fits; the others raise a ValueError before any launch. Both directions
+    take any L at head dims 32/64/96/128/256 (L = 256 and 264 here), never 48
+    or 192: the backward takes the chunked instance where neither the
+    one-block one (head dim 64 at L = 256) nor the large-head one (head dim
+    256 at L = 256) fits, and at every L above 256."""
     want = VARIANT_CASES[hd, l, backward]
     if want is None:
         with pytest.raises(ValueError):
             wa.attn_variant("t", hd, l, backward)
     else:
         assert wa.attn_variant("t", hd, l, backward) == want
+        assert wa.attn_smem_bytes(hd, l)["chunked" if want == "chunked" else "fwd"] <= 232448
     if backward:
-        with pytest.raises(ValueError):
-            wa.attn_variant("t", 64, 264, backward)
+        assert wa.attn_variant("t", 64, 264, backward) == "chunked"
     else:
         assert wa.attn_variant("t", 64, 264, backward) == "streamed"
         assert wa.attn_fwd_plan(64, 264)["smem"] == wa.attn_smem_bytes(64, 264)["fwd"] <= 232448
@@ -159,4 +161,43 @@ def test_wide_plain_versions_match_jax(layout, hd):
     assert_close_ulps(out.detach().float().numpy(), np.asarray(out_ref, np.float32), 1, 0.01)
     for name, leaf, r in zip(("dq", "dk", "dv", "dscale", "dbias"), leaves, ref):
         assert leaf.grad.dtype == leaf.dtype, name
+        assert_close_ulps(leaf.grad.float().numpy(), np.asarray(r, np.float32), *GRAD_ULPS[name])
+
+
+WIN288 = (12, 24)  # L = 288: the chunked backward on the card
+
+
+@pytest.mark.parametrize("layout", ["grid", "windowed"])
+def test_window_288_plain_versions_match_jax(layout):
+    """At L = 288 (window 12 x 24, two windows of two heads of 32) the port's
+    K8 and K9 entry points against JAX's, with the raw bias and the shift
+    mask: the output and every gradient (bounds as at head dims 128/256)."""
+    rng = np.random.default_rng(8)
+    h, w, heads, hd, grid = 12, 48, 2, 32, (1, 2)
+    l = WIN288[0] * WIN288[1]
+    shape = (1, h, w, heads * hd) if layout == "grid" else (2, heads, l, hd)
+    q, k, v, g = (np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.bfloat16), np.float32)
+                  for _ in range(4))
+    scale = np.exp(rng.standard_normal(heads) * 0.3 + np.log(10.0)).astype(np.float32)
+    bias = (rng.standard_normal((heads, l, l)) * 0.5).astype(np.float32)
+    patt = make_shift_mask((h, w), WIN288, (6, 12))[-1]
+    jargs = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)] + [jnp.asarray(scale),
+                                                                  jnp.asarray(bias)]
+    leaves = [torch.from_numpy(t).bfloat16().requires_grad_() for t in (q, k, v)]
+    leaves += [torch.from_numpy(scale).requires_grad_(), torch.from_numpy(bias).requires_grad_()]
+    assert wa.attn_variant("t", hd, l, True) == "chunked"
+    if layout == "grid":
+        out_ref, vjp = jax.vjp(lambda q_, k_, v_, s_, b_: jax_wa.fused_window_attention_grid(
+            q_, k_, v_, s_, WIN288, bias=b_, mask_pattern=patt), *jargs)
+        out = wa.fused_window_attention_grid(*leaves[:4], WIN288, bias=leaves[4],
+                                             mask_pattern=patt)
+    else:
+        out_ref, vjp = jax.vjp(lambda q_, k_, v_, s_, b_: jax_wa.fused_window_attention(
+            q_, k_, v_, s_, bias=b_, mask_pattern=patt, window_grid=grid), *jargs)
+        out = wa.fused_window_attention(*leaves[:4], bias=leaves[4], mask_pattern=patt,
+                                        window_grid=grid)
+    ref = vjp(jnp.asarray(g, jnp.bfloat16))
+    out.backward(torch.from_numpy(g).bfloat16())
+    assert_close_ulps(out.detach().float().numpy(), np.asarray(out_ref, np.float32), 1, 0.01)
+    for name, leaf, r in zip(("dq", "dk", "dv", "dscale", "dbias"), leaves, ref):
         assert_close_ulps(leaf.grad.float().numpy(), np.asarray(r, np.float32), *GRAD_ULPS[name])
