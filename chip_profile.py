@@ -3,11 +3,15 @@
 
 Run from a checkout of the repo:
 
-    python3 chip_profile.py
+    python3 chip_profile.py [SUBSTRING ...]
 
-It needs one CUDA device and the CUDA toolkit, as ``chip_smoke.py`` does, and
-builds the flagship ``swin_73var_geo_depth12_chweight_invar`` at full width
-on the seeded weights ``chip_smoke.py`` draws, TF32 off. For each path, after
+(with substrings, only the paths whose label contains one of them, e.g.
+``"train e2048"``; the package and ``chip_smoke.py`` are imported from the
+working directory, so this script also profiles another checkout's kernels
+when run from that checkout's root). It needs one CUDA device and the CUDA
+toolkit, as ``chip_smoke.py`` does, and builds the flagship
+``swin_73var_geo_depth12_chweight_invar`` at full width on the seeded
+weights ``chip_smoke.py`` draws, TF32 off. For each path, after
 two warm-up steps:
 
   * rollout: ``RolloutEngine.steps``, batch 1, from 2018-01-01T00:00;
@@ -92,9 +96,13 @@ def fwd_pass(name: str, layout: int, bias: bool, padded: bool) -> bool:
 
 # (category, test on the kernel's name), first match wins
 CATEGORIES = (
-    # the large-head backward of K8/K9 (namespace swin_qkv_attn_large; template
-    # arguments <HD, LAYOUT, BIAS>, layout 0 the grid)
-    ("K8 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n and ", 0, " in n),
+    # the large-head backward of K8: the streamed kernels (streamed_bwd.cuh;
+    # template arguments <HD, FORM, BIAS, RAW, KEEP>, form 1 K8's softmax,
+    # form 0 the K2 family's) or, in trees before them, the wmma kernels of
+    # namespace swin_qkv_attn_large (<HD, LAYOUT, BIAS>, layout 0 the grid);
+    # K9's are the latter
+    ("K8 large backward", lambda n: re.search(r"streamed_bwd_\w+_kernel<\d+, 1,", n) is not None
+     or ("swin_qkv_attn_large::large_bwd" in n and ", 0, " in n)),
     ("K9 large backward", lambda n: "swin_qkv_attn_large::large_bwd" in n),
     ("K9 large normalization", lambda n: "swin_qkv_attn_large::normalize_kernel" in n),
     # the qkv-fused forwards' attention pass (the forward template's layouts 2
@@ -120,6 +128,9 @@ CATEGORIES = (
     # K1 family's, normalizing, and the K2 family's recompute), K5's two
     # products, K6 (the core's pair kernel), and the K2 family's dx and
     # split-K dW
+    # (the large-head K2's recompute keeps the norms: StoreNormBf16<.., true>)
+    ("qkv projection + q/k normalization, large K2 recompute (GEMM core)",
+     lambda n: "StoreNormBf16" in n and "true>" in n),
     ("qkv projection + q/k normalization, forward (GEMM core)", lambda n: "StoreNormBf16" in n),
     ("qkv projection, backward recompute (GEMM core)", lambda n: "StoreBiasBf16" in n),
     # fc1 + GELU: K3 on the single-step paths, K5's first product on the
@@ -129,7 +140,8 @@ CATEGORIES = (
     ("K6 (GEMM core pair kernel)", lambda n: "gemm_pair_kernel" in n),
     # the large-head backward of K2 (and K7, K12)
     ("large K2: normalization", lambda n: "normalize_qk_kernel" in n),
-    ("large K2 attention", lambda n: "large_bwd_rows_kernel" in n or "large_bwd_cols_kernel" in n),
+    ("large K2 attention", lambda n: "streamed_bwd_" in n or "large_bwd_rows_kernel" in n
+     or "large_bwd_cols_kernel" in n),
     ("K10 attention pass", lambda n: k12(n, "attention_bwd_kernel", 0, True)),
     # template arguments <HD, BIAS, head pitch>: BIAS true is K7
     ("K7 attention pass", lambda n: "attention_bwd_kernel<" in n and ", true," in n),
@@ -279,16 +291,9 @@ def layout_moves_ms(dev, n: int) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device (torch.cuda.is_available() is False)")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.getcwd())
     import chip_smoke
-    from swin_v2_weather_torch.data.preprocess import Preprocessor
-    from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
-    from swin_v2_weather_torch.inference.rollout import RolloutEngine
-    from swin_v2_weather_torch.models.wrappers import get_model
     from swin_v2_weather_torch.ops import _build
-    from swin_v2_weather_torch.ops.losses import LossHandler
-    from swin_v2_weather_torch.training.optim import build_optimizer
-    from swin_v2_weather_torch.training.step import build_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -303,47 +308,59 @@ def main() -> None:
     log(f"kernels built and loaded in {time.time() - t0:.1f} s")
     dev = torch.device("cuda", 0)
     n = N_STEPS
+    only = sys.argv[1:]
 
-    params = chip_smoke.train_params(chip_smoke.CONFIG)
+    def wanted(label: str) -> bool:
+        return not only or any(sub in label for sub in only)
 
-    # ---- rollout ---------------------------------------------------------------
+    if wanted("rollout"):
+        rollout(chip_smoke.train_params(chip_smoke.CONFIG), dev, n, card)
+    if wanted("rollout e2048"):
+        rollout(chip_smoke.train_params(chip_smoke.CONFIG_E2048), dev, n, card, e2048=True)
+    train_paths(wanted, dev, n, card)
+
+
+def rollout(params, dev, n: int, card: str, e2048: bool = False) -> None:
+    """Profile the rollout of ``params`` (the flagship, or the e2048 family
+    on weights drawn on the card)."""
+    import chip_smoke
+    from swin_v2_weather_torch.inference.rollout import RolloutEngine
+    from swin_v2_weather_torch.models.wrappers import get_model
+
     model = get_model(params)
-    chip_smoke.seeded_parameters(model, torch.Generator().manual_seed(chip_smoke.SEED))
+    label = "rollout e2048" if e2048 else "rollout"
+    weights = torch.Generator(device=dev) if e2048 else torch.Generator()
+    chip_smoke.seeded_parameters(model, weights.manual_seed(chip_smoke.SEED))
     engine = RolloutEngine(params, model, dev)
     state0 = torch.randn((1, int(params.n_out_channels), *params.img_size),
                          generator=torch.Generator().manual_seed(chip_smoke.SEED))
     steps = engine.steps(state0, START, 2 + 2 * n)
-    log(f"[rollout] {chip_smoke.CONFIG}, batch 1")
+    log(f"[{label}] {chip_smoke.CONFIG_E2048 if e2048 else chip_smoke.CONFIG}, "
+        f"{tuple(params.img_size)}, batch 1")
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         next(steps)
     log(f"  unprofiled: {events_ms(lambda: next(steps), n):.2f} ms/step ({card})")
-    t0 = time.perf_counter()
-    for _ in range(3):
-        engine.zenith_at(START)
-    log(f"  host zenith_at: {(time.perf_counter() - t0) * 1e3 / 3:.1f} ms per step")
-    profile_steps("rollout", lambda: next(steps), n, card)
+    if not e2048:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            engine.zenith_at(START)
+        log(f"  host zenith_at: {(time.perf_counter() - t0) * 1e3 / 3:.1f} ms per step")
+    profile_steps(label, lambda: next(steps), n, card)
     log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del engine, model, steps
     torch.cuda.empty_cache()
 
-    # ---- rollout e2048 ---------------------------------------------------------
-    params = chip_smoke.train_params(chip_smoke.CONFIG_E2048)
-    model = get_model(params)
-    chip_smoke.seeded_parameters(model, torch.Generator(device=dev).manual_seed(chip_smoke.SEED))
-    engine = RolloutEngine(params, model, dev)
-    state0 = torch.randn((1, int(params.n_out_channels), *params.img_size),
-                         generator=torch.Generator().manual_seed(chip_smoke.SEED))
-    steps = engine.steps(state0, START, 2 + 2 * n)
-    log(f"[rollout e2048] {chip_smoke.CONFIG_E2048}, {tuple(params.img_size)}, batch 1")
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        next(steps)
-    log(f"  unprofiled: {events_ms(lambda: next(steps), n):.2f} ms/step ({card})")
-    profile_steps("rollout e2048", lambda: next(steps), n, card)
-    log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    del engine, model, steps
-    torch.cuda.empty_cache()
+
+def train_paths(wanted, dev, n: int, card: str) -> None:
+    """Profile each train path whose label ``wanted`` accepts."""
+    import chip_smoke
+    from swin_v2_weather_torch.data.preprocess import Preprocessor
+    from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
+    from swin_v2_weather_torch.models.wrappers import get_model
+    from swin_v2_weather_torch.ops.losses import LossHandler
+    from swin_v2_weather_torch.training.optim import build_optimizer
+    from swin_v2_weather_torch.training.step import build_train_step
 
     # ---- train steps: single-step, the 2-step fine-tune, the CPB family ------
     # (label, config, overrides, qkv switches (QKV_IMPL, QKV_BWD_IMPL, QKV_PAD_HEADS))
@@ -368,6 +385,8 @@ def main() -> None:
              {**chip_smoke.E2048_TRAIN, **chip_smoke.GRID_ROUTE}, ("v3", "pallas", False)),
             ("train e2048 v1", chip_smoke.CONFIG_E2048,
              {**chip_smoke.E2048_TRAIN, **chip_smoke.V1_ROUTE}, ("v3", "pallas", False))):
+        if not wanted(label):
+            continue
         wa.QKV_IMPL, wa.QKV_BWD_IMPL, v45.QKV_PAD_HEADS = switches
         params = chip_smoke.train_params(config, over)
         model = get_model(params)

@@ -16,8 +16,10 @@ printing its own lines:
      with nvcc (first use builds into ``swin_v2_weather_torch/_build/``);
      every instance of the GEMM core (its pair kernel, K6, and K3/K4's
      instances included), of K2's attention pass, of the qkv-fused
-     forward's attention pass (K1, K7, K10, K12) and of the chunked
-     attention backwards (phase 39) must show 0 bytes spilled in the
+     forward's attention pass (K1, K7, K10, K12), of the streamed large-head
+     backwards (``streamed_bwd.cuh``: K2/K7/K12 at head dims 128/256 and K8's,
+     rows kernels with and without z and dp kept in registers) and of the
+     chunked attention backwards (phase 39) must show 0 bytes spilled in the
      ``-Xptxas -v`` log.
   3. the window-attention kernel (K1: the projection on the GEMM core, then
      the streamed attention pass) against its plain version at the flagship
@@ -100,7 +102,9 @@ printing its own lines:
      qkv tensor, read in place; 8 heads of 96, window 9 x 18; a seeded raw
      bias), unshifted and shifted: out, dq, dk, dv, dscale and dbias; two
      backward calls bit-equal; timed, beside ``scaled_dot_product_attention``
-     on the windowed tensors. Each forward instance's launch is printed:
+     on the windowed tensors (its forward, and its backward alone: the graph
+     recorded once, only ``torch.autograd.grad`` timed; null with the reason
+     where no backend takes the shape). Each forward instance's launch is printed:
      threads a block, dynamic shared memory, registers, local (spill) bytes
      (``cudaFuncGetAttributes``), resident blocks per SM
      (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), blocks per (window,
@@ -122,11 +126,14 @@ printing its own lines:
  27. the e2048 widths against their plain versions, timed: K1/K2 at x [1,
      180, 360, 2048], W_qkv [2048, 6144], 8 heads of 256, window 9 x 18 (K1's
      pass at head dim 256 with its breakdown, K2's large-head variant),
-     shifted, and one K7 case (forward and backward,
+     shifted, with its breakdown by torch.profiler (the recompute with the
+     q/k normalization, the rows and columns kernels, dx, dW, the
+     reductions), and one K7 case (forward and backward,
      shifted); K5/K6 at [64800, 2048] x [2048, 4096] x [4096, 2048]; two
      backward calls bit-equal; then K2, K5, K6 and the
      K8/K9 backwards at head dim 256 timed at the e2048 train steps' own shape
-     (the image [360, 720]: x [1, 90, 180, 2048], T = 16200).
+     (the image [360, 720]: x [1, 90, 180, 2048], T = 16200), K2's and K8's
+     with their breakdown, beside SDPA's backward at that shape.
  28. e2048 serving, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar`` at
      full size (720 x 1440, embed 2048, depth 24): 2 rollout steps, K1 and K5
      24 times a step, K3 never, output finite, step 1 against the plain path.
@@ -150,8 +157,10 @@ printing its own lines:
      and 256 (the e2048 tensors, [1, 180, 360, 2048]) with L = 162, shifted,
      forward (the streamed kernel) and backward (the large-head variant)
      against their plain versions; two backward calls bit-equal; timed
-     beside ``scaled_dot_product_attention`` on the same windowed tensors,
-     with phase 20's launch report.
+     beside ``scaled_dot_product_attention`` on the same windowed tensors
+     (forward and backward, as phase 20), with phase 20's launch report and
+     each large-head backward's breakdown by torch.profiler (rows and
+     columns kernels, the d(scale) and d(bias) reductions).
  34. the e2048 family at [360, 720] on ``attn_impl: 'pallas'`` and then
      ``'pallas_v1'``: 2 train steps each, K8 (or K9) forward and backward
      and K5/K6 24 times a step; step 1 against the plain path; every
@@ -182,7 +191,7 @@ printing its own lines:
      24, 48] grid, 2 heads, shifted) at head dims 32-256: K2, K7, v5, v4,
      K8 and K9 (bias-free and BIAS), and below head dim 128 K10 and the
      padded v4, each once against its plain version, two calls bit-equal,
-     timed (the padded variants' pad columns exactly zero).
+     timed beside its bound (the padded variants' pad columns exactly zero).
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -211,12 +220,14 @@ SXM) and ``library_ms``: for the K8 and K9 forwards the time of
 bias as a float additive mask [8, 162, 162]
 (the same function, but with one scalar scale where the kernels take one per
 head, and without the q/k normalization: the timed call leaves both out; the
-port never calls it); for K13 ``torch.sum(s, 0)`` (it rounds once, the
+port never calls it), and for the K8/K9 backwards the backward alone of the
+same call (null where no backend takes the shape); for K13 ``torch.sum(s, 0)`` (it rounds once, the
 kernel twice, as the TPU kernel); null for the others (no single PyTorch call
 computes them; K11's entries add ``F.layer_norm``'s time as context; K3's and
 K4's add ``matmul_ms``, ``torch.matmul`` of their operands, as a yardstick).
 The backward entries carry phase 39's results under ``chunked_l288`` (by
-head dim). K8/K9's entries are named by their main paths (the grid, windowed
+head dim, each with its bound), and the large-head backwards their
+breakdown under ``breakdown`` (and ``train_shape``'s). K8/K9's entries are named by their main paths (the grid, windowed
 and CPB train steps). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
 CUDA device the script exits with code 1 before printing any result.
@@ -371,32 +382,40 @@ K34_KERNELS = r"7swin_wg11gemm_kernelI\w*?(11Fc1Epilogue|12DpreEpilogue)"
 CHUNK_KERNELS = r"chunk_bwd_(rows|cols)_kernelI"
 K2_PASS_KERNELS = r"_GLOBAL__N_\w*20attention_bwd_kernelI"
 K1_PASS_KERNELS = r"qkv_attention_fwd_kernelILi\d+ELi[23]E"
+# the streamed large-head backward (streamed_bwd.cuh): K2/K7/K12 and K8
+STREAMED_BWD_KERNELS = r"streamed_bwd_(rows|cols)_kernelI"
 
 
-def kernel_pieces(fn, labels, n: int = 5) -> dict:
+def kernel_pieces(fn, labels, n: int = 5, tries: int = 3) -> dict:
     """Device ms per launch of the kernels fn() launches, by torch.profiler
     over n calls after a warm-up, averaged under the label of the first
     (substring, label) pair of ``labels`` whose substring the kernel's name
     contains (each label's kernel runs once a call; the mean is over the
-    launches the profiler recorded, which may be fewer than n)."""
+    launches the profiler recorded, which may be fewer than n). A window in
+    which the profiler recorded no device event at all (it happens now and
+    then late in a long process on the H100) is profiled again, up to
+    ``tries`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     total, count = {}, {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        label = next((lab for sub, lab in labels if sub in ev.name), None)
-        if label is not None:
-            total[label] = total.get(label, 0.0) + ev.time_range.elapsed_us() / 1e3
-            count[label] = count.get(label, 0) + 1
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            label = next((lab for sub, lab in labels if sub in ev.name), None)
+            if label is not None:
+                total[label] = total.get(label, 0.0) + ev.time_range.elapsed_us() / 1e3
+                count[label] = count.get(label, 0) + 1
+        if total:
+            break
     if not total:  # a diagnostic, not a check: report it and go on
-        log("  (torch.profiler recorded no device events for this breakdown)")
+        log(f"  (torch.profiler recorded no device events for this breakdown in {tries} windows)")
     return {label: total[label] / count[label] for label in total}
 
 
@@ -408,6 +427,10 @@ K5_PIECES = (("Fc1Epilogue", "fc1 (core)"), ("Fc2Epilogue", "fc2 (core)"))
 K1_PIECES = (("StoreNormBf16", "projection + q/k normalization (core)"),
              ("qkv_attention_fwd_kernel", "attention pass"))
 K6_PIECES = (("gemm_pair_kernel", "x @ W1 and g @ W2^T (core pair kernel)"),)
+
+
+def pieces_line(pieces: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in pieces.items())
 
 
 def time_ms(fn, n: int) -> float:
@@ -519,6 +542,7 @@ def main() -> None:
     from swin_v2_weather_torch.ops import prestage as ps
     from swin_v2_weather_torch.ops import window_attention as wa
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+    from swin_v2_weather_torch.scripts import bwd_breakdown as bb
     from swin_v2_weather_torch.scripts import prestage_probe
 
     t_start = time.time()
@@ -565,6 +589,8 @@ def main() -> None:
                                   ("K3/K4 on the GEMM core", K34_KERNELS, 4),
                                   ("chunked attention backwards (L > 256)", CHUNK_KERNELS, 92),
                                   ("K2 attention pass", K2_PASS_KERNELS, 20),
+                                  ("streamed large-head backwards (K2/K7/K12, K8)",
+                                   STREAMED_BWD_KERNELS, 30),
                                   ("K1 attention pass (K1, K7, K10, K12)", K1_PASS_KERNELS, 29)):
         spilled = build_spills(pattern)
         if len(spilled) < least or any(any(sp) for sp in spilled.values()):
@@ -1189,7 +1215,8 @@ def main() -> None:
         f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
 
     # ---- 20-26: the grid (K8), windowed (K9) and 'xla' routes -------------------
-    library = {}  # name -> library_ms (SDPA for the K8/K9 forwards)
+    library = {}  # name -> library_ms (SDPA for the K8/K9 forwards and backwards)
+    breakdowns = {}  # name -> device ms a launch by piece (the large-head backwards)
     launch = {}  # name -> the K8/K9 forward's launch report (threads, shared memory, ...)
 
     def sdpa_ms(bias, hd: int) -> float:
@@ -1214,10 +1241,13 @@ def main() -> None:
         hd_ = ops[0].shape[-1] // (heads_ if layout == "grid" else 1)
         flops = attn_flops * hd_ * heads_ // c  # two [L, L, hd] products per (window, head)
         lib_ms = sdpa_ms(raw_bias, hd_)
+        nwin = b * (gh // window[0]) * (gw // window[1])
+        lib_bwd, why = bb.sdpa_bwd_ms((nwin, heads_, l_win, hd_), raw_bias, gen)
         log(f"  scaled_dot_product_attention on the windowed tensors [.., {heads_}, {l_win}, "
-            f"{hd_}] with the bias as a float mask: {lib_ms:.4f} ms ({card}; library yardstick, "
-            f"never called by the port); kernel variants: forward "
-            f"{wa.attn_variant('', hd_, l_win, False)}, backward "
+            f"{hd_}] with the bias as a float mask: forward {lib_ms:.4f} ms, backward "
+            + (f"{lib_bwd:.4f} ms" if lib_bwd is not None else f"null ({why})")
+            + f" ({card}; library yardstick, never called by the port); kernel variants: "
+            f"forward {wa.attn_variant('', hd_, l_win, False)}, backward "
             f"{wa.attn_variant('', hd_, l_win, True)}")
         # K8/K9's: 5 head dims x 2 layouts x bias-free and BIAS x 2 paths
         spills = {k: v for k, v in fwd_spills().items() if k[1] in (0, 1)}
@@ -1257,6 +1287,12 @@ def main() -> None:
                     fp_ms = time_ms(lambda: plain_version(fwd)(*ops, scale, *extra, *tail), 5)
                 b_ms = time_ms(lambda: bwd(*ops, scale, *extra, g, *tail), 10)
                 bp_ms = time_ms(lambda: plain_version(bwd)(*ops, scale, *extra, g, *tail), 3)
+                if wa.attn_variant("", hd_, l_win, True) == "large" and kind + "_bwd" + suffix \
+                        not in breakdowns:  # the large-head backward's pieces
+                    breakdowns[kind + "_bwd" + suffix] = kernel_pieces(
+                        lambda: bwd(*ops, scale, *extra, g, *tail), bb.K8_LARGE_PIECES, n=3)
+                    log(f"  {kind}_bwd {label} breakdown (torch.profiler, device ms a launch): "
+                        + pieces_line(breakdowns[kind + "_bwd" + suffix]) + f" ({card})")
                 log(f"  {kind} {label}: forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms; "
                     f"backward kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms ({card}); two backward "
                     f"calls bit-equal")
@@ -1284,6 +1320,7 @@ def main() -> None:
                 5 * flops / 2, nbytes(*ops, scale, *extra, g, *grads)))
             results[kind + "_bwd" + suffix] += ({k: v for k, v in errs.items() if k != "out"},)
             library[kind + suffix] = lib_ms
+            library[kind + "_bwd" + suffix] = lib_bwd
             del out, ref, grads, ref_g, again
         torch.cuda.empty_cache()
 
@@ -1436,10 +1473,14 @@ def main() -> None:
     with torch.inference_mode():
         k1e_pieces = kernel_pieces(lambda: wa.window_attention_qkv(
             x, w16, b_qkv, scale, window, pattern, 1.0), K1_PIECES, n=3)
+    breakdowns["window_attention_qkv_bwd_e2048"] = kernel_pieces(
+        lambda: wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, pattern, 1.0),
+        bb.K2_LARGE_PIECES, n=3)
     log(f"  K1 forward {f_ms:.4f} ms (breakdown: " + ", ".join(
         f"{k} {v:.4f}" for k, v in k1e_pieces.items()) + f"; pass launch "
-        f"{wa.qkv_fwd_info(ce // he, l_win)}), plain {fp_ms:.4f} ms; K2 backward {b_ms:.4f} ms, "
-        f"plain {bp_ms:.4f} ms ({card}); two backward calls bit-equal")
+        f"{wa.qkv_fwd_info(ce // he, l_win)}), plain {fp_ms:.4f} ms; K2 backward {b_ms:.4f} ms "
+        f"(breakdown: " + pieces_line(breakdowns["window_attention_qkv_bwd_e2048"])
+        + f"), plain {bp_ms:.4f} ms ({card}); two backward calls bit-equal")
     results["window_attention_qkv_bwd_e2048"] = (e_errs["dx"], b_ms, bp_ms, bound(
         e_bwd_flops, nbytes(x, w16, b_qkv, scale, g, *grads)), e_errs)
     del grads
@@ -1535,8 +1576,17 @@ def main() -> None:
     k_ms = time_ms(lambda: wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, tr_pattern,
                                                         1.0), 5)
     train_shape["window_attention_qkv_bwd_e2048"] = (k_ms, bound(
-        3 * 2 * t_tr * ce * 3 * ce + 5 * tr_attn_flops / 2, nbytes(x, w16, b_qkv, scale, g, *grads)))
+        3 * 2 * t_tr * ce * 3 * ce + 5 * tr_attn_flops / 2, nbytes(x, w16, b_qkv, scale, g, *grads)),
+        None, kernel_pieces(lambda: wa.window_attention_qkv_bwd(
+            x, w16, b_qkv, scale, g, window, tr_pattern, 1.0), bb.K2_LARGE_PIECES, n=3))
     del grads
+    # SDPA's backward on windowed tensors of the train steps' shape, the
+    # yardstick of the K8/K9 backwards there (with a seeded raw bias as mask)
+    nw_tr = (th // window[0]) * (tw // window[1])
+    tr_bias = 2.0 * torch.randn((he, l_win, l_win), generator=gen, device=dev)
+    tr_lib, why = bb.sdpa_bwd_ms((nw_tr, he, l_win, ce // he), tr_bias, gen)
+    log(f"[27] SDPA backward on [{nw_tr}, {he}, {l_win}, {ce // he}] bf16 with a float mask: "
+        + (f"{tr_lib:.4f} ms" if tr_lib is not None else f"null ({why})") + f" ({card})")
     qkv = torch.randn((b, th, tw, 3 * ce), generator=gen, device=dev).bfloat16()
     qn, _ = wa.normalize_heads(qkv[..., :ce], he)
     kn, _ = wa.normalize_heads(qkv[..., ce:2 * ce], he)
@@ -1544,17 +1594,18 @@ def main() -> None:
     k_ms = time_ms(lambda: wa.window_attention_grid_bwd(qn, kn, qkv[..., 2 * ce:], scale, g, window,
                                                          tr_pattern), 5)
     train_shape["window_attention_grid_bwd_e2048"] = (k_ms, bound(
-        5 * tr_attn_flops / 2, nbytes(qn, kn, qkv[..., 2 * ce:], scale, g, *grads)))
+        5 * tr_attn_flops / 2, nbytes(qn, kn, qkv[..., 2 * ce:], scale, g, *grads)), tr_lib,
+        kernel_pieces(lambda: wa.window_attention_grid_bwd(
+            qn, kn, qkv[..., 2 * ce:], scale, g, window, tr_pattern), bb.K8_LARGE_PIECES, n=3))
     del qkv, qn, kn, grads
-    nw_tr = (th // window[0]) * (tw // window[1])
     q, k, v, gw_ = (torch.randn((nw_tr, he, l_win, ce // he), generator=gen, device=dev).bfloat16()
                     for _ in range(4))
     tr_grid = (th // window[0], tw // window[1])
     grads = wa.window_attention_v1_bwd(q, k, v, scale, gw_, tr_grid, tr_pattern)
     k_ms = time_ms(lambda: wa.window_attention_v1_bwd(q, k, v, scale, gw_, tr_grid, tr_pattern), 5)
     train_shape["window_attention_v1_bwd_e2048"] = (k_ms, bound(
-        5 * tr_attn_flops / 2, nbytes(q, k, v, scale, gw_, *grads)))
-    del q, k, v, gw_, grads, x, g, w16, b_qkv, scale
+        5 * tr_attn_flops / 2, nbytes(q, k, v, scale, gw_, *grads)), tr_lib, None)
+    del q, k, v, gw_, grads, x, g, w16, b_qkv, scale, tr_bias
     x2 = torch.randn((t_tr, ce), generator=gen, device=dev).bfloat16()
     g2 = torch.randn((t_tr, ce), generator=gen, device=dev).bfloat16()
     w1_16 = ((2 * torch.rand((ce, hide), generator=gen, device=dev) - 1) / math.sqrt(ce)).bfloat16()
@@ -1565,15 +1616,21 @@ def main() -> None:
     with torch.inference_mode():
         out = mk.mlp_fwd(x2, w1_16, b1, w2_16, b2)
         k_ms = time_ms(lambda: mk.mlp_fwd(x2, w1_16, b1, w2_16, b2), 5)
-    train_shape["mlp_fwd_e2048"] = (k_ms, bound(tr_mlp_flops, nbytes(x2, w1_16, b1, w2_16, b2, out)))
+    train_shape["mlp_fwd_e2048"] = (k_ms, bound(tr_mlp_flops, nbytes(x2, w1_16, b1, w2_16, b2, out)),
+                                    None, None)
     with torch.inference_mode():
         out = mk.mlp_bwd(x2, w1_16, b1, w2_16, g2)
         k_ms = time_ms(lambda: mk.mlp_bwd(x2, w1_16, b1, w2_16, g2), 5)
-    train_shape["mlp_bwd_e2048"] = (k_ms, bound(tr_mlp_flops, nbytes(x2, w1_16, b1, w2_16, g2, *out)))
+    train_shape["mlp_bwd_e2048"] = (k_ms, bound(tr_mlp_flops, nbytes(x2, w1_16, b1, w2_16, g2, *out)),
+                                    None, None)
     del x2, g2, w1_16, b1, w2_16, b2, out
     torch.cuda.empty_cache()
     log(f"[27] at the e2048 train steps' shape [1, {th}, {tw}, {ce}] (T = {t_tr}): " + ", ".join(
         f"{k} {v[0]:.4f} ms (bound {v[1][0]:.4f})" for k, v in train_shape.items()) + f" ({card})")
+    for name, (_, _, _, pieces) in train_shape.items():
+        if pieces is not None:
+            log(f"  {name} at that shape, breakdown (torch.profiler, device ms a launch): "
+                + pieces_line(pieces) + f" ({card})")
 
     # K2, K7 and v4's backward at head dim 128 (8 heads, L = 162): the
     # one-block kernel takes this shape since its pass keeps no score tiles
@@ -2000,9 +2057,17 @@ def main() -> None:
                 raise RuntimeError(f"[39] {name}: pad columns of dW or db are not zero")
             k_ms = time_ms(lambda: fn(*args), 3)
             p_ms = time_ms(lambda: plain_version(fn)(*args), 1)
-            chunked.setdefault(name, {})[hd] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
-            log(f"  {name} hd {hd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card}); two "
-                f"calls bit-equal")
+            # the table's rule: five [L, L, hd] products per (window, head), and
+            # for the qkv-fused family the recomputed projection, dx and dW;
+            # each input read and each output written once
+            flops = 5 * 2 * l288 * l288 * hd * (gh2 * gw2 // l288) * heads2
+            if names == qkv_out:
+                flops += 3 * 2 * gh2 * gw2 * cin2 * 3 * c2
+            b_ms, b_by = bound(flops, nbytes(*(a for a in args if torch.is_tensor(a)), *out))
+            chunked.setdefault(name, {})[hd] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                                                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"  {name} hd {hd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}) ({card}); two calls bit-equal")
             del out, ref, again
         del x, w16, b2q, sc2, g, raw, badd, xw, gw_, qkv2, qn, kn, qw, kw, vw, gwin, cases
         torch.cuda.empty_cache()
@@ -2141,8 +2206,13 @@ def main() -> None:
         raise RuntimeError("the GEMM core was never launched on its main path")
     for entry in kernels:  # the e2048 train steps' kernels at those steps' shape (phase 27)
         if entry["name"] in train_shape:
-            k_ms, (b_ms, b_by) = train_shape[entry["name"]]
-            entry["train_shape"] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by}
+            k_ms, (b_ms, b_by), lib_ms, pieces = train_shape[entry["name"]]
+            entry["train_shape"] = {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                    "library_ms": lib_ms}
+            if pieces is not None:
+                entry["train_shape"]["breakdown"] = pieces
+        if entry["name"] in breakdowns:  # the large-head backwards' pieces (phases 27, 33)
+            entry["breakdown"] = breakdowns[entry["name"]]
     kernels[6]["e2048"] = k7_e2048["fwd"]  # K7's e2048 case (phase 27)
     kernels[7]["e2048"] = k7_e2048["bwd"]
     kernels[8]["streamed"] = ln_streamed["fwd"]  # K11 above 2048 channels (phase 18)
@@ -2160,6 +2230,8 @@ def main() -> None:
                                   "launch": launch.get(entry["name"] + tag)}
                 if entry["name"] in large_ms and tag == "_hd128":  # the variant it replaced
                     entry[tag[1:]]["large_head_ms"] = large_ms[entry["name"]]
+                if entry["name"] + tag in breakdowns:
+                    entry[tag[1:]]["breakdown"] = breakdowns[entry["name"] + tag]
         if entry["name"] in launch:  # the K8/K9 forwards' launch report (phases 20, 23, 33)
             entry["launch"] = launch[entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")

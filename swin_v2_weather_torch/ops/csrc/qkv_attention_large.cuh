@@ -1,9 +1,9 @@
 // Window attention on pre-projected q, k, v at large head dims, the backward,
-// hand-written for Hopper (sm_90a): the large-head backward of K8
-// (window_attention_grid_large.cu) and K9 (window_attention_v1_large.cu), each
-// with a CPB-bias instance, and their chunked form at any head dim and any
-// L. (The forward at every head dim is the streamed kernel of
-// qkv_attention.cuh.)
+// hand-written for Hopper (sm_90a): the large-head backward of K9
+// (window_attention_v1_large.cu) with its CPB-bias instance, and the chunked
+// form of K8 (window_attention_grid_large.cu) and K9 at any head dim and any
+// L. (K8's large-head backward is streamed_bwd.cuh's; the forward at every
+// head dim is the streamed kernel of qkv_attention.cuh.)
 //
 // Replaces the same TPU kernels as qkv_attention.cuh
 // (swin_v2_weather_tpu/ops/window_attention.py: K8 _make_grid_bwd_kernel /
@@ -20,28 +20,28 @@
 // 265.4 MB a tensor) the backward reads four tensors and writes three (1.86
 // GB, 0.555 ms at 3.35 TB/s) for 215 GFLOP.
 //
-// Design. The softmax subtracts the row max and normalizes before the p @ v
-// product (the TPU kernels' contract), so the keys (queries) are streamed in
-// whole sweeps, each recomputing the cheap 16 x 16 score tiles, on two
-// kernels of blocks of 4 warps (64 rows), as the large-head variant of K1/K2
-// splits its passes:
+// Design (K9's large-head backward, not redesigned yet). The softmax
+// subtracts the row max and normalizes before the p @ v product (the TPU
+// kernels' contract), so the keys (queries) are streamed in whole sweeps,
+// each recomputing the cheap 16 x 16 score tiles, on two kernels of blocks
+// of 4 warps (64 rows):
 //  * the rows kernel, one block per (window, head, 64 query rows), sweeps the
-//    key tiles for the row max, the row sum (K8 also u = sum(dp e)), K9's
-//    u = sum(dp p) in a third sweep, stores (m, r or sum e, u) per row in a
-//    small workspace, then forms ds (and the d(bias) rows, and K9's sum(ds
-//    s)), dsb = bf16(ds scale) into its row buffer and dqn = dsb @ kn16 chunk
-//    by chunk (128-wide head-dim chunks) into an fp32 staging tile;
+//    key tiles for the row max, the row sum, u = sum(dp p) in a third sweep,
+//    stores (m, sum e, u) per row in a small workspace, then forms ds (and
+//    the d(bias) rows, and sum(ds s)), dsb = bf16(ds scale) into its row
+//    buffer and dqn = dsb @ kn16 chunk by chunk (128-wide head-dim chunks)
+//    into an fp32 staging tile;
 //  * the columns kernel, one block per (window, head, 64 key rows), sweeps the
 //    query tiles once for the transposed tiles bf16(p)^T and dsb^T from the
 //    stored row statistics, then forms dv = p16^T @ g16 and dkn = dsb^T @ qn16
 //    chunk by chunk. 194,576 and 218,112 B at HD = 256.
 //  * K9 normalizes q and k inside its kernels; here a first kernel writes
 //    qn16 and kn16 (and the norms) to a scratch buffer, summed as the
-//    one-block kernels' normalize_rows sums, so the backward kernels of both
-//    layouts read pre-normalized tiles; K9's normalization VJP re-reads the raw
-//    q and k rows, as the one-block kernel does.
+//    one-block kernels' normalize_rows sums, so the backward kernels read
+//    pre-normalized tiles; the normalization VJP re-reads the raw q and k
+//    rows, as the one-block kernel does.
 // Costs of the split: the key tiles come through the ring four to five times
-// from L2, and K9's normalized copies of q and k go to device memory and back.
+// from L2, and the normalized copies of q and k go to device memory and back.
 //
 // Rounding sites: the one-block instances' (qkv_attention.cuh): the row max,
 // K8 r = 1 / sum e, K9 p = e / sum e, the raw bias, dsb = bf16(ds * scale_h),
@@ -160,9 +160,10 @@ __device__ __forceinline__ float dlogit(float z, float dp, float m, float sr, fl
 }
 
 // ---------------------------------------------------------------------------
-// backward, the rows kernel: one block per (window, head) [blockIdx.x] and 64
-// query rows [blockIdx.y]. q, k are the normalized qn16, kn16; qraw and inv
-// (K9 only) the raw q and the norms [2, Bw * heads * L] for the VJP.
+// K9's backward, the rows kernel: one block per (window, head) [blockIdx.x]
+// and 64 query rows [blockIdx.y]. q, k are the normalized qn16, kn16; qraw
+// and inv the raw q and the norms [2, Bw * heads * L] for the VJP. (K8's
+// large-head backward is streamed_bwd.cuh's.)
 // ---------------------------------------------------------------------------
 
 template <int HD, int LAYOUT, bool BIAS>
@@ -178,6 +179,7 @@ __global__ void __launch_bounds__(RW * 32)
   constexpr int NC = HD / DC;
   constexpr int NFC = DC / 16;
   constexpr int NF = HD / 16;
+  static_assert(LAYOUT == WINDOWED, "K8's large-head backward is streamed_bwd.cuh's");
   extern __shared__ __align__(128) unsigned char smem[];
   const int LP = geo.LP;
   const int L = geo.L;
@@ -266,24 +268,22 @@ __global__ void __launch_bounds__(RW * 32)
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
 
   float rowsum = 0.0f, u = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {  // sweep 2: row sum of e; K8 also u = sum(dp e)
+  for (int kt = 0; kt < nkt; ++kt) {  // sweep 2: row sum of e
     const bf16* kb = acquire(kt);
     if (active) {
       tile_logits(kb, kt);
-      if constexpr (LAYOUT == GRID) tile_dp(kb);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float ev = z[e] == -CUDART_INF_F ? 0.0f : expf(z[e] - m);
         rowsum += ev;
-        if constexpr (LAYOUT == GRID) u += cs[fr * 16 + fc + e] * ev;
       }
       __syncwarp();
     }
     __syncthreads();
   }
   rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-  const float sr = LAYOUT == GRID ? (rowsum > 0.0f ? 1.0f / rowsum : 0.0f) : rowsum;
-  if constexpr (LAYOUT == WINDOWED) {  // sweep 3: u = sum(dp p) with p = e / sum e
+  const float sr = rowsum;  // p = e / sum e
+  {  // sweep 3: u = sum(dp p)
     for (int kt = 0; kt < nkt; ++kt) {
       const bf16* kb = acquire(kt);
       if (active) {
@@ -361,17 +361,10 @@ __global__ void __launch_bounds__(RW * 32)
   }
   __syncwarp();
 
-  // <qn, dqn> of the row: K8 with qn16, K9 with the fp32 qn = q * inv_q
-  constexpr bool NORM_IN = LAYOUT == WINDOWED;
-  const float iq = (NORM_IN && qok) ? inv[wh_idx * L + qrow] : 1.0f;
-  const bf16* qr = (NORM_IN && qok) ? qraw + row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldq) : nullptr;
-  auto qn_at = [&](int d) -> float {
-    if constexpr (NORM_IN) {
-      return qok ? __bfloat162float(qr[d]) * iq : 0.0f;
-    } else {
-      return __bfloat162float(qw[fr * LDQ + d]);
-    }
-  };
+  // <qn, dqn> of the row with the fp32 qn = q * inv_q
+  const float iq = qok ? inv[wh_idx * L + qrow] : 1.0f;
+  const bf16* qr = qok ? qraw + row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldq) : nullptr;
+  auto qn_at = [&](int d) -> float { return qok ? __bfloat162float(qr[d]) * iq : 0.0f; };
   float qd = 0.0f;
   if (active) {
 #pragma unroll
@@ -385,23 +378,12 @@ __global__ void __launch_bounds__(RW * 32)
     const size_t off = row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldo);
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
-      store8(dq + off + j * 16 + fc, stw + fr * HD + j * 16 + fc, [&](int e, float dqn) {
-        if constexpr (NORM_IN) {
-          return (dqn - qn_at(j * 16 + fc + e) * qd) * iq;
-        } else {
-          return dqn;
-        }
-      });
+      store8(dq + off + j * 16 + fc, stw + fr * HD + j * 16 + fc,
+             [&](int e, float dqn) { return (dqn - qn_at(j * 16 + fc + e) * qd) * iq; });
     }
   }
-  // this block's d(scale) partial: K8 the sum of qd over its real rows (divided
-  // by scale in the reduction), K9 sum(ds * s); fixed order
-  float part;
-  if constexpr (LAYOUT == GRID) {
-    part = (active && qok && (lane & 1) == 0) ? qd : 0.0f;
-  } else {
-    part = active ? dsc : 0.0f;
-  }
+  // this block's d(scale) partial: sum(ds * s); fixed order
+  float part = active ? dsc : 0.0f;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
   if (lane == 0) wsum[warp] = part;
@@ -414,8 +396,9 @@ __global__ void __launch_bounds__(RW * 32)
 }
 
 // ---------------------------------------------------------------------------
-// backward, the columns kernel: one block per (window, head) [blockIdx.x] and
-// 64 key rows [blockIdx.y]; the row statistics from the rows kernel.
+// K9's backward, the columns kernel: one block per (window, head)
+// [blockIdx.x] and 64 key rows [blockIdx.y]; the row statistics from the
+// rows kernel.
 // ---------------------------------------------------------------------------
 
 template <int HD, int LAYOUT, bool BIAS>
@@ -431,7 +414,7 @@ __global__ void __launch_bounds__(RW * 32)
   constexpr int NC = HD / DC;
   constexpr int NFC = DC / 16;
   constexpr int NF = HD / 16;
-  constexpr bool NORM_IN = LAYOUT == WINDOWED;
+  static_assert(LAYOUT == WINDOWED, "K8's large-head backward is streamed_bwd.cuh's");
   extern __shared__ __align__(128) unsigned char smem[];
   const int LP = geo.LP;
   const int L = geo.L;
@@ -546,7 +529,7 @@ __global__ void __launch_bounds__(RW * 32)
         __syncthreads();
       }
       if (active) {
-        if (role == 1 && NORM_IN) {
+        if (role == 1) {
 #pragma unroll
           for (int j = 0; j < NFC; ++j) {
             wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
@@ -567,7 +550,7 @@ __global__ void __launch_bounds__(RW * 32)
       }
     }
   }
-  if constexpr (NORM_IN) {  // K9: dk = (dkn - kn <kn, dkn>) inv_k with the fp32 kn
+  {  // dk = (dkn - kn <kn, dkn>) inv_k with the fp32 kn
     __syncwarp();
     const float ik = kok ? inv[(geo.B * geo.nwh * geo.nww * static_cast<size_t>(geo.heads) +
                                 wh_idx) * L + krow] : 1.0f;
@@ -593,18 +576,19 @@ __global__ void __launch_bounds__(RW * 32)
 }
 
 // ---------------------------------------------------------------------------
-// backward at any L, the chunked form: the rows and columns kernels above
-// keep, per warp, a row of dsb (p16^T and dsb^T) as long as the window, so
-// their shared memory grows with L (past L = 256, and at head dim 256 from
-// L = 225 on, none fits). These keep one 16 x 16 tile of it per warp: each
-// key (query) tile's dsb (or p16) is formed into the warp's tile and
-// multiplied at once into an fp32 [16, HD] accumulator in shared memory
-// (accumulate_tile, in tile order). Rows: the statistics sweeps as above,
-// then one sweep forming ds and dqn += dsb kn16 tile by tile. Columns: one
-// sweep for dv += p16^T g16, a second for dkn += dsb^T qn16. Same rounding
-// sites and, per output element, the same order of fp32 sums over tiles as
-// the kernels above; every head dim 32-256. They run only where nothing
-// above fits (attn_variant); their speed is not the point yet.
+// backward at any L, the chunked form, both layouts: K9's kernels above keep,
+// per warp, a row of dsb (p16^T and dsb^T) as long as the window, so their
+// shared memory grows with L (past L = 256, and at head dim 256 from L = 225
+// on, none fits). These keep one 16 x 16 tile of it per warp: each key
+// (query) tile's dsb (or p16) is formed into the warp's tile and multiplied
+// at once into an fp32 [16, HD] accumulator in shared memory
+// (accumulate_tile, in tile order). Rows: the statistics sweeps (the row
+// max; the sum, with K8's u = sum(dp e); K9's u = sum(dp p)), then one sweep
+// forming ds and dqn += dsb kn16 tile by tile. Columns: one sweep for dv +=
+// p16^T g16, a second for dkn += dsb^T qn16. The one-block instances'
+// rounding sites, every output element summed over the tiles in order;
+// every head dim 32-256. They run only where no other instance takes the
+// shape (attn_variant); their speed is not the point yet.
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -985,6 +969,24 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+// dscale = the nchunks partials of each window summed in order (K8: divided
+// by scale) and, with the bias, dbias = the windows' d(bias) partials summed
+// in window order
+inline int reduce_partials(const LargeBwdArgs& a, const AttnGeo& geo, int nchunks, bool grid,
+                           cudaStream_t s) {
+  const int n_win = geo.B * geo.nwh * geo.nww;
+  attn_dscale_reduce_kernel<<<(geo.heads + 31) / 32, 32, 0, s>>>(
+      static_cast<const float*>(a.dscale_part), n_win * nchunks, geo.heads,
+      static_cast<const float*>(a.scale), grid ? 1 : 0, static_cast<float*>(a.dscale));
+  int code = static_cast<int>(cudaGetLastError());
+  if (code != 0 || a.bias == nullptr) return code;
+  const long long n_bias = static_cast<long long>(geo.heads) * geo.L * geo.L;
+  dbias_reduce_kernel<<<static_cast<unsigned>((n_bias + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(a.dbias_part), n_win, geo.heads, geo.L, geo.LP,
+      static_cast<float*>(a.dbias));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K9: the scratch copies qn16, kn16 and the norms inv [2, Bw * heads * L]
 template <int HD>
 int normalize_qk(const void* q, const void* k, void* qn, void* kn, void* inv, const AttnGeo& g,
@@ -1049,18 +1051,7 @@ int launch_large_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) 
       static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), geo);
   code = static_cast<int>(cudaGetLastError());
   if (code != 0) return code;
-  const int n_win = geo.B * geo.nwh * geo.nww;
-  attn_dscale_reduce_kernel<<<(geo.heads + 31) / 32, 32, 0, s>>>(
-      static_cast<const float*>(a.dscale_part), n_win * nchunks, geo.heads,
-      static_cast<const float*>(a.scale), LAYOUT == GRID ? 1 : 0,
-      static_cast<float*>(a.dscale));
-  code = static_cast<int>(cudaGetLastError());
-  if (code != 0 || !BIAS) return code;
-  const long long n_bias = static_cast<long long>(geo.heads) * geo.L * geo.L;
-  dbias_reduce_kernel<<<static_cast<unsigned>((n_bias + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(a.dbias_part), n_win, geo.heads, geo.L, geo.LP,
-      static_cast<float*>(a.dbias));
-  return static_cast<int>(cudaGetLastError());
+  return reduce_partials(a, geo, nchunks, LAYOUT == GRID, s);
 }
 
 template <int HD, int LAYOUT, bool CHUNKED>
@@ -1069,8 +1060,8 @@ int launch_either(bool bias, const LargeBwdArgs& a, const AttnGeo& g, cudaStream
               : launch_large_bwd<HD, LAYOUT, false, CHUNKED>(a, g, s);
 }
 
-// The large-head backward (head dims 128 and 256, L <= 256) or, CHUNKED, the
-// chunked one (head dims 32-256, any L).
+// K9's large-head backward (head dims 128 and 256, L <= 256) or, CHUNKED,
+// the chunked one of either layout (head dims 32-256, any L).
 template <int LAYOUT, bool CHUNKED = false>
 int dispatch_large_bwd(int hd, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
   const bool bias = a.bias != nullptr;

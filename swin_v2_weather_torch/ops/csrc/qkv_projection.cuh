@@ -93,13 +93,18 @@ int project(const bf16* x, const bf16* w, const float* b, bf16* qkv, int T, int 
 // columns are exact zeros); a tile of BN columns holds BN / UNIT whole
 // heads. role0 is the packed column of this launch's column 0 (v5's slabs)
 // and C the columns of one role: a head at packed column p is q or k where
-// p / C < 2.
-template <int BN, int UNIT>
+// p / C < 2. KEEP (the large-head backward's recompute, so that its qn16 is
+// the forward's): the inverse norms also go to norms [M, 2, C / UNIT] (row,
+// q or k, head) and, where park is not null (v4), the raw q and k values to
+// their places in park [M, ld].
+template <int BN, int UNIT, bool KEEP = false>
 struct StoreNormBf16 {
   static constexpr bool kTile = true;
   const float* b;  // [N] of this launch
   bf16* out;
   int ld, role0, C;
+  float* norms = nullptr;  // KEEP
+  bf16* park = nullptr;    // KEEP, v4 only
   __device__ void tile(float (&acc)[BN / 2], int r0, int c0, int M, int N) const {
     constexpr int G = UNIT / 8;  // the 8-column groups of a head
     const int n0 = c0 - 2 * (threadIdx.x & 3);
@@ -132,6 +137,18 @@ struct StoreNormBf16 {
         inv[r] = unit_norm ? 1.0f / sqrtf(fmaxf(ss[r], 1e-24f)) : 1.0f;
       }
       if (!live) continue;
+      if constexpr (KEEP) {
+        const int p = role0 + n0 + u * UNIT;  // the head's packed column
+        if (unit_norm && (threadIdx.x & 3) == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (r0 + 8 * r < M) {
+              norms[(static_cast<size_t>(r0 + 8 * r) * 2 + p / C) * (C / UNIT) + (p % C) / UNIT] =
+                  inv[r];
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const int j = u * G + g;
@@ -139,8 +156,15 @@ struct StoreNormBf16 {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           if (r0 + 8 * r < M) {
-            *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0 + 8 * r) * ld + col) =
+            const size_t off = static_cast<size_t>(r0 + 8 * r) * ld + col;
+            *reinterpret_cast<__nv_bfloat162*>(out + off) =
                 __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+            if constexpr (KEEP) {
+              if (park != nullptr && unit_norm) {
+                *reinterpret_cast<__nv_bfloat162*>(park + off) =
+                    __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+              }
+            }
           }
         }
       }
@@ -154,28 +178,33 @@ struct StoreNormBf16 {
 // one product per (role, head) slab; each slab is one head). The block
 // width holds whole heads: 192 at head dim 96, else 256 (128 where N <=
 // 128).
-template <int UNIT>
+// KEEP: the epilogue keeps the inverse norms in norms and (park not null)
+// parks the raw q and k rows (StoreNormBf16).
+template <int UNIT, bool KEEP = false>
 int project_units(const bf16* x, const bf16* w, const float* b, bf16* qkv, int T, int Cin, int N,
-                  int slab_hd, cudaStream_t s) {
+                  int slab_hd, cudaStream_t s, float* norms = nullptr, bf16* park = nullptr) {
   const int C = N / 3;
   auto one = [&](const bf16* wp, int ldw, int n, int col0) {
     const float* bp = b + col0;
     bf16* op = qkv + col0;
     if constexpr (UNIT == 96) {
       if (n > 128) {
-        return swin_wg::launch<192, false, true>(x, Cin, wp, ldw, T, n, Cin, 1,
-                                                 StoreNormBf16<192, 96>{bp, op, N, col0, C}, s);
+        return swin_wg::launch<192, false, true>(
+            x, Cin, wp, ldw, T, n, Cin, 1,
+            StoreNormBf16<192, 96, KEEP>{bp, op, N, col0, C, norms, park}, s);
       }
     }
     if constexpr (UNIT <= 128) {
       if (n <= 128) {
-        return swin_wg::launch<128, false, true>(x, Cin, wp, ldw, T, n, Cin, 1,
-                                                 StoreNormBf16<128, UNIT>{bp, op, N, col0, C}, s);
+        return swin_wg::launch<128, false, true>(
+            x, Cin, wp, ldw, T, n, Cin, 1,
+            StoreNormBf16<128, UNIT, KEEP>{bp, op, N, col0, C, norms, park}, s);
       }
     }
     if constexpr (UNIT != 96) {
-      return swin_wg::launch<256, false, true>(x, Cin, wp, ldw, T, n, Cin, 1,
-                                               StoreNormBf16<256, UNIT>{bp, op, N, col0, C}, s);
+      return swin_wg::launch<256, false, true>(
+          x, Cin, wp, ldw, T, n, Cin, 1,
+          StoreNormBf16<256, UNIT, KEEP>{bp, op, N, col0, C, norms, park}, s);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   };
@@ -201,6 +230,24 @@ int project_normalized(const bf16* x, const bf16* w, const float* b, bf16* qkv, 
       return project_units<128>(x, w, b, qkv, T, Cin, N, slab_hd, s);
     case 256:
       return project_units<256>(x, w, b, qkv, T, Cin, N, slab_hd, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The large-head backward's recompute (window_attention_qkv_large.cu):
+// project_normalized at head dim 128 or 256 whose epilogue also keeps the
+// inverse norms, norms [T, 2, N / 3 / unit], and (park not null: v4) parks
+// the raw q and k rows in park [T, N].
+template <class = void>
+int project_normalized_keep(const bf16* x, const bf16* w, const float* b, bf16* qkv, int T,
+                            int Cin, int N, int unit, int slab_hd, float* norms, bf16* park,
+                            cudaStream_t s) {
+  switch (unit) {
+    case 128:
+      return project_units<128, true>(x, w, b, qkv, T, Cin, N, slab_hd, s, norms, park);
+    case 256:
+      return project_units<256, true>(x, w, b, qkv, T, Cin, N, slab_hd, s, norms, park);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,0 +1,852 @@
+// The large-head window-attention backward, streamed, hand-written for
+// Hopper (sm_90a): one template for the qkv-fused family's backward (K2,
+// its K7 CPB-bias instance and K12's v5/v4 instances;
+// window_attention_qkv_large.cu) and the grid route's (K8 with its BIAS
+// instance; window_attention_grid_large.cu) at head dims 128 and 256, L <=
+// 256, where the one-block backwards do not fit shared memory. The softmax
+// form (FORM) and the layout of the token rows are its parameters.
+//
+// Replaces, at those shapes, the TPU kernels of
+// swin_v2_weather_tpu/ops/window_attention.py:
+//   K2  _make_qkv_bwd_kernel / _qkv_backward (K7: has_bias through
+//       _build_qkv_bias; K12: ops/attic/window_attention_v45.py
+//       _make_qkv5_bwd_kernel / _qkv5_backward, _make_qkv4_bwd_kernel /
+//       _qkv4_backward): the attention part of the backward, after the
+//       recomputed projection (window_attention_qkv_large.cu);
+//   K8  _make_grid_bwd_kernel / _grid_backward.
+//
+// What bounds it on this card: bytes. At the e2048 train steps' shape (T =
+// 16200 tokens, 8 heads of 256, L = 162) the pass reads q, k, v and g and
+// writes dq, dk and dv, 7 x 66.4 MB (0.139 ms at 3.35 TB/s), for five
+// [L, L, 256] products per (window, head), 54 GFLOP (0.054 ms at 989
+// TFLOP/s). The [L, L] scores never leave the chip.
+//
+// Design. Two kernels joined by per-row statistics, as FlashAttention-2
+// splits the backward: the rows kernel forms dq, the columns kernel dk and
+// dv; every sum has a fixed order and there are no atomics, so two calls
+// give the same bits.
+//  * Blocks of up to RT_MAX = 4 16-row tiles of one (window, head), two
+//    warps a tile (8 warps; one block an SM at head dim 256, where the
+//    registers and shared memory allow no second). The tiles of
+//    a (window, head) are split evenly over adjacent blocks, then heads,
+//    then windows, so the streamed side comes from device memory once and
+//    from L2 after. The block's own rows (q and g; k and v) are staged once;
+//    the other side streams through a three-stage cp.async ring of 32-row
+//    steps with one barrier a step, so the loads run two steps ahead of the
+//    products.
+//  * Each warp of a pair takes 16 of a step's 32 streamed rows: its score
+//    tiles (s = q k^T and dp = g v^T over the whole head dim) are m16n8k16
+//    mma on ldmatrix fragments and stay in its registers; it forms p or ds
+//    there, rounds it to a bf16 A fragment (the accumulator-to-A identity)
+//    and swaps it with its pair through shared memory (512 B, a 64-thread
+//    named barrier). Each warp then multiplies both fragments, in key (or
+//    query) order, into its half of the head dim: an fp32 [16, HD / 2]
+//    accumulator in registers (64 at head dim 256; the columns kernel holds
+//    dv and dk, 128).
+//  * Rows kernel: the row statistics, each warp over its keys, merged over
+//    the quad and then the pair (warp 0's then warp 1's): K8 the row max,
+//    then the sum of e = exp(z - m) and u = sum(dp e); the qkv-fused
+//    family's max-free softmax the sum and u alone. Up to L = KEEP_L = 192
+//    (every configuration of the repo) the first sweep (k and v tiles) keeps
+//    z and dp of the warp's keys in registers (6 steps: 96 a lane), the
+//    statistics follow from them, and a second sweep (k tiles only) forms ds
+//    from them: 3 score-sized products a (query, key) tile pair. Longer
+//    windows recompute z and dp in a sweep per statistic (K8 three sweeps,
+//    the qkv-fused family two). The statistics go to a small workspace for
+//    the columns kernel. The ds sweep forms ds, its d(bias) entries (BIAS)
+//    and dqn += dsb @ kn16; then qd = <qn, dqn>, and the qkv-fused family's
+//    dq = (dqn - qn qd) inv_q (K8 returns dqn), and the block's d(scale)
+//    partial, the sum of qd over its rows.
+//  * Columns kernel: one sweep over the queries: s^T and dp^T, p16^T =
+//    bf16(e r)^T and dsb^T from the stored statistics, dv += p16^T @ g16 and
+//    dkn += dsb^T @ qn16; the qkv-fused family's dk = (dkn - kn kd) inv_k
+//    (K8 returns dkn).
+//
+// Rounding sites (the TPU kernels' contracts):
+//   FORM_QKV (K2, K7, K12): q, k normalized by the recomputed projection's
+//     epilogue (qn16 = bf16(q inv), the forward's values, inv kept);
+//     z = (s - 1) scale, or fl(s scale) + badd, plus bflag * mask on rows
+//     < L; e = exp(z) (no max), r = 1 / sum e, u = sum(dp e); p16 = bf16(e r);
+//     ds = (dp - u r) e (r scale), dsb = bf16(ds); d(bias) = ds / scale in
+//     fp32; dqn = dsb kn16, dkn = dsb^T qn16, dv = p16^T g16 in fp32; qd =
+//     <qn, dqn> with qn = qn16 (v4: the fp32 q inv from the raw row parked
+//     in dq's slot), dq = (dqn - qn qd) inv_q, likewise dk; d(scale) partial
+//     = sum of qd over the rows < LQ (v4: its lm rows attend).
+//   FORM_GRID (K8): z = fl(s scale) (+ bias) (+ bflag * mask), m = max z,
+//     e = exp(z - m), r = 1 / sum e, u = sum(dp e), p16 = bf16(e r); ds =
+//     (dp - u r) e r (d(bias) = ds), dsb = bf16(ds scale); dqn, dkn leave in
+//     bf16; d(scale) partial = sum of <qn16, dqn> (divided by scale in the
+//     reduction).
+// Only the order of fp32 sums differs from the plain versions (the row
+// statistics per lane, quad and pair; qd per half of the head dim).
+
+#pragma once
+
+#include <math_constants.h>
+
+#include "window_attention_common.cuh"
+
+namespace swin_streamed_bwd {
+
+using namespace swin_attn;
+
+constexpr int FORM_QKV = 0;   // K2's family: max-free softmax, the normalization VJP inside
+constexpr int FORM_GRID = 1;  // K8: the row max subtracted, dqn and dkn returned as they are
+
+constexpr int RT_MAX = 4;  // 16-row tiles a block, two warps each
+constexpr int STEP = 32;   // streamed rows a step, 16 a warp of the pair
+constexpr int NS = 3;      // ring stages
+constexpr int THREADS = RT_MAX * 64;
+constexpr int KEEP_L = 192;  // the longest window whose z and dp the rows kernel keeps
+constexpr int kMaxSmem = 232448;
+
+struct Geo {
+  int B, H, W, heads, wh, ww, nwh, nww, L, LP;
+  int LS;            // rows of a window read and written: L, or v4's lm
+  int LQ;            // query rows that attend: L, or v4's lm
+  int window_major;  // token rows window-major (v4: LS a window), else the grid's pixels
+};
+
+struct Args {
+  const bf16 *q, *k, *v, *g;  // column 0 of token row 0 (head h at + h * HD)
+  int ldq, ldk, ldv, ldg;     // token row strides (elements)
+  bf16 *dq, *dk, *dv;         // the outputs, likewise (v4: dq and dk hold the raw rows first)
+  int ldd;
+  const float *scale, *bias, *mask;  // bias [heads, L, L] (BIAS), mask [L, L] or null
+  float bflag;
+  const float* inv;  // FORM_QKV: [T, 2, heads] 1 / |q| and 1 / |k| of each token row
+  float *rstat, *dscale_part, *dbias_part;
+};
+
+// The launch at LP = L rounded up to 16: rt tiles a block, nchunk blocks a
+// (window, head) (mirrored by streamed_bwd_plan in ops/window_attention.py).
+struct Plan {
+  int rt, nchunk;
+};
+
+inline Plan plan_of(int LP) {
+  const int ntiles = LP / 16;
+  Plan p;
+  p.nchunk = (ntiles + RT_MAX - 1) / RT_MAX;
+  p.rt = (ntiles + p.nchunk - 1) / p.nchunk;
+  return p;
+}
+
+// 16-byte units holding n 4-byte words
+inline size_t words16(int n) { return static_cast<size_t>((n + 3) / 4) * 16; }
+
+// the own rows (two tensors) and the ring, bf16
+template <int HD>
+size_t tile_bytes(int rt) {
+  return static_cast<size_t>(2 * rt * 16 + NS * 2 * STEP) * (HD + 8) * sizeof(bf16);
+}
+
+// rows kernel: + the pairs' ds fragments [rt][2][32] uint4, their row
+// statistics [rt][2][16][4] fp32, the d(scale) sums [8] and the token table
+template <int HD>
+size_t rows_smem(int rt, int LS) {
+  return tile_bytes<HD>(rt) + rt * 64 * 16 + rt * 128 * 4 + 32 + words16(LS);
+}
+
+// columns kernel: + the p and ds fragments [rt][2][2][32] uint4, the row
+// exchange [rt][2][16][4], the window's row statistics [LP][NST] and the table
+template <int HD, int NST>
+size_t cols_smem(int rt, int LP, int LS) {
+  return tile_bytes<HD>(rt) + rt * 128 * 16 + rt * 128 * 4 + words16(LP * NST) + words16(LS);
+}
+
+// block -> (row chunk, head, window): the chunks of a (window, head)
+// adjacent, then its heads, then the windows
+__device__ __forceinline__ Tile decode_block(const Geo& g, int nchunk, int& chunk) {
+  int bid = blockIdx.x;
+  chunk = bid % nchunk;
+  bid /= nchunk;
+  Tile t;
+  t.h = bid % g.heads;
+  bid /= g.heads;
+  t.wc = bid % g.nww;
+  bid /= g.nww;
+  t.wr = bid % g.nwh;
+  t.bi = bid / g.nwh;
+  return t;
+}
+
+__device__ __forceinline__ int window_of(const Geo& g, const Tile& t) {
+  return (t.bi * g.nwh + t.wr) * g.nww + t.wc;
+}
+
+// the token row of window row l (< LS)
+__device__ __forceinline__ int token_row(const Geo& g, const Tile& t, int l) {
+  if (g.window_major) return window_of(g, t) * g.LS + l;
+  return (t.bi * g.H + t.wr * g.wh + l / g.ww) * g.W + t.wc * g.ww + l % g.ww;
+}
+
+// window rows row0 .. row0 + nrows - 1 of src (the head's column 0) into dst
+// (pitch HD + 8) by cp.async, rows >= LS zero-filled; the caller commits
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int ld,
+                                           const int* tok, int LS, int row0, int nrows) {
+  constexpr int LDQ = HD + 8;
+  constexpr int CH = HD / 8;
+  for (int idx = threadIdx.x; idx < nrows * CH; idx += blockDim.x) {
+    const int r = idx / CH;
+    const int c = (idx % CH) * 8;
+    const int l = row0 + r;
+    const bool ok = l < LS;
+    cp_async16(dst + r * LDQ + c, src + (ok ? static_cast<size_t>(tok[l]) * ld + c : 0), ok);
+  }
+}
+
+// z of query qi and key: -inf outside the L keys and the LQ attending rows;
+// the forwards' arithmetic (qkv_attention.cuh), each operation rounded
+template <int FORM, bool BIAS>
+struct Logits {
+  float sc, bflag;
+  const float* bh;    // the head's bias [L, L] (BIAS)
+  const float* mask;  // [L, L], on the last window row only
+  int L, LQ;
+  bool masked;
+  __device__ __forceinline__ float operator()(float s, int qi, int key) const {
+    if (key >= L || qi >= LQ) return -CUDART_INF_F;
+    float z;
+    if constexpr (FORM == FORM_QKV && !BIAS) {
+      z = __fmul_rn(__fsub_rn(s, 1.0f), sc);
+    } else {
+      z = __fmul_rn(s, sc);
+      if constexpr (BIAS) z = __fadd_rn(z, bh[qi * L + key]);
+    }
+    if (masked && qi < L) z = __fadd_rn(z, __fmul_rn(bflag, mask[qi * L + key]));
+    return z;
+  }
+};
+
+__device__ __forceinline__ void pair_sync(int wt) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + wt));
+}
+
+// (f0, f1): the A fragments of a step's first and second 16 rows, from this
+// warp's (mine, rows 16 hf ..) and its pair's (other): selected element by
+// element, so both stay in registers
+__device__ __forceinline__ void in_order(unsigned (&f0)[4], unsigned (&f1)[4],
+                                         const unsigned (&mine)[4], const uint4& other, int hf) {
+  const unsigned o[4] = {other.x, other.y, other.z, other.w};
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    f0[x] = hf == 0 ? mine[x] : o[x];
+    f1[x] = hf == 0 ? o[x] : mine[x];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the rows kernel: one block per (window, head, chunk of rt query tiles)
+// ---------------------------------------------------------------------------
+
+// KEEP (L <= KEEP_L): z and dp of the warp's keys stay in registers from the
+// first sweep to the last (two sweeps, k read twice, v once)
+template <int HD, int FORM, bool BIAS, bool RAW, bool KEEP>
+__global__ void __launch_bounds__(THREADS, 1)
+    streamed_bwd_rows_kernel(Args a, Geo g, int rt, int nchunk) {
+  constexpr int LDQ = HD + 8;
+  constexpr int DW = HD / 2;  // columns of dqn a warp holds
+  constexpr int NO = DW / 8;  // its n8 tiles
+  constexpr bool MAXSUB = FORM == FORM_GRID;
+  constexpr int NSW = MAXSUB ? 3 : 2;  // sweeps over the keys without KEEP
+  constexpr int KST = KEEP_L / STEP;   // steps KEEP holds
+  constexpr int NST = MAXSUB ? 3 : 2;  // statistics stored a row: (m,) r, u
+  constexpr int STAGE = 2 * STEP * LDQ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // the block's query rows [rt * 16, LDQ]
+  bf16* gs = qs + rt * 16 * LDQ;             // their cotangent rows
+  bf16* ring = gs + rt * 16 * LDQ;           // NS stages of (k [STEP], v [STEP])
+  uint4* xfrag = reinterpret_cast<uint4*>(ring + NS * STAGE);  // [rt][2][32] ds fragments
+  float* xstat = reinterpret_cast<float*>(xfrag + rt * 64);     // [rt][2][16][4]
+  float* wsum = xstat + rt * 128;                               // [8]
+  int* tok = reinterpret_cast<int*>(wsum + 8);                  // [LS] token rows
+
+  int chunk;
+  const Tile t = decode_block(g, nchunk, chunk);
+  const int win = window_of(g, t);
+  const size_t wh = static_cast<size_t>(win) * g.heads + t.h;
+  const int L = g.L;
+  const int LP = g.LP;
+  const int LS = g.LS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wt = warp >> 1;  // the pair's query tile
+  const int hf = warp & 1;   // the warp's half of a step's keys and of the head dim
+  const int g4 = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  const int row0 = chunk * rt * 16;
+  const int q0 = row0 + wt * 16;
+  const bool active = q0 < LP;
+  const int qr[2] = {q0 + g4, q0 + g4 + 8};  // the lane's query rows
+  const int nsteps = (L + STEP - 1) / STEP;
+  const int nitems = (KEEP ? 2 : NSW) * nsteps;
+  const size_t hoff = static_cast<size_t>(t.h) * HD;
+
+  for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
+  __syncthreads();
+  stage_rows<HD>(qs, a.q + hoff, a.ldq, tok, LS, row0, rt * 16);
+  stage_rows<HD>(gs, a.g + hoff, a.ldg, tok, LS, row0, rt * 16);
+  // item i: step i % nsteps of sweep i / nsteps (v: KEEP's first sweep, else
+  // every sweep but K8's first)
+  auto load_item = [&](int i) {
+    if (i < nitems) {
+      const int st = i % nsteps;
+      bf16* dst = ring + (i % NS) * STAGE;
+      stage_rows<HD>(dst, a.k + hoff, a.ldk, tok, LS, st * STEP, STEP);
+      if (KEEP ? i < nsteps : (!MAXSUB || i >= nsteps)) {
+        stage_rows<HD>(dst + STEP * LDQ, a.v + hoff, a.ldv, tok, LS, st * STEP, STEP);
+      }
+    }
+    cp_async_commit();  // (an empty group past the end keeps the count)
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) load_item(i);  // the first group holds the own rows too
+
+  const float sc = a.scale[t.h];
+  const Logits<FORM, BIAS> logit{sc, a.bflag,
+                                 BIAS ? a.bias + static_cast<size_t>(t.h) * L * L : nullptr,
+                                 a.mask, L, g.LQ, a.mask != nullptr && t.wr == g.nwh - 1};
+  // ldmatrix lane offsets: A operand rows, the B operand of x y^T (16 rows of
+  // y), the transposed B operand of p y (16 rows of y as k)
+  const int aoff = (lane & 15) * LDQ + (lane >> 4) * 8;
+  const int boff = ((lane >> 4) * 8 + (lane & 7)) * LDQ + ((lane >> 3) & 1) * 8;
+  const int toff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+  const bf16* qw = qs + wt * 16 * LDQ;
+  const bf16* gw = gs + wt * 16 * LDQ;
+  uint4* xmine = xfrag + (wt * 2 + hf) * 32 + lane;
+  const uint4* xpart = xfrag + (wt * 2 + (hf ^ 1)) * 32 + lane;
+  float* smine = xstat + ((wt * 2 + hf) * 16 + g4) * 4;  // + 32 r: row g4 + 8 r
+  const float* spair = xstat + (wt * 32 + g4) * 4;       // warp 0's; + 64 warp 1's
+
+  float m[2] = {MAXSUB ? -CUDART_INF_F : 0.0f, MAXSUB ? -CUDART_INF_F : 0.0f};
+  float l[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f}, r[2] = {0.0f, 0.0f};
+  float acc[NO][4];
+  const float rsc = 1.0f / sc;
+
+  // item i landed and every warp is done with item i - 1; the next load goes out
+  auto next_item = [&](int i) -> const bf16* {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    load_item(i + NS - 1);
+    return ring + (i % NS) * STAGE;
+  };
+  // z of the warp's 16 keys of step st (-inf past L) and dp = g v^T
+  auto scores = [&](float (&z)[2][4], float (&dp)[2][4], const bf16* kst, int st, bool with_dp) {
+    const int kb = st * STEP + hf * 16;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        z[n][x] = -CUDART_INF_F;
+        dp[n][x] = 0.0f;
+      }
+    }
+    if (kb >= L) return;
+    float sv[2][4];
+    score_tile<HD>(sv, qw, kst + hf * 16 * LDQ, aoff, boff);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) z[n][x] = logit(sv[n][x], qr[x >> 1], kb + n * 8 + c2 + (x & 1));
+    }
+    if (with_dp) score_tile<HD>(dp, gw, kst + STEP * LDQ + hf * 16 * LDQ, aoff, boff);
+  };
+  // e = exp(z - m) in place (0 past L)
+  auto exps = [&](float (&z)[2][4]) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) z[n][x] = z[n][x] == -CUDART_INF_F ? 0.0f : expf(z[n][x] - m[x >> 1]);
+    }
+  };
+  auto add_sums = [&](const float (&e)[2][4], const float (&dp)[2][4]) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        l[x >> 1] += e[n][x];
+        u[x >> 1] += dp[n][x] * e[n][x];
+      }
+    }
+  };
+  auto add_max = [&](const float (&z)[2][4]) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) m[x >> 1] = fmaxf(m[x >> 1], z[n][x]);
+    }
+  };
+  // the rows' max (sums: the sum of e and u, then r, stored for the columns
+  // kernel) over the quad's lanes, then the pair (warp 0's, warp 1's)
+  auto merge = [&](bool sums) {
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        if (!sums) {
+          m[y] = fmaxf(m[y], __shfl_xor_sync(0xffffffffu, m[y], o));
+        } else {
+          l[y] += __shfl_xor_sync(0xffffffffu, l[y], o);
+          u[y] += __shfl_xor_sync(0xffffffffu, u[y], o);
+        }
+      }
+      if ((lane & 3) == 0) {
+        smine[32 * y] = m[y];
+        smine[32 * y + 1] = l[y];
+        smine[32 * y + 2] = u[y];
+      }
+    }
+    pair_sync(wt);
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      if (!sums) {
+        m[y] = fmaxf(spair[32 * y], spair[64 + 32 * y]);
+      } else {
+        l[y] = spair[32 * y + 1] + spair[64 + 32 * y + 1];
+        u[y] = spair[32 * y + 2] + spair[64 + 32 * y + 2];
+        r[y] = l[y] > 0.0f ? 1.0f / l[y] : 0.0f;  // padded rows: e = 0 throughout
+        if (hf == 0 && (lane & 3) == 0) {
+          float* rs = a.rstat + (wh * LP + qr[y]) * NST;
+          if constexpr (MAXSUB) rs[0] = m[y];
+          rs[NST - 2] = r[y];
+          rs[NST - 1] = u[y];
+        }
+      }
+    }
+  };
+  // step st of the ds sweep: ds = (dp - u r) e r (scale), its d(bias)
+  // entries, dsb swapped with the pair, then dqn += dsb @ kn16 over the
+  // step's keys in order, this warp's columns
+  auto ds_step = [&](const float (&e)[2][4], float (&dp)[2][4], const bf16* kst, int st) {
+    const int kb = st * STEP + hf * 16;
+    float ds[2][4];  // the values dsb rounds
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int y = x >> 1;
+        float db;  // the d(bias) entry
+        if constexpr (FORM == FORM_QKV) {
+          ds[n][x] = (dp[n][x] - u[y] * r[y]) * e[n][x] * (r[y] * sc);
+          db = ds[n][x] * rsc;
+        } else {
+          db = (dp[n][x] - u[y] * r[y]) * e[n][x] * r[y];
+          ds[n][x] = db * sc;
+        }
+        dp[n][x] = db;
+      }
+    }
+    if constexpr (BIAS) {  // the block's d(bias) rows (0 outside the window)
+      if (kb < L) {
+#pragma unroll
+        for (int y = 0; y < 2; ++y) {
+          float* drow = a.dbias_part + (wh * LP + qr[y]) * LP + kb + c2;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            *reinterpret_cast<float2*>(drow + n * 8) = make_float2(dp[n][2 * y], dp[n][2 * y + 1]);
+          }
+        }
+      }
+    }
+    unsigned fa[4];
+    to_a(fa, ds);  // dsb
+    *xmine = make_uint4(fa[0], fa[1], fa[2], fa[3]);
+    pair_sync(wt);
+    unsigned f0[4], f1[4];  // the fragments of the step's first and second 16 keys
+    in_order(f0, f1, fa, *xpart, hf);
+    accumulate_rows<DW>(acc, f0, kst + hf * DW, toff);
+    if (st * STEP + 16 < L) accumulate_rows<DW>(acc, f1, kst + 16 * LDQ + hf * DW, toff);
+  };
+  auto zero_acc_regs = [&]() {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[j][x] = 0.0f;
+    }
+  };
+
+  if constexpr (KEEP) {
+    // L <= KEEP_L: sweep 1 (k and v tiles) keeps z and dp of the warp's keys
+    // in registers; the statistics follow from them; sweep 2 streams k only
+    float zr[KST][2][4], dr[KST][2][4];
+#pragma unroll
+    for (int st = 0; st < KST; ++st) {
+      if (st < nsteps) {
+        const bf16* kst = next_item(st);
+        if (active) scores(zr[st], dr[st], kst, st, true);
+      }
+    }
+    if (active) {
+      if constexpr (MAXSUB) {
+#pragma unroll
+        for (int st = 0; st < KST; ++st) {
+          if (st < nsteps) add_max(zr[st]);
+        }
+        merge(false);
+      }
+#pragma unroll
+      for (int st = 0; st < KST; ++st) {
+        if (st < nsteps) {
+          exps(zr[st]);
+          add_sums(zr[st], dr[st]);
+        }
+      }
+      merge(true);
+    }
+    zero_acc_regs();
+#pragma unroll
+    for (int st = 0; st < KST; ++st) {
+      if (st < nsteps) {
+        const bf16* kst = next_item(nsteps + st);
+        if (active) ds_step(zr[st], dr[st], kst, st);
+      }
+    }
+  } else {
+    // longer windows: one sweep for each statistic (K8: the max, then the
+    // sums; K2's family: the sums), then the ds sweep, z and dp recomputed
+    zero_acc_regs();
+    for (int i = 0; i < nitems; ++i) {
+      const bf16* kst = next_item(i);
+      const int sw = i / nsteps + (MAXSUB ? 0 : 1);  // 0 the max, 1 the sums, 2 ds
+      const int st = i % nsteps;
+      if (!active) continue;
+      float z[2][4], dp[2][4];
+      scores(z, dp, kst, st, sw > 0);
+      if (sw == 0) {
+        add_max(z);
+      } else {
+        exps(z);
+        if (sw == 1) {
+          add_sums(z, dp);
+        } else {
+          ds_step(z, dp, kst, st);
+        }
+      }
+      if (st == nsteps - 1 && sw < 2) merge(sw == 1);  // a statistics sweep ends
+    }
+  }
+  cp_async_wait<0>();
+
+  // qd = <qn, dqn> of each row over the warp's columns, the quad's, then the
+  // pair's; K2's family: dq = (dqn - qn qd) inv_q (qn = qn16, or v4's fp32
+  // q inv_q from the raw row in dq's slot, read by the lane before it writes
+  // it); K8: dqn
+  float part = 0.0f;  // the sum of qd over the pair's attending rows (warp 0)
+  if (active) {
+    int tq[2];
+    float iq[2];
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      const bool in = qr[y] < LS;
+      tq[y] = in ? tok[qr[y]] : 0;
+      iq[y] = (FORM == FORM_QKV && in) ? a.inv[(static_cast<size_t>(tq[y]) * 2) * g.heads + t.h]
+                                       : 0.0f;
+    }
+    auto qn_at = [&](int y, int d) -> float2 {  // the row's qn at columns d, d + 1
+      if constexpr (RAW) {
+        if (qr[y] >= LS) return make_float2(0.0f, 0.0f);
+        const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            a.dq + static_cast<size_t>(tq[y]) * a.ldd + hoff + d));
+        return make_float2(w.x * iq[y], w.y * iq[y]);
+      } else {
+        return __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(qw + (g4 + 8 * y) * LDQ + d));
+      }
+    };
+    float qd[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const float2 f = qn_at(y, hf * DW + j * 8 + c2);
+        qd[y] += f.x * acc[j][2 * y];
+        qd[y] += f.y * acc[j][2 * y + 1];
+      }
+    }
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      qd[y] += __shfl_xor_sync(0xffffffffu, qd[y], 1);
+      qd[y] += __shfl_xor_sync(0xffffffffu, qd[y], 2);
+      if ((lane & 3) == 0) smine[32 * y + 3] = qd[y];
+    }
+    pair_sync(wt);
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      qd[y] = spair[32 * y + 3] + spair[64 + 32 * y + 3];
+      if (hf == 0 && (lane & 3) == 0 && qr[y] < g.LQ) part += qd[y];
+      if (qr[y] < LS) {
+        bf16* dst = a.dq + static_cast<size_t>(tq[y]) * a.ldd + hoff;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          const int d = hf * DW + j * 8 + c2;
+          float v0 = acc[j][2 * y], v1 = acc[j][2 * y + 1];
+          if constexpr (FORM == FORM_QKV) {
+            const float2 f = qn_at(y, d);
+            v0 = (v0 - f.x * qd[y]) * iq[y];
+            v1 = (v1 - f.y * qd[y]) * iq[y];
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+  // the block's d(scale) partial, in a fixed order (lanes, then warps)
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if (lane == 0) wsum[warp] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < 2 * rt; ++w) total += wsum[w];
+    a.dscale_part[(static_cast<size_t>(win) * nchunk + chunk) * g.heads + t.h] = total;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the columns kernel: one block per (window, head, chunk of rt key tiles)
+// ---------------------------------------------------------------------------
+
+template <int HD, int FORM, bool BIAS, bool RAW>
+__global__ void __launch_bounds__(THREADS, 1)
+    streamed_bwd_cols_kernel(Args a, Geo g, int rt, int nchunk) {
+  constexpr int LDQ = HD + 8;
+  constexpr int DW = HD / 2;
+  constexpr int NO = DW / 8;
+  constexpr bool MAXSUB = FORM == FORM_GRID;
+  constexpr int NST = MAXSUB ? 3 : 2;
+  constexpr int STAGE = 2 * STEP * LDQ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's key rows [rt * 16, LDQ]
+  bf16* vs = ks + rt * 16 * LDQ;             // their value rows
+  bf16* ring = vs + rt * 16 * LDQ;           // NS stages of (q [STEP], g [STEP])
+  uint4* xfrag = reinterpret_cast<uint4*>(ring + NS * STAGE);  // [rt][2][2][32] p, ds fragments
+  float* xstat = reinterpret_cast<float*>(xfrag + rt * 128);    // [rt][2][16][4]
+  float* rsh = xstat + rt * 128;                               // [LP][NST] row statistics
+  int* tok = reinterpret_cast<int*>(rsh) + (g.LP * NST + 3) / 4 * 4;  // [LS]
+
+  int chunk;
+  const Tile t = decode_block(g, nchunk, chunk);
+  const size_t wh = static_cast<size_t>(window_of(g, t)) * g.heads + t.h;
+  const int L = g.L;
+  const int LP = g.LP;
+  const int LS = g.LS;
+  const int LQ = g.LQ;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wt = warp >> 1;
+  const int hf = warp & 1;
+  const int g4 = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  const int row0 = chunk * rt * 16;
+  const int k0 = row0 + wt * 16;
+  const bool active = k0 < LP;
+  const int kr[2] = {k0 + g4, k0 + g4 + 8};  // the lane's key rows
+  const int nitems = (LQ + STEP - 1) / STEP;
+  const size_t hoff = static_cast<size_t>(t.h) * HD;
+
+  for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
+  for (int i = threadIdx.x; i < LP * NST; i += blockDim.x) rsh[i] = a.rstat[wh * LP * NST + i];
+  __syncthreads();
+  stage_rows<HD>(ks, a.k + hoff, a.ldk, tok, LS, row0, rt * 16);
+  stage_rows<HD>(vs, a.v + hoff, a.ldv, tok, LS, row0, rt * 16);
+  auto load_item = [&](int i) {
+    if (i < nitems) {
+      bf16* dst = ring + (i % NS) * STAGE;
+      stage_rows<HD>(dst, a.q + hoff, a.ldq, tok, LS, i * STEP, STEP);
+      stage_rows<HD>(dst + STEP * LDQ, a.g + hoff, a.ldg, tok, LS, i * STEP, STEP);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) load_item(i);
+
+  const float sc = a.scale[t.h];
+  const Logits<FORM, BIAS> logit{sc, a.bflag,
+                                 BIAS ? a.bias + static_cast<size_t>(t.h) * L * L : nullptr,
+                                 a.mask, L, LQ, a.mask != nullptr && t.wr == g.nwh - 1};
+  const int aoff = (lane & 15) * LDQ + (lane >> 4) * 8;
+  const int boff = ((lane >> 4) * 8 + (lane & 7)) * LDQ + ((lane >> 3) & 1) * 8;
+  const int toff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+  const bf16* kw = ks + wt * 16 * LDQ;
+  const bf16* vw = vs + wt * 16 * LDQ;
+  uint4* xmine = xfrag + (wt * 2 + hf) * 64 + lane;  // + 32: the ds fragment
+  const uint4* xpart = xfrag + (wt * 2 + (hf ^ 1)) * 64 + lane;
+  float* smine = xstat + ((wt * 2 + hf) * 16 + g4) * 4;
+  const float* spair = xstat + (wt * 32 + g4) * 4;
+
+  float dv[NO][4], dk[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      dv[j][x] = 0.0f;
+      dk[j][x] = 0.0f;
+    }
+  }
+
+  for (int i = 0; i < nitems; ++i) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    load_item(i + NS - 1);
+    const bf16* qst = ring + (i % NS) * STAGE;
+    const bf16* gst = qst + STEP * LDQ;
+    if (!active) continue;
+    const int qb = i * STEP + hf * 16;  // the warp's first query of the step
+    float p[2][4], ds[2][4];
+    if (qb < LQ) {
+      float s[2][4], dp[2][4];
+      score_tile<HD>(s, kw, qst + hf * 16 * LDQ, aoff, boff);   // s^T [key][query]
+      score_tile<HD>(dp, vw, gst + hf * 16 * LDQ, aoff, boff);  // dp^T [key][query]
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = qb + n * 8 + c2 + c;
+          const float* st = rsh + qi * NST;
+          const float mq = MAXSUB ? st[0] : 0.0f;
+          const float rq = st[NST - 2];
+          const float uq = st[NST - 1];
+#pragma unroll
+          for (int y = 0; y < 2; ++y) {
+            const int x = 2 * y + c;
+            const float z = logit(s[n][x], qi, kr[y]);
+            const float ev = z == -CUDART_INF_F ? 0.0f : expf(z - mq);
+            p[n][x] = ev * rq;
+            if constexpr (FORM == FORM_QKV) {
+              ds[n][x] = (dp[n][x] - uq * rq) * ev * (rq * sc);
+            } else {
+              ds[n][x] = (dp[n][x] - uq * rq) * ev * rq * sc;
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          p[n][x] = 0.0f;
+          ds[n][x] = 0.0f;
+        }
+      }
+    }
+    unsigned fp[4], fd[4];
+    to_a(fp, p);   // p16^T
+    to_a(fd, ds);  // dsb^T
+    xmine[0] = make_uint4(fp[0], fp[1], fp[2], fp[3]);
+    xmine[32] = make_uint4(fd[0], fd[1], fd[2], fd[3]);
+    pair_sync(wt);
+    unsigned p0[4], p1[4], d0[4], d1[4];  // the step's first and second 16 queries
+    in_order(p0, p1, fp, xpart[0], hf);
+    in_order(d0, d1, fd, xpart[32], hf);
+    // dv += p16^T @ g16 and dkn += dsb^T @ qn16 over the step's queries in
+    // order, this warp's columns
+    accumulate_rows<DW>(dv, p0, gst + hf * DW, toff);
+    accumulate_rows<DW>(dk, d0, qst + hf * DW, toff);
+    if (i * STEP + 16 < LQ) {
+      accumulate_rows<DW>(dv, p1, gst + 16 * LDQ + hf * DW, toff);
+      accumulate_rows<DW>(dk, d1, qst + 16 * LDQ + hf * DW, toff);
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+  // K2's family: kd = <kn, dkn> (the quad's, then the pair's) and dk = (dkn -
+  // kn kd) inv_k (kn = kn16, or v4's fp32 k inv_k from the raw row in dk's
+  // slot); K8: dkn. dv as it is. Rows >= LS are not written.
+  int tk[2];
+  float ik[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const bool in = kr[y] < LS;
+    tk[y] = in ? tok[kr[y]] : 0;
+    ik[y] = (FORM == FORM_QKV && in) ? a.inv[(static_cast<size_t>(tk[y]) * 2 + 1) * g.heads + t.h]
+                                     : 0.0f;
+  }
+  auto kn_at = [&](int y, int d) -> float2 {
+    if constexpr (RAW) {
+      if (kr[y] >= LS) return make_float2(0.0f, 0.0f);
+      const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          a.dk + static_cast<size_t>(tk[y]) * a.ldd + hoff + d));
+      return make_float2(w.x * ik[y], w.y * ik[y]);
+    } else {
+      return __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(kw + (g4 + 8 * y) * LDQ + d));
+    }
+  };
+  float kd[2] = {0.0f, 0.0f};
+  if constexpr (FORM == FORM_QKV) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const float2 f = kn_at(y, hf * DW + j * 8 + c2);
+        kd[y] += f.x * dk[j][2 * y];
+        kd[y] += f.y * dk[j][2 * y + 1];
+      }
+    }
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      kd[y] += __shfl_xor_sync(0xffffffffu, kd[y], 1);
+      kd[y] += __shfl_xor_sync(0xffffffffu, kd[y], 2);
+      if ((lane & 3) == 0) smine[32 * y] = kd[y];
+    }
+    pair_sync(wt);
+#pragma unroll
+    for (int y = 0; y < 2; ++y) kd[y] = spair[32 * y] + spair[64 + 32 * y];
+  }
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    if (kr[y] >= LS) continue;
+    const size_t off = static_cast<size_t>(tk[y]) * a.ldd + hoff;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int d = hf * DW + j * 8 + c2;
+      float k0v = dk[j][2 * y], k1v = dk[j][2 * y + 1];
+      if constexpr (FORM == FORM_QKV) {
+        const float2 f = kn_at(y, d);
+        k0v = (k0v - f.x * kd[y]) * ik[y];
+        k1v = (k1v - f.y * kd[y]) * ik[y];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(a.dv + off + d) =
+          __floats2bfloat162_rn(dv[j][2 * y], dv[j][2 * y + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(a.dk + off + d) = __floats2bfloat162_rn(k0v, k1v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch: the rows kernel, then the columns kernel, on one stream
+// ---------------------------------------------------------------------------
+
+template <int HD, int FORM, bool BIAS, bool RAW>
+int launch(const Args& a, const Geo& g, cudaStream_t s) {
+  constexpr int NST = FORM == FORM_GRID ? 3 : 2;
+  const Plan p = plan_of(g.LP);
+  const size_t rs = rows_smem<HD>(p.rt, g.LS);
+  const size_t cs = cols_smem<HD, NST>(p.rt, g.LP, g.LS);
+  const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads * p.nchunk;
+  if (g.LP > MAX_LP || g.LS > g.LP || g.LQ > g.LS || rs > static_cast<size_t>(kMaxSmem) ||
+      cs > static_cast<size_t>(kMaxSmem) || blocks > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto rows = g.L <= KEEP_L ? streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, true>
+                                  : streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, false>;
+  const auto cols = streamed_bwd_cols_kernel<HD, FORM, BIAS, RAW>;
+  cudaError_t err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(rs));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cs));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rows<<<static_cast<unsigned>(blocks), p.rt * 64, rs, s>>>(a, g, p.rt, p.nchunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cols<<<static_cast<unsigned>(blocks), p.rt * 64, cs, s>>>(a, g, p.rt, p.nchunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace swin_streamed_bwd

@@ -4,8 +4,10 @@
 // qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
 // map, the q/k L2 normalization of 16-row tiles, the 16-row score product
 // (wmma), the chunked backwards' tile accumulation, the m16n8k16 mma and
-// ldmatrix primitives, the 8-value bf16 store and the window-order d(bias)
-// reduction.
+// ldmatrix primitives with the register-resident score tile, accumulation
+// and accumulator-to-A helpers (K2's one-block pass, the streamed large-head
+// backward of streamed_bwd.cuh), the 8-value bf16 store and the
+// window-order d(bias) reduction.
 
 #pragma once
 
@@ -166,6 +168,50 @@ __device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// c = a_rows [16, HD] @ b_rows [16, HD]^T (pitch HD + 8) on m16n8k16 mma:
+// the two n8 tiles of a 16 x 16 score tile, summed over HD in k16 order.
+// aoff / boff: the lane's ldmatrix offsets of an A and a B operand.
+template <int HD>
+__device__ __forceinline__ void score_tile(float (&c)[2][4], const bf16* a_rows,
+                                           const bf16* b_rows, int aoff, int boff) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.0f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    unsigned fa[4], fb[4];
+    ldsm4(fa, a_rows + aoff + kk * 16);
+    ldsm4(fb, b_rows + boff + kk * 16);
+    mma16816(c[0], fa, fb[0], fb[1]);
+    mma16816(c[1], fa, fb[2], fb[3]);
+  }
+}
+
+// acc [16, HD] += a (a 16 x 16 A fragment) @ rows [16, HD] (pitch HD + 8):
+// toff is the lane's offset of a transposed ldmatrix of the B operand
+template <int HD>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[HD / 8][4], const unsigned (&a)[4],
+                                                const bf16* rows, int toff) {
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) {
+    unsigned fb[4];
+    ldsm4_t(fb, rows + toff + j * 16);
+    mma16816(acc[2 * j], a, fb[0], fb[1]);
+    mma16816(acc[2 * j + 1], a, fb[2], fb[3]);
+  }
+}
+
+// The A fragment of a 16 x 16 tile held as two n8 accumulator tiles, rounded
+// to bf16 (the accumulator-to-A identity of m16n8k16)
+__device__ __forceinline__ void to_a(unsigned (&a)[4], const float (&c)[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
 }
 
 using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;

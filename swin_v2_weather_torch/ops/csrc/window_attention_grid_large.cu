@@ -1,7 +1,8 @@
 // K8's backward at large head dims and at any L: window attention on the NHWC
-// grid at head dims 128 and 256 (L <= 256), and the chunked form at every head
-// dim and any L, hand-written for Hopper (sm_90a), each with its CPB-bias
-// instance (the forward at every head dim is window_attention_grid.cu's).
+// grid at head dims 128 and 256 (L <= 256; the streamed kernels), and the
+// chunked form at every head dim and any L, hand-written for Hopper
+// (sm_90a), each with its CPB-bias instance (the forward at every head dim
+// is window_attention_grid.cu's).
 //
 // Replaces swin_v2_weather_tpu/ops/window_attention.py:_make_grid_bwd_kernel
 // (the backward, _grid_backward), behind fused_window_attention_grid
@@ -15,17 +16,42 @@
 // bf16, 265.4 MB each) the backward moves 7 tensors (0.555 ms at 3.35 TB/s)
 // for 215 GFLOP.
 //
-// Design: the templates of qkv_attention_large.cuh, layout GRID (keys streamed
-// through a two-stage ring in whole sweeps, split into a rows and a columns
-// kernel joined by per-row statistics). Shared memory: 194,576 / 218,112 B at
-// head dim 256, L = 162; the chunked form's does not depend on L.
+// Design: at head dims 128 and 256 (L <= 256) the streamed kernels of
+// streamed_bwd.cuh, form FORM_GRID (K8's row-max-subtracting softmax; dqn
+// and dkn returned, the normalization VJP outside): a rows kernel (the row
+// max, the sum and u, then ds, d(bias) and dqn) and a columns kernel (dv,
+// dkn), 8 warps a block, every score tile in mma registers, keys or queries
+// streamed through a three-stage cp.async ring; then the d(scale) and
+// d(bias) partials summed in order (qkv_attention_large.cuh). The chunked
+// form is qkv_attention_large.cuh's, layout GRID.
 
 #include "qkv_attention_large.cuh"
+#include "streamed_bwd.cuh"
 
 using namespace swin_qkv_attn;
 using namespace swin_qkv_attn_large;
 
 namespace {
+
+// the streamed backward at head dim HD, bias-free or BIAS
+template <int HD>
+int streamed(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) {
+  namespace sb = swin_streamed_bwd;
+  const sb::Geo sg{geo.B, geo.H, geo.W, geo.heads, geo.wh, geo.ww, geo.nwh, geo.nww,
+                   geo.L, geo.LP, geo.L, geo.L, 0};
+  const sb::Args sa{static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                    static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+                    geo.ldq, geo.ldk, geo.ldv, geo.ldo,
+                    static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+                    geo.ldo, static_cast<const float*>(a.scale), static_cast<const float*>(a.bias),
+                    static_cast<const float*>(a.mask), a.bflag, nullptr,
+                    static_cast<float*>(a.rstat), static_cast<float*>(a.dscale_part),
+                    static_cast<float*>(a.dbias_part)};
+  const int code = a.bias != nullptr ? sb::launch<HD, sb::FORM_GRID, true, false>(sa, sg, s)
+                                     : sb::launch<HD, sb::FORM_GRID, false, false>(sa, sg, s);
+  if (code != 0) return code;
+  return reduce_partials(a, geo, sb::plan_of(geo.LP).nchunk, true, s);
+}
 
 template <bool CHUNKED>
 int grid_bwd(const void* q, const void* k, const void* v, const void* scale, const void* bias,
@@ -37,11 +63,24 @@ int grid_bwd(const void* q, const void* k, const void* v, const void* scale, con
   if (!grid_geo(geo, B, H, W, C, heads, wh, ww, ldq, ldk, ldv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch_large_bwd<GRID, CHUNKED>(
-      C / heads,
-      LargeBwdArgs{q, k, v, scale, bias, mask, bflag, g, nullptr, nullptr, nullptr, dq, dk, dv,
-                   rstat, dscale_part, dbias_part, dscale, dbias},
-      geo, static_cast<cudaStream_t>(stream));
+  const LargeBwdArgs args{q, k, v, scale, bias, mask, bflag, g, nullptr, nullptr, nullptr, dq, dk,
+                          dv, rstat, dscale_part, dbias_part, dscale, dbias};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (!CHUNKED) {
+    if (geo.LP > MAX_LP || (bias != nullptr && (dbias_part == nullptr || dbias == nullptr))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    switch (C / heads) {
+      case 128:
+        return streamed<128>(args, geo, s);
+      case 256:
+        return streamed<256>(args, geo, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    return dispatch_large_bwd<GRID, true>(C / heads, args, geo, s);
+  }
 }
 
 }  // namespace

@@ -142,50 +142,6 @@ size_t bwd_smem_bytes(int LP) {
   return 4u * LP * (HD + 8) * sizeof(bf16) + (4u * LP + 16) * sizeof(float);
 }
 
-// c = a_rows [16, HD] @ b_rows [16, HD]^T (pitch HD + 8) on m16n8k16 mma:
-// the two n8 tiles of a 16 x 16 score tile, summed over HD in k16 order.
-// aoff / boff: the lane's ldmatrix offsets of an A and a B operand.
-template <int HD>
-__device__ __forceinline__ void score_tile(float (&c)[2][4], const bf16* a_rows,
-                                           const bf16* b_rows, int aoff, int boff) {
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.0f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    unsigned fa[4], fb[4];
-    ldsm4(fa, a_rows + aoff + kk * 16);
-    ldsm4(fb, b_rows + boff + kk * 16);
-    mma16816(c[0], fa, fb[0], fb[1]);
-    mma16816(c[1], fa, fb[2], fb[3]);
-  }
-}
-
-// acc [16, HD] += a (a 16 x 16 A fragment) @ rows [16, HD] (pitch HD + 8):
-// toff is the lane's offset of a transposed ldmatrix of the B operand
-template <int HD>
-__device__ __forceinline__ void accumulate_rows(float (&acc)[HD / 8][4], const unsigned (&a)[4],
-                                                const bf16* rows, int toff) {
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    unsigned fb[4];
-    ldsm4_t(fb, rows + toff + j * 16);
-    mma16816(acc[2 * j], a, fb[0], fb[1]);
-    mma16816(acc[2 * j + 1], a, fb[2], fb[3]);
-  }
-}
-
-// The A fragment of a 16 x 16 tile held as two n8 accumulator tiles, rounded
-// to bf16 (the accumulator-to-A identity of m16n8k16)
-__device__ __forceinline__ void to_a(unsigned (&a)[4], const float (&c)[2][4]) {
-  a[0] = pack_bf16(c[0][0], c[0][1]);
-  a[1] = pack_bf16(c[0][2], c[0][3]);
-  a[2] = pack_bf16(c[1][0], c[1][1]);
-  a[3] = pack_bf16(c[1][2], c[1][3]);
-}
-
 // qkv: the projection bf16(x @ W + b) [rows, 3C] from the GEMM core (head
 // pitch HP within each role's C columns). Every product is an m16n8k16 mma
 // on ldmatrix fragments, and every score-sized tile (s, e, dp, ds) lives in

@@ -1,8 +1,9 @@
 // The backward of the qkv-fused scaled-cosine window attention at large head
-// dims (256; 128 past L = 208), and at any head dim and any L in its chunked
-// form, hand-written for Hopper (sm_90a): the large-head variant of K2 (and
-// of K7's, K10's and K12's backwards). The forward of every head dim is
-// window_attention_qkv.cu's.
+// dims (128 and 256 where the one-block kernel does not fit, L <= 256), and
+// at any head dim and any L in its chunked form, hand-written for Hopper
+// (sm_90a): the large-head variant of K2 (and of K7's and K12's backwards;
+// K10's and the padded v4's in the chunked form). The forward of every head
+// dim is window_attention_qkv.cu's.
 //
 // Replaces the same TPU kernel as window_attention_qkv_bwd.cu
 // (swin_v2_weather_tpu/ops/window_attention.py: _make_qkv_bwd_kernel /
@@ -12,8 +13,7 @@
 // 374,592 B at head dim 256 (the e2048 family: embed 2048, 8 heads), against
 // the 232,448 B a block may use. The wrappers pick this variant exactly
 // where the smaller one does not fit (ops/window_attention.py, qkv_variant),
-// and the chunked form (section 5) where neither fits: every L above 256,
-// head dim 256 from L = 225.
+// and the chunked form (section 3) past L = 256.
 //
 // What bounds it on this card: at the e2048 shape (x [1, 180, 360, 2048] bf16,
 // W [2048, 6144], 8 heads of 256, L = 162) the recomputed projection, dx and
@@ -22,36 +22,25 @@
 //
 // Design: the fused projection is split off. Each call runs
 //  1. the projection on the Hopper GEMM core (wgmma_gemm.cuh) whose epilogue
-//     writes qkv = bf16(fp32 acc + b) [T, 3C] to a device scratch buffer (the
-//     only rounding of the projection, K1's site);
-//  2. a per-(token, head) kernel that L2-normalizes q and k in place, qn16 =
-//     bf16(q * inv) with inv = 1 / sqrt(max(sum q^2, 1e-24)) in fp32, summed
-//     as K1's normalize_rows sums, and stores inv;
-//  3. two attention kernels on blocks of 4 warps (64 rows), FlashAttention-2
-//     style as K2 splits its passes, with the keys (or queries) streamed
-//     through a two-stage ring: the rows kernel, one block per (window, head,
-//     64 query rows), sweeps the key tiles for r = 1 / sum e and u = sum(dp e)
-//     (stored for the columns kernel), again for ds = (dp - u r) e (r scale)
-//     into its bf16 row buffer (and, with the bias, ds / scale into the
-//     block's fp32 d(bias) slice), then dqn = ds @ kn16 chunk by chunk into an
-//     fp32 [16, HD] staging tile per warp, and finishes dq = (dqn - qn16 qd)
-//     inv_q with qd = <qn16, dqn>, plus its d(scale) partial; the columns
-//     kernel, one block per (window, head, 64 key rows), sweeps the query
-//     tiles once for the transposed tiles p16^T = bf16(e r)^T and ds^T, then
-//     forms dv = p16^T @ g16 and dkn = ds^T @ qn16 chunk by chunk and dk =
-//     (dkn - kn16 kd) inv_k;
-//  4. the projection backward (qkv_projection.cuh). 194,624 and 218,112 B of
-//     shared memory at HD = 256, L = 162.
+//     rounds qkv = bf16(fp32 acc + b) (K1's site) and L2-normalizes q and k
+//     per head as the forward's does (qkv_projection.cuh, StoreNormBf16 with
+//     KEEP), so the backward's qn16 is the forward's; it also keeps inv = 1 /
+//     |q| (and 1 / |k|) of each token row and, for v4, parks the raw q and k
+//     rows in their dq and dk slots of dqkv;
+//  2. the streamed attention kernels of streamed_bwd.cuh (form FORM_QKV):
+//     the rows kernel (r = 1 / sum e and u = sum(dp e), then ds, d(bias) and
+//     dq = (dqn - qn qd) inv_q with its d(scale) partial) and the columns
+//     kernel (dv and dk = (dkn - kn kd) inv_k), every score tile in mma
+//     registers, 8 warps a block;
+//  3. the projection backward (qkv_projection.cuh).
 // The cost of the split: the [T, 3C] qkv buffer goes to device memory and
-// back (796 MB each way at the full e2048 image, 0.24 ms each at 3.35 TB/s),
-// and the score tiles are recomputed per sweep. The attention kernels below
-// are the simple, correct version (nvcuda::wmma tiles through per-warp
-// scratch); their redesign comes later.
+// back (796 MB each way at the full e2048 image, 0.24 ms each at 3.35 TB/s).
 //
 // Rounding sites: K2's (window_attention_qkv_bwd.cu); only the order of some
-// fp32 sums differs (the projection's GEMM tiles, qd summed per lane pair,
-// the d(scale) partials per 64 rows). dW, db, dscale and d(bias) are summed
-// in a fixed order, with no atomics.
+// fp32 sums differs (the projection's GEMM tiles, the row statistics per
+// lane, quad and pair, qd per half of the head dim, the d(scale) partials
+// per 64 rows). dW, db, dscale and d(bias) are summed in a fixed order, with
+// no atomics.
 //
 // K12's large-head instances replace the same TPU kernels' v5 and v4
 // backwards (swin_v2_weather_tpu/ops/attic/window_attention_v45.py:
@@ -60,26 +49,26 @@
 // reordered weight, in the packed product's K order, so its results are
 // K2's; v4 (QKV_V4) reads window-major rows and takes the fp32 qn = q * inv_q
 // in qd and the normalization VJP, the raw q and k rows parked in their dq
-// and dk slots of dqkv by the normalization kernel and read back before they
-// are overwritten (likewise kn).
+// and dk slots of dqkv (by the projection's epilogue; in the chunked form by
+// the normalization kernel) and read back before they are overwritten.
 //
 // Contract (checked by the Python wrapper): K2's, with head dim 128 or 256,
-// and the shared memory of each kernel within 232,448 B (the chunked form:
-// head dims 32-256, any L, head pitch hd or 128); the scratch buffers as the
-// wrapper allocates them.
+// L <= 256 (the chunked form: head dims 32-256, any L, head pitch hd or
+// 128), each kernel's shared memory within 232,448 B; the scratch buffers
+// as the wrapper allocates them.
 
 #include "qkv_projection.cuh"
+#include "streamed_bwd.cuh"
 
 namespace {
 
 using namespace swin_attn;
 
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may opt into
-constexpr int DC = 128;           // head-dim chunk of the p @ v, dq, dk and dv products
-constexpr int RW = 4;             // warps (16-row tiles) per backward block
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+constexpr int RW = 4;             // warps (16-row tiles) per block of the chunked kernels
+// the d(scale) partials come one per window and 64 query rows from both
+// designs (ops/window_attention.py, _row_chunks)
+static_assert(swin_streamed_bwd::RT_MAX == RW, "one d(scale) partial per 64 rows");
 
 // ---------------- 1. projection: qkv = bf16(x @ W + b) ----------------------
 
@@ -199,445 +188,22 @@ __device__ __forceinline__ void exp_col8(const float* cs, int krow, int q0, int 
   }
 }
 
-// ---------------- 3. backward attention: the rows kernel --------------------
-
-template <int HD>
-__host__ __device__ constexpr size_t rows_smem_bytes(int LP) {
-  return (2u * RW * 16 * (HD + 8) + 4u * 16 * (HD + 8) + static_cast<size_t>(RW) * 16 * (LP + 8)) *
-             sizeof(bf16) +
-         (static_cast<size_t>(RW) * 16 * HD + RW * 256 + 16) * sizeof(float);
-}
-
-// one block per (window, head) [blockIdx.x] and 64 query rows [blockIdx.y].
-// VAR = QKV_V4: window-major rows, and qd and the normalization VJP on the
-// fp32 qn = q * inv_q, q's raw row read back from its dq slot of dqkv
-template <int HD, bool BIAS, int VAR = QKV_V3>
-__global__ void __launch_bounds__(RW * 32)
-    large_bwd_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
-                          const float* __restrict__ scale, const float* __restrict__ bias,
-                          const float* __restrict__ mask, float bflag,
-                          const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
-                          float* __restrict__ rstat, float* __restrict__ dscale_part,
-                          float* __restrict__ dbias_part, Geometry geo) {
-  constexpr int LDQ = HD + 8;
-  constexpr int NC = HD / DC;
-  constexpr int NFC = DC / 16;
-  constexpr int NF = HD / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LP = geo.LP;
-  const int L = geo.L;
-  const int LDP = LP + 8;
-  const int C3 = 3 * geo.C;
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // the block's query rows [RW * 16, LDQ]
-  bf16* gs = qs + RW * 16 * LDQ;              // their cotangent rows
-  bf16* ring = gs + RW * 16 * LDQ;            // two stages of (k tile, v tile)
-  bf16* rowbuf = ring + 4 * 16 * LDQ;         // ds, 16 x LDP per warp
-  float* stage = reinterpret_cast<float*>(rowbuf + RW * 16 * LDP);  // dqn [16, HD] per warp
-  float* scratch = stage + RW * 16 * HD;
-  float* wsum = scratch + RW * 256;
-
-  const Tile t = tile_of_block(geo);
-  const int h = t.h;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  float* cs = scratch + warp * 256;
-  const int fr = lane >> 1;
-  const int fc = (lane & 1) * 8;
-  const int nkt = LP / 16;
-  const int row0 = blockIdx.y * RW * 16;
-  const bool active = row0 + warp * 16 < LP;  // this warp's 16 rows exist
-  const int qrow = row0 + warp * 16 + fr;
-  const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
-  const size_t wh_idx = static_cast<size_t>(win) * geo.heads + h;
-  const int LS = rows_of<VAR>(geo);  // rows read and written: L, or v4's lm
-
-  for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
-    const int r = idx / (HD / 8);
-    const int c = (idx % (HD / 8)) * 8;
-    const int l = row0 + r;
-    const bool ok = l < LS;
-    const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
-    cp_async16(qs + r * LDQ + c, qkv + pix * C3 + h * HD + c, ok);
-    cp_async16(gs + r * LDQ + c, gout + pix * geo.C + h * HD + c, ok);
-  }
-  cp_async_commit();
-
-  auto load_kv = [&](int kt) {
-    bf16* st = ring + (kt & 1) * 2 * 16 * LDQ;
-    load_rows<HD, VAR>(st, qkv, C3, geo.C + h * HD, geo, t, kt * 16, 16);
-    load_rows<HD, VAR>(st + 16 * LDQ, qkv, C3, 2 * geo.C + h * HD, geo, t, kt * 16, 16);
-  };
-  // ring protocol: stage kt is ready after acquire(kt); release() ends its use
-  auto acquire = [&](int kt) -> const bf16* {
-    if (kt == 0) {
-      load_kv(0);
-      cp_async_commit();
-    }
-    if (kt + 1 < nkt) load_kv(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    return ring + (kt & 1) * 2 * 16 * LDQ;
-  };
-
-  const float sc = scale[h];
-  const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
-  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
-  const bf16* qw = qs + warp * 16 * LDQ;
-  const bf16* gw = gs + warp * 16 * LDQ;
-
-  // sweep 1: r = 1 / sum e and u = sum(dp e) of each query row
-  float rowsum = 0.0f, u = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const bf16* kb = acquire(kt);
-    if (active) {
-      Frag s;
-      dot_rows<HD>(s, qw, kb);
-      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-      __syncwarp();
-      float ev[8];
-      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
-                     VAR == QKV_V4 ? LS : L);
-      __syncwarp();
-      dot_rows<HD>(s, gw, kb + 16 * LDQ);  // dp = g v^T
-      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        rowsum += ev[e];
-        u += cs[fr * 16 + fc + e] * ev[e];
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-  u += __shfl_xor_sync(0xffffffffu, u, 1);
-  const float r = rowsum > 0.0f ? 1.0f / rowsum : 0.0f;  // padded rows: e = 0 throughout
-  if (active && (lane & 1) == 0) {
-    rstat[(wh_idx * LP + qrow) * 2] = r;
-    rstat[(wh_idx * LP + qrow) * 2 + 1] = u;
-  }
-
-  // sweep 2: ds rows into the warp's row buffer (and ds / scale into d(bias))
-  bf16* pw = rowbuf + warp * 16 * LDP;
-  float* drow = BIAS && active ? dbias_part + (wh_idx * LP + qrow) * LP : nullptr;
-  const float rsc = 1.0f / sc;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const bf16* kb = acquire(kt);
-    if (active) {
-      Frag s;
-      dot_rows<HD>(s, qw, kb);
-      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-      __syncwarp();
-      float ev[8];
-      exp_row8<BIAS>(cs, qrow, kt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
-                     VAR == QKV_V4 ? LS : L);
-      __syncwarp();
-      dot_rows<HD>(s, gw, kb + 16 * LDQ);
-      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-      __syncwarp();
-      float ds[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ds[e] = (cs[fr * 16 + fc + e] - u * r) * ev[e] * (r * sc);
-      store8(pw + fr * LDP + kt * 16 + fc, ds, [](int, float v) { return v; });
-      if constexpr (BIAS) {  // e = 0 outside the window, so padded entries get 0
-        float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
-        dst[0] = make_float4(ds[0] * rsc, ds[1] * rsc, ds[2] * rsc, ds[3] * rsc);
-        dst[1] = make_float4(ds[4] * rsc, ds[5] * rsc, ds[6] * rsc, ds[7] * rsc);
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  // dqn = ds @ kn16, one head-dim chunk per sweep, into the fp32 staging tile
-  float* stw = stage + warp * 16 * HD;
-#pragma unroll 1
-  for (int ch = 0; ch < NC; ++ch) {
-    Frag acc[NFC];
-#pragma unroll
-    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int kt = 0; kt < nkt; ++kt) {
-      const bf16* kb = acquire(kt);
-      if (active) {
-        FragA a;
-        wmma::load_matrix_sync(a, pw + kt * 16, LDP);
-#pragma unroll
-        for (int j = 0; j < NFC; ++j) {
-          FragB b;
-          wmma::load_matrix_sync(b, kb + ch * DC + j * 16, LDQ);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < NFC; ++j) {
-        wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
-      }
-    }
-  }
-  __syncwarp();
-
-  // qd = <qn, dqn>, summed per lane as K2 sums it; dq = (dqn - qn qd) inv_q,
-  // qn = qn16 (v3) or the fp32 q * inv_q from the raw row parked in dq's slot
-  // (v4; this lane reads its columns before it writes them)
-  const bool qin = active && qrow < LS;
-  const size_t qpix = qin ? token_of<VAR>(geo, t, qrow) : 0;
-  const float iq = qin ? inv[(qpix * 2) * geo.heads + h] : 0.0f;
-  const bf16* qraw = dqkv + qpix * C3 + h * HD;
-  auto qn_at = [&](int d) -> float {
-    if constexpr (VAR == QKV_V4) {
-      return qin ? __bfloat162float(qraw[d]) * iq : 0.0f;
-    } else {
-      return __bfloat162float(qw[fr * LDQ + d]);
-    }
-  };
-  float qd = 0.0f;
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
-    }
-  }
-  qd += __shfl_xor_sync(0xffffffffu, qd, 1);
-  if (qin) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      store8(dqkv + qpix * C3 + h * HD + j * 16 + fc, stw + fr * HD + j * 16 + fc,
-             [&](int e, float dqn) { return (dqn - qn_at(j * 16 + fc + e) * qd) * iq; });
-    }
-  }
-  // this block's d(scale) partial: sum of qd over its real rows, fixed tree
-  float part = (active && qrow < (VAR == QKV_V4 ? LS : L) && (lane & 1) == 0) ? qd : 0.0f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-  if (lane == 0) wsum[warp] = part;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.0f;
-    for (int i = 0; i < RW; ++i) total += wsum[i];
-    dscale_part[(static_cast<size_t>(win) * gridDim.y + blockIdx.y) * geo.heads + h] = total;
-  }
-}
-
-// ---------------- 4. backward attention: the columns kernel -----------------
-
-template <int HD>
-__host__ __device__ constexpr size_t cols_smem_bytes(int LP) {
-  return (2u * RW * 16 * (HD + 8) + 4u * 16 * (HD + 8) +
-          2u * RW * 16 * static_cast<size_t>(LP + 8)) * sizeof(bf16) +
-         (static_cast<size_t>(RW) * 16 * HD + RW * 256) * sizeof(float);
-}
-
-// one block per (window, head) [blockIdx.x] and 64 key rows [blockIdx.y];
-// VAR as the rows kernel's (v4: k's raw row read back from dk's slot)
-template <int HD, bool BIAS, int VAR = QKV_V3>
-__global__ void __launch_bounds__(RW * 32)
-    large_bwd_cols_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
-                          const float* __restrict__ scale, const float* __restrict__ bias,
-                          const float* __restrict__ mask, float bflag,
-                          const bf16* __restrict__ gout, const float* __restrict__ rstat,
-                          bf16* __restrict__ dqkv, Geometry geo) {
-  constexpr int LDQ = HD + 8;
-  constexpr int NC = HD / DC;
-  constexpr int NFC = DC / 16;
-  constexpr int NF = HD / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LP = geo.LP;
-  const int L = geo.L;
-  const int LDP = LP + 8;
-  const int C3 = 3 * geo.C;
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's key rows [RW * 16, LDQ]
-  bf16* vs = ks + RW * 16 * LDQ;             // their value rows
-  bf16* ring = vs + RW * 16 * LDQ;           // two stages of (q tile, g tile)
-  bf16* pbuf = ring + 4 * 16 * LDQ;          // p16^T [key][query], 16 x LDP per warp
-  bf16* dsbuf = pbuf + RW * 16 * LDP;        // ds^T [key][query]
-  float* stage = reinterpret_cast<float*>(dsbuf + RW * 16 * LDP);  // dkn [16, HD] per warp
-  float* scratch = stage + RW * 16 * HD;
-
-  const Tile t = tile_of_block(geo);
-  const int h = t.h;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  float* cs = scratch + warp * 256;
-  const int fr = lane >> 1;
-  const int fc = (lane & 1) * 8;
-  const int nqt = LP / 16;
-  const int row0 = blockIdx.y * RW * 16;
-  const bool active = row0 + warp * 16 < LP;
-  const int krow = row0 + warp * 16 + fr;
-  const int win = (t.bi * geo.nwh + t.wr) * geo.nww + t.wc;
-  const float* rs = rstat + (static_cast<size_t>(win) * geo.heads + h) * LP * 2;
-  const int LS = rows_of<VAR>(geo);
-
-  for (int idx = tid; idx < RW * 16 * (HD / 8); idx += blockDim.x) {
-    const int r = idx / (HD / 8);
-    const int c = (idx % (HD / 8)) * 8;
-    const int l = row0 + r;
-    const bool ok = l < LS;
-    const size_t pix = ok ? token_of<VAR>(geo, t, l) : 0;
-    cp_async16(ks + r * LDQ + c, qkv + pix * C3 + geo.C + h * HD + c, ok);
-    cp_async16(vs + r * LDQ + c, qkv + pix * C3 + 2 * geo.C + h * HD + c, ok);
-  }
-  cp_async_commit();
-
-  auto load_qg = [&](int qt) {
-    bf16* st = ring + (qt & 1) * 2 * 16 * LDQ;
-    load_rows<HD, VAR>(st, qkv, C3, h * HD, geo, t, qt * 16, 16);
-    load_rows<HD, VAR>(st + 16 * LDQ, gout, geo.C, h * HD, geo, t, qt * 16, 16);
-  };
-  auto acquire = [&](int qt) -> const bf16* {
-    if (qt == 0) {
-      load_qg(0);
-      cp_async_commit();
-    }
-    if (qt + 1 < nqt) load_qg(qt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    return ring + (qt & 1) * 2 * 16 * LDQ;
-  };
-
-  const float sc = scale[h];
-  const bool use_mask = mask != nullptr && t.wr == geo.nwh - 1;
-  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
-  const bf16* kw = ks + warp * 16 * LDQ;
-  const bf16* vw = vs + warp * 16 * LDQ;
-  bf16* pt = pbuf + warp * 16 * LDP;
-  bf16* dt = dsbuf + warp * 16 * LDP;
-
-  // one sweep over the query tiles: p16^T = bf16(e r)^T and ds^T rows
-  for (int qt = 0; qt < nqt; ++qt) {
-    const bf16* qb = acquire(qt);
-    if (active) {
-      Frag s;
-      dot_rows<HD>(s, kw, qb);  // s^T [key][query]
-      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-      __syncwarp();
-      float ev[8];
-      exp_col8<BIAS>(cs, krow, qt * 16 + fc, L, sc, bh, use_mask, mask, bflag, ev,
-                     VAR == QKV_V4 ? LS : L);
-      __syncwarp();
-      dot_rows<HD>(s, vw, qb + 16 * LDQ);  // dp^T [key][query] = v g^T
-      wmma::store_matrix_sync(cs, s, 16, wmma::mem_row_major);
-      __syncwarp();
-      float p[8], ds[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int qi = qt * 16 + fc + e;
-        const float ri = rs[qi * 2];
-        const float ui = rs[qi * 2 + 1];
-        p[e] = ev[e] * ri;
-        ds[e] = (cs[fr * 16 + fc + e] - ui * ri) * ev[e] * (ri * sc);
-      }
-      store8(pt + fr * LDP + qt * 16 + fc, p, [](int, float v) { return v; });
-      store8(dt + fr * LDP + qt * 16 + fc, ds, [](int, float v) { return v; });
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  const size_t kpix = krow < LS ? token_of<VAR>(geo, t, krow) : 0;
-  float* stw = stage + warp * 16 * HD;
-  // role 0: dv = p16^T @ g16, written as it leaves; role 1: dkn = ds^T @ qn16,
-  // staged for the normalization VJP
-#pragma unroll 1
-  for (int role = 0; role < 2; ++role) {
-#pragma unroll 1
-    for (int ch = 0; ch < NC; ++ch) {
-      Frag acc[NFC];
-#pragma unroll
-      for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
-      for (int qt = 0; qt < nqt; ++qt) {
-        const bf16* qb = acquire(qt);
-        if (active) {
-          FragA a;
-          wmma::load_matrix_sync(a, (role == 0 ? pt : dt) + qt * 16, LDP);
-          const bf16* bsrc = role == 0 ? qb + 16 * LDQ : qb;
-#pragma unroll
-          for (int j = 0; j < NFC; ++j) {
-            FragB b;
-            wmma::load_matrix_sync(b, bsrc + ch * DC + j * 16, LDQ);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-        __syncthreads();
-      }
-      if (active) {
-        if (role == 0) {
-#pragma unroll
-          for (int j = 0; j < NFC; ++j) {
-            wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-            __syncwarp();
-            if (krow < LS) {
-              store8(dqkv + kpix * C3 + 2 * geo.C + h * HD + ch * DC + j * 16 + fc,
-                     cs + fr * 16 + fc, [](int, float v) { return v; });
-            }
-            __syncwarp();
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < NFC; ++j) {
-            wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
-          }
-        }
-      }
-    }
-  }
-  __syncwarp();
-
-  // kd = <kn, dkn>: kn16, or v4's fp32 k * inv_k from the raw row in dk's slot
-  const bool kin = active && krow < LS;
-  const float ik = kin ? inv[(kpix * 2 + 1) * geo.heads + h] : 0.0f;
-  const bf16* kraw = dqkv + kpix * C3 + geo.C + h * HD;
-  auto kn_at = [&](int d) -> float {
-    if constexpr (VAR == QKV_V4) {
-      return kin ? __bfloat162float(kraw[d]) * ik : 0.0f;
-    } else {
-      return __bfloat162float(kw[fr * LDQ + d]);
-    }
-  };
-  float kd = 0.0f;
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
-    }
-  }
-  kd += __shfl_xor_sync(0xffffffffu, kd, 1);
-  if (kin) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      store8(dqkv + kpix * C3 + geo.C + h * HD + j * 16 + fc, stw + fr * HD + j * 16 + fc,
-             [&](int e, float dkn) { return (dkn - kn_at(j * 16 + fc + e) * kd) * ik; });
-    }
-  }
-}
-
-// ---------------- 5. backward attention at any L: the chunked form ----------
+// ---------------- 3. backward attention at any L: the chunked form ----------
 //
-// The rows and columns kernels above keep, per warp, a row of ds (p^T and
-// ds^T) as long as the window, LP + 8 bf16, and their shared memory grows
-// with L: past L = 256, and at head dim 256 from L = 225 on, no instance
-// fits. The chunked form keeps one 16 x 16 tile of it per warp instead: each
+// A row of ds (p^T and ds^T) per warp as long as the window would make
+// shared memory grow with L. The chunked form keeps one 16 x 16 tile of it
+// per warp instead: each
 // key (query) tile's ds (or p) is formed, rounded to bf16 into the warp's
 // tile and multiplied at once into an fp32 [16, HD] accumulator in shared
 // memory (accumulate_tile: read, multiply-add, write back, in tile order), so
-// its shared memory does not depend on L. Rows kernel: sweep 1 as above (r,
-// u), then one sweep forming ds and dqn += dsb kn16 tile by tile. Columns
+// its shared memory does not depend on L. Rows kernel: sweep 1 for r and u,
+// then one sweep forming ds and dqn += dsb kn16 tile by tile. Columns
 // kernel: one sweep for dv += p16^T g16, a second for dkn += ds^T qn16. The
-// rounding sites and, for every output element, the order of the fp32 sums
-// over tiles are those of the kernels above. Every head dim 32-256, any head
+// rounding sites are K2's, and every output element sums over the key (or
+// query) tiles in order. Every head dim 32-256, any head
 // pitch HP (128: K10 and padded v4, exact zeros into the pad lanes of dqkv).
-// The kernels run only where nothing above fits (qkv_variant); their speed
-// is not the point yet.
+// The kernels run only past L = 256 (qkv_variant); their speed is not the
+// point yet.
 
 template <int HD>
 __host__ __device__ constexpr size_t chunk_smem_bytes() {
@@ -657,7 +223,8 @@ __device__ __forceinline__ void zero_pad_lanes(bf16* head_row) {
 }
 
 // one block per (window, head) [blockIdx.x] and 64 query rows [blockIdx.y];
-// VAR and the outputs as large_bwd_rows_kernel's
+// VAR = QKV_V4: window-major rows, and qd and the normalization VJP on the
+// fp32 qn = q * inv_q, q's raw row read back from its dq slot of dqkv
 template <int HD, bool BIAS, int VAR, int HP>
 __global__ void __launch_bounds__(RW * 32, 1)
     chunk_bwd_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ inv,
@@ -794,7 +361,7 @@ __global__ void __launch_bounds__(RW * 32, 1)
     }
   }
 
-  // qd = <qn, dqn> and dq = (dqn - qn qd) inv_q, as large_bwd_rows_kernel's
+  // qd = <qn, dqn> and dq = (dqn - qn qd) inv_q
   const bool qin = active && qrow < LS;
   const size_t qpix = qin ? token_of<VAR>(geo, t, qrow) : 0;
   const float iq = qin ? inv[(qpix * 2) * geo.heads + h] : 0.0f;
@@ -967,7 +534,7 @@ __global__ void __launch_bounds__(RW * 32, 1)
     }
   }
 
-  // kd = <kn, dkn> and dk = (dkn - kn kd) inv_k, as large_bwd_cols_kernel's
+  // kd = <kn, dkn> and dk = (dkn - kn kd) inv_k
   const float ik = kin ? inv[(kpix * 2 + 1) * geo.heads + h] : 0.0f;
   const bf16* kraw = dqkv + kpix * C3 + geo.C + h * HP;
   auto kn_at = [&](int d) -> float {
@@ -1041,66 +608,71 @@ int project_normalize(const void* x, const void* w, const void* b, void* qkv, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// The rows and columns kernels of a variant: the large-head ones, or the
-// chunked ones (CHUNKED; any head pitch HP).
-template <int HD, bool BIAS, int VAR, int HP, bool CHUNKED>
-auto rows_kernel() {
-  if constexpr (CHUNKED) {
-    return &chunk_bwd_rows_kernel<HD, BIAS, VAR, HP>;
-  } else {
-    static_assert(HP == HD, "the large-head kernels take no head pitch");
-    return &large_bwd_rows_kernel<HD, BIAS, VAR>;
-  }
-}
-
-template <int HD, bool BIAS, int VAR, int HP, bool CHUNKED>
-auto cols_kernel() {
-  if constexpr (CHUNKED) {
-    return &chunk_bwd_cols_kernel<HD, BIAS, VAR, HP>;
-  } else {
-    return &large_bwd_cols_kernel<HD, BIAS, VAR>;
-  }
-}
-
 // QKV_V5: wr is the reordered weight the recompute reads, w the packed one of
 // the projection backward; otherwise both are the packed W. QKV_V4: the
 // window-major rows, the raw q, k parked in dqkv for the fp32 qn. CHUNKED:
-// the chunked attention kernels (head pitch HP), else the large-head ones.
+// the chunked attention kernels (head pitch HP) after project_normalize;
+// else the recompute with the normalization in its epilogue (the forward's
+// qn16, the norms kept in inv) and the streamed kernels (streamed_bwd.cuh).
 template <int HD, bool BIAS, int VAR = QKV_V3, int HP = HD, bool CHUNKED = false>
 int backward(const void* x, const void* wr, const void* w, const void* b, const void* scale,
              const void* bias, const void* mask, float bflag, const void* g, void* qkv,
              void* inv, void* rstat, void* dqkv, void* dw_part, void* db_part,
              void* dscale_part, void* dbias_part, void* dx, void* dw, void* db, void* dscale,
              void* dbias, const Geometry& geo, int dw_splits, int db_splits, cudaStream_t s) {
-  const size_t rows_smem = CHUNKED ? chunk_smem_bytes<HD>() : rows_smem_bytes<HD>(geo.LP);
-  const size_t cols_smem = CHUNKED ? chunk_smem_bytes<HD>() : cols_smem_bytes<HD>(geo.LP);
-  const auto rows = rows_kernel<HD, BIAS, VAR, HP, CHUNKED>();
-  const auto cols = cols_kernel<HD, BIAS, VAR, HP, CHUNKED>();
-  int code = set_smem(rows, rows_smem);
-  if (code != 0) return code;
-  code = set_smem(cols, cols_smem);
-  if (code != 0) return code;
-  code = project_normalize<HD, VAR, HP>(x, wr, b, qkv, inv, geo, s,
-                                        VAR == QKV_V4 ? dqkv : nullptr);
-  if (code != 0) return code;
-  const long long wh_blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
-  if (wh_blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int nchunks = (geo.LP / 16 + RW - 1) / RW;
-  const dim3 grid(static_cast<unsigned>(wh_blocks), nchunks);
-  rows<<<grid, RW * 32, rows_smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
-      static_cast<bf16*>(dqkv), static_cast<float*>(rstat), static_cast<float*>(dscale_part),
-      static_cast<float*>(dbias_part), geo);
-  code = static_cast<int>(cudaGetLastError());
-  if (code != 0) return code;
-  cols<<<grid, RW * 32, cols_smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
-      static_cast<const float*>(rstat), static_cast<bf16*>(dqkv), geo);
-  code = static_cast<int>(cudaGetLastError());
+  int code;
+  if constexpr (CHUNKED) {
+    const size_t smem = chunk_smem_bytes<HD>();
+    const auto rows = &chunk_bwd_rows_kernel<HD, BIAS, VAR, HP>;
+    const auto cols = &chunk_bwd_cols_kernel<HD, BIAS, VAR, HP>;
+    code = set_smem(rows, smem);
+    if (code != 0) return code;
+    code = set_smem(cols, smem);
+    if (code != 0) return code;
+    code = project_normalize<HD, VAR, HP>(x, wr, b, qkv, inv, geo, s,
+                                          VAR == QKV_V4 ? dqkv : nullptr);
+    if (code != 0) return code;
+    const long long wh_blocks = static_cast<long long>(geo.B) * geo.nwh * geo.nww * geo.heads;
+    if (wh_blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned>(wh_blocks), nchunks);
+    rows<<<grid, RW * 32, smem, s>>>(
+        static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
+        static_cast<const float*>(scale), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
+        static_cast<bf16*>(dqkv), static_cast<float*>(rstat), static_cast<float*>(dscale_part),
+        static_cast<float*>(dbias_part), geo);
+    code = static_cast<int>(cudaGetLastError());
+    if (code != 0) return code;
+    cols<<<grid, RW * 32, smem, s>>>(
+        static_cast<const bf16*>(qkv), static_cast<const float*>(inv),
+        static_cast<const float*>(scale), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), bflag, static_cast<const bf16*>(g),
+        static_cast<const float*>(rstat), static_cast<bf16*>(dqkv), geo);
+    code = static_cast<int>(cudaGetLastError());
+  } else {
+    static_assert(HP == HD, "the streamed kernels take no head pitch");
+    namespace sb = swin_streamed_bwd;
+    const int C = geo.C;
+    const int C3 = 3 * C;
+    bf16* qkv16 = static_cast<bf16*>(qkv);
+    bf16* dqkv16 = static_cast<bf16*>(dqkv);
+    code = swin_qkv_proj::project_normalized_keep(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(wr), static_cast<const float*>(b),
+        qkv16, token_rows<VAR>(geo), geo.Cin, C3, HD, VAR == QKV_V5 ? HD : 0,
+        static_cast<float*>(inv), VAR == QKV_V4 ? dqkv16 : nullptr, s);
+    if (code != 0) return code;
+    const int ls = VAR == QKV_V4 ? geo.lm : geo.L;  // rows a window reads and writes
+    const sb::Geo sg{geo.B, geo.H, geo.W, geo.heads, geo.wh, geo.ww, geo.nwh, geo.nww,
+                     geo.L, geo.LP, ls, VAR == QKV_V4 ? ls : geo.L, VAR == QKV_V4 ? 1 : 0};
+    const sb::Args sa{qkv16, qkv16 + C, qkv16 + 2 * C, static_cast<const bf16*>(g),
+                      C3, C3, C3, C, dqkv16, dqkv16 + C, dqkv16 + 2 * C, C3,
+                      static_cast<const float*>(scale), static_cast<const float*>(bias),
+                      static_cast<const float*>(mask), bflag, static_cast<const float*>(inv),
+                      static_cast<float*>(rstat), static_cast<float*>(dscale_part),
+                      static_cast<float*>(dbias_part)};
+    code = sb::launch<HD, sb::FORM_QKV, BIAS, VAR == QKV_V4>(sa, sg, s);
+  }
   if (code != 0) return code;
   const int n_win = geo.B * geo.nwh * geo.nww;
   return swin_qkv_proj::projection_backward(

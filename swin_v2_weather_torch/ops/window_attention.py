@@ -70,11 +70,13 @@ dbias in fp32.
 Head dims and windows: the forward (K1, K7, K10, K12) takes head dims 32-256
 and any L (:func:`qkv_fwd_plan`). The one-block-per-(window, head) backward
 (K2, K7) holds q, k, v and g [LP, HD] in shared memory; where that does not
-fit (head dim 256 at L = 162: the e2048 family), the large-head backward
-(``csrc/window_attention_qkv_large.cu``) runs instead, with the same rounding
-sites, and where neither fits (every L above 256; head dim 256 from L = 225)
-the chunked backward in the same source (:func:`qkv_chunked_bwd`; K10 and
-v4/v5 too), whose shared memory does not grow with L. :func:`qkv_variant`
+fit (head dim 256 at L = 162: the e2048 family; head dim 128 past L = 208),
+the large-head backward (``csrc/window_attention_qkv_large.cu``: the
+recompute with q/k normalized in its epilogue, then the streamed kernels of
+``csrc/streamed_bwd.cuh``, :func:`streamed_bwd_plan`) runs instead, with the
+same rounding sites, up to L = 256, and past that the chunked backward in
+the same source (:func:`qkv_chunked_bwd`; K10 and v4/v5 too), whose shared
+memory does not grow with L. :func:`qkv_variant`
 says which runs for a shape, or raises before any launch for a head dim the
 forward does not take.
 
@@ -96,8 +98,9 @@ module globals (set from the environment at import):
 K8/K9's forward is one streamed kernel at head dims 32-256 and any L (keys
 and values through a ring, ``csrc/qkv_attention.cuh``); their backward at
 head dims whose one-block instance does not fit shared memory (128 and 256
-at L = 162: the e2048 family) takes the large-head variant
-(``csrc/qkv_attention_large.cuh``), and where neither fits (every L above
+at L = 162: the e2048 family) takes the large-head variant (K8: the
+streamed kernels of ``csrc/streamed_bwd.cuh``; K9:
+``csrc/qkv_attention_large.cuh``), and where neither fits (every L above
 256) its chunked form; :func:`attn_variant` says which runs in each
 direction, or raises.
 """
@@ -140,8 +143,38 @@ qkv_impl()  # fail fast on a bad environment value, as the JAX package does at i
 qkv_bwd_impl()
 
 _MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
-_LARGE_RW = 4  # 16-row warps per block of the large-head and chunked backward kernels
+_LARGE_RW = 4  # 16-row warps per block of K9's large-head and the chunked backward kernels
 _LDT = 24  # row pitch of the chunked backwards' per-warp 16 x 16 tile
+# the streamed large-head backward (csrc/streamed_bwd.cuh): 16-row tiles a
+# block (two warps each), streamed rows a step, ring stages
+_STREAMED_RT, _STREAMED_STEP, _STREAMED_NS = 4, 32, 3
+
+
+def streamed_bwd_plan(hd: int, l: int, ls: Optional[int] = None, grid: bool = False) -> dict:
+    """The launch of the streamed large-head backward (``csrc/streamed_bwd.cuh``,
+    ``plan_of``, ``rows_smem``, ``cols_smem``) at head dim ``hd``, window
+    length ``l`` and ``ls`` rows a window (v4's lm; default ``l``), for K8
+    (``grid``: three row statistics) or the qkv-fused family (two): ``rt``
+    16-row tiles a block (two warps each), ``nchunk`` blocks per (window,
+    head), ``threads`` and the bytes of shared memory of the rows and columns
+    kernels: the block's own rows and a ring of 32-row steps, the pairs'
+    fragment and statistics exchanges, (columns) the window's row statistics
+    and a table of ``ls`` token rows. Nothing in it grows with L but the two
+    tables."""
+    lp = -(-l // 16) * 16
+    ls = l if ls is None else ls
+    ntiles = lp // 16
+    nchunk = -(-ntiles // _STREAMED_RT)
+    rt = -(-ntiles // nchunk)
+    tiles = (2 * rt * 16 + _STREAMED_NS * 2 * _STREAMED_STEP) * (hd + 8) * 2
+
+    def words16(n: int) -> int:  # bytes of n 4-byte words, in whole 16-byte units
+        return (n + 3) // 4 * 16
+
+    nst = 3 if grid else 2
+    return {"rt": rt, "nchunk": nchunk, "threads": rt * 64,
+            "rows_smem": tiles + rt * 64 * 16 + rt * 128 * 4 + 32 + words16(ls),
+            "cols_smem": tiles + rt * 128 * 16 + rt * 128 * 4 + words16(lp * nst) + words16(ls)}
 
 
 def qkv_smem_bytes(hd: int, l: int) -> dict:
@@ -149,18 +182,18 @@ def qkv_smem_bytes(hd: int, l: int) -> dict:
     window length ``l``, as the CUDA sources compute it: ``fwd`` of the
     forward's attention pass (K1, K7, K10 and v5 alike: :func:`qkv_fwd_plan`),
     ``bwd`` of the one-block-per-(window, head) backward (K2; K7 and K10
-    alike), ``large_rows``/``large_cols`` of the large-head backward and
+    alike), ``large_rows``/``large_cols`` of the large-head backward's
+    streamed rows and columns kernels (:func:`streamed_bwd_plan`) and
     ``chunked`` of the chunked backward's rows and columns kernels (the same
     at every L)."""
     lp = -(-l // 16) * 16
-    ldq, ldp, rw = hd + 8, lp + 8, _LARGE_RW
+    ldq, rw = hd + 8, _LARGE_RW
+    plan = streamed_bwd_plan(hd, l)
     return {
         "fwd": qkv_fwd_plan(hd, l)["smem"],
         "bwd": 4 * lp * ldq * 2 + (4 * lp + 16) * 4,
-        "large_rows": (2 * rw * 16 * ldq + 64 * ldq + rw * 16 * ldp) * 2
-        + (rw * 16 * hd + rw * 256 + 16) * 4,
-        "large_cols": (2 * rw * 16 * ldq + 64 * ldq + 2 * rw * 16 * ldp) * 2
-        + (rw * 16 * hd + rw * 256) * 4,
+        "large_rows": plan["rows_smem"],
+        "large_cols": plan["cols_smem"],
         "chunked": (2 * rw * 16 * ldq + 64 * ldq + rw * 16 * _LDT) * 2
         + (rw * 16 * hd + rw * 256 + 16) * 4,
     }
@@ -187,9 +220,10 @@ def qkv_variant(name: str, hd: int, l: int, backward: bool) -> str:
     streamed attention pass) at head dims 32/64/96/128/256 and any L.
     Backward, at the same head dims and any L: ``'base'`` (K2, head dim
     32/64/96/128, L <= 256) where its shared memory fits, else ``'large'``
-    (head dim 128 or 256, L <= 256) where that variant's fits, else
-    ``'chunked'``, whose shared memory does not grow with L. Any other head
-    dim raises a ValueError before a launch."""
+    (head dim 128 or 256, L <= 256: the streamed kernels, whose shared
+    memory fits at every such L), else ``'chunked'`` (every L above 256),
+    whose shared memory does not grow with L. Any other head dim raises a
+    ValueError before a launch."""
     if not backward:
         if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
             return "streamed"
@@ -1531,17 +1565,22 @@ def attn_smem_bytes(hd: int, l: int) -> dict:
     length ``l``, as the CUDA sources compute it: ``fwd`` of the streamed
     forward (:func:`attn_fwd_plan`), ``bwd`` of the one-block-per-(window,
     head) backward (``csrc/qkv_attention.cuh``), ``large_rows``/
-    ``large_cols`` of the large-head backward and ``chunked`` of the chunked
-    backward's rows and columns kernels (``csrc/qkv_attention_large.cuh``;
-    the same at every L)."""
+    ``large_cols`` of K9's large-head backward and ``chunked`` of the
+    chunked backward's rows and columns kernels
+    (``csrc/qkv_attention_large.cuh``; the same at every L), and
+    ``streamed_rows``/``streamed_cols`` of K8's large-head backward (the
+    streamed kernels, :func:`streamed_bwd_plan`)."""
     lp = -(-l // 16) * 16
     nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
+    plan = streamed_bwd_plan(hd, l, grid=True)
     return {
         "fwd": attn_fwd_plan(hd, l)["smem"],
         "bwd": 4 * lp * ldq * 2 + nw * 1024 + nw * 16 * ldp * 2 + (5 * lp + 32) * 4,
         "large_rows": (3 * rw * 16 * ldq + rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
         "large_cols": (3 * rw * 16 * ldq + 2 * rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256) * 4,
         "chunked": (3 * rw * 16 * ldq + rw * 16 * _LDT) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
+        "streamed_rows": plan["rows_smem"],
+        "streamed_cols": plan["cols_smem"],
     }
 
 
@@ -1550,17 +1589,20 @@ def attn_variant(name: str, hd: int, l: int, backward: bool) -> str:
     length ``l``. Forward: ``'streamed'`` at head dims 32/64/96/128/256 and any
     L. Backward, at the same head dims and any L: ``'base'`` (the one-block
     instances, head dim 32/64/96/128, L <= 256) where its shared memory fits,
-    else ``'large'`` (head dim 128 or 256, L <= 256) where that variant's
-    fits, else ``'chunked'``, whose shared memory does not grow with L. Any
-    other head dim raises a ValueError before a launch. At L = 162 the
-    backward at head dim 128 (271,168 B) and 256 is ``'large'``."""
+    else ``'large'`` (head dim 128 or 256, L <= 256) where both layouts'
+    instances fit (K9's, whose shared memory grows with L, is the larger;
+    K8's streamed kernels fit at every such L), else ``'chunked'``, whose
+    shared memory does not grow with L. Any other head dim raises a
+    ValueError before a launch. At L = 162 the backward at head dim 128
+    (271,168 B) and 256 is ``'large'``."""
     if not backward:
         if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
             return "streamed"
         raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
                          f"{ATTN_FWD_HEAD_DIMS})")
     sm = attn_smem_bytes(hd, l)
-    return _bwd_variant(name, hd, l, sm["bwd"], max(sm["large_rows"], sm["large_cols"]))
+    return _bwd_variant(name, hd, l, sm["bwd"], max(sm["large_rows"], sm["large_cols"],
+                                                    sm["streamed_rows"], sm["streamed_cols"]))
 
 
 def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:

@@ -1,0 +1,179 @@
+"""Device-time breakdown of the large-head attention backwards, beside the
+backward of ``scaled_dot_product_attention`` on the same windowed tensors.
+
+Run on a GPU from the root of a checkout of the repo:
+
+    python3 -m swin_v2_weather_torch.scripts.bwd_breakdown
+
+or, to measure another checkout's kernels with this script, from that
+checkout's root: ``python3 <path>/bwd_breakdown.py`` (the package and
+``chip_smoke.py``, whose timing helpers it uses, are imported from the
+working directory). Seeded inputs, window 9 x 18 (L = 162), the shifted
+block's mask, 8 heads:
+
+  * K2 at head dim 256 (x [1, H, W, 2048], W_qkv [2048, 6144]) on the e2048
+    image [180, 360] and on the e2048 train steps' [90, 180], and K7 on the
+    first;
+  * K8 at head dim 256 on both images and at head dim 128 (C = 1024) on the
+    first, bias-free and with a raw bias;
+  * K9 at head dim 256 on the train steps' image (for comparison).
+
+Each line gives the kernel's ms (CUDA events), its pieces (torch.profiler,
+device ms a launch: the projection recompute, the normalization, the rows
+and columns kernels, dx, dW and the reductions) and SDPA's backward ms on
+windowed [nW, 8, 162, hd] bf16 tensors with the bias as a float mask (only
+``torch.autograd.grad`` timed; null with the reason where no backend takes
+the shape). Every line names the card and its power limit. Exits non-zero
+without a GPU.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import subprocess
+import sys
+
+import torch
+
+# (substring of the kernel's name, label): first match wins. The large-head
+# K2 (the recompute with or without the q/k normalization in its epilogue,
+# the normalization kernel, the attention kernels of either design) and
+# K8's large-head backward.
+K2_LARGE_PIECES = (("StoreBiasBf16", "projection (core)"),
+                   ("StoreNormBf16", "projection + q/k normalization (core)"),
+                   ("normalize_qk_kernel", "q/k normalization"),
+                   ("rows_kernel", "rows kernel"), ("cols_kernel", "columns kernel"),
+                   ("StoreBf16>", "dx (core)"), ("StoreSplitF32", "dW (core)"),
+                   ("column_sums_kernel", "db column sums"), ("reduce_kernel", "reductions"))
+K8_LARGE_PIECES = (("rows_kernel", "rows kernel"), ("cols_kernel", "columns kernel"),
+                   ("normalize_kernel", "q/k normalization"),
+                   ("attn_dscale_reduce_kernel", "d(scale) reduction"),
+                   ("dbias_reduce_kernel", "d(bias) reduction"))
+WINDOW = (9, 18)
+
+
+def sdpa_bwd_ms(shape, bias: torch.Tensor, gen: torch.Generator, n: int = 10):
+    """(ms, None), or (None, reason) where no backend takes the shape: the
+    backward alone of ``scaled_dot_product_attention`` on bf16 q, k, v of
+    ``shape`` [nW, heads, L, hd] with ``bias`` [heads, L, L] as a bf16
+    additive mask; the graph is recorded once and only
+    ``torch.autograd.grad`` is timed (one scalar scale, no q/k
+    normalization; the port never calls it)."""
+    from chip_smoke import time_ms
+
+    dev = bias.device
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16().requires_grad_()
+               for _ in range(3))
+    go = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    try:
+        out = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                               attn_mask=bias.bfloat16())
+        ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True), n)
+    except RuntimeError as exc:
+        return None, f"{type(exc).__name__}: {str(exc)[:160]}"
+    finally:
+        del q, k, v, go
+    return ms, None
+
+
+def qkv_case(gen, hw, heads: int, hd: int):
+    """x, g [1, H, W, heads * hd] bf16, W_qkv bf16, b, scale, the shifted
+    block's mask and a folded CPB term, seeded."""
+    from swin_v2_weather_torch.models.swin import make_shift_mask
+    from swin_v2_weather_torch.ops import window_attention as wa
+
+    dev, c, l = gen.device, heads * hd, WINDOW[0] * WINDOW[1]
+    x = torch.randn((1, *hw, c), generator=gen, device=dev).bfloat16()
+    g = torch.randn((1, *hw, c), generator=gen, device=dev).bfloat16()
+    w16 = ((2 * torch.rand((c, 3 * c), generator=gen, device=dev) - 1) / math.sqrt(c)).bfloat16()
+    b = 0.02 * torch.randn((3 * c,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    mask = torch.from_numpy(make_shift_mask(hw, WINDOW, (4, 9))[-1].copy()).to(dev)
+    badd = wa.fold_cpb_bias(torch.randn((heads, l, l), generator=gen, device=dev), scale)
+    return x, g, w16, b, scale, mask, badd
+
+
+def grid_case(gen, hw, heads: int, hd: int):
+    """qn, kn (normalized per head) and v a channel slice of one seeded qkv
+    [1, H, W, 3C] bf16, g, scale, a raw bias and the shifted block's mask."""
+    from swin_v2_weather_torch.models.swin import make_shift_mask
+    from swin_v2_weather_torch.ops import window_attention as wa
+
+    dev, c, l = gen.device, heads * hd, WINDOW[0] * WINDOW[1]
+    qkv = torch.randn((1, *hw, 3 * c), generator=gen, device=dev).bfloat16()
+    qn, _ = wa.normalize_heads(qkv[..., :c], heads)
+    kn, _ = wa.normalize_heads(qkv[..., c:2 * c], heads)
+    g = torch.randn((1, *hw, c), generator=gen, device=dev).bfloat16()
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    raw = 2.0 * torch.randn((heads, l, l), generator=gen, device=dev)
+    mask = torch.from_numpy(make_shift_mask(hw, WINDOW, (4, 9))[-1].copy()).to(dev)
+    return (qn, kn, qkv[..., 2 * c:]), g, scale, raw, mask
+
+
+def measure(fn, labels, n: int = 3):
+    """(ms by CUDA events, pieces by torch.profiler) of fn()."""
+    from chip_smoke import kernel_pieces, time_ms
+
+    return time_ms(fn, n), kernel_pieces(fn, labels, n=n)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("bwd_breakdown: no CUDA device")
+    sys.path.insert(0, os.getcwd())
+    from swin_v2_weather_torch.ops import window_attention as wa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0].strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2018)
+    heads, l = 8, WINDOW[0] * WINDOW[1]
+
+    def report(name, ms, pieces, lib):
+        lib_txt = f"{lib[0]:.4f} ms" if lib[0] is not None else f"null ({lib[1]})"
+        print(f"{name}: {ms:.4f} ms; " + ", ".join(f"{k} {v:.4f}" for k, v in pieces.items())
+              + f"; SDPA backward {lib_txt} ({card})", flush=True)
+
+    for tag, hw in (("e2048 [180, 360]", (180, 360)), ("e2048 train [90, 180]", (90, 180))):
+        x, g, w16, b, scale, mask, badd = qkv_case(gen, hw, heads, 256)
+        nw = hw[0] * hw[1] // l
+        lib = sdpa_bwd_ms((nw, heads, l, 256), badd, gen)
+        ms, pieces = measure(lambda: wa.window_attention_qkv_bwd(x, w16, b, scale, g, WINDOW,
+                                                                 mask, 1.0), K2_LARGE_PIECES)
+        report(f"K2 hd 256 {tag} ({wa.qkv_variant('', 256, l, True)})", ms, pieces, lib)
+        if hw == (180, 360):
+            ms, pieces = measure(lambda: wa.window_attention_qkv_bias_bwd(
+                x, w16, b, scale, badd, g, WINDOW, mask, 1.0), K2_LARGE_PIECES)
+            report(f"K7 hd 256 {tag}", ms, pieces, lib)
+        del x, g, w16, b, badd
+        torch.cuda.empty_cache()
+        for hd in ((256, 128) if hw == (180, 360) else (256,)):
+            ops, g, scale, raw, mask = grid_case(gen, hw, heads, hd)
+            lib = sdpa_bwd_ms((nw, heads, l, hd), raw, gen)
+            for bias in (None, raw):
+                kind = "K8" if bias is None else "K8 BIAS"
+                fn = ((lambda: wa.window_attention_grid_bwd(*ops, scale, g, WINDOW, mask, 1.0))
+                      if bias is None else
+                      (lambda: wa.window_attention_grid_bias_bwd(*ops, scale, bias, g, WINDOW,
+                                                                 mask, 1.0)))
+                ms, pieces = measure(fn, K8_LARGE_PIECES)
+                report(f"{kind} hd {hd} {tag} ({wa.attn_variant('', hd, l, True)})", ms, pieces,
+                       lib)
+            del ops, g, raw
+            torch.cuda.empty_cache()
+        if hw == (90, 180):
+            q, k, v, gq = (torch.randn((nw, heads, l, 256), generator=gen, device=dev).bfloat16()
+                           for _ in range(4))
+            grid = (hw[0] // WINDOW[0], hw[1] // WINDOW[1])
+            ms, pieces = measure(lambda: wa.window_attention_v1_bwd(q, k, v, scale, gq, grid, mask),
+                                 K8_LARGE_PIECES)
+            report(f"K9 hd 256 {tag}", ms, pieces, lib)
+            del q, k, v, gq
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""SHA-256 digests of the port's attention and MLP backwards at L = 162.
+"""SHA-256 digests of the port's attention and MLP backwards at L = 162 (and
+of the chunked backwards at L = 288).
 
 Run on a GPU from the root of a checkout of the repo:
 
@@ -10,10 +11,19 @@ from the working directory). Each line names one backward wrapper at one
 shape and gives a digest of the bytes of every output it returns, on inputs
 drawn from a fixed seed on the card: the qkv-fused family (K2, K7, K10, v5,
 v4, padded v4) at the flagship shape, K8/K9 at head dims 96 (one-block), 128
-and 256 (the large-head variant), K2/K7 at head dim 256 (the large-head
-variant) and K5/K6 at the e2048 train step's shape. Two trees whose lines
-agree compute those backwards bit for bit alike. Exits non-zero without a
-GPU.
+and 256 (the large-head variant), K2/K7/v5/v4 at head dim 256 (the large-head
+variant), K5/K6 at the e2048 train step's shape, and the chunked
+backwards past L = 256 (K2, K7, K8, K9 and their BIAS instances at head
+dims 96 and 256, L = 288). Two trees whose lines agree compute those
+backwards bit for bit alike. Exits non-zero without a GPU.
+
+Against a tree from before the streamed large-head backward
+(``csrc/streamed_bwd.cuh``), exactly these lines change: the ``hd256``
+lines of K2, K7, v5 and v4 (the recompute now normalizes q and k in its
+epilogue, as the forward does, and the pass sums in another order) and K8's
+``hd128`` and ``hd256`` lines, bias-free and BIAS. Every other line (the
+flagship's one-block backwards, K8/K9 at head dim 96, K9 at 128 and 256,
+K5/K6, the chunked backwards) stays equal.
 """
 
 from __future__ import annotations
@@ -87,6 +97,13 @@ def main() -> None:
                           v45.window_attention_qkv4_padded_bwd(
                               xw, wp, bp, scale, hd, wa.pad_heads_x(gw, heads, hd), window, grid,
                               mask, 1.0)))
+        else:  # the large-head v5 and v4 (no draws: the lines above keep their inputs)
+            grid = (h // window[0], w // window[1])
+            lines.append(("window_attention_qkv5_bwd hd256", v45.window_attention_qkv5_bwd(
+                x, v45.w5_reorder(w16, heads).contiguous(), w16, b, scale, g, window, mask, 1.0)))
+            lines.append(("window_attention_qkv4_bwd hd256", v45.window_attention_qkv4_bwd(
+                v45.window_major(x, window), w16, b, scale, v45.window_major(g, window), window,
+                grid, mask, 1.0)))
         del x, w16, b, g, badd
     for hd in (96, 128, 256):
         heads, c = 8, 8 * hd
@@ -114,6 +131,36 @@ def main() -> None:
     b1, b2 = 0.02 * rand(hidden), 0.02 * rand(c)
     lines.append(("mlp_fwd e2048 train shape", (mk.mlp_fwd(x2, w1, b1, w2, b2),)))
     lines.append(("mlp_bwd e2048 train shape", mk.mlp_bwd(x2, w1, b1, w2, g2)))
+    del x2, g2, w1, w2
+    # the chunked backwards past L = 256: window 12 x 24 (L = 288) on a
+    # [24, 48] grid, two heads (last, so the lines above keep their inputs)
+    win288, l288, heads = (12, 24), 288, 2
+    mask = torch.from_numpy(make_shift_mask((24, 48), win288, (6, 12))[-1].copy()).to(dev)
+    for hd in (96, 256):
+        c = heads * hd
+        x, g = rand(1, 24, 48, 64).bfloat16(), rand(1, 24, 48, c).bfloat16()
+        w16 = ((2 * torch.rand((64, 3 * c), generator=gen, device=dev) - 1) / 8.0).bfloat16()
+        b, scale = 0.02 * rand(3 * c), torch.exp(math.log(10.0) + 0.3 * rand(heads))
+        raw = 2.0 * rand(heads, l288, l288)
+        badd = wa.fold_cpb_bias(raw, scale)
+        lines.append((f"window_attention_qkv_bwd chunked hd{hd}",
+                      wa.window_attention_qkv_bwd(x, w16, b, scale, g, win288, mask, 1.0)))
+        lines.append((f"window_attention_qkv_bias_bwd chunked hd{hd}",
+                      wa.window_attention_qkv_bias_bwd(x, w16, b, scale, badd, g, win288, mask,
+                                                       1.0)))
+        qkv = rand(1, 24, 48, 3 * c).bfloat16()
+        qn, _ = wa.normalize_heads(qkv[..., :c], heads)
+        kn, _ = wa.normalize_heads(qkv[..., c:2 * c], heads)
+        lines.append((f"window_attention_grid_bwd chunked hd{hd}", wa.window_attention_grid_bwd(
+            qn, kn, qkv[..., 2 * c:], scale, g, win288, mask, 1.0)))
+        lines.append((f"window_attention_grid_bias_bwd chunked hd{hd}",
+                      wa.window_attention_grid_bias_bwd(qn, kn, qkv[..., 2 * c:], scale, raw, g,
+                                                        win288, mask, 1.0)))
+        q, k, v, gq = (rand(4, heads, l288, hd).bfloat16() for _ in range(4))
+        lines.append((f"window_attention_v1_bwd chunked hd{hd}", wa.window_attention_v1_bwd(
+            q, k, v, scale, gq, (2, 2), mask)))
+        lines.append((f"window_attention_v1_bias_bwd chunked hd{hd}",
+                      wa.window_attention_v1_bias_bwd(q, k, v, scale, raw, gq, (2, 2), mask)))
     torch.cuda.synchronize()
     for name, outs in lines:
         print(f"{name}: {digest(outs)}", flush=True)

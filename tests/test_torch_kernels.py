@@ -1634,26 +1634,17 @@ CHUNK_QKV_CASES = [("v3", False), ("v3", True), ("v6", False), ("v5", False), ("
                    ("v4p", False)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant, use_bias", CHUNK_QKV_CASES)
-@pytest.mark.parametrize("hd", [96, 256])
-@pytest.mark.parametrize("l", [288, 576])
-def test_chunked_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, l):
-    """Every qkv-fused backward past L = 256 (the chunked instances; K10 and
-    the padded v4 at head dim 96 only, the head dims they take below their
-    pitch 128), shifted, two windows of two heads or four: dx, dW, db, dscale
-    (and dbias) against the plain version within the bounds of the flagship
-    backward, one launch on the wrapper and three (v5: 3 heads + 2) on the
-    GEMM core, two calls bit-equal; the padded variants' pad columns exactly
-    zero."""
+def check_qkv_fused_backward(dev, variant, use_bias, hd, hw, window, shifted=True):
+    """A qkv-fused backward (``variant`` as CHUNK_QKV_CASES) at head dim
+    ``hd`` on the grid ``hw`` with ``window``, two heads, shifted or not: dx,
+    dW, db, dscale (and dbias) against the plain version within the bounds of
+    the flagship backward, one launch on the wrapper and three (v5: 3 heads +
+    2) on the GEMM core, two calls bit-equal; the padded variants' pad
+    columns and v4's pad rows of dxw exactly zero."""
     from swin_v2_weather_torch.ops import gemm_core
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
-    if variant in ("v6", "v4p") and hd > 128:
-        pytest.skip("K10 and the padded v4 take head dims up to their pitch 128")
-    assert WA.qkv_variant("t", hd, l, True) == "chunked"
-    dev, heads = cuda_device, 2
-    (h, w), window = CHUNK_WINDOWS[l]
+    heads, (h, w), l = 2, hw, window[0] * window[1]
     c = heads * hd
     rng = np.random.default_rng(91)
     x = torch.from_numpy(rng.standard_normal((1, h, w, 64)).astype(np.float32)).to(dev).bfloat16()
@@ -1664,7 +1655,7 @@ def test_chunked_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, 
         np.float32)).to(dev)
     g = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev).bfloat16()
     mask = torch.from_numpy(make_shift_mask((h, w), window, (window[0] // 2, window[1] // 2))[-1]
-                            .copy()).to(dev)
+                            .copy()).to(dev) if shifted else None
     grid = (h // window[0], w // window[1])
     wp, bp = WA.pad_heads_w(w16, heads), WA.pad_heads_vec(bq, heads)
     if variant == "v3":
@@ -1705,9 +1696,64 @@ def test_chunked_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, 
     if variant in ("v6", "v4p"):
         assert torch.count_nonzero(grads[1].reshape(64, 3, heads, 128)[..., hd:]).item() == 0
         assert torch.count_nonzero(grads[2].reshape(3, heads, 128)[..., hd:]).item() == 0
+    if variant in ("v4", "v4p"):
+        assert torch.count_nonzero(grads[0][:, :, l:]).item() == 0
     again = fn(*args)
     for a, r in zip(grads, again):
         assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant, use_bias", CHUNK_QKV_CASES)
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("l", [288, 576])
+def test_chunked_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, l):
+    """Every qkv-fused backward past L = 256 (the chunked instances; K10 and
+    the padded v4 at head dim 96 only, the head dims they take below their
+    pitch 128), shifted, two windows of two heads or four
+    (``check_qkv_fused_backward``)."""
+    if variant in ("v6", "v4p") and hd > 128:
+        pytest.skip("K10 and the padded v4 take head dims up to their pitch 128")
+    assert WA.qkv_variant("t", hd, l, True) == "chunked"
+    check_qkv_fused_backward(cuda_device, variant, use_bias, hd, *CHUNK_WINDOWS[l])
+
+
+# (head dim, L) -> (grid, window) of the streamed large-head backward's cases:
+# the e2048 window at head dim 256, and L near 256 at both head dims
+STREAMED_WINDOWS = {(256, 162): ((18, 36), (9, 18)), (128, 224): ((28, 32), (14, 16)),
+                    (256, 256): ((32, 32), (16, 16))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant, use_bias", [("v3", False), ("v3", True), ("v5", False),
+                                               ("v4", False)])
+@pytest.mark.parametrize("hd, l", list(STREAMED_WINDOWS))
+@pytest.mark.parametrize("shifted", [False, True])
+def test_streamed_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, l, shifted):
+    """The large-head qkv-fused backward (the recompute with q/k normalized in
+    its epilogue, then the streamed kernels of ``csrc/streamed_bwd.cuh``):
+    K2, K7, v5 and v4 at head dim 256 with L = 162 and 256 and at head dim
+    128 with L = 224, unshifted and shifted (``check_qkv_fused_backward``)."""
+    assert WA.qkv_variant("t", hd, l, True) == "large"
+    check_qkv_fused_backward(cuda_device, variant, use_bias, hd, *STREAMED_WINDOWS[hd, l],
+                             shifted=shifted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("hd, hw, window", [(256, (18, 36), (9, 18)), (128, (26, 32), (13, 16)),
+                                            (128, (32, 32), (16, 16)),
+                                            (256, (28, 32), (14, 16))])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_streamed_grid_backward_matches_plain(cuda_device, use_bias, hd, hw, window, shifted):
+    """K8's large-head backward (the streamed kernels, K8's softmax) at head
+    dim 256 with L = 162 and 224 and at head dim 128 with L = 208 and 256,
+    bias-free and BIAS, unshifted and shifted: forward and backward against
+    their plain versions, two backward calls bit-equal
+    (``check_qkv_kernels``)."""
+    assert WA.attn_variant("t", hd, window[0] * window[1], True) == "large"
+    check_qkv_kernels(cuda_device, "grid", use_bias, shifted, h=hw[0], w=hw[1], c=2 * hd,
+                      heads=2, window=window)
 
 
 @pytest.mark.cuda

@@ -63,8 +63,9 @@ def test_qkv_variant_refuses_what_no_kernel_takes(hd, l):
     (the projection on the GEMM core, then the streamed pass) takes every L
     at head dims 32-256, so only head dims 192 and 48 refuse, both ways. The
     backward's one-block kernel takes head dims 64 and 96 at L = 256
-    (217,152 B and 151,616 B); head dim 256 at L = 256 fits neither it nor
-    the large-head variant and takes the chunked one."""
+    (217,152 B and 151,616 B); head dim 256 at L = 256 does not fit it and
+    takes the large-head variant, whose streamed kernels' shared memory
+    (176,160 / 182,272 B) does not grow with L beyond two small tables."""
     if hd in (192, 48):
         for backward in (False, True):
             with pytest.raises(ValueError):
@@ -77,8 +78,40 @@ def test_qkv_variant_refuses_what_no_kernel_takes(hd, l):
         assert wa.qkv_smem_bytes(hd, l)["bwd"] == {96: 217152, 64: 151616}[hd]
     else:
         sm = wa.qkv_smem_bytes(hd, l)
-        assert max(sm["large_rows"], sm["large_cols"]) > 232448
-        assert wa.qkv_variant("t", hd, l, True) == "chunked"
+        assert sm["bwd"] > 232448
+        assert (sm["large_rows"], sm["large_cols"]) == (176160, 182272)
+        assert wa.qkv_variant("t", hd, l, True) == "large"
+
+
+# (head dim, L, rows a window, K8) -> the streamed large-head backward's
+# launch (csrc/streamed_bwd.cuh plan_of, rows_smem, cols_smem): 16-row tiles
+# a block, blocks a (window, head), rows and columns kernels' shared memory
+STREAMED_PLAN = {
+    (256, 162, 162, False): (4, 3, 175792, 181264),  # K2 at the e2048 shape
+    (256, 162, 168, False): (4, 3, 175808, 181280),  # v4 there (lm = 168)
+    (256, 162, 162, True): (4, 3, 175792, 181968),   # K8 at the e2048 shape
+    (128, 162, 162, True): (4, 3, 93872, 100048),    # K8 at head dim 128
+    (128, 224, 224, False): (4, 4, 94112, 99968),    # K2 at head dim 128 past L = 208
+    (256, 8, 8, False): (1, 1, 119872, 120992),      # one tile
+}
+
+
+@pytest.mark.parametrize("hd, l, ls, grid", list(STREAMED_PLAN))
+def test_streamed_bwd_plan(hd, l, ls, grid):
+    """The streamed backward's launch as the CUDA source computes it: at most
+    four 16-row tiles a block (8 warps), the tiles of a (window, head) split
+    evenly (11 tiles at L = 162: three blocks of four, one d(scale) partial a
+    block, as ``_row_chunks`` counts them), shared memory within a block's
+    232,448 B and independent of L but for the token and statistics tables."""
+    rt, nchunk, rows, cols = STREAMED_PLAN[hd, l, ls, grid]
+    plan = wa.streamed_bwd_plan(hd, l, ls, grid=grid)
+    assert (plan["rt"], plan["nchunk"], plan["rows_smem"], plan["cols_smem"]) == (
+        rt, nchunk, rows, cols)
+    assert plan["threads"] == 64 * rt and max(rows, cols) <= 232448
+    lp = -(-l // 16) * 16
+    assert nchunk == wa._row_chunks("large", lp)
+    far = wa.streamed_bwd_plan(hd, 256, 256, grid=grid)  # the longest L it takes
+    assert max(far["rows_smem"], far["cols_smem"]) <= 232448
 
 
 @pytest.mark.parametrize("family", ["qkv", "attn"])

@@ -66,11 +66,34 @@ def test_attn_variant_table(hd, l):
 
 def test_attn_variant_large_bytes_at_e2048():
     """Head dim 256, L = 162: 100,496 B for the forward (two blocks an SM),
-    194,576 / 218,112 B for the rows and columns kernels of the large-head
-    backward."""
+    194,576 / 218,112 B for the rows and columns kernels of K9's large-head
+    backward, and 175,792 / 181,968 B for K8's (the streamed kernels: 8
+    warps, one block an SM)."""
     sm = wa.attn_smem_bytes(256, 162)
     assert (sm["fwd"], sm["large_rows"], sm["large_cols"]) == (FWD_256_162, 194576, 218112)
+    assert (sm["streamed_rows"], sm["streamed_cols"]) == (175792, 181968)
     assert 2 * (sm["fwd"] + 1024) <= 233472  # two blocks (and their reserve) fit the SM
+
+
+# (head dim, L) -> K8's streamed rows and columns kernels' shared memory
+STREAMED_SMEM = {(128, 162): (93872, 100048), (256, 162): (175792, 181968),
+                 (128, 256): (94240, 101376), (256, 224): (176032, 182784)}
+
+
+@pytest.mark.parametrize("hd, l", list(STREAMED_SMEM))
+def test_attn_streamed_backward_bytes(hd, l):
+    """K8's large-head backward (``csrc/streamed_bwd.cuh``, three row
+    statistics) at head dims 128 and 256: its shared memory fits two blocks
+    an SM at head dim 128 and one at 256 (8 warps either way), does not grow
+    with L but for its tables, and 'large' is chosen where the one-block
+    backward does not fit (K9's large-head kernels, the larger, bound the
+    range at L = 224 for head dim 256)."""
+    sm = wa.attn_smem_bytes(hd, l)
+    assert (sm["streamed_rows"], sm["streamed_cols"]) == STREAMED_SMEM[hd, l]
+    per_sm = 233472 // (max(sm["streamed_rows"], sm["streamed_cols"]) + 1024)
+    assert per_sm == (2 if hd == 128 else 1)
+    assert wa.attn_variant("t", hd, l, True) == "large"
+    assert wa.streamed_bwd_plan(hd, l, grid=True)["threads"] == 256
 
 
 # (head dim, L, backward) -> the kernel that takes it, or None where none does
