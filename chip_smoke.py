@@ -16,9 +16,10 @@ printing its own lines:
      with nvcc (first use builds into ``swin_v2_weather_torch/_build/``);
      every instance of the GEMM core (its pair kernel, K6, and K3/K4's
      instances included), of K2's attention pass, of the qkv-fused
-     forward's attention pass (K1, K7, K10, K12), of the streamed large-head
-     backwards (``streamed_bwd.cuh``: K2/K7/K12 at head dims 128/256 and K8's,
-     rows kernels with and without z and dp kept in registers) and of the
+     forward's attention pass (K1, K7, K10, K12), of the streamed
+     backwards (``streamed_bwd.cuh``: K2/K7/K12 at head dims 128/256, K8's,
+     and K9's at head dims 32-256, rows kernels with and without z and dp
+     kept in registers) and of the
      chunked attention backwards (phase 39) must show 0 bytes spilled in the
      ``-Xptxas -v`` log.
   3. the window-attention kernel (K1: the projection on the GEMM core, then
@@ -118,7 +119,12 @@ printing its own lines:
  22. the grid route with the CPB (``rel_pos: True, full_pos_embed: False``):
      2 train steps on K8's BIAS instances, ``meta_mlp`` moved.
  23. K9, the windowed route's attention, as phase 20 on q, k, v [400, 8, 162,
-     96] (normalized inside the kernels), with the same launch report.
+     96] (normalized inside the kernels), with the same launch report, the
+     streamed backward's launch report (threads, blocks per (window, head),
+     each kernel's shared memory, registers, local bytes and resident blocks
+     per SM from the CUDA runtime) and its breakdown by torch.profiler (the
+     q/k prepass, the rows and columns kernels, the reductions) beside SDPA's
+     backward.
  24. the windowed route (``attn_impl: 'pallas_v1'``) as phase 21, on K9.
  25. the windowed route with the CPB, as phase 22, on K9's BIAS instances.
  26. the ``'xla'`` route: one rollout step at full width, no attention kernel
@@ -132,8 +138,8 @@ printing its own lines:
      shifted); K5/K6 at [64800, 2048] x [2048, 4096] x [4096, 2048]; two
      backward calls bit-equal; then K2, K5, K6 and the
      K8/K9 backwards at head dim 256 timed at the e2048 train steps' own shape
-     (the image [360, 720]: x [1, 90, 180, 2048], T = 16200), K2's and K8's
-     with their breakdown, beside SDPA's backward at that shape.
+     (the image [360, 720]: x [1, 90, 180, 2048], T = 16200), K2's, K8's and
+     K9's with their breakdown, beside SDPA's backward at that shape.
  28. e2048 serving, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar`` at
      full size (720 x 1440, embed 2048, depth 24): 2 rollout steps, K1 and K5
      24 times a step, K3 never, output finite, step 1 against the plain path.
@@ -155,11 +161,12 @@ printing its own lines:
      each against the plain path.
  33. K8 and K9 (bias-free and BIAS) at head dims 128 (8 heads, C = 1024)
      and 256 (the e2048 tensors, [1, 180, 360, 2048]) with L = 162, shifted,
-     forward (the streamed kernel) and backward (the large-head variant)
-     against their plain versions; two backward calls bit-equal; timed
-     beside ``scaled_dot_product_attention`` on the same windowed tensors
-     (forward and backward, as phase 20), with phase 20's launch report and
-     each large-head backward's breakdown by torch.profiler (rows and
+     forward (the streamed kernel) and backward (K8's large-head variant,
+     K9's streamed kernels) against their plain versions; two backward
+     calls bit-equal; timed beside ``scaled_dot_product_attention`` on the
+     same windowed tensors (forward and backward, as phase 20), with phase
+     20's launch report (and phase 23's for K9's backward) and each
+     backward's breakdown by torch.profiler (K9's q/k prepass, the rows and
      columns kernels, the d(scale) and d(bias) reductions).
  34. the e2048 family at [360, 720] on ``attn_impl: 'pallas'`` and then
      ``'pallas_v1'``: 2 train steps each, K8 (or K9) forward and backward
@@ -191,7 +198,9 @@ printing its own lines:
      24, 48] grid, 2 heads, shifted) at head dims 32-256: K2, K7, v5, v4,
      K8 and K9 (bias-free and BIAS), and below head dim 128 K10 and the
      padded v4, each once against its plain version, two calls bit-equal,
-     timed beside its bound (the padded variants' pad columns exactly zero).
+     timed beside its bound (the padded variants' pad columns exactly zero);
+     K8's and K9's beside SDPA's backward on the windowed tensors [4, 2, 288,
+     hd] (``library_ms``).
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -382,7 +391,8 @@ K34_KERNELS = r"7swin_wg11gemm_kernelI\w*?(11Fc1Epilogue|12DpreEpilogue)"
 CHUNK_KERNELS = r"chunk_bwd_(rows|cols)_kernelI"
 K2_PASS_KERNELS = r"_GLOBAL__N_\w*20attention_bwd_kernelI"
 K1_PASS_KERNELS = r"qkv_attention_fwd_kernelILi\d+ELi[23]E"
-# the streamed large-head backward (streamed_bwd.cuh): K2/K7/K12 and K8
+# the streamed backward (streamed_bwd.cuh): K2/K7/K12 and K8 at head dims
+# 128/256, K9 at 32-256
 STREAMED_BWD_KERNELS = r"streamed_bwd_(rows|cols)_kernelI"
 
 
@@ -589,8 +599,8 @@ def main() -> None:
                                   ("K3/K4 on the GEMM core", K34_KERNELS, 4),
                                   ("chunked attention backwards (L > 256)", CHUNK_KERNELS, 92),
                                   ("K2 attention pass", K2_PASS_KERNELS, 20),
-                                  ("streamed large-head backwards (K2/K7/K12, K8)",
-                                   STREAMED_BWD_KERNELS, 30),
+                                  ("streamed backwards (K2/K7/K12, K8, K9)",
+                                   STREAMED_BWD_KERNELS, 60),
                                   ("K1 attention pass (K1, K7, K10, K12)", K1_PASS_KERNELS, 29)):
         spilled = build_spills(pattern)
         if len(spilled) < least or any(any(sp) for sp in spilled.values()):
@@ -1247,8 +1257,8 @@ def main() -> None:
             f"{hd_}] with the bias as a float mask: forward {lib_ms:.4f} ms, backward "
             + (f"{lib_bwd:.4f} ms" if lib_bwd is not None else f"null ({why})")
             + f" ({card}; library yardstick, never called by the port); kernel variants: "
-            f"forward {wa.attn_variant('', hd_, l_win, False)}, backward "
-            f"{wa.attn_variant('', hd_, l_win, True)}")
+            f"forward {wa.attn_variant('', hd_, l_win, False, layout)}, backward "
+            f"{wa.attn_variant('', hd_, l_win, True, layout)}")
         # K8/K9's: 5 head dims x 2 layouts x bias-free and BIAS x 2 paths
         spills = {k: v for k, v in fwd_spills().items() if k[1] in (0, 1)}
         if len(spills) != 40 or any(any(sp) for sp in spills.values()):
@@ -1287,12 +1297,29 @@ def main() -> None:
                     fp_ms = time_ms(lambda: plain_version(fwd)(*ops, scale, *extra, *tail), 5)
                 b_ms = time_ms(lambda: bwd(*ops, scale, *extra, g, *tail), 10)
                 bp_ms = time_ms(lambda: plain_version(bwd)(*ops, scale, *extra, g, *tail), 3)
-                if wa.attn_variant("", hd_, l_win, True) == "large" and kind + "_bwd" + suffix \
-                        not in breakdowns:  # the large-head backward's pieces
+                if wa.attn_variant("", hd_, l_win, True, layout) in ("large", "streamed") and \
+                        kind + "_bwd" + suffix not in breakdowns:  # the streamed backward's pieces
                     breakdowns[kind + "_bwd" + suffix] = kernel_pieces(
-                        lambda: bwd(*ops, scale, *extra, g, *tail), bb.K8_LARGE_PIECES, n=3)
+                        lambda: bwd(*ops, scale, *extra, g, *tail),
+                        bb.K9_PIECES if layout == "v1" else bb.K8_LARGE_PIECES, n=3)
                     log(f"  {kind}_bwd {label} breakdown (torch.profiler, device ms a launch): "
-                        + pieces_line(breakdowns[kind + "_bwd" + suffix]) + f" ({card})")
+                        + pieces_line(breakdowns[kind + "_bwd" + suffix]) + "; beside SDPA's "
+                        "backward " + (f"{lib_bwd:.4f} ms" if lib_bwd is not None else "null")
+                        + f" ({card})")
+                if layout == "v1" and kind + "_bwd" + suffix not in launch:
+                    info_b = wa.streamed_bwd_info(hd_, l_win, bias is not None)
+                    if info_b["rows_local_bytes"] or info_b["cols_local_bytes"]:
+                        raise RuntimeError(f"{kind}_bwd at head dim {hd_}: local (spill) bytes "
+                                           f"{info_b}")
+                    log(f"  {kind}_bwd launch (the streamed kernels): {info_b['threads']} threads "
+                        f"a block, {info_b['blocks_per_window']} blocks per (window, head); rows "
+                        f"kernel {info_b['rows_smem']} B shared memory, {info_b['rows_registers']}"
+                        f" registers, {info_b['rows_local_bytes']} B local, "
+                        f"{info_b['rows_blocks_per_sm']} blocks an SM; columns kernel "
+                        f"{info_b['cols_smem']} B, {info_b['cols_registers']} registers, "
+                        f"{info_b['cols_local_bytes']} B local, {info_b['cols_blocks_per_sm']} "
+                        f"blocks an SM")
+                    launch[kind + "_bwd" + suffix] = info_b
                 log(f"  {kind} {label}: forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms; "
                     f"backward kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms ({card}); two backward "
                     f"calls bit-equal")
@@ -1604,7 +1631,9 @@ def main() -> None:
     grads = wa.window_attention_v1_bwd(q, k, v, scale, gw_, tr_grid, tr_pattern)
     k_ms = time_ms(lambda: wa.window_attention_v1_bwd(q, k, v, scale, gw_, tr_grid, tr_pattern), 5)
     train_shape["window_attention_v1_bwd_e2048"] = (k_ms, bound(
-        5 * tr_attn_flops / 2, nbytes(q, k, v, scale, gw_, *grads)), tr_lib, None)
+        5 * tr_attn_flops / 2, nbytes(q, k, v, scale, gw_, *grads)), tr_lib,
+        kernel_pieces(lambda: wa.window_attention_v1_bwd(q, k, v, scale, gw_, tr_grid, tr_pattern),
+                      bb.K9_PIECES, n=3))
     del q, k, v, gw_, grads, x, g, w16, b_qkv, scale, tr_bias
     x2 = torch.randn((t_tr, ce), generator=gen, device=dev).bfloat16()
     g2 = torch.randn((t_tr, ce), generator=gen, device=dev).bfloat16()
@@ -1989,8 +2018,8 @@ def main() -> None:
         f"{heads2} heads), shifted, against their plain versions")
     chunked = {}
     for hd in wa.ATTN_FWD_HEAD_DIMS:
-        if (wa.qkv_variant("[39]", hd, l288, True), wa.attn_variant("[39]", hd, l288, True)) != (
-                "chunked", "chunked"):
+        if (wa.qkv_variant("[39]", hd, l288, True), wa.attn_variant("[39]", hd, l288, True),
+                wa.attn_variant("[39]", hd, l288, True, "v1")) != ("chunked",) * 3:
             raise RuntimeError(f"[39]: head dim {hd} at L = {l288} does not take the chunked form")
         c2 = heads2 * hd
         x = torch.randn((1, gh2, gw2, cin2), generator=gen, device=dev).bfloat16()
@@ -2009,6 +2038,12 @@ def main() -> None:
                                         device=dev).bfloat16() for _ in range(4))
         qkv_out, attn_out = ("dx", "dW", "db", "dscale", "dbias"), ("dq", "dk", "dv", "dscale",
                                                                      "dbias")
+        # the library yardstick of K8's and K9's: SDPA's backward on the windowed
+        # tensors of this shape, the raw bias as a float mask (none of the
+        # qkv-fused family's: no call computes their projection with it)
+        lib288, why288 = bb.sdpa_bwd_ms((4, heads2, l288, hd), raw, gen)
+        log(f"  SDPA backward on [4, {heads2}, {l288}, {hd}] bf16 with a float mask: "
+            + (f"{lib288:.4f} ms" if lib288 is not None else f"null ({why288})") + f" ({card})")
         cases = {
             "window_attention_qkv_bwd": (wa.window_attention_qkv_bwd,
                                          (x, w16, b2q, sc2, g, win288, pat288), qkv_out),
@@ -2064,8 +2099,9 @@ def main() -> None:
             if names == qkv_out:
                 flops += 3 * 2 * gh2 * gw2 * cin2 * 3 * c2
             b_ms, b_by = bound(flops, nbytes(*(a for a in args if torch.is_tensor(a)), *out))
-            chunked.setdefault(name, {})[hd] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                                                "bound_ms": b_ms, "bound_by": b_by}
+            chunked.setdefault(name, {})[hd] = {
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib288 if names == attn_out else None}
             log(f"  {name} hd {hd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}) ({card}); two calls bit-equal")
             del out, ref, again
@@ -2114,12 +2150,12 @@ def main() -> None:
         "window_attention_grid_bias_bwd": ("window_attention_grid.cu", "window_attention.py:702",
                                            "train_grid_cpb"),
         "window_attention_v1": ("window_attention_v1.cu", "window_attention.py:172", "train_v1"),
-        "window_attention_v1_bwd": ("window_attention_v1.cu", "window_attention.py:292",
+        "window_attention_v1_bwd": ("window_attention_v1_large.cu", "window_attention.py:292",
                                     "train_v1"),
         "window_attention_v1_bias": ("window_attention_v1.cu", "window_attention.py:172",
                                      "train_v1_cpb"),
-        "window_attention_v1_bias_bwd": ("window_attention_v1.cu", "window_attention.py:292",
-                                         "train_v1_cpb"),
+        "window_attention_v1_bias_bwd": ("window_attention_v1_large.cu",
+                                         "window_attention.py:292", "train_v1_cpb"),
         "window_attention_qkv_padded": ("window_attention_qkv.cu", "window_attention.py:1999",
                                         "train_v6"),
         "window_attention_qkv_padded_bwd": ("window_attention_qkv_bwd.cu",

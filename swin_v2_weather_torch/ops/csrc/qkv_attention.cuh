@@ -85,17 +85,18 @@
 //    (1 / sum e)) before p16 @ v; lq (= lm) query rows read and written,
 //    the pad rows attending to the real keys unmasked.
 //
-// The backward, FlashAttention-2 style: one block
+// K8's backward where it fits (head dims up to 96 at L = 162; K9's backward
+// is streamed_bwd.cuh's at every head dim), FlashAttention-2 style: one block
 // per (window, head), LP / 16 warps (LP = L rounded up to 16), q, k, v and g
 // [LP, HD] staged once by cp.async, nvcuda::wmma 16 x 16 score tiles through
 // a per-warp fp32 scratch tile; pass 1 with query rows per warp (row max; row
-// sum, with K8 also u = sum(dp e); K9's u = sum(dp p) in a third sweep; then
-// ds into the row buffer, dq = ds @ kn), pass 2 with key rows per warp (dv =
-// p^T g, dk = ds^T qn) from the saved per-row max, sum and u. The TPU kernels
-// carry d(scale) and d(bias) in VMEM across a sequential grid; the blocks
-// here run in parallel, so each (window, head) writes a d(scale) partial and,
-// with the bias, an fp32 [LP, LP] d(bias) partial, and small kernels sum them
-// in window order: no atomics, two calls give the same bits.
+// sum with u = sum(dp e); then ds into the row buffer, dq = ds @ kn), pass 2
+// with key rows per warp (dv = p^T g, dk = ds^T qn) from the saved per-row
+// max, 1 / sum and u. The TPU kernels carry d(scale) and d(bias) in VMEM
+// across a sequential grid; the blocks here run in parallel, so each
+// (window, head) writes a d(scale) partial and, with the bias, an fp32 [LP,
+// LP] d(bias) partial, and small kernels sum them in window order: no
+// atomics, two calls give the same bits.
 //
 // Rounding sites (the TPU kernels' contracts):
 //   K8  qn16, kn16, v16 as given (bf16); s = qn16 kn16^T in fp32;
@@ -121,10 +122,10 @@
 // Contract (checked by the Python wrappers): bf16 q, k, v, g; fp32 scale
 // [heads], bias [heads, L, L] (BIAS only) and mask [L, L] or null; pixel
 // strides (K8, QKV, QKV4) multiples of 8 elements and 16-byte aligned bases.
-// Forward: head dim in {32, 64, 96, 128, 256}, any L (QKV4: L <= lq <= LP). Backward: head dim in {32, 64,
-// 96, 128}, L <= 256 and its shared memory within 227 KB (at L = 162: head
-// dims up to 96); larger head dims take the large-head backward
-// (qkv_attention_large.cuh).
+// Forward: head dim in {32, 64, 96, 128, 256}, any L (QKV4: L <= lq <= LP).
+// Backward (K8): head dim in {32, 64, 96, 128}, L <= 256 and its shared
+// memory within 227 KB (at L = 162: head dims up to 96); larger head dims
+// take the streamed backward (streamed_bwd.cuh).
 
 #pragma once
 
@@ -189,7 +190,7 @@ template <int HD>
 size_t bwd_smem_bytes(int LP) {
   const size_t nwarps = LP / 16;
   return 4u * LP * (HD + 8) * sizeof(bf16) + nwarps * 256 * sizeof(float) +
-         nwarps * 16 * (LP + 8) * sizeof(bf16) + (5u * LP + 32) * sizeof(float);
+         nwarps * 16 * (LP + 8) * sizeof(bf16) + (3u * LP + 32) * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -891,6 +892,8 @@ __global__ void __launch_bounds__(FwdShape<HD, Z>::THREADS, FwdShape<HD, Z>::MIN
 // backward
 // ---------------------------------------------------------------------------
 
+// K8's one-block backward (K9's backward is streamed_bwd.cuh's at every head
+// dim; LAYOUT stays a parameter of the launch helpers)
 template <int HD, int LAYOUT, bool BIAS>
 __global__ void __launch_bounds__(MAX_LP * 2)
     qkv_attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -900,9 +903,9 @@ __global__ void __launch_bounds__(MAX_LP * 2)
                              bf16* __restrict__ dk, bf16* __restrict__ dv,
                              float* __restrict__ dscale_part, float* __restrict__ dbias_part,
                              AttnGeo geo) {
+  static_assert(LAYOUT == GRID, "K9's backward is streamed_bwd.cuh's");
   constexpr int NF = HD / 16;
   constexpr int LDQ = HD + 8;
-  constexpr bool NORM_IN = LAYOUT == WINDOWED;  // K9: normalization and its VJP inside
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int LP = geo.LP;
@@ -916,11 +919,9 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   float* scratch = reinterpret_cast<float*>(gs + LP * LDQ);
   bf16* rowbuf = reinterpret_cast<bf16*>(scratch + nwarps * 256);  // 16 x LDP per warp
   float* mrow = reinterpret_cast<float*>(rowbuf + nwarps * 16 * LDP);  // row max of z
-  float* srow = mrow + LP;  // K8: 1 / sum e; K9: sum e
-  float* urow = srow + LP;  // K8: sum(dp e); K9: sum(dp p)
-  float* inv_q = urow + LP;
-  float* inv_k = inv_q + LP;
-  float* wsum = inv_k + LP;  // per-warp d(scale) sums
+  float* srow = mrow + LP;  // 1 / sum e
+  float* urow = srow + LP;  // sum(dp e)
+  float* wsum = urow + LP;  // per-warp d(scale) sums
 
   const Tile t = tile_of_block(geo);
   const int h = t.h;
@@ -938,11 +939,6 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if constexpr (NORM_IN) {
-    normalize_rows<HD>(qs, inv_q);
-    normalize_rows<HD>(ks, inv_k);
-    __syncthreads();
-  }
 
   const float sc = scale[h];
   const int nkt = LP / 16;
@@ -975,17 +971,16 @@ __global__ void __launch_bounds__(MAX_LP * 2)
       z[e] = val;
     }
   };
-  // softmax probability: K8 e * (1 / sum e) (sr = 1 / sum e), K9 e / sum e (sr = sum e)
-  auto prob = [&](bool ok, float z, float m, float sr) -> float {
+  // softmax probability e * (1 / sum e) (r = 1 / sum e)
+  auto prob = [&](bool ok, float z, float m, float r) -> float {
     if (!ok) return 0.0f;
-    const float ev = expf(z - m);
-    return LAYOUT == GRID ? ev * sr : ev / sr;
+    return expf(z - m) * r;
   };
-  // ds, unscaled: K8 (dp - u r) e r, K9 p (dp - u)
-  auto dlogit = [&](bool ok, float z, float dp, float m, float sr, float u) -> float {
+  // ds, unscaled: (dp - u r) e r
+  auto dlogit = [&](bool ok, float z, float dp, float m, float r, float u) -> float {
     if (!ok) return 0.0f;
     const float ev = expf(z - m);
-    return LAYOUT == GRID ? (dp - u * sr) * ev * sr : ev / sr * (dp - u);
+    return (dp - u * r) * ev * r;
   };
 
   float s[8], z[8];
@@ -1008,32 +1003,21 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
 
   float rowsum = 0.0f, u = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {  // row sum of e; K8 also u = sum(dp e)
+  for (int kt = 0; kt < nkt; ++kt) {  // row sum of e and u = sum(dp e)
     scores(qw, ks + kt * 16 * LDQ);
     logits(qrow, kt * 16 + fc, s, z, ok);
     __syncwarp();
-    if constexpr (LAYOUT == GRID) scores(gw, vs + kt * 16 * LDQ);  // dp = g v^T
+    scores(gw, vs + kt * 16 * LDQ);  // dp = g v^T
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const float ev = ok[e] ? expf(z[e] - m) : 0.0f;
       rowsum += ev;
-      if constexpr (LAYOUT == GRID) u += cs[fr * 16 + fc + e] * ev;
+      u += cs[fr * 16 + fc + e] * ev;
     }
     __syncwarp();
   }
   rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-  const float sr = LAYOUT == GRID ? (rowsum > 0.0f ? 1.0f / rowsum : 0.0f) : rowsum;
-  if constexpr (LAYOUT == WINDOWED) {  // u = sum(dp p) with p = e / sum e
-    for (int kt = 0; kt < nkt; ++kt) {
-      scores(qw, ks + kt * 16 * LDQ);
-      logits(qrow, kt * 16 + fc, s, z, ok);
-      __syncwarp();
-      scores(gw, vs + kt * 16 * LDQ);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) u += cs[fr * 16 + fc + e] * prob(ok[e], z[e], m, sr);
-      __syncwarp();
-    }
-  }
+  const float sr = rowsum > 0.0f ? 1.0f / rowsum : 0.0f;
   u += __shfl_xor_sync(0xffffffffu, u, 1);
   if ((lane & 1) == 0) {
     mrow[qrow] = m;
@@ -1042,12 +1026,11 @@ __global__ void __launch_bounds__(MAX_LP * 2)
   }
 
   // ds rows: bf16(ds * scale) into the row buffer, ds itself into the block's
-  // d(bias) partial (BIAS), and K9's d(scale) partial sum(ds * s)
+  // d(bias) partial (BIAS)
   float* drow = nullptr;
   if constexpr (BIAS) {
     drow = dbias_part + ((static_cast<size_t>(win) * geo.heads + h) * LP + qrow) * LP;
   }
-  float dsc = 0.0f;
   for (int kt = 0; kt < nkt; ++kt) {
     scores(qw, ks + kt * 16 * LDQ);
     logits(qrow, kt * 16 + fc, s, z, ok);
@@ -1055,10 +1038,7 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     scores(gw, vs + kt * 16 * LDQ);
     float ds[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      ds[e] = dlogit(ok[e], z[e], cs[fr * 16 + fc + e], m, sr, u);
-      dsc += ds[e] * s[e];
-    }
+    for (int e = 0; e < 8; ++e) ds[e] = dlogit(ok[e], z[e], cs[fr * 16 + fc + e], m, sr, u);
     store8(pw + fr * LDP + kt * 16 + fc, ds, [&](int, float d) { return d * sc; });
     if constexpr (BIAS) {  // ds = 0 outside the window, so padded entries get 0
       float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
@@ -1081,24 +1061,16 @@ __global__ void __launch_bounds__(MAX_LP * 2)
       wmma::mma_sync(acc[j], a, b, acc[j]);
     }
   }
-  // <qn, dqn> of the row: K8 with the stored qn16; K9 with qn = q * inv_q in
-  // fp32, q re-read from device memory
-  const float iq = NORM_IN ? inv_q[qrow] : 1.0f;
-  const bf16* qraw = (NORM_IN && qok) ? q + row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldq) : nullptr;
-  auto qn_at = [&](int d) -> float {
-    if constexpr (NORM_IN) {
-      return qok ? __bfloat162float(qraw[d]) * iq : 0.0f;
-    } else {
-      return __bfloat162float(qs[qrow * LDQ + d]);
-    }
-  };
+  // <qn16, dqn> of the row, the d(scale) identity's term
   float qd = 0.0f;
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
     __syncwarp();
 #pragma unroll
-    for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * cs[fr * 16 + fc + e];
+    for (int e = 0; e < 8; ++e) {
+      qd += __bfloat162float(qs[qrow * LDQ + j * 16 + fc + e]) * cs[fr * 16 + fc + e];
+    }
     __syncwarp();
   }
   qd += __shfl_xor_sync(0xffffffffu, qd, 1);
@@ -1108,26 +1080,13 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     for (int j = 0; j < NF; ++j) {
       wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
       __syncwarp();
-      if (qok) {
-        store8(dq + off + j * 16 + fc, cs + fr * 16 + fc, [&](int e, float dqn) {
-          if constexpr (NORM_IN) {
-            return (dqn - qn_at(j * 16 + fc + e) * qd) * iq;
-          } else {
-            return dqn;
-          }
-        });
-      }
+      if (qok) store8(dq + off + j * 16 + fc, cs + fr * 16 + fc, [](int, float a) { return a; });
       __syncwarp();
     }
   }
-  // the block's d(scale) partial, in a fixed order: K8 sum over rows of
-  // <qn16, dqn> (divided by scale in the reduction), K9 sum(ds * s)
-  float part;
-  if constexpr (LAYOUT == GRID) {
-    part = (qok && (lane & 1) == 0) ? qd : 0.0f;
-  } else {
-    part = dsc;
-  }
+  // the block's d(scale) partial, in a fixed order: the sum over rows of
+  // <qn16, dqn> (divided by scale in the reduction)
+  float part = (qok && (lane & 1) == 0) ? qd : 0.0f;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
   if (lane == 0) wsum[warp] = part;
@@ -1200,34 +1159,11 @@ __global__ void __launch_bounds__(MAX_LP * 2)
     }
     __syncwarp();
   }
-  const float ik = NORM_IN ? inv_k[krow] : 1.0f;
-  const bf16* kraw = (NORM_IN && kok) ? k + row_offset<LAYOUT, HD>(geo, t, krow, geo.ldk) : nullptr;
-  auto kn_at = [&](int d) -> float { return kok ? __bfloat162float(kraw[d]) * ik : 0.0f; };
-  float kd = 0.0f;  // K9: <kn, dkn> of the row, kn = k * inv_k in fp32
-  if constexpr (NORM_IN) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * cs[fr * 16 + fc + e];
-      __syncwarp();
-    }
-    kd += __shfl_xor_sync(0xffffffffu, kd, 1);
-  }
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
     __syncwarp();
-    if (kok) {
-      store8(dk + koff + j * 16 + fc, cs + fr * 16 + fc, [&](int e, float dkn) {
-        if constexpr (NORM_IN) {
-          return (dkn - kn_at(j * 16 + fc + e) * kd) * ik;
-        } else {
-          return dkn;
-        }
-      });
-    }
+    if (kok) store8(dk + koff + j * 16 + fc, cs + fr * 16 + fc, [](int, float a) { return a; });
     __syncwarp();
   }
 }

@@ -1,47 +1,22 @@
-// Window attention on pre-projected q, k, v at large head dims, the backward,
-// hand-written for Hopper (sm_90a): the large-head backward of K9
-// (window_attention_v1_large.cu) with its CPB-bias instance, and the chunked
-// form of K8 (window_attention_grid_large.cu) and K9 at any head dim and any
-// L. (K8's large-head backward is streamed_bwd.cuh's; the forward at every
-// head dim is the streamed kernel of qkv_attention.cuh.)
+// Window attention on pre-projected q, k, v, the backward at any L,
+// hand-written for Hopper (sm_90a): the chunked form of K8
+// (window_attention_grid_large.cu) and K9 (window_attention_v1_large.cu), each
+// with its CPB-bias instance, at every head dim 32-256; and K9's prepass,
+// which writes qn16, kn16 and the norms for the streamed backward
+// (streamed_bwd.cuh, form FORM_V1) and the chunked one. (K8's and K9's
+// backward at L <= 256 is streamed_bwd.cuh's, or for K8 at head dims up to
+// 96 the one-block kernel of qkv_attention.cuh; the forward at every head
+// dim is the streamed kernel of qkv_attention.cuh.)
 //
 // Replaces the same TPU kernels as qkv_attention.cuh
 // (swin_v2_weather_tpu/ops/window_attention.py: K8 _make_grid_bwd_kernel /
-// _grid_backward; K9 _make_v1_bwd_kernel / _v1_backward, with has_bias) where
-// the one-block-per-(window, head) backward does not fit: it keeps q, k, v
-// and g [LP, HD] in shared memory at once, which at L = 162 (LP = 176) needs
-// 271,168 / 451,392 B at head dims 128 / 256, against the 232,448 B a block
-// may use. The wrappers pick this variant exactly where the smaller one does
-// not fit (ops/window_attention.py, attn_variant); the flagship's head dim 96
-// keeps the one-block backward.
+// _grid_backward; K9 _make_v1_bwd_kernel / _v1_backward, with has_bias)
+// where no instance whose shared memory grows with L fits: every L above
+// 256 (ops/window_attention.py, attn_variant).
 //
-// What bounds it on this card: bytes, as for the one-block instances. At the
-// e2048 shape (q, k, v [1, 180, 360, 2048] bf16, 8 heads of 256, L = 162;
-// 265.4 MB a tensor) the backward reads four tensors and writes three (1.86
-// GB, 0.555 ms at 3.35 TB/s) for 215 GFLOP.
-//
-// Design (K9's large-head backward, not redesigned yet). The softmax
-// subtracts the row max and normalizes before the p @ v product (the TPU
-// kernels' contract), so the keys (queries) are streamed in whole sweeps,
-// each recomputing the cheap 16 x 16 score tiles, on two kernels of blocks
-// of 4 warps (64 rows):
-//  * the rows kernel, one block per (window, head, 64 query rows), sweeps the
-//    key tiles for the row max, the row sum, u = sum(dp p) in a third sweep,
-//    stores (m, sum e, u) per row in a small workspace, then forms ds (and
-//    the d(bias) rows, and sum(ds s)), dsb = bf16(ds scale) into its row
-//    buffer and dqn = dsb @ kn16 chunk by chunk (128-wide head-dim chunks)
-//    into an fp32 staging tile;
-//  * the columns kernel, one block per (window, head, 64 key rows), sweeps the
-//    query tiles once for the transposed tiles bf16(p)^T and dsb^T from the
-//    stored row statistics, then forms dv = p16^T @ g16 and dkn = dsb^T @ qn16
-//    chunk by chunk. 194,576 and 218,112 B at HD = 256.
-//  * K9 normalizes q and k inside its kernels; here a first kernel writes
-//    qn16 and kn16 (and the norms) to a scratch buffer, summed as the
-//    one-block kernels' normalize_rows sums, so the backward kernels read
-//    pre-normalized tiles; the normalization VJP re-reads the raw q and k
-//    rows, as the one-block kernel does.
-// Costs of the split: the key tiles come through the ring four to five times
-// from L2, and the normalized copies of q and k go to device memory and back.
+// What bounds it on this card: bytes, as for the other backwards; the
+// chunked kernels run only where nothing else takes the shape, and their
+// speed is not the point yet (see their section below).
 //
 // Rounding sites: the one-block instances' (qkv_attention.cuh): the row max,
 // K8 r = 1 / sum e, K9 p = e / sum e, the raw bias, dsb = bf16(ds * scale_h),
@@ -51,9 +26,8 @@
 // tiles). d(scale) and d(bias) are summed in a fixed order, with no atomics.
 //
 // Contract (checked by the Python wrappers): the one-block backward's, with
-// head dim 128 or 256, L <= 256, and each kernel's shared memory within
-// 232,448 B (the chunked form: head dims 32-256, any L); the scratch buffers
-// as the wrappers allocate them.
+// head dims 32-256, any L, and the scratch buffers as the wrappers allocate
+// them.
 
 #pragma once
 
@@ -63,27 +37,11 @@ namespace swin_qkv_attn_large {
 
 using namespace swin_qkv_attn;
 
-constexpr int DC = 128;  // head-dim chunk of the p @ v, dq, dk and dv products
 constexpr int RW = 4;    // warps (16-row tiles) per backward block
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-
-template <int HD>
-constexpr size_t rows_smem_bytes(int LP) {
-  return (3u * RW * 16 * (HD + 8) + static_cast<size_t>(RW) * 16 * (LP + 8)) * sizeof(bf16) +
-         (static_cast<size_t>(RW) * 16 * HD + RW * 256 + RW) * sizeof(float);
-}
-
-template <int HD>
-constexpr size_t cols_smem_bytes(int LP) {
-  return (3u * RW * 16 * (HD + 8) + 2u * RW * 16 * (LP + 8)) * sizeof(bf16) +
-         (static_cast<size_t>(RW) * 16 * HD + RW * 256) * sizeof(float);
-}
-
-// K9: qn16 = bf16(q * inv) for every row of q and k, inv = 1 / sqrt(max(sum
-// q^2, 1e-24)) summed as normalize_rows sums; one warp per row. qn, kn have
-// q's layout; inv [2, rows] (q's rows, then k's).
+// K9's prepass: qn16 = bf16(q * inv) for every row of q and k, inv = 1 /
+// sqrt(max(sum q^2, 1e-24)) summed as normalize_rows sums; one warp per row.
+// qn, kn have q's layout; inv [2, rows] (q's rows, then k's).
 template <int HD>
 __global__ void normalize_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                  bf16* __restrict__ qn, bf16* __restrict__ kn,
@@ -160,426 +118,9 @@ __device__ __forceinline__ float dlogit(float z, float dp, float m, float sr, fl
 }
 
 // ---------------------------------------------------------------------------
-// K9's backward, the rows kernel: one block per (window, head) [blockIdx.x]
-// and 64 query rows [blockIdx.y]. q, k are the normalized qn16, kn16; qraw
-// and inv the raw q and the norms [2, Bw * heads * L] for the VJP. (K8's
-// large-head backward is streamed_bwd.cuh's.)
-// ---------------------------------------------------------------------------
-
-template <int HD, int LAYOUT, bool BIAS>
-__global__ void __launch_bounds__(RW * 32)
-    large_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ gout,
-                          const bf16* __restrict__ qraw, const float* __restrict__ inv,
-                          const float* __restrict__ scale, const float* __restrict__ bias,
-                          const float* __restrict__ mask, float bflag, bf16* __restrict__ dq,
-                          float* __restrict__ rstat, float* __restrict__ dscale_part,
-                          float* __restrict__ dbias_part, AttnGeo geo) {
-  constexpr int LDQ = HD + 8;
-  constexpr int NC = HD / DC;
-  constexpr int NFC = DC / 16;
-  constexpr int NF = HD / 16;
-  static_assert(LAYOUT == WINDOWED, "K8's large-head backward is streamed_bwd.cuh's");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LP = geo.LP;
-  const int L = geo.L;
-  const int LDP = LP + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // the block's query rows [RW * 16, LDQ]
-  bf16* gs = qs + RW * 16 * LDQ;              // their cotangent rows
-  bf16* ring = gs + RW * 16 * LDQ;            // two stages of (k tile, v tile)
-  bf16* rowbuf = ring + 4 * 16 * LDQ;         // dsb, 16 x LDP per warp
-  float* stage = reinterpret_cast<float*>(rowbuf + RW * 16 * LDP);  // dqn [16, HD] per warp
-  float* scratch = stage + RW * 16 * HD;
-  float* wsum = scratch + RW * 256;
-
-  const Tile t = tile_of_block(geo);
-  const int h = t.h;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  float* cs = scratch + warp * 256;
-  const int fr = lane >> 1;
-  const int fc = (lane & 1) * 8;
-  const int nkt = LP / 16;
-  const int row0 = blockIdx.y * RW * 16;
-  const bool active = row0 + warp * 16 < LP;  // this warp's 16 rows exist
-  const int qrow = row0 + warp * 16 + fr;
-  const bool qok = qrow < L;
-  const int win = window_index(geo, t);
-  const size_t wh_idx = static_cast<size_t>(win) * geo.heads + h;
-
-  load_rows<LAYOUT, HD>(qs, q, geo.ldq, geo, t, row0, RW * 16);
-  load_rows<LAYOUT, HD>(gs, gout, geo.ldo, geo, t, row0, RW * 16);
-  cp_async_commit();
-
-  auto load_kv = [&](int kt) {
-    bf16* st = ring + (kt & 1) * 2 * 16 * LDQ;
-    load_rows<LAYOUT, HD>(st, k, geo.ldk, geo, t, kt * 16, 16);
-    load_rows<LAYOUT, HD>(st + 16 * LDQ, v, geo.ldv, geo, t, kt * 16, 16);
-  };
-  auto acquire = [&](int kt) -> const bf16* {
-    if (kt == 0) {
-      load_kv(0);
-      cp_async_commit();
-    }
-    if (kt + 1 < nkt) load_kv(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    return ring + (kt & 1) * 2 * 16 * LDQ;
-  };
-
-  const float sc = scale[h];
-  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
-  const float* mk = (mask != nullptr && t.wr == geo.nwh - 1) ? mask : nullptr;
-  const bf16* qw = qs + warp * 16 * LDQ;
-  const bf16* gw = gs + warp * 16 * LDQ;
-  float s[8], z[8];
-  // s and z of the lane's 8 entries of the score tile against key tile kt
-  auto tile_logits = [&](const bf16* kb, int kt) {
-    Frag f;
-    dot_rows<HD>(f, qw, kb);
-    wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s[e] = cs[fr * 16 + fc + e];
-      z[e] = logit(s[e], qrow, kt * 16 + fc + e, L, sc, bh, mk, bflag);
-    }
-    __syncwarp();
-  };
-  auto tile_dp = [&](const bf16* kb) {  // dp = g v^T of the tile, into cs
-    Frag f;
-    dot_rows<HD>(f, gw, kb + 16 * LDQ);
-    wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  float m = -CUDART_INF_F;
-  for (int kt = 0; kt < nkt; ++kt) {  // sweep 1: row max
-    const bf16* kb = acquire(kt);
-    if (active) {
-      tile_logits(kb, kt);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) m = fmaxf(m, z[e]);
-    }
-    __syncthreads();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  float rowsum = 0.0f, u = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {  // sweep 2: row sum of e
-    const bf16* kb = acquire(kt);
-    if (active) {
-      tile_logits(kb, kt);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float ev = z[e] == -CUDART_INF_F ? 0.0f : expf(z[e] - m);
-        rowsum += ev;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-  const float sr = rowsum;  // p = e / sum e
-  {  // sweep 3: u = sum(dp p)
-    for (int kt = 0; kt < nkt; ++kt) {
-      const bf16* kb = acquire(kt);
-      if (active) {
-        tile_logits(kb, kt);
-        tile_dp(kb);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) u += cs[fr * 16 + fc + e] * prob<LAYOUT>(z[e], m, sr);
-        __syncwarp();
-      }
-      __syncthreads();
-    }
-  }
-  u += __shfl_xor_sync(0xffffffffu, u, 1);
-  if (active && (lane & 1) == 0) {
-    float* st = rstat + (wh_idx * LP + qrow) * 3;
-    st[0] = m;
-    st[1] = sr;
-    st[2] = u;
-  }
-
-  // ds sweep: bf16(ds * scale) into the row buffer, ds into the d(bias) rows
-  // (BIAS), and K9's d(scale) partial sum(ds * s)
-  bf16* pw = rowbuf + warp * 16 * LDP;
-  float* drow = BIAS && active ? dbias_part + (wh_idx * LP + qrow) * LP : nullptr;
-  float dsc = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const bf16* kb = acquire(kt);
-    if (active) {
-      tile_logits(kb, kt);
-      tile_dp(kb);
-      float ds[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        ds[e] = dlogit<LAYOUT>(z[e], cs[fr * 16 + fc + e], m, sr, u);
-        dsc += ds[e] * s[e];
-      }
-      store8(pw + fr * LDP + kt * 16 + fc, ds, [&](int, float d) { return d * sc; });
-      if constexpr (BIAS) {  // ds = 0 outside the window, so padded entries get 0
-        float4* dst = reinterpret_cast<float4*>(drow + kt * 16 + fc);
-        dst[0] = make_float4(ds[0], ds[1], ds[2], ds[3]);
-        dst[1] = make_float4(ds[4], ds[5], ds[6], ds[7]);
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  // dqn = dsb @ kn16, one head-dim chunk per sweep, into the fp32 staging tile
-  float* stw = stage + warp * 16 * HD;
-#pragma unroll 1
-  for (int ch = 0; ch < NC; ++ch) {
-    Frag acc[NFC];
-#pragma unroll
-    for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int kt = 0; kt < nkt; ++kt) {
-      const bf16* kb = acquire(kt);
-      if (active) {
-        FragA a;
-        wmma::load_matrix_sync(a, pw + kt * 16, LDP);
-#pragma unroll
-        for (int j = 0; j < NFC; ++j) {
-          FragB b;
-          wmma::load_matrix_sync(b, kb + ch * DC + j * 16, LDQ);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < NFC; ++j) {
-        wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
-      }
-    }
-  }
-  __syncwarp();
-
-  // <qn, dqn> of the row with the fp32 qn = q * inv_q
-  const float iq = qok ? inv[wh_idx * L + qrow] : 1.0f;
-  const bf16* qr = qok ? qraw + row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldq) : nullptr;
-  auto qn_at = [&](int d) -> float { return qok ? __bfloat162float(qr[d]) * iq : 0.0f; };
-  float qd = 0.0f;
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qd += qn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
-    }
-  }
-  qd += __shfl_xor_sync(0xffffffffu, qd, 1);
-  if (active && qok) {
-    const size_t off = row_offset<LAYOUT, HD>(geo, t, qrow, geo.ldo);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      store8(dq + off + j * 16 + fc, stw + fr * HD + j * 16 + fc,
-             [&](int e, float dqn) { return (dqn - qn_at(j * 16 + fc + e) * qd) * iq; });
-    }
-  }
-  // this block's d(scale) partial: sum(ds * s); fixed order
-  float part = active ? dsc : 0.0f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-  if (lane == 0) wsum[warp] = part;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.0f;
-    for (int i = 0; i < RW; ++i) total += wsum[i];
-    dscale_part[(static_cast<size_t>(win) * gridDim.y + blockIdx.y) * geo.heads + h] = total;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K9's backward, the columns kernel: one block per (window, head)
-// [blockIdx.x] and 64 key rows [blockIdx.y]; the row statistics from the
-// rows kernel.
-// ---------------------------------------------------------------------------
-
-template <int HD, int LAYOUT, bool BIAS>
-__global__ void __launch_bounds__(RW * 32)
-    large_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ gout,
-                          const bf16* __restrict__ kraw, const float* __restrict__ inv,
-                          const float* __restrict__ scale, const float* __restrict__ bias,
-                          const float* __restrict__ mask, float bflag,
-                          const float* __restrict__ rstat, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, AttnGeo geo) {
-  constexpr int LDQ = HD + 8;
-  constexpr int NC = HD / DC;
-  constexpr int NFC = DC / 16;
-  constexpr int NF = HD / 16;
-  static_assert(LAYOUT == WINDOWED, "K8's large-head backward is streamed_bwd.cuh's");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LP = geo.LP;
-  const int L = geo.L;
-  const int LDP = LP + 8;
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's key rows [RW * 16, LDQ]
-  bf16* vs = ks + RW * 16 * LDQ;             // their value rows
-  bf16* ring = vs + RW * 16 * LDQ;           // two stages of (q tile, g tile)
-  bf16* pbuf = ring + 4 * 16 * LDQ;          // p16^T [key][query], 16 x LDP per warp
-  bf16* dsbuf = pbuf + RW * 16 * LDP;        // dsb^T [key][query]
-  float* stage = reinterpret_cast<float*>(dsbuf + RW * 16 * LDP);  // dkn [16, HD] per warp
-  float* scratch = stage + RW * 16 * HD;
-
-  const Tile t = tile_of_block(geo);
-  const int h = t.h;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* cs = scratch + warp * 256;
-  const int fr = lane >> 1;
-  const int fc = (lane & 1) * 8;
-  const int nqt = LP / 16;
-  const int row0 = blockIdx.y * RW * 16;
-  const bool active = row0 + warp * 16 < LP;
-  const int krow = row0 + warp * 16 + fr;
-  const bool kok = krow < L;
-  const size_t wh_idx = static_cast<size_t>(window_index(geo, t)) * geo.heads + h;
-  const float* rs = rstat + wh_idx * LP * 3;
-
-  load_rows<LAYOUT, HD>(ks, k, geo.ldk, geo, t, row0, RW * 16);
-  load_rows<LAYOUT, HD>(vs, v, geo.ldv, geo, t, row0, RW * 16);
-  cp_async_commit();
-
-  auto load_qg = [&](int qt) {
-    bf16* st = ring + (qt & 1) * 2 * 16 * LDQ;
-    load_rows<LAYOUT, HD>(st, q, geo.ldq, geo, t, qt * 16, 16);
-    load_rows<LAYOUT, HD>(st + 16 * LDQ, gout, geo.ldo, geo, t, qt * 16, 16);
-  };
-  auto acquire = [&](int qt) -> const bf16* {
-    if (qt == 0) {
-      load_qg(0);
-      cp_async_commit();
-    }
-    if (qt + 1 < nqt) load_qg(qt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    return ring + (qt & 1) * 2 * 16 * LDQ;
-  };
-
-  const float sc = scale[h];
-  const float* bh = BIAS ? bias + static_cast<size_t>(h) * L * L : nullptr;
-  const float* mk = (mask != nullptr && t.wr == geo.nwh - 1) ? mask : nullptr;
-  const bf16* kw = ks + warp * 16 * LDQ;
-  const bf16* vw = vs + warp * 16 * LDQ;
-  bf16* pt = pbuf + warp * 16 * LDP;
-  bf16* dt = dsbuf + warp * 16 * LDP;
-
-  // one sweep over the query tiles: p16^T and dsb^T rows from the row stats
-  for (int qt = 0; qt < nqt; ++qt) {
-    const bf16* qb = acquire(qt);
-    if (active) {
-      Frag f;
-      dot_rows<HD>(f, kw, qb);  // s^T [key][query]
-      wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
-      __syncwarp();
-      float z[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {  // query and key swap places in the lookups
-        z[e] = logit(cs[fr * 16 + fc + e], qt * 16 + fc + e, krow, L, sc, bh, mk, bflag);
-      }
-      __syncwarp();
-      dot_rows<HD>(f, vw, qb + 16 * LDQ);  // dp^T [key][query] = v g^T
-      wmma::store_matrix_sync(cs, f, 16, wmma::mem_row_major);
-      __syncwarp();
-      float p[8], ds[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float* st = rs + (qt * 16 + fc + e) * 3;
-        p[e] = prob<LAYOUT>(z[e], st[0], st[1]);
-        ds[e] = dlogit<LAYOUT>(z[e], cs[fr * 16 + fc + e], st[0], st[1], st[2]);
-      }
-      store8(pt + fr * LDP + qt * 16 + fc, p, [](int, float a) { return a; });
-      store8(dt + fr * LDP + qt * 16 + fc, ds, [&](int, float d) { return d * sc; });
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  const size_t koff = kok ? row_offset<LAYOUT, HD>(geo, t, krow, geo.ldo) : 0;
-  float* stw = stage + warp * 16 * HD;
-  // role 0: dv = p16^T @ g16, written as it leaves; role 1: dkn = dsb^T @ qn16
-  // (K8 written as it leaves, K9 staged for the normalization VJP)
-#pragma unroll 1
-  for (int role = 0; role < 2; ++role) {
-#pragma unroll 1
-    for (int ch = 0; ch < NC; ++ch) {
-      Frag acc[NFC];
-#pragma unroll
-      for (int j = 0; j < NFC; ++j) wmma::fill_fragment(acc[j], 0.0f);
-      for (int qt = 0; qt < nqt; ++qt) {
-        const bf16* qb = acquire(qt);
-        if (active) {
-          FragA a;
-          wmma::load_matrix_sync(a, (role == 0 ? pt : dt) + qt * 16, LDP);
-          const bf16* bsrc = role == 0 ? qb + 16 * LDQ : qb;
-#pragma unroll
-          for (int j = 0; j < NFC; ++j) {
-            FragB b;
-            wmma::load_matrix_sync(b, bsrc + ch * DC + j * 16, LDQ);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-        __syncthreads();
-      }
-      if (active) {
-        if (role == 1) {
-#pragma unroll
-          for (int j = 0; j < NFC; ++j) {
-            wmma::store_matrix_sync(stw + ch * DC + j * 16, acc[j], HD, wmma::mem_row_major);
-          }
-        } else {
-          bf16* dst = role == 0 ? dv : dk;
-#pragma unroll
-          for (int j = 0; j < NFC; ++j) {
-            wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-            __syncwarp();
-            if (kok) {
-              store8(dst + koff + ch * DC + j * 16 + fc, cs + fr * 16 + fc,
-                     [](int, float a) { return a; });
-            }
-            __syncwarp();
-          }
-        }
-      }
-    }
-  }
-  {  // dk = (dkn - kn <kn, dkn>) inv_k with the fp32 kn
-    __syncwarp();
-    const float ik = kok ? inv[(geo.B * geo.nwh * geo.nww * static_cast<size_t>(geo.heads) +
-                                wh_idx) * L + krow] : 1.0f;
-    const bf16* kr = kok ? kraw + row_offset<LAYOUT, HD>(geo, t, krow, geo.ldk) : nullptr;
-    auto kn_at = [&](int d) -> float { return kok ? __bfloat162float(kr[d]) * ik : 0.0f; };
-    float kd = 0.0f;
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kd += kn_at(j * 16 + fc + e) * stw[fr * HD + j * 16 + fc + e];
-      }
-    }
-    kd += __shfl_xor_sync(0xffffffffu, kd, 1);
-    if (active && kok) {
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        store8(dk + koff + j * 16 + fc, stw + fr * HD + j * 16 + fc,
-               [&](int e, float dkn) { return (dkn - kn_at(j * 16 + fc + e) * kd) * ik; });
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward at any L, the chunked form, both layouts: K9's kernels above keep,
-// per warp, a row of dsb (p16^T and dsb^T) as long as the window, so their
-// shared memory grows with L (past L = 256, and at head dim 256 from L = 225
-// on, none fits). These keep one 16 x 16 tile of it per warp: each key
+// backward at any L, the chunked form, both layouts: where a per-warp row of
+// dsb (p16^T and dsb^T) as long as the window would not fit (past L = 256),
+// these keep one 16 x 16 tile of it per warp: each key
 // (query) tile's dsb (or p16) is formed into the warp's tile and multiplied
 // at once into an fp32 [16, HD] accumulator in shared memory
 // (accumulate_tile, in tile order). Rows: the statistics sweeps (the row
@@ -749,7 +290,8 @@ __global__ void __launch_bounds__(RW * 32, 1)
     }
   }
 
-  // <qn, dqn> of the row and dq, as large_bwd_rows_kernel's
+  // <qn, dqn> of the row and dq: K8 with the stored qn16; K9 with the fp32
+  // qn = q * inv_q from the raw row
   constexpr bool NORM_IN = LAYOUT == WINDOWED;
   const float iq = (NORM_IN && qok) ? inv[wh_idx * L + qrow] : 1.0f;
   const bf16* qr =
@@ -956,7 +498,7 @@ __global__ void __launch_bounds__(RW * 32, 1)
 // ---------------------------------------------------------------------------
 
 struct LargeBwdArgs {
-  const void *q, *k, *v, *scale, *bias, *mask;  // q, k normalized (K9: the scratch copies)
+  const void *q, *k, *v, *scale, *bias, *mask;  // q, k normalized (K9: the prepass's copies)
   float bflag;
   const void *g, *qraw, *kraw, *inv;  // qraw, kraw, inv: K9 only
   void *dq, *dk, *dv, *rstat, *dscale_part, *dbias_part, *dscale, *dbias;
@@ -987,7 +529,8 @@ inline int reduce_partials(const LargeBwdArgs& a, const AttnGeo& geo, int nchunk
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9: the scratch copies qn16, kn16 and the norms inv [2, Bw * heads * L]
+// K9's prepass: the scratch copies qn16, kn16 and the norms inv [2, Bw *
+// heads * L] (q's rows, then k's)
 template <int HD>
 int normalize_qk(const void* q, const void* k, void* qn, void* kn, void* inv, const AttnGeo& g,
               cudaStream_t s) {
@@ -998,41 +541,21 @@ int normalize_qk(const void* q, const void* k, void* qn, void* kn, void* inv, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// The rows and columns kernels: the large-head ones, or the chunked ones.
-template <int HD, int LAYOUT, bool BIAS, bool CHUNKED>
-auto rows_kernel() {
-  if constexpr (CHUNKED) {
-    return &chunk_bwd_rows_kernel<HD, LAYOUT, BIAS>;
-  } else {
-    return &large_bwd_rows_kernel<HD, LAYOUT, BIAS>;
-  }
-}
-
-template <int HD, int LAYOUT, bool BIAS, bool CHUNKED>
-auto cols_kernel() {
-  if constexpr (CHUNKED) {
-    return &chunk_bwd_cols_kernel<HD, LAYOUT, BIAS>;
-  } else {
-    return &large_bwd_cols_kernel<HD, LAYOUT, BIAS>;
-  }
-}
-
-template <int HD, int LAYOUT, bool BIAS, bool CHUNKED>
-int launch_large_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) {
+template <int HD, int LAYOUT, bool BIAS>
+int launch_chunked_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) {
   unsigned blocks;
   int code = n_blocks(geo, &blocks);
   if (code != 0) return code;
-  const size_t rows_smem = CHUNKED ? chunk_smem_bytes<HD>() : rows_smem_bytes<HD>(geo.LP);
-  const size_t cols_smem = CHUNKED ? chunk_smem_bytes<HD>() : cols_smem_bytes<HD>(geo.LP);
-  const auto rows = rows_kernel<HD, LAYOUT, BIAS, CHUNKED>();
-  const auto cols = cols_kernel<HD, LAYOUT, BIAS, CHUNKED>();
-  code = set_smem(rows, rows_smem);
+  const size_t smem = chunk_smem_bytes<HD>();
+  const auto rows = &chunk_bwd_rows_kernel<HD, LAYOUT, BIAS>;
+  const auto cols = &chunk_bwd_cols_kernel<HD, LAYOUT, BIAS>;
+  code = set_smem(rows, smem);
   if (code != 0) return code;
-  code = set_smem(cols, cols_smem);
+  code = set_smem(cols, smem);
   if (code != 0) return code;
   const int nchunks = (geo.LP / 16 + RW - 1) / RW;
   const dim3 grid(blocks, nchunks);
-  rows<<<grid, RW * 32, rows_smem, s>>>(
+  rows<<<grid, RW * 32, smem, s>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
       static_cast<const bf16*>(a.qraw), static_cast<const float*>(a.inv),
@@ -1042,7 +565,7 @@ int launch_large_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) 
       static_cast<float*>(a.dbias_part), geo);
   code = static_cast<int>(cudaGetLastError());
   if (code != 0) return code;
-  cols<<<grid, RW * 32, cols_smem, s>>>(
+  cols<<<grid, RW * 32, smem, s>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
       static_cast<const bf16*>(a.kraw), static_cast<const float*>(a.inv),
@@ -1054,37 +577,30 @@ int launch_large_bwd(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) 
   return reduce_partials(a, geo, nchunks, LAYOUT == GRID, s);
 }
 
-template <int HD, int LAYOUT, bool CHUNKED>
-int launch_either(bool bias, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
-  return bias ? launch_large_bwd<HD, LAYOUT, true, CHUNKED>(a, g, s)
-              : launch_large_bwd<HD, LAYOUT, false, CHUNKED>(a, g, s);
+template <int HD, int LAYOUT>
+int launch_chunked_either(bool bias, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
+  return bias ? launch_chunked_bwd<HD, LAYOUT, true>(a, g, s)
+              : launch_chunked_bwd<HD, LAYOUT, false>(a, g, s);
 }
 
-// K9's large-head backward (head dims 128 and 256, L <= 256) or, CHUNKED,
-// the chunked one of either layout (head dims 32-256, any L).
-template <int LAYOUT, bool CHUNKED = false>
-int dispatch_large_bwd(int hd, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
+// The chunked backward of either layout (head dims 32-256, any L).
+template <int LAYOUT>
+int dispatch_chunked_bwd(int hd, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
   const bool bias = a.bias != nullptr;
-  if ((!CHUNKED && g.LP > MAX_LP) || (bias && (a.dbias_part == nullptr || a.dbias == nullptr))) {
+  if (bias && (a.dbias_part == nullptr || a.dbias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (CHUNKED) {
-    switch (hd) {
-      case 32:
-        return launch_either<32, LAYOUT, true>(bias, a, g, s);
-      case 64:
-        return launch_either<64, LAYOUT, true>(bias, a, g, s);
-      case 96:
-        return launch_either<96, LAYOUT, true>(bias, a, g, s);
-      default:
-        break;
-    }
-  }
   switch (hd) {
+    case 32:
+      return launch_chunked_either<32, LAYOUT>(bias, a, g, s);
+    case 64:
+      return launch_chunked_either<64, LAYOUT>(bias, a, g, s);
+    case 96:
+      return launch_chunked_either<96, LAYOUT>(bias, a, g, s);
     case 128:
-      return launch_either<128, LAYOUT, CHUNKED>(bias, a, g, s);
+      return launch_chunked_either<128, LAYOUT>(bias, a, g, s);
     case 256:
-      return launch_either<256, LAYOUT, CHUNKED>(bias, a, g, s);
+      return launch_chunked_either<256, LAYOUT>(bias, a, g, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,10 +1,12 @@
-// The large-head window-attention backward, streamed, hand-written for
-// Hopper (sm_90a): one template for the qkv-fused family's backward (K2,
-// its K7 CPB-bias instance and K12's v5/v4 instances;
-// window_attention_qkv_large.cu) and the grid route's (K8 with its BIAS
-// instance; window_attention_grid_large.cu) at head dims 128 and 256, L <=
-// 256, where the one-block backwards do not fit shared memory. The softmax
-// form (FORM) and the layout of the token rows are its parameters.
+// The window-attention backward, streamed, hand-written for Hopper (sm_90a):
+// one template for the qkv-fused family's backward (K2, its K7 CPB-bias
+// instance and K12's v5/v4 instances; window_attention_qkv_large.cu) and
+// the grid route's (K8 with its BIAS instance; window_attention_grid_large.cu)
+// at head dims 128 and 256, L <= 256, where the one-block backwards do not
+// fit shared memory, and for the windowed route's (K9 with its BIAS
+// instance; window_attention_v1_large.cu) at every head dim 32-256, L <= 256.
+// The softmax form (FORM) and the layout of the token rows are its
+// parameters.
 //
 // Replaces, at those shapes, the TPU kernels of
 // swin_v2_weather_tpu/ops/window_attention.py:
@@ -13,7 +15,9 @@
 //       _make_qkv5_bwd_kernel / _qkv5_backward, _make_qkv4_bwd_kernel /
 //       _qkv4_backward): the attention part of the backward, after the
 //       recomputed projection (window_attention_qkv_large.cu);
-//   K8  _make_grid_bwd_kernel / _grid_backward.
+//   K8  _make_grid_bwd_kernel / _grid_backward;
+//   K9  _make_v1_bwd_kernel / _v1_backward, after a prepass that writes qn16,
+//       kn16 and the norms (qkv_attention_large.cuh normalize_qk).
 //
 // What bounds it on this card: bytes. At the e2048 train steps' shape (T =
 // 16200 tokens, 8 heads of 256, L = 162) the pass reads q, k, v and g and
@@ -27,7 +31,10 @@
 // give the same bits.
 //  * Blocks of up to RT_MAX = 4 16-row tiles of one (window, head), two
 //    warps a tile (8 warps; one block an SM at head dim 256, where the
-//    registers and shared memory allow no second). The tiles of
+//    registers and shared memory allow no second; K9's columns kernel at
+//    head dims up to 128 is held to 128 registers, two blocks an SM, which
+//    cut it by a third at head dims 96 and 128 with nothing spilled; its
+//    rows kernel, which keeps z and dp, spills at 128). The tiles of
 //    a (window, head) are split evenly over adjacent blocks, then heads,
 //    then windows, so the streamed side comes from device memory once and
 //    from L2 after. The block's own rows (q and g; k and v) are staged once;
@@ -45,22 +52,31 @@
 //    dv and dk, 128).
 //  * Rows kernel: the row statistics, each warp over its keys, merged over
 //    the quad and then the pair (warp 0's then warp 1's): K8 the row max,
-//    then the sum of e = exp(z - m) and u = sum(dp e); the qkv-fused
-//    family's max-free softmax the sum and u alone. Up to L = KEEP_L = 192
-//    (every configuration of the repo) the first sweep (k and v tiles) keeps
-//    z and dp of the warp's keys in registers (6 steps: 96 a lane), the
-//    statistics follow from them, and a second sweep (k tiles only) forms ds
-//    from them: 3 score-sized products a (query, key) tile pair. Longer
-//    windows recompute z and dp in a sweep per statistic (K8 three sweeps,
-//    the qkv-fused family two). The statistics go to a small workspace for
-//    the columns kernel. The ds sweep forms ds, its d(bias) entries (BIAS)
-//    and dqn += dsb @ kn16; then qd = <qn, dqn>, and the qkv-fused family's
-//    dq = (dqn - qn qd) inv_q (K8 returns dqn), and the block's d(scale)
-//    partial, the sum of qd over its rows.
-//  * Columns kernel: one sweep over the queries: s^T and dp^T, p16^T =
-//    bf16(e r)^T and dsb^T from the stored statistics, dv += p16^T @ g16 and
-//    dkn += dsb^T @ qn16; the qkv-fused family's dk = (dkn - kn kd) inv_k
-//    (K8 returns dkn).
+//    then the sum of e = exp(z - m) and u = sum(dp e); K9 the row max, the
+//    sum of e, then u = sum(dp p) with p = e / sum e; the qkv-fused family's
+//    max-free softmax the sum and u alone. Up to L = KEEP_L = 192 (every
+//    configuration of the repo) the first sweep (k and v tiles) keeps z and
+//    dp of the warp's keys in registers (6 steps: 96 a lane), the statistics
+//    follow from them (K9's p replaces e there), and a second sweep (k tiles
+//    only) forms ds from them: 3 score-sized products a (query, key) tile
+//    pair. Longer windows recompute z and dp in a sweep per statistic (K8
+//    three sweeps, K9 four, the qkv-fused family two). The statistics go to
+//    a small workspace for the columns kernel. The ds sweep forms ds, its
+//    d(bias) entries (BIAS) and dqn += dsb @ kn16; then qd = <qn, dqn>, and
+//    the qkv-fused family's and K9's dq = (dqn - qn qd) inv_q (K8 returns
+//    dqn), and (K2's family, K8) the block's d(scale) partial, the sum of qd
+//    over its rows.
+//  * Columns kernel: one sweep over the queries: s^T and dp^T, p16^T and
+//    dsb^T from the stored statistics, dv += p16^T @ g16 and dkn += dsb^T @
+//    qn16; the qkv-fused family's and K9's dk = (dkn - kn kd) inv_k (K8
+//    returns dkn). K9's d(scale) = sum(ds s) needs s before the scale and the
+//    bias, which the rows kernel no longer holds once z replaced it; the
+//    columns kernel has s^T in its registers anyway, so the block's d(scale)
+//    partial (its keys against every query) is taken there.
+//  * Token rows: the grid's pixels (K2's family, K8; a table of the window's
+//    L pixel rows in shared memory), v4's window-major rows (the same table)
+//    or K9's contiguous [L, HD] slab of each (window, head) in [Bw, heads,
+//    L, HD] tensors (row l of the slab; no table, no head offset).
 //
 // Rounding sites (the TPU kernels' contracts):
 //   FORM_QKV (K2, K7, K12): q, k normalized by the recomputed projection's
@@ -77,9 +93,17 @@
 //     (dp - u r) e r (d(bias) = ds), dsb = bf16(ds scale); dqn, dkn leave in
 //     bf16; d(scale) partial = sum of <qn16, dqn> (divided by scale in the
 //     reduction).
+//   FORM_V1 (K9): qn16, kn16 and inv from the prepass (qn = q inv in fp32,
+//     inv = 1 / sqrt(max(sum q^2, 1e-24))); z = fl(s scale) (+ bias) (+ mask
+//     on the last window row), m = max z, e = exp(z - m), p = e / sum e (the
+//     correctly rounded quotient, as the K9 forward's), u = sum(dp p) with p
+//     in fp32, p16 = bf16(p); ds = p (dp - u) (d(bias) = ds), dsb = bf16(ds
+//     scale); d(scale) partial = sum(ds s) over the block's keys; qd = <qn,
+//     dqn> with the fp32 qn = q inv_q from the raw row, dq = (dqn - qn qd)
+//     inv_q, likewise dk.
 // Only the order of fp32 sums differs from the plain versions (the row
-// statistics per lane, quad and pair; qd per half of the head dim).
-
+// statistics per lane, quad and pair; qd per half of the head dim; K9's
+// d(scale) per lane, warp and key block).
 #pragma once
 
 #include <math_constants.h>
@@ -92,6 +116,9 @@ using namespace swin_attn;
 
 constexpr int FORM_QKV = 0;   // K2's family: max-free softmax, the normalization VJP inside
 constexpr int FORM_GRID = 1;  // K8: the row max subtracted, dqn and dkn returned as they are
+// K9: the row max subtracted, p = e / sum e, the normalization VJP inside on
+// the raw rows; token rows are the [L, HD] slabs of [Bw, heads, L, HD]
+constexpr int FORM_V1 = 2;
 
 constexpr int RT_MAX = 4;  // 16-row tiles a block, two warps each
 constexpr int STEP = 32;   // streamed rows a step, 16 a warp of the pair
@@ -108,14 +135,17 @@ struct Geo {
 };
 
 struct Args {
-  const bf16 *q, *k, *v, *g;  // column 0 of token row 0 (head h at + h * HD)
+  const bf16 *q, *k, *v, *g;  // column 0 of token row 0 (head h at + h * HD; FORM_V1: row 0)
   int ldq, ldk, ldv, ldg;     // token row strides (elements)
   bf16 *dq, *dk, *dv;         // the outputs, likewise (v4: dq and dk hold the raw rows first)
   int ldd;
   const float *scale, *bias, *mask;  // bias [heads, L, L] (BIAS), mask [L, L] or null
   float bflag;
-  const float* inv;  // FORM_QKV: [T, 2, heads] 1 / |q| and 1 / |k| of each token row
+  // 1 / |q| and 1 / |k| of each token row: FORM_QKV [T, 2, heads]; FORM_V1
+  // [2, Bw * heads * L] (q's rows, then k's, in slab-row order)
+  const float* inv;
   float *rstat, *dscale_part, *dbias_part;
+  const bf16 *qr, *kr;  // FORM_V1: the raw q and k (q is then qn16, k kn16), layout of q
 };
 
 // The launch at LP = L rounded up to 16: rt tiles a block, nchunk blocks a
@@ -143,16 +173,21 @@ size_t tile_bytes(int rt) {
 
 // rows kernel: + the pairs' ds fragments [rt][2][32] uint4, their row
 // statistics [rt][2][16][4] fp32, the d(scale) sums [8] and the token table
-template <int HD>
+// (none for FORM_V1's slabs)
+template <int HD, int FORM>
 size_t rows_smem(int rt, int LS) {
-  return tile_bytes<HD>(rt) + rt * 64 * 16 + rt * 128 * 4 + 32 + words16(LS);
+  return tile_bytes<HD>(rt) + rt * 64 * 16 + rt * 128 * 4 + 32 +
+         (FORM == FORM_V1 ? 0 : words16(LS));
 }
 
 // columns kernel: + the p and ds fragments [rt][2][2][32] uint4, the row
-// exchange [rt][2][16][4], the window's row statistics [LP][NST] and the table
-template <int HD, int NST>
+// exchange [rt][2][16][4], the window's row statistics [LP][NST] and the
+// table (FORM_V1: the d(scale) sums [8] in its place)
+template <int HD, int FORM>
 size_t cols_smem(int rt, int LP, int LS) {
-  return tile_bytes<HD>(rt) + rt * 128 * 16 + rt * 128 * 4 + words16(LP * NST) + words16(LS);
+  constexpr int NST = FORM == FORM_QKV ? 2 : 3;
+  return tile_bytes<HD>(rt) + rt * 128 * 16 + rt * 128 * 4 + words16(LP * NST) +
+         (FORM == FORM_V1 ? 32 : words16(LS));
 }
 
 // block -> (row chunk, head, window): the chunks of a (window, head)
@@ -181,9 +216,10 @@ __device__ __forceinline__ int token_row(const Geo& g, const Tile& t, int l) {
   return (t.bi * g.H + t.wr * g.wh + l / g.ww) * g.W + t.wc * g.ww + l % g.ww;
 }
 
-// window rows row0 .. row0 + nrows - 1 of src (the head's column 0) into dst
-// (pitch HD + 8) by cp.async, rows >= LS zero-filled; the caller commits
-template <int HD>
+// window rows row0 .. row0 + nrows - 1 of src (the head's column 0; SLAB:
+// the slab's row 0, row l at l * ld) into dst (pitch HD + 8) by cp.async,
+// rows >= LS zero-filled; the caller commits
+template <int HD, bool SLAB>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int ld,
                                            const int* tok, int LS, int row0, int nrows) {
   constexpr int LDQ = HD + 8;
@@ -193,7 +229,8 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
     const int c = (idx % CH) * 8;
     const int l = row0 + r;
     const bool ok = l < LS;
-    cp_async16(dst + r * LDQ + c, src + (ok ? static_cast<size_t>(tok[l]) * ld + c : 0), ok);
+    const size_t row = SLAB ? static_cast<size_t>(l) : static_cast<size_t>(ok ? tok[l] : 0);
+    cp_async16(dst + r * LDQ + c, src + (ok ? row * ld + c : 0), ok);
   }
 }
 
@@ -249,10 +286,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int LDQ = HD + 8;
   constexpr int DW = HD / 2;  // columns of dqn a warp holds
   constexpr int NO = DW / 8;  // its n8 tiles
-  constexpr bool MAXSUB = FORM == FORM_GRID;
-  constexpr int NSW = MAXSUB ? 3 : 2;  // sweeps over the keys without KEEP
-  constexpr int KST = KEEP_L / STEP;   // steps KEEP holds
-  constexpr int NST = MAXSUB ? 3 : 2;  // statistics stored a row: (m,) r, u
+  constexpr bool V1 = FORM == FORM_V1;
+  constexpr bool MAXSUB = FORM != FORM_QKV;
+  constexpr int NSW = V1 ? 4 : MAXSUB ? 3 : 2;  // sweeps over the keys without KEEP
+  constexpr int KST = KEEP_L / STEP;            // steps KEEP holds
+  constexpr int NST = MAXSUB ? 3 : 2;  // statistics stored a row: (m,) r (K9: sum e), u
   constexpr int STAGE = 2 * STEP * LDQ;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // the block's query rows [rt * 16, LDQ]
@@ -261,12 +299,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint4* xfrag = reinterpret_cast<uint4*>(ring + NS * STAGE);  // [rt][2][32] ds fragments
   float* xstat = reinterpret_cast<float*>(xfrag + rt * 64);     // [rt][2][16][4]
   float* wsum = xstat + rt * 128;                               // [8]
-  int* tok = reinterpret_cast<int*>(wsum + 8);                  // [LS] token rows
+  int* tok = reinterpret_cast<int*>(wsum + 8);                  // [LS] token rows (not K9)
 
   int chunk;
   const Tile t = decode_block(g, nchunk, chunk);
   const int win = window_of(g, t);
   const size_t wh = static_cast<size_t>(win) * g.heads + t.h;
+  const size_t slab = wh * g.L;  // K9: the (window, head)'s first token row
   const int L = g.L;
   const int LP = g.LP;
   const int LS = g.LS;
@@ -282,21 +321,24 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int qr[2] = {q0 + g4, q0 + g4 + 8};  // the lane's query rows
   const int nsteps = (L + STEP - 1) / STEP;
   const int nitems = (KEEP ? 2 : NSW) * nsteps;
-  const size_t hoff = static_cast<size_t>(t.h) * HD;
+  // the head's column 0 of token row 0, or K9's slab row 0
+  const size_t hoff = V1 ? slab * HD : static_cast<size_t>(t.h) * HD;
 
-  for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
-  __syncthreads();
-  stage_rows<HD>(qs, a.q + hoff, a.ldq, tok, LS, row0, rt * 16);
-  stage_rows<HD>(gs, a.g + hoff, a.ldg, tok, LS, row0, rt * 16);
+  if constexpr (!V1) {
+    for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
+    __syncthreads();
+  }
+  stage_rows<HD, V1>(qs, a.q + hoff, a.ldq, tok, LS, row0, rt * 16);
+  stage_rows<HD, V1>(gs, a.g + hoff, a.ldg, tok, LS, row0, rt * 16);
   // item i: step i % nsteps of sweep i / nsteps (v: KEEP's first sweep, else
-  // every sweep but K8's first)
+  // the last two sweeps: K8's sums and ds, K9's u and ds; K2's family both)
   auto load_item = [&](int i) {
     if (i < nitems) {
       const int st = i % nsteps;
       bf16* dst = ring + (i % NS) * STAGE;
-      stage_rows<HD>(dst, a.k + hoff, a.ldk, tok, LS, st * STEP, STEP);
-      if (KEEP ? i < nsteps : (!MAXSUB || i >= nsteps)) {
-        stage_rows<HD>(dst + STEP * LDQ, a.v + hoff, a.ldv, tok, LS, st * STEP, STEP);
+      stage_rows<HD, V1>(dst, a.k + hoff, a.ldk, tok, LS, st * STEP, STEP);
+      if (KEEP ? i < nsteps : i >= (NSW - 2) * nsteps) {
+        stage_rows<HD, V1>(dst + STEP * LDQ, a.v + hoff, a.ldv, tok, LS, st * STEP, STEP);
       }
     }
     cp_async_commit();  // (an empty group past the end keeps the count)
@@ -361,6 +403,31 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int x = 0; x < 4; ++x) z[n][x] = z[n][x] == -CUDART_INF_F ? 0.0f : expf(z[n][x] - m[x >> 1]);
     }
   };
+  // K9: p = e / sum e in place, the correctly rounded quotient (0 on padded
+  // rows, whose e and sum are 0)
+  auto probs = [&](float (&e)[2][4]) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        e[n][x] = l[x >> 1] > 0.0f ? __fdiv_rn(e[n][x], l[x >> 1]) : 0.0f;
+      }
+    }
+  };
+  auto add_l = [&](const float (&e)[2][4]) {  // K9's first sum: e alone
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) l[x >> 1] += e[n][x];
+    }
+  };
+  auto add_u = [&](const float (&p)[2][4], const float (&dp)[2][4]) {  // K9's u = sum(dp p)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) u[x >> 1] += dp[n][x] * p[n][x];
+    }
+  };
   auto add_sums = [&](const float (&e)[2][4], const float (&dp)[2][4]) {
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
@@ -378,47 +445,50 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int x = 0; x < 4; ++x) m[x >> 1] = fmaxf(m[x >> 1], z[n][x]);
     }
   };
-  // the rows' max (sums: the sum of e and u, then r, stored for the columns
-  // kernel) over the quad's lanes, then the pair (warp 0's, warp 1's)
-  auto merge = [&](bool sums) {
+  // a statistic of the rows over the quad's lanes, then the pair (warp 0's,
+  // warp 1's): kind 0 the max; 1 the sums (the sum of e and u, then r; K9
+  // the sum of e alone); 2 K9's u. The last one stores the row's statistics
+  // for the columns kernel. Each exchange slot is written once a kernel.
+  auto merge = [&](int kind) {
+    const bool with_l = kind == 1, with_u = V1 ? kind == 2 : kind == 1;
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
 #pragma unroll
       for (int o = 1; o <= 2; o <<= 1) {
-        if (!sums) {
+        if (kind == 0) {
           m[y] = fmaxf(m[y], __shfl_xor_sync(0xffffffffu, m[y], o));
         } else {
-          l[y] += __shfl_xor_sync(0xffffffffu, l[y], o);
-          u[y] += __shfl_xor_sync(0xffffffffu, u[y], o);
+          if (with_l) l[y] += __shfl_xor_sync(0xffffffffu, l[y], o);
+          if (with_u) u[y] += __shfl_xor_sync(0xffffffffu, u[y], o);
         }
       }
       if ((lane & 3) == 0) {
-        smine[32 * y] = m[y];
-        smine[32 * y + 1] = l[y];
-        smine[32 * y + 2] = u[y];
+        if (kind == 0) smine[32 * y] = m[y];
+        if (with_l) smine[32 * y + 1] = l[y];
+        if (with_u) smine[32 * y + 2] = u[y];
       }
     }
     pair_sync(wt);
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
-      if (!sums) {
+      if (kind == 0) {
         m[y] = fmaxf(spair[32 * y], spair[64 + 32 * y]);
       } else {
-        l[y] = spair[32 * y + 1] + spair[64 + 32 * y + 1];
-        u[y] = spair[32 * y + 2] + spair[64 + 32 * y + 2];
-        r[y] = l[y] > 0.0f ? 1.0f / l[y] : 0.0f;  // padded rows: e = 0 throughout
-        if (hf == 0 && (lane & 3) == 0) {
+        if (with_l) l[y] = spair[32 * y + 1] + spair[64 + 32 * y + 1];
+        if (with_u) u[y] = spair[32 * y + 2] + spair[64 + 32 * y + 2];
+        if (!V1) r[y] = l[y] > 0.0f ? 1.0f / l[y] : 0.0f;  // padded rows: e = 0 throughout
+        if (with_u && hf == 0 && (lane & 3) == 0) {
           float* rs = a.rstat + (wh * LP + qr[y]) * NST;
           if constexpr (MAXSUB) rs[0] = m[y];
-          rs[NST - 2] = r[y];
+          rs[NST - 2] = V1 ? l[y] : r[y];
           rs[NST - 1] = u[y];
         }
       }
     }
   };
-  // step st of the ds sweep: ds = (dp - u r) e r (scale), its d(bias)
-  // entries, dsb swapped with the pair, then dqn += dsb @ kn16 over the
-  // step's keys in order, this warp's columns
+  // step st of the ds sweep: ds = (dp - u r) e r (scale) (K9: p (dp - u)),
+  // its d(bias) entries, dsb swapped with the pair, then dqn += dsb @ kn16
+  // over the step's keys in order, this warp's columns
   auto ds_step = [&](const float (&e)[2][4], float (&dp)[2][4], const bf16* kst, int st) {
     const int kb = st * STEP + hf * 16;
     float ds[2][4];  // the values dsb rounds
@@ -431,6 +501,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         if constexpr (FORM == FORM_QKV) {
           ds[n][x] = (dp[n][x] - u[y] * r[y]) * e[n][x] * (r[y] * sc);
           db = ds[n][x] * rsc;
+        } else if constexpr (V1) {  // e holds p
+          db = e[n][x] * (dp[n][x] - u[y]);
+          ds[n][x] = db * sc;
         } else {
           db = (dp[n][x] - u[y] * r[y]) * e[n][x] * r[y];
           ds[n][x] = db * sc;
@@ -484,16 +557,30 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int st = 0; st < KST; ++st) {
           if (st < nsteps) add_max(zr[st]);
         }
-        merge(false);
+        merge(0);
       }
 #pragma unroll
       for (int st = 0; st < KST; ++st) {
         if (st < nsteps) {
           exps(zr[st]);
-          add_sums(zr[st], dr[st]);
+          if constexpr (V1) {
+            add_l(zr[st]);
+          } else {
+            add_sums(zr[st], dr[st]);
+          }
         }
       }
-      merge(true);
+      merge(1);
+      if constexpr (V1) {  // p replaces e in the registers, then u
+#pragma unroll
+        for (int st = 0; st < KST; ++st) {
+          if (st < nsteps) {
+            probs(zr[st]);
+            add_u(zr[st], dr[st]);
+          }
+        }
+        merge(2);
+      }
     }
     zero_acc_regs();
 #pragma unroll
@@ -505,50 +592,63 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // longer windows: one sweep for each statistic (K8: the max, then the
-    // sums; K2's family: the sums), then the ds sweep, z and dp recomputed
+    // sums; K9: the max, the sum, u; K2's family: the sums), then the ds
+    // sweep, z and dp recomputed
+    constexpr int SW_DS = V1 ? 3 : 2;
     zero_acc_regs();
     for (int i = 0; i < nitems; ++i) {
       const bf16* kst = next_item(i);
-      const int sw = i / nsteps + (MAXSUB ? 0 : 1);  // 0 the max, 1 the sums, 2 ds
+      // 0 the max, 1 the sums, (K9: 2 u), then ds
+      const int sw = i / nsteps + (MAXSUB ? 0 : 1);
       const int st = i % nsteps;
       if (!active) continue;
       float z[2][4], dp[2][4];
-      scores(z, dp, kst, st, sw > 0);
+      scores(z, dp, kst, st, V1 ? sw > 1 : sw > 0);
       if (sw == 0) {
         add_max(z);
       } else {
         exps(z);
         if (sw == 1) {
-          add_sums(z, dp);
+          if constexpr (V1) {
+            add_l(z);
+          } else {
+            add_sums(z, dp);
+          }
+        } else if (sw < SW_DS) {
+          probs(z);
+          add_u(z, dp);
         } else {
+          if constexpr (V1) probs(z);
           ds_step(z, dp, kst, st);
         }
       }
-      if (st == nsteps - 1 && sw < 2) merge(sw == 1);  // a statistics sweep ends
+      if (st == nsteps - 1 && sw < SW_DS) merge(sw);  // a statistics sweep ends
     }
   }
   cp_async_wait<0>();
 
   // qd = <qn, dqn> of each row over the warp's columns, the quad's, then the
-  // pair's; K2's family: dq = (dqn - qn qd) inv_q (qn = qn16, or v4's fp32
-  // q inv_q from the raw row in dq's slot, read by the lane before it writes
-  // it); K8: dqn
+  // pair's; K2's family and K9: dq = (dqn - qn qd) inv_q (qn = qn16, or
+  // v4's fp32 q inv_q from the raw row in dq's slot, read by the lane before
+  // it writes it; K9's fp32 q inv_q from the raw q); K8: dqn
   float part = 0.0f;  // the sum of qd over the pair's attending rows (warp 0)
   if (active) {
-    int tq[2];
+    int tq[2];  // the token row (K9: the slab row)
     float iq[2];
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
       const bool in = qr[y] < LS;
-      tq[y] = in ? tok[qr[y]] : 0;
-      iq[y] = (FORM == FORM_QKV && in) ? a.inv[(static_cast<size_t>(tq[y]) * 2) * g.heads + t.h]
-                                       : 0.0f;
+      tq[y] = in ? (V1 ? qr[y] : tok[qr[y]]) : 0;
+      iq[y] = !in ? 0.0f
+              : V1 ? a.inv[slab + qr[y]]
+              : FORM == FORM_QKV ? a.inv[(static_cast<size_t>(tq[y]) * 2) * g.heads + t.h]
+                                 : 0.0f;
     }
     auto qn_at = [&](int y, int d) -> float2 {  // the row's qn at columns d, d + 1
-      if constexpr (RAW) {
+      if constexpr (RAW || V1) {
         if (qr[y] >= LS) return make_float2(0.0f, 0.0f);
         const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            a.dq + static_cast<size_t>(tq[y]) * a.ldd + hoff + d));
+            (V1 ? a.qr : a.dq) + static_cast<size_t>(tq[y]) * a.ldd + hoff + d));
         return make_float2(w.x * iq[y], w.y * iq[y]);
       } else {
         return __bfloat1622float2(
@@ -582,7 +682,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < NO; ++j) {
           const int d = hf * DW + j * 8 + c2;
           float v0 = acc[j][2 * y], v1 = acc[j][2 * y + 1];
-          if constexpr (FORM == FORM_QKV) {
+          if constexpr (FORM != FORM_GRID) {
             const float2 f = qn_at(y, d);
             v0 = (v0 - f.x * qd[y]) * iq[y];
             v1 = (v1 - f.y * qd[y]) * iq[y];
@@ -592,15 +692,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
-  // the block's d(scale) partial, in a fixed order (lanes, then warps)
+  // the block's d(scale) partial, in a fixed order (lanes, then warps); K9
+  // takes its d(scale) in the columns kernel
+  if constexpr (!V1) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-  if (lane == 0) wsum[warp] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < 2 * rt; ++w) total += wsum[w];
-    a.dscale_part[(static_cast<size_t>(win) * nchunk + chunk) * g.heads + t.h] = total;
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+    if (lane == 0) wsum[warp] = part;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int w = 0; w < 2 * rt; ++w) total += wsum[w];
+      a.dscale_part[(static_cast<size_t>(win) * nchunk + chunk) * g.heads + t.h] = total;
+    }
   }
 }
 
@@ -608,13 +711,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 // the columns kernel: one block per (window, head, chunk of rt key tiles)
 // ---------------------------------------------------------------------------
 
+// K9's at head dims up to 128 asks for two blocks an SM (128 registers, none
+// spilled); the others one
 template <int HD, int FORM, bool BIAS, bool RAW>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, (FORM == FORM_V1 && HD <= 128) ? 2 : 1)
     streamed_bwd_cols_kernel(Args a, Geo g, int rt, int nchunk) {
   constexpr int LDQ = HD + 8;
   constexpr int DW = HD / 2;
   constexpr int NO = DW / 8;
-  constexpr bool MAXSUB = FORM == FORM_GRID;
+  constexpr bool V1 = FORM == FORM_V1;
+  constexpr bool MAXSUB = FORM != FORM_QKV;
   constexpr int NST = MAXSUB ? 3 : 2;
   constexpr int STAGE = 2 * STEP * LDQ;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -624,11 +730,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint4* xfrag = reinterpret_cast<uint4*>(ring + NS * STAGE);  // [rt][2][2][32] p, ds fragments
   float* xstat = reinterpret_cast<float*>(xfrag + rt * 128);    // [rt][2][16][4]
   float* rsh = xstat + rt * 128;                               // [LP][NST] row statistics
-  int* tok = reinterpret_cast<int*>(rsh) + (g.LP * NST + 3) / 4 * 4;  // [LS]
+  int* tok = reinterpret_cast<int*>(rsh) + (g.LP * NST + 3) / 4 * 4;  // [LS] (K9: none)
+  float* wsum = reinterpret_cast<float*>(tok);  // K9: the warps' d(scale) sums [8]
 
   int chunk;
   const Tile t = decode_block(g, nchunk, chunk);
-  const size_t wh = static_cast<size_t>(window_of(g, t)) * g.heads + t.h;
+  const int win = window_of(g, t);
+  const size_t wh = static_cast<size_t>(win) * g.heads + t.h;
+  const size_t slab = wh * g.L;  // K9: the (window, head)'s first token row
   const int L = g.L;
   const int LP = g.LP;
   const int LS = g.LS;
@@ -644,18 +753,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool active = k0 < LP;
   const int kr[2] = {k0 + g4, k0 + g4 + 8};  // the lane's key rows
   const int nitems = (LQ + STEP - 1) / STEP;
-  const size_t hoff = static_cast<size_t>(t.h) * HD;
+  const size_t hoff = V1 ? slab * HD : static_cast<size_t>(t.h) * HD;
 
-  for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
+  if constexpr (!V1) {
+    for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
+  }
   for (int i = threadIdx.x; i < LP * NST; i += blockDim.x) rsh[i] = a.rstat[wh * LP * NST + i];
   __syncthreads();
-  stage_rows<HD>(ks, a.k + hoff, a.ldk, tok, LS, row0, rt * 16);
-  stage_rows<HD>(vs, a.v + hoff, a.ldv, tok, LS, row0, rt * 16);
+  stage_rows<HD, V1>(ks, a.k + hoff, a.ldk, tok, LS, row0, rt * 16);
+  stage_rows<HD, V1>(vs, a.v + hoff, a.ldv, tok, LS, row0, rt * 16);
   auto load_item = [&](int i) {
     if (i < nitems) {
       bf16* dst = ring + (i % NS) * STAGE;
-      stage_rows<HD>(dst, a.q + hoff, a.ldq, tok, LS, i * STEP, STEP);
-      stage_rows<HD>(dst + STEP * LDQ, a.g + hoff, a.ldg, tok, LS, i * STEP, STEP);
+      stage_rows<HD, V1>(dst, a.q + hoff, a.ldq, tok, LS, i * STEP, STEP);
+      stage_rows<HD, V1>(dst + STEP * LDQ, a.g + hoff, a.ldg, tok, LS, i * STEP, STEP);
     }
     cp_async_commit();
   };
@@ -685,6 +796,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       dk[j][x] = 0.0f;
     }
   }
+  float dsc = 0.0f;  // K9: the lane's sum of ds s, its entries in step order
 
   for (int i = 0; i < nitems; ++i) {
     cp_async_wait<NS - 2>();
@@ -706,17 +818,23 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int qi = qb + n * 8 + c2 + c;
           const float* st = rsh + qi * NST;
           const float mq = MAXSUB ? st[0] : 0.0f;
-          const float rq = st[NST - 2];
+          const float rq = st[NST - 2];  // 1 / sum e (K9: sum e)
           const float uq = st[NST - 1];
 #pragma unroll
           for (int y = 0; y < 2; ++y) {
             const int x = 2 * y + c;
             const float z = logit(s[n][x], qi, kr[y]);
             const float ev = z == -CUDART_INF_F ? 0.0f : expf(z - mq);
-            p[n][x] = ev * rq;
-            if constexpr (FORM == FORM_QKV) {
+            if constexpr (V1) {  // the rows kernel's p and ds, bit for bit
+              p[n][x] = z == -CUDART_INF_F ? 0.0f : __fdiv_rn(ev, rq);
+              const float d = p[n][x] * (dp[n][x] - uq);
+              ds[n][x] = d * sc;
+              dsc += d * s[n][x];
+            } else if constexpr (FORM == FORM_QKV) {
+              p[n][x] = ev * rq;
               ds[n][x] = (dp[n][x] - uq * rq) * ev * (rq * sc);
             } else {
+              p[n][x] = ev * rq;
               ds[n][x] = (dp[n][x] - uq * rq) * ev * rq * sc;
             }
           }
@@ -751,25 +869,40 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   cp_async_wait<0>();
+  if constexpr (V1) {  // the block's d(scale) partial, in a fixed order (lanes, then warps)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dsc += __shfl_xor_sync(0xffffffffu, dsc, o);
+    if (lane == 0) wsum[warp] = dsc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int w = 0; w < 2 * rt; ++w) total += wsum[w];
+      a.dscale_part[(static_cast<size_t>(win) * nchunk + chunk) * g.heads + t.h] = total;
+    }
+  }
   if (!active) return;
 
-  // K2's family: kd = <kn, dkn> (the quad's, then the pair's) and dk = (dkn -
-  // kn kd) inv_k (kn = kn16, or v4's fp32 k inv_k from the raw row in dk's
-  // slot); K8: dkn. dv as it is. Rows >= LS are not written.
-  int tk[2];
+  // K2's family and K9: kd = <kn, dkn> (the quad's, then the pair's) and dk =
+  // (dkn - kn kd) inv_k (kn = kn16, or v4's fp32 k inv_k from the raw row in
+  // dk's slot, K9's from the raw k); K8: dkn. dv as it is. Rows >= LS are
+  // not written.
+  int tk[2];  // the token row (K9: the slab row)
   float ik[2];
+  const size_t nrows = static_cast<size_t>(g.B) * g.nwh * g.nww * g.heads * g.L;  // K9
 #pragma unroll
   for (int y = 0; y < 2; ++y) {
     const bool in = kr[y] < LS;
-    tk[y] = in ? tok[kr[y]] : 0;
-    ik[y] = (FORM == FORM_QKV && in) ? a.inv[(static_cast<size_t>(tk[y]) * 2 + 1) * g.heads + t.h]
-                                     : 0.0f;
+    tk[y] = in ? (V1 ? kr[y] : tok[kr[y]]) : 0;
+    ik[y] = !in ? 0.0f
+            : V1 ? a.inv[nrows + slab + kr[y]]
+            : FORM == FORM_QKV ? a.inv[(static_cast<size_t>(tk[y]) * 2 + 1) * g.heads + t.h]
+                               : 0.0f;
   }
   auto kn_at = [&](int y, int d) -> float2 {
-    if constexpr (RAW) {
+    if constexpr (RAW || V1) {
       if (kr[y] >= LS) return make_float2(0.0f, 0.0f);
       const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          a.dk + static_cast<size_t>(tk[y]) * a.ldd + hoff + d));
+          (V1 ? a.kr : a.dk) + static_cast<size_t>(tk[y]) * a.ldd + hoff + d));
       return make_float2(w.x * ik[y], w.y * ik[y]);
     } else {
       return __bfloat1622float2(
@@ -777,7 +910,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
   float kd[2] = {0.0f, 0.0f};
-  if constexpr (FORM == FORM_QKV) {
+  if constexpr (FORM != FORM_GRID) {
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
 #pragma unroll
@@ -805,7 +938,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int j = 0; j < NO; ++j) {
       const int d = hf * DW + j * 8 + c2;
       float k0v = dk[j][2 * y], k1v = dk[j][2 * y + 1];
-      if constexpr (FORM == FORM_QKV) {
+      if constexpr (FORM != FORM_GRID) {
         const float2 f = kn_at(y, d);
         k0v = (k0v - f.x * kd[y]) * ik[y];
         k1v = (k1v - f.y * kd[y]) * ik[y];
@@ -823,10 +956,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <int HD, int FORM, bool BIAS, bool RAW>
 int launch(const Args& a, const Geo& g, cudaStream_t s) {
-  constexpr int NST = FORM == FORM_GRID ? 3 : 2;
   const Plan p = plan_of(g.LP);
-  const size_t rs = rows_smem<HD>(p.rt, g.LS);
-  const size_t cs = cols_smem<HD, NST>(p.rt, g.LP, g.LS);
+  const size_t rs = rows_smem<HD, FORM>(p.rt, g.LS);
+  const size_t cs = cols_smem<HD, FORM>(p.rt, g.LP, g.LS);
   const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads * p.nchunk;
   if (g.LP > MAX_LP || g.LS > g.LP || g.LQ > g.LS || rs > static_cast<size_t>(kMaxSmem) ||
       cs > static_cast<size_t>(kMaxSmem) || blocks > 2147483647LL) {
@@ -847,6 +979,45 @@ int launch(const Args& a, const Geo& g, cudaStream_t s) {
   if (err != cudaSuccess) return static_cast<int>(err);
   cols<<<static_cast<unsigned>(blocks), p.rt * 64, cs, s>>>(a, g, p.rt, p.nchunk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of both kernels at the geometry's L, into info[0..9]: the
+// threads a block and blocks per (window, head), then for the rows kernel
+// and the columns kernel each: dynamic shared memory, registers a thread,
+// local (spill) bytes a thread and resident blocks per SM (from the CUDA
+// runtime). Launches nothing.
+template <int HD, int FORM, bool BIAS, bool RAW>
+int launch_info(const Geo& g, int* info) {
+  const Plan p = plan_of(g.LP);
+  const size_t rs = rows_smem<HD, FORM>(p.rt, g.LS);
+  const size_t cs = cols_smem<HD, FORM>(p.rt, g.LP, g.LS);
+  if (g.LP > MAX_LP || rs > static_cast<size_t>(kMaxSmem) || cs > static_cast<size_t>(kMaxSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto rows = g.L <= KEEP_L ? streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, true>
+                                  : streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, false>;
+  const auto cols = streamed_bwd_cols_kernel<HD, FORM, BIAS, RAW>;
+  info[0] = p.rt * 64;
+  info[1] = p.nchunk;
+  int at = 2;
+  auto one = [&](auto kernel, size_t smem) -> int {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    int resident = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, p.rt * 64, smem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[at++] = static_cast<int>(smem);
+    info[at++] = attr.numRegs;
+    info[at++] = static_cast<int>(attr.localSizeBytes);
+    info[at++] = resident;
+    return 0;
+  };
+  const int code = one(rows, rs);
+  return code != 0 ? code : one(cols, cs);
 }
 
 }  // namespace swin_streamed_bwd

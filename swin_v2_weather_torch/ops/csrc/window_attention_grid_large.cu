@@ -79,7 +79,7 @@ int grid_bwd(const void* q, const void* k, const void* v, const void* scale, con
         return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
-    return dispatch_large_bwd<GRID, true>(C / heads, args, geo, s);
+    return dispatch_chunked_bwd<GRID>(C / heads, args, geo, s);
   }
 }
 

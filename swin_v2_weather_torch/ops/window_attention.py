@@ -96,13 +96,14 @@ module globals (set from the environment at import):
     not read it (JAX reads it in ``_build_qkv`` only).
 
 K8/K9's forward is one streamed kernel at head dims 32-256 and any L (keys
-and values through a ring, ``csrc/qkv_attention.cuh``); their backward at
-head dims whose one-block instance does not fit shared memory (128 and 256
-at L = 162: the e2048 family) takes the large-head variant (K8: the
-streamed kernels of ``csrc/streamed_bwd.cuh``; K9:
-``csrc/qkv_attention_large.cuh``), and where neither fits (every L above
-256) its chunked form; :func:`attn_variant` says which runs in each
-direction, or raises.
+and values through a ring, ``csrc/qkv_attention.cuh``). K8's backward takes
+its one-block instance where that fits shared memory (head dims up to 96 at
+L = 162) and the large-head variant at head dims 128 and 256 (the streamed
+kernels of ``csrc/streamed_bwd.cuh``, form FORM_GRID); K9's takes the
+streamed kernels (form FORM_V1, after a prepass that normalizes q and k) at
+every head dim; past L = 256 both take their chunked form
+(``csrc/qkv_attention_large.cuh``). :func:`attn_variant` says which runs in
+each direction for each layout, or raises.
 """
 
 from __future__ import annotations
@@ -143,23 +144,26 @@ qkv_impl()  # fail fast on a bad environment value, as the JAX package does at i
 qkv_bwd_impl()
 
 _MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
-_LARGE_RW = 4  # 16-row warps per block of K9's large-head and the chunked backward kernels
+_LARGE_RW = 4  # 16-row warps per block of the chunked backward kernels
 _LDT = 24  # row pitch of the chunked backwards' per-warp 16 x 16 tile
 # the streamed large-head backward (csrc/streamed_bwd.cuh): 16-row tiles a
 # block (two warps each), streamed rows a step, ring stages
 _STREAMED_RT, _STREAMED_STEP, _STREAMED_NS = 4, 32, 3
 
 
-def streamed_bwd_plan(hd: int, l: int, ls: Optional[int] = None, grid: bool = False) -> dict:
-    """The launch of the streamed large-head backward (``csrc/streamed_bwd.cuh``,
+def streamed_bwd_plan(hd: int, l: int, ls: Optional[int] = None, grid: bool = False,
+                      v1: bool = False) -> dict:
+    """The launch of the streamed backward (``csrc/streamed_bwd.cuh``,
     ``plan_of``, ``rows_smem``, ``cols_smem``) at head dim ``hd``, window
     length ``l`` and ``ls`` rows a window (v4's lm; default ``l``), for K8
-    (``grid``: three row statistics) or the qkv-fused family (two): ``rt``
-    16-row tiles a block (two warps each), ``nchunk`` blocks per (window,
-    head), ``threads`` and the bytes of shared memory of the rows and columns
-    kernels: the block's own rows and a ring of 32-row steps, the pairs'
-    fragment and statistics exchanges, (columns) the window's row statistics
-    and a table of ``ls`` token rows. Nothing in it grows with L but the two
+    (``grid``: three row statistics), K9 (``v1``: three, the [L, hd] slab of
+    each (window, head) addressed without a table) or the qkv-fused family
+    (two): ``rt`` 16-row tiles a block (two warps each), ``nchunk`` blocks per
+    (window, head), ``threads`` and the bytes of shared memory of the rows and
+    columns kernels: the block's own rows and a ring of 32-row steps, the
+    pairs' fragment and statistics exchanges, the warps' d(scale) sums
+    (rows; K9's columns), (columns) the window's row statistics and, but for
+    K9, a table of ``ls`` token rows. Nothing in it grows with L but the
     tables."""
     lp = -(-l // 16) * 16
     ls = l if ls is None else ls
@@ -171,10 +175,12 @@ def streamed_bwd_plan(hd: int, l: int, ls: Optional[int] = None, grid: bool = Fa
     def words16(n: int) -> int:  # bytes of n 4-byte words, in whole 16-byte units
         return (n + 3) // 4 * 16
 
-    nst = 3 if grid else 2
+    nst = 3 if grid or v1 else 2
+    table = 0 if v1 else words16(ls)
     return {"rt": rt, "nchunk": nchunk, "threads": rt * 64,
-            "rows_smem": tiles + rt * 64 * 16 + rt * 128 * 4 + 32 + words16(ls),
-            "cols_smem": tiles + rt * 128 * 16 + rt * 128 * 4 + words16(lp * nst) + words16(ls)}
+            "rows_smem": tiles + rt * 64 * 16 + rt * 128 * 4 + 32 + table,
+            "cols_smem": tiles + rt * 128 * 16 + rt * 128 * 4 + words16(lp * nst)
+            + (32 if v1 else table)}
 
 
 def qkv_smem_bytes(hd: int, l: int) -> dict:
@@ -1560,49 +1566,58 @@ def attn_fwd_plan(hd: int, l: int, ltab: Optional[int] = None) -> dict:
             "ns": ns, "smem": smem}
 
 
-def attn_smem_bytes(hd: int, l: int) -> dict:
-    """Shared memory (bytes) of each K8/K9 kernel at head dim ``hd`` and window
-    length ``l``, as the CUDA sources compute it: ``fwd`` of the streamed
-    forward (:func:`attn_fwd_plan`), ``bwd`` of the one-block-per-(window,
-    head) backward (``csrc/qkv_attention.cuh``), ``large_rows``/
-    ``large_cols`` of K9's large-head backward and ``chunked`` of the
-    chunked backward's rows and columns kernels
-    (``csrc/qkv_attention_large.cuh``; the same at every L), and
-    ``streamed_rows``/``streamed_cols`` of K8's large-head backward (the
-    streamed kernels, :func:`streamed_bwd_plan`)."""
+ATTN_LAYOUTS = ("grid", "v1")  # K8's NHWC grid, K9's windowed [Bw, heads, L, hd]
+
+
+def attn_smem_bytes(hd: int, l: int, layout: str = "grid") -> dict:
+    """Shared memory (bytes) of each K8 (``layout`` 'grid') or K9 ('v1')
+    kernel at head dim ``hd`` and window length ``l``, as the CUDA sources
+    compute it: ``fwd`` of the streamed forward (:func:`attn_fwd_plan`),
+    ``bwd`` of the one-block-per-(window, head) backward
+    (``csrc/qkv_attention.cuh``; K8 only runs it), ``chunked`` of the chunked
+    backward's rows and columns kernels (``csrc/qkv_attention_large.cuh``; the
+    same at every L), and ``streamed_rows``/``streamed_cols`` of the layout's
+    streamed backward (:func:`streamed_bwd_plan`: K8's form at head dims
+    128/256, K9's at every head dim)."""
+    if layout not in ATTN_LAYOUTS:
+        raise ValueError(f"attn_smem_bytes: layout {layout!r} is not one of {ATTN_LAYOUTS}")
     lp = -(-l // 16) * 16
     nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
-    plan = streamed_bwd_plan(hd, l, grid=True)
+    plan = streamed_bwd_plan(hd, l, grid=layout == "grid", v1=layout == "v1")
     return {
         "fwd": attn_fwd_plan(hd, l)["smem"],
-        "bwd": 4 * lp * ldq * 2 + nw * 1024 + nw * 16 * ldp * 2 + (5 * lp + 32) * 4,
-        "large_rows": (3 * rw * 16 * ldq + rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
-        "large_cols": (3 * rw * 16 * ldq + 2 * rw * 16 * ldp) * 2 + (rw * 16 * hd + rw * 256) * 4,
+        "bwd": 4 * lp * ldq * 2 + nw * 1024 + nw * 16 * ldp * 2 + (3 * lp + 32) * 4,
         "chunked": (3 * rw * 16 * ldq + rw * 16 * _LDT) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
         "streamed_rows": plan["rows_smem"],
         "streamed_cols": plan["cols_smem"],
     }
 
 
-def attn_variant(name: str, hd: int, l: int, backward: bool) -> str:
-    """Which K8/K9 kernel runs in one direction at head dim ``hd`` and window
-    length ``l``. Forward: ``'streamed'`` at head dims 32/64/96/128/256 and any
-    L. Backward, at the same head dims and any L: ``'base'`` (the one-block
-    instances, head dim 32/64/96/128, L <= 256) where its shared memory fits,
-    else ``'large'`` (head dim 128 or 256, L <= 256) where both layouts'
-    instances fit (K9's, whose shared memory grows with L, is the larger;
-    K8's streamed kernels fit at every such L), else ``'chunked'``, whose
-    shared memory does not grow with L. Any other head dim raises a
-    ValueError before a launch. At L = 162 the backward at head dim 128
-    (271,168 B) and 256 is ``'large'``."""
+def attn_variant(name: str, hd: int, l: int, backward: bool, layout: str = "grid") -> str:
+    """Which K8 (``layout`` 'grid') or K9 ('v1') kernel runs in one direction
+    at head dim ``hd`` and window length ``l``, a static rule. Forward:
+    ``'streamed'`` at head dims 32/64/96/128/256 and any L. Backward, at the
+    same head dims and any L: K8 ``'base'`` (the one-block instance, head dim
+    32/64/96/128, L <= 256) where its shared memory fits, else ``'large'``
+    (the streamed kernels, head dim 128 or 256, L <= 256, whose shared memory
+    fits at every such L), else ``'chunked'``; K9 ``'streamed'`` (the
+    streamed kernels at every head dim, L <= 256), else ``'chunked'``. The
+    chunked form's shared memory does not grow with L. Any other head dim
+    raises a ValueError before a launch. At L = 162 K8's backward at head dim
+    128 (269,760 B for the one-block instance) and 256 is ``'large'``."""
     if not backward:
         if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
             return "streamed"
         raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
                          f"{ATTN_FWD_HEAD_DIMS})")
-    sm = attn_smem_bytes(hd, l)
-    return _bwd_variant(name, hd, l, sm["bwd"], max(sm["large_rows"], sm["large_cols"],
-                                                    sm["streamed_rows"], sm["streamed_cols"]))
+    sm = attn_smem_bytes(hd, l, layout)
+    streamed = max(sm["streamed_rows"], sm["streamed_cols"])
+    if layout == "v1":
+        if hd not in ATTN_FWD_HEAD_DIMS or l < 1:
+            raise ValueError(f"{name}: no backward kernel takes head dim {hd} (the forward and "
+                             f"backward take {ATTN_FWD_HEAD_DIMS})")
+        return "streamed" if l <= 256 and streamed <= _MAX_SMEM else "chunked"
+    return _bwd_variant(name, hd, l, sm["bwd"], streamed)
 
 
 def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:
@@ -1621,16 +1636,33 @@ def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:
     return dict(zip(keys, info))
 
 
+def streamed_bwd_info(hd: int, l: int, bias: bool) -> dict:
+    """K9's streamed backward at head dim ``hd`` and window length ``l``
+    (<= 256), from the CUDA runtime: threads a block, blocks per (window,
+    head), and for the rows and the columns kernel their dynamic shared
+    memory, registers a thread, local (spill) bytes a thread and resident
+    blocks per SM. Builds the library at first use; needs the GPU."""
+    lib = _build.load_library()
+    info = (ctypes.c_int * 10)()
+    _build.check(lib.swin_window_attention_v1_streamed_bwd_info(hd, int(bias), l, info),
+                 "swin_window_attention_v1_streamed_bwd_info")
+    out = {"threads": info[0], "blocks_per_window": info[1]}
+    for k, kernel in enumerate(("rows", "cols")):
+        for j, key in enumerate(("smem", "registers", "local_bytes", "blocks_per_sm")):
+            out[f"{kernel}_{key}"] = info[2 + 4 * k + j]
+    return out
+
+
 def _row_chunks(variant: str, lp: int) -> int:
-    """Query-row blocks per (window, head) of the backward: 1, or for the
-    large-head and chunked variants one per 64 rows (each writes its own
-    d(scale) partial)."""
-    return -(-(lp // 16) // _LARGE_RW) if variant in ("large", "chunked") else 1
+    """Row blocks per (window, head) of the backward: 1, or for the
+    large-head, streamed and chunked variants one per 64 rows (each writes
+    its own d(scale) partial)."""
+    return -(-(lp // 16) // _LARGE_RW) if variant in ("large", "streamed", "chunked") else 1
 
 
 def _v1_norm_scratch(q: torch.Tensor):
-    """K9's large-head and chunked backward scratch: qn16, kn16 in q's layout
-    and the fp32 norms [2, Bw, heads, L]."""
+    """K9's streamed and chunked backward scratch: qn16, kn16 in q's layout
+    and the fp32 norms [2, Bw, heads, L] (q's, then k's)."""
     return (torch.empty_like(q), torch.empty_like(q),
             torch.empty((2, *q.shape[:-1]), dtype=torch.float32, device=q.device))
 
@@ -1792,7 +1824,7 @@ def _check_v1_operands(name, q, k, v, scale, window_grid, mask_pattern, bias, g=
         _build.check_operand(name, "mask_pattern", mask_pattern, torch.float32, (l, l), dev)
     if bias is not None:
         _build.check_operand(name, "bias", bias, torch.float32, (heads, l, l), dev)
-    variant = attn_variant(name, hd, l, g is not None)
+    variant = attn_variant(name, hd, l, g is not None, "v1")
     return bw // (nwh * nww), nwh, nww, heads, hd, l, variant
 
 
@@ -1859,14 +1891,11 @@ def _launch_v1_backward(fn, q, k, v, scale, bias, g, window_grid, mask_pattern):
         tail = (dscale_part.data_ptr(), None if bias is None else dbias_part.data_ptr(),
                 dscale.data_ptr(), None if bias is None else dbias.data_ptr(),
                 b, nwh, nww, heads, hd, l, stream)
-        if variant == "base":
-            code = lib.swin_window_attention_v1_bwd(*head, *tail)
-        else:  # scratch: normalized q and k, their norms, the per-row statistics
-            qn, kn, inv = _v1_norm_scratch(q)
-            rstat = torch.empty((n_win, heads, lp, 3), **f32)
-            entry = getattr(lib, f"swin_window_attention_v1_{variant}_bwd")
-            code = entry(*head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), rstat.data_ptr(),
-                         *tail)
+        # scratch: normalized q and k, their norms, the per-row statistics (m, sum e, u)
+        qn, kn, inv = _v1_norm_scratch(q)
+        rstat = torch.empty((n_win, heads, lp, 3), **f32)
+        entry = getattr(lib, f"swin_window_attention_v1_{variant}_bwd")
+        code = entry(*head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), rstat.data_ptr(), *tail)
     _build.check(code, name)
     fn.launches += 1
     return (dq, dk, dv, dscale) if bias is None else (dq, dk, dv, dscale, dbias)

@@ -3,9 +3,9 @@ backward of ``scaled_dot_product_attention`` on the same windowed tensors.
 
 Run on a GPU from the root of a checkout of the repo:
 
-    python3 -m swin_v2_weather_torch.scripts.bwd_breakdown
+    python3 -m swin_v2_weather_torch.scripts.bwd_breakdown [k2] [k8] [k9]
 
-or, to measure another checkout's kernels with this script, from that
+(the named families only; all three by default) or, to measure another checkout's kernels with this script, from that
 checkout's root: ``python3 <path>/bwd_breakdown.py`` (the package and
 ``chip_smoke.py``, whose timing helpers it uses, are imported from the
 working directory). Seeded inputs, window 9 x 18 (L = 162), the shifted
@@ -16,11 +16,15 @@ block's mask, 8 heads:
     first;
   * K8 at head dim 256 on both images and at head dim 128 (C = 1024) on the
     first, bias-free and with a raw bias;
-  * K9 at head dim 256 on the train steps' image (for comparison).
+  * K9, bias-free and with a raw bias, on windowed [nW, 8, 162, hd] tensors:
+    at head dims 96 (the flagship's [400, 8, 162, 96]), 128 and 256 on the
+    e2048 image (nW = 400), at head dim 256 on the train steps' image (nW =
+    100), and at head dims 32 and 64 (nW = 400), where no path runs it.
 
 Each line gives the kernel's ms (CUDA events), its pieces (torch.profiler,
 device ms a launch: the projection recompute, the normalization, the rows
-and columns kernels, dx, dW and the reductions) and SDPA's backward ms on
+and columns kernels (in trees before its streamed backward, K9's one-block
+kernel), dx, dW and the reductions) and SDPA's backward ms on
 windowed [nW, 8, 162, hd] bf16 tensors with the bias as a float mask (only
 ``torch.autograd.grad`` timed; null with the reason where no backend takes
 the shape). Every line names the card and its power limit. Exits non-zero
@@ -50,6 +54,7 @@ K8_LARGE_PIECES = (("rows_kernel", "rows kernel"), ("cols_kernel", "columns kern
                    ("normalize_kernel", "q/k normalization"),
                    ("attn_dscale_reduce_kernel", "d(scale) reduction"),
                    ("dbias_reduce_kernel", "d(bias) reduction"))
+K9_PIECES = (("qkv_attention_bwd_kernel", "one-block kernel"),) + K8_LARGE_PIECES
 WINDOW = (9, 18)
 
 
@@ -118,12 +123,24 @@ def measure(fn, labels, n: int = 3):
     return time_ms(fn, n), kernel_pieces(fn, labels, n=n)
 
 
+def v1_case(gen, nw: int, heads: int, hd: int):
+    """q, k, v, g [nW, heads, 162, hd] bf16, scale and a raw bias, seeded."""
+    dev, l = gen.device, WINDOW[0] * WINDOW[1]
+    q, k, v, g = (torch.randn((nw, heads, l, hd), generator=gen, device=dev).bfloat16()
+                  for _ in range(4))
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    raw = 2.0 * torch.randn((heads, l, l), generator=gen, device=dev)
+    return (q, k, v), g, scale, raw
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("bwd_breakdown: no CUDA device")
     sys.path.insert(0, os.getcwd())
+    from swin_v2_weather_torch.models.swin import make_shift_mask
     from swin_v2_weather_torch.ops import window_attention as wa
 
+    families = [a.lower() for a in sys.argv[1:]] or ["k2", "k8", "k9"]
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
@@ -139,19 +156,20 @@ def main() -> None:
               + f"; SDPA backward {lib_txt} ({card})", flush=True)
 
     for tag, hw in (("e2048 [180, 360]", (180, 360)), ("e2048 train [90, 180]", (90, 180))):
-        x, g, w16, b, scale, mask, badd = qkv_case(gen, hw, heads, 256)
         nw = hw[0] * hw[1] // l
-        lib = sdpa_bwd_ms((nw, heads, l, 256), badd, gen)
-        ms, pieces = measure(lambda: wa.window_attention_qkv_bwd(x, w16, b, scale, g, WINDOW,
-                                                                 mask, 1.0), K2_LARGE_PIECES)
-        report(f"K2 hd 256 {tag} ({wa.qkv_variant('', 256, l, True)})", ms, pieces, lib)
-        if hw == (180, 360):
-            ms, pieces = measure(lambda: wa.window_attention_qkv_bias_bwd(
-                x, w16, b, scale, badd, g, WINDOW, mask, 1.0), K2_LARGE_PIECES)
-            report(f"K7 hd 256 {tag}", ms, pieces, lib)
-        del x, g, w16, b, badd
-        torch.cuda.empty_cache()
-        for hd in ((256, 128) if hw == (180, 360) else (256,)):
+        if "k2" in families:
+            x, g, w16, b, scale, mask, badd = qkv_case(gen, hw, heads, 256)
+            lib = sdpa_bwd_ms((nw, heads, l, 256), badd, gen)
+            ms, pieces = measure(lambda: wa.window_attention_qkv_bwd(
+                x, w16, b, scale, g, WINDOW, mask, 1.0), K2_LARGE_PIECES)
+            report(f"K2 hd 256 {tag} ({wa.qkv_variant('', 256, l, True)})", ms, pieces, lib)
+            if hw == (180, 360):
+                ms, pieces = measure(lambda: wa.window_attention_qkv_bias_bwd(
+                    x, w16, b, scale, badd, g, WINDOW, mask, 1.0), K2_LARGE_PIECES)
+                report(f"K7 hd 256 {tag}", ms, pieces, lib)
+            del x, g, w16, b, badd
+            torch.cuda.empty_cache()
+        for hd in ((256, 128) if hw == (180, 360) else (256,)) if "k8" in families else ():
             ops, g, scale, raw, mask = grid_case(gen, hw, heads, hd)
             lib = sdpa_bwd_ms((nw, heads, l, hd), raw, gen)
             for bias in (None, raw):
@@ -165,14 +183,23 @@ def main() -> None:
                        lib)
             del ops, g, raw
             torch.cuda.empty_cache()
-        if hw == (90, 180):
-            q, k, v, gq = (torch.randn((nw, heads, l, 256), generator=gen, device=dev).bfloat16()
-                           for _ in range(4))
-            grid = (hw[0] // WINDOW[0], hw[1] // WINDOW[1])
-            ms, pieces = measure(lambda: wa.window_attention_v1_bwd(q, k, v, scale, gq, grid, mask),
-                                 K8_LARGE_PIECES)
-            report(f"K9 hd 256 {tag}", ms, pieces, lib)
-            del q, k, v, gq
+        if "k9" not in families:
+            continue
+        # K9 on the windows of this image: its pieces name the kernels that ran
+        mask = torch.from_numpy(make_shift_mask(hw, WINDOW, (4, 9))[-1].copy()).to(dev)
+        grid = (hw[0] // WINDOW[0], hw[1] // WINDOW[1])
+        for hd in ((96, 128, 256, 32, 64) if hw == (180, 360) else (256,)):
+            ops, g, scale, raw = v1_case(gen, nw, heads, hd)
+            lib = sdpa_bwd_ms((nw, heads, l, hd), raw, gen)
+            for bias in (None, raw):
+                kind = "K9" if bias is None else "K9 BIAS"
+                fn = ((lambda: wa.window_attention_v1_bwd(*ops, scale, g, grid, mask))
+                      if bias is None else
+                      (lambda: wa.window_attention_v1_bias_bwd(*ops, scale, bias, g, grid, mask)))
+                ms, pieces = measure(fn, K9_PIECES)
+                report(f"{kind} hd {hd} {tag} [{nw}, {heads}, {l}, {hd}]", ms, pieces, lib)
+            del ops, g, raw
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

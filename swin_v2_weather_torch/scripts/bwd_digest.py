@@ -10,20 +10,19 @@ checkout's root: ``python3 <path>/bwd_digest.py`` (the package is imported
 from the working directory). Each line names one backward wrapper at one
 shape and gives a digest of the bytes of every output it returns, on inputs
 drawn from a fixed seed on the card: the qkv-fused family (K2, K7, K10, v5,
-v4, padded v4) at the flagship shape, K8/K9 at head dims 96 (one-block), 128
-and 256 (the large-head variant), K2/K7/v5/v4 at head dim 256 (the large-head
-variant), K5/K6 at the e2048 train step's shape, and the chunked
+v4, padded v4) at the flagship shape, K8 at head dims 96 (one-block), 128
+and 256 (the streamed kernels), K9 at head dims 96, 128 and 256 (the
+streamed kernels), K2/K7/v5/v4 at head dim 256 (the large-head variant),
+K5/K6 at the e2048 train step's shape, and the chunked
 backwards past L = 256 (K2, K7, K8, K9 and their BIAS instances at head
 dims 96 and 256, L = 288). Two trees whose lines agree compute those
 backwards bit for bit alike. Exits non-zero without a GPU.
 
-Against a tree from before the streamed large-head backward
-(``csrc/streamed_bwd.cuh``), exactly these lines change: the ``hd256``
-lines of K2, K7, v5 and v4 (the recompute now normalizes q and k in its
-epilogue, as the forward does, and the pass sums in another order) and K8's
-``hd128`` and ``hd256`` lines, bias-free and BIAS. Every other line (the
-flagship's one-block backwards, K8/K9 at head dim 96, K9 at 128 and 256,
-K5/K6, the chunked backwards) stays equal.
+Against a tree from before K9's streamed backward (form FORM_V1), exactly
+K9's six lines at head dims 96, 128 and 256 (bias-free and BIAS) change:
+it sums in another order than the one-block and wmma kernels did. Every
+other line (the qkv-fused family, K8, K5/K6, the chunked backwards) stays
+equal.
 """
 
 from __future__ import annotations

@@ -1230,11 +1230,13 @@ def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_qkv_attention_large_head_kernels_match_plain(cuda_device, layout, hd, use_bias):
     """K8 and K9 at head dims 128 and 256 with L = 162 (2 heads, shifted),
-    where the backward takes the large-head variant (the forward is the
-    streamed kernel at every head dim): against their plain versions,
-    counted on the usual wrappers, two backward calls bit-equal."""
-    assert WA.attn_variant("t", hd, 162, True) == "large"
-    assert WA.attn_variant("t", hd, 162, False) == "streamed"
+    where K8's backward takes the large-head variant and K9's the streamed
+    kernels (the forward is the streamed kernel at every head dim): against
+    their plain versions, counted on the usual wrappers, two backward calls
+    bit-equal."""
+    lay = "grid" if layout == "grid" else "v1"
+    assert WA.attn_variant("t", hd, 162, True, lay) == ("large" if lay == "grid" else "streamed")
+    assert WA.attn_variant("t", hd, 162, False, lay) == "streamed"
     check_qkv_kernels(cuda_device, layout, use_bias, True, c=2 * hd, heads=2)
 
 
@@ -1757,6 +1759,25 @@ def test_streamed_grid_backward_matches_plain(cuda_device, use_bias, hd, hw, win
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("hd, hw, window", [(256, (18, 36), (9, 18)), (256, (28, 32), (14, 16)),
+                                            (256, (32, 32), (16, 16)), (128, (26, 32), (13, 16)),
+                                            (128, (32, 32), (16, 16)), (96, (18, 36), (9, 18))])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_streamed_v1_backward_matches_plain(cuda_device, use_bias, hd, hw, window, shifted):
+    """K9's backward on the streamed kernels (form FORM_V1 of
+    ``csrc/streamed_bwd.cuh``, after the q/k normalization prepass) at head
+    dim 256 with L = 162, 224 and 256, at head dim 128 with L = 208 and 256
+    and at head dim 96 with L = 162, bias-free and BIAS, unshifted and
+    shifted: forward and backward against their plain versions, exactly
+    their own wrappers' launches, two backward calls bit-equal
+    (``check_qkv_kernels``)."""
+    assert WA.attn_variant("t", hd, window[0] * window[1], True, "v1") == "streamed"
+    check_qkv_kernels(cuda_device, "windowed", use_bias, shifted, h=hw[0], w=hw[1], c=2 * hd,
+                      heads=2, window=window)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["grid", "windowed"])
 @pytest.mark.parametrize("use_bias", [False, True])
 @pytest.mark.parametrize("hd", [96, 256])
@@ -1765,7 +1786,7 @@ def test_chunked_attention_backward_matches_plain(cuda_device, layout, use_bias,
     """K8 and K9 (bias-free and BIAS) past L = 256, the chunked backward with
     the streamed forward, shifted: against their plain versions, their own
     wrappers' launches, two backward calls bit-equal (``check_qkv_kernels``)."""
-    assert WA.attn_variant("t", hd, l, True) == "chunked"
+    assert WA.attn_variant("t", hd, l, True, "grid" if layout == "grid" else "v1") == "chunked"
     (h, w), window = CHUNK_WINDOWS[l]
     check_qkv_kernels(cuda_device, layout, use_bias, True, h=h, w=w, c=2 * hd, heads=2,
                       window=window)

@@ -4,14 +4,15 @@ widths.
 
 On the card, K8/K9's forward is one streamed kernel at head dims 32-256 and
 any L (q rows of a block staged, k and v through a ring), whose shared memory
-does not grow with L beyond a table of L words; their backward keeps one
+does not grow with L beyond a table of L words. K8's backward keeps one
 block per (window, head) with q, k, v and g [LP, hd] in shared memory, which
-at L = 162 fits up to head dim 96 (226,112 B) of the 232,448 B a block may
-use; beyond that the large-head backward (``csrc/qkv_attention_large.cuh``)
-runs, and where that does not fit either (every L above 256) its chunked
-form. The table here pins the bytes and the kernel each wrapper picks,
-computed from the same formulas as the CUDA sources; head dims no kernel
-takes raise.
+at L = 162 fits up to head dim 96 (224,704 B) of the 232,448 B a block may
+use; beyond that its large-head variant (the streamed kernels of
+``csrc/streamed_bwd.cuh``) runs up to L = 256. K9's backward takes the
+streamed kernels (form FORM_V1) at every head dim up to L = 256. Past L =
+256 both take their chunked form. The tables here pin the bytes and the
+kernel each wrapper picks, computed from the same formulas as the CUDA
+sources; head dims no kernel takes raise.
 
 On the CPU the plain versions run at any head dim: at 128 and 256 they are
 held to the JAX grid and windowed kernels (interpret mode; JAX's kernels have
@@ -45,11 +46,11 @@ FWD_96_162, FWD_128_162, FWD_256_162, FWD_128_256, FWD_256_12 = (76432, 96912, 1
 # (the streamed forward; the one-block backward) and the kernel each
 # direction takes
 ATTN_SMEM_TABLE = {
-    (96, 162): ((FWD_96_162, 226112), ("streamed", "base")),
-    (128, 162): ((FWD_128_162, 271168), ("streamed", "large")),
-    (256, 162): ((FWD_256_162, 451392), ("streamed", "large")),
-    (128, 256): ((FWD_128_256, 435328), ("streamed", "large")),
-    (256, 12): ((FWD_256_12, 36032), ("streamed", "large")),
+    (96, 162): ((FWD_96_162, 224704), ("streamed", "base")),
+    (128, 162): ((FWD_128_162, 269760), ("streamed", "large")),
+    (256, 162): ((FWD_256_162, 449984), ("streamed", "large")),
+    (128, 256): ((FWD_128_256, 433280), ("streamed", "large")),
+    (256, 12): ((FWD_256_12, 35904), ("streamed", "large")),
 }
 
 
@@ -60,18 +61,21 @@ def test_attn_variant_table(hd, l):
     assert (sm["fwd"], sm["bwd"]) == (fwd, bwd)
     assert (wa.attn_variant("t", hd, l, False), wa.attn_variant("t", hd, l, True)) == variants
     assert sm["fwd"] <= 232448  # the forward fits
-    bwd_need = max(sm["large_rows"], sm["large_cols"]) if variants[1] == "large" else sm["bwd"]
+    bwd_need = (max(sm["streamed_rows"], sm["streamed_cols"]) if variants[1] == "large"
+                else sm["bwd"])
     assert bwd_need <= 232448  # the chosen backward instance fits
 
 
 def test_attn_variant_large_bytes_at_e2048():
     """Head dim 256, L = 162: 100,496 B for the forward (two blocks an SM),
-    194,576 / 218,112 B for the rows and columns kernels of K9's large-head
-    backward, and 175,792 / 181,968 B for K8's (the streamed kernels: 8
-    warps, one block an SM)."""
+    175,792 / 181,968 B for the rows and columns kernels of K8's large-head
+    backward and 175,136 / 181,344 B for K9's (the streamed kernels: 8 warps,
+    one block an SM; K9's slabs need no token table)."""
     sm = wa.attn_smem_bytes(256, 162)
-    assert (sm["fwd"], sm["large_rows"], sm["large_cols"]) == (FWD_256_162, 194576, 218112)
+    assert sm["fwd"] == wa.attn_smem_bytes(256, 162, "v1")["fwd"] == FWD_256_162
     assert (sm["streamed_rows"], sm["streamed_cols"]) == (175792, 181968)
+    sm1 = wa.attn_smem_bytes(256, 162, "v1")
+    assert (sm1["streamed_rows"], sm1["streamed_cols"]) == (175136, 181344)
     assert 2 * (sm["fwd"] + 1024) <= 233472  # two blocks (and their reserve) fit the SM
 
 
@@ -86,8 +90,7 @@ def test_attn_streamed_backward_bytes(hd, l):
     statistics) at head dims 128 and 256: its shared memory fits two blocks
     an SM at head dim 128 and one at 256 (8 warps either way), does not grow
     with L but for its tables, and 'large' is chosen where the one-block
-    backward does not fit (K9's large-head kernels, the larger, bound the
-    range at L = 224 for head dim 256)."""
+    backward does not fit, at every L up to 256."""
     sm = wa.attn_smem_bytes(hd, l)
     assert (sm["streamed_rows"], sm["streamed_cols"]) == STREAMED_SMEM[hd, l]
     per_sm = 233472 // (max(sm["streamed_rows"], sm["streamed_cols"]) + 1024)
@@ -98,7 +101,7 @@ def test_attn_streamed_backward_bytes(hd, l):
 
 # (head dim, L, backward) -> the kernel that takes it, or None where none does
 VARIANT_CASES = {(96, 256, False): "streamed", (64, 256, True): "chunked",
-                 (192, 162, True): None, (256, 256, True): "chunked", (48, 12, False): None}
+                 (192, 162, True): None, (256, 256, True): "large", (48, 12, False): None}
 
 
 @pytest.mark.parametrize("hd, l, backward", list(VARIANT_CASES))
@@ -106,9 +109,10 @@ def test_attn_variant_refuses_what_no_kernel_takes(hd, l, backward):
     """Every shape the wrappers let through has a kernel whose shared memory
     fits; the others raise a ValueError before any launch. Both directions
     take any L at head dims 32/64/96/128/256 (L = 256 and 264 here), never 48
-    or 192: the backward takes the chunked instance where neither the
-    one-block one (head dim 64 at L = 256) nor the large-head one (head dim
-    256 at L = 256) fits, and at every L above 256."""
+    or 192: K8's backward takes the chunked instance where neither the
+    one-block one (head dim 64 at L = 256) nor the large-head one (head dims
+    128 and 256 only) takes the shape, and at every L above 256; its
+    large-head kernels take head dim 256 at L = 256."""
     want = VARIANT_CASES[hd, l, backward]
     if want is None:
         with pytest.raises(ValueError):
@@ -121,6 +125,39 @@ def test_attn_variant_refuses_what_no_kernel_takes(hd, l, backward):
     else:
         assert wa.attn_variant("t", 64, 264, backward) == "streamed"
         assert wa.attn_fwd_plan(64, 264)["smem"] == wa.attn_smem_bytes(64, 264)["fwd"] <= 232448
+
+
+# (head dim, L) -> K9's streamed rows and columns kernels' shared memory
+# (csrc/streamed_bwd.cuh, form FORM_V1: three row statistics, no token
+# table) and the blocks an SM their shared memory allows
+V1_STREAMED = {(96, 162): (72736, 78944, 2), (128, 162): (93216, 99424, 2),
+               (256, 162): (175136, 181344, 1), (128, 256): (93216, 100384, 2),
+               (256, 256): (175136, 182304, 1)}
+
+
+@pytest.mark.parametrize("hd, l", list(V1_STREAMED))
+def test_v1_streamed_backward_plan(hd, l):
+    """K9's backward takes the streamed kernels at every head dim up to
+    L = 256 (K8 the one-block kernel at head dim 96, its own streamed form at
+    128 and 256): 8 warps a block, one block per 64 rows of a (window, head)
+    (one d(scale) partial each), the bytes the CUDA source computes -- K8's
+    form's less its token table, and in the columns kernel the warps'
+    d(scale) sums (32 B) in its place. Registers allow the rows kernel one
+    block an SM at L = 162 and the columns kernel two up to head dim 128
+    (``streamed_bwd_info`` on the card)."""
+    rows, cols, per_sm = V1_STREAMED[hd, l]
+    plan = wa.streamed_bwd_plan(hd, l, v1=True)
+    sm = wa.attn_smem_bytes(hd, l, "v1")
+    assert (plan["rows_smem"], plan["cols_smem"]) == (sm["streamed_rows"], sm["streamed_cols"])
+    assert (plan["rows_smem"], plan["cols_smem"]) == (rows, cols)
+    lp = -(-l // 16) * 16
+    assert plan["threads"] == 256 and plan["nchunk"] == wa._row_chunks("streamed", lp)
+    assert 233472 // (max(rows, cols) + 1024) == per_sm
+    assert wa.attn_variant("t", hd, l, True, "v1") == "streamed"
+    assert wa.attn_variant("t", hd, l, True, "grid") == ("base" if hd == 96 else "large")
+    table = (l + 3) // 4 * 16
+    grid = wa.streamed_bwd_plan(hd, l, grid=True)
+    assert (grid["rows_smem"] - rows, grid["cols_smem"] - cols) == (table, table - 32)
 
 
 def test_wrappers_refuse_cpu_tensors():
