@@ -35,6 +35,7 @@ two warm-up steps:
     reverse), plus the time of those layout moves alone (one block's
     forward: the partition of x, the head split of qkv into three contiguous
     [400, 8, 162, 96] tensors, the merge and the reverse, CUDA events);
+  * train grid cpb: the grid route with the CPB (K8's BIAS instances);
   * train v1 cpb: the windowed route with the CPB (K9's BIAS instances);
   * train v6: the flagship with ``QKV_IMPL = 'v6'`` (K10 and the padded
     proj); train xla-bwd: the flagship with ``QKV_BWD_IMPL = 'xla'`` (K1,
@@ -97,17 +98,18 @@ def fwd_pass(name: str, layout: int, bias: bool, padded: bool) -> bool:
 
 # (category, test on the kernel's name), first match wins
 CATEGORIES = (
-    # the large-head backward of K8: the streamed kernels (streamed_bwd.cuh;
-    # template arguments <HD, FORM, BIAS, RAW, KEEP>, form 1 K8's softmax,
-    # form 0 the K2 family's) or, in trees before them, the wmma kernels of
-    # namespace swin_qkv_attn_large (<HD, LAYOUT, BIAS>, layout 0 the grid)
-    ("K8 large backward", lambda n: re.search(r"streamed_bwd_\w+_kernel<\d+, 1,", n) is not None
-     or ("swin_qkv_attn_large::large_bwd" in n and ", 0, " in n)),
+    # K8's backward on the streamed kernels (streamed_bwd.cuh; template
+    # arguments <HD, FORM, BIAS, RAW, KEEP>, form 1 K8's softmax, form 0 the
+    # K2 family's) or, in trees before them, the wmma kernels of namespace
+    # swin_qkv_attn_large (<HD, LAYOUT, BIAS>, layout 0 the grid: the
+    # large-head and the chunked ones)
+    ("K8 streamed backward", lambda n: re.search(r"streamed_bwd_\w+_kernel<\d+, 1,", n) is not None
+     or (re.search(r"swin_qkv_attn_large::(large|chunk)_bwd", n) is not None and ", 0, " in n)),
     # K9's backward at every head dim: the streamed kernels (form 2) or, in
     # trees before them, the wmma kernels of swin_qkv_attn_large (head dims
     # 128/256) and the one-block kernel (layout 1), and its q/k prepass
     ("K9 backward", lambda n: re.search(r"streamed_bwd_\w+_kernel<\d+, 2,", n) is not None
-     or "swin_qkv_attn_large::large_bwd" in n
+     or re.search(r"swin_qkv_attn_large::(large|chunk)_bwd", n) is not None
      or ("qkv_attention_bwd_kernel<" in n and ", 1, " in n)),
     ("K9 backward q/k prepass", lambda n: "swin_qkv_attn_large::normalize_kernel" in n),
     # the qkv-fused forwards' attention pass (the forward template's layouts 2
@@ -124,7 +126,7 @@ CATEGORIES = (
     ("K13 consume", lambda n: "consume_kernel" in n),
     # K8/K9 first: K2/K7's name tests below also match their kernels' names;
     # the forward is the streamed kernel at every head dim
-    ("K8 backward", lambda n: "qkv_attention_bwd_kernel<" in n and ", 0, " in n),
+    ("K8 one-block backward", lambda n: "qkv_attention_bwd_kernel<" in n and ", 0, " in n),
     ("K8 forward", lambda n: "qkv_attention_fwd_kernel<" in n and ", 0, " in n),
     ("K9 forward", lambda n: "qkv_attention_fwd_kernel<" in n),
     ("K8/K9 reductions", lambda n: "attn_dscale_reduce" in n or "attn_dbias_reduce" in n),
@@ -377,6 +379,8 @@ def train_paths(wanted, dev, n: int, card: str) -> None:
             ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB, ("v3", "pallas", False)),
             ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD, ("v3", "pallas", False)),
             ("train grid", chip_smoke.CONFIG, chip_smoke.GRID_ROUTE, ("v3", "pallas", False)),
+            ("train grid cpb", chip_smoke.CONFIG, {**chip_smoke.GRID_ROUTE, **chip_smoke.CPB},
+             ("v3", "pallas", False)),
             ("train v1", chip_smoke.CONFIG, chip_smoke.V1_ROUTE, ("v3", "pallas", False)),
             ("train v1 cpb", chip_smoke.CONFIG, {**chip_smoke.V1_ROUTE, **chip_smoke.CPB},
              ("v3", "pallas", False)),

@@ -17,11 +17,10 @@ printing its own lines:
      every instance of the GEMM core (its pair kernel, K6, and K3/K4's
      instances included), of K2's attention pass, of the qkv-fused
      forward's attention pass (K1, K7, K10, K12), of the streamed
-     backwards (``streamed_bwd.cuh``: K2/K7/K12 at head dims 128/256, K8's,
+     backwards (``streamed_bwd.cuh``: K2/K7/K12 at head dims 128/256, K8's
      and K9's at head dims 32-256, rows kernels with and without z and dp
-     kept in registers) and of the
-     chunked attention backwards (phase 39) must show 0 bytes spilled in the
-     ``-Xptxas -v`` log.
+     kept in registers) and of the qkv-fused family's chunked backwards
+     (phase 39) must show 0 bytes spilled in the ``-Xptxas -v`` log.
   3. the window-attention kernel (K1: the projection on the GEMM core, then
      the streamed attention pass) against its plain version at the flagship
      shapes, unshifted and with the shifted-block mask; its breakdown by
@@ -111,6 +110,11 @@ printing its own lines:
      (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), blocks per (window,
      head), and the wrapper's host us per call beside the kernel's ms; every
      forward instance must show 0 bytes spilled in the ``-Xptxas -v`` log.
+     The backward (the streamed kernels, form FORM_GRID) prints its launch
+     report the same way (``grid_streamed_bwd_info``: each kernel's shared
+     memory, registers, local bytes, which must be 0, and resident blocks
+     per SM) and its breakdown by torch.profiler (the rows and columns
+     kernels, the reductions) beside SDPA's backward.
  21. the grid route on the flagship (``attn_impl: 'pallas'``): 4 rollout
      steps (K8 forward and K3 48 times, K1 never), step 1 against the plain
      path; then 3 train steps with drop-path 0.1 live: K8 forward and backward
@@ -194,13 +198,19 @@ printing its own lines:
      with x read MN-major), each timed beside ``torch.matmul`` at the same
      shape (the library yardstick; the port never calls it), with its share
      of the bf16 peak.
- 39. the chunked backwards past L = 256 (window 12 x 24, L = 288, on a [1,
-     24, 48] grid, 2 heads, shifted) at head dims 32-256: K2, K7, v5, v4,
-     K8 and K9 (bias-free and BIAS), and below head dim 128 K10 and the
-     padded v4, each once against its plain version, two calls bit-equal,
-     timed beside its bound (the padded variants' pad columns exactly zero);
-     K8's and K9's beside SDPA's backward on the windowed tensors [4, 2, 288,
-     hd] (``library_ms``).
+ 39. the backwards past L = 256 (window 12 x 24, L = 288, on a [1, 24, 48]
+     grid, 2 heads, shifted) at head dims 32-256: the qkv-fused family's
+     chunked kernels (K2, K7, v5, v4, and below head dim 128 K10 and the
+     padded v4) and K8's and K9's streamed kernels (bias-free and BIAS),
+     each once against its plain version, two calls bit-equal, timed beside
+     its bound (the padded variants' pad columns exactly zero); K8's and
+     K9's beside SDPA's backward on the windowed tensors [4, 2, 288, hd]
+     (``library_ms``). Then K8 and K9 (bias-free and BIAS) at L = 288 at full
+     width: window 12 x 24 on [1, 180, 360, C] (225 windows), 8 heads of 96
+     (C = 768) and of 256 (C = 2048), K9 on the windowed [225, 8, 288, hd],
+     shifted: against their plain versions, two calls bit-equal, timed
+     beside the bound and SDPA's backward, with each one's breakdown by
+     torch.profiler.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -234,8 +244,9 @@ same call (null where no backend takes the shape); for K13 ``torch.sum(s, 0)`` (
 kernel twice, as the TPU kernel); null for the others (no single PyTorch call
 computes them; K11's entries add ``F.layer_norm``'s time as context; K3's and
 K4's add ``matmul_ms``, ``torch.matmul`` of their operands, as a yardstick).
-The backward entries carry phase 39's results under ``chunked_l288`` (by
-head dim, each with its bound), and the large-head backwards their
+The backward entries carry phase 39's results under ``l288`` (by head dim,
+each with its bound and the variant that ran; K8's and K9's full-width
+cases under ``l288_full``), and the large-head backwards their
 breakdown under ``breakdown`` (and ``train_shape``'s). K8/K9's entries are named by their main paths (the grid, windowed
 and CPB train steps). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
@@ -386,13 +397,13 @@ def fwd_spills() -> dict:
 CORE_KERNELS = r"7swin_wg11gemm_kernelI"
 PAIR_KERNELS = r"7swin_wg16gemm_pair_kernelI"
 # K3 (K5's fc1 instance) and K4 on the core, and the chunked attention
-# backwards (any L; every qkv-fused variant and K8/K9)
+# backwards (any L; every qkv-fused variant)
 K34_KERNELS = r"7swin_wg11gemm_kernelI\w*?(11Fc1Epilogue|12DpreEpilogue)"
 CHUNK_KERNELS = r"chunk_bwd_(rows|cols)_kernelI"
 K2_PASS_KERNELS = r"_GLOBAL__N_\w*20attention_bwd_kernelI"
 K1_PASS_KERNELS = r"qkv_attention_fwd_kernelILi\d+ELi[23]E"
-# the streamed backward (streamed_bwd.cuh): K2/K7/K12 and K8 at head dims
-# 128/256, K9 at 32-256
+# the streamed backward (streamed_bwd.cuh): K2/K7/K12 at head dims 128/256,
+# K8 and K9 at 32-256
 STREAMED_BWD_KERNELS = r"streamed_bwd_(rows|cols)_kernelI"
 
 
@@ -597,10 +608,10 @@ def main() -> None:
     for label, pattern, least in (("GEMM core", CORE_KERNELS, 16),
                                   ("GEMM core pair kernel (K6)", PAIR_KERNELS, 2),
                                   ("K3/K4 on the GEMM core", K34_KERNELS, 4),
-                                  ("chunked attention backwards (L > 256)", CHUNK_KERNELS, 92),
+                                  ("chunked qkv-fused backwards (L > 256)", CHUNK_KERNELS, 52),
                                   ("K2 attention pass", K2_PASS_KERNELS, 20),
                                   ("streamed backwards (K2/K7/K12, K8, K9)",
-                                   STREAMED_BWD_KERNELS, 60),
+                                   STREAMED_BWD_KERNELS, 78),
                                   ("K1 attention pass (K1, K7, K10, K12)", K1_PASS_KERNELS, 29)):
         spilled = build_spills(pattern)
         if len(spilled) < least or any(any(sp) for sp in spilled.values()):
@@ -1297,8 +1308,7 @@ def main() -> None:
                     fp_ms = time_ms(lambda: plain_version(fwd)(*ops, scale, *extra, *tail), 5)
                 b_ms = time_ms(lambda: bwd(*ops, scale, *extra, g, *tail), 10)
                 bp_ms = time_ms(lambda: plain_version(bwd)(*ops, scale, *extra, g, *tail), 3)
-                if wa.attn_variant("", hd_, l_win, True, layout) in ("large", "streamed") and \
-                        kind + "_bwd" + suffix not in breakdowns:  # the streamed backward's pieces
+                if kind + "_bwd" + suffix not in breakdowns:  # the streamed backward's pieces
                     breakdowns[kind + "_bwd" + suffix] = kernel_pieces(
                         lambda: bwd(*ops, scale, *extra, g, *tail),
                         bb.K9_PIECES if layout == "v1" else bb.K8_LARGE_PIECES, n=3)
@@ -1306,8 +1316,9 @@ def main() -> None:
                         + pieces_line(breakdowns[kind + "_bwd" + suffix]) + "; beside SDPA's "
                         "backward " + (f"{lib_bwd:.4f} ms" if lib_bwd is not None else "null")
                         + f" ({card})")
-                if layout == "v1" and kind + "_bwd" + suffix not in launch:
-                    info_b = wa.streamed_bwd_info(hd_, l_win, bias is not None)
+                if kind + "_bwd" + suffix not in launch:
+                    info_b = (wa.streamed_bwd_info if layout == "v1" else wa.grid_streamed_bwd_info)(
+                        hd_, l_win, bias is not None)
                     if info_b["rows_local_bytes"] or info_b["cols_local_bytes"]:
                         raise RuntimeError(f"{kind}_bwd at head dim {hd_}: local (spill) bytes "
                                            f"{info_b}")
@@ -2009,18 +2020,21 @@ def main() -> None:
     results["gemm"] = core["fc1_e2048"][:4]
     library["gemm"] = core["fc1_e2048"][4]
 
-    # ---- 39. the chunked backwards past L = 256 ----------------------------------
+    # ---- 39. the backwards past L = 256 ------------------------------------------
     win288, grid288 = (12, 24), (2, 2)
     l288 = win288[0] * win288[1]
     gh2, gw2, heads2, cin2 = 24, 48, 2, 64
     pat288 = torch.from_numpy(make_shift_mask((gh2, gw2), win288, (6, 12))[-1].copy()).to(dev)
-    log(f"[39] the chunked backwards at L = {l288} (window {win288}, x [1, {gh2}, {gw2}, {cin2}], "
-        f"{heads2} heads), shifted, against their plain versions")
-    chunked = {}
+    log(f"[39] the backwards at L = {l288} (window {win288}, x [1, {gh2}, {gw2}, {cin2}], "
+        f"{heads2} heads), shifted, against their plain versions: the qkv-fused family's "
+        f"chunked kernels, K8's and K9's streamed ones")
+    beyond = {}
     for hd in wa.ATTN_FWD_HEAD_DIMS:
         if (wa.qkv_variant("[39]", hd, l288, True), wa.attn_variant("[39]", hd, l288, True),
-                wa.attn_variant("[39]", hd, l288, True, "v1")) != ("chunked",) * 3:
-            raise RuntimeError(f"[39]: head dim {hd} at L = {l288} does not take the chunked form")
+                wa.attn_variant("[39]", hd, l288, True, "v1")) != ("chunked", "streamed",
+                                                                    "streamed"):
+            raise RuntimeError(f"[39]: head dim {hd} at L = {l288} does not take the chunked "
+                               f"qkv-fused and the streamed K8/K9 backwards")
         c2 = heads2 * hd
         x = torch.randn((1, gh2, gw2, cin2), generator=gen, device=dev).bfloat16()
         w16 = ((2 * torch.rand((cin2, 3 * c2), generator=gen, device=dev) - 1)
@@ -2099,13 +2113,71 @@ def main() -> None:
             if names == qkv_out:
                 flops += 3 * 2 * gh2 * gw2 * cin2 * 3 * c2
             b_ms, b_by = bound(flops, nbytes(*(a for a in args if torch.is_tensor(a)), *out))
-            chunked.setdefault(name, {})[hd] = {
-                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib288 if names == attn_out else None}
+            beyond.setdefault(name, {})[hd] = {
+                "variant": "streamed" if names == attn_out else "chunked", "max_abs_err": err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib288 if names == attn_out else None}
             log(f"  {name} hd {hd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}) ({card}); two calls bit-equal")
             del out, ref, again
         del x, w16, b2q, sc2, g, raw, badd, xw, gw_, qkv2, qn, kn, qw, kw, vw, gwin, cases
+        torch.cuda.empty_cache()
+    # K8 and K9 at L = 288 at full width: window 12 x 24 on [1, 180, 360, C],
+    # 15 x 15 windows, 8 heads
+    beyond_full = {}
+    nw288, grid_full = (gh // win288[0]) * (gw // win288[1]), (gh // win288[0], gw // win288[1])
+    pat_full = torch.from_numpy(make_shift_mask((gh, gw), win288, (6, 12))[-1].copy()).to(dev)
+    for hd in (96, 256):
+        cf = 8 * hd
+        qkv_f = torch.randn((b, gh, gw, 3 * cf), generator=gen, device=dev).bfloat16()
+        qn, _ = wa.normalize_heads(qkv_f[..., :cf], 8)
+        kn, _ = wa.normalize_heads(qkv_f[..., cf:2 * cf], 8)
+        g = torch.randn((b, gh, gw, cf), generator=gen, device=dev).bfloat16()
+        sc8 = torch.exp(math.log(10.0) + 0.3 * torch.randn((8,), generator=gen, device=dev))
+        raw = 2.0 * torch.randn((8, l288, l288), generator=gen, device=dev)
+        qw, kw, vw, gwin = (torch.randn((nw288, 8, l288, hd), generator=gen,
+                                        device=dev).bfloat16() for _ in range(4))
+        lib_full, why_full = bb.sdpa_bwd_ms((nw288, 8, l288, hd), raw, gen)
+        log(f"[39] K8/K9 at L = {l288}, full width: qn, kn, v {tuple(qn.shape)} (grid), q, k, v "
+            f"{tuple(qw.shape)} (windowed), 8 heads of {hd}, shifted; SDPA backward "
+            + (f"{lib_full:.4f} ms" if lib_full is not None else f"null ({why_full})")
+            + f" ({card})")
+        cases = {
+            "window_attention_grid_bwd": (wa.window_attention_grid_bwd, (
+                qn, kn, qkv_f[..., 2 * cf:], sc8, g, win288, pat_full), bb.K8_LARGE_PIECES),
+            "window_attention_grid_bias_bwd": (wa.window_attention_grid_bias_bwd, (
+                qn, kn, qkv_f[..., 2 * cf:], sc8, raw, g, win288, pat_full), bb.K8_LARGE_PIECES),
+            "window_attention_v1_bwd": (wa.window_attention_v1_bwd, (
+                qw, kw, vw, sc8, gwin, grid_full, pat_full), bb.K9_PIECES),
+            "window_attention_v1_bias_bwd": (wa.window_attention_v1_bias_bwd, (
+                qw, kw, vw, sc8, raw, gwin, grid_full, pat_full), bb.K9_PIECES)}
+        for name, (fn, args, labels) in cases.items():
+            out = fn(*args)
+            ref = plain_version(fn)(*args)
+            torch.cuda.synchronize()
+            err = max(compare(f"{name} L {l288} hd {hd} {n}", o, r, BWD_TOL[n])
+                      for n, o, r in zip(("dq", "dk", "dv", "dscale", "dbias"), out, ref))
+            again = fn(*args)
+            if not all(torch.equal(a_, o) for a_, o in zip(again, out)):
+                raise RuntimeError(f"[39] {name} at L = {l288}, head dim {hd}: two calls differ")
+            del ref, again
+            k_ms = time_ms(lambda: fn(*args), 5)
+            p_ms = time_ms(lambda: plain_version(fn)(*args), 1)
+            pieces = kernel_pieces(lambda: fn(*args), labels, n=3)
+            # five [L, L, hd] products per (window, head); each input read and
+            # each output written once
+            b_ms, b_by = bound(5 * 2 * l288 * l288 * hd * nw288 * 8,
+                               nbytes(*(a for a in args if torch.is_tensor(a)), *out))
+            beyond_full.setdefault(name, {})[hd] = {
+                "variant": wa.attn_variant("", hd, l288, True), "max_abs_err": err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_full,
+                "breakdown": pieces}
+            log(f"  {name} L {l288} hd {hd}: kernel {k_ms:.4f} ms ({pieces_line(pieces)}), plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), SDPA backward "
+                + (f"{lib_full:.4f}" if lib_full is not None else "null") + f" ms ({card}); two "
+                "calls bit-equal")
+            del out
+        del qkv_f, qn, kn, g, sc8, raw, qw, kw, vw, gwin, cases
         torch.cuda.empty_cache()
 
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
@@ -2143,12 +2215,12 @@ def main() -> None:
         "ln_dp_add_bwd": ("ln_dp_add.cu", "ln_kernels.py:98", "train_lnadd"),
         "window_attention_grid": ("window_attention_grid.cu", "window_attention.py:556",
                                   "train_grid"),
-        "window_attention_grid_bwd": ("window_attention_grid.cu", "window_attention.py:702",
-                                      "train_grid"),
+        "window_attention_grid_bwd": ("window_attention_grid_large.cu",
+                                      "window_attention.py:702", "train_grid"),
         "window_attention_grid_bias": ("window_attention_grid.cu", "window_attention.py:556",
                                        "train_grid_cpb"),
-        "window_attention_grid_bias_bwd": ("window_attention_grid.cu", "window_attention.py:702",
-                                           "train_grid_cpb"),
+        "window_attention_grid_bias_bwd": ("window_attention_grid_large.cu",
+                                           "window_attention.py:702", "train_grid_cpb"),
         "window_attention_v1": ("window_attention_v1.cu", "window_attention.py:172", "train_v1"),
         "window_attention_v1_bwd": ("window_attention_v1_large.cu", "window_attention.py:292",
                                     "train_v1"),
@@ -2232,8 +2304,10 @@ def main() -> None:
     for entry in kernels:
         if entry["name"] in yardstick:  # K3/K4: torch.matmul of the same operands (phases 4, 8)
             entry["matmul_ms"] = yardstick[entry["name"]]
-        if entry["name"] in chunked:  # the chunked form at L = 288, by head dim (phase 39)
-            entry["chunked_l288"] = chunked[entry["name"]]
+        if entry["name"] in beyond:  # past L = 256: L = 288, by head dim (phase 39)
+            entry["l288"] = beyond[entry["name"]]
+        if entry["name"] in beyond_full:  # K8/K9 at L = 288 at full width (phase 39)
+            entry["l288_full"] = beyond_full[entry["name"]]
     kernels[-1]["shapes"] = {
         tag: {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
               "bound_by": bnd[1], "library_ms": lib_ms}

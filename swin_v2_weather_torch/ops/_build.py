@@ -78,28 +78,23 @@ _SIGNATURES = {
     # K8: (q, k, v, scale, bias, mask, boundary_flag, out, B, H, W, C, heads,
     #  wh, ww, ldq, ldk, ldv, stream); bias null for the bias-free instance
     "swin_window_attention_grid_fwd": [_vp] * 6 + [_f32, _vp] + [_int] * 10 + [_vp],
-    # (q, k, v, scale, bias, mask, boundary_flag, g, dq, dk, dv, dscale_part,
-    #  dbias_part, dscale, dbias, B, H, W, C, heads, wh, ww, ldq, ldk, ldv, stream)
-    "swin_window_attention_grid_bwd": [_vp] * 6 + [_f32] + [_vp] * 8 + [_int] * 10 + [_vp],
     # K9: (q, k, v, scale, bias, mask, out, B, nwh, nww, heads, hd, L, stream)
     "swin_window_attention_v1_fwd": [_vp] * 7 + [_int] * 6 + [_vp],
     # K8/K9 forward launch shape: (hd, bias, L, info[7])
     "swin_window_attention_grid_fwd_info": [_int, _int, _int, _vp],
     "swin_window_attention_v1_fwd_info": [_int, _int, _int, _vp],
-    # K8 large-head backward: (q, k, v, scale, bias, mask,
+    # K8's backward (the streamed kernels): (q, k, v, scale, bias, mask,
     #  boundary_flag, g, dq, dk, dv, rstat, dscale_part, dbias_part, dscale,
     #  dbias, B, H, W, C, heads, wh, ww, ldq, ldk, ldv, stream)
-    "swin_window_attention_grid_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 9 + [_int] * 10 + [_vp],
+    "swin_window_attention_grid_streamed_bwd": [_vp] * 6 + [_f32] + [_vp] * 9 + [_int] * 10
+    + [_vp],
     # K9's streamed backward: (q, k, v, scale, bias, mask, g, dq, dk, dv, qn,
     #  kn, inv, rstat, dscale_part, dbias_part, dscale, dbias, B, nwh, nww,
     #  heads, hd, L, stream)
     "swin_window_attention_v1_streamed_bwd": [_vp] * 18 + [_int] * 6 + [_vp],
-    # its launch: (hd, bias, L, info[10])
+    # their launch: (hd, bias, L, info[10])
+    "swin_window_attention_grid_streamed_bwd_info": [_int, _int, _int, _vp],
     "swin_window_attention_v1_streamed_bwd_info": [_int, _int, _int, _vp],
-    # their chunked form (any head dim, any L), with the same arguments
-    "swin_window_attention_grid_chunked_bwd": [_vp] * 6 + [_f32] + [_vp] * 9 + [_int] * 10
-    + [_vp],
-    "swin_window_attention_v1_chunked_bwd": [_vp] * 18 + [_int] * 6 + [_vp],
     # the chunked backward of every qkv-fused variant: (x, wr, w, b, scale,
     #  bias, mask, boundary_flag, g, qkv, inv, rstat, dqkv, dw_part, db_part,
     #  dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, nwh, nww, lm,

@@ -1,12 +1,12 @@
 // The window-attention backward, streamed, hand-written for Hopper (sm_90a):
 // one template for the qkv-fused family's backward (K2, its K7 CPB-bias
-// instance and K12's v5/v4 instances; window_attention_qkv_large.cu) and
-// the grid route's (K8 with its BIAS instance; window_attention_grid_large.cu)
-// at head dims 128 and 256, L <= 256, where the one-block backwards do not
-// fit shared memory, and for the windowed route's (K9 with its BIAS
-// instance; window_attention_v1_large.cu) at every head dim 32-256, L <= 256.
-// The softmax form (FORM) and the layout of the token rows are its
-// parameters.
+// instance and K12's v5/v4 instances; window_attention_qkv_large.cu) at head
+// dims 128 and 256, L <= 256, where its one-block backward does not fit
+// shared memory, and for the whole of the grid route's (K8 with its BIAS
+// instance; window_attention_grid_large.cu) and of the windowed route's (K9
+// with its BIAS instance; window_attention_v1_large.cu): every head dim
+// 32-256, any L. The softmax form (FORM) and the layout of the token rows
+// are its parameters.
 //
 // Replaces, at those shapes, the TPU kernels of
 // swin_v2_weather_tpu/ops/window_attention.py:
@@ -31,10 +31,14 @@
 // give the same bits.
 //  * Blocks of up to RT_MAX = 4 16-row tiles of one (window, head), two
 //    warps a tile (8 warps; one block an SM at head dim 256, where the
-//    registers and shared memory allow no second; K9's columns kernel at
-//    head dims up to 128 is held to 128 registers, two blocks an SM, which
-//    cut it by a third at head dims 96 and 128 with nothing spilled; its
-//    rows kernel, which keeps z and dp, spills at 128). The tiles of
+//    registers and shared memory allow no second). Occupancy is the lever
+//    below that: K9's columns kernel at head dims up to 128 and both of
+//    K8's kernels up to head dim 96 are held to 128 registers, two blocks an
+//    SM, with nothing spilled (K9's columns kernel lost a third of its time
+//    at head dims 96 and 128). K8's rows kernel fits 128 by keeping z alone
+//    (Z_ONLY, below), not z and dp (96 a lane, which spilled 8-48 B a
+//    thread at 128 registers); K9's, whose ds sweep needs p and dp both,
+//    keeps one block an SM (it spills at 128). The tiles of
 //    a (window, head) are split evenly over adjacent blocks, then heads,
 //    then windows, so the streamed side comes from device memory once and
 //    from L2 after. The block's own rows (q and g; k and v) are staged once;
@@ -59,8 +63,18 @@
 //    dp of the warp's keys in registers (6 steps: 96 a lane), the statistics
 //    follow from them (K9's p replaces e there), and a second sweep (k tiles
 //    only) forms ds from them: 3 score-sized products a (query, key) tile
-//    pair. Longer windows recompute z and dp in a sweep per statistic (K8
-//    three sweeps, K9 four, the qkv-fused family two). The statistics go to
+//    pair. K8's two-block instances (head dims up to 96) keep z alone
+//    (Z_ONLY: 48 a lane): the first sweep (k tiles) gives z, the max and the
+//    sum of e = exp(z - m) in place, a second (v tiles) dp for u = sum(dp e),
+//    and the ds sweep (k and v tiles) dp again, bit for bit: 4 products a
+//    tile pair at twice the occupancy, the same sums in the same order.
+//    Longer windows (K8's and K9's at any L: nothing in shared memory grows
+//    with L but the token table and the columns kernel's row statistics,
+//    1,152 and 3,456 B at L = 288) recompute z and dp in a sweep per
+//    statistic (K8 three sweeps, K9 four, the qkv-fused family two); each
+//    statistic is exact over the lane's keys in key order before the quad
+//    and pair merges, as on the kept path, so both paths sum in the same
+//    order. The statistics go to
 //    a small workspace for the columns kernel. The ds sweep forms ds, its
 //    d(bias) entries (BIAS) and dqn += dsb @ kn16; then qd = <qn, dqn>, and
 //    the qkv-fused family's and K9's dq = (dqn - qn qd) inv_q (K8 returns
@@ -278,16 +292,31 @@ __device__ __forceinline__ void in_order(unsigned (&f0)[4], unsigned (&f1)[4],
 // the rows kernel: one block per (window, head, chunk of rt query tiles)
 // ---------------------------------------------------------------------------
 
+// Blocks an SM each kernel's launch bounds ask for (128 registers a thread at
+// two): K8's instances up to head dim 96 both kernels, K9's columns kernel up
+// to head dim 128; the others one.
+template <int HD, int FORM>
+__host__ __device__ constexpr int rows_blocks() {
+  return FORM == FORM_GRID && HD <= 96 ? 2 : 1;
+}
+template <int HD, int FORM>
+__host__ __device__ constexpr int cols_blocks() {
+  return (FORM == FORM_GRID && HD <= 96) || (FORM == FORM_V1 && HD <= 128) ? 2 : 1;
+}
+
 // KEEP (L <= KEEP_L): z and dp of the warp's keys stay in registers from the
 // first sweep to the last (two sweeps, k read twice, v once)
 template <int HD, int FORM, bool BIAS, bool RAW, bool KEEP>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, rows_blocks<HD, FORM>())
     streamed_bwd_rows_kernel(Args a, Geo g, int rt, int nchunk) {
   constexpr int LDQ = HD + 8;
   constexpr int DW = HD / 2;  // columns of dqn a warp holds
   constexpr int NO = DW / 8;  // its n8 tiles
   constexpr bool V1 = FORM == FORM_V1;
   constexpr bool MAXSUB = FORM != FORM_QKV;
+  // K8 at two blocks an SM keeps z alone: a sweep for z, one for dp and u,
+  // then the ds sweep with dp recomputed (k and v tiles)
+  constexpr bool Z_ONLY = KEEP && rows_blocks<HD, FORM>() == 2;
   constexpr int NSW = V1 ? 4 : MAXSUB ? 3 : 2;  // sweeps over the keys without KEEP
   constexpr int KST = KEEP_L / STEP;            // steps KEEP holds
   constexpr int NST = MAXSUB ? 3 : 2;  // statistics stored a row: (m,) r (K9: sum e), u
@@ -320,7 +349,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool active = q0 < LP;
   const int qr[2] = {q0 + g4, q0 + g4 + 8};  // the lane's query rows
   const int nsteps = (L + STEP - 1) / STEP;
-  const int nitems = (KEEP ? 2 : NSW) * nsteps;
+  const int nitems = (Z_ONLY ? 3 : KEEP ? 2 : NSW) * nsteps;
   // the head's column 0 of token row 0, or K9's slab row 0
   const size_t hoff = V1 ? slab * HD : static_cast<size_t>(t.h) * HD;
 
@@ -330,14 +359,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   stage_rows<HD, V1>(qs, a.q + hoff, a.ldq, tok, LS, row0, rt * 16);
   stage_rows<HD, V1>(gs, a.g + hoff, a.ldg, tok, LS, row0, rt * 16);
-  // item i: step i % nsteps of sweep i / nsteps (v: KEEP's first sweep, else
-  // the last two sweeps: K8's sums and ds, K9's u and ds; K2's family both)
+  // item i: step i % nsteps of sweep i / nsteps (k: every sweep but
+  // Z_ONLY's second; v: KEEP's first sweep, Z_ONLY's last two, else the last
+  // two sweeps: K8's sums and ds, K9's u and ds; K2's family both)
   auto load_item = [&](int i) {
     if (i < nitems) {
+      const int sw = i / nsteps;
       const int st = i % nsteps;
       bf16* dst = ring + (i % NS) * STAGE;
-      stage_rows<HD, V1>(dst, a.k + hoff, a.ldk, tok, LS, st * STEP, STEP);
-      if (KEEP ? i < nsteps : i >= (NSW - 2) * nsteps) {
+      if (!Z_ONLY || sw != 1) {
+        stage_rows<HD, V1>(dst, a.k + hoff, a.ldk, tok, LS, st * STEP, STEP);
+      }
+      if (Z_ONLY ? sw >= 1 : KEEP ? sw == 0 : sw >= NSW - 2) {
         stage_rows<HD, V1>(dst + STEP * LDQ, a.v + hoff, a.ldv, tok, LS, st * STEP, STEP);
       }
     }
@@ -395,6 +428,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     if (with_dp) score_tile<HD>(dp, gw, kst + STEP * LDQ + hf * 16 * LDQ, aoff, boff);
   };
+  // dp = g v^T alone of the warp's 16 keys of step st (0 past L), as scores
+  // forms it
+  auto dp_tile = [&](float (&dp)[2][4], const bf16* kst, int st) {
+    if (st * STEP + hf * 16 >= L) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) dp[n][x] = 0.0f;
+      }
+      return;
+    }
+    score_tile<HD>(dp, gw, kst + STEP * LDQ + hf * 16 * LDQ, aoff, boff);
+  };
   // e = exp(z - m) in place (0 past L)
   auto exps = [&](float (&z)[2][4]) {
 #pragma unroll
@@ -421,7 +467,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int x = 0; x < 4; ++x) l[x >> 1] += e[n][x];
     }
   };
-  auto add_u = [&](const float (&p)[2][4], const float (&dp)[2][4]) {  // K9's u = sum(dp p)
+  // K9's u = sum(dp p) (Z_ONLY's sum(dp e), e in p's place)
+  auto add_u = [&](const float (&p)[2][4], const float (&dp)[2][4]) {
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
 #pragma unroll
@@ -447,10 +494,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
   // a statistic of the rows over the quad's lanes, then the pair (warp 0's,
   // warp 1's): kind 0 the max; 1 the sums (the sum of e and u, then r; K9
-  // the sum of e alone); 2 K9's u. The last one stores the row's statistics
-  // for the columns kernel. Each exchange slot is written once a kernel.
+  // and Z_ONLY the sum of e alone); 2 their u. The last one stores the
+  // row's statistics for the columns kernel. Each exchange slot is written
+  // once a kernel.
   auto merge = [&](int kind) {
-    const bool with_l = kind == 1, with_u = V1 ? kind == 2 : kind == 1;
+    const bool with_l = kind == 1, with_u = V1 || Z_ONLY ? kind == 2 : kind == 1;
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
 #pragma unroll
@@ -542,13 +590,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if constexpr (KEEP) {
     // L <= KEEP_L: sweep 1 (k and v tiles) keeps z and dp of the warp's keys
-    // in registers; the statistics follow from them; sweep 2 streams k only
-    float zr[KST][2][4], dr[KST][2][4];
+    // in registers; the statistics follow from them; sweep 2 streams k only.
+    // Z_ONLY: sweep 1 streams k and keeps z, a sweep of v tiles takes u, and
+    // the ds sweep streams k and v
+    float zr[KST][2][4], dr[Z_ONLY ? 1 : KST][2][4];
 #pragma unroll
     for (int st = 0; st < KST; ++st) {
       if (st < nsteps) {
         const bf16* kst = next_item(st);
-        if (active) scores(zr[st], dr[st], kst, st, true);
+        if (active) scores(zr[st], dr[Z_ONLY ? 0 : st], kst, st, !Z_ONLY);
       }
     }
     if (active) {
@@ -563,7 +613,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int st = 0; st < KST; ++st) {
         if (st < nsteps) {
           exps(zr[st]);
-          if constexpr (V1) {
+          if constexpr (V1 || Z_ONLY) {
             add_l(zr[st]);
           } else {
             add_sums(zr[st], dr[st]);
@@ -582,12 +632,33 @@ __global__ void __launch_bounds__(THREADS, 1)
         merge(2);
       }
     }
+    if constexpr (Z_ONLY) {  // u = sum(dp e) over a sweep of v tiles
+#pragma unroll
+      for (int st = 0; st < KST; ++st) {
+        if (st < nsteps) {
+          const bf16* vst = next_item(nsteps + st);
+          if (active) {
+            float dp[2][4];
+            dp_tile(dp, vst, st);
+            add_u(zr[st], dp);
+          }
+        }
+      }
+      if (active) merge(2);
+    }
     zero_acc_regs();
 #pragma unroll
     for (int st = 0; st < KST; ++st) {
       if (st < nsteps) {
-        const bf16* kst = next_item(nsteps + st);
-        if (active) ds_step(zr[st], dr[st], kst, st);
+        const bf16* kst = next_item((Z_ONLY ? 2 : 1) * nsteps + st);
+        if (!active) continue;
+        if constexpr (Z_ONLY) {  // dp again, as the u sweep formed it
+          float dp[2][4];
+          dp_tile(dp, kst, st);
+          ds_step(zr[st], dp, kst, st);
+        } else {
+          ds_step(zr[st], dr[st], kst, st);
+        }
       }
     }
   } else {
@@ -711,10 +782,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 // the columns kernel: one block per (window, head, chunk of rt key tiles)
 // ---------------------------------------------------------------------------
 
-// K9's at head dims up to 128 asks for two blocks an SM (128 registers, none
-// spilled); the others one
 template <int HD, int FORM, bool BIAS, bool RAW>
-__global__ void __launch_bounds__(THREADS, (FORM == FORM_V1 && HD <= 128) ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, cols_blocks<HD, FORM>())
     streamed_bwd_cols_kernel(Args a, Geo g, int rt, int nchunk) {
   constexpr int LDQ = HD + 8;
   constexpr int DW = HD / 2;
@@ -960,8 +1029,8 @@ int launch(const Args& a, const Geo& g, cudaStream_t s) {
   const size_t rs = rows_smem<HD, FORM>(p.rt, g.LS);
   const size_t cs = cols_smem<HD, FORM>(p.rt, g.LP, g.LS);
   const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads * p.nchunk;
-  if (g.LP > MAX_LP || g.LS > g.LP || g.LQ > g.LS || rs > static_cast<size_t>(kMaxSmem) ||
-      cs > static_cast<size_t>(kMaxSmem) || blocks > 2147483647LL) {
+  if (g.LS > g.LP || g.LQ > g.LS || rs > static_cast<size_t>(kMaxSmem) ||
+      cs > static_cast<size_t>(kMaxSmem) || blocks < 1 || blocks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto rows = g.L <= KEEP_L ? streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, true>
@@ -991,7 +1060,7 @@ int launch_info(const Geo& g, int* info) {
   const Plan p = plan_of(g.LP);
   const size_t rs = rows_smem<HD, FORM>(p.rt, g.LS);
   const size_t cs = cols_smem<HD, FORM>(p.rt, g.LP, g.LS);
-  if (g.LP > MAX_LP || rs > static_cast<size_t>(kMaxSmem) || cs > static_cast<size_t>(kMaxSmem)) {
+  if (rs > static_cast<size_t>(kMaxSmem) || cs > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto rows = g.L <= KEEP_L ? streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, true>

@@ -1,13 +1,14 @@
 // Pieces shared by the window-attention kernels (the qkv-fused backward K2 in
 // window_attention_qkv_bwd.cu and its K7, K10 and K12 instances, the
-// large-head and chunked backwards, K8/K9 and the qkv-fused forwards' pass in
-// qkv_attention.cuh): the geometry of one launch, the block -> (window, head)
-// map, the q/k L2 normalization of 16-row tiles, the 16-row score product
-// (wmma), the chunked backwards' tile accumulation, the m16n8k16 mma and
-// ldmatrix primitives with the register-resident score tile, accumulation
-// and accumulator-to-A helpers (K2's one-block pass, the streamed large-head
-// backward of streamed_bwd.cuh), the 8-value bf16 store and the
-// window-order d(bias) reduction.
+// qkv-fused family's large-head and chunked backwards, the K8/K9 forward and
+// the qkv-fused forwards' pass in qkv_attention.cuh, and the streamed
+// backwards of streamed_bwd.cuh): the geometry of one launch, the block ->
+// (window, head) map, the q/k L2 normalization of 16-row tiles, the 16-row
+// score product (wmma), the chunked backwards' tile accumulation, the
+// m16n8k16 mma and ldmatrix primitives with the register-resident score
+// tile, accumulation and accumulator-to-A helpers (K2's one-block pass, the
+// streamed backwards), the 8-value bf16 store and the window-order d(bias)
+// reduction.
 
 #pragma once
 
@@ -231,8 +232,8 @@ __device__ __forceinline__ void dot_rows(Frag& s, const bf16* a_rows, const bf16
   }
 }
 
-// The chunked backwards (any L; window_attention_qkv_large.cu,
-// qkv_attention_large.cuh) keep one 16 x 16 bf16 tile of ds (or p) per warp,
+// The chunked backwards (any L; the qkv-fused family's, in
+// window_attention_qkv_large.cu) keep one 16 x 16 bf16 tile of ds (or p) per warp,
 // row pitch LDT, in place of a row of length L. Their kernels declare one
 // block an SM in their launch bounds (their shared memory allows one or
 // two): without it ptxas held several instances to 56-80 registers and

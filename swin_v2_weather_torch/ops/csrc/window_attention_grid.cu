@@ -1,26 +1,24 @@
-// K8: window attention on the NHWC grid, forward and backward, hand-written for
-// Hopper (sm_90a), with its CPB-bias instance.
+// K8: window attention on the NHWC grid, the forward, hand-written for Hopper
+// (sm_90a), with its CPB-bias instance (the backward at every head dim and L
+// is window_attention_grid_large.cu's).
 //
 // Replaces swin_v2_weather_tpu/ops/window_attention.py:_make_grid_kernel (the
-// forward, launched by _grid_forward) and _make_grid_bwd_kernel (the backward,
-// _grid_backward), the kernels behind fused_window_attention_grid
-// (attn_impl 'pallas'), with and without the raw CPB bias.
+// forward, launched by _grid_forward), the kernel behind
+// fused_window_attention_grid (attn_impl 'pallas'), with and without the raw
+// CPB bias.
 //
 // Bound on this card: bytes. At the flagship shape (qn, kn, v [1, 180, 360,
 // 768] bf16, 8 heads of 96, window 9 x 18) the forward moves 4 x 99.5 MB for
-// 32.3 GFLOP (0.119 ms at 3.35 TB/s against 0.033 ms at 989 TFLOP/s), the
-// backward 7 x 99.5 MB for 80.6 GFLOP (0.208 ms against 0.082 ms).
+// 32.3 GFLOP (0.119 ms at 3.35 TB/s against 0.033 ms at 989 TFLOP/s).
 //
-// Design (the templates in qkv_attention.cuh, layout GRID): the forward, at
-// head dims 32-256 and any L, runs blocks of up to 4 query-row tiles of one
+// Design (the template in qkv_attention.cuh, layout GRID): at head dims
+// 32-256 and any L, the forward runs blocks of up to 4 query-row tiles of one
 // (window, head) (two warps a tile), windows the grid by a table of token
 // pixels and reads each of q, k and v with its own pixel stride, so the
 // model's channel slices of the qkv tensor are read in place; k and v stream
 // through a cp.async ring, the scores stay in mma registers (z kept there
 // whole up to L = 192), and two sweeps over the keys replace three sweeps
-// and a p row buffer. The backward keeps one
-// block per (window, head), the scores on chip, and d(scale) and d(bias)
-// partials per (window, head) summed in window order by small kernels.
+// and a p row buffer.
 
 #include "qkv_attention.cuh"
 
@@ -50,26 +48,4 @@ extern "C" int swin_window_attention_grid_fwd(const void* q, const void* k, cons
 extern "C" int swin_window_attention_grid_fwd_info(int hd, int bias, int L, void* info) {
   if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_fwd_info<GRID>(hd, bias != 0, L, static_cast<int*>(info));
-}
-
-// The backward: the forward's operands and g [B, H, W, C] bf16 contiguous ->
-// dq, dk, dv [B, H, W, C] bf16 (dqn and dkn: the normalization VJP is the
-// caller's), dscale [heads] fp32 and, with the bias, dbias [heads, L, L] fp32.
-// Workspaces (allocated by the caller): dscale_part [B * nW, heads] fp32 and,
-// with the bias, dbias_part [B * nW, heads, LP, LP] fp32 (LP = L rounded up
-// to 16).
-extern "C" int swin_window_attention_grid_bwd(
-    const void* q, const void* k, const void* v, const void* scale, const void* bias,
-    const void* mask, float bflag, const void* g, void* dq, void* dk, void* dv,
-    void* dscale_part, void* dbias_part, void* dscale, void* dbias, int B, int H, int W, int C,
-    int heads, int wh, int ww, int ldq, int ldk, int ldv, void* stream) {
-  AttnGeo geo;
-  if (!grid_geo(geo, B, H, W, C, heads, wh, ww, ldq, ldk, ldv)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return dispatch_bwd<GRID>(
-      C / heads,
-      BwdArgs{q, k, v, scale, bias, mask, bflag, g, dq, dk, dv, dscale_part, dbias_part, dscale,
-              dbias},
-      geo, stream);
 }

@@ -1,14 +1,12 @@
 // K9's backward at every head dim and L: window attention on windowed [Bw,
-// heads, L, D] tensors, the streamed kernels at head dims 32-256 (L <= 256)
-// and the chunked form at every head dim and any L, hand-written for Hopper
-// (sm_90a), each with its CPB-bias instance (the forward at every head dim
-// is window_attention_v1.cu's).
+// heads, L, D] tensors, the streamed kernels at head dims 32-256 and any L,
+// hand-written for Hopper (sm_90a), with its CPB-bias instance (the forward
+// at every head dim is window_attention_v1.cu's).
 //
 // Replaces swin_v2_weather_tpu/ops/window_attention.py:_make_v1_bwd_kernel
 // (the backward, _v1_backward), behind fused_window_attention (attn_impl
-// 'pallas_v1'): the streamed kernels at every L up to 256 (the flagship's
-// head dim 96, head dim 128, and the e2048 family's 8 heads of 256), the
-// chunked form at every L above 256.
+// 'pallas_v1'): the flagship's head dim 96, head dim 128, the e2048 family's
+// 8 heads of 256, and every L, beyond 256 too.
 //
 // Bound on this card: bytes. At the e2048 shape (q, k, v [400, 8, 162, 256]
 // bf16, 265.4 MB each) the backward moves 7 tensors (0.555 ms at 3.35 TB/s)
@@ -17,7 +15,7 @@
 //
 // Design: a prepass writes the normalized qn16, kn16 (and the fp32 norms) to
 // scratch buffers (qkv_attention_large.cuh normalize_qk), as the K9 forward
-// normalizes in shared memory; then at L <= 256 the streamed kernels of
+// normalizes in shared memory; then the streamed kernels of
 // streamed_bwd.cuh, form FORM_V1 (K9's row-max softmax with p = e / sum e,
 // u = sum(dp p); the normalization VJP inside on the fp32 qn and kn from
 // the raw rows; d(scale) = sum(ds s) taken in the columns kernel): a rows
@@ -25,8 +23,9 @@
 // kernel (dv, dk and the d(scale) partial), 8 warps a block, every score
 // tile in mma registers, keys or queries streamed through a three-stage
 // cp.async ring from the contiguous [L, D] slab of each (window, head);
-// then the d(scale) and d(bias) partials summed in order. Past L = 256 the
-// chunked kernels of qkv_attention_large.cuh, layout WINDOWED.
+// then the d(scale) and d(bias) partials summed in order. Past L = 192 the
+// rows kernel recomputes z and dp in a sweep per statistic; nothing in
+// shared memory grows with L but the columns kernel's row statistics.
 
 #include "qkv_attention_large.cuh"
 #include "streamed_bwd.cuh"
@@ -76,7 +75,7 @@ int streamed(const LargeBwdArgs& a, const AttnGeo& geo, cudaStream_t s) {
 }
 
 int dispatch_streamed(int hd, const LargeBwdArgs& a, const AttnGeo& g, cudaStream_t s) {
-  if (g.LP > MAX_LP || (a.bias != nullptr && (a.dbias_part == nullptr || a.dbias == nullptr))) {
+  if (a.bias != nullptr && (a.dbias_part == nullptr || a.dbias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (hd) {
@@ -119,7 +118,6 @@ int streamed_info(int hd, bool bias, int L, int* info) {
   }
 }
 
-template <bool CHUNKED>
 int v1_bwd(const void* q, const void* k, const void* v, const void* scale, const void* bias,
            const void* mask, const void* g, void* dq, void* dk, void* dv, void* qn, void* kn,
            void* inv, void* rstat, void* dscale_part, void* dbias_part, void* dscale,
@@ -133,13 +131,12 @@ int v1_bwd(const void* q, const void* k, const void* v, const void* scale, const
   if (code != 0) return code;
   const LargeBwdArgs args{qn, kn, v, scale, bias, mask, 1.0f, g, q, k, inv, dq, dk, dv, rstat,
                           dscale_part, dbias_part, dscale, dbias};
-  return CHUNKED ? dispatch_chunked_bwd<WINDOWED>(hd, args, geo, s)
-                 : dispatch_streamed(hd, args, geo, s);
+  return dispatch_streamed(hd, args, geo, s);
 }
 
 }  // namespace
 
-// The streamed backward (head dims 32-256, L <= 256): the forward's operands
+// The streamed backward (head dims 32-256, any L): the forward's operands
 // (swin_window_attention_v1_fwd) and g [Bw, heads, L, hd] bf16 -> dq, dk, dv
 // [Bw, heads, L, hd] bf16 (the normalization VJP included), dscale [heads]
 // fp32 and, with the bias, dbias [heads, L, L] fp32; scratch qn, kn [Bw, heads, L, hd]
@@ -151,26 +148,15 @@ extern "C" int swin_window_attention_v1_streamed_bwd(
     const void* mask, const void* g, void* dq, void* dk, void* dv, void* qn, void* kn, void* inv,
     void* rstat, void* dscale_part, void* dbias_part, void* dscale, void* dbias, int B, int nwh,
     int nww, int heads, int hd, int L, void* stream) {
-  return v1_bwd<false>(q, k, v, scale, bias, mask, g, dq, dk, dv, qn, kn, inv, rstat,
-                       dscale_part, dbias_part, dscale, dbias, B, nwh, nww, heads, hd, L, stream);
+  return v1_bwd(q, k, v, scale, bias, mask, g, dq, dk, dv, qn, kn, inv, rstat, dscale_part,
+                dbias_part, dscale, dbias, B, nwh, nww, heads, hd, L, stream);
 }
 
-// The streamed backward's launch at head dim hd and window length L (L <=
-// 256), into info[0..9]: threads a block, blocks per (window, head), then
-// the rows and the columns kernel's dynamic shared memory, registers a
-// thread, local (spill) bytes a thread and resident blocks per SM.
+// The streamed backward's launch at head dim hd and window length L, into
+// info[0..9]: threads a block, blocks per (window, head), then the rows and
+// the columns kernel's dynamic shared memory, registers a thread, local
+// (spill) bytes a thread and resident blocks per SM.
 extern "C" int swin_window_attention_v1_streamed_bwd_info(int hd, int bias, int L, void* info) {
   if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
   return streamed_info(hd, bias != 0, L, static_cast<int*>(info));
-}
-
-// The chunked backward (head dims 32-256, any L; shared memory independent
-// of L): the operands, scratch and outputs of the streamed one.
-extern "C" int swin_window_attention_v1_chunked_bwd(
-    const void* q, const void* k, const void* v, const void* scale, const void* bias,
-    const void* mask, const void* g, void* dq, void* dk, void* dv, void* qn, void* kn, void* inv,
-    void* rstat, void* dscale_part, void* dbias_part, void* dscale, void* dbias, int B, int nwh,
-    int nww, int heads, int hd, int L, void* stream) {
-  return v1_bwd<true>(q, k, v, scale, bias, mask, g, dq, dk, dv, qn, kn, inv, rstat, dscale_part,
-                      dbias_part, dscale, dbias, B, nwh, nww, heads, hd, L, stream);
 }

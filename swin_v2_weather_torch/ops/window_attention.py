@@ -96,14 +96,11 @@ module globals (set from the environment at import):
     not read it (JAX reads it in ``_build_qkv`` only).
 
 K8/K9's forward is one streamed kernel at head dims 32-256 and any L (keys
-and values through a ring, ``csrc/qkv_attention.cuh``). K8's backward takes
-its one-block instance where that fits shared memory (head dims up to 96 at
-L = 162) and the large-head variant at head dims 128 and 256 (the streamed
-kernels of ``csrc/streamed_bwd.cuh``, form FORM_GRID); K9's takes the
-streamed kernels (form FORM_V1, after a prepass that normalizes q and k) at
-every head dim; past L = 256 both take their chunked form
-(``csrc/qkv_attention_large.cuh``). :func:`attn_variant` says which runs in
-each direction for each layout, or raises.
+and values through a ring, ``csrc/qkv_attention.cuh``), and so is each
+one's backward: the streamed kernels of ``csrc/streamed_bwd.cuh`` (K8 form
+FORM_GRID; K9 form FORM_V1, after a prepass that normalizes q and k) at
+head dims 32-256 and any L. :func:`attn_variant` says which runs in each
+direction for each layout, or raises.
 """
 
 from __future__ import annotations
@@ -146,7 +143,7 @@ qkv_bwd_impl()
 _MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
 _LARGE_RW = 4  # 16-row warps per block of the chunked backward kernels
 _LDT = 24  # row pitch of the chunked backwards' per-warp 16 x 16 tile
-# the streamed large-head backward (csrc/streamed_bwd.cuh): 16-row tiles a
+# the streamed backward (csrc/streamed_bwd.cuh): 16-row tiles a
 # block (two warps each), streamed rows a step, ring stages
 _STREAMED_RT, _STREAMED_STEP, _STREAMED_NS = 4, 32, 3
 
@@ -1572,52 +1569,34 @@ ATTN_LAYOUTS = ("grid", "v1")  # K8's NHWC grid, K9's windowed [Bw, heads, L, hd
 def attn_smem_bytes(hd: int, l: int, layout: str = "grid") -> dict:
     """Shared memory (bytes) of each K8 (``layout`` 'grid') or K9 ('v1')
     kernel at head dim ``hd`` and window length ``l``, as the CUDA sources
-    compute it: ``fwd`` of the streamed forward (:func:`attn_fwd_plan`),
-    ``bwd`` of the one-block-per-(window, head) backward
-    (``csrc/qkv_attention.cuh``; K8 only runs it), ``chunked`` of the chunked
-    backward's rows and columns kernels (``csrc/qkv_attention_large.cuh``; the
-    same at every L), and ``streamed_rows``/``streamed_cols`` of the layout's
-    streamed backward (:func:`streamed_bwd_plan`: K8's form at head dims
-    128/256, K9's at every head dim)."""
+    compute it: ``fwd`` of the streamed forward (:func:`attn_fwd_plan`) and
+    ``streamed_rows``/``streamed_cols`` of the layout's streamed backward
+    (:func:`streamed_bwd_plan`: K8's form or K9's, at every head dim and
+    L)."""
     if layout not in ATTN_LAYOUTS:
         raise ValueError(f"attn_smem_bytes: layout {layout!r} is not one of {ATTN_LAYOUTS}")
-    lp = -(-l // 16) * 16
-    nw, ldq, ldp, rw = lp // 16, hd + 8, lp + 8, _LARGE_RW
     plan = streamed_bwd_plan(hd, l, grid=layout == "grid", v1=layout == "v1")
-    return {
-        "fwd": attn_fwd_plan(hd, l)["smem"],
-        "bwd": 4 * lp * ldq * 2 + nw * 1024 + nw * 16 * ldp * 2 + (3 * lp + 32) * 4,
-        "chunked": (3 * rw * 16 * ldq + rw * 16 * _LDT) * 2 + (rw * 16 * hd + rw * 256 + rw) * 4,
-        "streamed_rows": plan["rows_smem"],
-        "streamed_cols": plan["cols_smem"],
-    }
+    return {"fwd": attn_fwd_plan(hd, l)["smem"], "streamed_rows": plan["rows_smem"],
+            "streamed_cols": plan["cols_smem"]}
 
 
 def attn_variant(name: str, hd: int, l: int, backward: bool, layout: str = "grid") -> str:
     """Which K8 (``layout`` 'grid') or K9 ('v1') kernel runs in one direction
-    at head dim ``hd`` and window length ``l``, a static rule. Forward:
-    ``'streamed'`` at head dims 32/64/96/128/256 and any L. Backward, at the
-    same head dims and any L: K8 ``'base'`` (the one-block instance, head dim
-    32/64/96/128, L <= 256) where its shared memory fits, else ``'large'``
-    (the streamed kernels, head dim 128 or 256, L <= 256, whose shared memory
-    fits at every such L), else ``'chunked'``; K9 ``'streamed'`` (the
-    streamed kernels at every head dim, L <= 256), else ``'chunked'``. The
-    chunked form's shared memory does not grow with L. Any other head dim
-    raises a ValueError before a launch. At L = 162 K8's backward at head dim
-    128 (269,760 B for the one-block instance) and 256 is ``'large'``."""
-    if not backward:
-        if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
-            return "streamed"
-        raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
-                         f"{ATTN_FWD_HEAD_DIMS})")
+    at head dim ``hd`` and window length ``l``, a static rule: ``'streamed'``
+    at head dims 32/64/96/128/256, in both directions, at every L whose
+    kernels fit shared memory: the backward's grows with L only by its token
+    table and its row statistics, so it takes L up to 3,328 at head dim 256
+    on the grid (4,432 windowed) and past 8,000 at the smaller head dims.
+    Any other head dim or L raises a ValueError before a launch."""
+    if hd not in ATTN_FWD_HEAD_DIMS or l < 1:
+        raise ValueError(f"{name}: no {'backward' if backward else 'forward'} kernel takes head "
+                         f"dim {hd} (both directions take {ATTN_FWD_HEAD_DIMS})")
     sm = attn_smem_bytes(hd, l, layout)
-    streamed = max(sm["streamed_rows"], sm["streamed_cols"])
-    if layout == "v1":
-        if hd not in ATTN_FWD_HEAD_DIMS or l < 1:
-            raise ValueError(f"{name}: no backward kernel takes head dim {hd} (the forward and "
-                             f"backward take {ATTN_FWD_HEAD_DIMS})")
-        return "streamed" if l <= 256 and streamed <= _MAX_SMEM else "chunked"
-    return _bwd_variant(name, hd, l, sm["bwd"], streamed)
+    need = max(sm["streamed_rows"], sm["streamed_cols"]) if backward else sm["fwd"]
+    if need > _MAX_SMEM:
+        raise ValueError(f"{name}: L = {l} needs {need} B of shared memory at head dim {hd} "
+                         f"(at most {_MAX_SMEM})")
+    return "streamed"
 
 
 def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:
@@ -1636,16 +1615,11 @@ def attn_fwd_info(layout: str, hd: int, l: int, bias: bool) -> dict:
     return dict(zip(keys, info))
 
 
-def streamed_bwd_info(hd: int, l: int, bias: bool) -> dict:
-    """K9's streamed backward at head dim ``hd`` and window length ``l``
-    (<= 256), from the CUDA runtime: threads a block, blocks per (window,
-    head), and for the rows and the columns kernel their dynamic shared
-    memory, registers a thread, local (spill) bytes a thread and resident
-    blocks per SM. Builds the library at first use; needs the GPU."""
+def _streamed_info(layout: str, hd: int, l: int, bias: bool) -> dict:
     lib = _build.load_library()
     info = (ctypes.c_int * 10)()
-    _build.check(lib.swin_window_attention_v1_streamed_bwd_info(hd, int(bias), l, info),
-                 "swin_window_attention_v1_streamed_bwd_info")
+    entry = getattr(lib, f"swin_window_attention_{layout}_streamed_bwd_info")
+    _build.check(entry(hd, int(bias), l, info), entry.__name__)
     out = {"threads": info[0], "blocks_per_window": info[1]}
     for k, kernel in enumerate(("rows", "cols")):
         for j, key in enumerate(("smem", "registers", "local_bytes", "blocks_per_sm")):
@@ -1653,16 +1627,32 @@ def streamed_bwd_info(hd: int, l: int, bias: bool) -> dict:
     return out
 
 
+def streamed_bwd_info(hd: int, l: int, bias: bool) -> dict:
+    """K9's streamed backward at head dim ``hd`` and window length ``l``,
+    from the CUDA runtime: threads a block, blocks per (window, head), and
+    for the rows and the columns kernel their dynamic shared memory,
+    registers a thread, local (spill) bytes a thread and resident blocks per
+    SM. Builds the library at first use; needs the GPU."""
+    return _streamed_info("v1", hd, l, bias)
+
+
+def grid_streamed_bwd_info(hd: int, l: int, bias: bool) -> dict:
+    """K8's streamed backward (form FORM_GRID) at head dim ``hd`` and window
+    length ``l``, from the CUDA runtime, as :func:`streamed_bwd_info`."""
+    return _streamed_info("grid", hd, l, bias)
+
+
 def _row_chunks(variant: str, lp: int) -> int:
-    """Row blocks per (window, head) of the backward: 1, or for the
-    large-head, streamed and chunked variants one per 64 rows (each writes
-    its own d(scale) partial)."""
+    """Row blocks per (window, head) of the backward: 1 (the qkv-fused
+    family's one-block kernel), or for its large-head and chunked variants
+    and K8/K9's streamed kernels one per 64 rows (each writes its own
+    d(scale) partial)."""
     return -(-(lp // 16) // _LARGE_RW) if variant in ("large", "streamed", "chunked") else 1
 
 
 def _v1_norm_scratch(q: torch.Tensor):
-    """K9's streamed and chunked backward scratch: qn16, kn16 in q's layout
-    and the fp32 norms [2, Bw, heads, L] (q's, then k's)."""
+    """K9's streamed backward scratch: qn16, kn16 in q's layout and the fp32
+    norms [2, Bw, heads, L] (q's, then k's)."""
     return (torch.empty_like(q), torch.empty_like(q),
             torch.empty((2, *q.shape[:-1]), dtype=torch.float32, device=q.device))
 
@@ -1759,28 +1749,25 @@ def _launch_grid_backward(fn, qn, kn, v, scale, bias, g, window, mask_pattern, b
     f32 = dict(dtype=torch.float32, device=dev)
     dqn, dkn, dv = (torch.empty((b, h, w, c), dtype=torch.bfloat16, device=dev)
                     for _ in range(3))
-    # d(scale) partials: one per window, or (large) one per window and 64 query rows
+    # d(scale) partials: one per window and 64 query rows
     dscale_part = torch.empty((n_win * _row_chunks(variant, lp), heads), **f32)
     dscale = torch.empty((heads,), **f32)
     # one fp32 [LP, LP] d(bias) partial per (window, head), summed in window order
     dbias_part = None if bias is None else torch.empty((n_win, heads, lp, lp), **f32)
     dbias = None if bias is None else torch.empty((heads, l, l), **f32)
+    # the per-row softmax statistics the rows and columns kernels share
+    rstat = torch.empty((n_win, heads, lp, 3), **f32)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        head = (qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
-                None if bias is None else bias.data_ptr(),
-                None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
-                g.data_ptr(), dqn.data_ptr(), dkn.data_ptr(), dv.data_ptr())
-        tail = (dscale_part.data_ptr(), None if bias is None else dbias_part.data_ptr(),
-                dscale.data_ptr(), None if bias is None else dbias.data_ptr(),
-                b, h, w, c, heads, wh, ww, *lds, stream)
-        if variant == "base":
-            code = lib.swin_window_attention_grid_bwd(*head, *tail)
-        else:  # the per-row softmax statistics the rows and columns kernels share
-            rstat = torch.empty((n_win, heads, lp, 3), **f32)
-            entry = getattr(lib, f"swin_window_attention_grid_{variant}_bwd")
-            code = entry(*head, rstat.data_ptr(), *tail)
+        code = lib.swin_window_attention_grid_streamed_bwd(
+            qn.data_ptr(), kn.data_ptr(), v.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if mask_pattern is None else mask_pattern.data_ptr(), float(boundary_flag),
+            g.data_ptr(), dqn.data_ptr(), dkn.data_ptr(), dv.data_ptr(), rstat.data_ptr(),
+            dscale_part.data_ptr(), None if bias is None else dbias_part.data_ptr(),
+            dscale.data_ptr(), None if bias is None else dbias.data_ptr(),
+            b, h, w, c, heads, wh, ww, *lds, stream)
     _build.check(code, name)
     fn.launches += 1
     return (dqn, dkn, dv, dscale) if bias is None else (dqn, dkn, dv, dscale, dbias)
@@ -1894,8 +1881,8 @@ def _launch_v1_backward(fn, q, k, v, scale, bias, g, window_grid, mask_pattern):
         # scratch: normalized q and k, their norms, the per-row statistics (m, sum e, u)
         qn, kn, inv = _v1_norm_scratch(q)
         rstat = torch.empty((n_win, heads, lp, 3), **f32)
-        entry = getattr(lib, f"swin_window_attention_v1_{variant}_bwd")
-        code = entry(*head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), rstat.data_ptr(), *tail)
+        code = lib.swin_window_attention_v1_streamed_bwd(
+            *head, qn.data_ptr(), kn.data_ptr(), inv.data_ptr(), rstat.data_ptr(), *tail)
     _build.check(code, name)
     fn.launches += 1
     return (dq, dk, dv, dscale) if bias is None else (dq, dk, dv, dscale, dbias)

@@ -1,34 +1,39 @@
-"""Device-time breakdown of the large-head attention backwards, beside the
-backward of ``scaled_dot_product_attention`` on the same windowed tensors.
+"""Device-time breakdown of the attention backwards, beside the backward of
+``scaled_dot_product_attention`` on the same windowed tensors.
 
 Run on a GPU from the root of a checkout of the repo:
 
     python3 -m swin_v2_weather_torch.scripts.bwd_breakdown [k2] [k8] [k9]
 
-(the named families only; all three by default) or, to measure another checkout's kernels with this script, from that
-checkout's root: ``python3 <path>/bwd_breakdown.py`` (the package and
-``chip_smoke.py``, whose timing helpers it uses, are imported from the
-working directory). Seeded inputs, window 9 x 18 (L = 162), the shifted
-block's mask, 8 heads:
+(the named families only; all three by default) or, to measure another
+checkout's kernels with this script, from that checkout's root: ``python3
+<path>/bwd_breakdown.py`` (the package and ``chip_smoke.py``, whose timing
+helpers it uses, are imported from the working directory). Seeded inputs,
+8 heads, the shifted block's mask:
 
   * K2 at head dim 256 (x [1, H, W, 2048], W_qkv [2048, 6144]) on the e2048
     image [180, 360] and on the e2048 train steps' [90, 180], and K7 on the
-    first;
-  * K8 at head dim 256 on both images and at head dim 128 (C = 1024) on the
-    first, bias-free and with a raw bias;
+    first (window 9 x 18, L = 162);
+  * K8 at head dim 256 on both images, and at head dims 96 (the flagship's
+    qn, kn [1, 180, 360, 768], v a channel slice of qkv), 128 (C = 1024), 32
+    and 64 (no path runs these two) on the first, bias-free and with a raw
+    bias (window 9 x 18);
   * K9, bias-free and with a raw bias, on windowed [nW, 8, 162, hd] tensors:
     at head dims 96 (the flagship's [400, 8, 162, 96]), 128 and 256 on the
     e2048 image (nW = 400), at head dim 256 on the train steps' image (nW =
-    100), and at head dims 32 and 64 (nW = 400), where no path runs it.
+    100), and at head dims 32 and 64 (nW = 400), where no path runs it;
+  * K8 and K9 past L = 256 at full width: window 12 x 24 (L = 288) on the
+    image [180, 360] (15 x 15 windows), head dims 96 (C = 768) and 256
+    (C = 2048), K8 on the grid and K9 on the windowed [225, 8, 288, hd].
 
 Each line gives the kernel's ms (CUDA events), its pieces (torch.profiler,
 device ms a launch: the projection recompute, the normalization, the rows
-and columns kernels (in trees before its streamed backward, K9's one-block
-kernel), dx, dW and the reductions) and SDPA's backward ms on
-windowed [nW, 8, 162, hd] bf16 tensors with the bias as a float mask (only
-``torch.autograd.grad`` timed; null with the reason where no backend takes
-the shape). Every line names the card and its power limit. Exits non-zero
-without a GPU.
+and columns kernels (in trees before the streamed backwards, K8's and K9's
+one-block kernel and the chunked rows and columns kernels), dx, dW and the
+reductions) and SDPA's backward ms on windowed [nW, 8, L, hd] bf16 tensors
+with the bias as a float mask (only ``torch.autograd.grad`` timed; null
+with the reason where no backend takes the shape). Every line names the
+card and its power limit. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -54,8 +59,13 @@ K8_LARGE_PIECES = (("rows_kernel", "rows kernel"), ("cols_kernel", "columns kern
                    ("normalize_kernel", "q/k normalization"),
                    ("attn_dscale_reduce_kernel", "d(scale) reduction"),
                    ("dbias_reduce_kernel", "d(bias) reduction"))
-K9_PIECES = (("qkv_attention_bwd_kernel", "one-block kernel"),) + K8_LARGE_PIECES
+# K8's and K9's backward in any tree: the one-block kernel and the chunked
+# kernels (past L = 256) of trees before the streamed ones took them
+K9_PIECES = (("qkv_attention_bwd_kernel", "one-block kernel"),
+             ("chunk_bwd_rows_kernel", "chunked rows kernel"),
+             ("chunk_bwd_cols_kernel", "chunked columns kernel")) + K8_LARGE_PIECES
 WINDOW = (9, 18)
+WINDOW288 = (12, 24)  # L = 288 on the image [180, 360]: 15 x 15 windows
 
 
 def sdpa_bwd_ms(shape, bias: torch.Tensor, gen: torch.Generator, n: int = 10):
@@ -85,7 +95,6 @@ def sdpa_bwd_ms(shape, bias: torch.Tensor, gen: torch.Generator, n: int = 10):
 def qkv_case(gen, hw, heads: int, hd: int):
     """x, g [1, H, W, heads * hd] bf16, W_qkv bf16, b, scale, the shifted
     block's mask and a folded CPB term, seeded."""
-    from swin_v2_weather_torch.models.swin import make_shift_mask
     from swin_v2_weather_torch.ops import window_attention as wa
 
     dev, c, l = gen.device, heads * hd, WINDOW[0] * WINDOW[1]
@@ -94,26 +103,32 @@ def qkv_case(gen, hw, heads: int, hd: int):
     w16 = ((2 * torch.rand((c, 3 * c), generator=gen, device=dev) - 1) / math.sqrt(c)).bfloat16()
     b = 0.02 * torch.randn((3 * c,), generator=gen, device=dev)
     scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
-    mask = torch.from_numpy(make_shift_mask(hw, WINDOW, (4, 9))[-1].copy()).to(dev)
+    mask = shift_mask(hw, WINDOW, dev)
     badd = wa.fold_cpb_bias(torch.randn((heads, l, l), generator=gen, device=dev), scale)
     return x, g, w16, b, scale, mask, badd
 
 
-def grid_case(gen, hw, heads: int, hd: int):
+def shift_mask(hw, window, dev):
+    """The shifted block's mask [L, L] fp32 of ``window`` on the image ``hw``."""
+    from swin_v2_weather_torch.models.swin import make_shift_mask
+
+    shift = (window[0] // 2, window[1] // 2)
+    return torch.from_numpy(make_shift_mask(hw, window, shift)[-1].copy()).to(dev)
+
+
+def grid_case(gen, hw, heads: int, hd: int, window=WINDOW):
     """qn, kn (normalized per head) and v a channel slice of one seeded qkv
     [1, H, W, 3C] bf16, g, scale, a raw bias and the shifted block's mask."""
-    from swin_v2_weather_torch.models.swin import make_shift_mask
     from swin_v2_weather_torch.ops import window_attention as wa
 
-    dev, c, l = gen.device, heads * hd, WINDOW[0] * WINDOW[1]
+    dev, c, l = gen.device, heads * hd, window[0] * window[1]
     qkv = torch.randn((1, *hw, 3 * c), generator=gen, device=dev).bfloat16()
     qn, _ = wa.normalize_heads(qkv[..., :c], heads)
     kn, _ = wa.normalize_heads(qkv[..., c:2 * c], heads)
     g = torch.randn((1, *hw, c), generator=gen, device=dev).bfloat16()
     scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
     raw = 2.0 * torch.randn((heads, l, l), generator=gen, device=dev)
-    mask = torch.from_numpy(make_shift_mask(hw, WINDOW, (4, 9))[-1].copy()).to(dev)
-    return (qn, kn, qkv[..., 2 * c:]), g, scale, raw, mask
+    return (qn, kn, qkv[..., 2 * c:]), g, scale, raw, shift_mask(hw, window, dev)
 
 
 def measure(fn, labels, n: int = 3):
@@ -123,9 +138,9 @@ def measure(fn, labels, n: int = 3):
     return time_ms(fn, n), kernel_pieces(fn, labels, n=n)
 
 
-def v1_case(gen, nw: int, heads: int, hd: int):
-    """q, k, v, g [nW, heads, 162, hd] bf16, scale and a raw bias, seeded."""
-    dev, l = gen.device, WINDOW[0] * WINDOW[1]
+def v1_case(gen, nw: int, heads: int, hd: int, l: int = WINDOW[0] * WINDOW[1]):
+    """q, k, v, g [nW, heads, L, hd] bf16, scale and a raw bias, seeded."""
+    dev = gen.device
     q, k, v, g = (torch.randn((nw, heads, l, hd), generator=gen, device=dev).bfloat16()
                   for _ in range(4))
     scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
@@ -137,7 +152,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("bwd_breakdown: no CUDA device")
     sys.path.insert(0, os.getcwd())
-    from swin_v2_weather_torch.models.swin import make_shift_mask
     from swin_v2_weather_torch.ops import window_attention as wa
 
     families = [a.lower() for a in sys.argv[1:]] or ["k2", "k8", "k9"]
@@ -148,13 +162,48 @@ def main() -> None:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2018)
-    heads, l = 8, WINDOW[0] * WINDOW[1]
+    heads = 8
 
     def report(name, ms, pieces, lib):
         lib_txt = f"{lib[0]:.4f} ms" if lib[0] is not None else f"null ({lib[1]})"
         print(f"{name}: {ms:.4f} ms; " + ", ".join(f"{k} {v:.4f}" for k, v in pieces.items())
               + f"; SDPA backward {lib_txt} ({card})", flush=True)
 
+    def k8(tag, hw, hd, window):
+        nw, l = hw[0] * hw[1] // (window[0] * window[1]), window[0] * window[1]
+        ops, g, scale, raw, mask = grid_case(gen, hw, heads, hd, window)
+        lib = sdpa_bwd_ms((nw, heads, l, hd), raw, gen)
+        for bias in (None, raw):
+            kind = "K8" if bias is None else "K8 BIAS"
+            fn = ((lambda: wa.window_attention_grid_bwd(*ops, scale, g, window, mask, 1.0))
+                  if bias is None else
+                  (lambda: wa.window_attention_grid_bias_bwd(*ops, scale, bias, g, window, mask,
+                                                             1.0)))
+            ms, pieces = measure(fn, K9_PIECES)
+            report(f"{kind} hd {hd} {tag} L {l} ({wa.attn_variant('', hd, l, True)})", ms,
+                   pieces, lib)
+        del ops, g, raw
+        torch.cuda.empty_cache()
+
+    def k9(tag, hw, hd, window):
+        # K9 on the windows of this image: its pieces name the kernels that ran
+        nw, l = hw[0] * hw[1] // (window[0] * window[1]), window[0] * window[1]
+        mask = shift_mask(hw, window, dev)
+        grid = (hw[0] // window[0], hw[1] // window[1])
+        ops, g, scale, raw = v1_case(gen, nw, heads, hd, l)
+        lib = sdpa_bwd_ms((nw, heads, l, hd), raw, gen)
+        for bias in (None, raw):
+            kind = "K9" if bias is None else "K9 BIAS"
+            fn = ((lambda: wa.window_attention_v1_bwd(*ops, scale, g, grid, mask))
+                  if bias is None else
+                  (lambda: wa.window_attention_v1_bias_bwd(*ops, scale, bias, g, grid, mask)))
+            ms, pieces = measure(fn, K9_PIECES)
+            report(f"{kind} hd {hd} {tag} [{nw}, {heads}, {l}, {hd}] "
+                   f"({wa.attn_variant('', hd, l, True, 'v1')})", ms, pieces, lib)
+        del ops, g, raw
+        torch.cuda.empty_cache()
+
+    l = WINDOW[0] * WINDOW[1]
     for tag, hw in (("e2048 [180, 360]", (180, 360)), ("e2048 train [90, 180]", (90, 180))):
         nw = hw[0] * hw[1] // l
         if "k2" in families:
@@ -169,37 +218,18 @@ def main() -> None:
                 report(f"K7 hd 256 {tag}", ms, pieces, lib)
             del x, g, w16, b, badd
             torch.cuda.empty_cache()
-        for hd in ((256, 128) if hw == (180, 360) else (256,)) if "k8" in families else ():
-            ops, g, scale, raw, mask = grid_case(gen, hw, heads, hd)
-            lib = sdpa_bwd_ms((nw, heads, l, hd), raw, gen)
-            for bias in (None, raw):
-                kind = "K8" if bias is None else "K8 BIAS"
-                fn = ((lambda: wa.window_attention_grid_bwd(*ops, scale, g, WINDOW, mask, 1.0))
-                      if bias is None else
-                      (lambda: wa.window_attention_grid_bias_bwd(*ops, scale, bias, g, WINDOW,
-                                                                 mask, 1.0)))
-                ms, pieces = measure(fn, K8_LARGE_PIECES)
-                report(f"{kind} hd {hd} {tag} ({wa.attn_variant('', hd, l, True)})", ms, pieces,
-                       lib)
-            del ops, g, raw
-            torch.cuda.empty_cache()
-        if "k9" not in families:
-            continue
-        # K9 on the windows of this image: its pieces name the kernels that ran
-        mask = torch.from_numpy(make_shift_mask(hw, WINDOW, (4, 9))[-1].copy()).to(dev)
-        grid = (hw[0] // WINDOW[0], hw[1] // WINDOW[1])
-        for hd in ((96, 128, 256, 32, 64) if hw == (180, 360) else (256,)):
-            ops, g, scale, raw = v1_case(gen, nw, heads, hd)
-            lib = sdpa_bwd_ms((nw, heads, l, hd), raw, gen)
-            for bias in (None, raw):
-                kind = "K9" if bias is None else "K9 BIAS"
-                fn = ((lambda: wa.window_attention_v1_bwd(*ops, scale, g, grid, mask))
-                      if bias is None else
-                      (lambda: wa.window_attention_v1_bias_bwd(*ops, scale, bias, g, grid, mask)))
-                ms, pieces = measure(fn, K9_PIECES)
-                report(f"{kind} hd {hd} {tag} [{nw}, {heads}, {l}, {hd}]", ms, pieces, lib)
-            del ops, g, raw
-            torch.cuda.empty_cache()
+        for hd in ((96, 256, 128, 32, 64) if hw == (180, 360) else (256,)) if "k8" in families \
+                else ():
+            k8(f"{tag}{' (flagship)' if hd == 96 else ''}", hw, hd, WINDOW)
+        for hd in ((96, 128, 256, 32, 64) if hw == (180, 360) else (256,)) if "k9" in families \
+                else ():
+            k9(tag, hw, hd, WINDOW)
+    # past L = 256 at full width: window 12 x 24 on [180, 360], 225 windows
+    for hd in (96, 256):
+        if "k8" in families:
+            k8("[180, 360]", (180, 360), hd, WINDOW288)
+        if "k9" in families:
+            k9("[180, 360]", (180, 360), hd, WINDOW288)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """SHA-256 digests of the port's attention and MLP backwards at L = 162 (and
-of the chunked backwards at L = 288).
+of the backwards past L = 256, at L = 288).
 
 Run on a GPU from the root of a checkout of the repo:
 
@@ -10,19 +10,19 @@ checkout's root: ``python3 <path>/bwd_digest.py`` (the package is imported
 from the working directory). Each line names one backward wrapper at one
 shape and gives a digest of the bytes of every output it returns, on inputs
 drawn from a fixed seed on the card: the qkv-fused family (K2, K7, K10, v5,
-v4, padded v4) at the flagship shape, K8 at head dims 96 (one-block), 128
-and 256 (the streamed kernels), K9 at head dims 96, 128 and 256 (the
-streamed kernels), K2/K7/v5/v4 at head dim 256 (the large-head variant),
-K5/K6 at the e2048 train step's shape, and the chunked
-backwards past L = 256 (K2, K7, K8, K9 and their BIAS instances at head
-dims 96 and 256, L = 288). Two trees whose lines agree compute those
-backwards bit for bit alike. Exits non-zero without a GPU.
+v4, padded v4) at the flagship shape, K8 and K9 at head dims 96, 128 and 256
+(the streamed kernels), K2/K7/v5/v4 at head dim 256 (the large-head
+variant), K5/K6 at the e2048 train step's shape, and the backwards past
+L = 256 (K2, K7: the chunked kernels; K8, K9: the streamed ones; each with
+its BIAS instance at head dims 96 and 256, L = 288). Two trees whose lines
+agree compute those backwards bit for bit alike. Exits non-zero without a
+GPU.
 
-Against a tree from before K9's streamed backward (form FORM_V1), exactly
-K9's six lines at head dims 96, 128 and 256 (bias-free and BIAS) change:
-it sums in another order than the one-block and wmma kernels did. Every
-other line (the qkv-fused family, K8, K5/K6, the chunked backwards) stays
-equal.
+Against a tree from before K8's streamed backward at head dims up to 96
+and past L = 256, exactly K8's two lines at head dim 96 and the eight K8/K9
+lines at L = 288 change: the one-block and chunked wmma kernels summed in
+another order. Every other line (the qkv-fused family, K8 at 128 and 256,
+K9 at L = 162, K5/K6, the qkv-fused chunked backwards) stays equal.
 """
 
 from __future__ import annotations
@@ -131,8 +131,8 @@ def main() -> None:
     lines.append(("mlp_fwd e2048 train shape", (mk.mlp_fwd(x2, w1, b1, w2, b2),)))
     lines.append(("mlp_bwd e2048 train shape", mk.mlp_bwd(x2, w1, b1, w2, g2)))
     del x2, g2, w1, w2
-    # the chunked backwards past L = 256: window 12 x 24 (L = 288) on a
-    # [24, 48] grid, two heads (last, so the lines above keep their inputs)
+    # the backwards past L = 256: window 12 x 24 (L = 288) on a [24, 48]
+    # grid, two heads (last, so the lines above keep their inputs)
     win288, l288, heads = (12, 24), 288, 2
     mask = torch.from_numpy(make_shift_mask((24, 48), win288, (6, 12))[-1].copy()).to(dev)
     for hd in (96, 256):
@@ -142,23 +142,23 @@ def main() -> None:
         b, scale = 0.02 * rand(3 * c), torch.exp(math.log(10.0) + 0.3 * rand(heads))
         raw = 2.0 * rand(heads, l288, l288)
         badd = wa.fold_cpb_bias(raw, scale)
-        lines.append((f"window_attention_qkv_bwd chunked hd{hd}",
+        lines.append((f"window_attention_qkv_bwd l288 hd{hd}",
                       wa.window_attention_qkv_bwd(x, w16, b, scale, g, win288, mask, 1.0)))
-        lines.append((f"window_attention_qkv_bias_bwd chunked hd{hd}",
+        lines.append((f"window_attention_qkv_bias_bwd l288 hd{hd}",
                       wa.window_attention_qkv_bias_bwd(x, w16, b, scale, badd, g, win288, mask,
                                                        1.0)))
         qkv = rand(1, 24, 48, 3 * c).bfloat16()
         qn, _ = wa.normalize_heads(qkv[..., :c], heads)
         kn, _ = wa.normalize_heads(qkv[..., c:2 * c], heads)
-        lines.append((f"window_attention_grid_bwd chunked hd{hd}", wa.window_attention_grid_bwd(
+        lines.append((f"window_attention_grid_bwd l288 hd{hd}", wa.window_attention_grid_bwd(
             qn, kn, qkv[..., 2 * c:], scale, g, win288, mask, 1.0)))
-        lines.append((f"window_attention_grid_bias_bwd chunked hd{hd}",
+        lines.append((f"window_attention_grid_bias_bwd l288 hd{hd}",
                       wa.window_attention_grid_bias_bwd(qn, kn, qkv[..., 2 * c:], scale, raw, g,
                                                         win288, mask, 1.0)))
         q, k, v, gq = (rand(4, heads, l288, hd).bfloat16() for _ in range(4))
-        lines.append((f"window_attention_v1_bwd chunked hd{hd}", wa.window_attention_v1_bwd(
+        lines.append((f"window_attention_v1_bwd l288 hd{hd}", wa.window_attention_v1_bwd(
             q, k, v, scale, gq, (2, 2), mask)))
-        lines.append((f"window_attention_v1_bias_bwd chunked hd{hd}",
+        lines.append((f"window_attention_v1_bias_bwd l288 hd{hd}",
                       wa.window_attention_v1_bias_bwd(q, k, v, scale, raw, gq, (2, 2), mask)))
     torch.cuda.synchronize()
     for name, outs in lines:

@@ -1218,7 +1218,7 @@ def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
 
 
 # --------------------------------------------------------------------------
-# K8/K9 at head dims 128 and 256 (the large-head backward), the streamed
+# K8/K9 at head dims 128 and 256 (the streamed backward), the streamed
 # forward at every head dim and beyond L = 256, K12 (v5, v4, the padded v4)
 # and K13 (consume) on the GPU
 # --------------------------------------------------------------------------
@@ -1230,12 +1230,11 @@ def test_wide_micro_model_kernel_path_matches_cpu_plain_path(cuda_device):
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_qkv_attention_large_head_kernels_match_plain(cuda_device, layout, hd, use_bias):
     """K8 and K9 at head dims 128 and 256 with L = 162 (2 heads, shifted),
-    where K8's backward takes the large-head variant and K9's the streamed
-    kernels (the forward is the streamed kernel at every head dim): against
-    their plain versions, counted on the usual wrappers, two backward calls
-    bit-equal."""
+    where both backwards take their streamed kernels (the forward is the
+    streamed kernel at every head dim): against their plain versions,
+    counted on the usual wrappers, two backward calls bit-equal."""
     lay = "grid" if layout == "grid" else "v1"
-    assert WA.attn_variant("t", hd, 162, True, lay) == ("large" if lay == "grid" else "streamed")
+    assert WA.attn_variant("t", hd, 162, True, lay) == "streamed"
     assert WA.attn_variant("t", hd, 162, False, lay) == "streamed"
     check_qkv_kernels(cuda_device, layout, use_bias, True, c=2 * hd, heads=2)
 
@@ -1295,10 +1294,11 @@ def test_qkv_attention_forward_padded_small_window(cuda_device, layout, use_bias
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_qkv_attention_forward_beyond_256_keys(cuda_device, layout, use_bias):
     """L = 288 (window 12 x 24 on a 24 x 48 grid, head dim 64), which the
-    forward streams like any L; the backward takes the chunked instance
-    there, held to its plain version with the forward (``check_qkv_kernels``)."""
+    forward streams like any L; the backward's streamed kernels take it past
+    KEEP_L = 192, held to its plain version with the forward
+    (``check_qkv_kernels``)."""
     assert WA.attn_variant("t", 64, 288, False) == "streamed"
-    assert WA.attn_variant("t", 64, 288, True) == "chunked"
+    assert WA.attn_variant("t", 64, 288, True) == "streamed"
     check_qkv_forward(cuda_device, layout, use_bias, True, h=24, w=48, c=128, heads=2,
                       window=(12, 24))
     check_qkv_kernels(cuda_device, layout, use_bias, True, h=24, w=48, c=128, heads=2,
@@ -1741,19 +1741,30 @@ def test_streamed_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd,
                              shifted=shifted)
 
 
+# (head dim, grid, window) of the streamed K8/K9 backwards' cases past
+# L = 256 (L = 288 and 576 on a [24, 48] grid), which the chunked kernels
+# took before
+BEYOND_256 = [(96, (24, 48), (12, 24)), (256, (24, 48), (12, 24)), (96, (24, 48), (24, 24)),
+              (256, (24, 48), (24, 24))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_bias", [False, True])
 @pytest.mark.parametrize("hd, hw, window", [(256, (18, 36), (9, 18)), (128, (26, 32), (13, 16)),
                                             (128, (32, 32), (16, 16)),
-                                            (256, (28, 32), (14, 16))])
+                                            (256, (28, 32), (14, 16)), (32, (18, 36), (9, 18)),
+                                            (64, (18, 36), (9, 18)), (96, (18, 36), (9, 18))]
+                         + BEYOND_256)
 @pytest.mark.parametrize("shifted", [False, True])
 def test_streamed_grid_backward_matches_plain(cuda_device, use_bias, hd, hw, window, shifted):
-    """K8's large-head backward (the streamed kernels, K8's softmax) at head
-    dim 256 with L = 162 and 224 and at head dim 128 with L = 208 and 256,
-    bias-free and BIAS, unshifted and shifted: forward and backward against
-    their plain versions, two backward calls bit-equal
+    """K8's backward (the streamed kernels, K8's softmax) at head dim 256
+    with L = 162 and 224, at head dim 128 with L = 208 and 256, at head dims
+    32, 64 and 96 with L = 162 (two blocks an SM) and at head dims 96 and 256
+    with L = 288 and 576 (past KEEP_L), bias-free and BIAS, unshifted and
+    shifted: forward and backward against their plain versions, exactly
+    their own wrappers' launches, two backward calls bit-equal
     (``check_qkv_kernels``)."""
-    assert WA.attn_variant("t", hd, window[0] * window[1], True) == "large"
+    assert WA.attn_variant("t", hd, window[0] * window[1], True) == "streamed"
     check_qkv_kernels(cuda_device, "grid", use_bias, shifted, h=hw[0], w=hw[1], c=2 * hd,
                       heads=2, window=window)
 
@@ -1762,34 +1773,20 @@ def test_streamed_grid_backward_matches_plain(cuda_device, use_bias, hd, hw, win
 @pytest.mark.parametrize("use_bias", [False, True])
 @pytest.mark.parametrize("hd, hw, window", [(256, (18, 36), (9, 18)), (256, (28, 32), (14, 16)),
                                             (256, (32, 32), (16, 16)), (128, (26, 32), (13, 16)),
-                                            (128, (32, 32), (16, 16)), (96, (18, 36), (9, 18))])
+                                            (128, (32, 32), (16, 16)), (96, (18, 36), (9, 18))]
+                         + BEYOND_256)
 @pytest.mark.parametrize("shifted", [False, True])
 def test_streamed_v1_backward_matches_plain(cuda_device, use_bias, hd, hw, window, shifted):
     """K9's backward on the streamed kernels (form FORM_V1 of
     ``csrc/streamed_bwd.cuh``, after the q/k normalization prepass) at head
-    dim 256 with L = 162, 224 and 256, at head dim 128 with L = 208 and 256
-    and at head dim 96 with L = 162, bias-free and BIAS, unshifted and
-    shifted: forward and backward against their plain versions, exactly
-    their own wrappers' launches, two backward calls bit-equal
-    (``check_qkv_kernels``)."""
+    dim 256 with L = 162, 224 and 256, at head dim 128 with L = 208 and 256,
+    at head dim 96 with L = 162 and at head dims 96 and 256 with L = 288 and
+    576 (past KEEP_L), bias-free and BIAS, unshifted and shifted: forward
+    and backward against their plain versions, exactly their own wrappers'
+    launches, two backward calls bit-equal (``check_qkv_kernels``)."""
     assert WA.attn_variant("t", hd, window[0] * window[1], True, "v1") == "streamed"
     check_qkv_kernels(cuda_device, "windowed", use_bias, shifted, h=hw[0], w=hw[1], c=2 * hd,
                       heads=2, window=window)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["grid", "windowed"])
-@pytest.mark.parametrize("use_bias", [False, True])
-@pytest.mark.parametrize("hd", [96, 256])
-@pytest.mark.parametrize("l", [288, 576])
-def test_chunked_attention_backward_matches_plain(cuda_device, layout, use_bias, hd, l):
-    """K8 and K9 (bias-free and BIAS) past L = 256, the chunked backward with
-    the streamed forward, shifted: against their plain versions, their own
-    wrappers' launches, two backward calls bit-equal (``check_qkv_kernels``)."""
-    assert WA.attn_variant("t", hd, l, True, "grid" if layout == "grid" else "v1") == "chunked"
-    (h, w), window = CHUNK_WINDOWS[l]
-    check_qkv_kernels(cuda_device, layout, use_bias, True, h=h, w=w, c=2 * hd, heads=2,
-                      window=window)
 
 
 @pytest.mark.cuda

@@ -19,9 +19,13 @@ summed over the windows in order. ``streamed_v1_backward`` below repeats
 that order in plain fp32 ops (multiply-adds in fp64, rounded once, where
 the kernel contracts them to fma), so the CPU can show the order moves no
 rounding site beyond the tolerance: at L = 162 (window 9 x 18, shifted),
-head dims 96 and 256, 2 x 2 windows of 2 heads, bias-free and with the raw
-CPB bias, it is held to the plain version (``_v1_backward_plain``) and to
-JAX's ``_v1_backward`` (its Pallas kernel in interpret mode).
+head dims 96 and 256, and at L = 288 (window 12 x 24, shifted), head dim
+32, 2 x 2 windows of 2 heads, bias-free and with the raw CPB bias, it is
+held to the plain version (``_v1_backward_plain``) and to JAX's
+``_v1_backward`` (its Pallas kernel in interpret mode). Past L = 192 the
+rows kernel recomputes z and dp in a sweep per statistic (four sweeps);
+each statistic is exact over the lane's keys before the merges, so its
+order of sums is the kept path's and one emulation serves both.
 
 Tolerance: ``GRAD_ULPS`` of tests/test_torch_grid_attention.py (dq, dk, dv 2
 bf16 ulps max and 0.02 mean of each output's scale; dscale 1 ulp; dbias 1
@@ -191,14 +195,16 @@ def streamed_v1_backward(q, k, v, scale, bias, g, window_grid, mask_pattern):
     return (*grads, dbias)
 
 
-def operands(hd, seed=11):
+def operands(hd, seed=11, window=WINDOW):
     rng = np.random.default_rng(seed)
-    shape = (BW, HEADS, L, hd)
+    l = window[0] * window[1]
+    shape = (BW, HEADS, l, hd)
     q, k, v, g = (np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.bfloat16), np.float32)
                   for _ in range(4))
     scale = np.exp(rng.standard_normal(HEADS) * 0.3 + np.log(10.0)).astype(np.float32)
-    bias = (rng.standard_normal((HEADS, L, L)) * 2.0).astype(np.float32)
-    patt = make_shift_mask((GRID[0] * WINDOW[0], GRID[1] * WINDOW[1]), WINDOW, (4, 9))[-1]
+    bias = (rng.standard_normal((HEADS, l, l)) * 2.0).astype(np.float32)
+    patt = make_shift_mask((GRID[0] * window[0], GRID[1] * window[1]), window,
+                           (window[0] // 2, window[1] // 2))[-1]
     return q, k, v, g, scale, bias, patt
 
 
@@ -213,13 +219,11 @@ def test_row_sums_follow_the_lanes():
     assert butterfly(torch.arange(32.0), (16, 8, 4, 2, 1)).item() == 496.0
 
 
-@pytest.mark.parametrize("use_bias", [False, True])
-@pytest.mark.parametrize("hd", [96, 256])
-def test_streamed_order_matches_jax_and_plain(hd, use_bias):
+def check_against_jax_and_plain(hd, use_bias, window=WINDOW):
     """The streamed order of sums against JAX's ``_v1_backward`` (interpret
     mode) and the port's plain version: dq, dk, dv, dscale (and dbias),
     within ``GRAD_ULPS``."""
-    q, k, v, g, scale, bias, patt = operands(hd)
+    q, k, v, g, scale, bias, patt = operands(hd, window=window)
     tq, tk, tv, tg = (torch.from_numpy(t) for t in (q, k, v, g))
     tscale = torch.from_numpy(scale)
     tbias = torch.from_numpy(bias) if use_bias else None
@@ -236,3 +240,17 @@ def test_streamed_order_matches_jax_and_plain(hd, use_bias):
         a = a.float().numpy()
         assert_close_ulps(a, np.asarray(r, np.float32), *GRAD_ULPS[name])
         assert_close_ulps(a, p.float().numpy(), *GRAD_ULPS[name])
+
+
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("hd", [96, 256])
+def test_streamed_order_matches_jax_and_plain(hd, use_bias):
+    """At L = 162 (the kept path), head dims 96 and 256."""
+    check_against_jax_and_plain(hd, use_bias)
+
+
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_streamed_order_past_keep_matches_jax_and_plain(use_bias):
+    """At L = 288 (window 12 x 24: the path past KEEP_L, four sweeps), head
+    dim 32."""
+    check_against_jax_and_plain(32, use_bias, window=(12, 24))

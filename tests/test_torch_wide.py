@@ -118,14 +118,20 @@ def test_streamed_bwd_plan(hd, l, ls, grid):
 @pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("l", [288, 576])
 def test_backward_variant_beyond_256(family, hd, l):
-    """Past L = 256 every backward takes the chunked instance, at every head
-    dim the forward takes: its shared memory does not depend on L and fits a
-    block (the qkv-fused family, K2/K7/K10/K12, and K8/K9 alike)."""
-    variant, smem = ((wa.qkv_variant, wa.qkv_smem_bytes) if family == "qkv"
-                     else (wa.attn_variant, wa.attn_smem_bytes))
-    assert variant("t", hd, l, False) == "streamed"
-    assert variant("t", hd, l, True) == "chunked"
-    assert smem(hd, l)["chunked"] == smem(hd, 8)["chunked"] <= 232448
+    """Past L = 256 the qkv-fused family's backward (K2/K7/K10/K12) takes its
+    chunked instance, whose shared memory does not depend on L, and K8/K9's
+    (both layouts) the streamed kernels, whose shared memory grows with L
+    only by their tables; either fits a block at every head dim the forward
+    takes."""
+    assert wa.qkv_variant("t", hd, l, False) == wa.attn_variant("t", hd, l, False) == "streamed"
+    if family == "qkv":
+        assert wa.qkv_variant("t", hd, l, True) == "chunked"
+        assert wa.qkv_smem_bytes(hd, l)["chunked"] == wa.qkv_smem_bytes(hd, 8)["chunked"] <= 232448
+    else:
+        for layout in wa.ATTN_LAYOUTS:
+            assert wa.attn_variant("t", hd, l, True, layout) == "streamed"
+            sm = wa.attn_smem_bytes(hd, l, layout)
+            assert max(sm["streamed_rows"], sm["streamed_cols"]) <= 232448
 
 
 def test_wrappers_check_before_device():

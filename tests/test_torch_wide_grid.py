@@ -4,15 +4,13 @@ widths.
 
 On the card, K8/K9's forward is one streamed kernel at head dims 32-256 and
 any L (q rows of a block staged, k and v through a ring), whose shared memory
-does not grow with L beyond a table of L words. K8's backward keeps one
-block per (window, head) with q, k, v and g [LP, hd] in shared memory, which
-at L = 162 fits up to head dim 96 (224,704 B) of the 232,448 B a block may
-use; beyond that its large-head variant (the streamed kernels of
-``csrc/streamed_bwd.cuh``) runs up to L = 256. K9's backward takes the
-streamed kernels (form FORM_V1) at every head dim up to L = 256. Past L =
-256 both take their chunked form. The tables here pin the bytes and the
-kernel each wrapper picks, computed from the same formulas as the CUDA
-sources; head dims no kernel takes raise.
+does not grow with L beyond a table of L words. So is each one's backward:
+the streamed kernels of ``csrc/streamed_bwd.cuh`` (K8 form FORM_GRID, K9
+form FORM_V1), a rows and a columns kernel of 8 warps with the streamed
+side through a ring, whose shared memory grows with L only by its token
+table and its row statistics. The tables here pin the bytes, the blocks per
+(window, head) and the kernel each wrapper picks, computed from the same
+formulas as the CUDA sources; head dims no kernel takes raise.
 
 On the CPU the plain versions run at any head dim: at 128 and 256 they are
 held to the JAX grid and windowed kernels (interpret mode; JAX's kernels have
@@ -43,14 +41,14 @@ torch.set_num_threads(1)
 FWD_96_162, FWD_128_162, FWD_256_162, FWD_128_256, FWD_256_12 = (76432, 96912, 100496, 97280,
                                                                   78384)
 # (head dim, L) -> bytes of the (forward, backward) kernels' shared memory
-# (the streamed forward; the one-block backward) and the kernel each
-# direction takes
+# (the streamed forward; the streamed backward's larger kernel, K8's form)
+# and the kernel each direction takes
 ATTN_SMEM_TABLE = {
-    (96, 162): ((FWD_96_162, 224704), ("streamed", "base")),
-    (128, 162): ((FWD_128_162, 269760), ("streamed", "large")),
-    (256, 162): ((FWD_256_162, 449984), ("streamed", "large")),
-    (128, 256): ((FWD_128_256, 433280), ("streamed", "large")),
-    (256, 12): ((FWD_256_12, 35904), ("streamed", "large")),
+    (96, 162): ((FWD_96_162, 79568), ("streamed", "streamed")),
+    (128, 162): ((FWD_128_162, 100048), ("streamed", "streamed")),
+    (256, 162): ((FWD_256_162, 181968), ("streamed", "streamed")),
+    (128, 256): ((FWD_128_256, 101376), ("streamed", "streamed")),
+    (256, 12): ((FWD_256_12, 121072), ("streamed", "streamed")),
 }
 
 
@@ -58,12 +56,10 @@ ATTN_SMEM_TABLE = {
 def test_attn_variant_table(hd, l):
     (fwd, bwd), variants = ATTN_SMEM_TABLE[hd, l]
     sm = wa.attn_smem_bytes(hd, l)
-    assert (sm["fwd"], sm["bwd"]) == (fwd, bwd)
+    assert (sm["fwd"], max(sm["streamed_rows"], sm["streamed_cols"])) == (fwd, bwd)
     assert (wa.attn_variant("t", hd, l, False), wa.attn_variant("t", hd, l, True)) == variants
     assert sm["fwd"] <= 232448  # the forward fits
-    bwd_need = (max(sm["streamed_rows"], sm["streamed_cols"]) if variants[1] == "large"
-                else sm["bwd"])
-    assert bwd_need <= 232448  # the chosen backward instance fits
+    assert bwd <= 232448  # the backward's kernels fit
 
 
 def test_attn_variant_large_bytes_at_e2048():
@@ -86,44 +82,45 @@ STREAMED_SMEM = {(128, 162): (93872, 100048), (256, 162): (175792, 181968),
 
 @pytest.mark.parametrize("hd, l", list(STREAMED_SMEM))
 def test_attn_streamed_backward_bytes(hd, l):
-    """K8's large-head backward (``csrc/streamed_bwd.cuh``, three row
+    """K8's streamed backward (``csrc/streamed_bwd.cuh``, three row
     statistics) at head dims 128 and 256: its shared memory fits two blocks
     an SM at head dim 128 and one at 256 (8 warps either way), does not grow
-    with L but for its tables, and 'large' is chosen where the one-block
-    backward does not fit, at every L up to 256."""
+    with L but for its tables, and 'streamed' is chosen at every L."""
     sm = wa.attn_smem_bytes(hd, l)
     assert (sm["streamed_rows"], sm["streamed_cols"]) == STREAMED_SMEM[hd, l]
     per_sm = 233472 // (max(sm["streamed_rows"], sm["streamed_cols"]) + 1024)
     assert per_sm == (2 if hd == 128 else 1)
-    assert wa.attn_variant("t", hd, l, True) == "large"
+    assert wa.attn_variant("t", hd, l, True) == "streamed"
     assert wa.streamed_bwd_plan(hd, l, grid=True)["threads"] == 256
 
 
 # (head dim, L, backward) -> the kernel that takes it, or None where none does
-VARIANT_CASES = {(96, 256, False): "streamed", (64, 256, True): "chunked",
-                 (192, 162, True): None, (256, 256, True): "large", (48, 12, False): None}
+VARIANT_CASES = {(96, 256, False): "streamed", (64, 256, True): "streamed",
+                 (192, 162, True): None, (256, 256, True): "streamed", (48, 12, False): None}
 
 
 @pytest.mark.parametrize("hd, l, backward", list(VARIANT_CASES))
 def test_attn_variant_refuses_what_no_kernel_takes(hd, l, backward):
     """Every shape the wrappers let through has a kernel whose shared memory
     fits; the others raise a ValueError before any launch. Both directions
-    take any L at head dims 32/64/96/128/256 (L = 256 and 264 here), never 48
-    or 192: K8's backward takes the chunked instance where neither the
-    one-block one (head dim 64 at L = 256) nor the large-head one (head dims
-    128 and 256 only) takes the shape, and at every L above 256; its
-    large-head kernels take head dim 256 at L = 256."""
+    take L = 256 and 264 here at head dims 32/64/96/128/256, never 48 or
+    192: the streamed kernels take every head dim at every such L, and the
+    backward refuses a window only where its tables would outgrow shared
+    memory (head dim 256 past L = 3,328 on the grid)."""
     want = VARIANT_CASES[hd, l, backward]
     if want is None:
         with pytest.raises(ValueError):
             wa.attn_variant("t", hd, l, backward)
     else:
         assert wa.attn_variant("t", hd, l, backward) == want
-        assert wa.attn_smem_bytes(hd, l)["chunked" if want == "chunked" else "fwd"] <= 232448
+        sm = wa.attn_smem_bytes(hd, l)
+        assert (max(sm["streamed_rows"], sm["streamed_cols"]) if backward else sm["fwd"]) <= 232448
+    assert wa.attn_variant("t", 64, 264, backward) == "streamed"
     if backward:
-        assert wa.attn_variant("t", 64, 264, backward) == "chunked"
+        assert wa.attn_variant("t", 256, 3328, backward) == "streamed"
+        with pytest.raises(ValueError, match="shared memory"):
+            wa.attn_variant("t", 256, 3329, backward)
     else:
-        assert wa.attn_variant("t", 64, 264, backward) == "streamed"
         assert wa.attn_fwd_plan(64, 264)["smem"] == wa.attn_smem_bytes(64, 264)["fwd"] <= 232448
 
 
@@ -137,9 +134,8 @@ V1_STREAMED = {(96, 162): (72736, 78944, 2), (128, 162): (93216, 99424, 2),
 
 @pytest.mark.parametrize("hd, l", list(V1_STREAMED))
 def test_v1_streamed_backward_plan(hd, l):
-    """K9's backward takes the streamed kernels at every head dim up to
-    L = 256 (K8 the one-block kernel at head dim 96, its own streamed form at
-    128 and 256): 8 warps a block, one block per 64 rows of a (window, head)
+    """K9's backward takes the streamed kernels at every head dim (K8 its
+    own streamed form): 8 warps a block, one block per 64 rows of a (window, head)
     (one d(scale) partial each), the bytes the CUDA source computes -- K8's
     form's less its token table, and in the columns kernel the warps'
     d(scale) sums (32 B) in its place. Registers allow the rows kernel one
@@ -154,10 +150,45 @@ def test_v1_streamed_backward_plan(hd, l):
     assert plan["threads"] == 256 and plan["nchunk"] == wa._row_chunks("streamed", lp)
     assert 233472 // (max(rows, cols) + 1024) == per_sm
     assert wa.attn_variant("t", hd, l, True, "v1") == "streamed"
-    assert wa.attn_variant("t", hd, l, True, "grid") == ("base" if hd == 96 else "large")
+    assert wa.attn_variant("t", hd, l, True, "grid") == "streamed"
     table = (l + 3) // 4 * 16
     grid = wa.streamed_bwd_plan(hd, l, grid=True)
     assert (grid["rows_smem"] - rows, grid["cols_smem"] - cols) == (table, table - 32)
+
+
+# (layout, head dim, L) -> (rows kernel bytes, columns kernel bytes, blocks
+# per (window, head), blocks an SM the shared memory allows): K8's form
+# (three row statistics, a token table) at the head dims its one-block and
+# chunked kernels took before, and both forms past L = 256
+STREAMED_PLANS = {("grid", 32, 162): (32432, 38608, 3, 5), ("grid", 64, 162): (52912, 59088, 3, 3),
+                  ("grid", 96, 162): (73392, 79568, 3, 2), ("grid", 96, 288): (73888, 81408, 5, 2),
+                  ("grid", 256, 288): (176288, 183808, 5, 1),
+                  ("grid", 96, 576): (75040, 86016, 9, 2), ("v1", 96, 288): (72736, 80288, 5, 2),
+                  ("v1", 256, 288): (175136, 182688, 5, 1)}
+
+
+@pytest.mark.parametrize("layout, hd, l", list(STREAMED_PLANS))
+def test_streamed_backward_plan_every_head_dim_and_l(layout, hd, l):
+    """The streamed backward's launch where the one-block and chunked
+    kernels ran before: 8 warps a block (at L = 288, 18 tiles in five blocks
+    of at most four), one d(scale) partial a block (``_row_chunks``), the
+    bytes the CUDA source computes; the shared memory of K8's kernels at
+    head dims up to
+    96 allows the two blocks an SM their launch bounds ask for, and grows
+    with L (here from L = 64, the same four tiles a block) only by the token
+    table (4 B a row) and the row statistics (12 B a row)."""
+    rows, cols, nchunk, per_sm = STREAMED_PLANS[layout, hd, l]
+    plan = wa.streamed_bwd_plan(hd, l, grid=layout == "grid", v1=layout == "v1")
+    assert (plan["rows_smem"], plan["cols_smem"], plan["nchunk"]) == (rows, cols, nchunk)
+    lp = -(-l // 16) * 16
+    assert plan["threads"] == 256 and plan["rt"] * nchunk >= lp // 16 > (plan["rt"] - 1) * nchunk
+    assert nchunk == wa._row_chunks("streamed", lp)
+    assert 233472 // (max(rows, cols) + 1024) == per_sm
+    assert wa.attn_variant("t", hd, l, True, layout) == "streamed"
+    short = wa.streamed_bwd_plan(hd, 64, grid=layout == "grid", v1=layout == "v1")  # rt 4 too
+    table = -(-l // 4) * 16 - 256 if layout == "grid" else 0  # the token table's growth
+    assert rows - short["rows_smem"] == table
+    assert cols - short["cols_smem"] == 12 * (lp - 64) + table
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -224,14 +255,15 @@ def test_wide_plain_versions_match_jax(layout, hd):
         assert_close_ulps(leaf.grad.float().numpy(), np.asarray(r, np.float32), *GRAD_ULPS[name])
 
 
-WIN288 = (12, 24)  # L = 288: the chunked backward on the card
+WIN288 = (12, 24)  # L = 288: the streamed backward past KEEP_L = 192 on the card
 
 
 @pytest.mark.parametrize("layout", ["grid", "windowed"])
 def test_window_288_plain_versions_match_jax(layout):
     """At L = 288 (window 12 x 24, two windows of two heads of 32) the port's
     K8 and K9 entry points against JAX's, with the raw bias and the shift
-    mask: the output and every gradient (bounds as at head dims 128/256)."""
+    mask: the output and every gradient (bounds as at head dims 128/256);
+    the streamed backward takes the shape on the card."""
     rng = np.random.default_rng(8)
     h, w, heads, hd, grid = 12, 48, 2, 32, (1, 2)
     l = WIN288[0] * WIN288[1]
@@ -245,7 +277,7 @@ def test_window_288_plain_versions_match_jax(layout):
                                                                   jnp.asarray(bias)]
     leaves = [torch.from_numpy(t).bfloat16().requires_grad_() for t in (q, k, v)]
     leaves += [torch.from_numpy(scale).requires_grad_(), torch.from_numpy(bias).requires_grad_()]
-    assert wa.attn_variant("t", hd, l, True) == "chunked"
+    assert wa.attn_variant("t", hd, l, True) == "streamed"
     if layout == "grid":
         out_ref, vjp = jax.vjp(lambda q_, k_, v_, s_, b_: jax_wa.fused_window_attention_grid(
             q_, k_, v_, s_, WIN288, bias=b_, mask_pattern=patt), *jargs)
