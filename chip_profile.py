@@ -206,20 +206,13 @@ def profile_steps(label: str, step, n: int, card: str) -> None:
     kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError(f"{label}: the profiler recorded no device time")
-    by_name, calls, spans = collections.Counter(), collections.Counter(), []
+    import chip_smoke
+
+    by_name, calls = collections.Counter(), collections.Counter()
     for ev in kernels:
         by_name[ev.name] += ev.time_range.elapsed_us()
         calls[ev.name] += 1
-        spans.append((ev.time_range.start, ev.time_range.end))
-    spans.sort()
-    busy, cur_s, cur_e = 0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            busy += 0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy = (busy + cur_e - cur_s) / 1e3 / n
+    busy = chip_smoke.device_busy_ms(prof) / n
     total = sum(by_name.values()) / 1e3 / n
     log(f"  profiled: wall {wall:.2f} ms/step, device busy {busy:.2f} ms/step, kernel sum "
         f"{total:.2f} ms/step, idle share {1.0 - busy / wall:.4f}; {len(kernels)} kernels "

@@ -211,6 +211,35 @@ printing its own lines:
      shifted: against their plain versions, two calls bit-equal, timed
      beside the bound and SDPA's backward, with each one's breakdown by
      torch.profiler.
+ 40. the Trainer end to end (``swin_v2_weather_torch.training.trainer``), the
+     way a user trains, in a temporary directory under the checkout's
+     ``runs/`` (removed at the end): the flagship at full width, synthetic
+     data (4 train and 4 validation samples an epoch, batch 1), drop-path
+     0.1, checkpoints on, through ``Trainer(...).build_and_launch()`` for 2
+     epochs: 2 finite ``logs.jsonl`` lines with ``valid_rmse_u10m``,
+     ``ckpt``, ``best_ckpt`` and ``hyperparams.yaml`` written, K1-K4 launched
+     12 times a train step and K1/K3 12 times a validation step (K5/K6
+     never, the GEMM core as ``check_core`` implies), no plain version
+     called, every parameter moved from the Trainer's seeded initialization,
+     and every batch, train and validation, equal on the device to the host
+     batch the loader handed over (exact checksums of the fp32 bits); the
+     checkpoint's save-blocking and background-write ms. Then the resume
+     (``max_epochs: 3``: the log names ``ckpt``, the run continues at epoch
+     2), timed by CUDA events over the epoch's steps after the first (the
+     Trainer's ms/step, loader waits included, beside phase 10's bare step);
+     a run preempted at step 2 of epoch 0 by an injected trigger, resumed,
+     whose final parameters must be bit-equal to the first run's, with a
+     torch.profiler window over 3 of its steps (the device's idle share, as
+     chip_profile.py computes it); one epoch of the 2-step fine-tune from the
+     first run's ``best_ckpt`` (``finetune: true``: the weights, and only
+     the weights, loaded; K1, K2, K5 and K6 24 times a train step, K1/K5 24
+     a validation step, K3/K4 never); the loader alone on the host (ms/batch
+     over an epoch of 5, and one sample on one thread); one batch's H2D copy
+     from the pinned ring and from pageable memory; and, where h5py is
+     installed, one epoch on a full-resolution ERA5-shaped archive (2 yearly
+     files of 3 samples, [73, 721, 1440]) through ``data_loader_config:
+     threaded`` and the native reader (else one line saying why not). Its
+     numbers, with the card, in one ``{"trainer": {...}}`` JSON line.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -227,7 +256,9 @@ K7's e2048 case under its own entries' ``e2048`` key; K8/K9's ``_e2048``
 entries: the e2048 grid and windowed train steps of phase 34, with head dim
 128 under the flagship entries' ``hd128`` key and the BIAS instances at 256
 under ``e2048``; K12: the v5, v4 and padded-v4 train steps; K13: the probe
-run; K11's streamed rows under its entries' ``streamed`` key; the e2048
+run; the Trainer's paths of phase 40 under ``launches_by_path`` as
+``trainer`` and ``trainer_2step``, per train step with the validation
+steps' launches included; K11's streamed rows under its entries' ``streamed`` key; the e2048
 train steps' kernels at those steps' shape under ``train_shape``), the launches on every
 path and per step, the largest abs
 difference from its plain version, its time and the plain version's (CUDA
@@ -258,6 +289,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import json
+import logging
 import math
 import os
 import subprocess
@@ -543,6 +575,447 @@ def check_core(tag: str, core: int, launches: dict, heads: int) -> None:
     want = sum(per.get(name, 0) * n for name, n in launches.items())
     if core != want:
         raise RuntimeError(f"{tag}: the GEMM core must launch {want} times, got {core}")
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the device event intervals of a torch.profiler run, in ms
+    (as chip_profile.py computes a step's busy time); raises where the
+    profiler recorded no device event."""
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    busy, cur_s, cur_e = 0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return (busy + cur_e - cur_s) / 1e3
+
+
+class TriggerAfter:
+    """An injected preemption trigger that fires at the n-th poll (the
+    Trainer polls once a step), in place of the signal handler."""
+
+    def __init__(self, n: int):
+        self.n, self.polls = n, 0
+
+    @property
+    def triggered(self) -> bool:
+        self.polls += 1
+        return self.polls >= self.n
+
+    def install(self):
+        return self
+
+    def uninstall(self) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def plain_calls_counted(counted):
+    """Count the calls of every counted wrapper's plain version (``<name>_reference``
+    or ``<name minus _bwd>_backward_reference`` in the wrapper's module) while
+    the block runs; yields the {name: calls} dict."""
+    calls, stack = {}, contextlib.ExitStack()
+    for fn in counted:
+        module = sys.modules[fn.__module__]
+        names = {fn.__name__ + "_reference", fn.__name__.removesuffix("_bwd") + "_backward_reference"}
+        for name in names:
+            orig = getattr(module, name, None)
+            if orig is None:
+                continue
+
+            def wrapped(*args, _orig=orig, _name=name, **kwargs):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _orig(*args, **kwargs)
+
+            stack.enter_context(mock.patch.object(module, name, wrapped))
+    with stack:
+        yield calls
+
+
+class LogCapture(logging.Handler):
+    """Collects the messages of one logger at INFO while attached."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.messages, self.logger = [], logging.getLogger(name)
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def trainer_phase(dev, card: str, counted, gemm, bare_step_ms: float) -> dict:
+    """Phase 40: the flagship and its 2-step fine-tune through the port's
+    ``Trainer`` at full width (module docstring). Runs under a temporary
+    directory of the checkout's ``runs/`` (which .gitignore lists), removed at
+    the end. Returns {path: (launches, train steps)} for the kernel line."""
+    import shutil
+    import tempfile
+
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
+    os.makedirs(runs, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=runs)
+    try:
+        return _trainer_phase(root, dev, card, counted, gemm, bare_step_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
+    import collections
+    import shutil
+
+    from swin_v2_weather_torch.config.yparams import YParams, default_config_path
+    from swin_v2_weather_torch.data import pipeline
+    from swin_v2_weather_torch.models.wrappers import get_model
+    from swin_v2_weather_torch.training import checkpoint as ckpt
+    from swin_v2_weather_torch.training import trainer as trainer_mod
+    from swin_v2_weather_torch.training.trainer import Trainer, init_parameters
+
+    n_samples, n_epochs = 4, 2  # batch 1: 4 train and 4 validation steps an epoch
+
+    def params_for(config=CONFIG, **over):
+        p = YParams(default_config_path(), config)
+        base = dict(exp_dir=root, data_loader_config="synthetic", n_synthetic_samples=n_samples,
+                    max_epochs=n_epochs, batch_size=1, save_checkpoint=True)
+        for key, val in {**base, **over}.items():
+            p[key] = val
+        return p
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+        gemm.launches = 0
+
+    def read_counts():
+        return {fn.__name__: fn.launches for fn in counted}, gemm.launches
+
+    def check_launches(tag, launches, core, want, heads):
+        want = {name: want.get(name, 0) for name in launches}
+        if launches != want:
+            raise RuntimeError(f"{tag}: launches must be {want}, got {launches}")
+        check_core(tag, core, launches, heads)
+
+    def logs_of(t):
+        with open(os.path.join(t.params["experiment_dir"], "logs.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def check_logs(tag, lines, n):
+        if len(lines) != n or not all("valid_rmse_u10m" in line and all(
+                math.isfinite(v) for v in line.values() if isinstance(v, float)) for line in lines):
+            raise RuntimeError(f"{tag}: logs.jsonl must hold {n} finite lines with "
+                               f"valid_rmse_u10m: {lines}")
+        for line in lines:
+            log(f"    epoch {line['epoch']}: loss {line['loss']:.6f}, valid_loss "
+                f"{line['valid_loss']:.6f}, valid_rmse_u10m {line['valid_rmse_u10m']:.6f}, "
+                f"lr {line['lr']:.3g}, train {line['train_time']:.2f} s, valid "
+                f"{line['valid_time']:.2f} s")
+
+    out = {"card": card}
+    probe = params_for()
+    heads, depth = int(probe.num_heads), int(probe.depth)
+    t_phase = time.time()
+    log(f"[40] the Trainer end to end: {CONFIG} at full width ({tuple(probe.img_size)}, embed "
+        f"{probe.embed_dim}, depth {depth}, {probe.compute_dtype}, batch 1, drop-path "
+        f"{probe.drop_path_rate}), synthetic data, {n_samples} train and "
+        f"{n_samples} validation samples an epoch, {n_epochs} epochs, checkpoints on, "
+        f"through Trainer.build_and_launch on {dev}")
+
+    # ---- the first run, every batch's prefetch checked ------------------------
+    checks = []
+    real_prefetch = pipeline.cuda_prefetch
+
+    def checked_prefetch(iterator, device, depth=2):
+        """cuda_prefetch with an exact checksum (the fp32 bits summed as
+        integers) of each batch as the loader hands it over, on the host, and
+        as it arrives on the device, on the consuming stream."""
+        host = collections.deque()
+
+        def tap(batches):
+            for batch in batches:
+                host.append({k: int(np.asarray(v).view(np.int32).sum(dtype=np.int64))
+                             for k, v in batch.items()})
+                yield batch
+
+        for dev_batch in real_prefetch(tap(iterator), device, depth):
+            checks.append((host.popleft(), {k: v.view(torch.int32).sum(dtype=torch.int64)
+                                            for k, v in dev_batch.items()}))
+            yield dev_batch
+
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p1 = params_for()
+    t0 = time.time()
+    with mock.patch.object(trainer_mod, "cuda_prefetch", checked_prefetch), \
+            plain_calls_counted(counted) as plain_calls:
+        t1 = Trainer(p1, CONFIG, run_num="run", device=dev)
+        t1.build_and_launch()
+    torch.cuda.synchronize()
+    out["first_run_s"] = time.time() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launches, core = read_counts()
+    n_train = n_epochs * n_samples
+    log(f"  first run: {out['first_run_s']:.1f} s, peak {out['peak_gib']:.3f} GiB; launches "
+        f"{launches}, GEMM core {core}; plain versions called: {plain_calls}")
+    check_launches("[40] first run", launches, core, {
+        "window_attention_qkv": depth * 2 * n_train, "window_attention_qkv_bwd": depth * n_train,
+        "fc1_gelu": depth * 2 * n_train, "fc1_dpre": depth * n_train}, heads)
+    if plain_calls:
+        raise RuntimeError(f"[40] the Trainer called plain versions: {plain_calls}")
+    paths = {"trainer": ({**launches, "gemm": core}, n_train)}
+    check_logs("[40] first run", logs_of(t1), n_epochs)
+    exp1 = t1.params["experiment_dir"]
+    for name in ("training_checkpoints/ckpt", "training_checkpoints/best_ckpt"):
+        if not ckpt.latest_checkpoint_exists(os.path.join(exp1, name)):
+            raise RuntimeError(f"[40] {name} missing after the run")
+    if not os.path.isfile(os.path.join(exp1, "hyperparams.yaml")):
+        raise RuntimeError("[40] hyperparams.yaml missing")
+    # every parameter moved from the Trainer's seeded initialization
+    fresh = get_model(p1, device=dev)
+    init_parameters(fresh, torch.Generator(device=dev).manual_seed(t1.seed))
+    frozen = [n for n, p in t1.model.named_parameters()
+              if torch.equal(p, fresh.get_parameter(n))]
+    if frozen:
+        raise RuntimeError(f"[40] parameters the run did not change: {frozen}")
+    bad = [i for i, (h, d) in enumerate(checks)
+           if set(h) != set(d) or any(h[k] != int(d[k]) for k in h)]
+    if len(checks) != 2 * n_train or bad:
+        raise RuntimeError(f"[40] prefetched batches differ from the host's: batches {bad} of "
+                           f"{len(checks)}")
+    log(f"  ckpt, best_ckpt, hyperparams.yaml written; all {len(list(fresh.parameters()))} "
+        f"parameter tensors moved; the {len(checks)} prefetched batches (train and validation) "
+        "equal the host's (exact checksums of the fp32 bits)")
+    out["save_blocking_ms"] = t1.ckpt_writer.last_blocking_s * 1e3
+    out["save_write_ms"] = t1.ckpt_writer.last_write_s * 1e3
+    out["checkpoint_gb"] = os.path.getsize(os.path.join(
+        exp1, "training_checkpoints", "ckpt", ckpt.CHECKPOINT_FILE)) / 1e9
+    log(f"  checkpoint {out['checkpoint_gb']:.3f} GB: save blocks {out['save_blocking_ms']:.1f} ms "
+        f"(device -> host copy), background write {out['save_write_ms']:.1f} ms ({card})")
+    final1 = {k: v.detach().cpu().clone() for k, v in t1.model.state_dict().items()}
+    del t1, fresh
+    torch.cuda.empty_cache()
+
+    # ---- resume: one more epoch, timed by CUDA events ------------------------
+    p2 = params_for(max_epochs=n_epochs + 1)
+    with LogCapture(trainer_mod.__name__) as capture:
+        t2 = Trainer(p2, CONFIG, run_num="run", device=dev)
+        t2.build()
+    want = f"Loading checkpoint {p2['checkpoint_path']}"
+    if want not in capture.messages or t2.start_epoch != n_epochs or t2.host_step != n_train:
+        raise RuntimeError(f"[40] resume: start epoch {t2.start_epoch}, step {t2.host_step}, "
+                           f"log {capture.messages}")
+    spans, step_fn = [], t2.train_step
+
+    def timed_step(batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step_fn(batch)
+        end.record()
+        spans.append((start, end))
+        return metrics
+
+    t2.train_step = timed_step
+    t2.train()
+    torch.cuda.synchronize()
+    lines = logs_of(t2)
+    if [line["epoch"] for line in lines] != list(range(1, n_epochs + 2)):
+        raise RuntimeError(f"[40] resume: logged epochs {[line['epoch'] for line in lines]}")
+    out["trainer_ms"] = spans[1][0].elapsed_time(spans[-1][1]) / (len(spans) - 1)
+    out["trainer_epoch_s"] = lines[-1]["train_time"]
+    log(f"  resume: '{want}', continued at epoch {n_epochs} (step {n_train}), logged epoch "
+        f"{lines[-1]['epoch']}; Trainer {out['trainer_ms']:.2f} ms/step (CUDA events over "
+        f"the epoch's steps after the first; prefetch and loader waits included) against the "
+        f"bare step's {bare_step_ms:.2f} ms/step (phase 10); the epoch's {n_samples} steps "
+        f"{out['trainer_epoch_s']:.2f} s on the host clock ({card})")
+    del t2, spans, step_fn
+    torch.cuda.empty_cache()
+
+    # ---- preempted at step 2 of epoch 0, resumed: bit-equal to the first run --
+    p3 = params_for()
+    t3 = Trainer(p3, CONFIG, run_num="preempted", device=dev)
+    t3.preempt = TriggerAfter(2)
+    t3.build_and_launch()
+    torch.cuda.synchronize()
+    if t3._preempted_at != 2 or logs_of(t3)[-1].get("preempted_at_step") != 2:
+        raise RuntimeError(f"[40] preemption: stopped at {t3._preempted_at}")
+    del t3
+    torch.cuda.empty_cache()
+    t4 = Trainer(params_for(), CONFIG, run_num="preempted", device=dev)
+    t4.build()
+    if (t4.start_epoch, t4.resume_step_in_epoch, t4.host_step) != (0, 2, 2):
+        raise RuntimeError(f"[40] preemption resume: epoch {t4.start_epoch}, step in epoch "
+                           f"{t4.resume_step_in_epoch}, step {t4.host_step}")
+    # the device's idle share: a torch.profiler window over 3 steps of the
+    # resumed run (epoch 1's steps 1-3), as chip_profile.py computes it
+    from torch.profiler import ProfilerActivity, profile
+
+    window, calls, step_fn4 = {}, [0], t4.train_step
+
+    def profiled_step(batch):
+        i = calls[0]
+        calls[0] += 1
+        if i == 3:
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        metrics = step_fn4(batch)
+        if i == 5:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            window["prof"].stop()
+        return metrics
+
+    t4.train_step = profiled_step
+    t4.train()
+    torch.cuda.synchronize()
+    differ = [k for k, v in t4.model.state_dict().items() if not torch.equal(v.cpu(), final1[k])]
+    if differ:
+        raise RuntimeError(f"[40] the preempted and resumed run's final parameters differ from "
+                           f"the uninterrupted run's in {len(differ)} tensors: {differ[:8]}")
+    log(f"  preempted at step 2 of epoch 0 (checkpoint with step_in_epoch 2), resumed at epoch "
+        f"0 step 2, finished: all {len(final1)} final parameter tensors bit-equal to the "
+        f"uninterrupted first run's (drop-path {probe.drop_path_rate} live)")
+    busy = device_busy_ms(window["prof"])
+    out["idle_share"] = 1.0 - busy / window["wall_ms"]
+    log(f"  idle share over 3 Trainer steps: {out['idle_share']:.4f} (device busy {busy / 3:.2f} "
+        f"of {window['wall_ms'] / 3:.2f} ms/step wall, torch.profiler, copies included; {card})")
+    del t4, final1, window
+    shutil.rmtree(os.path.join(root, CONFIG, "preempted"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- the 2-step fine-tune from the first run's best_ckpt ------------------
+    best = os.path.join(exp1, "training_checkpoints", "best_ckpt")
+    p5 = params_for(CONFIG_2STEP, max_epochs=1, finetune=True, pretrained_checkpoint_path=best,
+                    save_checkpoint=False)
+    reset_counts()
+    with plain_calls_counted(counted) as plain_calls:
+        t5 = Trainer(p5, CONFIG_2STEP, run_num="ft", device=dev)
+        t5.build()
+        disk = torch.load(os.path.join(best, ckpt.CHECKPOINT_FILE), map_location="cpu",
+                          weights_only=True)
+        live = t5.model.state_dict()
+        if (t5.start_epoch, t5.host_step, t5.params["resuming"], len(t5.optimizer.state)) != (
+                0, 0, False, 0) or set(live) != set(disk["model"]) or not all(
+                torch.equal(v.cpu(), disk["model"][k]) for k, v in live.items()):
+            raise RuntimeError("[40] fine-tune: the weights, and only the weights, must load "
+                               "from best_ckpt")
+        del disk, live
+        t5.train()
+    torch.cuda.synchronize()
+    launches, core = read_counts()
+    log(f"  2-step fine-tune from best_ckpt (weights only: step 0, epoch 0, a fresh Adam): "
+        f"launches {launches}, GEMM core {core}; plain versions called: {plain_calls}")
+    check_launches("[40] 2-step fine-tune", launches, core, {
+        "window_attention_qkv": 2 * depth * 2 * n_samples,
+        "window_attention_qkv_bwd": 2 * depth * n_samples,
+        "mlp_fwd": 2 * depth * 2 * n_samples, "mlp_bwd": 2 * depth * n_samples}, heads)
+    if plain_calls:
+        raise RuntimeError(f"[40] the fine-tune called plain versions: {plain_calls}")
+    check_logs("[40] 2-step fine-tune", logs_of(t5), 1)
+    paths["trainer_2step"] = ({**launches, "gemm": core}, n_samples)
+    del t5
+    shutil.rmtree(os.path.join(root, CONFIG), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- the loader alone on the host, and one batch's H2D copy ---------------
+    lp = params_for(n_synthetic_samples=5)
+    loader, ds = pipeline.get_data_loader(lp, "", train=True, pin_memory=dev.type == "cuda")
+    t0 = time.perf_counter()
+    arrivals = []
+    for batch in loader:
+        arrivals.append(time.perf_counter() - t0)
+    out["loader_ms"] = (arrivals[-1] - arrivals[0]) / (len(arrivals) - 1) * 1e3
+    t0 = time.perf_counter()
+    ds[0]
+    out["sample_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  loader alone ({lp.num_data_workers} workers, pinned ring): {out['loader_ms']:.1f} "
+        f"ms/batch after the first ({arrivals[0] * 1e3:.1f} ms: ring allocation and look-ahead); "
+        f"one synthetic sample on one thread {out['sample_ms']:.1f} ms")
+    pinned = batch.tensors
+    pageable = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    n_bytes = sum(t.numel() * t.element_size() for t in pinned.values())
+    for label, src in (("pinned", pinned), ("pageable", pageable)):
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            copied = {k: t.to(dev, non_blocking=True) for k, t in src.items()}
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del copied
+        out[f"h2d_{label}_ms"] = sum(times[1:]) / 3 * 1e3
+    loader.close()
+    del loader, ds, batch, pinned, pageable
+    log(f"  H2D of one batch ({n_bytes / 1e6:.1f} MB): pinned {out['h2d_pinned_ms']:.2f} ms "
+        f"({n_bytes / out['h2d_pinned_ms'] / 1e6:.2f} GB/s), pageable {out['h2d_pageable_ms']:.2f} "
+        f"ms ({n_bytes / out['h2d_pageable_ms'] / 1e6:.2f} GB/s); host clock around the copies "
+        f"and a synchronize ({card})")
+    bound_by = "the loader" if out["loader_ms"] > bare_step_ms else "the device step"
+    log(f"  where the Trainer's time goes: {out['trainer_ms']:.2f} ms/step against the bare "
+        f"step's {bare_step_ms:.2f} and the loader's {out['loader_ms']:.1f} ms/batch: bound by "
+        f"{bound_by} on synthetic data ({card})")
+    out["bound_by"] = bound_by
+
+    # ---- ERA5 on the card: a full-resolution archive, the native reader ------
+    try:
+        import h5py
+    except ImportError:
+        log("  ERA5 path not driven on this machine: h5py is not installed here (the CPU "
+            "tests, tests/test_torch_data_pipeline.py, cover the reader and the native path)")
+        out["era5"] = "not driven: no h5py"
+    else:
+        arch = os.path.join(root, "era5")
+        os.makedirs(arch)
+        rng = np.random.default_rng(SEED)
+        frame = rng.standard_normal((73, 721, 1440), dtype=np.float32)
+        for year in (2017, 2018):
+            with h5py.File(os.path.join(arch, f"{year}.h5"), "w") as f:
+                fields = f.create_dataset("fields", shape=(3, 73, 721, 1440), dtype="f4")
+                for i in range(3):
+                    fields[i] = frame * (1.0 + 0.1 * i) + (year - 2017)
+        stats = {"global_means": np.zeros((1, 73, 1, 1), np.float32),
+                 "global_stds": np.ones((1, 73, 1, 1), np.float32),
+                 "time_diff_stds": np.full((1, 73, 1, 1), 0.1, np.float32)}
+        for name, arr in stats.items():
+            np.save(os.path.join(arch, f"{name}.npy"), arr)
+        p6 = params_for(data_loader_config="threaded", train_data_path=arch,
+                        valid_data_path=arch, max_epochs=1, use_native_loader=True,
+                        save_checkpoint=False,
+                        **{f"{name}_path": os.path.join(arch, f"{name}.npy") for name in stats})
+        t0 = time.time()
+        t6 = Trainer(p6, CONFIG, run_num="era5", device=dev)
+        t6.build()
+        if t6.train_dataset._native is None:
+            raise RuntimeError("[40] ERA5: the native reader is not in use")
+        t6.train()
+        torch.cuda.synchronize()
+        check_logs("[40] ERA5", logs_of(t6), 1)
+        out["era5_s"] = time.time() - t0
+        log(f"  ERA5: 2 yearly files of 3 samples [73, 721, 1440] (cropped to 720 x 1440), "
+            f"data_loader_config 'threaded' with the native reader: one epoch of "
+            f"{len(t6.train_loader)} train and {len(t6.valid_loader)} validation steps in "
+            f"{out['era5_s']:.1f} s")
+        out["era5"] = "driven"
+        del t6
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    log(f"  phase 40 took {out['phase_s']:.1f} s")
+    print(json.dumps({"trainer": out}))
+    return paths
 
 
 def main() -> None:
@@ -2180,6 +2653,9 @@ def main() -> None:
         del qkv_f, qn, kn, g, sc8, raw, qw, kw, vw, gwin, cases
         torch.cuda.empty_cache()
 
+    # ---- 40. the Trainer end to end ---------------------------------------------
+    trainer_paths = trainer_phase(dev, card, counted, gc.gemm, train_step_ms)
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": ({**cpb_serve_launches, "gemm": cpb_serve_core}, N_STEPS),
@@ -2197,7 +2673,8 @@ def main() -> None:
                "serve_v4": (k12_paths["qkv4"][0], 2), "train_v4": (k12_paths["qkv4"][1], 3),
                "serve_v4_padded": (k12_paths["qkv4_padded"][0], 2),
                "train_v4_padded": (k12_paths["qkv4_padded"][1], 3),
-               "train_v4_cpb": (launches_v4_cpb, 2), "prestage_probe": (probe_launches, 1)}
+               "train_v4_cpb": (launches_v4_cpb, 2), "prestage_probe": (probe_launches, 1),
+               **trainer_paths}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),

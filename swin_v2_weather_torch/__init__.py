@@ -9,14 +9,19 @@ Subpackages mirror the JAX layout:
 
 config     YAML configuration system (shares the JAX package's swin.yaml)
 data       static conditioning inputs, channel bookkeeping, the preprocessor,
-           the synthetic dataset
+           the synthetic and ERA5 datasets (native pread reader), the
+           threaded loader with its pinned ring and the CUDA-stream
+           prefetch, archive statistics
 ops        zenith angle, quadrature, losses, metrics; the fused
            window-attention, fc1+GELU and whole-MLP kernels (forward and
            backward) with their plain PyTorch versions
 models     SwinV2 in PyTorch (train mode with drop-path), the single- and
            multi-step wrappers, JAX weight conversion
-training   Adam, the LR schedules, the train and eval steps
+training   Adam, the LR schedules, the train and eval steps, the Trainer,
+           torch checkpoints, preemption, the native sweep agent
 inference  model registry and the autoregressive rollout engine
+utils      logging, the metrics sink, the profiler window, plots
+train      the training CLI (``python -m swin_v2_weather_torch.train``)
 """
 
 __version__ = "0.1.0"
@@ -36,6 +41,7 @@ _LAZY = {
     "build_train_step": ("swin_v2_weather_torch.training.step", "build_train_step"),
     "build_eval_step": ("swin_v2_weather_torch.training.step", "build_eval_step"),
     "load_model": ("swin_v2_weather_torch.inference.registry", "load_model"),
+    "Trainer": ("swin_v2_weather_torch.training.trainer", "Trainer"),
 }
 
 __all__ = sorted(_LAZY)

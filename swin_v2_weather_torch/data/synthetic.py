@@ -6,7 +6,8 @@ fields with the shapes of the ERA5 yearly archives, and per-sample zenith
 channels computed from real timestamps (sample i starts at
 2018-01-01T00:00 + 6 h * i), so the preprocessor, the model and the loss run
 their true code paths without data files. :func:`collate` stacks samples into
-the batch dict the train step takes; there is no loader thread.
+the batch dict the train step takes outside the loader (the Trainer reads
+batches through ``data/pipeline.ThreadedLoader``).
 """
 
 from __future__ import annotations
@@ -23,14 +24,16 @@ from swin_v2_weather_torch.ops.zenith import cos_zenith_angle
 class SyntheticDataset:
     """Deterministic random fields shaped like the ERA5 yearly archives."""
 
-    def __init__(self, params, train: bool = True):
+    def __init__(self, params, location: str = "", train: bool = True, n_samples: int = 64):
+        self.train = train
         self.dt = int(params.dt)
         self.n_future = int(params.n_future)
         self.n_in = len(params.in_channels)
         self.n_out = len(params.out_channels)
         self.img_shape = (int(params.img_size[0]), int(params.img_size[1]))
+        self.img_shape_x, self.img_shape_y = self.img_shape
         self.add_zenith = bool(params.add_zenith)
-        self.n_samples_total = int(getattr(params, "n_synthetic_samples", 64))
+        self.n_samples_total = int(getattr(params, "n_synthetic_samples", n_samples))
         self._base_seed = int(getattr(params, "seed", 333) or 333) + (0 if train else 7919)
 
         if self.add_zenith:

@@ -1,2 +1,3 @@
-"""Training: the optimizer, the LR schedules and the single-step train and eval
-steps (counterpart of the matching modules of ``swin_v2_weather_tpu.training``)."""
+"""Training: the optimizer, the LR schedules, the single-step train and eval
+steps, the Trainer, checkpoints, preemption and sweeps (counterpart of the
+matching modules of ``swin_v2_weather_tpu.training``)."""
