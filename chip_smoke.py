@@ -25,11 +25,13 @@ printing its own lines:
      the streamed attention pass) against its plain version at the flagship
      shapes, unshifted and with the shifted-block mask; its breakdown by
      torch.profiler (projection and pass, device ms a launch) and the pass's
-     launch report (as phase 20's).
+     launch report (as phase 20's), with the host us of a call of the
+     wrapper and of the same launch through its custom op
+     (``swin::window_attention_qkv``, the serving forward's call).
   4. the fc1+GELU kernel (K3, one launch of the GEMM core) against its plain
      version at [64800, 768] x [768, 3072], timed beside its bound and
      ``torch.matmul`` of the same operands (the yardstick; the port never
-     calls it).
+     calls it); the host us of a call, direct and through ``swin::fc1_gelu``.
   5. flagship serving: ``swin_73var_geo_depth12_chweight_invar`` at full width
      (77 -> 73 channels, 720x1440, embed 768, depth 12) built through
      ``get_model``, every parameter drawn from a seeded generator (LayerNorm
@@ -240,6 +242,35 @@ printing its own lines:
      files of 3 samples, [73, 721, 1440]) through ``data_loader_config:
      threaded`` and the native reader (else one line saying why not). Its
      numbers, with the card, in one ``{"trainer": {...}}`` JSON line.
+ 41. inference from phase 40's first run (its directory kept until this
+     phase ends), the user journey of JAX's ``scripts/tpu_e2e_check.py``:
+     ``export_model`` -> ``load_model(..., "cuda")`` (weights equal to
+     ``best_ckpt``'s; seeded statistics and climatology written into the
+     registry); ``score_rollout`` over 8 steps from 2018-01-01T00:00 on
+     seeded targets, host-stepped and chunked (chunk 4): RMSE and ACC [8,
+     73] finite and bit-equal, the chunked predictions bit-equal to the
+     stepped ones, K1 and K3 12 x 8 times each (the GEMM core as
+     ``check_core`` implies), step 1 against the plain path, and a scored
+     step's parts (the host's zenith, the target's copy from pageable
+     memory, the step and the scoring on the device); ``write_forecast``
+     of 8 steps and 3 named channels (the fields equal
+     to the stepped predictions denormalized on the host, JAX's metadata);
+     an ensemble of M = 5 (two pairs), Gaussian and bred (one cycle at batch
+     3), each through ``score_ensemble`` over 4 steps with chunk 2 (every
+     key finite, spread positive, K1 and K3 12 a step at batch 5), the
+     batch-5 step's members against batch-1 steps and the batch against the
+     plain path, and the batch-5 step's parts (the step, CRPS and spread);
+     ``export_stepper`` (the graph calls
+     ``swin::window_attention_qkv`` and ``swin::fc1_gelu`` 12 times each and
+     no plain attention or GELU), ``load_stepper`` in this process (K1/K3
+     12 launches a call, output bit-equal to the engine's step; ms/step
+     beside the engine's, CUDA events) and in a fresh process that imports
+     no model module (bit-equal, launches, ms/step); the CLI's
+     ``--export-stepper`` (``--device cuda`` by default) and, where h5py is
+     installed, its scoring leg with ``--ensemble 3`` on an ERA5-shaped
+     archive (else one line saying why not); a CPB model's export raising
+     on K7, no kernel launched. Its numbers, with the card, in one
+     ``{"inference": {...}}`` JSON line.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -258,7 +289,9 @@ entries: the e2048 grid and windowed train steps of phase 34, with head dim
 under ``e2048``; K12: the v5, v4 and padded-v4 train steps; K13: the probe
 run; the Trainer's paths of phase 40 under ``launches_by_path`` as
 ``trainer`` and ``trainer_2step``, per train step with the validation
-steps' launches included; K11's streamed rows under its entries' ``streamed`` key; the e2048
+steps' launches included; phase 41's as ``inference`` (the scored rollout),
+``ensemble`` (batch 5) and ``served_stepper`` (one call of the artifact);
+K11's streamed rows under its entries' ``streamed`` key; the e2048
 train steps' kernels at those steps' shape under ``train_shape``), the launches on every
 path and per step, the largest abs
 difference from its plain version, its time and the plain version's (CUDA
@@ -274,7 +307,9 @@ port never calls it), and for the K8/K9 backwards the backward alone of the
 same call (null where no backend takes the shape); for K13 ``torch.sum(s, 0)`` (it rounds once, the
 kernel twice, as the TPU kernel); null for the others (no single PyTorch call
 computes them; K11's entries add ``F.layer_norm``'s time as context; K3's and
-K4's add ``matmul_ms``, ``torch.matmul`` of their operands, as a yardstick).
+K4's add ``matmul_ms``, ``torch.matmul`` of their operands, as a yardstick;
+K1's and K3's add ``host_us``, a call's host time direct and through the
+custom op).
 The backward entries carry phase 39's results under ``l288`` (by head dim,
 each with its bound and the variant that ran; K8's and K9's full-width
 cases under ``l288_full``), and the large-head backwards their
@@ -658,11 +693,13 @@ class LogCapture(logging.Handler):
         self.logger.setLevel(self.level)
 
 
-def trainer_phase(dev, card: str, counted, gemm, bare_step_ms: float) -> dict:
-    """Phase 40: the flagship and its 2-step fine-tune through the port's
-    ``Trainer`` at full width (module docstring). Runs under a temporary
-    directory of the checkout's ``runs/`` (which .gitignore lists), removed at
-    the end. Returns {path: (launches, train steps)} for the kernel line."""
+def trainer_and_inference_phases(dev, card: str, counted, gemm, bare_step_ms: float) -> dict:
+    """Phase 40, the flagship and its 2-step fine-tune through the port's
+    ``Trainer`` at full width, then phase 41, the user journey from phase
+    40's run to a scored forecast and a served artifact (module docstring).
+    Both run under one temporary directory of the checkout's ``runs/`` (which
+    .gitignore lists), removed at the end. Returns {path: (launches, steps)}
+    for the kernel line."""
     import shutil
     import tempfile
 
@@ -670,7 +707,9 @@ def trainer_phase(dev, card: str, counted, gemm, bare_step_ms: float) -> dict:
     os.makedirs(runs, exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=runs)
     try:
-        return _trainer_phase(root, dev, card, counted, gemm, bare_step_ms)
+        paths, exp_dir = _trainer_phase(root, dev, card, counted, gemm, bare_step_ms)
+        paths.update(inference_phase(root, exp_dir, dev, card, counted, gemm))
+        return paths
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -929,8 +968,7 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     check_logs("[40] 2-step fine-tune", logs_of(t5), 1)
     paths["trainer_2step"] = ({**launches, "gemm": core}, n_samples)
     del t5
-    shutil.rmtree(os.path.join(root, CONFIG), ignore_errors=True)
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # the first run's directory stays for phase 41
 
     # ---- the loader alone on the host, and one batch's H2D copy ---------------
     lp = params_for(n_synthetic_samples=5)
@@ -1015,6 +1053,359 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     out["phase_s"] = time.time() - t_phase
     log(f"  phase 40 took {out['phase_s']:.1f} s")
     print(json.dumps({"trainer": out}))
+    return paths, exp1
+
+
+SERVED_CHILD = """
+import json, sys, torch
+from swin_v2_weather_torch.inference.export import load_stepper
+from swin_v2_weather_torch.ops import mlp_kernels as mk, window_attention as wa
+served = load_stepper(sys.argv[1], device="cuda")
+state, zen, ref = torch.load(sys.argv[2], map_location="cuda")
+served(state, zen)
+torch.cuda.synchronize()
+wa.window_attention_qkv.launches = mk.fc1_gelu.launches = 0
+out = served(state, zen)
+torch.cuda.synchronize()
+launches = {"window_attention_qkv": wa.window_attention_qkv.launches,
+            "fc1_gelu": mk.fc1_gelu.launches}
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(5):
+    served(state, zen)
+end.record()
+end.synchronize()
+print(json.dumps({"bit_equal": torch.equal(out, ref), "max_abs": float((out - ref).abs().max()),
+                  "launches": launches, "ms": start.elapsed_time(end) / 5,
+                  "model_modules": sorted(m for m in sys.modules
+                                          if m.startswith("swin_v2_weather_torch.models"))}))
+"""
+
+
+def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
+    """Phase 41: the user journey of the inference side on the flagship at
+    full width, from phase 40's trained run (module docstring). Returns
+    {path: (launches, steps)} for the kernel line: the scored rollout
+    (``inference``), the ensemble (``ensemble``) and the served artifact
+    (``served_stepper``)."""
+    import argparse
+
+    from swin_v2_weather_torch.inference import cli
+    from swin_v2_weather_torch.inference.ensemble import (
+        breed_perturbations,
+        gaussian_perturbations,
+        make_members,
+        score_ensemble,
+    )
+    from swin_v2_weather_torch.inference.export import export_stepper, load_stepper
+    from swin_v2_weather_torch.inference.registry import export_model, load_model, load_stats
+    from swin_v2_weather_torch.inference.rollout import RolloutEngine
+    from swin_v2_weather_torch.inference.scoring import score_rollout
+    from swin_v2_weather_torch.models import swin as swin_mod
+    from swin_v2_weather_torch.models.wrappers import get_model
+    from swin_v2_weather_torch.ops import mlp_kernels as mk
+    from swin_v2_weather_torch.ops import window_attention as wa
+    from swin_v2_weather_torch.ops.metrics import (
+        ensemble_spread_channels,
+        weighted_acc,
+        weighted_crps_channels,
+        weighted_rmse,
+    )
+    from swin_v2_weather_torch.training.checkpoint import CHECKPOINT_FILE
+
+    t_phase = time.time()
+    out, paths = {"card": card}, {}
+    n_steps, chunk, n_ens, ens_steps = 8, 4, 5, 4
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+        gemm.launches = 0
+
+    def check_launches(tag, want, heads):
+        launches = {fn.__name__: fn.launches for fn in counted}
+        want = {name: want.get(name, 0) for name in launches}
+        if launches != want:
+            raise RuntimeError(f"{tag}: launches must be {want}, got {launches}")
+        check_core(tag, gemm.launches, launches, heads)
+        return {**launches, "gemm": gemm.launches}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def finite(tag, scores, keys, shape):
+        for key in keys:
+            arr = np.asarray(scores[key])
+            if arr.shape != shape or not np.isfinite(arr).all():
+                raise RuntimeError(f"{tag}: {key} must be finite of shape {shape}, got "
+                                   f"{arr.shape}")
+
+    plain = mock.patch.multiple(swin_mod,
+                                fused_window_attention_qkv=wa.window_attention_qkv_reference,
+                                fused_fc1_gelu=mk.fc1_gelu_reference)
+
+    # ---- registry: export_model -> load_model on the card ---------------------
+    reg = os.path.join(root, "registry")
+    (_, export_s) = timed(lambda: export_model(exp_dir, reg))
+    best = torch.load(os.path.join(exp_dir, "training_checkpoints", "best_ckpt", CHECKPOINT_FILE),
+                      map_location="cpu", weights_only=True)["model"]
+    rng = np.random.default_rng(SEED)
+    model, params = load_model(reg, dev)
+    heads, depth = int(params.num_heads), int(params.depth)
+    n_out, (h, w) = len(params.out_channels), (int(s) for s in params.img_size)
+    names = [str(c) for c in params.channel_names]
+    live = model.state_dict()
+    if set(live) != set(best) or not all(torch.equal(v.cpu(), best[k]) for k, v in live.items()):
+        raise RuntimeError("[41] load_model's weights differ from the run's best_ckpt")
+    del best, live
+    # statistics (the synthetic run has none on disk): seeded, in the registry
+    # under the names the config gives, where load_model points its paths
+    np.save(os.path.join(reg, "global_means.npy"),
+            rng.standard_normal((1, n_out, 1, 1)).astype(np.float32))
+    np.save(os.path.join(reg, "global_stds.npy"),
+            (0.5 + rng.random((1, n_out, 1, 1))).astype(np.float32))
+    np.save(os.path.join(reg, "time_means.npy"),
+            rng.standard_normal((1, n_out, h, w)).astype(np.float32))
+    model, params = load_model(reg, dev)
+    means, stds, clim = load_stats(params)
+    engine = RolloutEngine(params, model, dev)
+    log(f"[41] inference from phase 40's run: export_model {export_s:.1f} s, load_model on "
+        f"{dev} (weights equal to best_ckpt's), {CONFIG} at {h} x {w}, {n_out} channels; "
+        f"seeded statistics and climatology")
+
+    # ---- scored rollout: stepped and chunked ------------------------------------
+    state0 = torch.randn((1, n_out, h, w), generator=torch.Generator().manual_seed(SEED))
+    targets = [rng.standard_normal((1, n_out, h, w), dtype=np.float32) for _ in range(n_steps)]
+    kw = dict(means=means, stds=stds, climatology=clim, channel_names=names)
+    scores = {}
+    torch.cuda.reset_peak_memory_stats()
+    for label, scanned in (("stepped", False), ("chunked", True)):
+        reset_counts()
+        scores[label], secs = timed(lambda: score_rollout(
+            engine, state0, targets, START, scanned=scanned, chunk=chunk, **kw))
+        launches = check_launches(f"[41] scored {label}", {
+            "window_attention_qkv": depth * n_steps, "fc1_gelu": depth * n_steps}, heads)
+        finite(f"[41] scored {label}", scores[label], ("rmse", "acc"), (n_steps, n_out))
+        out[f"scored_{label}_ms"] = secs / n_steps * 1e3
+        log(f"  score_rollout {label}{f' (chunk {chunk})' if scanned else ''}: {n_steps} steps "
+            f"{out[f'scored_{label}_ms']:.2f} ms/step (host clock, targets copied from the "
+            f"host, scores back; {card}); launches {launches}; RMSE [t+6h] mean "
+            f"{scores[label]['rmse'][0].mean():.5f}, ACC {scores[label]['acc'][0].mean():.5f}")
+    paths["inference"] = (launches, n_steps)
+    for key in ("rmse", "acc"):
+        if not np.array_equal(scores["stepped"][key], scores["chunked"][key]):
+            raise RuntimeError(f"[41] chunked {key} differs from the stepped one")
+    stepped = [p.clone() for p in engine.steps(state0, START, n_steps)]
+    state, chunked = state0, []
+    for _, zstack in engine.zenith_chunks(START, n_steps, chunk):
+        state, preds = engine.rollout_chunk(state, zstack)
+        chunked.extend(preds)
+    if not all(torch.equal(a, b) for a, b in zip(stepped, chunked)):
+        raise RuntimeError("[41] the chunked predictions differ from the stepped ones")
+    with plain:
+        plain1 = next(engine.steps(state0, START, 1))
+    compare("step 1 kernel path vs plain path", stepped[0], plain1, MODEL_TOL)
+    # where a scored step's time goes: the host's zenith, the target's copy
+    # from pageable memory, the step on the device, the scoring on the device
+    zen1 = torch.from_numpy(engine.zenith_at(START)).to(dev)
+    state_d = state0.to(dev)
+    tar_d = torch.as_tensor(targets[0], device=dev)
+    means_d, stds_d = (torch.as_tensor(a.reshape(1, -1, 1, 1), device=dev) for a in (means, stds))
+    clim_d = torch.as_tensor(clim[None], device=dev)
+
+    def score_step():
+        pred_phys, tar_phys = stepped[0] * stds_d + means_d, tar_d * stds_d + means_d
+        return (weighted_rmse(pred_phys, tar_phys),
+                weighted_acc(pred_phys - clim_d, tar_phys - clim_d))
+
+    parts = {
+        "zenith_host_ms": timed(lambda: [engine.zenith_at(START) for _ in range(3)])[1] / 3 * 1e3,
+        "target_h2d_ms": timed(lambda: [torch.as_tensor(t, device=dev)
+                                        for t in targets[:3]])[1] / 3 * 1e3,
+        "step_device_ms": time_ms(lambda: engine._step(state_d, zen1), 5),
+        "scoring_device_ms": time_ms(score_step, 5),
+    }
+    out["scored_breakdown"] = parts
+    log("  a scored step's parts: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f" ({card}; the step and the scoring by CUDA events back to back, the zenith and "
+        "the copy on the host clock)")
+    del chunked, preds, plain1, tar_d, clim_d
+    log(f"  chunked predictions (chunks of {chunk}) bit-equal to the stepped ones, all "
+        f"{n_steps} steps; RMSE and ACC [{n_steps}, {n_out}] finite and bit-equal")
+
+    # ---- forecast writer ----------------------------------------------------------
+    keep = [names[0], names[n_out // 2], names[-1]]
+    fc_dir = os.path.join(root, "forecast")
+    path, out["forecast_write_s"] = timed(lambda: engine.write_forecast(
+        fc_dir, state0, START, n_steps, means, stds, names, keep_names=keep, ic_index=0,
+        chunk=chunk))
+    fields = np.load(path)
+    idx = [names.index(k) for k in keep]
+    want = np.stack([p[0, idx].cpu().numpy() for p in stepped]) * stds[idx].reshape(
+        1, -1, 1, 1).astype(np.float32) + means[idx].reshape(1, -1, 1, 1).astype(np.float32)
+    meta = json.load(open(path[:-4] + ".json"))
+    if fields.shape != (n_steps, 3, h, w) or not np.array_equal(fields, want) or meta != {
+            "ic_index": 0, "start_time": START.isoformat(),
+            "lead_hours": [6 * (s + 1) for s in range(n_steps)], "channels": keep,
+            "grid": [h, w], "units": "physical (denormalized)"}:
+        raise RuntimeError(f"[41] write_forecast: shape {fields.shape}, metadata {meta}")
+    log(f"  write_forecast {keep}: {fields.shape} in {out['forecast_write_s']:.2f} s, "
+        "denormalized fields equal to the stepped predictions' on the host, metadata as "
+        "JAX writes it")
+    del fields, want, stepped
+
+    # ---- ensembles: Gaussian and bred, M = 5 ------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gauss = make_members(state0, gaussian_perturbations(gen, 2, (n_out, h, w), 0.05, 20), n_ens)
+    reset_counts()
+    bred = breed_perturbations(engine, state0, START, 2, 0.05, cycles=1, seed=SEED)
+    check_launches("[41] breeding (1 cycle, batch 3)", {"window_attention_qkv": depth,
+                                                         "fc1_gelu": depth}, heads)
+    bred = make_members(state0, bred, n_ens)
+    ens_keys = ("crps", "spread", "rmse_mean", "rmse_control", "acc_mean")
+    for label, members in (("gaussian", gauss), ("bred", bred)):
+        reset_counts()
+        res, secs = timed(lambda: score_ensemble(engine, members, targets[:ens_steps], START,
+                                                 chunk=2, **kw))
+        launches = check_launches(f"[41] ensemble {label}", {
+            "window_attention_qkv": depth * ens_steps, "fc1_gelu": depth * ens_steps}, heads)
+        finite(f"[41] ensemble {label}", res, ens_keys, (ens_steps, n_out))
+        if not (res["spread"] > 0).all():
+            raise RuntimeError(f"[41] ensemble {label}: spread must be positive")
+        out[f"ensemble_{label}_ms"] = secs / ens_steps * 1e3
+        log(f"  score_ensemble {label} (M {n_ens}, {ens_steps} steps, chunk 2): "
+            f"{out[f'ensemble_{label}_ms']:.2f} ms/step, "
+            f"{out[f'ensemble_{label}_ms'] / n_ens:.2f} ms per member ({card}); launches "
+            f"{launches}; CRPS [t+6h] mean {res['crps'][0].mean():.5f}, spread "
+            f"{res['spread'][0].mean():.5f}, RMSE of the mean {res['rmse_mean'][0].mean():.5f}")
+    paths["ensemble"] = (launches, ens_steps)
+    out["ensemble_ms"] = out["ensemble_gaussian_ms"]
+    out["ensemble_ms_per_member"] = out["ensemble_ms"] / n_ens
+    # members at batch 5 against batch-1 steps and the plain path
+    zen5 = zen1.expand(n_ens, 1, h, w)
+    tar5 = torch.as_tensor(targets[0], device=dev) * stds_d + means_d
+    ens_phys = engine._step(gauss, zen5) * stds_d + means_d
+    out["ensemble_breakdown"] = {
+        "step_device_ms": time_ms(lambda: engine._step(gauss, zen5), 3),
+        "crps_spread_device_ms": time_ms(lambda: (
+            weighted_crps_channels(ens_phys[:, None], tar5),
+            ensemble_spread_channels(ens_phys[:, None])), 3)}
+    log(f"  an ensemble step's parts (M {n_ens}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["ensemble_breakdown"].items()) + f" ({card}, CUDA events)")
+    del tar5, ens_phys
+    batched, diffs = engine._step(gauss, zen5), []
+    for i in range(n_ens):
+        one = engine._step(gauss[i:i + 1], zen1)
+        diffs.append(float((batched[i:i + 1] - one).abs().max()))
+        compare(f"member {i}: batch {n_ens} vs batch 1", batched[i:i + 1], one, MODEL_TOL)
+    with plain:
+        compare(f"batch {n_ens} kernel path vs plain path", batched, engine._step(gauss, zen5),
+                MODEL_TOL)
+    out["batch_vs_batch1_max_abs"] = max(diffs)
+    log(f"  members at batch {n_ens} against batch-1 steps: "
+        + ("bit-equal" if max(diffs) == 0 else f"max abs {max(diffs):.6g} (the dense layers' "
+           "cuBLAS GEMMs may block their sums by batch; K1 and K3 keep each row's sums)"))
+    del gauss, bred, batched
+
+    # ---- the serving artifact -------------------------------------------------------------
+    art = os.path.join(root, "served")
+    manifest, out["export_s"] = timed(lambda: export_stepper(engine, art, batch=1))
+    out["artifact_bytes"] = manifest["artifact_bytes"]
+    served = load_stepper(art, device=dev.type)
+    calls = [str(n.target) for n in served.program.graph.nodes if n.op == "call_function"]
+    n_k1, n_k3 = (calls.count("swin.window_attention_qkv.default"),
+                  calls.count("swin.fc1_gelu.default"))
+    if (n_k1, n_k3) != (depth, depth) or any("softmax" in c or "erf" in c for c in calls):
+        raise RuntimeError(f"[41] the exported graph must call K1 and K3 {depth} times each "
+                           f"and no plain attention or GELU: {n_k1}, {n_k3}")
+    zen = zen1.expand(1, 1, h, w)
+    ref = engine._step(state_d, zen)
+    served(state_d, zen)
+    reset_counts()
+    got = served(state_d, zen)
+    torch.cuda.synchronize()
+    launches = check_launches("[41] served stepper", {"window_attention_qkv": depth,
+                                                      "fc1_gelu": depth}, heads)
+    paths["served_stepper"] = (launches, 1)
+    if not torch.equal(got, ref):
+        raise RuntimeError("[41] the served artifact differs from the engine's step")
+    out["served_ms"] = time_ms(lambda: served(state_d, zen), 5)
+    out["engine_ms"] = time_ms(lambda: engine._step(state_d, zen), 5)
+    io = os.path.join(root, "served_io.pt")
+    torch.save((state_d.cpu(), zen.cpu().contiguous(), ref.cpu()), io)
+    child = subprocess.run([sys.executable, "-c", SERVED_CHILD, art, io],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=600)
+    if child.returncode != 0:
+        raise RuntimeError(f"[41] load_stepper in a fresh process failed:\\n{child.stderr}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    if not res["bit_equal"] or res["model_modules"] or res["launches"] != {
+            "window_attention_qkv": depth, "fc1_gelu": depth}:
+        raise RuntimeError(f"[41] the served artifact in a fresh process: {res}")
+    out["served_child_ms"] = res["ms"]
+    log(f"  export_stepper {out['export_s']:.1f} s, stepper.pt2 {out['artifact_bytes'] / 1e6:.1f} "
+        f"MB: the graph calls swin::window_attention_qkv and swin::fc1_gelu {depth} times each "
+        f"(no plain attention or GELU); served {out['served_ms']:.2f} ms/step against the "
+        f"engine's {out['engine_ms']:.2f} (CUDA events, {card}); K1/K3 {depth} launches a "
+        f"call, output bit-equal to the engine's step; in a fresh process (no model module "
+        f"imported): bit-equal, {res['launches']}, {res['ms']:.2f} ms/step")
+    del served, state_d, ref, got
+    # ---- the CLI ----------------------------------------------------------------------------
+    cli_art = os.path.join(root, "served_cli")
+    cli.main(["--registry", reg, "--export-stepper", cli_art, "--batch", "1"])
+    cli_manifest = json.load(open(os.path.join(cli_art, "manifest.json")))
+    if cli_manifest["device"] != dev.type or cli_manifest["output"]["shape"] != [1, n_out, h, w]:
+        raise RuntimeError(f"[41] CLI --export-stepper: {cli_manifest}")
+    log(f"  CLI --export-stepper (--device cuda by default): {cli_manifest['artifact_bytes']} "
+        "bytes, manifest as export_stepper's")
+    try:
+        import h5py
+    except ImportError:
+        log("  CLI scoring leg not driven on this machine: h5py is not installed here (the CPU "
+            "tests, tests/test_torch_inference_cli.py, drive it against the JAX CLI)")
+        out["cli_scoring"] = "not driven: no h5py"
+    else:
+        arch = os.path.join(root, "era5_cli")
+        os.makedirs(arch)
+        with h5py.File(os.path.join(arch, "2018.h5"), "w") as f:
+            data = f.create_dataset("fields", shape=(4, n_out, h + 1, w), dtype="f4")
+            for i in range(4):
+                data[i] = rng.standard_normal((n_out, h + 1, w), dtype=np.float32)
+        ns = argparse.Namespace(registry=reg, data=arch, ics=[1], steps=2, ensemble=3,
+                                perturb="gaussian", amplitude=0.05, zonal_truncation=20, seed=0,
+                                chunk_steps=2, output=os.path.join(root, "scores.json"),
+                                device="cuda")
+        res = cli.run(ns)
+        finite("[41] CLI --ensemble 3", res, ("rmse", "acc", "crps", "spread"), (2, n_out))
+        log(f"  CLI scoring leg (--ensemble 3, 2 steps) on an ERA5-shaped archive: finite")
+        out["cli_scoring"] = "driven"
+    # a route whose forward kernel is not registered raises naming it
+    cpb_params = train_params(CONFIG, CPB)
+    cpb_engine = RolloutEngine(cpb_params, get_model(cpb_params, device=dev), dev)
+    reset_counts()
+    try:
+        export_stepper(cpb_engine, os.path.join(root, "served_cpb"))
+    except RuntimeError as e:
+        if "K7 (window_attention_qkv_bias)" not in str(e):
+            raise
+        log(f"  CPB export raises: {str(e)[:160]}")
+    else:
+        raise RuntimeError("[41] exporting the CPB model must raise (K7 is not registered)")
+    if any(fn.launches for fn in counted):
+        raise RuntimeError("[41] the CPB export launched a kernel")
+    del cpb_engine
+
+    del engine, model
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.time() - t_phase
+    log(f"  peak {out['peak_gib']:.3f} GiB since the scored rollout; phase 41 took "
+        f"{out['phase_s']:.1f} s")
+    print(json.dumps({"inference": out}))
     return paths
 
 
@@ -1097,7 +1488,7 @@ def main() -> None:
         + "".join(f"\n      {line.strip()}" for line in serialized))
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results, yardstick = {}, {}
+    results, yardstick, host_calls = {}, {}, {}
 
     # ---- 3. K1 window attention at flagship shapes ---------------------------
     b, gh, gw, c, heads, window = 1, 180, 360, 768, 8, (9, 18)
@@ -1128,10 +1519,16 @@ def main() -> None:
                     x, w16, b_qkv, scale, window, mask, 1.0), K1_PIECES)
                 k1_host = host_us(lambda: wa.window_attention_qkv(
                     x, w16, b_qkv, scale, window, mask, 1.0))
+                # the serving forward's call: the same launch through the custom op
+                k1_op_host = host_us(lambda: wa.window_attention_qkv_op(
+                    x, w16, b_qkv, scale, list(window), mask, 1.0))
             info = wa.qkv_fwd_info(c // heads, window[0] * window[1])
             log(f"  {label} breakdown (torch.profiler, device ms a launch): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in k1_pieces.items()) + f" ({card}); the "
-                f"pass's launch: {info}; the wrapper's host {k1_host:.1f} us a call")
+                f"pass's launch: {info}; the wrapper's host {k1_host:.1f} us a call, through "
+                f"swin::window_attention_qkv {k1_op_host:.1f} us")
+            host_calls["window_attention_qkv"] = {"wrapper_us": k1_host,
+                                                  "custom_op_us": k1_op_host}
             if info["local_bytes"]:
                 raise RuntimeError(f"K1's attention pass spills: {info}")
     # K1's work: the qkv projection, then q k^T and p v per (window, head) at L = 162
@@ -1159,13 +1556,17 @@ def main() -> None:
         # the yardstick: torch.matmul of the same operands (no bias, no GELU;
         # the port never calls it)
         yardstick["fc1_gelu"] = time_ms(lambda: torch.matmul(x2, w1_16), 20)
+        host_calls["fc1_gelu"] = {"wrapper_us": host_us(lambda: mk.fc1_gelu(x2, w1_16, b1)),
+                                  "custom_op_us": host_us(lambda: mk.fc1_gelu_op(x2, w1_16, b1))}
     results["fc1_gelu"] = (err, k_ms, p_ms, bound(2 * t_tok * c * hidden,
                                                    nbytes(x2, w1_16, b1, out)))
     log(f"  kernel {k_ms:.4f} ms ({2 * t_tok * c * hidden / k_ms / 1e9:.1f} TFLOP/s, "
         f"{100 * results['fc1_gelu'][3][0] / k_ms:.1f} % of its bound "
         f"{results['fc1_gelu'][3][0]:.4f} ms), plain {p_ms:.4f} ms, torch.matmul of the same "
         f"operands {yardstick['fc1_gelu']:.4f} ms ({card}); "
-        f"{mk.fc1_plan(t_tok, c, hidden)['launches']} launch of the GEMM core")
+        f"{mk.fc1_plan(t_tok, c, hidden)['launches']} launch of the GEMM core; the wrapper's "
+        f"host {host_calls['fc1_gelu']['wrapper_us']:.1f} us a call, through swin::fc1_gelu "
+        f"{host_calls['fc1_gelu']['custom_op_us']:.1f} us")
     del x2, out, ref
 
     # ---- 5. flagship serving through get_model + RolloutEngine ---------------
@@ -2654,7 +3055,9 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # ---- 40. the Trainer end to end ---------------------------------------------
-    trainer_paths = trainer_phase(dev, card, counted, gc.gemm, train_step_ms)
+    # ---- 41. inference: registry, scored and chunked rollouts, forecast,
+    # ensembles, the served artifact, the CLI (from phase 40's run) ------------
+    trainer_paths = trainer_and_inference_phases(dev, card, counted, gc.gemm, train_step_ms)
 
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
@@ -2781,6 +3184,8 @@ def main() -> None:
     for entry in kernels:
         if entry["name"] in yardstick:  # K3/K4: torch.matmul of the same operands (phases 4, 8)
             entry["matmul_ms"] = yardstick[entry["name"]]
+        if entry["name"] in host_calls:  # K1/K3: host us a call, direct and custom op (3, 4)
+            entry["host_us"] = host_calls[entry["name"]]
         if entry["name"] in beyond:  # past L = 256: L = 288, by head dim (phase 39)
             entry["l288"] = beyond[entry["name"]]
         if entry["name"] in beyond_full:  # K8/K9 at L = 288 at full width (phase 39)

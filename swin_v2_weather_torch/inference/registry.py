@@ -12,11 +12,16 @@ registry directory keeps the JAX layout except for the weights:
 
 A JAX registry stores its weights with orbax, which needs JAX to read; its
 tree converts with ``models.convert.params_from_jax`` once read.
+:func:`export_model` writes a registry from a port experiment directory (the
+Trainer's ``hyperparams.yaml`` and ``training_checkpoints/<name>/checkpoint.pt``);
+:func:`load_model` reads it back and :func:`load_stats` its statistics.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 from typing import Optional, Tuple
 
 import numpy as np
@@ -40,6 +45,45 @@ class _DictParams(dict):
     @property
     def params(self):
         return self
+
+
+def export_model(experiment_dir: str, out_dir: str, checkpoint: str = "best_ckpt") -> str:
+    """Export a trained experiment into a registry directory: the model's
+    state_dict alone as ``weights.pt``, the dumped config, the statistics files
+    it names and ``metadata.json`` with the JAX registry's fields."""
+    from swin_v2_weather_torch.training.checkpoint import CHECKPOINT_FILE
+
+    os.makedirs(out_dir, exist_ok=True)
+    hp_path = os.path.join(experiment_dir, "hyperparams.yaml")
+    with open(hp_path) as f:
+        hp = yaml.safe_load(f)
+
+    ckpt = os.path.join(experiment_dir, "training_checkpoints", checkpoint, CHECKPOINT_FILE)
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    torch.save(payload["model"], os.path.join(out_dir, "weights.pt"))
+
+    shutil.copy(hp_path, os.path.join(out_dir, "hyperparams.yaml"))
+    for stats_key in ("global_means_path", "global_stds_path", "time_means_path"):
+        src = hp.get(stats_key)
+        if src and os.path.exists(str(src)):
+            shutil.copy(src, os.path.join(out_dir, os.path.basename(str(src))))
+
+    grid = hp.get("img_size", [720, 1440])
+    metadata = {
+        "architecture": hp.get("nettype", "swin"),
+        "n_history": 0,
+        "channel_names": hp.get("channel_names"),
+        "in_channels": hp.get("in_channels"),
+        "out_channels": hp.get("out_channels"),
+        "grid": [grid[0], grid[1]],
+        "dt_hours": 6 * int(hp.get("dt", 1)),
+        "add_zenith": bool(hp.get("add_zenith", False)),
+        "add_orography": bool(hp.get("add_orography", False)),
+        "add_landmask": bool(hp.get("add_landmask", False)),
+    }
+    with open(os.path.join(out_dir, "metadata.json"), "w") as f:
+        json.dump(metadata, f, indent=2)
+    return out_dir
 
 
 def swin_from_yaml(yaml_path: str, dtype: Optional[torch.dtype] = None, device="cuda"):
@@ -87,3 +131,16 @@ def load_model(
             if os.path.exists(local):
                 params[key] = local
     return model, params
+
+
+def load_stats(params) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """(means[C_out], stds[C_out], time_means[C_out, H, W] or None) of the
+    output channels, from the paths in ``params``."""
+    out_ch = np.asarray(params["out_channels"])
+    means = np.load(params["global_means_path"])[0, out_ch, 0, 0]
+    stds = np.load(params["global_stds_path"])[0, out_ch, 0, 0]
+    tm = None
+    tm_path = params.get("time_means_path")
+    if tm_path and os.path.exists(str(tm_path)):
+        tm = np.load(tm_path)[0, out_ch]
+    return means, stds, tm

@@ -107,7 +107,7 @@ from __future__ import annotations
 
 import ctypes
 import os as _os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -633,6 +633,25 @@ def window_attention_qkv(
 window_attention_qkv.launches = 0
 
 
+@torch.library.custom_op("swin::window_attention_qkv", mutates_args=())
+def window_attention_qkv_op(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                            scale: torch.Tensor, window: List[int],
+                            mask_pattern: Optional[torch.Tensor],
+                            boundary_flag: float) -> torch.Tensor:
+    """K1's launch (:func:`window_attention_qkv`, same operands, ``window`` a
+    list) as the custom op ``swin::window_attention_qkv``: the serving forward
+    calls it, so ``torch.export`` records one call of it where a ctypes launch
+    cannot be traced, and a loaded artifact launches K1 through it (the
+    launch counter moves as for a direct call)."""
+    return window_attention_qkv(x, w_qkv, b_qkv, scale, tuple(window), mask_pattern,
+                                boundary_flag)
+
+
+@window_attention_qkv_op.register_fake
+def _window_attention_qkv_fake(x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag):
+    return x.new_empty((*x.shape[:-1], w_qkv.shape[-1] // 3), dtype=torch.bfloat16)
+
+
 def window_attention_qkv_bias(
     x: torch.Tensor,
     w_qkv: torch.Tensor,
@@ -1027,6 +1046,13 @@ def fused_window_attention_qkv(
                 "impl 'v6' returns a padded [B,H,W,heads*128] output; call "
                 "fused_window_attention_qkv_padded (the caller must absorb the padding into "
                 "the following matmul)")
+        if x.device.type == "cuda" and not torch.is_grad_enabled():
+            # serving: K1 through its custom op (torch.export traces it); the
+            # autograd Function makes the same launch
+            return window_attention_qkv_op(
+                x.contiguous(), w_qkv.to(torch.bfloat16).contiguous(),
+                b_qkv.float().contiguous(), scale.float().contiguous(), list(window),
+                mask_pattern, _flag(boundary_flag))
         return WindowAttentionQKV.apply(
             x, w_qkv, b_qkv, scale, tuple(window), mask_pattern, boundary_flag
         )
