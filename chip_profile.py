@@ -15,7 +15,9 @@ weights ``chip_smoke.py`` draws, TF32 off. For each path, after
 two warm-up steps:
 
   * rollout: ``RolloutEngine.steps``, batch 1, from 2018-01-01T00:00;
-  * train: the ``build_train_step`` closure, batch 1, drop-path 0.1 live;
+  * train: the ``build_train_step`` closure, batch 1, drop-path 0.1 live,
+    under the config's remat policy ('mlp3'; every train path takes its
+    config's); train no-remat: the same with ``activation_ckpt: false``;
   * train 2-step: the same closure on the 2-step fine-tune
     ``swin_73var_geo_depth12_chweight_invar_2step`` (the unrolled two-step
     rollout on the whole-MLP kernels K5/K6);
@@ -368,6 +370,8 @@ def train_paths(wanted, dev, n: int, card: str) -> None:
 
     for label, config, over, switches in (
             ("train", chip_smoke.CONFIG, None, ("v3", "pallas", False)),
+            ("train no-remat", chip_smoke.CONFIG, {"activation_ckpt": False},
+             ("v3", "pallas", False)),
             ("train 2-step", chip_smoke.CONFIG_2STEP, None, ("v3", "pallas", False)),
             ("train cpb", chip_smoke.CONFIG, chip_smoke.CPB, ("v3", "pallas", False)),
             ("train lnadd", chip_smoke.CONFIG, chip_smoke.LNADD, ("v3", "pallas", False)),

@@ -54,8 +54,11 @@ printing its own lines:
   9. the flagship train step at full width, drop-path 0.1 live, built through
      ``get_model``, ``LossHandler`` (synthetic unit stats), ``Preprocessor``,
      ``build_optimizer`` and ``build_train_step``, on seeded parameters and a
-     batch of 1 from ``SyntheticDataset``: 4 steps, K1-K4 each launched 12 x 4
-     = 48 times and K5/K6 never, finite metrics, every parameter moved; step
+     batch of 1 from ``SyntheticDataset``, under the config's remat policy
+     ('mlp3', which keeps ``attn_kernel_out`` and ``mlp_out``): 4 steps, K1
+     launched 18 times a step (the 6 shifted blocks' attention runs again in
+     the backward), K3 24 (every block's), K2 and K4 12, K5/K6 never,
+     finite metrics, every parameter moved; step
      1's loss and gradient norms against the plain path on the card (same
      weights, batch and generator seed, so the drop-path masks agree); one
      ``build_eval_step`` call.
@@ -67,16 +70,20 @@ printing its own lines:
      launch of the core's pair kernel: both products); two K6 calls
      bit-equal.
  12. the 2-step fine-tune ``swin_73var_geo_depth12_chweight_invar_2step``
-     (unrolled rollout, whole-MLP route) as in phases 9-10: 3 steps, K1, K2,
-     K5 and K6 each launched 12 x 2 = 24 times a step and K3/K4 never; step 1
+     (unrolled rollout, whole-MLP route) as in phases 9-10: 3 steps, K1
+     launched 36 times a step ('mlp3': the shifted blocks' again), K2, K5
+     (one kernel call with a kept output) and K6 24, K3/K4 never; step 1
      against the plain path; one eval step; ms/step, samples/s and peak
      memory on both paths.
  13. the 4-step fine-tune ``..._4step`` (looped rollout, each step's model
-     call under the checkpoint): 2 steps, K1 and K5 launched 12 x 4 x 2 = 96
-     times a step (forward and recompute), K2 and K6 48; step 1 against the
+     call under the checkpoint, the block remat nested inside): 2 steps, K1
+     launched 120 times a step (48 forward, 48 in the steps' recompute, 24
+     in the blocks' recompute inside it), K5 96, K2 and K6 48; step 1
+     against the
      plain path; ms/step and peak memory of the kernel path.
  14. the depth-24 single-step train step, ``swin_73var_geo_depth24_chweight_invar``
-     (whole-MLP route): 3 steps, K1, K2, K5 and K6 launched 24 times a step;
+     (whole-MLP route): 3 steps, K1 launched 36 times a step, K2, K5 and K6
+     24;
      finite metrics, every parameter moved; ms/step and peak memory.
  15. K7, the CPB-bias instances of the window-attention kernels, forward and
      backward against their plain versions at the flagship shapes, unshifted
@@ -87,8 +94,9 @@ printing its own lines:
      K3 launched 48 times, K1 never; step 1 against the plain path; ms/step
      and peak memory.
  17. CPB training, the same config, 4 steps with drop-path 0.1 and the CPB
-     meta-MLP's dropout live: K7 forward and backward, K3 and K4 48 times
-     each, K1, K2, K5 and K6 never; step 1 against the plain path; every
+     meta-MLP's dropout live: K7 forward 18 times a step, K3 24, K7
+     backward and K4 12, K1, K2, K5 and K6 never; step 1 against the plain
+     path; every
      parameter moved, ``meta_mlp`` included; ms/step, samples/s and peak on
      both paths.
  18. K11, the fused LayerNorm + drop-path + residual add, forward and backward
@@ -96,7 +104,9 @@ printing its own lines:
      1/keep; two backward calls bit-equal; timed, beside ``F.layer_norm`` at
      the same shape for context.
  19. the flagship train step with ``lnadd_impl: 'fused'``: 3 steps, K11
-     forward and backward 24 times a step, K1-K4 12; step 1 against the plain
+     forward 48 times a step ('mlp3' keeps only ``attn_kernel_out`` beside
+     the fused branches, so both run again) and backward 24, K1 18, K3 24,
+     K2 and K4 12; step 1 against the plain
      path; ms/step and peak memory beside phase 10's unfused step.
  20. K8, the grid route's attention (bias-free and BIAS instances), forward
      and backward against their plain versions at the flagship shapes (qn, kn
@@ -119,8 +129,9 @@ printing its own lines:
      kernels, the reductions) beside SDPA's backward.
  21. the grid route on the flagship (``attn_impl: 'pallas'``): 4 rollout
      steps (K8 forward and K3 48 times, K1 never), step 1 against the plain
-     path; then 3 train steps with drop-path 0.1 live: K8 forward and backward
-     and K3/K4 12 times a step, K1/K2/K7/K9 never; step 1 against the plain
+     path; then 3 train steps with drop-path 0.1 live: K8 forward and K3 24
+     times a step (run again in the backward), K8 backward and K4 12,
+     K1/K2/K7/K9 never; step 1 against the plain
      path; every parameter moved; ms/step, samples/s and peak memory.
  22. the grid route with the CPB (``rel_pos: True, full_pos_embed: False``):
      2 train steps on K8's BIAS instances, ``meta_mlp`` moved.
@@ -151,7 +162,8 @@ printing its own lines:
      24 times a step, K3 never, output finite, step 1 against the plain path.
  29. e2048 training at full width and depth at the image [360, 720] (window
      ratio 40: window 9 x 18 on 90 x 180 tokens, L = 162): 2 steps with
-     drop-path 0.1; K1, K2, K5 and K6 24 times a step; step 1 against the
+     drop-path 0.1; under 'full' K1 and K5 48 times a step, K2 and K6 24;
+     step 1 against the
      plain path; every parameter moved; ms/step and peak memory.
  30. K10, the v6 padded-head kernels, forward and backward against their
      plain versions at the flagship shape (x [1, 180, 360, 768], 8 heads of
@@ -159,11 +171,13 @@ printing its own lines:
      columns exactly zero (g's pad lanes random); two backward calls
      bit-equal; timed beside K1/K2 of phases 3 and 7.
  31. the flagship with ``QKV_IMPL = 'v6'``: 4 rollout steps, then 3 train
-     steps; K10 forward (and backward) 12 times a step, K1/K2 never; step 1
+     steps; K10 forward 12 times a rollout step and 18 a train step,
+     backward 12, K1/K2 never; step 1
      against the plain path; ms/step, samples/s and peak memory.
- 32. the flagship with ``QKV_BWD_IMPL = 'xla'``: 3 train steps, K1 and K8's
-     backward 12 times a step, K2 never; then 2 CPB train steps: K7's forward
-     and K8's BIAS backward 12 times a step, K7's backward never; step 1 of
+ 32. the flagship with ``QKV_BWD_IMPL = 'xla'``: 3 train steps, K1 18 and
+     K8's backward 12 times a step, K2 never; then 2 CPB train steps: K7's
+     forward 18 and K8's BIAS backward 12 times a step, K7's backward never;
+     step 1 of
      each against the plain path.
  33. K8 and K9 (bias-free and BIAS) at head dims 128 (8 heads, C = 1024)
      and 256 (the e2048 tensors, [1, 180, 360, 2048]) with L = 162, shifted,
@@ -175,8 +189,9 @@ printing its own lines:
      backward's breakdown by torch.profiler (K9's q/k prepass, the rows and
      columns kernels, the d(scale) and d(bias) reductions).
  34. the e2048 family at [360, 720] on ``attn_impl: 'pallas'`` and then
-     ``'pallas_v1'``: 2 train steps each, K8 (or K9) forward and backward
-     and K5/K6 24 times a step; step 1 against the plain path; every
+     ``'pallas_v1'``: 2 train steps each under 'full', K8 (or K9) forward
+     and K5 48 times a step, their backwards 24; step 1 against the plain
+     path; every
      parameter moved; ms/step and peak memory.
  35. K12 at the flagship shape (x [1, 180, 360, 768], W_qkv [768, 2304], 8
      heads of 96, window 9 x 18, shifted): v5, v4 (window-major rows) and the
@@ -186,9 +201,10 @@ printing its own lines:
      beside K1/K2 of phases 3 and 7.
  36. the flagship with ``QKV_IMPL`` 'v5', 'v4', then 'v4' with
      ``QKV_PAD_HEADS``: 2 rollout steps and 3 train steps each, the selected
-     K12 kernel 12 times forward (and backward) a step, K1/K2 never; step 1
-     against the plain path; ms/step, samples/s and peak memory; then two
-     CPB train steps with ``QKV_IMPL = 'v4'``: K7 12 times a step, K12 never.
+     K12 kernel's forward 12 times a rollout step and 18 a train step, its
+     backward 12, K1/K2 never; step 1 against the plain path; ms/step,
+     samples/s and peak memory; then two CPB train steps with ``QKV_IMPL =
+     'v4'``: K7 forward 18 and backward 12 times a step, K12 never.
  37. K13: ``consume`` bit-exact to its plain version at [3, 1, 400, 8, 168,
      96], timed beside ``torch.sum(s, 0)``; then the prestage probe
      (``swin_v2_weather_torch.scripts.prestage_probe.probe``): the round trip
@@ -219,8 +235,9 @@ printing its own lines:
      data (4 train and 4 validation samples an epoch, batch 1), drop-path
      0.1, checkpoints on, through ``Trainer(...).build_and_launch()`` for 2
      epochs: 2 finite ``logs.jsonl`` lines with ``valid_rmse_u10m``,
-     ``ckpt``, ``best_ckpt`` and ``hyperparams.yaml`` written, K1-K4 launched
-     12 times a train step and K1/K3 12 times a validation step (K5/K6
+     ``ckpt``, ``best_ckpt`` and ``hyperparams.yaml`` written, K1 18, K3
+     24, K2 and K4 12 times a train step (the config's 'mlp3') and K1/K3 12
+     times a validation step (nothing checkpointed with grad mode off; K5/K6
      never, the GEMM core as ``check_core`` implies), no plain version
      called, every parameter moved from the Trainer's seeded initialization,
      and every batch, train and validation, equal on the device to the host
@@ -234,8 +251,8 @@ printing its own lines:
      torch.profiler window over 3 of its steps (the device's idle share, as
      chip_profile.py computes it); one epoch of the 2-step fine-tune from the
      first run's ``best_ckpt`` (``finetune: true``: the weights, and only
-     the weights, loaded; K1, K2, K5 and K6 24 times a train step, K1/K5 24
-     a validation step, K3/K4 never); the loader alone on the host (ms/batch
+     the weights, loaded; K1 36, K2, K5 and K6 24 times a train step, K1/K5
+     24 a validation step, K3/K4 never); the loader alone on the host (ms/batch
      over an epoch of 5, and one sample on one thread); one batch's H2D copy
      from the pinned ring and from pageable memory; and, where h5py is
      installed, one epoch on a full-resolution ERA5-shaped archive (2 yearly
@@ -271,6 +288,33 @@ printing its own lines:
      archive (else one line saying why not); a CPB model's export raising
      on K7, no kernel launched. Its numbers, with the card, in one
      ``{"inference": {...}}`` JSON line.
+ 42. the training options the configs ask for, on one card, after a line
+     with the memory the earlier phases still hold (allocated, and the
+     largest CUDA tensors the garbage collector reaches). (a) The e2048
+     family, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar``, exactly
+     as written (720 x 1440, ``shard_params: True``, a no-op on one
+     process, ``remat_policy: 'full'``, drop-path 0.1) through phase 9's
+     calls: 3 steps, K1 and K5 48 times a step, K2 and K6 24, finite
+     metrics, every parameter moved, step 1 against the plain path, ms/step
+     and peak memory; then two steps of the same config under its remat
+     and with ``activation_ckpt: false``: the second step's peak memory at
+     the end of its forward, backward and optimizer step, or the stage
+     where it ran out of memory (a measurement, not a check). (b) The
+     flagship at full
+     size from the same weights and batch without remat (twice), under
+     'full', 'attn', 'mlp' and 'mlp3', and with ``mlp_impl: 'plain'``
+     without remat and under 'mlp_fc1': 2 steps each, the gradients of both
+     steps (copied to the host) bit-equal to the unrematted model's of the
+     same MLP route, the
+     launches a step (K1 24 and K3 24 under 'full' and 'attn', K1 18 and K3
+     24 under 'mlp' and 'mlp3', K1 18 under 'mlp_fc1'), ms/step and peak
+     memory (and the peak above what was allocated before the run's model
+     was built). (c) LAMB (``optimizer_type: 'lamb'``) on the flagship: 3
+     steps, finite, every parameter moved, ms/step. (d) The H1 loss (the
+     ``'h1'`` word) of the flagship's prediction for one batch on the card
+     against the same tensors' loss on the CPU in fp64 (relative bound
+     1e-4), timed, and its gradient finite. Its numbers, with the card, in
+     one ``{"training_options": {...}}`` JSON line.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -282,14 +326,17 @@ train step; K10: the v6 train step; ``gemm``, the GEMM core: the 2-step
 fine-tune, its launches inside K1, K2, K5 and K6, timed alone at K5's
 e2048 fc1 shape with its other phase-38 shapes under ``shapes``; the
 ``_e2048`` entries, the same
-wrappers timed at the e2048 shapes of phase 27: the e2048 train step, with
+wrappers timed at the e2048 shapes of phase 27: the e2048 train step at
+full size (phase 42), with
 K7's e2048 case under its own entries' ``e2048`` key; K8/K9's ``_e2048``
 entries: the e2048 grid and windowed train steps of phase 34, with head dim
 128 under the flagship entries' ``hd128`` key and the BIAS instances at 256
 under ``e2048``; K12: the v5, v4 and padded-v4 train steps; K13: the probe
 run; the Trainer's paths of phase 40 under ``launches_by_path`` as
 ``trainer`` and ``trainer_2step``, per train step with the validation
-steps' launches included; phase 41's as ``inference`` (the scored rollout),
+steps' launches included; phase 42's as ``train_e2048_full``,
+``train_lamb`` and ``remat_<policy>`` (each run of its part b); phase 41's
+as ``inference`` (the scored rollout),
 ``ensemble`` (batch 5) and ``served_stepper`` (one call of the artifact);
 K11's streamed rows under its entries' ``streamed`` key; the e2048
 train steps' kernels at those steps' shape under ``train_shape``), the launches on every
@@ -612,6 +659,21 @@ def check_core(tag: str, core: int, launches: dict, heads: int) -> None:
         raise RuntimeError(f"{tag}: the GEMM core must launch {want} times, got {core}")
 
 
+def live_cuda_tensors(n: int = 6):
+    """(GiB, the n largest as (shape, dtype, GiB)) of the distinct CUDA
+    storages that the garbage collector reaches through tensors."""
+    import gc
+
+    storages = {}
+    for obj in gc.get_objects():
+        # plain tensors and parameters only: fake ones (torch.export's) have no storage
+        if type(obj) in (torch.Tensor, torch.nn.Parameter) and obj.is_cuda:
+            st = obj.untyped_storage()
+            storages[st.data_ptr()] = (tuple(obj.shape), str(obj.dtype), st.nbytes() / 2**30)
+    top = sorted(storages.values(), key=lambda v: -v[2])[:n]
+    return sum(v[2] for v in storages.values()), [(s, d, round(g, 3)) for s, d, g in top]
+
+
 def device_busy_ms(prof) -> float:
     """The union of the device event intervals of a torch.profiler run, in ms
     (as chip_profile.py computes a step's busy time); raises where the
@@ -811,9 +873,12 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     n_train = n_epochs * n_samples
     log(f"  first run: {out['first_run_s']:.1f} s, peak {out['peak_gib']:.3f} GiB; launches "
         f"{launches}, GEMM core {core}; plain versions called: {plain_calls}")
+    # a train step under 'mlp3' runs again the shifted blocks' attention and
+    # every K3 (chip_smoke's phase 9); a validation step checkpoints nothing
     check_launches("[40] first run", launches, core, {
-        "window_attention_qkv": depth * 2 * n_train, "window_attention_qkv_bwd": depth * n_train,
-        "fc1_gelu": depth * 2 * n_train, "fc1_dpre": depth * n_train}, heads)
+        "window_attention_qkv": (depth + depth // 2 + depth) * n_train,
+        "window_attention_qkv_bwd": depth * n_train,
+        "fc1_gelu": 3 * depth * n_train, "fc1_dpre": depth * n_train}, heads)
     if plain_calls:
         raise RuntimeError(f"[40] the Trainer called plain versions: {plain_calls}")
     paths = {"trainer": ({**launches, "gemm": core}, n_train)}
@@ -960,7 +1025,7 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     log(f"  2-step fine-tune from best_ckpt (weights only: step 0, epoch 0, a fresh Adam): "
         f"launches {launches}, GEMM core {core}; plain versions called: {plain_calls}")
     check_launches("[40] 2-step fine-tune", launches, core, {
-        "window_attention_qkv": 2 * depth * 2 * n_samples,
+        "window_attention_qkv": 2 * (depth + depth // 2 + depth) * n_samples,
         "window_attention_qkv_bwd": 2 * depth * n_samples,
         "mlp_fwd": 2 * depth * 2 * n_samples, "mlp_bwd": 2 * depth * n_samples}, heads)
     if plain_calls:
@@ -1741,6 +1806,8 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / n, torch.cuda.max_memory_allocated() / 2**30
 
+    train_peaks = {}  # the last train_path of each tag: peak GiB over its timed steps
+
     def train_path(tag: str, config: str, n_steps: int, per_step: dict, plain_step1: bool = True,
                    eval_step: bool = False, n_timed: int = 3, plain_timed: bool = False,
                    overrides: dict = None, weights_on=None):
@@ -1794,14 +1861,14 @@ def main() -> None:
             raise RuntimeError(f"{tag}: parameters the steps did not change: {frozen}")
         log(f"  all {len(init)} parameter tensors changed")
 
-        plain_step = None
         if plain_step1:
             with torch.no_grad():
                 for n, p in model.named_parameters():
                     p.copy_(init[n])
+            # a step of its own (its optimizer's state is freed before the
+            # kernel path is timed, so that path's peak holds none of it)
             with plain_train():
-                plain_step = make_step()
-                plain_metrics = {k: float(v) for k, v in plain_step(batch).items()}
+                plain_metrics = {k: float(v) for k, v in make_step()(batch).items()}
             if {fn.__name__: fn.launches for fn in counted} != launches:
                 raise RuntimeError(f"{tag}: the plain path launched a kernel")
             log("  step 1, kernel path vs plain path (relative difference):")
@@ -1830,23 +1897,35 @@ def main() -> None:
             del eval_batch
 
         k_ms, k_mem = train_ms(train_step, batch, n_timed)
+        train_peaks[tag] = k_mem
         line = (f"{tag} train step {config}, batch 1: kernel path {k_ms:.2f} ms/step "
                 f"({1000.0 / k_ms:.3f} samples/s, peak {k_mem:.3f} GiB)")
         if plain_timed:
             with plain_train():
-                p_ms, p_mem = train_ms(plain_step, batch, n_timed)
+                p_ms, p_mem = train_ms(make_step(), batch, n_timed)
             line += (f", plain path {p_ms:.2f} ms/step ({1000.0 / p_ms:.3f} samples/s, peak "
                      f"{p_mem:.3f} GiB)")
         log(f"{line}; {card}; GEMM core launches in the {n_steps} steps: {core_launches}")
-        del model, train_step, plain_step, batch
+        del model, train_step, batch
         torch.cuda.empty_cache()
         return {**launches, "gemm": core_launches}, k_ms
 
     depth = int(params.depth)
+    # The configs train under their remat_policy (models/swin.py): 'mlp3' for
+    # the flagship and its fine-tunes, 'full' for e2048. A step's backward
+    # runs again the forward of every stage whose output it does not keep.
+    # Under 'mlp3' that is the qkv-fused attention of the shifted blocks only
+    # (an unshifted block's is one kernel call with a kept output, outside
+    # the checkpoints), every K3 (fc2's weight gradient needs its output) and
+    # every grid or windowed attention forward (their stage holds more than
+    # the kernel); never K5 (kept output, one kernel call) nor a backward
+    # kernel. Under 'full' every forward runs twice.
+    qkv_mlp3 = depth + depth // 2  # qkv-fused attention forwards of a model call
+    twice = 2 * depth
     train_launches, train_step_ms = train_path(
         "[9]", CONFIG, N_STEPS,
-        {"window_attention_qkv": depth, "window_attention_qkv_bwd": depth, "fc1_gelu": depth,
-         "fc1_dpre": depth},
+        {"window_attention_qkv": qkv_mlp3, "window_attention_qkv_bwd": depth,
+         "fc1_gelu": twice, "fc1_dpre": depth},
         eval_step=True, plain_timed=True)
 
     # ---- 11. K5 and K6, the whole MLP, at flagship shapes ---------------------
@@ -1906,17 +1985,23 @@ def main() -> None:
 
     # ---- 12-14. the fine-tunes and depth 24 ------------------------------------
     whole_mlp = ("window_attention_qkv", "window_attention_qkv_bwd", "mlp_fwd", "mlp_bwd")
-    launches_2step, _ = train_path("[12]", CONFIG_2STEP, 3, {k: 2 * depth for k in whole_mlp},
-                                eval_step=True, plain_timed=True)
+    launches_2step, _ = train_path(
+        "[12]", CONFIG_2STEP, 3, {**{k: 2 * depth for k in whole_mlp},
+                                  "window_attention_qkv": 2 * qkv_mlp3},
+        eval_step=True, plain_timed=True)
+    # the looped 4-step: each step's forward, its recompute in the backward
+    # (the per-step checkpoint), then the block remat's recompute inside it
     launches_4step, _ = train_path(
         "[13]", CONFIG_4STEP, 2,
-        {"window_attention_qkv": 8 * depth, "window_attention_qkv_bwd": 4 * depth,
+        {"window_attention_qkv": 4 * (depth + qkv_mlp3), "window_attention_qkv_bwd": 4 * depth,
          "mlp_fwd": 8 * depth, "mlp_bwd": 4 * depth},
         n_timed=2)
     # 3 steps: at batch 1 a branch of a deep block may be dropped in one or two
     # of them, and its parameters must still move
-    launches_depth24, _ = train_path("[14]", CONFIG_DEPTH24, 3, {k: 2 * depth for k in whole_mlp},
-                                  plain_step1=False, n_timed=2)
+    launches_depth24, _ = train_path(
+        "[14]", CONFIG_DEPTH24, 3, {**{k: 2 * depth for k in whole_mlp},
+                                    "window_attention_qkv": 2 * qkv_mlp3},
+        plain_step1=False, n_timed=2)
 
     # ---- 15. K7, the CPB-bias window attention, at flagship shapes -----------
     x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
@@ -2019,8 +2104,8 @@ def main() -> None:
     # ---- 17. CPB training ------------------------------------------------------
     launches_cpb, _ = train_path(
         "[17]", CONFIG, N_STEPS,
-        {"window_attention_qkv_bias": depth, "window_attention_qkv_bias_bwd": depth,
-         "fc1_gelu": depth, "fc1_dpre": depth},
+        {"window_attention_qkv_bias": qkv_mlp3, "window_attention_qkv_bias_bwd": depth,
+         "fc1_gelu": twice, "fc1_dpre": depth},
         eval_step=True, plain_timed=True, overrides=CPB)
 
     # ---- 18. K11, fused LayerNorm + drop-path + add, at flagship shapes -------
@@ -2103,8 +2188,9 @@ def main() -> None:
     # ---- 19. the fused-LayerNorm flagship train step ---------------------------
     launches_lnadd, lnadd_ms = train_path(
         "[19]", CONFIG, 3,
-        {"window_attention_qkv": depth, "window_attention_qkv_bwd": depth, "fc1_gelu": depth,
-         "fc1_dpre": depth, "ln_dp_add_fwd": 2 * depth, "ln_dp_add_bwd": 2 * depth},
+        # 'mlp3' keeps attn_kernel_out only here, so both K11 branches run again
+        {"window_attention_qkv": qkv_mlp3, "window_attention_qkv_bwd": depth, "fc1_gelu": twice,
+         "fc1_dpre": depth, "ln_dp_add_fwd": 4 * depth, "ln_dp_add_bwd": 2 * depth},
         overrides=LNADD)
     log(f"[19] fused LayerNorm route {lnadd_ms:.2f} ms/step against the unfused flagship step "
         f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
@@ -2306,14 +2392,15 @@ def main() -> None:
     grid_kernels = ("window_attention_grid", "window_attention_grid_bwd", "fc1_gelu", "fc1_dpre")
     serve_grid = serve_path("[21]", GRID_ROUTE, N_STEPS,
                             {"window_attention_grid": depth, "fc1_gelu": depth})
-    launches_grid, grid_ms = train_path("[21]", CONFIG, 3, {k: depth for k in grid_kernels},
-                                        overrides=GRID_ROUTE)
+    launches_grid, grid_ms = train_path(
+        "[21]", CONFIG, 3, {**{k: depth for k in grid_kernels}, "window_attention_grid": twice,
+                            "fc1_gelu": twice}, overrides=GRID_ROUTE)
     log(f"[21] grid route {grid_ms:.2f} ms/step against the qkv-fused flagship step "
         f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
     launches_grid_cpb, _ = train_path(
         "[22]", CONFIG, 2,
-        {"window_attention_grid_bias": depth, "window_attention_grid_bias_bwd": depth,
-         "fc1_gelu": depth, "fc1_dpre": depth},
+        {"window_attention_grid_bias": twice, "window_attention_grid_bias_bwd": depth,
+         "fc1_gelu": twice, "fc1_dpre": depth},
         n_timed=2, overrides={**GRID_ROUTE, **CPB})
 
     nw = b * (gh // window[0]) * (gw // window[1])
@@ -2329,14 +2416,15 @@ def main() -> None:
     v1_kernels = ("window_attention_v1", "window_attention_v1_bwd", "fc1_gelu", "fc1_dpre")
     serve_v1 = serve_path("[24]", V1_ROUTE, N_STEPS, {"window_attention_v1": depth,
                                                       "fc1_gelu": depth})
-    launches_v1, v1_ms = train_path("[24]", CONFIG, 3, {k: depth for k in v1_kernels},
-                                    overrides=V1_ROUTE)
+    launches_v1, v1_ms = train_path(
+        "[24]", CONFIG, 3, {**{k: depth for k in v1_kernels}, "window_attention_v1": twice,
+                            "fc1_gelu": twice}, overrides=V1_ROUTE)
     log(f"[24] windowed route {v1_ms:.2f} ms/step against the grid route's {grid_ms:.2f} ms/step "
         f"({card})")
     launches_v1_cpb, _ = train_path(
         "[25]", CONFIG, 2,
-        {"window_attention_v1_bias": depth, "window_attention_v1_bias_bwd": depth,
-         "fc1_gelu": depth, "fc1_dpre": depth},
+        {"window_attention_v1_bias": twice, "window_attention_v1_bias_bwd": depth,
+         "fc1_gelu": twice, "fc1_dpre": depth},
         n_timed=2, overrides={**V1_ROUTE, **CPB})
     serve_xla = serve_path("[26]", XLA_ROUTE, 1, {"fc1_gelu": depth})
 
@@ -2608,8 +2696,11 @@ def main() -> None:
     e2048_kernels = ("window_attention_qkv", "window_attention_qkv_bwd", "mlp_fwd", "mlp_bwd")
     serve_e2048 = serve_path("[28]", {}, 2, {"window_attention_qkv": 24, "mlp_fwd": 24},
                              config=CONFIG_E2048, weights_on=dev)
-    launches_e2048, _ = train_path("[29]", CONFIG_E2048, 2, {k: 24 for k in e2048_kernels},
-                                   n_timed=2, overrides=E2048_TRAIN, weights_on=dev)
+    # remat_policy 'full': every forward runs again in the backward
+    launches_e2048, _ = train_path(
+        "[29]", CONFIG_E2048, 2, {**{k: 24 for k in e2048_kernels}, "window_attention_qkv": 48,
+                                  "mlp_fwd": 48},
+        n_timed=2, overrides=E2048_TRAIN, weights_on=dev)
 
     # ---- 30. K10, the v6 padded-head kernels, at the flagship shape ------------
     hd = c // heads
@@ -2670,8 +2761,8 @@ def main() -> None:
     serve_v6 = serve_path("[31]", {}, N_STEPS, {"window_attention_qkv_padded": depth,
                                                 "fc1_gelu": depth})
     launches_v6, v6_ms = train_path(
-        "[31]", CONFIG, 3, {"window_attention_qkv_padded": depth,
-                            "window_attention_qkv_padded_bwd": depth, "fc1_gelu": depth,
+        "[31]", CONFIG, 3, {"window_attention_qkv_padded": qkv_mlp3,
+                            "window_attention_qkv_padded_bwd": depth, "fc1_gelu": twice,
                             "fc1_dpre": depth})
     wa.QKV_IMPL = "v3"
     log(f"[31] v6 {v6_ms:.2f} ms/step against the v3 flagship step {train_step_ms:.2f} ms/step of "
@@ -2680,11 +2771,11 @@ def main() -> None:
     # ---- 32. the xla backward (QKV_BWD_IMPL = 'xla') ----------------------------
     wa.QKV_BWD_IMPL = "xla"
     launches_xla_bwd, xla_bwd_ms = train_path(
-        "[32]", CONFIG, 3, {"window_attention_qkv": depth, "window_attention_grid_bwd": depth,
-                            "fc1_gelu": depth, "fc1_dpre": depth})
+        "[32]", CONFIG, 3, {"window_attention_qkv": qkv_mlp3, "window_attention_grid_bwd": depth,
+                            "fc1_gelu": twice, "fc1_dpre": depth})
     launches_xla_bwd_cpb, _ = train_path(
-        "[32]", CONFIG, 2, {"window_attention_qkv_bias": depth,
-                            "window_attention_grid_bias_bwd": depth, "fc1_gelu": depth,
+        "[32]", CONFIG, 2, {"window_attention_qkv_bias": qkv_mlp3,
+                            "window_attention_grid_bias_bwd": depth, "fc1_gelu": twice,
                             "fc1_dpre": depth},
         n_timed=2, overrides=CPB)
     wa.QKV_BWD_IMPL = "pallas"
@@ -2716,12 +2807,12 @@ def main() -> None:
 
     # ---- 34. the e2048 family on the grid and windowed routes, at [360, 720] ----
     launches_e2048_grid, _ = train_path(
-        "[34]", CONFIG_E2048, 2, {"window_attention_grid": 24, "window_attention_grid_bwd": 24,
-                                  "mlp_fwd": 24, "mlp_bwd": 24},
+        "[34]", CONFIG_E2048, 2, {"window_attention_grid": 48, "window_attention_grid_bwd": 24,
+                                  "mlp_fwd": 48, "mlp_bwd": 24},
         n_timed=2, overrides={**E2048_TRAIN, **GRID_ROUTE}, weights_on=dev)
     launches_e2048_v1, _ = train_path(
-        "[34]", CONFIG_E2048, 2, {"window_attention_v1": 24, "window_attention_v1_bwd": 24,
-                                  "mlp_fwd": 24, "mlp_bwd": 24},
+        "[34]", CONFIG_E2048, 2, {"window_attention_v1": 48, "window_attention_v1_bwd": 24,
+                                  "mlp_fwd": 48, "mlp_bwd": 24},
         n_timed=2, overrides={**E2048_TRAIN, **V1_ROUTE}, weights_on=dev)
 
     # ---- 35. K12: v5, v4 and the padded v4 at the flagship shape ----------------
@@ -2812,8 +2903,8 @@ def main() -> None:
         serve_k12 = serve_path("[36]", {}, 2, {f"window_attention_{kind}": depth,
                                                "fc1_gelu": depth})
         train_k12, k12_ms = train_path(
-            "[36]", CONFIG, 3, {f"window_attention_{kind}": depth,
-                                f"window_attention_{kind}_bwd": depth, "fc1_gelu": depth,
+            "[36]", CONFIG, 3, {f"window_attention_{kind}": qkv_mlp3,
+                                f"window_attention_{kind}_bwd": depth, "fc1_gelu": twice,
                                 "fc1_dpre": depth})
         k12_paths[kind] = (serve_k12, train_k12)
         log(f"[36] {label}: {k12_ms:.2f} ms/step against the v3 flagship step "
@@ -2823,8 +2914,8 @@ def main() -> None:
     # 2 steps: at batch 1 a block's attention branch may be dropped in one of
     # them, and its parameters must still move
     launches_v4_cpb, _ = train_path(
-        "[36]", CONFIG, 2, {"window_attention_qkv_bias": depth,
-                            "window_attention_qkv_bias_bwd": depth, "fc1_gelu": depth,
+        "[36]", CONFIG, 2, {"window_attention_qkv_bias": qkv_mlp3,
+                            "window_attention_qkv_bias_bwd": depth, "fc1_gelu": twice,
                             "fc1_dpre": depth}, plain_step1=False, n_timed=1, overrides=CPB)
     wa.QKV_IMPL = "v3"
 
@@ -3059,6 +3150,224 @@ def main() -> None:
     # ensembles, the served artifact, the CLI (from phase 40's run) ------------
     trainer_paths = trainer_and_inference_phases(dev, card, counted, gc.gemm, train_step_ms)
 
+    # ---- 42. the configs' training options on the card: the e2048 family at
+    # full size, each remat policy on the flagship, LAMB, the H1 loss ---------
+    t42 = time.time()
+    import gc as gc_mod
+
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    held_gib, largest = live_cuda_tensors()
+    log(f"[42] held on the card before the phase: {torch.cuda.memory_allocated() / 2**30:.3f} "
+        f"GiB allocated, {held_gib:.3f} GiB in the tensors the collector reaches; the "
+        f"largest: {largest}")
+
+    from swin_v2_weather_torch.ops.losses import GeometricH1Loss
+
+    e2048_params = train_params(CONFIG_E2048)
+    log(f"[42a] {CONFIG_E2048} as written: image {tuple(e2048_params.img_size)}, embed "
+        f"{e2048_params.embed_dim}, depth {e2048_params.depth}, shard_params "
+        f"{e2048_params['shard_params']} (a no-op on one process), activation_ckpt "
+        f"{e2048_params.activation_ckpt}, remat_policy {e2048_params.remat_policy!r}, drop-path "
+        f"{e2048_params.drop_path_rate}")
+    # 'full': every forward runs again in the backward
+    launches_e2048_full, e2048_full_ms = train_path(
+        "[42a]", CONFIG_E2048, 3, {"window_attention_qkv": 48, "window_attention_qkv_bwd": 24,
+                                   "mlp_fwd": 48, "mlp_bwd": 24},
+        n_timed=2, weights_on=dev)
+    e2048_full_gib = train_peaks["[42a]"]
+
+    def e2048_step_memory(activation_ckpt: bool) -> dict:
+        """Two train steps of the e2048 config as written but for
+        ``activation_ckpt`` (the first allocates Adam's moments): the second
+        step's ms (synchronized between its stages) and its peak memory at
+        the end of the forward, of the backward and of the optimizer step,
+        or the stage where a step ran out of memory (a measurement, not a
+        check)."""
+        params = train_params(CONFIG_E2048, {"activation_ckpt": activation_ckpt})
+        stage, out = "the model's build", {}
+        try:
+            model = get_model(params)
+            seeded_parameters(model, torch.Generator(device=dev).manual_seed(SEED + 1))
+            loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
+            optimizer = build_optimizer(params, model.parameters())
+            dp_gen = torch.Generator(device=dev).manual_seed(SEED)
+            inp, tar, tzen = preprocessor(collate([SyntheticDataset(params)[0]], device=dev))
+            for i in (1, 2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                stage = f"step {i}'s forward"
+                optimizer.zero_grad(set_to_none=True)
+                loss = loss_handler(model(inp, coszen=tzen, train=True, generator=dp_gen).float(),
+                                    tar, inp)
+                torch.cuda.synchronize()
+                out["forward_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                stage = f"step {i}'s backward"
+                loss.backward()
+                del loss
+                torch.cuda.synchronize()
+                out["backward_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                stage = f"step {i}'s optimizer step"
+                optimizer.step()
+                torch.cuda.synchronize()
+                out["ms"] = (time.perf_counter() - t0) * 1e3
+                out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            return {"ran": True, **out}
+        except torch.cuda.OutOfMemoryError as exc:
+            return {"ran": False, "stage": stage, "error": str(exc).splitlines()[0],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    e2048_memory = {}
+    for ckpt_on in (True, False):
+        got = e2048_step_memory(ckpt_on)
+        e2048_memory["rematted" if ckpt_on else "unrematted"] = got
+        gc_mod.collect()
+        torch.cuda.empty_cache()
+        label = "remat 'full'" if ckpt_on else "activation_ckpt false"
+        if got["ran"]:
+            log(f"  {label}: step 2 {got['ms']:.1f} ms (synchronized between stages), peak "
+                f"{got['forward_gib']:.3f} GiB at the end of the forward, "
+                f"{got['backward_gib']:.3f} of the backward, {got['peak_gib']:.3f} of the "
+                f"optimizer step ({card})")
+        else:
+            log(f"  {label}: out of memory in {got['stage']} at {got['peak_gib']:.3f} GiB "
+                f"allocated ({card}): {got['error']}")
+    unrematted = e2048_memory["unrematted"]
+    log(f"[42a] e2048 at 720 x 1440 under 'full': {e2048_full_ms:.2f} ms/step, peak "
+        f"{e2048_full_gib:.3f} GiB; without remat: "
+        + (f"peak {unrematted['peak_gib']:.3f} GiB" if unrematted["ran"] else
+           f"out of memory in {unrematted['stage']}") + f" ({card})")
+
+    # (b) each policy on the flagship from the same weights and batch: the
+    # gradients of 2 steps bit-equal to the unrematted model's (the forward
+    # kernels recompute the same bits; the backward graph is the same)
+    policy_runs = [("none", None, None), ("none, again", None, None), ("full", "full", None),
+                   ("attn", "attn", None), ("mlp", "mlp", None), ("mlp3", "mlp3", None),
+                   ("none, plain MLP", None, "plain"), ("mlp_fc1, plain MLP", "mlp_fc1", "plain")]
+    fused_twice = {"window_attention_qkv": twice, "window_attention_qkv_bwd": depth,
+                   "fc1_gelu": twice, "fc1_dpre": depth}
+    fused_mlp3 = {**fused_twice, "window_attention_qkv": qkv_mlp3}
+    policy_want = {
+        "none": {k: depth for k in fused_twice}, "full": fused_twice, "attn": fused_twice,
+        "mlp": fused_mlp3, "mlp3": fused_mlp3,
+        "none, plain MLP": {"window_attention_qkv": depth, "window_attention_qkv_bwd": depth},
+        "mlp_fc1, plain MLP": {"window_attention_qkv": qkv_mlp3,
+                               "window_attention_qkv_bwd": depth}}
+    policy_want["none, again"] = policy_want["none"]
+    batch = collate([SyntheticDataset(train_params(CONFIG))[0]], device=dev)
+    ref_grads, policy_out = {}, {}
+    for label, policy, mlp_impl in policy_runs:
+        over = {"activation_ckpt": policy is not None, "remat_policy": policy or "mlp3"}
+        if mlp_impl:
+            over["mlp_impl"] = mlp_impl
+        params = train_params(CONFIG, over)
+        held = torch.cuda.memory_allocated()
+        model = get_model(params)
+        if model.model.remat_policy != policy:
+            raise RuntimeError(f"[42b] {label}: the model's remat policy is "
+                               f"{model.model.remat_policy!r}")
+        seeded_parameters(model, torch.Generator(device=dev).manual_seed(SEED + 1))
+        loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
+        step = build_train_step(model, loss_handler, preprocessor,
+                                build_optimizer(params, model.parameters()),
+                                generator=torch.Generator(device=dev).manual_seed(SEED))
+        for fn in counted:
+            fn.launches = 0
+        gc.gemm.launches = 0
+        grads = []  # on the host, so that the peaks below hold no copies
+        for _ in range(2):
+            step(batch)
+            grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        want = {name: 2 * policy_want[label].get(name, 0) for name in launches}
+        if launches != want:
+            raise RuntimeError(f"[42b] {label}: launches in 2 steps must be {want}, "
+                               f"got {launches}")
+        check_core(f"[42b] {label}", gc.gemm.launches, launches, int(params.num_heads))
+        group = mlp_impl or "fused"
+        if group not in ref_grads:
+            ref_grads[group] = grads
+            same = "the reference"
+        else:
+            differ = [(i + 1, n) for i, (g, r) in enumerate(zip(grads, ref_grads[group]))
+                      for n in r if not torch.equal(g[n], r[n])]
+            if differ:
+                worst = max(float((grads[i - 1][n] - ref_grads[group][i - 1][n]).abs().max()
+                                  / ref_grads[group][i - 1][n].abs().max()) for i, n in differ)
+                raise RuntimeError(f"[42b] {label}: {len(differ)} gradients of the 2 steps "
+                                   f"differ from the unrematted model's (worst relative "
+                                   f"{worst:.3g}): {differ[:6]}")
+            same = "bit-equal to the unrematted model's"
+        del grads
+        k_ms, k_mem = train_ms(step, batch, 2)
+        own = k_mem - held / 2**30  # above what was allocated before the model was built
+        per_step = {k: v // 2 for k, v in launches.items() if v}
+        policy_out[label] = {"ms": k_ms, "peak_gib": k_mem, "own_peak_gib": own,
+                             "launches_per_step": per_step,
+                             "launches": {**launches, "gemm": gc.gemm.launches}}
+        log(f"[42b] {CONFIG} remat {label}: {k_ms:.2f} ms/step, peak {k_mem:.3f} GiB ({own:.3f} "
+            f"above the {held / 2**30:.3f} allocated before its model); launches a step "
+            f"{per_step}; gradients of 2 steps {same} ({card})")
+        del model, step
+        torch.cuda.empty_cache()
+    del ref_grads
+
+    # (c) LAMB on the flagship (the config's remat, 'mlp3')
+    launches_lamb, lamb_ms = train_path(
+        "[42c]", CONFIG, 3, {"window_attention_qkv": qkv_mlp3, "window_attention_qkv_bwd": depth,
+                             "fc1_gelu": twice, "fc1_dpre": depth},
+        plain_step1=False, n_timed=2, overrides={"optimizer_type": "lamb"})
+    log(f"[42c] LAMB {lamb_ms:.2f} ms/step against Adam's {train_step_ms:.2f} ms/step of phase "
+        f"10 ({card})")
+
+    # (d) the H1 loss on one flagship batch: on the card (fp32 SHT) against
+    # the same tensors' loss on the CPU in fp64
+    params = train_params(CONFIG, {"loss": "h1"})
+    model = get_model(params)
+    seeded_parameters(model, torch.Generator(device=dev).manual_seed(SEED + 1))
+    preprocessor = Preprocessor(params)
+    inp, tar, tzen = preprocessor(batch)
+    with torch.no_grad():
+        prd = model(inp, coszen=tzen).float()
+    del model
+    t0 = time.time()
+    handler = LossHandler(params)
+    if not isinstance(handler.loss_obj, GeometricH1Loss):
+        raise RuntimeError("[42d] the 'h1' loss word did not build the H1 loss")
+    h1 = float(handler(prd, tar, inp, training=False))
+    build_s = time.time() - t0
+    with torch.no_grad():
+        h1_ms = time_ms(lambda: handler(prd, tar, inp, training=False), 5)
+    prd_g = prd.clone().requires_grad_()
+    handler(prd_g, tar, inp).backward()
+    if not bool(torch.isfinite(prd_g.grad).all()):
+        raise RuntimeError("[42d] the H1 loss's gradient is not finite")
+    del prd_g
+    t0 = time.time()
+    ref64 = float(GeometricH1Loss(tuple(params.img_size), dtype=torch.float64)(
+        prd.double().cpu(), tar.double().cpu()))
+    ref_s = time.time() - t0
+    h1_rel = abs(h1 - ref64) / abs(ref64)
+    h1_rtol = 1e-4  # fp32 FFT, products of 720 terms and sums of 37M against fp64: ~1e-6
+    log(f"[42d] H1 loss (relative, 'h1') of the flagship's prediction for one batch "
+        f"{tuple(prd.shape)}: card fp32 {h1:.9g}, CPU fp64 {ref64:.9g}, relative {h1_rel:.3g} "
+        f"(tol {h1_rtol:g}); {h1_ms:.3f} ms a loss on the card ({card}), the fp32 transform's "
+        f"host build {build_s:.1f} s, the fp64 CPU loss {ref_s:.1f} s; its Legendre matrix "
+        f"{handler.loss_obj.sht.weighted_pct.numel() * 4 / 2**30:.3f} GiB on the card")
+    if not (math.isfinite(h1) and h1_rel <= h1_rtol):
+        raise RuntimeError("[42d] the H1 loss on the card disagrees with the fp64 CPU loss")
+    del handler, prd, tar, inp, tzen, batch
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    log(f"[42] {time.time() - t42:.1f} s")
+    print(json.dumps({"training_options": {
+        "card": card, "e2048_full_image": {"ms": e2048_full_ms, "peak_gib": e2048_full_gib,
+                                           **e2048_memory},
+        "policies": policy_out, "lamb_ms": lamb_ms, "adam_ms": train_step_ms,
+        "h1": {"card_fp32": h1, "cpu_fp64": ref64, "rel": h1_rel, "ms": h1_ms}}}))
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": ({**cpb_serve_launches, "gemm": cpb_serve_core}, N_STEPS),
@@ -3077,6 +3386,9 @@ def main() -> None:
                "serve_v4_padded": (k12_paths["qkv4_padded"][0], 2),
                "train_v4_padded": (k12_paths["qkv4_padded"][1], 3),
                "train_v4_cpb": (launches_v4_cpb, 2), "prestage_probe": (probe_launches, 1),
+               "train_e2048_full": (launches_e2048_full, 3), "train_lamb": (launches_lamb, 3),
+               **{f"remat_{label.replace(', ', '_').replace(' ', '_')}": (v["launches"], 2)
+                  for label, v in policy_out.items()},
                **trainer_paths}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
@@ -3113,13 +3425,13 @@ def main() -> None:
         "window_attention_qkv_padded_bwd": ("window_attention_qkv_bwd.cu",
                                             "window_attention.py:2174", "train_v6"),
         # the same wrappers at the e2048 shapes (K1's pass at head dim 256, the
-        # large-head backward), counted on the e2048 train step
+        # large-head backward), counted on the e2048 train step at full size
         "window_attention_qkv_e2048": ("window_attention_qkv.cu",
-                                       "window_attention.py:1142", "train_e2048"),
+                                       "window_attention.py:1142", "train_e2048_full"),
         "window_attention_qkv_bwd_e2048": ("window_attention_qkv_large.cu",
-                                           "window_attention.py:1397", "train_e2048"),
-        "mlp_fwd_e2048": ("mlp.cu", "mlp_kernels.py:295", "train_e2048"),
-        "mlp_bwd_e2048": ("mlp.cu", "mlp_kernels.py:317", "train_e2048"),
+                                           "window_attention.py:1397", "train_e2048_full"),
+        "mlp_fwd_e2048": ("mlp.cu", "mlp_kernels.py:295", "train_e2048_full"),
+        "mlp_bwd_e2048": ("mlp.cu", "mlp_kernels.py:317", "train_e2048_full"),
         # K8/K9 at head dim 256 (the streamed forward, the large-head backward),
         # counted on the e2048 grid and windowed train steps
         "window_attention_grid_e2048": ("window_attention_grid.cu",

@@ -66,10 +66,26 @@ The layout follows the JAX model, so weights convert one to one
     caller (the multi-step wrapper draws every step's at once, so a
     recomputed step sees the same masks). JAX's ``dropout`` rng stream
     cannot be matched, so the masks agree with JAX in distribution, not bit
-    for bit.
-    Activation checkpointing (``activation_ckpt`` / ``remat_policy``) is not
-    applied: it changes memory, not numbers, and the flagship step fits one
-    80 GB card without it.
+    for bit;
+  * activation checkpointing (``activation_ckpt``, ``remat_policy``), as
+    JAX's named-save policies (``_remat_policy``): :func:`remat_names` gives
+    the names a policy keeps (``attn``, ``mlp``, ``mlp_fc1``, ``mlp3``;
+    ``full`` and any other name keep none). Each block is cut into stages at
+    JAX's named sites (``attn_kernel_out``, ``attn_out``, ``block_mid``,
+    ``mlp_fc1``, ``mlp_out``; ``cpb_bias`` is computed before the stages
+    where it is kept), and every run of stages between kept names goes
+    through ``torch.utils.checkpoint`` (non-reentrant), so the forward keeps
+    the block input and the kept tensors and the backward runs each run's
+    forward again. A stage that is one kernel call and ends at a kept name
+    runs outside any checkpoint: its autograd Function keeps its inputs, as
+    JAX's custom_vjp residuals stay under remat (K1/K7/K10/K12 on unshifted
+    blocks, K5, K11 on the first branch). The unfused post-norm branch's
+    residual add runs outside the checkpoints, so an unkept ``block_mid`` is
+    not held for it. Where grad mode is off nothing is checkpointed. The
+    backward graph is the unrematted forward's, so the gradients are the
+    same bits wherever the recomputed forward is. Blocks are rematted one
+    at a time, as JAX's unrolled form (``scan_blocks: false``, every weather
+    config) does; its scanned form remats pairs of blocks.
 
 LayerNorm scales of the blocks start at ``init_values`` (0 in every weather
 config), so a freshly built block is the identity map; tests and smoke runs
@@ -78,7 +94,6 @@ must draw all parameters from noise before a forward means anything.
 
 from __future__ import annotations
 
-import logging
 import math
 import os
 from functools import lru_cache
@@ -88,6 +103,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from swin_v2_weather_torch.ops import ln_kernels
 from swin_v2_weather_torch.ops import window_attention as _wa
@@ -105,7 +121,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 ATTN_IMPLS = ("pallas_qkv", "pallas", "pallas_v1", "xla")
 WINDOWED_IMPLS = ("pallas_v1", "xla")  # the block partitions into windows first
 
-logger = logging.getLogger(__name__)
 
 # JAX's switches (swin_v2_weather_tpu/models/swin.py), validated as there
 LN_IMPL = os.environ.get("SWIN_LN_IMPL", "twopass")
@@ -122,6 +137,36 @@ MLP_IMPL = os.environ.get("SWIN_MLP_IMPL", "fused")
 if MLP_IMPL not in _MLP_IMPLS:
     raise ValueError(
         f"SWIN_MLP_IMPL={MLP_IMPL!r} invalid; expected 'fused', 'fused2' or 'plain'")
+
+# JAX's named-save remat policies (``SwinTransformerV2._remat_policy``): the
+# names each one saves, before the drops of :func:`remat_names`; 'full' (the
+# factory's default) and any other name save nothing
+REMAT_POLICIES = {
+    "attn": ("attn_out",),
+    "mlp": ("attn_kernel_out", "attn_out", "block_mid", "mlp_out"),
+    "mlp_fc1": ("attn_kernel_out", "attn_out", "block_mid", "mlp_out", "mlp_fc1"),
+    "mlp3": ("attn_kernel_out", "block_mid", "mlp_out"),
+}
+
+
+def remat_names(policy: str, fused_mlp: bool, fused_ln: bool,
+                rel_pos: bool) -> Optional[frozenset]:
+    """The named tensors a block keeps for the backward under ``policy``, as
+    JAX's ``_remat_policy`` builds its ``save_only_these_names``: the fused
+    MLP routes drop ``block_mid`` (the kernel's residual is that tensor), the
+    fused LayerNorm branch drops ``attn_out`` and ``mlp_out`` (its
+    residuals), and ``rel_pos`` adds ``cpb_bias``. None for 'full' and any
+    other name, as JAX's ``return None``: everything is recomputed, the CPB
+    bias too."""
+    if policy not in REMAT_POLICIES:
+        return None
+    drop = {"block_mid"} if fused_mlp else set()
+    if fused_ln:
+        drop |= {"attn_out", "mlp_out"}
+    keep = {n for n in REMAT_POLICIES[policy] if n not in drop}
+    if rel_pos:
+        keep.add("cpb_bias")
+    return frozenset(keep)
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +372,14 @@ class Mlp(nn.Module):
         impl = self.impl or MLP_IMPL
         return "fused" if impl == "fused2" and self.drop[0] != 0.0 else impl
 
+    def fc1_out(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain route's fc1 product (JAX's named site ``mlp_fc1``)."""
+        return dense(x, self.fc1, self.dtype)
+
+    def after_fc1(self, h: torch.Tensor) -> torch.Tensor:
+        """The plain route from fc1's output on: GELU, then fc2."""
+        return dense(gelu_exact(h), self.fc2, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         route = self.route()
         if route == "fused2":
@@ -334,9 +387,8 @@ class Mlp(nn.Module):
                              self.fc2.weight.t(), self.fc2.bias)
         if route == "fused":
             x = fused_fc1_gelu(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias)
-        else:
-            x = gelu_exact(dense(x, self.fc1, self.dtype))
-        return dense(x, self.fc2, self.dtype)
+            return dense(x, self.fc2, self.dtype)
+        return self.after_fc1(self.fc1_out(x))
 
 
 class CpbMlp(nn.Module):
@@ -447,40 +499,67 @@ class WindowAttention(nn.Module):
         route: :func:`fold_cpb_bias` of :meth:`cpb_raw_bias`."""
         return fold_cpb_bias(self.cpb_raw_bias(u), scale)
 
+    def scale(self) -> torch.Tensor:
+        """The per-head logit scale exp(min(logit_scale, log 100)) [heads]."""
+        return torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
+
+    def bias_term(self, scale: torch.Tensor,
+                  cpb_noise: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """The CPB term the attention takes (JAX's named site ``cpb_bias``):
+        folded on ``'pallas_qkv'``, raw on the other routes; None without the
+        CPB."""
+        if self.meta_mlp is None:
+            return None
+        if self.attn_impl == "pallas_qkv":
+            return self.cpb_bias(scale, cpb_noise)
+        return self.cpb_raw_bias(cpb_noise)
+
     def forward(self, x: torch.Tensor, mask_pattern: Optional[torch.Tensor] = None,
                 boundary_flag=None, cpb_noise: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``mask_pattern`` [L, L]: the last window row's shift mask (kernel
         routes); ``mask`` [nW, L, L]: the full shift mask (``'xla'``)."""
-        scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
+        scale = self.scale()
+        out = self.core(x, scale, self.bias_term(scale, cpb_noise), mask_pattern=mask_pattern,
+                        boundary_flag=boundary_flag, mask=mask)
+        return self.project(out)
+
+    def project(self, out: torch.Tensor) -> torch.Tensor:
+        """The output projection of :meth:`core`'s output; the padded-head
+        output of the v6 route (wider than the model) goes through the proj
+        weight's zero-padded rows (dense()'s rounding on the padded weight, as
+        JAX does)."""
+        if out.shape[-1] != self.proj.in_features:
+            w_proj = pad_proj_rows(self.proj.weight.t(), self.num_heads).t()
+            return (F.linear(out.to(self.dtype), w_proj.to(self.dtype))
+                    + self.proj.bias.to(self.dtype))
+        return dense(out, self.proj, self.dtype)
+
+    def core(self, x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+             mask_pattern: Optional[torch.Tensor] = None, boundary_flag=None,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The attention before the output projection (JAX's named site
+        ``attn_kernel_out``), on :meth:`bias_term`'s ``bias``."""
         if self.attn_impl == "pallas_qkv":
-            if self.meta_mlp is None and _wa.qkv_impl() == "v6":
+            if bias is None and _wa.qkv_impl() == "v6":
                 # the padded-head route (K10): [B, H, W, heads * 128] with exact
-                # zeros in the pad lanes, absorbed by the proj weight's zero
-                # rows (dense()'s rounding on the padded weight, as JAX does)
-                out = fused_window_attention_qkv_padded(
+                # zeros in the pad lanes
+                return fused_window_attention_qkv_padded(
                     x, self.qkv.weight.t().to(self.dtype), self.qkv.bias, scale,
                     self.window_size, mask_pattern=mask_pattern, boundary_flag=boundary_flag)
-                w_proj = pad_proj_rows(self.proj.weight.t(), self.num_heads).t()
-                return (F.linear(out.to(self.dtype), w_proj.to(self.dtype))
-                        + self.proj.bias.to(self.dtype))
             # the CPB term rides K7's route; without it the call dispatches on
             # QKV_IMPL: K1/K2 ('v3') or the K12 schedules ('v4', 'v5')
-            cpb = {} if self.meta_mlp is None else dict(
-                bias=self.cpb_bias(scale, cpb_noise), bias_prefolded=True)
-            out = fused_window_attention_qkv(
+            cpb = {} if bias is None else dict(bias=bias, bias_prefolded=True)
+            return fused_window_attention_qkv(
                 x, self.qkv.weight.t().to(self.dtype), self.qkv.bias, scale,
                 self.window_size, mask_pattern=mask_pattern, boundary_flag=boundary_flag, **cpb,
             )
-            return dense(out, self.proj, self.dtype)
-        bias = None if self.meta_mlp is None else self.cpb_raw_bias(cpb_noise)
         c = x.shape[-1]
         qkv = dense(x, self.qkv, self.dtype)
         if self.attn_impl == "pallas":  # K8 on the grid: q, k, v are channel slices
-            out = fused_window_attention_grid(
+            return fused_window_attention_grid(
                 qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], scale, self.window_size,
                 bias=bias, mask_pattern=mask_pattern, boundary_flag=boundary_flag)
-            return dense(out, self.proj, self.dtype)
         bw, l, _ = x.shape
         hd = c // self.num_heads
         q, k, v = qkv.reshape(bw, l, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
@@ -499,8 +578,7 @@ class WindowAttention(nn.Module):
                 attn = (attn.reshape(bw // nw, nw, self.num_heads, l, l)
                         + mask[None, :, None]).reshape(bw, self.num_heads, l, l)
             out = torch.matmul(torch.softmax(attn, -1).to(v.dtype), v)
-        out = out.transpose(1, 2).reshape(bw, l, c)
-        return dense(out, self.proj, self.dtype)
+        return out.transpose(1, 2).reshape(bw, l, c)
 
 
 class SwinBlock(nn.Module):
@@ -512,12 +590,16 @@ class SwinBlock(nn.Module):
                  drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16,
                  mlp_impl: Optional[str] = None, rel_pos: bool = False,
                  cpb_unique: Optional[bool] = None, lnadd_impl: Optional[str] = None,
-                 attn_impl: str = "pallas_qkv", proj_drop: float = 0.0):
+                 attn_impl: str = "pallas_qkv", proj_drop: float = 0.0,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         if lnadd_impl not in (None, "xla", "fused"):
             raise ValueError(f"lnadd_impl must be 'xla', 'fused' or None, got {lnadd_impl!r}")
         self.drop_path_rate = float(drop_path_rate)
         self.lnadd_impl = lnadd_impl
+        self.dim = dim
+        # None: no activation checkpointing; else JAX's remat_policy name
+        self.remat_policy = remat_policy
         window, shift = calc_window_shift(feat_size, window_size, shift_size)
         self.feat_size = tuple(feat_size)
         self.window = tuple(window)
@@ -544,44 +626,166 @@ class SwinBlock(nn.Module):
         self.register_buffer("mask_pattern", pattern, persistent=False)
         self.register_buffer("attn_mask", full_mask, persistent=False)
 
+    def _fused_ln(self, y: torch.Tensor) -> bool:
+        """Whether a post-norm branch on ``y`` takes the fused kernel pair:
+        ``lnadd_impl`` (or when None ``LNADD_IMPL``) is 'fused' and its shape
+        condition holds, as JAX's ``_ln_branch``."""
+        return (self.lnadd_impl or LNADD_IMPL) == "fused" and ln_kernels.supported(
+            math.prod(y.shape[:-1]), y.shape[-1])
+
+    def _branch(self, norm: Fp32LayerNorm, y: torch.Tensor, dtype: torch.dtype, rate: float,
+                u: Optional[torch.Tensor]) -> torch.Tensor:
+        """The unfused branch drop_path(norm(y)) in ``dtype``."""
+        return drop_path(norm(y).to(dtype), rate, u=u)
+
     def _ln_branch(self, norm: Fp32LayerNorm, y: torch.Tensor, x: torch.Tensor, rate: float,
                    u: Optional[torch.Tensor]) -> torch.Tensor:
-        """x + drop_path(norm(y)): through the fused kernel pair where its
-        shape condition holds (``lnadd_impl``, or when None ``LNADD_IMPL``,
-        is 'fused'), else unfused, as JAX's ``_ln_branch``; the parameters
-        stay ``norm{1,2}.weight/bias`` either way."""
-        if (self.lnadd_impl or LNADD_IMPL) == "fused" and ln_kernels.supported(
-                math.prod(y.shape[:-1]), y.shape[-1]):
+        """x + drop_path(norm(y)): through the fused kernel pair where
+        :meth:`_fused_ln` says so, else unfused; the parameters stay
+        ``norm{1,2}.weight/bias`` either way."""
+        if self._fused_ln(y):
             m = drop_path_multiplier(y.shape[0], rate, u, y.device)
             return ln_kernels.fused_ln_droppath_add(y, x, norm.weight, norm.bias, m)
-        return x + drop_path(norm(y).to(x.dtype), rate, u=u)
+        return x + self._branch(norm, y, x.dtype, rate, u)
+
+    def remat_keep(self) -> frozenset:
+        """The names this block keeps under its policy now (:func:`remat_names`
+        with JAX's conditions: the MLP's configured route, not its dropout
+        fallback; the fused LayerNorm branch where the width is a multiple of
+        128); empty for a name that is no policy."""
+        fused_mlp = (self.mlp.impl or MLP_IMPL) in ("fused", "fused2")
+        fused_ln = (self.lnadd_impl or LNADD_IMPL) == "fused" and self.dim % 128 == 0
+        keep = remat_names(self.remat_policy, fused_mlp, fused_ln, self.attn.meta_mlp is not None)
+        return frozenset() if keep is None else keep
+
+    def _stages(self, x: torch.Tensor, rate: float, u1, u2, cpb_noise, pre) -> list:
+        """The block as stages ``(name, fn, kernel_only)``; ``fn(base, cur) ->
+        (base, cur)`` carries the residual stream ``base`` (the block input,
+        then ``block_mid``) and the current tensor. ``name`` is JAX's named
+        site at the stage's output (``out`` for the block's); ``kernel_only``
+        marks a stage that is one kernel call. ``x`` is the block input (for
+        the shapes); ``pre`` is (scale, CPB term) computed outside the stages,
+        or None."""
+        attn, mlp = self.attn, self.mlp
+        route = mlp.route()
+
+        def attn_kernel_out(base, y):
+            if self.do_shift:
+                y = torch.roll(y, shifts=(-self.shift[0], -self.shift[1]), dims=(1, 2))
+            if self.windowed:  # window_partition -> attention -> window_reverse
+                l = self.window[0] * self.window[1]
+                y = window_partition(y, self.window).reshape(-1, l, y.shape[-1])
+            if pre is None:
+                scale = attn.scale()
+                bias = attn.bias_term(scale, cpb_noise)
+            else:
+                scale, bias = pre
+            return base, attn.core(y, scale, bias, mask_pattern=self.mask_pattern,
+                                   mask=self.attn_mask)
+
+        def attn_out(base, y):
+            y = attn.project(y)
+            if self.windowed:
+                y = window_reverse(y.reshape(-1, *self.window, y.shape[-1]), self.window,
+                                   self.feat_size)
+            if self.do_shift:
+                y = torch.roll(y, shifts=(self.shift[0], self.shift[1]), dims=(1, 2))
+            return base, y
+
+        def block_mid(x, y):  # post-norm residual branch: x + drop_path(norm(y))
+            x = self._ln_branch(self.norm1, y, x, rate, u1)
+            return x, x
+
+        def mlp_fc1(x, y):
+            return x, mlp.fc1_out(y)
+
+        def mlp_out(x, y):
+            return x, (mlp.after_fc1(y) if route == "plain" else mlp(y))
+
+        def out(x, y):
+            x = self._ln_branch(self.norm2, y, x, rate, u2)
+            return x, x
+
+        stages = [
+            # with rel_pos every policy that keeps attn_kernel_out keeps
+            # cpb_bias, so the CPB term comes in as ``pre`` there
+            ("attn_kernel_out", attn_kernel_out,
+             attn.attn_impl == "pallas_qkv" and not self.do_shift),
+            ("attn_out", attn_out, False),
+            ("block_mid", block_mid, self._fused_ln(x)),
+        ]
+        if route == "plain":
+            stages.append(("mlp_fc1", mlp_fc1, False))
+        stages += [("mlp_out", mlp_out, route == "fused2"), ("out", out, False)]
+        return stages
+
+    def _remat(self, stages: list, keep: frozenset, x: torch.Tensor, rate: float,
+               u2) -> torch.Tensor:
+        """Run the stages with every run between kept names under
+        ``torch.utils.checkpoint``; a kernel-only stage that ends at a kept
+        name runs outside (its Function keeps its inputs)."""
+        names = [name for name, _, _ in stages]
+        mid = names.index("block_mid")
+        base = cur = x
+        i = 0
+        while i < len(stages):
+            name, fn, kernel_only = stages[i]
+            if kernel_only and name in keep:
+                base, cur = fn(base, cur)
+                i += 1
+                continue
+            j = i
+            while j < len(stages) - 1 and stages[j][0] not in keep and not (
+                    stages[j + 1][2] and stages[j + 1][0] in keep):
+                j += 1
+            seg = [fn for _, fn, _ in stages[i:j + 1]]
+            if i > mid and "block_mid" not in keep:
+                # the residual stream is no survivor: checkpoint the branch
+                # alone and add it outside. Only the unfused LayerNorm route
+                # gets here (the fused one drops mlp_out, and mlp_fc1 comes
+                # with the plain MLP, which keeps block_mid), and the run
+                # ends at the block's output.
+                def branch(y, seg=seg[:-1], dtype=base.dtype):
+                    for f in seg:
+                        _, y = f(None, y)
+                    return self._branch(self.norm2, y, dtype, rate, u2)
+
+                base = cur = base + checkpoint(branch, cur, use_reentrant=False,
+                                               preserve_rng_state=False)
+            else:
+                def run(b, c, seg=seg):
+                    for f in seg:
+                        b, c = f(b, c)
+                    return b, c
+
+                base, cur = checkpoint(run, base, cur, use_reentrant=False,
+                                       preserve_rng_state=False)
+            i = j + 1
+        return cur
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 noise: Optional[dict] = None) -> torch.Tensor:
         """``noise``: the block's uniforms, ``{"drop_path": [2, B], "cpb": [rows,
-        384]}`` (each key present where train mode needs it)."""
+        384]}`` (each key present where train mode needs it). With a remat
+        policy and grad mode on, the stages run under :meth:`_remat`."""
         rate = self.drop_path_rate if train else 0.0
         noise = noise or {}
         dp = noise.get("drop_path")
         u1, u2 = (None, None) if dp is None else (dp[0], dp[1])
-        y = x
-        if self.do_shift:
-            y = torch.roll(y, shifts=(-self.shift[0], -self.shift[1]), dims=(1, 2))
-        if self.windowed:  # window_partition -> attention -> window_reverse
-            l = self.window[0] * self.window[1]
-            y = window_partition(y, self.window).reshape(-1, l, y.shape[-1])
-            y = self.attn(y, mask_pattern=self.mask_pattern, cpb_noise=noise.get("cpb"),
-                          mask=self.attn_mask)
-            y = window_reverse(y.reshape(-1, *self.window, y.shape[-1]), self.window,
-                               self.feat_size)
-        else:
-            y = self.attn(y, mask_pattern=self.mask_pattern, cpb_noise=noise.get("cpb"))
-        if self.do_shift:
-            y = torch.roll(y, shifts=(self.shift[0], self.shift[1]), dims=(1, 2))
-        # post-norm residual branches: x + drop_path(norm(y))
-        x = self._ln_branch(self.norm1, y, x, rate, u1)
-        y = self.mlp(x)
-        return self._ln_branch(self.norm2, y, x, rate, u2)
+        cpb_noise = noise.get("cpb")
+        remat = self.remat_policy is not None and torch.is_grad_enabled()
+        keep = self.remat_keep() if remat else frozenset()
+        pre = None
+        if "cpb_bias" in keep:  # kept: assembled once, outside the checkpoints
+            scale = self.attn.scale()
+            pre = (scale, self.attn.bias_term(scale, cpb_noise))
+        stages = self._stages(x, rate, u1, u2, cpb_noise, pre)
+        if remat:
+            return self._remat(stages, keep, x, rate, u2)
+        base = cur = x
+        for _, fn, _ in stages:
+            base, cur = fn(base, cur)
+        return cur
 
 
 class PatchEmbed(nn.Module):
@@ -631,9 +835,14 @@ class SwinTransformerV2(nn.Module):
         cpb_unique: Optional[bool] = None,
         lnadd_impl: Optional[str] = None,
         attn_impl: str = "pallas_qkv",
+        checkpoint_stages: bool = False,
+        remat_policy: str = "full",
     ):
         super().__init__()
         self.img_size = tuple(img_size)
+        # JAX's checkpoint_stages / remat_policy: every block rematted under
+        # the policy (SwinBlock.remat_keep)
+        self.remat_policy = str(remat_policy) if checkpoint_stages else None
         self.patch_size = patch_size
         self.out_chans = out_chans
         self.residual = residual
@@ -657,7 +866,8 @@ class SwinTransformerV2(nn.Module):
                       mlp_ratio=mlp_ratio, init_values=init_values,
                       drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl,
                       rel_pos=rel_pos, cpb_unique=cpb_unique, lnadd_impl=lnadd_impl,
-                      attn_impl=attn_impl, proj_drop=proj_drop_rate)
+                      attn_impl=attn_impl, proj_drop=proj_drop_rate,
+                      remat_policy=self.remat_policy)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
@@ -731,7 +941,9 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
     JAX's factory: a config key wins; without ``mlp_impl`` / ``lnadd_impl``
     a multi-step or deeper-than-12 config takes 'fused2' / 'xla', the others
     None (the modules read ``MLP_IMPL`` / ``LNADD_IMPL`` when they run);
-    without ``cpb_unique``, None (``CPB_UNIQUE``).
+    without ``cpb_unique``, None (``CPB_UNIQUE``). ``activation_ckpt``
+    turns on the blocks' remat under ``remat_policy`` ('full' when absent),
+    as JAX's ``checkpoint_stages`` and ``remat_policy``.
     """
     if dtype is None:
         dtype = _DTYPES[str(getattr(params, "compute_dtype", "bfloat16"))]
@@ -748,12 +960,6 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
                   else ("xla" if deep else None))
     if int(getattr(params, "spatial_shards", 1) or 1) > 1:
         raise NotImplementedError("spatial_shards > 1 is not ported yet")
-    if bool(getattr(params, "activation_ckpt", False)):
-        logger.info(
-            "activation_ckpt (remat_policy %r) is not applied: the port trains without "
-            "activation checkpointing",
-            getattr(params, "remat_policy", None),
-        )
     return SwinTransformerV2(
         img_size=tuple(params.img_size),
         patch_size=int(params.patch_size),
@@ -773,4 +979,6 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         cpb_unique=bool(params["cpb_unique"]) if "cpb_unique" in params else None,
         lnadd_impl=lnadd_impl,
         attn_impl=attn_impl,
+        checkpoint_stages=bool(getattr(params, "activation_ckpt", False)),
+        remat_policy=str(getattr(params, "remat_policy", None) or "full"),
     )

@@ -13,7 +13,10 @@ The JAX wrapper's two forms become two Python loops:
   step's model call runs under ``torch.utils.checkpoint``, so the backward
   keeps only the per-step carries and recomputes one step at a time; with
   ``rollout_stack_dtype`` the carries and predictions are kept in that dtype
-  and the output is returned in fp32.
+  and the output is returned in fp32. With ``activation_ckpt`` the model's
+  block remat runs inside each step's checkpoint (both non-reentrant), as
+  JAX nests the block remat inside ``remat_rollout``'s: a step's backward
+  recomputes the step, and each block's backward its unkept stages again.
 
 Random masks under the checkpoint: the uniforms behind every step's
 drop-path and CPB-dropout masks are drawn from the caller's generator before

@@ -20,7 +20,8 @@ Spec words:
                 the JAX package)
   l2 / l1       norm choice
   pole-masked   zero the first and last row of the quadrature weights
-  h1            the SHT-based H1 loss: not ported yet (needs ops/sht.py)
+  h1            the SHT-based H1 loss (:class:`GeometricH1Loss`; it takes no
+                channel weights, as in the JAX package)
 
 The multistep weight is uniform over n_future + 1 steps and is applied in
 training mode, which is also the default in validation, as in the JAX package.
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from swin_v2_weather_torch.ops.quadrature import GridQuadrature
+from swin_v2_weather_torch.ops.sht import RealSHT
 
 _SURFACE_LOW = ("u10m", "v10m", "u100m", "v100m", "tp", "sp", "msl", "tcwv")
 _SURFACE_T = ("t2m", "2d")
@@ -101,6 +103,59 @@ class GeometricLpLoss:
         return self._reduce(chw * norms)
 
 
+class GeometricH1Loss:
+    """Weighted H1 loss on the sphere through the SHT: per sample, the L2 norm
+    and the H1 seminorm (weights l(l+1)) of the field from its spherical
+    harmonic power, combined as alpha |.|_L2 + (1 - alpha) |.|_H1 (their
+    squares when ``squared``), absolute or relative to the target's; summed
+    over the batch (or averaged with ``size_average``). ``dtype`` is the
+    transform's (fp32, as the JAX package's; fp64 for a reference). The
+    Legendre matrix moves to the fields' device on the first call."""
+
+    def __init__(self, img_shape: Tuple[int, int], size_average: bool = False,
+                 reduction: bool = True, absolute: bool = False, squared: bool = False,
+                 alpha: float = 0.5, dtype: torch.dtype = torch.float32):
+        self.reduction = reduction
+        self.size_average = size_average
+        self.absolute = absolute
+        self.squared = squared
+        self.alpha = alpha
+        self.sht = RealSHT(img_shape[0], img_shape[1], grid="equiangular", dtype=dtype)
+        l = np.arange(self.sht.lmax, dtype=np.float64)
+        self.h1_weights = torch.as_tensor(l * (l + 1.0), dtype=dtype)
+
+    def _norms(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b = x.shape[0]
+        coeffs = self.sht(x)
+        power = coeffs.real ** 2 + coeffs.imag ** 2  # [..., l, m]
+        # m = 0 counted once, m > 0 twice (the negative orders), per Parseval
+        norm2 = power[..., :, 0] + 2.0 * torch.sum(power[..., :, 1:], dim=-1)
+        l2_norm2 = norm2.reshape(b, -1).sum(dim=-1)
+        h1_norm2 = (norm2 * self.h1_weights).reshape(b, -1).sum(dim=-1)
+        return l2_norm2, h1_norm2
+
+    def _combine(self, l2_norm2: torch.Tensor, h1_norm2: torch.Tensor) -> torch.Tensor:
+        if not self.squared:
+            return self.alpha * torch.sqrt(l2_norm2) + (1 - self.alpha) * torch.sqrt(h1_norm2)
+        return self.alpha * l2_norm2 + (1 - self.alpha) * h1_norm2
+
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        if self.reduction:
+            return torch.mean(x) if self.size_average else torch.sum(x)
+        return x
+
+    def __call__(self, prd: torch.Tensor, tar: torch.Tensor,
+                 chw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.h1_weights.device != prd.device:  # once per device
+            self.sht.to(prd.device)
+            self.h1_weights = self.h1_weights.to(prd.device)
+        l2_norm2, h1_norm2 = self._norms(prd - tar)
+        if self.absolute:
+            return self._reduce(self._combine(l2_norm2, h1_norm2))
+        tl2, th1 = self._norms(tar)
+        return self._reduce(self._combine(l2_norm2, h1_norm2) / self._combine(tl2, th1))
+
+
 class LossHandler:
     """Parses the loss spec and computes the training/validation loss.
 
@@ -162,7 +217,7 @@ class LossHandler:
                 squared=squared, pole_mask=pole_mask, quadrature_rule=rule,
             )
         elif "h1" in spec:
-            raise NotImplementedError("the H1 loss needs the SHT (ops/sht.py), not ported yet")
+            self.loss_obj = GeometricH1Loss(img_shape, absolute=absolute, squared=squared)
         else:
             raise ValueError(f"Unknown loss function: {self.loss_type}")
 

@@ -4,7 +4,8 @@ Counterpart of ``swin_v2_weather_tpu/training/optim.py``:
 
   * ``optimizer_type: 'adam'`` -- Adam with betas (0.9, 0.95) and eps 1e-8,
     the update optax.adam makes: lr * m_hat / (sqrt(v_hat) + eps);
-  * ``'FusedLAMB'`` / ``'lamb'`` -- not ported yet (raises);
+  * ``'FusedLAMB'`` / ``'lamb'`` -- :class:`Lamb`, the update of optax's
+    ``chain(clip_by_global_norm(max_grad_norm or 5), lamb(lr))``;
   * the schedules are stepped once per epoch on the host, and the learning
     rate goes into the optimizer's ``param_groups`` from the host
     (:func:`set_learning_rate`), as the JAX package injects it into the optax
@@ -16,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Iterable, Optional
 
+import numpy as np
 import torch
 
 
@@ -25,8 +27,87 @@ def build_optimizer(params, parameters: Iterable[torch.nn.Parameter]) -> torch.o
     if opt_type == "adam":
         return torch.optim.Adam(parameters, lr=float(params.lr), betas=(0.9, 0.95), eps=1e-8)
     if opt_type in ("FusedLAMB", "lamb"):
-        raise NotImplementedError("the LAMB optimizer is not ported yet")
+        return Lamb(parameters, lr=float(params.lr),
+                    max_grad_norm=float(getattr(params, "max_grad_norm", None) or 5.0))
     raise ValueError(f"optimizer type {opt_type} not implemented")
+
+
+def _bias_correction(decay: float, step: int) -> float:
+    """1 - decay^step in fp32, as optax computes it (1 - 0.999 is 1.3e-5 off
+    0.001 there)."""
+    return float(np.float32(1.0) - np.power(np.float32(decay), np.float32(step)))
+
+
+class Lamb(torch.optim.Optimizer):
+    """LAMB after a global-norm clip, as optax's ``chain(clip_by_global_norm(
+    max_grad_norm), lamb(lr, b1, b2, eps))`` (eps_root 0, weight decay 0):
+
+      * g <- g if |g| < max_grad_norm else g / |g| * max_grad_norm, |g| the
+        norm over every parameter's gradient (``torch.nn.utils.
+        clip_grad_norm_`` adds 1e-6 to the norm, so it is not used);
+      * m <- b1 m + (1 - b1) g, v <- b2 v + (1 - b2) g^2 and the Adam update
+        u = m_hat / (sqrt(v_hat) + eps) with the bias corrections 1 - b^t;
+      * u <- u * |p| / |u| per parameter tensor (each is one JAX leaf,
+        ``models/convert.py``), 1 where either norm is 0 (the blocks'
+        LayerNorm scales start at 0);
+      * p <- p - lr u, the learning rate read from the group at each step
+        (:func:`set_learning_rate`).
+
+    A parameter without a gradient takes a zero one, as an optax leaf does.
+    Plain tensor ops (``torch._foreach_*``), no host sync; the state per
+    parameter is its step count and the two moments, so it goes through the
+    torch checkpoint as Adam's does.
+    """
+
+    def __init__(self, params, lr: float, max_grad_norm: float = 5.0, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6):
+        super().__init__(params, dict(lr=float(lr), b1=float(b1), b2=float(b2),
+                                      eps=float(eps)))
+        self.max_grad_norm = float(max_grad_norm)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        groups = [g for g in self.param_groups if g["params"]]
+        grads = [[torch.zeros_like(p) if p.grad is None else p.grad for p in g["params"]]
+                 for g in groups]
+        flat = [t for gs in grads for t in gs]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(flat)))
+        clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                           self.max_grad_norm / norm)
+        for group, gs in zip(groups, grads):
+            params = group["params"]
+            b1, b2, eps = group["b1"], group["b2"], group["eps"]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(step=0, exp_avg=torch.zeros_like(p),
+                                         exp_avg_sq=torch.zeros_like(p))
+            states = [self.state[p] for p in params]
+            for st in states:
+                st["step"] += 1
+            t = states[0]["step"]
+            gs = torch._foreach_mul(gs, clip)
+            ms = [st["exp_avg"] for st in states]
+            vs = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, gs), 1.0 - b2))
+            den = torch._foreach_div(vs, _bias_correction(b2, t))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            upd = torch._foreach_div(torch._foreach_div(ms, _bias_correction(b1, t)), den)
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(upd))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                p_norm / u_norm)
+            torch._foreach_mul_(upd, list(ratio.unbind()))
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+        return loss
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

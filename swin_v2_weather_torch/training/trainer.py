@@ -20,8 +20,10 @@ Randomness: the initial weights come from a ``torch.Generator`` seeded with
 ``params.seed`` (torch's layer defaults, which the JAX model reproduces); the
 drop-path masks of each step from a generator on the device seeded from
 (seed, epoch, global step) by :func:`step_seed`, so a resumed run draws the
-masks of an uninterrupted one. Single process only: data, spatial and
-parameter sharding raise (ROADMAP Queue 1 item 7).
+masks of an uninterrupted one. Single process: ``shard_params`` and
+``shard_opt_state`` are accepted there as no-ops (one device holds the whole
+state, as JAX's ``state_shardings`` shards nothing over a one-device mesh);
+more processes and ``spatial_shards > 1`` raise (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from swin_v2_weather_torch.utils.profiling import StepProfiler, StepTimer
 
 logger = logging.getLogger(__name__)
 
-_PARALLEL = "is not ported yet (ROADMAP Queue 1 item 7, parallel)"
+_PARALLEL = "is not ported yet (ROADMAP Queue 1 item 6, parallel)"
 
 
 def step_seed(seed: int, epoch: int, global_step: int) -> int:
@@ -90,7 +92,7 @@ class Trainer:
         self.root_dir = params["exp_dir"]
         self.device = torch.device(device)
 
-        # one process drives one device (ROADMAP Queue 1 item 7 adds more)
+        # one process drives one device (ROADMAP Queue 1 item 6 adds more)
         self.process_index, self.process_count = 0, 1
         self.is_chief = True
         self.log_to_screen = bool(params.log_to_screen)
@@ -122,8 +124,9 @@ class Trainer:
         if int(getattr(params, "spatial_shards", 1) or 1) > 1:
             raise NotImplementedError(f"spatial_shards > 1 {_PARALLEL}")
         for key in ("shard_params", "shard_opt_state"):
-            if bool(getattr(params, key, False)):
-                raise NotImplementedError(f"{key} {_PARALLEL}")
+            if bool(getattr(params, key, False)) and self.log_to_screen:
+                logger.info("%s: a no-op at one process (one device holds the whole state, "
+                            "as on JAX's one-device mesh)", key)
 
     # ------------------------------------------------------------------
     def build(self):

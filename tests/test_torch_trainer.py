@@ -359,16 +359,26 @@ def test_build_without_cuda_raises(tmp_path, monkeypatch):
     assert not (tmp_path / MICRO).exists()
 
 
-@pytest.mark.parametrize("over, env", [({"shard_params": True}, {}),
-                                       ({"shard_opt_state": True}, {}),
+@pytest.mark.parametrize("over, env", [({"shard_params": True}, {"WORLD_SIZE": "2"}),
+                                       ({"shard_opt_state": True}, {"WORLD_SIZE": "2"}),
                                        ({"spatial_shards": 2}, {}),
                                        ({}, {"WORLD_SIZE": "2"})])
 def test_parallel_options_raise(tmp_path, monkeypatch, over, env):
+    """Past one process (the sharding keys with it) and spatial sharding raise."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     t = Trainer(micro_yparams(tmp_path, **over), MICRO, run_num="t", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         t.build()
+
+
+def test_sharding_keys_are_no_ops_at_one_process(tmp_path):
+    """shard_params and shard_opt_state at one process train as without them
+    (JAX's one-device mesh shards nothing): the same parameters bit for bit."""
+    over = dict(max_epochs=1, n_synthetic_samples=4)
+    ta = run_trainer(tmp_path / "a", **over)
+    tb = run_trainer(tmp_path / "b", shard_params=True, shard_opt_state=True, **over)
+    state_equal(tb.model.state_dict(), ta.model.state_dict())
 
 
 # --------------------------------------------------------------------------

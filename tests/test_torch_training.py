@@ -124,8 +124,12 @@ def test_auto_weights_and_unported_losses(tmp_path):
     names = ["u10m", "v10m", "t2m", "sp", "z500", "t850", "q700", "r925", "xyz"]
     np.testing.assert_array_equal(losses.auto_channel_weights(names),
                                   jax_losses.auto_channel_weights(names))
-    with pytest.raises(NotImplementedError, match="SHT"):
-        losses.LossHandler(loss_params(tmp_path, "geometric h1"))
+    # the h1 word is ported (tests/test_torch_sht.py holds it to JAX); a spec
+    # with no norm word still raises
+    assert isinstance(losses.LossHandler(loss_params(tmp_path, "geometric h1")).loss_obj,
+                      losses.GeometricH1Loss)
+    with pytest.raises(ValueError, match="Unknown loss"):
+        losses.LossHandler(loss_params(tmp_path, "geometric"))
     with pytest.raises(FileNotFoundError):
         p = loss_params(tmp_path, "temp-std l2", stats=False)
         p.data_loader_config = "era5"
@@ -230,8 +234,12 @@ def test_adam_matches_optax():
         upd, state = ref_opt.update(jnp.asarray(g), state, ref_w)
         ref_w = optax.apply_updates(ref_w, upd)
         np.testing.assert_allclose(w.detach().numpy(), np.asarray(ref_w), rtol=1e-6, atol=1e-8)
-    with pytest.raises(NotImplementedError, match="LAMB"):
-        optim.build_optimizer(types.SimpleNamespace(optimizer_type="FusedLAMB", lr=1e-3), [w])
+    # LAMB is ported (tests/test_torch_lamb.py holds it to optax); an unknown
+    # optimizer type still raises
+    lamb = optim.build_optimizer(types.SimpleNamespace(optimizer_type="FusedLAMB", lr=1e-3), [w])
+    assert isinstance(lamb, optim.Lamb) and lamb.max_grad_norm == 5.0
+    with pytest.raises(ValueError, match="not implemented"):
+        optim.build_optimizer(types.SimpleNamespace(optimizer_type="sgd", lr=1e-3), [w])
 
 
 # --------------------------------------------------------------------------
