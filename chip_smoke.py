@@ -308,13 +308,44 @@ printing its own lines:
      same MLP route, the
      launches a step (K1 24 and K3 24 under 'full' and 'attn', K1 18 and K3
      24 under 'mlp' and 'mlp3', K1 18 under 'mlp_fc1'), ms/step and peak
-     memory (and the peak above what was allocated before the run's model
-     was built). (c) LAMB (``optimizer_type: 'lamb'``) on the flagship: 3
+     memory (phases 35 and 39 free their operands, so the card holds
+     nothing of theirs here). (c) LAMB (``optimizer_type: 'lamb'``) on the flagship: 3
      steps, finite, every parameter moved, ms/step. (d) The H1 loss (the
      ``'h1'`` word) of the flagship's prediction for one batch on the card
      against the same tensors' loss on the CPU in fp64 (relative bound
      1e-4), timed, and its gradient finite. Its numbers, with the card, in
      one ``{"training_options": {...}}`` JSON line.
+ 43. the parallel layer (``swin_v2_weather_torch/parallel``, ``shard_state``)
+     on the flagship at full width under its 'mlp3' remat, in ranks this
+     script starts (``python -m swin_v2_weather_torch.scripts.parallel_check``
+     each; the kernel library is built here first, so no rank builds it).
+     Each rank first takes the plain single-process step on the whole
+     sample (the reference), then the variant's 4 steps from the same
+     weights and drop-path seed, its launch counts reset just before them.
+     (a) One rank over NCCL (``init_process_group("nccl")``, world size 1):
+     DDP, ZeRO-1 (``shard_opt_state``) and FSDP2 (``shard_params``): step
+     1's loss and every gradient bit-equal to the reference (FSDP2: within
+     the bound below where not bit-equal); K1 18, K3 24, K2 and K4 12
+     launches a step, the GEMM core as ``check_core`` implies; ms/step and
+     peak GiB beside phase 10's bare step; then the Trainer on that group
+     (DDP with ZeRO-1) for one epoch of 2 steps: finite metrics, the
+     checkpoint written. (b) Two ranks sharing the card
+     over gloo (NCCL refuses two ranks on one device), ``spatial_shards:
+     2``, ``mesh_shape: [1, 2]``: each rank a band of 90 token rows (10
+     window rows), the halos through host copies; rank 0 launches K1/K2 on
+     its shifted blocks with ``boundary_flag`` 0.0 and rank 1 with 1.0 (the
+     flags recorded per call); step 1's loss within 1e-4 and each gradient
+     within 2e-2 of its largest entry of the reference (``SPATIAL_TOL``);
+     the same launches a step on each rank; ms/step, each rank's peak, the
+     halo bytes a step and the ms of their exchanges alone, timed on a
+     fifth step from a synchronized card and a barrier of the ranks before
+     each exchange (the two ranks time-share one
+     card: a proof of correctness and a measure of overhead, not of
+     scaling). (c) K1/K2 with ``boundary_flag`` 0.0 at the band shape [1,
+     90, 360, 768], shifted, against their plain versions (the kernels'
+     outputs also bit-equal to the unmasked call's: a gate of 0 is no
+     mask), timed beside the bound. Its numbers, with the card, in one
+     ``{"parallel": {...}}`` JSON line.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -440,6 +471,16 @@ CORE_TOL = (1.0, 0.01)
 # differ in order, which now and then flips one bf16 rounding of out or dz;
 # dgamma/dbeta sum 64800 rows in another order.
 LN_TOL = {"out": (1.0, 0.01), "dz": (1.0, 0.01), "dgamma": (2.0, 0.05), "dbeta": (2.0, 0.05)}
+# Phase 43, the two-band step against the unsharded one (relative: the loss,
+# the gradient norm, and each gradient's largest difference over its largest
+# entry): the bands' gradients are summed over the ranks in another order
+# than one process sums the same terms, and a gradient that leaves a kernel
+# in bf16 (the qkv weight's, K2's dW) flips an ulp, 2^-8 of an entry, where
+# that order moves a rounding; cuBLAS may pick other kernels for the band's
+# half-height products. FSDP2 at world size 1 is held to the same bounds
+# where it is not bit-equal: its parameters are views into its all-gather
+# buffer, another alignment of the same products.
+SPATIAL_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "grad": 2e-2}
 
 
 def log(msg: str) -> None:
@@ -608,23 +649,6 @@ def train_params(config: str, overrides: dict = None):
     params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
     params["data_loader_config"] = "synthetic"
     return params
-
-
-def seeded_parameters(model: torch.nn.Module, gen: torch.Generator) -> None:
-    """Every parameter from seeded noise (drawn on the generator's device);
-    LayerNorm scales 1 + 0.1 N(0, 1)."""
-    kw = dict(generator=gen, device=gen.device)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("logit_scale"):
-                val = math.log(10.0) + 0.3 * torch.randn(p.shape, **kw)
-            elif name.endswith("pos_embed") or name.endswith(".bias"):
-                val = 0.02 * torch.randn(p.shape, **kw)
-            elif p.dim() == 1:  # LayerNorm scale
-                val = 1.0 + 0.1 * torch.randn(p.shape, **kw)
-            else:  # Linear weight [out, in]: U(-1, 1) / sqrt(fan_in)
-                val = (2.0 * torch.rand(p.shape, **kw) - 1.0) / math.sqrt(p.shape[1])
-            p.copy_(val)
 
 
 def plain_version(fn):
@@ -1474,6 +1498,181 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
     return paths
 
 
+def parallel_ranks(tag: str, world: int, backend: str, variants: str, out_dir: str,
+                   timeout: float = 600.0) -> list:
+    """Run ``world`` ranks of ``scripts/parallel_check.py`` on the card
+    (``cuda:0`` each; a ``file://`` rendezvous in ``out_dir``), every one
+    stopped at ``timeout``, and return their results; raise with the ranks'
+    output if one fails."""
+    from swin_v2_weather_torch.parallel.launch import run_ranks
+
+    res = os.path.join(out_dir, tag)
+    run_ranks([sys.executable, "-m", "swin_v2_weather_torch.scripts.parallel_check",
+               "--backend", backend, "--rendezvous", os.path.join(out_dir, f"{tag}.rdv"),
+               "--variants", variants, "--device", "cuda:0", "--timeout", str(timeout),
+               "--out", res], world, res, timeout, what=f"[43] {tag}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(res, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def parallel_phase(dev, card: str, train_step_ms: float, per_step: dict, heads: int,
+                   results: dict) -> dict:
+    """Phase 43 (module docstring): (a) DDP / ZeRO-1 / FSDP2 at world size 1
+    over NCCL, (b) two spatially sharded ranks on the card over gloo, (c)
+    K1/K2 gated off at the band shape. Returns {path: (launches, steps)} of
+    the ranks' runs for the kernel line; (c)'s numbers go into ``results``
+    as ``window_attention_qkv_band`` / ``window_attention_qkv_bwd_band``."""
+    import shutil
+    import tempfile
+
+    from swin_v2_weather_torch.models.swin import make_shift_mask
+    from swin_v2_weather_torch.ops import window_attention as wa
+
+    t43 = time.time()
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
+    os.makedirs(runs, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=runs)
+    steps, paths, out = 4, {}, {"card": card, "bare_step_ms": train_step_ms}
+    want = {name: per_step.get(name, 0) for name in (
+        "window_attention_qkv", "window_attention_qkv_bwd", "fc1_gelu", "fc1_dpre", "mlp_fwd",
+        "mlp_bwd")}
+
+    def check_run(tag, v):
+        launches = {k: int(round(n * steps)) for k, n in v["launches_per_step"].items()}
+        if launches != {k: n * steps for k, n in want.items()}:
+            raise RuntimeError(f"[43] {tag}: launches in {steps} steps must be "
+                               f"{ {k: n * steps for k, n in want.items()} }, got {launches}")
+        check_core(f"[43] {tag}", int(round(v["gemm_per_step"] * steps)), launches, heads)
+        if not all(math.isfinite(x) for m in v["metrics"] for x in m.values()):
+            raise RuntimeError(f"[43] {tag}: non-finite metrics")
+        paths[f"parallel_{tag}"] = ({**launches, "gemm": int(round(v["gemm_per_step"] * steps))},
+                                    steps)
+
+    def within(tag, v):
+        rel = {"loss": abs(v["loss"] - v["loss_ref"]) / abs(v["loss_ref"]),
+               "grad_norm": abs(v["grad_norm"] - v["grad_norm_ref"]) / abs(v["grad_norm_ref"]),
+               "grad": v["worst_grad_rel"]}
+        bad = {k: r for k, r in rel.items() if not r <= SPATIAL_TOL[k]}
+        if bad:
+            raise RuntimeError(f"[43] {tag}: step 1 against the unsharded step beyond "
+                               f"{SPATIAL_TOL}: {bad}")
+        return rel
+
+    try:
+        # (a) world size 1 over NCCL
+        (res,) = parallel_ranks("world1", 1, "nccl", "ddp,zero1,fsdp2,trainer", tmp)
+        tr = res["variants"].pop("trainer")
+        for name, v in res["variants"].items():
+            check_run(name, v)
+            bit = v["grads_bit_equal"] and v["loss"] == v["loss_ref"]
+            if not bit and name != "fsdp2":
+                raise RuntimeError(f"[43a] {name}: step 1 is not bit-equal to the plain step "
+                                   f"(loss {v['loss']} vs {v['loss_ref']}, worst gradient "
+                                   f"{v['worst_grad_rel']:.3g})")
+            rel = None if bit else within(name, v)
+            log(f"[43a] {name} at world size 1 over NCCL: step 1 "
+                + ("bit-equal to the plain step (loss and every gradient)" if bit else
+                   f"within {SPATIAL_TOL} of the plain step: {rel}")
+                + f"; {v['ms_per_step']:.2f} ms/step over steps 2-{steps}, peak "
+                f"{v['peak_gib']:.3f} GiB, against the bare step's {train_step_ms:.2f} ms/step "
+                f"of phase 10; launches a step {v['launches_per_step']} ({card})")
+            out[name] = {k: v[k] for k in ("loss", "loss_ref", "grads_bit_equal",
+                                           "worst_grad_rel", "ms_per_step", "peak_gib",
+                                           "launches_per_step")}
+        # the Trainer on the process group: one epoch, ZeRO-1 under DDP
+        logs = tr["logs"]
+        if not (tr["checkpoint"] and len(logs) == 1 and tr["forward"] ==
+                "DistributedDataParallel" and tr["optimizer"] == "ZeroRedundancyOptimizer"
+                and all(math.isfinite(logs[0][k]) for k in ("loss", "valid_loss",
+                                                             "valid_rmse_u10m"))):
+            raise RuntimeError(f"[43a] the Trainer on the process group: {tr}")
+        log(f"[43a] the Trainer on the NCCL group (world size 1, DDP + ZeRO-1): one epoch of 2 "
+            f"steps in {tr['wall_s']:.1f} s with the build, loss {logs[0]['loss']:.6f}, valid "
+            f"loss {logs[0]['valid_loss']:.6f}, its step time mean "
+            f"{1e3 * logs[0]['step_time_mean']:.1f} ms, checkpoint written by the chief ({card})")
+        out["trainer"] = {"wall_s": tr["wall_s"], "log": logs[0]}
+
+        # (b) two ranks on the one card, latitude bands over gloo
+        ranks = parallel_ranks("spatial", 2, "gloo", "spatial", tmp)
+        for r, res in enumerate(ranks):
+            v = res["variants"]["spatial"]
+            check_run(f"spatial_rank{r}", v)
+            flag = 1.0 if r == 1 else 0.0
+            if v["flags"] != {"fwd": [flag], "bwd": [flag]}:
+                raise RuntimeError(f"[43b] rank {r}: K1/K2 on the shifted blocks must take "
+                                   f"boundary_flag {flag}, took {v['flags']}")
+            rel = within(f"spatial rank {r}", v)
+            log(f"[43b] spatial_shards 2, mesh [1, 2], rank {r} (band of 90 token rows, gloo, "
+                f"both ranks on one card): K1/K2 boundary_flag {v['flags']}; step 1 against "
+                f"the unsharded step {rel} (bounds {SPATIAL_TOL}); {v['ms_per_step']:.2f} "
+                f"ms/step, peak {v['peak_gib']:.3f} GiB; halo bytes a step "
+                f"{v['halo_bytes_per_step']} sent, their exchanges alone "
+                f"{v['halo_exchange_ms_per_step']:.2f} ms a step ({card}; the ranks time-share "
+                f"the card: correctness and overhead, not scaling)")
+            out[f"spatial_rank{r}"] = {k: v[k] for k in (
+                "loss", "loss_ref", "worst_grad_rel", "flags", "ms_per_step", "peak_gib",
+                "halo_bytes_per_step", "halo_exchange_ms_per_step", "launches_per_step")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) K1/K2 gated off (boundary_flag 0.0) at the band shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    b, gh, gw, c, window = 1, 90, 360, 768, (9, 18)
+    x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
+    w_qkv = (2 * torch.rand((c, 3 * c), generator=gen, device=dev) - 1) / math.sqrt(c)
+    w16 = w_qkv.bfloat16()
+    b_qkv = 0.02 * torch.randn((3 * c,), generator=gen, device=dev)
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
+    pattern = torch.from_numpy(make_shift_mask((gh, gw), window, (4, 9))[-1].copy()).to(dev)
+    log(f"[43c] K1/K2 at the band shape: x, g {tuple(x.shape)} bf16, {heads} heads, window "
+        f"{window}, shifted, boundary_flag 0.0")
+    with torch.inference_mode():
+        fwd = wa.window_attention_qkv(x, w16, b_qkv, scale, window, pattern, 0.0)
+        ref = wa.window_attention_qkv_reference(x, w_qkv, b_qkv, scale, window, pattern, 0.0)
+        err_f = compare("K1 out", fwd, ref, ATTN_TOL)
+        if not torch.equal(fwd, wa.window_attention_qkv(x, w16, b_qkv, scale, window, None,
+                                                        1.0)):
+            raise RuntimeError("[43c] K1 with boundary_flag 0.0 differs from the unmasked call")
+        if torch.equal(fwd, wa.window_attention_qkv(x, w16, b_qkv, scale, window, pattern, 1.0)):
+            raise RuntimeError("[43c] K1's mask has no effect at boundary_flag 1.0")
+    bwd = wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, pattern, 0.0)
+    ref_b = wa.window_attention_qkv_backward_reference(x, w16, b_qkv, scale, g, window,
+                                                       pattern, 0.0)
+    err_b = max(compare(f"K2 {n}", o, r_, BWD_TOL[n])
+                for n, o, r_ in zip(("dx", "dW", "db", "dscale"), bwd, ref_b))
+    if not all(torch.equal(a_, o) for a_, o in zip(
+            bwd, wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window, None, 1.0))):
+        raise RuntimeError("[43c] K2 with boundary_flag 0.0 differs from the unmasked call")
+    with torch.inference_mode():
+        f_ms = time_ms(lambda: wa.window_attention_qkv(x, w16, b_qkv, scale, window, pattern,
+                                                       0.0), 20)
+        fp_ms = time_ms(lambda: wa.window_attention_qkv_reference(
+            x, w_qkv, b_qkv, scale, window, pattern, 0.0), 5)
+    b_ms = time_ms(lambda: wa.window_attention_qkv_bwd(x, w16, b_qkv, scale, g, window,
+                                                       pattern, 0.0), 10)
+    bp_ms = time_ms(lambda: wa.window_attention_qkv_backward_reference(
+        x, w16, b_qkv, scale, g, window, pattern, 0.0), 3)
+    t_tok, l_win = b * gh * gw, window[0] * window[1]
+    attn_flops = 2 * 2 * l_win * (c // heads) * l_win * heads * (t_tok // l_win)
+    results["window_attention_qkv_band"] = (err_f, f_ms, fp_ms, bound(
+        2 * t_tok * c * 3 * c + attn_flops, nbytes(x, w16, b_qkv, scale, fwd)))
+    results["window_attention_qkv_bwd_band"] = (err_b, b_ms, bp_ms, bound(
+        3 * 2 * t_tok * c * 3 * c + 5 * attn_flops / 2, nbytes(x, w16, b_qkv, scale, g, *bwd)))
+    log(f"  K1 {f_ms:.4f} ms (plain {fp_ms:.4f}, bound "
+        f"{results['window_attention_qkv_band'][3][0]:.4f}), K2 {b_ms:.4f} ms (plain "
+        f"{bp_ms:.4f}, bound {results['window_attention_qkv_bwd_band'][3][0]:.4f}) ({card}); "
+        "each bit-equal to its unmasked call")
+    del x, g, fwd, ref, bwd, ref_b
+    torch.cuda.empty_cache()
+    log(f"[43] {time.time() - t43:.1f} s")
+    print(json.dumps({"parallel": out}))
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1494,6 +1693,7 @@ def main() -> None:
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
     from swin_v2_weather_torch.scripts import bwd_breakdown as bb
     from swin_v2_weather_torch.scripts import prestage_probe
+    from swin_v2_weather_torch.training.trainer import seeded_parameters
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -2890,7 +3090,9 @@ def main() -> None:
             nbytes(x, w16, b_qkv, scale, g, x, w16, b_qkv, scale)),
             {k: v for k, v in errs.items() if k != "out"})
         del out, ref, grads, ref_g, again
-    del x, g, w_qkv, b_qkv, scale, w16, w5, xw, gw_, wp, bp, gwp
+    # the last case's operands too, so that later phases' peaks are their own
+    del x, g, w_qkv, b_qkv, scale, w16, w5, xw, gw_, wp, bp, gwp, fargs, bargs, gk, tail
+    del k12_cases
     torch.cuda.empty_cache()
 
     # ---- 36. the flagship on v5, v4 and the padded v4 (QKV_IMPL) ------------------
@@ -3085,7 +3287,7 @@ def main() -> None:
             log(f"  {name} hd {hd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}) ({card}); two calls bit-equal")
             del out, ref, again
-        del x, w16, b2q, sc2, g, raw, badd, xw, gw_, qkv2, qn, kn, qw, kw, vw, gwin, cases
+        del x, w16, b2q, sc2, g, raw, badd, xw, gw_, qkv2, qn, kn, qw, kw, vw, gwin, cases, args
         torch.cuda.empty_cache()
     # K8 and K9 at L = 288 at full width: window 12 x 24 on [1, 180, 360, C],
     # 15 x 15 windows, 8 heads
@@ -3142,7 +3344,9 @@ def main() -> None:
                 + (f"{lib_full:.4f}" if lib_full is not None else "null") + f" ms ({card}); two "
                 "calls bit-equal")
             del out
-        del qkv_f, qn, kn, g, sc8, raw, qw, kw, vw, gwin, cases
+        # args: the last case's operands ([225, 8, 288, hd] x 4: ~1 GiB at hd 256),
+        # which phases 40-42 held before
+        del qkv_f, qn, kn, g, sc8, raw, qw, kw, vw, gwin, cases, args
         torch.cuda.empty_cache()
 
     # ---- 40. the Trainer end to end ---------------------------------------------
@@ -3262,7 +3466,6 @@ def main() -> None:
         if mlp_impl:
             over["mlp_impl"] = mlp_impl
         params = train_params(CONFIG, over)
-        held = torch.cuda.memory_allocated()
         model = get_model(params)
         if model.model.remat_policy != policy:
             raise RuntimeError(f"[42b] {label}: the model's remat policy is "
@@ -3302,14 +3505,11 @@ def main() -> None:
             same = "bit-equal to the unrematted model's"
         del grads
         k_ms, k_mem = train_ms(step, batch, 2)
-        own = k_mem - held / 2**30  # above what was allocated before the model was built
         per_step = {k: v // 2 for k, v in launches.items() if v}
-        policy_out[label] = {"ms": k_ms, "peak_gib": k_mem, "own_peak_gib": own,
-                             "launches_per_step": per_step,
+        policy_out[label] = {"ms": k_ms, "peak_gib": k_mem, "launches_per_step": per_step,
                              "launches": {**launches, "gemm": gc.gemm.launches}}
-        log(f"[42b] {CONFIG} remat {label}: {k_ms:.2f} ms/step, peak {k_mem:.3f} GiB ({own:.3f} "
-            f"above the {held / 2**30:.3f} allocated before its model); launches a step "
-            f"{per_step}; gradients of 2 steps {same} ({card})")
+        log(f"[42b] {CONFIG} remat {label}: {k_ms:.2f} ms/step, peak {k_mem:.3f} GiB; launches "
+            f"a step {per_step}; gradients of 2 steps {same} ({card})")
         del model, step
         torch.cuda.empty_cache()
     del ref_grads
@@ -3362,6 +3562,15 @@ def main() -> None:
     gc_mod.collect()
     torch.cuda.empty_cache()
     log(f"[42] {time.time() - t42:.1f} s")
+
+    # ---- 43. the parallel layer: DDP / ZeRO-1 / FSDP2 over NCCL at world size 1,
+    # two spatially sharded ranks on the card, K1/K2 gated off at the band shape
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    parallel_paths = parallel_phase(
+        dev, card, train_step_ms, {"window_attention_qkv": qkv_mlp3,
+                                   "window_attention_qkv_bwd": depth, "fc1_gelu": twice,
+                                   "fc1_dpre": depth}, heads, results)
     print(json.dumps({"training_options": {
         "card": card, "e2048_full_image": {"ms": e2048_full_ms, "peak_gib": e2048_full_gib,
                                            **e2048_memory},
@@ -3389,7 +3598,7 @@ def main() -> None:
                "train_e2048_full": (launches_e2048_full, 3), "train_lamb": (launches_lamb, 3),
                **{f"remat_{label.replace(', ', '_').replace(' ', '_')}": (v["launches"], 2)
                   for label, v in policy_out.items()},
-               **trainer_paths}
+               **trainer_paths, **parallel_paths}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),
@@ -3517,6 +3726,10 @@ def main() -> None:
                 entry["train_shape"]["breakdown"] = pieces
         if entry["name"] in breakdowns:  # the large-head backwards' pieces (phases 27, 33)
             entry["breakdown"] = breakdowns[entry["name"]]
+    for entry in kernels[:2]:  # K1/K2 gated off at the band shape [1, 90, 360, 768] (phase 43)
+        err, k_ms, p_ms, (b_ms, b_by) = results[entry["name"] + "_band"]
+        entry["band"] = {"boundary_flag": 0.0, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     kernels[6]["e2048"] = k7_e2048["fwd"]  # K7's e2048 case (phase 27)
     kernels[7]["e2048"] = k7_e2048["bwd"]
     kernels[8]["streamed"] = ln_streamed["fwd"]  # K11 above 2048 channels (phase 18)

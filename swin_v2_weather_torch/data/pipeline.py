@@ -7,7 +7,12 @@ Counterpart of ``swin_v2_weather_tpu/data/pipeline.py``:
     permutes the full index space with the same ``seed + epoch`` seed and
     takes a strided slice, so an epoch is a partition of the dataset over the
     shards and restarts are reproducible. The batches are the JAX loader's,
-    bit for bit.
+    bit for bit. A shard is one index of the mesh's ``data`` axis
+    (``data_shard_id`` / ``data_num_shards``, set by the Trainer): ranks that
+    differ only in their ``model`` index read the same samples (spatial
+    sharding splits each sample over them on the device). JAX shards by
+    process instead, one process feeding every chip of its host, so its
+    ``process_count`` is the data axis's size here.
   * **Thread-pool sample fetch with look-ahead** — h5py and the native reader
     release the GIL, so a small thread pool overlaps disk I/O and decode with
     the device step.
@@ -239,7 +244,8 @@ def cuda_prefetch(iterator: Iterator[Dict[str, np.ndarray]], device="cuda", dept
     and its tensors are ``record_stream``-ed on that stream, so the caching
     allocator reuses their memory only after the consumer's work on them. The
     event is the :class:`HostBatch`'s fence: its slot is not refilled before
-    the copies completed. With ``device="cpu"`` the batches come back as CPU
+    the copies completed; ``device`` is the rank's own (``cuda:LOCAL_RANK``
+    under torchrun). With ``device="cpu"`` the batches come back as CPU
     tensors (copies the caller owns), with no stream. A CUDA device that
     does not exist raises; nothing falls back to the CPU.
     """

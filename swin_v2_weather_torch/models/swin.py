@@ -43,8 +43,22 @@ decides) and 'fused2' / 'xla' for the others, as JAX's factory does. The
 TPU-only switches (``SWIN_CPB_EXPAND``, ``SWIN_CPB_BARRIER``, tile sizes)
 have no counterpart: they pick XLA lowerings of the same function.
 
-Still raising ``NotImplementedError``: ``spatial_shards > 1`` and
-train-mode attention (or projection) dropout.
+Still raising ``NotImplementedError``: train-mode attention (or projection)
+dropout, and ``spatial_shards > 1`` on ``'pallas_v1'`` (its kernel has no
+boundary gate, as in JAX).
+
+Spatial sharding (``spatial_shards > 1``, ``parallel/spatial.py``): the model
+runs on one latitude band of ``H / spatial_shards`` rows of the input, a
+whole number of window rows, on each rank of the ``model`` group it holds
+(``spatial_group``); each band adds its rows of ``pos_embed``, the shifted
+blocks roll H through the halo exchange (``roll_h_sharded``) and W locally,
+and only the band that owns the last window row masks the pole-crossing
+rows (K1/K2, K7, K8 and K10 take ``boundary_flag`` 0.0 or 1.0 with the
+static pattern; ``'xla'`` drops the mask elsewhere). The window and shift
+are clamped to the whole grid, not to the band: JAX clamps them to the
+band's rows (its ``calc_window_shift`` of ``(gh_local, gw)``), so a band of
+one window row loses the H shift there and its model leaves the unsharded
+one; the port does not copy that.
 
 The layout follows the JAX model, so weights convert one to one
 (``models/convert.py``):
@@ -116,6 +130,7 @@ from swin_v2_weather_torch.ops.window_attention import (
     fused_window_attention_qkv_padded,
     pad_proj_rows,
 )
+from swin_v2_weather_torch.parallel import spatial
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 ATTN_IMPLS = ("pallas_qkv", "pallas", "pallas_v1", "xla")
@@ -591,8 +606,12 @@ class SwinBlock(nn.Module):
                  mlp_impl: Optional[str] = None, rel_pos: bool = False,
                  cpb_unique: Optional[bool] = None, lnadd_impl: Optional[str] = None,
                  attn_impl: str = "pallas_qkv", proj_drop: float = 0.0,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None, spatial_shards: int = 1):
         super().__init__()
+        if spatial_shards > 1 and attn_impl not in ("xla", "pallas", "pallas_qkv"):
+            raise NotImplementedError(
+                f"spatial_shards={spatial_shards}: spatial sharding supports attn_impl 'xla', "
+                "'pallas' and 'pallas_qkv' (v1 windowed kernel has no boundary gate)")
         if lnadd_impl not in (None, "xla", "fused"):
             raise ValueError(f"lnadd_impl must be 'xla', 'fused' or None, got {lnadd_impl!r}")
         self.drop_path_rate = float(drop_path_rate)
@@ -600,7 +619,12 @@ class SwinBlock(nn.Module):
         self.dim = dim
         # None: no activation checkpointing; else JAX's remat_policy name
         self.remat_policy = remat_policy
-        window, shift = calc_window_shift(feat_size, window_size, shift_size)
+        # under spatial sharding feat_size is the band's (H / spatial_shards
+        # rows); the window and shift are clamped to the whole grid's
+        self.spatial_shards = int(spatial_shards)
+        self.spatial_group = None  # the model group (SwinTransformerV2.spatial_group)
+        grid = (feat_size[0] * self.spatial_shards, feat_size[1])
+        window, shift = calc_window_shift(grid, window_size, shift_size)
         self.feat_size = tuple(feat_size)
         self.window = tuple(window)
         self.shift = tuple(shift)
@@ -668,10 +692,28 @@ class SwinBlock(nn.Module):
         or None."""
         attn, mlp = self.attn, self.mlp
         route = mlp.route()
+        group = self.spatial_group
+        mask, flag = self.attn_mask, None
+        if self.spatial_shards > 1 and self.do_shift:
+            # only the band that owns the last window row masks the rows
+            # rolled across the pole; the kernels keep the static pattern
+            # and take the gate as a scalar, 'xla' drops the mask elsewhere
+            is_last = spatial.group_rank(group) == self.spatial_shards - 1
+            if attn.attn_impl == "xla":
+                mask = mask if is_last else None
+            else:
+                flag = 1.0 if is_last else 0.0
+
+        def roll(y, sign):
+            if self.spatial_shards > 1:
+                y = spatial.roll_h_sharded(y, sign * self.shift[0], group)
+                return torch.roll(y, sign * self.shift[1], dims=2)
+            return torch.roll(y, shifts=(sign * self.shift[0], sign * self.shift[1]),
+                              dims=(1, 2))
 
         def attn_kernel_out(base, y):
             if self.do_shift:
-                y = torch.roll(y, shifts=(-self.shift[0], -self.shift[1]), dims=(1, 2))
+                y = roll(y, -1)
             if self.windowed:  # window_partition -> attention -> window_reverse
                 l = self.window[0] * self.window[1]
                 y = window_partition(y, self.window).reshape(-1, l, y.shape[-1])
@@ -681,7 +723,7 @@ class SwinBlock(nn.Module):
             else:
                 scale, bias = pre
             return base, attn.core(y, scale, bias, mask_pattern=self.mask_pattern,
-                                   mask=self.attn_mask)
+                                   boundary_flag=flag, mask=mask)
 
         def attn_out(base, y):
             y = attn.project(y)
@@ -689,7 +731,7 @@ class SwinBlock(nn.Module):
                 y = window_reverse(y.reshape(-1, *self.window, y.shape[-1]), self.window,
                                    self.feat_size)
             if self.do_shift:
-                y = torch.roll(y, shifts=(self.shift[0], self.shift[1]), dims=(1, 2))
+                y = roll(y, 1)
             return base, y
 
         def block_mid(x, y):  # post-norm residual branch: x + drop_path(norm(y))
@@ -809,7 +851,9 @@ class PatchEmbed(nn.Module):
 
 class SwinTransformerV2(nn.Module):
     """The single-stage SwinV2-CR weather model, [B, in_chans, H, W] ->
-    [B, out_chans, H, W] fp32."""
+    [B, out_chans, H, W] fp32; with ``spatial_shards`` n > 1, a band [B,
+    in_chans, H / n, W] -> [B, out_chans, H / n, W] on each rank of the
+    ``model`` group set as :attr:`spatial_group` (module docstring)."""
 
     def __init__(
         self,
@@ -837,6 +881,7 @@ class SwinTransformerV2(nn.Module):
         attn_impl: str = "pallas_qkv",
         checkpoint_stages: bool = False,
         remat_policy: str = "full",
+        spatial_shards: int = 1,
     ):
         super().__init__()
         self.img_size = tuple(img_size)
@@ -854,6 +899,16 @@ class SwinTransformerV2(nn.Module):
             h // img_window_ratio, w // img_window_ratio
         )
         shift = tuple(ws // 2 for ws in window)
+        # JAX's checks (its __call__): whole bands of whole window rows
+        n_sp = self.spatial_shards = int(spatial_shards)
+        if gh % n_sp:
+            raise ValueError(f"patch rows {gh} not divisible by spatial_shards {n_sp}")
+        gh_local = gh // n_sp
+        if n_sp > 1 and gh_local % window[0]:
+            raise ValueError(
+                f"local patch rows {gh_local} must be a whole number of window "
+                f"rows ({window[0]}) for spatial sharding")
+        self._spatial_group = None
 
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim, dtype)
         self.pos_embed = (
@@ -862,15 +917,36 @@ class SwinTransformerV2(nn.Module):
         # stochastic depth rate per block, in fp32 as the JAX model computes it
         dpr = np.linspace(0.0, drop_path_rate, depth, dtype=np.float32)
         self.blocks = nn.ModuleList(
-            SwinBlock(embed_dim, num_heads, (gh, gw), window, shift, shifted=(i % 2 == 1),
-                      mlp_ratio=mlp_ratio, init_values=init_values,
+            SwinBlock(embed_dim, num_heads, (gh_local, gw), window, shift,
+                      shifted=(i % 2 == 1), mlp_ratio=mlp_ratio, init_values=init_values,
                       drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl,
                       rel_pos=rel_pos, cpb_unique=cpb_unique, lnadd_impl=lnadd_impl,
                       attn_impl=attn_impl, proj_drop=proj_drop_rate,
-                      remat_policy=self.remat_policy)
+                      remat_policy=self.remat_policy, spatial_shards=n_sp)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
+        # (index, count) of this rank's data shard (training/step.py sets it):
+        # the drop-path uniforms are drawn for the whole global batch and
+        # this shard's rows kept, so the masks do not depend on the shard
+        # count and every band of a sample reads the same ones
+        self.data_shard = (0, 1)
+
+    @property
+    def spatial_group(self):
+        """The process group of the ``model`` axis the bands are split over
+        (None: unsharded); setting it reaches every block."""
+        return self._spatial_group
+
+    @spatial_group.setter
+    def spatial_group(self, group) -> None:
+        if self.spatial_shards > 1 and group is not None and (
+                spatial.group_size(group) != self.spatial_shards):
+            raise ValueError(f"spatial_shards={self.spatial_shards} != the model group's "
+                             f"size {spatial.group_size(group)}")
+        self._spatial_group = group
+        for blk in self.blocks:
+            blk.spatial_group = group
 
     def drop_noise(self, batch: int, generator: Optional[torch.Generator], device,
                    n_steps: Optional[int] = None) -> Optional[dict]:
@@ -879,11 +955,14 @@ class SwinTransformerV2(nn.Module):
         [depth, 2, batch] when a drop-path rate is above 0, then ``"cpb"``
         [depth, rows, 384] for the CPB meta-MLP's dropout with ``rel_pos``.
         With ``n_steps`` each gets a leading [n_steps] axis. None when the
-        model draws nothing."""
+        model draws nothing. On a data shard (:attr:`data_shard` (i, n)) the
+        drop-path uniforms are drawn for n * batch samples and rows [i *
+        batch, (i + 1) * batch) kept."""
         depth = len(self.blocks)
+        shard, n_shards = self.data_shard
         shapes = {}
         if any(blk.drop_path_rate > 0 for blk in self.blocks):
-            shapes["drop_path"] = (depth, 2, batch)
+            shapes["drop_path"] = (depth, 2, batch * n_shards)
         rows = self.blocks[0].attn.cpb_rows
         if rows:
             shapes["cpb"] = (depth, rows, CpbMlp.hidden)
@@ -893,8 +972,11 @@ class SwinTransformerV2(nn.Module):
             raise ValueError("drop-path and the CPB dropout in train mode need an explicit "
                              "torch.Generator")
         lead = () if n_steps is None else (n_steps,)
-        return {k: torch.rand(lead + shape, generator=generator, device=device)
-                for k, shape in shapes.items()}
+        noise = {k: torch.rand(lead + shape, generator=generator, device=device)
+                 for k, shape in shapes.items()}
+        if n_shards > 1 and "drop_path" in noise:
+            noise["drop_path"] = noise["drop_path"][..., shard * batch:(shard + 1) * batch]
+        return noise
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -903,20 +985,36 @@ class SwinTransformerV2(nn.Module):
         are ``noise`` (as :meth:`drop_noise` returns them) when given, else
         drawn from ``generator`` (a ``torch.Generator`` on x's device; needed
         when drop_path_rate > 0 or with ``rel_pos``)."""
+        n_sp = self.spatial_shards
+        if n_sp > 1 and train and any(r > 0 for r in self.dropout_rates):
+            # JAX's message: its per-shard dropout draws would correlate
+            # across the latitude bands
+            raise NotImplementedError(
+                "elementwise dropout (proj/attn) under spatial sharding would "
+                "correlate masks across latitude shards; train with these "
+                "rates at 0 or without spatial_shards")
         if train and any(r > 0 for r in self.dropout_rates):
             raise NotImplementedError(
                 "train-mode proj/attn dropout is not ported (the JAX factory never sets it)"
             )
+        if n_sp > 1 and self.spatial_group is None:
+            raise ValueError(f"spatial_shards={n_sp}: the model needs its model group "
+                             "(SwinTransformerV2.spatial_group)")
         b = x.shape[0]
         h, w = self.img_size
         p = self.patch_size
         gh, gw = h // p, w // p
+        gh_local = gh // n_sp
         skip = x
 
         x = x.permute(0, 2, 3, 1).to(self.dtype)  # NCHW -> NHWC
         x = self.patch_embed(x)
         if self.pos_embed is not None:
-            x = x + self.pos_embed.to(x.dtype)
+            pos = self.pos_embed
+            if n_sp > 1:  # this band's rows of the global embedding
+                row0 = spatial.group_rank(self.spatial_group) * gh_local
+                pos = pos[:, row0:row0 + gh_local]
+            x = x + pos.to(x.dtype)
         if train and noise is None:
             noise = self.drop_noise(b, generator, x.device)
         for i, blk in enumerate(self.blocks):
@@ -925,8 +1023,8 @@ class SwinTransformerV2(nn.Module):
 
         x = dense(x, self.head, self.dtype)
         # nhwpqc -> nchpwq: interleave patch pixels back into the full grid
-        x = x.reshape(b, gh, gw, p, p, self.out_chans).permute(0, 5, 1, 3, 2, 4)
-        x = x.reshape(b, self.out_chans, h, w).float()
+        x = x.reshape(b, gh_local, gw, p, p, self.out_chans).permute(0, 5, 1, 3, 2, 4)
+        x = x.reshape(b, self.out_chans, h // n_sp, w).float()
         if self.residual:
             x = x + skip[:, : self.out_chans].float()
         return x
@@ -937,7 +1035,8 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
 
     Every ``attn_impl`` of the JAX package but its A/B variants is accepted
     (``'pallas_qkv'``, ``'pallas'``, ``'pallas_v1'``, ``'xla'``), and every
-    ``mlp_impl``; ``spatial_shards > 1`` raises ``NotImplementedError``. As
+    ``mlp_impl``; ``spatial_shards`` as the config says (the model runs on a
+    band once its ``spatial_group`` is set, ``training/step.py``). As
     JAX's factory: a config key wins; without ``mlp_impl`` / ``lnadd_impl``
     a multi-step or deeper-than-12 config takes 'fused2' / 'xla', the others
     None (the modules read ``MLP_IMPL`` / ``LNADD_IMPL`` when they run);
@@ -958,8 +1057,6 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
     mlp_impl = str(params["mlp_impl"]) if "mlp_impl" in params else ("fused2" if deep else None)
     lnadd_impl = (str(params["lnadd_impl"]) if "lnadd_impl" in params
                   else ("xla" if deep else None))
-    if int(getattr(params, "spatial_shards", 1) or 1) > 1:
-        raise NotImplementedError("spatial_shards > 1 is not ported yet")
     return SwinTransformerV2(
         img_size=tuple(params.img_size),
         patch_size=int(params.patch_size),
@@ -981,4 +1078,5 @@ def build_swin_from_params(params, dtype: Optional[torch.dtype] = None) -> SwinT
         attn_impl=attn_impl,
         checkpoint_stages=bool(getattr(params, "activation_ckpt", False)),
         remat_policy=str(getattr(params, "remat_policy", None) or "full"),
+        spatial_shards=int(getattr(params, "spatial_shards", 1) or 1),
     )

@@ -7,6 +7,14 @@ Usage:
 
 It takes the JAX CLI's arguments plus ``--device`` (default ``cuda``): without
 a CUDA device the Trainer raises unless ``--device cpu`` is given.
+
+On several GPUs, one process per GPU under torchrun (rank r drives
+``cuda:LOCAL_RANK``; NCCL; ``mesh_shape``, ``shard_opt_state``,
+``shard_params`` and ``spatial_shards`` from the config or ``--set``):
+
+    torchrun --nproc_per_node N -m swin_v2_weather_torch.train --config=...
+
+With ``--device cpu`` the ranks take gloo.
 ``--enable_amp`` sets ``compute_dtype: bfloat16`` (the configs' default
 already; bf16 compute with fp32 parameters needs no GradScaler).
 """
@@ -108,6 +116,10 @@ def main(argv=None):
     else:
         trainer.build_and_launch()
     logging.info("DONE")
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,12 @@ state. Every tensor is saved as it is and restored as it was saved (Adam's
 ``step`` counts stay fp32 on the host), so a resumed run continues bit for
 bit.
 
+Across ranks the format stays the same, so a checkpoint saved at N ranks
+restores at any other count, as orbax restores into any sharding: every
+rank takes part in collecting the full state (FSDP2's DTensor shards
+gathered, ZeRO-1's optimizer state consolidated to rank 0), the chief
+alone writes, and every rank restores the full state and keeps its part.
+
 Writes are asynchronous: :meth:`CheckpointWriter.save` blocks only for the
 device-to-host copy of the state, a background thread writes a temporary
 directory and renames it into place, and the next ``save`` waits for the
@@ -56,8 +62,48 @@ def _to_host(obj):
     return obj
 
 
+def is_chief() -> bool:
+    """Rank 0 of the process group, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def full_state(obj):
+    """``obj`` with every DTensor (FSDP2's shards) gathered into a whole
+    tensor (a collective on every rank of its mesh; every rank walks the
+    same structure in the same order)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(obj, DTensor):
+        return obj.full_tensor()
+    if isinstance(obj, dict):
+        return {k: full_state(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(full_state(v) for v in obj)
+    return obj
+
+
+def _optimizer_state(optimizer, chief: bool) -> Optional[dict]:
+    """The optimizer's whole state dict on the chief (None elsewhere): a
+    ZeRO-1 optimizer consolidated to rank 0 first, DTensor state gathered."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    if isinstance(optimizer, ZeroRedundancyOptimizer):
+        optimizer.consolidate_state_dict(to=0)
+        return optimizer.state_dict() if chief else None
+    state = full_state(optimizer.state_dict())
+    return state if chief else None
+
+
 def _payload(model, optimizer, iters: int, epoch: int, scheduler_state: Optional[dict],
-             step_in_epoch: int) -> dict:
+             step_in_epoch: int, chief: bool = True) -> Optional[dict]:
+    """The checkpoint's content, on the host, on the chief; None on the
+    other ranks (which take part in gathering it)."""
+    model_state = full_state(model.state_dict())
+    optimizer_state = _optimizer_state(optimizer, chief)
+    if not chief:
+        return None
     payload = {
         "iters": int(iters),
         "epoch": int(epoch),
@@ -65,8 +111,8 @@ def _payload(model, optimizer, iters: int, epoch: int, scheduler_state: Optional
         # many steps of `epoch` are already applied; resume skips that many
         # batches of the deterministic epoch order
         "step_in_epoch": int(step_in_epoch),
-        "model": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
+        "model": model_state,
+        "optimizer": optimizer_state,
     }
     if scheduler_state:
         payload["scheduler"] = {k: float(v) for k, v in scheduler_state.items()}
@@ -104,7 +150,8 @@ class CheckpointWriter:
     may update the parameters in place); the disk write overlaps the next
     epoch's compute. A new save waits for the previous one to finish.
     ``last_blocking_s`` and ``last_write_s`` are the last save's host-copy
-    and background-write seconds.
+    and background-write seconds. Every rank saves (the state is gathered
+    collectively); only the chief (:func:`is_chief`) writes.
     """
 
     def __init__(self):
@@ -119,8 +166,11 @@ class CheckpointWriter:
              scheduler_state: Optional[dict] = None, step_in_epoch: int = 0) -> None:
         self.wait()
         t0 = time.perf_counter()
-        payload = _payload(model, optimizer, iters, epoch, scheduler_state, step_in_epoch)
+        payload = _payload(model, optimizer, iters, epoch, scheduler_state, step_in_epoch,
+                           is_chief())
         self.last_blocking_s = time.perf_counter() - t0
+        if payload is None:
+            return
 
         def write():
             t1 = time.perf_counter()
@@ -144,8 +194,12 @@ class CheckpointWriter:
 
 def save_checkpoint(path: str, model, optimizer, iters: int, epoch: int,
                     scheduler_state: Optional[dict] = None, step_in_epoch: int = 0) -> None:
-    """One-shot synchronous save (tests, export); the trainer uses CheckpointWriter."""
-    _write(path, _payload(model, optimizer, iters, epoch, scheduler_state, step_in_epoch))
+    """One-shot synchronous save (tests, export); the trainer uses
+    CheckpointWriter. Every rank calls it; the chief writes."""
+    payload = _payload(model, optimizer, iters, epoch, scheduler_state, step_in_epoch,
+                       is_chief())
+    if payload is not None:
+        _write(path, payload)
 
 
 def _refuse(path: str, what: str, keys) -> None:
@@ -181,6 +235,28 @@ def _check_optimizer_state(path: str, disk: dict, optimizer) -> None:
     _refuse(path, "holding keys of another shape", mismatched)
 
 
+def _shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``full`` as ``like`` holds it: this rank's shard where ``like`` is a
+    DTensor (FSDP2; sliced locally, no communication), else unchanged."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(like, DTensor):
+        return full
+    return distribute_tensor(full.to(like.device, like.dtype), like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
+def _optimizer_state_like(disk: dict, optimizer) -> dict:
+    """A saved optimizer state dict with each parameter's state tensors
+    sharded as its live parameter is (:func:`_shard_like`)."""
+    state = {}
+    for g, live in zip(disk["param_groups"], optimizer.param_groups):
+        for idx, p in zip(g["params"], live["params"]):
+            state[idx] = {k: v if k == "step" else _shard_like(v, p)
+                          for k, v in disk["state"][idx].items()}
+    return {**disk, "state": state}
+
+
 def restore_checkpoint(
     path: str,
     model,
@@ -197,7 +273,9 @@ def restore_checkpoint(
     its shape (extra keys on disk are ignored); resuming, every parameter's
     optimizer state too. A checkpoint written before ``step_in_epoch`` or the
     scheduler state existed restores with step_in_epoch 0 and no
-    'scheduler' entry.
+    'scheduler' entry. Every rank restores: FSDP2's parameters and moments
+    take their shards of the saved whole tensors, a ZeRO-1 optimizer its
+    partition.
     """
     payload = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu",
                          weights_only=True)
@@ -211,9 +289,14 @@ def restore_checkpoint(
         _refuse(path, "missing requested keys",
                 [k for k in ("iters", "epoch", "optimizer") if k not in payload])
         _check_optimizer_state(path, payload["optimizer"], optimizer)
-    model.load_state_dict({k: disk[k] for k in live})
+    model.load_state_dict({k: _shard_like(disk[k], live[k]) for k in live})
     if resuming:
-        optimizer.load_state_dict(payload["optimizer"])
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        state = payload["optimizer"]
+        if not isinstance(optimizer, ZeroRedundancyOptimizer):
+            state = _optimizer_state_like(state, optimizer)
+        optimizer.load_state_dict(state)
         out["epoch"] = int(payload["epoch"])
         out["iters"] = int(payload["iters"])
         out["step_in_epoch"] = int(payload.get("step_in_epoch", 0))

@@ -10,6 +10,13 @@ Counterpart of ``swin_v2_weather_tpu/training/optim.py``:
     rate goes into the optimizer's ``param_groups`` from the host
     (:func:`set_learning_rate`), as the JAX package injects it into the optax
     state.
+
+Under ZeRO-1 (``ZeroRedundancyOptimizer``, each rank stepping whole
+parameters of its own) and FSDP2 (each rank holding a shard of every
+parameter) the optimizer is built from :func:`optimizer_spec` by
+``training/step.shard_state``; :class:`Lamb` then takes ``norm_group``, the
+group whose ranks hold the other parameters or shards, so that its global
+clip norm and its per-parameter trust ratios are of whole parameters.
 """
 
 from __future__ import annotations
@@ -19,17 +26,41 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
-def build_optimizer(params, parameters: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-    """Optimizer factory over the model's parameters."""
+def optimizer_spec(params):
+    """(optimizer class, its keyword arguments) of the config's optimizer."""
     opt_type = str(params.optimizer_type)
     if opt_type == "adam":
-        return torch.optim.Adam(parameters, lr=float(params.lr), betas=(0.9, 0.95), eps=1e-8)
+        return torch.optim.Adam, dict(lr=float(params.lr), betas=(0.9, 0.95), eps=1e-8)
     if opt_type in ("FusedLAMB", "lamb"):
-        return Lamb(parameters, lr=float(params.lr),
-                    max_grad_norm=float(getattr(params, "max_grad_norm", None) or 5.0))
+        return Lamb, dict(lr=float(params.lr),
+                          max_grad_norm=float(getattr(params, "max_grad_norm", None) or 5.0))
     raise ValueError(f"optimizer type {opt_type} not implemented")
+
+
+def build_optimizer(params, parameters: Iterable[torch.nn.Parameter],
+                    norm_group=None) -> torch.optim.Optimizer:
+    """Optimizer factory over the model's parameters; ``norm_group`` goes to
+    :class:`Lamb` (Adam's update is elementwise)."""
+    cls, kwargs = optimizer_spec(params)
+    optimizer = cls(parameters, **kwargs)
+    if isinstance(optimizer, Lamb):
+        optimizer.norm_group = norm_group
+    return optimizer
+
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (FSDP2), else the tensor."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sq_norms(tensors) -> torch.Tensor:
+    """The squared L2 norm of each tensor, stacked."""
+    return torch.stack(torch._foreach_norm(tensors)) ** 2
 
 
 def _bias_correction(decay: float, step: int) -> float:
@@ -57,6 +88,12 @@ class Lamb(torch.optim.Optimizer):
     Plain tensor ops (``torch._foreach_*``), no host sync; the state per
     parameter is its step count and the two moments, so it goes through the
     torch checkpoint as Adam's does.
+
+    ``norm_group``: the ranks that hold the rest of the state. The squared
+    norms are summed over it: the global clip's alone where each rank holds
+    whole parameters (ZeRO-1), the per-parameter ones too where the
+    parameters are DTensor shards (FSDP2, whose every rank lists every
+    parameter). The elementwise update runs on each rank's local part.
     """
 
     def __init__(self, params, lr: float, max_grad_norm: float = 5.0, b1: float = 0.9,
@@ -64,6 +101,7 @@ class Lamb(torch.optim.Optimizer):
         super().__init__(params, dict(lr=float(lr), b1=float(b1), b2=float(b2),
                                       eps=float(eps)))
         self.max_grad_norm = float(max_grad_norm)
+        self.norm_group = None  # set where the state is sharded (build_optimizer)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -72,26 +110,34 @@ class Lamb(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         groups = [g for g in self.param_groups if g["params"]]
-        grads = [[torch.zeros_like(p) if p.grad is None else p.grad for p in g["params"]]
-                 for g in groups]
+        grads = [[local_part(torch.zeros_like(p) if p.grad is None else p.grad)
+                  for p in g["params"]] for g in groups]
         flat = [t for gs in grads for t in gs]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(flat)))
+        group_norms = self.norm_group is not None
+        # FSDP2: every parameter a shard, so its norms are sums over the group
+        sharded = group_norms and any(local_part(p) is not p for g in groups for p in g["params"])
+        if group_norms:
+            sq = torch.sum(_sq_norms(flat)) if flat else torch.zeros(())
+            dist.all_reduce(sq, group=self.norm_group)
+            norm = torch.sqrt(sq)
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(flat)))
         clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                            self.max_grad_norm / norm)
         for group, gs in zip(groups, grads):
-            params = group["params"]
-            b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            for p in params:
+            for p in group["params"]:
                 if not self.state[p]:
                     self.state[p].update(step=0, exp_avg=torch.zeros_like(p),
                                          exp_avg_sq=torch.zeros_like(p))
-            states = [self.state[p] for p in params]
+            states = [self.state[p] for p in group["params"]]
+            params = [local_part(p) for p in group["params"]]
+            b1, b2, eps = group["b1"], group["b2"], group["eps"]
             for st in states:
                 st["step"] += 1
             t = states[0]["step"]
             gs = torch._foreach_mul(gs, clip)
-            ms = [st["exp_avg"] for st in states]
-            vs = [st["exp_avg_sq"] for st in states]
+            ms = [local_part(st["exp_avg"]) for st in states]
+            vs = [local_part(st["exp_avg_sq"]) for st in states]
             torch._foreach_mul_(ms, b1)
             torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
             torch._foreach_mul_(vs, b2)
@@ -100,8 +146,13 @@ class Lamb(torch.optim.Optimizer):
             torch._foreach_sqrt_(den)
             torch._foreach_add_(den, eps)
             upd = torch._foreach_div(torch._foreach_div(ms, _bias_correction(b1, t)), den)
-            p_norm = torch.stack(torch._foreach_norm(params))
-            u_norm = torch.stack(torch._foreach_norm(upd))
+            if sharded:
+                sq = torch.stack([_sq_norms(params), _sq_norms(upd)])
+                dist.all_reduce(sq, group=self.norm_group)
+                p_norm, u_norm = torch.sqrt(sq).unbind()
+            else:
+                p_norm = torch.stack(torch._foreach_norm(params))
+                u_norm = torch.stack(torch._foreach_norm(upd))
             ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                 p_norm / u_norm)
             torch._foreach_mul_(upd, list(ratio.unbind()))

@@ -11,7 +11,11 @@ turns that warning into a mid-epoch checkpoint:
     consumed batches of the deterministic epoch-seeded sample order — the
     continued run is bit-identical to an uninterrupted one (the drop-path
     generator of each step is seeded from the seed, the epoch and the
-    restored global step).
+    restored global step);
+  * with several ranks the ranks agree on the stop step (:func:`agreed`: a
+    MAX all-reduce of the flags after every step). JAX lets each process
+    read its own flag; with eager collectives a rank that stopped a step
+    early would leave the others waiting in a collective.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import logging
 import signal
 import threading
 from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -69,3 +76,14 @@ class PreemptionHandler:
     def trigger(self) -> None:
         """Programmatic preemption (tests, external schedulers)."""
         self._event.set()
+
+
+def agreed(flag: bool, group=None) -> bool:
+    """Whether any rank of ``group`` has its flag set (a MAX all-reduce of a
+    host tensor: ``group`` must take CPU tensors, e.g. a gloo group, so no
+    device work is waited for); the flag itself without a process group."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())

@@ -2,7 +2,8 @@
 (PyTorch port).
 
 Counterpart of ``swin_v2_weather_tpu/training/trainer.py`` with its structure,
-on one device (the GPU unless ``device="cpu"`` is asked for):
+one process per device (the GPU unless ``device="cpu"`` is asked for;
+under torchrun, rank r drives ``cuda:LOCAL_RANK``):
 
   * the hot loop pulls a batch the prefetch already put on the device
     (``data/pipeline.cuda_prefetch``: a page-locked host ring, copies on a
@@ -20,10 +21,25 @@ Randomness: the initial weights come from a ``torch.Generator`` seeded with
 ``params.seed`` (torch's layer defaults, which the JAX model reproduces); the
 drop-path masks of each step from a generator on the device seeded from
 (seed, epoch, global step) by :func:`step_seed`, so a resumed run draws the
-masks of an uninterrupted one. Single process: ``shard_params`` and
-``shard_opt_state`` are accepted there as no-ops (one device holds the whole
-state, as JAX's ``state_shardings`` shards nothing over a one-device mesh);
-more processes and ``spatial_shards > 1`` raise (ROADMAP Queue 1 item 6).
+masks of an uninterrupted one; every rank draws them for the whole global
+batch and keeps its shard's (``SwinTransformerV2.data_shard``).
+
+Several processes (JAX ``trainer.py`` with a multi-process mesh):
+``parallel.init_distributed`` starts the process group from the launcher's
+environment; the (data, model) mesh comes from ``mesh_shape``; the state is
+laid out by ``training/step.shard_state`` (DDP, ``shard_opt_state``:
+ZeRO-1, ``shard_params``: FSDP2, ``spatial_shards``: latitude bands over the
+``model`` axis); the loader shards the dataset by the rank's data index
+(``data_num_shards`` = the data axis's size, each shard a
+``local_batch_size`` = ``batch_size`` / data shards); every rank starts from
+the same weights; validation reports the global batch's metrics; the chief
+alone makes the experiment directory and writes ``hyperparams.yaml``,
+``out.log``, the metrics, the profile and the checkpoints (which every
+rank gathers); a sweep trial's config is the chief's, broadcast; and the
+ranks agree on a preemption's stop step (``training/preempt.agreed``). One
+process without a process group runs as before, ``shard_params`` and
+``shard_opt_state`` doing nothing (one device holds the whole state, as
+JAX's ``state_shardings`` shards nothing over a one-device mesh).
 """
 
 from __future__ import annotations
@@ -36,26 +52,29 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from swin_v2_weather_torch.data.pipeline import cuda_prefetch, get_data_loader
 from swin_v2_weather_torch.data.preprocess import Preprocessor, derived_channel_counts
 from swin_v2_weather_torch.models.wrappers import get_model
 from swin_v2_weather_torch.ops.losses import LossHandler
-from swin_v2_weather_torch.training import checkpoint as ckpt
-from swin_v2_weather_torch.training.optim import (
-    build_optimizer,
-    build_scheduler,
-    set_learning_rate,
+from swin_v2_weather_torch.parallel.mesh import (
+    broadcast_config,
+    init_distributed,
+    make_mesh,
+    mesh_coords,
+    rank_device,
 )
-from swin_v2_weather_torch.training.step import build_eval_step, build_train_step
+from swin_v2_weather_torch.training import checkpoint as ckpt
+from swin_v2_weather_torch.training.optim import build_scheduler, set_learning_rate
+from swin_v2_weather_torch.training.preempt import agreed
+from swin_v2_weather_torch.training.step import build_eval_step, build_train_step, shard_state
 from swin_v2_weather_torch.utils.logging_utils import log_to_file, log_versions
 from swin_v2_weather_torch.utils.metrics_sink import MetricsSink
 from swin_v2_weather_torch.utils.profiling import StepProfiler, StepTimer
 
 logger = logging.getLogger(__name__)
-
-_PARALLEL = "is not ported yet (ROADMAP Queue 1 item 6, parallel)"
 
 
 def step_seed(seed: int, epoch: int, global_step: int) -> int:
@@ -81,6 +100,26 @@ def init_parameters(model: torch.nn.Module, generator: torch.Generator) -> None:
                 pos.normal_(0.0, 0.02, generator=generator)
 
 
+def seeded_parameters(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Every parameter from seeded noise (drawn on the generator's device), so
+    that no block is the identity, for checks of a model with random weights:
+    logit scales log(10) + 0.3 N(0, 1), position embeddings and biases
+    0.02 N(0, 1), LayerNorm scales 1 + 0.1 N(0, 1), Linear weights [out, in]
+    U(-1, 1) / sqrt(fan_in)."""
+    kw = dict(generator=gen, device=gen.device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("logit_scale"):
+                val = math.log(10.0) + 0.3 * torch.randn(p.shape, **kw)
+            elif name.endswith("pos_embed") or name.endswith(".bias"):
+                val = 0.02 * torch.randn(p.shape, **kw)
+            elif p.dim() == 1:  # LayerNorm scale
+                val = 1.0 + 0.1 * torch.randn(p.shape, **kw)
+            else:
+                val = (2.0 * torch.rand(p.shape, **kw) - 1.0) / math.sqrt(p.shape[1])
+            p.copy_(val)
+
+
 class Trainer:
     def __init__(self, params, config_name: str, run_num: str = "00", sweep_id=None,
                  device="cuda"):
@@ -90,17 +129,20 @@ class Trainer:
         self._base_run_num = run_num  # sweep trials derive per-trial run ids
         self.sweep_id = sweep_id
         self.root_dir = params["exp_dir"]
-        self.device = torch.device(device)
 
-        # one process drives one device (ROADMAP Queue 1 item 6 adds more)
-        self.process_index, self.process_count = 0, 1
-        self.is_chief = True
-        self.log_to_screen = bool(params.log_to_screen)
+        # one process drives one device; several start their process group here
+        self.process_index, self.process_count = init_distributed(device)
+        self.device = rank_device(device) if self.process_count > 1 else torch.device(device)
+        self.is_chief = self.process_index == 0
+        self.log_to_screen = bool(params.log_to_screen) and self.is_chief
+        # host-side agreement (preemption, sweep configs): CPU tensors, so a
+        # gloo group beside an NCCL default group
+        self._host_group = None
+        if dist.is_initialized() and dist.get_backend() != "gloo":
+            self._host_group = dist.new_group(backend="gloo")
 
         params["name"] = f"{config_name}_{run_num}"
         params["group"] = config_name
-        params["data_num_shards"] = self.process_count
-        params["data_shard_id"] = self.process_index
 
         # graceful-preemption hook (training/preempt.py); train() installs a
         # signal-backed handler unless one was injected beforehand
@@ -117,24 +159,13 @@ class Trainer:
     def count_parameters(self) -> int:
         return sum(p.numel() for p in self.model.parameters())
 
-    def _check_single_process(self) -> None:
-        params = self.params
-        if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
-            raise NotImplementedError(f"multi-process training (WORLD_SIZE > 1) {_PARALLEL}")
-        if int(getattr(params, "spatial_shards", 1) or 1) > 1:
-            raise NotImplementedError(f"spatial_shards > 1 {_PARALLEL}")
-        for key in ("shard_params", "shard_opt_state"):
-            if bool(getattr(params, key, False)) and self.log_to_screen:
-                logger.info("%s: a no-op at one process (one device holds the whole state, "
-                            "as on JAX's one-device mesh)", key)
-
     # ------------------------------------------------------------------
     def build(self):
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device (torch.cuda.is_available() is False); "
                                "pass device='cpu' to train on the host")
         params = self.params
-        if self.sweep_id is not None:
+        if self.sweep_id is not None and self.is_chief:
             # a sweep-agent trial: merge the agent's params before anything
             # derived is computed (the native agent, else wandb's)
             from swin_v2_weather_torch.training import sweeps as _sweeps
@@ -149,7 +180,13 @@ class Trainer:
                 if getattr(wandb, "run", None) is None:
                     wandb.init()
                 params.update_params(dict(wandb.config))
-        self._check_single_process()
+        if self.sweep_id is not None and self.process_count > 1:
+            # the agent mutated the chief's params only: every rank trains
+            # the chief's trial config
+            mutated = broadcast_config(_plain_dict(params) if self.is_chief else None,
+                                       group=self._host_group)
+            if not self.is_chief:
+                params.update_params(mutated)
         params["in_channels"] = np.asarray(params["in_channels"])
         params["out_channels"] = np.asarray(params["out_channels"])
         n_in, n_out = derived_channel_counts(params)
@@ -163,7 +200,8 @@ class Trainer:
             )
         else:
             exp_dir = os.path.join(self.root_dir, self.config, str(self.run_num))
-        os.makedirs(os.path.join(exp_dir, "training_checkpoints"), exist_ok=True)
+        if self.is_chief:
+            os.makedirs(os.path.join(exp_dir, "training_checkpoints"), exist_ok=True)
         exp_dir = os.path.abspath(exp_dir)
         params["experiment_dir"] = exp_dir
         params["checkpoint_path"] = os.path.join(exp_dir, "training_checkpoints", "ckpt")
@@ -171,13 +209,28 @@ class Trainer:
         params["resuming"] = ckpt.latest_checkpoint_exists(params["checkpoint_path"])
 
         self._close_log_file()  # a sweep's next trial logs to its own directory
-        if params.log_to_screen:
+        if self.log_to_screen:
             self._log_file = log_to_file(
                 logger_name=None, log_filename=os.path.join(exp_dir, "out.log"))
             log_versions()
 
+        # the (data, model) mesh over the ranks; the loader's unit is one data
+        # shard (ranks that differ only in their model index read the same
+        # samples), so the data axis's size is JAX's process count here
+        self.mesh = make_mesh(params) if dist.is_initialized() else None
+        coords = mesh_coords(self.mesh)
+        for key in ("shard_params", "shard_opt_state"):
+            if self.mesh is None and bool(getattr(params, key, False)) and self.log_to_screen:
+                logger.info("%s: a no-op at one process (one device holds the whole state, "
+                            "as on JAX's one-device mesh)", key)
         params["global_batch_size"] = int(params.batch_size)
-        params["local_batch_size"] = int(params.batch_size) // self.process_count
+        if params["global_batch_size"] % coords.dp:
+            raise ValueError(
+                f"global batch {params.batch_size} not divisible by data shards {coords.dp}"
+            )
+        params["local_batch_size"] = int(params.batch_size) // coords.dp
+        params["data_num_shards"] = coords.dp
+        params["data_shard_id"] = coords.data_index
 
         # data: the ring is page-locked when the batches go to a GPU
         pin = self.device.type == "cuda"
@@ -190,8 +243,9 @@ class Trainer:
         params["img_shape_x"] = self.train_dataset.img_shape_x
         params["img_shape_y"] = self.train_dataset.img_shape_y
 
-        with open(os.path.join(exp_dir, "hyperparams.yaml"), "w") as f:
-            yaml.safe_dump(_plain_dict(params), f)
+        if self.is_chief:
+            with open(os.path.join(exp_dir, "hyperparams.yaml"), "w") as f:
+                yaml.safe_dump(_plain_dict(params), f)
 
         # loss, model, preprocessing
         self.loss_obj = LossHandler(params)
@@ -199,15 +253,17 @@ class Trainer:
         self.model = get_model(params, device=self.device)
         self.seed = int(getattr(params, "seed", 333) or 333)
         init_parameters(self.model, torch.Generator(device=self.device).manual_seed(self.seed))
-
-        self.optimizer = build_optimizer(params, self.model.parameters())
+        # the parallel layout (DDP / ZeRO-1 / FSDP2 / latitude bands) and the
+        # optimizer; at one process the model as it is
+        self.layout, self.optimizer = shard_state(self.model, params, self.mesh)
         # re-seeded before every step (step_seed): the drop-path masks
         self.dp_gen = torch.Generator(device=self.device)
         self.train_step = build_train_step(
             self.model, self.loss_obj, self.preprocessor, self.optimizer,
-            loss_scale=1.0 / self.process_count, generator=self.dp_gen,
+            generator=self.dp_gen, layout=self.layout,
         )
-        self.eval_step = build_eval_step(self.model, self.loss_obj, self.preprocessor, n_out)
+        self.eval_step = build_eval_step(self.model, self.loss_obj, self.preprocessor, n_out,
+                                         layout=self.layout)
 
         # restore (reference train.py:195-206)
         self.start_epoch = 0
@@ -354,6 +410,9 @@ class Trainer:
         self.sink.close()
         self.train_loader.close()
         self.valid_loader.close()
+        if dist.is_initialized():
+            # no rank goes on (e.g. to resume) before the chief's checkpoint is on disk
+            dist.barrier(group=self._host_group)
 
     def train_one_epoch(self, epoch: int, skip_steps: int = 0):
         self.epoch += 1
@@ -377,7 +436,8 @@ class Trainer:
             metrics.append(self.train_step(batch))  # device tensors, read below
             self.host_step += 1
             n_done += 1
-            if self.preempt is not None and self.preempt.triggered:
+            # every rank stops at the same step (preempt.agreed)
+            if self.preempt is not None and agreed(self.preempt.triggered, self._host_group):
                 self._preempted_at = n_done
                 break
         logs = {"loss": 0.0, "grad_norm": 0.0, "grad_norm_max": 0.0}
@@ -431,7 +491,9 @@ class Trainer:
         from swin_v2_weather_torch.utils.img_utils import vis
 
         inp, tar, tzen = self.preprocessor(batch)
-        gen = self.model(inp, coszen=tzen, train=False)
+        gen = self.layout.apply(inp, tzen, train=False)  # every band takes part
+        if not self.is_chief:
+            return
         fig = vis((gen[0, 0].float().cpu().numpy(), tar[0, 0].cpu().numpy()))
         out = os.path.join(self.params["experiment_dir"], f"vis_epoch{self.epoch}.png")
         fig.savefig(out, dpi=72)

@@ -210,14 +210,15 @@ def test_model_forward_matches_jax_bfloat16():
     "override, match",
     [
         ({"mlp_impl": "bogus"}, "mlp_impl"),
-        ({"spatial_shards": 2}, "spatial_shards"),
+        ({"spatial_shards": 2, "attn_impl": "pallas_v1"}, "spatial_shards"),
     ],
 )
 def test_unported_routes_raise(override, match):
     """What the port has no route for raises NotImplementedError
-    (``spatial_shards > 1``); an ``mlp_impl`` that no package has raises a
-    ValueError (every JAX value, 'plain' included, builds:
-    tests/test_torch_switches.py)."""
+    (``spatial_shards > 1`` on the windowed kernel, which has no boundary
+    gate, as in JAX; the other routes shard: tests/test_torch_spatial.py);
+    an ``mlp_impl`` that no package has raises a ValueError (every JAX value,
+    'plain' included, builds: tests/test_torch_switches.py)."""
     _, tp = micro_configs(**override)
     exc = ValueError if "mlp_impl" in override else NotImplementedError
     with pytest.raises(exc, match=match):

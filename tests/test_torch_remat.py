@@ -347,9 +347,15 @@ def test_e2048_trainer_builds_at_one_process(tmp_path, caplog):
 
 @pytest.mark.parametrize("over", [{}, {"shard_opt_state": True}])
 def test_sharding_keys_past_one_process_raise(tmp_path, monkeypatch, over):
+    """Past one process the sharding keys take effect (tests/test_torch_parallel.py);
+    an environment that names two processes but no rendezvous raises before
+    anything is built, rather than training as one process."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
     p = e2048_yparams(tmp_path)
     for k, v in over.items():
         p[k] = v
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         Trainer(p, E2048, run_num="t", device="cpu").build()
+    monkeypatch.delenv("WORLD_SIZE")

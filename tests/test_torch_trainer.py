@@ -364,12 +364,16 @@ def test_build_without_cuda_raises(tmp_path, monkeypatch):
                                        ({"spatial_shards": 2}, {}),
                                        ({}, {"WORLD_SIZE": "2"})])
 def test_parallel_options_raise(tmp_path, monkeypatch, over, env):
-    """Past one process (the sharding keys with it) and spatial sharding raise."""
+    """Without a process group: an environment that names more processes but
+    no rendezvous raises (the sharding keys with it), and spatial sharding
+    raises (its bands need a model group). With one, both train
+    (tests/test_torch_parallel.py)."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    t = Trainer(micro_yparams(tmp_path, **over), MICRO, run_num="t", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t.build()
+    with pytest.raises(ValueError, match="MASTER_ADDR" if env else "needs a mesh"):
+        Trainer(micro_yparams(tmp_path, **over), MICRO, run_num="t", device="cpu").build()
 
 
 def test_sharding_keys_are_no_ops_at_one_process(tmp_path):
