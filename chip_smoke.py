@@ -254,11 +254,16 @@ printing its own lines:
      the weights, loaded; K1 36, K2, K5 and K6 24 times a train step, K1/K5
      24 a validation step, K3/K4 never); the loader alone on the host (ms/batch
      over an epoch of 5, and one sample on one thread); one batch's H2D copy
-     from the pinned ring and from pageable memory; and, where h5py is
-     installed, one epoch on a full-resolution ERA5-shaped archive (2 yearly
-     files of 3 samples, [73, 721, 1440]) through ``data_loader_config:
-     threaded`` and the native reader (else one line saying why not). Its
-     numbers, with the card, in one ``{"trainer": {...}}`` JSON line.
+     from the pinned ring and from pageable memory; and one epoch on a
+     full-resolution ERA5-shaped archive (2 yearly files of 3 samples,
+     [73, 721, 1440]) that ``data/hdf5.create_contiguous`` writes frame by
+     frame (no h5py on the card's machine), through ``data_loader_config:
+     threaded`` and the native reader (its file probe the pure-numpy HDF5
+     reader): K1 18, K3 24, K2 and K4 12 launches a train step and K1/K3 12
+     a validation step, no plain version, finite logs; its ms/step (CUDA
+     events), idle share (torch.profiler over 3 steps), peak memory and the
+     ERA5 loader's ms/batch alone. Its numbers, with the card, in one
+     ``{"trainer": {...}}`` JSON line.
  41. inference from phase 40's first run (its directory kept until this
      phase ends), the user journey of JAX's ``scripts/tpu_e2e_check.py``:
      ``export_model`` -> ``load_model(..., "cuda")`` (weights equal to
@@ -283,9 +288,10 @@ printing its own lines:
      12 launches a call, output bit-equal to the engine's step; ms/step
      beside the engine's, CUDA events) and in a fresh process that imports
      no model module (bit-equal, launches, ms/step); the CLI's
-     ``--export-stepper`` (``--device cuda`` by default) and, where h5py is
-     installed, its scoring leg with ``--ensemble 3`` on an ERA5-shaped
-     archive (else one line saying why not); a CPB model's export raising
+     ``--export-stepper`` (``--device cuda`` by default) and its scoring leg
+     with ``--ensemble 3`` on an ERA5-shaped archive written by
+     ``hdf5.create_contiguous`` and read through the native reader (K1/K3
+     12 a step at batch 3, finite scores); a CPB model's export raising
      on K7, no kernel launched. Its numbers, with the card, in one
      ``{"inference": {...}}`` JSON line.
  42. the training options the configs ask for, on one card, after a line
@@ -346,6 +352,20 @@ printing its own lines:
      outputs also bit-equal to the unmasked call's: a gate of 0 is no
      mask), timed beside the bound. Its numbers, with the card, in one
      ``{"parallel": {...}}`` JSON line.
+ 44. the JAX checkpoint interchange (``training/interchange.py``) at full
+     width: phase 40's epoch-2 checkpoint (kept before its resume) exported
+     by ``checkpoint_to_jax`` in JAX's scanned layout (the blocks stacked as
+     6 pairs) and imported back by ``checkpoint_from_jax``; the flagship
+     Trainer resumes one epoch from the import (K1 18, K3 24, K2/K4 12 a
+     train step, K1/K3 12 a validation step, no plain version) and its
+     epoch-3 checkpoint must be bit-equal, every tensor and counter, to the
+     one phase 40's resume of its own checkpoint wrote; then
+     ``registry_to_jax`` -> ``registry_from_jax`` -> ``load_model`` on a
+     registry of phase 40's run: one served step (K1/K3 12 launches)
+     bit-equal to the original registry's. Its numbers, with the card, in
+     one ``{"interchange": {...}}`` JSON line. (The orbax files themselves
+     are written and read by ``orbax_bridge.py`` where JAX is installed; the
+     card's machine has neither.)
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -416,6 +436,7 @@ import torch
 SEED = 2018
 CONFIG = "swin_73var_geo_depth12_chweight_invar"
 CONFIG_2STEP = "swin_73var_geo_depth12_chweight_invar_2step"
+EPOCH2_CKPT = "ckpt_epoch2"  # phase 40's first checkpoint, kept for phase 44
 CONFIG_4STEP = "swin_73var_geo_depth12_chweight_invar_4step"
 CONFIG_DEPTH24 = "swin_73var_geo_depth24_chweight_invar"
 # bench.py's cpb_rel_pos row: the flagship with the CPB bias instead of the
@@ -779,25 +800,25 @@ class LogCapture(logging.Handler):
         self.logger.setLevel(self.level)
 
 
-def trainer_and_inference_phases(dev, card: str, counted, gemm, bare_step_ms: float) -> dict:
+def trainer_and_inference_phases(dev, card: str, counted, gemm, bare_step_ms: float):
     """Phase 40, the flagship and its 2-step fine-tune through the port's
     ``Trainer`` at full width, then phase 41, the user journey from phase
     40's run to a scored forecast and a served artifact (module docstring).
     Both run under one temporary directory of the checkout's ``runs/`` (which
-    .gitignore lists), removed at the end. Returns {path: (launches, steps)}
-    for the kernel line."""
+    .gitignore lists), removed when the script exits (phase 44 reads phase
+    40's run from it). Returns ({path: (launches, steps)} for the kernel
+    line, the directory, phase 40's experiment directory)."""
+    import atexit
     import shutil
     import tempfile
 
     runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
     os.makedirs(runs, exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=runs)
-    try:
-        paths, exp_dir = _trainer_phase(root, dev, card, counted, gemm, bare_step_ms)
-        paths.update(inference_phase(root, exp_dir, dev, card, counted, gemm))
-        return paths
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    atexit.register(shutil.rmtree, root, True)
+    paths, exp_dir = _trainer_phase(root, dev, card, counted, gemm, bare_step_ms)
+    paths.update(inference_phase(root, exp_dir, dev, card, counted, gemm))
+    return paths, root, exp_dir
 
 
 def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
@@ -935,6 +956,10 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     log(f"  checkpoint {out['checkpoint_gb']:.3f} GB: save blocks {out['save_blocking_ms']:.1f} ms "
         f"(device -> host copy), background write {out['save_write_ms']:.1f} ms ({card})")
     final1 = {k: v.detach().cpu().clone() for k, v in t1.model.state_dict().items()}
+    # the epoch-2 checkpoint as the first run left it: phase 44 resumes it
+    # through JAX's layout and holds that to the resume below
+    shutil.copytree(os.path.join(exp1, "training_checkpoints", "ckpt"),
+                    os.path.join(root, EPOCH2_CKPT))
     del t1, fresh
     torch.cuda.empty_cache()
 
@@ -1098,51 +1123,258 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     out["bound_by"] = bound_by
 
     # ---- ERA5 on the card: a full-resolution archive, the native reader ------
-    try:
-        import h5py
-    except ImportError:
-        log("  ERA5 path not driven on this machine: h5py is not installed here (the CPU "
-            "tests, tests/test_torch_data_pipeline.py, cover the reader and the native path)")
-        out["era5"] = "not driven: no h5py"
-    else:
-        arch = os.path.join(root, "era5")
-        os.makedirs(arch)
-        rng = np.random.default_rng(SEED)
-        frame = rng.standard_normal((73, 721, 1440), dtype=np.float32)
-        for year in (2017, 2018):
-            with h5py.File(os.path.join(arch, f"{year}.h5"), "w") as f:
-                fields = f.create_dataset("fields", shape=(3, 73, 721, 1440), dtype="f4")
-                for i in range(3):
-                    fields[i] = frame * (1.0 + 0.1 * i) + (year - 2017)
-        stats = {"global_means": np.zeros((1, 73, 1, 1), np.float32),
-                 "global_stds": np.ones((1, 73, 1, 1), np.float32),
-                 "time_diff_stds": np.full((1, 73, 1, 1), 0.1, np.float32)}
-        for name, arr in stats.items():
-            np.save(os.path.join(arch, f"{name}.npy"), arr)
-        p6 = params_for(data_loader_config="threaded", train_data_path=arch,
-                        valid_data_path=arch, max_epochs=1, use_native_loader=True,
-                        save_checkpoint=False,
-                        **{f"{name}_path": os.path.join(arch, f"{name}.npy") for name in stats})
-        t0 = time.time()
+    # written by the port's pure-numpy HDF5 writer (no h5py on this machine);
+    # read by the native pread reader, whose file probe is the pure-numpy reader
+    from swin_v2_weather_torch.data import hdf5
+
+    arch = os.path.join(root, "era5")
+    os.makedirs(arch)
+    rng = np.random.default_rng(SEED)
+    frame = rng.standard_normal((73, 721, 1440), dtype=np.float32)
+    t0 = time.time()
+    for year in (2017, 2018):
+        fields = hdf5.create_contiguous(os.path.join(arch, f"{year}.h5"),
+                                        {"fields": ((3, 73, 721, 1440), np.float32)})["fields"]
+        for i in range(3):  # frame by frame: no second copy of a year in memory
+            fields[i] = frame * (1.0 + 0.1 * i) + (year - 2017)
+        fields.flush()
+        del fields
+    out["era5_write_s"] = time.time() - t0
+    del frame
+    stats = {"global_means": np.zeros((1, 73, 1, 1), np.float32),
+             "global_stds": np.ones((1, 73, 1, 1), np.float32),
+             "time_diff_stds": np.full((1, 73, 1, 1), 0.1, np.float32)}
+    for name, arr in stats.items():
+        np.save(os.path.join(arch, f"{name}.npy"), arr)
+    p6 = params_for(data_loader_config="threaded", train_data_path=arch,
+                    valid_data_path=arch, max_epochs=1, use_native_loader=True,
+                    save_checkpoint=False,
+                    **{f"{name}_path": os.path.join(arch, f"{name}.npy") for name in stats})
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with plain_calls_counted(counted) as plain_calls:
         t6 = Trainer(p6, CONFIG, run_num="era5", device=dev)
         t6.build()
-        if t6.train_dataset._native is None:
+        if t6.train_dataset._native is None or t6.valid_dataset._native is None:
             raise RuntimeError("[40] ERA5: the native reader is not in use")
+        # every step timed by CUDA events; a torch.profiler window over steps
+        # 2-4 for the device's idle share
+        spans6, window6, step_fn6 = [], {}, t6.train_step
+
+        def era5_step(batch):
+            i = len(spans6)
+            if i == 2:
+                window6["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA])
+                window6["prof"].start()
+                window6["t0"] = time.perf_counter()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            metrics = step_fn6(batch)
+            end.record()
+            spans6.append((start, end))
+            if i == 4:
+                torch.cuda.synchronize()
+                window6["wall_ms"] = (time.perf_counter() - window6["t0"]) * 1e3
+                window6["prof"].stop()
+            return metrics
+
+        t6.train_step = era5_step
         t6.train()
-        torch.cuda.synchronize()
-        check_logs("[40] ERA5", logs_of(t6), 1)
-        out["era5_s"] = time.time() - t0
-        log(f"  ERA5: 2 yearly files of 3 samples [73, 721, 1440] (cropped to 720 x 1440), "
-            f"data_loader_config 'threaded' with the native reader: one epoch of "
-            f"{len(t6.train_loader)} train and {len(t6.valid_loader)} validation steps in "
-            f"{out['era5_s']:.1f} s")
-        out["era5"] = "driven"
-        del t6
-        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["era5_s"] = time.time() - t0
+    out["era5_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launches, core = read_counts()
+    n_tr, n_va = len(t6.train_loader), len(t6.valid_loader)
+    check_launches("[40] ERA5", launches, core, {
+        "window_attention_qkv": (depth + depth // 2) * n_tr + depth * n_va,
+        "window_attention_qkv_bwd": depth * n_tr,
+        "fc1_gelu": 2 * depth * n_tr + depth * n_va, "fc1_dpre": depth * n_tr}, heads)
+    if plain_calls:
+        raise RuntimeError(f"[40] the ERA5 epoch called plain versions: {plain_calls}")
+    check_logs("[40] ERA5", logs_of(t6), 1)
+    paths["trainer_era5"] = ({**launches, "gemm": core}, n_tr)
+    out["era5_ms_per_step"] = spans6[1][0].elapsed_time(spans6[-1][1]) / (len(spans6) - 1)
+    busy6 = device_busy_ms(window6["prof"])
+    out["era5_idle_share"] = 1.0 - busy6 / window6["wall_ms"]
+    log(f"  ERA5: 2 yearly files of 3 samples [73, 721, 1440] written by hdf5.create_contiguous "
+        f"in {out['era5_write_s']:.1f} s; data_loader_config 'threaded' with the native reader "
+        f"(its file probe the pure-numpy HDF5 reader): one epoch of {n_tr} train and {n_va} "
+        f"validation steps in {out['era5_s']:.1f} s with the build; launches {launches}, GEMM "
+        f"core {core}; no plain version called")
+    log(f"  ERA5 epoch: {out['era5_ms_per_step']:.2f} ms/step (CUDA events over the steps "
+        f"after the first, loader waits included), idle share {out['era5_idle_share']:.4f} "
+        f"over steps 2-4 (device busy {busy6 / 3:.2f} of {window6['wall_ms'] / 3:.2f} ms/step "
+        f"wall, torch.profiler), peak {out['era5_peak_gib']:.3f} GiB ({card})")
+    del t6, spans6, window6, step_fn6
+    torch.cuda.empty_cache()
+    loader, _ = pipeline.get_data_loader(p6, arch, train=True, pin_memory=True)
+    t0 = time.perf_counter()
+    arrivals = [time.perf_counter() - t0 for _ in loader]
+    loader.close()
+    del loader
+    out["era5_loader_ms"] = (arrivals[-1] - arrivals[0]) / (len(arrivals) - 1) * 1e3
+    log(f"  ERA5 loader alone ({p6.num_data_workers} workers, native reader, pinned ring): "
+        f"{out['era5_loader_ms']:.1f} ms/batch after the first ({arrivals[0] * 1e3:.1f} ms), "
+        f"{len(arrivals)} batches of one sample (two frames of 73 x 720 x 1440 fp32) ({card})")
+    out["era5"] = "driven"
     out["phase_s"] = time.time() - t_phase
     log(f"  phase 40 took {out['phase_s']:.1f} s")
     print(json.dumps({"trainer": out}))
     return paths, exp1
+
+
+def interchange_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
+    """Phase 44: the JAX checkpoint interchange at full width (module
+    docstring). Returns {path: (launches, steps)} for the kernel line."""
+    import shutil
+
+    from swin_v2_weather_torch.config.yparams import YParams, default_config_path
+    from swin_v2_weather_torch.inference.registry import export_model, load_model
+    from swin_v2_weather_torch.training import checkpoint as ckpt
+    from swin_v2_weather_torch.training import interchange
+    from swin_v2_weather_torch.training.trainer import Trainer
+
+    t_phase = time.time()
+    out, paths = {"card": card}, {}
+    n_samples, n_epochs = 4, 2  # phase 40's run
+
+    def params_for(**over):
+        p = YParams(default_config_path(), CONFIG)
+        base = dict(exp_dir=root, data_loader_config="synthetic", n_synthetic_samples=n_samples,
+                    max_epochs=n_epochs + 1, batch_size=1, save_checkpoint=True)
+        for key, val in {**base, **over}.items():
+            p[key] = val
+        return p
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+        gemm.launches = 0
+
+    def check_launches(tag, want, heads):
+        launches = {fn.__name__: fn.launches for fn in counted}
+        want = {name: want.get(name, 0) for name in launches}
+        if launches != want:
+            raise RuntimeError(f"{tag}: launches must be {want}, got {launches}")
+        check_core(tag, gemm.launches, launches, heads)
+        return {**launches, "gemm": gemm.launches}
+
+    def tensors(tree, prefix=""):
+        """Every tensor of a nested state by its path (the optimizer's
+        group ``lr`` left out: the Trainer sets it from the scheduler)."""
+        if isinstance(tree, torch.Tensor):
+            return {prefix: tree}
+        if isinstance(tree, dict):
+            items = tree.items()
+        elif isinstance(tree, (list, tuple)):
+            items = enumerate(tree)
+        else:
+            return {prefix: tree} if not prefix.endswith("/lr") else {}
+        found = {}
+        for k, v in items:
+            found.update(tensors(v, f"{prefix}/{k}"))
+        return found
+
+    # ---- the checkpoint: out in JAX's scanned layout, back, resumed one epoch --
+    probe = params_for()
+    heads, depth = int(probe.num_heads), int(probe.depth)
+    scanned = params_for(scan_blocks=True)  # the flagship's own config is unrolled
+    src = os.path.join(root, EPOCH2_CKPT)
+    npz = os.path.join(root, "neutral_ckpt")
+    t0 = time.time()
+    interchange.checkpoint_to_jax(src, npz, scanned)
+    out["export_s"] = time.time() - t0
+    tree = interchange.read_tree(npz)
+    pairs = tree["params"]["model"]["pairs"]["block0"]["attn"]["qkv"]["kernel"]
+    if tuple(pairs.shape) != (depth // 2, int(probe.embed_dim), 3 * int(probe.embed_dim)):
+        raise RuntimeError(f"[44] the export is not in the scanned layout: {pairs.shape}")
+    n_leaves = len(interchange.leaves(tree))
+    del tree, pairs
+    imported = os.path.join(root, CONFIG, "imported", "training_checkpoints", "ckpt")
+    t0 = time.time()
+    interchange.checkpoint_from_jax(npz, imported, probe)
+    out["import_s"] = time.time() - t0
+    npz_gb = os.path.getsize(os.path.join(npz, interchange.TREE_NPZ)) / 1e9
+    log(f"[44] the JAX checkpoint interchange: phase 40's epoch-2 checkpoint out in JAX's "
+        f"scanned layout (checkpoint_to_jax {out['export_s']:.1f} s, {n_leaves} leaves, "
+        f"{npz_gb:.3f} GB .npz; the blocks stacked as {depth // 2} pairs) and back "
+        f"(checkpoint_from_jax {out['import_s']:.1f} s)")
+    reset_counts()
+    with plain_calls_counted(counted) as plain_calls:
+        t = Trainer(params_for(), CONFIG, run_num="imported", device=dev)
+        t.build()
+        if (t.start_epoch, t.host_step, t.resume_step_in_epoch) != (n_epochs, n_epochs *
+                                                                       n_samples, 0):
+            raise RuntimeError(f"[44] resume from the import: epoch {t.start_epoch}, step "
+                               f"{t.host_step}")
+        t.train()
+    torch.cuda.synchronize()
+    if plain_calls:
+        raise RuntimeError(f"[44] the resumed run called plain versions: {plain_calls}")
+    launches = check_launches("[44] resume from the import", {
+        "window_attention_qkv": (depth + depth // 2 + depth) * n_samples,
+        "window_attention_qkv_bwd": depth * n_samples,
+        "fc1_gelu": 3 * depth * n_samples, "fc1_dpre": depth * n_samples}, heads)
+    paths["trainer_imported"] = (launches, n_samples)
+    del t
+    torch.cuda.empty_cache()
+    # phase 40's resume of its own checkpoint wrote epoch 3 into its run's ckpt
+    own = torch.load(os.path.join(exp_dir, "training_checkpoints", "ckpt", ckpt.CHECKPOINT_FILE),
+                     map_location="cpu", weights_only=True)
+    got = torch.load(os.path.join(imported, ckpt.CHECKPOINT_FILE), map_location="cpu",
+                     weights_only=True)
+    a, b = tensors(own), tensors(got)
+    differ = sorted(k for k in set(a) | set(b) if k not in a or k not in b or (
+        not torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] != b[k]))
+    if differ or own["epoch"] != n_epochs + 1:
+        raise RuntimeError(f"[44] the resume from the import differs from the resume from the "
+                           f"port's own checkpoint in {len(differ)} entries: {differ[:8]}")
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in a.values())
+    log(f"  resumed one epoch from the import ({n_samples} steps, launches {launches}): all "
+        f"{n_tensors} tensors of the epoch-3 checkpoint (weights, Adam's moments and steps) "
+        f"and its counters bit-equal to phase 40's resume of its own checkpoint")
+    del own, got, a, b
+    shutil.rmtree(npz, ignore_errors=True)
+
+    # ---- the registry: out to JAX and back, one served step --------------------
+    reg = os.path.join(root, "registry_44")
+    export_model(exp_dir, reg)
+    t0 = time.time()
+    interchange.registry_to_jax(reg, os.path.join(root, "neutral_registry"),
+                                os.path.join(root, "registry_jax"))
+    interchange.registry_from_jax(os.path.join(root, "neutral_registry"),
+                                  os.path.join(root, "registry_jax"),
+                                  os.path.join(root, "registry_back"))
+    out["registry_s"] = time.time() - t0
+    served, x = {}, None
+    for label, path in (("port", reg), ("round trip", os.path.join(root, "registry_back"))):
+        model, rparams = load_model(path, dev)
+        if x is None:
+            x = torch.randn((1, int(rparams["n_in_channels"]),
+                             *[int(n) for n in rparams["img_size"]]),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+        reset_counts()
+        with torch.no_grad():
+            served[label] = model(x)
+        torch.cuda.synchronize()
+        served_launches = check_launches(f"[44] served step ({label})", {
+            "window_attention_qkv": depth, "fc1_gelu": depth}, heads)
+        del model
+    if not torch.equal(served["port"], served["round trip"]):
+        raise RuntimeError("[44] the registry's round trip serves another step")
+    paths["served_round_trip"] = (served_launches, 1)
+    log(f"  registry_to_jax -> registry_from_jax -> load_model ({out['registry_s']:.1f} s): "
+        f"one served step bit-equal to the registry's own, launches {served_launches}")
+    del served, x
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    log(f"  phase 44 took {out['phase_s']:.1f} s")
+    print(json.dumps({"interchange": out}))
+    return paths
 
 
 SERVED_CHILD = """
@@ -1451,27 +1683,38 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
         raise RuntimeError(f"[41] CLI --export-stepper: {cli_manifest}")
     log(f"  CLI --export-stepper (--device cuda by default): {cli_manifest['artifact_bytes']} "
         "bytes, manifest as export_stepper's")
-    try:
-        import h5py
-    except ImportError:
-        log("  CLI scoring leg not driven on this machine: h5py is not installed here (the CPU "
-            "tests, tests/test_torch_inference_cli.py, drive it against the JAX CLI)")
-        out["cli_scoring"] = "not driven: no h5py"
-    else:
-        arch = os.path.join(root, "era5_cli")
-        os.makedirs(arch)
-        with h5py.File(os.path.join(arch, "2018.h5"), "w") as f:
-            data = f.create_dataset("fields", shape=(4, n_out, h + 1, w), dtype="f4")
-            for i in range(4):
-                data[i] = rng.standard_normal((n_out, h + 1, w), dtype=np.float32)
-        ns = argparse.Namespace(registry=reg, data=arch, ics=[1], steps=2, ensemble=3,
-                                perturb="gaussian", amplitude=0.05, zonal_truncation=20, seed=0,
-                                chunk_steps=2, output=os.path.join(root, "scores.json"),
-                                device="cuda")
-        res = cli.run(ns)
-        finite("[41] CLI --ensemble 3", res, ("rmse", "acc", "crps", "spread"), (2, n_out))
-        log(f"  CLI scoring leg (--ensemble 3, 2 steps) on an ERA5-shaped archive: finite")
-        out["cli_scoring"] = "driven"
+    # the scoring leg on an ERA5-shaped archive written by the pure-numpy
+    # HDF5 writer and read through the native reader (no h5py here)
+    from swin_v2_weather_torch.data import hdf5
+
+    arch = os.path.join(root, "era5_cli")
+    os.makedirs(arch)
+    data = hdf5.create_contiguous(os.path.join(arch, "2018.h5"),
+                                  {"fields": ((4, n_out, h + 1, w), np.float32)})["fields"]
+    for i in range(4):
+        data[i] = rng.standard_normal((n_out, h + 1, w), dtype=np.float32)
+    data.flush()
+    del data
+    ns = argparse.Namespace(registry=reg, data=arch, ics=[1], steps=2, ensemble=3,
+                            perturb="gaussian", amplitude=0.05, zonal_truncation=20, seed=0,
+                            chunk_steps=2, output=os.path.join(root, "scores.json"),
+                            device="cuda")
+    reset_counts()
+    with LogCapture("swin_v2_weather_torch.data.era5") as capture:
+        res, secs = timed(lambda: cli.run(ns))
+    if not any(m.startswith("using native pread reader") for m in capture.messages):
+        raise RuntimeError(f"[41] the CLI's dataset did not use the native reader: "
+                           f"{capture.messages}")
+    launches = check_launches("[41] CLI scoring", {"window_attention_qkv": 2 * depth,
+                                                   "fc1_gelu": 2 * depth}, heads)
+    paths["cli_scoring"] = (launches, 2)
+    finite("[41] CLI --ensemble 3", res, ("rmse", "acc", "crps", "spread"), (2, n_out))
+    out["cli_scoring_s"] = secs
+    log(f"  CLI scoring leg (--ensemble 3, 2 steps at batch 3) on an ERA5-shaped archive "
+        f"[4, {n_out}, {h + 1}, {w}] written by hdf5.create_contiguous, read through the "
+        f"native reader: finite, launches {launches}, {secs:.1f} s with the registry's load "
+        f"({card})")
+    out["cli_scoring"] = "driven"
     # a route whose forward kernel is not registered raises naming it
     cpb_params = train_params(CONFIG, CPB)
     cpb_engine = RolloutEngine(cpb_params, get_model(cpb_params, device=dev), dev)
@@ -3352,7 +3595,8 @@ def main() -> None:
     # ---- 40. the Trainer end to end ---------------------------------------------
     # ---- 41. inference: registry, scored and chunked rollouts, forecast,
     # ensembles, the served artifact, the CLI (from phase 40's run) ------------
-    trainer_paths = trainer_and_inference_phases(dev, card, counted, gc.gemm, train_step_ms)
+    trainer_paths, trainer_root, trainer_exp = trainer_and_inference_phases(
+        dev, card, counted, gc.gemm, train_step_ms)
 
     # ---- 42. the configs' training options on the card: the e2048 family at
     # full size, each remat policy on the flagship, LAMB, the H1 loss ---------
@@ -3577,6 +3821,13 @@ def main() -> None:
         "policies": policy_out, "lamb_ms": lamb_ms, "adam_ms": train_step_ms,
         "h1": {"card_fp32": h1, "cpu_fp64": ref64, "rel": h1_rel, "ms": h1_ms}}}))
 
+    # ---- 44. the JAX checkpoint interchange: phase 40's epoch-2 checkpoint out
+    # to JAX's scanned layout and back, resumed; a registry out and back, served
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    interchange_paths = interchange_phase(trainer_root, trainer_exp, dev, card, counted,
+                                          gc.gemm)
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": ({**cpb_serve_launches, "gemm": cpb_serve_core}, N_STEPS),
@@ -3598,7 +3849,7 @@ def main() -> None:
                "train_e2048_full": (launches_e2048_full, 3), "train_lamb": (launches_lamb, 3),
                **{f"remat_{label.replace(', ', '_').replace(' ', '_')}": (v["launches"], 2)
                   for label, v in policy_out.items()},
-               **trainer_paths, **parallel_paths}
+               **trainer_paths, **parallel_paths, **interchange_paths}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),

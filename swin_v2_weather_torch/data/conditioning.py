@@ -9,7 +9,9 @@ the port never imports the JAX package:
   * ``static_features(params)`` assembles [landmask one-hot (2), orography
     (1)], with deterministic synthetic fields where no file exists.
 
-``.npy`` files are accepted as well as HDF5-backed NetCDF-4 files.
+``.npy`` files are accepted as well as HDF5-backed NetCDF-4 files, read by
+the pure-numpy HDF5 reader (``data/hdf5``), or by h5py where that reader
+refuses the variable (chunked, compressed) and h5py is installed.
 """
 
 from __future__ import annotations
@@ -18,14 +20,14 @@ import os
 
 import numpy as np
 
+from swin_v2_weather_torch.data import hdf5
+
 
 def _read_var(path: str, varname: str) -> np.ndarray:
     if path.endswith(".npy"):
         return np.load(path)
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        return np.asarray(f[varname])
+    with hdf5.open_dataset(path, varname) as ds:
+        return np.array(ds)
 
 
 def get_orography(orography_path: str) -> np.ndarray:

@@ -21,12 +21,14 @@ bookkeeping of the DALI external source (``utils/dali_era5_es_helper.py``):
   * per-sample cosine zenith angle for the input time and every future
     target time.
 
-File handles are opened lazily per thread (h5py handles are not thread-safe
-to share), so the threaded loader scales reads across a pool. h5py is
-imported inside the functions that read files: the package imports on a
-machine without it. With ``use_native_loader`` 'auto' (the default) the
-native pread reader (``data/native``) is used where it builds and the files
-are contiguous, else h5py, with a log line; ``true`` raises instead.
+The files' shapes are read by the pure-numpy HDF5 reader (``data/hdf5``),
+so the native path needs no h5py. With ``use_native_loader`` 'auto' (the
+default) the native pread reader (``data/native``) is used where it builds
+and the files are contiguous fp32, else h5py, with a log line; where h5py is
+not installed that fallback raises, naming the file and the reason.
+``true`` raises instead of falling back. h5py is imported only by the
+fallback's file handles, opened lazily per thread (h5py handles are not
+thread-safe to share), so the threaded loader scales reads across a pool.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Tuple
 
 import numpy as np
 
+from swin_v2_weather_torch.data import hdf5
 from swin_v2_weather_torch.ops.zenith import cos_zenith_angle
 
 logger = logging.getLogger(__name__)
@@ -48,6 +51,29 @@ logger = logging.getLogger(__name__)
 
 def is_leap_year(yr: int) -> bool:
     return yr % 4 == 0
+
+
+def _require_h5py(reason: str) -> None:
+    """Raise, naming ``reason``, where the h5py path is needed and h5py is
+    not installed."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        raise RuntimeError(f"{reason}, and h5py, which the fallback path reads with, is not "
+                           "installed") from None
+
+
+def _fields_shape(path: str) -> Tuple[int, ...]:
+    """The shape of ``fields``: the pure-numpy reader's, else (a file it
+    refuses, e.g. chunked) h5py's where h5py is installed."""
+    try:
+        return hdf5.dataset_info(path, "fields")[1]
+    except hdf5.Unsupported as e:
+        _require_h5py(str(e))
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return f["fields"].shape
 
 
 class Era5Dataset:
@@ -94,7 +120,10 @@ class Era5Dataset:
             except Exception as e:  # chunked files, no compiler, ...
                 if want_native not in ("auto",):
                     raise
+                _require_h5py(f"the native reader is unavailable for {self.location} ({e})")
                 logger.info("native reader unavailable (%s); using h5py", e)
+        else:
+            _require_h5py(f"use_native_loader is {want_native!r} for {self.location}")
 
         if self.add_zenith:
             # ERA5 grid: lon 0..359.75, lat +90..-90 (north first)
@@ -107,8 +136,6 @@ class Era5Dataset:
 
     # -- file bookkeeping --------------------------------------------------
     def _scan_files(self) -> None:
-        import h5py
-
         self.files_paths = sorted(glob.glob(os.path.join(self.location, "*.h5")))
         if not self.files_paths:
             raise FileNotFoundError(f"no *.h5 files under {self.location}")
@@ -118,9 +145,8 @@ class Era5Dataset:
         self.n_years = len(self.files_paths)
         self.n_samples_year = []
         for p in self.files_paths:
-            with h5py.File(p, "r") as f:
-                shape = f["fields"].shape
-                self.n_samples_year.append(shape[0])
+            shape = _fields_shape(p)
+            self.n_samples_year.append(shape[0])
         self.data_shape = (shape[2], shape[3])
         assert self.img_shape[0] <= shape[2] and self.img_shape[1] <= shape[3], (
             "image shapes are greater than dataset image shapes"

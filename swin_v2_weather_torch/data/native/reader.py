@@ -1,11 +1,12 @@
 """ctypes bindings for the native ERA5 reader (era5_native.cpp).
 
 A copy of ``swin_v2_weather_tpu/data/native/reader.py`` for the PyTorch port,
-over the port's own copy of the C++ source. h5py is used exactly once per
-file at open time to resolve the contiguous dataset's byte offset and shape;
-every subsequent sample read is served by the C++ pread thread pool with
-normalization fused into the copy. Files that are chunked or compressed (no
-stable byte offset) are reported ineligible and the caller falls back to the
+over the port's own copy of the C++ source. The pure-numpy HDF5 reader
+(``data/hdf5``; no h5py) resolves each file's contiguous dataset, its byte
+offset and shape, once at open time; every subsequent sample read is served
+by the C++ pread thread pool with normalization fused into the copy. Files
+that are chunked, compressed, unwritten or not fp32 (no stable byte offset
+of fp32 frames) are reported ineligible and the caller falls back to the
 h5py path.
 
 The shared library is compiled from source with g++ at first use (never at
@@ -26,6 +27,8 @@ import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from swin_v2_weather_torch.data import hdf5
 
 logger = logging.getLogger(__name__)
 
@@ -99,22 +102,25 @@ def native_available() -> bool:
     return _load() is not None
 
 
-def probe_files(paths: Sequence[str], dataset: str = "fields"):
-    """(offsets, dims) for contiguous uncompressed datasets, or None."""
-    import h5py
-
+def _probe(paths: Sequence[str], dataset: str):
+    """((offsets, dims), None) for contiguous uncompressed fp32 datasets, or
+    (None, the reason naming the first file that is not)."""
     offsets, dims = [], []
     for p in paths:
-        with h5py.File(p, "r") as f:
-            ds = f[dataset]
-            off = ds.id.get_offset()
-            if off is None or ds.chunks is not None or ds.compression is not None:
-                return None
-            if ds.dtype != np.float32:
-                return None
-            offsets.append(int(off))
-            dims.append([int(s) for s in ds.shape])
-    return np.asarray(offsets, np.int64), np.asarray(dims, np.int64)
+        try:
+            off, shape, dtype = hdf5.dataset_info(p, dataset)
+        except hdf5.Unsupported as e:
+            return None, str(e)
+        if dtype != np.float32:
+            return None, f"{p}: {dataset!r} is {dtype}, not float32"
+        offsets.append(int(off))
+        dims.append([int(s) for s in shape])
+    return (np.asarray(offsets, np.int64), np.asarray(dims, np.int64)), None
+
+
+def probe_files(paths: Sequence[str], dataset: str = "fields"):
+    """(offsets, dims) for contiguous uncompressed fp32 datasets, or None."""
+    return _probe(paths, dataset)[0]
 
 
 class NativeEra5Reader:
@@ -129,9 +135,9 @@ class NativeEra5Reader:
         lib = _load()
         if lib is None:
             raise RuntimeError("native reader unavailable (build failed)")
-        probed = probe_files(paths, dataset)
+        probed, reason = _probe(paths, dataset)
         if probed is None:
-            raise RuntimeError("files are not contiguous fp32 — use the h5py path")
+            raise RuntimeError(f"files are not contiguous fp32 ({reason}) — use the h5py path")
         offsets, dims = probed
         self._lib = lib
         self.dims = dims

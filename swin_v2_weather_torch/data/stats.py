@@ -1,7 +1,8 @@
 """Compute the normalization/climatology statistics the framework consumes.
 
 A copy of ``swin_v2_weather_tpu/data/stats.py`` for the PyTorch port (host
-numpy; h5py imported where files are read).
+numpy; the files are read by the pure-numpy HDF5 reader, ``data/hdf5``, or by
+h5py where that reader refuses a file and h5py is installed).
 
 The reference never computes its stats in-repo — it points users at
 precomputed ``global_means.npy`` / ``global_stds.npy`` / ``time_means.npy``
@@ -39,6 +40,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from swin_v2_weather_torch.data import hdf5
+
 logger = logging.getLogger(__name__)
 
 
@@ -60,8 +63,6 @@ def compute_archive_stats(
     Returns dict with keys ``global_means``, ``global_stds``,
     ``time_means``, ``time_diff_stds`` in reference shapes.
     """
-    import h5py
-
     if files is None:
         files = sorted(
             glob.glob(os.path.join(data_dir, "*.h5"))
@@ -78,8 +79,7 @@ def compute_archive_stats(
     npix = None
 
     for path in files:
-        with h5py.File(path, "r") as f:
-            dset = f[key]
+        with hdf5.open_dataset(path, key) as dset:
             t, c, h, w = dset.shape
             if pix_sum is None:
                 s = np.zeros(c, np.float64)

@@ -12,7 +12,8 @@ as a tensor and integrates over the last two (lat, lon) axes.
   * ``normalize`` divides by 4 pi; ``pole_mask`` zeroes the first and last
     ``pole_mask`` rows.
 
-``GridConverter`` (scoring) comes with a later slice.
+:class:`GridConverter` interpolates fields from the equiangular grid to the
+Legendre-Gauss latitudes (scoring and grid conversion, not the train path).
 """
 
 from __future__ import annotations
@@ -117,3 +118,50 @@ class GridQuadrature:
         if self.quad_weight.device != x.device:
             self.quad_weight = self.quad_weight.to(x.device)
         return torch.sum(x * self.quad_weight, dim=(-2, -1))
+
+
+class GridConverter:
+    """Equiangular -> Legendre-Gauss latitude interpolation (reference
+    ``utils/grids.py:21-59``), linear between the two bracketing source rows.
+    Latitudes are in radians; ``lat_rad`` is the source (descending, north to
+    south, like ERA5) latitude array. The same grid on both sides is the
+    identity; another destination raises ``NotImplementedError``."""
+
+    def __init__(self, src_grid: str, dst_grid: str, lat_rad: np.ndarray, lon_rad: np.ndarray):
+        self.src = src_grid
+        self.dst = dst_grid
+        self.src_lat = np.asarray(lat_rad, dtype=np.float64)
+        self.src_lon = np.asarray(lon_rad, dtype=np.float64)
+        self.dst_lon = self.src_lon
+        self.indices = self.interp_weights = None
+        if self.src == self.dst:
+            self.dst_lat = self.src_lat
+            return
+        if self.dst != "legendre-gauss":
+            raise NotImplementedError(f"destination grid type {self.dst} not implemented")
+        cost_lg, _ = legendre_gauss_weights(self.src_lat.shape[0], -1, 1)
+        # colatitude of the LG nodes, shifted to latitude in radians
+        self.dst_lat = np.arccos(cost_lg) - np.pi / 2.0
+        # the source latitudes descend: bracket each node in the ascending
+        # copy, then translate the index back
+        n = self.src_lat.shape[0]
+        jj = np.searchsorted(self.src_lat[::-1], self.dst_lat) - 1
+        self.indices = (n - 2 - jj).clip(0, n - 2)
+        denom = np.diff(self.src_lat)[self.indices]
+        self.interp_weights = ((self.dst_lat - self.src_lat[self.indices]) / denom).reshape(-1, 1)
+
+    def get_src_coords(self):
+        return self.src_lat, self.src_lon
+
+    def get_dst_coords(self):
+        return self.dst_lat, self.dst_lon
+
+    def __call__(self, data: torch.Tensor) -> torch.Tensor:
+        """``data`` [..., lat, lon] on the source grid -> the destination's."""
+        if self.src == self.dst:
+            return data
+        idx = torch.as_tensor(self.indices, device=data.device)
+        w = torch.as_tensor(self.interp_weights, dtype=data.dtype, device=data.device)
+        lo = data[..., idx, :]
+        hi = data[..., idx + 1, :]
+        return lo + (hi - lo) * w
