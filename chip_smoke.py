@@ -291,9 +291,8 @@ printing its own lines:
      ``--export-stepper`` (``--device cuda`` by default) and its scoring leg
      with ``--ensemble 3`` on an ERA5-shaped archive written by
      ``hdf5.create_contiguous`` and read through the native reader (K1/K3
-     12 a step at batch 3, finite scores); a CPB model's export raising
-     on K7, no kernel launched. Its numbers, with the card, in one
-     ``{"inference": {...}}`` JSON line.
+     12 a step at batch 3, finite scores). Its numbers, with the card, in
+     one ``{"inference": {...}}`` JSON line.
  42. the training options the configs ask for, on one card, after a line
      with the memory the earlier phases still hold (allocated, and the
      largest CUDA tensors the garbage collector reaches). (a) The e2048
@@ -366,6 +365,29 @@ printing its own lines:
      one ``{"interchange": {...}}`` JSON line. (The orbax files themselves
      are written and read by ``orbax_bridge.py`` where JAX is installed; the
      card's machine has neither.)
+ 45. the served artifact of every route (``SERVED_ROUTES``), at full width,
+     batch 1, seeded weights, live zenith: the CPB flagship (K7, K3), the
+     grid route with and without the CPB (K8), the windowed route likewise
+     (K9), v6 (K10), v5, v4 and padded v4 (K12), ``lnadd_impl: 'fused'``
+     (K11, K1, K3), each the flagship at depth 4, then the 2-step
+     fine-tune's single-step model (K5, K1; depth 12) and the e2048
+     flagship as written (K1 at head dim 256, K5 at 2048 -> 4096 -> 2048,
+     depth 24; its 3.8 GB artifact in the run's directory under ``runs/``,
+     each artifact removed after its checks). For each: ``export_stepper``
+     (no kernel launched while tracing) and ``load_stepper`` in this
+     process, timed, and the artifact's bytes; the graph calls exactly the
+     route's ``swin::`` ops, as many times as the route launches them, and
+     no plain attention or GELU; one served call launches them so (the
+     GEMM core as ``check_core`` implies) and is bit-equal to the engine's
+     step; served and engine ms/step (CUDA events). The 2-step artifact
+     again in a fresh process that imports no model module (bit-equal, its
+     launches, ms/step); the CPB artifact refuses a CPU load. Then
+     ``platforms=("cuda", "cpu")`` on the flagship at depth 2: the CUDA
+     program bit-equal to the engine's step, the CPU program (no custom op:
+     the plain versions) within ``MODEL_TOL`` of it, ``("tpu",)`` refused;
+     and each new op's host us a call at the flagship shapes, direct and
+     through the op (both bit-equal). Its numbers, with the card, in one
+     ``{"served_routes": {...}}`` JSON line.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -389,6 +411,7 @@ steps' launches included; phase 42's as ``train_e2048_full``,
 ``train_lamb`` and ``remat_<policy>`` (each run of its part b); phase 41's
 as ``inference`` (the scored rollout),
 ``ensemble`` (batch 5) and ``served_stepper`` (one call of the artifact);
+phase 45's as ``served_<route>`` (one call of each route's artifact);
 K11's streamed rows under its entries' ``streamed`` key; the e2048
 train steps' kernels at those steps' shape under ``train_shape``), the launches on every
 path and per step, the largest abs
@@ -406,8 +429,8 @@ same call (null where no backend takes the shape); for K13 ``torch.sum(s, 0)`` (
 kernel twice, as the TPU kernel); null for the others (no single PyTorch call
 computes them; K11's entries add ``F.layer_norm``'s time as context; K3's and
 K4's add ``matmul_ms``, ``torch.matmul`` of their operands, as a yardstick;
-K1's and K3's add ``host_us``, a call's host time direct and through the
-custom op).
+K1's, K3's and every forward launcher's with a custom op add ``host_us``,
+a call's host time direct and through the op).
 The backward entries carry phase 39's results under ``l288`` (by head dim,
 each with its bound and the variant that ran; K8's and K9's full-width
 cases under ``l288_full``), and the large-head backwards their
@@ -670,6 +693,51 @@ def train_params(config: str, overrides: dict = None):
     params["img_shape_x"], params["img_shape_y"] = (int(s) for s in params.img_size)
     params["data_loader_config"] = "synthetic"
     return params
+
+
+_SAMPLES, _WEIGHTS = {}, {}
+
+
+def seeded_model(params, dev, seed: int, weights_on=None):
+    """``get_model(params)`` on ``dev`` with every parameter drawn by
+    ``seeded_parameters`` from a generator on ``weights_on`` (the CPU unless
+    given) seeded ``seed``. The model is built under ``dev``: its default
+    initialization, which the draws overwrite, runs on the card. The host's
+    draws are kept per parameter layout and seed, so a model of the same
+    layout gets the same bits without drawing them again."""
+    from swin_v2_weather_torch.models.wrappers import get_model
+    from swin_v2_weather_torch.training.trainer import seeded_parameters
+
+    with torch.device(dev):
+        model = get_model(params, device=dev)
+    gen_on = torch.device(weights_on or "cpu")
+    if gen_on.type != "cpu":
+        seeded_parameters(model, torch.Generator(device=gen_on).manual_seed(seed))
+        return model
+    key = (seed, tuple((n, tuple(p.shape)) for n, p in model.named_parameters()))
+    if key not in _WEIGHTS:
+        seeded_parameters(model, torch.Generator().manual_seed(seed))
+        _WEIGHTS[key] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    else:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(_WEIGHTS[key][n])
+    return model
+
+
+def synthetic_batch(params, dev, train: bool = True):
+    """``collate([SyntheticDataset(params, train=train)[0]], device=dev)``,
+    the sample drawn once per data shape and kept on the host (a full-size
+    draw takes seconds on one thread; the key holds every field the draw
+    reads)."""
+    from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
+
+    key = (train, int(params.dt), int(params.n_future), len(params.in_channels),
+           len(params.out_channels), tuple(int(s) for s in params.img_size),
+           bool(params.add_zenith), int(getattr(params, "seed", 333) or 333))
+    if key not in _SAMPLES:
+        _SAMPLES[key] = SyntheticDataset(params, train=train)[0]
+    return collate([_SAMPLES[key]], device=dev)
 
 
 def plain_version(fn):
@@ -1377,19 +1445,24 @@ def interchange_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
     return paths
 
 
+# a fresh process that loads an artifact (no model code), runs it on the
+# saved inputs and counts the launches of the named forward launchers
 SERVED_CHILD = """
 import json, sys, torch
 from swin_v2_weather_torch.inference.export import load_stepper
-from swin_v2_weather_torch.ops import mlp_kernels as mk, window_attention as wa
+from swin_v2_weather_torch.ops import ln_kernels, mlp_kernels, window_attention
+from swin_v2_weather_torch.ops.attic import window_attention_v45
 served = load_stepper(sys.argv[1], device="cuda")
 state, zen, ref = torch.load(sys.argv[2], map_location="cuda")
+modules = (window_attention, mlp_kernels, ln_kernels, window_attention_v45)
+fns = [next(getattr(m, n) for m in modules if hasattr(m, n)) for n in json.loads(sys.argv[3])]
 served(state, zen)
 torch.cuda.synchronize()
-wa.window_attention_qkv.launches = mk.fc1_gelu.launches = 0
+for fn in fns:
+    fn.launches = 0
 out = served(state, zen)
 torch.cuda.synchronize()
-launches = {"window_attention_qkv": wa.window_attention_qkv.launches,
-            "fc1_gelu": mk.fc1_gelu.launches}
+launches = {fn.__name__: fn.launches for fn in fns}
 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 start.record()
 for _ in range(5):
@@ -1423,7 +1496,6 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
     from swin_v2_weather_torch.inference.rollout import RolloutEngine
     from swin_v2_weather_torch.inference.scoring import score_rollout
     from swin_v2_weather_torch.models import swin as swin_mod
-    from swin_v2_weather_torch.models.wrappers import get_model
     from swin_v2_weather_torch.ops import mlp_kernels as mk
     from swin_v2_weather_torch.ops import window_attention as wa
     from swin_v2_weather_torch.ops.metrics import (
@@ -1658,7 +1730,8 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
     out["engine_ms"] = time_ms(lambda: engine._step(state_d, zen), 5)
     io = os.path.join(root, "served_io.pt")
     torch.save((state_d.cpu(), zen.cpu().contiguous(), ref.cpu()), io)
-    child = subprocess.run([sys.executable, "-c", SERVED_CHILD, art, io],
+    child = subprocess.run([sys.executable, "-c", SERVED_CHILD, art, io,
+                            json.dumps(["window_attention_qkv", "fc1_gelu"])],
                            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                            text=True, timeout=600)
     if child.returncode != 0:
@@ -1668,7 +1741,8 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
             "window_attention_qkv": depth, "fc1_gelu": depth}:
         raise RuntimeError(f"[41] the served artifact in a fresh process: {res}")
     out["served_child_ms"] = res["ms"]
-    log(f"  export_stepper {out['export_s']:.1f} s, stepper.pt2 {out['artifact_bytes'] / 1e6:.1f} "
+    log(f"  export_stepper {out['export_s']:.1f} s, stepper.cuda.pt2 "
+        f"{out['artifact_bytes'] / 1e6:.1f} "
         f"MB: the graph calls swin::window_attention_qkv and swin::fc1_gelu {depth} times each "
         f"(no plain attention or GELU); served {out['served_ms']:.2f} ms/step against the "
         f"engine's {out['engine_ms']:.2f} (CUDA events, {card}); K1/K3 {depth} launches a "
@@ -1715,21 +1789,6 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
         f"native reader: finite, launches {launches}, {secs:.1f} s with the registry's load "
         f"({card})")
     out["cli_scoring"] = "driven"
-    # a route whose forward kernel is not registered raises naming it
-    cpb_params = train_params(CONFIG, CPB)
-    cpb_engine = RolloutEngine(cpb_params, get_model(cpb_params, device=dev), dev)
-    reset_counts()
-    try:
-        export_stepper(cpb_engine, os.path.join(root, "served_cpb"))
-    except RuntimeError as e:
-        if "K7 (window_attention_qkv_bias)" not in str(e):
-            raise
-        log(f"  CPB export raises: {str(e)[:160]}")
-    else:
-        raise RuntimeError("[41] exporting the CPB model must raise (K7 is not registered)")
-    if any(fn.launches for fn in counted):
-        raise RuntimeError("[41] the CPB export launched a kernel")
-    del cpb_engine
 
     del engine, model
     torch.cuda.empty_cache()
@@ -1739,6 +1798,234 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
         f"{out['phase_s']:.1f} s")
     print(json.dumps({"inference": out}))
     return paths
+
+
+# phase 45: the served artifact of every route. tag -> (config, overrides,
+# (QKV_IMPL, QKV_PAD_HEADS) or None, {forward launcher: launches a call}).
+# The flagship's route variants run at depth 4 (the script's time limit);
+# the 2-step fine-tune's single-step model and the e2048 flagship as written.
+ROUTE_DEPTH = {"depth": 4}
+SERVED_ROUTES = {
+    "cpb": (CONFIG, {**CPB, **ROUTE_DEPTH}, None, {"window_attention_qkv_bias": 4,
+                                                   "fc1_gelu": 4}),
+    "grid": (CONFIG, {**GRID_ROUTE, **ROUTE_DEPTH}, None, {"window_attention_grid": 4,
+                                                           "fc1_gelu": 4}),
+    "grid_cpb": (CONFIG, {**GRID_ROUTE, **CPB, **ROUTE_DEPTH}, None,
+                 {"window_attention_grid_bias": 4, "fc1_gelu": 4}),
+    "v1": (CONFIG, {**V1_ROUTE, **ROUTE_DEPTH}, None, {"window_attention_v1": 4,
+                                                       "fc1_gelu": 4}),
+    "v1_cpb": (CONFIG, {**V1_ROUTE, **CPB, **ROUTE_DEPTH}, None,
+               {"window_attention_v1_bias": 4, "fc1_gelu": 4}),
+    "v6": (CONFIG, ROUTE_DEPTH, ("v6", False), {"window_attention_qkv_padded": 4,
+                                                "fc1_gelu": 4}),
+    "v5": (CONFIG, ROUTE_DEPTH, ("v5", False), {"window_attention_qkv5": 4, "fc1_gelu": 4}),
+    "v4": (CONFIG, ROUTE_DEPTH, ("v4", False), {"window_attention_qkv4": 4, "fc1_gelu": 4}),
+    "v4_padded": (CONFIG, ROUTE_DEPTH, ("v4", True), {"window_attention_qkv4_padded": 4,
+                                                      "fc1_gelu": 4}),
+    "lnadd": (CONFIG, {**LNADD, **ROUTE_DEPTH}, None,
+              {"ln_dp_add_fwd": 8, "window_attention_qkv": 4, "fc1_gelu": 4}),
+    # the 2-step fine-tune's single-step model: the whole-MLP route (K5)
+    "2step": (CONFIG_2STEP, {}, None, {"window_attention_qkv": 12, "mlp_fwd": 12}),
+    "e2048": (CONFIG_E2048, {}, None, {"window_attention_qkv": 24, "mlp_fwd": 24}),
+}
+
+
+def served_routes_phase(root, dev, card, counted, gemm) -> tuple:
+    """Phase 45: ``export_stepper`` / ``load_stepper`` on every route at full
+    width (module docstring). Returns ({path: (launches, calls)} for the
+    kernel line, {launcher: host us direct and through its op})."""
+    import shutil
+
+    from swin_v2_weather_torch.inference.export import export_stepper, load_stepper
+    from swin_v2_weather_torch.inference.rollout import RolloutEngine
+    from swin_v2_weather_torch.models.wrappers import SingleStepWrapper
+    from swin_v2_weather_torch.ops import ln_kernels as lk
+    from swin_v2_weather_torch.ops import mlp_kernels as mk
+    from swin_v2_weather_torch.ops import window_attention as wa
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
+
+    t_phase = time.time()
+    out, paths = {"card": card, "routes": {}}, {}
+    base = os.path.join(root, "served_routes")
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+        gemm.launches = 0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def switched(qkv):
+        if qkv is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(wa, "QKV_IMPL", qkv[0]))
+        stack.enter_context(mock.patch.object(v45, "QKV_PAD_HEADS", qkv[1]))
+        return stack
+
+    def engine_of(config, overrides):
+        params = train_params(config, overrides)
+        model = seeded_model(params, dev, SEED + 1, dev)
+        if int(params.n_future or 0):  # the fine-tune serves its single-step model
+            model = SingleStepWrapper(model.model)
+        engine = RolloutEngine(params, model, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = torch.randn((1, engine.n_out, engine.h, engine.w), generator=gen, device=dev)
+        zen = torch.from_numpy(engine.zenith_at(START)).to(dev)
+        return engine, params, state, zen
+
+    for tag, (config, overrides, qkv, want) in SERVED_ROUTES.items():
+        art = os.path.join(base, tag)
+        with switched(qkv):
+            engine, params, state, zen = engine_of(config, overrides)
+            heads = int(params.num_heads)
+            reset_counts()
+            manifest, export_s = timed(lambda: export_stepper(engine, art))
+            if any(fn.launches for fn in counted):
+                raise RuntimeError(f"[45] {tag}: the export launched a kernel")
+            served, load_s = timed(lambda: load_stepper(art, device="cuda"))
+            calls = [str(n.target) for n in served.program.graph.nodes
+                     if n.op == "call_function"]
+            ops = {c.split(".")[1]: calls.count(c) for c in set(calls)
+                   if c.startswith("swin.")}
+            plain = sorted({c for c in calls if "softmax" in c or "erf" in c})
+            if ops != want or plain:
+                raise RuntimeError(f"[45] {tag}: the graph must call {want} and no plain "
+                                   f"attention or GELU; it calls {ops}, {plain}")
+            ref = engine._step(state, zen)
+            served(state, zen)
+            reset_counts()
+            got = served(state, zen)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counted}
+            if launches != {n: want.get(n, 0) for n in launches}:
+                raise RuntimeError(f"[45] {tag}: a served call must launch {want}, got "
+                                   f"{launches}")
+            check_core(f"[45] {tag}", gemm.launches, launches, heads)
+            paths[f"served_{tag}"] = ({**launches, "gemm": gemm.launches}, 1)
+            if not torch.equal(got, ref):
+                raise RuntimeError(f"[45] {tag}: the served step differs from the engine's "
+                                   f"(max abs {float((got - ref).abs().max()):.6g})")
+            served_ms = time_ms(lambda: served(state, zen), 3)
+            engine_ms = time_ms(lambda: engine._step(state, zen), 3)
+        row = {"config": config, "overrides": overrides, "qkv": qkv, "ops": ops,
+               "export_s": export_s, "load_s": load_s, "bytes": manifest["artifact_bytes"],
+               "served_ms": served_ms, "engine_ms": engine_ms}
+        out["routes"][tag] = row
+        log(f"[45] {tag} ({config} {overrides}{'' if qkv is None else f', QKV {qkv}'}): export "
+            f"{export_s:.1f} s, load {load_s:.1f} s, {row['bytes'] / 1e9:.3f} GB; the graph "
+            f"calls {ops}, no plain attention or GELU; a served call launches "
+            f"{ {n: v for n, v in launches.items() if v} } (GEMM core {gemm.launches}), "
+            f"bit-equal to the engine's step; served "
+            f"{served_ms:.2f} ms/step, engine {engine_ms:.2f} ({card})")
+        if tag == "2step":  # a fresh process with no model code runs the K5 artifact
+            io = os.path.join(base, "served_io.pt")
+            torch.save((state.cpu(), zen.cpu().contiguous(), ref.cpu()), io)
+            child = subprocess.run([sys.executable, "-c", SERVED_CHILD, art, io,
+                                    json.dumps(sorted(want))],
+                                   cwd=os.path.dirname(os.path.abspath(__file__)),
+                                   capture_output=True, text=True, timeout=600)
+            if child.returncode != 0:
+                raise RuntimeError(f"[45] load_stepper in a fresh process failed:\n"
+                                   f"{child.stderr}")
+            res = json.loads(child.stdout.strip().splitlines()[-1])
+            if not res["bit_equal"] or res["model_modules"] or res["launches"] != want:
+                raise RuntimeError(f"[45] the 2-step artifact in a fresh process: {res}")
+            row["fresh_process_ms"] = res["ms"]
+            log(f"  {tag} in a fresh process (no model module imported): bit-equal, "
+                f"{res['launches']}, {res['ms']:.2f} ms/step")
+        if tag == "cpb":  # an artifact without a CPU program refuses a CPU load
+            try:
+                load_stepper(art, device="cpu")
+            except ValueError as e:
+                log(f"  a CPU load of the CUDA artifact raises: {e}")
+            else:
+                raise RuntimeError("[45] load_stepper on a platform the artifact lacks")
+        del engine, served, state, zen, ref, got
+        shutil.rmtree(art)
+        torch.cuda.empty_cache()
+
+    # ---- platforms: the flagship at depth 2, one program for each ---------------
+    engine, params, state, zen = engine_of(CONFIG, {"depth": 2})
+    art = os.path.join(base, "platforms")
+    manifest, export_s = timed(lambda: export_stepper(engine, art, platforms=("cuda", "cpu")))
+    if manifest["platforms"] != ["cuda", "cpu"]:
+        raise RuntimeError(f"[45] platforms: {manifest['platforms']}")
+    on_cuda, on_cpu = load_stepper(art, "cuda"), load_stepper(art, "cpu")
+    ref = engine._step(state, zen)
+    got = on_cuda(state, zen)
+    if not torch.equal(got, ref):
+        raise RuntimeError("[45] the CUDA program differs from the engine's step")
+    cpu_calls = [str(n.target) for n in on_cpu.program.graph.nodes if n.op == "call_function"]
+    if any(c.startswith("swin.") for c in cpu_calls):
+        raise RuntimeError("[45] the CPU program calls a custom op")
+    got_cpu, cpu_s = timed(lambda: on_cpu(state.cpu(), zen.cpu()))
+    cpu_err = compare("[45] the CPU program (plain versions) against the CUDA program", got_cpu,
+                      got.cpu(), MODEL_TOL)
+    try:
+        export_stepper(engine, os.path.join(base, "tpu"), platforms=("tpu",))
+    except ValueError as e:
+        log(f"  platforms ('tpu',) raises: {e}")
+    else:
+        raise RuntimeError("[45] export_stepper must refuse the tpu platform")
+    out["platforms"] = {"export_s": export_s, "bytes": manifest["artifacts"],
+                        "cpu_max_abs": cpu_err, "cpu_step_s": cpu_s}
+    log(f"[45] platforms ('cuda', 'cpu'), {CONFIG} at depth 2: export {export_s:.1f} s, "
+        f"{manifest['artifacts']}; the CUDA program bit-equal to the engine's step, the CPU "
+        f"program (no custom op) within MODEL_TOL of it ({cpu_s:.1f} s on the host)")
+    del engine, on_cuda, on_cpu, state, zen, ref, got, got_cpu
+    shutil.rmtree(base)
+    torch.cuda.empty_cache()
+
+    # ---- the host us of a call of each new op, direct and through the op --------
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    bf = torch.bfloat16
+    x, s, m = t(1, 180, 360, 768, dtype=bf) / 4, t(8).abs() + 5.0, t(162, 162).clamp(max=0)
+    w, b, wp, bp = t(768, 2304, dtype=bf) / 32, t(2304) / 10, t(768, 3072, dtype=bf) / 32, t(3072)
+    q, bias, xw = t(400, 8, 162, 96, dtype=bf), t(8, 162, 162), t(1, 400, 168, 768, dtype=bf)
+    x2 = t(64800, 768, dtype=bf)
+    ops = {
+        "mlp_fwd": (mk, (x2, t(768, 3072, dtype=bf) / 32, t(3072), t(3072, 768, dtype=bf) / 64,
+                         t(768))),
+        "window_attention_qkv_bias": (wa, (x, w, b, s, bias, (9, 18), m, 1.0)),
+        "window_attention_grid": (wa, (x, x, x, s, (9, 18), m, 1.0)),
+        "window_attention_grid_bias": (wa, (x, x, x, s, bias, (9, 18), m, 1.0)),
+        "window_attention_v1": (wa, (q, q, q, s, (20, 20), m)),
+        "window_attention_v1_bias": (wa, (q, q, q, s, bias, (20, 20), m)),
+        "window_attention_qkv_padded": (wa, (x, wp, bp, s, 96, (9, 18), m, 1.0)),
+        "ln_dp_add_fwd": (lk, (x2, x2, t(768), t(768), torch.ones((64800, 1), device=dev))),
+        "window_attention_qkv5": (v45, (x, t(24, 768, 96, dtype=bf) / 32, b, s, (9, 18), m,
+                                        1.0)),
+        "window_attention_qkv4": (v45, (xw, w, b, s, (9, 18), (20, 20), m, 1.0)),
+        "window_attention_qkv4_padded": (v45, (xw, wp, bp, s, 96, (9, 18), (20, 20), m, 1.0)),
+    }
+    host = {}
+    for name, (module, args) in ops.items():
+        op_args = [list(a) if isinstance(a, tuple) else a for a in args]
+        fn, op = getattr(module, name), getattr(module, name + "_op")
+        if not torch.equal(op(*op_args), fn(*args)):
+            raise RuntimeError(f"[45] swin::{name} differs from its direct launch")
+        host[name] = {"wrapper_us": host_us(lambda: fn(*args)),
+                      "custom_op_us": host_us(lambda: op(*op_args))}
+    del ops, x, q, xw, x2, w, wp, bias
+    torch.cuda.empty_cache()
+    log("[45] host us a call, direct / through the custom op (20 calls enqueued, flagship "
+        "shapes): " + ", ".join(f"{n} {v['wrapper_us']:.1f} / {v['custom_op_us']:.1f}"
+                                for n, v in host.items()) + f" ({card})")
+    out["host_us"] = host
+    out["phase_s"] = time.time() - t_phase
+    log(f"  phase 45 took {out['phase_s']:.1f} s")
+    print(json.dumps({"served_routes": out}))
+    return paths, host
 
 
 def parallel_ranks(tag: str, world: int, backend: str, variants: str, out_dir: str,
@@ -2213,7 +2500,6 @@ def main() -> None:
 
     # ---- 9-10, 12-14: train paths ---------------------------------------------
     from swin_v2_weather_torch.data.preprocess import Preprocessor
-    from swin_v2_weather_torch.data.synthetic import SyntheticDataset, collate
     from swin_v2_weather_torch.ops.losses import LossHandler
     from swin_v2_weather_torch.training.optim import build_optimizer
     from swin_v2_weather_torch.training.step import build_eval_step, build_train_step
@@ -2262,11 +2548,10 @@ def main() -> None:
         an eval step, and ms/step and peak memory. Returns the launches of
         the n_steps steps and the kernel path's ms/step."""
         params = train_params(config, overrides)
-        model = get_model(params)
-        seeded_parameters(model, torch.Generator(device=weights_on or "cpu").manual_seed(SEED + 1))
+        model = seeded_model(params, dev, SEED + 1, weights_on)
         init = {n: p.detach().clone() for n, p in model.named_parameters()}
         loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
-        batch = collate([SyntheticDataset(params)[0]], device=dev)
+        batch = synthetic_batch(params, dev)
         n_future = int(params.n_future)
         log(f"{tag} train step: {config} {overrides or ''}, depth {params.depth}, "
             f"{sum(p.numel() for p in model.parameters())} parameters, n_future {n_future} "
@@ -2328,7 +2613,7 @@ def main() -> None:
 
         if eval_step:
             n_out = int(params.n_out_channels)
-            eval_batch = collate([SyntheticDataset(params, train=False)[0]], device=dev)
+            eval_batch = synthetic_batch(params, dev, train=False)
             ev = build_eval_step(model, loss_handler, preprocessor, n_out)(eval_batch)
             ev = {k: v.cpu() for k, v in ev.items()}
             if ev["rmse"].shape != (n_out,) or ev["acc"].shape != (n_out,) or not all(
@@ -2500,8 +2785,7 @@ def main() -> None:
 
     # ---- 16. CPB serving -------------------------------------------------------
     params = train_params(CONFIG, CPB)
-    model = get_model(params)
-    seeded_parameters(model, torch.Generator().manual_seed(SEED))
+    model = seeded_model(params, dev, SEED)
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     back = params_from_jax(params_to_jax(state))
     if set(back) != set(state) or not all(torch.equal(back[k], state[k]) for k in state):
@@ -2772,8 +3056,7 @@ def main() -> None:
         (per_step[name] a step, 0 if absent), finite output of the right
         shape, step 1 against the plain path; ms/step and peak."""
         params = train_params(config, overrides)
-        model = get_model(params)
-        seeded_parameters(model, torch.Generator(device=weights_on or "cpu").manual_seed(SEED))
+        model = seeded_model(params, dev, SEED, weights_on)
         engine = RolloutEngine(params, model, dev)
         # the flagship's initial state of phase 5, or one of this config's shape
         init = state0 if config == CONFIG else torch.randn(
@@ -3635,12 +3918,11 @@ def main() -> None:
         params = train_params(CONFIG_E2048, {"activation_ckpt": activation_ckpt})
         stage, out = "the model's build", {}
         try:
-            model = get_model(params)
-            seeded_parameters(model, torch.Generator(device=dev).manual_seed(SEED + 1))
+            model = seeded_model(params, dev, SEED + 1, dev)
             loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
             optimizer = build_optimizer(params, model.parameters())
             dp_gen = torch.Generator(device=dev).manual_seed(SEED)
-            inp, tar, tzen = preprocessor(collate([SyntheticDataset(params)[0]], device=dev))
+            inp, tar, tzen = preprocessor(synthetic_batch(params, dev))
             for i in (1, 2):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -3703,18 +3985,17 @@ def main() -> None:
         "mlp_fc1, plain MLP": {"window_attention_qkv": qkv_mlp3,
                                "window_attention_qkv_bwd": depth}}
     policy_want["none, again"] = policy_want["none"]
-    batch = collate([SyntheticDataset(train_params(CONFIG))[0]], device=dev)
+    batch = synthetic_batch(train_params(CONFIG), dev)
     ref_grads, policy_out = {}, {}
     for label, policy, mlp_impl in policy_runs:
         over = {"activation_ckpt": policy is not None, "remat_policy": policy or "mlp3"}
         if mlp_impl:
             over["mlp_impl"] = mlp_impl
         params = train_params(CONFIG, over)
-        model = get_model(params)
+        model = seeded_model(params, dev, SEED + 1, dev)
         if model.model.remat_policy != policy:
             raise RuntimeError(f"[42b] {label}: the model's remat policy is "
                                f"{model.model.remat_policy!r}")
-        seeded_parameters(model, torch.Generator(device=dev).manual_seed(SEED + 1))
         loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
         step = build_train_step(model, loss_handler, preprocessor,
                                 build_optimizer(params, model.parameters()),
@@ -3769,8 +4050,7 @@ def main() -> None:
     # (d) the H1 loss on one flagship batch: on the card (fp32 SHT) against
     # the same tensors' loss on the CPU in fp64
     params = train_params(CONFIG, {"loss": "h1"})
-    model = get_model(params)
-    seeded_parameters(model, torch.Generator(device=dev).manual_seed(SEED + 1))
+    model = seeded_model(params, dev, SEED + 1, dev)
     preprocessor = Preprocessor(params)
     inp, tar, tzen = preprocessor(batch)
     with torch.no_grad():
@@ -3828,6 +4108,13 @@ def main() -> None:
     interchange_paths = interchange_phase(trainer_root, trainer_exp, dev, card, counted,
                                           gc.gemm)
 
+    # ---- 45. the served artifact of every route: export, load, bit-equal to
+    # the engine's step; platforms; each new custom op's host cost -----------
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    served_paths, served_host = served_routes_phase(trainer_root, dev, card, counted, gc.gemm)
+    host_calls.update(served_host)
+
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
                "train_depth24": (launches_depth24, 3), "serve_cpb": ({**cpb_serve_launches, "gemm": cpb_serve_core}, N_STEPS),
@@ -3849,7 +4136,7 @@ def main() -> None:
                "train_e2048_full": (launches_e2048_full, 3), "train_lamb": (launches_lamb, 3),
                **{f"remat_{label.replace(', ', '_').replace(' ', '_')}": (v["launches"], 2)
                   for label, v in policy_out.items()},
-               **trainer_paths, **parallel_paths, **interchange_paths}
+               **trainer_paths, **parallel_paths, **interchange_paths, **served_paths}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",
                                  "train_2step"),
@@ -3956,7 +4243,7 @@ def main() -> None:
     for entry in kernels:
         if entry["name"] in yardstick:  # K3/K4: torch.matmul of the same operands (phases 4, 8)
             entry["matmul_ms"] = yardstick[entry["name"]]
-        if entry["name"] in host_calls:  # K1/K3: host us a call, direct and custom op (3, 4)
+        if entry["name"] in host_calls:  # host us a call, direct and custom op (3, 4, 45)
             entry["host_us"] = host_calls[entry["name"]]
         if entry["name"] in beyond:  # past L = 256: L = 288, by head dim (phase 39)
             entry["l288"] = beyond[entry["name"]]

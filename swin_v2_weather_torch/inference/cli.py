@@ -17,13 +17,16 @@ Usage:
         --registry registry/swin_73var --data /data/era5/out_of_sample \\
         --ics 0 100 --steps 56 --ensemble 9 --perturb bred --amplitude 0.05
 
-    # the serving artifact (torch.export, weights inside; inference/export.py)
+    # the serving artifact (torch.export, weights inside; inference/export.py),
+    # one program per platform
     python -m swin_v2_weather_torch.inference.cli \\
-        --registry registry/swin_73var --export-stepper served/ --batch 1
+        --registry registry/swin_73var --export-stepper served/ --batch 1 \\
+        --platforms cuda cpu
 
-It takes the JAX CLI's arguments but ``--platforms`` (a ``torch.export``
-program runs on the device it was traced on), plus ``--device`` (default
-``cuda``): without a CUDA device it raises unless ``--device cpu`` is given.
+It takes the JAX CLI's arguments (``--platforms`` names the port's platforms,
+``cuda`` and ``cpu``: a ``torch.export`` program runs on the platform it was
+traced for), plus ``--device`` (default ``cuda``): without a CUDA device it
+raises unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -215,11 +218,14 @@ def main(argv=None):
     parser.add_argument("--output", default="scores.json")
     parser.add_argument(
         "--export-stepper", metavar="DIR",
-        help="write the serving artifact (torch.export stepper.pt2 + manifest.json, "
-        "traced on --device) instead of scoring; the JAX CLI's --platforms has no "
-        "counterpart: the program runs on the device it was traced on",
+        help="write the serving artifact (a torch.export stepper.<platform>.pt2 for each "
+        "of --platforms + manifest.json) instead of scoring",
     )
     parser.add_argument("--batch", type=int, default=1, help="serving batch size")
+    parser.add_argument(
+        "--platforms", nargs="+", default=None,
+        help="platforms of --export-stepper's programs (cuda, cpu; default --device's)",
+    )
     parser.add_argument(
         "--device", default="cuda",
         help="device to run on (default cuda; cpu only when asked for)",
@@ -230,9 +236,10 @@ def main(argv=None):
         from swin_v2_weather_torch.inference.export import export_stepper
 
         engine, _ = _engine(args)
-        manifest = export_stepper(engine, args.export_stepper, batch=args.batch)
-        logging.info("wrote %s (%d bytes, %s)", args.export_stepper,
-                     manifest["artifact_bytes"], manifest["device"])
+        manifest = export_stepper(engine, args.export_stepper, batch=args.batch,
+                                  platforms=args.platforms)
+        logging.info("wrote %s (%d bytes, platforms %s)", args.export_stepper,
+                     manifest["artifact_bytes"], manifest["platforms"])
         return
 
     if not args.data:

@@ -1,65 +1,97 @@
-"""Serving artifact: the forecast step as a ``torch.export`` program.
+"""Serving artifact: the forecast step as ``torch.export`` programs.
 
 Counterpart of ``swin_v2_weather_tpu/inference/export.py``, which serializes
-the jitted step as StableHLO. Here the unit is the engine's single step
+the jitted step as StableHLO for one or more lowering platforms. Here the
+unit is the engine's single step
 (:class:`~swin_v2_weather_torch.inference.rollout.Stepper`) exported with
-``torch.export.export``, the trained weights and the static conditioning
-channels (orography, land mask) saved inside it:
+``torch.export.export``, once per platform, the trained weights and the
+static conditioning channels (orography, land mask) saved inside each
+program:
 
-    <dir>/stepper.pt2      ``torch.export.save`` of the ExportedProgram
-    <dir>/manifest.json    inputs, output, grid, hours per step, add_zenith,
-                           channel names, artifact bytes, format and device
+    <dir>/stepper.<platform>.pt2   ``torch.export.save`` of the program
+                                   traced on that platform ("cuda", "cpu")
+    <dir>/manifest.json            inputs, output, grid, hours per step,
+                                   add_zenith, channel names, platforms,
+                                   artifact bytes, format and device
 
 The program's signature is ``(state[, zenith]) -> prediction`` over
 normalized fields ([B, C_out, H, W] fp32, B fixed at export); the
-autoregression stays in the serving loop. A CUDA program holds K1 and K3 as
-calls of the custom ops ``swin::window_attention_qkv`` and ``swin::fc1_gelu``
-(``ops/window_attention.py``, ``ops/mlp_kernels.py``), so serving needs those
-two modules and no model code; a route whose kernels are not registered
-(K5, K7-K12) raises at export, naming the route and the kernel. A CPU
-program holds the plain versions' operations.
+autoregression stays in the serving loop. A CUDA program holds every
+forward kernel of the model's route as a call of its custom op (``swin::
+<launcher>``, defined beside the launcher: K1, K3, K5, K7-K12), so serving
+needs the four op modules and no model code. A CPU program holds the plain
+versions' operations: the entry points dispatch on the device.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-ARTIFACT = "stepper.pt2"
+PLATFORMS = ("cuda", "cpu")  # the platforms a program can be traced for
+ARTIFACT = "stepper.{}.pt2"
 MANIFEST = "manifest.json"
 
 
-def export_stepper(engine, out_dir: str, batch: int = 1) -> dict:
-    """Export ``engine``'s single forecast step, traced on the engine's device
-    at batch ``batch`` (export once per serving batch shape), into
-    ``out_dir``. Returns the manifest."""
+def _platforms(engine, platforms: Optional[Sequence[str]]) -> list:
+    """The requested platforms in order, once each (default: the engine's
+    device type), or raise naming the ones the port takes."""
+    want = [engine.device.type] if platforms is None else list(dict.fromkeys(platforms))
+    bad = [p for p in want if p not in PLATFORMS]
+    if bad or not want:
+        raise ValueError(f"export_stepper: no program for platforms {bad or want}; the port "
+                         f"traces {list(PLATFORMS)}")
+    return want
+
+
+def export_stepper(engine, out_dir: str, batch: int = 1,
+                   platforms: Optional[Sequence[str]] = None) -> dict:
+    """Export ``engine``'s single forecast step at batch ``batch`` (export
+    once per serving batch shape) into ``out_dir``: one program per platform
+    of ``platforms`` (default: the engine's device type). The engine's own
+    stepper is traced on its device; another platform's program is traced
+    from a copy of it on that platform. Returns the manifest."""
+    want = _platforms(engine, platforms)
     os.makedirs(out_dir, exist_ok=True)
     h, w, n_out = engine.h, engine.w, engine.n_out
     specs = [("state", (batch, n_out, h, w))]
     if engine.add_zenith:
         specs.append(("zenith", (batch, 1, h, w)))
-    args = tuple(torch.zeros(shape, dtype=torch.float32, device=engine.device)
-                 for _, shape in specs)
-    with torch.no_grad():
-        program = torch.export.export(engine.stepper, args)
-    program.example_inputs = None  # else saved too: a [B, 73, 720, 1440] state of zeros
-    path = os.path.join(out_dir, ARTIFACT)
-    torch.export.save(program, path)
+    artifacts = {}
+    for platform in want:
+        if platform == engine.device.type:
+            stepper, device = engine.stepper, engine.device
+        else:
+            device = torch.device(platform)
+            stepper = copy.deepcopy(engine.stepper).to(device).eval()
+        args = tuple(torch.zeros(shape, dtype=torch.float32, device=device)
+                     for _, shape in specs)
+        with torch.no_grad():
+            program = torch.export.export(stepper, args)
+        program.example_inputs = None  # else saved too: a [B, 73, 720, 1440] state of zeros
+        name = ARTIFACT.format(platform)
+        torch.export.save(program, os.path.join(out_dir, name))
+        artifacts[platform] = {"file": name,
+                               "bytes": os.path.getsize(os.path.join(out_dir, name))}
+        del program, stepper
 
     params = engine.params
     manifest = {
         "format": "torch.export",
         "device": engine.device.type,
+        "platforms": want,
+        "artifacts": artifacts,
         "inputs": [{"name": n, "shape": list(s), "dtype": "float32"} for n, s in specs],
         "output": {"shape": [batch, n_out, h, w], "dtype": "float32"},
         "grid": {"height": h, "width": w},
         "hours_per_step": engine.hours_per_step,
         "add_zenith": engine.add_zenith,
         "out_channels": [str(c) for c in getattr(params, "channel_names", [])] or None,
-        "artifact_bytes": os.path.getsize(path),
+        "artifact_bytes": sum(a["bytes"] for a in artifacts.values()),
     }
     with open(os.path.join(out_dir, MANIFEST), "w") as f:
         json.dump(manifest, f, indent=2)
@@ -86,17 +118,20 @@ class ServedStepper:
 
 
 def load_stepper(artifact_dir: str, device: Optional[str] = "cuda") -> ServedStepper:
-    """Load ``export_stepper``'s artifact; no model code is imported, only the
-    custom ops' registration. ``device`` must be the device type it was
-    exported on (a program's constants and kernels stay where they were
-    traced)."""
-    # registers swin::window_attention_qkv and swin::fc1_gelu
-    from swin_v2_weather_torch.ops import mlp_kernels, window_attention  # noqa: F401
+    """Load the program of ``device``'s type from ``export_stepper``'s
+    artifact; no model code is imported, only the custom ops' registration.
+    Raises, naming both, where the artifact has no program for that type (a
+    program's constants and kernels stay where they were traced)."""
+    # registers the swin:: custom ops of every forward kernel
+    from swin_v2_weather_torch.ops import ln_kernels, mlp_kernels, window_attention  # noqa: F401
+    from swin_v2_weather_torch.ops.attic import window_attention_v45  # noqa: F401
 
     with open(os.path.join(artifact_dir, MANIFEST)) as f:
         manifest = json.load(f)
-    if torch.device(device).type != manifest["device"]:
-        raise ValueError(f"the artifact was exported on {manifest['device']}; it cannot run "
-                         f"on {device}")
-    program = torch.export.load(os.path.join(artifact_dir, ARTIFACT))
+    platform = torch.device(device).type
+    if platform not in manifest["platforms"]:
+        raise ValueError(f"the artifact was exported on {', '.join(manifest['platforms'])}; it "
+                         f"has no program for {device}")
+    program = torch.export.load(os.path.join(artifact_dir,
+                                             manifest["artifacts"][platform]["file"]))
     return ServedStepper(program, manifest, device)

@@ -234,38 +234,27 @@ def check(code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {code} ({msg})")
 
 
-# The forward launches torch.export meets on the routes whose kernels are not
-# registered as custom ops (only K1 and K3 are: ``swin::window_attention_qkv``,
-# ``swin::fc1_gelu``): wrapper -> (kernel, route)
-UNREGISTERED_ROUTES = {
-    "window_attention_qkv_bias": ("K7", "the CPB bias (rel_pos) on attn_impl 'pallas_qkv'"),
-    "window_attention_grid": ("K8", "attn_impl 'pallas' (the grid route)"),
-    "window_attention_grid_bias": ("K8", "attn_impl 'pallas' with the CPB bias"),
-    "window_attention_v1": ("K9", "attn_impl 'pallas_v1' (the windowed route)"),
-    "window_attention_v1_bias": ("K9", "attn_impl 'pallas_v1' with the CPB bias"),
-    "window_attention_qkv_padded": ("K10", "QKV_IMPL 'v6'"),
-    "window_attention_qkv5": ("K12", "QKV_IMPL 'v5'"),
-    "window_attention_qkv4": ("K12", "QKV_IMPL 'v4'"),
-    "window_attention_qkv4_padded": ("K12", "QKV_IMPL 'v4' with QKV_PAD_HEADS"),
-    "mlp_fwd": ("K5", "mlp_impl 'fused2' (the whole-MLP route)"),
-    "ln_dp_add_fwd": ("K11", "lnadd_impl 'fused'"),
-}
+def check_traced(kernel: str, t: torch.Tensor) -> None:
+    """Raise where a launcher meets a fake tensor: a traced call that reached
+    the ctypes launch instead of the custom op (a ctypes launch cannot be
+    traced, and no kernel falls back to its plain version)."""
+    if not is_fake(t):
+        return
+    # a forward launcher's op is swin::<launcher>, defined beside it (so
+    # registered once its module is imported); a backward launcher has none
+    where = (f"a traced call must go through its custom op swin::{kernel}"
+             if hasattr(torch.ops.swin, kernel) else
+             "a backward kernel has no custom op: torch.export traces the served step "
+             "under torch.no_grad")
+    raise RuntimeError(f"{kernel} was reached with a fake tensor (torch.export tracing the "
+                       f"model): {where}")
 
 
 def check_operand(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
                   shape: tuple, device: torch.device) -> None:
-    """Device, dtype, shape and contiguity of one kernel operand, or raise.
-
-    A fake tensor (``torch.export`` tracing the model) raises too: a ctypes
-    launch cannot be traced, and no kernel falls back to its plain version."""
-    if is_fake(t):
-        kid, route = UNREGISTERED_ROUTES.get(kernel, (None, None))
-        where = (f"{kid} ({kernel}) on {route} is not registered as a custom op"
-                 if kid else f"{kernel} was reached outside its custom op (trace under "
-                 "torch.no_grad, where K1 and K3 take swin::window_attention_qkv and "
-                 "swin::fc1_gelu)")
-        raise RuntimeError(f"torch.export cannot trace this model on CUDA: {where}; only "
-                           "K1 and K3 launch through custom ops")
+    """Device, dtype, shape and contiguity of one kernel operand, or raise
+    (a fake tensor too: :func:`check_traced`)."""
+    check_traced(kernel, t)
     if t.device != device:
         raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -56,7 +56,7 @@ d(scale) in their inputs' dtypes (fp32 from the kernels).
 from __future__ import annotations
 
 import os as _os
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -160,6 +160,31 @@ def window_attention_qkv5(x, w5, b_qkv, scale, window, mask_pattern=None, bounda
 
 
 window_attention_qkv5.launches = 0
+
+
+@torch.library.custom_op("swin::window_attention_qkv5", mutates_args=())
+def window_attention_qkv5_op(x: torch.Tensor, w5: torch.Tensor, b_qkv: torch.Tensor,
+                             scale: torch.Tensor, window: List[int],
+                             mask_pattern: Optional[torch.Tensor],
+                             boundary_flag: float) -> torch.Tensor:
+    """v5's forward launch (:func:`window_attention_qkv5`) as the custom op
+    ``swin::window_attention_qkv5``."""
+    return window_attention_qkv5(x, w5, b_qkv, scale, tuple(window), mask_pattern,
+                                 boundary_flag)
+
+
+@window_attention_qkv5_op.register_fake
+def _window_attention_qkv5_fake(x, w5, b_qkv, scale, window, mask_pattern, boundary_flag):
+    return x.new_empty((*x.shape[:-1], b_qkv.shape[0] // 3), dtype=torch.bfloat16)
+
+
+def served_qkv5(x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag):
+    """The serving forward of v5 on CUDA tensors: :class:`WindowAttentionQKV5`'s
+    forward through ``swin::window_attention_qkv5``."""
+    w5 = w5_reorder(w_qkv, int(scale.shape[0]))
+    return window_attention_qkv5_op(x.contiguous(), w5.contiguous(), b_qkv.float().contiguous(),
+                                    scale.float().contiguous(), list(window), mask_pattern,
+                                    wa._flag(boundary_flag))
 
 
 def window_attention_qkv5_bwd(x, w5, w_qkv, b_qkv, scale, g, window, mask_pattern=None,
@@ -484,6 +509,23 @@ def window_attention_qkv4(xw, w_qkv, b_qkv, scale, window, window_grid, mask_pat
 window_attention_qkv4.launches = 0
 
 
+@torch.library.custom_op("swin::window_attention_qkv4", mutates_args=())
+def window_attention_qkv4_op(xw: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                             scale: torch.Tensor, window: List[int], window_grid: List[int],
+                             mask_pattern: Optional[torch.Tensor],
+                             boundary_flag: float) -> torch.Tensor:
+    """v4's forward launch (:func:`window_attention_qkv4`) as the custom op
+    ``swin::window_attention_qkv4``."""
+    return window_attention_qkv4(xw, w_qkv, b_qkv, scale, tuple(window), tuple(window_grid),
+                                 mask_pattern, boundary_flag)
+
+
+@window_attention_qkv4_op.register_fake
+def _window_attention_qkv4_fake(xw, w_qkv, b_qkv, scale, window, window_grid, mask_pattern,
+                                boundary_flag):
+    return xw.new_empty((*xw.shape[:-1], w_qkv.shape[-1] // 3), dtype=torch.bfloat16)
+
+
 def window_attention_qkv4_bwd(xw, w_qkv, b_qkv, scale, gw, window, window_grid,
                               mask_pattern=None, boundary_flag=1.0):
     """K12 v4's backward kernels: the forward's operands and gw [B, nW, Lp, C]
@@ -509,6 +551,23 @@ def window_attention_qkv4_padded(xw, wp, bp, scale, hd, window, window_grid, mas
 window_attention_qkv4_padded.launches = 0
 
 
+@torch.library.custom_op("swin::window_attention_qkv4_padded", mutates_args=())
+def window_attention_qkv4_padded_op(xw: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
+                                    scale: torch.Tensor, hd: int, window: List[int],
+                                    window_grid: List[int], mask_pattern: Optional[torch.Tensor],
+                                    boundary_flag: float) -> torch.Tensor:
+    """The padded-head v4 forward launch (:func:`window_attention_qkv4_padded`)
+    as the custom op ``swin::window_attention_qkv4_padded``."""
+    return window_attention_qkv4_padded(xw, wp, bp, scale, hd, tuple(window),
+                                        tuple(window_grid), mask_pattern, boundary_flag)
+
+
+@window_attention_qkv4_padded_op.register_fake
+def _window_attention_qkv4_padded_fake(xw, wp, bp, scale, hd, window, window_grid,
+                                       mask_pattern, boundary_flag):
+    return xw.new_empty((*xw.shape[:-1], wp.shape[-1] // 3), dtype=torch.bfloat16)
+
+
 def window_attention_qkv4_padded_bwd(xw, wp, bp, scale, hd, gw, window, window_grid,
                                      mask_pattern=None, boundary_flag=1.0):
     """The padded-head v4 backward kernels: gw [B, nW, Lp, heads * 128] bf16
@@ -519,6 +578,40 @@ def window_attention_qkv4_padded_bwd(xw, wp, bp, scale, hd, gw, window, window_g
 
 
 window_attention_qkv4_padded_bwd.launches = 0
+
+
+def qkv4_forward(x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag, pad_heads: bool,
+                 served: bool = False):
+    """v4's forward on the NHWC grid: the window-major rearrangement, the
+    kernel (its plain version on CPU tensors; through its custom op with
+    ``served``, the serving forward) and the inverse rearrangement."""
+    heads = int(scale.shape[0])
+    hd = w_qkv.shape[-1] // 3 // heads
+    grid = (x.shape[1] // int(window[0]), x.shape[2] // int(window[1]))
+    xw = window_major(x, window)
+    w16, b32 = w_qkv.to(torch.bfloat16), b_qkv.float()
+    if pad_heads:
+        w16, b32 = wa.pad_heads_w(w16, heads), wa.pad_heads_vec(b32, heads)
+    if x.device.type == "cpu":
+        if pad_heads:
+            ow = window_attention_qkv4_padded_reference(xw, w16, b32, scale, hd, window, grid,
+                                                        mask_pattern, boundary_flag)
+        else:
+            ow = window_attention_qkv4_reference(xw, w16, b32, scale, window, grid,
+                                                 mask_pattern, boundary_flag)
+    elif served:
+        tail = (list(window), list(grid), mask_pattern, wa._flag(boundary_flag))
+        args = (xw, w16.contiguous(), b32.contiguous(), scale.float().contiguous())
+        ow = (window_attention_qkv4_padded_op(*args, hd, *tail) if pad_heads
+              else window_attention_qkv4_op(*args, *tail))
+    else:
+        tail = (window, grid, mask_pattern, wa._flag(boundary_flag))
+        args = (xw, w16.contiguous(), b32.contiguous(), scale.float().contiguous())
+        ow = (window_attention_qkv4_padded(*args, hd, *tail) if pad_heads
+              else window_attention_qkv4(*args, *tail))
+    if pad_heads:
+        ow = wa.unpad_heads(ow, heads, hd)
+    return window_major_inverse(ow, window, tuple(x.shape[1:3]))
 
 
 class WindowAttentionQKV4(torch.autograd.Function):
@@ -534,30 +627,8 @@ class WindowAttentionQKV4(torch.autograd.Function):
         ctx.save_for_backward(x, w_qkv, b_qkv, scale)
         ctx.window, ctx.mask_pattern, ctx.boundary_flag = window, mask_pattern, boundary_flag
         ctx.pad_heads = bool(pad_heads)
-        heads = int(scale.shape[0])
-        hd = w_qkv.shape[-1] // 3 // heads
-        grid = (x.shape[1] // int(window[0]), x.shape[2] // int(window[1]))
-        xw = window_major(x, window)
-        w16, b32 = w_qkv.to(torch.bfloat16), b_qkv.float()
-        if x.device.type == "cpu":
-            if ctx.pad_heads:
-                ow = window_attention_qkv4_padded_reference(
-                    xw, wa.pad_heads_w(w16, heads), wa.pad_heads_vec(b32, heads), scale, hd,
-                    window, grid, mask_pattern, boundary_flag)
-            else:
-                ow = window_attention_qkv4_reference(xw, w16, b32, scale, window, grid,
-                                                     mask_pattern, boundary_flag)
-        else:
-            sc = scale.float().contiguous()
-            tail = (window, grid, mask_pattern, wa._flag(boundary_flag))
-            if ctx.pad_heads:
-                ow = window_attention_qkv4_padded(xw, wa.pad_heads_w(w16, heads),
-                                                  wa.pad_heads_vec(b32, heads), sc, hd, *tail)
-            else:
-                ow = window_attention_qkv4(xw, w16.contiguous(), b32.contiguous(), sc, *tail)
-        if ctx.pad_heads:
-            ow = wa.unpad_heads(ow, heads, hd)
-        return window_major_inverse(ow, window, tuple(x.shape[1:3]))
+        return qkv4_forward(x, w_qkv, b_qkv, scale, window, mask_pattern, boundary_flag,
+                            ctx.pad_heads)
 
     @staticmethod
     def backward(ctx, g):

@@ -123,6 +123,20 @@ def ln_dp_add_fwd(z2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
 ln_dp_add_fwd.launches = 0
 
 
+@torch.library.custom_op("swin::ln_dp_add_fwd", mutates_args=())
+def ln_dp_add_fwd_op(z2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """K11's forward launch (:func:`ln_dp_add_fwd`) as the custom op
+    ``swin::ln_dp_add_fwd``: the serving forward of the fused post-norm
+    branch calls it (m = 1 in eval mode)."""
+    return ln_dp_add_fwd(z2, x2, gamma, beta, m2)
+
+
+@ln_dp_add_fwd_op.register_fake
+def _ln_dp_add_fwd_fake(z2, x2, gamma, beta, m2):
+    return x2.new_empty(x2.shape, dtype=torch.bfloat16)
+
+
 def ln_dp_add_bwd(z2: torch.Tensor, g2: torch.Tensor, gamma: torch.Tensor, m2: torch.Tensor):
     """K11's backward kernels: z2, g2 [T, C] bf16, gamma [C] fp32, m2 [T, 1]
     fp32 -> (dz [T, C] bf16, dgamma [C] fp32, dbeta [C] fp32). Each block of
@@ -209,4 +223,10 @@ def fused_ln_droppath_add(z: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     if z.shape != x.shape or m.shape != (z.shape[0],):
         raise ValueError(f"fused_ln_droppath_add: z {tuple(z.shape)} and x {tuple(x.shape)} "
                          f"must match and m must be [{z.shape[0]}], got {tuple(m.shape)}")
+    if z.device.type == "cuda" and not torch.is_grad_enabled():
+        # serving: K11 through its custom op, on LnDropPathAdd's operands
+        z2, m2 = _rows(z, m)
+        return ln_dp_add_fwd_op(z2.contiguous(), x.reshape(z2.shape).contiguous(),
+                                gamma.float().contiguous(), beta.float().contiguous(),
+                                m2).reshape(x.shape)
     return LnDropPathAdd.apply(z, x, gamma, beta, m)

@@ -672,6 +672,24 @@ def window_attention_qkv_bias(
 window_attention_qkv_bias.launches = 0
 
 
+@torch.library.custom_op("swin::window_attention_qkv_bias", mutates_args=())
+def window_attention_qkv_bias_op(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                                 scale: torch.Tensor, badd: torch.Tensor, window: List[int],
+                                 mask_pattern: Optional[torch.Tensor],
+                                 boundary_flag: float) -> torch.Tensor:
+    """K7's forward launch (:func:`window_attention_qkv_bias`, ``window`` a
+    list) as the custom op ``swin::window_attention_qkv_bias``: the serving
+    forward calls it, as K1's (:func:`window_attention_qkv_op`)."""
+    return window_attention_qkv_bias(x, w_qkv, b_qkv, scale, badd, tuple(window), mask_pattern,
+                                     boundary_flag)
+
+
+@window_attention_qkv_bias_op.register_fake
+def _window_attention_qkv_bias_fake(x, w_qkv, b_qkv, scale, badd, window, mask_pattern,
+                                    boundary_flag):
+    return x.new_empty((*x.shape[:-1], w_qkv.shape[-1] // 3), dtype=torch.bfloat16)
+
+
 def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, boundary_flag, badd,
                      w5=None):
     """Launch K2 (K7's backward with ``badd``; K12 v5's with ``w5``, the
@@ -1028,6 +1046,9 @@ def fused_window_attention_qkv(
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_window_attention_qkv: no implementation for device {x.device}")
     mask_pattern = _mask_on(x, mask_pattern)
+    # serving: the forward kernel through its custom op (torch.export traces
+    # it); the autograd Function makes the same launch
+    served = x.device.type == "cuda" and not torch.is_grad_enabled()
     if bias is None:
         sel = impl or qkv_impl()
         if sel in ("v4", "v5"):
@@ -1035,20 +1056,24 @@ def fused_window_attention_qkv(
             from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
             if sel == "v5":
+                if served:
+                    return v45.served_qkv5(x, w_qkv, b_qkv, scale, window, mask_pattern,
+                                           boundary_flag)
                 return v45.WindowAttentionQKV5.apply(x, w_qkv, b_qkv, scale, tuple(window),
                                                      mask_pattern, boundary_flag)
             hd = int(w_qkv.shape[-1]) // 3 // int(scale.shape[0])
+            pad = v45.QKV_PAD_HEADS and hd % HD_PAD != 0
+            if served:
+                return v45.qkv4_forward(x, w_qkv, b_qkv, scale, tuple(window), mask_pattern,
+                                        boundary_flag, pad, served=True)
             return v45.WindowAttentionQKV4.apply(x, w_qkv, b_qkv, scale, tuple(window),
-                                                 mask_pattern, boundary_flag,
-                                                 v45.QKV_PAD_HEADS and hd % HD_PAD != 0)
+                                                 mask_pattern, boundary_flag, pad)
         if sel == "v6":
             raise ValueError(
                 "impl 'v6' returns a padded [B,H,W,heads*128] output; call "
                 "fused_window_attention_qkv_padded (the caller must absorb the padding into "
                 "the following matmul)")
-        if x.device.type == "cuda" and not torch.is_grad_enabled():
-            # serving: K1 through its custom op (torch.export traces it); the
-            # autograd Function makes the same launch
+        if served:
             return window_attention_qkv_op(
                 x.contiguous(), w_qkv.to(torch.bfloat16).contiguous(),
                 b_qkv.float().contiguous(), scale.float().contiguous(), list(window),
@@ -1058,6 +1083,12 @@ def fused_window_attention_qkv(
         )
     _check_bias("fused_window_attention_qkv", bias, int(scale.shape[0]),
                 int(window[0]) * int(window[1]))
+    if served:  # K7, with WindowAttentionQKVBias's fold
+        badd = bias.float() if bias_prefolded else fold_cpb_bias(bias, scale)
+        return window_attention_qkv_bias_op(
+            x.contiguous(), w_qkv.to(torch.bfloat16).contiguous(), b_qkv.float().contiguous(),
+            scale.float().contiguous(), badd.contiguous(), list(window), mask_pattern,
+            _flag(boundary_flag))
     return WindowAttentionQKVBias.apply(
         x, w_qkv, b_qkv, scale, bias, bool(bias_prefolded), tuple(window), mask_pattern,
         boundary_flag,
@@ -1196,6 +1227,23 @@ def window_attention_qkv_padded(x, wp, bp, scale, hd, window, mask_pattern=None,
 window_attention_qkv_padded.launches = 0
 
 
+@torch.library.custom_op("swin::window_attention_qkv_padded", mutates_args=())
+def window_attention_qkv_padded_op(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
+                                   scale: torch.Tensor, hd: int, window: List[int],
+                                   mask_pattern: Optional[torch.Tensor],
+                                   boundary_flag: float) -> torch.Tensor:
+    """K10's forward launch (:func:`window_attention_qkv_padded`) as the
+    custom op ``swin::window_attention_qkv_padded``."""
+    return window_attention_qkv_padded(x, wp, bp, scale, hd, tuple(window), mask_pattern,
+                                       boundary_flag)
+
+
+@window_attention_qkv_padded_op.register_fake
+def _window_attention_qkv_padded_fake(x, wp, bp, scale, hd, window, mask_pattern,
+                                      boundary_flag):
+    return x.new_empty((*x.shape[:-1], scale.shape[0] * HD_PAD), dtype=torch.bfloat16)
+
+
 def window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, window, mask_pattern=None,
                                     boundary_flag=1.0):
     """K10's backward kernels: the operands of :func:`window_attention_qkv_padded`
@@ -1307,8 +1355,16 @@ def fused_window_attention_qkv_padded(
     hd = int(w_qkv.shape[-1]) // 3 // heads
     if hd > HD_PAD:
         raise ValueError(f"head_dim {hd} > {HD_PAD} unsupported by the v6 kernel")
-    return WindowAttentionQKVPadded.apply(x, w_qkv, b_qkv, scale, tuple(window),
-                                          _mask_on(x, mask_pattern), boundary_flag)
+    mask_pattern = _mask_on(x, mask_pattern)
+    if x.device.type == "cuda" and not torch.is_grad_enabled():
+        # serving: K10 through its custom op, on WindowAttentionQKVPadded's padding
+        wp = pad_heads_w(w_qkv.to(torch.bfloat16), heads)
+        bp = pad_heads_vec(b_qkv.float(), heads)
+        return window_attention_qkv_padded_op(x.contiguous(), wp.contiguous(), bp.contiguous(),
+                                              scale.float().contiguous(), hd, list(window),
+                                              mask_pattern, _flag(boundary_flag))
+    return WindowAttentionQKVPadded.apply(x, w_qkv, b_qkv, scale, tuple(window), mask_pattern,
+                                          boundary_flag)
 
 
 # ---------------------------------------------------------------------------
@@ -1686,6 +1742,7 @@ def _v1_norm_scratch(q: torch.Tensor):
 def _pixel_stride(name, label, t, shape, dev) -> int:
     """Pixel stride (elements) of a bf16 [B, H, W, C] operand whose channels are
     contiguous (a channel slice of a wider tensor is taken as it is), or raise."""
+    _build.check_traced(name, t)
     if t.device != dev:
         raise ValueError(f"{name}: {label} is on {t.device}, expected {dev}")
     if t.dtype != torch.bfloat16:
@@ -1763,6 +1820,39 @@ def window_attention_grid_bias(qn, kn, v, scale, bias, window, mask_pattern=None
 
 
 window_attention_grid_bias.launches = 0
+
+
+@torch.library.custom_op("swin::window_attention_grid", mutates_args=())
+def window_attention_grid_op(qn: torch.Tensor, kn: torch.Tensor, v: torch.Tensor,
+                             scale: torch.Tensor, window: List[int],
+                             mask_pattern: Optional[torch.Tensor],
+                             boundary_flag: float) -> torch.Tensor:
+    """K8's forward launch (:func:`window_attention_grid`; v may be a channel
+    slice of the qkv tensor, read in place) as the custom op
+    ``swin::window_attention_grid``."""
+    return window_attention_grid(qn, kn, v, scale, tuple(window), mask_pattern, boundary_flag)
+
+
+@window_attention_grid_op.register_fake
+def _window_attention_grid_fake(qn, kn, v, scale, window, mask_pattern, boundary_flag):
+    return qn.new_empty(qn.shape, dtype=torch.bfloat16)
+
+
+@torch.library.custom_op("swin::window_attention_grid_bias", mutates_args=())
+def window_attention_grid_bias_op(qn: torch.Tensor, kn: torch.Tensor, v: torch.Tensor,
+                                  scale: torch.Tensor, bias: torch.Tensor, window: List[int],
+                                  mask_pattern: Optional[torch.Tensor],
+                                  boundary_flag: float) -> torch.Tensor:
+    """K8's BIAS forward launch (:func:`window_attention_grid_bias`) as the
+    custom op ``swin::window_attention_grid_bias``."""
+    return window_attention_grid_bias(qn, kn, v, scale, bias, tuple(window), mask_pattern,
+                                      boundary_flag)
+
+
+@window_attention_grid_bias_op.register_fake
+def _window_attention_grid_bias_fake(qn, kn, v, scale, bias, window, mask_pattern,
+                                     boundary_flag):
+    return qn.new_empty(qn.shape, dtype=torch.bfloat16)
 
 
 def _launch_grid_backward(fn, qn, kn, v, scale, bias, g, window, mask_pattern, boundary_flag):
@@ -1879,6 +1969,34 @@ def window_attention_v1_bias(q, k, v, scale, bias, window_grid, mask_pattern=Non
 
 
 window_attention_v1_bias.launches = 0
+
+
+@torch.library.custom_op("swin::window_attention_v1", mutates_args=())
+def window_attention_v1_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: torch.Tensor, window_grid: List[int],
+                           mask_pattern: Optional[torch.Tensor]) -> torch.Tensor:
+    """K9's forward launch (:func:`window_attention_v1`) as the custom op
+    ``swin::window_attention_v1``."""
+    return window_attention_v1(q, k, v, scale, tuple(window_grid), mask_pattern)
+
+
+@window_attention_v1_op.register_fake
+def _window_attention_v1_fake(q, k, v, scale, window_grid, mask_pattern):
+    return q.new_empty(q.shape, dtype=torch.bfloat16)
+
+
+@torch.library.custom_op("swin::window_attention_v1_bias", mutates_args=())
+def window_attention_v1_bias_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                scale: torch.Tensor, bias: torch.Tensor, window_grid: List[int],
+                                mask_pattern: Optional[torch.Tensor]) -> torch.Tensor:
+    """K9's BIAS forward launch (:func:`window_attention_v1_bias`) as the
+    custom op ``swin::window_attention_v1_bias``."""
+    return window_attention_v1_bias(q, k, v, scale, bias, tuple(window_grid), mask_pattern)
+
+
+@window_attention_v1_bias_op.register_fake
+def _window_attention_v1_bias_fake(q, k, v, scale, bias, window_grid, mask_pattern):
+    return q.new_empty(q.shape, dtype=torch.bfloat16)
 
 
 def _launch_v1_backward(fn, q, k, v, scale, bias, g, window_grid, mask_pattern):
@@ -2053,8 +2171,19 @@ def fused_window_attention_grid(
         raise ValueError(f"fused_window_attention_grid: no implementation for device {q.device}")
     _check_bias("fused_window_attention_grid", bias, int(scale.shape[0]),
                 int(window[0]) * int(window[1]))
-    return WindowAttentionGrid.apply(q, k, v, scale, bias, tuple(window),
-                                     _mask_on(q, mask_pattern), boundary_flag)
+    mask_pattern = _mask_on(q, mask_pattern)
+    if q.device.type == "cuda" and not torch.is_grad_enabled():
+        # serving: K8 through its custom op, after WindowAttentionGrid's
+        # normalization in plain ops
+        heads = int(scale.shape[0])
+        args = (normalize_heads(q, heads)[0], normalize_heads(k, heads)[0], v,
+                scale.float().contiguous())
+        tail = (list(window), mask_pattern, _flag(boundary_flag))
+        if bias is None:
+            return window_attention_grid_op(*args, *tail)
+        return window_attention_grid_bias_op(*args, bias.float().contiguous(), *tail)
+    return WindowAttentionGrid.apply(q, k, v, scale, bias, tuple(window), mask_pattern,
+                                     boundary_flag)
 
 
 def fused_window_attention(
@@ -2072,4 +2201,12 @@ def fused_window_attention(
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_window_attention: no implementation for device {q.device}")
     _check_bias("fused_window_attention", bias, int(scale.shape[0]), int(q.shape[2]))
-    return WindowAttentionV1.apply(q, k, v, scale, bias, grid, _mask_on(q, mask_pattern))
+    mask_pattern = _mask_on(q, mask_pattern)
+    if q.device.type == "cuda" and not torch.is_grad_enabled():
+        # serving: K9 through its custom op, on WindowAttentionV1's operands
+        args = (q.contiguous(), k.contiguous(), v.contiguous(), scale.float().contiguous())
+        if bias is None:
+            return window_attention_v1_op(*args, list(grid), mask_pattern)
+        return window_attention_v1_bias_op(*args, bias.float().contiguous(), list(grid),
+                                           mask_pattern)
+    return WindowAttentionV1.apply(q, k, v, scale, bias, grid, mask_pattern)

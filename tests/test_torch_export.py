@@ -3,7 +3,8 @@
 process and in a fresh one that imports no model code), bit-equal to the
 engine on the CPU; its manifest against the JAX package's ``export_stepper``
 manifest; and, on fake CUDA tensors, K1's and K3's custom ops and the error
-an unregistered route's kernel raises while ``torch.export`` traces it.
+each forward launcher raises when a traced call reaches it outside its
+custom op (tests/test_torch_export_routes.py: every route's artifact).
 
 On the CPU the program holds the plain versions' operations (the wrappers
 take them for CPU tensors), so the artifact is bit-equal to the engine's
@@ -24,9 +25,9 @@ from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
 from swin_v2_weather_tpu.inference.export import export_stepper as jax_export_stepper
 from swin_v2_weather_torch.inference.export import export_stepper, load_stepper
-from swin_v2_weather_torch.ops import _build
 from swin_v2_weather_torch.ops import mlp_kernels as mk
 from swin_v2_weather_torch.ops import window_attention as wa
+from test_torch_export_routes import NEW_OPS, faked, op_args
 from test_torch_inference import engines
 
 torch.set_num_threads(1)
@@ -51,8 +52,9 @@ def inputs(engine, seed=0):
 
 def test_artifact_bit_equal_to_engine_step(exported):
     _, engine, art, manifest = exported
-    assert os.path.getsize(os.path.join(art, "stepper.pt2")) == manifest["artifact_bytes"] > 0
-    with zipfile.ZipFile(os.path.join(art, "stepper.pt2")) as z:  # no example inputs saved
+    path = os.path.join(art, "stepper.cpu.pt2")
+    assert os.path.getsize(path) == manifest["artifact_bytes"] > 0
+    with zipfile.ZipFile(path) as z:  # no example inputs saved
         assert sum(i.file_size for i in z.infolist() if "sample_inputs" in i.filename) == 0
     served = load_stepper(art, device="cpu")
     state, zen = inputs(engine)
@@ -92,7 +94,7 @@ def test_manifest_matches_jax(exported, tmp_path):
     jax_engine, _, art, manifest = exported
     ref = jax_export_stepper(jax_engine, str(tmp_path / "jax"), batch=2)
     shared = {"inputs", "output", "grid", "hours_per_step", "add_zenith", "out_channels",
-              "artifact_bytes", "format"}
+              "artifact_bytes", "format", "platforms"}
     assert shared <= set(manifest) and shared <= set(ref)
     for key in shared - {"artifact_bytes", "format"}:
         assert manifest[key] == ref[key], key
@@ -121,22 +123,32 @@ def test_custom_ops_shapes_on_fake_cuda_tensors():
     assert str(mk.fc1_gelu_op._opoverload) == "swin.fc1_gelu.default"
 
 
-@pytest.mark.parametrize("kernel", sorted(_build.UNREGISTERED_ROUTES))
+@pytest.mark.parametrize("kernel", NEW_OPS)
 def test_unregistered_kernel_raises_while_traced(kernel):
-    kid, route = _build.UNREGISTERED_ROUTES[kernel]
+    """Each forward launcher with a custom op, called directly on fake CUDA
+    tensors (a traced call that bypassed ``swin::<kernel>``), raises naming
+    itself and its op, before any launch."""
+    module, args = op_args(kernel)
+    fn = getattr(module, kernel)
+    before = fn.launches
     mode = FakeTensorMode()
-    with mode, pytest.raises(RuntimeError, match="torch.export cannot trace") as err:
-        _build.check_operand(kernel, "x", fake_cuda(mode, 4, 8), torch.float32, (4, 8),
-                             torch.device("cuda", 0))
-    assert f"{kid} ({kernel}) on {route}" in str(err.value)
+    with mode, pytest.raises(RuntimeError, match=f"{kernel} was reached with a fake tensor") \
+            as err:
+        fn(*faked(mode, args))
+    assert f"custom op swin::{kernel}" in str(err.value) and fn.launches == before
 
 
 def test_cpb_kernel_raises_naming_k7_while_traced():
-    """K7's wrapper as the CPB model's attention reaches it under export."""
+    """K7's wrapper reached outside ``swin::window_attention_qkv_bias`` (the
+    CPB model's attention traced past its op); a backward launcher names
+    itself as one without an op."""
     mode = FakeTensorMode()
-    with mode, pytest.raises(RuntimeError, match=r"K7 \(window_attention_qkv_bias\)"):
-        wa.window_attention_qkv_bias(
-            fake_cuda(mode, 1, 18, 36, 64, dtype=torch.bfloat16),
-            fake_cuda(mode, 64, 192, dtype=torch.bfloat16), fake_cuda(mode, 192),
-            fake_cuda(mode, 2), fake_cuda(mode, 2, 162, 162), (9, 18))
+    x = fake_cuda(mode, 1, 18, 36, 64, dtype=torch.bfloat16)
+    args = (x, fake_cuda(mode, 64, 192, dtype=torch.bfloat16), fake_cuda(mode, 192),
+            fake_cuda(mode, 2), fake_cuda(mode, 2, 162, 162))
+    with mode, pytest.raises(RuntimeError,
+                             match=r"custom op swin::window_attention_qkv_bias$"):
+        wa.window_attention_qkv_bias(*args, (9, 18))
+    with mode, pytest.raises(RuntimeError, match="a backward kernel has no custom op"):
+        wa.window_attention_qkv_bias_bwd(*args, x, (9, 18))
     assert wa.window_attention_qkv_bias.launches == 0

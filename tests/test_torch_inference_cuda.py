@@ -4,13 +4,16 @@ without a CUDA device): K1's and K3's custom ops (``swin::window_attention_qkv``
 serving artifact on the card: traced to calls of those ops (no plain
 attention or GELU), launching K1 and K3 once a block a call, bit-equal to the
 engine's step; the chunked rollout bit-equal to the stepped one; batch-M
-members against batch-1 steps; a CPB model's export raising on K7. Imports no
-JAX, so it runs on the H100 with ``python -m pytest --noconftest -m cuda
-tests/test_torch_inference_cuda.py``.
+members against batch-1 steps; every route's artifact (K5, K7-K12 through
+their custom ops) bit-equal to the engine's step, and a CUDA + CPU artifact.
+Imports no JAX, so it runs on the H100 with ``python -m pytest --noconftest
+-m cuda tests/test_torch_inference_cuda.py``.
 """
 
+import contextlib
 import datetime
 import math
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from swin_v2_weather_torch.inference.rollout import RolloutEngine
 from swin_v2_weather_torch.models.wrappers import get_model
 from swin_v2_weather_torch.ops import mlp_kernels as mk
 from swin_v2_weather_torch.ops import window_attention as wa
+from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
 START = datetime.datetime(2018, 1, 1, 0, 0)
 
@@ -115,8 +119,69 @@ def test_chunked_rollout_and_batched_members_on_the_card(cuda_device):
         assert diff <= 8 * 2.0 ** (math.floor(math.log2(float(one.abs().max()))) - 7), (i, diff)
 
 
+CPB = {"rel_pos": True, "full_pos_embed": False}
+# route -> (config overrides, (QKV_IMPL, QKV_PAD_HEADS) or None, the custom
+# ops a call of the micro model (depth 2) makes)
+ROUTES = {
+    "cpb": (CPB, None, {"window_attention_qkv_bias": 2, "fc1_gelu": 2}),
+    "grid": ({"attn_impl": "pallas"}, None, {"window_attention_grid": 2, "fc1_gelu": 2}),
+    "grid_cpb": ({"attn_impl": "pallas", **CPB}, None,
+                 {"window_attention_grid_bias": 2, "fc1_gelu": 2}),
+    "v1": ({"attn_impl": "pallas_v1"}, None, {"window_attention_v1": 2, "fc1_gelu": 2}),
+    "v1_cpb": ({"attn_impl": "pallas_v1", **CPB}, None,
+               {"window_attention_v1_bias": 2, "fc1_gelu": 2}),
+    "v6": ({}, ("v6", False), {"window_attention_qkv_padded": 2, "fc1_gelu": 2}),
+    "v5": ({}, ("v5", False), {"window_attention_qkv5": 2, "fc1_gelu": 2}),
+    "v4": ({}, ("v4", False), {"window_attention_qkv4": 2, "fc1_gelu": 2}),
+    "v4_padded": ({}, ("v4", True), {"window_attention_qkv4_padded": 2, "fc1_gelu": 2}),
+    "lnadd": ({"lnadd_impl": "fused", "embed_dim": 128}, None,
+              {"ln_dp_add_fwd": 4, "window_attention_qkv": 2, "fc1_gelu": 2}),
+    "fused2": ({"mlp_impl": "fused2"}, None, {"window_attention_qkv": 2, "mlp_fwd": 2}),
+}
+
+
+@contextlib.contextmanager
+def switched(qkv):
+    if qkv is None:
+        yield
+        return
+    with mock.patch.object(wa, "QKV_IMPL", qkv[0]), \
+            mock.patch.object(v45, "QKV_PAD_HEADS", qkv[1]):
+        yield
+
+
 @pytest.mark.cuda
-def test_cpb_export_raises_naming_k7(cuda_device, tmp_path):
-    engine, _ = micro_engine(cuda_device, rel_pos=True, full_pos_embed=False)
-    with pytest.raises(RuntimeError, match=r"K7 \(window_attention_qkv_bias\)"):
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_every_route_exports_on_the_card(cuda_device, tmp_path, route):
+    """The route's artifact calls its forward kernels' custom ops (no plain
+    attention or GELU) and is bit-equal to the engine's step."""
+    over, qkv, want = ROUTES[route]
+    with switched(qkv):
+        engine, _ = micro_engine(cuda_device, **over)
         export_stepper(engine, str(tmp_path))
+        served = load_stepper(str(tmp_path), device="cuda")
+        calls = [str(n.target) for n in served.program.graph.nodes if n.op == "call_function"]
+        ops = {c.split(".")[1]: calls.count(c) for c in set(calls) if c.startswith("swin.")}
+        assert ops == want and not [c for c in calls if "softmax" in c or "erf" in c]
+        state = torch.from_numpy(ic()).to(cuda_device)
+        zen = torch.from_numpy(engine.zenith_at(START)).to(cuda_device)
+        assert torch.equal(served(state, zen), engine._step(state, zen))
+
+
+@pytest.mark.cuda
+def test_cuda_and_cpu_programs(cuda_device, tmp_path):
+    """``platforms=("cuda", "cpu")``: the CUDA program bit-equal to the
+    engine's step; the CPU program (no custom op) within 8 bf16 ulps of the
+    output scale (the plain versions on the host; chip_smoke.py's
+    MODEL_TOL)."""
+    engine, _ = micro_engine(cuda_device)
+    manifest = export_stepper(engine, str(tmp_path), platforms=("cuda", "cpu"))
+    assert manifest["platforms"] == ["cuda", "cpu"] and manifest["device"] == "cuda"
+    state = torch.from_numpy(ic()).to(cuda_device)
+    zen = torch.from_numpy(engine.zenith_at(START)).to(cuda_device)
+    got = load_stepper(str(tmp_path), "cuda")(state, zen)
+    assert torch.equal(got, engine._step(state, zen))
+    on_cpu = load_stepper(str(tmp_path), "cpu")
+    assert not [n for n in on_cpu.program.graph.nodes if str(n.target).startswith("swin.")]
+    diff = float((on_cpu(state.cpu(), zen.cpu()) - got.cpu()).abs().max())
+    assert diff <= 8 * 2.0 ** (math.floor(math.log2(float(got.abs().max()))) - 7), diff

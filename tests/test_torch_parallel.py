@@ -313,10 +313,21 @@ def trained(tmp_path_factory):
     for name, (dp, switches) in JAX_SHARDED.items():
         (two if dp == 2 else four).append(dict(name=name, weights=weights,
                                                over=dict(JAX_OVER, **switches)))
-    out = launch("train", 2, tmp, timeout=240, name="two", steps=2, common=FP32, variants=two)[0]
-    out.update(launch("train", 4, tmp, timeout=240, name="four", steps=2, common=FP32,
-                      variants=four)[0])
+    out = {}
+    for name, world, variants in (("two", 2, two), ("four", 4, four)):
+        ranks = launch("train", world, tmp, timeout=240, name=name, steps=2, common=FP32,
+                       variants=variants)
+        out.update(ranks[0])  # rank 0's results, and every rank's metrics
+        for r, res in enumerate(ranks):
+            out.update({f"{k}@rank{r}": v for k, v in res.items() if k.endswith("/metrics")})
     return out, jax_runs
+
+
+def rank_metrics(res, variant):
+    """Every rank's metrics of ``variant`` (a row a step), for failure messages."""
+    names = list(res[f"{variant}/metric_names"])
+    return {k.split("@")[1]: [dict(zip(names, row)) for row in v] for k, v in res.items()
+            if k.startswith(f"{variant}/metrics@")}
 
 
 @pytest.mark.parametrize("variant", list(TWO_RANKS) + list(FOUR_RANKS))
@@ -360,10 +371,12 @@ def test_checkpoint_restores_across_rank_counts(trained, variant):
     moments too; the single-process state restores into the mesh's layout
     bit for bit."""
     res, _ = trained
-    assert int(res[f"{variant}/n_to_1_equal"]) == 1
+    assert int(res[f"{variant}/n_to_1_equal"]) == 1, (
+        "first tensor not restored bit for bit: " + str(res[f"{variant}/n_to_1_first_diff"]))
     assert int(res[f"{variant}/n_to_1_moments"]) == len(
         [k for k in res if k.startswith(f"{variant}/param/")])
-    assert int(res[f"{variant}/1_to_n_equal"]) == 1
+    assert int(res[f"{variant}/1_to_n_equal"]) == 1, (
+        "first tensor not restored bit for bit: " + str(res[f"{variant}/1_to_n_first_diff"]))
 
 
 def test_dp2xsp2_step_matches_jax(trained):
@@ -376,7 +389,8 @@ def test_dp2xsp2_step_matches_jax(trained):
     got = dict(zip(names, res["dp2xsp2_jax_weights/metrics"][0]))
     assert set(got) == set(jax_metrics)
     for k, v in jax_metrics.items():
-        assert abs(got[k] - v) <= (1e-3 if k == "loss" else 2e-3) * abs(v), (k, got[k], v)
+        assert abs(got[k] - v) <= (1e-3 if k == "loss" else 2e-3) * abs(v), (
+            k, got[k], v, jax_metrics, rank_metrics(res, "dp2xsp2_jax_weights"))
 
 
 # the single-process trajectory tests' fp32 bounds (tests/test_torch_training.py
@@ -402,7 +416,8 @@ def test_sharded_step_matches_jax(trained, variant):
         assert set(got) == set(want)
         for k, v in want.items():
             rtol = JAX_STEP_RTOL[0] if k == "loss" else JAX_STEP_RTOL[1]
-            assert abs(got[k] - v) <= rtol * abs(v), (i, k, got[k], v)
+            assert abs(got[k] - v) <= rtol * abs(v), (i, k, got[k], v, jax_metrics,
+                                                      rank_metrics(res, variant))
     max_tol, mean_tol, share_tol = JAX_PARAM_TOL
     n_flipped = n_total = 0
     for n, want in jax_params.items():

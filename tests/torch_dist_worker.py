@@ -178,6 +178,17 @@ def _run_steps(model, params, batch, n_steps: int, layout=None, optimizer=None,
     return metrics, grads, params_out, optimizer
 
 
+def _first_diff(got: dict, want: dict) -> str:
+    """The name of the first tensor of ``want`` that ``got`` does not hold bit
+    for bit ("" where all are equal): the failure message's pointer."""
+    return next((n for n in want if n not in got or not torch.equal(got[n], want[n])), "")
+
+
+def _moments(state: dict) -> dict:
+    """{"optimizer/<param index>/<name>": tensor} of ``_optimizer_full``'s dict."""
+    return {f"optimizer/{i}/{k}": v for i in state for k, v in state[i].items()}
+
+
 def _optimizer_full(optimizer) -> dict:
     """{param index: {name: whole tensor}} of the optimizer's state (gathered)."""
     sd = full_state(optimizer.state_dict())
@@ -260,12 +271,15 @@ def job_train(spec, rank):
             one = get_model(single, device="cpu")
             one_opt = build_optimizer(single, one.parameters())
             ckpt.restore_checkpoint(path, one, one_opt, resuming=True)
-            same = all(torch.equal(p, params_out[n]) for n, p in one.named_parameters())
             restored = _optimizer_full(one_opt)
+            got = {n: p.detach() for n, p in one.named_parameters()}
+            want = dict(params_out)
             if full_opt is not None:
-                same = same and all(torch.equal(restored[i][k], full_opt[i][k])
-                                    for i in full_opt for k in full_opt[i])
-            out[f"{tag}/n_to_1_equal"] = np.asarray(int(same))
+                got.update(_moments(restored))
+                want.update(_moments(full_opt))
+            diff = _first_diff(got, want)
+            out[f"{tag}/n_to_1_equal"] = np.asarray(int(diff == ""))
+            out[f"{tag}/n_to_1_first_diff"] = np.asarray(diff)
             out[f"{tag}/n_to_1_moments"] = np.asarray(len(restored))
 
         # 1 -> N: the single-process state restored into a fresh parallel one
@@ -276,12 +290,14 @@ def job_train(spec, rank):
         model2 = get_model(par, device="cpu")
         _, opt2 = shard_state(model2, par, mesh)
         ckpt.restore_checkpoint(path1, model2, opt2, resuming=True)
-        same = all(torch.equal(full_state(p.detach()), ref_params[n])
-                   for n, p in model2.named_parameters())
+        got = {n: full_state(p.detach()) for n, p in model2.named_parameters()}
+        want = dict(ref_params)
         if not var["over"].get("shard_opt_state"):
-            got, want = _optimizer_full(opt2), _optimizer_full(ref_opt)
-            same = same and all(torch.equal(got[i][k], want[i][k]) for i in want for k in want[i])
-        out[f"{tag}/1_to_n_equal"] = np.asarray(int(same))
+            got.update(_moments(_optimizer_full(opt2)))
+            want.update(_moments(_optimizer_full(ref_opt)))
+        diff = _first_diff(got, want)
+        out[f"{tag}/1_to_n_equal"] = np.asarray(int(diff == ""))
+        out[f"{tag}/1_to_n_first_diff"] = np.asarray(diff)
         dist.barrier()
     return out
 
