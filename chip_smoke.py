@@ -76,11 +76,12 @@ printing its own lines:
      against the plain path; one eval step; ms/step, samples/s and peak
      memory on both paths.
  13. the 4-step fine-tune ``..._4step`` (looped rollout, each step's model
-     call under the checkpoint, the block remat nested inside): 2 steps, K1
-     launched 120 times a step (48 forward, 48 in the steps' recompute, 24
-     in the blocks' recompute inside it), K5 96, K2 and K6 48; step 1
-     against the
-     plain path; ms/step and peak memory of the kernel path.
+     call under the checkpoint, the block remat nested inside) at depth 4
+     (``ROUTE_DEPTH``; phase 49 runs the 8-step's loop at depth 12): 2
+     steps, K1 launched 40 times a step (16 forward, 16 in the steps'
+     recompute, 8 in the blocks' recompute inside it), K5 32, K2 and K6
+     16; step 1 against the plain path; ms/step and peak memory of the
+     kernel path.
  14. the depth-24 single-step train step, ``swin_73var_geo_depth24_chweight_invar``
      (whole-MLP route): 3 steps, K1 launched 36 times a step, K2, K5 and K6
      24;
@@ -94,8 +95,8 @@ printing its own lines:
      K3 launched 48 times, K1 never; step 1 against the plain path; ms/step
      and peak memory.
  17. CPB training, the same config, 4 steps with drop-path 0.1 and the CPB
-     meta-MLP's dropout live: K7 forward 18 times a step, K3 24, K7
-     backward and K4 12, K1, K2, K5 and K6 never; step 1 against the plain
+     meta-MLP's dropout live, at depth 4: K7 forward 6 times a step, K3 8,
+     K7 backward and K4 4, K1, K2, K5 and K6 never; step 1 against the plain
      path; every
      parameter moved, ``meta_mlp`` included; ms/step, samples/s and peak on
      both paths.
@@ -127,10 +128,12 @@ printing its own lines:
      memory, registers, local bytes, which must be 0, and resident blocks
      per SM) and its breakdown by torch.profiler (the rows and columns
      kernels, the reductions) beside SDPA's backward.
- 21. the grid route on the flagship (``attn_impl: 'pallas'``): 4 rollout
-     steps (K8 forward and K3 48 times, K1 never), step 1 against the plain
-     path; then 3 train steps with drop-path 0.1 live: K8 forward and K3 24
-     times a step (run again in the backward), K8 backward and K4 12,
+ 21. the grid route on the flagship (``attn_impl: 'pallas'``) at depth 4
+     (phases 21-26, 31, 32, 36 and 42 c run the flagship's route variants
+     at ``ROUTE_DEPTH``): 4 rollout steps (K8 forward and K3 16 times, K1
+     never), step 1 against the plain path; then 3 train steps with
+     drop-path 0.1 live: K8 forward and K3 8 times a step (run again in the
+     backward), K8 backward and K4 4,
      K1/K2/K7/K9 never; step 1 against the plain
      path; every parameter moved; ms/step, samples/s and peak memory.
  22. the grid route with the CPB (``rel_pos: True, full_pos_embed: False``):
@@ -145,7 +148,7 @@ printing its own lines:
  24. the windowed route (``attn_impl: 'pallas_v1'``) as phase 21, on K9.
  25. the windowed route with the CPB, as phase 22, on K9's BIAS instances.
  26. the ``'xla'`` route: one rollout step at full width, no attention kernel
-     launched, K3 12 times, the output finite.
+     launched, K3 4 times, the output finite.
  27. the e2048 widths against their plain versions, timed: K1/K2 at x [1,
      180, 360, 2048], W_qkv [2048, 6144], 8 heads of 256, window 9 x 18 (K1's
      pass at head dim 256 with its breakdown, K2's large-head variant),
@@ -158,11 +161,13 @@ printing its own lines:
      (the image [360, 720]: x [1, 90, 180, 2048], T = 16200), K2's, K8's and
      K9's with their breakdown, beside SDPA's backward at that shape.
  28. e2048 serving, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar`` at
-     full size (720 x 1440, embed 2048, depth 24): 2 rollout steps, K1 and K5
-     24 times a step, K3 never, output finite, step 1 against the plain path.
- 29. e2048 training at full width and depth at the image [360, 720] (window
-     ratio 40: window 9 x 18 on 90 x 180 tokens, L = 162): 2 steps with
-     drop-path 0.1; under 'full' K1 and K5 48 times a step, K2 and K6 24;
+     full size (720 x 1440, embed 2048) cut to depth 6 (``E2048_DEPTH``,
+     its whole-MLP route kept; phases 28, 29, 34 and 42 a): 2 rollout
+     steps, K1 and K5 6 times a step, K3 never, output finite, step 1
+     against the plain path.
+ 29. e2048 training at full width at the image [360, 720] (window ratio 40:
+     window 9 x 18 on 90 x 180 tokens, L = 162), depth 6: 2 steps with
+     drop-path 0.1; under 'full' K1 and K5 12 times a step, K2 and K6 6;
      step 1 against the
      plain path; every parameter moved; ms/step and peak memory.
  30. K10, the v6 padded-head kernels, forward and backward against their
@@ -170,13 +175,14 @@ printing its own lines:
      96, padded to 128), shifted: out's pad lanes and dWp's / dbp's pad
      columns exactly zero (g's pad lanes random); two backward calls
      bit-equal; timed beside K1/K2 of phases 3 and 7.
- 31. the flagship with ``QKV_IMPL = 'v6'``: 4 rollout steps, then 3 train
-     steps; K10 forward 12 times a rollout step and 18 a train step,
-     backward 12, K1/K2 never; step 1
+ 31. the flagship with ``QKV_IMPL = 'v6'`` at depth 4: 4 rollout steps, then
+     3 train steps; K10 forward 4 times a rollout step and 6 a train step,
+     backward 4, K1/K2 never; step 1
      against the plain path; ms/step, samples/s and peak memory.
- 32. the flagship with ``QKV_BWD_IMPL = 'xla'``: 3 train steps, K1 18 and
-     K8's backward 12 times a step, K2 never; then 2 CPB train steps: K7's
-     forward 18 and K8's BIAS backward 12 times a step, K7's backward never;
+ 32. the flagship with ``QKV_BWD_IMPL = 'xla'`` at depth 4: 3 train steps,
+     K1 6 and K8's backward 4 times a step, K2 never; then 2 CPB train
+     steps: K7's forward 6 and K8's BIAS backward 4 times a step, K7's
+     backward never;
      step 1 of
      each against the plain path.
  33. K8 and K9 (bias-free and BIAS) at head dims 128 (8 heads, C = 1024)
@@ -188,9 +194,10 @@ printing its own lines:
      20's launch report (and phase 23's for K9's backward) and each
      backward's breakdown by torch.profiler (K9's q/k prepass, the rows and
      columns kernels, the d(scale) and d(bias) reductions).
- 34. the e2048 family at [360, 720] on ``attn_impl: 'pallas'`` and then
-     ``'pallas_v1'``: 2 train steps each under 'full', K8 (or K9) forward
-     and K5 48 times a step, their backwards 24; step 1 against the plain
+ 34. the e2048 family at [360, 720], depth 6, on ``attn_impl: 'pallas'`` and
+     then ``'pallas_v1'``: 2 train steps each under 'full', K8 (or K9)
+     forward and K5 12 times a step, their backwards 6; step 1 against the
+     plain
      path; every
      parameter moved; ms/step and peak memory.
  35. K12 at the flagship shape (x [1, 180, 360, 768], W_qkv [768, 2304], 8
@@ -200,11 +207,12 @@ printing its own lines:
      lanes and pad columns exactly zero; two backward calls bit-equal; timed
      beside K1/K2 of phases 3 and 7.
  36. the flagship with ``QKV_IMPL`` 'v5', 'v4', then 'v4' with
-     ``QKV_PAD_HEADS``: 2 rollout steps and 3 train steps each, the selected
-     K12 kernel's forward 12 times a rollout step and 18 a train step, its
-     backward 12, K1/K2 never; step 1 against the plain path; ms/step,
-     samples/s and peak memory; then two CPB train steps with ``QKV_IMPL =
-     'v4'``: K7 forward 18 and backward 12 times a step, K12 never.
+     ``QKV_PAD_HEADS``, at depth 4: 2 rollout steps and 3 train steps each,
+     the selected K12 kernel's forward 4 times a rollout step and 6 a train
+     step, its backward 4, K1/K2 never; step 1 against the plain path;
+     ms/step, samples/s and peak memory; then two CPB train steps with
+     ``QKV_IMPL = 'v4'``: K7 forward 6 and backward 4 times a step, K12
+     never.
  37. K13: ``consume`` bit-exact to its plain version at [3, 1, 400, 8, 168,
      96], timed beside ``torch.sum(s, 0)``; then the prestage probe
      (``swin_v2_weather_torch.scripts.prestage_probe.probe``): the round trip
@@ -231,12 +239,14 @@ printing its own lines:
      torch.profiler.
  40. the Trainer end to end (``swin_v2_weather_torch.training.trainer``), the
      way a user trains, in a temporary directory under the checkout's
-     ``runs/`` (removed at the end): the flagship at full width, synthetic
-     data (4 train and 4 validation samples an epoch, batch 1), drop-path
+     ``runs/`` (removed at the end): the flagship at full width cut to
+     depth 4 (``TRAINER_DEPTH``, with phases 41 and 44, which use its run;
+     the synthetic loader paces its steps), synthetic data (4 train and 4
+     validation samples an epoch, batch 1), drop-path
      0.1, checkpoints on, through ``Trainer(...).build_and_launch()`` for 2
      epochs: 2 finite ``logs.jsonl`` lines with ``valid_rmse_u10m``,
-     ``ckpt``, ``best_ckpt`` and ``hyperparams.yaml`` written, K1 18, K3
-     24, K2 and K4 12 times a train step (the config's 'mlp3') and K1/K3 12
+     ``ckpt``, ``best_ckpt`` and ``hyperparams.yaml`` written, K1 6, K3
+     8, K2 and K4 4 times a train step (the config's 'mlp3') and K1/K3 4
      times a validation step (nothing checkpointed with grad mode off; K5/K6
      never, the GEMM core as ``check_core`` implies), no plain version
      called, every parameter moved from the Trainer's seeded initialization,
@@ -245,22 +255,23 @@ printing its own lines:
      checkpoint's save-blocking and background-write ms. Then the resume
      (``max_epochs: 3``: the log names ``ckpt``, the run continues at epoch
      2), timed by CUDA events over the epoch's steps after the first (the
-     Trainer's ms/step, loader waits included, beside phase 10's bare step);
+     Trainer's ms/step, loader waits included);
      a run preempted at step 2 of epoch 0 by an injected trigger, resumed,
      whose final parameters must be bit-equal to the first run's, with a
      torch.profiler window over 3 of its steps (the device's idle share, as
-     chip_profile.py computes it); one epoch of the 2-step fine-tune from the
+     chip_profile.py computes it, and its busy ms a step, which the loader's
+     ms/batch is set beside); one epoch of the 2-step fine-tune from the
      first run's ``best_ckpt`` (``finetune: true``: the weights, and only
-     the weights, loaded; K1 36, K2, K5 and K6 24 times a train step, K1/K5
-     24 a validation step, K3/K4 never); the loader alone on the host (ms/batch
+     the weights, loaded; K1 12, K2, K5 and K6 8 times a train step, K1/K5
+     8 a validation step, K3/K4 never); the loader alone on the host (ms/batch
      over an epoch of 5, and one sample on one thread); one batch's H2D copy
      from the pinned ring and from pageable memory; and one epoch on a
      full-resolution ERA5-shaped archive (2 yearly files of 3 samples,
      [73, 721, 1440]) that ``data/hdf5.create_contiguous`` writes frame by
      frame (no h5py on the card's machine), through ``data_loader_config:
      threaded`` and the native reader (its file probe the pure-numpy HDF5
-     reader): K1 18, K3 24, K2 and K4 12 launches a train step and K1/K3 12
-     a validation step, no plain version, finite logs; its ms/step (CUDA
+     reader): K1 6, K3 8, K2 and K4 4 launches a train step and K1/K3 4 a
+     validation step, no plain version, finite logs; its ms/step (CUDA
      events), idle share (torch.profiler over 3 steps), peak memory and the
      ERA5 loader's ms/batch alone. Its numbers, with the card, in one
      ``{"trainer": {...}}`` JSON line.
@@ -271,7 +282,7 @@ printing its own lines:
      registry); ``score_rollout`` over 8 steps from 2018-01-01T00:00 on
      seeded targets, host-stepped and chunked (chunk 4): RMSE and ACC [8,
      73] finite and bit-equal, the chunked predictions bit-equal to the
-     stepped ones, K1 and K3 12 x 8 times each (the GEMM core as
+     stepped ones, K1 and K3 4 x 8 times each (the GEMM core as
      ``check_core`` implies), step 1 against the plain path, and a scored
      step's parts (the host's zenith, the target's copy from pageable
      memory, the step and the scoring on the device); ``write_forecast``
@@ -279,42 +290,43 @@ printing its own lines:
      to the stepped predictions denormalized on the host, JAX's metadata);
      an ensemble of M = 5 (two pairs), Gaussian and bred (one cycle at batch
      3), each through ``score_ensemble`` over 4 steps with chunk 2 (every
-     key finite, spread positive, K1 and K3 12 a step at batch 5), the
+     key finite, spread positive, K1 and K3 4 a step at batch 5), the
      batch-5 step's members against batch-1 steps and the batch against the
      plain path, and the batch-5 step's parts (the step, CRPS and spread);
      ``export_stepper`` (the graph calls
-     ``swin::window_attention_qkv`` and ``swin::fc1_gelu`` 12 times each and
+     ``swin::window_attention_qkv`` and ``swin::fc1_gelu`` 4 times each and
      no plain attention or GELU), ``load_stepper`` in this process (K1/K3
-     12 launches a call, output bit-equal to the engine's step; ms/step
+     4 launches a call, output bit-equal to the engine's step; ms/step
      beside the engine's, CUDA events) and in a fresh process that imports
      no model module (bit-equal, launches, ms/step); the CLI's
      ``--export-stepper`` (``--device cuda`` by default) and its scoring leg
      with ``--ensemble 3`` on an ERA5-shaped archive written by
      ``hdf5.create_contiguous`` and read through the native reader (K1/K3
-     12 a step at batch 3, finite scores). Its numbers, with the card, in
+     4 a step at batch 3, finite scores). Its numbers, with the card, in
      one ``{"inference": {...}}`` JSON line.
  42. the training options the configs ask for, on one card, after a line
      with the memory the earlier phases still hold (allocated, and the
      largest CUDA tensors the garbage collector reaches). (a) The e2048
-     family, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar``, exactly
-     as written (720 x 1440, ``shard_params: True``, a no-op on one
-     process, ``remat_policy: 'full'``, drop-path 0.1) through phase 9's
-     calls: 3 steps, K1 and K5 48 times a step, K2 and K6 24, finite
+     family, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar``, as
+     written but cut to depth 6 (``E2048_DEPTH``; 720 x 1440,
+     ``shard_params: True``, a no-op on one process, ``remat_policy:
+     'full'``, drop-path 0.1) through phase 9's calls: 3 steps, K1 and K5
+     12 times a step, K2 and K6 6, finite
      metrics, every parameter moved, step 1 against the plain path, ms/step
      and peak memory; then two steps of the same config under its remat
      and with ``activation_ckpt: false``: the second step's peak memory at
      the end of its forward, backward and optimizer step, or the stage
      where it ran out of memory (a measurement, not a check). (b) The
-     flagship at full
-     size from the same weights and batch without remat (twice), under
+     flagship at full width, cut to depth 4 (``REMAT_DEPTH``), from the
+     same weights and batch without remat (twice), under
      'full', 'attn', 'mlp' and 'mlp3', and with ``mlp_impl: 'plain'``
      without remat and under 'mlp_fc1': 2 steps each, the gradients of both
      steps (copied to the host) bit-equal to the unrematted model's of the
      same MLP route, the
-     launches a step (K1 24 and K3 24 under 'full' and 'attn', K1 18 and K3
-     24 under 'mlp' and 'mlp3', K1 18 under 'mlp_fc1'), ms/step and peak
+     launches a step (K1 8 and K3 8 under 'full' and 'attn', K1 6 and K3 8
+     under 'mlp' and 'mlp3', K1 6 under 'mlp_fc1'), ms/step and peak
      memory (phases 35 and 39 free their operands, so the card holds
-     nothing of theirs here). (c) LAMB (``optimizer_type: 'lamb'``) on the flagship: 3
+     nothing of theirs here). (c) LAMB (``optimizer_type: 'lamb'``) on the flagship at depth 4: 3
      steps, finite, every parameter moved, ms/step. (d) The H1 loss (the
      ``'h1'`` word) of the flagship's prediction for one batch on the card
      against the same tensors' loss on the CPU in fp64 (relative bound
@@ -354,13 +366,13 @@ printing its own lines:
  44. the JAX checkpoint interchange (``training/interchange.py``) at full
      width: phase 40's epoch-2 checkpoint (kept before its resume) exported
      by ``checkpoint_to_jax`` in JAX's scanned layout (the blocks stacked as
-     6 pairs) and imported back by ``checkpoint_from_jax``; the flagship
-     Trainer resumes one epoch from the import (K1 18, K3 24, K2/K4 12 a
-     train step, K1/K3 12 a validation step, no plain version) and its
+     2 pairs at depth 4) and imported back by ``checkpoint_from_jax``; the
+     flagship Trainer resumes one epoch from the import (K1 6, K3 8, K2/K4
+     4 a train step, K1/K3 4 a validation step, no plain version) and its
      epoch-3 checkpoint must be bit-equal, every tensor and counter, to the
      one phase 40's resume of its own checkpoint wrote; then
      ``registry_to_jax`` -> ``registry_from_jax`` -> ``load_model`` on a
-     registry of phase 40's run: one served step (K1/K3 12 launches)
+     registry of phase 40's run: one served step (K1/K3 4 launches)
      bit-equal to the original registry's. Its numbers, with the card, in
      one ``{"interchange": {...}}`` JSON line. (The orbax files themselves
      are written and read by ``orbax_bridge.py`` where JAX is installed; the
@@ -370,10 +382,10 @@ printing its own lines:
      grid route with and without the CPB (K8), the windowed route likewise
      (K9), v6 (K10), v5, v4 and padded v4 (K12), ``lnadd_impl: 'fused'``
      (K11, K1, K3), each the flagship at depth 4, then the 2-step
-     fine-tune's single-step model (K5, K1; depth 12) and the e2048
-     flagship as written (K1 at head dim 256, K5 at 2048 -> 4096 -> 2048,
-     depth 24; its 3.8 GB artifact in the run's directory under ``runs/``,
-     each artifact removed after its checks). For each: ``export_stepper``
+     fine-tune's single-step model (K5, K1) and the e2048 flagship (K1 at
+     head dim 256, K5 at 2048 -> 4096 -> 2048), each also at depth 4 (the
+     artifacts in the run's directory under ``runs/``, each removed after
+     its checks). For each: ``export_stepper``
      (no kernel launched while tracing) and ``load_stepper`` in this
      process, timed, and the artifact's bytes; the graph calls exactly the
      route's ``swin::`` ops, as many times as the route launches them, and
@@ -388,6 +400,42 @@ printing its own lines:
      and each new op's host us a call at the flagship shapes, direct and
      through the op (both bit-equal). Its numbers, with the card, in one
      ``{"served_routes": {...}}`` JSON line.
+ 46. train-mode dropout (JAX's ``nn.Dropout`` sites; ``SwinTransformerV2``
+     built with ``proj_drop_rate`` 0.1 and ``attn_drop_rate`` 0, as only
+     direct construction sets them) on the flagship at full width under
+     its 'mlp3': 3 steps with the launches of phase 9 (K1 18, K2 12, K3 24,
+     K4 12 a step), every dropout mask's kept share within ``KEEP_SIGMAS``
+     standard deviations of 0.9 (each site's mask of each call, recomputed
+     ones included), step 1 against the plain path (the same generator
+     seed, so the same masks), the 3 steps again from the same weights and
+     seed bit-equal (metrics and every parameter), one eval step (K1 and K3
+     12), ms/step and peak memory; then phase 42 b's runs with the same
+     dropout at depth 4: every policy's gradients bit-equal to no remat.
+ 47. attention dropout too (``attn_drop_rate`` 0.1): JAX's gate sends every
+     block's attention to the window partition, the qkv Dense and the
+     plain fp32 attention in train mode, so 3 steps launch no K1 or K2
+     (K3 24, K4 12 a step); the masks' kept shares, step 1 against the plain
+     path, the rerun bit-equal; the eval step after it launches K1 and K3
+     12 times (eval mode keeps the kernels); ms/step and peak memory.
+ 48. the 2-step fine-tune with ``proj_drop_rate`` 0.1: the fc1 dropout moves
+     the MLP from K5/K6 to K3/K4 (JAX's ``Mlp`` condition reads the rate,
+     so its eval step too): 2 steps, K1 36, K2 24, K3 48, K4 24 a step, the
+     eval step K1 and K3 24; the kept shares, step 1 against the plain
+     path; ms/step and peak memory.
+ 49. the 8-step fine-tune ``..._8step`` (looped rollout, each step's model
+     call under its checkpoint, the block remat nested inside): 2 steps,
+     K1 240 a step (96 forward, 96 in the steps' recompute, 48 in the
+     blocks' recompute inside it), K5 192, K2 and K6 96; step 1 against the
+     plain path; ms/step and peak memory.
+ 50. the ``'xla'`` route's train step (the windowed route in plain ops, the
+     route JAX's factory builds for a config without ``attn_impl``): 3
+     steps, no attention kernel, K3 24 and K4 12 a step; step 1 against
+     the plain path; one eval step (K3 12); ms/step and peak memory.
+     Phases 46-50's numbers, with the card, in one
+     ``{"dropout_and_owed_paths": {...}}`` JSON line.
+
+Each phase's wall seconds print as it ends (``[n] ... s (phase clock)``)
+and together in one ``{"phase_seconds": {...}}`` line before the kernels'.
 
 Phases 18 and 27 also time K11's streamed-row instance (at [64800, 3072])
 and K7's plain versions at e2048.
@@ -412,6 +460,9 @@ steps' launches included; phase 42's as ``train_e2048_full``,
 as ``inference`` (the scored rollout),
 ``ensemble`` (batch 5) and ``served_stepper`` (one call of the artifact);
 phase 45's as ``served_<route>`` (one call of each route's artifact);
+phases 46-50's as ``train_dropout``, ``remat_dropout_<policy>``,
+``train_dropout_attn``, ``train_2step_dropout``, ``train_8step`` and
+``train_xla``;
 K11's streamed rows under its entries' ``streamed`` key; the e2048
 train steps' kernels at those steps' shape under ``train_shape``), the launches on every
 path and per step, the largest abs
@@ -461,6 +512,7 @@ CONFIG = "swin_73var_geo_depth12_chweight_invar"
 CONFIG_2STEP = "swin_73var_geo_depth12_chweight_invar_2step"
 EPOCH2_CKPT = "ckpt_epoch2"  # phase 40's first checkpoint, kept for phase 44
 CONFIG_4STEP = "swin_73var_geo_depth12_chweight_invar_4step"
+CONFIG_8STEP = "swin_73var_geo_depth12_chweight_invar_8step"
 CONFIG_DEPTH24 = "swin_73var_geo_depth24_chweight_invar"
 # bench.py's cpb_rel_pos row: the flagship with the CPB bias instead of the
 # full position embedding (K7's path)
@@ -469,6 +521,16 @@ LNADD = {"lnadd_impl": "fused"}  # the fused post-norm branches (K11's path)
 GRID_ROUTE = {"attn_impl": "pallas"}  # the grid route (K8's path)
 V1_ROUTE = {"attn_impl": "pallas_v1"}  # the windowed route (K9's path)
 XLA_ROUTE = {"attn_impl": "xla"}  # the windowed route in plain ops (no attention kernel)
+# depths of the paths cut to fit the script's time limit: the e2048 family
+# (24 as written; at depth <= 12 the factory would pick the fc1+GELU MLP, so
+# the cut keeps the written config's whole-MLP route), phase 42 b's and 46's
+# remat policies, and the flagship's route variants (ROUTE_DEPTH)
+E2048_DEPTH = {"depth": 6, "mlp_impl": "fused2"}
+REMAT_DEPTH = {"depth": 4}
+ROUTE_DEPTH = {"depth": 4}
+# phases 40, 41 and 44: the Trainer's flagship and everything built from its
+# run (its synthetic loader, not the depth, paces its steps)
+TRAINER_DEPTH = {"depth": 4}
 CONFIG_E2048 = "swin_73var_geo_depth24_e2048_mlp2_chweight_invar"
 # the e2048 train step at the image [360, 720]: window 9 x 18 on 90 x 180
 # tokens, so L = 162 as at full size (where shared memory bites)
@@ -525,6 +587,10 @@ LN_TOL = {"out": (1.0, 0.01), "dz": (1.0, 0.01), "dgamma": (2.0, 0.05), "dbeta":
 # where it is not bit-equal: its parameters are views into its all-gather
 # buffer, another alignment of the same products.
 SPATIAL_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "grad": 2e-2}
+# a dropout mask's kept share lies within this many binomial standard
+# deviations of 1 - rate (each mask: one sample's elements at one site)
+KEEP_SIGMAS = 5.0
+DROPOUT_RATE = 0.1  # phases 46-48: proj (and attn) dropout
 
 
 def log(msg: str) -> None:
@@ -698,17 +764,36 @@ def train_params(config: str, overrides: dict = None):
 _SAMPLES, _WEIGHTS = {}, {}
 
 
-def seeded_model(params, dev, seed: int, weights_on=None):
+@contextlib.contextmanager
+def dropout_rates(rates):
+    """While it is open, ``get_model`` builds its ``SwinTransformerV2`` with
+    ``rates`` = (proj_drop_rate, attn_drop_rate) (None: the defaults, 0):
+    only direct construction sets them, as in JAX, whose factory reads
+    neither."""
+    if rates is None:
+        yield
+        return
+    import functools
+
+    from swin_v2_weather_torch.models import swin
+
+    with mock.patch.object(swin, "SwinTransformerV2", functools.partial(
+            swin.SwinTransformerV2, proj_drop_rate=rates[0], attn_drop_rate=rates[1])):
+        yield
+
+
+def seeded_model(params, dev, seed: int, weights_on=None, dropout=None):
     """``get_model(params)`` on ``dev`` with every parameter drawn by
     ``seeded_parameters`` from a generator on ``weights_on`` (the CPU unless
-    given) seeded ``seed``. The model is built under ``dev``: its default
-    initialization, which the draws overwrite, runs on the card. The host's
-    draws are kept per parameter layout and seed, so a model of the same
-    layout gets the same bits without drawing them again."""
+    given) seeded ``seed``, and the dropout rates ``dropout`` (proj, attn) or
+    none. The model is built under ``dev``: its default initialization,
+    which the draws overwrite, runs on the card. The host's draws are kept
+    per parameter layout and seed, so a model of the same layout gets the
+    same bits without drawing them again."""
     from swin_v2_weather_torch.models.wrappers import get_model
     from swin_v2_weather_torch.training.trainer import seeded_parameters
 
-    with torch.device(dev):
+    with torch.device(dev), dropout_rates(dropout):
         model = get_model(params, device=dev)
     gen_on = torch.device(weights_on or "cpu")
     if gen_on.type != "cpu":
@@ -868,7 +953,22 @@ class LogCapture(logging.Handler):
         self.logger.setLevel(self.level)
 
 
-def trainer_and_inference_phases(dev, card: str, counted, gemm, bare_step_ms: float):
+class PhaseClock:
+    """Each phase's wall seconds: ``mark(tag)`` ends the phase that the last
+    mark began (a line ``[tag] ... s (phase clock)``) and begins ``tag``."""
+
+    def __init__(self):
+        self.seconds, self.tag, self.t = {}, None, time.time()
+
+    def mark(self, tag) -> None:
+        now = time.time()
+        if self.tag is not None:
+            self.seconds[self.tag] = round(self.seconds.get(self.tag, 0.0) + now - self.t, 1)
+            log(f"[{self.tag}] {now - self.t:.1f} s (phase clock)")
+        self.tag, self.t = tag, now
+
+
+def trainer_and_inference_phases(dev, card: str, counted, gemm):
     """Phase 40, the flagship and its 2-step fine-tune through the port's
     ``Trainer`` at full width, then phase 41, the user journey from phase
     40's run to a scored forecast and a served artifact (module docstring).
@@ -884,12 +984,12 @@ def trainer_and_inference_phases(dev, card: str, counted, gemm, bare_step_ms: fl
     os.makedirs(runs, exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=runs)
     atexit.register(shutil.rmtree, root, True)
-    paths, exp_dir = _trainer_phase(root, dev, card, counted, gemm, bare_step_ms)
+    paths, exp_dir = _trainer_phase(root, dev, card, counted, gemm)
     paths.update(inference_phase(root, exp_dir, dev, card, counted, gemm))
     return paths, root, exp_dir
 
 
-def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
+def _trainer_phase(root, dev, card, counted, gemm):
     import collections
     import shutil
 
@@ -905,7 +1005,7 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     def params_for(config=CONFIG, **over):
         p = YParams(default_config_path(), config)
         base = dict(exp_dir=root, data_loader_config="synthetic", n_synthetic_samples=n_samples,
-                    max_epochs=n_epochs, batch_size=1, save_checkpoint=True)
+                    max_epochs=n_epochs, batch_size=1, save_checkpoint=True, **TRAINER_DEPTH)
         for key, val in {**base, **over}.items():
             p[key] = val
         return p
@@ -1060,9 +1160,8 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
     out["trainer_epoch_s"] = lines[-1]["train_time"]
     log(f"  resume: '{want}', continued at epoch {n_epochs} (step {n_train}), logged epoch "
         f"{lines[-1]['epoch']}; Trainer {out['trainer_ms']:.2f} ms/step (CUDA events over "
-        f"the epoch's steps after the first; prefetch and loader waits included) against the "
-        f"bare step's {bare_step_ms:.2f} ms/step (phase 10); the epoch's {n_samples} steps "
-        f"{out['trainer_epoch_s']:.2f} s on the host clock ({card})")
+        f"the epoch's steps after the first; prefetch and loader waits included); the epoch's "
+        f"{n_samples} steps {out['trainer_epoch_s']:.2f} s on the host clock ({card})")
     del t2, spans, step_fn
     torch.cuda.empty_cache()
 
@@ -1113,6 +1212,7 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
         f"uninterrupted first run's (drop-path {probe.drop_path_rate} live)")
     busy = device_busy_ms(window["prof"])
     out["idle_share"] = 1.0 - busy / window["wall_ms"]
+    out["device_step_ms"] = busy / 3
     log(f"  idle share over 3 Trainer steps: {out['idle_share']:.4f} (device busy {busy / 3:.2f} "
         f"of {window['wall_ms'] / 3:.2f} ms/step wall, torch.profiler, copies included; {card})")
     del t4, final1, window
@@ -1184,10 +1284,11 @@ def _trainer_phase(root, dev, card, counted, gemm, bare_step_ms):
         f"({n_bytes / out['h2d_pinned_ms'] / 1e6:.2f} GB/s), pageable {out['h2d_pageable_ms']:.2f} "
         f"ms ({n_bytes / out['h2d_pageable_ms'] / 1e6:.2f} GB/s); host clock around the copies "
         f"and a synchronize ({card})")
-    bound_by = "the loader" if out["loader_ms"] > bare_step_ms else "the device step"
-    log(f"  where the Trainer's time goes: {out['trainer_ms']:.2f} ms/step against the bare "
-        f"step's {bare_step_ms:.2f} and the loader's {out['loader_ms']:.1f} ms/batch: bound by "
-        f"{bound_by} on synthetic data ({card})")
+    bound_by = "the loader" if out["loader_ms"] > out["device_step_ms"] else "the device step"
+    log(f"  where the Trainer's time goes: {out['trainer_ms']:.2f} ms/step against the "
+        f"device's busy {out['device_step_ms']:.2f} ms a step (torch.profiler, above) and the "
+        f"loader's {out['loader_ms']:.1f} ms/batch: bound by {bound_by} on synthetic data "
+        f"({card})")
     out["bound_by"] = bound_by
 
     # ---- ERA5 on the card: a full-resolution archive, the native reader ------
@@ -1313,7 +1414,8 @@ def interchange_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
     def params_for(**over):
         p = YParams(default_config_path(), CONFIG)
         base = dict(exp_dir=root, data_loader_config="synthetic", n_synthetic_samples=n_samples,
-                    max_epochs=n_epochs + 1, batch_size=1, save_checkpoint=True)
+                    max_epochs=n_epochs + 1, batch_size=1, save_checkpoint=True,
+                    **TRAINER_DEPTH)
         for key, val in {**base, **over}.items():
             p[key] = val
         return p
@@ -1801,10 +1903,9 @@ def inference_phase(root, exp_dir, dev, card, counted, gemm) -> dict:
 
 
 # phase 45: the served artifact of every route. tag -> (config, overrides,
-# (QKV_IMPL, QKV_PAD_HEADS) or None, {forward launcher: launches a call}).
-# The flagship's route variants run at depth 4 (the script's time limit);
-# the 2-step fine-tune's single-step model and the e2048 flagship as written.
-ROUTE_DEPTH = {"depth": 4}
+# (QKV_IMPL, QKV_PAD_HEADS) or None, {forward launcher: launches a call}),
+# each at ROUTE_DEPTH (the script's time limit; the e2048 flagship keeps its
+# whole-MLP route, as E2048_DEPTH does).
 SERVED_ROUTES = {
     "cpb": (CONFIG, {**CPB, **ROUTE_DEPTH}, None, {"window_attention_qkv_bias": 4,
                                                    "fc1_gelu": 4}),
@@ -1824,9 +1925,11 @@ SERVED_ROUTES = {
                                                       "fc1_gelu": 4}),
     "lnadd": (CONFIG, {**LNADD, **ROUTE_DEPTH}, None,
               {"ln_dp_add_fwd": 8, "window_attention_qkv": 4, "fc1_gelu": 4}),
-    # the 2-step fine-tune's single-step model: the whole-MLP route (K5)
-    "2step": (CONFIG_2STEP, {}, None, {"window_attention_qkv": 12, "mlp_fwd": 12}),
-    "e2048": (CONFIG_E2048, {}, None, {"window_attention_qkv": 24, "mlp_fwd": 24}),
+    # the 2-step fine-tune's single-step model: the whole-MLP route (K5); and
+    # the e2048 flagship (K1 at head dim 256, K5 at 2048 -> 4096 -> 2048)
+    "2step": (CONFIG_2STEP, ROUTE_DEPTH, None, {"window_attention_qkv": 4, "mlp_fwd": 4}),
+    "e2048": (CONFIG_E2048, {**ROUTE_DEPTH, "mlp_impl": "fused2"}, None,
+              {"window_attention_qkv": 4, "mlp_fwd": 4}),
 }
 
 
@@ -2226,6 +2329,7 @@ def main() -> None:
     from swin_v2_weather_torch.training.trainer import seeded_parameters
 
     t_start = time.time()
+    clock = PhaseClock()  # each phase's seconds, printed as it ends
     dev = torch.device("cuda", 0)
     qkv_wrappers = (wa.window_attention_grid, wa.window_attention_grid_bwd,
                     wa.window_attention_grid_bias, wa.window_attention_grid_bias_bwd,
@@ -2240,6 +2344,7 @@ def main() -> None:
                *qkv_wrappers, wa.window_attention_qkv_padded, wa.window_attention_qkv_padded_bwd,
                *k12_wrappers, ps.consume)
 
+    clock.mark("1")
     # ---- 1. versions and card ------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2253,6 +2358,7 @@ def main() -> None:
     log(f"    device 0: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible; "
         "TF32 off (matmul, cudnn)")
 
+    clock.mark("2")
     # ---- 2. build --------------------------------------------------------------
     t0 = time.time()
     lib_path = _build.build_library()
@@ -2285,6 +2391,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results, yardstick, host_calls = {}, {}, {}
 
+    clock.mark("3")
     # ---- 3. K1 window attention at flagship shapes ---------------------------
     b, gh, gw, c, heads, window = 1, 180, 360, 768, 8, (9, 18)
     shift = (window[0] // 2, window[1] // 2)
@@ -2333,6 +2440,7 @@ def main() -> None:
         2 * t_tok * c * 3 * c + attn_flops, nbytes(x, w16, b_qkv, scale, out)))
     del x, out, ref
 
+    clock.mark("4")
     # ---- 4. K3 fc1 + GELU at flagship shapes ---------------------------------
     hidden = 4 * c
     x2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
@@ -2364,6 +2472,7 @@ def main() -> None:
         f"{host_calls['fc1_gelu']['custom_op_us']:.1f} us")
     del x2, out, ref
 
+    clock.mark("5")
     # ---- 5. flagship serving through get_model + RolloutEngine ---------------
     params = YParams(default_config_path(), CONFIG)
     n_in, n_out = derived_channel_counts(params)
@@ -2414,6 +2523,7 @@ def main() -> None:
         raise RuntimeError("the plain path launched a kernel")
     compare("step 1 kernel path vs plain path", torch.from_numpy(preds[0]), plain1.cpu(), MODEL_TOL)
 
+    clock.mark("6")
     # ---- 6. rollout ms/step on both paths ------------------------------------
     def rollout_ms(n: int = 3) -> float:
         steps = engine.steps(state0, START, n + 1)
@@ -2439,6 +2549,7 @@ def main() -> None:
     serve_launches = {**launches, "gemm": serve_core}
     del engine, model, preds, plain1, state, back
 
+    clock.mark("7")
     # ---- 7. K2 window-attention backward at flagship shapes ------------------
     x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
     g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
@@ -2474,6 +2585,7 @@ def main() -> None:
         nbytes(x, w16, b_qkv, scale, g, *out)))
     del x, g, out, ref, again
 
+    clock.mark("8")
     # ---- 8. K4 fc1 backward (pre-activation cotangent) at flagship shapes ----
     x2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
     g2 = torch.randn((t_tok, hidden), generator=gen, device=dev).bfloat16()
@@ -2498,6 +2610,7 @@ def main() -> None:
     del x2, g2, out, ref, w1, b1, w1_16, w_qkv, w16, b_qkv, scale
     torch.cuda.empty_cache()
 
+    clock.mark("9-10")
     # ---- 9-10, 12-14: train paths ---------------------------------------------
     from swin_v2_weather_torch.data.preprocess import Preprocessor
     from swin_v2_weather_torch.ops.losses import LossHandler
@@ -2539,24 +2652,31 @@ def main() -> None:
 
     def train_path(tag: str, config: str, n_steps: int, per_step: dict, plain_step1: bool = True,
                    eval_step: bool = False, n_timed: int = 3, plain_timed: bool = False,
-                   overrides: dict = None, weights_on=None):
+                   overrides: dict = None, weights_on=None, dropout=None, rerun: bool = False,
+                   eval_want: dict = None):
         """Drive one train path: get_model -> LossHandler -> Preprocessor ->
         build_optimizer -> build_train_step, n_steps steps from seeded
         parameters (drawn on ``weights_on``, the CPU unless given), each
         kernel launched per_step[name] times a step (0 if absent), finite
         metrics, every parameter moved; then step 1 against the plain path,
-        an eval step, and ms/step and peak memory. Returns the launches of
-        the n_steps steps and the kernel path's ms/step."""
+        an eval step (its launches ``eval_want`` where given), and ms/step and
+        peak memory. ``dropout`` (proj, attn) builds the model with those
+        rates: every dropout mask's kept share is then checked (within
+        ``KEEP_SIGMAS`` standard deviations of 1 - rate); with ``rerun`` the
+        n_steps steps run again from the same weights and generator seed and
+        must give the same metrics and parameters bit for bit. Returns the
+        launches of the n_steps steps and the kernel path's ms/step."""
         params = train_params(config, overrides)
-        model = seeded_model(params, dev, SEED + 1, weights_on)
+        model = seeded_model(params, dev, SEED + 1, weights_on, dropout)
         init = {n: p.detach().clone() for n, p in model.named_parameters()}
         loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
         batch = synthetic_batch(params, dev)
         n_future = int(params.n_future)
         log(f"{tag} train step: {config} {overrides or ''}, depth {params.depth}, "
             f"{sum(p.numel() for p in model.parameters())} parameters, n_future {n_future} "
-            f"({type(model).__name__}), drop_path_rate {params.drop_path_rate}, loss "
-            f"'{params.loss}', {params.optimizer_type} lr {float(params.lr)}, batch 1 "
+            f"({type(model).__name__}), drop_path_rate {params.drop_path_rate}, dropout "
+            f"(proj, attn) {dropout or (0.0, 0.0)}, loss '{params.loss}', "
+            f"{params.optimizer_type} lr {float(params.lr)}, batch 1 "
             f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
 
         def make_step():
@@ -2569,7 +2689,15 @@ def main() -> None:
             fn.launches = 0
         gc.gemm.launches = 0
         train_step = make_step()
-        metrics = [train_step(batch) for _ in range(n_steps)]
+        shares = []  # (kept, elements, rate) of every dropout mask the steps build
+
+        def recorded_mask(shape, rate, seeds, device, _orig=swin_mod.keep_mask):
+            keep = _orig(shape, rate, seeds, device)
+            shares.append((keep.sum(), keep.numel(), rate))
+            return keep
+
+        with mock.patch.object(swin_mod, "keep_mask", recorded_mask):
+            metrics = [train_step(batch) for _ in range(n_steps)]
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counted}
         core_launches = gc.gemm.launches  # inside K3-K6 and the K1 and K2 families
@@ -2588,6 +2716,28 @@ def main() -> None:
         if frozen:
             raise RuntimeError(f"{tag}: parameters the steps did not change: {frozen}")
         log(f"  all {len(init)} parameter tensors changed")
+        if dropout is not None:
+            # each mask is one sample's at one site: its kept share against
+            # 1 - rate, within KEEP_SIGMAS binomial standard deviations
+            worst, by_rate = 0.0, {}
+            for kept, n, rate in shares:
+                sigma = math.sqrt(rate * (1.0 - rate) / n)
+                z = abs(int(kept) / n - (1.0 - rate)) / sigma
+                worst = max(worst, z)
+                by_rate.setdefault(rate, [0, 0, 0])
+                by_rate[rate] = [by_rate[rate][0] + 1, by_rate[rate][1] + int(kept),
+                                 by_rate[rate][2] + n]
+            if not shares or worst > KEEP_SIGMAS:
+                raise RuntimeError(f"{tag}: {len(shares)} dropout masks, the worst kept share "
+                                   f"{worst:.2f} standard deviations from 1 - rate "
+                                   f"(at most {KEEP_SIGMAS})")
+            log(f"  {len(shares)} dropout masks built in the {n_steps} steps (each site's, "
+                f"recomputed ones included); kept share by rate "
+                + ", ".join(f"{r}: {k / n:.6f} of {n} over {c} masks"
+                            for r, (c, k, n) in by_rate.items())
+                + f"; the worst mask {worst:.2f} standard deviations from 1 - rate "
+                f"(at most {KEEP_SIGMAS})")
+        after = {n: p.detach().clone() for n, p in model.named_parameters()} if rerun else None
 
         if plain_step1:
             with torch.no_grad():
@@ -2609,13 +2759,33 @@ def main() -> None:
                     raise RuntimeError(f"{tag} train step 1 {key}: kernel and plain path disagree")
             if set(plain_metrics) != set(metrics[0]):
                 raise RuntimeError(f"{tag}: the two paths report different metrics")
+        if rerun:
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+            again = make_step()
+            again = [{k: float(v) for k, v in again(batch).items()} for _ in range(n_steps)]
+            differ = [n for n, p in model.named_parameters() if not torch.equal(p, after[n])]
+            if again != metrics or differ:
+                raise RuntimeError(f"{tag}: a rerun from the same weights and seed differs: "
+                                   f"metrics {again} vs {metrics}, parameters {differ[:6]}")
+            log(f"  a rerun of the {n_steps} steps from the same weights and generator seed: "
+                "metrics and every parameter bit-equal")
+            del after
         del init
 
         if eval_step:
             n_out = int(params.n_out_channels)
             eval_batch = synthetic_batch(params, dev, train=False)
+            for fn in counted:
+                fn.launches = 0
             ev = build_eval_step(model, loss_handler, preprocessor, n_out)(eval_batch)
             ev = {k: v.cpu() for k, v in ev.items()}
+            ev_launches = {fn.__name__: fn.launches for fn in counted if fn.launches}
+            if eval_want is not None and ev_launches != eval_want:
+                raise RuntimeError(f"{tag} eval step: launches must be {eval_want}, got "
+                                   f"{ev_launches}")
+            log(f"  eval step launches {ev_launches}")
             if ev["rmse"].shape != (n_out,) or ev["acc"].shape != (n_out,) or not all(
                 bool(torch.isfinite(v).all()) for v in ev.values()
             ):
@@ -2650,12 +2820,16 @@ def main() -> None:
     # kernel. Under 'full' every forward runs twice.
     qkv_mlp3 = depth + depth // 2  # qkv-fused attention forwards of a model call
     twice = 2 * depth
+    # the same at ROUTE_DEPTH, the depth of the route variants' paths
+    d4 = int(ROUTE_DEPTH["depth"])
+    d4_mlp3 = d4 + d4 // 2
     train_launches, train_step_ms = train_path(
         "[9]", CONFIG, N_STEPS,
         {"window_attention_qkv": qkv_mlp3, "window_attention_qkv_bwd": depth,
          "fc1_gelu": twice, "fc1_dpre": depth},
         eval_step=True, plain_timed=True)
 
+    clock.mark("11")
     # ---- 11. K5 and K6, the whole MLP, at flagship shapes ---------------------
     x2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
     g2 = torch.randn((t_tok, c), generator=gen, device=dev).bfloat16()
@@ -2711,6 +2885,7 @@ def main() -> None:
     del x2, g2, w1, b1, w2, b2, w1_16, w2_16, out, ref
     torch.cuda.empty_cache()
 
+    clock.mark("12-14")
     # ---- 12-14. the fine-tunes and depth 24 ------------------------------------
     whole_mlp = ("window_attention_qkv", "window_attention_qkv_bwd", "mlp_fwd", "mlp_bwd")
     launches_2step, _ = train_path(
@@ -2719,11 +2894,12 @@ def main() -> None:
         eval_step=True, plain_timed=True)
     # the looped 4-step: each step's forward, its recompute in the backward
     # (the per-step checkpoint), then the block remat's recompute inside it
+    # (at ROUTE_DEPTH: the 8-step of phase 49 runs the looped form at depth 12)
     launches_4step, _ = train_path(
         "[13]", CONFIG_4STEP, 2,
-        {"window_attention_qkv": 4 * (depth + qkv_mlp3), "window_attention_qkv_bwd": 4 * depth,
-         "mlp_fwd": 8 * depth, "mlp_bwd": 4 * depth},
-        n_timed=2)
+        {"window_attention_qkv": 4 * (d4 + d4_mlp3), "window_attention_qkv_bwd": 4 * d4,
+         "mlp_fwd": 8 * d4, "mlp_bwd": 4 * d4},
+        n_timed=2, overrides=ROUTE_DEPTH)
     # 3 steps: at batch 1 a branch of a deep block may be dropped in one or two
     # of them, and its parameters must still move
     launches_depth24, _ = train_path(
@@ -2731,6 +2907,7 @@ def main() -> None:
                                     "window_attention_qkv": 2 * qkv_mlp3},
         plain_step1=False, n_timed=2)
 
+    clock.mark("15")
     # ---- 15. K7, the CPB-bias window attention, at flagship shapes -----------
     x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
     g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
@@ -2783,6 +2960,7 @@ def main() -> None:
     del x, g, out, ref, grads, ref_g, again, w_qkv, w16, b_qkv, scale, raw_bias, badd
     torch.cuda.empty_cache()
 
+    clock.mark("16")
     # ---- 16. CPB serving -------------------------------------------------------
     params = train_params(CONFIG, CPB)
     model = seeded_model(params, dev, SEED)
@@ -2828,13 +3006,15 @@ def main() -> None:
     del engine, model, preds, plain1, state, back
     torch.cuda.empty_cache()
 
+    clock.mark("17")
     # ---- 17. CPB training ------------------------------------------------------
     launches_cpb, _ = train_path(
         "[17]", CONFIG, N_STEPS,
-        {"window_attention_qkv_bias": qkv_mlp3, "window_attention_qkv_bias_bwd": depth,
-         "fc1_gelu": twice, "fc1_dpre": depth},
-        eval_step=True, plain_timed=True, overrides=CPB)
+        {"window_attention_qkv_bias": d4_mlp3, "window_attention_qkv_bias_bwd": d4,
+         "fc1_gelu": 2 * d4, "fc1_dpre": d4},
+        eval_step=True, plain_timed=True, overrides={**CPB, **ROUTE_DEPTH})
 
+    clock.mark("18")
     # ---- 18. K11, fused LayerNorm + drop-path + add, at flagship shapes -------
     keep = float(np.float32(1.0) - np.float32(0.1))
     z2 = (2.0 * torch.randn((t_tok, c), generator=gen, device=dev) + 0.5).bfloat16()
@@ -2912,6 +3092,7 @@ def main() -> None:
     del z2, x2, g2, out, ref, grads, ref_g, gamma_s, beta_s
     torch.cuda.empty_cache()
 
+    clock.mark("19")
     # ---- 19. the fused-LayerNorm flagship train step ---------------------------
     launches_lnadd, lnadd_ms = train_path(
         "[19]", CONFIG, 3,
@@ -2922,6 +3103,7 @@ def main() -> None:
     log(f"[19] fused LayerNorm route {lnadd_ms:.2f} ms/step against the unfused flagship step "
         f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
 
+    clock.mark("20-26")
     # ---- 20-26: the grid (K8), windowed (K9) and 'xla' routes -------------------
     library = {}  # name -> library_ms (SDPA for the K8/K9 forwards and backwards)
     breakdowns = {}  # name -> device ms a launch by piece (the large-head backwards)
@@ -3116,18 +3298,17 @@ def main() -> None:
     del qkv, qn, kn
 
     grid_kernels = ("window_attention_grid", "window_attention_grid_bwd", "fc1_gelu", "fc1_dpre")
-    serve_grid = serve_path("[21]", GRID_ROUTE, N_STEPS,
-                            {"window_attention_grid": depth, "fc1_gelu": depth})
+    serve_grid = serve_path("[21]", {**GRID_ROUTE, **ROUTE_DEPTH}, N_STEPS,
+                            {"window_attention_grid": d4, "fc1_gelu": d4})
     launches_grid, grid_ms = train_path(
-        "[21]", CONFIG, 3, {**{k: depth for k in grid_kernels}, "window_attention_grid": twice,
-                            "fc1_gelu": twice}, overrides=GRID_ROUTE)
-    log(f"[21] grid route {grid_ms:.2f} ms/step against the qkv-fused flagship step "
-        f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
+        "[21]", CONFIG, 3, {**{k: d4 for k in grid_kernels}, "window_attention_grid": 2 * d4,
+                            "fc1_gelu": 2 * d4}, overrides={**GRID_ROUTE, **ROUTE_DEPTH})
+    log(f"[21] grid route at depth {d4}: {grid_ms:.2f} ms/step ({card})")
     launches_grid_cpb, _ = train_path(
         "[22]", CONFIG, 2,
-        {"window_attention_grid_bias": twice, "window_attention_grid_bias_bwd": depth,
-         "fc1_gelu": twice, "fc1_dpre": depth},
-        n_timed=2, overrides={**GRID_ROUTE, **CPB})
+        {"window_attention_grid_bias": 2 * d4, "window_attention_grid_bias_bwd": d4,
+         "fc1_gelu": 2 * d4, "fc1_dpre": d4},
+        n_timed=2, overrides={**GRID_ROUTE, **CPB, **ROUTE_DEPTH})
 
     nw = b * (gh // window[0]) * (gw // window[1])
     q, k, v = (torch.randn((nw, heads, l_win, c // heads), generator=gen, device=dev).bfloat16()
@@ -3140,20 +3321,21 @@ def main() -> None:
     del q, k, v, g, scale, raw_bias
 
     v1_kernels = ("window_attention_v1", "window_attention_v1_bwd", "fc1_gelu", "fc1_dpre")
-    serve_v1 = serve_path("[24]", V1_ROUTE, N_STEPS, {"window_attention_v1": depth,
-                                                      "fc1_gelu": depth})
+    serve_v1 = serve_path("[24]", {**V1_ROUTE, **ROUTE_DEPTH}, N_STEPS,
+                          {"window_attention_v1": d4, "fc1_gelu": d4})
     launches_v1, v1_ms = train_path(
-        "[24]", CONFIG, 3, {**{k: depth for k in v1_kernels}, "window_attention_v1": twice,
-                            "fc1_gelu": twice}, overrides=V1_ROUTE)
+        "[24]", CONFIG, 3, {**{k: d4 for k in v1_kernels}, "window_attention_v1": 2 * d4,
+                            "fc1_gelu": 2 * d4}, overrides={**V1_ROUTE, **ROUTE_DEPTH})
     log(f"[24] windowed route {v1_ms:.2f} ms/step against the grid route's {grid_ms:.2f} ms/step "
         f"({card})")
     launches_v1_cpb, _ = train_path(
         "[25]", CONFIG, 2,
-        {"window_attention_v1_bias": twice, "window_attention_v1_bias_bwd": depth,
-         "fc1_gelu": twice, "fc1_dpre": depth},
-        n_timed=2, overrides={**V1_ROUTE, **CPB})
-    serve_xla = serve_path("[26]", XLA_ROUTE, 1, {"fc1_gelu": depth})
+        {"window_attention_v1_bias": 2 * d4, "window_attention_v1_bias_bwd": d4,
+         "fc1_gelu": 2 * d4, "fc1_dpre": d4},
+        n_timed=2, overrides={**V1_ROUTE, **CPB, **ROUTE_DEPTH})
+    serve_xla = serve_path("[26]", {**XLA_ROUTE, **ROUTE_DEPTH}, 1, {"fc1_gelu": d4})
 
+    clock.mark("27")
     # ---- 27. the e2048 widths: K1 (the pass at head dim 256), K2 (large-head
     # variant), one K7 case, K5/K6 ----
     ce, he, hide = 2048, 8, 4096
@@ -3418,16 +3600,19 @@ def main() -> None:
     del hd128_cases, fn, ref_fn, ins, x, g, w16, b_qkv, scale, badd, xw, gw_
     torch.cuda.empty_cache()
 
+    clock.mark("28-29")
     # ---- 28-29. the e2048 family: serving at full size, training at [360, 720] -
     e2048_kernels = ("window_attention_qkv", "window_attention_qkv_bwd", "mlp_fwd", "mlp_bwd")
-    serve_e2048 = serve_path("[28]", {}, 2, {"window_attention_qkv": 24, "mlp_fwd": 24},
+    d6 = int(E2048_DEPTH["depth"])
+    serve_e2048 = serve_path("[28]", E2048_DEPTH, 2, {"window_attention_qkv": d6, "mlp_fwd": d6},
                              config=CONFIG_E2048, weights_on=dev)
     # remat_policy 'full': every forward runs again in the backward
     launches_e2048, _ = train_path(
-        "[29]", CONFIG_E2048, 2, {**{k: 24 for k in e2048_kernels}, "window_attention_qkv": 48,
-                                  "mlp_fwd": 48},
-        n_timed=2, overrides=E2048_TRAIN, weights_on=dev)
+        "[29]", CONFIG_E2048, 2, {**{k: d6 for k in e2048_kernels},
+                                  "window_attention_qkv": 2 * d6, "mlp_fwd": 2 * d6},
+        n_timed=2, overrides={**E2048_TRAIN, **E2048_DEPTH}, weights_on=dev)
 
+    clock.mark("30")
     # ---- 30. K10, the v6 padded-head kernels, at the flagship shape ------------
     hd = c // heads
     x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
@@ -3482,32 +3667,34 @@ def main() -> None:
     del x, g, out, grads, w_qkv, b_qkv, scale, wp, bp, wp16
     torch.cuda.empty_cache()
 
+    clock.mark("31")
     # ---- 31. the flagship on v6 (QKV_IMPL = 'v6') -------------------------------
     wa.QKV_IMPL = "v6"
-    serve_v6 = serve_path("[31]", {}, N_STEPS, {"window_attention_qkv_padded": depth,
-                                                "fc1_gelu": depth})
+    serve_v6 = serve_path("[31]", ROUTE_DEPTH, N_STEPS, {"window_attention_qkv_padded": d4,
+                                                         "fc1_gelu": d4})
     launches_v6, v6_ms = train_path(
-        "[31]", CONFIG, 3, {"window_attention_qkv_padded": qkv_mlp3,
-                            "window_attention_qkv_padded_bwd": depth, "fc1_gelu": twice,
-                            "fc1_dpre": depth})
+        "[31]", CONFIG, 3, {"window_attention_qkv_padded": d4_mlp3,
+                            "window_attention_qkv_padded_bwd": d4, "fc1_gelu": 2 * d4,
+                            "fc1_dpre": d4}, overrides=ROUTE_DEPTH)
     wa.QKV_IMPL = "v3"
-    log(f"[31] v6 {v6_ms:.2f} ms/step against the v3 flagship step {train_step_ms:.2f} ms/step of "
-        f"phase 10 ({card})")
+    log(f"[31] v6 at depth {d4}: {v6_ms:.2f} ms/step ({card})")
 
+    clock.mark("32")
     # ---- 32. the xla backward (QKV_BWD_IMPL = 'xla') ----------------------------
     wa.QKV_BWD_IMPL = "xla"
     launches_xla_bwd, xla_bwd_ms = train_path(
-        "[32]", CONFIG, 3, {"window_attention_qkv": qkv_mlp3, "window_attention_grid_bwd": depth,
-                            "fc1_gelu": twice, "fc1_dpre": depth})
+        "[32]", CONFIG, 3, {"window_attention_qkv": d4_mlp3, "window_attention_grid_bwd": d4,
+                            "fc1_gelu": 2 * d4, "fc1_dpre": d4}, overrides=ROUTE_DEPTH)
     launches_xla_bwd_cpb, _ = train_path(
-        "[32]", CONFIG, 2, {"window_attention_qkv_bias": qkv_mlp3,
-                            "window_attention_grid_bias_bwd": depth, "fc1_gelu": twice,
-                            "fc1_dpre": depth},
-        n_timed=2, overrides=CPB)
+        "[32]", CONFIG, 2, {"window_attention_qkv_bias": d4_mlp3,
+                            "window_attention_grid_bias_bwd": d4, "fc1_gelu": 2 * d4,
+                            "fc1_dpre": d4},
+        n_timed=2, overrides={**CPB, **ROUTE_DEPTH})
     wa.QKV_BWD_IMPL = "pallas"
     log(f"[32] xla backward {xla_bwd_ms:.2f} ms/step against the fused backward's "
         f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
 
+    clock.mark("33")
     # ---- 33. K8/K9 at head dims 128 and 256 (L = 162) ---------------------------
     for hd_w, heads_w, tag in ((128, 8, "_hd128"), (256, 8, "_e2048")):
         cw = hd_w * heads_w
@@ -3531,16 +3718,19 @@ def main() -> None:
         del q, k, v, g, scale, raw_bias
         torch.cuda.empty_cache()
 
+    clock.mark("34")
     # ---- 34. the e2048 family on the grid and windowed routes, at [360, 720] ----
     launches_e2048_grid, _ = train_path(
-        "[34]", CONFIG_E2048, 2, {"window_attention_grid": 48, "window_attention_grid_bwd": 24,
-                                  "mlp_fwd": 48, "mlp_bwd": 24},
-        n_timed=2, overrides={**E2048_TRAIN, **GRID_ROUTE}, weights_on=dev)
+        "[34]", CONFIG_E2048, 2, {"window_attention_grid": 2 * d6,
+                                  "window_attention_grid_bwd": d6, "mlp_fwd": 2 * d6,
+                                  "mlp_bwd": d6},
+        n_timed=2, overrides={**E2048_TRAIN, **GRID_ROUTE, **E2048_DEPTH}, weights_on=dev)
     launches_e2048_v1, _ = train_path(
-        "[34]", CONFIG_E2048, 2, {"window_attention_v1": 48, "window_attention_v1_bwd": 24,
-                                  "mlp_fwd": 48, "mlp_bwd": 24},
-        n_timed=2, overrides={**E2048_TRAIN, **V1_ROUTE}, weights_on=dev)
+        "[34]", CONFIG_E2048, 2, {"window_attention_v1": 2 * d6, "window_attention_v1_bwd": d6,
+                                  "mlp_fwd": 2 * d6, "mlp_bwd": d6},
+        n_timed=2, overrides={**E2048_TRAIN, **V1_ROUTE, **E2048_DEPTH}, weights_on=dev)
 
+    clock.mark("35")
     # ---- 35. K12: v5, v4 and the padded v4 at the flagship shape ----------------
     x = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
     g = torch.randn((b, gh, gw, c), generator=gen, device=dev).bfloat16()
@@ -3621,6 +3811,7 @@ def main() -> None:
     del k12_cases
     torch.cuda.empty_cache()
 
+    clock.mark("36")
     # ---- 36. the flagship on v5, v4 and the padded v4 (QKV_IMPL) ------------------
     k12_paths = {}
     for impl, pad, kind in (("v5", False, "qkv5"), ("v4", False, "qkv4"),
@@ -3628,25 +3819,26 @@ def main() -> None:
         wa.QKV_IMPL, v45.QKV_PAD_HEADS = impl, pad
         label = f"QKV_IMPL {impl!r}" + (", QKV_PAD_HEADS" if pad else "")
         log(f"[36] the flagship with {label}")
-        serve_k12 = serve_path("[36]", {}, 2, {f"window_attention_{kind}": depth,
-                                               "fc1_gelu": depth})
+        serve_k12 = serve_path("[36]", ROUTE_DEPTH, 2, {f"window_attention_{kind}": d4,
+                                                        "fc1_gelu": d4})
         train_k12, k12_ms = train_path(
-            "[36]", CONFIG, 3, {f"window_attention_{kind}": qkv_mlp3,
-                                f"window_attention_{kind}_bwd": depth, "fc1_gelu": twice,
-                                "fc1_dpre": depth})
+            "[36]", CONFIG, 3, {f"window_attention_{kind}": d4_mlp3,
+                                f"window_attention_{kind}_bwd": d4, "fc1_gelu": 2 * d4,
+                                "fc1_dpre": d4}, overrides=ROUTE_DEPTH)
         k12_paths[kind] = (serve_k12, train_k12)
-        log(f"[36] {label}: {k12_ms:.2f} ms/step against the v3 flagship step "
-            f"{train_step_ms:.2f} ms/step of phase 10 ({card})")
+        log(f"[36] {label} at depth {d4}: {k12_ms:.2f} ms/step ({card})")
     v45.QKV_PAD_HEADS = False
     wa.QKV_IMPL = "v4"  # with the CPB bias K7's route runs whatever QKV_IMPL says
     # 2 steps: at batch 1 a block's attention branch may be dropped in one of
     # them, and its parameters must still move
     launches_v4_cpb, _ = train_path(
-        "[36]", CONFIG, 2, {"window_attention_qkv_bias": qkv_mlp3,
-                            "window_attention_qkv_bias_bwd": depth, "fc1_gelu": twice,
-                            "fc1_dpre": depth}, plain_step1=False, n_timed=1, overrides=CPB)
+        "[36]", CONFIG, 2, {"window_attention_qkv_bias": d4_mlp3,
+                            "window_attention_qkv_bias_bwd": d4, "fc1_gelu": 2 * d4,
+                            "fc1_dpre": d4}, plain_step1=False, n_timed=1,
+        overrides={**CPB, **ROUTE_DEPTH})
     wa.QKV_IMPL = "v3"
 
+    clock.mark("37")
     # ---- 37. K13: consume, and the prestage probe --------------------------------
     s = prestage_probe.prestage(
         torch.randn((b, gh, gw, 3 * c), generator=gen, device=dev).bfloat16(), heads, window,
@@ -3675,6 +3867,7 @@ def main() -> None:
     if not (math.isfinite(pr["checksum"]) and probe_launches["consume"] > 0):
         raise RuntimeError("prestage probe: non-finite checksum or consume never launched")
 
+    clock.mark("38")
     # ---- 38. the GEMM core alone, beside torch.matmul ---------------------------
     # (shape tag, M, K, N, A MN-major, B MN-major, splits): K5's products at
     # e2048 and at the flagship, K1's projection, K2's dx (W read K-major) and
@@ -3713,6 +3906,7 @@ def main() -> None:
     results["gemm"] = core["fc1_e2048"][:4]
     library["gemm"] = core["fc1_e2048"][4]
 
+    clock.mark("39")
     # ---- 39. the backwards past L = 256 ------------------------------------------
     win288, grid288 = (12, 24), (2, 2)
     l288 = win288[0] * win288[1]
@@ -3875,12 +4069,14 @@ def main() -> None:
         del qkv_f, qn, kn, g, sc8, raw, qw, kw, vw, gwin, cases, args
         torch.cuda.empty_cache()
 
+    clock.mark("40-41")
     # ---- 40. the Trainer end to end ---------------------------------------------
     # ---- 41. inference: registry, scored and chunked rollouts, forecast,
     # ensembles, the served artifact, the CLI (from phase 40's run) ------------
     trainer_paths, trainer_root, trainer_exp = trainer_and_inference_phases(
-        dev, card, counted, gc.gemm, train_step_ms)
+        dev, card, counted, gc.gemm)
 
+    clock.mark("42")
     # ---- 42. the configs' training options on the card: the e2048 family at
     # full size, each remat policy on the flagship, LAMB, the H1 loss ---------
     t42 = time.time()
@@ -3895,17 +4091,20 @@ def main() -> None:
 
     from swin_v2_weather_torch.ops.losses import GeometricH1Loss
 
-    e2048_params = train_params(CONFIG_E2048)
-    log(f"[42a] {CONFIG_E2048} as written: image {tuple(e2048_params.img_size)}, embed "
-        f"{e2048_params.embed_dim}, depth {e2048_params.depth}, shard_params "
+    e2048_params = train_params(CONFIG_E2048, E2048_DEPTH)
+    log(f"[42a] {CONFIG_E2048} as written but for its depth: image "
+        f"{tuple(e2048_params.img_size)}, embed {e2048_params.embed_dim}, depth "
+        f"{e2048_params.depth} (of 24), shard_params "
         f"{e2048_params['shard_params']} (a no-op on one process), activation_ckpt "
         f"{e2048_params.activation_ckpt}, remat_policy {e2048_params.remat_policy!r}, drop-path "
         f"{e2048_params.drop_path_rate}")
     # 'full': every forward runs again in the backward
+    d42 = int(e2048_params.depth)
     launches_e2048_full, e2048_full_ms = train_path(
-        "[42a]", CONFIG_E2048, 3, {"window_attention_qkv": 48, "window_attention_qkv_bwd": 24,
-                                   "mlp_fwd": 48, "mlp_bwd": 24},
-        n_timed=2, weights_on=dev)
+        "[42a]", CONFIG_E2048, 3, {"window_attention_qkv": 2 * d42,
+                                   "window_attention_qkv_bwd": d42, "mlp_fwd": 2 * d42,
+                                   "mlp_bwd": d42},
+        n_timed=2, weights_on=dev, overrides=E2048_DEPTH)
     e2048_full_gib = train_peaks["[42a]"]
 
     def e2048_step_memory(activation_ckpt: bool) -> dict:
@@ -3915,7 +4114,7 @@ def main() -> None:
         the end of the forward, of the backward and of the optimizer step,
         or the stage where a step ran out of memory (a measurement, not a
         check)."""
-        params = train_params(CONFIG_E2048, {"activation_ckpt": activation_ckpt})
+        params = train_params(CONFIG_E2048, {**E2048_DEPTH, "activation_ckpt": activation_ckpt})
         stage, out = "the model's build", {}
         try:
             model = seeded_model(params, dev, SEED + 1, dev)
@@ -3964,7 +4163,7 @@ def main() -> None:
             log(f"  {label}: out of memory in {got['stage']} at {got['peak_gib']:.3f} GiB "
                 f"allocated ({card}): {got['error']}")
     unrematted = e2048_memory["unrematted"]
-    log(f"[42a] e2048 at 720 x 1440 under 'full': {e2048_full_ms:.2f} ms/step, peak "
+    log(f"[42a] e2048 at 720 x 1440, depth {d42}, under 'full': {e2048_full_ms:.2f} ms/step, peak "
         f"{e2048_full_gib:.3f} GiB; without remat: "
         + (f"peak {unrematted['peak_gib']:.3f} GiB" if unrematted["ran"] else
            f"out of memory in {unrematted['stage']}") + f" ({card})")
@@ -3972,80 +4171,92 @@ def main() -> None:
     # (b) each policy on the flagship from the same weights and batch: the
     # gradients of 2 steps bit-equal to the unrematted model's (the forward
     # kernels recompute the same bits; the backward graph is the same)
-    policy_runs = [("none", None, None), ("none, again", None, None), ("full", "full", None),
-                   ("attn", "attn", None), ("mlp", "mlp", None), ("mlp3", "mlp3", None),
-                   ("none, plain MLP", None, "plain"), ("mlp_fc1, plain MLP", "mlp_fc1", "plain")]
-    fused_twice = {"window_attention_qkv": twice, "window_attention_qkv_bwd": depth,
-                   "fc1_gelu": twice, "fc1_dpre": depth}
-    fused_mlp3 = {**fused_twice, "window_attention_qkv": qkv_mlp3}
-    policy_want = {
-        "none": {k: depth for k in fused_twice}, "full": fused_twice, "attn": fused_twice,
-        "mlp": fused_mlp3, "mlp3": fused_mlp3,
-        "none, plain MLP": {"window_attention_qkv": depth, "window_attention_qkv_bwd": depth},
-        "mlp_fc1, plain MLP": {"window_attention_qkv": qkv_mlp3,
-                               "window_attention_qkv_bwd": depth}}
-    policy_want["none, again"] = policy_want["none"]
+    def remat_policies(tag: str, dropout=None) -> dict:
+        """Phase 42 b's runs on the flagship at REMAT_DEPTH (with the dropout
+        rates ``dropout``): 2 steps each, the gradients bit-equal to the
+        unrematted model's of the same MLP route, the launches a step as
+        each policy recomputes; {label: ms, peak and launches}."""
+        batch = synthetic_batch(train_params(CONFIG), dev)
+        d = int(REMAT_DEPTH["depth"])
+        d_mlp3 = d + d // 2
+        runs = [("none", None, None), ("none, again", None, None), ("full", "full", None),
+                ("attn", "attn", None), ("mlp", "mlp", None), ("mlp3", "mlp3", None),
+                ("none, plain MLP", None, "plain"), ("mlp_fc1, plain MLP", "mlp_fc1", "plain")]
+        fused_twice = {"window_attention_qkv": 2 * d, "window_attention_qkv_bwd": d,
+                       "fc1_gelu": 2 * d, "fc1_dpre": d}
+        fused_mlp3 = {**fused_twice, "window_attention_qkv": d_mlp3}
+        policy_want = {
+            "none": {k: d for k in fused_twice}, "full": fused_twice, "attn": fused_twice,
+            "mlp": fused_mlp3, "mlp3": fused_mlp3,
+            "none, plain MLP": {"window_attention_qkv": d, "window_attention_qkv_bwd": d},
+            "mlp_fc1, plain MLP": {"window_attention_qkv": d_mlp3,
+                                   "window_attention_qkv_bwd": d}}
+        policy_want["none, again"] = policy_want["none"]
+        ref_grads, policy_out = {}, {}
+        for label, policy, mlp_impl in runs:
+            over = {**REMAT_DEPTH, "activation_ckpt": policy is not None,
+                    "remat_policy": policy or "mlp3"}
+            if mlp_impl:
+                over["mlp_impl"] = mlp_impl
+            params = train_params(CONFIG, over)
+            model = seeded_model(params, dev, SEED + 1, dev, dropout)
+            if model.model.remat_policy != policy:
+                raise RuntimeError(f"{tag} {label}: the model's remat policy is "
+                                   f"{model.model.remat_policy!r}")
+            loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
+            step = build_train_step(model, loss_handler, preprocessor,
+                                    build_optimizer(params, model.parameters()),
+                                    generator=torch.Generator(device=dev).manual_seed(SEED))
+            for fn in counted:
+                fn.launches = 0
+            gc.gemm.launches = 0
+            grads = []  # on the host, so that the peaks below hold no copies
+            for _ in range(2):
+                step(batch)
+                grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counted}
+            want = {name: 2 * policy_want[label].get(name, 0) for name in launches}
+            if launches != want:
+                raise RuntimeError(f"{tag} {label}: launches in 2 steps must be {want}, "
+                                   f"got {launches}")
+            check_core(f"{tag} {label}", gc.gemm.launches, launches, int(params.num_heads))
+            group = mlp_impl or "fused"
+            if group not in ref_grads:
+                ref_grads[group] = grads
+                same = "the reference"
+            else:
+                differ = [(i + 1, n) for i, (g, r) in enumerate(zip(grads, ref_grads[group]))
+                          for n in r if not torch.equal(g[n], r[n])]
+                if differ:
+                    worst = max(float((grads[i - 1][n] - ref_grads[group][i - 1][n]).abs().max()
+                                      / ref_grads[group][i - 1][n].abs().max())
+                                for i, n in differ)
+                    raise RuntimeError(f"{tag} {label}: {len(differ)} gradients of the 2 steps "
+                                       f"differ from the unrematted model's (worst relative "
+                                       f"{worst:.3g}): {differ[:6]}")
+                same = "bit-equal to the unrematted model's"
+            del grads
+            k_ms, k_mem = train_ms(step, batch, 2)
+            per_step = {k: v // 2 for k, v in launches.items() if v}
+            policy_out[label] = {"ms": k_ms, "peak_gib": k_mem, "launches_per_step": per_step,
+                                 "launches": {**launches, "gemm": gc.gemm.launches}}
+            log(f"{tag} {CONFIG} at depth {d}, dropout (proj, attn) {dropout or (0.0, 0.0)}, "
+                f"remat {label}: {k_ms:.2f} ms/step, peak {k_mem:.3f} GiB; launches a step "
+                f"{per_step}; gradients of 2 steps {same} ({card})")
+            del model, step
+            torch.cuda.empty_cache()
+        return policy_out
+
+    policy_out = remat_policies("[42b]")
     batch = synthetic_batch(train_params(CONFIG), dev)
-    ref_grads, policy_out = {}, {}
-    for label, policy, mlp_impl in policy_runs:
-        over = {"activation_ckpt": policy is not None, "remat_policy": policy or "mlp3"}
-        if mlp_impl:
-            over["mlp_impl"] = mlp_impl
-        params = train_params(CONFIG, over)
-        model = seeded_model(params, dev, SEED + 1, dev)
-        if model.model.remat_policy != policy:
-            raise RuntimeError(f"[42b] {label}: the model's remat policy is "
-                               f"{model.model.remat_policy!r}")
-        loss_handler, preprocessor = LossHandler(params), Preprocessor(params)
-        step = build_train_step(model, loss_handler, preprocessor,
-                                build_optimizer(params, model.parameters()),
-                                generator=torch.Generator(device=dev).manual_seed(SEED))
-        for fn in counted:
-            fn.launches = 0
-        gc.gemm.launches = 0
-        grads = []  # on the host, so that the peaks below hold no copies
-        for _ in range(2):
-            step(batch)
-            grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in counted}
-        want = {name: 2 * policy_want[label].get(name, 0) for name in launches}
-        if launches != want:
-            raise RuntimeError(f"[42b] {label}: launches in 2 steps must be {want}, "
-                               f"got {launches}")
-        check_core(f"[42b] {label}", gc.gemm.launches, launches, int(params.num_heads))
-        group = mlp_impl or "fused"
-        if group not in ref_grads:
-            ref_grads[group] = grads
-            same = "the reference"
-        else:
-            differ = [(i + 1, n) for i, (g, r) in enumerate(zip(grads, ref_grads[group]))
-                      for n in r if not torch.equal(g[n], r[n])]
-            if differ:
-                worst = max(float((grads[i - 1][n] - ref_grads[group][i - 1][n]).abs().max()
-                                  / ref_grads[group][i - 1][n].abs().max()) for i, n in differ)
-                raise RuntimeError(f"[42b] {label}: {len(differ)} gradients of the 2 steps "
-                                   f"differ from the unrematted model's (worst relative "
-                                   f"{worst:.3g}): {differ[:6]}")
-            same = "bit-equal to the unrematted model's"
-        del grads
-        k_ms, k_mem = train_ms(step, batch, 2)
-        per_step = {k: v // 2 for k, v in launches.items() if v}
-        policy_out[label] = {"ms": k_ms, "peak_gib": k_mem, "launches_per_step": per_step,
-                             "launches": {**launches, "gemm": gc.gemm.launches}}
-        log(f"[42b] {CONFIG} remat {label}: {k_ms:.2f} ms/step, peak {k_mem:.3f} GiB; launches "
-            f"a step {per_step}; gradients of 2 steps {same} ({card})")
-        del model, step
-        torch.cuda.empty_cache()
-    del ref_grads
 
     # (c) LAMB on the flagship (the config's remat, 'mlp3')
     launches_lamb, lamb_ms = train_path(
-        "[42c]", CONFIG, 3, {"window_attention_qkv": qkv_mlp3, "window_attention_qkv_bwd": depth,
-                             "fc1_gelu": twice, "fc1_dpre": depth},
-        plain_step1=False, n_timed=2, overrides={"optimizer_type": "lamb"})
-    log(f"[42c] LAMB {lamb_ms:.2f} ms/step against Adam's {train_step_ms:.2f} ms/step of phase "
-        f"10 ({card})")
+        "[42c]", CONFIG, 3, {"window_attention_qkv": d4_mlp3, "window_attention_qkv_bwd": d4,
+                             "fc1_gelu": 2 * d4, "fc1_dpre": d4},
+        plain_step1=False, n_timed=2, overrides={"optimizer_type": "lamb", **ROUTE_DEPTH})
+    log(f"[42c] LAMB at depth {d4}: {lamb_ms:.2f} ms/step ({card})")
 
     # (d) the H1 loss on one flagship batch: on the card (fp32 SHT) against
     # the same tensors' loss on the CPU in fp64
@@ -4087,6 +4298,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"[42] {time.time() - t42:.1f} s")
 
+    clock.mark("43")
     # ---- 43. the parallel layer: DDP / ZeRO-1 / FSDP2 over NCCL at world size 1,
     # two spatially sharded ranks on the card, K1/K2 gated off at the band shape
     gc_mod.collect()
@@ -4101,6 +4313,7 @@ def main() -> None:
         "policies": policy_out, "lamb_ms": lamb_ms, "adam_ms": train_step_ms,
         "h1": {"card_fp32": h1, "cpu_fp64": ref64, "rel": h1_rel, "ms": h1_ms}}}))
 
+    clock.mark("44")
     # ---- 44. the JAX checkpoint interchange: phase 40's epoch-2 checkpoint out
     # to JAX's scanned layout and back, resumed; a registry out and back, served
     gc_mod.collect()
@@ -4108,12 +4321,68 @@ def main() -> None:
     interchange_paths = interchange_phase(trainer_root, trainer_exp, dev, card, counted,
                                           gc.gemm)
 
+    clock.mark("45")
     # ---- 45. the served artifact of every route: export, load, bit-equal to
     # the engine's step; platforms; each new custom op's host cost -----------
     gc_mod.collect()
     torch.cuda.empty_cache()
     served_paths, served_host = served_routes_phase(trainer_root, dev, card, counted, gc.gemm)
     host_calls.update(served_host)
+
+    # ---- 46. train-mode dropout, proj only: the flagship's kernels ------------
+    clock.mark("46")
+    gc_mod.collect()
+    torch.cuda.empty_cache()
+    proj_only, with_attn = (DROPOUT_RATE, 0.0), (DROPOUT_RATE, DROPOUT_RATE)
+    flagship_step = {"window_attention_qkv": qkv_mlp3, "window_attention_qkv_bwd": depth,
+                     "fc1_gelu": twice, "fc1_dpre": depth}
+    flagship_eval = {"window_attention_qkv": depth, "fc1_gelu": depth}
+    launches_dropout, dropout_ms = train_path(
+        "[46]", CONFIG, 3, flagship_step, eval_step=True, eval_want=flagship_eval,
+        dropout=proj_only, rerun=True)
+    remat_dropout = remat_policies("[46]", proj_only)
+
+    # ---- 47. attention dropout too: JAX's gate leaves K1/K2 in train mode -----
+    clock.mark("47")
+    launches_dropout_attn, dropout_attn_ms = train_path(
+        "[47]", CONFIG, 3, {"fc1_gelu": twice, "fc1_dpre": depth}, eval_step=True,
+        eval_want=flagship_eval, dropout=with_attn, rerun=True)
+
+    # ---- 48. the 2-step under proj dropout: its fc1 dropout moves the MLP ----
+    # from K5/K6 to K3/K4, in eval mode too (JAX's Mlp reads the rate)
+    clock.mark("48")
+    launches_2step_dropout, dropout_2step_ms = train_path(
+        "[48]", CONFIG_2STEP, 2, {k: 2 * v for k, v in flagship_step.items()},
+        eval_step=True, eval_want={k: 2 * v for k, v in flagship_eval.items()},
+        dropout=proj_only, n_timed=2)
+
+    # ---- 49. the 8-step fine-tune: the looped rollout, each step's model call
+    # under its checkpoint with the block remat nested inside -----------------
+    clock.mark("49")
+    launches_8step, ms_8step = train_path(
+        "[49]", CONFIG_8STEP, 2,
+        {"window_attention_qkv": 8 * (depth + qkv_mlp3), "window_attention_qkv_bwd": 8 * depth,
+         "mlp_fwd": 16 * depth, "mlp_bwd": 8 * depth},
+        n_timed=1)
+
+    # ---- 50. the 'xla' route's train step: no attention kernel ----------------
+    clock.mark("50")
+    launches_xla_train, xla_train_ms = train_path(
+        "[50]", CONFIG, 3, {"fc1_gelu": twice, "fc1_dpre": depth}, overrides=XLA_ROUTE,
+        eval_step=True, eval_want={"fc1_gelu": depth})
+    print(json.dumps({"dropout_and_owed_paths": {
+        "card": card,
+        "dropout_proj": {"rates": proj_only, "ms": dropout_ms, "peak_gib": train_peaks["[46]"]},
+        "dropout_proj_remat": remat_dropout,
+        "dropout_attn": {"rates": with_attn, "ms": dropout_attn_ms,
+                         "peak_gib": train_peaks["[47]"]},
+        "dropout_2step": {"rates": proj_only, "ms": dropout_2step_ms,
+                          "peak_gib": train_peaks["[48]"]},
+        "train_8step": {"ms": ms_8step, "peak_gib": train_peaks["[49]"]},
+        "train_xla": {"ms": xla_train_ms, "peak_gib": train_peaks["[50]"]},
+        "bare_step_ms": train_step_ms}}))
+    clock.mark(None)
+    print(json.dumps({"phase_seconds": clock.seconds}))
 
     by_path = {"serve": (serve_launches, N_STEPS), "train": (train_launches, N_STEPS),
                "train_2step": (launches_2step, 3), "train_4step": (launches_4step, 2),
@@ -4136,6 +4405,12 @@ def main() -> None:
                "train_e2048_full": (launches_e2048_full, 3), "train_lamb": (launches_lamb, 3),
                **{f"remat_{label.replace(', ', '_').replace(' ', '_')}": (v["launches"], 2)
                   for label, v in policy_out.items()},
+               "train_dropout": (launches_dropout, 3),
+               "train_dropout_attn": (launches_dropout_attn, 3),
+               "train_2step_dropout": (launches_2step_dropout, 2),
+               "train_8step": (launches_8step, 2), "train_xla": (launches_xla_train, 3),
+               **{f"remat_dropout_{label.replace(', ', '_').replace(' ', '_')}":
+                  (v["launches"], 2) for label, v in remat_dropout.items()},
                **trainer_paths, **parallel_paths, **interchange_paths, **served_paths}
     sources = {
         "window_attention_qkv": ("window_attention_qkv.cu", "window_attention.py:1142",

@@ -15,8 +15,10 @@ data       static conditioning inputs, channel bookkeeping, the preprocessor,
 ops        zenith angle, quadrature, losses, metrics; the fused
            window-attention, fc1+GELU and whole-MLP kernels (forward and
            backward) with their plain PyTorch versions
-models     SwinV2 in PyTorch (train mode with drop-path), the single- and
-           multi-step wrappers, JAX weight conversion
+models     SwinV2 in PyTorch (train mode with drop-path, the CPB dropout and
+           JAX's proj/attn/MLP dropout on every attention route, outside
+           spatial sharding), the single- and multi-step wrappers, JAX
+           weight conversion
 training   Adam, the LR schedules, the train and eval steps, the Trainer,
            torch checkpoints, preemption, the native sweep agent
 inference  model registry and the autoregressive rollout engine

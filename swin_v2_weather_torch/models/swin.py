@@ -43,9 +43,9 @@ decides) and 'fused2' / 'xla' for the others, as JAX's factory does. The
 TPU-only switches (``SWIN_CPB_EXPAND``, ``SWIN_CPB_BARRIER``, tile sizes)
 have no counterpart: they pick XLA lowerings of the same function.
 
-Still raising ``NotImplementedError``: train-mode attention (or projection)
-dropout, and ``spatial_shards > 1`` on ``'pallas_v1'`` (its kernel has no
-boundary gate, as in JAX).
+Still raising ``NotImplementedError``: ``spatial_shards > 1`` on
+``'pallas_v1'`` (its kernel has no boundary gate, as in JAX), and train-mode
+proj/attn dropout under spatial sharding (JAX refuses it there too).
 
 Spatial sharding (``spatial_shards > 1``, ``parallel/spatial.py``): the model
 runs on one latitude band of ``H / spatial_shards`` rows of the input, a
@@ -72,15 +72,29 @@ The layout follows the JAX model, so weights convert one to one
     latitude-only mask; bias-free head, unpatchify, fp32 output and the
     optional global residual;
   * train mode: per-sample drop-path on both post-norm branches at rate
-    ``linspace(0, drop_path_rate, depth)[i]`` in block i, and with ``rel_pos``
-    the CPB meta-MLP's hidden dropout. The uniforms behind the masks
+    ``linspace(0, drop_path_rate, depth)[i]`` in block i, with ``rel_pos``
+    the CPB meta-MLP's hidden dropout, and the elementwise dropout of JAX's
+    ``nn.Dropout`` sites (:func:`dropout`, flax's semantics) at
+    ``proj_drop_rate`` after the output projection and after each MLP layer
+    and at ``attn_drop_rate`` on the softmax (the factory sets neither; a
+    caller constructs the model with them, as in JAX). Under attention
+    dropout in train mode the ``'pallas_qkv'``, ``'pallas'`` and
+    ``'pallas_v1'`` routes leave their kernels for the window partition, the
+    qkv Dense and the plain attention, as JAX's gates do; eval mode keeps
+    every route's kernels. The uniforms behind the drop-path and CPB masks
     ([depth, 2, B] for drop-path, [depth, D, 384] for the CPB, D the number
     of meta-MLP rows) are drawn in one call from the ``torch.Generator`` the
     caller passes (:meth:`SwinTransformerV2.drop_noise`), or handed in by the
     caller (the multi-step wrapper draws every step's at once, so a
-    recomputed step sees the same masks). JAX's ``dropout`` rng stream
-    cannot be matched, so the masks agree with JAX in distribution, not bit
-    for bit;
+    recomputed step sees the same masks). The dropout masks are too large to
+    draw that way (at the flagship a block's sites hold ~380 M elements), so
+    the same call draws one seed per site and sample ([depth, 4, B], on the
+    host) and each site rebuilds its sample's mask from a generator seeded
+    with it (:func:`keep_mask`): a recomputed stage draws the same mask, and
+    a data shard's masks are its rows of the global batch's. JAX's
+    ``dropout`` rng stream cannot be matched, so the masks agree with JAX in
+    distribution, not bit for bit (tests hand JAX's masks in as explicit
+    keep masks);
   * activation checkpointing (``activation_ckpt``, ``remat_policy``), as
     JAX's named-save policies (``_remat_policy``): :func:`remat_names` gives
     the names a policy keeps (``attn``, ``mlp``, ``mlp_fc1``, ``mlp3``;
@@ -328,6 +342,54 @@ def drop_path_multiplier(batch: int, rate: float, u: Optional[torch.Tensor],
     return (u.reshape(batch) < keep).float() / keep
 
 
+# the elementwise dropout sites of a block, in the order of a seed row
+DROPOUT_SITES = ("attn", "proj", "fc1", "fc2")
+
+
+def dropout(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """flax ``nn.Dropout``: x where ``keep`` is None (eval mode) or at rate 0,
+    zeros at rate 1, else where(keep, x / keep_prob, 0), the division in x's
+    dtype (flax divides by a Python float, which keeps bf16 bf16)."""
+    if rate == 0.0 or keep is None:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    # keep_prob rounded to x's dtype on the host, as drop_path's divisor
+    keep_x = float(torch.tensor(1.0 - rate).to(x.dtype))
+    return torch.where(keep, x / keep_x, torch.zeros_like(x))
+
+
+def keep_mask(shape, rate: float, seeds: torch.Tensor, device) -> torch.Tensor:
+    """The bool keep mask of a tensor of ``shape`` whose leading axis holds
+    the samples' rows (B or B * windows): sample b's rows are u < 1 - rate
+    for uniforms u drawn from a generator on ``device`` seeded ``seeds[b]``
+    (as ``jax.random.bernoulli`` compares one fp32 uniform with keep_prob)."""
+    keep = float(np.float32(1.0 - rate))
+    rows = shape[0] // len(seeds)
+    parts = []
+    for seed in seeds.tolist():
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        parts.append(torch.rand((rows,) + tuple(shape[1:]), generator=gen, device=device) < keep)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def site_dropout(x: torch.Tensor, rate: float, site: str, drop) -> torch.Tensor:
+    """:func:`dropout` of x at one of a block's :data:`DROPOUT_SITES`:
+    ``drop`` is None (eval mode), the block's seeds [sites, B] (int64, on the
+    host; :func:`keep_mask` builds the mask) or a dict of explicit keep masks
+    by site."""
+    if drop is None or rate == 0.0:
+        return x
+    if isinstance(drop, dict):
+        keep = drop[site].to(x.device)
+        if keep.shape != x.shape:
+            raise ValueError(f"dropout site {site!r}: keep mask {tuple(keep.shape)} for a "
+                             f"tensor {tuple(x.shape)}")
+    else:
+        keep = keep_mask(x.shape, rate, drop[DROPOUT_SITES.index(site)], x.device)
+    return dropout(x, rate, keep)
+
+
 class Fp32LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics whatever the input dtype; the output has
     the input's dtype. The statistics as ``LN_IMPL`` says when it runs:
@@ -367,7 +429,10 @@ class Mlp(nn.Module):
     the backward (with an fc1 dropout rate above 0 the module takes
     ``'fused'``, as JAX's does); ``'plain'`` fc1 as a Dense (:func:`dense`'s
     rounding), :func:`gelu_exact`, then fc2. ``drop`` are the two dropout
-    rates (train-mode dropout is not ported: the model refuses it)."""
+    rates: in train mode the fc1 dropout follows the GELU (K3's output on
+    ``'fused'``) and the fc2 dropout follows fc2 on every route, as JAX's
+    ``Mlp`` applies them; the masks come as ``forward``'s ``drop``
+    (:func:`site_dropout`)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  dtype: torch.dtype, impl: Optional[str] = None,
@@ -391,19 +456,28 @@ class Mlp(nn.Module):
         """The plain route's fc1 product (JAX's named site ``mlp_fc1``)."""
         return dense(x, self.fc1, self.dtype)
 
-    def after_fc1(self, h: torch.Tensor) -> torch.Tensor:
-        """The plain route from fc1's output on: GELU, then fc2."""
-        return dense(gelu_exact(h), self.fc2, self.dtype)
+    def after_fc1(self, h: torch.Tensor, drop=None) -> torch.Tensor:
+        """The plain route from fc1's output on: GELU, the fc1 dropout, fc2,
+        the fc2 dropout."""
+        return self.fc2_out(gelu_exact(h), drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def fc2_out(self, a: torch.Tensor, drop=None) -> torch.Tensor:
+        """The fc1 dropout of the activation ``a``, fc2, the fc2 dropout."""
+        a = site_dropout(a, self.drop[0], "fc1", drop)
+        return site_dropout(dense(a, self.fc2, self.dtype), self.drop[1], "fc2", drop)
+
+    def forward(self, x: torch.Tensor, drop=None) -> torch.Tensor:
+        """``drop``: the block's dropout seeds or keep masks in train mode
+        (:func:`site_dropout`), else None."""
         route = self.route()
         if route == "fused2":
-            return fused_mlp(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
-                             self.fc2.weight.t(), self.fc2.bias)
+            x = fused_mlp(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
+                          self.fc2.weight.t(), self.fc2.bias)
+            return site_dropout(x, self.drop[1], "fc2", drop)
         if route == "fused":
-            x = fused_fc1_gelu(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias)
-            return dense(x, self.fc2, self.dtype)
-        return self.after_fc1(self.fc1_out(x))
+            return self.fc2_out(
+                fused_fc1_gelu(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias), drop)
+        return self.after_fc1(self.fc1_out(x), drop)
 
 
 class CpbMlp(nn.Module):
@@ -447,14 +521,24 @@ class WindowAttention(nn.Module):
     ``rel_pos`` the CPB bias [heads, L, L] is assembled from the meta-MLP each
     call; the ``'pallas_qkv'`` route folds it (:func:`fold_cpb_bias`), the
     others take it raw. ``cpb_unique`` (the config key; None: ``CPB_UNIQUE``)
-    picks the meta-MLP's rows when the module runs (:meth:`cpb_is_unique`)."""
+    picks the meta-MLP's rows when the module runs (:meth:`cpb_is_unique`).
+    ``attn_drop`` and ``proj_drop`` are JAX's ``drop_attn`` and ``drop_proj``:
+    train-mode dropout on the fp32 softmax of the plain attention and after
+    the output projection.
+
+    :meth:`core` and :meth:`bias_term` take ``impl``, the route of the call
+    (None: ``attn_impl``); the block passes ``'xla'`` where JAX's dropout
+    gate sends a kernel route to the plain attention on windows."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple[int, int],
                  dtype: torch.dtype, rel_pos: bool = False, cpb_unique: Optional[bool] = None,
-                 attn_impl: str = "pallas_qkv", window_grid: Tuple[int, int] = (1, 1)):
+                 attn_impl: str = "pallas_qkv", window_grid: Tuple[int, int] = (1, 1),
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        self.attn_drop = float(attn_drop)
+        self.proj_drop = float(proj_drop)
         self.num_heads = num_heads
         self.window_size = tuple(window_size)
         self.dtype = dtype
@@ -518,44 +602,52 @@ class WindowAttention(nn.Module):
         """The per-head logit scale exp(min(logit_scale, log 100)) [heads]."""
         return torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
 
-    def bias_term(self, scale: torch.Tensor,
-                  cpb_noise: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    def bias_term(self, scale: torch.Tensor, cpb_noise: Optional[torch.Tensor] = None,
+                  impl: Optional[str] = None) -> Optional[torch.Tensor]:
         """The CPB term the attention takes (JAX's named site ``cpb_bias``):
         folded on ``'pallas_qkv'``, raw on the other routes; None without the
         CPB."""
         if self.meta_mlp is None:
             return None
-        if self.attn_impl == "pallas_qkv":
+        if (impl or self.attn_impl) == "pallas_qkv":
             return self.cpb_bias(scale, cpb_noise)
         return self.cpb_raw_bias(cpb_noise)
 
     def forward(self, x: torch.Tensor, mask_pattern: Optional[torch.Tensor] = None,
                 boundary_flag=None, cpb_noise: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, drop=None) -> torch.Tensor:
         """``mask_pattern`` [L, L]: the last window row's shift mask (kernel
-        routes); ``mask`` [nW, L, L]: the full shift mask (``'xla'``)."""
+        routes); ``mask`` [nW, L, L]: the full shift mask (``'xla'``);
+        ``drop``: the block's dropout seeds or keep masks in train mode
+        (:func:`site_dropout`)."""
         scale = self.scale()
         out = self.core(x, scale, self.bias_term(scale, cpb_noise), mask_pattern=mask_pattern,
-                        boundary_flag=boundary_flag, mask=mask)
-        return self.project(out)
+                        boundary_flag=boundary_flag, mask=mask, drop=drop)
+        return self.project(out, drop)
 
-    def project(self, out: torch.Tensor) -> torch.Tensor:
-        """The output projection of :meth:`core`'s output; the padded-head
-        output of the v6 route (wider than the model) goes through the proj
-        weight's zero-padded rows (dense()'s rounding on the padded weight, as
-        JAX does)."""
+    def project(self, out: torch.Tensor, drop=None) -> torch.Tensor:
+        """The output projection of :meth:`core`'s output, then the proj
+        dropout; the padded-head output of the v6 route (wider than the
+        model) goes through the proj weight's zero-padded rows (dense()'s
+        rounding on the padded weight, as JAX does)."""
         if out.shape[-1] != self.proj.in_features:
             w_proj = pad_proj_rows(self.proj.weight.t(), self.num_heads).t()
-            return (F.linear(out.to(self.dtype), w_proj.to(self.dtype))
-                    + self.proj.bias.to(self.dtype))
-        return dense(out, self.proj, self.dtype)
+            out = (F.linear(out.to(self.dtype), w_proj.to(self.dtype))
+                   + self.proj.bias.to(self.dtype))
+        else:
+            out = dense(out, self.proj, self.dtype)
+        return site_dropout(out, self.proj_drop, "proj", drop)
 
     def core(self, x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
              mask_pattern: Optional[torch.Tensor] = None, boundary_flag=None,
-             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             mask: Optional[torch.Tensor] = None, drop=None,
+             impl: Optional[str] = None) -> torch.Tensor:
         """The attention before the output projection (JAX's named site
-        ``attn_kernel_out``), on :meth:`bias_term`'s ``bias``."""
-        if self.attn_impl == "pallas_qkv":
+        ``attn_kernel_out``), on :meth:`bias_term`'s ``bias``; the attention
+        dropout (``drop``) applies on the plain route, the only one JAX runs
+        it on."""
+        impl = impl or self.attn_impl
+        if impl == "pallas_qkv":
             if bias is None and _wa.qkv_impl() == "v6":
                 # the padded-head route (K10): [B, H, W, heads * 128] with exact
                 # zeros in the pad lanes
@@ -571,14 +663,14 @@ class WindowAttention(nn.Module):
             )
         c = x.shape[-1]
         qkv = dense(x, self.qkv, self.dtype)
-        if self.attn_impl == "pallas":  # K8 on the grid: q, k, v are channel slices
+        if impl == "pallas":  # K8 on the grid: q, k, v are channel slices
             return fused_window_attention_grid(
                 qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], scale, self.window_size,
                 bias=bias, mask_pattern=mask_pattern, boundary_flag=boundary_flag)
         bw, l, _ = x.shape
         hd = c // self.num_heads
         q, k, v = qkv.reshape(bw, l, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
-        if self.attn_impl == "pallas_v1":
+        if impl == "pallas_v1":
             out = fused_window_attention(q, k, v, scale, bias=bias, mask_pattern=mask_pattern,
                                          window_grid=self.window_grid)
         else:  # 'xla': cosine similarity attention in fp32, the full mask
@@ -592,12 +684,17 @@ class WindowAttention(nn.Module):
                 nw = mask.shape[0]
                 attn = (attn.reshape(bw // nw, nw, self.num_heads, l, l)
                         + mask[None, :, None]).reshape(bw, self.num_heads, l, l)
-            out = torch.matmul(torch.softmax(attn, -1).to(v.dtype), v)
+            attn = site_dropout(torch.softmax(attn, -1), self.attn_drop, "attn", drop)
+            out = torch.matmul(attn.to(v.dtype), v)
         return out.transpose(1, 2).reshape(bw, l, c)
 
 
 class SwinBlock(nn.Module):
-    """One SwinV2-CR block: post-norm attention and MLP residual branches."""
+    """One SwinV2-CR block: post-norm attention and MLP residual branches.
+
+    ``proj_drop`` is the dropout rate after the output projection and after
+    each MLP layer, ``attn_drop`` the one on the attention's softmax (JAX's
+    ``proj_drop`` and ``drop_attn``); both act in train mode only."""
 
     def __init__(self, dim: int, num_heads: int, feat_size: Tuple[int, int],
                  window_size: Tuple[int, int], shift_size: Tuple[int, int], shifted: bool,
@@ -606,7 +703,8 @@ class SwinBlock(nn.Module):
                  mlp_impl: Optional[str] = None, rel_pos: bool = False,
                  cpb_unique: Optional[bool] = None, lnadd_impl: Optional[str] = None,
                  attn_impl: str = "pallas_qkv", proj_drop: float = 0.0,
-                 remat_policy: Optional[str] = None, spatial_shards: int = 1):
+                 attn_drop: float = 0.0, remat_policy: Optional[str] = None,
+                 spatial_shards: int = 1):
         super().__init__()
         if spatial_shards > 1 and attn_impl not in ("xla", "pallas", "pallas_qkv"):
             raise NotImplementedError(
@@ -629,12 +727,15 @@ class SwinBlock(nn.Module):
         self.window = tuple(window)
         self.shift = tuple(shift)
         self.do_shift = shifted and any(shift)
+        # eval mode's windowing (train mode under attention dropout: route())
         self.windowed = attn_impl in WINDOWED_IMPLS
+        self.proj_drop, self.attn_drop = float(proj_drop), float(attn_drop)
         scale_init = 1.0 if init_values is None else float(init_values)
         self.attn = WindowAttention(dim, num_heads, window, dtype, rel_pos=rel_pos,
                                     cpb_unique=cpb_unique, attn_impl=attn_impl,
                                     window_grid=(feat_size[0] // window[0],
-                                                 feat_size[1] // window[1]))
+                                                 feat_size[1] // window[1]),
+                                    attn_drop=attn_drop, proj_drop=proj_drop)
         self.norm1 = Fp32LayerNorm(dim, init_value=scale_init)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, impl=mlp_impl,
                        drop=(proj_drop, proj_drop))
@@ -642,10 +743,11 @@ class SwinBlock(nn.Module):
         pattern = full_mask = None
         if self.do_shift:
             # every masked window lies in the last window row and all share
-            # this one [L, L] pattern; the 'xla' route adds the full [nW, L, L]
+            # this one [L, L] pattern; the plain attention ('xla', and any
+            # route under attention dropout) adds the full [nW, L, L]
             mask = make_shift_mask(tuple(feat_size), window, shift)
             pattern = torch.from_numpy(mask[-1].copy())
-            if attn_impl == "xla":
+            if attn_impl == "xla" or self.attn_drop > 0.0:
                 full_mask = torch.from_numpy(mask.copy())
         self.register_buffer("mask_pattern", pattern, persistent=False)
         self.register_buffer("attn_mask", full_mask, persistent=False)
@@ -682,16 +784,27 @@ class SwinBlock(nn.Module):
         keep = remat_names(self.remat_policy, fused_mlp, fused_ln, self.attn.meta_mlp is not None)
         return frozenset() if keep is None else keep
 
-    def _stages(self, x: torch.Tensor, rate: float, u1, u2, cpb_noise, pre) -> list:
+    def route(self, train: bool) -> str:
+        """The attention route of a forward: ``'xla'`` (the window partition,
+        the qkv Dense and the plain attention) where train mode has attention
+        dropout on a kernel route, as JAX's gates (its ``use_grid`` and the
+        ``pallas``/``pallas_v1`` kernel condition) leave the kernels; else the
+        configured ``attn_impl``."""
+        return "xla" if train and self.attn_drop > 0.0 else self.attn.attn_impl
+
+    def _stages(self, x: torch.Tensor, rate: float, u1, u2, cpb_noise, pre, impl: str,
+                drop) -> list:
         """The block as stages ``(name, fn, kernel_only)``; ``fn(base, cur) ->
         (base, cur)`` carries the residual stream ``base`` (the block input,
         then ``block_mid``) and the current tensor. ``name`` is JAX's named
         site at the stage's output (``out`` for the block's); ``kernel_only``
         marks a stage that is one kernel call. ``x`` is the block input (for
         the shapes); ``pre`` is (scale, CPB term) computed outside the stages,
-        or None."""
+        or None; ``impl`` the attention route (:meth:`route`); ``drop`` the
+        dropout seeds or keep masks (train mode) or None."""
         attn, mlp = self.attn, self.mlp
         route = mlp.route()
+        windowed = impl in WINDOWED_IMPLS
         group = self.spatial_group
         mask, flag = self.attn_mask, None
         if self.spatial_shards > 1 and self.do_shift:
@@ -699,7 +812,7 @@ class SwinBlock(nn.Module):
             # rolled across the pole; the kernels keep the static pattern
             # and take the gate as a scalar, 'xla' drops the mask elsewhere
             is_last = spatial.group_rank(group) == self.spatial_shards - 1
-            if attn.attn_impl == "xla":
+            if impl == "xla":
                 mask = mask if is_last else None
             else:
                 flag = 1.0 if is_last else 0.0
@@ -714,20 +827,20 @@ class SwinBlock(nn.Module):
         def attn_kernel_out(base, y):
             if self.do_shift:
                 y = roll(y, -1)
-            if self.windowed:  # window_partition -> attention -> window_reverse
+            if windowed:  # window_partition -> attention -> window_reverse
                 l = self.window[0] * self.window[1]
                 y = window_partition(y, self.window).reshape(-1, l, y.shape[-1])
             if pre is None:
                 scale = attn.scale()
-                bias = attn.bias_term(scale, cpb_noise)
+                bias = attn.bias_term(scale, cpb_noise, impl)
             else:
                 scale, bias = pre
             return base, attn.core(y, scale, bias, mask_pattern=self.mask_pattern,
-                                   boundary_flag=flag, mask=mask)
+                                   boundary_flag=flag, mask=mask, drop=drop, impl=impl)
 
         def attn_out(base, y):
-            y = attn.project(y)
-            if self.windowed:
+            y = attn.project(y, drop)
+            if windowed:
                 y = window_reverse(y.reshape(-1, *self.window, y.shape[-1]), self.window,
                                    self.feat_size)
             if self.do_shift:
@@ -742,7 +855,7 @@ class SwinBlock(nn.Module):
             return x, mlp.fc1_out(y)
 
         def mlp_out(x, y):
-            return x, (mlp.after_fc1(y) if route == "plain" else mlp(y))
+            return x, (mlp.after_fc1(y, drop) if route == "plain" else mlp(y, drop))
 
         def out(x, y):
             x = self._ln_branch(self.norm2, y, x, rate, u2)
@@ -751,14 +864,15 @@ class SwinBlock(nn.Module):
         stages = [
             # with rel_pos every policy that keeps attn_kernel_out keeps
             # cpb_bias, so the CPB term comes in as ``pre`` there
-            ("attn_kernel_out", attn_kernel_out,
-             attn.attn_impl == "pallas_qkv" and not self.do_shift),
+            ("attn_kernel_out", attn_kernel_out, impl == "pallas_qkv" and not self.do_shift),
             ("attn_out", attn_out, False),
             ("block_mid", block_mid, self._fused_ln(x)),
         ]
         if route == "plain":
             stages.append(("mlp_fc1", mlp_fc1, False))
-        stages += [("mlp_out", mlp_out, route == "fused2"), ("out", out, False)]
+        # K5 alone, unless the fc2 dropout follows it in the stage
+        k5_only = route == "fused2" and (drop is None or mlp.drop[1] == 0.0)
+        stages += [("mlp_out", mlp_out, k5_only), ("out", out, False)]
         return stages
 
     def _remat(self, stages: list, keep: frozenset, x: torch.Tensor, rate: float,
@@ -807,21 +921,30 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 noise: Optional[dict] = None) -> torch.Tensor:
-        """``noise``: the block's uniforms, ``{"drop_path": [2, B], "cpb": [rows,
-        384]}`` (each key present where train mode needs it). With a remat
-        policy and grad mode on, the stages run under :meth:`_remat`."""
+        """``noise``: the block's uniforms and seeds, ``{"drop_path": [2, B],
+        "cpb": [rows, 384], "dropout": [4, B]}`` (each key present where train
+        mode needs it; ``"dropout"`` may instead be a dict of keep masks by
+        site, :func:`site_dropout`). With a remat policy and grad mode on,
+        the stages run under :meth:`_remat`."""
         rate = self.drop_path_rate if train else 0.0
         noise = noise or {}
         dp = noise.get("drop_path")
         u1, u2 = (None, None) if dp is None else (dp[0], dp[1])
         cpb_noise = noise.get("cpb")
+        drop = None
+        if train and (self.proj_drop > 0.0 or self.attn_drop > 0.0):
+            drop = noise.get("dropout")
+            if drop is None:
+                raise ValueError("proj/attn dropout in train mode needs its seeds or keep masks "
+                                 "(noise['dropout']; SwinTransformerV2.drop_noise draws them)")
+        impl = self.route(train)
         remat = self.remat_policy is not None and torch.is_grad_enabled()
         keep = self.remat_keep() if remat else frozenset()
         pre = None
         if "cpb_bias" in keep:  # kept: assembled once, outside the checkpoints
             scale = self.attn.scale()
-            pre = (scale, self.attn.bias_term(scale, cpb_noise))
-        stages = self._stages(x, rate, u1, u2, cpb_noise, pre)
+            pre = (scale, self.attn.bias_term(scale, cpb_noise, impl))
+        stages = self._stages(x, rate, u1, u2, cpb_noise, pre, impl, drop)
         if remat:
             return self._remat(stages, keep, x, rate, u2)
         base = cur = x
@@ -853,7 +976,12 @@ class SwinTransformerV2(nn.Module):
     """The single-stage SwinV2-CR weather model, [B, in_chans, H, W] ->
     [B, out_chans, H, W] fp32; with ``spatial_shards`` n > 1, a band [B,
     in_chans, H / n, W] -> [B, out_chans, H / n, W] on each rank of the
-    ``model`` group set as :attr:`spatial_group` (module docstring)."""
+    ``model`` group set as :attr:`spatial_group` (module docstring).
+
+    ``proj_drop_rate`` and ``attn_drop_rate`` are the train-mode dropout
+    rates of every block (module docstring); only direct construction sets
+    them, as in JAX, whose factory reads neither. JAX's model also takes a
+    ``drop_rate`` that it reads nowhere; the port has no counterpart."""
 
     def __init__(
         self,
@@ -922,14 +1050,16 @@ class SwinTransformerV2(nn.Module):
                       drop_path_rate=float(dpr[i]), dtype=dtype, mlp_impl=mlp_impl,
                       rel_pos=rel_pos, cpb_unique=cpb_unique, lnadd_impl=lnadd_impl,
                       attn_impl=attn_impl, proj_drop=proj_drop_rate,
-                      remat_policy=self.remat_policy, spatial_shards=n_sp)
+                      attn_drop=attn_drop_rate, remat_policy=self.remat_policy,
+                      spatial_shards=n_sp)
             for i in range(depth)
         )
         self.head = nn.Linear(embed_dim, out_chans * patch_size * patch_size, bias=False)
         # (index, count) of this rank's data shard (training/step.py sets it):
-        # the drop-path uniforms are drawn for the whole global batch and
-        # this shard's rows kept, so the masks do not depend on the shard
-        # count and every band of a sample reads the same ones
+        # the drop-path uniforms and the dropout seeds are drawn for the
+        # whole global batch and this shard's rows kept, so the masks do not
+        # depend on the shard count and every band of a sample reads the
+        # same ones
         self.data_shard = (0, 1)
 
     @property
@@ -950,14 +1080,17 @@ class SwinTransformerV2(nn.Module):
 
     def drop_noise(self, batch: int, generator: Optional[torch.Generator], device,
                    n_steps: Optional[int] = None) -> Optional[dict]:
-        """The uniforms behind every random mask of one train-mode forward, each
-        drawn in one call from ``generator`` (on ``device``): ``"drop_path"``
-        [depth, 2, batch] when a drop-path rate is above 0, then ``"cpb"``
-        [depth, rows, 384] for the CPB meta-MLP's dropout with ``rel_pos``.
-        With ``n_steps`` each gets a leading [n_steps] axis. None when the
-        model draws nothing. On a data shard (:attr:`data_shard` (i, n)) the
-        drop-path uniforms are drawn for n * batch samples and rows [i *
-        batch, (i + 1) * batch) kept."""
+        """The uniforms and seeds behind every random mask of one train-mode
+        forward, each drawn in one call from ``generator`` (on ``device``):
+        ``"drop_path"`` [depth, 2, batch] when a drop-path rate is above 0,
+        then ``"cpb"`` [depth, rows, 384] for the CPB meta-MLP's dropout with
+        ``rel_pos``, then ``"dropout"`` [depth, 4, batch] int64 on the host,
+        one seed per block, :data:`DROPOUT_SITES` entry and sample, when a
+        proj or attn dropout rate is above 0. With ``n_steps`` each gets a
+        leading [n_steps] axis. None when the model draws nothing. On a data
+        shard (:attr:`data_shard` (i, n)) the drop-path uniforms and the
+        seeds are drawn for n * batch samples and rows [i * batch, (i + 1) *
+        batch) kept."""
         depth = len(self.blocks)
         shard, n_shards = self.data_shard
         shapes = {}
@@ -966,25 +1099,35 @@ class SwinTransformerV2(nn.Module):
         rows = self.blocks[0].attn.cpb_rows
         if rows:
             shapes["cpb"] = (depth, rows, CpbMlp.hidden)
-        if not shapes:
+        seeds = any(r > 0 for r in self.dropout_rates)
+        if not shapes and not seeds:
             return None
         if generator is None:
-            raise ValueError("drop-path and the CPB dropout in train mode need an explicit "
-                             "torch.Generator")
+            raise ValueError("drop-path and the CPB, proj and attn dropout in train mode need "
+                             "an explicit torch.Generator")
         lead = () if n_steps is None else (n_steps,)
         noise = {k: torch.rand(lead + shape, generator=generator, device=device)
                  for k, shape in shapes.items()}
-        if n_shards > 1 and "drop_path" in noise:
-            noise["drop_path"] = noise["drop_path"][..., shard * batch:(shard + 1) * batch]
+        if seeds:
+            # the only host copy of a draw: a site seeds its generator with a
+            # Python integer
+            noise["dropout"] = torch.randint(
+                0, 2**62, lead + (depth, len(DROPOUT_SITES), batch * n_shards),
+                generator=generator, device=device).cpu()
+        if n_shards > 1:
+            for key in ("drop_path", "dropout"):
+                if key in noise:
+                    noise[key] = noise[key][..., shard * batch:(shard + 1) * batch]
         return noise
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``train=True`` turns on drop-path and the CPB dropout: their uniforms
-        are ``noise`` (as :meth:`drop_noise` returns them) when given, else
-        drawn from ``generator`` (a ``torch.Generator`` on x's device; needed
-        when drop_path_rate > 0 or with ``rel_pos``)."""
+                noise: Optional[dict] = None) -> torch.Tensor:
+        """``train=True`` turns on drop-path, the CPB dropout and the proj and
+        attn dropout: their uniforms and seeds are ``noise`` (as
+        :meth:`drop_noise` returns them) when given, else drawn from
+        ``generator`` (a ``torch.Generator`` on x's device; needed when
+        drop_path_rate > 0, with ``rel_pos`` or with a dropout rate)."""
         n_sp = self.spatial_shards
         if n_sp > 1 and train and any(r > 0 for r in self.dropout_rates):
             # JAX's message: its per-shard dropout draws would correlate
@@ -993,10 +1136,6 @@ class SwinTransformerV2(nn.Module):
                 "elementwise dropout (proj/attn) under spatial sharding would "
                 "correlate masks across latitude shards; train with these "
                 "rates at 0 or without spatial_shards")
-        if train and any(r > 0 for r in self.dropout_rates):
-            raise NotImplementedError(
-                "train-mode proj/attn dropout is not ported (the JAX factory never sets it)"
-            )
         if n_sp > 1 and self.spatial_group is None:
             raise ValueError(f"spatial_shards={n_sp}: the model needs its model group "
                              "(SwinTransformerV2.spatial_group)")

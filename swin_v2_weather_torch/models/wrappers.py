@@ -19,10 +19,11 @@ The JAX wrapper's two forms become two Python loops:
   recomputes the step, and each block's backward its unkept stages again.
 
 Random masks under the checkpoint: the uniforms behind every step's
-drop-path and CPB-dropout masks are drawn from the caller's generator before
-the first step and handed to each step as tensors, so a recomputed step
-draws nothing and sees the masks of its forward, and both forms give the
-same masks for the same generator state.
+drop-path and CPB-dropout masks, and the seeds of its proj/attn dropout
+masks (one per block, site and sample), are drawn from the caller's
+generator before the first step and handed to each step, so a recomputed
+step draws nothing from it and rebuilds the masks of its forward, and both
+forms give the same masks for the same generator state.
 
 JAX silently ignores ``rollout_stack_dtype`` on the unrolled form; the port
 raises there instead.
@@ -82,8 +83,9 @@ class MultiStepWrapper(nn.Module):
     def forward(self, inp: torch.Tensor, coszen: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator`` draws the drop-path and CPB-dropout masks of every step
-        (train mode, drop_path_rate > 0 or ``rel_pos``)."""
+        """``generator`` draws the drop-path and CPB-dropout masks and the
+        proj/attn dropout seeds of every step (train mode, drop_path_rate > 0,
+        ``rel_pos`` or a dropout rate above 0)."""
         n_steps = self.n_future + 1
         noise = (self.model.drop_noise(inp.shape[0], generator, inp.device, n_steps)
                  if train else None)

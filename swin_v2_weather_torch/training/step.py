@@ -209,8 +209,9 @@ def build_train_step(
     """Return ``step(batch) -> metrics``; the batch (this rank's data shard of
     the global batch, whole in H) lies on the model's device.
 
-    ``generator`` (on that device) draws the drop-path masks; it is needed
-    when the model's drop_path_rate is above 0. ``layout`` (from
+    ``generator`` (on that device) draws the drop-path masks and the
+    proj/attn dropout seeds; it is needed when the model's drop_path_rate or
+    a dropout rate is above 0, or with ``rel_pos``. ``layout`` (from
     :func:`shard_state`) runs the step on the mesh; ``loss_scale`` defaults
     to 1 / n_data_shards.
     """

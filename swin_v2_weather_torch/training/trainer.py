@@ -19,7 +19,8 @@ under torchrun, rank r drives ``cuda:LOCAL_RANK``):
 
 Randomness: the initial weights come from a ``torch.Generator`` seeded with
 ``params.seed`` (torch's layer defaults, which the JAX model reproduces); the
-drop-path masks of each step from a generator on the device seeded from
+drop-path masks (and the proj/attn dropout seeds of a model constructed
+with those rates) of each step from a generator on the device seeded from
 (seed, epoch, global step) by :func:`step_seed`, so a resumed run draws the
 masks of an uninterrupted one; every rank draws them for the whole global
 batch and keeps its shard's (``SwinTransformerV2.data_shard``).
