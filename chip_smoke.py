@@ -16,11 +16,11 @@ printing its own lines:
      with nvcc (first use builds into ``swin_v2_weather_torch/_build/``);
      every instance of the GEMM core (its pair kernel, K6, and K3/K4's
      instances included), of K2's attention pass, of the qkv-fused
-     forward's attention pass (K1, K7, K10, K12), of the streamed
-     backwards (``streamed_bwd.cuh``: K2/K7/K12 at head dims 128/256, K8's
-     and K9's at head dims 32-256, rows kernels with and without z and dp
-     kept in registers) and of the qkv-fused family's chunked backwards
-     (phase 39) must show 0 bytes spilled in the ``-Xptxas -v`` log.
+     forward's attention pass (K1, K7, K10, K12) and of the streamed
+     backwards (``streamed_bwd.cuh``: the qkv-fused family's K2/K7/K10/K12,
+     K8's and K9's, at head dims 32-256, rows kernels with and without z and
+     dp kept in registers) must show 0 bytes spilled in the ``-Xptxas -v``
+     log.
   3. the window-attention kernel (K1: the projection on the GEMM core, then
      the streamed attention pass) against its plain version at the flagship
      shapes, unshifted and with the shifted-block mask; its breakdown by
@@ -103,7 +103,9 @@ printing its own lines:
  18. K11, the fused LayerNorm + drop-path + residual add, forward and backward
      against their plain versions at [64800, 768] with m mixed between 0 and
      1/keep; two backward calls bit-equal; timed, beside ``F.layer_norm`` at
-     the same shape for context.
+     the same shape for context. Then the same at [64800, 3072], rows wider
+     than 2048 channels (the backward staging z and g in shared memory,
+     read once), two backward calls bit-equal.
  19. the flagship train step with ``lnadd_impl: 'fused'``: 3 steps, K11
      forward 48 times a step ('mlp3' keeps only ``attn_kernel_out`` beside
      the fused branches, so both run again) and backward 24, K1 18, K3 24,
@@ -151,7 +153,7 @@ printing its own lines:
      launched, K3 4 times, the output finite.
  27. the e2048 widths against their plain versions, timed: K1/K2 at x [1,
      180, 360, 2048], W_qkv [2048, 6144], 8 heads of 256, window 9 x 18 (K1's
-     pass at head dim 256 with its breakdown, K2's large-head variant),
+     pass at head dim 256 with its breakdown, K2's streamed variant),
      shifted, with its breakdown by torch.profiler (the recompute with the
      q/k normalization, the rows and columns kernels, dx, dW, the
      reductions), and one K7 case (forward and backward,
@@ -159,7 +161,9 @@ printing its own lines:
      backward calls bit-equal; then K2, K5, K6 and the
      K8/K9 backwards at head dim 256 timed at the e2048 train steps' own shape
      (the image [360, 720]: x [1, 90, 180, 2048], T = 16200), K2's, K8's and
-     K9's with their breakdown, beside SDPA's backward at that shape.
+     K9's with their breakdown, beside SDPA's backward at that shape; and
+     K2, K7 and v4 at head dim 128 (8 heads, L = 162: the streamed variant)
+     against their plain versions, timed.
  28. e2048 serving, ``swin_73var_geo_depth24_e2048_mlp2_chweight_invar`` at
      full size (720 x 1440, embed 2048) cut to depth 6 (``E2048_DEPTH``,
      its whole-MLP route kept; phases 28, 29, 34 and 42 a): 2 rollout
@@ -187,7 +191,7 @@ printing its own lines:
      each against the plain path.
  33. K8 and K9 (bias-free and BIAS) at head dims 128 (8 heads, C = 1024)
      and 256 (the e2048 tensors, [1, 180, 360, 2048]) with L = 162, shifted,
-     forward (the streamed kernel) and backward (K8's large-head variant,
+     forward (the streamed kernel) and backward (K8's streamed kernels,
      K9's streamed kernels) against their plain versions; two backward
      calls bit-equal; timed beside ``scaled_dot_product_attention`` on the
      same windowed tensors (forward and backward, as phase 20), with phase
@@ -225,18 +229,21 @@ printing its own lines:
      shape (the library yardstick; the port never calls it), with its share
      of the bf16 peak.
  39. the backwards past L = 256 (window 12 x 24, L = 288, on a [1, 24, 48]
-     grid, 2 heads, shifted) at head dims 32-256: the qkv-fused family's
-     chunked kernels (K2, K7, v5, v4, and below head dim 128 K10 and the
-     padded v4) and K8's and K9's streamed kernels (bias-free and BIAS),
-     each once against its plain version, two calls bit-equal, timed beside
-     its bound (the padded variants' pad columns exactly zero); K8's and
-     K9's beside SDPA's backward on the windowed tensors [4, 2, 288, hd]
-     (``library_ms``). Then K8 and K9 (bias-free and BIAS) at L = 288 at full
+     grid, 2 heads, shifted) at head dims 32-256, every one the streamed
+     kernels of ``streamed_bwd.cuh``: the qkv-fused family's (K2, K7, v5,
+     v4, and up to head dim 128 K10 and the padded v4) and K8's and K9's
+     (bias-free and BIAS), each once against its plain version, two calls
+     bit-equal, timed beside its bound (the padded variants' pad columns
+     exactly zero); K8's and K9's beside SDPA's backward on the windowed
+     tensors [4, 2, 288, hd] (``library_ms``). Then at L = 288 at full
      width: window 12 x 24 on [1, 180, 360, C] (225 windows), 8 heads of 96
-     (C = 768) and of 256 (C = 2048), K9 on the windowed [225, 8, 288, hd],
-     shifted: against their plain versions, two calls bit-equal, timed
-     beside the bound and SDPA's backward, with each one's breakdown by
-     torch.profiler.
+     (C = 768) and of 256 (C = 2048), shifted: K8 and K9 (bias-free and
+     BIAS; K9 on the windowed [225, 8, 288, hd]) beside SDPA's backward, and
+     the qkv-fused family (at head dim 96 K2, K7, v5, v4, K10 and the padded
+     v4; at 256 K2 and K7), each against its plain version, two calls
+     bit-equal, timed beside the bound, with its breakdown by
+     torch.profiler (the qkv family's: the projection, the rows and columns
+     kernels, dx, dW, db and the reductions).
  40. the Trainer end to end (``swin_v2_weather_torch.training.trainer``), the
      way a user trains, in a temporary directory under the checkout's
      ``runs/`` (removed at the end): the flagship at full width cut to
@@ -483,8 +490,8 @@ K4's add ``matmul_ms``, ``torch.matmul`` of their operands, as a yardstick;
 K1's, K3's and every forward launcher's with a custom op add ``host_us``,
 a call's host time direct and through the op).
 The backward entries carry phase 39's results under ``l288`` (by head dim,
-each with its bound and the variant that ran; K8's and K9's full-width
-cases under ``l288_full``), and the large-head backwards their
+each with its bound and the variant that ran; the full-width cases under
+``l288_full``), and the streamed backwards at head dim 256 their
 breakdown under ``breakdown`` (and ``train_shape``'s). K8/K9's entries are named by their main paths (the grid, windowed
 and CPB train steps). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1); without a
@@ -661,14 +668,12 @@ def fwd_spills() -> dict:
 # qkv-fused forward's attention pass (layouts QKV and QKV4; all their variants)
 CORE_KERNELS = r"7swin_wg11gemm_kernelI"
 PAIR_KERNELS = r"7swin_wg16gemm_pair_kernelI"
-# K3 (K5's fc1 instance) and K4 on the core, and the chunked attention
-# backwards (any L; every qkv-fused variant)
+# K3 (K5's fc1 instance) and K4 on the core
 K34_KERNELS = r"7swin_wg11gemm_kernelI\w*?(11Fc1Epilogue|12DpreEpilogue)"
-CHUNK_KERNELS = r"chunk_bwd_(rows|cols)_kernelI"
 K2_PASS_KERNELS = r"_GLOBAL__N_\w*20attention_bwd_kernelI"
 K1_PASS_KERNELS = r"qkv_attention_fwd_kernelILi\d+ELi[23]E"
-# the streamed backward (streamed_bwd.cuh): K2/K7/K12 at head dims 128/256,
-# K8 and K9 at 32-256
+# the streamed backward (streamed_bwd.cuh): the qkv-fused family (K2/K7/K10/K12)
+# at head dims 32-256 (33 instances), K8 and K9 at 32-256 (30 each)
 STREAMED_BWD_KERNELS = r"streamed_bwd_(rows|cols)_kernelI"
 
 
@@ -2373,10 +2378,9 @@ def main() -> None:
     for label, pattern, least in (("GEMM core", CORE_KERNELS, 16),
                                   ("GEMM core pair kernel (K6)", PAIR_KERNELS, 2),
                                   ("K3/K4 on the GEMM core", K34_KERNELS, 4),
-                                  ("chunked qkv-fused backwards (L > 256)", CHUNK_KERNELS, 52),
-                                  ("K2 attention pass", K2_PASS_KERNELS, 20),
-                                  ("streamed backwards (K2/K7/K12, K8, K9)",
-                                   STREAMED_BWD_KERNELS, 78),
+                                  ("K2 attention pass", K2_PASS_KERNELS, 18),
+                                  ("streamed backwards (K2/K7/K10/K12, K8, K9)",
+                                   STREAMED_BWD_KERNELS, 93),
                                   ("K1 attention pass (K1, K7, K10, K12)", K1_PASS_KERNELS, 29)):
         spilled = build_spills(pattern)
         if len(spilled) < least or any(any(sp) for sp in spilled.values()):
@@ -3075,13 +3079,18 @@ def main() -> None:
     ln_wide = {"out": compare("streamed out", out, ref, LN_TOL["out"])}
     for name, o, r in zip(("dz", "dgamma", "dbeta"), grads, ref_g):
         ln_wide[name] = compare(f"streamed {name}", o, r, LN_TOL[name])
+    again = lk.ln_dp_add_bwd(z2, g2, gamma_s, m2)
+    if not all(torch.equal(a, o) for a, o in zip(again, grads)):
+        raise RuntimeError("ln_dp_add_bwd above 2048 channels: two calls differ (reduction order)")
+    del again
     with torch.inference_mode():
         lwf_ms = time_ms(lambda: lk.ln_dp_add_fwd(z2, x2, gamma_s, beta_s, m2), 20)
         lwfp_ms = time_ms(lambda: lk.ln_dp_add_fwd_reference(z2, x2, gamma_s, beta_s, m2), 5)
         lwb_ms = time_ms(lambda: lk.ln_dp_add_bwd(z2, g2, gamma_s, m2), 20)
         lwbp_ms = time_ms(lambda: lk.ln_dp_add_bwd_reference(z2, g2, gamma_s, m2), 5)
     log(f"  streamed rows at [{t_tok}, {cs_}]: forward kernel {lwf_ms:.4f} ms, plain "
-        f"{lwfp_ms:.4f} ms; backward kernel {lwb_ms:.4f} ms, plain {lwbp_ms:.4f} ms ({card})")
+        f"{lwfp_ms:.4f} ms; backward kernel (z and g staged, read once) {lwb_ms:.4f} ms, plain "
+        f"{lwbp_ms:.4f} ms; two backward calls bit-equal ({card})")
     ln_streamed = {
         "fwd": {"shape": [t_tok, cs_], "max_abs_err": ln_wide["out"], "ms": lwf_ms,
                 "plain_ms": lwfp_ms, "bound_ms": bound(10 * t_tok * cs_, nbytes(
@@ -3106,7 +3115,7 @@ def main() -> None:
     clock.mark("20-26")
     # ---- 20-26: the grid (K8), windowed (K9) and 'xla' routes -------------------
     library = {}  # name -> library_ms (SDPA for the K8/K9 forwards and backwards)
-    breakdowns = {}  # name -> device ms a launch by piece (the large-head backwards)
+    breakdowns = {}  # name -> device ms a launch by piece (the streamed backwards)
     launch = {}  # name -> the K8/K9 forward's launch report (threads, shared memory, ...)
 
     def sdpa_ms(bias, hd: int) -> float:
@@ -3336,7 +3345,7 @@ def main() -> None:
     serve_xla = serve_path("[26]", {**XLA_ROUTE, **ROUTE_DEPTH}, 1, {"fc1_gelu": d4})
 
     clock.mark("27")
-    # ---- 27. the e2048 widths: K1 (the pass at head dim 256), K2 (large-head
+    # ---- 27. the e2048 widths: K1 (the pass at head dim 256), K2 (streamed
     # variant), one K7 case, K5/K6 ----
     ce, he, hide = 2048, 8, 4096
     x = torch.randn((b, gh, gw, ce), generator=gen, device=dev).bfloat16()
@@ -3543,9 +3552,9 @@ def main() -> None:
                 + pieces_line(pieces) + f" ({card})")
 
     # K2, K7 and v4's backward at head dim 128 (8 heads, L = 162): the
-    # one-block kernel takes this shape since its pass keeps no score tiles
-    # in shared memory; the large-head variant, which took it before, is
-    # timed beside it (the variant forced), each against its plain version
+    # streamed variant takes it (the one-block kernel, which fits this shape
+    # too, took 4.55 ms to its 4.42 and was removed at head dim 128), each
+    # against its plain version
     c1 = 8 * 128
     x = torch.randn((b, gh, gw, c1), generator=gen, device=dev).bfloat16()
     g = torch.randn((b, gh, gw, c1), generator=gen, device=dev).bfloat16()
@@ -3570,30 +3579,24 @@ def main() -> None:
                                                   pattern, 1.0),
             lambda: v45.window_attention_qkv4_backward_reference(xw, w16, b_qkv, scale, gw_, window,
                                                                  grid_w, pattern), (xw, gw_))}
+    variant128 = wa.qkv_variant("", 128, l_win, True)
+    if variant128 != "streamed":
+        raise RuntimeError(f"[27] head dim 128 at L = {l_win} takes {variant128!r}, not 'streamed'")
     log(f"[27] K2/K7/v4 backward at head dim 128: x {tuple(x.shape)}, 8 heads, window {window}, "
-        f"shifted; variant {wa.qkv_variant('', 128, l_win, True)} (the large-head variant ran it before)")
-    large_ms = {}
+        f"shifted; variant {variant128}")
     for name, (fn, ref_fn, ins) in hd128_cases.items():
         ref = ref_fn()
-        outs = {}
-        for variant in ("base", "large"):
-            with mock.patch.object(wa, "qkv_variant", lambda *a, _v=variant: _v):
-                got = fn()
-                torch.cuda.synchronize()
-                errs = {nm: compare(f"{name} hd 128 {variant} {nm}", o, r, BWD_TOL[nm])
-                        for nm, o, r in zip(("dx", "dW", "db", "dscale", "dbias"), got, ref)}
-                outs[variant] = (errs, time_ms(fn, 3))
-                del got
+        got = fn()
+        torch.cuda.synchronize()
+        errs = {nm: compare(f"{name} hd 128 {nm}", o, r, BWD_TOL[nm])
+                for nm, o, r in zip(("dx", "dW", "db", "dscale", "dbias"), got, ref)}
+        del got
+        k_ms = time_ms(fn, 3)
         p_ms = time_ms(ref_fn, 1)
-        k_ms, large_ms[name] = outs["base"][1], outs["large"][1]
-        results[name + "_hd128"] = (outs["base"][0]["dx"], k_ms, p_ms, bound(
+        results[name + "_hd128"] = (errs["dx"], k_ms, p_ms, bound(
             3 * 2 * t_tok * c1 * 3 * c1 + 5 * 4 * l_win * l_win * c1 * (t_tok // l_win) / 2,
             nbytes(w16, b_qkv, scale, *ins, *ref)))
-        log(f"  {name} hd 128: one-block {k_ms:.4f} ms, large-head {large_ms[name]:.4f} ms, plain "
-            f"{p_ms:.4f} ms ({card})")
-        if k_ms > large_ms[name]:
-            raise RuntimeError(f"{name} at head dim 128: the one-block kernel is slower than the "
-                               f"large-head variant it replaces")
+        log(f"  {name} hd 128: streamed {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
         del ref
     # the cases hold their operands: drop them, or the later paths' peaks
     # count 0.5 GiB of them
@@ -3913,15 +3916,14 @@ def main() -> None:
     gh2, gw2, heads2, cin2 = 24, 48, 2, 64
     pat288 = torch.from_numpy(make_shift_mask((gh2, gw2), win288, (6, 12))[-1].copy()).to(dev)
     log(f"[39] the backwards at L = {l288} (window {win288}, x [1, {gh2}, {gw2}, {cin2}], "
-        f"{heads2} heads), shifted, against their plain versions: the qkv-fused family's "
-        f"chunked kernels, K8's and K9's streamed ones")
+        f"{heads2} heads), shifted, against their plain versions: the streamed kernels of the "
+        f"qkv-fused family, K8 and K9")
     beyond = {}
     for hd in wa.ATTN_FWD_HEAD_DIMS:
         if (wa.qkv_variant("[39]", hd, l288, True), wa.attn_variant("[39]", hd, l288, True),
-                wa.attn_variant("[39]", hd, l288, True, "v1")) != ("chunked", "streamed",
-                                                                    "streamed"):
-            raise RuntimeError(f"[39]: head dim {hd} at L = {l288} does not take the chunked "
-                               f"qkv-fused and the streamed K8/K9 backwards")
+                wa.attn_variant("[39]", hd, l288, True, "v1")) != ("streamed",) * 3:
+            raise RuntimeError(f"[39]: head dim {hd} at L = {l288} does not take the streamed "
+                               f"qkv-fused, K8 and K9 backwards")
         c2 = heads2 * hd
         x = torch.randn((1, gh2, gw2, cin2), generator=gen, device=dev).bfloat16()
         w16 = ((2 * torch.rand((cin2, 3 * c2), generator=gen, device=dev) - 1)
@@ -4001,7 +4003,7 @@ def main() -> None:
                 flops += 3 * 2 * gh2 * gw2 * cin2 * 3 * c2
             b_ms, b_by = bound(flops, nbytes(*(a for a in args if torch.is_tensor(a)), *out))
             beyond.setdefault(name, {})[hd] = {
-                "variant": "streamed" if names == attn_out else "chunked", "max_abs_err": err,
+                "variant": "streamed", "max_abs_err": err,
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib288 if names == attn_out else None}
             log(f"  {name} hd {hd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
@@ -4067,6 +4069,70 @@ def main() -> None:
         # args: the last case's operands ([225, 8, 288, hd] x 4: ~1 GiB at hd 256),
         # which phases 40-42 held before
         del qkv_f, qn, kn, g, sc8, raw, qw, kw, vw, gwin, cases, args
+        torch.cuda.empty_cache()
+    # the qkv-fused family's streamed backward at L = 288 at full width: x, g
+    # [1, 180, 360, C], 8 heads of 96 (every variant) and of 256 (K2, K7)
+    t288 = b * gh * gw
+    for hd, variants in ((96, ("qkv", "qkv_bias", "qkv5", "qkv4", "qkv_padded", "qkv4_padded")),
+                         (256, ("qkv", "qkv_bias"))):
+        cf = 8 * hd
+        x = torch.randn((b, gh, gw, cf), generator=gen, device=dev).bfloat16()
+        g = torch.randn((b, gh, gw, cf), generator=gen, device=dev).bfloat16()
+        w16 = ((2 * torch.rand((cf, 3 * cf), generator=gen, device=dev) - 1)
+               / math.sqrt(cf)).bfloat16()
+        b8 = 0.02 * torch.randn((3 * cf,), generator=gen, device=dev)
+        sc8 = torch.exp(math.log(10.0) + 0.3 * torch.randn((8,), generator=gen, device=dev))
+        badd = wa.fold_cpb_bias(2.0 * torch.randn((8, l288, l288), generator=gen, device=dev),
+                                sc8)
+        xw, gw_ = v45.window_major(x, win288), v45.window_major(g, win288)
+        wp, bp = wa.pad_heads_w(w16, 8), wa.pad_heads_vec(b8, 8)
+        operands = {
+            "qkv": (wa.window_attention_qkv_bwd, (x, w16, b8, sc8, g, win288, pat_full)),
+            "qkv_bias": (wa.window_attention_qkv_bias_bwd,
+                         (x, w16, b8, sc8, badd, g, win288, pat_full)),
+            "qkv5": (v45.window_attention_qkv5_bwd,
+                     (x, v45.w5_reorder(w16, 8).contiguous(), w16, b8, sc8, g, win288, pat_full)),
+            "qkv4": (v45.window_attention_qkv4_bwd,
+                     (xw, w16, b8, sc8, gw_, win288, grid_full, pat_full)),
+            "qkv_padded": (wa.window_attention_qkv_padded_bwd,
+                           (x, wp, bp, sc8, hd, wa.pad_heads_x(g, 8, hd), win288, pat_full)),
+            "qkv4_padded": (v45.window_attention_qkv4_padded_bwd,
+                            (xw, wp, bp, sc8, hd, wa.pad_heads_x(gw_, 8, hd), win288, grid_full,
+                             pat_full))}
+        log(f"[39] the qkv-fused backward at L = {l288}, full width: x, g {tuple(x.shape)}, 8 "
+            f"heads of {hd}, shifted; variant {wa.qkv_variant('[39]', hd, l288, True)}")
+        for kind in variants:
+            fn, args = operands[kind]
+            name = f"window_attention_{kind}_bwd"
+            out = fn(*args)
+            ref = plain_version(fn)(*args)
+            torch.cuda.synchronize()
+            err = max(compare(f"{name} L {l288} hd {hd} {n}", o, r, BWD_TOL[n])
+                      for n, o, r in zip(qkv_out, out, ref))
+            del ref
+            again = fn(*args)
+            if not all(torch.equal(a_, o) for a_, o in zip(again, out)):
+                raise RuntimeError(f"[39] {name} at L = {l288}, head dim {hd}: two calls differ")
+            if "padded" in kind and (
+                    torch.count_nonzero(out[1].reshape(cf, 3, 8, 128)[..., hd:]).item()
+                    or torch.count_nonzero(out[2].reshape(3, 8, 128)[..., hd:]).item()):
+                raise RuntimeError(f"[39] {name}: pad columns of dW or db are not zero")
+            del again
+            k_ms = time_ms(lambda: fn(*args), 5)
+            p_ms = time_ms(lambda: plain_version(fn)(*args), 1)
+            pieces = kernel_pieces(lambda: fn(*args), bb.K2_LARGE_PIECES, n=3)
+            # five [L, L, hd] products per (window, head), the recomputed
+            # projection, dx and dW; each input read and each output written once
+            b_ms, b_by = bound(5 * 2 * l288 * l288 * hd * nw288 * 8 + 3 * 2 * t288 * cf * 3 * cf,
+                               nbytes(*(a for a in args if torch.is_tensor(a)), *out))
+            beyond_full.setdefault(name, {})[hd] = {
+                "variant": wa.qkv_variant("", hd, l288, True), "max_abs_err": err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "breakdown": pieces}
+            log(f"  {name} L {l288} hd {hd}: kernel {k_ms:.4f} ms ({pieces_line(pieces)}), plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card}); two calls bit-equal")
+            del out
+        del x, g, w16, b8, sc8, badd, xw, gw_, wp, bp, operands, fn, args
         torch.cuda.empty_cache()
 
     clock.mark("40-41")
@@ -4447,14 +4513,14 @@ def main() -> None:
         "window_attention_qkv_padded_bwd": ("window_attention_qkv_bwd.cu",
                                             "window_attention.py:2174", "train_v6"),
         # the same wrappers at the e2048 shapes (K1's pass at head dim 256, the
-        # large-head backward), counted on the e2048 train step at full size
+        # streamed backward), counted on the e2048 train step at full size
         "window_attention_qkv_e2048": ("window_attention_qkv.cu",
                                        "window_attention.py:1142", "train_e2048_full"),
         "window_attention_qkv_bwd_e2048": ("window_attention_qkv_large.cu",
                                            "window_attention.py:1397", "train_e2048_full"),
         "mlp_fwd_e2048": ("mlp.cu", "mlp_kernels.py:295", "train_e2048_full"),
         "mlp_bwd_e2048": ("mlp.cu", "mlp_kernels.py:317", "train_e2048_full"),
-        # K8/K9 at head dim 256 (the streamed forward, the large-head backward),
+        # K8/K9 at head dim 256 (the streamed forward, the streamed backward),
         # counted on the e2048 grid and windowed train steps
         "window_attention_grid_e2048": ("window_attention_grid.cu",
                                         "window_attention.py:556", "train_e2048_grid"),
@@ -4537,7 +4603,7 @@ def main() -> None:
                                     "library_ms": lib_ms}
             if pieces is not None:
                 entry["train_shape"]["breakdown"] = pieces
-        if entry["name"] in breakdowns:  # the large-head backwards' pieces (phases 27, 33)
+        if entry["name"] in breakdowns:  # the streamed backwards' pieces (phases 27, 33)
             entry["breakdown"] = breakdowns[entry["name"]]
     for entry in kernels[:2]:  # K1/K2 gated off at the band shape [1, 90, 360, 768] (phase 43)
         err, k_ms, p_ms, (b_ms, b_by) = results[entry["name"] + "_band"]
@@ -4558,8 +4624,6 @@ def main() -> None:
                                   "bound_ms": b_ms, "bound_by": b_by,
                                   "library_ms": library.get(entry["name"] + tag),
                                   "launch": launch.get(entry["name"] + tag)}
-                if entry["name"] in large_ms and tag == "_hd128":  # the variant it replaced
-                    entry[tag[1:]]["large_head_ms"] = large_ms[entry["name"]]
                 if entry["name"] + tag in breakdowns:
                     entry[tag[1:]]["breakdown"] = breakdowns[entry["name"] + tag]
         if entry["name"] in launch:  # the K8/K9 forwards' launch report (phases 20, 23, 33)

@@ -64,11 +64,6 @@ _SIGNATURES = {
     "swin_window_attention_qkv_bias_bwd": [_vp] * 6 + [_f32] + [_vp] * 12 + [_int] * 10 + [_vp],
     # the forward pass's launch shape: (hd, bias, pad, v4, L, lm, info[7])
     "swin_window_attention_qkv_fwd_info": [_int] * 6 + [_vp],
-    # K2/K7 large-head variant: (x, w, b, scale, bias, mask, boundary_flag, g,
-    #  qkv, inv, rstat, dqkv, dw_part, db_part, dscale_part, dbias_part, dx, dw,
-    #  db, dscale, dbias, B, H, W, C_in, C, heads, wh, ww, dw_splits,
-    #  db_splits, stream)
-    "swin_window_attention_qkv_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 14 + [_int] * 10 + [_vp],
     # K10: (x, wp, bp, scale, mask, boundary_flag, qkv, out, B, H, W, C_in,
     #  heads, hd, wh, ww, stream)
     "swin_window_attention_qkv_padded_fwd": [_vp] * 5 + [_f32] + [_vp] * 2 + [_int] * 8 + [_vp],
@@ -96,11 +91,11 @@ _SIGNATURES = {
     # their launch: (hd, bias, L, info[10])
     "swin_window_attention_grid_streamed_bwd_info": [_int, _int, _int, _vp],
     "swin_window_attention_v1_streamed_bwd_info": [_int, _int, _int, _vp],
-    # the chunked backward of every qkv-fused variant: (x, wr, w, b, scale,
+    # the streamed backward of every qkv-fused variant: (x, wr, w, b, scale,
     #  bias, mask, boundary_flag, g, qkv, inv, rstat, dqkv, dw_part, db_part,
     #  dscale_part, dbias_part, dx, dw, db, dscale, dbias, B, nwh, nww, lm,
     #  C_in, C, heads, hd, wh, ww, var, dw_splits, db_splits, stream)
-    "swin_window_attention_qkv_chunked_bwd": [_vp] * 7 + [_f32] + [_vp] * 14 + [_int] * 13
+    "swin_window_attention_qkv_streamed_bwd": [_vp] * 7 + [_f32] + [_vp] * 14 + [_int] * 13
     + [_vp],
     # K12 v5: the operands of swin_window_attention_qkv_fwd with w5 for w;
     #  (x, w5, w, b, scale, mask, boundary_flag, g, qkv, dqkv, dw_part, db_part,
@@ -108,10 +103,6 @@ _SIGNATURES = {
     #  dw_splits, db_splits, stream)
     "swin_window_attention_qkv5_fwd": [_vp] * 5 + [_f32] + [_vp] * 2 + [_int] * 8 + [_vp],
     "swin_window_attention_qkv5_bwd": [_vp] * 6 + [_f32] + [_vp] * 10 + [_int] * 10 + [_vp],
-    # the large-head backward: (x, w5, w, b, scale, mask, boundary_flag, g, qkv,
-    #  inv, rstat, dqkv, dw_part, db_part, dscale_part, dx, dw, db, dscale, B, H,
-    #  W, C_in, C, heads, wh, ww, dw_splits, db_splits, stream)
-    "swin_window_attention_qkv5_large_bwd": [_vp] * 6 + [_f32] + [_vp] * 12 + [_int] * 10 + [_vp],
     # K12 v4: (xw, w, b, scale, mask, boundary_flag, qkv, out, B, nwh, nww, lm,
     #  C_in, C, heads, hd, wh, ww, stream); (xw, w, b, scale, mask,
     #  boundary_flag, gw, qkv, dqkv, dw_part, db_part, dscale_part, dxw, dw, db,
@@ -119,21 +110,16 @@ _SIGNATURES = {
     #  db_splits, stream)
     "swin_window_attention_qkv4_fwd": [_vp] * 5 + [_f32] + [_vp] * 2 + [_int] * 10 + [_vp],
     "swin_window_attention_qkv4_bwd": [_vp] * 5 + [_f32] + [_vp] * 10 + [_int] * 12 + [_vp],
-    # v4's large-head backward: (xw, w, b, scale, mask, boundary_flag, gw, qkv,
-    #  inv, rstat, dqkv, dw_part, db_part, dscale_part, dxw, dw, db, dscale, B,
-    #  nwh, nww, lm, C_in, C, heads, wh, ww, dw_splits, db_splits, stream)
-    "swin_window_attention_qkv4_large_bwd": [_vp] * 5 + [_f32] + [_vp] * 12 + [_int] * 11
-    + [_vp],
     # K13: (s, out, n, stream)
     "swin_prestage_consume": [_vp, _vp, ctypes.c_longlong, _vp],
     # (z, x, gamma, beta, m, out, T, C, stream)
     "swin_ln_dp_add_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     # (z, g, gamma, m, dz, part, dgamma, dbeta, T, C, n_blocks, stream)
     "swin_ln_dp_add_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
-    # K11 above 2048 channels: the forward as swin_ln_dp_add_fwd; the backward
-    # (z, g, gamma, m, dz, stats, part, dgamma, dbeta, T, C, n_blocks, stream)
+    # K11 above 2048 channels: the forward as swin_ln_dp_add_fwd, the backward
+    # as swin_ln_dp_add_bwd
     "swin_ln_dp_add_wide_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
-    "swin_ln_dp_add_wide_bwd": [_vp] * 9 + [_int, _int, _int, _vp],
+    "swin_ln_dp_add_wide_bwd": [_vp] * 8 + [_int, _int, _int, _vp],
 }
 
 

@@ -14,8 +14,8 @@ whatever the selection, as in JAX.
     reordered once to [3 * heads, C_in, hd] (:func:`w5_reorder`), each (role,
     head) slab a dense [C_in, hd] box. The CUDA kernels are K1/K2's: the
     projection on the GEMM core one slab at a time (in the packed product's
-    K order), then K1's pass, or K2's backward (``QKV_V5``, one-block,
-    large-head or chunked as :func:`~swin_v2_weather_torch.ops.window_attention.
+    K order), then K1's pass, or K2's backward (``QKV_V5``, one-block or
+    streamed as :func:`~swin_v2_weather_torch.ops.window_attention.
     qkv_variant` says), which takes dx and dW from the packed weight, as the
     TPU kernel does. The plain versions are v3's on the packed weight
     (bit-equal).
@@ -37,13 +37,12 @@ whatever the selection, as in JAX.
 
 v4's kernels take K1/K2's shapes: the forward any L at head dims 32-256
 (padded heads up to 128); the backward its one-block instances where those
-fit shared memory, beyond that (at L = 162: head dim 256) v4 instances of
-the large-head variant (``csrc/window_attention_qkv_large.cu``), which park
-the raw q, k rows in dqkv for the fp32 qn (the one-block backward reads
-them from its projection scratch), and where neither fits (every L above
-256) v4 instances of the chunked backward in the same source (padded heads
-too: the one-block or the chunked backward). Any other shape raises a
-ValueError before a launch, as for K1/K2. JAX's
+fit shared memory, beyond that (at L = 162: head dim 256; every head dim
+past L = 256, padded heads too) v4 instances of the streamed variant
+(``csrc/window_attention_qkv_large.cu``), which park the raw q, k rows in
+dqkv for the fp32 qn (the one-block backward reads them from its
+projection scratch). Any other shape raises a ValueError before a launch,
+as for K1/K2. JAX's
 ``SWIN_QKV_FWD_WC`` / ``SWIN_QKV_BWD_WC`` and ``_pick_nwc`` size the TPU's grid
 steps (windows per step); one block per (window, head) has no counterpart of
 them. ``QKV_BWD_IMPL`` does not apply here: JAX reads it only in
@@ -389,8 +388,8 @@ def window_attention_qkv4_padded_backward_reference(xw, wp, bp, scale, hd, gw, w
 def _check_v4(name, xw, w, b, scale, hd, window, window_grid, mask_pattern, g=None):
     """-> (b, nwh, nww, lp, c_in, c, variant); c = heads * hd, or heads * 128
     padded; the variant as :func:`~swin_v2_weather_torch.ops.window_attention.
-    qkv_variant` picks it for K1/K2 (padded, the one-block backward or the
-    chunked one). Raises on a shape that v4's kernels do not take."""
+    qkv_variant` picks it for K1/K2 (the one-block backward or the streamed
+    one). Raises on a shape that v4's kernels do not take."""
     if xw.device.type != "cuda" or xw.dim() != 4:
         raise ValueError(f"{name}: xw must be a 4-D CUDA tensor, got {xw.dim()}-D on {xw.device}")
     bsz, nw, lp, c_in = xw.shape
@@ -447,14 +446,13 @@ def _launch_v4_backward(fn, xw, w, b, scale, hd, gw, window, window_grid, mask_p
     name = fn.__name__
     bsz, nwh, nww, lp, c_in, c, variant = _check_v4(name, xw, w, b, scale, hd, window,
                                                     window_grid, mask_pattern, gw)
-    if variant == "chunked":
-        out = wa.qkv_chunked_bwd(xw, w, w, b, scale, None, gw, window, mask_pattern,
-                                 boundary_flag, hd=hd, nwh=nwh, nww=nww, lm=lp, var="v4")
+    if variant == "streamed":
+        out = wa.qkv_streamed_bwd(xw, w, w, b, scale, None, gw, window, mask_pattern,
+                                  boundary_flag, hd=hd, nwh=nwh, nww=nww, lm=lp, var="v4")
         fn.launches += 1
         gemm_core.count_launches(3)  # the projection, dx and dW on the GEMM core
         return out
     dev, t, heads = xw.device, bsz * nwh * nww * lp, int(scale.shape[0])
-    lpk = _round_up(int(window[0]) * int(window[1]), 16)  # the kernels' tile height
     # token ranges of the split-K dW product and of the db column sums (K2's)
     dw_splits = gemm_core.split_k(c_in, 3 * c, t)
     db_splits = max(1, min(64, -(-t // 512)))
@@ -465,8 +463,7 @@ def _launch_v4_backward(fn, xw, w, b, scale, hd, gw, window, window_grid, mask_p
     dqkv = torch.empty((t, 3 * c), dtype=torch.bfloat16, device=dev)
     dw_part = torch.empty((dw_splits, c_in, 3 * c), **f32)
     db_part = torch.empty((db_splits, 3 * c), **f32)
-    # d(scale) partials: one per window, or (large) one per window and 64 query rows
-    dscale_part = torch.empty((bsz * nwh * nww * wa._row_chunks(variant, lpk), heads), **f32)
+    dscale_part = torch.empty((bsz * nwh * nww, heads), **f32)  # one d(scale) partial a window
     dxw = torch.empty_like(xw)
     dw, db, dscale = (torch.empty((c_in, 3 * c), **f32), torch.empty((3 * c,), **f32),
                       torch.empty((heads,), **f32))
@@ -479,16 +476,9 @@ def _launch_v4_backward(fn, xw, w, b, scale, hd, gw, window, window_grid, mask_p
         work = (dqkv.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), dscale_part.data_ptr(),
                 dxw.data_ptr(), dw.data_ptr(), db.data_ptr(), dscale.data_ptr(), bsz, nwh, nww,
                 lp, c_in, c, heads)
-        wh, ww = int(window[0]), int(window[1])
-        if variant == "large":  # scratch: norms, row statistics
-            inv = torch.empty((t, 2, heads), **f32)
-            rstat = torch.empty((bsz * nwh * nww, heads, lpk, 2), **f32)
-            code = lib.swin_window_attention_qkv4_large_bwd(
-                *head, qkv.data_ptr(), inv.data_ptr(), rstat.data_ptr(), *work, wh, ww,
-                dw_splits, db_splits, stream)
-        else:
-            code = lib.swin_window_attention_qkv4_bwd(*head, qkv.data_ptr(), *work, hd, wh, ww,
-                                                      dw_splits, db_splits, stream)
+        code = lib.swin_window_attention_qkv4_bwd(*head, qkv.data_ptr(), *work, hd,
+                                                  int(window[0]), int(window[1]), dw_splits,
+                                                  db_splits, stream)
     _build.check(code, name)
     fn.launches += 1
     gemm_core.count_launches(3)  # the projection, dx and dW on the GEMM core

@@ -31,22 +31,31 @@
 // other kernels are reused as they are.)
 //
 // Rows wider than 2048 channels (16 chunks of 128: 64 values a lane per
-// operand) do not fit in registers; the WIDE entry points take them. One warp
-// per row as before, but the row is streamed from device memory once per
-// pass instead of held (the forward reads z three times and x once, the
-// backward z and g four times; a row is at most a few KB, so the rereads hit
-// L1/L2): the mean, then the centred squares, then the output. The per-lane
-// sums run in the same channel order as the register form, so the statistics
-// are the same bits. The backward writes each row's (mean, rstd) to a [T, 2]
-// workspace, and dgamma / dbeta come from a column kernel that recomputes
-// hhat and sums g m hhat and g m over each block's rows into the same [n_blocks,
-// 2, C] partials, then ln_dp_add_reduce_kernel as before.
+// operand) do not fit in registers; the WIDE entry points take them. The
+// forward keeps one warp per row and streams the row from device memory once
+// per pass instead of holding it (z three times and x once; a row is a few
+// KB, so the rereads hit L1/L2): the mean, then the centred squares, then
+// the output. The backward reads z and g from device memory once and writes
+// dz once, all three by the copy engine (bulk copies, Hopper's TMA without a
+// tensor map): a block stages R rows of z and g in shared memory through a
+// two-stage ring (R = 8 up to C = 3200, fewer above), one warp a row
+// computes the statistics from there, and then the block's threads form dz
+// over z in the stage and add the staged rows to its [2, C] dgamma / dbeta
+// partial in shared memory, column by column in row order; one bulk store
+// writes the stage's dz rows while the next stage computes.
+// ln_dp_add_reduce_kernel sums the partials as before. The per-lane sums of
+// the statistics run in the same channel order as the register form, so
+// they are the same bits. dz leaves by the copy engine because stores from
+// the threads held the kernel to 0.595 ms at [64800, 3072], against 0.457
+// with the bulk store and a 0.357 ms bound (PERF.md).
 //
 // Contract (checked by the Python wrapper): z, x, g, out, dz [T, C] bf16 and
 // row-major contiguous; gamma, beta [C] fp32; m [T] fp32 (one multiplier a
-// row); C % 128 == 0 (C <= 2048 for the register entry points); part
-// [n_blocks, 2, C] fp32; stats [T, 2] fp32 (WIDE backward).
+// row); C % 128 == 0 (C <= 2048 for the register entry points; the WIDE
+// backward up to the width whose one staged row fits: C <= 14464); part
+// [n_blocks, 2, C] fp32.
 
+#include <cstdint>
 #include <type_traits>
 
 #include "cuda_common.cuh"
@@ -311,75 +320,225 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// dz of each row (one warp a row), and the row's (mean, rstd) into stats
-__global__ void __launch_bounds__(kWarps * 32)
-    ln_dp_add_bwd_wide_kernel(const bf16* __restrict__ z, const bf16* __restrict__ g,
-                              const float* __restrict__ gamma, const float* __restrict__ m,
-                              bf16* __restrict__ dz, float* __restrict__ stats, int T, int C) {
-  const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= T) return;
-  const bf16* zr = z + row * C;
-  const bf16* gr = g + row * C;
-  float mean, rstd;
-  row_stats_wide(zr, C, lane, mean, rstd);
-  const float mf = m[row];
+// mean and rstd of a row staged in shared memory: row_stats_wide's sums in
+// its order, the loads unrolled ahead of them
+__device__ __forceinline__ void staged_row_stats(const bf16* row, int C, int lane, float& mean,
+                                                 float& rstd) {
   const int nch = C / 128;
-  float s1 = 0.0f, s2 = 0.0f;
+  float s = 0.0f;
+#pragma unroll 4
   for (int ch = 0; ch < nch; ++ch) {
-    float h[4], dy[4], gm[4];
-    load_row<1>(zr + ch * 128, lane, h);
-    load_row<1>(gr + ch * 128, lane, dy);
-    load_vec<1>(gamma + ch * 128, lane, gm);
+    float v[4];
+    load_row<1>(row + ch * 128, lane, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s += v[j];
+  }
+  mean = warp_sum(s) / static_cast<float>(C);
+  float ss = 0.0f;
+#pragma unroll 4
+  for (int ch = 0; ch < nch; ++ch) {
+    float v[4];
+    load_row<1>(row + ch * 128, lane, v);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float hh = (h[j] - mean) * rstd;  // hhat
-      const float dh = dy[j] * mf * gm[j];
-      s1 += dh * hh;
-      s2 += dh;
+      const float d = v[j] - mean;
+      ss += d * d;
     }
   }
-  const float t1 = warp_sum(s1) / static_cast<float>(C);  // mean(dh * hhat)
-  const float t2 = warp_sum(s2) / static_cast<float>(C);  // mean(dh)
-  for (int ch = 0; ch < nch; ++ch) {
-    float h[4], dy[4], gm[4];
-    load_row<1>(zr + ch * 128, lane, h);
-    load_row<1>(gr + ch * 128, lane, dy);
-    load_vec<1>(gamma + ch * 128, lane, gm);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float hh = (h[j] - mean) * rstd;
-      const float dh = dy[j] * mf * gm[j];
-      dy[j] = __fmul_rn(rstd, __fsub_rn(__fsub_rn(dh, t2), __fmul_rn(hh, t1)));
-    }
-    store_row<1>(dz + row * C + ch * 128, lane, dy);
-  }
-  if (lane == 0) {
-    stats[row * 2] = mean;
-    stats[row * 2 + 1] = rstd;
-  }
+  rstd = 1.0f / sqrtf(warp_sum(ss) / static_cast<float>(C) + kEps);
 }
 
-// the block's [dgamma | dbeta] partial over its rows [r0, r1), in row order:
-// one thread a column, hhat recomputed from the row's (mean, rstd)
-__global__ void ln_dp_add_cols_wide_kernel(const bf16* __restrict__ z,
-                                           const bf16* __restrict__ g,
-                                           const float* __restrict__ m,
-                                           const float* __restrict__ stats, int T, int C,
-                                           int rows_per_block, float* __restrict__ part) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_block;
-  const long long r1 = min(static_cast<long long>(T), r0 + rows_per_block);
-  float acc_g = 0.0f, acc_b = 0.0f;
-  for (long long r = r0; r < r1; ++r) {
-    const float hh = (__bfloat162float(z[r * C + c]) - stats[r * 2]) * stats[r * 2 + 1];
-    const float dy = __bfloat162float(g[r * C + c]) * m[r];
-    acc_g += dy * hh;
-    acc_b += dy;
+// The backward's dynamic shared memory at width C (wide_bwd_plan in
+// ops/ln_kernels.py mirrors it): two stages of R rows of z and g (bf16), the
+// block's [dgamma | dbeta] partial (fp32) and each staged row's (mean, rstd,
+// m, t1, t2) (8 words); R the most rows a stage (at most one a warp) that
+// fit a block's shared memory beside 64 bytes of static (the stages'
+// mbarriers), or 0 where not one does.
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may opt into
+inline int wide_rows(int C) {
+  const long long r = (kMaxSmem - 64 - 8LL * C - 32LL * kWarps) / (8LL * C);
+  return static_cast<int>(r < 0 ? 0 : r > kWarps ? kWarps : r);
+}
+inline size_t wide_bwd_smem(int C, int R) {
+  return 8ull * R * C + 8ull * C + 32ull * kWarps;
+}
+
+// The bulk copies (TMA, no tensor map) and their mbarriers: one thread
+// copies a stage's rows of z and g, the barrier counts the bytes landed
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The bulk store of a stage's dz rows (read from shared memory by the copy
+// engine; each thread that wrote them fences its writes to it first), its
+// commit, and the wait until the engine has read them
+__device__ __forceinline__ void fence_to_copy_engine() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The backward of rows wider than 2048 channels, one pass over z and g: each
+// block takes a contiguous range of rows, R rows a stage through a
+// two-stage ring of bulk copies (one thread copies a stage's R rows of z and
+// of g, each one contiguous span; the next stage's copies are in flight
+// while this one computes). Warp w takes staged row w: its statistics,
+// mean(dh) and mean(dh hhat) from shared memory in the register form's
+// per-lane order (the same bits). Then every thread takes 4 consecutive
+// columns at a time of the staged rows: it forms dz (an elementwise
+// function of the row's statistics, the register form's arithmetic) over
+// z in the stage, and adds g m hhat and g m to the block's [dgamma | dbeta]
+// partial in shared memory in row order, so each column sums the block's
+// rows in row order; one thread then hands the stage's dz rows to a bulk
+// store, which must have read them before the stage is loaded again. The
+// block writes its partial; ln_dp_add_reduce_kernel sums the partials in
+// block order.
+__global__ void __launch_bounds__(kWarps * 32, 1)
+    ln_dp_add_bwd_wide_kernel(const bf16* __restrict__ z, const bf16* __restrict__ g,
+                              const float* __restrict__ gamma, const float* __restrict__ m,
+                              bf16* __restrict__ dz, float* __restrict__ part, int T, int C,
+                              int rows_per_block, int R) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) unsigned long long bars[2];  // a stage's copies landed
+  bf16* stage0 = reinterpret_cast<bf16*>(smem);  // [2][z R rows | g R rows]
+  float* acc = reinterpret_cast<float*>(stage0 + 4ll * R * C);  // [dgamma | dbeta] partial
+  float* st = acc + 2 * C;  // [kWarps][8]: mean, rstd, m, mean(dh hhat), mean(dh)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) acc[i] = 0.0f;
+  if (threadIdx.x == 0) {
+    bar_init(smem_u32(&bars[0]));
+    bar_init(smem_u32(&bars[1]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  part[static_cast<size_t>(blockIdx.y) * 2 * C + c] = acc_g;
-  part[static_cast<size_t>(blockIdx.y) * 2 * C + C + c] = acc_b;
+  __syncthreads();
+
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(static_cast<long long>(T), r0 + rows_per_block);
+  const int ngroups = r1 > r0 ? static_cast<int>((r1 - r0 + R - 1) / R) : 0;
+  // the group's rows of z and g into stage (grp & 1)
+  auto load = [&](int grp) {
+    const long long row = r0 + static_cast<long long>(grp) * R;
+    const int nr = static_cast<int>(min(static_cast<long long>(R), r1 - row));
+    bf16* zs = stage0 + static_cast<size_t>(grp & 1) * 2 * R * C;
+    const uint32_t bar = smem_u32(&bars[grp & 1]);
+    const uint32_t bytes = static_cast<uint32_t>(nr) * C * 2;
+    bar_expect(bar, 2 * bytes);
+    bulk_load(zs, z + row * C, bytes, bar);
+    bulk_load(zs + static_cast<size_t>(R) * C, g + row * C, bytes, bar);
+  };
+  if (threadIdx.x == 0 && ngroups > 0) load(0);
+  for (int grp = 0; grp < ngroups; ++grp) {
+    if (threadIdx.x == 0 && grp + 1 < ngroups) {
+      bulk_store_read_wait();  // the stage's last dz rows have left it
+      load(grp + 1);
+    }
+    bar_wait(smem_u32(&bars[grp & 1]), (grp >> 1) & 1);
+    const long long row0 = r0 + static_cast<long long>(grp) * R;
+    const int nr = static_cast<int>(min(static_cast<long long>(R), r1 - row0));
+    bf16* zs = stage0 + static_cast<size_t>(grp & 1) * 2 * R * C;
+    const bf16* gs = zs + static_cast<size_t>(R) * C;
+    if (warp < nr) {  // row row0 + warp's statistics, as the register form sums them
+      const bf16* zr = zs + static_cast<size_t>(warp) * C;
+      const bf16* gr = gs + static_cast<size_t>(warp) * C;
+      float mean, rstd;
+      staged_row_stats(zr, C, lane, mean, rstd);
+      const float mf = m[row0 + warp];
+      float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 4
+      for (int ch = 0; ch < C / 128; ++ch) {
+        float h[4], dy[4], gm[4];
+        load_row<1>(zr + ch * 128, lane, h);
+        load_row<1>(gr + ch * 128, lane, dy);
+        load_vec<1>(gamma + ch * 128, lane, gm);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float hh = (h[j] - mean) * rstd;  // hhat
+          const float dh = dy[j] * mf * gm[j];
+          s1 += dh * hh;
+          s2 += dh;
+        }
+      }
+      const float t1 = warp_sum(s1) / static_cast<float>(C);  // mean(dh * hhat)
+      const float t2 = warp_sum(s2) / static_cast<float>(C);  // mean(dh)
+      if (lane == 0) {
+        float* sr = st + warp * 8;
+        sr[0] = mean;
+        sr[1] = rstd;
+        sr[2] = mf;
+        sr[3] = t1;
+        sr[4] = t2;
+      }
+    }
+    __syncthreads();
+    // dz of the staged rows (written over their z in the stage) and their
+    // terms of the block's partial, 4 columns a thread at a time, the rows in
+    // order: dgamma += (g m) hhat, dbeta += g m
+    for (int c = 4 * threadIdx.x; c < C; c += 4 * blockDim.x) {
+      float gm[4], ag[4], ab[4];
+      load_vec<1>(gamma + c, 0, gm);
+      load_vec<1>(acc + c, 0, ag);
+      load_vec<1>(acc + C + c, 0, ab);
+#pragma unroll 2
+      for (int r = 0; r < nr; ++r) {
+        const float* sr = st + r * 8;
+        const float mean = sr[0], rstd = sr[1], mf = sr[2], t1 = sr[3], t2 = sr[4];
+        float zv[4], gv[4];
+        load_row<1>(zs + static_cast<size_t>(r) * C + c, 0, zv);
+        load_row<1>(gs + static_cast<size_t>(r) * C + c, 0, gv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float hh = (zv[j] - mean) * rstd;
+          const float dy = gv[j] * mf;
+          ag[j] += dy * hh;
+          ab[j] += dy;
+          zv[j] = __fmul_rn(rstd, __fsub_rn(__fsub_rn(dy * gm[j], t2), __fmul_rn(hh, t1)));
+        }
+        store_row<1>(zs + static_cast<size_t>(r) * C + c, 0, zv);
+      }
+      *reinterpret_cast<float4*>(acc + c) = make_float4(ag[0], ag[1], ag[2], ag[3]);
+      *reinterpret_cast<float4*>(acc + C + c) = make_float4(ab[0], ab[1], ab[2], ab[3]);
+    }
+    fence_to_copy_engine();
+    __syncthreads();  // the stage and the statistics are free for the next group
+    if (threadIdx.x == 0) {  // the group's dz rows, one contiguous span
+      bulk_store(dz + row0 * C, zs, static_cast<uint32_t>(nr) * C * 2);
+    }
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
+    part[static_cast<size_t>(blockIdx.x) * 2 * C + i] = acc[i];
+  }
 }
 
 // calls launch(std::integral_constant<int, C / 128>) for C / 128 in 1..16
@@ -440,25 +599,27 @@ extern "C" int swin_ln_dp_add_wide_fwd(const void* z, const void* x, const void*
 }
 
 // K11 backward for rows wider than 2048 channels: dz [T, C] bf16, dgamma and
-// dbeta [C] fp32, through the workspaces stats [T, 2] and part [n_blocks, 2,
-// C] fp32.
+// dbeta [C] fp32, through the workspace part [n_blocks, 2, C] fp32; one
+// kernel over z and g, then the partials' reduction. Refuses a width whose
+// one staged row does not fit a block's shared memory (wide_rows).
 extern "C" int swin_ln_dp_add_wide_bwd(const void* z, const void* g, const void* gamma,
-                                       const void* m, void* dz, void* stats, void* part,
-                                       void* dgamma, void* dbeta, int T, int C, int n_blocks,
-                                       void* stream) {
-  if (T < 1 || C < 128 || C % 128 != 0 || n_blocks < 1 || n_blocks > 65535) {
+                                       const void* m, void* dz, void* part, void* dgamma,
+                                       void* dbeta, int T, int C, int n_blocks, void* stream) {
+  const int R = C >= 128 ? wide_rows(C) : 0;
+  if (T < 1 || C < 128 || C % 128 != 0 || R < 1 || n_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ln_dp_add_bwd_wide_kernel<<<(T + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
-      static_cast<const bf16*>(z), static_cast<const bf16*>(g), static_cast<const float*>(gamma),
-      static_cast<const float*>(m), static_cast<bf16*>(dz), static_cast<float*>(stats), T, C);
-  int code = static_cast<int>(cudaGetLastError());
+  const size_t smem = wide_bwd_smem(C, R);
+  int code = static_cast<int>(cudaFuncSetAttribute(
+      ln_dp_add_bwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
   if (code != 0) return code;
   const int rows_per_block = (T + n_blocks - 1) / n_blocks;
-  ln_dp_add_cols_wide_kernel<<<dim3((C + 255) / 256, n_blocks), 256, 0, s>>>(
-      static_cast<const bf16*>(z), static_cast<const bf16*>(g), static_cast<const float*>(m),
-      static_cast<const float*>(stats), T, C, rows_per_block, static_cast<float*>(part));
+  ln_dp_add_bwd_wide_kernel<<<n_blocks, kWarps * 32, smem, s>>>(
+      static_cast<const bf16*>(z), static_cast<const bf16*>(g), static_cast<const float*>(gamma),
+      static_cast<const float*>(m), static_cast<bf16*>(dz), static_cast<float*>(part), T, C,
+      rows_per_block, R);
   code = static_cast<int>(cudaGetLastError());
   if (code != 0) return code;
   ln_dp_add_reduce_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>(

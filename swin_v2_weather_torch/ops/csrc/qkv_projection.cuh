@@ -1,8 +1,9 @@
 // The qkv projection of the qkv-fused window attention and its backward, on
 // the Hopper GEMM core. project() writes qkv = bf16(x @ W + b) [T, N] for the
-// forwards (K1/K7/K10/K12 in window_attention_qkv.cu) and the backwards
-// (K2/K7/K10/K12 in window_attention_qkv_bwd.cu, the large-head variant in
-// window_attention_qkv_large.cu). projection_backward(), shared by the
+// one-block backwards (K2/K7/K10/K12 in window_attention_qkv_bwd.cu);
+// project_normalized() the forwards' (window_attention_qkv.cu) and
+// project_normalized_keep() the streamed backwards'
+// (window_attention_qkv_large.cu). projection_backward(), shared by the
 // backwards: given the bf16 cotangent of the projection output dqkv [T, N]
 // (N = 3C, or 3 * heads * 128 for K10), compute
 //   dx = dqkv @ W^T on the GEMM core (wgmma_gemm.cuh), W [C_in, N] read as
@@ -93,7 +94,7 @@ int project(const bf16* x, const bf16* w, const float* b, bf16* qkv, int T, int 
 // columns are exact zeros); a tile of BN columns holds BN / UNIT whole
 // heads. role0 is the packed column of this launch's column 0 (v5's slabs)
 // and C the columns of one role: a head at packed column p is q or k where
-// p / C < 2. KEEP (the large-head backward's recompute, so that its qn16 is
+// p / C < 2. KEEP (the streamed backward's recompute, so that its qn16 is
 // the forward's): the inverse norms also go to norms [M, 2, C / UNIT] (row,
 // q or k, head) and, where park is not null (v4), the raw q and k values to
 // their places in park [M, ld].
@@ -235,19 +236,24 @@ int project_normalized(const bf16* x, const bf16* w, const float* b, bf16* qkv, 
   }
 }
 
-// The large-head backward's recompute (window_attention_qkv_large.cu):
-// project_normalized at head dim 128 or 256 whose epilogue also keeps the
-// inverse norms, norms [T, 2, N / 3 / unit], and (park not null: v4) parks
-// the raw q and k rows in park [T, N].
+// The streamed backward's recompute (window_attention_qkv_large.cu):
+// project_normalized whose epilogue also keeps the inverse norms, norms [T,
+// 2, N / 3 / unit], and (park not null: v4) parks the raw q and k rows in
+// park [T, N]. unit: the head dim, or 128 for the padded heads.
 template <class = void>
 int project_normalized_keep(const bf16* x, const bf16* w, const float* b, bf16* qkv, int T,
                             int Cin, int N, int unit, int slab_hd, float* norms, bf16* park,
                             cudaStream_t s) {
   switch (unit) {
-    case 128:
-      return project_units<128, true>(x, w, b, qkv, T, Cin, N, slab_hd, s, norms, park);
-    case 256:
-      return project_units<256, true>(x, w, b, qkv, T, Cin, N, slab_hd, s, norms, park);
+#define SWIN_KEEP_CASE(U) \
+  case U:                 \
+    return project_units<U, true>(x, w, b, qkv, T, Cin, N, slab_hd, s, norms, park);
+    SWIN_KEEP_CASE(32)
+    SWIN_KEEP_CASE(64)
+    SWIN_KEEP_CASE(96)
+    SWIN_KEEP_CASE(128)
+    SWIN_KEEP_CASE(256)
+#undef SWIN_KEEP_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,13 @@
 // The window-attention backward, streamed, hand-written for Hopper (sm_90a):
 // one template for the qkv-fused family's backward (K2, its K7 CPB-bias
-// instance and K12's v5/v4 instances; window_attention_qkv_large.cu) at head
-// dims 128 and 256, L <= 256, where its one-block backward does not fit
-// shared memory, and for the whole of the grid route's (K8 with its BIAS
-// instance; window_attention_grid_large.cu) and of the windowed route's (K9
-// with its BIAS instance; window_attention_v1_large.cu): every head dim
-// 32-256, any L. The softmax form (FORM) and the layout of the token rows
-// are its parameters.
+// instance, K10's padded heads and K12's v5/v4 instances, padded v4 too;
+// window_attention_qkv_large.cu) wherever its one-block backward does not
+// run: head dims 128 and 256 where that one does not fit shared memory, and
+// every head dim 32-256 past L = 256; and for the whole of the grid route's
+// (K8 with its BIAS instance; window_attention_grid_large.cu) and of the
+// windowed route's (K9 with its BIAS instance; window_attention_v1_large.cu):
+// every head dim 32-256, any L. The softmax form (FORM), the layout of the
+// token rows and (FORM_QKV) the head pitch are its parameters.
 //
 // Replaces, at those shapes, the TPU kernels of
 // swin_v2_weather_tpu/ops/window_attention.py:
@@ -38,7 +39,9 @@
 //    at head dims 96 and 128). K8's rows kernel fits 128 by keeping z alone
 //    (Z_ONLY, below), not z and dp (96 a lane, which spilled 8-48 B a
 //    thread at 128 registers); K9's, whose ds sweep needs p and dp both,
-//    keeps one block an SM (it spills at 128). The tiles of
+//    keeps one block an SM (it spills at 128). The qkv-fused family's
+//    kernels up to head dim 128 run two blocks an SM too (its rows kernel
+//    there recomputes z and dp at every L and holds dqn alone). The tiles of
 //    a (window, head) are split evenly over adjacent blocks, then heads,
 //    then windows, so the streamed side comes from device memory once and
 //    from L2 after. The block's own rows (q and g; k and v) are staged once;
@@ -90,7 +93,11 @@
 //  * Token rows: the grid's pixels (K2's family, K8; a table of the window's
 //    L pixel rows in shared memory), v4's window-major rows (the same table)
 //    or K9's contiguous [L, HD] slab of each (window, head) in [Bw, heads,
-//    L, HD] tensors (row l of the slab; no table, no head offset).
+//    L, HD] tensors (row l of the slab; no table, no head offset). Head h
+//    starts at column h * HD of a token row; the qkv-fused family's at
+//    h * hp, its head pitch hp = ldg / heads: HD, or 128 for its padded
+//    heads (K10, padded v4), whose pad lanes of dq, dk and dv the kernels
+//    write as exact zeros (dx and dW are formed from them).
 //
 // Rounding sites (the TPU kernels' contracts):
 //   FORM_QKV (K2, K7, K12): q, k normalized by the recomputed projection's
@@ -149,8 +156,10 @@ struct Geo {
 };
 
 struct Args {
-  const bf16 *q, *k, *v, *g;  // column 0 of token row 0 (head h at + h * HD; FORM_V1: row 0)
-  int ldq, ldk, ldv, ldg;     // token row strides (elements)
+  // column 0 of token row 0 (head h at + h * HD, FORM_QKV + h * ldg / heads,
+  // its head pitch; FORM_V1: row 0)
+  const bf16 *q, *k, *v, *g;
+  int ldq, ldk, ldv, ldg;  // token row strides (elements)
   bf16 *dq, *dk, *dv;         // the outputs, likewise (v4: dq and dk hold the raw rows first)
   int ldd;
   const float *scale, *bias, *mask;  // bias [heads, L, L] (BIAS), mask [L, L] or null
@@ -294,14 +303,32 @@ __device__ __forceinline__ void in_order(unsigned (&f0)[4], unsigned (&f1)[4],
 
 // Blocks an SM each kernel's launch bounds ask for (128 registers a thread at
 // two): K8's instances up to head dim 96 both kernels, K9's columns kernel up
-// to head dim 128; the others one.
+// to head dim 128, the qkv-fused family's both kernels up to head dim 128;
+// the others one.
 template <int HD, int FORM>
 __host__ __device__ constexpr int rows_blocks() {
-  return FORM == FORM_GRID && HD <= 96 ? 2 : 1;
+  return (FORM == FORM_GRID && HD <= 96) || (FORM == FORM_QKV && HD <= 128) ? 2 : 1;
 }
 template <int HD, int FORM>
 __host__ __device__ constexpr int cols_blocks() {
-  return (FORM == FORM_GRID && HD <= 96) || (FORM == FORM_V1 && HD <= 128) ? 2 : 1;
+  return (FORM == FORM_GRID && HD <= 96) || (FORM != FORM_GRID && HD <= 128) ? 2 : 1;
+}
+
+// Whether the rows kernel has its KEEP instance: the qkv-fused family's only
+// at head dim 256, so that its instances up to head dim 128 recompute z and
+// dp at every L and fit 128 registers (two blocks an SM)
+template <int HD, int FORM>
+__host__ __device__ constexpr bool has_keep() {
+  return FORM != FORM_QKV || HD == 256;
+}
+
+// exact zeros into the pad lanes [HD, hp) of a head's row: the lanes of a
+// quad take 16-byte pieces in turn
+template <int HD>
+__device__ __forceinline__ void zero_pad(bf16* head_row, int hp) {
+  for (int c = HD + (threadIdx.x & 3) * 8; c < hp; c += 32) {
+    *reinterpret_cast<uint4*>(head_row + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 // KEEP (L <= KEEP_L): z and dp of the warp's keys stay in registers from the
@@ -351,7 +378,8 @@ __global__ void __launch_bounds__(THREADS, rows_blocks<HD, FORM>())
   const int nsteps = (L + STEP - 1) / STEP;
   const int nitems = (Z_ONLY ? 3 : KEEP ? 2 : NSW) * nsteps;
   // the head's column 0 of token row 0, or K9's slab row 0
-  const size_t hoff = V1 ? slab * HD : static_cast<size_t>(t.h) * HD;
+  const int hp = FORM == FORM_QKV ? a.ldg / g.heads : HD;  // the head pitch
+  const size_t hoff = V1 ? slab * HD : static_cast<size_t>(t.h) * hp;
 
   if constexpr (!V1) {
     for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
@@ -760,6 +788,7 @@ __global__ void __launch_bounds__(THREADS, rows_blocks<HD, FORM>())
           }
           *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(v0, v1);
         }
+        if (FORM == FORM_QKV && hf == 1) zero_pad<HD>(dst, hp);
       }
     }
   }
@@ -822,7 +851,8 @@ __global__ void __launch_bounds__(THREADS, cols_blocks<HD, FORM>())
   const bool active = k0 < LP;
   const int kr[2] = {k0 + g4, k0 + g4 + 8};  // the lane's key rows
   const int nitems = (LQ + STEP - 1) / STEP;
-  const size_t hoff = V1 ? slab * HD : static_cast<size_t>(t.h) * HD;
+  const int hp = FORM == FORM_QKV ? a.ldg / g.heads : HD;  // the head pitch
+  const size_t hoff = V1 ? slab * HD : static_cast<size_t>(t.h) * hp;
 
   if constexpr (!V1) {
     for (int l = threadIdx.x; l < LS; l += blockDim.x) tok[l] = token_row(g, t, l);
@@ -1016,12 +1046,24 @@ __global__ void __launch_bounds__(THREADS, cols_blocks<HD, FORM>())
           __floats2bfloat162_rn(dv[j][2 * y], dv[j][2 * y + 1]);
       *reinterpret_cast<__nv_bfloat162*>(a.dk + off + d) = __floats2bfloat162_rn(k0v, k1v);
     }
+    if constexpr (FORM == FORM_QKV) zero_pad<HD>((hf == 0 ? a.dv : a.dk) + off, hp);
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch: the rows kernel, then the columns kernel, on one stream
 // ---------------------------------------------------------------------------
+
+// the rows kernel that takes L
+template <int HD, int FORM, bool BIAS, bool RAW>
+auto rows_kernel_for(int L) {
+  if constexpr (has_keep<HD, FORM>()) {
+    return L <= KEEP_L ? streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, true>
+                       : streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, false>;
+  } else {
+    return streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, false>;
+  }
+}
 
 template <int HD, int FORM, bool BIAS, bool RAW>
 int launch(const Args& a, const Geo& g, cudaStream_t s) {
@@ -1030,11 +1072,12 @@ int launch(const Args& a, const Geo& g, cudaStream_t s) {
   const size_t cs = cols_smem<HD, FORM>(p.rt, g.LP, g.LS);
   const long long blocks = static_cast<long long>(g.B) * g.nwh * g.nww * g.heads * p.nchunk;
   if (g.LS > g.LP || g.LQ > g.LS || rs > static_cast<size_t>(kMaxSmem) ||
-      cs > static_cast<size_t>(kMaxSmem) || blocks < 1 || blocks > 2147483647LL) {
+      cs > static_cast<size_t>(kMaxSmem) || blocks < 1 || blocks > 2147483647LL ||
+      (FORM == FORM_QKV &&
+       (a.ldg % g.heads != 0 || a.ldg / g.heads < HD || a.ldg / g.heads % 8 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto rows = g.L <= KEEP_L ? streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, true>
-                                  : streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, false>;
+  const auto rows = rows_kernel_for<HD, FORM, BIAS, RAW>(g.L);
   const auto cols = streamed_bwd_cols_kernel<HD, FORM, BIAS, RAW>;
   cudaError_t err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(rs));
@@ -1063,8 +1106,7 @@ int launch_info(const Geo& g, int* info) {
   if (rs > static_cast<size_t>(kMaxSmem) || cs > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto rows = g.L <= KEEP_L ? streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, true>
-                                  : streamed_bwd_rows_kernel<HD, FORM, BIAS, RAW, false>;
+  const auto rows = rows_kernel_for<HD, FORM, BIAS, RAW>(g.L);
   const auto cols = streamed_bwd_cols_kernel<HD, FORM, BIAS, RAW>;
   info[0] = p.rt * 64;
   info[1] = p.nchunk;

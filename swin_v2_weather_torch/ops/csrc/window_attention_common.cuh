@@ -1,24 +1,19 @@
 // Pieces shared by the window-attention kernels (the qkv-fused backward K2 in
 // window_attention_qkv_bwd.cu and its K7, K10 and K12 instances, the
-// qkv-fused family's large-head and chunked backwards, the K8/K9 forward and
-// the qkv-fused forwards' pass in qkv_attention.cuh, and the streamed
-// backwards of streamed_bwd.cuh): the geometry of one launch, the block ->
-// (window, head) map, the q/k L2 normalization of 16-row tiles, the 16-row
-// score product (wmma), the chunked backwards' tile accumulation, the
-// m16n8k16 mma and ldmatrix primitives with the register-resident score
-// tile, accumulation and accumulator-to-A helpers (K2's one-block pass, the
-// streamed backwards), the 8-value bf16 store and the window-order d(bias)
-// reduction.
+// qkv-fused family's streamed backward, the K8/K9 forward and the qkv-fused
+// forwards' pass in qkv_attention.cuh, and the streamed backwards of
+// streamed_bwd.cuh): the geometry of one launch, the block -> (window, head)
+// map, the q/k L2 normalization of 16-row tiles, the m16n8k16 mma and
+// ldmatrix primitives with the register-resident score tile, accumulation
+// and accumulator-to-A helpers (K2's one-block pass, the streamed
+// backwards) and the window-order d(bias) reduction.
 
 #pragma once
-
-#include <mma.h>
 
 #include "cuda_common.cuh"
 
 namespace swin_attn {
 
-using namespace nvcuda;
 using namespace swin_cuda;
 
 constexpr int KC = 32;        // the C_in granularity the qkv-fused backwards take
@@ -35,7 +30,7 @@ struct Geometry {
 };
 
 // Fills the geometry from the launch arguments; false if they are not valid
-// (L above MAX_LP only where any_l: the chunked backward's callers).
+// (L above MAX_LP only where any_l: the streamed backward's callers).
 inline bool make_geometry(Geometry& g, int B, int H, int W, int Cin, int C, int heads, int wh,
                           int ww, bool any_l = false) {
   if (B < 1 || wh < 1 || ww < 1 || heads < 1 || H % wh != 0 || W % ww != 0 || Cin < KC ||
@@ -213,67 +208,6 @@ __device__ __forceinline__ void to_a(unsigned (&a)[4], const float (&c)[2][4]) {
   a[1] = pack_bf16(c[0][2], c[0][3]);
   a[2] = pack_bf16(c[1][0], c[1][1]);
   a[3] = pack_bf16(c[1][2], c[1][3]);
-}
-
-using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// s = a_rows [16, HD] @ b_rows [16, HD]^T (both row pitch HD + 8)
-template <int HD>
-__device__ __forceinline__ void dot_rows(Frag& s, const bf16* a_rows, const bf16* b_rows) {
-  constexpr int LDQ = HD + 8;
-  wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-  for (int d = 0; d < HD / 16; ++d) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::load_matrix_sync(a, a_rows + d * 16, LDQ);
-    wmma::load_matrix_sync(b, b_rows + d * 16, LDQ);
-    wmma::mma_sync(s, a, b, s);
-  }
-}
-
-// The chunked backwards (any L; the qkv-fused family's, in
-// window_attention_qkv_large.cu) keep one 16 x 16 bf16 tile of ds (or p) per warp,
-// row pitch LDT, in place of a row of length L. Their kernels declare one
-// block an SM in their launch bounds (their shared memory allows one or
-// two): without it ptxas held several instances to 56-80 registers and
-// spilled (-Xptxas -v on the H100 build).
-constexpr int LDT = 24;
-
-// acc [16, HD] fp32 (pitch HD, shared memory) += tile (the warp's 16 x 16
-// bf16 tile, pitch LDT) @ rows [16, HD] bf16 (pitch HD + 8): each 16-column
-// accumulator fragment read, multiplied into and written back, so over the
-// tiles of a sweep every element sums in tile order.
-template <int HD>
-__device__ __forceinline__ void accumulate_tile(float* acc, const bf16* tile, const bf16* rows) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::load_matrix_sync(a, tile, LDT);
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    Frag c;
-    wmma::load_matrix_sync(c, acc + j * 16, HD, wmma::mem_row_major);
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-    wmma::load_matrix_sync(b, rows + j * 16, HD + 8);
-    wmma::mma_sync(c, a, b, c);
-    wmma::store_matrix_sync(acc + j * 16, c, HD, wmma::mem_row_major);
-  }
-  __syncwarp();
-}
-
-// Zeroes the warp's [16, HD] fp32 accumulator.
-template <int HD>
-__device__ __forceinline__ void zero_acc(float* acc) {
-  for (int i = threadIdx.x & 31; i < 16 * HD; i += 32) acc[i] = 0.0f;
-  __syncwarp();
-}
-
-// Writes the lane's 8 values bf16(f(e, v[e])) as one 16-byte store.
-template <class F>
-__device__ __forceinline__ void store8(bf16* dst, const float* v, F f) {
-  __align__(16) bf16 o[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(f(e, v[e]));
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
 }
 
 // dbias[h, q, k] = sum over windows, in window order, of the blocks' partials

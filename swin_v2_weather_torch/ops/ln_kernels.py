@@ -42,6 +42,19 @@ from swin_v2_weather_torch.ops import _build
 
 _EPS = 1e-5
 _MAX_C = 2048  # widest row the register kernels keep; wider rows take the WIDE entry points
+_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
+_WARPS = 8  # warps a block of the backward kernels
+
+
+def wide_bwd_plan(c: int) -> dict:
+    """The WIDE backward's launch at width ``c`` (``csrc/ln_dp_add.cu``,
+    ``wide_rows`` and ``wide_bwd_smem``): ``rows`` of z and g a stage (two
+    stages, at most one row a warp; 0 where not one row fits beside the
+    stages' 64 bytes of mbarriers) and the bytes of dynamic shared memory
+    (the stages, the block's [2, C] fp32 partial and each staged row's
+    statistics)."""
+    rows = max(0, min(_WARPS, (_MAX_SMEM - 64 - 8 * c - 32 * _WARPS) // (8 * c)))
+    return {"rows": rows, "smem": 8 * rows * c + 8 * c + 32 * _WARPS}
 
 
 def supported(tokens: int, channels: int) -> bool:
@@ -142,9 +155,15 @@ def ln_dp_add_bwd(z2: torch.Tensor, g2: torch.Tensor, gamma: torch.Tensor, m2: t
     fp32 -> (dz [T, C] bf16, dgamma [C] fp32, dbeta [C] fp32). Each block of
     8 warps sums dgamma/dbeta over its contiguous rows into one partial, and a
     second kernel sums the partials in block order: no atomics, two calls give
-    the same bits. Launches on the current stream."""
+    the same bits. Rows wider than 2048 channels are staged in shared memory
+    (:func:`wide_bwd_plan`) and read from device memory once; there each
+    column of a block's partial sums the block's rows in row order. Launches
+    on the current stream."""
     name = "ln_dp_add_bwd"
     t, c = _check_operands(name, z2, g2, "g", gamma, m2)
+    if c > _MAX_C and not wide_bwd_plan(c)["rows"]:
+        raise ValueError(f"{name}: C={c}: one row of z and g fits a block's shared memory only "
+                         f"up to C = 14464")
     # two blocks of 8 warps per SM of an H100, at least 64 rows a block
     n_blocks = max(1, min(264, -(-t // 64)))
     f32 = dict(dtype=torch.float32, device=z2.device)
@@ -160,12 +179,11 @@ def ln_dp_add_bwd(z2: torch.Tensor, g2: torch.Tensor, gamma: torch.Tensor, m2: t
                                           m2.data_ptr(), dz.data_ptr(), part.data_ptr(),
                                           dgamma.data_ptr(), dbeta.data_ptr(), t, c, n_blocks,
                                           stream)
-        else:  # each row's (mean, rstd) for the column sums of dgamma and dbeta
-            stats = torch.empty((t, 2), **f32)
+        else:
             code = lib.swin_ln_dp_add_wide_bwd(z2.data_ptr(), g2.data_ptr(), gamma.data_ptr(),
-                                               m2.data_ptr(), dz.data_ptr(), stats.data_ptr(),
-                                               part.data_ptr(), dgamma.data_ptr(),
-                                               dbeta.data_ptr(), t, c, n_blocks, stream)
+                                               m2.data_ptr(), dz.data_ptr(), part.data_ptr(),
+                                               dgamma.data_ptr(), dbeta.data_ptr(), t, c,
+                                               n_blocks, stream)
     _build.check(code, name)
     ln_dp_add_bwd.launches += 1
     return dz, dgamma, dbeta

@@ -69,16 +69,18 @@ dbias in fp32.
 
 Head dims and windows: the forward (K1, K7, K10, K12) takes head dims 32-256
 and any L (:func:`qkv_fwd_plan`). The one-block-per-(window, head) backward
-(K2, K7) holds q, k, v and g [LP, HD] in shared memory; where that does not
-fit (head dim 256 at L = 162: the e2048 family; head dim 128 past L = 208),
-the large-head backward (``csrc/window_attention_qkv_large.cu``: the
-recompute with q/k normalized in its epilogue, then the streamed kernels of
-``csrc/streamed_bwd.cuh``, :func:`streamed_bwd_plan`) runs instead, with the
-same rounding sites, up to L = 256, and past that the chunked backward in
-the same source (:func:`qkv_chunked_bwd`; K10 and v4/v5 too), whose shared
-memory does not grow with L. :func:`qkv_variant`
-says which runs for a shape, or raises before any launch for a head dim the
-forward does not take.
+(K2, K7, K10, K12) holds q, k, v and g [LP, HD] in shared memory and takes
+head dims 32-96 at L <= 256; at head dims 128 and 256 (at 256 it does not
+fit, and at 128, where it fits up to L = 208, the streamed kernels took
+4.42 against its 4.55 ms at L = 162 on the H100, PERF.md) and at every
+head dim past L = 256, the streamed backward (``csrc/window_attention_qkv_large.cu``,
+:func:`qkv_streamed_bwd`: the recompute with q/k normalized in its
+epilogue, then the streamed kernels of ``csrc/streamed_bwd.cuh``,
+:func:`streamed_bwd_plan`, whose shared memory grows with L only by two
+small tables; every variant, K10's and the padded v4's head pitch 128 too)
+runs instead, with the same rounding sites. :func:`qkv_variant` says which
+runs for a shape, or raises before any launch for a head dim the forward
+does not take.
 
 Selectable variants, as in the JAX package, read at call time from the
 module globals (set from the environment at import):
@@ -141,8 +143,6 @@ qkv_impl()  # fail fast on a bad environment value, as the JAX package does at i
 qkv_bwd_impl()
 
 _MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90
-_LARGE_RW = 4  # 16-row warps per block of the chunked backward kernels
-_LDT = 24  # row pitch of the chunked backwards' per-warp 16 x 16 tile
 # the streamed backward (csrc/streamed_bwd.cuh): 16-row tiles a
 # block (two warps each), streamed rows a step, ring stages
 _STREAMED_RT, _STREAMED_STEP, _STREAMED_NS = 4, 32, 3
@@ -185,55 +185,39 @@ def qkv_smem_bytes(hd: int, l: int) -> dict:
     window length ``l``, as the CUDA sources compute it: ``fwd`` of the
     forward's attention pass (K1, K7, K10 and v5 alike: :func:`qkv_fwd_plan`),
     ``bwd`` of the one-block-per-(window, head) backward (K2; K7 and K10
-    alike), ``large_rows``/``large_cols`` of the large-head backward's
-    streamed rows and columns kernels (:func:`streamed_bwd_plan`) and
-    ``chunked`` of the chunked backward's rows and columns kernels (the same
-    at every L)."""
+    alike) and ``streamed_rows``/``streamed_cols`` of the streamed
+    backward's rows and columns kernels (:func:`streamed_bwd_plan`)."""
     lp = -(-l // 16) * 16
-    ldq, rw = hd + 8, _LARGE_RW
     plan = streamed_bwd_plan(hd, l)
     return {
         "fwd": qkv_fwd_plan(hd, l)["smem"],
-        "bwd": 4 * lp * ldq * 2 + (4 * lp + 16) * 4,
-        "large_rows": plan["rows_smem"],
-        "large_cols": plan["cols_smem"],
-        "chunked": (2 * rw * 16 * ldq + 64 * ldq + rw * 16 * _LDT) * 2
-        + (rw * 16 * hd + rw * 256 + 16) * 4,
+        "bwd": 4 * lp * (hd + 8) * 2 + (4 * lp + 16) * 4,
+        "streamed_rows": plan["rows_smem"],
+        "streamed_cols": plan["cols_smem"],
     }
-
-
-def _bwd_variant(name: str, hd: int, l: int, base: int, large: int) -> str:
-    """The backward of one family at head dim ``hd`` and window length ``l``
-    from its instances' shared memory: ``'base'`` (head dims 32-128, L <= 256)
-    where it fits, else ``'large'`` (head dim 128 or 256, L <= 256) where it
-    fits, else ``'chunked'`` (every head dim the forward takes, any L)."""
-    if hd not in ATTN_FWD_HEAD_DIMS or l < 1:
-        raise ValueError(f"{name}: no backward kernel takes head dim {hd} (the forward and "
-                         f"backward take {ATTN_FWD_HEAD_DIMS})")
-    if l <= 256 and hd <= 128 and base <= _MAX_SMEM:
-        return "base"
-    if l <= 256 and hd in (128, 256) and large <= _MAX_SMEM:
-        return "large"
-    return "chunked"
 
 
 def qkv_variant(name: str, hd: int, l: int, backward: bool) -> str:
     """Which qkv-fused kernel runs at head dim ``hd`` and window length ``l``.
     Forward: ``'streamed'`` (the projection on the GEMM core, then the
     streamed attention pass) at head dims 32/64/96/128/256 and any L.
-    Backward, at the same head dims and any L: ``'base'`` (K2, head dim
-    32/64/96/128, L <= 256) where its shared memory fits, else ``'large'``
-    (head dim 128 or 256, L <= 256: the streamed kernels, whose shared
-    memory fits at every such L), else ``'chunked'`` (every L above 256),
-    whose shared memory does not grow with L. Any other head dim raises a
+    Backward, at the same head dims: ``'base'`` (K2, head dim 32/64/96,
+    L <= 256) where its shared memory fits, else ``'streamed'`` (the
+    recompute, then the streamed kernels, whose shared memory grows with L
+    only by two small tables) where that fits. Any other shape raises a
     ValueError before a launch."""
+    if hd not in ATTN_FWD_HEAD_DIMS or l < 1:
+        raise ValueError(f"{name}: no {'backward' if backward else 'forward'} kernel takes head "
+                         f"dim {hd} (it takes {ATTN_FWD_HEAD_DIMS})")
     if not backward:
-        if hd in ATTN_FWD_HEAD_DIMS and l >= 1:
-            return "streamed"
-        raise ValueError(f"{name}: no forward kernel takes head dim {hd} (it takes "
-                         f"{ATTN_FWD_HEAD_DIMS})")
+        return "streamed"
     sm = qkv_smem_bytes(hd, l)
-    return _bwd_variant(name, hd, l, sm["bwd"], max(sm["large_rows"], sm["large_cols"]))
+    if l <= 256 and hd <= 96 and sm["bwd"] <= _MAX_SMEM:
+        return "base"
+    if max(sm["streamed_rows"], sm["streamed_cols"]) <= _MAX_SMEM:
+        return "streamed"
+    raise ValueError(f"{name}: no backward kernel takes L = {l} at head dim {hd}: the streamed "
+                     f"kernels' tables outgrow shared memory")
 
 
 def qkv_fwd_plan(hd: int, l: int, lq: Optional[int] = None) -> dict:
@@ -701,10 +685,10 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
     dev = x.device
     t = b * h * w
     lp = -(-l // 16) * 16
-    if variant == "chunked":
-        out = qkv_chunked_bwd(x, w_qkv if w5 is None else w5, w_qkv, b_qkv, scale, badd, g,
-                              window, mask_pattern, boundary_flag, hd=c // heads, nwh=nwh,
-                              nww=nww, lm=l, var="v3" if w5 is None else "v5")
+    if variant == "streamed":
+        out = qkv_streamed_bwd(x, w_qkv if w5 is None else w5, w_qkv, b_qkv, scale, badd, g,
+                               window, mask_pattern, boundary_flag, hd=c // heads, nwh=nwh,
+                               nww=nww, lm=l, var="v3" if w5 is None else "v5")
         fn.launches += 1
         gemm_core.count_launches(gemm_core.projection_launches(heads, w5 is not None) + 2)
         return out
@@ -712,11 +696,9 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
     # column sums
     dw_splits = gemm_core.split_k(c_in, 3 * c, t)
     db_splits = max(1, min(64, -(-t // 512)))
-    # d(scale) partials: one per window, or (large) one per window and 64 query rows
-    n_part = b * nwh * nww * _row_chunks(variant, lp)
+    n_part = b * nwh * nww  # d(scale) partials: one per window
     f32 = dict(dtype=torch.float32, device=dev)
-    # the recomputed projection (the GEMM core's; the large-head variant
-    # normalizes q and k in it) and its cotangent
+    # the recomputed projection (the GEMM core's) and its cotangent
     qkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
     dqkv = torch.empty((b, h, w, 3 * c), dtype=torch.bfloat16, device=dev)
     dw_part = torch.empty((dw_splits, c_in, 3 * c), **f32)
@@ -738,24 +720,7 @@ def _launch_backward(fn, x, w_qkv, b_qkv, scale, g, window, mask_pattern, bounda
                dw_part.data_ptr(), db_part.data_ptr(), dscale_part.data_ptr())
         outs = (dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dscale.data_ptr())
         dims = (b, h, w, c_in, c, heads, wh, ww, dw_splits, db_splits, stream)
-        if variant == "large":
-            # the norms and the per-row softmax statistics the two attention
-            # kernels share
-            inv = torch.empty((b, h, w, 2, heads), **f32)
-            rstat = torch.empty((b * nwh * nww, heads, lp, 2), **f32)
-            work = (g.data_ptr(), qkv.data_ptr(), inv.data_ptr(), rstat.data_ptr(),
-                    dqkv.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-                    dscale_part.data_ptr())
-            if w5 is not None:
-                code = lib.swin_window_attention_qkv5_large_bwd(
-                    x.data_ptr(), w5.data_ptr(), *head[1:], mask_ptr, float(boundary_flag), *work,
-                    *outs, *dims)
-            else:
-                code = lib.swin_window_attention_qkv_large_bwd(
-                    *head, None if badd is None else badd.data_ptr(), mask_ptr,
-                    float(boundary_flag), *work, None if badd is None else dbias_part.data_ptr(),
-                    *outs, None if badd is None else dbias.data_ptr(), *dims)
-        elif w5 is not None:
+        if w5 is not None:
             code = lib.swin_window_attention_qkv5_bwd(x.data_ptr(), w5.data_ptr(), *head[1:],
                                                       *mid, *outs, *dims)
         elif badd is None:
@@ -786,11 +751,12 @@ def window_attention_qkv_bwd(
     [L, L] fp32 or None -> (dx [B, H, W, C_in] bf16, dW [C_in, 3C] fp32,
     db [3C] fp32, dscale [heads] fp32).
 
-    Same shape limits as the forward kernel; head dim 128 at L above 208
-    and 256 take the large-head variant, and every head dim past L = 256
-    (256 from L = 225) the chunked one (:func:`qkv_variant`). Launches on the
-    current stream and does not synchronize; dW, db and dscale are summed in
-    a fixed order, so two calls give the same bits.
+    Same shape limits as the forward kernel; head dims 128 and 256 and
+    every head dim past L = 256 take the streamed variant
+    (:func:`qkv_variant`, :func:`qkv_streamed_bwd`), the others the
+    one-block kernel. Launches on the current stream and does not
+    synchronize; dW, db and dscale are summed in a fixed order, so two calls
+    give the same bits.
     """
     return _launch_backward(window_attention_qkv_bwd, x, w_qkv, b_qkv, scale, g, window,
                             mask_pattern, boundary_flag, None)
@@ -823,24 +789,23 @@ def window_attention_qkv_bias_bwd(
 window_attention_qkv_bias_bwd.launches = 0
 
 
-_QKV_VARS = {"v3": 0, "v5": 1, "v4": 2}  # the chunked backward's variant argument
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def qkv_chunked_bwd(x, wr, w, b, scale, badd, g, window, mask_pattern, boundary_flag, *, hd,
-                    nwh, nww, lm, var):
-    """Launch the chunked backward of the qkv-fused attention (any L; its
-    shared memory does not grow with L: ``csrc/window_attention_qkv_large.cu``
-    section 5) on operands the caller has checked, and return (dx, dW, db,
-    dscale), plus dbias with the folded CPB term ``badd``. ``var`` 'v3' (K2,
-    K7 with ``badd``, K10 where w's head pitch ``w.shape[-1] // 3 // heads``
-    is 128 above ``hd``), 'v5' (``wr`` the reordered [3 * heads, C_in, hd]
-    weight of the recompute; dx and dW from the packed ``w``) or 'v4' (x and g
-    window-major [B, nW, lm, *], ``lm`` rows a window). ``wr`` is ``w`` but
-    for v5. The caller counts the launch."""
+def qkv_streamed_bwd(x, wr, w, b, scale, badd, g, window, mask_pattern, boundary_flag, *, hd,
+                     nwh, nww, lm, var):
+    """Launch the streamed backward of the qkv-fused attention
+    (``csrc/window_attention_qkv_large.cu``: the recompute with q and k
+    normalized in its epilogue, the streamed kernels of
+    ``csrc/streamed_bwd.cuh``, the projection backward) on operands the
+    caller has checked, and return (dx, dW, db, dscale), plus dbias with the
+    folded CPB term ``badd``. ``var`` 'v3' (K2, K7 with ``badd``, K10 where
+    w's head pitch ``w.shape[-1] // 3 // heads`` is 128 above ``hd``), 'v5'
+    (``wr`` the reordered [3 * heads, C_in, hd] weight of the recompute; dx
+    and dW from the packed ``w``) or 'v4' (x and g window-major [B, nW, lm,
+    *], ``lm`` rows a window; padded v4 with the head pitch 128). ``wr`` is
+    ``w`` but for v5. The caller counts the launch."""
     dev = x.device
     heads, c_in, n = int(scale.shape[0]), x.shape[-1], w.shape[-1]
     wh, ww = int(window[0]), int(window[1])
@@ -848,28 +813,34 @@ def qkv_chunked_bwd(x, wr, w, b, scale, badd, g, window, mask_pattern, boundary_
     dw_splits = gemm_core.split_k(c_in, n, t)
     db_splits = max(1, min(64, -(-t // 512)))
     f32 = dict(dtype=torch.float32, device=dev)
+    # the recomputed projection (q and k normalized), its cotangent (v4: the
+    # raw q and k rows parked there first), the norms and the per-row softmax
+    # statistics the two attention kernels share
     qkv = torch.empty((t, n), dtype=torch.bfloat16, device=dev)
     dqkv = torch.empty((t, n), dtype=torch.bfloat16, device=dev)
     inv = torch.empty((t, 2, heads), **f32)
     rstat = torch.empty((n_win, heads, lp, 2), **f32)
     dw_part = torch.empty((dw_splits, c_in, n), **f32)
     db_part = torch.empty((db_splits, n), **f32)
-    dscale_part = torch.empty((n_win * _row_chunks("chunked", lp), heads), **f32)
+    # d(scale) partials: one per window and block of 64 query rows
+    dscale_part = torch.empty((n_win * _row_chunks("streamed", lp), heads), **f32)
     dx, dw, db, dscale = (torch.empty_like(x), torch.empty((c_in, n), **f32),
                           torch.empty((n,), **f32), torch.empty((heads,), **f32))
+    # one fp32 [LP, LP] d(bias) partial per (window, head), summed in window order
     dbias_part = None if badd is None else torch.empty((n_win, heads, lp, lp), **f32)
     dbias = None if badd is None else torch.empty((heads, wh * ww, wh * ww), **f32)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.swin_window_attention_qkv_chunked_bwd(
+        code = lib.swin_window_attention_qkv_streamed_bwd(
             x.data_ptr(), wr.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
             _ptr(badd), _ptr(mask_pattern), float(boundary_flag), g.data_ptr(), qkv.data_ptr(),
             inv.data_ptr(), rstat.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(),
             db_part.data_ptr(), dscale_part.data_ptr(), _ptr(dbias_part), dx.data_ptr(),
             dw.data_ptr(), db.data_ptr(), dscale.data_ptr(), _ptr(dbias), x.shape[0], nwh, nww,
-            lm, c_in, n // 3, heads, hd, wh, ww, _QKV_VARS[var], dw_splits, db_splits, stream)
-    _build.check(code, "swin_window_attention_qkv_chunked_bwd")
+            lm, c_in, n // 3, heads, hd, wh, ww, ("v3", "v5", "v4").index(var), dw_splits,
+            db_splits, stream)
+    _build.check(code, "swin_window_attention_qkv_streamed_bwd")
     return (dx, dw, db, dscale) if badd is None else (dx, dw, db, dscale, dbias)
 
 
@@ -1174,8 +1145,8 @@ def window_attention_qkv_padded_backward_reference(x, wp, bp, scale, hd, g, wind
 
 def _check_padded_operands(name, x, wp, bp, scale, hd, window, mask_pattern, g=None):
     """-> (b, h, w, c_in, heads, wh, ww, l, variant); raises on a shape K10
-    does not take. The backward's variant: ``'base'`` (the one-block pass)
-    where it fits, L <= 256, else ``'chunked'``."""
+    does not take. The backward's variant as :func:`qkv_variant` picks it
+    (``'base'``, the one-block pass, where it fits, else ``'streamed'``)."""
     if x.device.type != "cuda" or x.dim() != 4:
         raise ValueError(f"{name}: x must be a 4-D CUDA tensor, got {x.dim()}-D on {x.device}")
     b, h, w, c_in = x.shape
@@ -1194,9 +1165,8 @@ def _check_padded_operands(name, x, wp, bp, scale, hd, window, mask_pattern, g=N
     if hd not in (32, 64, 96, 128) or c_in % 32:
         raise ValueError(f"{name}: needs head dim in (32, 64, 96, 128) and C_in % 32 == 0; got "
                          f"head dim {hd}, C_in={c_in}")
-    variant = None
-    if g is not None:  # the backward's one-block pass where it fits, else the chunked one
-        variant = "base" if l <= 256 and qkv_smem_bytes(hd, l)["bwd"] <= _MAX_SMEM else "chunked"
+    # the backward's one-block pass where it fits, else the streamed one
+    variant = None if g is None else qkv_variant(name, hd, l, True)
     return b, h, w, c_in, heads, wh, ww, l, variant
 
 
@@ -1254,9 +1224,9 @@ def window_attention_qkv_padded_bwd(x, wp, bp, scale, hd, g, window, mask_patter
     name = "window_attention_qkv_padded_bwd"
     b, h, w, c_in, heads, wh, ww, l, variant = _check_padded_operands(
         name, x, wp, bp, scale, hd, window, mask_pattern, g)
-    if variant == "chunked":
-        out = qkv_chunked_bwd(x, wp, wp, bp, scale, None, g, window, mask_pattern, boundary_flag,
-                              hd=hd, nwh=h // wh, nww=w // ww, lm=l, var="v3")
+    if variant == "streamed":
+        out = qkv_streamed_bwd(x, wp, wp, bp, scale, None, g, window, mask_pattern,
+                               boundary_flag, hd=hd, nwh=h // wh, nww=w // ww, lm=l, var="v3")
         window_attention_qkv_padded_bwd.launches += 1
         gemm_core.count_launches(3)  # the projection, dx and dW on the GEMM core
         return out
@@ -1726,10 +1696,11 @@ def grid_streamed_bwd_info(hd: int, l: int, bias: bool) -> dict:
 
 def _row_chunks(variant: str, lp: int) -> int:
     """Row blocks per (window, head) of the backward: 1 (the qkv-fused
-    family's one-block kernel), or for its large-head and chunked variants
-    and K8/K9's streamed kernels one per 64 rows (each writes its own
-    d(scale) partial)."""
-    return -(-(lp // 16) // _LARGE_RW) if variant in ("large", "streamed", "chunked") else 1
+    family's one-block kernel), or for the streamed kernels (its streamed
+    variant, K8's and K9's) one per 64 rows, as ``plan_of`` in
+    ``csrc/streamed_bwd.cuh`` splits them (each writes its own d(scale)
+    partial)."""
+    return streamed_bwd_plan(16, lp)["nchunk"] if variant == "streamed" else 1
 
 
 def _v1_norm_scratch(q: torch.Tensor):

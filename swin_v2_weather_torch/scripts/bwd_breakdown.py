@@ -3,9 +3,9 @@
 
 Run on a GPU from the root of a checkout of the repo:
 
-    python3 -m swin_v2_weather_torch.scripts.bwd_breakdown [k2] [k8] [k9]
+    python3 -m swin_v2_weather_torch.scripts.bwd_breakdown [k2] [k8] [k9] [qkv288] [k11]
 
-(the named families only; all three by default) or, to measure another
+(the named families only; k2, k8 and k9 by default) or, to measure another
 checkout's kernels with this script, from that checkout's root: ``python3
 <path>/bwd_breakdown.py`` (the package and ``chip_smoke.py``, whose timing
 helpers it uses, are imported from the working directory). Seeded inputs,
@@ -24,7 +24,11 @@ helpers it uses, are imported from the working directory). Seeded inputs,
     100), and at head dims 32 and 64 (nW = 400), where no path runs it;
   * K8 and K9 past L = 256 at full width: window 12 x 24 (L = 288) on the
     image [180, 360] (15 x 15 windows), head dims 96 (C = 768) and 256
-    (C = 2048), K8 on the grid and K9 on the windowed [225, 8, 288, hd].
+    (C = 2048), K8 on the grid and K9 on the windowed [225, 8, 288, hd];
+  * (qkv288) the qkv-fused family there: at head dim 96 K2, K7, v5, v4,
+    K10 and the padded v4, at 256 K2 and K7 (x [1, 180, 360, C]);
+  * (k11) K11's backward above 2048 channels, [64800, 3072], m mixed
+    between 0 and 1 / 0.9.
 
 Each line gives the kernel's ms (CUDA events), its pieces (torch.profiler,
 device ms a launch: the projection recompute, the normalization, the rows
@@ -64,6 +68,10 @@ K8_LARGE_PIECES = (("rows_kernel", "rows kernel"), ("cols_kernel", "columns kern
 K9_PIECES = (("qkv_attention_bwd_kernel", "one-block kernel"),
              ("chunk_bwd_rows_kernel", "chunked rows kernel"),
              ("chunk_bwd_cols_kernel", "chunked columns kernel")) + K8_LARGE_PIECES
+# K11's backward above 2048 channels in any tree: the one-pass kernel, or the
+# row and column kernels of trees before it
+K11_PIECES = (("ln_dp_add_bwd_wide", "rows kernel"), ("ln_dp_add_cols_wide", "column kernel"),
+              ("ln_dp_add_reduce", "reduction"))
 WINDOW = (9, 18)
 WINDOW288 = (12, 24)  # L = 288 on the image [180, 360]: 15 x 15 windows
 
@@ -92,18 +100,18 @@ def sdpa_bwd_ms(shape, bias: torch.Tensor, gen: torch.Generator, n: int = 10):
     return ms, None
 
 
-def qkv_case(gen, hw, heads: int, hd: int):
+def qkv_case(gen, hw, heads: int, hd: int, window=WINDOW):
     """x, g [1, H, W, heads * hd] bf16, W_qkv bf16, b, scale, the shifted
     block's mask and a folded CPB term, seeded."""
     from swin_v2_weather_torch.ops import window_attention as wa
 
-    dev, c, l = gen.device, heads * hd, WINDOW[0] * WINDOW[1]
+    dev, c, l = gen.device, heads * hd, window[0] * window[1]
     x = torch.randn((1, *hw, c), generator=gen, device=dev).bfloat16()
     g = torch.randn((1, *hw, c), generator=gen, device=dev).bfloat16()
     w16 = ((2 * torch.rand((c, 3 * c), generator=gen, device=dev) - 1) / math.sqrt(c)).bfloat16()
     b = 0.02 * torch.randn((3 * c,), generator=gen, device=dev)
     scale = torch.exp(math.log(10.0) + 0.3 * torch.randn((heads,), generator=gen, device=dev))
-    mask = shift_mask(hw, WINDOW, dev)
+    mask = shift_mask(hw, window, dev)
     badd = wa.fold_cpb_bias(torch.randn((heads, l, l), generator=gen, device=dev), scale)
     return x, g, w16, b, scale, mask, badd
 
@@ -155,6 +163,7 @@ def main() -> None:
     from swin_v2_weather_torch.ops import window_attention as wa
 
     families = [a.lower() for a in sys.argv[1:]] or ["k2", "k8", "k9"]
+    from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
@@ -203,6 +212,36 @@ def main() -> None:
         del ops, g, raw
         torch.cuda.empty_cache()
 
+    def qkv288(hd):
+        # the qkv-fused backwards past L = 256: every instance at head dim 96,
+        # K2 and K7 at 256; the variant each tree runs there
+        hw, l288 = (180, 360), WINDOW288[0] * WINDOW288[1]
+        x, g, w16, b, scale, mask, badd = qkv_case(gen, hw, heads, hd, WINDOW288)
+        grid = (hw[0] // WINDOW288[0], hw[1] // WINDOW288[1])
+        xw, gw = v45.window_major(x, WINDOW288), v45.window_major(g, WINDOW288)
+        wp, bp = wa.pad_heads_w(w16, heads), wa.pad_heads_vec(b, heads)
+        w5 = v45.w5_reorder(w16, heads).contiguous()
+        cases = {
+            "K2": lambda: wa.window_attention_qkv_bwd(x, w16, b, scale, g, WINDOW288, mask),
+            "K7": lambda: wa.window_attention_qkv_bias_bwd(x, w16, b, scale, badd, g, WINDOW288,
+                                                           mask),
+            "v5": lambda: v45.window_attention_qkv5_bwd(x, w5, w16, b, scale, g, WINDOW288, mask),
+            "v4": lambda: v45.window_attention_qkv4_bwd(xw, w16, b, scale, gw, WINDOW288, grid,
+                                                        mask),
+            "K10": lambda: wa.window_attention_qkv_padded_bwd(
+                x, wp, bp, scale, hd, wa.pad_heads_x(g, heads, hd), WINDOW288, mask),
+            "padded v4": lambda: v45.window_attention_qkv4_padded_bwd(
+                xw, wp, bp, scale, hd, wa.pad_heads_x(gw, heads, hd), WINDOW288, grid, mask)}
+        for name, fn in cases.items():
+            if hd == 256 and name not in ("K2", "K7"):
+                continue
+            ms, pieces = measure(fn, K2_LARGE_PIECES)
+            report(f"{name} hd {hd} [180, 360] L {l288} "
+                   f"({wa.qkv_variant('', hd, l288, True)})", ms, pieces,
+                   (None, "no single call computes the projection with it"))
+        del x, g, w16, b, badd, xw, gw, wp, bp, w5, cases
+        torch.cuda.empty_cache()
+
     l = WINDOW[0] * WINDOW[1]
     for tag, hw in (("e2048 [180, 360]", (180, 360)), ("e2048 train [90, 180]", (90, 180))):
         nw = hw[0] * hw[1] // l
@@ -230,6 +269,20 @@ def main() -> None:
             k8("[180, 360]", (180, 360), hd, WINDOW288)
         if "k9" in families:
             k9("[180, 360]", (180, 360), hd, WINDOW288)
+        if "qkv288" in families:
+            qkv288(hd)
+    if "k11" in families:
+        from swin_v2_weather_torch.ops import ln_kernels as lk
+
+        t, c = 64800, 3072
+        z = (2.0 * torch.randn((t, c), generator=gen, device=dev) + 0.5).bfloat16()
+        g = torch.randn((t, c), generator=gen, device=dev).bfloat16()
+        gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        m = torch.where(torch.rand((t, 1), generator=gen, device=dev) < 0.5, 0.0,
+                        1.0 / 0.9).float()
+        ms, pieces = measure(lambda: lk.ln_dp_add_bwd(z, g, gamma, m), K11_PIECES)
+        print(f"K11 bwd [{t}, {c}]: {ms:.4f} ms; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in pieces.items()) + f"; no library call ({card})", flush=True)
 
 
 if __name__ == "__main__":

@@ -11,18 +11,16 @@ from the working directory). Each line names one backward wrapper at one
 shape and gives a digest of the bytes of every output it returns, on inputs
 drawn from a fixed seed on the card: the qkv-fused family (K2, K7, K10, v5,
 v4, padded v4) at the flagship shape, K8 and K9 at head dims 96, 128 and 256
-(the streamed kernels), K2/K7/v5/v4 at head dim 256 (the large-head
+(the streamed kernels), K2/K7/v5/v4 at head dim 256 (the streamed
 variant), K5/K6 at the e2048 train step's shape, and the backwards past
-L = 256 (K2, K7: the chunked kernels; K8, K9: the streamed ones; each with
-its BIAS instance at head dims 96 and 256, L = 288). Two trees whose lines
-agree compute those backwards bit for bit alike. Exits non-zero without a
-GPU.
+L = 256 (K2, K7, K8, K9: the streamed kernels, each with its BIAS instance
+at head dims 96 and 256, L = 288). Two trees whose lines agree compute
+those backwards bit for bit alike. Exits non-zero without a GPU.
 
-Against a tree from before K8's streamed backward at head dims up to 96
-and past L = 256, exactly K8's two lines at head dim 96 and the eight K8/K9
-lines at L = 288 change: the one-block and chunked wmma kernels summed in
-another order. Every other line (the qkv-fused family, K8 at 128 and 256,
-K9 at L = 162, K5/K6, the qkv-fused chunked backwards) stays equal.
+Against a tree from before the qkv-fused family's streamed backward past
+L = 256, exactly the four K2/K7 lines at L = 288 change: the chunked wmma
+kernels summed in another order (and normalized q and k in a pass of
+their own). Every other line stays equal.
 """
 
 from __future__ import annotations

@@ -309,7 +309,8 @@ def test_k2_instance_matches_plain(cuda_device, instance, hd):
     """K2's backward (the projection and dx, dW on the GEMM core, the
     attention pass in mma registers) in each of its instances -- v3, the CPB
     bias (K7), the head pitch 128 (K10), v5 and v4 (K12) and v4's padded
-    heads -- at head dims 32-128 (2 heads, L = 162, shifted) against its
+    heads -- at head dims 32-128 (2 heads, L = 162, shifted; at head dim 128
+    the streamed variant, which takes that head dim) against its
     plain version with the bounds the existing tests of each instance use
     (tests/test_torch_kernels.py: BWD_ULPS, dx (2, 0.05) for K12 and at head
     dim 128, the dscale bound), and two calls bit-equal."""
@@ -359,7 +360,7 @@ def test_k2_instance_matches_plain(cuda_device, instance, hd):
             ref_bwd = v45.window_attention_qkv4_padded_backward_reference
         call = lambda: bwd(xw, *lead, gw, WINDOW, grid, mask, 1.0)
         ref = ref_bwd(xw, *lead, gw, WINDOW, grid, mask)
-    assert wa.qkv_variant("t", hd, l, True) == "base"
+    assert wa.qkv_variant("t", hd, l, True) == ("streamed" if hd == 128 else "base")
     grads = call()
     again = call()
     torch.cuda.synchronize()

@@ -752,12 +752,14 @@ def test_window_attention_bias_kernels_match_plain(cuda_device, use_mask):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t, c", [(100, 256), (2600, 768), (100, 4096), (2600, 2176)])
+@pytest.mark.parametrize("t, c", [(100, 256), (2600, 768), (100, 4096), (2600, 2176),
+                                  (2600, 3072)])
 def test_ln_dp_add_kernels_match_plain(cuda_device, t, c):
     """K11 forward and backward against their plain versions on the card, at a
     ragged row count (not a multiple of a block's 8 rows), the flagship width
-    and rows wider than 2048 (the streamed entry points), with m mixed
-    between 0, 1 and 1/keep. Both sides round at the same
+    and rows wider than 2048 (the streamed entry points; the backward's
+    two-stage ring at 8, 6 and 8 rows a stage, several stages a block at
+    T = 2600), with m mixed between 0, 1 and 1/keep. Both sides round at the same
     sites; the statistics' fp32 sums differ in order, which now and then flips
     one bf16 rounding (1 ulp). dgamma/dbeta are fp32 sums over the rows in
     another order (rtol 1e-5). Two backward calls give the same bits."""
@@ -1034,13 +1036,13 @@ def assert_dscale_close(out, ref):
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_large_head_kernels_match_plain(cuda_device, hd, use_bias):
     """K1/K2 (and K7 with the bias) at head dim 128 and 256 with L = 162, where
-    the backward takes the large-head variant at 256 (at 128 the one-block
-    kernel fits since its scores left shared memory) and the forward is the
+    the backward takes the streamed variant at both (at 128 the one-block
+    kernel would fit, but the streamed kernels are faster) and the forward is the
     projection on the GEMM core plus the streamed pass at every head dim:
     forward and backward against the plain versions, the launch counted on
     the usual wrapper, two backward calls bit-equal."""
     x, w, w16, b, scale, g, mask, badd = large_head_operands(cuda_device, hd)
-    assert WA.qkv_variant("t", hd, 162, True) == ("base" if hd == 128 else "large")
+    assert WA.qkv_variant("t", hd, 162, True) == "streamed"
     assert WA.qkv_variant("t", hd, 162, False) == "streamed"
     extra = (badd,) if use_bias else ()
     kind = "window_attention_qkv" + ("_bias" if use_bias else "")
@@ -1078,7 +1080,7 @@ def test_qkv_kernels_refuse_shapes_no_instance_takes(cuda_device):
     """Only what the forward refuses raises a ValueError before any launch,
     both ways: head dim 192. Head dim 96 at L = 256 runs both ways (the
     forward's pass takes any L; the backward's one-block kernel fits since
-    its scores left shared memory, and past that the chunked one runs): zero
+    its scores left shared memory, and past that the streamed one runs): zero
     inputs give a zero output and zero gradients."""
     before = launch_counts()
     for hd, window, grid in ((96, (16, 16), (16, 16)), (192, WINDOW, (H, W))):
@@ -1448,13 +1450,13 @@ def test_v4_kernels_read_the_pad_rows_as_the_tpu_kernel(cuda_device, hd):
 @pytest.mark.parametrize("hd", [128, 256])
 def test_v4_large_head_kernels_match_plain(cuda_device, hd):
     """K12 v4 at head dims 128 and 256 with L = 162 (2 heads, shifted), where
-    the backward takes v4's instance of the large-head variant at 256 (the
-    one-block one at 128) and the forward its pass (layout QKV4) at both:
+    the backward takes v4's instance of the streamed variant and the forward
+    its pass (layout QKV4) at both:
     against the plain versions on every window-major row, dxw's pad rows
     exactly zero, two backward calls bit-equal."""
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
-    assert WA.qkv_variant("t", hd, 162, True) == ("base" if hd == 128 else "large")
+    assert WA.qkv_variant("t", hd, 162, True) == "streamed"
     x, wq, bq, scale, g, mask = k12_operands(cuda_device, H, W, 2 * hd, 2)
     xw, gw = v45.window_major(x, WINDOW), v45.window_major(g, WINDOW)
     w16, grid = wq.bfloat16(), (H // WINDOW[0], W // WINDOW[1])
@@ -1480,7 +1482,7 @@ def test_v4_large_head_kernels_match_plain(cuda_device, hd):
 def test_v4_kernels_refuse_shapes_no_instance_takes(cuda_device):
     """A head dim the forward does not take (192) raises a ValueError before
     any launch, both ways (every L of a head dim the forward takes has a
-    backward: the chunked one past L = 256)."""
+    backward: the streamed one past L = 256)."""
     from swin_v2_weather_torch.ops.attic import window_attention_v45 as v45
 
     dev, c = cuda_device, 2 * 192
@@ -1552,7 +1554,7 @@ def test_qkv_forward_at_every_head_dim_and_window(cuda_device, hd, l, use_bias):
     mean) and against the plain version of the pass's order of sums
     (``window_attention_qkv_pass_order``, the same bounds), one launch on its
     wrapper and one projection on the GEMM core. At L = 288 the backward
-    takes the chunked instance and runs (its checks against the plain
+    takes the streamed instance and runs (its checks against the plain
     version: ``test_chunked_qkv_backward_matches_plain``)."""
     from swin_v2_weather_torch.ops import gemm_core
 
@@ -1585,7 +1587,7 @@ def test_qkv_forward_at_every_head_dim_and_window(cuda_device, hd, l, use_bias):
     assert_close_ulps(out.float().cpu().numpy(), order.float().cpu().numpy(), 2, 0.01)
     if l > 256:
         bwd = WA.window_attention_qkv_bias_bwd if use_bias else WA.window_attention_qkv_bwd
-        assert WA.qkv_variant("t", hd, l, True) == "chunked"
+        assert WA.qkv_variant("t", hd, l, True) == "streamed"
         grads = bwd(x, wq, bq, scale, *extra, out, window, mask, 1.0)
         torch.cuda.synchronize()
         want[QKV_KERNELS.index(bwd)] += 1
@@ -1626,7 +1628,7 @@ def test_k6_on_the_core_matches_plain(cuda_device, t, c_in, hidden, c_out):
 
 
 # --------------------------------------------------------------------------
-# the chunked backwards past L = 256, and K3/K4 on the GEMM core
+# the qkv-fused backwards past L = 256, and K3/K4 on the GEMM core
 # --------------------------------------------------------------------------
 
 # L -> (grid, window): two rows of windows at L = 288, one at 576
@@ -1707,20 +1709,23 @@ def check_qkv_fused_backward(dev, variant, use_bias, hd, hw, window, shifted=Tru
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant, use_bias", CHUNK_QKV_CASES)
-@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("l", [288, 576])
 def test_chunked_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, l):
-    """Every qkv-fused backward past L = 256 (the chunked instances; K10 and
-    the padded v4 at head dim 96 only, the head dims they take below their
-    pitch 128), shifted, two windows of two heads or four
-    (``check_qkv_fused_backward``)."""
+    """Every qkv-fused backward past L = 256, where the chunked instances
+    ran before and the streamed ones run now (every FORM_QKV instance of
+    ``csrc/streamed_bwd.cuh`` at head dims 32-256; K10 and the padded v4 up
+    to their pitch 128, head pitch 128 above head dims 32-96, pad columns
+    exactly zero), shifted, two windows of two heads or four
+    (``check_qkv_fused_backward``: against the plain version, two calls
+    bit-equal)."""
     if variant in ("v6", "v4p") and hd > 128:
         pytest.skip("K10 and the padded v4 take head dims up to their pitch 128")
-    assert WA.qkv_variant("t", hd, l, True) == "chunked"
+    assert WA.qkv_variant("t", hd, l, True) == "streamed"
     check_qkv_fused_backward(cuda_device, variant, use_bias, hd, *CHUNK_WINDOWS[l])
 
 
-# (head dim, L) -> (grid, window) of the streamed large-head backward's cases:
+# (head dim, L) -> (grid, window) of the streamed qkv-fused backward's cases:
 # the e2048 window at head dim 256, and L near 256 at both head dims
 STREAMED_WINDOWS = {(256, 162): ((18, 36), (9, 18)), (128, 224): ((28, 32), (14, 16)),
                     (256, 256): ((32, 32), (16, 16))}
@@ -1732,18 +1737,18 @@ STREAMED_WINDOWS = {(256, 162): ((18, 36), (9, 18)), (128, 224): ((28, 32), (14,
 @pytest.mark.parametrize("hd, l", list(STREAMED_WINDOWS))
 @pytest.mark.parametrize("shifted", [False, True])
 def test_streamed_qkv_backward_matches_plain(cuda_device, variant, use_bias, hd, l, shifted):
-    """The large-head qkv-fused backward (the recompute with q/k normalized in
-    its epilogue, then the streamed kernels of ``csrc/streamed_bwd.cuh``):
-    K2, K7, v5 and v4 at head dim 256 with L = 162 and 256 and at head dim
-    128 with L = 224, unshifted and shifted (``check_qkv_fused_backward``)."""
-    assert WA.qkv_variant("t", hd, l, True) == "large"
+    """The streamed qkv-fused backward (the recompute with q/k normalized in
+    its epilogue, then the streamed kernels of ``csrc/streamed_bwd.cuh``) up
+    to L = 256: K2, K7, v5 and v4 at head dim 256 with L = 162 and 256 and
+    at head dim 128 with L = 224, unshifted and shifted
+    (``check_qkv_fused_backward``)."""
+    assert WA.qkv_variant("t", hd, l, True) == "streamed"
     check_qkv_fused_backward(cuda_device, variant, use_bias, hd, *STREAMED_WINDOWS[hd, l],
                              shifted=shifted)
 
 
 # (head dim, grid, window) of the streamed K8/K9 backwards' cases past
-# L = 256 (L = 288 and 576 on a [24, 48] grid), which the chunked kernels
-# took before
+# L = 256 (L = 288 and 576 on a [24, 48] grid)
 BEYOND_256 = [(96, (24, 48), (12, 24)), (256, (24, 48), (12, 24)), (96, (24, 48), (24, 24)),
               (256, (24, 48), (24, 24))]
 

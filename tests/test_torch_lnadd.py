@@ -77,6 +77,89 @@ def test_ln_deterministic_matches_the_unfused_branch_bit_for_bit(dtype):
     torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
+def fma32(a, b, c):
+    """a * b + c rounded once to fp32."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def lane_sum(a, b=None):
+    """The register form's per-lane sum over the channels of a [T, C] (or,
+    with b, of a * b, each step one fma; fp32): lane l takes channels 128 ch
+    + 4 l + j in (ch, j) order, then the warp's butterfly (xor 16 .. 1) ->
+    [T, 1]."""
+    t, c = a.shape
+    av = a.reshape(t, c // 128, 32, 4)
+    bv = None if b is None else b.reshape(t, c // 128, 32, 4)
+    acc = np.zeros((t, 32), np.float32)
+    for ch in range(c // 128):
+        for j in range(4):
+            x = av[:, ch, :, j]
+            acc = (acc + x).astype(np.float32) if b is None else fma32(x, bv[:, ch, :, j], acc)
+    for o in (16, 8, 4, 2, 1):
+        acc = (acc + acc[:, [i ^ o for i in range(32)]]).astype(np.float32)
+    return acc[:, :1]
+
+
+def wide_backward_order(z, g, gamma, m):
+    """K11's backward above 2048 channels in its order of fp32 sums: the row
+    statistics, mean(dh) and mean(dh hhat) per lane (``lane_sum``, products
+    contracted to fma), dz elementwise from them; dgamma and dbeta summed
+    over each block's contiguous rows in row order (one fma or add a row),
+    then the blocks' partials in block order (n_blocks as the wrapper picks
+    it). bf16-valued z, g [T, C] and m [T, 1] -> (dz fp32, dgamma, dbeta)."""
+    t, c = z.shape
+    cf = np.float32(c)
+    mean = (lane_sum(z) / cf).astype(np.float32)
+    d = (z - mean).astype(np.float32)
+    rstd = (np.float32(1.0) / np.sqrt(lane_sum(d, d) / cf + np.float32(1e-5))).astype(np.float32)
+    hh = (d * rstd).astype(np.float32)
+    dy = (g * m).astype(np.float32)
+    dh = (dy * gamma).astype(np.float32)
+    t1 = (lane_sum(dh, hh) / cf).astype(np.float32)  # mean(dh hhat)
+    t2 = (lane_sum(dh) / cf).astype(np.float32)  # mean(dh)
+    dz = (rstd * ((dh - t2).astype(np.float32) - (hh * t1).astype(np.float32))).astype(np.float32)
+    n_blocks = max(1, min(264, -(-t // 64)))
+    rows = -(-t // n_blocks)
+    dgamma, dbeta = np.zeros(c, np.float32), np.zeros(c, np.float32)
+    for blk in range(n_blocks):
+        pg, pb = np.zeros(c, np.float32), np.zeros(c, np.float32)
+        for r in range(blk * rows, min(t, (blk + 1) * rows)):
+            pg = fma32(dy[r], hh[r], pg)
+            pb = (pb + dy[r]).astype(np.float32)
+        dgamma, dbeta = (dgamma + pg).astype(np.float32), (dbeta + pb).astype(np.float32)
+    return dz, dgamma, dbeta
+
+
+def test_ln_wide_backward_order_matches_jax():
+    """Rows wider than 2048 channels ([192, 2176]: three blocks of 64 rows):
+    the wide backward's order of fp32 sums (``wide_backward_order``: the
+    statistics in the register form's per-lane order, dgamma / dbeta over
+    each block's rows in row order, then the blocks in order) against JAX's
+    ``ln_dp_add_bwd_pallas`` (interpret mode) and the port's plain version
+    in bf16: dz within 1 bf16 ulp max and 0.01 mean of its scale,
+    dgamma / dbeta within 1e-5 of their scale. The launch plan stages 8 rows
+    a stage at this width and at 3072, fewer above 3200, and refuses a width
+    whose one row does not fit a block's shared memory."""
+    z, _, gamma, _, m, g = ln_inputs(t=192, c=2176)
+    zb, gb = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32) for a in (z, g))
+    got = wide_backward_order(zb, gb, gamma, m)
+    rdz, rdg, rdb = jax_ln.ln_dp_add_bwd_pallas(jnp.asarray(z, jnp.bfloat16),
+                                                jnp.asarray(g, jnp.bfloat16), jnp.asarray(gamma),
+                                                jnp.asarray(m))
+    plain = ln_kernels.ln_dp_add_bwd_reference(torch.from_numpy(zb).bfloat16(),
+                                               torch.from_numpy(gb).bfloat16(),
+                                               torch.from_numpy(gamma), torch.from_numpy(m))
+    dz16 = torch.from_numpy(got[0]).bfloat16().float().numpy()
+    for ref in (np.asarray(rdz, np.float32), plain[0].float().numpy()):
+        assert_close_ulps(dz16, ref, 1, 0.01)
+    for a, r, p in ((got[1], rdg, plain[1]), (got[2], rdb, plain[2])):
+        for ref in (np.asarray(r, np.float32).reshape(-1), p.numpy()):
+            assert np.abs(a - ref).max() <= 1e-5 * np.abs(ref).max()
+    plans = {c: ln_kernels.wide_bwd_plan(c) for c in (2176, 3072, 3200, 3328, 4096, 14464, 14592)}
+    assert [plans[c]["rows"] for c in plans] == [8, 8, 8, 7, 6, 1, 0]
+    assert all(p["smem"] <= 232448 for p in plans.values())
+
+
 def ln_leaves(dtype, batch=3):
     """z, x [batch, 4, 8, 128] in dtype, gamma, beta [128], m [batch] (0, 1/keep
     and 1), and the output cotangent."""

@@ -1,5 +1,5 @@
 """PyTorch port, the e2048 widths: the qkv-fused attention at head dim 256
-(K1's streamed pass, the large-head backward), the whole-MLP forward at
+(K1's streamed pass, the streamed backward), the whole-MLP forward at
 C_out above 768 (K5's schedule) and the fused LayerNorm above 2048 channels.
 
 On the CPU the plain versions run: at head dim 256 they are held to the JAX
@@ -10,7 +10,8 @@ the shared memory each needs, is computed by the wrappers from the same
 formulas as the CUDA sources; the table here pins those numbers (at L = 162
 the forward's streamed pass needs 96,912 B at head dim 128 and 100,496 B at
 256, the one-block backward 194,368 B at 128 and 374,592 B at 256, against
-the 232,448 B a block may use). The CUDA kernels themselves are held to these
+the 232,448 B a block may use; the backward takes the streamed variant at
+both, at 128 because it is the faster one). The CUDA kernels themselves are held to these
 plain versions on the GPU (tests/test_torch_kernels.py, ``-m cuda``).
 """
 
@@ -39,10 +40,10 @@ torch.set_num_threads(1)
 # sources compute them (fwd_plan, bwd_smem_bytes), and the variant of each
 SMEM_TABLE = {
     (96, 162): ((76432, 149312), ("streamed", "base")),
-    (128, 162): ((96912, 194368), ("streamed", "base")),
-    (256, 162): ((100496, 374592), ("streamed", "large")),
-    (128, 144): ((90176, 159040), ("streamed", "base")),
-    (256, 8): ((78368, 34112), ("streamed", "large")),
+    (128, 162): ((96912, 194368), ("streamed", "streamed")),
+    (256, 162): ((100496, 374592), ("streamed", "streamed")),
+    (128, 144): ((90176, 159040), ("streamed", "streamed")),
+    (256, 8): ((78368, 34112), ("streamed", "streamed")),
 }
 
 
@@ -52,8 +53,8 @@ def test_qkv_variant_table(hd, l):
     sm = wa.qkv_smem_bytes(hd, l)
     assert (sm["fwd"], sm["bwd"]) == (fwd, bwd)
     assert (wa.qkv_variant("t", hd, l, False), wa.qkv_variant("t", hd, l, True)) == variants
-    # the large-head backward fits wherever it is chosen
-    assert max(sm["large_rows"], sm["large_cols"]) <= 232448
+    # the streamed backward fits wherever it is chosen
+    assert max(sm["streamed_rows"], sm["streamed_cols"]) <= 232448
 
 
 @pytest.mark.parametrize("hd, l", [(96, 256), (64, 256), (192, 162), (256, 256), (48, 8)])
@@ -64,8 +65,8 @@ def test_qkv_variant_refuses_what_no_kernel_takes(hd, l):
     at head dims 32-256, so only head dims 192 and 48 refuse, both ways. The
     backward's one-block kernel takes head dims 64 and 96 at L = 256
     (217,152 B and 151,616 B); head dim 256 at L = 256 does not fit it and
-    takes the large-head variant, whose streamed kernels' shared memory
-    (176,160 / 182,272 B) does not grow with L beyond two small tables."""
+    takes the streamed variant, whose kernels' shared memory (176,160 /
+    182,272 B) does not grow with L beyond two small tables."""
     if hd in (192, 48):
         for backward in (False, True):
             with pytest.raises(ValueError):
@@ -79,11 +80,11 @@ def test_qkv_variant_refuses_what_no_kernel_takes(hd, l):
     else:
         sm = wa.qkv_smem_bytes(hd, l)
         assert sm["bwd"] > 232448
-        assert (sm["large_rows"], sm["large_cols"]) == (176160, 182272)
-        assert wa.qkv_variant("t", hd, l, True) == "large"
+        assert (sm["streamed_rows"], sm["streamed_cols"]) == (176160, 182272)
+        assert wa.qkv_variant("t", hd, l, True) == "streamed"
 
 
-# (head dim, L, rows a window, K8) -> the streamed large-head backward's
+# (head dim, L, rows a window, K8) -> the streamed backward's
 # launch (csrc/streamed_bwd.cuh plan_of, rows_smem, cols_smem): 16-row tiles
 # a block, blocks a (window, head), rows and columns kernels' shared memory
 STREAMED_PLAN = {
@@ -91,7 +92,7 @@ STREAMED_PLAN = {
     (256, 162, 168, False): (4, 3, 175808, 181280),  # v4 there (lm = 168)
     (256, 162, 162, True): (4, 3, 175792, 181968),   # K8 at the e2048 shape
     (128, 162, 162, True): (4, 3, 93872, 100048),    # K8 at head dim 128
-    (128, 224, 224, False): (4, 4, 94112, 99968),    # K2 at head dim 128 past L = 208
+    (128, 224, 224, False): (4, 4, 94112, 99968),    # K2 at head dim 128, L = 224
     (256, 8, 8, False): (1, 1, 119872, 120992),      # one tile
 }
 
@@ -109,7 +110,7 @@ def test_streamed_bwd_plan(hd, l, ls, grid):
         rt, nchunk, rows, cols)
     assert plan["threads"] == 64 * rt and max(rows, cols) <= 232448
     lp = -(-l // 16) * 16
-    assert nchunk == wa._row_chunks("large", lp)
+    assert nchunk == wa._row_chunks("streamed", lp)
     far = wa.streamed_bwd_plan(hd, 256, 256, grid=grid)  # the longest L it takes
     assert max(far["rows_smem"], far["cols_smem"]) <= 232448
 
@@ -118,15 +119,18 @@ def test_streamed_bwd_plan(hd, l, ls, grid):
 @pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("l", [288, 576])
 def test_backward_variant_beyond_256(family, hd, l):
-    """Past L = 256 the qkv-fused family's backward (K2/K7/K10/K12) takes its
-    chunked instance, whose shared memory does not depend on L, and K8/K9's
-    (both layouts) the streamed kernels, whose shared memory grows with L
-    only by their tables; either fits a block at every head dim the forward
-    takes."""
+    """Past L = 256 the qkv-fused family's backward (K2/K7/K10/K12) and
+    K8/K9's (both layouts) take the streamed kernels, whose shared memory
+    grows with L only by their tables (the qkv family's by 16 B a row past
+    L = 288's); they fit a block at every head dim the forward takes, with
+    one d(scale) partial a block of 64 rows."""
     assert wa.qkv_variant("t", hd, l, False) == wa.attn_variant("t", hd, l, False) == "streamed"
     if family == "qkv":
-        assert wa.qkv_variant("t", hd, l, True) == "chunked"
-        assert wa.qkv_smem_bytes(hd, l)["chunked"] == wa.qkv_smem_bytes(hd, 8)["chunked"] <= 232448
+        assert wa.qkv_variant("t", hd, l, True) == "streamed"
+        sm, sm288 = wa.qkv_smem_bytes(hd, l), wa.qkv_smem_bytes(hd, 288)
+        assert max(sm["streamed_rows"], sm["streamed_cols"]) <= 232448
+        assert sm["streamed_cols"] - sm288["streamed_cols"] == 12 * (l - 288)
+        assert wa._row_chunks("streamed", l) == -(-l // 64)
     else:
         for layout in wa.ATTN_LAYOUTS:
             assert wa.attn_variant("t", hd, l, True, layout) == "streamed"
@@ -214,7 +218,7 @@ def inputs(seed=0):
 @pytest.mark.parametrize("use_mask", [False, True])
 def test_head_dim_256_matches_jax(use_mask):
     """K1/K2's plain versions at head dim 256 (the e2048 heads; the GPU runs
-    K1's streamed pass and the large-head backward there) against the JAX v3
+    K1's streamed pass and the streamed backward there) against the JAX v3
     kernels, forward and
     jax.vjp, in bf16 (the bounds of tests/test_torch_kernels.py)."""
     import jax
@@ -238,13 +242,13 @@ def test_head_dim_256_matches_jax(use_mask):
         assert_close_backward(name, leaf.grad.float().numpy(), np.asarray(r, np.float32))
 
 
-WIN288 = (12, 24)  # L = 288, past the 256 rows of the one-block and large-head backwards
+WIN288 = (12, 24)  # L = 288, past the 256 rows of the one-block backward
 
 
 @pytest.mark.parametrize("use_mask", [False, True])
 def test_window_288_matches_jax(use_mask):
     """At L = 288 (window 12 x 24; the GPU runs K1's streamed pass and the
-    chunked backward there) K1/K2's plain versions against the JAX v3
+    streamed backward there) K1/K2's plain versions against the JAX v3
     kernels at head dim 32, two windows of two heads: forward and jax.vjp in
     bf16 (the bounds of tests/test_torch_kernels.py)."""
     import jax
@@ -267,7 +271,7 @@ def test_window_288_matches_jax(use_mask):
     leaves = [torch.from_numpy(x).bfloat16().requires_grad_(),
               torch.from_numpy(wq).bfloat16().requires_grad_(),
               torch.from_numpy(b).requires_grad_(), torch.from_numpy(scale).requires_grad_()]
-    assert wa.qkv_variant("t", hd, 288, True) == "chunked"
+    assert wa.qkv_variant("t", hd, 288, True) == "streamed"
     out = wa.fused_window_attention_qkv(*leaves, WIN288, patt)
     assert_close_ulps(out.float().detach().numpy(), np.asarray(ref, np.float32), 2, 0.01)
     out.backward(torch.from_numpy(ct).bfloat16())
