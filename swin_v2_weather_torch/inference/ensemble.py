@@ -12,6 +12,12 @@ Counterpart of ``swin_v2_weather_tpu/inference/ensemble.py``:
   * perturbations come in centered pairs (member 0 the control, then
     +/- pairs), so the ensemble mean is unbiased at the initial time.
 
+Profiler spans (``utils/profiling.span``): breeding is one
+(``swin/forecast/breed``, the engine's nested in it); the scored loop puts
+each chunk's upload of zenith and targets in ``swin/forecast/upload``, each
+step's stepper call in ``.../steps`` and its scoring in ``.../score``, and
+each chunk's rows to the host in ``.../flush``.
+
 JAX draws its noise from ``jax.random`` keys; the port draws from an
 explicit ``torch.Generator`` (:func:`gaussian_perturbations`) or from one
 seeded on the engine's device (:func:`breed_perturbations`). The two give
@@ -33,6 +39,7 @@ from swin_v2_weather_torch.ops.metrics import (
     weighted_crps_channels,
     weighted_rmse_channels,
 )
+from swin_v2_weather_torch.utils.profiling import span
 
 
 def _lat_rms(fields: torch.Tensor) -> torch.Tensor:
@@ -99,16 +106,17 @@ def breed_perturbations(
     initial state at hand, the cycles run forward from it and the bred vector
     is applied back at the initial time.
     """
-    state = torch.as_tensor(initial_state, dtype=torch.float32, device=engine.device)
-    c, h, w = state.shape[-3:]
-    gen = torch.Generator(device=engine.device).manual_seed(int(seed))
-    pert = gaussian_perturbations(gen, n_pairs, (c, h, w), amplitude, zonal_truncation)
-    for _, zstack in engine.zenith_chunks(start_time, int(cycles), 1):
-        batch = torch.cat([state, state + pert], dim=0)  # [1 + P, C, H, W]
-        nxt, _ = engine.rollout_chunk(batch, zstack)
-        state, grown = nxt[:1], nxt[1:] - nxt[:1]
-        pert = _rescale(grown, amplitude)
-    return pert
+    with span("forecast/breed"):
+        state = torch.as_tensor(initial_state, dtype=torch.float32, device=engine.device)
+        c, h, w = state.shape[-3:]
+        gen = torch.Generator(device=engine.device).manual_seed(int(seed))
+        pert = gaussian_perturbations(gen, n_pairs, (c, h, w), amplitude, zonal_truncation)
+        for _, zstack in engine.zenith_chunks(start_time, int(cycles), 1):
+            batch = torch.cat([state, state + pert], dim=0)  # [1 + P, C, H, W]
+            nxt, _ = engine.rollout_chunk(batch, zstack)
+            state, grown = nxt[:1], nxt[1:] - nxt[:1]
+            pert = _rescale(grown, amplitude)
+        return pert
 
 
 def make_members(initial_state, perturbations: torch.Tensor, n_members: int) -> torch.Tensor:
@@ -171,27 +179,32 @@ def score_ensemble(
     with torch.inference_mode():
         for done, zstack in engine.zenith_chunks(start_time, n_steps, chunk):
             k = len(zstack)
-            zs = torch.as_tensor(zstack).to(dev)
-            tchunk = torch.empty((k, c, h, w), dtype=torch.float32, device=dev)
-            for s in range(k):  # each target straight into the chunk, no host-side stack
-                tchunk[s] = torch.as_tensor(targets[done + s], dtype=torch.float32).reshape(
-                    c, h, w)
+            with span("forecast/upload"):
+                zs = torch.as_tensor(zstack).to(dev)
+                tchunk = torch.empty((k, c, h, w), dtype=torch.float32, device=dev)
+                for s in range(k):  # each target straight into the chunk, no host-side stack
+                    tchunk[s] = torch.as_tensor(targets[done + s], dtype=torch.float32).reshape(
+                        c, h, w)
             rows = {key: [] for key in keys}
             for s in range(k):
                 zen = zs[s].expand(m, 1, h, w) if engine.add_zenith else None
-                state = engine.stepper(state, zen)  # [M, C, H, W]
-                ens_phys = state * stds_d + means_d  # the members in physical units
-                tar_phys = tchunk[s][None] * stds_d + means_d  # [1, C, H, W]
-                mean_phys = torch.mean(ens_phys, dim=0, keepdim=True)
-                rows["crps"].append(weighted_crps_channels(ens_phys[:, None], tar_phys)[0])
-                rows["spread"].append(ensemble_spread_channels(ens_phys[:, None])[0])
-                rows["rmse_mean"].append(weighted_rmse_channels(mean_phys, tar_phys)[0])
-                rows["rmse_control"].append(weighted_rmse_channels(ens_phys[:1], tar_phys)[0])
-                if clim is not None:
-                    rows["acc_mean"].append(
-                        weighted_acc_channels(mean_phys - clim, tar_phys - clim)[0])
-            block = torch.stack([torch.stack(rows[key]) for key in keys]).cpu().numpy()
-            for key, vals in zip(keys, block):  # one device -> host copy a chunk
+                with span("forecast/steps"):
+                    state = engine.stepper(state, zen)  # [M, C, H, W]
+                with span("forecast/score"):
+                    ens_phys = state * stds_d + means_d  # the members in physical units
+                    tar_phys = tchunk[s][None] * stds_d + means_d  # [1, C, H, W]
+                    mean_phys = torch.mean(ens_phys, dim=0, keepdim=True)
+                    rows["crps"].append(weighted_crps_channels(ens_phys[:, None], tar_phys)[0])
+                    rows["spread"].append(ensemble_spread_channels(ens_phys[:, None])[0])
+                    rows["rmse_mean"].append(weighted_rmse_channels(mean_phys, tar_phys)[0])
+                    rows["rmse_control"].append(
+                        weighted_rmse_channels(ens_phys[:1], tar_phys)[0])
+                    if clim is not None:
+                        rows["acc_mean"].append(
+                            weighted_acc_channels(mean_phys - clim, tar_phys - clim)[0])
+            with span("forecast/flush"):  # one device -> host copy a chunk
+                block = torch.stack([torch.stack(rows[key]) for key in keys]).cpu().numpy()
+            for key, vals in zip(keys, block):
                 out_rows[key].append(vals)
 
     out: Dict[str, np.ndarray] = {k: np.concatenate(v) for k, v in out_rows.items()}

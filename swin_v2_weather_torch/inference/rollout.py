@@ -21,6 +21,12 @@ Two loops drive the step:
     trajectory with ``keep_channels`` applied per step, and
     :meth:`RolloutEngine.write_forecast` streams chunks to disk in physical
     units.
+
+The host loops carry profiler spans (``utils/profiling.span``):
+``swin/forecast/zenith`` (:meth:`RolloutEngine.zenith_stack`),
+``swin/forecast/upload`` (a chunk's zenith stack to the device) and
+``swin/forecast/steps`` (a chunk's stepper calls); :class:`Stepper`, which
+``torch.export`` traces, has none.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from torch import nn
 
 from swin_v2_weather_torch.data.conditioning import static_features
 from swin_v2_weather_torch.ops.zenith import cos_zenith_angle
+from swin_v2_weather_torch.utils.profiling import span
 
 
 class Stepper(nn.Module):
@@ -100,12 +107,13 @@ class RolloutEngine:
 
     def zenith_stack(self, start_time: datetime.datetime, n_steps: int) -> np.ndarray:
         """[T, 1, 1, H, W] cos-zenith channels for steps 1..T of a rollout."""
-        when = start_time
-        zs = []
-        for _ in range(n_steps):
-            zs.append(self.zenith_at(when))
-            when = when + datetime.timedelta(hours=self.hours_per_step)
-        return np.stack(zs).astype(np.float32)
+        with span("forecast/zenith"):
+            when = start_time
+            zs = []
+            for _ in range(n_steps):
+                zs.append(self.zenith_at(when))
+                when = when + datetime.timedelta(hours=self.hours_per_step)
+            return np.stack(zs).astype(np.float32)
 
     def _step(self, state: torch.Tensor, zen: Optional[torch.Tensor]) -> torch.Tensor:
         with torch.inference_mode():
@@ -163,15 +171,17 @@ class RolloutEngine:
         host synchronization between the steps."""
         b = state.shape[0]
         n_steps = int(zstack.shape[0])
-        zs = torch.as_tensor(zstack, dtype=torch.float32).to(self.device)
+        with span("forecast/upload"):
+            zs = torch.as_tensor(zstack, dtype=torch.float32).to(self.device)
         with torch.inference_mode():
             c = self.n_out if keep is None else len(keep)
             preds = torch.empty((n_steps, b, c, self.h, self.w), dtype=torch.float32,
                                 device=self.device)
-            for t in range(n_steps):
-                zen = zs[t].expand(b, 1, self.h, self.w) if self.add_zenith else None
-                state = self.stepper(state, zen)
-                preds[t] = state if keep is None else state[:, keep]
+            with span("forecast/steps"):
+                for t in range(n_steps):
+                    zen = zs[t].expand(b, 1, self.h, self.w) if self.add_zenith else None
+                    state = self.stepper(state, zen)
+                    preds[t] = state if keep is None else state[:, keep]
         return state, preds
 
     def _zstack(self, start_time: Optional[datetime.datetime], n_steps: int) -> np.ndarray:

@@ -7,7 +7,9 @@ metrics define it.
 
 The metric math runs on the engine's device in fp32; only per-(step, channel)
 rows reach the host: once a step on the host-stepped path, once a chunk on
-the chunked one (the same numbers, fewer synchronizations).
+the chunked one (the same numbers, fewer synchronizations). Each target's
+copy to the device, each step's scoring and each copy of rows to the host is
+a profiler span (``swin/forecast/upload``, ``.../score``, ``.../flush``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from swin_v2_weather_torch.ops.metrics import weighted_acc, weighted_rmse
+from swin_v2_weather_torch.utils.profiling import span
 
 
 def acc_against_climatology(pred, target, climatology) -> torch.Tensor:
@@ -72,17 +75,21 @@ def score_rollout(
     pending = {"rmse": [], "acc": []}
 
     def score_one(pred, tar):
-        pred_phys = pred * stds_d + means_d
-        tar_phys = _on(tar, dev) * stds_d + means_d
-        pending["rmse"].append(weighted_rmse(pred_phys, tar_phys))
-        if clim is not None:
-            pending["acc"].append(weighted_acc(pred_phys - clim, tar_phys - clim))
+        with span("forecast/upload"):
+            tar_d = _on(tar, dev)
+        with span("forecast/score"):
+            pred_phys = pred * stds_d + means_d
+            tar_phys = tar_d * stds_d + means_d
+            pending["rmse"].append(weighted_rmse(pred_phys, tar_phys))
+            if clim is not None:
+                pending["acc"].append(weighted_acc(pred_phys - clim, tar_phys - clim))
 
     def flush():  # one device -> host copy of the rows scored since the last
-        for key, vals in pending.items():
-            if vals:
-                rows[key].extend(torch.stack(vals).cpu().numpy())
-                vals.clear()
+        with span("forecast/flush"):
+            for key, vals in pending.items():
+                if vals:
+                    rows[key].extend(torch.stack(vals).cpu().numpy())
+                    vals.clear()
 
     with torch.inference_mode():
         if scanned:

@@ -5,10 +5,11 @@ Counterpart of ``build_train_step`` / ``build_eval_step`` / ``state_shardings``
 of ``swin_v2_weather_tpu/training/step.py``. One train step is: preprocess ->
 forward with ``train=True`` (drop-path live) -> output cast to fp32 -> loss *
 loss_scale -> backward -> the global gradient norm and one per top-level
-module -> the optimizer update. Unlike the JAX step, which returns a new
-state, this one updates the model's parameters and the optimizer's moments
-in place. Metrics come back as device tensors and the step performs no host
-sync: the caller reads them when it logs.
+module -> the optimizer update, each phase in a profiler span
+``swin/train/<phase>`` (``utils/profiling.span``). Unlike the JAX step, which
+returns a new state, this one updates the model's parameters and the
+optimizer's moments in place. Metrics come back as device tensors and the step
+performs no host sync: the caller reads them when it logs.
 
 The parallel layout (:func:`shard_state`, the counterpart of
 ``state_shardings``; it needs the mesh of ``parallel/mesh.py``, so a process
@@ -64,6 +65,7 @@ from swin_v2_weather_torch.training.optim import (
     local_part,
     optimizer_spec,
 )
+from swin_v2_weather_torch.utils.profiling import span
 
 def grad_norms(model: nn.Module, group=None) -> Dict[str, torch.Tensor]:
     """The global gradient norm and the norm of each top-level module's
@@ -220,14 +222,20 @@ def build_train_step(
         loss_scale = 1.0 / layout.coords.dp
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        inp, tar, tzen = preprocessor(batch)
+        with span("train/preprocess"):
+            inp, tar, tzen = preprocessor(batch)
         optimizer.zero_grad(set_to_none=True)
-        gen = layout.apply(inp, tzen, train=True, generator=generator).float()
-        loss = loss_handler(gen, tar, inp) * loss_scale
-        loss.backward()
-        metrics = {"loss": layout.sum_over_data(loss.detach()),
-                   **grad_norms(model, layout.norm_group)}
-        optimizer.step()
+        with span("train/forward"):
+            gen = layout.apply(inp, tzen, train=True, generator=generator).float()
+        with span("train/loss"):
+            loss = loss_handler(gen, tar, inp) * loss_scale
+        with span("train/backward"):
+            loss.backward()
+        with span("train/grad_norms"):
+            metrics = {"loss": layout.sum_over_data(loss.detach()),
+                       **grad_norms(model, layout.norm_group)}
+        with span("train/optimizer"):
+            optimizer.step()
         return metrics
 
     return step

@@ -322,7 +322,7 @@ class Trainer:
             ),
         )
         self.profiler = StepProfiler(params, exp_dir, enabled=self.is_chief)
-        self.step_timer = StepTimer()
+        self.step_timer = StepTimer(self.device)
         self.ckpt_writer = ckpt.CheckpointWriter() if params.save_checkpoint else None
 
         if self.log_to_screen:
